@@ -9,11 +9,24 @@ non-zero, printing no result, when either is missing or any phase fails.
    CUDA versions, and builds every CUDA kernel of the port from the
    checkout's sources (one nvcc per source, all started together).
 2. Holds each kernel against its plain PyTorch version on the card, fp32
-   with TF32 off, at full GeeseNet width (Cin=17, F=32, L=12, 8 groups) on
-   real Hungry Geese observations, N in {1, 8, 64, 100}, and times the
-   kernel, the plain version and one library yardstick (the port's own
-   ``torus_impl='pad'`` trunk: cuDNN convs and torch's group_norm, which
-   the kernel path never calls).
+   with TF32 off, and times the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call:
+   - K1, the trunk forward, at full GeeseNet width (Cin=17, F=32, L=12,
+     8 groups) on real Hungry Geese observations, N in {1, 8, 64, 100,
+     2048}; the library yardstick is the port's own ``torus_impl='pad'``
+     trunk (cuDNN convs and torch's group_norm, which the kernel path never
+     calls);
+   - K2, the trunk backward, at the same width for N in {8, 64, 2048},
+     from K1's training forward, every grad against the plain version's
+     relative to the grad's largest element; the yardstick is torch
+     autograd's backward through the 'pad' trunk;
+   - K1 and K2 at the other width they are built for, F=16 (2 blocks,
+     N=64), for correctness only;
+   - K3-K5, the TD(lambda), UPGO and V-Trace recursions, at (T=16, N)
+     lanes (N = B*P) for N in {16, 100, 128, 2048}: 128 is the headline
+     step's (B=128, P=1) and the row the kernels line reports, 16 the
+     in-process steps', 100 a ragged edge; no single PyTorch call
+     computes a recursion, so they have no yardstick.
 3. The main path, through the entry points a user calls: publishes a
    full-width GeeseNet(torus_impl='pallas') with seeded weights into a
    temporary registry, starts ``python -m handyrl_tpu_torch.serving`` on
@@ -25,7 +38,17 @@ non-zero, printing no result, when either is missing or any phase fails.
    unless all are 0) and just after (failing unless each kernel of the
    path launched), then SIGTERMs the service and expects exit 75. The
    comparison launches of phase 2 run in this process and never count.
-4. Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
+4. The training path, through its entry point: runs
+   ``python -m handyrl_tpu_torch.bench --device cuda`` (the headline
+   update step, B=128, T=16, full width, TD/TD; a fresh process whose
+   counts start at 0 and are set to 0 again before its first step), reads
+   its JSON line and fails unless the losses are finite and K1, K2 and K3
+   launched at least once a step. Then, in this process with every count
+   set to 0 just before, one headline step at B=16 on the card is held
+   against the same step of the port on the CPU (same weights, same
+   batch: loss terms, grad norm, params and Adam's first moment by leaf),
+   and the same for the UPGO/VTRACE step, which must launch K4 and K5.
+5. Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
    as the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -41,14 +64,42 @@ import time
 
 SEED = 20261016
 WIDTH = dict(cin=17, filters=32, layers=12, groups=8)
-KERNEL_NS = (1, 8, 64, 100)
+KERNEL_NS = (1, 8, 64, 100, 2048)
 MAIN_PATH_N = 8          # four geese per ply, padded to the engine's bucket
+TRAIN_N = 2048           # B*T*P of the headline update step
+BWD_NS = (8, 64, 2048)
+TARGET_T, TARGET_NS = 16, (16, 100, 128, 2048)
+TARGET_PATH_N = 128     # lanes B*P of the headline step's targets
+STEP_B = 16              # the in-process card-vs-CPU update step
 # Tolerances, fp32 throughout with TF32 off: the kernel, the plain version
 # and cuDNN sum the 9 taps and the GroupNorm statistics in different
 # orders, and 13 normalised layers carry the difference (about 1e-5 at
 # full width); the bounds leave an order of magnitude above that.
 TOL = 2e-4               # max abs error of the trunk, kernel vs plain
 POLICY_TOL = 1e-4        # served policy and value vs the local 'pad' forward
+# K2: each grad's max abs error over its largest element. The kernel and
+# the plain version sum the weight grads over N*77 pixels and the
+# GroupNorm statistics in other orders; 1e-6 of the largest element is
+# what that gives at full width, the bound leaves two orders above it.
+BWD_TOL = 1e-4
+# K3-K5: fp32 recursions of 16 steps on O(1) inputs; the kernel fuses
+# multiply-adds the plain version rounds twice (about 1e-6 seen).
+TARGET_TOL = 1e-4
+# The update step on the card against the same step on the CPU (fp32 sums in
+# other orders): each loss term within STEP_RTOL of the larger of |total|,
+# |v| and 1 (p and ent are sums of terms of both signs, near 0 on this
+# batch, so their own size is no scale); the pre-clip grad norm within
+# STEP_NORM_RTOL of itself; the parameter update within 2 lr everywhere
+# (Adam's first step is g / (|g| + 1e-8): an element whose grad rounds
+# across 0 may move the other way) and within STEP_UPDATE_RTOL of the
+# CPU's update in L2 norm. Those see the update's sign more than its size,
+# so Adam's first moment after the step (0.1 x the clipped, decayed grad) is
+# also held leaf by leaf: its max abs difference over the CPU's largest
+# element of that leaf within STEP_MU_RTOL.
+STEP_RTOL = 1e-4
+STEP_NORM_RTOL = 1e-3
+STEP_UPDATE_RTOL = 1e-2
+STEP_MU_RTOL = 1e-3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 PEAK_SOURCE = 'H100 SXM data sheet at 700 W'
@@ -83,6 +134,33 @@ def cuda_time_ms(torch, fn, reps):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_time_ms(torch, fn, reps):
+    """Device time of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph and replayed, timed with CUDA events. For kernels that take
+    less time on the card than their wrapper takes on the host, where
+    :func:`cuda_time_ms` would time the host."""
+    fn()
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):   # warm up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -134,10 +212,9 @@ def trunk_bound_ms(n, cin, filters, layers):
             'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
 
 
-def phase_kernels(torch, geese_trunk, GeeseNet, make_env):
-    """K1 against its plain version and the library yardstick."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+def trunk_net(torch, GeeseNet):
+    """A full-width 'pad' GeeseNet on the card with seeded weights, the
+    norm's scale and bias random too, and its trunk operands."""
     gen = torch.Generator().manual_seed(SEED)
     net = GeeseNet(filters=WIDTH['filters'], layers=WIDTH['layers'],
                    torus_impl='pad', generator=gen)
@@ -147,8 +224,15 @@ def phase_kernels(torch, geese_trunk, GeeseNet, make_env):
         for p in (net.stem_bias, net.block_bias):
             p.normal_(0.0, 0.1, generator=gen)
     net = net.cuda().eval()
-    weights = (net.stem_w, net.stem_scale, net.stem_bias, net.block_w,
-               net.block_scale, net.block_bias)
+    return net, (net.stem_w, net.stem_scale, net.stem_bias, net.block_w,
+                 net.block_scale, net.block_bias)
+
+
+def phase_kernels(torch, geese_trunk, GeeseNet, make_env):
+    """K1 against its plain version and the library yardstick."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net, weights = trunk_net(torch, GeeseNet)
     import numpy as np
     all_obs = np.stack(game_observations(make_env, max(KERNEL_NS), SEED))
     rows = {}
@@ -193,6 +277,171 @@ def phase_kernels(torch, geese_trunk, GeeseNet, make_env):
             if not err <= TOL:
                 fail('geese_trunk disagrees with its plain version at N=%d: '
                      'max abs err %.3g > %.0e' % (n, err, TOL))
+    return rows
+
+
+def bwd_bound_ms(n, cin, filters, layers):
+    """Least time for K2 at batch n as the update step calls it (no dx):
+    the convs recomputed, the blocks' transposed convs and the weight
+    products, over the fp32 peak; against the bytes of x, the block inputs,
+    y, dy and the weights read once and the grads written once."""
+    per_row = 2 * 77 * 9 * (cin * filters + layers * filters * filters)
+    flops = n * (2 * per_row + 2 * 77 * 9 * layers * filters * filters)
+    weights = 9 * cin * filters + layers * 9 * filters * filters \
+        + 2 * filters * (layers + 1)
+    nbytes = 4 * (n * 77 * (cin + (layers + 2) * filters) + 2 * weights)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
+
+
+def phase_backward(torch, geese_trunk, GeeseNet, make_env):
+    """K2 against its plain version and torch autograd's backward through
+    the 'pad' trunk."""
+    import numpy as np
+    net, weights = trunk_net(torch, GeeseNet)
+    all_obs = np.stack(game_observations(make_env, max(BWD_NS), SEED + 2))
+    gen = torch.Generator().manual_seed(SEED + 3)
+    names = ('dx', 'd_stem_w', 'd_stem_scale', 'd_stem_bias', 'd_block_w',
+             'd_block_scale', 'd_block_bias')
+    L, F = WIDTH['layers'], WIDTH['filters']
+    rows = {}
+    for n in BWD_NS:
+        x = torch.from_numpy(all_obs[:n]).cuda().permute(0, 2, 3, 1) \
+            .contiguous()
+        dy = torch.randn(n, 7, 11, F, generator=gen).cuda()
+        with torch.no_grad():
+            acts = torch.empty(n, L, 7, 11, F, device=x.device)
+            y = geese_trunk.trunk_forward(x, *weights, groups=WIDTH['groups'],
+                                          acts=acts)
+
+            def kernel(need_dx=False):
+                return geese_trunk.trunk_backward(
+                    x, *weights, dy, groups=WIDTH['groups'], need_dx=need_dx,
+                    acts=acts, y=y)
+
+            def plain():
+                return geese_trunk.trunk_backward_reference(
+                    x, *weights, dy, groups=WIDTH['groups'], need_dx=False,
+                    acts=acts, y=y)
+
+            got = kernel(need_dx=True)
+            torch.cuda.synchronize()
+            ref = geese_trunk.trunk_backward_reference(
+                x, *weights, dy, groups=WIDTH['groups'], acts=acts, y=y)
+            errs = {}
+            for name, g, r in zip(names, got, ref):
+                if not bool(torch.isfinite(g).all().item()):
+                    fail('geese_trunk_bwd: non-finite %s at N=%d' % (name, n))
+                errs[name] = ((g - r).abs().max() / r.abs().max()).item()
+            ms = cuda_time_ms(torch, kernel, 20)
+            plain_ms = cuda_time_ms(torch, plain, 5)
+        # the yardstick: autograd through the cuDNN trunk, backward only
+        with torch.enable_grad():
+            yp = net.trunk(x)
+            library_ms = cuda_time_ms(torch, lambda: torch.autograd.grad(
+                yp, weights, dy, retain_graph=True), 5)
+        del yp
+        bound, bound_by, flops, nbytes = bwd_bound_ms(
+            n, WIDTH['cin'], F, L)
+        err = max(errs.values())
+        rows[n] = {'n': n, 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                   'library_ms': library_ms, 'bound_ms': bound,
+                   'bound_by': bound_by, 'flops': flops, 'bytes': nbytes}
+        log('geese_trunk_bwd N=%-4d max err / max |grad| %.3g (tol %.0e; %s)'
+            '  kernel %.4f ms  plain %.4f ms  library %.4f ms  bound %.4f '
+            'ms (%s)' % (n, err, BWD_TOL, ', '.join(
+                '%s %.2g' % kv for kv in errs.items()), ms, plain_ms,
+                library_ms, bound, bound_by))
+        if not err <= BWD_TOL:
+            fail('geese_trunk_bwd disagrees with its plain version at N=%d'
+                 % n)
+    return rows
+
+
+def phase_narrow(torch, geese_trunk, n=64, filters=16, layers=2):
+    """K1 and K2 at the kernels' other width, F=16 (no main path runs it
+    yet), against their plain versions; correctness only."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(*shape, generator=gen)).cuda()
+    cin, groups = WIDTH['cin'], min(8, filters)
+    weights = (rand(3, 3, cin, filters, scale=(9 * cin) ** -0.5),
+               rand(filters, scale=0.2, shift=1.0), rand(filters, scale=0.1),
+               rand(layers, 3, 3, filters, filters,
+                    scale=(9 * filters) ** -0.5),
+               rand(layers, filters, scale=0.2, shift=1.0),
+               rand(layers, filters, scale=0.1))
+    x, dy = rand(n, 7, 11, cin), rand(n, 7, 11, filters)
+    with torch.no_grad():
+        acts = torch.empty(n, layers, 7, 11, filters, device='cuda')
+        y = geese_trunk.trunk_forward(x, *weights, groups=groups, acts=acts)
+        y_err = (y - geese_trunk.trunk_forward_reference(
+            x, *weights, groups=groups)).abs().max().item()
+        got = geese_trunk.trunk_backward(x, *weights, dy, groups=groups,
+                                         acts=acts, y=y)
+        ref = geese_trunk.trunk_backward_reference(x, *weights, dy,
+                                                   groups=groups, acts=acts,
+                                                   y=y)
+        g_err = max(((g - r).abs().max() / r.abs().max()).item()
+                    for g, r in zip(got, ref))
+    log('F=%d L=%d N=%d: geese_trunk max_abs_err %.3g (tol %.0e), '
+        'geese_trunk_bwd max err / max |grad| %.3g (tol %.0e)' % (
+            filters, layers, n, y_err, TOL, g_err, BWD_TOL))
+    if not (y_err <= TOL and g_err <= BWD_TOL):
+        fail('the F=%d kernels disagree with their plain versions' % filters)
+
+
+def target_bound_ms(kind, T, n):
+    """Least time for K3-K5 at (T, n): bytes only (a few flops a step):
+    values, rewards, lambda (and rhos, cs for V-Trace) read once, the
+    bootstrap row, targets and advantages written once."""
+    reads = 5 if kind == 'vtrace' else 3
+    nbytes = 4 * ((reads + 2) * T * n + n)
+    return 1e3 * nbytes / PEAK_BYTES, 'bytes', nbytes
+
+
+def phase_targets(torch, targets):
+    """K3-K5 against their plain versions at (T=16, N)."""
+    import numpy as np
+    rows = {}
+    for n in TARGET_NS:
+        rng = np.random.RandomState(SEED + n)
+        shape = (n, TARGET_T, 1, 1)
+
+        def arr(a):
+            return torch.from_numpy(a.astype(np.float32)).cuda()
+        values = arr(rng.uniform(-1, 1, shape))
+        returns = arr(np.sign(rng.randn(n, 1, 1, 1)))
+        rewards = arr(0.1 * rng.randn(*shape))
+        lam = arr(0.95 + 0.05 * (rng.rand(*shape) < 0.2))
+        rhos = arr(rng.uniform(0, 1, shape))
+        cs = arr(rng.uniform(0, 1, shape))
+        for kind in ('td_lambda', 'upgo', 'vtrace'):
+            args = (values, returns, rewards, lam, 0.99) + (
+                (rhos, cs) if kind == 'vtrace' else ())
+            kernel = getattr(targets, kind + '_kernel')
+            plain = getattr(targets, kind)
+            got, ref = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+            finite = all(bool(torch.isfinite(g).all().item()) for g in got)
+            ms = graph_time_ms(torch, lambda: kernel(*args), 100)
+            call_ms = cuda_time_ms(torch, lambda: kernel(*args), 200)
+            plain_ms = cuda_time_ms(torch, lambda: plain(*args), 50)
+            bound, bound_by, nbytes = target_bound_ms(kind, TARGET_T, n)
+            rows[(kind, n)] = {'n': n, 'max_abs_err': err, 'ms': ms,
+                               'call_ms': call_ms, 'plain_ms': plain_ms,
+                               'library_ms': None, 'bound_ms': bound,
+                               'bound_by': bound_by, 'bytes': nbytes}
+            log('%-9s T=%d N=%-4d max_abs_err %.3g (tol %.0e)  kernel %.4f '
+                'ms on the card (%.4f ms a call through the wrapper)  plain '
+                '%.4f ms  bound %.5f ms (bytes)' % (
+                    kind, TARGET_T, n, err, TARGET_TOL, ms, call_ms,
+                    plain_ms, bound))
+            if not finite or not err <= TARGET_TOL:
+                fail('%s disagrees with its plain version at N=%d' % (kind, n))
     return rows
 
 
@@ -369,6 +618,174 @@ def phase_main_path(torch, repo):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def run_bench_entry(repo):
+    """``python -m handyrl_tpu_torch.bench --device cuda``: its one JSON
+    line, checked."""
+    import math
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'handyrl_tpu_torch.bench', '--device', 'cuda'],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail('the bench entry exited %d:\n%s' % (proc.returncode,
+                                                 proc.stderr[-4000:]))
+    lines = [l for l in proc.stdout.splitlines() if l.startswith('{')]
+    if len(lines) != 1:
+        fail('the bench entry printed %d JSON lines' % len(lines))
+    line = json.loads(lines[0])
+    launches, steps = line['kernel_launches'], line['steps_run']
+    log('bench: %.1f trajectories/s, step %.3f ms over %d timed steps '
+        '(host clock, %s, %s) in %.1f s; losses %s; grad norm %.4g; kernel '
+        'launches over %d steps %s' % (
+            line['value'], line['step_ms'], line['timed_steps'],
+            line['device'], line['compute_dtype'], time.monotonic() - t0,
+            line['losses'], line['grad_norm'], steps, launches))
+    if not all(math.isfinite(v) for v in line['losses'].values()):
+        fail('the bench entry reports non-finite losses: %s' % line['losses'])
+    if line['nonfinite'] != 0:
+        fail('the bench entry hit the non-finite guard')
+    for name in ('geese_trunk', 'geese_trunk_bwd', 'td_lambda'):
+        if launches[name] < steps:
+            fail('the bench entry launched %s %d times in %d steps'
+                 % (name, launches[name], steps))
+    return line
+
+
+def update_step(torch, device, policy_target, value_target, obs):
+    """One headline update step at B=STEP_B on ``device``, from the seeded
+    weights and batch of the bench entry with ``obs`` (B, T, 1, 17, 7, 11)
+    for its observations: (params before, params after, Adam's
+    first moment after, metrics), the tensors on the CPU."""
+    from handyrl_tpu_torch import bench
+    from handyrl_tpu_torch.ops.train_step import build_update_step
+    net, cfg, batch, state = bench.headline_setup(
+        device, B=STEP_B, policy_target=policy_target,
+        value_target=value_target)
+    batch['observation'] = torch.from_numpy(obs).to(device)
+    new, metrics = build_update_step(net, cfg)(
+        state, batch, torch.tensor(bench.LR, device=device))
+    return ({k: v.cpu() for k, v in state.params.items()},
+            {k: v.cpu() for k, v in new.params.items()},
+            {k: v.cpu() for k, v in new.opt_state.mu.items()},
+            {k: float(v) for k, v in metrics.items()})
+
+
+def phase_training(torch, repo, make_env):
+    import numpy as np
+    from handyrl_tpu_torch.bench import LR
+    from handyrl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    out = {'bench': run_bench_entry(repo)}
+    # the bench's uniform-noise planes saturate the full-width net (tanh
+    # values of exactly +-1, logits in the hundreds: every grad is 0), so
+    # the card-vs-CPU step runs on real boards, where the grads are not
+    obs = np.stack(game_observations(make_env, STEP_B * 16, SEED + 4))
+    obs = obs.reshape(STEP_B, 16, 1, 17, 7, 11)
+    for pt, vt, path in (('TD', 'TD', ('geese_trunk', 'geese_trunk_bwd',
+                                        'td_lambda')),
+                         ('UPGO', 'VTRACE', ('geese_trunk', 'geese_trunk_bwd',
+                                             'upgo', 'vtrace'))):
+        reset_kernel_launches()
+        old, new, mu, m = update_step(torch, 'cuda', pt, vt, obs)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        _, cpu_new, cpu_mu, cm = update_step(torch, 'cpu', pt, vt, obs)
+        terms = ('total', 'p', 'v', 'ent', 'diag_grad_norm', 'data_count')
+        scale = max(abs(cm['total']), abs(cm['v']), 1.0)
+        errs = {k: abs(m[k] - cm[k]) / scale / STEP_RTOL
+                for k in ('total', 'p', 'v', 'ent')}
+        errs['diag_grad_norm'] = (abs(m['diag_grad_norm'] - cm['diag_grad_norm'])
+                                  / max(cm['diag_grad_norm'], 1e-30)
+                                  / STEP_NORM_RTOL)
+        errs['data_count'] = abs(m['data_count'] - cm['data_count'])
+        step_max = max((new[k] - cpu_new[k]).abs().max().item() for k in new)
+        diff = sum(((new[k] - cpu_new[k]) ** 2).sum().item() for k in new)
+        upd = sum(((cpu_new[k] - old[k]) ** 2).sum().item() for k in new)
+        update_rel = (diff / upd) ** 0.5
+        mu_rel = {k: ((mu[k] - cpu_mu[k]).abs().max()
+                      / cpu_mu[k].abs().max().clamp_min(1e-30)).item()
+                  for k in mu}
+        mu_worst = sorted(mu_rel.items(), key=lambda kv: -kv[1])
+        log('step %s/%s B=%d card vs CPU: %s; params max abs diff %.3g (tol '
+            '2 lr = %.0e), update L2 rel diff %.3g (tol %.0e); nonfinite %g; '
+            'kernel launches %s' % (
+                pt, vt, STEP_B, ', '.join('%s %.6g/%.6g' % (k, m[k], cm[k])
+                                          for k in terms),
+                step_max, 2 * LR, update_rel, STEP_UPDATE_RTOL,
+                m['nonfinite'], launches))
+        log('step %s/%s B=%d card vs CPU: Adam mu max abs diff / max |mu| '
+            'by leaf, worst first (tol %.0e): %s' % (
+                pt, vt, STEP_B, STEP_MU_RTOL,
+                ', '.join('%s %.3g' % kv for kv in mu_worst)))
+        if m['nonfinite'] or cm['nonfinite']:
+            fail('the %s/%s step hit the non-finite guard' % (pt, vt))
+        bad = [k for k, e in errs.items() if not e <= 1]
+        if bad:
+            fail('the %s/%s step on the card disagrees with the CPU in %s'
+                 % (pt, vt, bad))
+        if not (step_max <= 2 * LR and update_rel <= STEP_UPDATE_RTOL):
+            fail('the %s/%s step on the card moves the params unlike the CPU'
+                 % (pt, vt))
+        if not mu_worst[0][1] <= STEP_MU_RTOL:
+            fail('the %s/%s step on the card gives Adam moments unlike the '
+                 'CPU in %s' % (pt, vt, [k for k, e in mu_worst
+                                         if not e <= STEP_MU_RTOL]))
+        if not cm['diag_grad_norm'] > 0:
+            fail('the %s/%s step has no gradient to compare' % (pt, vt))
+        missing = [k for k in path if launches[k] < 1]
+        if missing:
+            fail('the %s/%s step never launched %s' % (pt, vt, missing))
+        out[(pt, vt)] = launches
+    out['profile'] = profile_step(torch)
+    return out
+
+
+def profile_step(torch, steps=5):
+    """Device time by kernel over ``steps`` headline update steps (B=128,
+    T=16) under torch.profiler, and the device's busy share of the window
+    (the profiler's own host cost lengthens the window, so the idle share
+    is an upper bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from handyrl_tpu_torch import bench
+    from handyrl_tpu_torch.ops.train_step import build_update_step
+    net, cfg, batch, state = bench.headline_setup('cuda')
+    update = build_update_step(net, cfg)
+    lr = torch.tensor(bench.LR, device='cuda')
+    for _ in range(3):
+        state, metrics = update(state, batch, lr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, metrics = update(state, batch, lr)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+
+    def device_us(e):
+        return getattr(e, 'self_device_time_total',
+                       getattr(e, 'self_cuda_time_total', 0)) or 0
+    # the kernels' own rows (the host ops' rows repeat their kernels' time)
+    rows = sorted(((device_us(e) / 1e3 / steps, e.count // steps, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    step_ms = wall_ms / steps
+    launches = sum(r[1] for r in rows)
+    log('profile: %d steps, %.3f ms a step on the host clock (profiled), '
+        'device busy %.3f ms a step (%.1f%%), %d kernel launches a step '
+        'of %d kernels' % (steps, step_ms, busy, 100 * busy / step_ms,
+                           launches, len(rows)))
+    for ms, count, key in rows[:10]:
+        log('  %8.4f ms a step  %4d launches a step  %s' % (ms, count,
+                                                             key[:90]))
+    return {'step_ms_profiled': step_ms, 'device_busy_ms': busy,
+            'launches_per_step': launches,
+            'top': [{'kernel': k[:120], 'ms_per_step': ms,
+                     'launches_per_step': c} for ms, c, k in rows[:10]]}
+
+
 def main():
     try:
         import torch
@@ -383,7 +800,7 @@ def main():
     sys.path.insert(0, repo)
     from handyrl_tpu_torch.environment import make_env
     from handyrl_tpu_torch.models.geese import GeeseNet
-    from handyrl_tpu_torch.ops import cuda_build, geese_trunk
+    from handyrl_tpu_torch.ops import cuda_build, geese_trunk, targets
 
     t_start = time.monotonic()
     smi = nvidia_smi_line()
@@ -396,25 +813,57 @@ def main():
 
     log('== phase 2: kernels against their plain versions')
     rows = phase_kernels(torch, geese_trunk, GeeseNet, make_env)
+    bwd_rows = phase_backward(torch, geese_trunk, GeeseNet, make_env)
+    phase_narrow(torch, geese_trunk)
+    target_rows = phase_targets(torch, targets)
 
     log('== phase 3: main path (serving)')
     launches = phase_main_path(torch, repo)
 
-    main_row = rows[MAIN_PATH_N]
-    kernels = [{
-        'name': 'geese_trunk', 'route': 'cuda',
-        'source': 'handyrl_tpu_torch/csrc/geese_trunk.cu',
-        'replaces': 'handyrl_tpu/ops/pallas_geese.py:108',
-        'launches': launches['geese_trunk'],
-        'max_abs_err': max(r['max_abs_err'] for r in rows.values()),
-        'ms': main_row['ms'], 'plain_ms': main_row['plain_ms'],
-        'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
-        'library_ms': main_row['library_ms'],
-        'n': MAIN_PATH_N, 'peaks': PEAK_SOURCE,
-        'by_n': {str(n): {k: r[k] for k in ('max_abs_err', 'ms', 'plain_ms',
-                                            'library_ms', 'bound_ms')}
-                 for n, r in rows.items()},
-    }]
+    log('== phase 4: main path (training)')
+    train = phase_training(torch, repo, make_env)
+
+    # launches on each main path: serving, the bench entry, the two
+    # in-process steps (each run with the counts at 0 just before)
+    paths = {'serving': launches,
+             'bench_td_td': train['bench']['kernel_launches'],
+             'step_td_td': train[('TD', 'TD')],
+             'step_upgo_vtrace': train[('UPGO', 'VTRACE')]}
+
+    def entry(name, source, replaces, main_row, by_n, **extra):
+        row = {'name': name, 'route': 'cuda',
+               'source': 'handyrl_tpu_torch/csrc/' + source,
+               'replaces': replaces,
+               'launches': sum(p.get(name, 0) for p in paths.values()),
+               'launches_by_path': {k: p.get(name, 0)
+                                    for k, p in paths.items()},
+               'max_abs_err': max(r['max_abs_err'] for r in by_n.values()),
+               'peaks': PEAK_SOURCE}
+        row.update({k: main_row[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                             'bound_by', 'library_ms', 'n')})
+        row['by_n'] = {str(n): {k: r[k] for k in (
+            'max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms')}
+            for n, r in by_n.items()}
+        row.update(extra)
+        return row
+
+    kernels = [
+        entry('geese_trunk', 'geese_trunk.cu',
+              'handyrl_tpu/ops/pallas_geese.py:108', rows[MAIN_PATH_N], rows),
+        entry('geese_trunk_bwd', 'geese_trunk.cu',
+              'handyrl_tpu/ops/pallas_geese.py:115', bwd_rows[TRAIN_N],
+              bwd_rows, max_abs_err_is='relative to each grad\'s largest '
+              'element'),
+    ]
+    for name, line in (('td_lambda', 129), ('upgo', 138), ('vtrace', 149)):
+        by_n = {n: target_rows[(name, n)] for n in TARGET_NS}
+        kernels.append(entry(
+            name, 'targets.cu', 'handyrl_tpu/ops/pallas_targets.py:%d' % line,
+            by_n[TARGET_PATH_N], by_n, T=TARGET_T,
+            library_ms_none='no single PyTorch call computes the recursion'))
+    bench_line = train['bench']
+    log('training path: %.1f trajectories/s, %.3f ms a step (B=128, T=16, '
+        'fp32, host clock)' % (bench_line['value'], bench_line['step_ms']))
     log('total %.1f s' % (time.monotonic() - t_start))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)

@@ -177,7 +177,8 @@ trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
                  const float* __restrict__ block_w,
                  const float* __restrict__ block_scale,
                  const float* __restrict__ block_bias, float* __restrict__ out,
-                 int cin, int layers, int groups, float eps) {
+                 float* __restrict__ saved, int cin, int layers, int groups,
+                 float eps) {
   using S = Shape<F>;
   extern __shared__ __align__(16) float smem[];
   const int cinp = round4(cin);
@@ -281,10 +282,15 @@ trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
           fmaxf(old.y + fmaf(acc[k][1], mul[1], add[1]), 0.f),
           fmaxf(old.z + fmaf(acc[k][2], mul[2], add[2]), 0.f),
           fmaxf(old.w + fmaf(acc[k][3], mul[3], add[3]), 0.f));
-      if (layer == layers)
+      if (layer == layers) {
         reinterpret_cast<float4*>(on + pix[k] * F)[q] = h;
-      else
+      } else {
         *hp = h;
+        if (saved)   // training: keep block layer+1's input for K2
+          reinterpret_cast<float4*>(
+              saved + ((static_cast<size_t>(blockIdx.x) * layers + layer) *
+                           kPix + pix[k]) * F)[q] = h;
+      }
     }
     cp_async_wait_all();
     __syncthreads();   // hs and the next layer's weights are complete
@@ -295,8 +301,8 @@ template <int F>
 cudaError_t launch(const float* x, const float* stem_w, const float* stem_scale,
                    const float* stem_bias, const float* block_w,
                    const float* block_scale, const float* block_bias,
-                   float* out, int n, int cin, int layers, int groups,
-                   float eps, cudaStream_t stream) {
+                   float* out, float* saved, int n, int cin, int layers,
+                   int groups, float eps, cudaStream_t stream) {
   using S = Shape<F>;
   const int cinp = round4(cin);
   const int cmax = cinp > F ? cinp : F;
@@ -310,7 +316,496 @@ cudaError_t launch(const float* x, const float* stem_w, const float* stem_scale,
   if (err != cudaSuccess) return err;
   trunk_fwd_kernel<F><<<n, S::kThreads, smem, stream>>>(
       x, stem_w, stem_scale, stem_bias, block_w, block_scale, block_bias, out,
-      cin, layers, groups, eps);
+      saved, cin, layers, groups, eps);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ K2
+//
+// The trunk's backward: dx (optional) and the grads of every layer's conv
+// weights, GroupNorm scale and bias, in three launches.
+//
+// Replaces the TPU kernel handyrl_tpu/ops/pallas_geese.py:_bwd_kernel, which
+// recomputed the tile forward in VMEM, transposed it with jax.vjp and added
+// the weight grads of each batch tile into one output across the
+// sequential grid. On the card blocks run in no order, so the work is split
+// by what it reduces over:
+//
+//  A. trunk_bwd_kernel, one block per sample (as K1), walks the layers from
+//     the top down. Each layer's input comes from memory: the training
+//     forward of K1 saved the 12 block inputs (N x 12 x 77 x F fp32, 242 MB
+//     at N=2048; cheaper than a second forward, and 80 GB has room), the
+//     stem's is x. From it the block recomputes the conv and the GroupNorm
+//     statistics (the same code as K1). The ReLU masks are read from the
+//     saved outputs (the next block's input, y for the top block), not
+//     recomputed: a pre-activation within rounding of 0 would flip between
+//     any two computations of the forward, and the mask then decides a
+//     whole element of the gradient. Then, in registers: the GroupNorm
+//     backward (per-channel sums of g and g*xhat reduced like K1's
+//     statistics), dc = d(conv output), and the transposed conv (taps
+//     flipped through the same wrapped-neighbour table) into the next
+//     layer's dh, which stays in shared memory. dc of
+//     every layer goes to memory (N x 13 x 77 x F), and so do the sample's
+//     scale and bias grads (N x 13 x 2F).
+//  B. trunk_wgrad_kernel, one block per (layer, group of kChunk samples):
+//     dW[t][ci][f] = sum over the group's samples and pixels p of
+//     in[nbr(p, t)][ci] * dc[p][f], each thread a 4 x 8 register tile of
+//     (ci, f) for one tap, plus the group's scale and bias sums. One
+//     partial row per group.
+//  C. column_sum adds the partial rows in group order: the result does not
+//     depend on the order in which blocks ran.
+//
+// Bound: operations. Per sample, A recomputes the convs (17.8 MFLOP) and
+// runs the transposed convs (17.0 MFLOP, the stem's only when dx is
+// asked for), B the weight products (17.8 MFLOP): about 3x K1, 106 GFLOP
+// at N=2048, 1.6 ms at 67 TFLOP/s fp32. The bytes (block inputs and dc
+// written and read once: about 1 GB at N=2048) take 0.3 ms at 3.35 TB/s.
+// Known limit of this first version: the transposed conv reads weight rows
+// 4q..4q+3 across the warp at a stride of 4F floats, a 4-way shared-memory
+// bank conflict; the forward layout is kept so that one staged copy of the
+// weights serves both convs.
+
+constexpr int kChunk = 16;   // samples per partial row of B
+
+// Group sums of v (F floats in shared memory) for this thread's 4
+// channels: channels of one group share one sum.
+template <int F>
+__device__ __forceinline__ void group_sums_of(const float* v, int q, int cpg,
+                                              float (&out)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int g = (4 * q + j) / cpg;
+    float s = 0.f;
+    for (int c = 0; c < cpg; ++c) s += v[g * cpg + c];
+    out[j] = s;
+  }
+}
+
+// The transposed 3x3 torus conv for output channels 4*oq..4*oq+3 (the
+// layer's input channels) at this thread's pixels: sum over taps t and
+// conv channels f of dc[nbr(p, 8 - t)][f] * W[t][ci][f]. ws holds the
+// layer's weights as (9, cp, F).
+template <int F>
+__device__ __forceinline__ void conv_transpose(const float* dcs, int stride,
+                                               const float* ws, int cp, int oq,
+                                               const int* nbr,
+                                               const int (&pix)[kPPT],
+                                               float (&acc)[kPPT][4]) {
+#pragma unroll
+  for (int k = 0; k < kPPT; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
+  for (int t = 0; t < kTaps; ++t) {
+    const float* src[kPPT];
+#pragma unroll
+    for (int k = 0; k < kPPT; ++k)
+      src[k] = dcs + nbr[pix[k] * kTaps + (kTaps - 1 - t)] * stride;
+    const float* wt = ws + (t * cp + 4 * oq) * F;
+#pragma unroll
+    for (int f = 0; f < F; f += 4) {
+      float4 w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w[j] = *reinterpret_cast<const float4*>(wt + j * F + f);
+#pragma unroll
+      for (int k = 0; k < kPPT; ++k) {
+        const float4 v = *reinterpret_cast<const float4*>(src[k] + f);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[k][j] = fmaf(v.x, w[j].x, acc[k][j]);
+          acc[k][j] = fmaf(v.y, w[j].y, acc[k][j]);
+          acc[k][j] = fmaf(v.z, w[j].z, acc[k][j]);
+          acc[k][j] = fmaf(v.w, w[j].w, acc[k][j]);
+        }
+      }
+    }
+  }
+}
+
+// Stage layer l's weights (0 = the stem, padded to cinp rows whose extra
+// rows are zeroed here) into ws; complete after cp_async_wait_all and a
+// barrier.
+template <int F>
+__device__ void stage_layer(float* ws, int l, const float* stem_w,
+                            const float* block_w, int cin, int cinp) {
+  if (l == 0) {
+    stage_weights<F>(ws, stem_w, cin, cinp);
+    for (int i = threadIdx.x; i < kTaps * (cinp - cin) * F;
+         i += Shape<F>::kThreads) {
+      const int f = i % F, rest = i / F;
+      ws[((rest / (cinp - cin)) * cinp + cin + rest % (cinp - cin)) * F + f] =
+          0.f;
+    }
+  } else {
+    stage_weights<F>(ws, block_w + static_cast<size_t>(l - 1) * kTaps * F * F,
+                     F, F);
+  }
+}
+
+template <int F>
+__global__ void __launch_bounds__(Shape<F>::kThreads, 1)
+trunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
+                 const float* __restrict__ stem_scale,
+                 const float* __restrict__ stem_bias,
+                 const float* __restrict__ block_w,
+                 const float* __restrict__ block_scale,
+                 const float* __restrict__ block_bias,
+                 const float* __restrict__ acts, const float* __restrict__ y,
+                 const float* __restrict__ dy, float* __restrict__ dx,
+                 float* __restrict__ dc_out,
+                 float* __restrict__ dsn, int cin, int layers, int groups,
+                 float eps) {
+  using S = Shape<F>;
+  extern __shared__ __align__(16) float smem[];
+  const int cinp = round4(cin);
+  const int xstride = cinp + kPadC;
+  const int cmax = cinp > F ? cinp : F;
+  const int astride = xstride > S::kHStride ? xstride : S::kHStride;
+  float* as = smem;                              // kPix x astride  layer input
+  float* dhs = as + kPix * astride;              // kPix x kHStride d(output)
+  float* dcs = dhs + kPix * S::kHStride;         // kPix x kHStride d(conv)
+  const int wsize = kTaps * cmax * F;
+  float* ws0 = dcs + kPix * S::kHStride;         // 9 x cmax x F    weights,
+  float* ws1 = ws0 + wsize;                      //   two buffers
+  float* red = ws1 + wsize;                      // 4 x kWarps x F  sums
+  float* chan = red + 4 * S::kWarps * F;         // 2 x F           channel sums
+  int* nbr = reinterpret_cast<int*>(chan + 2 * F);   // kPix x 9
+
+  const int tid = threadIdx.x;
+  const size_t n = blockIdx.x;
+  const int nl = layers + 1;
+  stage_layer<F>(ws0, layers, stem_w, block_w, cin, cinp);
+  for (int i = tid; i < kPix * kTaps; i += S::kThreads) {
+    const int p = i / kTaps, t = i % kTaps;
+    const int r = p / kCols, c = p % kCols;
+    const int a = t / 3, b = t % 3;
+    nbr[i] = ((r + a + kRows - 1) % kRows) * kCols + (c + b + kCols - 1) % kCols;
+  }
+  const float* dyn = dy + n * kPix * F;
+  for (int i = tid; i < kPix * (F / 4); i += S::kThreads) {
+    const int p = i / (F / 4), c4 = i % (F / 4);
+    reinterpret_cast<float4*>(dhs + p * S::kHStride)[c4] =
+        reinterpret_cast<const float4*>(dyn + p * F)[c4];
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int q = tid % S::kQuads;
+  const int slot = tid / S::kQuads;
+  const int cpg = F / groups;
+  const float inv_count = 1.f / static_cast<float>(kPix * cpg);
+  int pix[kPPT];
+  bool own[kPPT];
+#pragma unroll
+  for (int k = 0; k < kPPT; ++k) {
+    const int p = slot + k * kSlots;
+    own[k] = p < kPix;
+    pix[k] = own[k] ? p : kPix - 1;
+  }
+  float* red1 = red;
+  float* red2 = red1 + S::kWarps * F;
+  float* red3 = red2 + S::kWarps * F;
+  float* red4 = red3 + S::kWarps * F;
+
+  for (int l = layers; l >= 0; --l) {
+    // layer l runs on buffer (layers - l) % 2 while layer l - 1's weights
+    // stream into the other one, which layer l + 1 has finished with
+    const float* ws = (layers - l) % 2 ? ws1 : ws0;
+    if (l > 0)
+      stage_layer<F>((layers - l) % 2 ? ws0 : ws1, l - 1, stem_w, block_w, cin,
+                     cinp);
+    if (l > 0) {
+      const float* an = acts + (n * layers + (l - 1)) * kPix * F;
+      for (int i = tid; i < kPix * (F / 4); i += S::kThreads) {
+        const int p = i / (F / 4), c4 = i % (F / 4);
+        reinterpret_cast<float4*>(as + p * S::kHStride)[c4] =
+            reinterpret_cast<const float4*>(an + p * F)[c4];
+      }
+    } else {
+      const float* xn = x + n * kPix * cin;
+      for (int i = tid; i < kPix * xstride; i += S::kThreads) {
+        const int p = i / xstride, c = i % xstride;
+        as[i] = c < cin ? xn[p * cin + c] : 0.f;
+      }
+    }
+    __syncthreads();   // the layer input is in place
+
+    // the forward of this layer, as K1 computes it
+    float acc[kPPT][4];
+    if (l == 0)
+      conv<F, 0>(as, xstride, cinp, ws, nbr, pix, q, acc);
+    else
+      conv<F, F>(as, S::kHStride, F, ws, nbr, pix, q, acc);
+    channel_partials<F>(acc, own, q, red1);
+    __syncthreads();
+    float mean[4], rstd[4];
+    group_sums<F>(red1, q, cpg, mean);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mean[j] *= inv_count;
+    float tmp[kPPT][4];
+#pragma unroll
+    for (int k = 0; k < kPPT; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float d = acc[k][j] - mean[j];
+        tmp[k][j] = d * d;
+      }
+    channel_partials<F>(tmp, own, q, red2);
+    __syncthreads();
+    group_sums<F>(red2, q, cpg, rstd);
+    const float* scale = l == 0 ? stem_scale : block_scale + (l - 1) * F;
+    const float4 sc4 = reinterpret_cast<const float4*>(scale)[q];
+    const float scv[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) rstd[j] = rsqrtf(rstd[j] * inv_count + eps);
+
+    // ReLU mask: g = dh where the layer's saved output is positive; acc
+    // becomes xhat and tmp g * xhat
+    const float* outn = l == layers ? y + n * kPix * F
+                                    : acts + (n * layers + l) * kPix * F;
+    float g[kPPT][4];
+#pragma unroll
+    for (int k = 0; k < kPPT; ++k) {
+      const float4 dh4 =
+          reinterpret_cast<const float4*>(dhs + pix[k] * S::kHStride)[q];
+      const float4 o4 = reinterpret_cast<const float4*>(outn + pix[k] * F)[q];
+      const float dhv[4] = {dh4.x, dh4.y, dh4.z, dh4.w};
+      const float ov[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        g[k][j] = own[k] && ov[j] > 0.f ? dhv[j] : 0.f;
+        acc[k][j] = (acc[k][j] - mean[j]) * rstd[j];
+        tmp[k][j] = g[k][j] * acc[k][j];
+      }
+    }
+    channel_partials<F>(g, own, q, red3);
+    channel_partials<F>(tmp, own, q, red4);
+    __syncthreads();
+    if (tid < F) {
+      float s1 = 0.f, s2 = 0.f;
+      for (int w = 0; w < S::kWarps; ++w) {
+        s1 += red3[w * F + tid];
+        s2 += red4[w * F + tid];
+      }
+      float* dn = dsn + (n * nl + l) * 2 * F;
+      dn[tid] = s2;        // d scale
+      dn[F + tid] = s1;    // d bias
+      chan[tid] = s1 * scale[tid];
+      chan[F + tid] = s2 * scale[tid];
+    }
+    __syncthreads();
+
+    // GroupNorm backward: dc = rstd (g scale - mean(g scale)
+    //                                 - xhat mean(g scale xhat))
+    float m1[4], m2[4];
+    group_sums_of<F>(chan, q, cpg, m1);
+    group_sums_of<F>(chan + F, q, cpg, m2);
+    float* dcn = dc_out + (n * nl + l) * kPix * F;
+#pragma unroll
+    for (int k = 0; k < kPPT; ++k) {
+      float d[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        d[j] = rstd[j] * (g[k][j] * scv[j] - m1[j] * inv_count -
+                          acc[k][j] * (m2[j] * inv_count));
+      if (!own[k]) continue;
+      const float4 d4 = make_float4(d[0], d[1], d[2], d[3]);
+      reinterpret_cast<float4*>(dcs + pix[k] * S::kHStride)[q] = d4;
+      reinterpret_cast<float4*>(dcn + pix[k] * F)[q] = d4;
+    }
+    __syncthreads();   // dcs is complete
+
+    if (l > 0) {
+      // dh of block l's input: the residual g plus the transposed conv
+      conv_transpose<F>(dcs, S::kHStride, ws, F, q, nbr, pix, acc);
+#pragma unroll
+      for (int k = 0; k < kPPT; ++k) {
+        if (!own[k]) continue;
+        reinterpret_cast<float4*>(dhs + pix[k] * S::kHStride)[q] =
+            make_float4(g[k][0] + acc[k][0], g[k][1] + acc[k][1],
+                        g[k][2] + acc[k][2], g[k][3] + acc[k][3]);
+      }
+    } else if (dx) {
+      float* dxn = dx + n * kPix * cin;
+      for (int oq = q; oq < cinp / 4; oq += S::kQuads) {
+        conv_transpose<F>(dcs, S::kHStride, ws, cinp, oq, nbr, pix, acc);
+#pragma unroll
+        for (int k = 0; k < kPPT; ++k) {
+          if (!own[k]) continue;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (4 * oq + j < cin) dxn[pix[k] * cin + 4 * oq + j] = acc[k][j];
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();   // dhs and the next layer's weights are complete
+  }
+}
+
+// Offsets into the flat gradient vector: stem W (9, cin, F), block W
+// (L, 9, F, F), scales (L+1, F), biases (L+1, F).
+__host__ __device__ inline size_t w_offset(int l, int cin, int f) {
+  return l == 0 ? 0
+                : static_cast<size_t>(kTaps) * cin * f +
+                      static_cast<size_t>(l - 1) * kTaps * f * f;
+}
+
+template <int F>
+struct WShape {
+  static constexpr int kFOcts = F / 8;
+  __host__ __device__ static int ci_quads(int cin) {
+    const int cinp = round4(cin);
+    return (cinp > F ? cinp : F) / 4;
+  }
+  __host__ __device__ static int threads(int cin) {
+    return kTaps * ci_quads(cin) * kFOcts;
+  }
+};
+
+template <int F>
+__global__ void trunk_wgrad_kernel(const float* __restrict__ x,
+                                   const float* __restrict__ acts,
+                                   const float* __restrict__ dc_all,
+                                   const float* __restrict__ dsn,
+                                   float* __restrict__ partials, int n,
+                                   int cin, int layers, size_t total) {
+  using W = WShape<F>;
+  extern __shared__ __align__(16) float smem[];
+  const int l = blockIdx.x;
+  const int n0 = blockIdx.y * kChunk;
+  const int n1 = min(n, n0 + kChunk);
+  const int nl = layers + 1;
+  const int cinp = round4(cin);
+  const int c_in = l == 0 ? cin : F;        // this layer's input channels
+  const int cp = l == 0 ? cinp : F;         // ... padded, the row stride
+  const int nciq = W::ci_quads(cin);
+  float* as = smem;                         // kPix x cp    layer input
+  float* dcs = as + kPix * nciq * 4;        // kPix x F     d(conv)
+  int* nbr = reinterpret_cast<int*>(dcs + kPix * F);
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kPix * kTaps; i += blockDim.x) {
+    const int p = i / kTaps, t = i % kTaps;
+    const int r = p / kCols, c = p % kCols;
+    const int a = t / 3, b = t % 3;
+    nbr[i] = ((r + a + kRows - 1) % kRows) * kCols + (c + b + kCols - 1) % kCols;
+  }
+  const int fo = tid % W::kFOcts;
+  const int ciq = (tid / W::kFOcts) % nciq;
+  const int t = tid / (W::kFOcts * nciq);
+  const bool active = 4 * ciq < c_in;
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float sb = 0.f;   // the group's sum of this thread's scale or bias grad
+
+  for (int s = n0; s < n1; ++s) {
+    __syncthreads();   // the previous sample is done with as and dcs
+    if (l == 0) {
+      const float* xn = x + static_cast<size_t>(s) * kPix * cin;
+      for (int i = tid; i < kPix * cinp; i += blockDim.x) {
+        const int p = i / cinp, c = i % cinp;
+        as[i] = c < cin ? xn[p * cin + c] : 0.f;
+      }
+    } else {
+      const float4* an = reinterpret_cast<const float4*>(
+          acts + (static_cast<size_t>(s) * layers + (l - 1)) * kPix * F);
+      for (int i = tid; i < kPix * F / 4; i += blockDim.x)
+        reinterpret_cast<float4*>(as)[i] = an[i];
+    }
+    const float4* dn = reinterpret_cast<const float4*>(
+        dc_all + (static_cast<size_t>(s) * nl + l) * kPix * F);
+    for (int i = tid; i < kPix * F / 4; i += blockDim.x)
+      reinterpret_cast<float4*>(dcs)[i] = dn[i];
+    if (tid < 2 * F) sb += dsn[(static_cast<size_t>(s) * nl + l) * 2 * F + tid];
+    __syncthreads();
+    if (!active) continue;
+    for (int p = 0; p < kPix; ++p) {
+      const float4 a4 = *reinterpret_cast<const float4*>(
+          as + nbr[p * kTaps + t] * cp + 4 * ciq);
+      const float4 d0 = *reinterpret_cast<const float4*>(dcs + p * F + 8 * fo);
+      const float4 d1 =
+          *reinterpret_cast<const float4*>(dcs + p * F + 8 * fo + 4);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], dv[j], acc[i][j]);
+    }
+  }
+
+  float* row = partials + blockIdx.y * total;
+  if (active) {
+    float* dw = row + w_offset(l, cin, F);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ci = 4 * ciq + i;
+      if (ci >= c_in) continue;
+      float* o = dw + (static_cast<size_t>(t) * c_in + ci) * F + 8 * fo;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[j] = acc[i][j];
+    }
+  }
+  if (tid < 2 * F) {
+    const size_t scales = w_offset(nl, cin, F);
+    row[scales + (tid < F ? l * F + tid : nl * F + l * F + tid - F)] = sb;
+  }
+}
+
+// out[j] = sum over rows r, in order, of in[r * cols + j]
+__global__ void column_sum(const float* __restrict__ in, float* __restrict__ out,
+                           int rows, size_t cols) {
+  const size_t j = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= cols) return;
+  float s = 0.f;
+  for (int r = 0; r < rows; ++r) s += in[r * cols + j];
+  out[j] = s;
+}
+
+template <int F>
+cudaError_t launch_backward(const float* x, const float* stem_w,
+                            const float* stem_scale, const float* stem_bias,
+                            const float* block_w, const float* block_scale,
+                            const float* block_bias, const float* acts,
+                            const float* y, const float* dy, float* dx,
+                            float* dc_all,
+                            float* dsn, float* partials, float* out, int n,
+                            int cin, int layers, int groups, float eps,
+                            cudaStream_t stream) {
+  using S = Shape<F>;
+  using W = WShape<F>;
+  const int cinp = round4(cin);
+  const int cmax = cinp > F ? cinp : F;
+  const int astride = cinp + kPadC > S::kHStride ? cinp + kPadC : S::kHStride;
+  const int smem_a = static_cast<int>(
+      sizeof(float) * (kPix * astride + 2 * kPix * S::kHStride +
+                       2 * kTaps * cmax * F + 4 * S::kWarps * F + 2 * F) +
+      sizeof(int) * kPix * kTaps);
+  cudaError_t err = cudaFuncSetAttribute(
+      trunk_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
+  if (err != cudaSuccess) return err;
+  trunk_bwd_kernel<F><<<n, S::kThreads, smem_a, stream>>>(
+      x, stem_w, stem_scale, stem_bias, block_w, block_scale, block_bias, acts,
+      y, dy, dx, dc_all, dsn, cin, layers, groups, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int nl = layers + 1;
+  const int chunks = (n + kChunk - 1) / kChunk;
+  const size_t total = w_offset(nl, cin, F) + 2 * static_cast<size_t>(nl) * F;
+  const int smem_b = static_cast<int>(
+      sizeof(float) * kPix * (W::ci_quads(cin) * 4 + F) +
+      sizeof(int) * kPix * kTaps);
+  trunk_wgrad_kernel<F><<<dim3(nl, chunks), W::threads(cin), smem_b, stream>>>(
+      x, acts, dc_all, dsn, partials, n, cin, layers, total);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  column_sum<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+      partials, out, chunks, total);
   return cudaGetLastError();
 }
 
@@ -321,23 +816,57 @@ extern "C" int geese_trunk_forward(const float* x, const float* stem_w,
                                    const float* stem_bias,
                                    const float* block_w,
                                    const float* block_scale,
-                                   const float* block_bias, float* out, int n,
-                                   int cin, int f, int layers, int groups,
-                                   float eps, void* stream) {
+                                   const float* block_bias, float* out,
+                                   float* saved, int n, int cin, int f,
+                                   int layers, int groups, float eps,
+                                   void* stream) {
   if (n <= 0 || cin <= 0 || layers < 0 || groups <= 0 || f % groups != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (f) {
     case 16:
       return launch<16>(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
-                        block_bias, out, n, cin, layers, groups, eps, s);
+                        block_bias, out, saved, n, cin, layers, groups, eps, s);
     case 32:
       return launch<32>(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
-                        block_bias, out, n, cin, layers, groups, eps, s);
+                        block_bias, out, saved, n, cin, layers, groups, eps, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// acts (n, layers, 77, f) and y (n, 77, f) are the training forward's block
+// inputs and output. Scratch the caller allocates: dc_all (n, layers+1, 77,
+// f), dsn (n,
+// layers+1, 2f), partials (ceil(n / geese_trunk_backward_chunk()), total)
+// and out (total), total = 9*cin*f + layers*9*f*f + 2*(layers+1)*f.
+extern "C" int geese_trunk_backward(
+    const float* x, const float* stem_w, const float* stem_scale,
+    const float* stem_bias, const float* block_w, const float* block_scale,
+    const float* block_bias, const float* acts, const float* y,
+    const float* dy, float* dx, float* dc_all, float* dsn, float* partials,
+    float* out, int n, int cin, int f, int layers, int groups, float eps,
+    void* stream) {
+  if (n <= 0 || cin <= 0 || layers < 0 || groups <= 0 || f % groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (f) {
+    case 16:
+      return launch_backward<16>(x, stem_w, stem_scale, stem_bias, block_w,
+                                 block_scale, block_bias, acts, y, dy, dx,
+                                 dc_all, dsn, partials, out, n, cin, layers,
+                                 groups, eps, s);
+    case 32:
+      return launch_backward<32>(x, stem_w, stem_scale, stem_bias, block_w,
+                                 block_scale, block_bias, acts, y, dy, dx,
+                                 dc_all, dsn, partials, out, n, cin, layers,
+                                 groups, eps, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int geese_trunk_backward_chunk() { return kChunk; }
 
 extern "C" const char* geese_trunk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

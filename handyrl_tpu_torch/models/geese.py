@@ -8,14 +8,16 @@ value from the head cell and the board average.
 The trunk's parameters live in the fused kernel's layout, stacked once:
 ``stem_w`` (3,3,17,F) and ``block_w`` (L,3,3,F,F) in flax's HWIO order,
 with the GroupNorm scales and biases beside them. ``torus_impl='pallas'``
-runs the trunk as the hand-written CUDA kernel (ops/geese_trunk.py; its
-plain version on the CPU); ``'pad'`` and ``'halo'`` run it as plain torch
+runs the trunk as the hand-written CUDA kernels (ops/geese_trunk.py: K1
+forward, K2 backward under autograd; their plain versions on the CPU);
+``'pad'`` and ``'halo'`` run it as plain torch
 convs, layer by layer, on slices of the same tensors. All three are the
 same function of the same parameters.
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -24,7 +26,8 @@ from torch import nn
 
 from . import register
 from .blocks import TorusConv, to_nhwc
-from ..ops.geese_trunk import trunk_forward, trunk_params_from_geesenet
+from ..ops.geese_trunk import (trunk_apply, trunk_forward,
+                               trunk_params_from_geesenet)
 
 TORUS_IMPLS = ('pad', 'halo', 'pallas')
 
@@ -97,10 +100,11 @@ class GeeseNet(nn.Module):
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
         """(N,7,11,Cin) NHWC -> (N,7,11,F) NHWC."""
         if self.torus_impl == 'pallas':
-            return trunk_forward(x.contiguous(), self.stem_w, self.stem_scale,
-                                 self.stem_bias, self.block_w,
-                                 self.block_scale, self.block_bias,
-                                 groups=self.groups)
+            # under autograd the trunk is K1 forward, K2 backward
+            fn = trunk_apply if torch.is_grad_enabled() else trunk_forward
+            return fn(x.contiguous(), self.stem_w, self.stem_scale,
+                      self.stem_bias, self.block_w, self.block_scale,
+                      self.block_bias, groups=self.groups)
         h = torch.relu(self.torus(x.permute(0, 3, 1, 2), self.stem_w,
                                   self.stem_scale, self.stem_bias))
         for i in range(self.layers):
@@ -142,20 +146,24 @@ def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
             for k, v in arrays.items()}
 
 
-def params_to_flax(net: GeeseNet) -> Dict[str, Any]:
+def params_to_flax(net) -> Dict[str, Any]:
     """Inverse of :func:`params_from_flax`: the flax-shaped param tree
-    ``{'params': {...}}`` of numpy arrays (what snapshots carry)."""
-    def arr(t: torch.Tensor) -> np.ndarray:
-        return t.detach().to('cpu', torch.float32).numpy().copy()
+    ``{'params': {...}}`` of numpy arrays (what snapshots carry), from a
+    GeeseNet or from a mapping of its parameter names to tensors (a state
+    dict, or the Adam moments of one)."""
+    t = dict(net) if isinstance(net, Mapping) else dict(net.named_parameters())
+
+    def arr(v: torch.Tensor) -> np.ndarray:
+        return v.detach().to('cpu', torch.float32).numpy().copy()
 
     p: Dict[str, Any] = {}
-    convs = [(net.stem_w, net.stem_scale, net.stem_bias)] + [
-        (net.block_w[i], net.block_scale[i], net.block_bias[i])
-        for i in range(net.layers)]
+    convs = [(t['stem_w'], t['stem_scale'], t['stem_bias'])] + [
+        (t['block_w'][i], t['block_scale'][i], t['block_bias'][i])
+        for i in range(t['block_w'].shape[0])]
     for i, (w, s, b) in enumerate(convs):
         p['TorusConv_%d' % i] = {'Conv_0': {'kernel': arr(w)},
                                  'GroupNorm_0': {'scale': arr(s),
                                                  'bias': arr(b)}}
-    p['Dense_0'] = {'kernel': arr(net.policy_w)}
-    p['Dense_1'] = {'kernel': arr(net.value_w)}
+    p['Dense_0'] = {'kernel': arr(t['policy_w'])}
+    p['Dense_1'] = {'kernel': arr(t['value_w'])}
     return {'params': p}

@@ -28,7 +28,7 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
 BUILD_DIR = os.path.join(PACKAGE_DIR, '_build')
 
 # kernel name -> source file under csrc/
-SOURCES = {'geese_trunk': 'geese_trunk.cu'}
+SOURCES = {'geese_trunk': 'geese_trunk.cu', 'targets': 'targets.cu'}
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')

@@ -1,12 +1,16 @@
-"""The GeeseNet trunk forward: one CUDA kernel, and its plain PyTorch version.
+"""The GeeseNet trunk, forward and backward: two CUDA kernels, each beside
+its plain PyTorch version.
 
 The trunk is a 3x3 torus-conv stem with GroupNorm and ReLU, then L blocks of
 ``relu(h + GN(conv(h)))`` on the 7x11 board, (N,7,11,Cin) -> (N,7,11,F).
-:func:`trunk_forward` is the wrapper the model calls. For a tensor on the
-CPU it runs :func:`trunk_forward_reference`; for a CUDA tensor it launches
-``csrc/geese_trunk.cu`` (the port of the TPU kernel
-``handyrl_tpu/ops/pallas_geese.py:_fwd_kernel``) or raises. ``launches``
-counts the kernel launches of this process.
+:func:`trunk_forward` (K1, the port of the TPU kernel
+``handyrl_tpu/ops/pallas_geese.py:_fwd_kernel``) and :func:`trunk_backward`
+(K2, the port of ``_bwd_kernel``) are the wrappers: for a tensor on the CPU
+they run :func:`trunk_forward_reference` and the hand-derived
+:func:`trunk_backward_reference`; for a CUDA tensor they launch
+``csrc/geese_trunk.cu`` or raise. :class:`TrunkFunction` ties the two into
+autograd. ``launches`` and ``backward_launches`` count the kernel launches
+of this process (CPU calls never count).
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ EPS = 1e-6
 SUPPORTED_FILTERS = (16, 32)   # the kernel's instantiations
 
 # kernel launches in this process (CPU calls never count)
-launches = 0
+launches = 0            # K1, the forward
+backward_launches = 0   # K2, the backward
 
 
 # ------------------------------------------------------------ plain version
@@ -61,16 +66,124 @@ def _group_norm(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def trunk_forward_reference(x, stem_w, stem_scale, stem_bias, block_w,
                             block_scale, block_bias, groups: int = 8,
-                            eps: float = EPS) -> torch.Tensor:
+                            eps: float = EPS, acts=None) -> torch.Tensor:
     """Plain PyTorch twin of ``pallas_geese.tile_forward``, step by step:
-    relu(GN(conv(x))) stem, then L x relu(h + GN(conv(h)))."""
+    relu(GN(conv(x))) stem, then L x relu(h + GN(conv(h))). With ``acts``
+    (N,L,7,11,F), block i's input is also written to ``acts[:, i]``."""
     h = torch.relu(_group_norm(_torus_conv(x, stem_w), stem_scale, stem_bias,
                                groups, eps))
     for i in range(block_w.shape[0]):
+        if acts is not None:
+            acts[:, i] = h
         c = _group_norm(_torus_conv(h, block_w[i]), block_scale[i],
                         block_bias[i], groups, eps)
         h = torch.relu(h + c)
     return h
+
+
+# ------------------------------------------- plain version of the backward
+
+def _tap_shift(a: int, b: int) -> Tuple[int, int]:
+    """torch.roll shifts that bring tap (a, b)'s neighbour to each pixel:
+    roll(h, s)[r, c] = h[(r + a - 1) % 7, (c + b - 1) % 11]."""
+    return 1 - a, 1 - b
+
+
+def _conv_transpose(dc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The adjoint of :func:`_torus_conv` in its input: each tap's product
+    dc @ w[a, b]^T rolled back by the tap's shift (the flipped taps, with
+    the same wrap). dc (N,7,11,F), w (3,3,C,F) -> (N,7,11,C)."""
+    out = None
+    for a in range(3):
+        for b in range(3):
+            sr, sc = _tap_shift(a, b)
+            t = torch.roll(torch.matmul(dc, w[a, b].t()), (-sr, -sc), (1, 2))
+            out = t if out is None else out + t
+    return out
+
+
+def _conv_weight_grad(h: torch.Tensor, dc: torch.Tensor) -> torch.Tensor:
+    """The adjoint of :func:`_torus_conv` in its kernel: for each tap, the
+    neighbour patches^T @ dc summed over the batch and the board.
+    h (N,7,11,C), dc (N,7,11,F) -> (3,3,C,F)."""
+    C, F = h.shape[-1], dc.shape[-1]
+    d2 = dc.reshape(-1, F)
+    taps = [torch.matmul(torch.roll(h, _tap_shift(a, b), (1, 2))
+                         .reshape(-1, C).t(), d2)
+            for a in range(3) for b in range(3)]
+    return torch.stack(taps).reshape(3, 3, C, F)
+
+
+def _group_norm_backward(dz, c, scale, groups: int, eps: float):
+    """The adjoint of :func:`_group_norm` at conv output c: returns
+    (dc, dscale, dbias). xhat = (c - mean) rstd with var = max(E[c^2] -
+    E[c]^2, 0) and rstd = rsqrt(var + eps); the variance term is cut where
+    the max clamps, as its derivative is 0 there:
+    dc = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat) [var > 0])."""
+    B, H, W, C = c.shape
+    cpg = C // groups
+    n = float(H * W * cpg)
+    cf = c.reshape(B, H * W, groups, cpg)
+    mean = cf.sum(dim=(1, 3)) / n
+    var_raw = (cf * cf).sum(dim=(1, 3)) / n - mean * mean
+    rstd = torch.rsqrt(torch.clamp(var_raw, min=0.0) + eps)
+    xhat = (cf - mean[:, None, :, None]) * rstd[:, None, :, None]
+    gz = dz.reshape(B, H * W, groups, cpg)
+    dscale = (gz * xhat).sum(dim=(0, 1)).reshape(C)
+    dbias = gz.sum(dim=(0, 1)).reshape(C)
+    dxhat = gz * scale.reshape(groups, cpg)
+    m1 = dxhat.sum(dim=(1, 3)) / n
+    m2 = (dxhat * xhat).sum(dim=(1, 3)) / n * (var_raw > 0)
+    dc = rstd[:, None, :, None] * (dxhat - m1[:, None, :, None]
+                                   - xhat * m2[:, None, :, None])
+    return dc.reshape(c.shape), dscale, dbias
+
+
+def trunk_backward_reference(x, stem_w, stem_scale, stem_bias, block_w,
+                             block_scale, block_bias, dy, groups: int = 8,
+                             eps: float = EPS, need_dx: bool = True,
+                             acts=None, y=None):
+    """The trunk's backward derived by hand, in plain PyTorch: each layer's
+    input, conv output and output, then from the top layer down the ReLU
+    mask, the GroupNorm backward, the weight grad and the transposed conv,
+    with the residual's identity path on every block and none on the stem.
+    The layer inputs and outputs are ``acts`` and ``y``, the block inputs
+    and the output of a training forward (as K2 takes them), so that the
+    ReLU masks are that forward's own; without them the plain training
+    forward runs here first. Returns (dx or None, d_stem_w, d_stem_scale,
+    d_stem_bias, d_block_w, d_block_scale, d_block_bias)."""
+    layers = [(stem_w, stem_scale, stem_bias)] + [
+        (block_w[i], block_scale[i], block_bias[i])
+        for i in range(block_w.shape[0])]
+    if acts is None or y is None:
+        acts = x.new_empty((x.shape[0], block_w.shape[0], ROWS, COLS,
+                            stem_w.shape[-1]))
+        y = trunk_forward_reference(x, stem_w, stem_scale, stem_bias,
+                                    block_w, block_scale, block_bias, groups,
+                                    eps, acts)
+    blocks_in = [acts[:, i] for i in range(acts.shape[1])]
+    inputs, outs = [x] + blocks_in, blocks_in + [y]
+    convs = [_torus_conv(h, w) for h, (w, _, _) in zip(inputs, layers)]
+    dh = dy
+    grads = [None] * len(layers)
+    dx = None
+    for i in range(len(layers) - 1, -1, -1):
+        w, s, _ = layers[i]
+        g = dh * (outs[i] > 0)
+        dc, ds, db = _group_norm_backward(g, convs[i], s, groups, eps)
+        grads[i] = (_conv_weight_grad(inputs[i], dc), ds, db)
+        if i > 0:
+            dh = g + _conv_transpose(dc, w)
+        elif need_dx:
+            dx = _conv_transpose(dc, w)
+    blocks = grads[1:]
+
+    def stack(k, like):
+        return (torch.stack([g[k] for g in blocks]) if blocks
+                else torch.zeros_like(like))
+
+    return (dx,) + grads[0] + (stack(0, block_w), stack(1, block_scale),
+                               stack(2, block_bias))
 
 
 # ---------------------------------------------------------------- the kernel
@@ -85,9 +198,14 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_build.load('geese_trunk')
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.geese_trunk_forward.argtypes = [p] * 8 + [i] * 5 + [
+        lib.geese_trunk_forward.argtypes = [p] * 9 + [i] * 5 + [
             ctypes.c_float, p]
         lib.geese_trunk_forward.restype = ctypes.c_int
+        lib.geese_trunk_backward.argtypes = [p] * 15 + [i] * 5 + [
+            ctypes.c_float, p]
+        lib.geese_trunk_backward.restype = ctypes.c_int
+        lib.geese_trunk_backward_chunk.argtypes = []
+        lib.geese_trunk_backward_chunk.restype = ctypes.c_int
         lib.geese_trunk_error_string.argtypes = [i]
         lib.geese_trunk_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -114,19 +232,9 @@ def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
         raise ValueError('geese_trunk: %s must be 16-byte aligned' % name)
 
 
-def trunk_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
-                  block_bias, groups: int = 8,
-                  eps: float = EPS) -> torch.Tensor:
-    """The trunk, (N,7,11,Cin) -> (N,7,11,F). CPU tensors take the plain
-    version; CUDA tensors launch the kernel, and anything the kernel does
-    not take (dtype, shape, layout, F) raises."""
-    global launches
-    if x.device.type == 'cpu':
-        return trunk_forward_reference(x, stem_w, stem_scale, stem_bias,
-                                       block_w, block_scale, block_bias,
-                                       groups, eps)
-    if x.device.type != 'cuda':
-        raise ValueError('geese_trunk: no kernel for device %s' % x.device)
+def _check_operands(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
+                    block_bias, groups: int) -> Tuple[int, int, int, int]:
+    """Raise on anything the kernels do not take; returns (n, cin, F, L)."""
     if x.dim() != 4 or tuple(x.shape[1:3]) != (ROWS, COLS):
         raise ValueError('geese_trunk: x must be (N,7,11,Cin), got %s'
                          % (tuple(x.shape),))
@@ -146,6 +254,41 @@ def trunk_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
     _check('block_w', block_w, (layers, 3, 3, filters, filters), dev)
     _check('block_scale', block_scale, (layers, filters), dev)
     _check('block_bias', block_bias, (layers, filters), dev)
+    return n, cin, filters, layers
+
+
+def _device_kind(x: torch.Tensor) -> str:
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError('geese_trunk: no kernel for device %s' % x.device)
+    return x.device.type
+
+
+def _raise_on(err: int, lib, what: str):
+    if err != 0:
+        raise RuntimeError('geese_trunk: %s launch failed with CUDA error %d '
+                           '(%s)' % (what, err,
+                                     lib.geese_trunk_error_string(err).decode()))
+
+
+def trunk_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
+                  block_bias, groups: int = 8, eps: float = EPS,
+                  acts=None) -> torch.Tensor:
+    """The trunk, (N,7,11,Cin) -> (N,7,11,F). CPU tensors take the plain
+    version; CUDA tensors launch the kernel, and anything the kernel does
+    not take (dtype, shape, layout, F) raises. With ``acts`` (N,L,7,11,F,
+    float32) each block's input is also written there (the training
+    forward, which K2 reads)."""
+    global launches
+    if _device_kind(x) == 'cpu':
+        return trunk_forward_reference(x, stem_w, stem_scale, stem_bias,
+                                       block_w, block_scale, block_bias,
+                                       groups, eps, acts)
+    n, cin, filters, layers = _check_operands(
+        x, stem_w, stem_scale, stem_bias, block_w, block_scale, block_bias,
+        groups)
+    dev = x.device
+    if acts is not None:
+        _check('acts', acts, (n, layers, ROWS, COLS, filters), dev)
     out = torch.empty((n, ROWS, COLS, filters), device=dev,
                       dtype=torch.float32)
     if n == 0:
@@ -156,13 +299,110 @@ def trunk_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
         err = lib.geese_trunk_forward(
             x.data_ptr(), stem_w.data_ptr(), stem_scale.data_ptr(),
             stem_bias.data_ptr(), block_w.data_ptr(), block_scale.data_ptr(),
-            block_bias.data_ptr(), out.data_ptr(), n, cin, filters, layers,
-            groups, float(eps), stream)
-    if err != 0:
-        raise RuntimeError('geese_trunk: launch failed with CUDA error %d (%s)'
-                           % (err, lib.geese_trunk_error_string(err).decode()))
+            block_bias.data_ptr(), out.data_ptr(),
+            None if acts is None else acts.data_ptr(), n, cin, filters,
+            layers, groups, float(eps), stream)
+    _raise_on(err, lib, 'forward')
     launches += 1
     return out
+
+
+def trunk_backward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
+                   block_bias, dy, groups: int = 8, eps: float = EPS,
+                   need_dx: bool = True, acts=None, y=None):
+    """The trunk's vector-Jacobian product at (x, weights) for the output
+    grad dy (N,7,11,F): (dx or None, d_stem_w, d_stem_scale, d_stem_bias,
+    d_block_w, d_block_scale, d_block_bias), all float32. CPU tensors take
+    :func:`trunk_backward_reference`; CUDA tensors launch K2 or raise.
+    ``acts`` and ``y`` are the block inputs and the output of the training
+    forward of the same operands (K1 with ``acts``); the kernel needs
+    them, the plain version runs that forward itself without them."""
+    global backward_launches
+    if _device_kind(x) == 'cpu':
+        return trunk_backward_reference(x, stem_w, stem_scale, stem_bias,
+                                        block_w, block_scale, block_bias, dy,
+                                        groups, eps, need_dx, acts, y)
+    n, cin, filters, layers = _check_operands(
+        x, stem_w, stem_scale, stem_bias, block_w, block_scale, block_bias,
+        groups)
+    dev = x.device
+    _check('dy', dy, (n, ROWS, COLS, filters), dev)
+    if acts is None or y is None:
+        raise ValueError('geese_trunk: the backward kernel takes acts and y '
+                         'from the training forward (trunk_forward(..., '
+                         'acts=...))')
+    _check('acts', acts, (n, layers, ROWS, COLS, filters), dev)
+    _check('y', y, (n, ROWS, COLS, filters), dev)
+    nl = layers + 1
+    n_stem, n_blocks = 9 * cin * filters, layers * 9 * filters * filters
+    total = n_stem + n_blocks + 2 * nl * filters
+    # the kernel writes every element; an empty batch has zero grads
+    flat = (torch.empty if n else torch.zeros)(total, device=dev,
+                                               dtype=torch.float32)
+    dx = torch.empty_like(x) if need_dx else None
+    if n > 0:
+        lib = _library()
+        chunks = -(-n // lib.geese_trunk_backward_chunk())
+        f32 = dict(device=dev, dtype=torch.float32)
+        dc_all = torch.empty((n, nl, ROWS * COLS, filters), **f32)
+        dsn = torch.empty((n, nl, 2 * filters), **f32)
+        partials = torch.empty((chunks, total), **f32)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.geese_trunk_backward(
+                x.data_ptr(), stem_w.data_ptr(), stem_scale.data_ptr(),
+                stem_bias.data_ptr(), block_w.data_ptr(),
+                block_scale.data_ptr(), block_bias.data_ptr(),
+                acts.data_ptr(), y.data_ptr(), dy.data_ptr(),
+                None if dx is None else dx.data_ptr(), dc_all.data_ptr(),
+                dsn.data_ptr(), partials.data_ptr(), flat.data_ptr(), n, cin,
+                filters, layers, groups, float(eps), stream)
+        _raise_on(err, lib, 'backward')
+        backward_launches += 1
+    elif dx is not None:
+        dx.zero_()
+    scales = flat[n_stem + n_blocks:].view(2, nl, filters)
+    return (dx, flat[:n_stem].view(3, 3, cin, filters),
+            scales[0, 0], scales[1, 0],
+            flat[n_stem:n_stem + n_blocks].view(layers, 3, 3, filters,
+                                                filters),
+            scales[0, 1:], scales[1, 1:])
+
+
+class TrunkFunction(torch.autograd.Function):
+    """The trunk under autograd: the forward is K1 (its training form, which
+    keeps the block inputs for the backward), the backward is K2 on those
+    and the output; on the CPU both are their plain versions. ``dx`` is
+    computed only when x needs a grad."""
+
+    @staticmethod
+    def forward(ctx, x, stem_w, stem_scale, stem_bias, block_w, block_scale,
+                block_bias, groups, eps):
+        acts = torch.empty(
+            (x.shape[0], block_w.shape[0], ROWS, COLS, stem_w.shape[-1]),
+            device=x.device, dtype=torch.float32)
+        y = trunk_forward(x, stem_w, stem_scale, stem_bias, block_w,
+                          block_scale, block_bias, groups, eps, acts)
+        ctx.save_for_backward(x, stem_w, stem_scale, stem_bias, block_w,
+                              block_scale, block_bias, acts, y)
+        ctx.groups, ctx.eps = groups, eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, sw, ss, sb, bw, bs, bb, acts, y = ctx.saved_tensors
+        grads = trunk_backward(x, sw, ss, sb, bw, bs, bb, dy.contiguous(),
+                               ctx.groups, ctx.eps,
+                               need_dx=ctx.needs_input_grad[0], acts=acts,
+                               y=y)
+        return grads + (None, None)
+
+
+def trunk_apply(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
+                block_bias, groups: int = 8, eps: float = EPS) -> torch.Tensor:
+    """The trunk through :class:`TrunkFunction` (differentiable)."""
+    return TrunkFunction.apply(x, stem_w, stem_scale, stem_bias, block_w,
+                               block_scale, block_bias, groups, eps)
 
 
 # ------------------------------------------------- flax param extraction

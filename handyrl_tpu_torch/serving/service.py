@@ -39,7 +39,8 @@ from ..connection import (FramedConnection, Hub, INFER_KIND, is_infer,
                           open_socket_connection)
 from ..guard import PREEMPT_EXIT_CODE, PreemptionGuard
 from ..model import resolve_device
-from ..ops import cuda_build, geese_trunk
+from .. import ops
+from ..ops import cuda_build
 from .client import SERVE_KIND, is_serve
 from .registry import ModelRegistry, RegistryError, parse_spec
 
@@ -47,8 +48,9 @@ _LOG = telemetry.get_logger('serving')
 
 
 def kernel_launches() -> Dict[str, int]:
-    """Launches of each CUDA kernel of the port in this process."""
-    return {'geese_trunk': geese_trunk.launches}
+    """Launches of each CUDA kernel of the port in this process (serving
+    launches only ``geese_trunk``; the others stay 0)."""
+    return ops.kernel_launches()
 
 
 class InferenceService:

@@ -133,8 +133,11 @@ def test_port_service_matches_jax_service(services):
         np.testing.assert_array_equal(g['action_mask'], mine['action_mask'])
     assert status['answered'] == status['received'] == len(plies)
     assert status['device'] == 'cpu'
-    # the CPU path never launches the CUDA kernel
-    assert status['kernel_launches'] == {'geese_trunk': 0}
+    # the CPU path never launches a CUDA kernel; the status lists every
+    # kernel of the port
+    assert status['kernel_launches'] == {
+        'geese_trunk': 0, 'geese_trunk_bwd': 0, 'td_lambda': 0, 'upgo': 0,
+        'vtrace': 0}
     assert geese_trunk.launches == 0
 
 
