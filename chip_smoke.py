@@ -15,13 +15,18 @@ non-zero, printing no result, when either is missing or any phase fails.
      8 groups) on real Hungry Geese observations, N in {1, 8, 64, 100,
      2048}; the library yardstick is the port's own ``torus_impl='pad'``
      trunk (cuDNN convs and torch's group_norm, which the kernel path never
-     calls);
+     calls). At N in {8, 2048} also its training form, timed beside the
+     serving form: the saved block inputs and normalised conv outputs
+     (xhat, abs) and per-group rstd (relative) against the plain training
+     forward's;
    - K2, the trunk backward, at the same width for N in {8, 64, 2048},
      from K1's training forward, every grad against the plain version's
      relative to the grad's largest element; the yardstick is torch
-     autograd's backward through the 'pad' trunk;
+     autograd's backward through the 'pad' trunk. Its two phases (K2a,
+     trunk_bwd_kernel; K2b, trunk_wgrad_kernel + column_sum) are timed
+     apart by torch.profiler and each has its own bound;
    - K1 and K2 at the other width they are built for, F=16 (2 blocks,
-     N=64), for correctness only;
+     N=64), for correctness only, K1's saved tensors included;
    - K3-K5, the TD(lambda), UPGO and V-Trace recursions, at (T=16, N)
      lanes (N = B*P) for N in {16, 100, 128, 2048}: 128 is the headline
      step's (B=128, P=1) and the row the kernels line reports, 16 the
@@ -48,8 +53,9 @@ non-zero, printing no result, when either is missing or any phase fails.
    against the same step of the port on the CPU (same weights, same
    batch: loss terms, grad norm, params and Adam's first moment by leaf),
    and the same for the UPGO/VTRACE step, which must launch K4 and K5.
-5. Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and
-   as the last line ``{"ok": true, "device": {...}}``.
+5. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
+   and K2b take their launches from K2's count, one of each a call), the
+   nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -101,8 +107,13 @@ STEP_NORM_RTOL = 1e-3
 STEP_UPDATE_RTOL = 1e-2
 STEP_MU_RTOL = 1e-3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 PEAK_SOURCE = 'H100 SXM data sheet at 700 W'
+# K1's saved normalised conv outputs (abs, as the trunk's output) and
+# per-group rstd (relative: rstd is 1/std of conv outputs of any size)
+RSTD_RTOL = 1e-4
+SAVED_NS = (8, 2048)     # the serving bucket and the update step's rows
 
 
 def fail(msg):
@@ -164,6 +175,66 @@ def graph_time_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_us(e):
+    return getattr(e, 'self_device_time_total',
+                   getattr(e, 'self_cuda_time_total', 0)) or 0
+
+
+def kernel_ms(torch, fn, reps):
+    """Device time of each kernel ``fn`` launches, per call of ``fn``, by
+    kernel name: torch.profiler over ``reps`` calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: device_us(e) / 1e3 / reps for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and device_us(e) > 0}
+
+
+def training_forward(torch, geese_trunk, x, weights, groups):
+    """K1's training form: (y, acts, xhat, rstd) on the card."""
+    saved = geese_trunk.training_buffers(x.shape[0], weights[3].shape[0],
+                                         weights[0].shape[-1], groups,
+                                         x.device)
+    y = geese_trunk.trunk_forward(x, *weights, groups=groups, **saved)
+    return y, saved['acts'], saved['xhat'], saved['rstd']
+
+
+def saved_errors(torch, geese_trunk, x, weights, groups):
+    """K1's training form against the plain training forward on the same
+    input: max abs error of y, acts and xhat, and rstd's max relative
+    error."""
+    got = training_forward(torch, geese_trunk, x, weights, groups)
+    torch.cuda.synchronize()
+    ref = [torch.empty_like(t) for t in got[1:]]
+    y = geese_trunk.trunk_forward_reference(x, *weights, groups=groups,
+                                            acts=ref[0], xhat=ref[1],
+                                            rstd=ref[2])
+    for name, t in zip(('y', 'acts', 'xhat', 'rstd'), got):
+        if not bool(torch.isfinite(t).all().item()):
+            fail('geese_trunk training form: non-finite %s' % name)
+    err = {name: (g - r).abs().max().item()
+           for name, g, r in zip(('y', 'acts', 'xhat'), got, [y] + ref[:2])}
+    err['rstd_rel'] = ((got[3] - ref[2]).abs() / ref[2].abs()).max().item()
+    return err
+
+
+def check_saved(err, what):
+    log('%s: K1 training form vs plain: max abs err y %.3g, acts %.3g, xhat '
+        '%.3g (tol %.0e); rstd max rel err %.3g (tol %.0e)' % (
+            what, err['y'], err['acts'], err['xhat'], TOL, err['rstd_rel'],
+            RSTD_RTOL))
+    if not (max(err['y'], err['acts'], err['xhat']) <= TOL
+            and err['rstd_rel'] <= RSTD_RTOL):
+        fail('%s: K1\'s saved tensors disagree with the plain training '
+             'forward' % what)
 
 
 def game_observations(make_env, count, seed):
@@ -277,58 +348,86 @@ def phase_kernels(torch, geese_trunk, GeeseNet, make_env):
             if not err <= TOL:
                 fail('geese_trunk disagrees with its plain version at N=%d: '
                      'max abs err %.3g > %.0e' % (n, err, TOL))
+            if n in SAVED_NS:
+                # the training form: also acts, xhat and rstd for K2
+                check_saved(saved_errors(torch, geese_trunk, x, weights,
+                                         WIDTH['groups']), 'N=%d' % n)
+                row['train_ms'] = cuda_time_ms(torch, lambda: training_forward(
+                    torch, geese_trunk, x, weights, WIDTH['groups']), 50)
+                log('geese_trunk N=%-3d training form %.4f ms (serving form '
+                    '%.4f ms)' % (n, row['train_ms'], row['ms']))
     return rows
 
 
-def bwd_bound_ms(n, cin, filters, layers):
-    """Least time for K2 at batch n as the update step calls it (no dx):
-    the convs recomputed, the blocks' transposed convs and the weight
-    products, over the fp32 peak; against the bytes of x, the block inputs,
-    y, dy and the weights read once and the grads written once."""
-    per_row = 2 * 77 * 9 * (cin * filters + layers * filters * filters)
-    flops = n * (2 * per_row + 2 * 77 * 9 * layers * filters * filters)
-    weights = 9 * cin * filters + layers * 9 * filters * filters \
-        + 2 * filters * (layers + 1)
-    nbytes = 4 * (n * 77 * (cin + (layers + 2) * filters) + 2 * weights)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
+def bwd_bounds_ms(n, cin, filters, layers, groups):
+    """Least times for K2's two phases at batch n as the update step calls
+    it (no dx), each the larger of its operations over the peak of the
+    units it runs on and its bytes (inputs read once, outputs written once)
+    over the HBM rate. Phase A (trunk_bwd_kernel): the blocks' transposed
+    convs in 3xTF32 on the tensor cores, three TF32 products per fp32
+    multiply-add, over the TF32 peak; it reads xhat, rstd, acts (the ReLU
+    masks), y, dy and the weights and writes dc and the scale and bias
+    grads. Phase B (trunk_wgrad_kernel + column_sum): the weight products
+    in fp32 on the CUDA cores over the fp32 peak; it reads x, acts, dc and
+    the scale and bias grads and writes the grads. Returns {phase: (ms,
+    bound_by, flops, bytes)}."""
+    nl = layers + 1
+    weights = 9 * cin * filters + layers * 9 * filters * filters
+    grads = weights + 2 * filters * nl
+    px = 77 * filters
+    a_flops = n * 2 * 77 * 9 * layers * filters * filters
+    a_bytes = 4 * (n * (nl * px + nl * groups + layers * px + 2 * px
+                        + nl * px + nl * 2 * filters) + weights + 2 * nl * filters)
+    b_flops = n * 2 * 77 * 9 * (cin * filters + layers * filters * filters)
+    b_bytes = 4 * (n * (77 * cin + layers * px + nl * px + nl * 2 * filters)
+                   + grads)
+    out = {}
+    for phase, t_ops, flops, nbytes in (
+            ('a', 3 * a_flops / PEAK_TF32_FLOPS, a_flops, a_bytes),
+            ('b', b_flops / PEAK_FP32_FLOPS, b_flops, b_bytes)):
+        t_bytes = nbytes / PEAK_BYTES
+        out[phase] = (1e3 * max(t_ops, t_bytes),
+                      'operations' if t_ops >= t_bytes else 'bytes', flops,
+                      nbytes)
+    return out
+
+
+PHASES = {'a': ('trunk_bwd_kernel',), 'b': ('trunk_wgrad_kernel',
+                                             'column_sum')}
 
 
 def phase_backward(torch, geese_trunk, GeeseNet, make_env):
     """K2 against its plain version and torch autograd's backward through
-    the 'pad' trunk."""
+    the 'pad' trunk; each phase timed by the profiler."""
     import numpy as np
     net, weights = trunk_net(torch, GeeseNet)
     all_obs = np.stack(game_observations(make_env, max(BWD_NS), SEED + 2))
     gen = torch.Generator().manual_seed(SEED + 3)
     names = ('dx', 'd_stem_w', 'd_stem_scale', 'd_stem_bias', 'd_block_w',
              'd_block_scale', 'd_block_bias')
-    L, F = WIDTH['layers'], WIDTH['filters']
+    L, F, G = WIDTH['layers'], WIDTH['filters'], WIDTH['groups']
     rows = {}
     for n in BWD_NS:
         x = torch.from_numpy(all_obs[:n]).cuda().permute(0, 2, 3, 1) \
             .contiguous()
         dy = torch.randn(n, 7, 11, F, generator=gen).cuda()
         with torch.no_grad():
-            acts = torch.empty(n, L, 7, 11, F, device=x.device)
-            y = geese_trunk.trunk_forward(x, *weights, groups=WIDTH['groups'],
-                                          acts=acts)
+            y, acts, xhat, rstd = training_forward(torch, geese_trunk, x,
+                                                   weights, G)
+            saved = dict(acts=acts, y=y, xhat=xhat, rstd=rstd)
 
             def kernel(need_dx=False):
                 return geese_trunk.trunk_backward(
-                    x, *weights, dy, groups=WIDTH['groups'], need_dx=need_dx,
-                    acts=acts, y=y)
+                    x, *weights, dy, groups=G, need_dx=need_dx, **saved)
 
             def plain():
                 return geese_trunk.trunk_backward_reference(
-                    x, *weights, dy, groups=WIDTH['groups'], need_dx=False,
-                    acts=acts, y=y)
+                    x, *weights, dy, groups=G, need_dx=False, **saved)
 
             got = kernel(need_dx=True)
             torch.cuda.synchronize()
-            ref = geese_trunk.trunk_backward_reference(
-                x, *weights, dy, groups=WIDTH['groups'], acts=acts, y=y)
+            ref = geese_trunk.trunk_backward_reference(x, *weights, dy,
+                                                       groups=G, **saved)
             errs = {}
             for name, g, r in zip(names, got, ref):
                 if not bool(torch.isfinite(g).all().item()):
@@ -336,23 +435,39 @@ def phase_backward(torch, geese_trunk, GeeseNet, make_env):
                 errs[name] = ((g - r).abs().max() / r.abs().max()).item()
             ms = cuda_time_ms(torch, kernel, 20)
             plain_ms = cuda_time_ms(torch, plain, 5)
+            by_kernel = kernel_ms(torch, kernel, 10)
         # the yardstick: autograd through the cuDNN trunk, backward only
         with torch.enable_grad():
             yp = net.trunk(x)
             library_ms = cuda_time_ms(torch, lambda: torch.autograd.grad(
                 yp, weights, dy, retain_graph=True), 5)
         del yp
-        bound, bound_by, flops, nbytes = bwd_bound_ms(
-            n, WIDTH['cin'], F, L)
         err = max(errs.values())
-        rows[n] = {'n': n, 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
-                   'library_ms': library_ms, 'bound_ms': bound,
-                   'bound_by': bound_by, 'flops': flops, 'bytes': nbytes}
+        bounds = bwd_bounds_ms(n, WIDTH['cin'], F, L, G)
+        row = {'n': n, 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+               'library_ms': library_ms}
+        for phase, kernels in PHASES.items():
+            times = [t for k, t in by_kernel.items()
+                     if any(name in k for name in kernels)]
+            if len(times) != len(kernels):
+                fail('the profiler shows %d of K2 phase %s\'s kernels %s: %s'
+                     % (len(times), phase, kernels, sorted(by_kernel)))
+            bound, bound_by, flops, nbytes = bounds[phase]
+            row[phase] = {'ms': sum(times), 'bound_ms': bound,
+                          'bound_by': bound_by, 'flops': flops,
+                          'bytes': nbytes}
+        rows[n] = row
         log('geese_trunk_bwd N=%-4d max err / max |grad| %.3g (tol %.0e; %s)'
-            '  kernel %.4f ms  plain %.4f ms  library %.4f ms  bound %.4f '
-            'ms (%s)' % (n, err, BWD_TOL, ', '.join(
-                '%s %.2g' % kv for kv in errs.items()), ms, plain_ms,
-                library_ms, bound, bound_by))
+            '  kernel %.4f ms  plain %.4f ms  library %.4f ms' % (
+                n, err, BWD_TOL, ', '.join('%s %.2g' % kv for kv in
+                                           errs.items()), ms, plain_ms,
+                library_ms))
+        for phase, kernels in PHASES.items():
+            r = row[phase]
+            log('  phase %s (%s) %.4f ms a call (profiler), bound %.4f ms '
+                '(%s; %.4g GFLOP, %.4g MB)' % (
+                    phase, ' + '.join(kernels), r['ms'], r['bound_ms'],
+                    r['bound_by'], r['flops'] / 1e9, r['bytes'] / 1e6))
         if not err <= BWD_TOL:
             fail('geese_trunk_bwd disagrees with its plain version at N=%d'
                  % n)
@@ -375,15 +490,17 @@ def phase_narrow(torch, geese_trunk, n=64, filters=16, layers=2):
                rand(layers, filters, scale=0.1))
     x, dy = rand(n, 7, 11, cin), rand(n, 7, 11, filters)
     with torch.no_grad():
-        acts = torch.empty(n, layers, 7, 11, filters, device='cuda')
-        y = geese_trunk.trunk_forward(x, *weights, groups=groups, acts=acts)
+        check_saved(saved_errors(torch, geese_trunk, x, weights, groups),
+                    'F=%d L=%d N=%d' % (filters, layers, n))
+        y, acts, xhat, rstd = training_forward(torch, geese_trunk, x,
+                                               weights, groups)
+        saved = dict(acts=acts, y=y, xhat=xhat, rstd=rstd)
         y_err = (y - geese_trunk.trunk_forward_reference(
             x, *weights, groups=groups)).abs().max().item()
         got = geese_trunk.trunk_backward(x, *weights, dy, groups=groups,
-                                         acts=acts, y=y)
+                                         **saved)
         ref = geese_trunk.trunk_backward_reference(x, *weights, dy,
-                                                   groups=groups, acts=acts,
-                                                   y=y)
+                                                   groups=groups, **saved)
         g_err = max(((g - r).abs().max() / r.abs().max()).item()
                     for g, r in zip(got, ref))
     log('F=%d L=%d N=%d: geese_trunk max_abs_err %.3g (tol %.0e), '
@@ -762,9 +879,6 @@ def profile_step(torch, steps=5):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
-    def device_us(e):
-        return getattr(e, 'self_device_time_total',
-                       getattr(e, 'self_cuda_time_total', 0)) or 0
     # the kernels' own rows (the host ops' rows repeat their kernels' time)
     rows = sorted(((device_us(e) / 1e3 / steps, e.count // steps, e.key)
                    for e in prof.key_averages()
@@ -830,12 +944,13 @@ def main():
              'step_td_td': train[('TD', 'TD')],
              'step_upgo_vtrace': train[('UPGO', 'VTRACE')]}
 
-    def entry(name, source, replaces, main_row, by_n, **extra):
+    def entry(name, source, replaces, main_row, by_n, count=None, **extra):
+        count = count or name   # the wrapper count the launches are read from
         row = {'name': name, 'route': 'cuda',
                'source': 'handyrl_tpu_torch/csrc/' + source,
                'replaces': replaces,
-               'launches': sum(p.get(name, 0) for p in paths.values()),
-               'launches_by_path': {k: p.get(name, 0)
+               'launches': sum(p.get(count, 0) for p in paths.values()),
+               'launches_by_path': {k: p.get(count, 0)
                                     for k, p in paths.items()},
                'max_abs_err': max(r['max_abs_err'] for r in by_n.values()),
                'peaks': PEAK_SOURCE}
@@ -849,12 +964,19 @@ def main():
 
     kernels = [
         entry('geese_trunk', 'geese_trunk.cu',
-              'handyrl_tpu/ops/pallas_geese.py:108', rows[MAIN_PATH_N], rows),
-        entry('geese_trunk_bwd', 'geese_trunk.cu',
-              'handyrl_tpu/ops/pallas_geese.py:115', bwd_rows[TRAIN_N],
-              bwd_rows, max_abs_err_is='relative to each grad\'s largest '
-              'element'),
+              'handyrl_tpu/ops/pallas_geese.py:108', rows[MAIN_PATH_N], rows,
+              train_ms={str(n): rows[n]['train_ms'] for n in SAVED_NS}),
     ]
+    # K2 as its two phases: each wrapper call launches each phase once
+    for phase, kernel_names in PHASES.items():
+        by_n = {n: dict(r, **r[phase]) for n, r in bwd_rows.items()}
+        kernels.append(entry(
+            'geese_trunk_bwd_' + phase, 'geese_trunk.cu',
+            'handyrl_tpu/ops/pallas_geese.py:115', by_n[TRAIN_N], by_n,
+            count='geese_trunk_bwd', kernels=kernel_names,
+            k2_ms=bwd_rows[TRAIN_N]['ms'],
+            max_abs_err_is='of K2\'s grads, relative to each grad\'s '
+            'largest element', plain_and_library_ms_are='of the whole K2'))
     for name, line in (('td_lambda', 129), ('upgo', 138), ('vtrace', 149)):
         by_n = {n: target_rows[(name, n)] for n in TARGET_NS}
         kernels.append(entry(

@@ -27,6 +27,15 @@
 // add and the ReLU are applied in registers. The limit this design keeps:
 // a sample runs on one SM (4 warps at F=32), so a batch of N rows fills N
 // of the 132 SMs, and one SM's fp32 rate bounds a row's latency.
+//
+// Training form (saved != nullptr): besides the output it writes what K2
+// reads of the forward, so that K2 recomputes no conv: each block's input
+// (acts, N x L x 77 x F; the ReLU masks come from these outputs), and each
+// layer's normalised conv output xhat = (conv - mean) rstd (N x (L+1) x 77
+// x F) and per-group rstd (N x (L+1) x groups), straight from the
+// accumulators. At N=2048 that is 242 + 262 MB more to write, against a
+// conv and a GroupNorm per layer that K2 no longer repeats (half its
+// arithmetic); the serving form computes and stores only the output.
 
 #include <cuda_runtime.h>
 
@@ -177,8 +186,9 @@ trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
                  const float* __restrict__ block_w,
                  const float* __restrict__ block_scale,
                  const float* __restrict__ block_bias, float* __restrict__ out,
-                 float* __restrict__ saved, int cin, int layers, int groups,
-                 float eps) {
+                 float* __restrict__ saved, float* __restrict__ xhat_out,
+                 float* __restrict__ rstd_out, int cin, int layers,
+                 int groups, float eps) {
   using S = Shape<F>;
   extern __shared__ __align__(16) float smem[];
   const int cinp = round4(cin);
@@ -272,6 +282,22 @@ trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
       mul[j] = rstd[j] * scv[j];
       add[j] = biv[j] - mean[j] * mul[j];
     }
+    if (xhat_out) {   // training: keep xhat and rstd of every layer for K2
+      const size_t nl_index = static_cast<size_t>(blockIdx.x) * (layers + 1) +
+                              layer;
+      float* xo = xhat_out + nl_index * kPix * F;
+#pragma unroll
+      for (int k = 0; k < kPPT; ++k)
+        if (own[k])
+          reinterpret_cast<float4*>(xo + pix[k] * F)[q] = make_float4(
+              (acc[k][0] - mean[0]) * rstd[0], (acc[k][1] - mean[1]) * rstd[1],
+              (acc[k][2] - mean[2]) * rstd[2], (acc[k][3] - mean[3]) * rstd[3]);
+      if (slot == 0)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if ((4 * q + j) % cpg == 0)
+            rstd_out[nl_index * groups + (4 * q + j) / cpg] = rstd[j];
+    }
 #pragma unroll
     for (int k = 0; k < kPPT; ++k) {
       if (!own[k]) continue;
@@ -301,8 +327,9 @@ template <int F>
 cudaError_t launch(const float* x, const float* stem_w, const float* stem_scale,
                    const float* stem_bias, const float* block_w,
                    const float* block_scale, const float* block_bias,
-                   float* out, float* saved, int n, int cin, int layers,
-                   int groups, float eps, cudaStream_t stream) {
+                   float* out, float* saved, float* xhat, float* rstd, int n,
+                   int cin, int layers, int groups, float eps,
+                   cudaStream_t stream) {
   using S = Shape<F>;
   const int cinp = round4(cin);
   const int cmax = cinp > F ? cinp : F;
@@ -316,7 +343,7 @@ cudaError_t launch(const float* x, const float* stem_w, const float* stem_scale,
   if (err != cudaSuccess) return err;
   trunk_fwd_kernel<F><<<n, S::kThreads, smem, stream>>>(
       x, stem_w, stem_scale, stem_bias, block_w, block_scale, block_bias, out,
-      saved, cin, layers, groups, eps);
+      saved, xhat, rstd, cin, layers, groups, eps);
   return cudaGetLastError();
 }
 
@@ -331,22 +358,28 @@ cudaError_t launch(const float* x, const float* stem_w, const float* stem_scale,
 // sequential grid. On the card blocks run in no order, so the work is split
 // by what it reduces over:
 //
-//  A. trunk_bwd_kernel, one block per sample (as K1), walks the layers from
-//     the top down. Each layer's input comes from memory: the training
-//     forward of K1 saved the 12 block inputs (N x 12 x 77 x F fp32, 242 MB
-//     at N=2048; cheaper than a second forward, and 80 GB has room), the
-//     stem's is x. From it the block recomputes the conv and the GroupNorm
-//     statistics (the same code as K1). The ReLU masks are read from the
-//     saved outputs (the next block's input, y for the top block), not
-//     recomputed: a pre-activation within rounding of 0 would flip between
-//     any two computations of the forward, and the mask then decides a
-//     whole element of the gradient. Then, in registers: the GroupNorm
-//     backward (per-channel sums of g and g*xhat reduced like K1's
-//     statistics), dc = d(conv output), and the transposed conv (taps
-//     flipped through the same wrapped-neighbour table) into the next
-//     layer's dh, which stays in shared memory. dc of
-//     every layer goes to memory (N x 13 x 77 x F), and so do the sample's
-//     scale and bias grads (N x 13 x 2F).
+//  A. trunk_bwd_kernel walks the layers from the top down for kSamples = 2
+//     samples a block. It replaces the TPU kernel's per-tile recompute:
+//     the VMEM budget there (pallas_geese.py:9-14) made recomputing the
+//     forward cheaper than keeping it, but this card has 80 GB, so each
+//     layer reads the normalised conv output xhat and rstd that K1's
+//     training form saved, and recomputes no conv and no statistic. The
+//     ReLU masks come from the saved outputs (the next block's input, y
+//     for the top block), never from a recomputed pre-activation: one
+//     within rounding of 0 flips between any two computations of the
+//     forward, and the mask decides a whole element of the gradient.
+//     Per layer: (E) the GroupNorm backward in K1's (quad, slot) register
+//     layout, dc = rstd (g scale - mean(g scale) - xhat mean(g scale
+//     xhat)) with g the masked dh, which needs no mean; dc goes to memory
+//     for B and, split into TF32 (hi, lo) pairs, to shared memory; then
+//     (C) the transposed conv, dh_in = g + sum_t,f W[t][ci][f]
+//     dc[nbr(p, 8 - t)][f], on the tensor cores in 3xTF32
+//     (conv_transpose_mma: mma.sync m16n8k8, ci as M and the pixels as N,
+//     the HWIO weights as A as they are). Each operand is split once:
+//     the weights when staged, dc when written to shared memory. The
+//     stem's transposed conv (dx) runs on the same path, only when asked.
+//     dc of every layer (N x 13 x 77 x F) and the scale and bias grads (N
+//     x 13 x 2F) go to memory.
 //  B. trunk_wgrad_kernel, one block per (layer, group of kChunk samples):
 //     dW[t][ci][f] = sum over the group's samples and pixels p of
 //     in[nbr(p, t)][ci] * dc[p][f], each thread a 4 x 8 register tile of
@@ -355,17 +388,89 @@ cudaError_t launch(const float* x, const float* stem_w, const float* stem_scale,
 //  C. column_sum adds the partial rows in group order: the result does not
 //     depend on the order in which blocks ran.
 //
-// Bound: operations. Per sample, A recomputes the convs (17.8 MFLOP) and
-// runs the transposed convs (17.0 MFLOP, the stem's only when dx is
-// asked for), B the weight products (17.8 MFLOP): about 3x K1, 106 GFLOP
-// at N=2048, 1.6 ms at 67 TFLOP/s fp32. The bytes (block inputs and dc
-// written and read once: about 1 GB at N=2048) take 0.3 ms at 3.35 TB/s.
-// Known limit of this first version: the transposed conv reads weight rows
-// 4q..4q+3 across the warp at a stride of 4F floats, a 4-way shared-memory
-// bank conflict; the forward layout is kept so that one staged copy of the
-// weights serves both convs.
+// Bound of A at N=2048 without dx: bytes. It reads xhat (262 MB), acts
+// (242 MB), y, dy (20 MB each) and rstd, and writes dc (262 MB) and the
+// scale and bias grads: 815 MB, 0.24 ms at 3.35 TB/s. Its transposed convs
+// are 34.9 GFLOP, 0.21 ms as 3xTF32 at 495 TFLOP/s (0.52 ms at the fp32
+// peak). How the design goes after it: every byte is read and written
+// once; while layer l's conv runs, cp.async brings layer l - 1's xhat,
+// mask rows and rstd into the prefetch buffer (xm) and the next block's
+// weights arrive in registers (load_block_weights), to be split into
+// shared memory when the conv is done with ws. The two samples of a block
+// share one weight stage. The shared memory (F=32): weights 83 KB as
+// (hi, lo) pairs, per sample dc pairs 22 KB, dh 11 KB and the prefetch
+// buffer 20 KB, 194 KB in all with the neighbour table, so an SM holds one
+// block: 8 warps, 2 samples. The limit it keeps: the two samples step
+// through the layers together, so the conv and the GroupNorm backward with
+// its barriers and memory traffic take turns on the SM instead of
+// overlapping (offsetting the samples by half a layer measured slower: a
+// sample's conv is bound by its warps' dependent mma and shared loads,
+// not by the SM's throughput), and each warp reads dc fragments from
+// shared memory for every k-step. B: 36.4 GFLOP fp32 on the CUDA cores,
+// bound by operations at 0.54 ms.
 
-constexpr int kChunk = 16;   // samples per partial row of B
+constexpr int kChunk = 16;     // samples per partial row of B
+constexpr int kSamples = 2;    // samples per block of A
+constexpr int kPixTiles = 5;   // n8 pixel tiles of a warp's conv: two warps
+static_assert(2 * kPixTiles * 8 >= kPix, "cover the 77 pixels");
+
+__host__ __device__ constexpr int round16(int c) { return (c + 15) & ~15; }
+
+template <int F>
+struct BwdShape {
+  static constexpr int kSampleThreads = Shape<F>::kThreads;   // (quad, slot)
+  static constexpr int kSampleWarps = Shape<F>::kWarps;
+  static constexpr int kThreads = kSamples * kSampleThreads;
+  static constexpr int kPair = 2 * (F + kPadC);   // (hi, lo) row stride, floats
+  static constexpr int kWChunks =                 // float4s of a block's W
+      (kTaps * F * F / 4 + kThreads - 1) / kThreads;   //   per thread
+  static_assert(kSampleWarps == 2 * (F / 16), "one (m16, pixel half) per warp");
+  static_assert(kPair % 32 == 8, "rows of (hi, lo) pairs 8 banks apart");
+};
+
+// 4-byte asynchronous copy from global to shared memory.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from 0.
+__device__ __forceinline__ float tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// 3xTF32: x = hi + lo with both TF32, hi = x rounded and lo the rest
+// rounded, so that hi*hi + hi*lo + lo*hi carries fp32's precision (the
+// lo*lo term left out is below 2^-22 of the product).
+__device__ __forceinline__ float2 split_tf32(float x) {
+  const float hi = tf32_rna(x);
+  return make_float2(hi, tf32_rna(x - hi));
+}
+
+// Four floats as (hi, lo) pairs into 8 floats at dst (16-byte aligned).
+__device__ __forceinline__ void store_split4(float* dst, float4 v) {
+  const float2 a = split_tf32(v.x), b = split_tf32(v.y);
+  const float2 c = split_tf32(v.z), d = split_tf32(v.w);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+
+// c += a * b on the tensor cores: one m16n8k8 TF32 product with fp32
+// accumulation; a, b in mma's fragment layouts (row, col).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], float a0, float a1,
+                                         float a2, float a3, float b0,
+                                         float b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(__float_as_uint(a0)), "r"(__float_as_uint(a1)),
+        "r"(__float_as_uint(a2)), "r"(__float_as_uint(a3)),
+        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
 
 // Group sums of v (F floats in shared memory) for this thread's 4
 // channels: channels of one group share one sum.
@@ -381,117 +486,188 @@ __device__ __forceinline__ void group_sums_of(const float* v, int q, int cpg,
   }
 }
 
-// The transposed 3x3 torus conv for output channels 4*oq..4*oq+3 (the
-// layer's input channels) at this thread's pixels: sum over taps t and
-// conv channels f of dc[nbr(p, 8 - t)][f] * W[t][ci][f]. ws holds the
-// layer's weights as (9, cp, F).
+// A block's HWIO weights (9, F, F) from global memory into this thread's
+// registers, kWChunks float4s, to be split into shared memory later by
+// stage_block_weights.
 template <int F>
-__device__ __forceinline__ void conv_transpose(const float* dcs, int stride,
-                                               const float* ws, int cp, int oq,
-                                               const int* nbr,
-                                               const int (&pix)[kPPT],
-                                               float (&acc)[kPPT][4]) {
+__device__ __forceinline__ void load_block_weights(
+    float4 (&wr)[BwdShape<F>::kWChunks], const float* __restrict__ w) {
+  using B = BwdShape<F>;
 #pragma unroll
-  for (int k = 0; k < kPPT; ++k)
+  for (int k = 0; k < B::kWChunks; ++k) {
+    const int i = threadIdx.x + k * B::kThreads;
+    if (i < kTaps * F * F / 4)
+      wr[k] = __ldg(reinterpret_cast<const float4*>(w) + i);
+  }
+}
+
+// Split the weights of load_block_weights into ws as (9, F) rows of F
+// (hi, lo) pairs at a row stride of kPair floats.
+template <int F>
+__device__ __forceinline__ void stage_block_weights(
+    float* ws, const float4 (&wr)[BwdShape<F>::kWChunks]) {
+  using B = BwdShape<F>;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
+  for (int k = 0; k < B::kWChunks; ++k) {
+    const int i = threadIdx.x + k * B::kThreads;
+    if (i < kTaps * F * F / 4)
+      store_split4(ws + (i / (F / 4)) * B::kPair + 8 * (i % (F / 4)), wr[k]);
+  }
+}
+
+// The same for the stem's weights (9, cin, F), as (9, cw) rows with the
+// rows ci >= cin zero.
+template <int F>
+__device__ void stage_stem_weights(float* ws, const float* __restrict__ w,
+                                   int cin, int cw) {
+  using B = BwdShape<F>;
+  for (int i = threadIdx.x; i < kTaps * cw * (F / 4); i += B::kThreads) {
+    const int f4 = i % (F / 4), row = i / (F / 4);
+    const int ci = row % cw, t = row / cw;
+    const float4 v = ci < cin ? __ldg(reinterpret_cast<const float4*>(
+                                    w + (t * cin + ci) * F) + f4)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    store_split4(ws + row * B::kPair + 8 * f4, v);
+  }
+}
+
+// The transposed 3x3 torus conv of one sample, an implicit GEMM on the
+// tensor cores with the conv's input channels as M and the pixels as N:
+// dh[p][ci] = sum over taps t and conv channels f of W[t][ci][f] *
+// dc[nbr(p, 8 - t)][f], K = 9 taps x F. A is the HWIO weights as they are
+// (f contiguous for each (t, ci): the row layout mma takes for A), B is dc
+// gathered through the wrapped-neighbour table with the taps flipped (f
+// contiguous for each pixel: the col layout). This warp computes m16 tile
+// mt (ci = 16 mt .. 16 mt + 15) against n8 tiles 5 nh .. 5 nh + 4 (pixels
+// 40 nh .. 40 nh + 39; those past 76 repeat pixel 76 and are dropped): a
+// k-step reads one A and five B fragments for 15 mma. dcs and ws hold
+// (hi, lo) TF32 pairs at a row stride of kPair floats (ws as (9, cw)
+// rows), so one 8-byte load gives both halves of an element, and with
+// kPair = 8 mod 32 the four rows a quarter warp reads lie 8 banks apart:
+// no conflicts. Each k-step is three mma: hi*hi into acc, lo*hi + hi*lo
+// into a second set of fp32 accumulators added at the end, so that the
+// three do not wait on each other and the small terms are not rounded
+// against the large ones (it halved K2's error on the card).
+template <int F>
+__device__ __forceinline__ void conv_transpose_mma(const float* dcs,
+                                                   const float* ws, int cw,
+                                                   int mt, int nh,
+                                                   const int* nbr,
+                                                   float (&acc)[kPixTiles][4]) {
+  using B = BwdShape<F>;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tq = lane & 3;
+  float small[kPixTiles][4];   // the lo*hi + hi*lo terms
+#pragma unroll
+  for (int j = 0; j < kPixTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = small[j][e] = 0.f;
+#pragma unroll
   for (int t = 0; t < kTaps; ++t) {
-    const float* src[kPPT];
+    const float* bp[kPixTiles];   // this lane's pixel of each n8 tile
 #pragma unroll
-    for (int k = 0; k < kPPT; ++k)
-      src[k] = dcs + nbr[pix[k] * kTaps + (kTaps - 1 - t)] * stride;
-    const float* wt = ws + (t * cp + 4 * oq) * F;
+    for (int j = 0; j < kPixTiles; ++j) {
+      const int p = min(8 * (kPixTiles * nh + j) + gid, kPix - 1);
+      bp[j] = dcs + nbr[p * kTaps + kTaps - 1 - t] * B::kPair + 2 * tq;
+    }
+    const float* ap = ws + (t * cw + 16 * mt + gid) * B::kPair + 2 * tq;
 #pragma unroll
-    for (int f = 0; f < F; f += 4) {
-      float4 w[4];
+    for (int kk = 0; kk < F / 8; ++kk) {
+      const float* ak = ap + 16 * kk;
+      const float2 a0 = *reinterpret_cast<const float2*>(ak);
+      const float2 a1 = *reinterpret_cast<const float2*>(ak + 8 * B::kPair);
+      const float2 a2 = *reinterpret_cast<const float2*>(ak + 8);
+      const float2 a3 =
+          *reinterpret_cast<const float2*>(ak + 8 * B::kPair + 8);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        w[j] = *reinterpret_cast<const float4*>(wt + j * F + f);
-#pragma unroll
-      for (int k = 0; k < kPPT; ++k) {
-        const float4 v = *reinterpret_cast<const float4*>(src[k] + f);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[k][j] = fmaf(v.x, w[j].x, acc[k][j]);
-          acc[k][j] = fmaf(v.y, w[j].y, acc[k][j]);
-          acc[k][j] = fmaf(v.z, w[j].z, acc[k][j]);
-          acc[k][j] = fmaf(v.w, w[j].w, acc[k][j]);
-        }
+      for (int j = 0; j < kPixTiles; ++j) {
+        const float2 b0 = *reinterpret_cast<const float2*>(bp[j] + 16 * kk);
+        const float2 b1 =
+            *reinterpret_cast<const float2*>(bp[j] + 16 * kk + 8);
+        mma_tf32(small[j], a0.y, a1.y, a2.y, a3.y, b0.x, b1.x);
+        mma_tf32(small[j], a0.x, a1.x, a2.x, a3.x, b0.y, b1.y);
+        mma_tf32(acc[j], a0.x, a1.x, a2.x, a3.x, b0.x, b1.x);
       }
     }
   }
-}
-
-// Stage layer l's weights (0 = the stem, padded to cinp rows whose extra
-// rows are zeroed here) into ws; complete after cp_async_wait_all and a
-// barrier.
-template <int F>
-__device__ void stage_layer(float* ws, int l, const float* stem_w,
-                            const float* block_w, int cin, int cinp) {
-  if (l == 0) {
-    stage_weights<F>(ws, stem_w, cin, cinp);
-    for (int i = threadIdx.x; i < kTaps * (cinp - cin) * F;
-         i += Shape<F>::kThreads) {
-      const int f = i % F, rest = i / F;
-      ws[((rest / (cinp - cin)) * cinp + cin + rest % (cinp - cin)) * F + f] =
-          0.f;
-    }
-  } else {
-    stage_weights<F>(ws, block_w + static_cast<size_t>(l - 1) * kTaps * F * F,
-                     F, F);
-  }
+#pragma unroll
+  for (int j = 0; j < kPixTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += small[j][e];
 }
 
 template <int F>
-__global__ void __launch_bounds__(Shape<F>::kThreads, 1)
-trunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
+__global__ void __launch_bounds__(BwdShape<F>::kThreads, 1)
+trunk_bwd_kernel(const float* __restrict__ stem_w,
                  const float* __restrict__ stem_scale,
-                 const float* __restrict__ stem_bias,
                  const float* __restrict__ block_w,
                  const float* __restrict__ block_scale,
-                 const float* __restrict__ block_bias,
                  const float* __restrict__ acts, const float* __restrict__ y,
+                 const float* __restrict__ xhat,
+                 const float* __restrict__ rstd_in,
                  const float* __restrict__ dy, float* __restrict__ dx,
-                 float* __restrict__ dc_out,
-                 float* __restrict__ dsn, int cin, int layers, int groups,
-                 float eps) {
+                 float* __restrict__ dc_out, float* __restrict__ dsn, int n,
+                 int cin, int layers, int groups) {
   using S = Shape<F>;
+  using B = BwdShape<F>;
   extern __shared__ __align__(16) float smem[];
-  const int cinp = round4(cin);
-  const int xstride = cinp + kPadC;
-  const int cmax = cinp > F ? cinp : F;
-  const int astride = xstride > S::kHStride ? xstride : S::kHStride;
-  float* as = smem;                              // kPix x astride  layer input
-  float* dhs = as + kPix * astride;              // kPix x kHStride d(output)
-  float* dcs = dhs + kPix * S::kHStride;         // kPix x kHStride d(conv)
-  const int wsize = kTaps * cmax * F;
-  float* ws0 = dcs + kPix * S::kHStride;         // 9 x cmax x F    weights,
-  float* ws1 = ws0 + wsize;                      //   two buffers
-  float* red = ws1 + wsize;                      // 4 x kWarps x F  sums
-  float* chan = red + 4 * S::kWarps * F;         // 2 x F           channel sums
-  int* nbr = reinterpret_cast<int*>(chan + 2 * F);   // kPix x 9
+  const int cw = round16(cin);                   // the stem's conv width
+  const int wrows = dx && cw > F ? cw : F;
+  const int xm_size = 2 * kPix * F + round4(groups);
+  float* ws = smem;                              // 9 x wrows x kPair  W
+  float* dcs = ws + kTaps * wrows * B::kPair;    // kSamples x kPix x kPair dc
+  float* dhs = dcs + kSamples * kPix * B::kPair; // ... x kPix x kHStride dh
+  float* xms = dhs + kSamples * kPix * S::kHStride;   // ... x xm_size
+  float* red = xms + kSamples * xm_size;         // 2 x all warps x F  sums
+  float* chan = red + 2 * kSamples * S::kWarps * F;   // kSamples x 2F
+  int* nbr = reinterpret_cast<int*>(chan + kSamples * 2 * F);   // kPix x 9
 
   const int tid = threadIdx.x;
-  const size_t n = blockIdx.x;
+  const int s = tid / B::kSampleThreads;         // this thread's sample
+  const int lt = tid % B::kSampleThreads;
+  const int wis = (tid / 32) % B::kSampleWarps;  // warp in the sample
+  const size_t ns = static_cast<size_t>(blockIdx.x) * kSamples + s;
+  const bool valid = ns < static_cast<size_t>(n);
+  const size_t nr = valid ? ns : n - 1;   // an absent sample writes nothing
   const int nl = layers + 1;
-  stage_layer<F>(ws0, layers, stem_w, block_w, cin, cinp);
-  for (int i = tid; i < kPix * kTaps; i += S::kThreads) {
+  float* dcs_s = dcs + s * kPix * B::kPair;
+  float* dhs_s = dhs + s * kPix * S::kHStride;
+  float* xm_s = xms + s * xm_size;   // layer l's xhat rows, mask rows, rstd
+
+  // start copying layer l's xhat, the rows its ReLU mask comes from (its
+  // saved output) and its rstd into xm_s
+  auto prefetch = [&](int l) {
+    const float* xg = xhat + (nr * nl + l) * kPix * F;
+    const float* og = l == layers ? y + nr * kPix * F
+                                  : acts + (nr * layers + l) * kPix * F;
+    for (int i = lt; i < kPix * F / 4; i += B::kSampleThreads) {
+      cp_async16(xm_s + 4 * i, xg + 4 * i);
+      cp_async16(xm_s + kPix * F + 4 * i, og + 4 * i);
+    }
+    for (int i = lt; i < groups; i += B::kSampleThreads)
+      cp_async4(xm_s + 2 * kPix * F + i, rstd_in + (nr * nl + l) * groups + i);
+  };
+
+  float4 wr[B::kWChunks];
+  if (layers > 0)
+    load_block_weights<F>(
+        wr, block_w + static_cast<size_t>(layers - 1) * kTaps * F * F);
+  for (int i = tid; i < kPix * kTaps; i += B::kThreads) {
     const int p = i / kTaps, t = i % kTaps;
     const int r = p / kCols, c = p % kCols;
     const int a = t / 3, b = t % 3;
     nbr[i] = ((r + a + kRows - 1) % kRows) * kCols + (c + b + kCols - 1) % kCols;
   }
-  const float* dyn = dy + n * kPix * F;
-  for (int i = tid; i < kPix * (F / 4); i += S::kThreads) {
-    const int p = i / (F / 4), c4 = i % (F / 4);
-    reinterpret_cast<float4*>(dhs + p * S::kHStride)[c4] =
-        reinterpret_cast<const float4*>(dyn + p * F)[c4];
-  }
+  const float* dyn = dy + nr * kPix * F;
+  for (int i = lt; i < kPix * F / 4; i += B::kSampleThreads)
+    cp_async16(dhs_s + (i / (F / 4)) * S::kHStride + 4 * (i % (F / 4)),
+               dyn + 4 * i);
+  prefetch(layers);
   cp_async_wait_all();
   __syncthreads();
 
-  const int q = tid % S::kQuads;
-  const int slot = tid / S::kQuads;
+  const int q = lt % S::kQuads;
+  const int slot = lt / S::kQuads;
   const int cpg = F / groups;
   const float inv_count = 1.f / static_cast<float>(kPix * cpg);
   int pix[kPPT];
@@ -502,144 +678,119 @@ trunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
     own[k] = p < kPix;
     pix[k] = own[k] ? p : kPix - 1;
   }
-  float* red1 = red;
-  float* red2 = red1 + S::kWarps * F;
-  float* red3 = red2 + S::kWarps * F;
-  float* red4 = red3 + S::kWarps * F;
+  float* red1 = red;                               // sums of g, by warp
+  float* red2 = red + kSamples * S::kWarps * F;    // ... of g * xhat
+  float* chan_s = chan + s * 2 * F;
 
   for (int l = layers; l >= 0; --l) {
-    // layer l runs on buffer (layers - l) % 2 while layer l - 1's weights
-    // stream into the other one, which layer l + 1 has finished with
-    const float* ws = (layers - l) % 2 ? ws1 : ws0;
-    if (l > 0)
-      stage_layer<F>((layers - l) % 2 ? ws0 : ws1, l - 1, stem_w, block_w, cin,
-                     cinp);
-    if (l > 0) {
-      const float* an = acts + (n * layers + (l - 1)) * kPix * F;
-      for (int i = tid; i < kPix * (F / 4); i += S::kThreads) {
-        const int p = i / (F / 4), c4 = i % (F / 4);
-        reinterpret_cast<float4*>(as + p * S::kHStride)[c4] =
-            reinterpret_cast<const float4*>(an + p * F)[c4];
-      }
-    } else {
-      const float* xn = x + n * kPix * cin;
-      for (int i = tid; i < kPix * xstride; i += S::kThreads) {
-        const int p = i / xstride, c = i % xstride;
-        as[i] = c < cin ? xn[p * cin + c] : 0.f;
-      }
-    }
-    __syncthreads();   // the layer input is in place
-
-    // the forward of this layer, as K1 computes it
-    float acc[kPPT][4];
-    if (l == 0)
-      conv<F, 0>(as, xstride, cinp, ws, nbr, pix, q, acc);
-    else
-      conv<F, F>(as, S::kHStride, F, ws, nbr, pix, q, acc);
-    channel_partials<F>(acc, own, q, red1);
-    __syncthreads();
-    float mean[4], rstd[4];
-    group_sums<F>(red1, q, cpg, mean);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) mean[j] *= inv_count;
-    float tmp[kPPT][4];
-#pragma unroll
-    for (int k = 0; k < kPPT; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float d = acc[k][j] - mean[j];
-        tmp[k][j] = d * d;
-      }
-    channel_partials<F>(tmp, own, q, red2);
-    __syncthreads();
-    group_sums<F>(red2, q, cpg, rstd);
+    // the GroupNorm backward of layer l in K1's (quad, slot) layout: g =
+    // dh where the layer's saved output is positive, from xhat and rstd
+    // as K1 saved them
     const float* scale = l == 0 ? stem_scale : block_scale + (l - 1) * F;
     const float4 sc4 = reinterpret_cast<const float4*>(scale)[q];
     const float scv[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
+    const float* xh = xm_s;
+    const float* ov = xm_s + kPix * F;
+    float rstd[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) rstd[j] = rsqrtf(rstd[j] * inv_count + eps);
-
-    // ReLU mask: g = dh where the layer's saved output is positive; acc
-    // becomes xhat and tmp g * xhat
-    const float* outn = l == layers ? y + n * kPix * F
-                                    : acts + (n * layers + l) * kPix * F;
-    float g[kPPT][4];
+    for (int j = 0; j < 4; ++j) rstd[j] = xm_s[2 * kPix * F + (4 * q + j) / cpg];
+    float g[kPPT][4], xv[kPPT][4], tmp[kPPT][4];
 #pragma unroll
     for (int k = 0; k < kPPT; ++k) {
-      const float4 dh4 =
-          reinterpret_cast<const float4*>(dhs + pix[k] * S::kHStride)[q];
-      const float4 o4 = reinterpret_cast<const float4*>(outn + pix[k] * F)[q];
+      float4* dhp = reinterpret_cast<float4*>(dhs_s + pix[k] * S::kHStride) + q;
+      const float4 dh4 = *dhp;
+      const float4 o4 = reinterpret_cast<const float4*>(ov + pix[k] * F)[q];
+      const float4 x4 = reinterpret_cast<const float4*>(xh + pix[k] * F)[q];
       const float dhv[4] = {dh4.x, dh4.y, dh4.z, dh4.w};
-      const float ov[4] = {o4.x, o4.y, o4.z, o4.w};
+      const float ovv[4] = {o4.x, o4.y, o4.z, o4.w};
+      const float xvv[4] = {x4.x, x4.y, x4.z, x4.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        g[k][j] = own[k] && ov[j] > 0.f ? dhv[j] : 0.f;
-        acc[k][j] = (acc[k][j] - mean[j]) * rstd[j];
-        tmp[k][j] = g[k][j] * acc[k][j];
+        g[k][j] = own[k] && ovv[j] > 0.f ? dhv[j] : 0.f;
+        xv[k][j] = xvv[j];
+        tmp[k][j] = g[k][j] * xvv[j];
       }
+      // dh of the layer's input starts as the residual g (blocks)
+      if (own[k]) *dhp = make_float4(g[k][0], g[k][1], g[k][2], g[k][3]);
     }
-    channel_partials<F>(g, own, q, red3);
-    channel_partials<F>(tmp, own, q, red4);
+    channel_partials<F>(g, own, q, red1);
+    channel_partials<F>(tmp, own, q, red2);
+    if (l > 0) stage_block_weights<F>(ws, wr);   // the last conv is done
     __syncthreads();
-    if (tid < F) {
+    if (lt < F) {
       float s1 = 0.f, s2 = 0.f;
-      for (int w = 0; w < S::kWarps; ++w) {
-        s1 += red3[w * F + tid];
-        s2 += red4[w * F + tid];
+      for (int w = s * B::kSampleWarps; w < (s + 1) * B::kSampleWarps; ++w) {
+        s1 += red1[w * F + lt];
+        s2 += red2[w * F + lt];
       }
-      float* dn = dsn + (n * nl + l) * 2 * F;
-      dn[tid] = s2;        // d scale
-      dn[F + tid] = s1;    // d bias
-      chan[tid] = s1 * scale[tid];
-      chan[F + tid] = s2 * scale[tid];
+      if (valid) {
+        float* dn = dsn + (ns * nl + l) * 2 * F;
+        dn[lt] = s2;        // d scale
+        dn[F + lt] = s1;    // d bias
+      }
+      chan_s[lt] = s1 * scale[lt];
+      chan_s[F + lt] = s2 * scale[lt];
     }
     __syncthreads();
 
-    // GroupNorm backward: dc = rstd (g scale - mean(g scale)
-    //                                 - xhat mean(g scale xhat))
+    // dc = rstd (g scale - mean(g scale) - xhat mean(g scale xhat)), to
+    // memory for phase B and, split into (hi, lo), to dcs for the conv
     float m1[4], m2[4];
-    group_sums_of<F>(chan, q, cpg, m1);
-    group_sums_of<F>(chan + F, q, cpg, m2);
-    float* dcn = dc_out + (n * nl + l) * kPix * F;
+    group_sums_of<F>(chan_s, q, cpg, m1);
+    group_sums_of<F>(chan_s + F, q, cpg, m2);
+    float* dcn = dc_out + (ns * nl + l) * kPix * F;
 #pragma unroll
     for (int k = 0; k < kPPT; ++k) {
       float d[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         d[j] = rstd[j] * (g[k][j] * scv[j] - m1[j] * inv_count -
-                          acc[k][j] * (m2[j] * inv_count));
+                          xv[k][j] * (m2[j] * inv_count));
       if (!own[k]) continue;
       const float4 d4 = make_float4(d[0], d[1], d[2], d[3]);
-      reinterpret_cast<float4*>(dcs + pix[k] * S::kHStride)[q] = d4;
-      reinterpret_cast<float4*>(dcn + pix[k] * F)[q] = d4;
+      store_split4(dcs_s + pix[k] * B::kPair + 8 * q, d4);
+      if (valid) reinterpret_cast<float4*>(dcn + pix[k] * F)[q] = d4;
     }
-    __syncthreads();   // dcs is complete
+    if (l == 0 && dx) stage_stem_weights<F>(ws, stem_w, cin, cw);
+    __syncthreads();   // dcs and ws are complete; xm_s is free
 
+    const int lane = tid & 31;
+    const int gid = lane >> 2, tq = lane & 3;
+    float acc[kPixTiles][4];
     if (l > 0) {
+      // layer l - 1's weights, xhat, mask rows and rstd come in meanwhile
+      if (l > 1)
+        load_block_weights<F>(
+            wr, block_w + static_cast<size_t>(l - 2) * kTaps * F * F);
+      prefetch(l - 1);
       // dh of block l's input: the residual g plus the transposed conv
-      conv_transpose<F>(dcs, S::kHStride, ws, F, q, nbr, pix, acc);
+      const int mt = wis >> 1, nh = wis & 1;
+      conv_transpose_mma<F>(dcs_s, ws, F, mt, nh, nbr, acc);
 #pragma unroll
-      for (int k = 0; k < kPPT; ++k) {
-        if (!own[k]) continue;
-        reinterpret_cast<float4*>(dhs + pix[k] * S::kHStride)[q] =
-            make_float4(g[k][0] + acc[k][0], g[k][1] + acc[k][1],
-                        g[k][2] + acc[k][2], g[k][3] + acc[k][3]);
-      }
-    } else if (dx) {
-      float* dxn = dx + n * kPix * cin;
-      for (int oq = q; oq < cinp / 4; oq += S::kQuads) {
-        conv_transpose<F>(dcs, S::kHStride, ws, cinp, oq, nbr, pix, acc);
+      for (int j = 0; j < kPixTiles; ++j)
 #pragma unroll
-        for (int k = 0; k < kPPT; ++k) {
-          if (!own[k]) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (4 * oq + j < cin) dxn[pix[k] * cin + 4 * oq + j] = acc[k][j];
+        for (int e = 0; e < 4; ++e) {
+          const int p = 8 * (kPixTiles * nh + j) + 2 * tq + (e & 1);
+          if (p < kPix)
+            dhs_s[p * S::kHStride + 16 * mt + gid + 8 * (e >> 1)] += acc[j][e];
         }
+    } else if (dx) {
+      for (int job = wis; job < 2 * (cw / 16); job += B::kSampleWarps) {
+        const int mt = job >> 1, nh = job & 1;
+        conv_transpose_mma<F>(dcs_s, ws, cw, mt, nh, nbr, acc);
+        if (!valid) continue;
+#pragma unroll
+        for (int j = 0; j < kPixTiles; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int p = 8 * (kPixTiles * nh + j) + 2 * tq + (e & 1);
+            const int ci = 16 * mt + gid + 8 * (e >> 1);
+            if (p < kPix && ci < cin) dx[(ns * kPix + p) * cin + ci] = acc[j][e];
+          }
       }
     }
     cp_async_wait_all();
-    __syncthreads();   // dhs and the next layer's weights are complete
+    __syncthreads();   // dhs, xm_s and the next layer's weights are complete
   }
 }
 
@@ -767,29 +918,31 @@ __global__ void column_sum(const float* __restrict__ in, float* __restrict__ out
 
 template <int F>
 cudaError_t launch_backward(const float* x, const float* stem_w,
-                            const float* stem_scale, const float* stem_bias,
-                            const float* block_w, const float* block_scale,
-                            const float* block_bias, const float* acts,
-                            const float* y, const float* dy, float* dx,
-                            float* dc_all,
-                            float* dsn, float* partials, float* out, int n,
-                            int cin, int layers, int groups, float eps,
-                            cudaStream_t stream) {
+                            const float* stem_scale, const float* block_w,
+                            const float* block_scale, const float* acts,
+                            const float* y, const float* xhat,
+                            const float* rstd, const float* dy, float* dx,
+                            float* dc_all, float* dsn, float* partials,
+                            float* out, int n, int cin, int layers,
+                            int groups, cudaStream_t stream) {
   using S = Shape<F>;
+  using B = BwdShape<F>;
   using W = WShape<F>;
-  const int cinp = round4(cin);
-  const int cmax = cinp > F ? cinp : F;
-  const int astride = cinp + kPadC > S::kHStride ? cinp + kPadC : S::kHStride;
+  const int cw = round16(cin);
+  const int wrows = dx && cw > F ? cw : F;
   const int smem_a = static_cast<int>(
-      sizeof(float) * (kPix * astride + 2 * kPix * S::kHStride +
-                       2 * kTaps * cmax * F + 4 * S::kWarps * F + 2 * F) +
+      sizeof(float) * (kTaps * wrows * B::kPair +
+                       kSamples * (kPix * (B::kPair + S::kHStride) +
+                                   2 * kPix * F + round4(groups)) +
+                       2 * kSamples * S::kWarps * F + kSamples * 2 * F) +
       sizeof(int) * kPix * kTaps);
   cudaError_t err = cudaFuncSetAttribute(
       trunk_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
   if (err != cudaSuccess) return err;
-  trunk_bwd_kernel<F><<<n, S::kThreads, smem_a, stream>>>(
-      x, stem_w, stem_scale, stem_bias, block_w, block_scale, block_bias, acts,
-      y, dy, dx, dc_all, dsn, cin, layers, groups, eps);
+  trunk_bwd_kernel<F><<<(n + kSamples - 1) / kSamples, B::kThreads, smem_a,
+                        stream>>>(stem_w, stem_scale, block_w, block_scale,
+                                  acts, y, xhat, rstd, dy, dx, dc_all, dsn, n,
+                                  cin, layers, groups);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -817,50 +970,49 @@ extern "C" int geese_trunk_forward(const float* x, const float* stem_w,
                                    const float* block_w,
                                    const float* block_scale,
                                    const float* block_bias, float* out,
-                                   float* saved, int n, int cin, int f,
-                                   int layers, int groups, float eps,
-                                   void* stream) {
+                                   float* saved, float* xhat, float* rstd,
+                                   int n, int cin, int f, int layers,
+                                   int groups, float eps, void* stream) {
   if (n <= 0 || cin <= 0 || layers < 0 || groups <= 0 || f % groups != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (f) {
     case 16:
       return launch<16>(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
-                        block_bias, out, saved, n, cin, layers, groups, eps, s);
+                        block_bias, out, saved, xhat, rstd, n, cin, layers,
+                        groups, eps, s);
     case 32:
       return launch<32>(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
-                        block_bias, out, saved, n, cin, layers, groups, eps, s);
+                        block_bias, out, saved, xhat, rstd, n, cin, layers,
+                        groups, eps, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// acts (n, layers, 77, f) and y (n, 77, f) are the training forward's block
-// inputs and output. Scratch the caller allocates: dc_all (n, layers+1, 77,
-// f), dsn (n,
-// layers+1, 2f), partials (ceil(n / geese_trunk_backward_chunk()), total)
-// and out (total), total = 9*cin*f + layers*9*f*f + 2*(layers+1)*f.
+// acts (n, layers, 77, f), y (n, 77, f), xhat (n, layers+1, 77, f) and
+// rstd (n, layers+1, groups) are what the training forward saved. Scratch
+// the caller allocates: dc_all (n, layers+1, 77, f), dsn (n, layers+1, 2f),
+// partials (ceil(n / geese_trunk_backward_chunk()), total) and out (total),
+// total = 9*cin*f + layers*9*f*f + 2*(layers+1)*f.
 extern "C" int geese_trunk_backward(
     const float* x, const float* stem_w, const float* stem_scale,
-    const float* stem_bias, const float* block_w, const float* block_scale,
-    const float* block_bias, const float* acts, const float* y,
-    const float* dy, float* dx, float* dc_all, float* dsn, float* partials,
-    float* out, int n, int cin, int f, int layers, int groups, float eps,
-    void* stream) {
+    const float* block_w, const float* block_scale, const float* acts,
+    const float* y, const float* xhat, const float* rstd, const float* dy,
+    float* dx, float* dc_all, float* dsn, float* partials, float* out, int n,
+    int cin, int f, int layers, int groups, void* stream) {
   if (n <= 0 || cin <= 0 || layers < 0 || groups <= 0 || f % groups != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (f) {
     case 16:
-      return launch_backward<16>(x, stem_w, stem_scale, stem_bias, block_w,
-                                 block_scale, block_bias, acts, y, dy, dx,
-                                 dc_all, dsn, partials, out, n, cin, layers,
-                                 groups, eps, s);
+      return launch_backward<16>(x, stem_w, stem_scale, block_w, block_scale,
+                                 acts, y, xhat, rstd, dy, dx, dc_all, dsn,
+                                 partials, out, n, cin, layers, groups, s);
     case 32:
-      return launch_backward<32>(x, stem_w, stem_scale, stem_bias, block_w,
-                                 block_scale, block_bias, acts, y, dy, dx,
-                                 dc_all, dsn, partials, out, n, cin, layers,
-                                 groups, eps, s);
+      return launch_backward<32>(x, stem_w, stem_scale, block_w, block_scale,
+                                 acts, y, xhat, rstd, dy, dx, dc_all, dsn,
+                                 partials, out, n, cin, layers, groups, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

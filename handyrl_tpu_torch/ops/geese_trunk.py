@@ -9,8 +9,11 @@ The trunk is a 3x3 torus-conv stem with GroupNorm and ReLU, then L blocks of
 they run :func:`trunk_forward_reference` and the hand-derived
 :func:`trunk_backward_reference`; for a CUDA tensor they launch
 ``csrc/geese_trunk.cu`` or raise. :class:`TrunkFunction` ties the two into
-autograd. ``launches`` and ``backward_launches`` count the kernel launches
-of this process (CPU calls never count).
+autograd. The training forward saves, for K2, each block's input
+(``acts``), each layer's normalised conv output (``xhat``) and per-group
+rstd (``rstd``); with the output ``y`` they are all K2 reads of the
+forward, so it recomputes no conv. ``launches`` and ``backward_launches``
+count the kernel launches of this process (CPU calls never count).
 """
 
 from __future__ import annotations
@@ -50,33 +53,55 @@ def _torus_conv(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.reshape(B, ROWS, COLS, F).to(h.dtype)
 
 
-def _group_norm(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                groups: int, eps: float = EPS) -> torch.Tensor:
-    """flax nn.GroupNorm: per-sample statistics over the board and the
-    channels of each group, in fp32, var = E[x^2] - E[x]^2."""
-    B, H, W, C = h.shape
-    hf = h.float().reshape(B, H * W, groups, C // groups)
+def _normalize(c: torch.Tensor, groups: int, eps: float = EPS):
+    """flax nn.GroupNorm's statistics of c (B,H,W,C): per sample over the
+    board and the channels of each group, in fp32, var = max(E[c^2] -
+    E[c]^2, 0). Returns (xhat (B,H,W,C), rstd (B,groups), the unclamped
+    variance (B,groups)), xhat = (c - mean) rstd."""
+    B, H, W, C = c.shape
+    cf = c.float().reshape(B, H * W, groups, C // groups)
     n = float(H * W * (C // groups))
-    mean = hf.sum(dim=(1, 3)) / n
-    var = torch.clamp((hf * hf).sum(dim=(1, 3)) / n - mean * mean, min=0.0)
-    rstd = torch.rsqrt(var + eps)
-    hn = (hf - mean[:, None, :, None]) * rstd[:, None, :, None]
-    return (hn.reshape(h.shape) * scale + bias).to(h.dtype)
+    mean = cf.sum(dim=(1, 3)) / n
+    var_raw = (cf * cf).sum(dim=(1, 3)) / n - mean * mean
+    rstd = torch.rsqrt(torch.clamp(var_raw, min=0.0) + eps)
+    xhat = (cf - mean[:, None, :, None]) * rstd[:, None, :, None]
+    return xhat.reshape(c.shape), rstd, var_raw
+
+
+def _group_norm(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                groups: int, eps: float = EPS, saved=None) -> torch.Tensor:
+    """flax nn.GroupNorm: xhat * scale + bias (:func:`_normalize`). With
+    ``saved`` = (xhat (B,H,W,C), rstd (B,groups)) buffers, the values it
+    normalises with are also written there."""
+    xhat, rstd, _ = _normalize(h, groups, eps)
+    if saved is not None:
+        saved[0].copy_(xhat)
+        saved[1].copy_(rstd)
+    return (xhat * scale + bias).to(h.dtype)
 
 
 def trunk_forward_reference(x, stem_w, stem_scale, stem_bias, block_w,
                             block_scale, block_bias, groups: int = 8,
-                            eps: float = EPS, acts=None) -> torch.Tensor:
+                            eps: float = EPS, acts=None, xhat=None,
+                            rstd=None) -> torch.Tensor:
     """Plain PyTorch twin of ``pallas_geese.tile_forward``, step by step:
-    relu(GN(conv(x))) stem, then L x relu(h + GN(conv(h))). With ``acts``
-    (N,L,7,11,F), block i's input is also written to ``acts[:, i]``."""
-    h = torch.relu(_group_norm(_torus_conv(x, stem_w), stem_scale, stem_bias,
-                               groups, eps))
+    relu(GN(conv(x))) stem, then L x relu(h + GN(conv(h))). The training
+    forward's buffers, each optional: ``acts`` (N,L,7,11,F) gets block i's
+    input at ``acts[:, i]``; ``xhat`` (N,L+1,7,11,F) and ``rstd``
+    (N,L+1,groups) get layer l's normalised conv output and per-group rstd
+    at ``[:, l]`` (layer 0 is the stem)."""
+    def norm(c, l, scale, bias):
+        saved = None
+        if xhat is not None and rstd is not None:
+            saved = (xhat[:, l], rstd[:, l])
+        return _group_norm(c, scale, bias, groups, eps, saved)
+
+    h = torch.relu(norm(_torus_conv(x, stem_w), 0, stem_scale, stem_bias))
     for i in range(block_w.shape[0]):
         if acts is not None:
             acts[:, i] = h
-        c = _group_norm(_torus_conv(h, block_w[i]), block_scale[i],
-                        block_bias[i], groups, eps)
+        c = norm(_torus_conv(h, block_w[i]), i + 1, block_scale[i],
+                 block_bias[i])
         h = torch.relu(h + c)
     return h
 
@@ -114,43 +139,45 @@ def _conv_weight_grad(h: torch.Tensor, dc: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps).reshape(3, 3, C, F)
 
 
-def _group_norm_backward(dz, c, scale, groups: int, eps: float):
-    """The adjoint of :func:`_group_norm` at conv output c: returns
-    (dc, dscale, dbias). xhat = (c - mean) rstd with var = max(E[c^2] -
-    E[c]^2, 0) and rstd = rsqrt(var + eps); the variance term is cut where
-    the max clamps, as its derivative is 0 there:
-    dc = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat) [var > 0])."""
-    B, H, W, C = c.shape
+def _group_norm_backward(dz, xhat, rstd, scale, groups: int, var_raw=None):
+    """The adjoint of :func:`_group_norm` at the normalised conv output
+    xhat (B,H,W,C) with per-group rstd (B,groups): returns (dc, dscale,
+    dbias), dc = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) with
+    dxhat = dz scale; no mean is needed. Given the unclamped variance
+    ``var_raw``, the last term is cut where max(var_raw, 0) clamps, as its
+    derivative is 0 there (the saved path, like K2, has no variance and
+    keeps it)."""
+    B, H, W, C = dz.shape
     cpg = C // groups
     n = float(H * W * cpg)
-    cf = c.reshape(B, H * W, groups, cpg)
-    mean = cf.sum(dim=(1, 3)) / n
-    var_raw = (cf * cf).sum(dim=(1, 3)) / n - mean * mean
-    rstd = torch.rsqrt(torch.clamp(var_raw, min=0.0) + eps)
-    xhat = (cf - mean[:, None, :, None]) * rstd[:, None, :, None]
+    xh = xhat.reshape(B, H * W, groups, cpg)
     gz = dz.reshape(B, H * W, groups, cpg)
-    dscale = (gz * xhat).sum(dim=(0, 1)).reshape(C)
+    dscale = (gz * xh).sum(dim=(0, 1)).reshape(C)
     dbias = gz.sum(dim=(0, 1)).reshape(C)
     dxhat = gz * scale.reshape(groups, cpg)
     m1 = dxhat.sum(dim=(1, 3)) / n
-    m2 = (dxhat * xhat).sum(dim=(1, 3)) / n * (var_raw > 0)
+    m2 = (dxhat * xh).sum(dim=(1, 3)) / n
+    if var_raw is not None:
+        m2 = m2 * (var_raw > 0)
     dc = rstd[:, None, :, None] * (dxhat - m1[:, None, :, None]
-                                   - xhat * m2[:, None, :, None])
-    return dc.reshape(c.shape), dscale, dbias
+                                   - xh * m2[:, None, :, None])
+    return dc.reshape(dz.shape), dscale, dbias
 
 
 def trunk_backward_reference(x, stem_w, stem_scale, stem_bias, block_w,
                              block_scale, block_bias, dy, groups: int = 8,
                              eps: float = EPS, need_dx: bool = True,
-                             acts=None, y=None):
-    """The trunk's backward derived by hand, in plain PyTorch: each layer's
-    input, conv output and output, then from the top layer down the ReLU
-    mask, the GroupNorm backward, the weight grad and the transposed conv,
-    with the residual's identity path on every block and none on the stem.
-    The layer inputs and outputs are ``acts`` and ``y``, the block inputs
-    and the output of a training forward (as K2 takes them), so that the
-    ReLU masks are that forward's own; without them the plain training
-    forward runs here first. Returns (dx or None, d_stem_w, d_stem_scale,
+                             acts=None, y=None, xhat=None, rstd=None):
+    """The trunk's backward derived by hand, in plain PyTorch: from the top
+    layer down the ReLU mask, the GroupNorm backward, the weight grad and
+    the transposed conv, with the residual's identity path on every block
+    and none on the stem. The layer inputs and outputs are ``acts`` and
+    ``y``, the block inputs and the output of a training forward (as K2
+    takes them), so that the ReLU masks are that forward's own; without
+    them the plain training forward runs here first. Each layer's
+    normalised conv output and rstd are ``xhat`` and ``rstd`` from that
+    forward (as K2 reads them); without them they are recomputed from the
+    layer inputs. Returns (dx or None, d_stem_w, d_stem_scale,
     d_stem_bias, d_block_w, d_block_scale, d_block_bias)."""
     layers = [(stem_w, stem_scale, stem_bias)] + [
         (block_w[i], block_scale[i], block_bias[i])
@@ -163,14 +190,19 @@ def trunk_backward_reference(x, stem_w, stem_scale, stem_bias, block_w,
                                     eps, acts)
     blocks_in = [acts[:, i] for i in range(acts.shape[1])]
     inputs, outs = [x] + blocks_in, blocks_in + [y]
-    convs = [_torus_conv(h, w) for h, (w, _, _) in zip(inputs, layers)]
+    if xhat is None or rstd is None:
+        normed = [_normalize(_torus_conv(h, w), groups, eps)
+                  for h, (w, _, _) in zip(inputs, layers)]
+    else:
+        normed = [(xhat[:, l], rstd[:, l], None) for l in range(len(layers))]
     dh = dy
     grads = [None] * len(layers)
     dx = None
     for i in range(len(layers) - 1, -1, -1):
         w, s, _ = layers[i]
         g = dh * (outs[i] > 0)
-        dc, ds, db = _group_norm_backward(g, convs[i], s, groups, eps)
+        dc, ds, db = _group_norm_backward(g, *normed[i][:2], s, groups,
+                                          normed[i][2])
         grads[i] = (_conv_weight_grad(inputs[i], dc), ds, db)
         if i > 0:
             dh = g + _conv_transpose(dc, w)
@@ -198,11 +230,10 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_build.load('geese_trunk')
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.geese_trunk_forward.argtypes = [p] * 9 + [i] * 5 + [
+        lib.geese_trunk_forward.argtypes = [p] * 11 + [i] * 5 + [
             ctypes.c_float, p]
         lib.geese_trunk_forward.restype = ctypes.c_int
-        lib.geese_trunk_backward.argtypes = [p] * 15 + [i] * 5 + [
-            ctypes.c_float, p]
+        lib.geese_trunk_backward.argtypes = [p] * 15 + [i] * 5 + [p]
         lib.geese_trunk_backward.restype = ctypes.c_int
         lib.geese_trunk_backward_chunk.argtypes = []
         lib.geese_trunk_backward_chunk.restype = ctypes.c_int
@@ -270,37 +301,65 @@ def _raise_on(err: int, lib, what: str):
                                      lib.geese_trunk_error_string(err).decode()))
 
 
+def training_buffers(n: int, layers: int, filters: int, groups: int,
+                     device) -> Dict[str, torch.Tensor]:
+    """Empty float32 buffers for what the training forward saves for K2:
+    ``acts`` (n,L,7,11,F), ``xhat`` (n,L+1,7,11,F), ``rstd`` (n,L+1,groups),
+    to pass to :func:`trunk_forward` as keywords."""
+    f32 = dict(device=device, dtype=torch.float32)
+    return {'acts': torch.empty((n, layers, ROWS, COLS, filters), **f32),
+            'xhat': torch.empty((n, layers + 1, ROWS, COLS, filters), **f32),
+            'rstd': torch.empty((n, layers + 1, groups), **f32)}
+
+
+def _check_saved(n, layers, filters, groups, dev, acts=None, xhat=None,
+                 rstd=None, y=None):
+    """Shape checks of the training forward's saved tensors."""
+    _check('acts', acts, (n, layers, ROWS, COLS, filters), dev)
+    _check('xhat', xhat, (n, layers + 1, ROWS, COLS, filters), dev)
+    _check('rstd', rstd, (n, layers + 1, groups), dev)
+    if y is not None:
+        _check('y', y, (n, ROWS, COLS, filters), dev)
+
+
 def trunk_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
                   block_bias, groups: int = 8, eps: float = EPS,
-                  acts=None) -> torch.Tensor:
+                  acts=None, xhat=None, rstd=None) -> torch.Tensor:
     """The trunk, (N,7,11,Cin) -> (N,7,11,F). CPU tensors take the plain
     version; CUDA tensors launch the kernel, and anything the kernel does
-    not take (dtype, shape, layout, F) raises. With ``acts`` (N,L,7,11,F,
-    float32) each block's input is also written there (the training
-    forward, which K2 reads)."""
+    not take (dtype, shape, layout, F) raises. The training forward, which
+    K2 reads, also writes ``acts`` (N,L,7,11,F; each block's input),
+    ``xhat`` (N,L+1,7,11,F; each layer's normalised conv output) and
+    ``rstd`` (N,L+1,groups), all float32; the kernel takes the three
+    together or none of them."""
     global launches
     if _device_kind(x) == 'cpu':
         return trunk_forward_reference(x, stem_w, stem_scale, stem_bias,
                                        block_w, block_scale, block_bias,
-                                       groups, eps, acts)
+                                       groups, eps, acts, xhat, rstd)
     n, cin, filters, layers = _check_operands(
         x, stem_w, stem_scale, stem_bias, block_w, block_scale, block_bias,
         groups)
     dev = x.device
-    if acts is not None:
-        _check('acts', acts, (n, layers, ROWS, COLS, filters), dev)
+    saved = (acts, xhat, rstd)
+    training = acts is not None
+    if any((t is None) == training for t in saved):
+        raise ValueError('geese_trunk: the training forward takes acts, '
+                         'xhat and rstd together')
+    if training:
+        _check_saved(n, layers, filters, groups, dev, *saved)
     out = torch.empty((n, ROWS, COLS, filters), device=dev,
                       dtype=torch.float32)
     if n == 0:
         return out
     lib = _library()
+    ptrs = [None if t is None else t.data_ptr() for t in saved]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.geese_trunk_forward(
             x.data_ptr(), stem_w.data_ptr(), stem_scale.data_ptr(),
             stem_bias.data_ptr(), block_w.data_ptr(), block_scale.data_ptr(),
-            block_bias.data_ptr(), out.data_ptr(),
-            None if acts is None else acts.data_ptr(), n, cin, filters,
+            block_bias.data_ptr(), out.data_ptr(), *ptrs, n, cin, filters,
             layers, groups, float(eps), stream)
     _raise_on(err, lib, 'forward')
     launches += 1
@@ -309,30 +368,32 @@ def trunk_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
 
 def trunk_backward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
                    block_bias, dy, groups: int = 8, eps: float = EPS,
-                   need_dx: bool = True, acts=None, y=None):
+                   need_dx: bool = True, acts=None, y=None, xhat=None,
+                   rstd=None):
     """The trunk's vector-Jacobian product at (x, weights) for the output
     grad dy (N,7,11,F): (dx or None, d_stem_w, d_stem_scale, d_stem_bias,
     d_block_w, d_block_scale, d_block_bias), all float32. CPU tensors take
     :func:`trunk_backward_reference`; CUDA tensors launch K2 or raise.
-    ``acts`` and ``y`` are the block inputs and the output of the training
-    forward of the same operands (K1 with ``acts``); the kernel needs
-    them, the plain version runs that forward itself without them."""
+    ``acts``, ``y``, ``xhat`` and ``rstd`` are what the training forward
+    of the same operands saved (:func:`trunk_forward` with acts, xhat and
+    rstd, and its output); the kernel needs all four, the plain version
+    runs or recomputes what it is not given."""
     global backward_launches
     if _device_kind(x) == 'cpu':
         return trunk_backward_reference(x, stem_w, stem_scale, stem_bias,
                                         block_w, block_scale, block_bias, dy,
-                                        groups, eps, need_dx, acts, y)
+                                        groups, eps, need_dx, acts, y, xhat,
+                                        rstd)
     n, cin, filters, layers = _check_operands(
         x, stem_w, stem_scale, stem_bias, block_w, block_scale, block_bias,
         groups)
     dev = x.device
     _check('dy', dy, (n, ROWS, COLS, filters), dev)
-    if acts is None or y is None:
-        raise ValueError('geese_trunk: the backward kernel takes acts and y '
-                         'from the training forward (trunk_forward(..., '
-                         'acts=...))')
-    _check('acts', acts, (n, layers, ROWS, COLS, filters), dev)
-    _check('y', y, (n, ROWS, COLS, filters), dev)
+    if acts is None or y is None or xhat is None or rstd is None:
+        raise ValueError('geese_trunk: the backward kernel takes acts, y, '
+                         'xhat and rstd from the training forward '
+                         '(trunk_forward(..., acts=, xhat=, rstd=))')
+    _check_saved(n, layers, filters, groups, dev, acts, xhat, rstd, y)
     nl = layers + 1
     n_stem, n_blocks = 9 * cin * filters, layers * 9 * filters * filters
     total = n_stem + n_blocks + 2 * nl * filters
@@ -351,12 +412,11 @@ def trunk_backward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.geese_trunk_backward(
                 x.data_ptr(), stem_w.data_ptr(), stem_scale.data_ptr(),
-                stem_bias.data_ptr(), block_w.data_ptr(),
-                block_scale.data_ptr(), block_bias.data_ptr(),
-                acts.data_ptr(), y.data_ptr(), dy.data_ptr(),
-                None if dx is None else dx.data_ptr(), dc_all.data_ptr(),
-                dsn.data_ptr(), partials.data_ptr(), flat.data_ptr(), n, cin,
-                filters, layers, groups, float(eps), stream)
+                block_w.data_ptr(), block_scale.data_ptr(), acts.data_ptr(),
+                y.data_ptr(), xhat.data_ptr(), rstd.data_ptr(),
+                dy.data_ptr(), None if dx is None else dx.data_ptr(),
+                dc_all.data_ptr(), dsn.data_ptr(), partials.data_ptr(),
+                flat.data_ptr(), n, cin, filters, layers, groups, stream)
         _raise_on(err, lib, 'backward')
         backward_launches += 1
     elif dx is not None:
@@ -370,31 +430,32 @@ def trunk_backward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
 
 
 class TrunkFunction(torch.autograd.Function):
-    """The trunk under autograd: the forward is K1 (its training form, which
-    keeps the block inputs for the backward), the backward is K2 on those
-    and the output; on the CPU both are their plain versions. ``dx`` is
-    computed only when x needs a grad."""
+    """The trunk under autograd: the forward is K1's training form, which
+    keeps each block's input, each layer's normalised conv output and
+    rstd for the backward; the backward is K2 on those and the output. On
+    the CPU both are their plain versions. ``dx`` is computed only when x
+    needs a grad."""
 
     @staticmethod
     def forward(ctx, x, stem_w, stem_scale, stem_bias, block_w, block_scale,
                 block_bias, groups, eps):
-        acts = torch.empty(
-            (x.shape[0], block_w.shape[0], ROWS, COLS, stem_w.shape[-1]),
-            device=x.device, dtype=torch.float32)
+        saved = training_buffers(x.shape[0], block_w.shape[0],
+                                 stem_w.shape[-1], groups, x.device)
         y = trunk_forward(x, stem_w, stem_scale, stem_bias, block_w,
-                          block_scale, block_bias, groups, eps, acts)
+                          block_scale, block_bias, groups, eps, **saved)
         ctx.save_for_backward(x, stem_w, stem_scale, stem_bias, block_w,
-                              block_scale, block_bias, acts, y)
+                              block_scale, block_bias, saved['acts'], y,
+                              saved['xhat'], saved['rstd'])
         ctx.groups, ctx.eps = groups, eps
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, sw, ss, sb, bw, bs, bb, acts, y = ctx.saved_tensors
+        x, sw, ss, sb, bw, bs, bb, acts, y, xhat, rstd = ctx.saved_tensors
         grads = trunk_backward(x, sw, ss, sb, bw, bs, bb, dy.contiguous(),
                                ctx.groups, ctx.eps,
                                need_dx=ctx.needs_input_grad[0], acts=acts,
-                               y=y)
+                               y=y, xhat=xhat, rstd=rstd)
         return grads + (None, None)
 
 

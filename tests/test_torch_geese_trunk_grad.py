@@ -2,8 +2,9 @@
 ``trunk_backward_reference``, the plain version of K2 and what the wrapper
 runs for a CPU tensor) against the JAX package's Pallas trunk
 (handyrl_tpu/ops/pallas_geese.py): ``jax.vjp`` of ``trunk_apply`` in
-interpret mode, which runs the TPU backward kernel ``_bwd_kernel``. It is
-also held against torch autograd of the port's plain forward, and
+interpret mode, which runs the TPU backward kernel ``_bwd_kernel``, both
+from the saved training forward (as K2 runs) and recomputing each layer.
+It is also held against torch autograd of the port's plain forward, and
 :class:`TrunkFunction`'s wiring is checked. The CUDA kernel itself is held
 to the plain version on the card by chip_smoke.py.
 
@@ -45,10 +46,21 @@ def _inputs(seed=0, layers=LAYERS, n=N):
     return x, ops, dy
 
 
-def _port_backward(x, ops, dy, need_dx=True):
+def _port_backward(x, ops, dy, need_dx=True, saved=False):
+    """The plain backward; with ``saved`` from what the plain training
+    forward saved (acts, y, xhat, rstd), as K2 runs, else recomputing each
+    layer's conv and statistics."""
     args = [torch.from_numpy(a) for a in (x,) + ops]
+    kw = {}
+    if saved:
+        n, layers = x.shape[0], ops[3].shape[0]
+        kw = dict(acts=torch.empty(n, layers, 7, 11, FILTERS),
+                  xhat=torch.empty(n, layers + 1, 7, 11, FILTERS),
+                  rstd=torch.empty(n, layers + 1, GROUPS))
+        kw['y'] = geese_trunk.trunk_forward_reference(*args, groups=GROUPS,
+                                                      **kw)
     out = geese_trunk.trunk_backward_reference(
-        *args, torch.from_numpy(dy), groups=GROUPS, need_dx=need_dx)
+        *args, torch.from_numpy(dy), groups=GROUPS, need_dx=need_dx, **kw)
     return [None if g is None else g.numpy() for g in out]
 
 
@@ -59,12 +71,16 @@ def _jax_vjp(x, ops, dy, tile):
     return [np.asarray(g) for g in vjp(jnp.asarray(dy))]
 
 
-@pytest.mark.parametrize('seed', [0, 1])
-def test_reference_backward_matches_jax_vjp_of_pallas_interpret(seed):
+@pytest.mark.parametrize('seed,saved', [
+    pytest.param(0, False, id='0'), pytest.param(1, False, id='1'),
+    pytest.param(0, True, id='saved-0'), pytest.param(1, True, id='saved-1')])
+def test_reference_backward_matches_jax_vjp_of_pallas_interpret(seed, saved):
+    """Both paths of the plain backward: from the saved forward (acts, y,
+    xhat, rstd, as K2 reads them) and recomputing each layer's conv."""
     x, ops, dy = _inputs(seed)
     # the JAX trunk takes N in whole tiles; tile 5 is the batch itself
     want = _jax_vjp(x, ops, dy, tile=N)
-    got = _port_backward(x, ops, dy)
+    got = _port_backward(x, ops, dy, saved=saved)
     for name, g, w in zip(NAMES, got, want):
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g, w, err_msg=name, **TOL)
