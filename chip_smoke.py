@@ -7,13 +7,18 @@ non-zero, printing no result, when either is missing or any phase fails.
 
 1. Prints the card (name and power limit from nvidia-smi), the torch and
    CUDA versions, and builds every CUDA kernel of the port from the
-   checkout's sources (one nvcc per source, all started together).
+   checkout's sources (one nvcc per source, all started together). It
+   counts the tensor-core instructions (HMMA) in the trunk kernels' SASS
+   (``cuobjdump --dump-sass``) and fails unless K1's are more than 0.
 2. Holds each kernel against its plain PyTorch version on the card, fp32
    with TF32 off, and times the kernel, the plain version and, where one
    PyTorch call computes the same function, that call:
    - K1, the trunk forward, at full GeeseNet width (Cin=17, F=32, L=12,
      8 groups) on real Hungry Geese observations, N in {1, 8, 64, 100,
-     2048}; the library yardstick is the port's own ``torus_impl='pad'``
+     2048}, its convs on the tensor cores in 3xTF32 (bounds over the TF32
+     peak), timed with CUDA events back to back (the kernels line's ms) and
+     by torch.profiler's device time, which leaves the wrapper's host cost
+     out; the library yardstick is the port's own ``torus_impl='pad'``
      trunk (cuDNN convs and torch's group_norm, which the kernel path never
      calls). At N in {8, 2048} also its training form, timed beside the
      serving form: the saved block inputs and normalised conv outputs
@@ -267,18 +272,55 @@ def phase_build(cuda_build):
         for line in cuda_build.build_log(name).splitlines():
             if 'registers' in line or 'spill' in line or 'Compiling' in line:
                 log('  %s: %s' % (name, line.strip()))
+    cuobjdump = os.path.join(os.path.dirname(nvcc), 'cuobjdump')
+    hmma = sass_hmma_counts(cuobjdump,
+                            cuda_build.library_path('geese_trunk'))
+    for kernel, count in sorted(hmma.items()):
+        log('  SASS of %s: %d HMMA instructions' % (kernel, count))
+    fwd = {k: c for k, c in hmma.items() if k.startswith('trunk_fwd_kernel')}
+    if not fwd or not all(fwd.values()):
+        fail('K1 (trunk_fwd_kernel) does not run on the tensor cores: HMMA '
+             'counts %s' % fwd)
+    return hmma
 
 
-def trunk_bound_ms(n, cin, filters, layers):
-    """Least time for the trunk at batch n: the larger of the 9-tap
-    products' FLOPs over the fp32 peak (GroupNorm's ~1% is left out, which
-    only lowers the bound) and the bytes read once / written once (input,
-    weights, output) over the HBM rate."""
+def sass_hmma_counts(cuobjdump, library):
+    """The tensor-core mma instructions (HMMA) in the SASS of each trunk
+    kernel in ``library``, by kernel and width: {'trunk_fwd_kernel<32>':
+    count, ...}."""
+    import re
+    out = subprocess.run([cuobjdump, '--dump-sass', library],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail('cuobjdump failed on %s: %s' % (library, out.stderr.strip()))
+    counts, kernel = {}, None
+    for line in out.stdout.splitlines():
+        if 'Function : ' in line:
+            m = re.search(r'(trunk_[a-z]+_kernel)ILi(\d+)E', line)
+            kernel = '%s<%s>' % m.groups() if m else None
+            if kernel:
+                counts[kernel] = 0
+        elif kernel and 'HMMA' in line:
+            counts[kernel] += 1
+    return counts
+
+
+def trunk_bound_ms(n, cin, filters, layers, groups, training=False):
+    """Least time for K1 at batch n: the larger of its operations over the
+    peak of the units it runs on and its bytes (read once / written once)
+    over the HBM rate. The 9-tap products run on the tensor cores in
+    3xTF32, three TF32 products per fp32 multiply-add, over the TF32 peak
+    (GroupNorm's ~1% is left out, which only lowers the bound); the bytes
+    are the input, the weights and the output, and in the training form
+    (``training``) also what it saves for K2: acts, xhat and rstd."""
     flops = n * 2 * 77 * 9 * (cin * filters + layers * filters * filters)
     weights = 9 * cin * filters + layers * 9 * filters * filters \
         + 2 * filters * (layers + 1)
     nbytes = 4 * (n * 77 * cin + weights + n * 77 * filters)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    if training:
+        nbytes += 4 * n * (layers * 77 * filters
+                           + (layers + 1) * (77 * filters + groups))
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
 
@@ -330,19 +372,25 @@ def phase_kernels(torch, geese_trunk, GeeseNet, make_env):
             finite = bool(torch.isfinite(got).all().item())
             lib_err = (library() - ref).abs().max().item()
             bound, bound_by, flops, nbytes = trunk_bound_ms(
-                n, WIDTH['cin'], WIDTH['filters'], WIDTH['layers'])
+                n, WIDTH['cin'], WIDTH['filters'], WIDTH['layers'],
+                WIDTH['groups'])
             row = {'n': n, 'max_abs_err': err,
                    'ms': cuda_time_ms(torch, kernel, 200),
+                   'device_ms': sum(
+                       t for k, t in kernel_ms(torch, kernel, 20).items()
+                       if 'trunk_fwd_kernel' in k),
                    'plain_ms': cuda_time_ms(torch, plain, 20),
                    'library_ms': cuda_time_ms(torch, library, 50),
                    'bound_ms': bound, 'bound_by': bound_by,
                    'flops': flops, 'bytes': nbytes}
             rows[n] = row
             log('geese_trunk N=%-3d max_abs_err %.3g (tol %.0e, pad-trunk '
-                'vs plain %.3g)  kernel %.4f ms  plain %.4f ms  library '
-                '%.4f ms  bound %.4f ms (%s)  launches so far %d' % (
-                    n, err, TOL, lib_err, row['ms'], row['plain_ms'],
-                    row['library_ms'], bound, bound_by, geese_trunk.launches))
+                'vs plain %.3g)  kernel %.4f ms (%.4f ms on the card by the '
+                'profiler)  plain %.4f ms  library %.4f ms  bound %.4f ms '
+                '(%s)  launches so far %d' % (
+                    n, err, TOL, lib_err, row['ms'], row['device_ms'],
+                    row['plain_ms'], row['library_ms'], bound, bound_by,
+                    geese_trunk.launches))
             if not finite:
                 fail('geese_trunk produced non-finite values at N=%d' % n)
             if not err <= TOL:
@@ -354,8 +402,14 @@ def phase_kernels(torch, geese_trunk, GeeseNet, make_env):
                                          WIDTH['groups']), 'N=%d' % n)
                 row['train_ms'] = cuda_time_ms(torch, lambda: training_forward(
                     torch, geese_trunk, x, weights, WIDTH['groups']), 50)
+                tb, tb_by, _, tbytes = trunk_bound_ms(
+                    n, WIDTH['cin'], WIDTH['filters'], WIDTH['layers'],
+                    WIDTH['groups'], training=True)
+                row['train_bound_ms'] = tb
                 log('geese_trunk N=%-3d training form %.4f ms (serving form '
-                    '%.4f ms)' % (n, row['train_ms'], row['ms']))
+                    '%.4f ms), bound %.4f ms (%s; %.4g GFLOP as 3xTF32, %.4g '
+                    'MB)' % (n, row['train_ms'], row['ms'], tb, tb_by,
+                             flops / 1e9, tbytes / 1e6))
     return rows
 
 
@@ -860,9 +914,11 @@ def profile_step(torch, steps=5):
     """Device time by kernel over ``steps`` headline update steps (B=128,
     T=16) under torch.profiler, and the device's busy share of the window
     (the profiler's own host cost lengthens the window, so the idle share
-    is an upper bound)."""
+    is an upper bound). One step under the profiler's warm-up comes first
+    and is not recorded: without it the trace missed the window's first
+    kernel launches (it listed K1 with 4 of its 5)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from handyrl_tpu_torch import bench
     from handyrl_tpu_torch.ops.train_step import build_update_step
     net, cfg, batch, state = bench.headline_setup('cuda')
@@ -871,18 +927,26 @@ def profile_step(torch, steps=5):
     for _ in range(3):
         state, metrics = update(state, batch, lr)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, metrics = update(state, batch, lr)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps,
+                                   repeat=1)) as prof:
+        state, metrics = update(state, batch, lr)   # the warm-up step
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+        prof.step()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, metrics = update(state, batch, lr)
+            if i == steps - 1:
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+            prof.step()   # the last one closes the recorded window
 
-    # the kernels' own rows (the host ops' rows repeat their kernels' time)
+    # the kernels' own rows (the host ops' rows repeat their kernels' time,
+    # and so does the schedule's ProfilerStep row)
     rows = sorted(((device_us(e) / 1e3 / steps, e.count // steps, e.key)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and device_us(e) > 0),
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0
+                   and not e.key.startswith('ProfilerStep')),
                   reverse=True)
     busy = sum(r[0] for r in rows)
     step_ms = wall_ms / steps
@@ -894,8 +958,12 @@ def profile_step(torch, steps=5):
     for ms, count, key in rows[:10]:
         log('  %8.4f ms a step  %4d launches a step  %s' % (ms, count,
                                                              key[:90]))
+    k1 = sum(e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and 'trunk_fwd_kernel' in e.key)
+    log('profile: the window holds %d of K1\'s %d launches' % (k1, steps))
     return {'step_ms_profiled': step_ms, 'device_busy_ms': busy,
-            'launches_per_step': launches,
+            'launches_per_step': launches, 'k1_launches_in_window': k1,
             'top': [{'kernel': k[:120], 'ms_per_step': ms,
                      'launches_per_step': c} for ms, c, k in rows[:10]]}
 
@@ -923,7 +991,7 @@ def main():
         torch.cuda.device_count()))
 
     log('== phase 1: build')
-    phase_build(cuda_build)
+    hmma = phase_build(cuda_build)
 
     log('== phase 2: kernels against their plain versions')
     rows = phase_kernels(torch, geese_trunk, GeeseNet, make_env)
@@ -965,7 +1033,11 @@ def main():
     kernels = [
         entry('geese_trunk', 'geese_trunk.cu',
               'handyrl_tpu/ops/pallas_geese.py:108', rows[MAIN_PATH_N], rows,
-              train_ms={str(n): rows[n]['train_ms'] for n in SAVED_NS}),
+              train_ms={str(n): rows[n]['train_ms'] for n in SAVED_NS},
+              train_bound_ms={str(n): rows[n]['train_bound_ms']
+                              for n in SAVED_NS},
+              device_ms={str(n): r['device_ms'] for n, r in rows.items()},
+              sass_hmma=hmma.get('trunk_fwd_kernel<32>', 0)),
     ]
     # K2 as its two phases: each wrapper call launches each phase once
     for phase, kernel_names in PHASES.items():

@@ -1,41 +1,64 @@
-// GeeseNet trunk forward on Hopper: stem + L residual blocks of a 3x3 torus
-// conv, GroupNorm and ReLU, in one kernel, for F in {16, 32}.
+// GeeseNet trunk on Hopper, for F in {16, 32}: the forward (K1: stem + L
+// residual blocks of a 3x3 torus conv, GroupNorm and ReLU, in one kernel)
+// and its backward (K2, below).
+//
+// ------------------------------------------------------------------ K1
 //
 // Replaces the TPU kernel handyrl_tpu/ops/pallas_geese.py:_fwd_kernel (tile
 // math tile_forward), which kept a whole batch tile of activations in VMEM
 // across all 13 layers. Here one thread block owns one sample, so nothing
 // carries across blocks and any N works without the TPU's tile padding. The
-// sample's activations never leave shared memory between layers: the input
-// (77 x Cin, channels padded to a multiple of 4), the running activation h
-// (77 x F), a 77 x 9 table of wrapped neighbour indices, ((r+a-1) mod 7,
-// (c+b-1) mod 11), and the weights (9 x C x F) of the layer being computed
-// while the next layer's stream in behind it (cp.async into a second
-// buffer). No wrap-padded copy exists anywhere.
+// sample's activations never leave the SM between layers.
 //
-// Bound: per sample 2*77*9*(17*32 + 12*32*32) = 17.8 MFLOP against 0.47 MB
-// of weights (shared by the whole batch) plus 15 KB of input and output, so
-// at the serving buckets (8..64 rows) the work is arithmetic, in fp32 on
-// the CUDA cores, and inside one SM the limit is shared-memory traffic and
-// latency per FMA. Design against it: a register tile. Each thread owns 4
-// adjacent output channels and kPPT = 5 pixels (16 pixel slots x 5 cover
-// the 77 cells), holds 20 fp32 accumulators, and per 4 input channels reads
-// 5 float4 activations and 4 float4 weights from shared memory for 80 FMAs.
-// Activation rows are padded by 4 floats so the pixels a warp reads at once
-// fall in different banks. The conv output never goes to shared memory:
-// GroupNorm statistics are reduced from the accumulators (warp shuffles,
-// then one partial per warp), two-pass in fp32, and the norm, the residual
-// add and the ReLU are applied in registers. The limit this design keeps:
-// a sample runs on one SM (4 warps at F=32), so a batch of N rows fills N
-// of the 132 SMs, and one SM's fp32 rate bounds a row's latency.
+// Bound: per sample 2*77*9*(17*32 + 12*32*32) = 17.8 MFLOP of conv against
+// 0.47 MB of weights (shared by the whole batch) and 15 KB of input and
+// output. The convs run on the tensor cores in 3xTF32 (below), three TF32
+// products per fp32 multiply-add: 36.4 GFLOP at N=2048 is 0.221 ms at 495
+// TFLOP/s, above the training form's 537 MB of writes (0.160 ms at 3.35
+// TB/s), so K1 is bound by operations in both forms.
+//
+// Design: each layer's conv is an implicit GEMM on the tensor cores,
+// mma.sync m16n8k8 TF32 with fp32 accumulation, with the output channels f
+// as M and the sample's 77 pixels as N (10 n8 tiles, the last 3 columns
+// repeating pixel 76), K = 9 taps x the input channels: A[f][(t, ci)] =
+// W[t][ci][f], B[(t, ci)][p] = h[nbr(p, t)][ci] through a 77 x 9 table of
+// wrapped neighbours ((r+a-1) mod 7, (c+b-1) mod 11). Each of the 4 warps
+// (F=32; 2 at F=16) owns one m16 tile of channels and one half of the
+// pixels (5 n8 tiles): per k-step it reads one A and five B fragments for
+// 15 mma. The activations live in shared memory as (hi, lo) TF32 pairs,
+// split once when a layer writes them (B is 10 of a k-step's 14 values);
+// the weights fp32 as they are (HWIO rows (t, ci), f contiguous), A's
+// fragments read across those rows and split as they are loaded. Both
+// reads are free of bank conflicts (row strides 8 mod 32). The rounding to
+// TF32 is two integer operations (tf32_rna): with cvt.rna.tf32 and every
+// operand split at its load, the conversions bound an earlier form of this
+// kernel. The stem's input is padded to round8(cin) channels, zero in
+// both its weight rows and its input columns. The sample's residual stream
+// h stays fp32 in registers, in the accumulator layout that every layer
+// shares: the residual add, the saved block inputs and the output never
+// see the TF32 split. GroupNorm is reduced from the accumulators: per
+// channel over the thread's pixels (the repeated columns masked out),
+// shuffles over the quad, one partial per (pixel half, channel) in shared
+// memory, group sums in a fixed order; two-pass (the mean, then the
+// squared deviations).
+//
+// Shared memory (F=32): the weights 46 KB, h 22 KB as pairs (the stem's
+// input pairs in the same place), the neighbour table, 71.5 KB in all, and
+// 136 registers a thread, so an SM runs three samples (12 warps) whose
+// conv and GroupNorm phases interleave. The next block's weights stream in
+// (cp.async) while the statistics are reduced, into the one buffer the
+// conv has just finished with; three barriers a layer. The limits kept: a
+// sample runs on one SM, so a batch of N rows fills N of the 132 SMs, and
+// a row's latency is 13 dependent layers; the conv's mma.sync runs below
+// the TF32 peak that the bound counts (wgmma, the only way to it, is not
+// used).
 //
 // Training form (saved != nullptr): besides the output it writes what K2
 // reads of the forward, so that K2 recomputes no conv: each block's input
 // (acts, N x L x 77 x F; the ReLU masks come from these outputs), and each
 // layer's normalised conv output xhat = (conv - mean) rstd (N x (L+1) x 77
 // x F) and per-group rstd (N x (L+1) x groups), straight from the
-// accumulators. At N=2048 that is 242 + 262 MB more to write, against a
-// conv and a GroupNorm per layer that K2 no longer repeats (half its
-// arithmetic); the serving form computes and stores only the output.
+// accumulators. The serving form computes and stores only the output.
 
 #include <cuda_runtime.h>
 
@@ -45,26 +68,31 @@ constexpr int kRows = 7;
 constexpr int kCols = 11;
 constexpr int kPix = kRows * kCols;
 constexpr int kTaps = 9;
-constexpr int kSlots = 16;                               // pixel slots
+constexpr int kSlots = 16;                               // pixel slots (K2a)
 constexpr int kPPT = (kPix + kSlots - 1) / kSlots;       // pixels per thread
 constexpr int kPadC = 4;                                 // row padding (floats)
+constexpr int kPixTiles = 5;   // n8 pixel tiles of a warp's conv: two warps
+static_assert(2 * kPixTiles * 8 >= kPix, "cover the 77 pixels");
 
 __host__ __device__ constexpr int round4(int c) { return (c + 3) & ~3; }
+__host__ __device__ constexpr int round8(int c) { return (c + 7) & ~7; }
+__host__ __device__ constexpr int round16(int c) { return (c + 15) & ~15; }
+// Row stride in floats of c channels as (hi, lo) pairs: 8 or 24 mod 32 for
+// c a multiple of 4, so that the rows a quarter warp reads lie in
+// different banks.
+__host__ __device__ constexpr int pair_stride(int c) { return 2 * (c + kPadC); }
 
-template <int F>
-struct Shape {
-  static constexpr int kQuads = F / 4;                   // channel quads
-  static constexpr int kThreads = kQuads * kSlots;
-  static constexpr int kWarps = kThreads / 32;
-  static constexpr int kHStride = F + kPadC;
-  static_assert(F % 4 == 0 && kThreads % 32 == 0 && kQuads <= 32, "F");
-};
-
-// Asynchronous 16-byte copy from global to shared memory (through L2 only:
-// every SM reads the same weights), and the wait for all of this thread's.
+// Asynchronous copies from global to shared memory (16 bytes through L2
+// only, 4 bytes), and the wait for all of this thread's.
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem));
 }
 
@@ -72,114 +100,184 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
 }
 
-// Start copying one layer's HWIO weights (9, C, F) from global memory into
-// shared memory as (9, CP, F), 16 bytes per copy; rows c >= C are left as
-// they are (the caller zeroes them once). Complete after cp_async_wait_all
-// and a barrier.
-template <int F>
-__device__ void stage_weights(float* ws, const float* __restrict__ w, int c_in,
-                              int cp) {
-  constexpr int kQ = F / 4;
-  const int total = kTaps * c_in * kQ;
-  for (int i = threadIdx.x; i < total; i += Shape<F>::kThreads) {
-    const int q = i % kQ;
-    const int row = i / kQ;
-    const int c = row % c_in;
-    const int tap = row / c_in;
-    cp_async16(ws + (tap * cp + c) * F + 4 * q, w + 4 * i);
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from 0,
+// as cvt.rna.tf32.f32 rounds (add half of the 13 dropped bits to the
+// magnitude, then clear them), in two integer operations: with the
+// conversion instruction for every operand of the forward's conv, the
+// conversions bound the conv.
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+// 3xTF32: x = hi + lo with both TF32, hi = x rounded and lo the rest
+// rounded, so that hi*hi + hi*lo + lo*hi carries fp32's precision (the
+// lo*lo term left out is below 2^-22 of the product).
+__device__ __forceinline__ float2 split_tf32(float x) {
+  const float hi = tf32_rna(x);
+  return make_float2(hi, tf32_rna(x - hi));
+}
+
+// Four floats as (hi, lo) pairs into 8 floats at dst (16-byte aligned).
+__device__ __forceinline__ void store_split4(float* dst, float4 v) {
+  const float2 a = split_tf32(v.x), b = split_tf32(v.y);
+  const float2 c = split_tf32(v.z), d = split_tf32(v.w);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+
+// c += a * b on the tensor cores: one m16n8k8 TF32 product with fp32
+// accumulation; a, b in mma's fragment layouts (row, col).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], float a0, float a1,
+                                         float a2, float a3, float b0,
+                                         float b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(__float_as_uint(a0)), "r"(__float_as_uint(a1)),
+        "r"(__float_as_uint(a2)), "r"(__float_as_uint(a3)),
+        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// The wrapped-neighbour table: nbr[p * 9 + t] is the pixel that tap t =
+// (a, b) of pixel p = (r, c) reads, ((r+a-1) mod 7, (c+b-1) mod 11).
+__device__ void fill_neighbours(int* nbr, int threads) {
+  for (int i = threadIdx.x; i < kPix * kTaps; i += threads) {
+    const int p = i / kTaps, t = i % kTaps;
+    const int r = p / kCols, c = p % kCols;
+    const int a = t / 3, b = t % 3;
+    nbr[i] = ((r + a + kRows - 1) % kRows) * kCols + (c + b + kCols - 1) % kCols;
   }
 }
 
-// The 3x3 torus conv of one layer for this thread's 4 channels and kPPT
-// pixels. CP > 0 is the input channel count known at compile time (the
-// blocks); CP == 0 reads it from cp (the stem).
-template <int F, int CP>
-__device__ __forceinline__ void conv(const float* in, int stride, int cp,
-                                     const float* ws, const int* nbr,
-                                     const int (&pix)[kPPT], int q,
-                                     float (&acc)[kPPT][4]) {
-  if constexpr (CP > 0) cp = CP;
+template <int F>
+struct FwdShape {
+  static constexpr int kWarps = 2 * (F / 16);   // (m16 tile, pixel half)
+  static constexpr int kThreads = 32 * kWarps;
+  // weight rows 8 mod 32 banks apart: A's fragment reads four rows of
+  // eight channels; rows of (hi, lo) pairs (pair_stride) for B
+  static constexpr int kWStride = F + 8;
+  static constexpr int kPair = pair_stride(F);
+  static_assert(F % 16 == 0 && kWStride % 16 == 8 && kPair % 32 == 8, "F");
+};
+
+// The 3x3 torus conv of one layer of one sample, an implicit GEMM on the
+// tensor cores: conv[p][f] = sum over taps t and input channels ci of
+// W[t][ci][f] * in[nbr(p, t)][ci], K = 9 taps x cw, with the output
+// channels as M and the pixels as N. This warp computes m16 tile mt (f =
+// 16 mt .. 16 mt + 15) against n8 tiles 5 nh .. 5 nh + 4 (pixels 40 nh ..
+// 40 nh + 39; those past 76 repeat pixel 76). ws holds the weights fp32 as
+// they are in HWIO, rows (t, ci) of F floats at a stride of kWStride; A is
+// read across them, A[f][k] at row (t, k), and split into TF32 (hi, lo) as
+// its fragment is loaded (4 values a k-step). in holds the layer's input
+// already split, a row of in_pair floats a pixel of (hi, lo) pairs (ci
+// contiguous: mma's col layout for B; one 8-byte load gives both halves of
+// an element, the four rows a quarter warp reads 8 banks apart). Each
+// k-step is three mma, hi*hi into acc and lo*hi + hi*lo into a second set
+// of accumulators added at the end, so that the small terms are not
+// rounded against the large ones. KC > 0 is cw known at compile time (the
+// blocks); KC == 0 takes cw (the stem).
+template <int F, int KC>
+__device__ __forceinline__ void conv_mma(const float* in, int in_pair,
+                                         const float* ws, int cw, int mt,
+                                         int nh, const int* nbr,
+                                         float (&acc)[kPixTiles][4]) {
+  constexpr int kW = FwdShape<F>::kWStride;
+  if constexpr (KC > 0) cw = KC;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tq = lane & 3;
+  float lo_terms[kPixTiles][4];
 #pragma unroll
-  for (int k = 0; k < kPPT; ++k)
+  for (int j = 0; j < kPixTiles; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = lo_terms[j][e] = 0.f;
+#pragma unroll 1
   for (int t = 0; t < kTaps; ++t) {
-    const float* src[kPPT];
+    const float* bp[kPixTiles];   // this lane's pixel of each n8 tile
 #pragma unroll
-    for (int k = 0; k < kPPT; ++k) src[k] = in + nbr[pix[k] * kTaps + t] * stride;
-    const float* wt = ws + t * cp * F + 4 * q;
-    auto quad = [&](int c) {
-      float4 w[4];
+    for (int j = 0; j < kPixTiles; ++j) {
+      const int p = min(8 * (kPixTiles * nh + j) + gid, kPix - 1);
+      bp[j] = in + nbr[p * kTaps + t] * in_pair + 2 * tq;
+    }
+    const float* ap = ws + (t * cw + tq) * kW + 16 * mt + gid;
+    auto k_step = [&](int kk) {
+      const float* ak = ap + 8 * kk * kW;
+      const float2 a0 = split_tf32(ak[0]), a1 = split_tf32(ak[8]);
+      const float2 a2 = split_tf32(ak[4 * kW]);
+      const float2 a3 = split_tf32(ak[4 * kW + 8]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        w[i] = *reinterpret_cast<const float4*>(wt + (c + i) * F);
-#pragma unroll
-      for (int k = 0; k < kPPT; ++k) {
-        const float4 v = *reinterpret_cast<const float4*>(src[k] + c);
-        const float vs[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[k][0] = fmaf(vs[i], w[i].x, acc[k][0]);
-          acc[k][1] = fmaf(vs[i], w[i].y, acc[k][1]);
-          acc[k][2] = fmaf(vs[i], w[i].z, acc[k][2]);
-          acc[k][3] = fmaf(vs[i], w[i].w, acc[k][3]);
-        }
+      for (int j = 0; j < kPixTiles; ++j) {
+        const float2 b0 = *reinterpret_cast<const float2*>(bp[j] + 16 * kk);
+        const float2 b1 =
+            *reinterpret_cast<const float2*>(bp[j] + 16 * kk + 8);
+        mma_tf32(lo_terms[j], a0.y, a1.y, a2.y, a3.y, b0.x, b1.x);
+        mma_tf32(lo_terms[j], a0.x, a1.x, a2.x, a3.x, b0.y, b1.y);
+        mma_tf32(acc[j], a0.x, a1.x, a2.x, a3.x, b0.x, b1.x);
       }
     };
-    if constexpr (CP > 0) {
+    if constexpr (KC > 0) {
 #pragma unroll
-      for (int c = 0; c < CP; c += 4) quad(c);
+      for (int kk = 0; kk < KC / 8; ++kk) k_step(kk);
     } else {
-      for (int c = 0; c < cp; c += 4) quad(c);
+      for (int kk = 0; kk < cw / 8; ++kk) k_step(kk);
     }
+  }
+#pragma unroll
+  for (int j = 0; j < kPixTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += lo_terms[j][e];
+}
+
+// Start copying (cp.async) a block's weights, 9 F rows of F floats, into ws
+// rows at a stride of kWStride.
+template <int F>
+__device__ __forceinline__ void stage_rows(float* ws,
+                                           const float* __restrict__ w) {
+  for (int i = threadIdx.x; i < kTaps * F * F / 4;
+       i += FwdShape<F>::kThreads)
+    cp_async16(ws + (i / (F / 4)) * FwdShape<F>::kWStride + 4 * (i % (F / 4)),
+               w + 4 * i);
+}
+
+// The group statistic of channel f: the sum over the group's channels of
+// both pixel halves' partials in red (2 x F), in a fixed order, so that
+// every channel of a group gets the same value.
+template <int F>
+__device__ __forceinline__ float group_total(const float* red, int f,
+                                             int cpg) {
+  const int g0 = f - f % cpg;
+  float s = 0.f;
+  for (int c = g0; c < g0 + cpg; ++c) s += red[c] + red[F + c];
+  return s;
+}
+
+// Per-channel sums of v over this thread's pixels that exist (the repeated
+// columns past pixel 76 left out), reduced over the quad (the lanes of one
+// channel) and written by its first lane to red[nh * F + f] (the caller
+// syncs). v is in the accumulator layout: v[j][e] is channel 16 mt + gid +
+// 8 (e >> 1) at pixel 8 (5 nh + j) + 2 tq + (e & 1).
+template <int F>
+__device__ __forceinline__ void channel_sums(const float (&v)[kPixTiles][4],
+                                             int nh, const int (&f)[2],
+                                             float* red) {
+  const int tq = threadIdx.x & 3;
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kPixTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (8 * (kPixTiles * nh + j) + 2 * tq + (e & 1) < kPix)
+        s[e >> 1] += v[j][e];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+    if (tq == 0) red[nh * F + f[h]] = s[h];
   }
 }
 
-// Per-channel sums over the sample's 77 pixels of this thread's 4
-// channels, reduced across the pixel slots: shuffles inside the warp, then
-// one float4 per (warp, quad) into red (kWarps x F). The caller syncs.
 template <int F>
-__device__ __forceinline__ void channel_partials(const float (&v)[kPPT][4],
-                                                 const bool (&own)[kPPT],
-                                                 int q, float* red) {
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int k = 0; k < kPPT; ++k)
-    if (own[k])
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[j] += v[k][j];
-#pragma unroll
-  for (int o = Shape<F>::kQuads; o < 32; o <<= 1)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
-  if ((threadIdx.x & 31) < Shape<F>::kQuads)
-    reinterpret_cast<float4*>(red + (threadIdx.x / 32) * F)[q] =
-        make_float4(s[0], s[1], s[2], s[3]);
-}
-
-// The group statistic (sum over the group's channels and all warps of red)
-// for each of this thread's 4 channels, in a fixed order; channels of one
-// group share one sum.
-template <int F>
-__device__ __forceinline__ void group_sums(const float* red, int q, int cpg,
-                                           float (&out)[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int g = (4 * q + j) / cpg;
-    if (j > 0 && g == (4 * q + j - 1) / cpg) {
-      out[j] = out[j - 1];
-      continue;
-    }
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < Shape<F>::kWarps; ++w)
-      for (int c = 0; c < cpg; ++c) s += red[w * F + g * cpg + c];
-    out[j] = s;
-  }
-}
-
-template <int F>
-__global__ void __launch_bounds__(Shape<F>::kThreads, 1)
+__global__ void __launch_bounds__(FwdShape<F>::kThreads, 3)
 trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
                  const float* __restrict__ stem_scale,
                  const float* __restrict__ stem_bias,
@@ -189,137 +287,121 @@ trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
                  float* __restrict__ saved, float* __restrict__ xhat_out,
                  float* __restrict__ rstd_out, int cin, int layers,
                  int groups, float eps) {
-  using S = Shape<F>;
+  using S = FwdShape<F>;
   extern __shared__ __align__(16) float smem[];
-  const int cinp = round4(cin);
-  const int xstride = cinp + kPadC;
-  const int cmax = cinp > F ? cinp : F;
-  float* xs = smem;                              // kPix x xstride  stem input
-  float* hs = xs + kPix * xstride;               // kPix x kHStride activation
-  const int wsize = kTaps * cmax * F;
-  float* ws0 = hs + kPix * S::kHStride;          // 9 x cmax x F    weights,
-  float* ws1 = ws0 + wsize;                      //   two buffers
-  float* red1 = ws1 + wsize;                     // kWarps x F      sums
-  float* red2 = red1 + S::kWarps * F;            // kWarps x F      sq. dev.
-  int* nbr = reinterpret_cast<int*>(red2 + S::kWarps * F);   // kPix x 9
+  const int cw = round8(cin);                    // the stem's K per tap
+  const int xpair = pair_stride(cw);             // its input's row stride
+  const int wrows = cw > F ? cw : F;
+  const int hrow = xpair > S::kPair ? xpair : S::kPair;
+  float* ws = smem;                              // 9 x wrows x kWStride  W
+  float* hs = ws + kTaps * wrows * S::kWStride;  // kPix x hrow  h as pairs
+  float* red1 = hs + kPix * hrow;                // 2 x F  channel sums
+  float* red2 = red1 + 2 * F;                    // 2 x F  squared deviations
+  int* nbr = reinterpret_cast<int*>(red2 + 2 * F);   // kPix x 9
 
   const int tid = threadIdx.x;
-  stage_weights<F>(ws0, stem_w, cin, cinp);
-  for (int i = tid; i < kPix * kTaps; i += S::kThreads) {
-    const int p = i / kTaps, t = i % kTaps;
-    const int r = p / kCols, c = p % kCols;
-    const int a = t / 3, b = t % 3;
-    nbr[i] = ((r + a + kRows - 1) % kRows) * kCols + (c + b + kCols - 1) % kCols;
+  const size_t n = blockIdx.x;
+  // the stem's weights as (9, cw) rows, the rows ci >= cin zero
+  for (int i = tid; i < kTaps * cw * (F / 4); i += S::kThreads) {
+    const int c4 = i % (F / 4), row = i / (F / 4);
+    const int ci = row % cw, t = row / cw;
+    float* dst = ws + row * S::kWStride + 4 * c4;
+    if (ci < cin)
+      cp_async16(dst, stem_w + (t * cin + ci) * F + 4 * c4);
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  const float* xn = x + static_cast<size_t>(blockIdx.x) * kPix * cin;
-  for (int i = tid; i < kPix * xstride; i += S::kThreads) {
-    const int p = i / xstride, c = i % xstride;
-    xs[i] = c < cin ? xn[p * cin + c] : 0.f;
-  }
-  for (int i = tid; i < kTaps * (cinp - cin) * F; i += S::kThreads) {
-    const int f = i % F, rest = i / F;
-    ws0[((rest / (cinp - cin)) * cinp + cin + rest % (cinp - cin)) * F + f] = 0.f;
+  fill_neighbours(nbr, S::kThreads);
+  const float* xn = x + n * kPix * cin;
+  for (int i = tid; i < kPix * cw; i += S::kThreads) {   // x as pairs,
+    const int p = i / cw, c = i % cw;                   //   zero-padded
+    *reinterpret_cast<float2*>(hs + p * xpair + 2 * c) =
+        split_tf32(c < cin ? __ldg(xn + p * cin + c) : 0.f);
   }
   cp_async_wait_all();
   __syncthreads();
 
-  const int q = tid % S::kQuads;
-  const int slot = tid / S::kQuads;
-  const int cpg = F / groups;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int mt = warp >> 1, nh = warp & 1;
+  const int f[2] = {16 * mt + gid, 16 * mt + gid + 8};   // this thread's
+  const int cpg = F / groups;                            //   channels
   const float inv_count = 1.f / static_cast<float>(kPix * cpg);
-  int pix[kPPT];
-  bool own[kPPT];
-#pragma unroll
-  for (int k = 0; k < kPPT; ++k) {
-    const int p = slot + k * kSlots;
-    own[k] = p < kPix;
-    pix[k] = own[k] ? p : kPix - 1;   // ragged tail: computed, never used
-  }
-  float* on = out + static_cast<size_t>(blockIdx.x) * kPix * F;
+  float hv[kPixTiles][4];   // h, fp32, in the accumulator layout
+  float* on = out + n * kPix * F;
 
   for (int layer = 0; layer <= layers; ++layer) {
-    // layer l runs on buffer l % 2 while the next layer's weights stream
-    // into the other one, which the conv of layer l - 1 has finished with
-    const float* ws = layer % 2 ? ws1 : ws0;
-    if (layer < layers)
-      stage_weights<F>(layer % 2 ? ws0 : ws1,
-                       block_w + static_cast<size_t>(layer) * kTaps * F * F,
-                       F, F);
-    float acc[kPPT][4];
-    if (layer == 0)
-      conv<F, 0>(xs, xstride, cinp, ws, nbr, pix, q, acc);
-    else
-      conv<F, F>(hs, S::kHStride, F, ws, nbr, pix, q, acc);
-    channel_partials<F>(acc, own, q, red1);
-    __syncthreads();   // conv done: hs is free; red1 is complete
-
-    float mean[4], rstd[4];
-    group_sums<F>(red1, q, cpg, mean);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) mean[j] *= inv_count;
-    float dev[kPPT][4];
-#pragma unroll
-    for (int k = 0; k < kPPT; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float d = acc[k][j] - mean[j];
-        dev[k][j] = d * d;
-      }
-    channel_partials<F>(dev, own, q, red2);
-    __syncthreads();   // red2 is complete
-
-    group_sums<F>(red2, q, cpg, rstd);
     const float* scale = layer == 0 ? stem_scale : block_scale + (layer - 1) * F;
     const float* bias = layer == 0 ? stem_bias : block_bias + (layer - 1) * F;
-    const float4 sc = reinterpret_cast<const float4*>(scale)[q];
-    const float4 bi = reinterpret_cast<const float4*>(bias)[q];
-    const float scv[4] = {sc.x, sc.y, sc.z, sc.w};
-    const float biv[4] = {bi.x, bi.y, bi.z, bi.w};
-    float mul[4], add[4];
+    float sc[2], bi[2];   // needed after the conv; their loads fly meanwhile
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      rstd[j] = rsqrtf(rstd[j] * inv_count + eps);
-      mul[j] = rstd[j] * scv[j];
-      add[j] = biv[j] - mean[j] * mul[j];
+    for (int h = 0; h < 2; ++h) {
+      sc[h] = __ldg(scale + f[h]);
+      bi[h] = __ldg(bias + f[h]);
     }
-    if (xhat_out) {   // training: keep xhat and rstd of every layer for K2
-      const size_t nl_index = static_cast<size_t>(blockIdx.x) * (layers + 1) +
-                              layer;
-      float* xo = xhat_out + nl_index * kPix * F;
+    float acc[kPixTiles][4];
+    if (layer == 0)
+      conv_mma<F, 0>(hs, xpair, ws, cw, mt, nh, nbr, acc);
+    else
+      conv_mma<F, F>(hs, S::kPair, ws, F, mt, nh, nbr, acc);
+    channel_sums<F>(acc, nh, f, red1);
+    __syncthreads();   // A: the conv is done with ws and hs; red1 is complete
+
+    // the next block's weights stream in while the statistics are reduced
+    if (layer < layers)
+      stage_rows<F>(ws, block_w + static_cast<size_t>(layer) * kTaps * F * F);
+    float mean[2], rstd[2];
 #pragma unroll
-      for (int k = 0; k < kPPT; ++k)
-        if (own[k])
-          reinterpret_cast<float4*>(xo + pix[k] * F)[q] = make_float4(
-              (acc[k][0] - mean[0]) * rstd[0], (acc[k][1] - mean[1]) * rstd[1],
-              (acc[k][2] - mean[2]) * rstd[2], (acc[k][3] - mean[3]) * rstd[3]);
-      if (slot == 0)
+    for (int h = 0; h < 2; ++h)
+      mean[h] = group_total<F>(red1, f[h], cpg) * inv_count;
+    float dev[kPixTiles][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if ((4 * q + j) % cpg == 0)
-            rstd_out[nl_index * groups + (4 * q + j) / cpg] = rstd[j];
-    }
+    for (int j = 0; j < kPixTiles; ++j)
 #pragma unroll
-    for (int k = 0; k < kPPT; ++k) {
-      if (!own[k]) continue;
-      float4* hp = reinterpret_cast<float4*>(hs + pix[k] * S::kHStride) + q;
-      const float4 old = layer == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *hp;
-      const float4 h = make_float4(
-          fmaxf(old.x + fmaf(acc[k][0], mul[0], add[0]), 0.f),
-          fmaxf(old.y + fmaf(acc[k][1], mul[1], add[1]), 0.f),
-          fmaxf(old.z + fmaf(acc[k][2], mul[2], add[2]), 0.f),
-          fmaxf(old.w + fmaf(acc[k][3], mul[3], add[3]), 0.f));
-      if (layer == layers) {
-        reinterpret_cast<float4*>(on + pix[k] * F)[q] = h;
-      } else {
-        *hp = h;
-        if (saved)   // training: keep block layer+1's input for K2
-          reinterpret_cast<float4*>(
-              saved + ((static_cast<size_t>(blockIdx.x) * layers + layer) *
-                           kPix + pix[k]) * F)[q] = h;
+      for (int e = 0; e < 4; ++e) {
+        const float d = acc[j][e] - mean[e >> 1];
+        dev[j][e] = d * d;
       }
+    channel_sums<F>(dev, nh, f, red2);
+    __syncthreads();   // B: red2 is complete
+
+    float mul[2], add[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rstd[h] = rsqrtf(group_total<F>(red2, f[h], cpg) * inv_count + eps);
+      mul[h] = rstd[h] * sc[h];
+      add[h] = bi[h] - mean[h] * mul[h];
     }
+    const size_t nl_index = n * (layers + 1) + layer;
+    float* xo = xhat_out ? xhat_out + nl_index * kPix * F : nullptr;
+    float* ao = saved && layer < layers
+                    ? saved + (n * layers + layer) * kPix * F : nullptr;
+    if (xhat_out && nh == 0 && tq == 0)   // one writer per group
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (f[h] % cpg == 0) rstd_out[nl_index * groups + f[h] / cpg] = rstd[h];
+#pragma unroll
+    for (int j = 0; j < kPixTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = 8 * (kPixTiles * nh + j) + 2 * tq + (e & 1);
+        if (p >= kPix) continue;
+        const int h = e >> 1;
+        const int o = p * F + f[h];
+        if (xo) xo[o] = (acc[j][e] - mean[h]) * rstd[h];
+        const float v = fmaxf((layer == 0 ? 0.f : hv[j][e]) +
+                                  fmaf(acc[j][e], mul[h], add[h]), 0.f);
+        hv[j][e] = v;
+        if (layer == layers) {
+          on[o] = v;
+        } else {   // the next layer's input; block layer+1's for K2
+          *reinterpret_cast<float2*>(hs + p * S::kPair + 2 * f[h]) =
+              split_tf32(v);
+          if (ao) ao[o] = v;
+        }
+      }
     cp_async_wait_all();
-    __syncthreads();   // hs and the next layer's weights are complete
+    __syncthreads();   // C: hs and the next layer's weights are complete
   }
 }
 
@@ -330,12 +412,12 @@ cudaError_t launch(const float* x, const float* stem_w, const float* stem_scale,
                    float* out, float* saved, float* xhat, float* rstd, int n,
                    int cin, int layers, int groups, float eps,
                    cudaStream_t stream) {
-  using S = Shape<F>;
-  const int cinp = round4(cin);
-  const int cmax = cinp > F ? cinp : F;
+  using S = FwdShape<F>;
+  const int cw = round8(cin);
+  const int wrows = cw > F ? cw : F;
+  const int hrow = pair_stride(cw) > S::kPair ? pair_stride(cw) : S::kPair;
   const int smem = static_cast<int>(
-      sizeof(float) * (kPix * (cinp + kPadC) + kPix * S::kHStride +
-                       2 * kTaps * cmax * F + 2 * S::kWarps * F) +
+      sizeof(float) * (kTaps * wrows * S::kWStride + kPix * hrow + 4 * F) +
       sizeof(int) * kPix * kTaps);
   // set on every launch: the attribute belongs to the current device
   const cudaError_t err = cudaFuncSetAttribute(
@@ -368,8 +450,8 @@ cudaError_t launch(const float* x, const float* stem_w, const float* stem_scale,
 //     for the top block), never from a recomputed pre-activation: one
 //     within rounding of 0 flips between any two computations of the
 //     forward, and the mask decides a whole element of the gradient.
-//     Per layer: (E) the GroupNorm backward in K1's (quad, slot) register
-//     layout, dc = rstd (g scale - mean(g scale) - xhat mean(g scale
+//     Per layer: (E) the GroupNorm backward in a (quad, slot) register
+//     layout (Shape), dc = rstd (g scale - mean(g scale) - xhat mean(g scale
 //     xhat)) with g the masked dh, which needs no mean; dc goes to memory
 //     for B and, split into TF32 (hi, lo) pairs, to shared memory; then
 //     (C) the transposed conv, dh_in = g + sum_t,f W[t][ci][f]
@@ -411,66 +493,51 @@ cudaError_t launch(const float* x, const float* stem_w, const float* stem_scale,
 
 constexpr int kChunk = 16;     // samples per partial row of B
 constexpr int kSamples = 2;    // samples per block of A
-constexpr int kPixTiles = 5;   // n8 pixel tiles of a warp's conv: two warps
-static_assert(2 * kPixTiles * 8 >= kPix, "cover the 77 pixels");
 
-__host__ __device__ constexpr int round16(int c) { return (c + 15) & ~15; }
+// K2a's GroupNorm layout: each thread owns 4 adjacent channels (a quad)
+// at kPPT pixels (16 pixel slots x 5 cover the 77 cells).
+template <int F>
+struct Shape {
+  static constexpr int kQuads = F / 4;                   // channel quads
+  static constexpr int kThreads = kQuads * kSlots;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kHStride = F + kPadC;
+  static_assert(F % 4 == 0 && kThreads % 32 == 0 && kQuads <= 32, "F");
+};
+
+// Per-channel sums over the sample's 77 pixels of this thread's 4
+// channels, reduced across the pixel slots: shuffles inside the warp, then
+// one float4 per (warp, quad) into red (kWarps x F). The caller syncs.
+template <int F>
+__device__ __forceinline__ void channel_partials(const float (&v)[kPPT][4],
+                                                 const bool (&own)[kPPT],
+                                                 int q, float* red) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < kPPT; ++k)
+    if (own[k])
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] += v[k][j];
+#pragma unroll
+  for (int o = Shape<F>::kQuads; o < 32; o <<= 1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
+  if ((threadIdx.x & 31) < Shape<F>::kQuads)
+    reinterpret_cast<float4*>(red + (threadIdx.x / 32) * F)[q] =
+        make_float4(s[0], s[1], s[2], s[3]);
+}
 
 template <int F>
 struct BwdShape {
   static constexpr int kSampleThreads = Shape<F>::kThreads;   // (quad, slot)
   static constexpr int kSampleWarps = Shape<F>::kWarps;
   static constexpr int kThreads = kSamples * kSampleThreads;
-  static constexpr int kPair = 2 * (F + kPadC);   // (hi, lo) row stride, floats
+  static constexpr int kPair = pair_stride(F);   // (hi, lo) row stride, floats
   static constexpr int kWChunks =                 // float4s of a block's W
       (kTaps * F * F / 4 + kThreads - 1) / kThreads;   //   per thread
   static_assert(kSampleWarps == 2 * (F / 16), "one (m16, pixel half) per warp");
   static_assert(kPair % 32 == 8, "rows of (hi, lo) pairs 8 banks apart");
 };
-
-// 4-byte asynchronous copy from global to shared memory.
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// x rounded to TF32 (10 mantissa bits), to nearest with ties away from 0.
-__device__ __forceinline__ float tf32_rna(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
-// 3xTF32: x = hi + lo with both TF32, hi = x rounded and lo the rest
-// rounded, so that hi*hi + hi*lo + lo*hi carries fp32's precision (the
-// lo*lo term left out is below 2^-22 of the product).
-__device__ __forceinline__ float2 split_tf32(float x) {
-  const float hi = tf32_rna(x);
-  return make_float2(hi, tf32_rna(x - hi));
-}
-
-// Four floats as (hi, lo) pairs into 8 floats at dst (16-byte aligned).
-__device__ __forceinline__ void store_split4(float* dst, float4 v) {
-  const float2 a = split_tf32(v.x), b = split_tf32(v.y);
-  const float2 c = split_tf32(v.z), d = split_tf32(v.w);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
-}
-
-// c += a * b on the tensor cores: one m16n8k8 TF32 product with fp32
-// accumulation; a, b in mma's fragment layouts (row, col).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], float a0, float a1,
-                                         float a2, float a3, float b0,
-                                         float b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(__float_as_uint(a0)), "r"(__float_as_uint(a1)),
-        "r"(__float_as_uint(a2)), "r"(__float_as_uint(a3)),
-        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
-}
 
 // Group sums of v (F floats in shared memory) for this thread's 4
 // channels: channels of one group share one sum.
@@ -652,12 +719,7 @@ trunk_bwd_kernel(const float* __restrict__ stem_w,
   if (layers > 0)
     load_block_weights<F>(
         wr, block_w + static_cast<size_t>(layers - 1) * kTaps * F * F);
-  for (int i = tid; i < kPix * kTaps; i += B::kThreads) {
-    const int p = i / kTaps, t = i % kTaps;
-    const int r = p / kCols, c = p % kCols;
-    const int a = t / 3, b = t % 3;
-    nbr[i] = ((r + a + kRows - 1) % kRows) * kCols + (c + b + kCols - 1) % kCols;
-  }
+  fill_neighbours(nbr, B::kThreads);
   const float* dyn = dy + nr * kPix * F;
   for (int i = lt; i < kPix * F / 4; i += B::kSampleThreads)
     cp_async16(dhs_s + (i / (F / 4)) * S::kHStride + 4 * (i % (F / 4)),
@@ -683,7 +745,7 @@ trunk_bwd_kernel(const float* __restrict__ stem_w,
   float* chan_s = chan + s * 2 * F;
 
   for (int l = layers; l >= 0; --l) {
-    // the GroupNorm backward of layer l in K1's (quad, slot) layout: g =
+    // the GroupNorm backward of layer l in the (quad, slot) layout: g =
     // dh where the layer's saved output is positive, from xhat and rstd
     // as K1 saved them
     const float* scale = l == 0 ? stem_scale : block_scale + (l - 1) * F;
@@ -835,12 +897,7 @@ __global__ void trunk_wgrad_kernel(const float* __restrict__ x,
   float* dcs = as + kPix * nciq * 4;        // kPix x F     d(conv)
   int* nbr = reinterpret_cast<int*>(dcs + kPix * F);
   const int tid = threadIdx.x;
-  for (int i = tid; i < kPix * kTaps; i += blockDim.x) {
-    const int p = i / kTaps, t = i % kTaps;
-    const int r = p / kCols, c = p % kCols;
-    const int a = t / 3, b = t % 3;
-    nbr[i] = ((r + a + kRows - 1) % kRows) * kCols + (c + b + kCols - 1) % kCols;
-  }
+  fill_neighbours(nbr, blockDim.x);
   const int fo = tid % W::kFOcts;
   const int ciq = (tid / W::kFOcts) % nciq;
   const int t = tid / (W::kFOcts * nciq);

@@ -1,24 +1,37 @@
 #!/usr/bin/env python3
-"""Time K2's phases for variants of the trunk kernel source on one NVIDIA
-GPU: ``python3 scripts/torch_trunk_variants.py [name=path.cu ...]`` from the
-root of a checkout.
+"""Time K1 and K2's phases for variants of the trunk kernel source on one
+NVIDIA GPU: ``python3 scripts/torch_trunk_variants.py [name=path.cu ...]``
+from the root of a checkout.
 
 The checkout's ``handyrl_tpu_torch/csrc/geese_trunk.cu`` is ``current``;
-three variants are derived from it by exact text edits (the script fails if
-an edit no longer applies):
+variants are derived from it by exact text edits, each replacing every
+occurrence of its text (the script fails if an edit no longer applies):
 
-- ``no_conv``: phase A without its transposed conv (the grads are wrong;
-  the time is that of everything else in the phase);
-- ``one_accumulator``: the three 3xTF32 mma of a k-step into one set of
-  accumulators instead of two;
-- ``rolled_taps``: the conv's tap loop not unrolled.
+- ``no_conv``: K2's phase A without its transposed conv (the grads are
+  wrong; the time is that of everything else in the phase);
+- ``one_accumulator``: phase A's three 3xTF32 mma of a k-step into one set
+  of accumulators instead of two;
+- ``rolled_taps``: phase A's tap loop not unrolled;
+- ``k1_no_conv``: K1 without its convs (its outputs are wrong; the time is
+  that of the GroupNorm, the weight staging, the barriers and the writes);
+- ``k1_no_stage``: K1 without staging each block's weights (wrong outputs;
+  the time of everything else);
+- ``k1_one_accumulator``: K1's three mma of a k-step into one set of
+  accumulators;
+- ``k1_unrolled_taps``: K1's tap loop unrolled;
+- ``k1_two_blocks``: K1 built for two blocks an SM instead of three (more
+  registers a thread).
 
-Further sources may be given as ``name=path``. Every variant is built (one
+Further sources may be given as ``name=path``, for example another commit's
+``geese_trunk.cu`` unpacked with ``git archive``. Every variant is built (one
 nvcc each, all at once) into the git-ignored build directory, then each
-runs K2 at the update step's shape (N=2048, full GeeseNet width, fp32) on
-the same inputs, in the order given and then reversed, printing phase A's
-and phase B's device time per call (torch.profiler) and the largest grad
-error against the plain version relative to the grad's largest element.
+runs, in the order given and then reversed, on the same full-width GeeseNet
+operands (fp32): K1 at N=8 (the serving bucket) and N=2048 (the update
+step's rows), serving and training form, timed with CUDA events, with its
+largest error against the plain version; and K2 at N=2048 from the current
+kernel's training forward, phase A's and phase B's device time per call
+(torch.profiler) and the largest grad error against the plain version
+relative to the grad's largest element.
 """
 
 import os
@@ -37,6 +50,24 @@ EDITS = {
     'rolled_taps': [(
         '#pragma unroll\n  for (int t = 0; t < kTaps; ++t) {',
         '  for (int t = 0; t < kTaps; ++t) {')],
+    'k1_no_conv': [(
+        '    if (layer == 0)\n'
+        '      conv_mma<F, 0>(hs, xpair, ws, cw, mt, nh, nbr, acc);\n'
+        '    else\n'
+        '      conv_mma<F, F>(hs, S::kPair, ws, F, mt, nh, nbr, acc);\n',
+        '    for (int j = 0; j < kPixTiles; ++j)\n'
+        '      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;\n')],
+    'k1_no_stage': [(
+        '      stage_rows<F>(ws, block_w + static_cast<size_t>(layer) * kTaps '
+        '* F * F);\n',
+        '      ;\n')],
+    'k1_one_accumulator': [('mma_tf32(lo_terms[j], ', 'mma_tf32(acc[j], ')],
+    'k1_unrolled_taps': [(
+        '#pragma unroll 1\n  for (int t = 0; t < kTaps; ++t) {',
+        '#pragma unroll\n  for (int t = 0; t < kTaps; ++t) {')],
+    'k1_two_blocks': [(
+        '__launch_bounds__(FwdShape<F>::kThreads, 3)',
+        '__launch_bounds__(FwdShape<F>::kThreads, 2)')],
 }
 
 
@@ -77,14 +108,16 @@ def main():
         cuda_build.SOURCES['variant_' + name] = path
     print(c.nvidia_smi_line(), flush=True)
     cuda_build.build(['variant_' + name for name in sources])
-    for name in sources:   # ptxas's line for phase A at F=32
-        seen = False
-        for line in cuda_build.build_log('variant_' + name).splitlines():
-            seen = seen or ('Compiling' in line
-                            and 'trunk_bwd_kernelILi32' in line)
-            if seen and 'registers' in line:
-                print('%-16s phase A (F=32): %s' % (name, line.strip()))
-                break
+    for name in sources:   # ptxas's lines for K1 and phase A at F=32
+        for kernel, what in (('trunk_fwd_kernelILi32', 'K1'),
+                             ('trunk_bwd_kernelILi32', 'phase A')):
+            seen = False
+            for line in cuda_build.build_log('variant_' + name).splitlines():
+                seen = seen or ('Compiling' in line and kernel in line)
+                if seen and ('registers' in line or 'stack frame' in line):
+                    print('%-18s %s (F=32): %s' % (name, what, line.strip()))
+                    if 'registers' in line:
+                        break
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -101,11 +134,22 @@ def main():
         saved = dict(acts=acts, y=y, xhat=xhat, rstd=rstd)
         ref = geese_trunk.trunk_backward_reference(
             x, *weights, dy, groups=groups, need_dx=False, **saved)
+        y_ref = geese_trunk.trunk_forward_reference(x, *weights,
+                                                    groups=groups)
+        x8 = x[:8].contiguous()
         names = list(sources)
         for name in names + names[::-1]:
             geese_trunk.cuda_build.load = \
                 lambda _, name=name: load('variant_' + name)
             geese_trunk._LIB = None
+
+            def forward(rows=x):
+                return geese_trunk.trunk_forward(rows, *weights, groups=groups)
+            k1_err = (forward() - y_ref).abs().max().item()
+            k1 = (c.cuda_time_ms(torch, lambda: forward(x8), 200),
+                  c.cuda_time_ms(torch, forward, 50),
+                  c.cuda_time_ms(torch, lambda: c.training_forward(
+                      torch, geese_trunk, x, weights, groups), 50))
 
             def kernel():
                 return geese_trunk.trunk_backward(
@@ -118,9 +162,11 @@ def main():
             phase = {p: sum(t for k, t in ms.items()
                             if any(kn in k for kn in kernels))
                      for p, kernels in c.PHASES.items()}
-            print('%-16s phase A %.4f ms  phase B %.4f ms  max err / max '
-                  '|grad| %.3g' % (name, phase['a'], phase['b'], err),
-                  flush=True)
+            print('%-18s K1 N=8 %.4f ms, N=%d %.4f ms, training form %.4f '
+                  'ms, max abs err %.3g  K2 phase A %.4f ms  phase B %.4f '
+                  'ms  max err / max |grad| %.3g' % (
+                      name, k1[0], N, k1[1], k1[2], k1_err, phase['a'],
+                      phase['b'], err), flush=True)
     geese_trunk.cuda_build.load = load
     geese_trunk._LIB = None
 
