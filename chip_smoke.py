@@ -9,7 +9,8 @@ non-zero, printing no result, when either is missing or any phase fails.
    CUDA versions, and builds every CUDA kernel of the port from the
    checkout's sources (one nvcc per source, all started together). It
    counts the tensor-core instructions (HMMA) in the trunk kernels' SASS
-   (``cuobjdump --dump-sass``) and fails unless K1's are more than 0.
+   (``cuobjdump --dump-sass``) and fails unless K1's and K2b's are more
+   than 0.
 2. Holds each kernel against its plain PyTorch version on the card, fp32
    with TF32 off, and times the kernel, the plain version and, where one
    PyTorch call computes the same function, that call:
@@ -28,8 +29,13 @@ non-zero, printing no result, when either is missing or any phase fails.
      from K1's training forward, every grad against the plain version's
      relative to the grad's largest element; the yardstick is torch
      autograd's backward through the 'pad' trunk. Its two phases (K2a,
-     trunk_bwd_kernel; K2b, trunk_wgrad_kernel + column_sum) are timed
-     apart by torch.profiler and each has its own bound;
+     trunk_bwd_kernel; K2b, trunk_wgrad_kernel + column_sum, both on the
+     tensor cores in 3xTF32) are timed apart by torch.profiler and each
+     has its own bound. K2b also has its own plain version (the 13 plain
+     weight grads from the same layer inputs and conv-output grads) and
+     yardstick: cuDNN's weight grads of the 13 torus convs
+     (``torch.nn.grad.conv2d_weight`` on circularly padded NCHW inputs,
+     padded outside the timed region), timed by CUDA-graph replay;
    - K1 and K2 at the other width they are built for, F=16 (2 blocks,
      N=64), for correctness only, K1's saved tensors included;
    - K3-K5, the TD(lambda), UPGO and V-Trace recursions, at (T=16, N)
@@ -111,7 +117,6 @@ STEP_RTOL = 1e-4
 STEP_NORM_RTOL = 1e-3
 STEP_UPDATE_RTOL = 1e-2
 STEP_MU_RTOL = 1e-3
-PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 PEAK_SOURCE = 'H100 SXM data sheet at 700 W'
@@ -277,10 +282,12 @@ def phase_build(cuda_build):
                             cuda_build.library_path('geese_trunk'))
     for kernel, count in sorted(hmma.items()):
         log('  SASS of %s: %d HMMA instructions' % (kernel, count))
-    fwd = {k: c for k, c in hmma.items() if k.startswith('trunk_fwd_kernel')}
-    if not fwd or not all(fwd.values()):
-        fail('K1 (trunk_fwd_kernel) does not run on the tensor cores: HMMA '
-             'counts %s' % fwd)
+    for name, kernel in (('K1', 'trunk_fwd_kernel'),
+                         ('K2b', 'trunk_wgrad_kernel')):
+        counts = {k: c for k, c in hmma.items() if k.startswith(kernel)}
+        if not counts or not all(counts.values()):
+            fail('%s (%s) does not run on the tensor cores: HMMA counts %s'
+                 % (name, kernel, counts))
     return hmma
 
 
@@ -421,10 +428,10 @@ def bwd_bounds_ms(n, cin, filters, layers, groups):
     convs in 3xTF32 on the tensor cores, three TF32 products per fp32
     multiply-add, over the TF32 peak; it reads xhat, rstd, acts (the ReLU
     masks), y, dy and the weights and writes dc and the scale and bias
-    grads. Phase B (trunk_wgrad_kernel + column_sum): the weight products
-    in fp32 on the CUDA cores over the fp32 peak; it reads x, acts, dc and
-    the scale and bias grads and writes the grads. Returns {phase: (ms,
-    bound_by, flops, bytes)}."""
+    grads. Phase B (trunk_wgrad_kernel + column_sum): the weight products,
+    also in 3xTF32 over the TF32 peak; it reads x, acts, dc and the scale
+    and bias grads and writes the grads. Returns {phase: (ms, bound_by,
+    flops, bytes)}."""
     nl = layers + 1
     weights = 9 * cin * filters + layers * 9 * filters * filters
     grads = weights + 2 * filters * nl
@@ -438,7 +445,7 @@ def bwd_bounds_ms(n, cin, filters, layers, groups):
     out = {}
     for phase, t_ops, flops, nbytes in (
             ('a', 3 * a_flops / PEAK_TF32_FLOPS, a_flops, a_bytes),
-            ('b', b_flops / PEAK_FP32_FLOPS, b_flops, b_bytes)):
+            ('b', 3 * b_flops / PEAK_TF32_FLOPS, b_flops, b_bytes)):
         t_bytes = nbytes / PEAK_BYTES
         out[phase] = (1e3 * max(t_ops, t_bytes),
                       'operations' if t_ops >= t_bytes else 'bytes', flops,
@@ -448,6 +455,56 @@ def bwd_bounds_ms(n, cin, filters, layers, groups):
 
 PHASES = {'a': ('trunk_bwd_kernel',), 'b': ('trunk_wgrad_kernel',
                                              'column_sum')}
+
+
+def layer_inputs_and_dc(geese_trunk, x, weights, dy, groups, saved):
+    """What K2b reads: each layer's input (x, then each block's) and its
+    conv-output grad dc, from the plain backward's steps on the training
+    forward's saved tensors."""
+    stem_w, stem_scale, _, block_w, block_scale, _ = weights
+    layers = block_w.shape[0]
+    inputs = [x] + [saved['acts'][:, i] for i in range(layers)]
+    outs = inputs[1:] + [saved['y']]
+    ws, scales = [stem_w] + list(block_w), [stem_scale] + list(block_scale)
+    dh, dcs = dy, [None] * (layers + 1)
+    for l in range(layers, -1, -1):
+        g = dh * (outs[l] > 0)
+        dcs[l] = geese_trunk._group_norm_backward(
+            g, saved['xhat'][:, l], saved['rstd'][:, l], scales[l],
+            groups)[0]
+        if l > 0:
+            dh = g + geese_trunk._conv_transpose(dcs[l], ws[l])
+    return inputs, dcs
+
+
+def wgrad_yardsticks(torch, geese_trunk, inputs, dcs, ref_w):
+    """K2b's plain version (the 13 plain weight grads) and cuDNN's weight
+    grads of the same 13 torus convs (fp32, TF32 off), each checked against
+    the plain backward's weight grads ``ref_w`` and timed: the plain
+    version with CUDA events, cuDNN by CUDA-graph replay (the wrapper's
+    host cost would hide it). The circular padding and NCHW copies are
+    made before the timed region. Returns (plain ms, cuDNN ms, cuDNN's max
+    error over each grad's largest element)."""
+    import torch.nn.functional as F
+    torch.backends.cudnn.allow_tf32 = False
+    padded = [F.pad(h.permute(0, 3, 1, 2).contiguous(), (1, 1, 1, 1),
+                    mode='circular') for h in inputs]
+    dcs_nchw = [d.permute(0, 3, 1, 2).contiguous() for d in dcs]
+    sizes = [(d.shape[-1], h.shape[-1], 3, 3) for h, d in zip(inputs, dcs)]
+
+    def plain():
+        return [geese_trunk._conv_weight_grad(h, d)
+                for h, d in zip(inputs, dcs)]
+
+    def library():
+        return [torch.nn.grad.conv2d_weight(p, size, d)
+                for p, size, d in zip(padded, sizes, dcs_nchw)]
+
+    got = library()
+    err = max(((g.permute(2, 3, 1, 0) - r).abs().max() / r.abs().max()).item()
+              for g, r in zip(got, ref_w))
+    return (cuda_time_ms(torch, plain, 5), graph_time_ms(torch, library, 20),
+            err)
 
 
 def phase_backward(torch, geese_trunk, GeeseNet, make_env):
@@ -490,6 +547,11 @@ def phase_backward(torch, geese_trunk, GeeseNet, make_env):
             ms = cuda_time_ms(torch, kernel, 20)
             plain_ms = cuda_time_ms(torch, plain, 5)
             by_kernel = kernel_ms(torch, kernel, 10)
+            inputs, dcs = layer_inputs_and_dc(geese_trunk, x, weights, dy, G,
+                                              saved)
+            b_plain_ms, b_library_ms, b_library_err = wgrad_yardsticks(
+                torch, geese_trunk, inputs, dcs, [ref[1]] + list(ref[4]))
+            del inputs, dcs
         # the yardstick: autograd through the cuDNN trunk, backward only
         with torch.enable_grad():
             yp = net.trunk(x)
@@ -510,6 +572,8 @@ def phase_backward(torch, geese_trunk, GeeseNet, make_env):
             row[phase] = {'ms': sum(times), 'bound_ms': bound,
                           'bound_by': bound_by, 'flops': flops,
                           'bytes': nbytes}
+        row['b'].update(plain_ms=b_plain_ms, library_ms=b_library_ms,
+                        library_err=b_library_err)
         rows[n] = row
         log('geese_trunk_bwd N=%-4d max err / max |grad| %.3g (tol %.0e; %s)'
             '  kernel %.4f ms  plain %.4f ms  library %.4f ms' % (
@@ -522,9 +586,17 @@ def phase_backward(torch, geese_trunk, GeeseNet, make_env):
                 '(%s; %.4g GFLOP, %.4g MB)' % (
                     phase, ' + '.join(kernels), r['ms'], r['bound_ms'],
                     r['bound_by'], r['flops'] / 1e9, r['bytes'] / 1e6))
+        b = row['b']
+        log('  phase b: plain weight grads %.4f ms; cuDNN weight grads of the '
+            '13 convs %.4f ms (CUDA-graph replay; max err / max |grad| %.3g '
+            'against the plain version) beside the kernel\'s %.4f ms' % (
+                b['plain_ms'], b['library_ms'], b['library_err'], b['ms']))
         if not err <= BWD_TOL:
             fail('geese_trunk_bwd disagrees with its plain version at N=%d'
                  % n)
+        if not b['library_err'] <= BWD_TOL:
+            fail('cuDNN\'s weight grads disagree with the plain version at '
+                 'N=%d: the yardstick computes another function' % n)
     return rows
 
 
@@ -1040,6 +1112,11 @@ def main():
               sass_hmma=hmma.get('trunk_fwd_kernel<32>', 0)),
     ]
     # K2 as its two phases: each wrapper call launches each phase once
+    notes = {'a': dict(plain_and_library_ms_are='of the whole K2'),
+             'b': dict(plain_ms_is='the 13 plain weight grads',
+                       library_ms_is='cuDNN\'s weight grads of the 13 torus '
+                       'convs (conv2d_weight, fp32), by CUDA-graph replay',
+                       sass_hmma=hmma.get('trunk_wgrad_kernel<32>', 0))}
     for phase, kernel_names in PHASES.items():
         by_n = {n: dict(r, **r[phase]) for n, r in bwd_rows.items()}
         kernels.append(entry(
@@ -1048,7 +1125,7 @@ def main():
             count='geese_trunk_bwd', kernels=kernel_names,
             k2_ms=bwd_rows[TRAIN_N]['ms'],
             max_abs_err_is='of K2\'s grads, relative to each grad\'s '
-            'largest element', plain_and_library_ms_are='of the whole K2'))
+            'largest element', **notes[phase]))
     for name, line in (('td_lambda', 129), ('upgo', 138), ('vtrace', 149)):
         by_n = {n: target_rows[(name, n)] for n in TARGET_NS}
         kernels.append(entry(

@@ -204,19 +204,21 @@ def _decode_ext(code: int, data: bytes):
     return ExtType(code, data)
 
 
-def _read_array(r: _Reader, n: int, depth: int) -> list:
-    return [_read(r, depth + 1) for _ in range(n)]
+def _read_array(r: _Reader, n: int, depth: int, ext) -> list:
+    return [_read(r, depth + 1, ext) for _ in range(n)]
 
 
-def _read_map(r: _Reader, n: int, depth: int) -> dict:
+def _read_map(r: _Reader, n: int, depth: int, ext) -> dict:
     out = {}
     for _ in range(n):
-        k = _read(r, depth + 1)
-        out[k] = _read(r, depth + 1)
+        k = _read(r, depth + 1, ext)
+        out[k] = _read(r, depth + 1, ext)
     return out
 
 
-def _read(r: _Reader, depth: int):
+def _read(r: _Reader, depth: int, ext=_decode_ext):
+    """One msgpack object from ``r``; ``ext(code, data)`` decodes ext
+    values (the wire's by default)."""
     if depth > 512:
         raise ValueError('message nested too deeply')
     b = r.take(1)[0]
@@ -225,9 +227,9 @@ def _read(r: _Reader, depth: int):
     if b >= 0xe0:
         return b - 0x100
     if 0x80 <= b <= 0x8f:
-        return _read_map(r, b & 0x0f, depth)
+        return _read_map(r, b & 0x0f, depth, ext)
     if 0x90 <= b <= 0x9f:
-        return _read_array(r, b & 0x0f, depth)
+        return _read_array(r, b & 0x0f, depth, ext)
     if 0xa0 <= b <= 0xbf:
         return str(r.take(b & 0x1f), 'utf-8')
     if b == 0xc0:
@@ -240,7 +242,7 @@ def _read(r: _Reader, depth: int):
     if b in (0xc7, 0xc8, 0xc9):
         n = r.fmt({0xc7: '>B', 0xc8: '>H', 0xc9: '>I'}[b])
         code = r.fmt('>b')
-        return _decode_ext(code, bytes(r.take(n)))
+        return ext(code, bytes(r.take(n)))
     if b == 0xca:
         return r.fmt('>f')
     if b == 0xcb:
@@ -250,14 +252,15 @@ def _read(r: _Reader, depth: int):
     if 0xd4 <= b <= 0xd8:
         n = 1 << (b - 0xd4)
         code = r.fmt('>b')
-        return _decode_ext(code, bytes(r.take(n)))
+        return ext(code, bytes(r.take(n)))
     if b in (0xd9, 0xda, 0xdb):
         n = r.fmt({0xd9: '>B', 0xda: '>H', 0xdb: '>I'}[b])
         return str(r.take(n), 'utf-8')
     if b in (0xdc, 0xdd):
-        return _read_array(r, r.fmt('>H' if b == 0xdc else '>I'), depth)
+        return _read_array(r, r.fmt('>H' if b == 0xdc else '>I'), depth,
+                           ext)
     if b in (0xde, 0xdf):
-        return _read_map(r, r.fmt('>H' if b == 0xde else '>I'), depth)
+        return _read_map(r, r.fmt('>H' if b == 0xde else '>I'), depth, ext)
     raise ValueError('unknown msgpack type byte 0x%02x' % b)
 
 

@@ -117,6 +117,18 @@ __device__ __forceinline__ float2 split_tf32(float x) {
   return make_float2(hi, tf32_rna(x - hi));
 }
 
+// x as TF32 (hi, lo) by truncation: hi = x with its 13 low bits cleared,
+// lo the rest cleared the same way, one integer operation each instead of
+// tf32_rna's two. x - hi - lo is below 2^-20 of x (2^-22 rounded), as is
+// the lo*lo term 3xTF32 leaves out. K2b splits every operand as its
+// fragment loads, and rounding took a tenth of its time on the H100
+// (scripts/torch_trunk_variants.py, k2b_rna).
+__device__ __forceinline__ float2 split_tf32_trunc(float x) {
+  const float hi = __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
+  return make_float2(
+      hi, __uint_as_float(__float_as_uint(x - hi) & 0xFFFFE000u));
+}
+
 // Four floats as (hi, lo) pairs into 8 floats at dst (16-byte aligned).
 __device__ __forceinline__ void store_split4(float* dst, float4 v) {
   const float2 a = split_tf32(v.x), b = split_tf32(v.y);
@@ -464,9 +476,10 @@ cudaError_t launch(const float* x, const float* stem_w, const float* stem_scale,
 //     x 13 x 2F) go to memory.
 //  B. trunk_wgrad_kernel, one block per (layer, group of kChunk samples):
 //     dW[t][ci][f] = sum over the group's samples and pixels p of
-//     in[nbr(p, t)][ci] * dc[p][f], each thread a 4 x 8 register tile of
-//     (ci, f) for one tap, plus the group's scale and bias sums. One
-//     partial row per group.
+//     in[nbr(p, t)][ci] * dc[p][f], a GEMM with K = the samples' pixels on
+//     the tensor cores in 3xTF32 (wgrad_mma: f as M, ci as N, a warp all 9
+//     taps of one n8 tile of ci), plus the group's scale and bias sums in
+//     fp32. One partial row per group.
 //  C. column_sum adds the partial rows in group order: the result does not
 //     depend on the order in which blocks ran.
 //
@@ -488,10 +501,37 @@ cudaError_t launch(const float* x, const float* stem_w, const float* stem_scale,
 // overlapping (offsetting the samples by half a layer measured slower: a
 // sample's conv is bound by its warps' dependent mma and shared loads,
 // not by the SM's throughput), and each warp reads dc fragments from
-// shared memory for every k-step. B: 36.4 GFLOP fp32 on the CUDA cores,
-// bound by operations at 0.54 ms.
+// shared memory for every k-step.
+//
+// Bound of B at N=2048: operations. Its products are 36.4 GFLOP, 0.221 ms
+// as 3xTF32 at 495 TFLOP/s (0.54 ms at the fp32 peak); it reads acts (242
+// MB), dc (262 MB), x and the scale and bias grads, about 522 MB, 0.156 ms
+// at 3.35 TB/s. The mma.sync it runs on issue at about two thirds of that
+// peak on the H100 (scripts/torch_mma_rate.py). How the design goes after
+// it: every byte of acts and dc is read once, by cp.async straight into
+// the layout the fragments are read from, a sample ahead of the products
+// (two buffer sets, one barrier a sample). What bounded the earlier forms
+// was not the mma but the shared-memory bytes of the fragment loads: with
+// one warp a tap (or three taps) and the operands stored as (hi, lo) pairs,
+// every warp read all of dc as 8-byte pairs. Here a warp holds all 9 taps
+// x all conv channels for one n8 tile of input channels (WShape), so one dc
+// fragment serves 27 mma, and both operands stay fp32 in shared memory and
+// are split as they load: 26 four-byte loads a lane for 54 mma. 4 warps
+// and 80.6 KB a block at F=32, two blocks an SM. Each sample is padded to 80
+// pixel rows (10 k8 steps, 4% of the products wasted) with rows of zeros in
+// both operands. The partial rows (kChunk samples each) and column_sum keep
+// the sum's order fixed. What it keeps: mma.sync, not wgmma, the only way
+// to the TF32 peak the bound counts.
 
 constexpr int kChunk = 16;     // samples per partial row of B
+constexpr int kKPix = 80;      // B's pixels a sample: 77, padded to k8 steps
+// B's layer input as a halo board: kHaloW columns a row (13 used; 15 keeps
+// the 4 pixels a quarter warp reads 4 rows apart mod 4 where a board row
+// wraps), 9 rows, then the zero rows the padded pixels' taps read
+constexpr int kHaloW = 15;
+constexpr int kHaloRows = (kRows + 2) * kHaloW;
+constexpr int kZeroRows = 2 * kHaloW + 3;
+constexpr int kInRows = kHaloRows + kZeroRows;
 constexpr int kSamples = 2;    // samples per block of A
 
 // K2a's GroupNorm layout: each thread owns 4 adjacent channels (a quad)
@@ -864,97 +904,242 @@ __host__ __device__ inline size_t w_offset(int l, int cin, int f) {
                       static_cast<size_t>(l - 1) * kTaps * f * f;
 }
 
+// K2b's shape: kNT warps a block, warp ct owning n8 tile ct of the input
+// channels for all 9 taps and every conv channel f (kMT m16 tiles): 2 x 9
+// m16n8 tiles at F=32 in two accumulator sets, 144 floats a lane. Two
+// blocks an SM (8 warps at F=32, two on each scheduler). Both operands lie
+// in shared memory as fp32 and are split into (hi, lo) as their fragments
+// load: a lane's 8 dc values of a k-step feed 54 mma, its 18 input values 6
+// each.
 template <int F>
 struct WShape {
-  static constexpr int kFOcts = F / 8;
-  __host__ __device__ static int ci_quads(int cin) {
-    const int cinp = round4(cin);
-    return (cinp > F ? cinp : F) / 4;
+  static constexpr int kMT = F / 16;
+  static constexpr int kNT = F / 8;    // n8 tiles of input channels a pass
+  static constexpr int kWarps = kNT;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kDcStride = F + 8;   // dc rows: 8 mod 32 banks apart
+  static_assert(F % 16 == 0 && kDcStride % 32 % 16 == 8, "F");
+  // the input's row stride (floats) for c channels, c a multiple of 8: 8
+  // or 24 mod 32, so that the four rows a fragment load reads at once lie
+  // in different banks
+  __host__ __device__ static int in_stride(int cin) {
+    const int c = round8(cin > F ? cin : F);
+    return c + (c % 16 ? 16 : 8);
   }
-  __host__ __device__ static int threads(int cin) {
-    return kTaps * ci_quads(cin) * kFOcts;
+  // floats of one of the two buffer sets: dc (kKPix rows), then the layer
+  // input as a halo board and its zero rows (kInRows)
+  __host__ __device__ static int set_floats(int cin) {
+    return kKPix * kDcStride + kInRows * in_stride(cin);
   }
 };
 
+// One sample's products of K2b for this warp's n8 tile ct of input
+// channels: dW[t][ci][f] += sum over the sample's pixels p of
+// in[nbr(p, t)][ci] * dc[p][f] for all 9 taps t, as GEMMs C_t[f][ci] +=
+// A[f][p] B_t[p][ci] on the tensor cores (mma.sync m16n8k8, K = the pixels,
+// kKPix = 80 of them, 77 real and 3 zero rows in both operands). A is dc as
+// it lies in shared memory, B_t the layer's input on a halo board (kHaloW
+// columns a row; halo (r, c) holds the input at ((r - 1) mod 7, (c - 1) mod
+// 11)), so that tap (a, b) of pixel (r, c) reads halo row (r + a) kHaloW +
+// c + b: one lookup a pixel (base), whatever the tap; the padded pixels'
+// base points at kZeroRows zero rows. Which operand is M: with the conv
+// channels as M, one A fragment serves all 9 taps and B's 9 taps the 2
+// m16 tiles, 26 loads a lane for 54 mma (the input channels as M would
+// read 9 taps' A of 4 values and dc's B of 2 for each n8 tile of f: 4 x 9 +
+// 2 x 4 loads for 72 mma a warp, with 32 input channels; and the stem's 17
+// would pad to 32, not 24). Each value is split as it loads
+// (split_tf32_trunc): stored as (hi, lo) pairs the fragments doubled the
+// shared-memory bytes, and an earlier form of this kernel (12 warps of
+// three taps each, operands as pairs) was bound by them; splitting the
+// input once a sample onto the halo board instead cost a pass and a
+// barrier a sample that took more than the splits it saved. Three mma a
+// tile pair, as in K1 and K2a: hi*hi into acc, lo*hi + hi*lo into small,
+// added by the caller at the end. The mma issue in the order written (asm
+// volatile), so a k-step issues every tile's lo*hi, then every hi*hi, then
+// every hi*lo: the two into one small accumulator lie 36 mma apart (back
+// to back, the products ran at half the rate).
 template <int F>
-__global__ void trunk_wgrad_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ acts,
-                                   const float* __restrict__ dc_all,
-                                   const float* __restrict__ dsn,
-                                   float* __restrict__ partials, int n,
-                                   int cin, int layers, size_t total) {
+__device__ __forceinline__ void wgrad_mma(
+    const float* dcs, const float* ins, int is, const int* base, int ct,
+    float (&acc)[WShape<F>::kMT][9][4], float (&small)[WShape<F>::kMT][9][4]) {
+  using W = WShape<F>;
+  constexpr int kMT = W::kMT;
+  constexpr int kS = W::kDcStride;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tq = lane & 3;
+  const float* ap0 = dcs + tq * kS + gid;           // A[f][p] = dc[p][f]
+  const float* bp0 = ins + 8 * ct + gid;
+  int tap[9];   // each tap's halo offset, floats
+#pragma unroll
+  for (int t = 0; t < 9; ++t) tap[t] = ((t / 3) * kHaloW + t % 3) * is;
+#pragma unroll 2
+  for (int kk = 0; kk < kKPix / 8; ++kk) {
+    const float* ap = ap0 + 8 * kk * kS;
+    float2 av[kMT][4];
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi) {
+      av[mi][0] = split_tf32_trunc(ap[16 * mi]);
+      av[mi][1] = split_tf32_trunc(ap[16 * mi + 8]);
+      av[mi][2] = split_tf32_trunc(ap[4 * kS + 16 * mi]);
+      av[mi][3] = split_tf32_trunc(ap[4 * kS + 16 * mi + 8]);
+    }
+    const float* b0p = bp0 + base[8 * kk + tq] * is;
+    const float* b1p = bp0 + base[8 * kk + tq + 4] * is;
+    float2 bv[9][2];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      bv[t][0] = split_tf32_trunc(b0p[tap[t]]);
+      bv[t][1] = split_tf32_trunc(b1p[tap[t]]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        mma_tf32(small[mi][t], av[mi][0].y, av[mi][1].y, av[mi][2].y,
+                 av[mi][3].y, bv[t][0].x, bv[t][1].x);
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        mma_tf32(acc[mi][t], av[mi][0].x, av[mi][1].x, av[mi][2].x,
+                 av[mi][3].x, bv[t][0].x, bv[t][1].x);
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        mma_tf32(small[mi][t], av[mi][0].x, av[mi][1].x, av[mi][2].x,
+                 av[mi][3].x, bv[t][0].y, bv[t][1].y);
+  }
+}
+
+template <int F>
+__global__ void __launch_bounds__(WShape<F>::kThreads, 2)
+trunk_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ acts,
+                   const float* __restrict__ dc_all,
+                   const float* __restrict__ dsn, float* __restrict__ partials,
+                   int n, int cin, int layers, size_t total) {
   using W = WShape<F>;
   extern __shared__ __align__(16) float smem[];
   const int l = blockIdx.x;
   const int n0 = blockIdx.y * kChunk;
   const int n1 = min(n, n0 + kChunk);
   const int nl = layers + 1;
-  const int cinp = round4(cin);
   const int c_in = l == 0 ? cin : F;        // this layer's input channels
-  const int cp = l == 0 ? cinp : F;         // ... padded, the row stride
-  const int nciq = W::ci_quads(cin);
-  float* as = smem;                         // kPix x cp    layer input
-  float* dcs = as + kPix * nciq * 4;        // kPix x F     d(conv)
-  int* nbr = reinterpret_cast<int*>(dcs + kPix * F);
-  const int tid = threadIdx.x;
-  fill_neighbours(nbr, blockDim.x);
-  const int fo = tid % W::kFOcts;
-  const int ciq = (tid / W::kFOcts) % nciq;
-  const int t = tid / (W::kFOcts * nciq);
-  const bool active = 4 * ciq < c_in;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float sb = 0.f;   // the group's sum of this thread's scale or bias grad
+  const int nct = round8(c_in) / 8;         // ... in n8 tiles
+  const int is = W::in_stride(cin);
+  // two buffer sets, each: dc (kKPix x kDcStride), the input's halo board
+  // and zero rows (kInRows x is); then each pixel's halo row (base), each
+  // halo cell's row and the pixel it holds (halo)
+  const int set = W::set_floats(cin);
+  auto dcs = [&](int b) { return smem + b * set; };
+  auto ins = [&](int b) { return smem + b * set + kKPix * W::kDcStride; };
+  constexpr int kBoard = (kRows + 2) * (kCols + 2);   // the halo's cells
+  int* base = reinterpret_cast<int*>(smem + 2 * set);   // kKPix
+  int2* halo = reinterpret_cast<int2*>(base + kKPix);   // kBoard
 
-  for (int s = n0; s < n1; ++s) {
-    __syncthreads();   // the previous sample is done with as and dcs
-    if (l == 0) {
-      const float* xn = x + static_cast<size_t>(s) * kPix * cin;
-      for (int i = tid; i < kPix * cinp; i += blockDim.x) {
-        const int p = i / cinp, c = i % cinp;
-        as[i] = c < cin ? xn[p * cin + c] : 0.f;
-      }
-    } else {
-      const float4* an = reinterpret_cast<const float4*>(
-          acts + (static_cast<size_t>(s) * layers + (l - 1)) * kPix * F);
-      for (int i = tid; i < kPix * F / 4; i += blockDim.x)
-        reinterpret_cast<float4*>(as)[i] = an[i];
-    }
-    const float4* dn = reinterpret_cast<const float4*>(
-        dc_all + (static_cast<size_t>(s) * nl + l) * kPix * F);
-    for (int i = tid; i < kPix * F / 4; i += blockDim.x)
-      reinterpret_cast<float4*>(dcs)[i] = dn[i];
-    if (tid < 2 * F) sb += dsn[(static_cast<size_t>(s) * nl + l) * 2 * F + tid];
-    __syncthreads();
-    if (!active) continue;
-    for (int p = 0; p < kPix; ++p) {
-      const float4 a4 = *reinterpret_cast<const float4*>(
-          as + nbr[p * kTaps + t] * cp + 4 * ciq);
-      const float4 d0 = *reinterpret_cast<const float4*>(dcs + p * F + 8 * fo);
-      const float4 d1 =
-          *reinterpret_cast<const float4*>(dcs + p * F + 8 * fo + 4);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], dv[j], acc[i][j]);
+  const int tid = threadIdx.x;
+  for (int p = tid; p < kKPix; p += W::kThreads)
+    base[p] = p < kPix ? (p / kCols) * kHaloW + p % kCols : kHaloRows;
+  // each halo cell's row and the pixel it holds
+  for (int h = tid; h < kBoard; h += W::kThreads) {
+    const int r = h / (kCols + 2), c = h % (kCols + 2);
+    halo[h] = make_int2(
+        r * kHaloW + c,
+        ((r + kRows - 1) % kRows) * kCols + (c + kCols - 1) % kCols);
+  }
+  // zero for good, as no copy writes them: dc's padded pixel rows, the
+  // input's zero rows, and its channels from c_in to the n8 tiles' end
+  const int cpad = 8 * nct - c_in;
+  for (int b = 0; b < 2; ++b) {
+    for (int i = tid; i < (kKPix - kPix) * W::kDcStride; i += W::kThreads)
+      dcs(b)[kPix * W::kDcStride + i] = 0.f;
+    for (int i = tid; i < kZeroRows * is; i += W::kThreads)
+      ins(b)[kHaloRows * is + i] = 0.f;
+    for (int i = tid; i < kBoard * cpad; i += W::kThreads) {
+      const int r = i / cpad, c = i % cpad;
+      ins(b)[(r / (kCols + 2) * kHaloW + r % (kCols + 2)) * is + c_in + c] =
+          0.f;
     }
   }
+  __syncthreads();   // halo is complete
 
+  // start copying sample s's dc rows and input (onto the halo board) into
+  // set b, as they are
+  auto stage = [&](int s, int b) {
+    const float* dn = dc_all + (static_cast<size_t>(s) * nl + l) * kPix * F;
+    for (int i = tid; i < kPix * F / 4; i += W::kThreads)
+      cp_async16(dcs(b) + (i / (F / 4)) * W::kDcStride + 4 * (i % (F / 4)),
+                 dn + 4 * i);
+    if (l == 0) {   // x rows of cin floats: not 16-byte aligned
+      const float* xn = x + static_cast<size_t>(s) * kPix * cin;
+      for (int i = tid; i < kBoard * cin; i += W::kThreads) {
+        const int2 h = halo[i / cin];
+        const int c = i % cin;
+        cp_async4(ins(b) + h.x * is + c, xn + h.y * cin + c);
+      }
+    } else {
+      const float* an =
+          acts + (static_cast<size_t>(s) * layers + l - 1) * kPix * F;
+      for (int i = tid; i < kBoard * F / 4; i += W::kThreads) {
+        const int2 h = halo[i / (F / 4)];
+        const int q = 4 * (i % (F / 4));
+        cp_async16(ins(b) + h.x * is + q, an + h.y * F + q);
+      }
+    }
+  };
+
+  const int lane = tid & 31, ct_w = tid >> 5;
+  const int gid = lane >> 2, tq = lane & 3;
   float* row = partials + blockIdx.y * total;
-  if (active) {
-    float* dw = row + w_offset(l, cin, F);
+  float* dw = row + w_offset(l, cin, F);
+  float sb = 0.f;   // the chunk's sum of this thread's scale or bias grad
+  auto add_sb = [&](int s, int ct0) {
+    if (ct0 == 0 && tid < 2 * F)
+      sb += dsn[(static_cast<size_t>(s) * nl + l) * 2 * F + tid];
+  };
+  // more than one pass only when the stem is wider than F (not GeeseNet's
+  // F=32; its stem at F=16): each pass stages the chunk again. A warp whose
+  // tile is past the layer's input channels (the stem at F=32: tile 3)
+  // copies and runs no products.
+  for (int ct0 = 0; ct0 < nct; ct0 += W::kNT) {
+    const int ct = ct0 + ct_w;
+    float acc[W::kMT][9][4], small[W::kMT][9][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ci = 4 * ciq + i;
-      if (ci >= c_in) continue;
-      float* o = dw + (static_cast<size_t>(t) * c_in + ci) * F + 8 * fo;
+    for (int mi = 0; mi < W::kMT; ++mi)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) o[j] = acc[i][j];
+      for (int t = 0; t < 9; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][t][e] = small[mi][t][e] = 0.f;
+    __syncthreads();   // the last pass's products are done with both sets
+    stage(n0, 0);
+    add_sb(n0, ct0);
+    // sample s is in set b; while its products run, sample s + 1 arrives
+    // in set b ^ 1, which the products of s - 1 are done with: one barrier
+    // a sample
+    for (int s = n0; s < n1; ++s) {
+      const int b = (s - n0) & 1;
+      cp_async_wait_all();
+      __syncthreads();   // sample s has arrived; the products of s - 1 are
+                         // done with set b ^ 1
+      if (s + 1 < n1) {
+        stage(s + 1, b ^ 1);
+        add_sb(s + 1, ct0);
+      }
+      if (ct < nct) wgrad_mma<F>(dcs(b), ins(b), is, base, ct, acc, small);
+    }
+    if (ct < nct) {
+#pragma unroll
+      for (int mi = 0; mi < W::kMT; ++mi)
+#pragma unroll
+        for (int t = 0; t < 9; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ci = 8 * ct + 2 * tq + (e & 1);
+            const int f = 16 * mi + gid + 8 * (e >> 1);
+            if (ci < c_in)
+              dw[(static_cast<size_t>(t) * c_in + ci) * F + f] =
+                  acc[mi][t][e] + small[mi][t][e];
+          }
     }
   }
   if (tid < 2 * F) {
@@ -1007,9 +1192,13 @@ cudaError_t launch_backward(const float* x, const float* stem_w,
   const int chunks = (n + kChunk - 1) / kChunk;
   const size_t total = w_offset(nl, cin, F) + 2 * static_cast<size_t>(nl) * F;
   const int smem_b = static_cast<int>(
-      sizeof(float) * kPix * (W::ci_quads(cin) * 4 + F) +
-      sizeof(int) * kPix * kTaps);
-  trunk_wgrad_kernel<F><<<dim3(nl, chunks), W::threads(cin), smem_b, stream>>>(
+      sizeof(float) * 2 * W::set_floats(cin) +
+      sizeof(int) * (kKPix + 2 * (kRows + 2) * (kCols + 2)));
+  err = cudaFuncSetAttribute(trunk_wgrad_kernel<F>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_b);
+  if (err != cudaSuccess) return err;
+  trunk_wgrad_kernel<F><<<dim3(nl, chunks), W::kThreads, smem_b, stream>>>(
       x, acts, dc_all, dsn, partials, n, cin, layers, total);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -5,8 +5,9 @@ port's zoo placed on one device; the wrapper presents the numpy-in /
 numpy-out single-sample ``inference`` and the batched ``batch_inference``
 the generators and the inference engine call. Snapshots are data: the
 architecture name, its non-default config, and the flax-shaped param tree
-encoded with the wire codec (``params_to_flax`` / ``params_from_flax``),
-never pickled code.
+(``params_to_flax`` / ``params_from_flax``) in the bytes flax's
+``to_bytes`` gives (``utils/flax_msgpack.py``), never pickled code, so that
+either package loads the other's snapshots.
 
 The device defaults to ``'cuda'``; without a CUDA device the caller must
 ask for ``'cpu'`` explicitly, or the wrapper raises.
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from . import models as model_zoo
-from .connection import pack, unpack
+from .utils import flax_msgpack
 from .utils.tree import map_structure
 
 
@@ -82,10 +83,10 @@ class ModelWrapper:
     # -- wire format ------------------------------------------------------
     def snapshot(self) -> Dict[str, Any]:
         """Architecture name + non-default constructor config + the
-        flax-shaped param tree, encoded with the wire codec."""
+        flax-shaped param tree as flax's ``to_bytes`` writes it."""
         to_flax, _ = _param_io(self.module)
         snap = {'architecture': model_zoo.architecture_name(self.module),
-                'params': pack(to_flax(self.module))}
+                'params': flax_msgpack.to_bytes(to_flax(self.module))}
         config = self.module.config()
         if config:
             snap['config'] = config
@@ -94,12 +95,15 @@ class ModelWrapper:
     @classmethod
     def from_snapshot(cls, snap: Dict[str, Any],
                       device: Any = 'cuda') -> 'ModelWrapper':
-        """Rebuild a model from :meth:`snapshot` data on ``device``."""
+        """Rebuild a model on ``device`` from :meth:`snapshot` data of
+        either package (the port's older snapshots too)."""
         dev = resolve_device(device)
-        module = model_zoo.build(snap['architecture'],
-                                 **dict(snap.get('config') or {}))
+        name = snap['architecture']
+        module = model_zoo.build(name, **model_zoo.snapshot_config(
+            name, snap.get('config') or {}))
         _, from_flax = _param_io(module)
-        module.load_state_dict(from_flax(unpack(snap['params'])))
+        module.load_state_dict(from_flax(
+            flax_msgpack.from_bytes(snap['params'])))
         return cls(module, dev)
 
 

@@ -49,6 +49,10 @@ class GeeseNet(nn.Module):
     # (snapshots carry the non-default entries)
     DEFAULTS = {'filters': 32, 'layers': 12, 'norm_kind': 'group',
                 'torus_impl': 'pad'}
+    # the JAX module's fields a snapshot may carry that change nothing here:
+    # pallas_tile is the batch tile of its TPU kernel (handyrl_tpu/models/
+    # geese.py:73); the CUDA kernels take any batch
+    FOREIGN_CONFIG = ('pallas_tile',)
 
     def __init__(self, filters: int = 32, layers: int = 12,
                  norm_kind: str = 'group', torus_impl: str = 'pad',

@@ -1,9 +1,10 @@
 """Versioned model registry: named lines, pinned champions, atomic flips.
 
-Copy of ``handyrl_tpu/serving/registry.py`` (same manifest format, so
-either package reads the other's registry; the version files hold each
-package's own snapshot bytes). The registry is the serving tier's source of
-truth for *which params a name refers to*:
+Copy of ``handyrl_tpu/serving/registry.py`` (same manifest format, and
+the version files hold param bytes in flax's layout, which both packages
+write and read: either package serves the other's registry). The registry
+is the serving tier's source of truth for *which params a name refers
+to*:
 
 * **State is one JSON manifest** (``<root>/registry.json``) published with
   the atomic temp+fsync+rename writer (utils/fs.py). Mutations take a
