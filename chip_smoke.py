@@ -38,11 +38,14 @@ non-zero, printing no result, when either is missing or any phase fails.
      padded outside the timed region), timed by CUDA-graph replay;
    - K1 and K2 at the other width they are built for, F=16 (2 blocks,
      N=64), for correctness only, K1's saved tensors included;
-   - K3-K5, the TD(lambda), UPGO and V-Trace recursions, at (T=16, N)
-     lanes (N = B*P) for N in {16, 100, 128, 2048}: 128 is the headline
-     step's (B=128, P=1) and the row the kernels line reports, 16 the
-     in-process steps', 100 a ragged edge; no single PyTorch call
-     computes a recursion, so they have no yardstick.
+   - K3-K5, the TD(lambda), UPGO and V-Trace recursions, at T in {1, 16},
+     P in {1, 4} and N lanes (N = B*P) in {16, 100, 128, 2048}, with
+     one-row returns (the outcome, whose bootstrap row the kernels read in
+     place): (T=16, P=1, N=128) is the headline step's and the row the
+     kernels line reports, 16 the in-process steps', 100 a ragged edge;
+     each timed by CUDA-graph replay (device time) and through its
+     wrapper; no single PyTorch call computes a recursion, so they have no
+     yardstick.
 3. The main path, through the entry points a user calls: publishes a
    full-width GeeseNet(torus_impl='pallas') with seeded weights into a
    temporary registry, starts ``python -m handyrl_tpu_torch.serving`` on
@@ -56,14 +59,22 @@ non-zero, printing no result, when either is missing or any phase fails.
    comparison launches of phase 2 run in this process and never count.
 4. The training path, through its entry point: runs
    ``python -m handyrl_tpu_torch.bench --device cuda`` (the headline
-   update step, B=128, T=16, full width, TD/TD; a fresh process whose
-   counts start at 0 and are set to 0 again before its first step), reads
-   its JSON line and fails unless the losses are finite and K1, K2 and K3
-   launched at least once a step. Then, in this process with every count
-   set to 0 just before, one headline step at B=16 on the card is held
-   against the same step of the port on the CPU (same weights, same
-   batch: loss terms, grad norm, params and Adam's first moment by leaf),
-   and the same for the UPGO/VTRACE step, which must launch K4 and K5.
+   update step, B=128, T=16, full width, TD/TD, eager and as one CUDA
+   graph; a fresh process whose counts start at 0 and are set to 0 again
+   before its first step), reads its JSON line and fails unless the losses
+   are finite, both forms were timed and K1, K2 and K3 launched once a
+   step in each form. Then, in this process, for TD/TD and for
+   UPGO/VTRACE (which must launch K4 and K5) at B=16 on real boards, with
+   every count set to 0 just before each form: three eager steps and five
+   graphed ones on the card; the first of each is held against the same
+   step of the port on the CPU (same weights, same batch: loss terms, grad
+   norm, params and Adam's first moment by leaf), the graphed steps
+   against the eager ones step by step, and the graph's fourth step, with
+   a NaN lr, must keep params, moments and count, report nonfinite 1 and
+   advance steps, and its fifth must train. Last, torch.profiler over
+   headline steps of each form (graph replays for the graphed one): the
+   device busy time, the host-clock step and the idle share, and K1, K2a,
+   K2b and K3 each once a step in the device rows, or it fails.
 5. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
    and K2b take their launches from K2's count, one of each a call), the
    nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -85,8 +96,9 @@ KERNEL_NS = (1, 8, 64, 100, 2048)
 MAIN_PATH_N = 8          # four geese per ply, padded to the engine's bucket
 TRAIN_N = 2048           # B*T*P of the headline update step
 BWD_NS = (8, 64, 2048)
-TARGET_T, TARGET_NS = 16, (16, 100, 128, 2048)
-TARGET_PATH_N = 128     # lanes B*P of the headline step's targets
+TARGET_TS, TARGET_PS = (1, 16), (1, 4)
+TARGET_NS = (16, 100, 128, 2048)   # lanes B*P
+TARGET_PATH = (16, 1, 128)  # (T, P, lanes) of the headline step's targets
 STEP_B = 16              # the in-process card-vs-CPU update step
 # Tolerances, fp32 throughout with TF32 off: the kernel, the plain version
 # and cuDNN sum the 9 taps and the GroupNorm statistics in different
@@ -117,6 +129,18 @@ STEP_RTOL = 1e-4
 STEP_NORM_RTOL = 1e-3
 STEP_UPDATE_RTOL = 1e-2
 STEP_MU_RTOL = 1e-3
+# The graphed step against the eager step on the card, over 3 steps: the
+# same kernels and ops in the same order, so equality is expected (the log
+# says whether it held bit for bit). Should cuBLAS pick another algorithm
+# for the heads' products under capture, their fp32 sums reassociate: the
+# bounds are then those of tests/test_torch_train_step.py for fp32
+# reassociation of this step: params within lr / 10 (Adam turns a grad near
+# 1e-8 into a step of up to lr), Adam's moments within 1e-4 of each leaf's
+# largest element, metrics within 1e-4 of max(|value|, 1). Count and steps
+# are integers and must be equal.
+GRAPH_PARAM_ATOL = 1e-6   # lr / 10 at the bench's lr of 1e-5
+GRAPH_MOMENT_RTOL = 1e-4
+GRAPH_METRIC_RTOL = 1e-4
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 PEAK_SOURCE = 'H100 SXM data sheet at 700 W'
@@ -646,45 +670,59 @@ def target_bound_ms(kind, T, n):
 
 
 def phase_targets(torch, targets):
-    """K3-K5 against their plain versions at (T=16, N)."""
+    """K3-K5 against their plain versions at every (T, P, N) of TARGET_TS,
+    TARGET_PS and TARGET_NS (B = N / P rows), each timed by graph replay
+    (the kernel's device time) and through the wrapper, beside the plain
+    version's time and the byte bound. ``returns`` is the outcome, one row
+    a trajectory, whose bootstrap row the kernels read in place."""
     import numpy as np
     rows = {}
-    for n in TARGET_NS:
-        rng = np.random.RandomState(SEED + n)
-        shape = (n, TARGET_T, 1, 1)
+    for T in TARGET_TS:
+        for P in TARGET_PS:
+            for n in TARGET_NS:
+                rows.update(target_rows(torch, targets, np, T, P, n))
+    return rows
 
-        def arr(a):
-            return torch.from_numpy(a.astype(np.float32)).cuda()
-        values = arr(rng.uniform(-1, 1, shape))
-        returns = arr(np.sign(rng.randn(n, 1, 1, 1)))
-        rewards = arr(0.1 * rng.randn(*shape))
-        lam = arr(0.95 + 0.05 * (rng.rand(*shape) < 0.2))
-        rhos = arr(rng.uniform(0, 1, shape))
-        cs = arr(rng.uniform(0, 1, shape))
-        for kind in ('td_lambda', 'upgo', 'vtrace'):
-            args = (values, returns, rewards, lam, 0.99) + (
-                (rhos, cs) if kind == 'vtrace' else ())
-            kernel = getattr(targets, kind + '_kernel')
-            plain = getattr(targets, kind)
-            got, ref = kernel(*args), plain(*args)
-            torch.cuda.synchronize()
-            err = max((g - r).abs().max().item() for g, r in zip(got, ref))
-            finite = all(bool(torch.isfinite(g).all().item()) for g in got)
-            ms = graph_time_ms(torch, lambda: kernel(*args), 100)
-            call_ms = cuda_time_ms(torch, lambda: kernel(*args), 200)
-            plain_ms = cuda_time_ms(torch, lambda: plain(*args), 50)
-            bound, bound_by, nbytes = target_bound_ms(kind, TARGET_T, n)
-            rows[(kind, n)] = {'n': n, 'max_abs_err': err, 'ms': ms,
-                               'call_ms': call_ms, 'plain_ms': plain_ms,
-                               'library_ms': None, 'bound_ms': bound,
-                               'bound_by': bound_by, 'bytes': nbytes}
-            log('%-9s T=%d N=%-4d max_abs_err %.3g (tol %.0e)  kernel %.4f '
-                'ms on the card (%.4f ms a call through the wrapper)  plain '
-                '%.4f ms  bound %.5f ms (bytes)' % (
-                    kind, TARGET_T, n, err, TARGET_TOL, ms, call_ms,
-                    plain_ms, bound))
-            if not finite or not err <= TARGET_TOL:
-                fail('%s disagrees with its plain version at N=%d' % (kind, n))
+
+def target_rows(torch, targets, np, T, P, n):
+    B = n // P
+    rng = np.random.RandomState(SEED + 7 * n + 3 * T + P)
+    shape = (B, T, P, 1)
+
+    def arr(a):
+        return torch.from_numpy(a.astype(np.float32)).cuda()
+    values = arr(rng.uniform(-1, 1, shape))
+    returns = arr(np.sign(rng.randn(B, 1, P, 1)))
+    rewards = arr(0.1 * rng.randn(*shape))
+    lam = arr(0.95 + 0.05 * (rng.rand(*shape) < 0.2))
+    rhos = arr(rng.uniform(0, 1, shape))
+    cs = arr(rng.uniform(0, 1, shape))
+    rows = {}
+    for kind in ('td_lambda', 'upgo', 'vtrace'):
+        args = (values, returns, rewards, lam, 0.99) + (
+            (rhos, cs) if kind == 'vtrace' else ())
+        kernel = getattr(targets, kind + '_kernel')
+        plain = getattr(targets, kind)
+        got, ref = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        finite = all(bool(torch.isfinite(g).all().item()) for g in got)
+        ms = graph_time_ms(torch, lambda: kernel(*args), 100)
+        call_ms = cuda_time_ms(torch, lambda: kernel(*args), 200)
+        plain_ms = cuda_time_ms(torch, lambda: plain(*args), 20)
+        bound, bound_by, nbytes = target_bound_ms(kind, T, n)
+        rows[(kind, T, P, n)] = {
+            'n': n, 'T': T, 'P': P, 'max_abs_err': err, 'ms': ms,
+            'call_ms': call_ms, 'plain_ms': plain_ms, 'library_ms': None,
+            'bound_ms': bound, 'bound_by': bound_by, 'bytes': nbytes}
+        log('%-9s T=%-2d P=%d N=%-4d max_abs_err %.3g (tol %.0e)  kernel '
+            '%.4f ms on the card (graph replay; %.4f ms a call through the '
+            'wrapper)  plain %.4f ms  bound %.6f ms (bytes)' % (
+                kind, T, P, n, err, TARGET_TOL, ms, call_ms, plain_ms,
+                bound))
+        if not finite or not err <= TARGET_TOL:
+            fail('%s disagrees with its plain version at T=%d P=%d N=%d'
+                 % (kind, T, P, n))
     return rows
 
 
@@ -863,7 +901,9 @@ def phase_main_path(torch, repo):
 
 def run_bench_entry(repo):
     """``python -m handyrl_tpu_torch.bench --device cuda``: its one JSON
-    line, checked."""
+    line, checked: finite losses, both forms timed, and K1, K2 and K3
+    launched once a step in each form (the graphed form's steps include
+    the eager warm-up steps of its capture)."""
     import math
     t0 = time.monotonic()
     proc = subprocess.run(
@@ -877,137 +917,295 @@ def run_bench_entry(repo):
         fail('the bench entry printed %d JSON lines' % len(lines))
     line = json.loads(lines[0])
     launches, steps = line['kernel_launches'], line['steps_run']
-    log('bench: %.1f trajectories/s, step %.3f ms over %d timed steps '
-        '(host clock, %s, %s) in %.1f s; losses %s; grad norm %.4g; kernel '
-        'launches over %d steps %s' % (
-            line['value'], line['step_ms'], line['timed_steps'],
-            line['device'], line['compute_dtype'], time.monotonic() - t0,
-            line['losses'], line['grad_norm'], steps, launches))
+    log('bench: graphed step %.3f ms (%.1f trajectories/s), eager step %.3f '
+        'ms, over %d timed steps each (host clock, %s, %s); the graphed '
+        'form\'s first call (%d eager warm-up steps and the capture) %.1f ms; '
+        'peak memory %s MiB; %.1f s in all; losses %s; grad norm %.4g; '
+        'steps %s; kernel launches %s' % (
+            line['step_ms'], line['value'], line['eager_step_ms'],
+            line['timed_steps'], line['device'], line['compute_dtype'],
+            line['steps_by_form']['graphed']['capture_warmup'],
+            line['graph_first_call_ms'], line['peak_memory_mib'],
+            time.monotonic() - t0, line['losses'], line['grad_norm'],
+            line['steps_by_form'], line['kernel_launches_by_form']))
+    if line['form'] != 'graphed' or not line['eager_step_ms'] > 0:
+        fail('the bench entry did not time both forms: %s' % line)
     if not all(math.isfinite(v) for v in line['losses'].values()):
         fail('the bench entry reports non-finite losses: %s' % line['losses'])
     if line['nonfinite'] != 0:
         fail('the bench entry hit the non-finite guard')
-    for name in ('geese_trunk', 'geese_trunk_bwd', 'td_lambda'):
-        if launches[name] < steps:
-            fail('the bench entry launched %s %d times in %d steps'
-                 % (name, launches[name], steps))
+    for form, counts in line['kernel_launches_by_form'].items():
+        run = line['steps_by_form'][form]['run']
+        for name in ('geese_trunk', 'geese_trunk_bwd', 'td_lambda'):
+            if counts[name] != run:
+                fail('the bench entry\'s %s form launched %s %d times in %d '
+                     'steps' % (form, name, counts[name], run))
+    if sum(line['steps_by_form'][f]['run'] for f in ('eager', 'graphed')) \
+            != steps:
+        fail('the bench entry\'s steps do not add up: %s' % line)
     return line
 
 
-def update_step(torch, device, policy_target, value_target, obs):
-    """One headline update step at B=STEP_B on ``device``, from the seeded
-    weights and batch of the bench entry with ``obs`` (B, T, 1, 17, 7, 11)
-    for its observations: (params before, params after, Adam's
-    first moment after, metrics), the tensors on the CPU."""
+def card_steps(torch, device, policy_target, value_target, obs, lrs,
+               graphed=False):
+    """Headline update steps at B=STEP_B on ``device``, one for each lr in
+    ``lrs`` (floats; NaN drives the guard), from the seeded weights and
+    batch of the bench entry with ``obs`` (B, T, 1, 17, 7, 11) for its
+    observations; eager (``build_update_step``) or, with ``graphed``, as
+    the CUDA graph (``build_graphed_update_step``). Returns the params
+    before the first step and, after each step, a dict of the params,
+    Adam's moments (mu, nu) and count, steps and the metrics, on the CPU."""
     from handyrl_tpu_torch import bench
-    from handyrl_tpu_torch.ops.train_step import build_update_step
+    from handyrl_tpu_torch.ops.train_step import (build_graphed_update_step,
+                                                  build_update_step)
     net, cfg, batch, state = bench.headline_setup(
         device, B=STEP_B, policy_target=policy_target,
         value_target=value_target)
     batch['observation'] = torch.from_numpy(obs).to(device)
-    new, metrics = build_update_step(net, cfg)(
-        state, batch, torch.tensor(bench.LR, device=device))
-    return ({k: v.cpu() for k, v in state.params.items()},
-            {k: v.cpu() for k, v in new.params.items()},
-            {k: v.cpu() for k, v in new.opt_state.mu.items()},
-            {k: float(v) for k, v in metrics.items()})
+
+    def cpu(d):
+        return {k: v.detach().cpu().clone() for k, v in d.items()}
+    before = cpu(state.params)
+    if graphed:
+        step = build_graphed_update_step(net, cfg, state)
+    else:
+        update = build_update_step(net, cfg)
+    after = []
+    for lr in lrs:
+        lr = torch.tensor(lr, device=device)
+        if graphed:
+            metrics = step(batch, lr)
+            state = step.state
+        else:
+            state, metrics = update(state, batch, lr)
+        after.append({'params': cpu(state.params),
+                      'mu': cpu(state.opt_state.mu),
+                      'nu': cpu(state.opt_state.nu),
+                      'count': int(state.opt_state.count),
+                      'steps': int(state.steps),
+                      'metrics': {k: float(v) for k, v in metrics.items()}})
+    return before, after
+
+
+def check_against_cpu(label, old, card, cpu):
+    """One update step on the card (``card``, from params ``old``) against
+    the same step on the CPU, under the STEP_* tolerances."""
+    from handyrl_tpu_torch.bench import LR
+    m, cm = card['metrics'], cpu['metrics']
+    new, cpu_new, mu, cpu_mu = (card['params'], cpu['params'], card['mu'],
+                                cpu['mu'])
+    terms = ('total', 'p', 'v', 'ent', 'diag_grad_norm', 'data_count')
+    scale = max(abs(cm['total']), abs(cm['v']), 1.0)
+    errs = {k: abs(m[k] - cm[k]) / scale / STEP_RTOL
+            for k in ('total', 'p', 'v', 'ent')}
+    errs['diag_grad_norm'] = (abs(m['diag_grad_norm'] - cm['diag_grad_norm'])
+                              / max(cm['diag_grad_norm'], 1e-30)
+                              / STEP_NORM_RTOL)
+    errs['data_count'] = abs(m['data_count'] - cm['data_count'])
+    step_max = max((new[k] - cpu_new[k]).abs().max().item() for k in new)
+    diff = sum(((new[k] - cpu_new[k]) ** 2).sum().item() for k in new)
+    upd = sum(((cpu_new[k] - old[k]) ** 2).sum().item() for k in new)
+    update_rel = (diff / upd) ** 0.5
+    mu_rel = {k: ((mu[k] - cpu_mu[k]).abs().max()
+                  / cpu_mu[k].abs().max().clamp_min(1e-30)).item()
+              for k in mu}
+    mu_worst = sorted(mu_rel.items(), key=lambda kv: -kv[1])
+    log('%s card vs CPU: %s; params max abs diff %.3g (tol 2 lr = %.0e), '
+        'update L2 rel diff %.3g (tol %.0e); nonfinite %g' % (
+            label, ', '.join('%s %.6g/%.6g' % (k, m[k], cm[k])
+                             for k in terms),
+            step_max, 2 * LR, update_rel, STEP_UPDATE_RTOL, m['nonfinite']))
+    log('%s card vs CPU: Adam mu max abs diff / max |mu| by leaf, worst '
+        'first (tol %.0e): %s' % (label, STEP_MU_RTOL, ', '.join(
+            '%s %.3g' % kv for kv in mu_worst)))
+    if m['nonfinite'] or cm['nonfinite']:
+        fail('the %s step hit the non-finite guard' % label)
+    bad = [k for k, e in errs.items() if not e <= 1]
+    if bad:
+        fail('the %s step on the card disagrees with the CPU in %s'
+             % (label, bad))
+    if not (step_max <= 2 * LR and update_rel <= STEP_UPDATE_RTOL):
+        fail('the %s step on the card moves the params unlike the CPU'
+             % label)
+    if not mu_worst[0][1] <= STEP_MU_RTOL:
+        fail('the %s step on the card gives Adam moments unlike the CPU in %s'
+             % (label, [k for k, e in mu_worst if not e <= STEP_MU_RTOL]))
+    if not cm['diag_grad_norm'] > 0:
+        fail('the %s step has no gradient to compare' % label)
+
+
+def check_graphed_against_eager(label, graphed, eager):
+    """The graphed steps against the eager ones, step by step: count and
+    steps equal, the rest within the GRAPH_* tolerances (see above);
+    returns the largest differences seen."""
+    worst = {'params': 0.0, 'moments': 0.0, 'metrics': 0.0}
+    for i, (g, e) in enumerate(zip(graphed, eager)):
+        if (g['count'], g['steps']) != (e['count'], e['steps']):
+            fail('%s step %d: graphed count/steps %s, eager %s' % (
+                label, i, (g['count'], g['steps']), (e['count'], e['steps'])))
+        worst['params'] = max([worst['params']] + [
+            (g['params'][k] - e['params'][k]).abs().max().item()
+            for k in e['params']])
+        worst['moments'] = max([worst['moments']] + [
+            ((g[m][k] - e[m][k]).abs().max()
+             / e[m][k].abs().max().clamp_min(1e-30)).item()
+            for m in ('mu', 'nu') for k in e[m]])
+        worst['metrics'] = max([worst['metrics']] + [
+            abs(g['metrics'][k] - e['metrics'][k])
+            / max(abs(e['metrics'][k]), 1.0) for k in e['metrics']])
+        if set(g['metrics']) != set(e['metrics']):
+            fail('%s: the graphed step reports other metrics' % label)
+    equal = all(all(torch_equal(g[m], e[m]) for m in ('params', 'mu', 'nu'))
+                and g['metrics'] == e['metrics']
+                for g, e in zip(graphed, eager))
+    log('%s: graphed vs eager over %d steps on the card: %s; params max abs '
+        'diff %.3g (tol %.0e), mu/nu max diff / max |leaf| %.3g (tol %.0e), '
+        'metrics max rel diff %.3g (tol %.0e)' % (
+            label, len(eager), 'equal bit for bit' if equal else 'not equal',
+            worst['params'], GRAPH_PARAM_ATOL, worst['moments'],
+            GRAPH_MOMENT_RTOL, worst['metrics'], GRAPH_METRIC_RTOL))
+    if not (worst['params'] <= GRAPH_PARAM_ATOL
+            and worst['moments'] <= GRAPH_MOMENT_RTOL
+            and worst['metrics'] <= GRAPH_METRIC_RTOL):
+        fail('%s: the graphed step disagrees with the eager step' % label)
+    return dict(worst, equal=equal)
+
+
+def torch_equal(a, b):
+    return all(bool((a[k] == b[k]).all()) for k in a)
+
+
+def check_guard(label, good, nan, after):
+    """A graphed step with a NaN lr (``nan``, after ``good``) keeps params,
+    moments and count, reports nonfinite 1 and advances steps; the next
+    step (``after``) with a finite lr trains."""
+    kept = (torch_equal(nan['params'], good['params'])
+            and torch_equal(nan['mu'], good['mu'])
+            and torch_equal(nan['nu'], good['nu'])
+            and nan['count'] == good['count'])
+    trained = (not any(bool((after['params'][k] == nan['params'][k]).all())
+                       for k in nan['params'])
+               and after['count'] == nan['count'] + 1
+               and after['metrics']['nonfinite'] == 0)
+    log('%s: graphed step with lr NaN: state kept %s, nonfinite %g, steps '
+        '%d -> %d; the next step with a finite lr trains: %s (count %d -> '
+        '%d)' % (label, kept, nan['metrics']['nonfinite'], good['steps'],
+                 nan['steps'], trained, nan['count'], after['count']))
+    if not (kept and nan['metrics']['nonfinite'] == 1
+            and nan['steps'] == good['steps'] + 1 and trained):
+        fail('%s: the non-finite guard in the graph misbehaves' % label)
 
 
 def phase_training(torch, repo, make_env):
     import numpy as np
     from handyrl_tpu_torch.bench import LR
     from handyrl_tpu_torch.ops import kernel_launches, reset_kernel_launches
-    out = {'bench': run_bench_entry(repo)}
+    out = {'bench': run_bench_entry(repo), 'paths': {}}
+    out['paths']['bench'] = out['bench']['kernel_launches']
     # the bench's uniform-noise planes saturate the full-width net (tanh
     # values of exactly +-1, logits in the hundreds: every grad is 0), so
     # the card-vs-CPU step runs on real boards, where the grads are not
     obs = np.stack(game_observations(make_env, STEP_B * 16, SEED + 4))
     obs = obs.reshape(STEP_B, 16, 1, 17, 7, 11)
+    nan = float('nan')
     for pt, vt, path in (('TD', 'TD', ('geese_trunk', 'geese_trunk_bwd',
                                         'td_lambda')),
                          ('UPGO', 'VTRACE', ('geese_trunk', 'geese_trunk_bwd',
                                              'upgo', 'vtrace'))):
-        reset_kernel_launches()
-        old, new, mu, m = update_step(torch, 'cuda', pt, vt, obs)
-        torch.cuda.synchronize()
-        launches = kernel_launches()
-        _, cpu_new, cpu_mu, cm = update_step(torch, 'cpu', pt, vt, obs)
-        terms = ('total', 'p', 'v', 'ent', 'diag_grad_norm', 'data_count')
-        scale = max(abs(cm['total']), abs(cm['v']), 1.0)
-        errs = {k: abs(m[k] - cm[k]) / scale / STEP_RTOL
-                for k in ('total', 'p', 'v', 'ent')}
-        errs['diag_grad_norm'] = (abs(m['diag_grad_norm'] - cm['diag_grad_norm'])
-                                  / max(cm['diag_grad_norm'], 1e-30)
-                                  / STEP_NORM_RTOL)
-        errs['data_count'] = abs(m['data_count'] - cm['data_count'])
-        step_max = max((new[k] - cpu_new[k]).abs().max().item() for k in new)
-        diff = sum(((new[k] - cpu_new[k]) ** 2).sum().item() for k in new)
-        upd = sum(((cpu_new[k] - old[k]) ** 2).sum().item() for k in new)
-        update_rel = (diff / upd) ** 0.5
-        mu_rel = {k: ((mu[k] - cpu_mu[k]).abs().max()
-                      / cpu_mu[k].abs().max().clamp_min(1e-30)).item()
-                  for k in mu}
-        mu_worst = sorted(mu_rel.items(), key=lambda kv: -kv[1])
-        log('step %s/%s B=%d card vs CPU: %s; params max abs diff %.3g (tol '
-            '2 lr = %.0e), update L2 rel diff %.3g (tol %.0e); nonfinite %g; '
-            'kernel launches %s' % (
-                pt, vt, STEP_B, ', '.join('%s %.6g/%.6g' % (k, m[k], cm[k])
-                                          for k in terms),
-                step_max, 2 * LR, update_rel, STEP_UPDATE_RTOL,
-                m['nonfinite'], launches))
-        log('step %s/%s B=%d card vs CPU: Adam mu max abs diff / max |mu| '
-            'by leaf, worst first (tol %.0e): %s' % (
-                pt, vt, STEP_B, STEP_MU_RTOL,
-                ', '.join('%s %.3g' % kv for kv in mu_worst)))
-        if m['nonfinite'] or cm['nonfinite']:
-            fail('the %s/%s step hit the non-finite guard' % (pt, vt))
-        bad = [k for k, e in errs.items() if not e <= 1]
-        if bad:
-            fail('the %s/%s step on the card disagrees with the CPU in %s'
-                 % (pt, vt, bad))
-        if not (step_max <= 2 * LR and update_rel <= STEP_UPDATE_RTOL):
-            fail('the %s/%s step on the card moves the params unlike the CPU'
-                 % (pt, vt))
-        if not mu_worst[0][1] <= STEP_MU_RTOL:
-            fail('the %s/%s step on the card gives Adam moments unlike the '
-                 'CPU in %s' % (pt, vt, [k for k, e in mu_worst
-                                         if not e <= STEP_MU_RTOL]))
-        if not cm['diag_grad_norm'] > 0:
-            fail('the %s/%s step has no gradient to compare' % (pt, vt))
-        missing = [k for k in path if launches[k] < 1]
-        if missing:
-            fail('the %s/%s step never launched %s' % (pt, vt, missing))
-        out[(pt, vt)] = launches
-    out['profile'] = profile_step(torch)
+        label = '%s/%s B=%d' % (pt, vt, STEP_B)
+        _, cpu = card_steps(torch, 'cpu', pt, vt, obs, (LR,))
+        runs = {}
+        for form, lrs in (('eager', (LR,) * 3),
+                          ('graphed', (LR,) * 3 + (nan, LR))):
+            reset_kernel_launches()
+            runs[form] = card_steps(torch, 'cuda', pt, vt, obs, lrs,
+                                    graphed=form == 'graphed')
+            torch.cuda.synchronize()
+            launches = kernel_launches()
+            out['paths']['%s_%s_%s' % (form, pt, vt)] = launches
+            log('step %s %s on the card: %d steps, kernel launches %s' % (
+                label, form, len(lrs), launches))
+            missing = [k for k in path if launches[k] < 1]
+            if missing:
+                fail('the %s %s step never launched %s' % (label, form,
+                                                           missing))
+            old, after = runs[form]
+            check_against_cpu('step %s %s' % (label, form), old, after[0],
+                              cpu[0])
+        graphed = runs['graphed'][1]
+        out[(pt, vt)] = check_graphed_against_eager(
+            'step ' + label, graphed[:3], runs['eager'][1])
+        check_guard('step ' + label, graphed[2], graphed[3], graphed[4])
+    out['profile'] = {form: profile_step(torch, form)
+                      for form in ('eager', 'graphed')}
     return out
 
 
-def profile_step(torch, steps=5):
+# the kernels that must show once a step in the profiled window, by the
+# name the profiler gives them
+PROFILED = ('trunk_fwd_kernel', 'trunk_bwd_kernel', 'trunk_wgrad_kernel',
+            'lambda_kernel')
+
+
+def profile_step(torch, form, steps=5):
     """Device time by kernel over ``steps`` headline update steps (B=128,
-    T=16) under torch.profiler, and the device's busy share of the window
+    T=16) of ``form`` ('eager' or 'graphed': replays of the step's CUDA
+    graph) under torch.profiler, and the device's busy share of the window
     (the profiler's own host cost lengthens the window, so the idle share
     is an upper bound). One step under the profiler's warm-up comes first
     and is not recorded: without it the trace missed the window's first
-    kernel launches (it listed K1 with 4 of its 5)."""
+    kernel launches (it listed K1 with 4 of its 5). Fails unless each of
+    PROFILED shows once a step in the device rows (of a second window when
+    the first lost a record): for the graphed form that is the proof that
+    replays run the kernels."""
+    from handyrl_tpu_torch import bench
+    from handyrl_tpu_torch.ops.train_step import (build_graphed_update_step,
+                                                  build_update_step)
+    net, cfg, batch, state = bench.headline_setup('cuda')
+    lr = torch.tensor(bench.LR, device='cuda')
+    if form == 'graphed':
+        graphed = build_graphed_update_step(net, cfg, state)
+
+        def step():
+            graphed(batch, lr)
+    else:
+        update = build_update_step(net, cfg)
+        holder = [state]
+
+        def step():
+            holder[0], _ = update(holder[0], batch, lr)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    result = profile_window(torch, form, step, steps)
+    if result is None:
+        # a window can lose a record: of 8 windows profiled on an H100, one
+        # (of the eager step) listed K1 4 times in 5 steps while the
+        # wrapper counted 5. A second window must show each kernel once a
+        # step.
+        log('profile %s: a second window' % form)
+        result = profile_window(torch, form, step, steps)
+    if result is None:
+        fail('profile %s: kernels not once a step in the device rows of two '
+             'windows of %d steps' % (form, steps))
+    return result
+
+
+def profile_window(torch, form, step, steps):
+    """One profiled window of ``steps`` calls of ``step``: the summary, or
+    None when a kernel of PROFILED is not in it once a step."""
+    import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
-    from handyrl_tpu_torch import bench
-    from handyrl_tpu_torch.ops.train_step import build_update_step
-    net, cfg, batch, state = bench.headline_setup('cuda')
-    update = build_update_step(net, cfg)
-    lr = torch.tensor(bench.LR, device='cuda')
-    for _ in range(3):
-        state, metrics = update(state, batch, lr)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=steps,
                                    repeat=1)) as prof:
-        state, metrics = update(state, batch, lr)   # the warm-up step
+        step()   # the warm-up step
         torch.cuda.synchronize()
         prof.step()
         t0 = time.perf_counter()
         for i in range(steps):
-            state, metrics = update(state, batch, lr)
+            step()
             if i == steps - 1:
                 torch.cuda.synchronize()
                 wall_ms = 1e3 * (time.perf_counter() - t0)
@@ -1015,27 +1213,35 @@ def profile_step(torch, steps=5):
 
     # the kernels' own rows (the host ops' rows repeat their kernels' time,
     # and so does the schedule's ProfilerStep row)
-    rows = sorted(((device_us(e) / 1e3 / steps, e.count // steps, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and device_us(e) > 0
-                   and not e.key.startswith('ProfilerStep')),
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    if not events:
+        fail('profile %s: the profiler shows no kernel on the card (CUPTI '
+             'saw no device activity)' % form)
+    rows = sorted(((device_us(e) / 1e3 / steps, e.count / steps, e.key)
+                   for e in events if not e.key.startswith('ProfilerStep')),
                   reverse=True)
     busy = sum(r[0] for r in rows)
     step_ms = wall_ms / steps
     launches = sum(r[1] for r in rows)
-    log('profile: %d steps, %.3f ms a step on the host clock (profiled), '
-        'device busy %.3f ms a step (%.1f%%), %d kernel launches a step '
-        'of %d kernels' % (steps, step_ms, busy, 100 * busy / step_ms,
-                           launches, len(rows)))
+    log('profile %s: %d steps, %.3f ms a step on the host clock (profiled), '
+        'device busy %.3f ms a step (%.1f%%, idle %.1f%%), %g kernel '
+        'launches a step of %d kernels' % (
+            form, steps, step_ms, busy, 100 * busy / step_ms,
+            100 - 100 * busy / step_ms, launches, len(rows)))
     for ms, count, key in rows[:10]:
-        log('  %8.4f ms a step  %4d launches a step  %s' % (ms, count,
-                                                             key[:90]))
-    k1 = sum(e.count for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and 'trunk_fwd_kernel' in e.key)
-    log('profile: the window holds %d of K1\'s %d launches' % (k1, steps))
+        log('  %8.4f ms a step  %6.2f launches a step  %s' % (ms, count,
+                                                               key[:90]))
+    counts = {name: sum(e.count for e in events
+                        if re.search(r'\b%s[<(]' % name, e.key))
+              for name in PROFILED}
+    log('profile %s: launches in the window of %d steps: %s' % (
+        form, steps, counts))
+    if any(c != steps for c in counts.values()):
+        return None
     return {'step_ms_profiled': step_ms, 'device_busy_ms': busy,
-            'launches_per_step': launches, 'k1_launches_in_window': k1,
+            'idle_share': 1 - busy / step_ms,
+            'launches_per_step': launches, 'launches_in_window': counts,
             'top': [{'kernel': k[:120], 'ms_per_step': ms,
                      'launches_per_step': c} for ms, c, k in rows[:10]]}
 
@@ -1077,12 +1283,10 @@ def main():
     log('== phase 4: main path (training)')
     train = phase_training(torch, repo, make_env)
 
-    # launches on each main path: serving, the bench entry, the two
-    # in-process steps (each run with the counts at 0 just before)
-    paths = {'serving': launches,
-             'bench_td_td': train['bench']['kernel_launches'],
-             'step_td_td': train[('TD', 'TD')],
-             'step_upgo_vtrace': train[('UPGO', 'VTRACE')]}
+    # launches on each main path: serving, the bench entry (both forms),
+    # the in-process steps of each form and config (each run with the
+    # counts at 0 just before; a graph's replays counted by bookkeeping)
+    paths = dict(train['paths'], serving=launches)
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from
@@ -1127,14 +1331,23 @@ def main():
             max_abs_err_is='of K2\'s grads, relative to each grad\'s '
             'largest element', **notes[phase]))
     for name, line in (('td_lambda', 129), ('upgo', 138), ('vtrace', 149)):
-        by_n = {n: target_rows[(name, n)] for n in TARGET_NS}
+        by_n = {'T%d_P%d_N%d' % key[1:]: r
+                for key, r in target_rows.items() if key[0] == name}
         kernels.append(entry(
             name, 'targets.cu', 'handyrl_tpu/ops/pallas_targets.py:%d' % line,
-            by_n[TARGET_PATH_N], by_n, T=TARGET_T,
+            target_rows[(name,) + TARGET_PATH], by_n, T=TARGET_PATH[0],
+            P=TARGET_PATH[1],
             library_ms_none='no single PyTorch call computes the recursion'))
     bench_line = train['bench']
-    log('training path: %.1f trajectories/s, %.3f ms a step (B=128, T=16, '
-        'fp32, host clock)' % (bench_line['value'], bench_line['step_ms']))
+    log('training path: graphed %.1f trajectories/s, %.3f ms a step; eager '
+        '%.3f ms a step (B=128, T=16, fp32, host clock); profiled device '
+        'busy %s ms, idle share %s' % (
+            bench_line['value'], bench_line['step_ms'],
+            bench_line['eager_step_ms'],
+            {f: round(p['device_busy_ms'], 4)
+             for f, p in train['profile'].items()},
+            {f: round(p['idle_share'], 4)
+             for f, p in train['profile'].items()}))
     log('total %.1f s' % (time.monotonic() - t_start))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)

@@ -10,8 +10,12 @@ a Python loop over reversed time. :func:`td_lambda_kernel`,
 :func:`upgo_kernel` and :func:`vtrace_kernel` take the same arguments as
 the JAX package's ``*_pallas`` wrappers and launch ``csrc/targets.cu`` for
 a CUDA tensor; for a CPU tensor they run the plain version; any other
-device raises. :func:`compute_target` dispatches on the device alone:
-there is no opt-in and no fallback. Each kernel counts its launches in
+device raises. The kernels read the bootstrap row of ``returns`` in place
+(through its strides, so a broadcast ``returns`` is never copied); the other
+operands go to the kernel as they are when they are contiguous float32 of
+the full shape, so such a target computation is one launch.
+:func:`compute_target` dispatches on the device alone: there is no opt-in
+and no fallback. Each kernel counts its launches in
 ``launches`` (CPU calls never count).
 
 Targets never carry gradients (the loss feeds them detached values), so no
@@ -103,9 +107,12 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_build.load('targets')
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.targets_lambda.argtypes = [p] * 6 + [i] * 4 + [f, p]
+        strides = [ctypes.c_longlong] * 2
+        lib.targets_lambda.argtypes = [p] * 2 + strides + [p] * 4 + [i] * 4 + [
+            f, p]
         lib.targets_lambda.restype = i
-        lib.targets_vtrace.argtypes = [p] * 8 + [i] * 3 + [f, p]
+        lib.targets_vtrace.argtypes = [p] * 2 + strides + [p] * 6 + [i] * 3 + [
+            f, p]
         lib.targets_vtrace.restype = i
         lib.targets_error_string.argtypes = [i]
         lib.targets_error_string.restype = ctypes.c_char_p
@@ -113,11 +120,8 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def _operand(name: str, t: Optional[Tensor], shape, device) -> Optional[Tensor]:
-    """``t`` broadcast to ``shape`` as a contiguous float32 tensor on
-    ``device`` (a no-op when it already is one); None stays None."""
-    if t is None:
-        return None
+def _checked(name: str, t, device) -> Tensor:
+    """``t`` itself, once it is a float32 tensor on ``device``."""
     if not isinstance(t, torch.Tensor):
         raise TypeError('targets: %s must be a tensor' % name)
     if t.device != device:
@@ -126,11 +130,29 @@ def _operand(name: str, t: Optional[Tensor], shape, device) -> Optional[Tensor]:
     if t.dtype != torch.float32:
         raise TypeError('targets: %s is %s; the kernel takes float32'
                         % (name, t.dtype))
-    return t.expand(shape).contiguous()
+    return t
+
+
+def _operand(name: str, t: Optional[Tensor], shape, device) -> Optional[Tensor]:
+    """``t`` broadcast to ``shape`` as a contiguous float32 tensor on
+    ``device`` (a no-op when it already is one); None stays None."""
+    if t is None:
+        return None
+    return _checked(name, t, device).expand(shape).contiguous()
 
 
 def _ptr(t: Optional[Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def _bootstrap_row(returns, B: int, P: int, device) -> Tensor:
+    """The returns' last row as a (B, 1, P, 1) view, broadcast with stride
+    0 where ``returns`` has size 1: the kernel reads it in place through
+    its strides, so nothing is copied."""
+    if _checked('returns', returns, device).dim() != 4:
+        raise ValueError('targets: returns must be (B, T_r, P, 1), got %s'
+                         % (tuple(returns.shape),))
+    return returns[:, -1:].expand(B, 1, P, 1)
 
 
 def _launch(kind: str, values, returns, rewards, lambda_, gamma,
@@ -142,7 +164,8 @@ def _launch(kind: str, values, returns, rewards, lambda_, gamma,
     dev = values.device
     shape = (B, T, P, 1)
     v = _operand('values', values, shape, dev)
-    g = _operand('returns', returns[:, -1:], (B, 1, P, 1), dev)
+    g = _bootstrap_row(returns, B, P, dev)
+    g_strides = (g.stride(0), g.stride(2))
     rew = _operand('rewards', rewards, shape, dev)
     lam = _operand('lambda_', lambda_, shape, dev)
     target = torch.empty(shape, device=dev, dtype=torch.float32)
@@ -156,16 +179,21 @@ def _launch(kind: str, values, returns, rewards, lambda_, gamma,
             rho = _operand('rhos', rhos, shape, dev)
             c = _operand('cs', cs, shape, dev)
             err = lib.targets_vtrace(
-                _ptr(v), _ptr(g), _ptr(rew), _ptr(lam), _ptr(rho), _ptr(c),
-                _ptr(target), _ptr(adv), B, T, P, float(gamma), stream)
+                _ptr(v), _ptr(g), *g_strides, _ptr(rew), _ptr(lam),
+                _ptr(rho), _ptr(c), _ptr(target), _ptr(adv), B, T, P,
+                float(gamma), stream)
         else:
             err = lib.targets_lambda(
-                _ptr(v), _ptr(g), _ptr(rew), _ptr(lam), _ptr(target),
-                _ptr(adv), B, T, P, int(kind == 'upgo'), float(gamma),
-                stream)
+                _ptr(v), _ptr(g), *g_strides, _ptr(rew), _ptr(lam),
+                _ptr(target), _ptr(adv), B, T, P, int(kind == 'upgo'),
+                float(gamma), stream)
     if err != 0:
-        raise RuntimeError('targets: %s launch failed with CUDA error %d (%s)'
-                           % (kind, err, lib.targets_error_string(err).decode()))
+        # a launch the kernel refuses (P > 128, or one row of a long T
+        # beyond a block's shared memory) returns cudaErrorInvalidValue
+        raise RuntimeError('targets: %s launch at (B, T, P) = %s failed with '
+                           'CUDA error %d (%s)' % (
+                               kind, (B, T, P), err,
+                               lib.targets_error_string(err).decode()))
     launches[kind] += 1
     return target, adv
 

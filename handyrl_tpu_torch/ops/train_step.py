@@ -7,6 +7,10 @@ state is functional, as in the JAX package: ``update(state, batch, lr)``
 returns a new :class:`TrainState` and leaves the old one as it was, and the
 net runs on the state's parameters through ``torch.func.functional_call``.
 
+:func:`build_graphed_update_step` runs the same step as one CUDA graph on
+static buffers, updated in place: the port's counterpart of the JAX
+package's jitted step with its donated state (train_step.py:174 there).
+
 The optimizer is written out on tensors, because ``torch.optim.Adam`` and
 ``clip_grad_norm_`` compute other numbers than the optax chain
 ``clip_by_global_norm(4.0) -> add_decayed_weights(1e-5) -> scale_by_adam()``
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from . import add_kernel_launches, kernel_launches
 from .losses import LossConfig, compute_loss
 
 Tensor = torch.Tensor
@@ -64,6 +69,56 @@ def global_norm(tensors) -> Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
+def _step_math(apply_fn: Callable, cfg: LossConfig, params: Dict[str, Tensor],
+               opt: AdamState, batch: Dict[str, Any], lr: Tensor
+               ) -> Tuple[Dict[str, Tensor], AdamState, Dict[str, Tensor]]:
+    """One step's math at ``params``, leaves that require grad: forward,
+    targets, losses, grads, clip, decay, Adam and the guard. Returns the
+    new parameters, the new Adam state and the metrics, as new tensors
+    (``params`` and ``opt`` are only read)."""
+    names = list(params)
+    total, aux = compute_loss(apply_fn, params, None, batch, cfg)
+    grads = dict(zip(names, torch.autograd.grad(
+        total, [params[k] for k in names])))
+    with torch.no_grad():
+        grad_norm = global_norm(grads.values())
+        ok = (torch.isfinite(lr) & torch.isfinite(total.detach())
+              & torch.isfinite(grad_norm))
+        # clip_by_global_norm: g if norm < 4 else g / norm * 4
+        trigger = grad_norm < CLIP_NORM
+        count = opt.count + 1          # int32, as optax's safe_increment
+        bc1 = 1 - B1 ** count.float()
+        bc2 = 1 - B2 ** count.float()
+        new_params, mu, nu = {}, {}, {}
+        for k in names:
+            p, g = params[k], grads[k]
+            g = torch.where(trigger, g, g / grad_norm * CLIP_NORM)
+            g = g + WEIGHT_DECAY * p                 # add_decayed_weights
+            m = (1 - B1) * g + B1 * opt.mu[k]        # scale_by_adam
+            v = (1 - B2) * g ** 2 + B2 * opt.nu[k]
+            u = (m / bc1) / (torch.sqrt(v / bc2 + EPS_ROOT) + EPS)
+            new_params[k] = torch.where(ok, p + (-lr * u), p)
+            mu[k] = torch.where(ok, m, opt.mu[k])
+            nu[k] = torch.where(ok, v, opt.nu[k])
+        new_opt = AdamState(count=torch.where(ok, count, opt.count),
+                            mu=mu, nu=nu)
+        metrics = {k: v.detach() for k, v in aux['losses'].items()}
+        metrics['data_count'] = aux['data_count']
+        for k, v in aux['diag'].items():
+            metrics['diag_' + k] = v
+        metrics['diag_grad_norm'] = grad_norm
+        metrics = {k: torch.where(ok, v, torch.zeros_like(v))
+                   for k, v in metrics.items()}
+        metrics['nonfinite'] = 1.0 - ok.float()
+    return new_params, new_opt, metrics
+
+
+def _apply_fn(module: torch.nn.Module) -> Callable:
+    def apply_fn(params, obs, hidden):
+        return functional_call(module, params, (obs, hidden))
+    return apply_fn
+
+
 def build_update_step(module: torch.nn.Module, cfg: LossConfig
                       ) -> Callable[[TrainState, Dict[str, Any], Tensor],
                                     Tuple[TrainState, Dict[str, Tensor]]]:
@@ -76,52 +131,190 @@ def build_update_step(module: torch.nn.Module, cfg: LossConfig
     as zeros and ``nonfinite`` 1, and keeps the parameters and the
     optimizer state, Adam's count included. ``steps`` advances either way.
     """
-    def apply_fn(params, obs, hidden):
-        return functional_call(module, params, (obs, hidden))
+    apply_fn = _apply_fn(module)
 
     def update(state: TrainState, batch: Dict[str, Any], lr: Tensor
                ) -> Tuple[TrainState, Dict[str, Tensor]]:
-        names = list(state.params)
         live = {k: v.detach().requires_grad_(True)
                 for k, v in state.params.items()}
-        total, aux = compute_loss(apply_fn, live, None, batch, cfg)
-        grads = dict(zip(names, torch.autograd.grad(
-            total, [live[k] for k in names])))
-        with torch.no_grad():
-            grad_norm = global_norm(grads.values())
-            ok = (torch.isfinite(lr) & torch.isfinite(total.detach())
-                  & torch.isfinite(grad_norm))
-            # clip_by_global_norm: g if norm < 4 else g / norm * 4
-            trigger = grad_norm < CLIP_NORM
-            opt = state.opt_state
-            count = opt.count + 1          # int32, as optax's safe_increment
-            bc1 = 1 - B1 ** count.float()
-            bc2 = 1 - B2 ** count.float()
-            params, mu, nu = {}, {}, {}
-            for k in names:
-                p, g = state.params[k], grads[k]
-                g = torch.where(trigger, g, g / grad_norm * CLIP_NORM)
-                g = g + WEIGHT_DECAY * p                 # add_decayed_weights
-                m = (1 - B1) * g + B1 * opt.mu[k]        # scale_by_adam
-                v = (1 - B2) * g ** 2 + B2 * opt.nu[k]
-                u = (m / bc1) / (torch.sqrt(v / bc2 + EPS_ROOT) + EPS)
-                params[k] = torch.where(ok, p + (-lr * u), p)
-                mu[k] = torch.where(ok, m, opt.mu[k])
-                nu[k] = torch.where(ok, v, opt.nu[k])
-            new_opt = AdamState(count=torch.where(ok, count, opt.count),
-                                mu=mu, nu=nu)
-            metrics = {k: v.detach() for k, v in aux['losses'].items()}
-            metrics['data_count'] = aux['data_count']
-            for k, v in aux['diag'].items():
-                metrics['diag_' + k] = v
-            metrics['diag_grad_norm'] = grad_norm
-            metrics = {k: torch.where(ok, v, torch.zeros_like(v))
-                       for k, v in metrics.items()}
-            metrics['nonfinite'] = 1.0 - ok.float()
-        return (TrainState(params=params, opt_state=new_opt,
+        params, opt, metrics = _step_math(apply_fn, cfg, live,
+                                          state.opt_state, batch, lr)
+        return (TrainState(params=params, opt_state=opt,
                            steps=state.steps + 1), metrics)
 
     return update
+
+
+# ------------------------------------------ the step on static buffers
+
+# eager steps of the body before a capture (their state changes undone)
+GRAPH_WARMUP_STEPS = 3
+
+
+def _signature(batch: Dict[str, Tensor]) -> Tuple:
+    """The shape and dtype of every batch leaf, by name."""
+    return tuple((k, tuple(v.shape), v.dtype)
+                 for k, v in sorted(batch.items()))
+
+
+class StaticUpdateStep:
+    """The update step on buffers that live as long as the object: the
+    parameters (leaves that require grad), Adam's moments and count,
+    ``steps``, the learning rate and, for each batch signature (the shape
+    and dtype of every batch leaf), the batch. Each call copies the batch
+    and ``lr`` into them, runs :func:`build_update_step`'s math, writes the
+    new state back in place and returns the metrics, copied out of one
+    packed tensor. The body runs on any device; :class:`GraphedUpdateStep`
+    captures it as a CUDA graph."""
+
+    def __init__(self, module: torch.nn.Module, cfg: LossConfig,
+                 state: TrainState):
+        self._apply = _apply_fn(module)
+        self._cfg = cfg
+        self._device = state.steps.device
+
+        def own(t):
+            return t.detach().clone()
+        self._params = {k: own(v).requires_grad_(True)
+                        for k, v in state.params.items()}
+        opt = state.opt_state
+        self._opt = AdamState(count=own(opt.count),
+                              mu={k: own(v) for k, v in opt.mu.items()},
+                              nu={k: own(v) for k, v in opt.nu.items()})
+        self._steps = own(state.steps)
+        self._lr = torch.zeros((), dtype=torch.float32, device=self._device)
+        self._batches: Dict[Tuple, Dict[str, Tensor]] = {}
+        self.metric_names: Tuple[str, ...] = ()
+
+    @property
+    def state(self) -> TrainState:
+        """The state as a :class:`TrainState` of views of the buffers: the
+        next call changes what they hold."""
+        return TrainState(params={k: v.detach()
+                                  for k, v in self._params.items()},
+                          opt_state=self._opt, steps=self._steps)
+
+    def _load(self, batch: Dict[str, Any], lr: Tensor) -> Tuple:
+        """Copies ``batch`` and ``lr`` into the buffers (allocated on a
+        signature's first call); returns the batch's signature."""
+        for k, v in batch.items():
+            if not isinstance(v, torch.Tensor):
+                raise TypeError('the static update step takes a flat dict of '
+                                'tensors; %s is %s' % (k, type(v).__name__))
+            if v.device != self._device:
+                raise ValueError('batch[%r] is on %s, the step on %s'
+                                 % (k, v.device, self._device))
+        key = _signature(batch)
+        static = self._batches.get(key)
+        if static is None:
+            static = self._batches[key] = {k: torch.empty_like(v)
+                                           for k, v in batch.items()}
+        for k, v in batch.items():
+            static[k].copy_(v)
+        self._lr.copy_(lr)
+        return key
+
+    def _body(self, batch: Dict[str, Tensor]) -> Tensor:
+        """One step on the buffers; returns the metrics packed in
+        :attr:`metric_names` order."""
+        params, opt, metrics = _step_math(self._apply, self._cfg,
+                                          self._params, self._opt, batch,
+                                          self._lr)
+        with torch.no_grad():
+            for k, p in self._params.items():
+                p.copy_(params[k])
+                self._opt.mu[k].copy_(opt.mu[k])
+                self._opt.nu[k].copy_(opt.nu[k])
+            self._opt.count.copy_(opt.count)
+            self._steps.add_(1)
+            if not self.metric_names:
+                self.metric_names = tuple(metrics)
+            return torch.stack([metrics[k].float()
+                                for k in self.metric_names])
+
+    def _unpack(self, packed: Tensor) -> Dict[str, Tensor]:
+        return dict(zip(self.metric_names, packed.clone().unbind()))
+
+    def __call__(self, batch: Dict[str, Any], lr: Tensor
+                 ) -> Dict[str, Tensor]:
+        return self._unpack(self._body(self._batches[self._load(batch, lr)]))
+
+
+class GraphedUpdateStep(StaticUpdateStep):
+    """:class:`StaticUpdateStep` as one CUDA graph per batch signature,
+    the port's counterpart of the JAX package's jitted step: captured on
+    the signature's first call, after :data:`GRAPH_WARMUP_STEPS` eager
+    steps of the body on a side stream (they build and load the kernels
+    and create cuBLAS's handles; the state is put back after them), then
+    replayed, one launch a step. A capture or replay failure raises; there
+    is no eager fallback (:func:`build_update_step` is the step for the
+    CPU).
+
+    The kernels' wrappers count their launches while the graph is
+    captured, never when it is replayed. So the count each wrapper took
+    during the capture is taken back and kept as the graph's launches per
+    replay, and added to the counts on every replay: bookkeeping, which
+    keeps ``kernel_launches()`` a count of kernels run. That replays run
+    them is shown by the profiler (chip_smoke.py's training phase)."""
+
+    def __init__(self, module: torch.nn.Module, cfg: LossConfig,
+                 state: TrainState):
+        devices = {t.device.type for t in list(module.parameters())
+                   + list(state.params.values()) + [state.steps]}
+        if devices != {'cuda'}:
+            raise ValueError('a CUDA graph of the update step needs the '
+                             'module and the state on a CUDA device, got %s; '
+                             'build_update_step runs on the CPU'
+                             % sorted(devices))
+        super().__init__(module, cfg, state)
+        # signature -> (graph, its packed metrics, its launches a replay)
+        self._graphs: Dict[Tuple, Tuple[Any, Tensor, Dict[str, int]]] = {}
+
+    def _capture(self, key: Tuple):
+        batch = self._batches[key]
+        saved = [t.detach().clone() for t in self._buffers()]
+        side = torch.cuda.Stream(self._device)
+        side.wait_stream(torch.cuda.current_stream(self._device))
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP_STEPS):
+                self._body(batch)
+        torch.cuda.current_stream(self._device).wait_stream(side)
+        with torch.no_grad():
+            for t, s in zip(self._buffers(), saved):
+                t.copy_(s)
+        before = kernel_launches()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            packed = self._body(batch)
+        per_replay = {k: n - before[k] for k, n in kernel_launches().items()}
+        add_kernel_launches({k: -n for k, n in per_replay.items()})
+        self._graphs[key] = (graph, packed, per_replay)
+        return self._graphs[key]
+
+    def _buffers(self):
+        opt = self._opt
+        return (list(self._params.values()) + list(opt.mu.values())
+                + list(opt.nu.values()) + [opt.count, self._steps])
+
+    def __call__(self, batch: Dict[str, Any], lr: Tensor
+                 ) -> Dict[str, Tensor]:
+        key = self._load(batch, lr)
+        graph, packed, per_replay = (self._graphs.get(key)
+                                     or self._capture(key))
+        graph.replay()
+        add_kernel_launches(per_replay)
+        return self._unpack(packed)
+
+
+def build_graphed_update_step(module: torch.nn.Module, cfg: LossConfig,
+                              state: TrainState) -> GraphedUpdateStep:
+    """The update step of :func:`build_update_step` as a CUDA graph on
+    static buffers, starting from ``state`` (copied): ``step(batch, lr) ->
+    metrics``, with ``step.state`` the state after the last call. ``lr`` is
+    a 0-d tensor, copied in on every call, so a schedule needs no new
+    capture. Raises unless the module and the state are on a CUDA
+    device."""
+    return GraphedUpdateStep(module, cfg, state)
 
 
 # --------------------------------------------- optax layout, in and out

@@ -1,7 +1,8 @@
 """The port's update-step entry point, ``python -m handyrl_tpu_torch.bench``:
 its ``run_bench`` at a small size on the CPU gives one JSON-serialisable
-line with the metric, the step time, finite losses and the kernel counts
-(all 0 on the CPU); without a card, ``--device cuda`` raises. Its batch is
+line with the metric, the step time of the eager step (the only form on
+the CPU; the graphed form's fields are null), finite losses and the kernel
+counts (all 0 on the CPU); without a card, ``--device cuda`` raises. Its batch is
 the JAX package's ``__graft_entry__._synthetic_batch``, draw for draw."""
 
 import json
@@ -27,6 +28,11 @@ def test_cpu_run_prints_one_json_line():
     assert all(np.isfinite(v) for v in line['losses'].values())
     assert line['nonfinite'] == 0 and line['grad_norm'] > 0
     assert line['steps_run'] == bench.WARMUP + 2 and line['timed_steps'] == 2
+    # graphs are CUDA-only: on the CPU the eager step is the line's
+    assert line['form'] == 'eager' and line['eager_step_ms'] is None
+    for k in ('graph_first_call_ms', 'peak_memory_mib', 'steps_by_form',
+              'kernel_launches_by_form'):
+        assert line[k] is None, k
     assert line['kernel_launches'] == {
         'geese_trunk': 0, 'geese_trunk_bwd': 0, 'td_lambda': 0, 'upgo': 0,
         'vtrace': 0}

@@ -73,11 +73,18 @@ def test_outcome_bootstrap_of_length_one(algorithm):
 
 
 # B*P = 200 lanes: not a multiple of the 128-lane tile the Pallas wrapper
-# pads to
-@pytest.mark.parametrize('B,T,P', [(4, 16, 2), (100, 16, 2)])
+# pads to; T = 1 (the bootstrap row alone); P = 4 (four players a row, as
+# Hungry Geese's turn-alternating batches); returns of one row (the value
+# target's outcome, whose bootstrap row the CUDA kernels read in place)
+@pytest.mark.parametrize('B,T,P,returns_T', [
+    (4, 16, 2, None), (100, 16, 2, None), (4, 1, 2, None), (25, 16, 4, None),
+    (3, 1, 4, None), (4, 16, 2, 1), (25, 16, 4, 1)],
+    ids=['4-16-2', '100-16-2', '4-1-2', '25-16-4', '3-1-4',
+         '4-16-2-one_returns_row', '25-16-4-one_returns_row'])
 @pytest.mark.parametrize('kernel', ['td_lambda', 'upgo', 'vtrace'])
-def test_kernel_wrappers_match_jax_pallas_interpret(kernel, B, T, P):
-    d = _rand(3, B=B, T=T, P=P)
+def test_kernel_wrappers_match_jax_pallas_interpret(kernel, B, T, P,
+                                                    returns_T):
+    d = _rand(3, B=B, T=T, P=P, returns_T=returns_T)
     lam = (0.7 + 0.3 * (1 - d['masks'])).astype(np.float32)
     args = (d['values'], d['returns'], d['rewards'], lam, 0.9)
     extra = (d['rhos'], d['cs']) if kernel == 'vtrace' else ()
