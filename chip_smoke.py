@@ -16,10 +16,11 @@ non-zero, printing no result, when either is missing or any phase fails.
    PyTorch call computes the same function, that call:
    - K1, the trunk forward, at full GeeseNet width (Cin=17, F=32, L=12,
      8 groups) on real Hungry Geese observations, N in {1, 8, 64, 100,
-     2048}, its convs on the tensor cores in 3xTF32 (bounds over the TF32
+     256, 2048}, its convs on the tensor cores in 3xTF32 (bounds over the TF32
      peak), timed with CUDA events back to back (the kernels line's ms) and
      by torch.profiler's device time, which leaves the wrapper's host cost
-     out; the library yardstick is the port's own ``torus_impl='pad'``
+     out (256 is the learner's generation bucket: 64 envs of four geese);
+     the library yardstick is the port's own ``torus_impl='pad'``
      trunk (cuDNN convs and torch's group_norm, which the kernel path never
      calls). At N in {8, 2048} also its training form, timed beside the
      serving form: the saved block inputs and normalised conv outputs
@@ -75,7 +76,21 @@ non-zero, printing no result, when either is missing or any phase fails.
    headline steps of each form (graph replays for the graphed one): the
    device busy time, the host-clock step and the idle share, and K1, K2a,
    K2b and K3 each once a step in the device rows, or it fails.
-5. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
+5. The local learner, through its entry point: writes the slice's JSON
+   config (full-width GeeseNet, ``torus_impl='pallas'``, B=128, T=16,
+   TD/TD, 64 generation envs, 256 episodes before the first epoch and
+   512 an epoch (about 100 update steps an epoch at 256), 3 epochs, online
+   evaluation against 'random') into a temporary directory and runs
+   ``python -m handyrl_tpu_torch.train --config ... --device cuda`` (a
+   fresh process, every count at 0). Fails unless it exits 0 having
+   trained 3 epochs with finite losses, wrote every checkpoint with its CRC
+   sidecar, changed the params between ``1.ckpt`` and the last one, and
+   launched K1 in generation and evaluation (serving form) and K1, K2 and
+   K3 in training once a step (the capture's eager warm-up steps
+   included). Then loads ``latest.ckpt`` on the card and on the CPU and
+   holds the card's forward to the CPU's on real boards (POLICY_TOL), and
+   prints the learner's rates beside the bench's graphed step.
+6. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
    and K2b take their launches from K2's count, one of each a call), the
    nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -92,7 +107,7 @@ import time
 
 SEED = 20261016
 WIDTH = dict(cin=17, filters=32, layers=12, groups=8)
-KERNEL_NS = (1, 8, 64, 100, 2048)
+KERNEL_NS = (1, 8, 64, 100, 256, 2048)
 MAIN_PATH_N = 8          # four geese per ply, padded to the engine's bucket
 TRAIN_N = 2048           # B*T*P of the headline update step
 BWD_NS = (8, 64, 2048)
@@ -374,6 +389,7 @@ def trunk_net(torch, GeeseNet):
 
 def phase_kernels(torch, geese_trunk, GeeseNet, make_env):
     """K1 against its plain version and the library yardstick."""
+    from handyrl_tpu_torch.ops import kernel_launches
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     net, weights = trunk_net(torch, GeeseNet)
@@ -421,7 +437,7 @@ def phase_kernels(torch, geese_trunk, GeeseNet, make_env):
                 '(%s)  launches so far %d' % (
                     n, err, TOL, lib_err, row['ms'], row['device_ms'],
                     row['plain_ms'], row['library_ms'], bound, bound_by,
-                    geese_trunk.launches))
+                    kernel_launches()['geese_trunk']))
             if not finite:
                 fail('geese_trunk produced non-finite values at N=%d' % n)
             if not err <= TOL:
@@ -1246,6 +1262,135 @@ def profile_window(torch, form, step, steps):
                      'launches_per_step': c} for ms, c, k in rows[:10]]}
 
 
+# the learner phase's config: the update step of the bench (B=128, T=16,
+# TD/TD, gamma 0.99, solo training with observations) fed by batched
+# self-play of 64 Hungry Geese envs on the full-width GeeseNet's kernels
+LEARNER_EPOCHS = 3
+LEARNER_CONFIG = {
+    'env_args': {'env': 'HungryGeese', 'torus_impl': 'pallas'},
+    'train_args': {
+        'turn_based_training': False, 'observation': True, 'gamma': 0.99,
+        'forward_steps': 16, 'compress_steps': 4, 'batch_size': 128,
+        'policy_target': 'TD', 'value_target': 'TD',
+        'generation_envs': 64, 'num_batchers': 2,
+        'minimum_episodes': 256, 'update_episodes': 512,
+        'epochs': LEARNER_EPOCHS, 'eval': {'opponent': ['random']},
+        'seed': SEED},
+}
+LEARNER_FILES = ['%d.ckpt' % e for e in range(1, LEARNER_EPOCHS + 1)] + [
+    'latest.ckpt', 'trainer_state.ckpt']
+
+
+def run_learner_entry(repo, tmp):
+    """``python -m handyrl_tpu_torch.train --config ... --device cuda`` on
+    LEARNER_CONFIG: its JSON line and the wall time of the process."""
+    cfg = json.loads(json.dumps(LEARNER_CONFIG))
+    cfg['train_args']['model_dir'] = os.path.join(tmp, 'models')
+    path = os.path.join(tmp, 'learner.json')
+    with open(path, 'w') as f:
+        json.dump(cfg, f)
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(
+            [sys.executable, '-m', 'handyrl_tpu_torch.train', '--config',
+             path, '--device', 'cuda'],
+            cwd=repo, capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired as exc:
+        fail('the learner did not finish within 600 s:\n%s' % (
+            (exc.stderr or b'')[-4000:]))
+    wall = time.monotonic() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith(('epoch', 'win rate', 'generation stats', 'loss',
+                            'updated model')):
+            log('  learner: %s' % line)
+    if proc.returncode != 0:
+        fail('the learner exited %d:\n%s' % (proc.returncode,
+                                             proc.stderr[-4000:]))
+    lines = [l for l in proc.stdout.splitlines() if l.startswith('{')]
+    if len(lines) != 1:
+        fail('the learner printed %d JSON lines' % len(lines))
+    return json.loads(lines[0]), wall
+
+
+def phase_learner(torch, repo, make_env, bench_line):
+    import math
+    import numpy as np
+    from handyrl_tpu_torch.evaluation import load_model
+    from handyrl_tpu_torch.model import param_trees
+    from handyrl_tpu_torch.ops.train_step import GRAPH_WARMUP_STEPS
+    from handyrl_tpu_torch.utils import flax_msgpack
+    from handyrl_tpu_torch.utils.fs import verify_checkpoint
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_learner_')
+    try:
+        line, wall = run_learner_entry(repo, tmp)
+        models = os.path.join(tmp, 'models')
+        log('learner: %s' % json.dumps(line))
+        if line['epochs'] != LEARNER_EPOCHS or line['failed']:
+            fail('the learner trained %s epochs (failed %s)'
+                 % (line['epochs'], line['failed_reason']))
+        for name in LEARNER_FILES:
+            ok, reason = verify_checkpoint(os.path.join(models, name))
+            if not ok or reason != 'ok':
+                fail('learner checkpoint %s: %s' % (name, reason))
+        if not (line['losses'] and all(math.isfinite(v)
+                                       for v in line['losses'].values())):
+            fail('the learner reports non-finite losses: %s'
+                 % line['losses'])
+        env = make_env(LEARNER_CONFIG['env_args'])
+        _, from_flax = param_trees(env.net())
+
+        def params(name):
+            with open(os.path.join(models, name), 'rb') as f:
+                return from_flax(flax_msgpack.from_bytes(f.read()))
+        first, last = params('1.ckpt'), params('%d.ckpt' % LEARNER_EPOCHS)
+        moved = {k: (last[k] - first[k]).abs().max().item() for k in first}
+        log('learner: params max abs change from 1.ckpt to %d.ckpt by leaf: '
+            '%s' % (LEARNER_EPOCHS, ', '.join('%s %.3g' % kv
+                                              for kv in moved.items())))
+        if not any(v > 0 for v in moved.values()):
+            fail('the learner\'s params did not change after epoch 1')
+        by_path = line['kernel_launches']
+        gen, ev = by_path.get('generation', {}), by_path.get('evaluation', {})
+        train = by_path.get('training', {})
+        runs = line['steps_at_exit'] + GRAPH_WARMUP_STEPS
+        log('learner: kernel launches by path %s; %d update steps (and %d '
+            'eager warm-up steps of the capture)' % (
+                by_path, line['steps_at_exit'], GRAPH_WARMUP_STEPS))
+        if not (gen.get('geese_trunk', 0) > 0 and ev.get('geese_trunk', 0) > 0):
+            fail('the learner\'s generation or evaluation never launched K1')
+        if any(p.get(k, 0) for p in (gen, ev)
+               for k in ('geese_trunk_bwd', 'td_lambda', 'upgo', 'vtrace')):
+            fail('generation or evaluation launched a training kernel')
+        for name in ('geese_trunk', 'geese_trunk_bwd', 'td_lambda'):
+            if train.get(name) != runs:
+                fail('the learner\'s training launched %s %s times in %d '
+                     'steps' % (name, train.get(name), runs))
+
+        # latest.ckpt on the card against the CPU, on real boards
+        obs = np.stack(game_observations(make_env, 64, SEED + 5))
+        card = load_model(os.path.join(models, 'latest.ckpt'), env, 'cuda')
+        cpu = load_model(os.path.join(models, 'latest.ckpt'), env, 'cpu')
+        got, want = card.batch_inference(obs), cpu.batch_inference(obs)
+        err = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+        log('learner: latest.ckpt forward on the card vs the CPU over %d '
+            'real boards: max abs err %s (tol %.0e)' % (
+                len(obs), err, POLICY_TOL))
+        if not all(np.isfinite(got[k]).all() for k in got) or \
+                max(err.values()) > POLICY_TOL:
+            fail('the learner\'s checkpoint computes other outputs on the '
+                 'card than on the CPU')
+        log('learner: %.1f episodes/s generated, %.2f update steps/s, %.1f '
+            'trajectories/s trained (bench graphed step alone: %.1f), epochs '
+            '%s s, peak memory %.1f MiB, %.1f s process wall (%s)' % (
+                line['episodes_per_s'], line['update_steps_per_s'],
+                line['trajectories_per_s'], bench_line['value'],
+                ['%.2f' % t for t in line['epoch_seconds']],
+                line['peak_memory_mib'], wall, nvidia_smi_line()))
+        return line
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     try:
         import torch
@@ -1283,10 +1428,16 @@ def main():
     log('== phase 4: main path (training)')
     train = phase_training(torch, repo, make_env)
 
+    log('== phase 5: main path (the local learner)')
+    learner = phase_learner(torch, repo, make_env, train['bench'])
+
     # launches on each main path: serving, the bench entry (both forms),
-    # the in-process steps of each form and config (each run with the
-    # counts at 0 just before; a graph's replays counted by bookkeeping)
+    # the in-process steps of each form and config, the learner by its
+    # paths (each run with the counts at 0 just before; a graph's replays
+    # counted by bookkeeping)
     paths = dict(train['paths'], serving=launches)
+    for name, counts in learner['kernel_launches'].items():
+        paths['learner_' + name] = counts
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from

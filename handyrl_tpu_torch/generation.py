@@ -1,19 +1,29 @@
-"""Action sampling and bucketed inference.
+"""Action sampling, bucketed inference and batched episode generation.
 
-The subset of ``handyrl_tpu/generation.py`` the serving path uses: the ONE
-audited sampling routine shared by a local ply and the inference engine.
-Sampling is keyed by an explicit seed sequence instead of process-global
-RNG state, so a draw is a pure function of (seed sequence, policy, legal
-actions): the engine replays any caller's draw bit-identically however
-requests interleave. The episode generators are not ported yet.
+The port of ``handyrl_tpu/generation.py`` as far as the serving path and the
+local learner use it: the ONE audited sampling routine shared by a local
+ply and the inference engine, keyed by an explicit seed sequence instead of
+process-global RNG state (a draw is a pure function of seed sequence,
+policy and legal actions, so the engine replays any caller's draw
+bit-identically however requests interleave); the power-of-two buckets of
+the batched forward; and the learner's in-process engines,
+:class:`BatchedGenerator` (N environments in lockstep against one batched
+forward per ply, self-play) and :class:`BatchedEvaluator` (online
+evaluation against host agents or checkpoints). They produce the JAX
+package's episode records: ``{'args', 'steps', 'outcome', 'moment': [bz2
+chunks]}`` with per-step moment dicts of 7 per-player entries and the turn
+list. The sequential ``Generator`` belongs to the worker plane and is not
+ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+import random
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .ops.batch import MOMENT_KEYS, compress_moments
 from .utils.tree import map_structure, softmax, stack_structure
 
 
@@ -123,3 +133,260 @@ def pad_to_bucket(structures: list, min_bucket: int = 8):
         return np.concatenate([x, np.repeat(x[:1], pad, axis=0)], axis=0)
 
     return map_structure(pad_rows, stack_structure(structures)), rows
+
+
+def seed_env_rng(env, base_seed, episode_key) -> None:
+    """Reseed an env's per-instance rng from the episode key.
+
+    Envs with stochastic transitions (HungryGeese's spawns) keep a
+    ``random.Random`` instance; seeding it from (seed, episode_key) makes
+    the whole episode a pure function of (seed, sample_key, params). The
+    seed string is the JAX package's, so both replay the same episode."""
+    env_rng = getattr(env, 'rng', None)
+    if isinstance(env_rng, random.Random):
+        env_rng.seed('episode:%d:%s' % (int(base_seed), (episode_key,)))
+
+
+def _blank_moment(players) -> Dict[str, Dict[int, Any]]:
+    return {key: {p: None for p in players} for key in MOMENT_KEYS}
+
+
+def finalize_episode_record(outcome, moments: List[dict],
+                            args: Dict[str, Any], gen_args: Dict[str, Any]
+                            ) -> Optional[dict]:
+    """The canonical episode record from raw moments and the outcome: the
+    discounted returns filled in from the rewards, the moments compressed
+    in ``compress_steps`` chunks. None for an episode without moments."""
+    if len(moments) < 1:
+        return None
+    players = list(moments[0]['return'].keys())
+    for player in players:
+        ret = 0.0
+        for i, m in reversed(list(enumerate(moments))):
+            ret = (m['reward'][player] or 0) + args['gamma'] * ret
+            moments[i]['return'][player] = ret
+    blocks = compress_moments(moments, args['compress_steps'],
+                              level=args.get('compress_level', 9))
+    return {'args': gen_args, 'steps': len(moments), 'outcome': outcome,
+            'moment': blocks}
+
+
+class BatchedGenerator:
+    """N-env lockstep self-play generator against one batched forward.
+
+    Every step gathers the observations of all (env, player) pairs that must
+    run inference, evaluates them in ONE ``batch_inference`` call (padded
+    to a power-of-two bucket), then samples and steps on the host: the
+    categorical draw is Gumbel-max over the legality-masked logits from
+    numpy's global generator, ``selected_prob`` the masked softmax's, as in
+    the JAX package. Finished episodes come out of :meth:`step`; their
+    slots reset at once.
+    """
+
+    def __init__(self, make_env_fn, wrapper, args: Dict[str, Any],
+                 n_envs: int = 64):
+        self.envs = [make_env_fn(i) for i in range(n_envs)]
+        self.wrapper = wrapper
+        self.args = args
+        self.n_envs = n_envs
+        self._moments: List[List[dict]] = [[] for _ in range(n_envs)]
+        for env in self.envs:
+            env.reset()
+
+    def _gen_args(self, env) -> Dict[str, Any]:
+        return {'role': 'g', 'player': env.players(),
+                'model_id': {p: -1 for p in env.players()}}
+
+    def step(self) -> List[dict]:
+        """Advance all envs one step; returns episodes finished this step."""
+        jobs = []   # (env_idx, player, acting: bool, obs)
+        for i, env in enumerate(self.envs):
+            turn_players = env.turns()
+            observers = env.observers()
+            for player in env.players():
+                if player not in turn_players + observers:
+                    continue
+                if (player not in turn_players
+                        and not self.args['observation']):
+                    continue
+                jobs.append((i, player, player in turn_players,
+                             env.observation(player)))
+        if not jobs:
+            return []
+
+        obs_batch, _ = pad_to_bucket([j[3] for j in jobs])
+        outputs = self.wrapper.batch_inference(obs_batch)
+        policies = np.asarray(outputs['policy'])
+        values = np.asarray(outputs['value']) if 'value' in outputs else None
+
+        # one vectorized draw for every acting row: Gumbel-max over the
+        # masked logits is a sample of the masked softmax
+        acting_rows = [r for r, j in enumerate(jobs) if j[2]]
+        if acting_rows:
+            amasks = np.full((len(acting_rows),) + policies.shape[1:], 1e32,
+                             np.float32)
+            for n, r in enumerate(acting_rows):
+                i, player, _, _ = jobs[r]
+                amasks[n][self.envs[i].legal_actions(player)] = 0
+            masked = policies[acting_rows] - amasks
+            probs = softmax(masked)
+            gumbel = -np.log(-np.log(
+                np.random.random_sample(masked.shape) + 1e-12) + 1e-12)
+            sampled = np.argmax(masked + gumbel, axis=-1)
+        row_to_sample = {r: n for n, r in enumerate(acting_rows)}
+
+        pending: Dict[int, dict] = {}
+        for row, (i, player, acting, obs) in enumerate(jobs):
+            env = self.envs[i]
+            if i not in pending:
+                pending[i] = _blank_moment(env.players())
+                pending[i]['turn'] = env.turns()
+            moment = pending[i]
+            moment['observation'][player] = obs
+            if values is not None:
+                moment['value'][player] = values[row]
+            if acting:
+                n = row_to_sample[row]
+                action = int(sampled[n])
+                moment['selected_prob'][player] = probs[n, action]
+                moment['action_mask'][player] = amasks[n]
+                moment['action'][player] = action
+
+        finished: List[dict] = []
+        for i, moment in pending.items():
+            env = self.envs[i]
+            err = env.step(moment['action'])
+            if err:
+                self._reset_slot(i)
+                continue
+            reward = env.reward()
+            for player in env.players():
+                moment['reward'][player] = reward.get(player, None)
+            self._moments[i].append(moment)
+            if env.terminal():
+                episode = finalize_episode_record(
+                    env.outcome(), self._moments[i], self.args,
+                    self._gen_args(env))
+                if episode is not None:
+                    finished.append(episode)
+                self._reset_slot(i)
+        return finished
+
+    def _reset_slot(self, i: int):
+        self._moments[i] = []
+        self.envs[i].reset()
+
+
+class BatchedEvaluator:
+    """Vectorized online evaluation: N concurrent matches of the trained
+    model (greedy, one rotating seat per match) against the configured
+    opponents (``eval.opponent``): host agents ('random', 'rulebase') or
+    checkpoint files, whose model seats are batched across matches like the
+    trained model's, one ``batch_inference`` call per model per step."""
+
+    MAIN = ''   # pool key of the trained model under evaluation
+
+    def __init__(self, make_env_fn, wrapper, args: Dict[str, Any],
+                 n_envs: int = 16):
+        self.envs = [make_env_fn(i) for i in range(n_envs)]
+        self.wrapper = wrapper
+        self.args = args
+        self.n_envs = n_envs
+        self._seat_counter = 0
+        self._opponents = (args.get('eval', {}).get('opponent', [])
+                           or ['random'])
+        self._model_pool: Dict[str, Any] = {self.MAIN: wrapper}
+        # preload model opponents now: load_model resets the env it probes,
+        # which must never happen once matches are in flight
+        for spec in self._opponents:
+            if self._host_agent(spec) is None:
+                self._opponent_model(spec)
+        self._slot_state: List[dict] = [None] * n_envs
+        for i in range(n_envs):
+            self._start_match(i)
+
+    def _host_agent(self, name: str):
+        """Host-side opponent for a spec name, or None if it names a model."""
+        from .evaluation import build_agent
+        return build_agent(name, self.envs[0])
+
+    def _opponent_model(self, path: str):
+        """Load (once) a checkpoint-file opponent into the model pool, on
+        the trained model's device."""
+        if path not in self._model_pool:
+            from .evaluation import load_model
+            self._model_pool[path] = load_model(path, self.envs[0],
+                                                device=self.wrapper.device)
+        return self._model_pool[path]
+
+    def _start_match(self, i: int):
+        env = self.envs[i]
+        env.reset()
+        players = env.players()
+        seat = players[self._seat_counter % len(players)]
+        self._seat_counter += 1
+        opponent = random.choice(self._opponents)
+
+        agents: Dict[int, Any] = {}
+        model_seats: Dict[int, str] = {seat: self.MAIN}
+        for p in players:
+            if p == seat:
+                continue
+            agent = self._host_agent(opponent)
+            if agent is not None:
+                agents[p] = agent
+            else:
+                self._opponent_model(opponent)
+                model_seats[p] = opponent
+        self._slot_state[i] = {'seat': seat, 'opponent': opponent,
+                               'agents': agents, 'model_seats': model_seats}
+
+    def _batched_actions(self, key: str, jobs: List[tuple]
+                         ) -> Dict[tuple, int]:
+        """Greedy actions for the (env_idx, player) seats of model ``key``:
+        one padded batch_inference call."""
+        obs_batch, _ = pad_to_bucket(
+            [self.envs[i].observation(p) for i, p in jobs])
+        policies = np.asarray(
+            self._model_pool[key].batch_inference(obs_batch)['policy'])
+        actions: Dict[tuple, int] = {}
+        for row, (i, p) in enumerate(jobs):
+            logits = policies[row]
+            actions[(i, p)] = max(self.envs[i].legal_actions(p),
+                                  key=lambda a: logits[a])   # greedy
+        return actions
+
+    def step(self) -> List[dict]:
+        """Advance all matches one step; returns finished result records."""
+        due: Dict[str, List[tuple]] = {}
+        for i, env in enumerate(self.envs):
+            seats = self._slot_state[i]['model_seats']
+            for p in env.turns():
+                if p in seats:
+                    due.setdefault(seats[p], []).append((i, p))
+        model_actions: Dict[tuple, int] = {}
+        for key, jobs in due.items():
+            model_actions.update(self._batched_actions(key, jobs))
+
+        finished = []
+        for i, env in enumerate(self.envs):
+            st = self._slot_state[i]
+            actions = {}
+            for p in env.turns():
+                if p in st['model_seats']:
+                    actions[p] = model_actions.get((i, p))
+                else:
+                    actions[p] = st['agents'][p].action(env, p)
+            err = env.step(actions)
+            if err:
+                self._start_match(i)
+                continue
+            if env.terminal():
+                eval_args = {'role': 'e', 'player': [st['seat']],
+                             'model_id': {p: (-1 if p != st['seat'] else 0)
+                                          for p in env.players()}}
+                finished.append({'args': eval_args,
+                                 'opponent': st['opponent'],
+                                 'result': env.outcome()})
+                self._start_match(i)
+        return finished

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from . import models as model_zoo
+from .ops import launches
 from .utils import flax_msgpack
 from .utils.tree import map_structure
 
@@ -38,13 +39,31 @@ def resolve_device(device: Any = 'cuda') -> torch.device:
     return dev
 
 
-def _param_io(module):
-    """(to_flax, from_flax) for the module's architecture."""
+def param_trees(module):
+    """(to_flax, from_flax) for the module's architecture: its params (or
+    a mapping of its parameter names to tensors) to the flax param tree of
+    numpy arrays, and back to a state dict of CPU tensors."""
     if model_zoo.architecture_name(module) == 'GeeseNet':
         from .models.geese import params_from_flax, params_to_flax
         return params_to_flax, params_from_flax
     raise KeyError('no snapshot format for %s'
                    % model_zoo.architecture_name(module))
+
+
+def params_bytes(module: torch.nn.Module, params=None) -> bytes:
+    """The module's params, or ``params`` (a mapping of its parameter names
+    to tensors), as the flax param tree in flax's ``to_bytes`` layout: the
+    bytes of the JAX package's ``ModelWrapper.params_bytes`` and its
+    learner checkpoints."""
+    to_flax, _ = param_trees(module)
+    return flax_msgpack.to_bytes(to_flax(module if params is None
+                                         else params))
+
+
+def load_params_bytes(module: torch.nn.Module, raw: bytes) -> None:
+    """Load :func:`params_bytes` (of either package) into ``module``."""
+    _, from_flax = param_trees(module)
+    module.load_state_dict(from_flax(flax_msgpack.from_bytes(raw)))
 
 
 class ModelWrapper:
@@ -65,7 +84,14 @@ class ModelWrapper:
     @torch.no_grad()
     def batch_inference(self, obs, hidden=None) -> Dict[str, Any]:
         """Batched path: the leading batch dim is already present. Returns
-        numpy arrays (None outputs dropped)."""
+        numpy arrays (None outputs dropped). Holds ``launches.capture_lock``
+        from the upload to the copy back, so it never runs while another
+        thread captures a CUDA graph."""
+        with launches.capture_lock:
+            return self._forward_to_host(obs, hidden)
+
+    def _forward_to_host(self, obs, hidden):
+        # every device tensor of the call is freed by the time it returns
         outputs = self.module(self._to_device(obs), self._to_device(hidden))
         return {k: map_structure(lambda t: t.cpu().numpy(), v)
                 for k, v in outputs.items() if v is not None}
@@ -84,9 +110,8 @@ class ModelWrapper:
     def snapshot(self) -> Dict[str, Any]:
         """Architecture name + non-default constructor config + the
         flax-shaped param tree as flax's ``to_bytes`` writes it."""
-        to_flax, _ = _param_io(self.module)
         snap = {'architecture': model_zoo.architecture_name(self.module),
-                'params': flax_msgpack.to_bytes(to_flax(self.module))}
+                'params': params_bytes(self.module)}
         config = self.module.config()
         if config:
             snap['config'] = config
@@ -101,9 +126,7 @@ class ModelWrapper:
         name = snap['architecture']
         module = model_zoo.build(name, **model_zoo.snapshot_config(
             name, snap.get('config') or {}))
-        _, from_flax = _param_io(module)
-        module.load_state_dict(from_flax(
-            flax_msgpack.from_bytes(snap['params'])))
+        load_params_bytes(module, snap['params'])
         return cls(module, dev)
 
 

@@ -12,8 +12,9 @@ they run :func:`trunk_forward_reference` and the hand-derived
 autograd. The training forward saves, for K2, each block's input
 (``acts``), each layer's normalised conv output (``xhat``) and per-group
 rstd (``rstd``); with the output ``y`` they are all K2 reads of the
-forward, so it recomputes no conv. ``launches`` and ``backward_launches``
-count the kernel launches of this process (CPU calls never count).
+forward, so it recomputes no conv. Each kernel launch is counted by
+``launches.count`` (as 'geese_trunk' and 'geese_trunk_bwd'; CPU calls never
+count).
 """
 
 from __future__ import annotations
@@ -24,15 +25,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from . import cuda_build
+from . import cuda_build, launches
 
 ROWS, COLS = 7, 11
 EPS = 1e-6
 SUPPORTED_FILTERS = (16, 32)   # the kernel's instantiations
-
-# kernel launches in this process (CPU calls never count)
-launches = 0            # K1, the forward
-backward_launches = 0   # K2, the backward
 
 
 # ------------------------------------------------------------ plain version
@@ -332,7 +329,6 @@ def trunk_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
     ``xhat`` (N,L+1,7,11,F; each layer's normalised conv output) and
     ``rstd`` (N,L+1,groups), all float32; the kernel takes the three
     together or none of them."""
-    global launches
     if _device_kind(x) == 'cpu':
         return trunk_forward_reference(x, stem_w, stem_scale, stem_bias,
                                        block_w, block_scale, block_bias,
@@ -362,7 +358,7 @@ def trunk_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
             block_bias.data_ptr(), out.data_ptr(), *ptrs, n, cin, filters,
             layers, groups, float(eps), stream)
     _raise_on(err, lib, 'forward')
-    launches += 1
+    launches.count('geese_trunk')
     return out
 
 
@@ -378,7 +374,6 @@ def trunk_backward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
     of the same operands saved (:func:`trunk_forward` with acts, xhat and
     rstd, and its output); the kernel needs all four, the plain version
     runs or recomputes what it is not given."""
-    global backward_launches
     if _device_kind(x) == 'cpu':
         return trunk_backward_reference(x, stem_w, stem_scale, stem_bias,
                                         block_w, block_scale, block_bias, dy,
@@ -418,7 +413,7 @@ def trunk_backward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
                 dc_all.data_ptr(), dsn.data_ptr(), partials.data_ptr(),
                 flat.data_ptr(), n, cin, filters, layers, groups, stream)
         _raise_on(err, lib, 'backward')
-        backward_launches += 1
+        launches.count('geese_trunk_bwd')
     elif dx is not None:
         dx.zero_()
     scales = flat[n_stem + n_blocks:].view(2, nl, filters)
@@ -434,7 +429,8 @@ class TrunkFunction(torch.autograd.Function):
     keeps each block's input, each layer's normalised conv output and
     rstd for the backward; the backward is K2 on those and the output. On
     the CPU both are their plain versions. ``dx`` is computed only when x
-    needs a grad."""
+    needs a grad. The backward counts its launch under the forward's
+    launch path: autograd runs a CUDA backward on its own thread."""
 
     @staticmethod
     def forward(ctx, x, stem_w, stem_scale, stem_bias, block_w, block_scale,
@@ -447,15 +443,17 @@ class TrunkFunction(torch.autograd.Function):
                               block_scale, block_bias, saved['acts'], y,
                               saved['xhat'], saved['rstd'])
         ctx.groups, ctx.eps = groups, eps
+        ctx.launch_path = launches.current_path()
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, sw, ss, sb, bw, bs, bb, acts, y, xhat, rstd = ctx.saved_tensors
-        grads = trunk_backward(x, sw, ss, sb, bw, bs, bb, dy.contiguous(),
-                               ctx.groups, ctx.eps,
-                               need_dx=ctx.needs_input_grad[0], acts=acts,
-                               y=y, xhat=xhat, rstd=rstd)
+        with launches.path(ctx.launch_path):
+            grads = trunk_backward(x, sw, ss, sb, bw, bs, bb, dy.contiguous(),
+                                   ctx.groups, ctx.eps,
+                                   need_dx=ctx.needs_input_grad[0],
+                                   acts=acts, y=y, xhat=xhat, rstd=rstd)
         return grads + (None, None)
 
 

@@ -15,8 +15,8 @@ device raises. The kernels read the bootstrap row of ``returns`` in place
 operands go to the kernel as they are when they are contiguous float32 of
 the full shape, so such a target computation is one launch.
 :func:`compute_target` dispatches on the device alone: there is no opt-in
-and no fallback. Each kernel counts its launches in
-``launches`` (CPU calls never count).
+and no fallback. Each kernel counts its launches through ``launches.count``
+under its name (CPU calls never count).
 
 Targets never carry gradients (the loss feeds them detached values), so no
 backward exists.
@@ -25,16 +25,13 @@ backward exists.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, launches
 
 Tensor = torch.Tensor
-
-# kernel launches in this process, by kernel (CPU calls never count)
-launches: Dict[str, int] = {'td_lambda': 0, 'upgo': 0, 'vtrace': 0}
 
 
 # ------------------------------------------------------------ plain versions
@@ -194,7 +191,7 @@ def _launch(kind: str, values, returns, rewards, lambda_, gamma,
                            'CUDA error %d (%s)' % (
                                kind, (B, T, P), err,
                                lib.targets_error_string(err).decode()))
-    launches[kind] += 1
+    launches.count(kind)
     return target, adv
 
 

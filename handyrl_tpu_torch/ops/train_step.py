@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from . import add_kernel_launches, kernel_launches
+from . import launches
 from .losses import LossConfig, compute_loss
 
 Tensor = torch.Tensor
@@ -194,6 +194,26 @@ class StaticUpdateStep:
                                   for k, v in self._params.items()},
                           opt_state=self._opt, steps=self._steps)
 
+    def load_state(self, state: TrainState) -> None:
+        """Copies ``state`` (on any device) into the buffers, in place, so
+        a captured graph goes on reading them. Raises, changing nothing,
+        unless its parameters have the buffers' names and shapes."""
+        for name, mine, theirs in (
+                ('params', self._params, state.params),
+                ('mu', self._opt.mu, state.opt_state.mu),
+                ('nu', self._opt.nu, state.opt_state.nu)):
+            if set(mine) != set(theirs) or any(
+                    mine[k].shape != theirs[k].shape for k in mine):
+                raise ValueError('load_state: %s do not match the step\'s '
+                                 'parameters' % name)
+        with torch.no_grad():
+            for k, p in self._params.items():
+                p.copy_(state.params[k])
+                self._opt.mu[k].copy_(state.opt_state.mu[k])
+                self._opt.nu[k].copy_(state.opt_state.nu[k])
+            self._opt.count.copy_(state.opt_state.count)
+            self._steps.copy_(state.steps)
+
     def _load(self, batch: Dict[str, Any], lr: Tensor) -> Tuple:
         """Copies ``batch`` and ``lr`` into the buffers (allocated on a
         signature's first call); returns the batch's signature."""
@@ -252,10 +272,15 @@ class GraphedUpdateStep(StaticUpdateStep):
 
     The kernels' wrappers count their launches while the graph is
     captured, never when it is replayed. So the count each wrapper took
-    during the capture is taken back and kept as the graph's launches per
-    replay, and added to the counts on every replay: bookkeeping, which
-    keeps ``kernel_launches()`` a count of kernels run. That replays run
-    them is shown by the profiler (chip_smoke.py's training phase)."""
+    during the capture, on the capturing thread's launch path, is taken
+    back and kept as the graph's launches per replay, and added to the
+    replaying thread's path on every replay: bookkeeping, which keeps
+    ``kernel_launches()`` a count of kernels run. That replays run them is shown by the profiler
+    (chip_smoke.py's training phase).
+
+    The capture holds ``launches.capture_lock``, which every forward on
+    the card outside a graph holds too (``ModelWrapper.batch_inference``),
+    so no other thread launches or synchronises while it runs."""
 
     def __init__(self, module: torch.nn.Module, cfg: LossConfig,
                  state: TrainState):
@@ -271,23 +296,26 @@ class GraphedUpdateStep(StaticUpdateStep):
         self._graphs: Dict[Tuple, Tuple[Any, Tensor, Dict[str, int]]] = {}
 
     def _capture(self, key: Tuple):
-        batch = self._batches[key]
-        saved = [t.detach().clone() for t in self._buffers()]
-        side = torch.cuda.Stream(self._device)
-        side.wait_stream(torch.cuda.current_stream(self._device))
-        with torch.cuda.stream(side):
-            for _ in range(GRAPH_WARMUP_STEPS):
-                self._body(batch)
-        torch.cuda.current_stream(self._device).wait_stream(side)
-        with torch.no_grad():
-            for t, s in zip(self._buffers(), saved):
-                t.copy_(s)
-        before = kernel_launches()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            packed = self._body(batch)
-        per_replay = {k: n - before[k] for k, n in kernel_launches().items()}
-        add_kernel_launches({k: -n for k, n in per_replay.items()})
+        with launches.capture_lock:
+            batch = self._batches[key]
+            saved = [t.detach().clone() for t in self._buffers()]
+            side = torch.cuda.Stream(self._device)
+            side.wait_stream(torch.cuda.current_stream(self._device))
+            with torch.cuda.stream(side):
+                for _ in range(GRAPH_WARMUP_STEPS):
+                    self._body(batch)
+            torch.cuda.current_stream(self._device).wait_stream(side)
+            with torch.no_grad():
+                for t, s in zip(self._buffers(), saved):
+                    t.copy_(s)
+            path = launches.current_path()
+            before = launches.totals(path)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                packed = self._body(batch)
+            per_replay = {k: n - before[k]
+                          for k, n in launches.totals(path).items()}
+            launches.add({k: -n for k, n in per_replay.items()})
         self._graphs[key] = (graph, packed, per_replay)
         return self._graphs[key]
 
@@ -302,7 +330,7 @@ class GraphedUpdateStep(StaticUpdateStep):
         graph, packed, per_replay = (self._graphs.get(key)
                                      or self._capture(key))
         graph.replay()
-        add_kernel_launches(per_replay)
+        launches.add(per_replay)
         return self._unpack(packed)
 
 

@@ -1,5 +1,6 @@
 """Crash-safe file writes with CRC32 sidecars (the subset of
-``handyrl_tpu/utils/fs.py`` the model registry uses).
+``handyrl_tpu/utils/fs.py`` the model registry and the learner's
+checkpoints use).
 
 Writes go to a temp file in the SAME directory (os.replace must not cross
 filesystems), are fsynced, then atomically renamed over the target, so a
@@ -74,6 +75,12 @@ def _verify(path: str):
     if int(manifest.get('crc32', -1)) != (zlib.crc32(data) & 0xffffffff):
         return False, 'crc32 mismatch (corrupt bytes)', None
     return True, 'ok', data
+
+
+def verify_checkpoint(path: str):
+    """(ok, reason) for ``path`` against its CRC32 sidecar manifest."""
+    ok, reason, _data = _verify(path)
+    return ok, reason
 
 
 def read_verified_bytes(path: str):

@@ -58,17 +58,20 @@ def test_synthetic_batch_is_the_jax_packages():
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_kernel_counts_in_one_place(monkeypatch):
-    """ops.kernel_launches reads every kernel's count; reset sets each to
-    0; the service reports the same dict."""
+def test_kernel_counts_in_one_place():
+    """ops.kernel_launches reads every kernel's count (summed over the
+    paths, or of one path); reset sets each to 0; the service reports the
+    same dict."""
     from handyrl_tpu_torch import ops
-    from handyrl_tpu_torch.ops import geese_trunk, targets
+    from handyrl_tpu_torch.ops import launches
     from handyrl_tpu_torch.serving import service
-    monkeypatch.setattr(geese_trunk, 'launches', 3)
-    monkeypatch.setattr(geese_trunk, 'backward_launches', 2)
-    monkeypatch.setitem(targets.launches, 'vtrace', 1)
+    ops.add_kernel_launches({'geese_trunk': 1})
+    with launches.path('training'):
+        ops.add_kernel_launches({'geese_trunk': 2, 'geese_trunk_bwd': 2,
+                                 'vtrace': 1})
     want = {'geese_trunk': 3, 'geese_trunk_bwd': 2, 'td_lambda': 0,
             'upgo': 0, 'vtrace': 1}
     assert ops.kernel_launches() == service.kernel_launches() == want
+    assert ops.kernel_launches('training') == dict(want, geese_trunk=2)
     ops.reset_kernel_launches()
     assert set(ops.kernel_launches().values()) == {0}

@@ -17,7 +17,7 @@ import torch
 from handyrl_tpu.ops.pallas_geese import (tile_forward, trunk_apply,
                                           trunk_params_from_geesenet as
                                           jax_trunk_params)
-from handyrl_tpu_torch.ops import geese_trunk
+from handyrl_tpu_torch.ops import geese_trunk, kernel_launches
 
 LAYERS, FILTERS, CIN, N = 2, 16, 17, 5
 GROUPS = min(8, FILTERS)
@@ -68,12 +68,12 @@ def test_plain_version_matches_jax_tile_forward():
 
 def test_cpu_tensor_takes_the_plain_path_and_never_counts():
     x, ops = _inputs(seed=2)
-    before = geese_trunk.launches
+    before = kernel_launches()['geese_trunk']
     args = [torch.from_numpy(a) for a in (x,) + ops]
     got = geese_trunk.trunk_forward(*args, groups=GROUPS)
     ref = geese_trunk.trunk_forward_reference(*args, groups=GROUPS)
     assert torch.equal(got, ref)
-    assert geese_trunk.launches == before == 0
+    assert kernel_launches()['geese_trunk'] == before == 0
 
 
 def test_no_kernel_for_other_devices():

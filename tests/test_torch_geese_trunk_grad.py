@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from handyrl_tpu.ops.pallas_geese import trunk_apply as jax_trunk_apply
-from handyrl_tpu_torch.ops import geese_trunk
+from handyrl_tpu_torch.ops import geese_trunk, kernel_launches
 
 LAYERS, FILTERS, CIN, N = 2, 16, 17, 5
 GROUPS = min(8, FILTERS)
@@ -127,7 +127,8 @@ def test_function_returns_dx_only_when_x_needs_it():
         for name, p, w in zip(NAMES[1:], params, want[1:]):
             np.testing.assert_allclose(p.grad.numpy(), w, err_msg=name, **TOL)
             p.grad = None
-    assert geese_trunk.launches == 0 and geese_trunk.backward_launches == 0
+    assert kernel_launches()['geese_trunk'] == 0
+    assert kernel_launches()['geese_trunk_bwd'] == 0
 
 
 def test_wrapper_backward_on_cpu_is_the_reference_and_never_counts():
@@ -139,7 +140,7 @@ def test_wrapper_backward_on_cpu_is_the_reference_and_never_counts():
     assert got[0] is None and want[0] is None
     for g, w in zip(got[1:], want[1:]):
         assert np.array_equal(g.numpy(), w)
-    assert geese_trunk.backward_launches == 0
+    assert kernel_launches()['geese_trunk_bwd'] == 0
 
 
 def test_training_forward_records_block_inputs():

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from handyrl_tpu_torch.ops import geese_trunk
+from handyrl_tpu_torch.ops import geese_trunk, kernel_launches
 
 LAYERS, FILTERS, CIN = 2, 16, 17
 GROUPS = min(8, FILTERS)
@@ -79,7 +79,7 @@ def test_wrapper_training_forward_on_cpu_fills_the_buffers():
                        y)
     for k in want:
         assert torch.equal(got[k], want[k]), k
-    assert geese_trunk.launches == 0
+    assert kernel_launches()['geese_trunk'] == 0
 
 
 def test_reference_backward_from_saved_tensors_recomputes_no_conv(
@@ -121,7 +121,8 @@ def test_function_saves_xhat_and_rstd_and_uses_them(monkeypatch):
                                                 y=y, **saved)
     for g, w in zip([x.grad] + [p.grad for p in params], want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-6)
-    assert geese_trunk.launches == 0 and geese_trunk.backward_launches == 0
+    assert kernel_launches()['geese_trunk'] == 0
+    assert kernel_launches()['geese_trunk_bwd'] == 0
 
 
 # ------------------------------------------------- 3xTF32, emulated

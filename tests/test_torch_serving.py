@@ -28,7 +28,7 @@ from handyrl_tpu_torch.environment import make_env
 from handyrl_tpu_torch.generation import model_act, sample_seed
 from handyrl_tpu_torch.model import ModelWrapper
 from handyrl_tpu_torch.models.geese import GeeseNet, params_from_flax
-from handyrl_tpu_torch.ops import geese_trunk
+from handyrl_tpu_torch.ops import kernel_launches
 from handyrl_tpu_torch.serving.client import ServiceClient, ServiceError
 from handyrl_tpu_torch.serving.registry import ModelRegistry
 from handyrl_tpu_torch.serving.service import InferenceService
@@ -138,7 +138,7 @@ def test_port_service_matches_jax_service(services):
     assert status['kernel_launches'] == {
         'geese_trunk': 0, 'geese_trunk_bwd': 0, 'td_lambda': 0, 'upgo': 0,
         'vtrace': 0}
-    assert geese_trunk.launches == 0
+    assert kernel_launches()['geese_trunk'] == 0
 
 
 @pytest.mark.timeout(300)
