@@ -16,17 +16,19 @@ non-zero, printing no result, when either is missing or any phase fails.
    PyTorch call computes the same function, that call:
    - K1, the trunk forward, at full GeeseNet width (Cin=17, F=32, L=12,
      8 groups) on real Hungry Geese observations, N in {1, 8, 64, 100,
-     256, 2048}, its convs on the tensor cores in 3xTF32 (bounds over the TF32
-     peak), timed with CUDA events back to back (the kernels line's ms) and
+     128, 256, 1024, 2048}, its convs on the tensor cores in 3xTF32 (bounds
+     over the TF32 peak), timed with CUDA events back to back (the kernels line's ms) and
      by torch.profiler's device time, which leaves the wrapper's host cost
-     out (256 is the learner's generation bucket: 64 envs of four geese);
+     out (256 is the learners' generation bucket: 64 envs of four geese;
+     128 the fused loop's evaluation ply, 32 envs of four geese; 1024 the
+     fused loop's update step, B=64 x T=16);
      the library yardstick is the port's own ``torus_impl='pad'``
      trunk (cuDNN convs and torch's group_norm, which the kernel path never
-     calls). At N in {8, 2048} also its training form, timed beside the
+     calls). At N in {8, 1024, 2048} also its training form, timed beside the
      serving form: the saved block inputs and normalised conv outputs
      (xhat, abs) and per-group rstd (relative) against the plain training
      forward's;
-   - K2, the trunk backward, at the same width for N in {8, 64, 2048},
+   - K2, the trunk backward, at the same width for N in {8, 64, 1024, 2048},
      from K1's training forward, every grad against the plain version's
      relative to the grad's largest element; the yardstick is torch
      autograd's backward through the 'pad' trunk. Its two phases (K2a,
@@ -40,10 +42,11 @@ non-zero, printing no result, when either is missing or any phase fails.
    - K1 and K2 at the other width they are built for, F=16 (2 blocks,
      N=64), for correctness only, K1's saved tensors included;
    - K3-K5, the TD(lambda), UPGO and V-Trace recursions, at T in {1, 16},
-     P in {1, 4} and N lanes (N = B*P) in {16, 100, 128, 2048}, with
+     P in {1, 4} and N lanes (N = B*P) in {16, 64, 100, 128, 2048}, with
      one-row returns (the outcome, whose bootstrap row the kernels read in
      place): (T=16, P=1, N=128) is the headline step's and the row the
-     kernels line reports, 16 the in-process steps', 100 a ragged edge;
+     kernels line reports, 16 the in-process steps', 64 the fused loop's
+     (B=64, T=16, P=1), 100 a ragged edge;
      each timed by CUDA-graph replay (device time) and through its
      wrapper; no single PyTorch call computes a recursion, so they have no
      yardstick.
@@ -90,9 +93,36 @@ non-zero, printing no result, when either is missing or any phase fails.
    included). Then loads ``latest.ckpt`` on the card and on the CPU and
    holds the card's forward to the CPU's on real boards (POLICY_TOL), and
    prints the learner's rates beside the bench's graphed step.
-6. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
-   and K2b take their launches from K2's count, one of each a call), the
-   nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
+6. The fused device loop, through the same entry point with no --device
+   (the card is the default): the JAX package's north-star configuration
+   (full-width GeeseNet, B=64, T=16, VTRACE/VTRACE, 64 generation envs,
+   32-ply chunks, 32 eval envs, 64 SGD steps a chunk, 200 episodes before
+   the first epoch and 100 an epoch, every epoch's checkpoint written),
+   FUSED_EPOCHS epochs (60-120 s). Fails unless it exits 0 having run the
+   fused pipeline in solo mode and closed every epoch, wrote every
+   checkpoint with its CRC sidecar, took steps = fused dispatches x 64,
+   launched K1 under 'generation' and 'evaluation' (serving form) and K1,
+   K2 and K5 under 'training' once a step (no warm-up steps: a graph's
+   first call runs eagerly, as a real step), moved every leaf from
+   ``1.ckpt`` to the last, and ``latest.ckpt``'s forward on the card
+   matches the CPU's (POLICY_TOL). Then, in this process: the env twin's
+   step, auto-reset, observation, greedy agent and outcome on the card
+   against the CPU on the same state, actions and uniforms (equal
+   exactly); the ingest of two chunks' card records with the same draws
+   into a ring they wrap (equal exactly); three steps of the K-step update
+   graph (eager, captured, replayed) against the CPU's step from the same
+   state on the slots the card drew (phase 4's tolerances), and two
+   replays drawing different slots; two replays of the rollout graph
+   drawing different actions; one steady fused dispatch under
+   torch.profiler (device busy time, idle share, top kernels, and K1, K2a,
+   K2b and K5 as often as its graphs hold them). Prints the loop's rates
+   beside phase 5's host learner, and its host seconds by stage, the
+   epoch close split into the wait for the in-flight dispatch before a
+   checkpoint and the checkpoint's copies and files.
+7. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
+   and K2b take their launches from K2's count, one of each a call; the
+   fused loop's under ``learner_fused_*``), the nvidia-smi line, and as
+   the last line ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -107,12 +137,12 @@ import time
 
 SEED = 20261016
 WIDTH = dict(cin=17, filters=32, layers=12, groups=8)
-KERNEL_NS = (1, 8, 64, 100, 256, 2048)
+KERNEL_NS = (1, 8, 64, 100, 128, 256, 1024, 2048)
 MAIN_PATH_N = 8          # four geese per ply, padded to the engine's bucket
 TRAIN_N = 2048           # B*T*P of the headline update step
-BWD_NS = (8, 64, 2048)
+BWD_NS = (8, 64, 1024, 2048)
 TARGET_TS, TARGET_PS = (1, 16), (1, 4)
-TARGET_NS = (16, 100, 128, 2048)   # lanes B*P
+TARGET_NS = (16, 64, 100, 128, 2048)   # lanes B*P
 TARGET_PATH = (16, 1, 128)  # (T, P, lanes) of the headline step's targets
 STEP_B = 16              # the in-process card-vs-CPU update step
 # Tolerances, fp32 throughout with TF32 off: the kernel, the plain version
@@ -162,7 +192,8 @@ PEAK_SOURCE = 'H100 SXM data sheet at 700 W'
 # K1's saved normalised conv outputs (abs, as the trunk's output) and
 # per-group rstd (relative: rstd is 1/std of conv outputs of any size)
 RSTD_RTOL = 1e-4
-SAVED_NS = (8, 2048)     # the serving bucket and the update step's rows
+SAVED_NS = (8, 1024, 2048)  # the serving bucket, the fused loop's and the
+                            # update step's rows
 
 
 def fail(msg):
@@ -1003,10 +1034,12 @@ def card_steps(torch, device, policy_target, value_target, obs, lrs,
     return before, after
 
 
-def check_against_cpu(label, old, card, cpu):
+def check_against_cpu(label, old, card, cpu, lr=None):
     """One update step on the card (``card``, from params ``old``) against
-    the same step on the CPU, under the STEP_* tolerances."""
+    the same step on the CPU, under the STEP_* tolerances (the params' at
+    2 lr; lr defaults to the bench's)."""
     from handyrl_tpu_torch.bench import LR
+    LR = LR if lr is None else lr
     m, cm = card['metrics'], cpu['metrics']
     new, cpu_new, mu, cpu_mu = (card['params'], cpu['params'], card['mu'],
                                 cpu['mu'])
@@ -1391,6 +1424,466 @@ def phase_learner(torch, repo, make_env, bench_line):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------- phase 6: fused loop
+
+# the fused device loop at the JAX package's north-star configuration
+# (scripts/run_north_star.py:36-50): full-width GeeseNet, B=64, T=16,
+# VTRACE/VTRACE, 64 generation envs, 32-ply chunks, 32 eval envs, 64 SGD
+# steps a chunk; 200 episodes before the first epoch and 100 an epoch,
+# every epoch's checkpoint written
+FUSED_EPOCHS = 170
+FUSED_K = 64
+FUSED_CONFIG = {
+    'env_args': {'env': 'HungryGeese', 'torus_impl': 'pallas'},
+    'train_args': {
+        'turn_based_training': False, 'observation': True, 'gamma': 0.99,
+        'forward_steps': 16, 'batch_size': 64,
+        'policy_target': 'VTRACE', 'value_target': 'VTRACE',
+        'generation_envs': 64, 'device_generation': True,
+        'device_replay': True, 'device_chunk_steps': 32, 'eval_envs': 32,
+        'sgd_steps_per_chunk': FUSED_K, 'minimum_episodes': 200,
+        'update_episodes': 100, 'epochs': FUSED_EPOCHS,
+        'checkpoint_interval': 1, 'eval': {'opponent': ['random']},
+        'seed': SEED},
+}
+FUSED_PATHS = {'generation': ('geese_trunk',),
+               'evaluation': ('geese_trunk',),
+               'training': ('geese_trunk', 'geese_trunk_bwd', 'vtrace')}
+FUSED_PROFILED = {'trunk_fwd_kernel': 'chunk + K', 'trunk_bwd_kernel': 'K',
+                  'trunk_wgrad_kernel': 'K', 'vtrace_kernel': 'K'}
+INGEST_PLIES = 64        # the card-vs-CPU ingest: two chunks' plies
+INGEST_CAPACITY = 32     # into a ring that they wrap
+
+
+def run_fused_entry(repo, tmp):
+    """``python -m handyrl_tpu_torch.train --config ...`` (no --device: the
+    card is the default) on FUSED_CONFIG: its JSON line and its wall."""
+    cfg = json.loads(json.dumps(FUSED_CONFIG))
+    cfg['train_args']['model_dir'] = os.path.join(tmp, 'models')
+    path = os.path.join(tmp, 'fused.json')
+    with open(path, 'w') as f:
+        json.dump(cfg, f)
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(
+            [sys.executable, '-m', 'handyrl_tpu_torch.train', '--config',
+             path], cwd=repo, capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired as exc:
+        fail('the fused learner did not finish within 600 s:\n%s' % (
+            (exc.stderr or b'')[-4000:]))
+    wall = time.monotonic() - t0
+    out = proc.stdout.splitlines()
+    if 'fused device pipeline' not in proc.stdout or \
+            '(solo mode)' not in proc.stdout:
+        fail('the learner did not run the fused device pipeline:\n%s'
+             % proc.stdout[-2000:])
+    epochs = [i for i, l in enumerate(out) if l.startswith('epoch ')]
+    for i in epochs[:2] + epochs[-2:]:
+        for line in out[i:i + 5]:
+            if line.startswith(('epoch', 'win rate', 'generation stats',
+                                'loss', 'updated model')):
+                log('  fused: %s' % line)
+    if proc.returncode != 0:
+        fail('the fused learner exited %d:\n%s' % (proc.returncode,
+                                                   proc.stderr[-4000:]))
+    lines = [l for l in out if l.startswith('{')]
+    if len(lines) != 1:
+        fail('the fused learner printed %d JSON lines' % len(lines))
+    return json.loads(lines[0]), wall
+
+
+def fused_env_checks(torch):
+    """The env twin's step, observe, greedy agent and auto-reset on the card
+    against the CPU, on a state reached by 40 random plies of 64 games,
+    with the same actions and uniforms: equal exactly, every field."""
+    from handyrl_tpu_torch.envs import torch_hungry_geese as tg
+    gen = torch.Generator().manual_seed(SEED + 11)
+    state = tg.init_state(64, generator=gen)
+    for _ in range(40):
+        acts = torch.randint(0, 4, (64, 4), generator=gen)
+        state = tg.step(state, acts, generator=gen)
+        state = tg.auto_reset(state, tg.terminal(state), generator=gen)
+    acts = torch.randint(0, 4, (64, 4), generator=gen)
+    u_food = torch.rand((64, tg.N_FOOD), generator=gen)
+    u_greedy = torch.rand((64, 4), generator=gen)
+    u_reset = torch.rand((64, tg.N_CELLS), generator=gen)
+
+    def run(dev):
+        st = tg.State(*[t.to(dev) for t in state])
+        nxt = tg.step(st, acts.to(dev), u=u_food.to(dev))
+        out = {'step.' + k: v for k, v in nxt._asdict().items()}
+        done = tg.terminal(nxt)
+        reset = tg.auto_reset(nxt, done, u=u_reset.to(dev))
+        out.update({'reset.' + k: v for k, v in reset._asdict().items()})
+        out['observe'] = tg.observe(st)
+        out['greedy'] = tg.greedy_action(st, u=u_greedy.to(dev))
+        out['outcome'] = tg.outcome(nxt)
+        out['terminal'] = done
+        return {k: v.cpu() for k, v in out.items()}
+
+    card, cpu = run('cuda'), run('cpu')
+    bad = [k for k in cpu if not torch.equal(card[k], cpu[k])]
+    log('fused: env step/auto_reset/observe/greedy_action/outcome on the '
+        'card vs the CPU, 64 games after 40 plies: %d fields, unequal %s'
+        % (len(cpu), bad))
+    if bad:
+        fail('the env twin computes other values on the card than on the '
+             'CPU in %s' % bad)
+
+
+def fused_setup(torch, capacity=None):
+    """An in-process fused pipeline at FUSED_CONFIG's widths on the card:
+    (pipeline, update step, env module, args)."""
+    from handyrl_tpu_torch.config import apply_defaults
+    from handyrl_tpu_torch.envs import torch_hungry_geese as tg
+    from handyrl_tpu_torch.models.geese import GeeseNet
+    from handyrl_tpu_torch.ops.device_windows import DeviceWindower
+    from handyrl_tpu_torch.ops.fused_pipeline import FusedPipeline
+    from handyrl_tpu_torch.ops.replay import ring_capacity, \
+        windows_per_episode
+    from handyrl_tpu_torch.ops.train_step import ReplayUpdateStep, \
+        init_train_state
+    from handyrl_tpu_torch.train import loss_config
+    args = apply_defaults(FUSED_CONFIG)['train_args']
+    net = GeeseNet(torus_impl='pallas',
+                   generator=torch.Generator().manual_seed(SEED)).cuda()
+    actor = GeeseNet(torus_impl='pallas').cuda()
+    actor.load_state_dict(net.state_dict())
+    step = ReplayUpdateStep(net, loss_config(args), init_train_state(net))
+    windower = DeviceWindower(
+        'solo', args['forward_steps'], 0, tg.MAX_STEPS,
+        windows_per_episode(args), capacity or ring_capacity(args), 4,
+        args['gamma'], False)
+    fp = FusedPipeline(tg, actor, step, windower, args['generation_envs'],
+                       args['device_chunk_steps'], FUSED_K,
+                       args['batch_size'], seed=SEED)
+    return fp, step, tg, args
+
+
+def fused_ingest_and_step_checks(torch, fp, tg, args):
+    """Records of INGEST_PLIES plies on the card, ingested on the card and
+    on the CPU with the same draws into a ring of INGEST_CAPACITY rows: history, counts,
+    ring rows, cursor and size equal exactly. Then three steps of the
+    card's step graph (its first eager, then a capture and a replay) on
+    that ring, each held against the CPU's step from the card's state with
+    the slots the card drew, under phase 4's tolerances; the slots of two
+    replays must differ."""
+    from handyrl_tpu_torch.ops.device_windows import DeviceWindower
+    from handyrl_tpu_torch.ops.train_step import ReplayUpdateStep, \
+        TrainState, AdamState
+    from handyrl_tpu_torch.models.geese import GeeseNet
+    from handyrl_tpu_torch.train import loss_config
+    state = tg.State(*[t.clone() for t in fp.state])
+    _, records = fp._rollout(state, INGEST_PLIES,
+                             torch.Generator('cuda').manual_seed(SEED + 3))
+    K, N = records['done'].shape
+    W = fp.windower.W
+    gen = torch.Generator().manual_seed(SEED + 12)
+    draws = {'u': torch.rand((K, N, W), generator=gen),
+             'seat': torch.randint(0, 4, (K, N, W), generator=gen)}
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        wd = DeviceWindower('solo', args['forward_steps'], 0, tg.MAX_STEPS,
+                            W, INGEST_CAPACITY, 4, args['gamma'], False)
+        rec = {k: v.to(dev) for k, v in records.items()}
+        ws = wd.init_state(rec)
+        ring = wd.init_ring(rec)
+        cursor = torch.zeros((), dtype=torch.int64, device=dev)
+        size = torch.zeros((), dtype=torch.int64, device=dev)
+        n_done, n_win = wd.ingest(rec, ws, ring, cursor, size,
+                                  draws={k: v.to(dev)
+                                         for k, v in draws.items()})
+        out[dev] = dict(ring=ring, cursor=cursor, size=size, ws=ws,
+                        n_done=int(n_done), n_win=int(n_win), wd=wd)
+    c, h = out['cuda'], out['cpu']
+    bad = [k for k in h['ring'] if not torch.equal(
+        c['ring'][k][:INGEST_CAPACITY].cpu(), h['ring'][k][:INGEST_CAPACITY])]
+    bad += [k for k in h['ws']['hist'] if not torch.equal(
+        c['ws']['hist'][k].cpu(), h['ws']['hist'][k])]
+    for k in ('cursor', 'size'):
+        if int(c[k]) != int(h[k]):
+            bad.append(k)
+    if not torch.equal(c['ws']['counts'].cpu(), h['ws']['counts']):
+        bad.append('counts')
+    log('fused: ingest of %d plies of %d envs on the card vs the CPU: '
+        '%d episodes, %d windows into %d rows (cursor %d, size %d); unequal '
+        '%s' % (K, N, h['n_done'], h['n_win'], INGEST_CAPACITY,
+                int(h['cursor']), int(h['size']), bad))
+    if bad or (c['n_done'], c['n_win']) != (h['n_done'], h['n_win']):
+        fail('the ingest on the card differs from the CPU\'s in %s' % bad)
+    if h['n_win'] <= INGEST_CAPACITY:
+        fail('the ingest check\'s ring did not wrap')
+
+    cfg = loss_config(args)
+    net = GeeseNet(torus_impl='pallas',
+                   generator=torch.Generator().manual_seed(SEED + 1))
+    from handyrl_tpu_torch.ops.train_step import init_train_state
+    card = ReplayUpdateStep(net.cuda(), cfg, init_train_state(net.cuda()))
+    host_net = GeeseNet(torus_impl='pallas')
+    host = ReplayUpdateStep(host_net, cfg, init_train_state(host_net))
+    card.bind(c['ring'], c['wd'].window_spec, c['size'], c['cursor'],
+              INGEST_CAPACITY, args['batch_size'],
+              torch.Generator('cuda').manual_seed(SEED + 4))
+    host.bind(h['ring'], h['wd'].window_spec, h['size'], h['cursor'],
+              INGEST_CAPACITY, args['batch_size'], None)
+    ema = float(args['batch_size'] * args['forward_steps'])
+    lr = 3e-8 * ema
+
+    def snap(st, metrics=None):
+        return {'params': {k: v.detach().cpu().clone()
+                           for k, v in st.state.params.items()},
+                'mu': {k: v.cpu().clone()
+                       for k, v in st.state.opt_state.mu.items()},
+                'state': TrainState(
+                    params={k: v.detach().cpu().clone()
+                            for k, v in st.state.params.items()},
+                    opt_state=AdamState(
+                        count=st.state.opt_state.count.cpu().clone(),
+                        mu={k: v.cpu().clone()
+                            for k, v in st.state.opt_state.mu.items()},
+                        nu={k: v.cpu().clone()
+                            for k, v in st.state.opt_state.nu.items()}),
+                    steps=st.state.steps.cpu().clone()),
+                'metrics': metrics}
+
+    slots_seen = []
+    for i in range(3):
+        before = snap(card)
+        m = card.unpack(card.run(1, ema))
+        torch.cuda.synchronize()
+        slots = card.last_slots.cpu().clone()
+        slots_seen.append(slots)
+        host.load_state(before['state'])
+        hm = host.unpack(host.run(1, ema, slots=slots[None]))
+        after = snap(card, {k: float(v) for k, v in m.items()})
+        cpu_after = snap(host, {k: float(v) for k, v in hm.items()})
+        check_against_cpu('fused K-step update, step %d (%s)' % (
+            i + 1, ('eager', 'captured and replayed', 'replayed')[i]),
+            before['params'], after, cpu_after, lr=lr)
+    if torch.equal(slots_seen[1], slots_seen[2]):
+        fail('two replays of the step graph drew the same slots')
+    log('fused: the step graph\'s replays drew different slots (%d of %d '
+        'differ)' % (int((slots_seen[1] != slots_seen[2]).sum()),
+                     slots_seen[1].numel()))
+
+
+def fused_profile(torch, fp, args):
+    """Replays of the chunk graph draw new actions; then one steady fused
+    dispatch (chunk + ingest + K steps, graphs captured already) under
+    torch.profiler: its device busy time, the host-clock dispatch, the
+    idle share and the top kernels; each kernel of FUSED_PROFILED in the
+    device rows as often as the dispatch launches it (of a second window
+    when the first lost a record)."""
+    for _ in range(2):   # the chunk graph: eager, then captured + replayed
+        fp.warm_step()
+    # two more warm-up dispatches: two replays of one graph
+    fp.warm_step()
+    a1 = fp._chunk._out['action'].clone()
+    fp.warm_step()
+    a2 = fp._chunk._out['action'].clone()
+    differ = int((a1 != a2).sum())
+    log('fused: two replays of the rollout graph: %d of %d actions differ'
+        % (differ, a1.numel()))
+    if differ == 0:
+        fail('two replays of the rollout graph drew the same actions')
+    ema = float(args['batch_size'] * args['forward_steps'])
+    for _ in range(3):   # the step graph: eager, capture, replay
+        fp.train_step(ema)
+    torch.cuda.synchronize()
+    # the two parts of a dispatch apart, by CUDA events over 3 calls each
+    parts = {}
+    for name, fn in (('chunk', fp._chunk),
+                     ('steps', lambda: fp.update_step.run(FUSED_K, ema))):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        parts[name] = start.elapsed_time(end) / 3
+    log('fused: the chunk graph (%d plies of %d envs and their ingest) %.3f '
+        'ms a call; %d replays of the step graph %.3f ms (%.4f ms a step); '
+        'CUDA events' % (args['device_chunk_steps'], args['generation_envs'],
+                         parts['chunk'], FUSED_K, parts['steps'],
+                         parts['steps'] / FUSED_K))
+    result = fused_profile_window(torch, fp, args, ema)
+    if result is None:
+        # a window can lose records, as phase 4's profile_step found: one of
+        # three steady dispatches profiled on an H100 listed K2a and K2b 63
+        # times in 64 steps. A second window must show every launch.
+        log('fused profile: a second window')
+        result = fused_profile_window(torch, fp, args, ema)
+    if result is None:
+        fail('the profiled fused dispatch did not launch the kernels as '
+             'often as its graphs hold them, in two windows')
+    result.update(chunk_ms=parts['chunk'], steps_ms=parts['steps'])
+    return result
+
+
+def fused_profile_window(torch, fp, args, ema):
+    """One steady fused dispatch under torch.profiler: the summary, or None
+    when a kernel of the dispatch is not in the device rows as often as its
+    graphs launch it."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fp.train_step(ema)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    if not events:
+        fail('fused profile: the profiler shows no kernel on the card')
+    rows = sorted(((device_us(e) / 1e3, e.count, e.key) for e in events),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    log('fused profile: one steady dispatch (%d plies of %d envs, ingest, %d '
+        'SGD steps at B=%d): %.3f ms on the host clock (profiled), device '
+        'busy %.3f ms (%.1f%%, idle %.1f%%), %d kernel launches of %d '
+        'kernels' % (args['device_chunk_steps'], args['generation_envs'],
+                     FUSED_K, args['batch_size'], wall_ms, busy,
+                     100 * busy / wall_ms, 100 - 100 * busy / wall_ms,
+                     sum(r[1] for r in rows), len(rows)))
+    for ms, count, key in rows[:12]:
+        log('  %9.4f ms  %6d launches  %s' % (ms, count, key[:90]))
+    want = {'trunk_fwd_kernel': args['device_chunk_steps'] + FUSED_K,
+            'trunk_bwd_kernel': FUSED_K, 'trunk_wgrad_kernel': FUSED_K,
+            'vtrace_kernel': FUSED_K}
+    counts = {name: sum(e.count for e in events
+                        if re.search(r'\b%s[<(]' % name, e.key))
+              for name in want}
+    log('fused profile: launches in the dispatch %s (expected %s)'
+        % (counts, want))
+    if counts != want:
+        return None
+    return {'dispatch_ms_profiled': wall_ms, 'device_busy_ms': busy,
+            'idle_share': 1 - busy / wall_ms,
+            'launches': sum(r[1] for r in rows), 'kernels': len(rows),
+            'launches_in_dispatch': counts,
+            'top': [{'kernel': k[:120], 'ms': ms, 'launches': c}
+                    for ms, c, k in rows[:12]]}
+
+
+def phase_fused(torch, repo, make_env, learner_line):
+    import math
+    import numpy as np
+    from handyrl_tpu_torch.evaluation import load_model
+    from handyrl_tpu_torch.model import param_trees
+    from handyrl_tpu_torch.utils import flax_msgpack
+    from handyrl_tpu_torch.utils.fs import verify_checkpoint
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_fused_')
+    try:
+        line, wall = run_fused_entry(repo, tmp)
+        models = os.path.join(tmp, 'models')
+        if line['epochs'] != FUSED_EPOCHS or line['failed']:
+            fail('the fused learner trained %s epochs' % line['epochs'])
+        secs = sorted(line['epoch_seconds'])
+        log('fused: %s; epoch_seconds of %d epochs: min %.3f, median %.3f, '
+            'max %.3f, sum %.2f' % (
+                json.dumps({k: v for k, v in line.items()
+                            if k not in ('epoch_seconds', 'epoch_steps')}),
+                len(secs), secs[0], secs[len(secs) // 2], secs[-1],
+                sum(secs)))
+        loop = line['loop_seconds']
+        log('fused: the loop\'s host seconds: dispatch %.3f, fetch %.3f, '
+            'evaluation %.3f, epoch close %.3f, of which the wait for the '
+            'in-flight dispatch before a checkpoint %.3f and the checkpoint\'s '
+            'copies and files %.3f' % (
+                loop['dispatch'], loop['fetch'], loop['evaluation'],
+                loop['epoch_close'], loop['checkpoint_wait'],
+                loop['checkpoint_write']))
+        steps = line['steps_at_exit']
+        if steps != line['fused_dispatches'] * FUSED_K or steps <= 0:
+            fail('the fused learner took %d steps in %d fused dispatches of '
+                 '%d' % (steps, line['fused_dispatches'], FUSED_K))
+        names = ['%d.ckpt' % e for e in range(1, FUSED_EPOCHS + 1)] + [
+            'latest.ckpt', 'trainer_state.ckpt']
+        for name in names:
+            ok, reason = verify_checkpoint(os.path.join(models, name))
+            if not ok or reason != 'ok':
+                fail('fused checkpoint %s: %s' % (name, reason))
+        if not (line['losses'] and all(math.isfinite(v)
+                                       for v in line['losses'].values())):
+            fail('the fused learner reports non-finite losses: %s'
+                 % line['losses'])
+        by_path = line['kernel_launches']
+        for path, kernels in FUSED_PATHS.items():
+            for k in kernels:
+                if not by_path.get(path, {}).get(k, 0) > 0:
+                    fail('the fused loop\'s %s never launched %s' % (path, k))
+        train = by_path['training']
+        for k in FUSED_PATHS['training']:
+            if train[k] != steps:
+                fail('the fused loop\'s training launched %s %d times in %d '
+                     'steps' % (k, train[k], steps))
+        if any(by_path.get(p, {}).get(k, 0)
+               for p in ('generation', 'evaluation')
+               for k in ('geese_trunk_bwd', 'td_lambda', 'upgo', 'vtrace')):
+            fail('the fused loop\'s generation or evaluation launched a '
+                 'training kernel')
+        log('fused: %d steps in %d fused dispatches (+ %d warm-up), kernel '
+            'launches by path %s' % (steps, line['fused_dispatches'],
+                                     line['warm_dispatches'], by_path))
+
+        env = make_env(FUSED_CONFIG['env_args'])
+        _, from_flax = param_trees(env.net())
+
+        def params(name):
+            with open(os.path.join(models, name), 'rb') as f:
+                return from_flax(flax_msgpack.from_bytes(f.read()))
+        first, last = params('1.ckpt'), params('%d.ckpt' % FUSED_EPOCHS)
+        moved = {k: (last[k] - first[k]).abs().max().item() for k in first}
+        log('fused: params max abs change from 1.ckpt to %d.ckpt by leaf: %s'
+            % (FUSED_EPOCHS, ', '.join('%s %.3g' % kv
+                                       for kv in moved.items())))
+        still = [k for k, v in moved.items() if not v > 0]
+        if still:
+            fail('the fused loop did not move %s' % still)
+        obs = np.stack(game_observations(make_env, 64, SEED + 6))
+        card = load_model(os.path.join(models, 'latest.ckpt'), env, 'cuda')
+        cpu = load_model(os.path.join(models, 'latest.ckpt'), env, 'cpu')
+        got, want = card.batch_inference(obs), cpu.batch_inference(obs)
+        err = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+        log('fused: latest.ckpt forward on the card vs the CPU over %d real '
+            'boards: max abs err %s (tol %.0e)' % (len(obs), err,
+                                                   POLICY_TOL))
+        if not all(np.isfinite(got[k]).all() for k in got) or \
+                max(err.values()) > POLICY_TOL:
+            fail('the fused loop\'s checkpoint computes other outputs on the '
+                 'card than on the CPU')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    fused_env_checks(torch)
+    fp, _, tg, args = fused_setup(torch)
+    fused_ingest_and_step_checks(torch, fp, tg, args)
+    profile = fused_profile(torch, fp, args)
+    fp.release()
+    del fp
+    torch.cuda.empty_cache()
+    log('fused vs the host learner (phase 5), same card (%s): %.1f vs %.1f '
+        'episodes/s, %.2f vs %.2f SGD steps/s, %.1f vs %.1f trajectories/s '
+        '(B=64 vs 128), peak memory %.1f vs %.1f MiB; fused: %d epochs in '
+        '%.1f s of process wall, sample reuse %.2f, %d windows ingested '
+        '(ring %d of %d), dispatch %.2f s and fetch %.2f s on the host; a '
+        'steady dispatch %.3f ms, device busy %.3f ms, idle %.1f%%' % (
+            nvidia_smi_line(), line['episodes_per_s'],
+            learner_line['episodes_per_s'], line['sgd_steps_per_s'],
+            learner_line['update_steps_per_s'], line['trajectories_per_s'],
+            learner_line['trajectories_per_s'], line['peak_memory_mib'],
+            learner_line['peak_memory_mib'], line['epochs'], wall,
+            line['sample_reuse'], line['windows_ingested'],
+            line['ring_size'], line['ring_capacity'],
+            line['dispatch_seconds'], line['fetch_seconds'],
+            profile['dispatch_ms_profiled'], profile['device_busy_ms'],
+            100 * profile['idle_share']))
+    return {'line': line, 'profile': profile, 'wall': wall}
+
+
 def main():
     try:
         import torch
@@ -1431,6 +1924,9 @@ def main():
     log('== phase 5: main path (the local learner)')
     learner = phase_learner(torch, repo, make_env, train['bench'])
 
+    log('== phase 6: main path (the fused device loop)')
+    fused = phase_fused(torch, repo, make_env, learner)
+
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -1438,6 +1934,8 @@ def main():
     paths = dict(train['paths'], serving=launches)
     for name, counts in learner['kernel_launches'].items():
         paths['learner_' + name] = counts
+    for name, counts in fused['line']['kernel_launches'].items():
+        paths['learner_fused_' + name] = counts
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from

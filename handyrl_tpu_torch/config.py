@@ -7,9 +7,11 @@ Differences from the JAX package: the inference engine runs on the device
 given to the service (``--device``, default 'cuda'), so
 ``inference.engine_backend`` does not exist here, and the fleet, gateway,
 metrics-exporter and alert knobs wait for their modules. The learner's
-``TRAIN_DEFAULTS`` hold the knobs of the local batched learner only, and
+``TRAIN_DEFAULTS`` hold the knobs of the local learner and of the fused
+device loop, and
 :func:`validate` raises for anything this port does not run yet (device
-generation and replay, batcher processes, streaming, the league, mesh
+generation without the fused loop, the threaded replay trainer, turn-based
+device training, batcher processes, streaming, the league, mesh
 parallelism, the worker plane, recurrent nets, BatchNorm, envs other than
 Hungry Geese) instead of ignoring it.
 """
@@ -76,6 +78,17 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
     'generation_envs': 64,        # env count of the batched generator
     'eval_envs': None,            # concurrent online-eval matches; None = max(4, generation_envs // 8)
     'model_dir': 'models',        # checkpoint directory
+    # the fused device loop (device_generation.py, ops/fused_pipeline.py):
+    # both switches on, with fused_pipeline and device_ingest at True
+    'device_generation': False,   # rollouts on the device (envs with a tensor twin)
+    'device_replay': False,       # the replay ring on the device; batches sampled there
+    'device_chunk_steps': 16,     # plies of a rollout chunk (one dispatch)
+    'device_eval': True,          # evaluation matches on the device when every opponent is 'random' or 'rulebase'
+    'device_ingest': True,        # training windows assembled on the device
+    'replay_windows_per_episode': None,  # windows an episode contributes (and the ring's budget per episode); None = max(1, 64 // forward_steps)
+    'fused_pipeline': True,       # one dispatch = rollout chunk + ingest + K SGD steps
+    'sgd_steps_per_chunk': None,  # SGD steps a fused dispatch (pins the replay ratio); None = 16
+    'checkpoint_interval': 1,     # fused loop: write checkpoint files every N epochs (and at the last)
     'guard': {
         'nonfinite_policy': 'rollback',  # 'skip', 'rollback' (after rollback_after consecutive bad updates or a loss-spike trip) or 'abort'
         'rollback_after': 8,
@@ -95,8 +108,6 @@ WORKER_DEFAULTS: Dict[str, Any] = {
 # train_args knobs of the JAX package that select what the port does not run
 # yet, with the one value of each that it does run (their JAX defaults)
 NOT_PORTED: Dict[str, Any] = {
-    'device_generation': False,
-    'device_replay': False,
     'batcher_processes': False,
     'batcher_shared_memory': False,
 }
@@ -188,6 +199,7 @@ def validate(args: Dict[str, Any]) -> None:
     _require(ta['batched_generation'] is True,
              'train_args.batched_generation False: the worker-cluster '
              'generation %s' % pending)
+    _validate_device_path(ta, pending)
     _require(ta['burn_in_steps'] == 0,
              'train_args.burn_in_steps %r: burn-in (the recurrent loss '
              'path) %s' % (ta['burn_in_steps'], pending))
@@ -215,3 +227,34 @@ def validate(args: Dict[str, Any]) -> None:
              '>= 1')
     _require(float(g['loss_spike_zscore']) >= 0,
              'guard.loss_spike_zscore must be >= 0 (0 disables the trip)')
+
+
+def _validate_device_path(ta: Dict[str, Any], pending: str) -> None:
+    """The device path runs as the fused loop in solo layout only: both
+    switches, ``fused_pipeline`` and ``device_ingest`` on, simultaneous
+    training (HungryGeese is checked for every config)."""
+    gen, replay = bool(ta['device_generation']), bool(ta['device_replay'])
+    _require(gen or not replay,
+             'train_args.device_replay without device_generation: the '
+             'threaded replay trainer (DeviceReplay.push/sample) %s' % pending)
+    _require(replay or not gen,
+             'train_args.device_generation without device_replay: the split '
+             'device pipeline (DeviceGenerator) %s' % pending)
+    if not gen:
+        return
+    _require(bool(ta['fused_pipeline']),
+             'train_args.fused_pipeline false: the threaded replay trainer '
+             '%s' % pending)
+    _require(bool(ta['device_ingest']),
+             'train_args.device_ingest false: host-built windows pushed to '
+             'the device ring (DeviceReplay.push) %s' % pending)
+    _require(not ta['turn_based_training'],
+             "train_args.turn_based_training true on the device path: the "
+             "'turn' ingest layout and the turn-based device envs %s"
+             % pending)
+    for key in ('device_chunk_steps', 'checkpoint_interval'):
+        _require(int(ta[key]) >= 1, '%s must be >= 1' % key)
+    for key in ('sgd_steps_per_chunk', 'replay_windows_per_episode',
+                'eval_envs'):
+        _require(ta[key] is None or int(ta[key]) >= 1,
+                 '%s must be None or >= 1' % key)

@@ -17,6 +17,22 @@ ENVS = {
 }
 
 
+# tensor twins: envs as batched torch functions for the device-resident
+# loop (device_generation.py), the JAX package's JAX_ENVS
+DEVICE_ENVS = {
+    'HungryGeese': 'handyrl_tpu_torch.envs.torch_hungry_geese',
+}
+
+
+def make_device_env(env_args: Dict[str, Any]):
+    """The tensor twin module of an env (the JAX package's
+    ``make_jax_env``); raises for an env that has none."""
+    name = env_args['env']
+    if name not in DEVICE_ENVS:
+        raise ValueError('env %r has no device twin in the port' % (name,))
+    return importlib.import_module(DEVICE_ENVS[name])
+
+
 def _resolve_module(env_args: Dict[str, Any]):
     name = env_args['env']
     return importlib.import_module(ENVS.get(name, name))

@@ -285,6 +285,9 @@ class BatchedEvaluator:
     trained model's, one ``batch_inference`` call per model per step."""
 
     MAIN = ''   # pool key of the trained model under evaluation
+    # one ply of every match a step, its results read in the same call
+    pipelined = False
+    chunk_steps = 1
 
     def __init__(self, make_env_fn, wrapper, args: Dict[str, Any],
                  n_envs: int = 16):

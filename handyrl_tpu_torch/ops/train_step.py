@@ -22,13 +22,13 @@ the device, with no host sync.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
-from . import launches
+from .graphs import CapturedCall, CountedGraph
 from .losses import LossConfig, compute_loss
 
 Tensor = torch.Tensor
@@ -270,17 +270,11 @@ class GraphedUpdateStep(StaticUpdateStep):
     is no eager fallback (:func:`build_update_step` is the step for the
     CPU).
 
-    The kernels' wrappers count their launches while the graph is
-    captured, never when it is replayed. So the count each wrapper took
-    during the capture, on the capturing thread's launch path, is taken
-    back and kept as the graph's launches per replay, and added to the
-    replaying thread's path on every replay: bookkeeping, which keeps
-    ``kernel_launches()`` a count of kernels run. That replays run them is shown by the profiler
-    (chip_smoke.py's training phase).
-
-    The capture holds ``launches.capture_lock``, which every forward on
-    the card outside a graph holds too (``ModelWrapper.batch_inference``),
-    so no other thread launches or synchronises while it runs."""
+    Each graph is an ``ops.graphs.CountedGraph``: its warm-up and capture
+    hold ``launches.capture_lock``, and the launches its wrappers counted
+    during the capture are added again on every replay, so
+    ``kernel_launches()`` stays a count of kernels run. That replays run
+    them is shown by the profiler (chip_smoke.py's training phase)."""
 
     def __init__(self, module: torch.nn.Module, cfg: LossConfig,
                  state: TrainState):
@@ -292,31 +286,27 @@ class GraphedUpdateStep(StaticUpdateStep):
                              'build_update_step runs on the CPU'
                              % sorted(devices))
         super().__init__(module, cfg, state)
-        # signature -> (graph, its packed metrics, its launches a replay)
-        self._graphs: Dict[Tuple, Tuple[Any, Tensor, Dict[str, int]]] = {}
+        # signature -> its graph (its output, the packed metrics)
+        self._graphs: Dict[Tuple, CountedGraph] = {}
 
-    def _capture(self, key: Tuple):
-        with launches.capture_lock:
-            batch = self._batches[key]
+    def _capture(self, key: Tuple) -> CountedGraph:
+        batch = self._batches[key]
+        side = torch.cuda.Stream(self._device)
+
+        def warmup():
+            # eager steps on the side stream, then the state put back
+            cur = torch.cuda.current_stream(self._device)
             saved = [t.detach().clone() for t in self._buffers()]
-            side = torch.cuda.Stream(self._device)
-            side.wait_stream(torch.cuda.current_stream(self._device))
+            side.wait_stream(cur)
             with torch.cuda.stream(side):
                 for _ in range(GRAPH_WARMUP_STEPS):
                     self._body(batch)
-            torch.cuda.current_stream(self._device).wait_stream(side)
+            cur.wait_stream(side)
             with torch.no_grad():
                 for t, s in zip(self._buffers(), saved):
                     t.copy_(s)
-            path = launches.current_path()
-            before = launches.totals(path)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side):
-                packed = self._body(batch)
-            per_replay = {k: n - before[k]
-                          for k, n in launches.totals(path).items()}
-            launches.add({k: -n for k, n in per_replay.items()})
-        self._graphs[key] = (graph, packed, per_replay)
+        self._graphs[key] = CountedGraph(lambda: self._body(batch), side,
+                                         warmup=warmup)
         return self._graphs[key]
 
     def _buffers(self):
@@ -327,10 +317,100 @@ class GraphedUpdateStep(StaticUpdateStep):
     def __call__(self, batch: Dict[str, Any], lr: Tensor
                  ) -> Dict[str, Tensor]:
         key = self._load(batch, lr)
-        graph, packed, per_replay = (self._graphs.get(key)
-                                     or self._capture(key))
-        graph.replay()
-        launches.add(per_replay)
+        graph = self._graphs.get(key) or self._capture(key)
+        return self._unpack(graph.replay())
+
+
+class ReplayUpdateStep(StaticUpdateStep):
+    """K recency-sampled update steps from the device ring: the port of the
+    JAX package's ``build_replay_update`` (train_step.py:191-269 there).
+
+    Each step draws ``batch_size`` slots with ``ops.replay.recency_slots``
+    (uniforms from the bound generator, or given), gathers the batch from
+    the ring's flat rows (restoring each leaf's window shape), sets the
+    learning rate from the device step counter, lr = default_lr *
+    data_cnt_ema / (1 + steps * 1e-5), and runs :class:`StaticUpdateStep`'s
+    body on it. :meth:`run` returns the metrics summed over the K steps.
+
+    On a CUDA device one step (draw, gather, lr, body, the metrics' running
+    sum) is one CUDA graph, replayed K times a call; the first step ever
+    runs eagerly (``ops.graphs.CapturedCall``). On the CPU the same
+    step runs eagerly. Call :meth:`bind` before :meth:`run`."""
+
+    def __init__(self, module: torch.nn.Module, cfg: LossConfig,
+                 state: TrainState, default_lr: float = 3e-8):
+        super().__init__(module, cfg, state)
+        self.default_lr = float(default_lr)
+        dev = self._device
+        self._ema = torch.zeros((), dtype=torch.float32, device=dev)
+        self._sum = None
+        self._given = None
+        self._call = None
+        # the slots the last step drew (B,), rewritten by every step
+        self.last_slots: Optional[Tensor] = None
+
+    def bind(self, ring: Dict[str, Tensor], window_spec: Dict[str, Tuple],
+             size: Tensor, cursor: Tensor, capacity: int, batch_size: int,
+             generator: Optional[torch.Generator]) -> None:
+        """The ring (flat rows a leaf, read in place), its window shapes,
+        its 0-d size and cursor tensors (read in place), capacity, B and
+        the generator of the slots' uniforms."""
+        self._ring, self._spec = ring, window_spec
+        self._size, self._cursor = size, cursor
+        self.capacity, self.batch_size = int(capacity), int(batch_size)
+        self._generator = generator
+        self._call = CapturedCall(self._one, self._device,
+                                  [generator] if generator is not None
+                                  else [])
+
+    def gather(self, slots: Tensor) -> Dict[str, Tensor]:
+        """The batch of ring rows ``slots`` (B,), each leaf (B,) + its
+        window shape."""
+        return {k: rows[slots].reshape((slots.shape[0],) + self._spec[k][0])
+                for k, rows in self._ring.items()}
+
+    def _one(self) -> Tensor:
+        from .replay import recency_slots
+        if self._given is not None:
+            slots = self._given
+        else:
+            u = torch.rand((self.batch_size,), generator=self._generator,
+                           device=self._device)
+            slots = recency_slots(u, self._size, self._cursor, self.capacity)
+        batch = self.gather(slots)
+        with torch.no_grad():
+            if self.last_slots is None:   # the first step, which runs eagerly
+                self.last_slots = torch.empty_like(slots)
+            self.last_slots.copy_(slots)
+            self._lr.copy_(self._ema * self.default_lr
+                           / (1 + self._steps.float() * 1e-5))
+        packed = self._body(batch)
+        with torch.no_grad():
+            if self._sum is None:   # the first step, which runs eagerly
+                self._sum = torch.zeros_like(packed)
+            self._sum.add_(packed)
+        return packed
+
+    def run(self, num_steps: int, data_cnt_ema: float,
+            slots: Optional[Tensor] = None) -> Tensor:
+        """``num_steps`` steps; returns the metrics summed over them, packed
+        in :attr:`metric_names` order (a device tensor that the next call
+        rewrites). ``slots`` (num_steps, B), where given, replace the draws
+        (the CPU only: a graph's steps draw their own)."""
+        if self._call is None:
+            raise RuntimeError('ReplayUpdateStep.run before bind')
+        if slots is not None and self._device.type == 'cuda':
+            raise ValueError('given slots run on the CPU only')
+        self._ema.fill_(float(data_cnt_ema))
+        if self._sum is not None:
+            self._sum.zero_()
+        for i in range(num_steps):
+            self._given = slots[i] if slots is not None else None
+            self._call()
+        self._given = None
+        return self._sum
+
+    def unpack(self, packed: Tensor) -> Dict[str, Tensor]:
         return self._unpack(packed)
 
 

@@ -24,12 +24,24 @@ online and trains it.
   package's layout; each with a CRC sidecar) and resume from either
   package's files.
 
+With ``device_generation`` and ``device_replay`` (the JAX package's
+``_run_fused``, solo layout only) the learner runs the fused device loop
+in one thread instead (``ops/fused_pipeline.py``): each dispatch is a
+rollout chunk on the env's tensor twin, its window ingest into a ring on
+the device and ``sgd_steps_per_chunk`` recency-sampled update steps
+(``ReplayUpdateStep``), as CUDA graphs on the card; evaluation plays whole
+matches on the device (``DeviceEvaluator``); the host reads one packed
+tensor a dispatch, one dispatch late (``feed_device_chunk``), and writes
+the checkpoints every ``checkpoint_interval`` epochs and at the last.
+
 Kernel launches are counted by path (``ops.launches``): 'generation' and
 'evaluation' run K1's serving form in the main thread, 'training' K1's
-training form, K2 and the targets' kernels in the trainer thread. The CLI
-prints the log lines of the JAX package's learner and, at exit, one JSON
-line of rates, epoch times, peak device memory, the last epoch's losses
-and the launches by path. It exits non-zero when the trainer failed.
+training form, K2 and the targets' kernels in the trainer thread (in the
+fused loop, all three in the main thread). The CLI prints the log lines
+of the JAX package's learner and, at exit, one JSON line of rates, epoch
+times, peak device memory, the last epoch's losses and the launches by
+path (and the fused loop's dispatches, sample reuse, ring and host
+seconds). It exits non-zero when the trainer failed.
 """
 
 from __future__ import annotations
@@ -60,9 +72,9 @@ from .model import (ModelWrapper, load_params_bytes, params_bytes,
 from .ops import launches, reset_kernel_launches
 from .ops.batch import make_batch, make_block_cache, select_episode
 from .ops.losses import LossConfig
-from .ops.train_step import (GraphedUpdateStep, StaticUpdateStep, TrainState,
-                              init_train_state, opt_state_from_flax,
-                              opt_state_to_flax)
+from .ops.train_step import (GraphedUpdateStep, ReplayUpdateStep,
+                              StaticUpdateStep, TrainState, init_train_state,
+                              opt_state_from_flax, opt_state_to_flax)
 from .utils import flax_msgpack
 from .utils.fs import (checksummed_write_bytes, read_verified_bytes,
                        verify_checkpoint)
@@ -202,11 +214,19 @@ class Trainer:
         self.device = next(module.parameters()).device
         self.episodes: deque = deque()
         self.cfg = loss_config(args)
-        step_cls = (GraphedUpdateStep if self.device.type == 'cuda'
-                    else StaticUpdateStep)
-        self.update_step = step_cls(module, self.cfg,
-                                    init_train_state(module))
         self.default_lr = 3e-8
+        if args.get('device_replay'):
+            # the fused device loop's K-step update on the ring; the
+            # pipeline binds it (ops/fused_pipeline.py)
+            self.update_step = ReplayUpdateStep(
+                module, self.cfg, init_train_state(module), self.default_lr)
+            # the ring's accounting, read from the packed fetch at epochs
+            self.replay_stats = {'windows_ingested': 0, 'samples_drawn': 0}
+        else:
+            step_cls = (GraphedUpdateStep if self.device.type == 'cuda'
+                        else StaticUpdateStep)
+            self.update_step = step_cls(module, self.cfg,
+                                        init_train_state(module))
         self.data_cnt_ema = args['batch_size'] * args['forward_steps']
         self.steps = 0
         self.batcher = Batcher(args, self.episodes)
@@ -541,6 +561,10 @@ class Learner:
         self.loop_seconds = {'generation': 0.0, 'evaluation': 0.0,
                              'ingest': 0.0, 'epoch_close': 0.0}
         self.plies = {'generation': 0, 'evaluation': 0}
+        # the fused device loop's pipeline and evaluator, while it runs
+        self._fused = None
+        self._evaluator = None
+        self._eval_dispatches = None
 
     # -- checkpoints -------------------------------------------------------
     def model_path(self, model_id: int) -> str:
@@ -552,12 +576,15 @@ class Learner:
     def trainer_state_path(self) -> str:
         return os.path.join(self.model_dir, 'trainer_state.ckpt')
 
-    def update_model(self, params: Dict[str, Tensor], steps: int,
+    def update_model(self, params: Optional[Dict[str, Tensor]], steps: int,
                      state_blob: Optional[bytes] = None):
         """Advance the model epoch and write its checkpoint files (atomic,
-        each with a CRC32 sidecar)."""
+        each with a CRC32 sidecar); with ``params`` None (the fused loop's
+        epochs between ``checkpoint_interval`` writes) only advance."""
         print('updated model(%d)' % steps)
         self.model_epoch += 1
+        if params is None:
+            return
         self.params = params
         os.makedirs(self.model_dir, exist_ok=True)
         raw = params_bytes(self.module, params)
@@ -705,17 +732,25 @@ class Learner:
     def _past_epoch_budget(self) -> bool:
         return 0 <= self.args['epochs'] <= self.model_epoch
 
-    def _run_eval_share(self, evaluator):
+    def _run_eval_share(self, evaluator, tracker: Optional[Dict] = None):
         """Advance online evaluation until its share of episodes reaches
-        eval_rate: all its matches one ply a call, several calls a loop
-        iteration, or it would never finish a match."""
+        eval_rate: the host evaluator all its matches one ply a call, the
+        device evaluator a chunk of plies a call, several calls a loop
+        iteration, or it would never finish a match. ``tracker`` carries
+        the previous dispatch's epoch for a pipelined evaluator, whose
+        results arrive one dispatch late."""
+        tracker = {} if tracker is None else tracker
         for _ in range(16):
             if self.num_results >= self.eval_rate * self.num_episodes:
                 break
+            cur = self.model_epoch
             results = evaluator.step()
-            self.plies['evaluation'] += 1
+            self.plies['evaluation'] += evaluator.chunk_steps
             self.num_results += len(results)
-            self.feed_results(results)
+            self.feed_results(results, model_id=(tracker.get('prev', cur)
+                                                 if evaluator.pipelined
+                                                 else cur))
+            tracker['prev'] = cur
 
     def _run_batched(self):
         """Batched self-play and interleaved evaluation in this thread."""
@@ -800,7 +835,226 @@ class Learner:
         print('generation stats = %.3f +- %.3f' % (mean, std))
 
     # -- lifecycle ---------------------------------------------------------
+    # -- the fused device loop ---------------------------------------------
+    def feed_device_chunk(self, done: np.ndarray, outcome: np.ndarray,
+                          model_id: Optional[int] = None) -> int:
+        """Episode accounting of a device chunk: only (done (K, N), outcome
+        (K, N, P)) reach the host, the trajectories stay in the ring. Every
+        player's outcome counts in the generation stats of ``model_id``,
+        the epoch whose params played the chunk."""
+        if model_id is None:
+            model_id = self.model_epoch
+        ks, envs = np.nonzero(done)
+        for k, i in zip(ks, envs):
+            for oc in outcome[k, i]:
+                n, r, r2 = self.generation_results.get(model_id, (0, 0, 0))
+                self.generation_results[model_id] = (n + 1, r + float(oc),
+                                                     r2 + float(oc) ** 2)
+            self.num_episodes += 1
+            self.num_returned_episodes += 1
+        return len(ks)
+
+    def _device_evaluator(self, env_mod, eval_envs: int, chunk_steps: int):
+        """The device evaluator when every opponent is 'random' or
+        'rulebase' (the env twin's vectorized GreedyAgent) and
+        ``device_eval`` is on; the host evaluator otherwise (checkpoint
+        opponents)."""
+        args = self.args
+        opponents = args.get('eval', {}).get('opponent', []) or ['random']
+        if (args['device_eval'] and len(opponents) <= eval_envs
+                and all(o in ('random', 'rulebase') for o in opponents)):
+            from .device_generation import DeviceEvaluator
+            return DeviceEvaluator(env_mod, self.actor.module, args,
+                                   n_envs=eval_envs, chunk_steps=chunk_steps,
+                                   seed=args['seed'] + 77,
+                                   opponents=opponents)
+        env_args = args['env']
+        return BatchedEvaluator(lambda i: make_env({**env_args, 'id': i}),
+                                self.actor, args, n_envs=eval_envs)
+
+    def _run_device(self):
+        """The device path (``device_generation`` and ``device_replay``):
+        the env twin, the evaluator, the windower in solo layout and the
+        fused loop."""
+        from .environment import make_device_env
+        from .ops.device_windows import DeviceWindower
+        from .ops.replay import ring_capacity, windows_per_episode
+        args = self.args
+        env_mod = make_device_env(args['env'])
+        chunk_steps = int(args['device_chunk_steps'])
+        eval_envs = int(args.get('eval_envs')
+                        or max(4, args['generation_envs'] // 8))
+        evaluator = self._device_evaluator(env_mod, eval_envs, chunk_steps)
+        windower = DeviceWindower(
+            mode='solo', fs=args['forward_steps'], bi=args['burn_in_steps'],
+            max_steps=env_mod.MAX_STEPS,
+            windows_cap=windows_per_episode(args),
+            capacity=ring_capacity(args), num_players=env_mod.NUM_PLAYERS,
+            gamma=args['gamma'], has_reward=hasattr(env_mod, 'rewards'))
+        self._run_fused(env_mod, evaluator, windower, 'solo')
+
+    def _run_fused(self, env_mod, evaluator, windower, mode: str):
+        """One thread: each loop iteration enqueues one dispatch (a rollout
+        chunk, its ingest and, past ``minimum_episodes``,
+        ``sgd_steps_per_chunk`` update steps), then reads the previous
+        dispatch's packed accounting, advances evaluation and closes the
+        epoch when due. Sample reuse is pinned by the steps a chunk."""
+        from .ops.fused_pipeline import FusedPipeline
+        from .ops.replay import sgd_steps_per_chunk
+        args = self.args
+        tr = self.trainer
+        print('fused device pipeline: rollout+ingest+train in one dispatch '
+              '(%s mode)' % mode)
+        fp = FusedPipeline(
+            env_mod, self.actor.module, tr.update_step, windower,
+            n_envs=args['generation_envs'],
+            chunk_steps=int(args['device_chunk_steps']),
+            sgd_steps=sgd_steps_per_chunk(args),
+            batch_size=args['batch_size'], seed=args['seed'])
+        self._fused = fp
+        self._evaluator = evaluator
+        cadence = _EpochCadence(args)
+        actor_epoch = self.model_epoch
+        pending_metrics: List[Dict[str, float]] = []
+        epoch_steps = 0
+        eval_tracker: Dict[str, int] = {}
+        # the accounting arrives one dispatch late: the epoch of each
+        # dispatch is kept until its chunk is read
+        epoch_of_dispatch: deque = deque()
+        times = self.loop_seconds
+
+        def account(prev):
+            if prev is None:
+                return
+            self.feed_device_chunk(prev['done'], prev['outcome'],
+                                   epoch_of_dispatch.popleft())
+            if prev['metrics'] is not None:
+                pending_metrics.append(prev['metrics'])
+                self._fused_guard_observe(prev['metrics'], fp)
+
+        self._run_started_at = time.time()
+        while not self.shutdown_flag:
+            if actor_epoch != self.model_epoch:
+                fp.refresh_actor(tr.update_step.state.params)
+                actor_epoch = self.model_epoch
+            epoch_of_dispatch.append(self.model_epoch)
+            warm = self.num_returned_episodes < args['minimum_episodes']
+            t0 = time.perf_counter()
+            if warm:
+                prev = fp.warm_step()
+                self.plies['generation'] += fp.chunk_steps
+            else:
+                if tr.train_started_at is None:
+                    tr.train_started_at = time.time()
+                    tr.steps_at_start = tr.steps
+                prev = fp.train_step(tr.data_cnt_ema)
+                tr.steps += fp.sgd_steps
+                epoch_steps += fp.sgd_steps
+                self.plies['generation'] += fp.chunk_steps
+            t1 = time.perf_counter()
+            account(prev)
+            t2 = time.perf_counter()
+            with launches.path('evaluation'):
+                self._run_eval_share(evaluator, eval_tracker)
+            t3 = time.perf_counter()
+            if cadence.due(self.num_returned_episodes):
+                self._fused_epoch(pending_metrics, epoch_steps)
+                pending_metrics.clear()
+                epoch_steps = 0
+                if self._past_epoch_budget():
+                    self.shutdown_flag = True
+            t4 = time.perf_counter()
+            for stage, dt in (('dispatch', t1 - t0), ('fetch', t2 - t1),
+                              ('evaluation', t3 - t2),
+                              ('epoch_close', t4 - t3)):
+                times[stage] = times.get(stage, 0.0) + dt
+        account(fp.drain())
+        if hasattr(evaluator, 'drain'):
+            self.feed_results(evaluator.drain(),
+                              model_id=eval_tracker.get('prev'))
+        tr.train_stopped_at = time.time()
+        self._run_ended_at = time.time()
+
+    def _fused_epoch(self, pending_metrics: List[Dict[str, float]],
+                     epoch_steps: int):
+        """The fused loop's epoch close: the JAX learner's lines, the lr
+        EMA, and the checkpoint files every ``checkpoint_interval`` epochs
+        and always at the last epoch (the actor's params refresh on the
+        device every epoch either way)."""
+        tr = self.trainer
+        print()
+        print('epoch %d' % self.model_epoch)
+        self._print_eval_stats()
+        self._print_generation_stats()
+        data_cnt = 0
+        loss_sum: Dict[str, float] = {}
+        for metrics in pending_metrics:
+            for k, v in metrics.items():
+                if k == 'data_count':
+                    data_cnt += int(v)
+                elif k != 'nonfinite' and not k.startswith('diag_'):
+                    loss_sum[k] = loss_sum.get(k, 0.0) + float(v)
+        if epoch_steps > 0:
+            tr.last_losses = {k: v / max(data_cnt, 1)
+                              for k, v in sorted(loss_sum.items())}
+            print('loss = %s' % ' '.join(
+                k + ':' + '%.3f' % v for k, v in tr.last_losses.items()))
+            tr.data_cnt_ema = (tr.data_cnt_ema * 0.8
+                               + data_cnt / (1e-2 + epoch_steps) * 0.2)
+        stats = tr.replay_stats
+        stats['samples_drawn'] += epoch_steps * self.args['batch_size']
+        stats['windows_ingested'] = self._fused.windows_ingested_host
+        interval = int(self.args['checkpoint_interval'])
+        final = 0 <= self.args['epochs'] <= self.model_epoch + 1
+        if (self.model_epoch + 1) % interval == 0 or final:
+            # the wait for the in-flight dispatch and the checkpoint's
+            # copies and files, timed apart
+            t0 = time.perf_counter()
+            if self.device.type == 'cuda':
+                torch.cuda.synchronize(self.device)
+            t1 = time.perf_counter()
+            self.update_model(tr.host_params(), tr.steps, tr.state_bytes())
+            times = self.loop_seconds
+            times['checkpoint_wait'] = (times.get('checkpoint_wait', 0.0)
+                                        + t1 - t0)
+            times['checkpoint_write'] = (times.get('checkpoint_write', 0.0)
+                                         + time.perf_counter() - t1)
+        else:
+            self.update_model(None, tr.steps)
+        self.epoch_closed_at.append(time.time())
+        self.epoch_steps.append(tr.steps)
+        self.epoch_losses = dict(tr.last_losses)
+
+    def _fused_guard_observe(self, metrics: Dict[str, float], fp):
+        """The guard in the fused loop: the 'nonfinite' count rides the
+        packed fetch; a rollback restores the last good checkpoint's train
+        state in place and rewinds the model epoch and the actor."""
+        tr = self.trainer
+        bad = int(metrics.get('nonfinite') or 0)
+        cnt = int(metrics.get('data_count') or 0)
+        loss_mean = (float(metrics['total']) / cnt
+                     if cnt and 'total' in metrics else None)
+        action = tr.guard.observe(bad, max(0, fp.sgd_steps - bad), loss_mean)
+        if action == 'abort':
+            raise RuntimeError('guard: %d non-finite update(s) under '
+                               'nonfinite_policy=abort' % bad)
+        if action == 'skip':
+            _LOG.warning('guard: skipped %d non-finite update(s) '
+                         '(%d consecutive)', bad, tr.guard.consecutive)
+        if action != 'rollback':
+            return
+        tr._do_rollback()
+        if tr.rollback_epoch is not None:
+            self._poll_rollback()
+            fp.refresh_actor(tr.update_step.state.params)
+
     def run(self):
+        if self.args['device_generation']:
+            try:
+                self._run_device()
+            finally:
+                self.shutdown()
+            return
         self._trainer_thread = threading.Thread(target=self.trainer.run,
                                                 name='trainer', daemon=True)
         self._trainer_thread.start()
@@ -819,6 +1073,12 @@ class Learner:
             if self._trainer_thread.is_alive():
                 _LOG.warning('trainer thread still running at shutdown')
                 return
+        if self._fused is not None:
+            self._fused.release()
+        if self._evaluator is not None:
+            self._eval_dispatches = getattr(self._evaluator, 'dispatches',
+                                            None)
+            self._evaluator = None
         self.trainer.release()
 
     def summary(self) -> Dict[str, Any]:
@@ -865,6 +1125,37 @@ class Learner:
             'losses': self.epoch_losses,
             'kernel_launches': launches.by_path(),
             'failed': tr.failed, 'failed_reason': tr.failed_reason,
+            **self._fused_summary(steps, train_s),
+        }
+
+    def _fused_summary(self, steps: int, train_s: Optional[float]
+                       ) -> Dict[str, Any]:
+        """The fused loop's fields of the JSON line (none on the host
+        learner): dispatches (warm-up and fused), SGD steps/s, sample reuse
+        (samples drawn, steps x B, over the windows ingested), windows
+        ingested, ring size,
+        the host seconds spent enqueuing dispatches and waiting on the packed
+        fetch, and the evaluator's dispatches."""
+        fp = self._fused
+        if fp is None:
+            return {}
+        ingested = fp.windows_ingested_host
+        drawn = self.trainer.replay_stats['samples_drawn']
+        return {
+            'fused': True,
+            'dispatches': fp.dispatches,
+            'fused_dispatches': fp.fused_dispatches,
+            'warm_dispatches': fp.dispatches - fp.fused_dispatches,
+            'sgd_steps_per_chunk': fp.sgd_steps,
+            'sgd_steps_per_s': steps / train_s if train_s else None,
+            'sample_reuse': drawn / ingested if ingested else None,
+            'windows_ingested': ingested,
+            'samples_drawn': drawn,
+            'ring_size': fp.ring_size_host,
+            'ring_capacity': fp.capacity,
+            'dispatch_seconds': self.loop_seconds.get('dispatch', 0.0),
+            'fetch_seconds': self.loop_seconds.get('fetch', 0.0),
+            'eval_dispatches': self._eval_dispatches,
         }
 
 
