@@ -46,7 +46,8 @@ non-zero, printing no result, when either is missing or any phase fails.
      one-row returns (the outcome, whose bootstrap row the kernels read in
      place): (T=16, P=1, N=128) is the headline step's and the row the
      kernels line reports, 16 the in-process steps', 64 the fused loop's
-     (B=64, T=16, P=1), 100 a ragged edge;
+     (B=64, T=16, P=1), 100 a ragged edge; and (T=16, P=2, N=256), the
+     turn-based step's of phase 7 (B=128, two players);
      each timed by CUDA-graph replay (device time) and through its
      wrapper; no single PyTorch call computes a recursion, so they have no
      yardstick.
@@ -119,10 +120,27 @@ non-zero, printing no result, when either is missing or any phase fails.
    beside phase 5's host learner, and its host seconds by stage, the
    epoch close split into the wait for the in-flight dispatch before a
    checkpoint and the checkpoint's copies and files.
-7. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
+7. The README's quick start, through both entry points with no --device:
+   ``python -m handyrl_tpu_torch.train --config`` on ``tictactoe.json``
+   (config.yaml's blocks: turn-based TicTacToe on the full-width
+   SimpleConv2dModel, TD/TD, B=128, T=16, 64 envs, 400 episodes then 200
+   an epoch), cut to QUICK_EPOCHS epochs. Fails unless every epoch ran
+   with finite losses, every checkpoint passes ``verify_checkpoint``, the
+   params moved from ``1.ckpt`` to the last, K3 launched once a step plus
+   the capture's warm-ups under 'training' (at T=16, P=2, 256 lanes) and
+   no other kernel anywhere, ``latest.ckpt``'s forward on the card matches
+   the CPU's (POLICY_TOL), and tests/test_train_e2e.py's learning bar holds
+   (at least 80 evaluation results over the last 5 epochs, a win rate
+   above 0.6 against 'random'). Then ``python -m
+   handyrl_tpu_torch.evaluation latest.ckpt 100 4`` must count all 100
+   games for both agents in its report, played in 4 spawned processes.
+   Prints the rates, the steps per epoch, K3's time at 256 lanes, the
+   tournament's seconds and the main agent's win rate.
+8. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
    and K2b take their launches from K2's count, one of each a call; the
-   fused loop's under ``learner_fused_*``), the nvidia-smi line, and as
-   the last line ``{"ok": true, "device": {...}}``.
+   fused loop's under ``learner_fused_*``, the quick start's under
+   ``quick_start_*``), the nvidia-smi line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -728,6 +746,8 @@ def phase_targets(torch, targets):
         for P in TARGET_PS:
             for n in TARGET_NS:
                 rows.update(target_rows(torch, targets, np, T, P, n))
+    # the turn-based step's (phase 7): two players, B=128
+    rows.update(target_rows(torch, targets, np, *QUICK_TARGETS))
     return rows
 
 
@@ -1884,6 +1904,219 @@ def phase_fused(torch, repo, make_env, learner_line):
     return {'line': line, 'profile': profile, 'wall': wall}
 
 
+# ---------------------------------------------------- phase 7: quick start
+
+# the README's quick start: tictactoe.json (config.yaml's env_args and
+# train_args: turn-based TicTacToe, the full-width SimpleConv2dModel, TD/TD,
+# lambda 0.7, gamma 0.8, B=128, T=16, 64 envs, 400 episodes before the first
+# epoch and 200 an epoch, evaluation against 'random'), cut to QUICK_EPOCHS
+# epochs (config.yaml runs forever); then the offline tournament of its
+# latest.ckpt against 'random'. The learning bar is tests/test_train_e2e.py's
+# slow test: over the last QUICK_LAST epochs at least QUICK_MIN_RESULTS
+# evaluation results and a win rate above QUICK_MIN_WIN_RATE.
+QUICK_CONFIG = 'tictactoe.json'
+QUICK_EPOCHS = 15
+QUICK_LAST = 5
+QUICK_MIN_RESULTS, QUICK_MIN_WIN_RATE = 80, 0.6
+QUICK_GAMES, QUICK_PROCS = 100, 4
+QUICK_TARGETS = (16, 2, 256)   # (T, P, lanes) of the turn-based step's K3
+QUICK_FILES = ['%d.ckpt' % e for e in range(1, QUICK_EPOCHS + 1)] + [
+    'latest.ckpt', 'trainer_state.ckpt']
+
+
+def tictactoe_observations(make_env, count, seed):
+    """``count`` real TicTacToe observations, from both seats' views."""
+    import random
+    rng = random.Random(seed)
+    env = make_env({'env': 'TicTacToe'})
+    obs = []
+    while len(obs) < count:
+        if env.terminal():
+            env.reset()
+        obs += [env.observation(p) for p in env.players()]
+        env.play(rng.choice(env.legal_actions()))
+    return obs[:count]
+
+
+def run_quick_start(repo, tmp):
+    """``python -m handyrl_tpu_torch.train --config`` on tictactoe.json with
+    QUICK_EPOCHS epochs and a temporary model_dir (no --device: the card is
+    the default). Returns its JSON line, its epoch lines and its wall time."""
+    with open(os.path.join(repo, QUICK_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg['train_args']['epochs'] = QUICK_EPOCHS
+    cfg['train_args']['model_dir'] = os.path.join(tmp, 'models')
+    path = os.path.join(tmp, 'quick_start.json')
+    with open(path, 'w') as f:
+        json.dump(cfg, f)
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(
+            [sys.executable, '-m', 'handyrl_tpu_torch.train', '--config',
+             path], cwd=repo, capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired as exc:
+        fail('the quick start did not finish within 600 s:\n%s' % (
+            (exc.stderr or b'')[-4000:]))
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        fail('the quick start exited %d:\n%s' % (proc.returncode,
+                                                 proc.stderr[-4000:]))
+    lines = [l for l in proc.stdout.splitlines() if l.startswith('{')]
+    if len(lines) != 1:
+        fail('the quick start printed %d JSON lines' % len(lines))
+    shown = [l for l in proc.stdout.splitlines()
+             if l.startswith(('epoch', 'win rate', 'loss'))]
+    return json.loads(lines[0]), shown, wall
+
+
+def run_quick_eval(repo, ckpt):
+    """``python -m handyrl_tpu_torch.evaluation CKPT QUICK_GAMES
+    QUICK_PROCS --config tictactoe.json`` on the card: the tallies of its
+    report by agent and its wall time."""
+    import ast
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(
+            [sys.executable, '-m', 'handyrl_tpu_torch.evaluation', ckpt,
+             str(QUICK_GAMES), str(QUICK_PROCS), '--config', QUICK_CONFIG],
+            cwd=repo, capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired as exc:
+        fail('the tournament did not finish within 300 s:\n%s' % (
+            (exc.stderr or b'')[-4000:]))
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        fail('the tournament exited %d:\n%s' % (proc.returncode,
+                                                proc.stderr[-4000:]))
+    out = proc.stdout.splitlines()
+    head = '%d process, %d games' % (QUICK_PROCS, QUICK_GAMES)
+    if head not in out or 'total games = %d' % QUICK_GAMES not in out:
+        fail('the tournament did not print its header lines')
+    agents, report = {}, []
+    for line in out:
+        if line.startswith('---agent '):
+            current = int(line.strip('-').split()[1])
+            report.append(line)
+        elif line.startswith(('default-', 'total ')) and report:
+            label, rest = line.split(' ', 1)
+            tally_text, wp = rest.rsplit(' ', 1)
+            agents.setdefault(current, {})[label] = (
+                ast.literal_eval(tally_text), float(wp))
+            report.append(line)
+    return agents, report, wall
+
+
+def phase_quick_start(torch, repo, make_env, k3_rows):
+    import math
+    import numpy as np
+    from handyrl_tpu_torch.evaluation import load_model
+    from handyrl_tpu_torch.model import param_trees
+    from handyrl_tpu_torch.ops.train_step import GRAPH_WARMUP_STEPS
+    from handyrl_tpu_torch.utils import flax_msgpack
+    from handyrl_tpu_torch.utils.fs import verify_checkpoint
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_quick_')
+    try:
+        line, shown, wall = run_quick_start(repo, tmp)
+        for l in shown:
+            log('  quick start: %s' % l)
+        models = os.path.join(tmp, 'models')
+        log('quick start: %s' % json.dumps(line))
+        if line['epochs'] != QUICK_EPOCHS or line['failed']:
+            fail('the quick start trained %s epochs (failed %s)'
+                 % (line['epochs'], line['failed_reason']))
+        for name in QUICK_FILES:
+            ok, reason = verify_checkpoint(os.path.join(models, name))
+            if not ok or reason != 'ok':
+                fail('quick start checkpoint %s: %s' % (name, reason))
+        if not (line['losses'] and all(math.isfinite(v)
+                                       for v in line['losses'].values())):
+            fail('the quick start reports non-finite losses: %s'
+                 % line['losses'])
+        env = make_env({'env': 'TicTacToe'})
+        _, from_flax = param_trees(env.net())
+
+        def params(name):
+            with open(os.path.join(models, name), 'rb') as f:
+                return from_flax(flax_msgpack.from_bytes(f.read()))
+        first, last = params('1.ckpt'), params('%d.ckpt' % QUICK_EPOCHS)
+        moved = {k: (last[k] - first[k]).abs().max().item() for k in first}
+        if not any(v > 0 for v in moved.values()):
+            fail('the quick start\'s params did not change after epoch 1')
+
+        # K3 once an update step (and each capture warm-up), nothing else:
+        # the net's convs are PyTorch's, as the JAX package leaves them to XLA
+        by_path = line['kernel_launches']
+        runs = line['steps_at_exit'] + GRAPH_WARMUP_STEPS
+        train = by_path.get('training', {})
+        log('quick start: kernel launches by path %s; %d update steps (and %d '
+            'eager warm-up steps of the capture)' % (
+                by_path, line['steps_at_exit'], GRAPH_WARMUP_STEPS))
+        if train.get('td_lambda') != runs:
+            fail('the quick start launched K3 %s times in %d steps'
+                 % (train.get('td_lambda'), runs))
+        others = {(p, k): v for p, c in by_path.items() for k, v in c.items()
+                  if v and (p, k) != ('training', 'td_lambda')}
+        if others:
+            fail('the quick start launched other kernels: %s' % others)
+
+        # latest.ckpt on the card against the CPU, on real boards
+        obs = np.stack(tictactoe_observations(make_env, 256, SEED + 6))
+        ckpt = os.path.join(models, 'latest.ckpt')
+        card = load_model(ckpt, env, 'cuda')
+        cpu = load_model(ckpt, env, 'cpu')
+        got, want = card.batch_inference(obs), cpu.batch_inference(obs)
+        err = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+        log('quick start: latest.ckpt forward on the card vs the CPU over %d '
+            'real boards: max abs err %s (tol %.0e)' % (len(obs), err,
+                                                       POLICY_TOL))
+        if not all(np.isfinite(got[k]).all() for k in got) or \
+                max(err.values()) > POLICY_TOL:
+            fail('the quick start\'s checkpoint computes other outputs on '
+                 'the card than on the CPU')
+
+        # the learning bar of tests/test_train_e2e.py's slow test
+        last_epoch = line['model_epoch'] - 1
+        n = r = 0
+        for epoch in range(max(1, last_epoch - QUICK_LAST + 1),
+                           last_epoch + 1):
+            en, er = line['eval_by_epoch'].get(str(epoch), (0, 0))
+            n, r = n + en, r + er
+        win_rate = (r / (n + 1e-6) + 1) / 2
+        steps = [b - a for a, b in zip([0] + line['epoch_steps'],
+                                       line['epoch_steps'])]
+        log('quick start: %d evaluation results over epochs %d-%d, win rate '
+            '%.4f against random (bar: >= %d results, > %.2f)' % (
+                n, max(1, last_epoch - QUICK_LAST + 1), last_epoch,
+                win_rate, QUICK_MIN_RESULTS, QUICK_MIN_WIN_RATE))
+        if n < QUICK_MIN_RESULTS or not win_rate > QUICK_MIN_WIN_RATE:
+            fail('the quick start missed the learning bar: %d results, win '
+                 'rate %.4f' % (n, win_rate))
+
+        agents, report, eval_wall = run_quick_eval(repo, ckpt)
+        for l in report:
+            log('  tournament: %s' % l)
+        totals = {a: sum(t['total'][0].values()) for a, t in agents.items()}
+        if sorted(agents) != [0, 1] or set(totals.values()) != {QUICK_GAMES}:
+            fail('the tournament counted %s games by agent' % totals)
+        eval_wp = agents[0]['total'][1]
+        k3 = k3_rows[('td_lambda',) + QUICK_TARGETS]
+        log('quick start: %.1f episodes/s, %.2f SGD steps/s, %.1f '
+            'trajectories/s, steps per epoch %s, %d episodes, %d evaluation '
+            'results, peak memory %.1f MiB, %.1f s process wall; K3 %.2f us at '
+            '%d lanes (T=%d, P=%d; graph replay); tournament %d games in %d '
+            'processes %.1f s, main agent win rate %.4f (%s)' % (
+                line['episodes_per_s'], line['update_steps_per_s'],
+                line['trajectories_per_s'], steps, line['episodes'],
+                line['eval_results'], line['peak_memory_mib'], wall,
+                1e3 * k3['ms'], QUICK_TARGETS[2], QUICK_TARGETS[0],
+                QUICK_TARGETS[1], QUICK_GAMES, QUICK_PROCS, eval_wall,
+                eval_wp, nvidia_smi_line()))
+        return {'line': line, 'wall': wall, 'win_rate': win_rate,
+                'eval_results': n, 'steps_per_epoch': steps,
+                'eval_wall': eval_wall, 'eval_win_rate': eval_wp}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     try:
         import torch
@@ -1927,6 +2160,9 @@ def main():
     log('== phase 6: main path (the fused device loop)')
     fused = phase_fused(torch, repo, make_env, learner)
 
+    log('== phase 7: main path (the quick start: TicTacToe, turn-based)')
+    quick = phase_quick_start(torch, repo, make_env, target_rows)
+
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -1936,6 +2172,8 @@ def main():
         paths['learner_' + name] = counts
     for name, counts in fused['line']['kernel_launches'].items():
         paths['learner_fused_' + name] = counts
+    for name, counts in quick['line']['kernel_launches'].items():
+        paths['quick_start_' + name] = counts
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from

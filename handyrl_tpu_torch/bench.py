@@ -27,7 +27,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from .model import resolve_device
+from .model import fp32_on_card, resolve_device
 from .models.geese import GeeseNet
 from .ops import kernel_launches, reset_kernel_launches
 from .ops.losses import LossConfig
@@ -116,10 +116,7 @@ def run_bench(device: Any = 'cuda', steps: int = 30, B: int = 128,
     undone) and the capture; ``graph_first_call_ms`` times that call, and
     its warm-up steps are in ``steps_by_form`` and the launch counts."""
     dev = resolve_device(device)
-    if dev.type == 'cuda':
-        # fp32 means fp32: no TF32 in the heads' and losses' matmuls
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    fp32_on_card(dev)
     net, cfg, batch, state = headline_setup(dev, B, T, filters, layers)
     lr = torch.tensor(LR, device=dev)
     forms = ['eager'] + (['graphed'] if dev.type == 'cuda' else [])

@@ -13,7 +13,9 @@ device loop, and
 generation without the fused loop, the threaded replay trainer, turn-based
 device training, batcher processes, streaming, the league, mesh
 parallelism, the worker plane, recurrent nets, BatchNorm, envs other than
-Hungry Geese) instead of ignoring it.
+TicTacToe and Hungry Geese, and TicTacToe on the device path) instead of
+ignoring it. Without ``env_args`` the env is TicTacToe, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -110,6 +112,7 @@ WORKER_DEFAULTS: Dict[str, Any] = {
 NOT_PORTED: Dict[str, Any] = {
     'batcher_processes': False,
     'batcher_shared_memory': False,
+    'worker': {'num_parallel': 6},   # the worker cluster's size
 }
 # blocks of planes the port does not have yet: each turns its plane on
 # when one of the named keys is set (truthy; model_parallel above 1)
@@ -121,6 +124,7 @@ NOT_PORTED_BLOCKS: Dict[str, tuple] = {
 }
 
 _ENV_KEYS = ('env', 'torus_impl', 'norm_kind', 'net_kind')
+_ENVS = ('TicTacToe', 'HungryGeese')
 _TARGETS = ('MC', 'TD', 'VTRACE', 'UPGO')
 
 
@@ -147,7 +151,7 @@ def apply_defaults(raw: Dict[str, Any]) -> Dict[str, Any]:
     if unknown:
         raise ConfigError('unknown config blocks %s' % unknown)
     args = {
-        'env_args': dict(raw.get('env_args', {'env': 'HungryGeese'})),
+        'env_args': dict(raw.get('env_args', {'env': 'TicTacToe'})),
         'train_args': _merge(TRAIN_DEFAULTS, raw.get('train_args', {})),
         'worker_args': _merge(WORKER_DEFAULTS, raw.get('worker_args', {})),
     }
@@ -169,9 +173,9 @@ def validate(args: Dict[str, Any]) -> None:
 
     _require(args.get('worker_args', WORKER_DEFAULTS) == WORKER_DEFAULTS,
              'worker_args: the worker plane %s' % pending)
-    _require(env.get('env') == 'HungryGeese',
-             'env_args.env %r: only HungryGeese %s' % (env.get('env'),
-                                                      'is ported'))
+    _require(env.get('env') in _ENVS,
+             'env_args.env %r: only %s are ported' % (env.get('env'),
+                                                      ' and '.join(_ENVS)))
     extra = sorted(set(env) - set(_ENV_KEYS))
     _require(not extra, 'env_args keys %s are not known to the port' % extra)
     _require(env.get('norm_kind', 'group') == 'group',
@@ -199,6 +203,11 @@ def validate(args: Dict[str, Any]) -> None:
     _require(ta['batched_generation'] is True,
              'train_args.batched_generation False: the worker-cluster '
              'generation %s' % pending)
+    _require(env['env'] != 'TicTacToe' or not (ta['device_generation']
+                                               or ta['device_replay']),
+             "train_args.device_generation/device_replay with TicTacToe: the "
+             "'turn' device layout (build_windows_turn) and the jax_tictactoe "
+             "device twin %s; TicTacToe trains on the host learner" % pending)
     _validate_device_path(ta, pending)
     _require(ta['burn_in_steps'] == 0,
              'train_args.burn_in_steps %r: burn-in (the recurrent loss '

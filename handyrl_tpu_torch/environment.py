@@ -1,5 +1,5 @@
 """Environment protocol and registry (copy of ``handyrl_tpu/environment.py``
-for the games the port has so far: HungryGeese).
+for the games the port has so far: TicTacToe and HungryGeese).
 
 Environments are plain Python: the framework consumes only the numpy
 arrays they produce (``observation``) and the integer action spaces they
@@ -13,6 +13,7 @@ from typing import Any, Dict, List, Optional
 
 # short name -> module path; a fully-qualified dotted module path also works
 ENVS = {
+    'TicTacToe': 'handyrl_tpu_torch.envs.tictactoe',
     'HungryGeese': 'handyrl_tpu_torch.envs.kaggle.hungry_geese',
 }
 

@@ -1,16 +1,123 @@
-"""Opponents of the learner's online evaluation: the subset of
-``handyrl_tpu/evaluation.py`` that :class:`generation.BatchedEvaluator`
-calls. :func:`build_agent` parses a host agent's name; :func:`load_model`
-loads a learner checkpoint (``<epoch>.ckpt``: the param tree in flax's
-``to_bytes`` layout, as either package writes it) into the env's net. The
-match engines, exported models, the registry and service specs and the
-network battle mode are not ported yet."""
+"""Evaluation: the match engine, the online evaluator's opponents and the
+offline tournament, ``python -m handyrl_tpu_torch.evaluation MODEL[:OPPONENT]
+[NUM_GAMES [NUM_PROC]] [--config FILE.json] [--device cuda|cpu]``.
+
+The port of ``handyrl_tpu/evaluation.py`` without its network parts: one
+match engine (:func:`run_match`) drives every match through seat adapters
+(:class:`_AgentSeat`); the offline harness is a :class:`Tournament` with
+schedule / launch / collect / report phases; :class:`Evaluator` is the
+sequential online evaluator; model files are learner checkpoints
+(``<epoch>.ckpt``, the param tree in flax's ``to_bytes`` layout, as either
+package writes it), loaded into the env's net on the device asked for.
+
+A tournament over several processes starts them with the ``spawn`` method:
+a forked child could not use the parent's CUDA context, so each child gets
+the agents' specs and the device and loads its own models. With one
+process the tournament runs inline, as in the JAX package.
+
+stdout formats (``total games``, ``---agent N---``, the win-rate lines) are
+the JAX package's verbatim. Not ported yet (ROADMAP.md, the worker plane
+and the serving tier): the network battle mode (``NetworkAgent``,
+``exec_network_match``, the eval server and client), ``ExportedModel``
+(``.jaxexp``) and the ``registry://`` and ``serve://`` model specs.
+"""
 
 from __future__ import annotations
 
-from typing import Any
+import argparse
+import json
+import multiprocessing as mp
+import queue
+import random
+import time
+from typing import Any, Dict, List, Optional
 
-from .agent import RandomAgent, RuleBasedAgent
+import numpy as np
+
+from .agent import Agent, RandomAgent, RuleBasedAgent
+from .environment import make_env
+
+
+def view(env, player=None):
+    if hasattr(env, 'view'):
+        env.view(player=player)
+    else:
+        print(env)
+
+
+def view_transition(env):
+    if hasattr(env, 'view_transition'):
+        env.view_transition()
+
+
+# ---------------------------------------------------------------------------
+# match engine
+
+
+class _AgentSeat:
+    """A player slot occupied by an in-process agent on the shared env."""
+
+    def __init__(self, agent):
+        self.agent = agent
+
+    def begin(self, env, player, show):
+        self.agent.reset(env, show=show)
+
+    def act(self, env, player, show):
+        return self.agent.action(env, player, show=show)
+
+    def watch(self, env, player, show):
+        self.agent.observe(env, player, show=show)
+
+    def sync(self, env, player):
+        pass
+
+    def finish(self, env, player, outcome):
+        pass
+
+
+def run_match(env, seats: Dict[int, Any], critic=None, show=False,
+              game_args={}) -> Optional[dict]:
+    """Play one game to completion; None on env failure."""
+    if env.reset(game_args):
+        return None
+    for p, seat in seats.items():
+        seat.begin(env, p, show)
+    while not env.terminal():
+        if show:
+            view(env)
+            if critic is not None:
+                print('cv = ', critic.observe(env, None, show=False)[0])
+        acting, watching = env.turns(), env.observers()
+        moves = {}
+        for p, seat in seats.items():
+            if p in acting:
+                moves[p] = seat.act(env, p, show)
+            elif p in watching:
+                seat.watch(env, p, show)
+        if env.step(moves):
+            return None
+        if show:
+            view_transition(env)
+        for p, seat in seats.items():
+            seat.sync(env, p)
+    outcome = env.outcome()
+    if show:
+        print('final outcome = %s' % outcome)
+    for p, seat in seats.items():
+        seat.finish(env, p, outcome[p])
+    return {'result': outcome}
+
+
+def exec_match(env, agents: Dict[int, Any], critic=None, show=False,
+               game_args={}) -> Optional[dict]:
+    """Match between in-process agents on one shared environment."""
+    return run_match(env, {p: _AgentSeat(a) for p, a in agents.items()},
+                     critic, show, game_args)
+
+
+# ---------------------------------------------------------------------------
+# online evaluation (during training)
 
 
 def build_agent(raw: str, env=None):
@@ -24,14 +131,339 @@ def build_agent(raw: str, env=None):
     return None
 
 
+class Evaluator:
+    """Sequential online evaluation: the trained model vs a configured
+    opponent pool (default 'random'), one match a call. Opponent specs are
+    host agent names or checkpoint paths; checkpoint opponents are loaded
+    once on ``device`` and cached."""
+
+    def __init__(self, env, args, device: Any = 'cuda'):
+        self.env = env
+        self.args = args
+        self.device = device
+        self.default_opponent = 'random'
+        self._opponent_cache: Dict[str, Any] = {}
+
+    def _opponent_agent(self, spec: str):
+        agent = build_agent(spec, self.env)
+        if agent is not None:
+            return agent
+        if spec not in self._opponent_cache:
+            self._opponent_cache[spec] = Agent(load_model(spec, self.env,
+                                                          self.device))
+        return self._opponent_cache[spec]
+
+    def _draw_opponent(self, opponents, eval_args) -> str:
+        """The pool draw keyed by the task's ``sample_key``: which opponent
+        a task meets is a pure function of (seed, sample_key), in namespace
+        2 of the seeded helper, as in the JAX package; without a key any
+        member of the pool."""
+        if not opponents:
+            return self.default_opponent
+        skey = (eval_args or {}).get('sample_key')
+        if skey is None:
+            return opponents[random.randrange(len(opponents))]
+        from .generation import sample_seed
+        seq = sample_seed(self.args.get('seed', 0), (2, int(skey)), 0)
+        idx = int(np.random.default_rng(seq).integers(len(opponents)))
+        return opponents[idx]
+
+    def execute(self, models: Dict[int, Any], eval_args) -> Optional[dict]:
+        opponent = (eval_args or {}).get('opponent')
+        if not opponent:
+            opponents = self.args.get('eval', {}).get('opponent', [])
+            opponent = self._draw_opponent(opponents, eval_args)
+        agents = {p: Agent(model) if model is not None
+                  else self._opponent_agent(opponent)
+                  for p, model in models.items()}
+        results = exec_match(self.env, agents)
+        if results is None:
+            print('None episode in evaluation!')
+            return None
+        return {'args': eval_args, 'opponent': opponent, **results}
+
+
+# ---------------------------------------------------------------------------
+# offline tournament
+
+
+def wp_func(results: Dict[Optional[float], int]) -> float:
+    games = sum(v for k, v in results.items() if k is not None)
+    win = sum((k + 1) / 2 * v for k, v in results.items() if k is not None)
+    return win / games if games else 0.0
+
+
+def _tournament_child(agents, critic, env_args, index, job_queue,
+                      result_queue, seed, show=False):
+    """One match runner: drain jobs until the None sentinel."""
+    random.seed(seed + index)
+    env = make_env({**env_args, 'id': index})
+    while True:
+        job = job_queue.get()
+        if job is None:
+            break
+        serial, seat_ids, label, game_args = job
+        print('*** Game %d ***' % serial)
+        lineup = {env.players()[i]: agents[ai]
+                  for i, ai in enumerate(seat_ids)}
+        outcome = exec_match(env, lineup, critic, show=show,
+                             game_args=game_args)
+        result_queue.put((label, seat_ids, outcome))
+    result_queue.put(None)
+
+
+def _spawned_child(specs, device, env_args, index, job_queue, result_queue,
+                   seed):
+    """A spawned match runner: loads its own agents from their specs on
+    ``device``, then runs :func:`_tournament_child`."""
+    from .model import fp32_on_card, resolve_device
+    fp32_on_card(resolve_device(device))
+    env = make_env(env_args)
+    agents = [_resolve_agent(spec, env, device) for spec in specs]
+    _tournament_child(agents, None, env_args, index, job_queue,
+                      result_queue, seed)
+
+
+class Tournament:
+    """Offline round-robin harness over N processes.
+
+    ``schedule`` materializes every game up front (2-player games get
+    first/second seat balancing; larger games get shuffled seats);
+    ``launch`` runs the games inline for 1 process, or starts spawned
+    runner processes that load their agents from ``specs``; ``collect``
+    tallies outcomes per agent per pattern and joins the runners;
+    ``report`` prints the JAX package's summary.
+    """
+
+    def __init__(self, env, agents: List[Any], critic, env_args,
+                 args_patterns: Dict[str, dict], num_process: int,
+                 num_games: int, seed: int):
+        self.env = env
+        self.agents = agents
+        self.critic = critic
+        self.env_args = env_args
+        self.patterns = args_patterns
+        self.num_process = num_process
+        self.num_games = num_games
+        self.seed = seed
+        self.jobs: List[tuple] = []
+        self.by_pattern = [dict() for _ in agents]   # agent -> label -> tally
+        self.overall = [dict() for _ in agents]      # agent -> tally
+        self._procs: List[Any] = []
+
+    def _seating(self, game_index: int) -> tuple:
+        """(label_suffix, seat assignment) for one game."""
+        n = len(self.agents)
+        if n == 2:
+            plays_first = game_index < (self.num_games + 1) // 2
+            return ('-F', [0, 1]) if plays_first else ('-S', [1, 0])
+        return ('', random.sample(range(n), n))
+
+    def schedule(self):
+        serial = 0
+        for label, game_args in self.patterns.items():
+            for i in range(self.num_games):
+                suffix, seat_ids = self._seating(i)
+                self.jobs.append((serial, seat_ids, label + suffix, game_args))
+                for tallies in self.by_pattern:
+                    tallies.setdefault(label + suffix, {})
+                serial += 1
+
+    def launch(self, show_inline: bool, specs: Optional[List[str]] = None,
+               device: Any = 'cpu'):
+        """Run the games inline (1 process, on ``self.agents``) or start
+        ``num_process`` spawned runners, each loading the agents named by
+        ``specs`` on ``device``."""
+        ctx = mp.get_context('spawn')
+        # both queues stay referenced until collect(): a spawned child
+        # unpickles them after start() returns
+        self.job_queue: Any = ctx.Queue()
+        self.results: Any = ctx.Queue()
+        job_queue = self.job_queue
+        for job in self.jobs:
+            job_queue.put(job)
+        for _ in range(self.num_process):
+            job_queue.put(None)
+        if self.num_process == 1:
+            _tournament_child(self.agents, self.critic, self.env_args, 0,
+                              job_queue, self.results, self.seed,
+                              show=show_inline)
+            return
+        if specs is None or len(specs) != len(self.agents):
+            raise ValueError('a tournament over %d processes needs a spec '
+                             'for each of its %d agents'
+                             % (self.num_process, len(self.agents)))
+        for i in range(self.num_process):
+            proc = ctx.Process(target=_spawned_child, args=(
+                list(specs), str(device), self.env_args, i, job_queue,
+                self.results, self.seed), daemon=True)
+            proc.start()
+            self._procs.append(proc)
+
+    def _next_result(self):
+        """The next item of the result queue; raises when a runner died
+        without finishing its jobs."""
+        while True:
+            try:
+                return self.results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in self._procs
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError('a tournament process exited with '
+                                       'code %d' % dead[0])
+
+    def collect(self):
+        pending = self.num_process
+        while pending > 0:
+            item = self._next_result()
+            if item is None:
+                pending -= 1
+                continue
+            label, seat_ids, match = item
+            outcome = (match or {}).get('result')
+            if outcome is None:
+                continue
+            for idx, player in enumerate(self.env.players()):
+                agent_id = seat_ids[idx]
+                score = outcome[player]
+                pat = self.by_pattern[agent_id][label]
+                pat[score] = pat.get(score, 0) + 1
+                self.overall[agent_id][score] = \
+                    self.overall[agent_id].get(score, 0) + 1
+        for proc in self._procs:
+            proc.join()
+
+    def report(self):
+        for a, per_pattern in enumerate(self.by_pattern):
+            print('---agent %d---' % a)
+            for label, tally in per_pattern.items():
+                print(label,
+                      {k: tally[k] for k in sorted(tally, reverse=True)},
+                      wp_func(tally))
+            print('total',
+                  {k: self.overall[a][k]
+                   for k in sorted(self.overall[a], reverse=True)},
+                  wp_func(self.overall[a]))
+
+
+def evaluate_mp(env, agents: List[Any], critic, env_args, args_patterns,
+                num_process: int, num_games: int, seed: int,
+                specs: Optional[List[str]] = None, device: Any = 'cpu'
+                ) -> Tournament:
+    """Run an offline tournament; ``specs`` (one per agent) and ``device``
+    are what the spawned runners load when ``num_process`` > 1."""
+    tournament = Tournament(env, agents, critic, env_args, args_patterns,
+                            num_process, num_games, seed)
+    print('total games = %d' % (len(args_patterns) * num_games))
+    time.sleep(0.1)
+    tournament.schedule()
+    tournament.launch(show_inline=num_process == 1, specs=specs,
+                      device=device)
+    tournament.collect()
+    tournament.report()
+    return tournament
+
+
+# ---------------------------------------------------------------------------
+# model loading
+
+
 def load_model(model_path: str, env, device: Any = 'cuda'):
     """A learner checkpoint file as a ``ModelWrapper`` on ``device``: the
     env's net with the checkpoint's params."""
     from .model import ModelWrapper, load_params_bytes
     if '://' in model_path or not model_path.endswith('.ckpt'):
-        raise ValueError('load_model reads learner checkpoints (.ckpt) only; '
-                         '%r is not one' % (model_path,))
+        raise ValueError(
+            'load_model reads learner checkpoints (.ckpt) only; %r is not '
+            'one (registry:// and serve:// specs and .jaxexp exports are not '
+            'ported yet, ROADMAP.md)' % (model_path,))
     module = env.net()
     with open(model_path, 'rb') as f:
         load_params_bytes(module, f.read())
     return ModelWrapper(module, device)
+
+
+def _resolve_agent(model_path: str, env, device: Any = 'cuda'):
+    agent = build_agent(model_path, env)
+    if agent is None:
+        agent = Agent(load_model(model_path, env, device))
+    return agent
+
+
+def split_model_specs(raw: str) -> List[str]:
+    """Split the CLI's ``MODEL[:OPPONENT]`` argv on ``:`` while keeping
+    URL-style specs whole: ``serve://host:port/line@sel`` and
+    ``registry://root/line@sel`` carry colons of their own (the scheme and
+    the endpoint port), so a naive split would shred them."""
+    out: List[str] = []
+    for part in raw.split(':'):
+        if out and out[-1].endswith(('serve', 'registry')) \
+                and part.startswith('//'):
+            out[-1] += ':' + part          # scheme:// reassembled
+        elif out and '://' in out[-1] and part[:1].isdigit():
+            out[-1] += ':' + part          # the endpoint's port
+        else:
+            out.append(part)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# CLI entry point
+
+
+def eval_main(args, argv, device: Any = 'cuda') -> Tournament:
+    """The JAX package's ``eval_main``: ``argv`` is ``[MODEL[:OPPONENT]
+    [NUM_GAMES [NUM_PROC]]]``; the main agent meets OPPONENT (default
+    'random') in every other seat."""
+    from .model import fp32_on_card, resolve_device
+    dev = resolve_device(device)
+    fp32_on_card(dev)
+    env_args = args['env_args']
+    env = make_env(env_args)
+
+    model_paths = (split_model_specs(argv[0]) if len(argv) >= 1
+                   else ['models/latest.ckpt'])
+    num_games = int(argv[1]) if len(argv) >= 2 else 100
+    num_process = int(argv[2]) if len(argv) >= 3 else 1
+
+    main_agent = _resolve_agent(model_paths[0], env, dev)
+    critic = None
+
+    print('%d process, %d games' % (num_process, num_games))
+    seed = random.randrange(int(1e8))
+    print('seed = %d' % seed)
+
+    opponent = model_paths[1] if len(model_paths) > 1 else 'random'
+    n_opp = len(env.players()) - 1
+    agents = [main_agent] + [_resolve_agent(opponent, env, dev)
+                             for _ in range(n_opp)]
+    specs = [model_paths[0]] + [opponent] * n_opp
+    return evaluate_mp(env, agents, critic, env_args, {'default': {}},
+                       num_process, num_games, seed, specs=specs, device=dev)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog='python -m handyrl_tpu_torch.evaluation',
+        description='play an offline tournament of a checkpoint against an '
+        'opponent (the JAX package\'s main.py --eval)')
+    ap.add_argument('specs', nargs='*',
+                    help='MODEL[:OPPONENT] [NUM_GAMES [NUM_PROC]]')
+    ap.add_argument('--config', default=None,
+                    help='JSON file with an env_args block (default: '
+                    'TicTacToe)')
+    ap.add_argument('--device', default='cuda',
+                    help="'cuda' (default) or 'cpu'")
+    a = ap.parse_args(argv)
+    raw: Dict[str, Any] = {}
+    if a.config:
+        with open(a.config) as f:
+            raw = json.load(f)
+    eval_main({'env_args': raw.get('env_args', {'env': 'TicTacToe'})},
+              a.specs, device=a.device)
+    return 0
+
+
+if __name__ == '__main__':
+    raise SystemExit(main())

@@ -15,6 +15,7 @@ ask for ``'cpu'`` explicitly, or the wrapper raises.
 
 from __future__ import annotations
 
+import importlib
 from typing import Any, Dict
 
 import numpy as np
@@ -39,15 +40,27 @@ def resolve_device(device: Any = 'cuda') -> torch.device:
     return dev
 
 
+def fp32_on_card(device: torch.device) -> None:
+    """fp32 means fp32 on the card: no TF32 in PyTorch's products and
+    convs (the heads, the losses, the zero-padded nets)."""
+    if device.type == 'cuda':
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def param_trees(module):
     """(to_flax, from_flax) for the module's architecture: its params (or
     a mapping of its parameter names to tensors) to the flax param tree of
-    numpy arrays, and back to a state dict of CPU tensors."""
-    if model_zoo.architecture_name(module) == 'GeeseNet':
-        from .models.geese import params_from_flax, params_to_flax
-        return params_to_flax, params_from_flax
-    raise KeyError('no snapshot format for %s'
-                   % model_zoo.architecture_name(module))
+    numpy arrays, and back to a state dict of CPU tensors: the
+    ``params_to_flax`` and ``params_from_flax`` of the module that defines
+    the architecture."""
+    defining = importlib.import_module(type(module).__module__)
+    to_flax = getattr(defining, 'params_to_flax', None)
+    from_flax = getattr(defining, 'params_from_flax', None)
+    if to_flax is None or from_flax is None:
+        raise KeyError('no snapshot format for %s'
+                       % model_zoo.architecture_name(module))
+    return to_flax, from_flax
 
 
 def params_bytes(module: torch.nn.Module, params=None) -> bytes:

@@ -3,11 +3,16 @@
 Model convention (as in the JAX package): ``module(obs, hidden)`` returns a
 dict with 'policy' (logits) and 'value' (shape (..., 1)); observations
 arrive channel-first (..., C, H, W) exactly as environments emit them.
-Normalization is GroupNorm with ``min(8, F)`` groups and flax's eps 1e-6,
-statistics in fp32.
+Normalization is GroupNorm with ``min(8, F)`` groups ('group') or one group
+('group1', the heads'), flax's eps 1e-6, statistics in fp32. The zero-padded
+blocks (:class:`ConvBlock`, :class:`PolicyHead`, :class:`ScalarHead`) run
+NCHW and flatten their heads in flax's (H, W, C) order, so a flax ``Dense``
+kernel is the transpose of the torch ``Linear`` weight.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -89,3 +94,104 @@ class TorusConv(nn.Module):
                 scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         return group_norm(torus_conv(x, kernel, self.impl), scale, bias,
                           self.groups)
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator]):
+    """flax's default kernel init: truncated normal in [-2, 2] std units,
+    variance 1/fan_in after truncation."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        t.mul_(std)
+
+
+def make_norm(kind: str, filters: int) -> nn.GroupNorm:
+    """The JAX package's ``make_norm`` for 'group' (``min(8, filters)``
+    groups) and 'group1' (one group over (H, W, C), the heads' flavour);
+    its other kinds are not ported and raise."""
+    if kind == 'group':
+        return nn.GroupNorm(min(8, filters), filters, eps=GN_EPS)
+    if kind == 'group1':
+        return nn.GroupNorm(1, filters, eps=GN_EPS)
+    raise ValueError('norm kind %r is not ported (the port has group and '
+                     'group1)' % (kind,))
+
+
+def _reset_norm(norm: nn.GroupNorm):
+    with torch.no_grad():
+        norm.weight.fill_(1.0)
+        norm.bias.zero_()
+
+
+def _reset_conv(conv: nn.Conv2d, generator: Optional[torch.Generator]):
+    """flax's nn.Conv defaults: lecun_normal kernel, zero bias."""
+    o, i, kh, kw = conv.weight.shape
+    lecun_normal_(conv.weight, i * kh * kw, generator)
+    if conv.bias is not None:
+        with torch.no_grad():
+            conv.bias.zero_()
+
+
+def _flatten_hwc(h: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, H*W*C), flax's flatten order of NHWC."""
+    return h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+
+
+class ConvBlock(nn.Module):
+    """Zero-padded ('SAME') 3x3 conv without a bias + GroupNorm on NCHW
+    (``handyrl_tpu/models/blocks.py`` ConvBlock as every JAX net uses
+    it)."""
+
+    def __init__(self, in_channels: int, filters: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, filters, 3, padding=1, bias=False)
+        self.norm = make_norm('group', filters)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        _reset_conv(self.conv, generator)
+        _reset_norm(self.norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(self.conv(x))
+
+
+class PolicyHead(nn.Module):
+    """1x1 conv (with bias) -> leaky-relu(0.1) -> dense logits without a
+    bias, over a board of ``cells`` cells."""
+
+    def __init__(self, in_channels: int, out_filters: int, outputs: int,
+                 cells: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_filters, 1)
+        self.dense = nn.Linear(out_filters * cells, outputs, bias=False)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        _reset_conv(self.conv, generator)
+        lecun_normal_(self.dense.weight, self.dense.in_features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.leaky_relu(self.conv(x), negative_slope=0.1)
+        return self.dense(_flatten_hwc(h))
+
+
+class ScalarHead(nn.Module):
+    """1x1 conv (no bias) + one-group GroupNorm + relu -> dense scalar(s)
+    without a bias, over a board of ``cells`` cells."""
+
+    def __init__(self, in_channels: int, filters: int, outputs: int,
+                 cells: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, filters, 1, bias=False)
+        self.norm = make_norm('group1', filters)
+        self.dense = nn.Linear(filters * cells, outputs, bias=False)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        _reset_conv(self.conv, generator)
+        _reset_norm(self.norm)
+        lecun_normal_(self.dense.weight, self.dense.in_features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(self.norm(self.conv(x)))
+        return self.dense(_flatten_hwc(h))

@@ -25,22 +25,11 @@ import torch
 from torch import nn
 
 from . import register
-from .blocks import TorusConv, to_nhwc
+from .blocks import TorusConv, lecun_normal_, to_nhwc
 from ..ops.geese_trunk import (trunk_apply, trunk_forward,
                                trunk_params_from_geesenet)
 
 TORUS_IMPLS = ('pad', 'halo', 'pallas')
-
-
-def _lecun_normal_(t: torch.Tensor, fan_in: int,
-                   generator: Optional[torch.Generator]):
-    """flax's default kernel init: truncated normal in [-2, 2] std units,
-    variance 1/fan_in after truncation."""
-    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-    with torch.no_grad():
-        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                    generator=generator)
-        t.mul_(std)
 
 
 @register('GeeseNet')
@@ -88,10 +77,10 @@ class GeeseNet(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """flax defaults: lecun_normal kernels, GroupNorm scale 1, bias 0."""
         cin, F = self.stem_w.shape[2], self.filters
-        _lecun_normal_(self.stem_w, 9 * cin, generator)
-        _lecun_normal_(self.block_w, 9 * F, generator)
-        _lecun_normal_(self.policy_w, F, generator)
-        _lecun_normal_(self.value_w, 2 * F, generator)
+        lecun_normal_(self.stem_w, 9 * cin, generator)
+        lecun_normal_(self.block_w, 9 * F, generator)
+        lecun_normal_(self.policy_w, F, generator)
+        lecun_normal_(self.value_w, 2 * F, generator)
         with torch.no_grad():
             for p in (self.stem_scale, self.block_scale):
                 p.fill_(1.0)

@@ -67,8 +67,8 @@ from . import telemetry
 from .config import apply_defaults
 from .environment import make_env
 from .generation import BatchedEvaluator, BatchedGenerator
-from .model import (ModelWrapper, load_params_bytes, params_bytes,
-                    param_trees, resolve_device)
+from .model import (ModelWrapper, fp32_on_card, load_params_bytes,
+                    params_bytes, param_trees, resolve_device)
 from .ops import launches, reset_kernel_launches
 from .ops.batch import make_batch, make_block_cache, select_episode
 from .ops.losses import LossConfig
@@ -1082,9 +1082,9 @@ class Learner:
         self.trainer.release()
 
     def summary(self) -> Dict[str, Any]:
-        """The run as one JSON-able dict: counts, rates (host clock), epoch
-        wall times, peak device memory, the last epoch's losses and the
-        kernel launches by path."""
+        """The run as one JSON-able dict: counts, evaluation tallies by
+        epoch, rates (host clock), epoch wall times, peak device memory, the
+        last epoch's losses and the kernel launches by path."""
         tr = self.trainer
         # the rates cover training up to the last epoch's close
         steps = (self.epoch_steps[-1] - tr.steps_at_start
@@ -1104,6 +1104,10 @@ class Learner:
             'steps': steps, 'steps_at_exit': tr.steps,
             'episodes': self.num_returned_episodes,
             'eval_results': self.num_results,
+            # (n, r) of each epoch's online evaluation, as the JAX learner's
+            # win-rate lines print them: n results, r their summed outcomes
+            'eval_by_epoch': {str(e): [n, r] for e, (n, r, _)
+                              in sorted(self.results.items())},
             'batch_size': self.args['batch_size'],
             'forward_steps': self.args['forward_steps'],
             'generation_seconds': gen_s,
@@ -1172,10 +1176,7 @@ def main(argv=None) -> int:
     with open(a.config) as f:
         args = apply_defaults(json.load(f))
     device = resolve_device(a.device)
-    if device.type == 'cuda':
-        # fp32 means fp32: no TF32 in the heads' and losses' matmuls
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    fp32_on_card(device)
     reset_kernel_launches()
     learner = Learner(args, device=device)
     learner.run()

@@ -95,7 +95,7 @@ def test_cli_without_cuda_raises(tmp_path):
     ({}, {'metrics_jsonl': 'm.jsonl'}, 'metrics_jsonl'),
     ({'net_kind': 'lstm'}, {}, 'net_kind'),
     ({'norm_kind': 'batch'}, {}, 'norm_kind'),
-    ({'env': 'TicTacToe'}, {}, 'TicTacToe'),
+    ({'env': 'TicTacToe'}, {'device_generation': True}, 'TicTacToe'),
 ])
 def test_validate_rejects_what_the_slice_does_not_run(env_args, train_args,
                                                       key):
