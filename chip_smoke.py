@@ -98,14 +98,18 @@ non-zero, printing no result, when either is missing or any phase fails.
    (the card is the default): the JAX package's north-star configuration
    (full-width GeeseNet, B=64, T=16, VTRACE/VTRACE, 64 generation envs,
    32-ply chunks, 32 eval envs, 64 SGD steps a chunk, 200 episodes before
-   the first epoch and 100 an epoch, every epoch's checkpoint written),
-   FUSED_EPOCHS epochs (60-120 s). Fails unless it exits 0 having run the
-   fused pipeline in solo mode and closed every epoch, wrote every
-   checkpoint with its CRC sidecar, took steps = fused dispatches x 64,
+   the first epoch and 100 an epoch, checkpoint files every 10 epochs,
+   ``metrics_jsonl``), FUSED_EPOCHS epochs (60-120 s). Fails unless it
+   exits 0 having run the fused pipeline in solo mode and closed every
+   epoch, wrote the checkpoints of epochs 10, 20, ... and the last (and no
+   other) with their CRC sidecars, wrote one metrics row an epoch with
+   the run plane's keys (METRICS_KEYS in every row, each of
+   METRICS_SOME_KEYS in some, steps monotonic), took steps = fused
+   dispatches x 64,
    launched K1 under 'generation' and 'evaluation' (serving form) and K1,
    K2 and K5 under 'training' once a step (no warm-up steps: a graph's
    first call runs eagerly, as a real step), moved every leaf from
-   ``1.ckpt`` to the last, and ``latest.ckpt``'s forward on the card
+   ``10.ckpt`` to the last, and ``latest.ckpt``'s forward on the card
    matches the CPU's (POLICY_TOL). Then, in this process: the env twin's
    step, auto-reset, observation, greedy agent and outcome on the card
    against the CPU on the same state, actions and uniforms (equal
@@ -136,11 +140,27 @@ non-zero, printing no result, when either is missing or any phase fails.
    games for both agents in its report, played in 4 spawned processes.
    Prints the rates, the steps per epoch, K3's time at 256 lanes, the
    tournament's seconds and the main agent's win rate.
-8. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
+8. Phase 6's run, read on. (a) ``scripts/torch_eval_checkpoints.py``
+   scores its checkpoints of epoch 10 and of the last in a fresh process
+   (counts from 0 at the first point): 512 games a point against
+   'random', one evaluator and one captured rollout graph for both
+   points. Fails unless K1 (serving form) launched under 'evaluation' and
+   nothing else did, one rollout graph was captured, and the last point's
+   win rate is at least 0.95 and not below epoch 10's. (b) A preemption
+   drill: the learner resumes the model dir (``restart_epoch: -1``, 6
+   more epochs, ``keep_checkpoints: 3``) and gets SIGTERM once its first
+   metrics row lands. Fails unless it exits 75 printing ``preempted:
+   checkpoint flushed``, ``trainer_state.ckpt`` verifies, one
+   ``preempted`` row holds the flushed steps, the restart exits 0 naming
+   the flushed epoch in its ``auto-resume`` line and warms its ring up
+   again before it trains, the rows' steps are monotonic with unique
+   epoch rows to the end, and only the newest 3 numbered checkpoints
+   remain.
+9. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
    and K2b take their launches from K2's count, one of each a call; the
    fused loop's under ``learner_fused_*``, the quick start's under
-   ``quick_start_*``), the nvidia-smi line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   ``quick_start_*``, the scorer's under ``score_*``), the nvidia-smi
+   line, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -1450,9 +1470,10 @@ def phase_learner(torch, repo, make_env, bench_line):
 # (scripts/run_north_star.py:36-50): full-width GeeseNet, B=64, T=16,
 # VTRACE/VTRACE, 64 generation envs, 32-ply chunks, 32 eval envs, 64 SGD
 # steps a chunk; 200 episodes before the first epoch and 100 an epoch,
-# every epoch's checkpoint written
+# checkpoint files every 10 epochs and at the last, a metrics row an epoch
 FUSED_EPOCHS = 170
 FUSED_K = 64
+FUSED_INTERVAL = 10
 FUSED_CONFIG = {
     'env_args': {'env': 'HungryGeese', 'torus_impl': 'pallas'},
     'train_args': {
@@ -1463,7 +1484,8 @@ FUSED_CONFIG = {
         'device_replay': True, 'device_chunk_steps': 32, 'eval_envs': 32,
         'sgd_steps_per_chunk': FUSED_K, 'minimum_episodes': 200,
         'update_episodes': 100, 'epochs': FUSED_EPOCHS,
-        'checkpoint_interval': 1, 'eval': {'opponent': ['random']},
+        'checkpoint_interval': FUSED_INTERVAL,
+        'eval': {'opponent': ['random']},
         'seed': SEED},
 }
 FUSED_PATHS = {'generation': ('geese_trunk',),
@@ -1471,15 +1493,26 @@ FUSED_PATHS = {'generation': ('geese_trunk',),
                'training': ('geese_trunk', 'geese_trunk_bwd', 'vtrace')}
 FUSED_PROFILED = {'trunk_fwd_kernel': 'chunk + K', 'trunk_bwd_kernel': 'K',
                   'trunk_wgrad_kernel': 'K', 'vtrace_kernel': 'K'}
+# every fused metrics row (handyrl_tpu/train.py:2378-2496, without the
+# planes the port lacks), and the keys of rows of epochs that had results
+METRICS_KEYS = ('epoch', 'steps', 'episodes', 'time', 'run_id', 'telemetry',
+                'sgd_steps_per_sec', 'buffer', 'replay_dropped_episodes',
+                'replay_ring_occupancy', 'replay_sample_reuse',
+                'guard_nonfinite', 'guard_rollbacks', 'guard_bad_episodes',
+                'dispatches_gen', 'dispatches_eval')
+METRICS_SOME_KEYS = ('generation_mean', 'win_rate', 'eval_opponents',
+                     'win_rate_recent10', 'eval_games_recent10')
 INGEST_PLIES = 64        # the card-vs-CPU ingest: two chunks' plies
 INGEST_CAPACITY = 32     # into a ring that they wrap
 
 
 def run_fused_entry(repo, tmp):
     """``python -m handyrl_tpu_torch.train --config ...`` (no --device: the
-    card is the default) on FUSED_CONFIG: its JSON line and its wall."""
+    card is the default) on FUSED_CONFIG, its rows to ``metrics.jsonl``:
+    its JSON line and its wall."""
     cfg = json.loads(json.dumps(FUSED_CONFIG))
     cfg['train_args']['model_dir'] = os.path.join(tmp, 'models')
+    cfg['train_args']['metrics_jsonl'] = os.path.join(tmp, 'metrics.jsonl')
     path = os.path.join(tmp, 'fused.json')
     with open(path, 'w') as f:
         json.dump(cfg, f)
@@ -1788,95 +1821,134 @@ def fused_profile_window(torch, fp, args, ema):
                     for ms, c, k in rows[:12]]}
 
 
-def phase_fused(torch, repo, make_env, learner_line):
+def read_metrics(path):
+    rows = []
+    with open(path) as f:
+        for l in f:
+            if l.strip():
+                rows.append(json.loads(l))
+    return rows
+
+
+def check_metrics_rows(rows, epochs):
+    """One row an epoch 1..epochs (none preempted), every row with
+    METRICS_KEYS and a telemetry summary, each of METRICS_SOME_KEYS in
+    some row, steps non-decreasing."""
+    got = [r['epoch'] for r in rows]
+    if got != list(range(1, epochs + 1)):
+        fail('the fused metrics rows are for epochs %s' % got)
+    for r in rows:
+        missing = [k for k in METRICS_KEYS if k not in r]
+        if missing or 'counters' not in r['telemetry'] or \
+                r.get('preempted'):
+            fail('fused metrics row of epoch %d lacks %s: %s'
+                 % (r['epoch'], missing, json.dumps(r)[:400]))
+    for k in METRICS_SOME_KEYS:
+        if not any(k in r for r in rows):
+            fail('no fused metrics row has %r' % k)
+    steps = [r['steps'] for r in rows]
+    if steps != sorted(steps) or steps[-1] <= 0:
+        fail('the fused metrics rows\' steps are not monotonic: %s' % steps)
+
+
+def phase_fused(torch, repo, make_env, learner_line, tmp):
+    """Runs the fused loop into ``tmp`` (kept for phase 8)."""
     import math
     import numpy as np
     from handyrl_tpu_torch.evaluation import load_model
     from handyrl_tpu_torch.model import param_trees
     from handyrl_tpu_torch.utils import flax_msgpack
     from handyrl_tpu_torch.utils.fs import verify_checkpoint
-    tmp = tempfile.mkdtemp(prefix='chip_smoke_fused_')
-    try:
-        line, wall = run_fused_entry(repo, tmp)
-        models = os.path.join(tmp, 'models')
-        if line['epochs'] != FUSED_EPOCHS or line['failed']:
-            fail('the fused learner trained %s epochs' % line['epochs'])
-        secs = sorted(line['epoch_seconds'])
-        log('fused: %s; epoch_seconds of %d epochs: min %.3f, median %.3f, '
-            'max %.3f, sum %.2f' % (
-                json.dumps({k: v for k, v in line.items()
-                            if k not in ('epoch_seconds', 'epoch_steps')}),
-                len(secs), secs[0], secs[len(secs) // 2], secs[-1],
-                sum(secs)))
-        loop = line['loop_seconds']
-        log('fused: the loop\'s host seconds: dispatch %.3f, fetch %.3f, '
-            'evaluation %.3f, epoch close %.3f, of which the wait for the '
-            'in-flight dispatch before a checkpoint %.3f and the checkpoint\'s '
-            'copies and files %.3f' % (
-                loop['dispatch'], loop['fetch'], loop['evaluation'],
-                loop['epoch_close'], loop['checkpoint_wait'],
-                loop['checkpoint_write']))
-        steps = line['steps_at_exit']
-        if steps != line['fused_dispatches'] * FUSED_K or steps <= 0:
-            fail('the fused learner took %d steps in %d fused dispatches of '
-                 '%d' % (steps, line['fused_dispatches'], FUSED_K))
-        names = ['%d.ckpt' % e for e in range(1, FUSED_EPOCHS + 1)] + [
-            'latest.ckpt', 'trainer_state.ckpt']
-        for name in names:
-            ok, reason = verify_checkpoint(os.path.join(models, name))
-            if not ok or reason != 'ok':
-                fail('fused checkpoint %s: %s' % (name, reason))
-        if not (line['losses'] and all(math.isfinite(v)
-                                       for v in line['losses'].values())):
-            fail('the fused learner reports non-finite losses: %s'
-                 % line['losses'])
-        by_path = line['kernel_launches']
-        for path, kernels in FUSED_PATHS.items():
-            for k in kernels:
-                if not by_path.get(path, {}).get(k, 0) > 0:
-                    fail('the fused loop\'s %s never launched %s' % (path, k))
-        train = by_path['training']
-        for k in FUSED_PATHS['training']:
-            if train[k] != steps:
-                fail('the fused loop\'s training launched %s %d times in %d '
-                     'steps' % (k, train[k], steps))
-        if any(by_path.get(p, {}).get(k, 0)
-               for p in ('generation', 'evaluation')
-               for k in ('geese_trunk_bwd', 'td_lambda', 'upgo', 'vtrace')):
-            fail('the fused loop\'s generation or evaluation launched a '
-                 'training kernel')
-        log('fused: %d steps in %d fused dispatches (+ %d warm-up), kernel '
-            'launches by path %s' % (steps, line['fused_dispatches'],
-                                     line['warm_dispatches'], by_path))
+    line, wall = run_fused_entry(repo, tmp)
+    models = os.path.join(tmp, 'models')
+    if line['epochs'] != FUSED_EPOCHS or line['failed']:
+        fail('the fused learner trained %s epochs' % line['epochs'])
+    secs = sorted(line['epoch_seconds'])
+    log('fused: %s; epoch_seconds of %d epochs: min %.3f, median %.3f, '
+        'max %.3f, sum %.2f' % (
+            json.dumps({k: v for k, v in line.items()
+                        if k not in ('epoch_seconds', 'epoch_steps')}),
+            len(secs), secs[0], secs[len(secs) // 2], secs[-1],
+            sum(secs)))
+    loop = line['loop_seconds']
+    log('fused: the loop\'s host seconds: dispatch %.3f, fetch %.3f, '
+        'evaluation %.3f, epoch close %.3f, of which the wait for the '
+        'in-flight dispatch before a checkpoint %.3f and the checkpoint\'s '
+        'copies and files %.3f' % (
+            loop['dispatch'], loop['fetch'], loop['evaluation'],
+            loop['epoch_close'], loop['checkpoint_wait'],
+            loop['checkpoint_write']))
+    steps = line['steps_at_exit']
+    if steps != line['fused_dispatches'] * FUSED_K or steps <= 0:
+        fail('the fused learner took %d steps in %d fused dispatches of '
+             '%d' % (steps, line['fused_dispatches'], FUSED_K))
+    want = sorted(set(range(FUSED_INTERVAL, FUSED_EPOCHS + 1,
+                            FUSED_INTERVAL)) | {FUSED_EPOCHS})
+    got = sorted(int(n.split('.')[0]) for n in os.listdir(models)
+                 if n.endswith('.ckpt') and n.split('.')[0].isdigit())
+    if got != want:
+        fail('the fused loop wrote checkpoints %s, not %s' % (got, want))
+    names = ['%d.ckpt' % e for e in want] + [
+        'latest.ckpt', 'trainer_state.ckpt']
+    for name in names:
+        ok, reason = verify_checkpoint(os.path.join(models, name))
+        if not ok or reason != 'ok':
+            fail('fused checkpoint %s: %s' % (name, reason))
+    rows = read_metrics(os.path.join(tmp, 'metrics.jsonl'))
+    check_metrics_rows(rows, FUSED_EPOCHS)
+    log('fused: %d metrics rows; the last: %s' % (
+        len(rows), json.dumps({k: v for k, v in rows[-1].items()
+                               if k != 'telemetry'})))
+    if not (line['losses'] and all(math.isfinite(v)
+                                   for v in line['losses'].values())):
+        fail('the fused learner reports non-finite losses: %s'
+             % line['losses'])
+    by_path = line['kernel_launches']
+    for path, kernels in FUSED_PATHS.items():
+        for k in kernels:
+            if not by_path.get(path, {}).get(k, 0) > 0:
+                fail('the fused loop\'s %s never launched %s' % (path, k))
+    train = by_path['training']
+    for k in FUSED_PATHS['training']:
+        if train[k] != steps:
+            fail('the fused loop\'s training launched %s %d times in %d '
+                 'steps' % (k, train[k], steps))
+    if any(by_path.get(p, {}).get(k, 0)
+           for p in ('generation', 'evaluation')
+           for k in ('geese_trunk_bwd', 'td_lambda', 'upgo', 'vtrace')):
+        fail('the fused loop\'s generation or evaluation launched a '
+             'training kernel')
+    log('fused: %d steps in %d fused dispatches (+ %d warm-up), kernel '
+        'launches by path %s' % (steps, line['fused_dispatches'],
+                                 line['warm_dispatches'], by_path))
 
-        env = make_env(FUSED_CONFIG['env_args'])
-        _, from_flax = param_trees(env.net())
+    env = make_env(FUSED_CONFIG['env_args'])
+    _, from_flax = param_trees(env.net())
 
-        def params(name):
-            with open(os.path.join(models, name), 'rb') as f:
-                return from_flax(flax_msgpack.from_bytes(f.read()))
-        first, last = params('1.ckpt'), params('%d.ckpt' % FUSED_EPOCHS)
-        moved = {k: (last[k] - first[k]).abs().max().item() for k in first}
-        log('fused: params max abs change from 1.ckpt to %d.ckpt by leaf: %s'
-            % (FUSED_EPOCHS, ', '.join('%s %.3g' % kv
-                                       for kv in moved.items())))
-        still = [k for k, v in moved.items() if not v > 0]
-        if still:
-            fail('the fused loop did not move %s' % still)
-        obs = np.stack(game_observations(make_env, 64, SEED + 6))
-        card = load_model(os.path.join(models, 'latest.ckpt'), env, 'cuda')
-        cpu = load_model(os.path.join(models, 'latest.ckpt'), env, 'cpu')
-        got, want = card.batch_inference(obs), cpu.batch_inference(obs)
-        err = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
-        log('fused: latest.ckpt forward on the card vs the CPU over %d real '
-            'boards: max abs err %s (tol %.0e)' % (len(obs), err,
-                                                   POLICY_TOL))
-        if not all(np.isfinite(got[k]).all() for k in got) or \
-                max(err.values()) > POLICY_TOL:
-            fail('the fused loop\'s checkpoint computes other outputs on the '
-                 'card than on the CPU')
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    def params(name):
+        with open(os.path.join(models, name), 'rb') as f:
+            return from_flax(flax_msgpack.from_bytes(f.read()))
+    first = params('%d.ckpt' % FUSED_INTERVAL)
+    last = params('%d.ckpt' % FUSED_EPOCHS)
+    moved = {k: (last[k] - first[k]).abs().max().item() for k in first}
+    log('fused: params max abs change from %d.ckpt to %d.ckpt by leaf: '
+        '%s' % (FUSED_INTERVAL, FUSED_EPOCHS,
+                ', '.join('%s %.3g' % kv for kv in moved.items())))
+    still = [k for k, v in moved.items() if not v > 0]
+    if still:
+        fail('the fused loop did not move %s' % still)
+    obs = np.stack(game_observations(make_env, 64, SEED + 6))
+    card = load_model(os.path.join(models, 'latest.ckpt'), env, 'cuda')
+    cpu = load_model(os.path.join(models, 'latest.ckpt'), env, 'cpu')
+    got, want = card.batch_inference(obs), cpu.batch_inference(obs)
+    err = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+    log('fused: latest.ckpt forward on the card vs the CPU over %d real '
+        'boards: max abs err %s (tol %.0e)' % (len(obs), err,
+                                               POLICY_TOL))
+    if not all(np.isfinite(got[k]).all() for k in got) or \
+            max(err.values()) > POLICY_TOL:
+        fail('the fused loop\'s checkpoint computes other outputs on the '
+             'card than on the CPU')
 
     fused_env_checks(torch)
     fp, _, tg, args = fused_setup(torch)
@@ -2117,6 +2189,179 @@ def phase_quick_start(torch, repo, make_env, k3_rows):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------- phase 8: scoring and preemption
+
+# (a) phase 6's checkpoints at epoch FUSED_INTERVAL and at its last, scored
+# offline by scripts/torch_eval_checkpoints.py (one evaluator, one captured
+# rollout, SCORE_GAMES games a point against 'random', a fresh process);
+# the bar is under the JAX package's curves (0.985-0.991 at epoch 160,
+# north_star_device_curve{,_r5}.jsonl)
+SCORE_GAMES = 512
+SCORE_ENVS = 64
+SCORE_MIN_LAST = 0.95
+# (b) the preemption drill: phase 6's model dir resumed (restart_epoch -1)
+# for DRILL_EPOCHS more epochs with keep_checkpoints DRILL_KEEP, SIGTERMed
+# once its first metrics row lands, then restarted to its end
+DRILL_EPOCHS = 6
+DRILL_KEEP = 3
+
+
+def run_scorer(repo, models, out):
+    """The scorer on epochs FUSED_INTERVAL and FUSED_EPOCHS of ``models``:
+    its rows and its summary line."""
+    every = FUSED_EPOCHS // FUSED_INTERVAL - 1   # picks the first and last
+    cmd = [sys.executable, 'scripts/torch_eval_checkpoints.py', models,
+           'HungryGeese', out, '--every', str(every), '--games',
+           str(SCORE_GAMES), '--envs', str(SCORE_ENVS), '--opponent',
+           'random', '--env-args', json.dumps(FUSED_CONFIG['env_args'])]
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                              timeout=300)
+    except subprocess.TimeoutExpired as exc:
+        fail('the scorer did not finish within 300 s:\n%s' % (
+            (exc.stderr or b'')[-4000:]))
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        fail('the scorer exited %d:\n%s' % (proc.returncode,
+                                            proc.stderr[-4000:]))
+    lines = [json.loads(l) for l in proc.stdout.splitlines()
+             if l.startswith('{')]
+    return read_metrics(out), lines[-1], wall
+
+
+def drill_config(tmp, epochs):
+    cfg = json.loads(json.dumps(FUSED_CONFIG))
+    cfg['train_args'].update(
+        model_dir=os.path.join(tmp, 'models'), restart_epoch=-1,
+        epochs=epochs, keep_checkpoints=DRILL_KEEP,
+        metrics_jsonl=os.path.join(tmp, 'metrics.jsonl'))
+    path = os.path.join(tmp, 'drill.json')
+    with open(path, 'w') as f:
+        json.dump(cfg, f)
+    return path
+
+
+def run_drill(repo, tmp, epochs):
+    """The resumed learner, SIGTERMed once a new metrics row lands; then
+    its restart. Returns both runs' (returncode, stdout) and the walls."""
+    path = drill_config(tmp, epochs)
+    metrics = os.path.join(tmp, 'metrics.jsonl')
+    rows_before = len(read_metrics(metrics))
+    cmd = [sys.executable, '-m', 'handyrl_tpu_torch.train', '--config', path]
+    out_path = os.path.join(tmp, 'drill_first.log')
+    t0 = time.monotonic()
+    with open(out_path, 'w') as out:
+        proc = subprocess.Popen(cmd, cwd=repo, stdout=out,
+                                stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + 300
+            while (len(read_metrics(metrics)) <= rows_before
+                   and proc.poll() is None and time.monotonic() < deadline):
+                time.sleep(0.05)
+            if proc.poll() is not None:
+                fail('the resumed learner exited %s before its first row'
+                     % proc.returncode)
+            if time.monotonic() >= deadline:
+                fail('the resumed learner wrote no row within 300 s')
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(out_path) as f:
+        first = (rc, f.read(), time.monotonic() - t0)
+    t0 = time.monotonic()
+    try:
+        again = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                               timeout=600)
+    except subprocess.TimeoutExpired as exc:
+        fail('the restarted learner did not finish within 600 s:\n%s' % (
+            (exc.stderr or b'')[-4000:]))
+    second = (again.returncode, again.stdout + again.stderr,
+              time.monotonic() - t0)
+    return first, second
+
+
+def phase_score_and_drill(repo, tmp):
+    import re
+    from handyrl_tpu_torch import guard
+    from handyrl_tpu_torch.utils.fs import verify_checkpoint
+    models = os.path.join(tmp, 'models')
+
+    rows, summary, wall = run_scorer(repo, models,
+                                     os.path.join(tmp, 'curve.jsonl'))
+    epochs = [r['epoch'] for r in rows]
+    if epochs != [FUSED_INTERVAL, FUSED_EPOCHS]:
+        fail('the scorer scored epochs %s' % epochs)
+    if any(r['games'] < SCORE_GAMES or r['opponent'] != 'random'
+           or set(r) != {'epoch', 'opponent', 'games', 'win_rate', 'mean'}
+           for r in rows):
+        fail('the scorer\'s rows: %s' % rows)
+    first, last = rows
+    if not (last['win_rate'] >= SCORE_MIN_LAST
+            and last['win_rate'] >= first['win_rate']):
+        fail('scored win rates against random: epoch %d %.4f, epoch %d '
+             '%.4f (bar: the last >= %.2f and not below the first)' % (
+                 first['epoch'], first['win_rate'], last['epoch'],
+                 last['win_rate'], SCORE_MIN_LAST))
+    by_path = summary['kernel_launches']
+    launched = {(p, k) for p, counts in by_path.items()
+                for k, n in counts.items() if n}
+    if launched != {('evaluation', 'geese_trunk')} or \
+            summary['rollout_graphs'] != 1:
+        fail('the scorer launched %s with %s rollout graphs'
+             % (by_path, summary['rollout_graphs']))
+    log('score: %s; %d dispatches, K1 launches %s, one rollout graph, '
+        '%.2f s scoring, %.1f s process wall (%s)' % (
+            ', '.join('epoch %d %.4f (%d games, mean %.4f)' % (
+                r['epoch'], r['win_rate'], r['games'], r['mean'])
+                for r in rows),
+            summary['dispatches'], by_path, summary['seconds'], wall,
+            nvidia_smi_line()))
+
+    end = FUSED_EPOCHS + DRILL_EPOCHS
+    (rc1, out1, wall1), (rc2, out2, wall2) = run_drill(repo, tmp, end)
+    if rc1 != guard.PREEMPT_EXIT_CODE or \
+            'preempted: checkpoint flushed' not in out1:
+        fail('the SIGTERMed learner exited %s:\n%s' % (rc1, out1[-3000:]))
+    m = re.search(r'preempted: checkpoint flushed at epoch (\d+) \(steps '
+                  r'(\d+)\)', out1)
+    flushed, flushed_steps = int(m.group(1)), int(m.group(2))
+    ok, reason = verify_checkpoint(os.path.join(models, 'trainer_state.ckpt'))
+    if not ok:
+        fail('the flushed trainer_state.ckpt: %s' % reason)
+    if rc2 != 0 or ('auto-resume: newest valid checkpoint is epoch %d'
+                    % flushed) not in out2:
+        fail('the restarted learner exited %s:\n%s' % (rc2, out2[-3000:]))
+    scored = rows
+    rows = read_metrics(os.path.join(tmp, 'metrics.jsonl'))
+    pre = [r for r in rows if r.get('preempted')]
+    if len(pre) != 1 or pre[0]['steps'] != flushed_steps:
+        fail('preempted rows: %s' % pre)
+    steps = [r['steps'] for r in rows]
+    epochs = [r['epoch'] for r in rows if not r.get('preempted')]
+    if steps != sorted(steps) or len(epochs) != len(set(epochs)) or \
+            max(epochs) != end:
+        fail('the metrics rows across the restart: epochs %s, steps %s'
+             % (epochs[-12:], steps[-12:]))
+    kept = sorted(int(n.split('.')[0]) for n in os.listdir(models)
+                  if n.endswith('.ckpt') and n.split('.')[0].isdigit())
+    if len(kept) != DRILL_KEEP or kept[-1] != end or flushed not in kept:
+        fail('numbered checkpoints after the drill: %s' % kept)
+    line = json.loads([l for l in out2.splitlines() if l.startswith('{')][-1])
+    if not line['warm_dispatches'] >= 1:
+        fail('the restart trained before refilling its ring: %s' % line)
+    log('drill: SIGTERM after the first resumed row, exit %d in %.1f s, '
+        'flushed epoch %d (steps %d); restart exit 0 in %.1f s to epoch %d '
+        '(%d warm-up dispatches before training again); numbered checkpoints '
+        'kept %s (keep_checkpoints %d); %d metrics rows, steps monotonic' % (
+            rc1, wall1, flushed, flushed_steps, wall2, end,
+            line['warm_dispatches'], kept, DRILL_KEEP, len(rows)))
+    return {'score': scored, 'score_summary': summary}
+
+
 def main():
     try:
         import torch
@@ -2157,12 +2402,21 @@ def main():
     log('== phase 5: main path (the local learner)')
     learner = phase_learner(torch, repo, make_env, train['bench'])
 
-    log('== phase 6: main path (the fused device loop)')
-    fused = phase_fused(torch, repo, make_env, learner)
+    fused_tmp = tempfile.mkdtemp(prefix='chip_smoke_fused_')
+    try:
+        log('== phase 6: main path (the fused device loop)')
+        fused = phase_fused(torch, repo, make_env, learner, fused_tmp)
 
-    log('== phase 7: main path (the quick start: TicTacToe, turn-based)')
-    quick = phase_quick_start(torch, repo, make_env, target_rows)
+        log('== phase 7: main path (the quick start: TicTacToe, turn-based)')
+        quick = phase_quick_start(torch, repo, make_env, target_rows)
 
+        log('== phase 8: main path (phase 6\'s checkpoints scored offline; '
+            'a preemption drill)')
+        scored = phase_score_and_drill(repo, fused_tmp)
+    finally:
+        shutil.rmtree(fused_tmp, ignore_errors=True)
+
+    log('== phase 9: the kernels line')
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -2174,6 +2428,8 @@ def main():
         paths['learner_fused_' + name] = counts
     for name, counts in quick['line']['kernel_launches'].items():
         paths['quick_start_' + name] = counts
+    for name, counts in scored['score_summary']['kernel_launches'].items():
+        paths['score_' + name] = counts
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from

@@ -7,8 +7,10 @@ Differences from the JAX package: the inference engine runs on the device
 given to the service (``--device``, default 'cuda'), so
 ``inference.engine_backend`` does not exist here, and the fleet, gateway,
 metrics-exporter and alert knobs wait for their modules. The learner's
-``TRAIN_DEFAULTS`` hold the knobs of the local learner and of the fused
-device loop, and
+``TRAIN_DEFAULTS`` hold the knobs of the local learner, of the fused
+device loop and of the run plane (``metrics_jsonl``, ``keep_checkpoints``,
+``init_params``, ``guard.preempt_signals``, the publish hook's ``serving``
+block), and
 :func:`validate` raises for anything this port does not run yet (device
 generation without the fused loop, the threaded replay trainer, turn-based
 device training, batcher processes, streaming, the league, mesh
@@ -76,10 +78,13 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
     'eval': {'opponent': ['random']},  # 'random', 'rulebase[-key]' or .ckpt paths
     'seed': 0,
     'restart_epoch': 0,           # resume from model_dir/<n>.ckpt and trainer_state.ckpt; -1 = the newest checkpoint that passes verification (0 when none)
+    'init_params': '',            # warm start: load model params (a .ckpt of the same architecture, written by either package) at epoch 0, fresh optimizer and counters
     'batched_generation': True,   # in-process vectorized self-play (the only generation the port runs)
     'generation_envs': 64,        # env count of the batched generator
     'eval_envs': None,            # concurrent online-eval matches; None = max(4, generation_envs // 8)
     'model_dir': 'models',        # checkpoint directory
+    'metrics_jsonl': '',          # optional path: one JSON row per closed epoch (and a 'preempted' row)
+    'keep_checkpoints': 0,        # GC numbered <epoch>.ckpt beyond the newest N after each save (0 = keep all; registry-pinned versions and checkpoint eval opponents are never deleted)
     # the fused device loop (device_generation.py, ops/fused_pipeline.py):
     # both switches on, with fused_pipeline and device_ingest at True
     'device_generation': False,   # rollouts on the device (envs with a tensor twin)
@@ -96,6 +101,14 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
         'rollback_after': 8,
         'loss_spike_zscore': 0.0,  # > 0: also roll back on a finite loss this many EMA stddevs from its mean
         'check_episodes': True,    # drop episodes with non-finite data before they reach the buffer
+        'preempt_signals': True,   # SIGTERM/SIGINT: flush a full checkpoint at the next safe point and exit 75 (restart into restart_epoch -1)
+    },
+    # the learner's publish hook (the serving tier's registry)
+    'serving': {
+        'line': 'default',        # model line the publish hook registers versions on
+        'registry_dir': '',       # ModelRegistry root; '' = model_dir
+        'publish': False,         # register every numbered checkpoint as '<line>@<epoch>' (pinning it against keep_checkpoints GC)
+        'auto_promote': True,     # with publish: each published version also becomes the line's champion
     },
     'decode_cache_blocks': 1024,  # LRU capacity (bz2 blocks) of the batchers' decoded-moment cache; 0 disables
     'prefetch_depth': 2,          # batches staged to the device (pinned host memory, a copy stream) ahead of the step
@@ -224,6 +237,15 @@ def validate(args: Dict[str, Any]) -> None:
     _require(0.0 <= float(ta['eval_rate']) <= 1.0,
              'eval_rate must be a fraction in [0, 1]')
     _require(int(ta['restart_epoch']) >= -1, 'restart_epoch must be >= -1')
+    _require(int(ta['keep_checkpoints'] or 0) >= 0,
+             'keep_checkpoints must be >= 0 (0 keeps every checkpoint)')
+    srv = ta['serving']
+    extra = sorted(set(srv) - set(TRAIN_DEFAULTS['serving']))
+    _require(not extra, 'serving keys %s: the learner\'s serving block '
+             'takes %s; the service reads its own args (serving_args)'
+             % (extra, sorted(TRAIN_DEFAULTS['serving'])))
+    _require(bool(str(srv['line'] or '').strip()),
+             'serving.line must be a non-empty model-line name')
     _require(1 <= int(ta['compress_level']) <= 9,
              'compress_level must be a bz2 compresslevel in 1..9')
     g = ta['guard']

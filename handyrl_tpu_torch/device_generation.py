@@ -122,7 +122,10 @@ class DeviceEvaluator:
     chunk as one packed tensor, one dispatch late (``pipelined``).
 
     ``net`` is the actor's module on the device; its parameters are read in
-    place on every ply, so the caller refreshes them with ``copy_``."""
+    place on every ply, so the caller refreshes them with ``copy_`` (or
+    ``load_state_dict``, which copies into them: the checkpoint scorer
+    rescores many checkpoints with one evaluator and one captured rollout,
+    :meth:`flush` between them, :meth:`play` for a point's games)."""
 
     pipelined = True
 
@@ -200,6 +203,26 @@ class DeviceEvaluator:
             self._pending = self._dispatch()
         prev, self._pending = self._pending, self._dispatch()
         return self._collect(PackedFetch.get(prev))
+
+    def flush(self) -> int:
+        """Play and discard the matches started under the previous
+        parameters (the checkpoint scorer's swap, as the JAX scorer drains
+        them, scripts/eval_checkpoints.py:106-110): a whole match of the
+        env's longest length plus the chunk in flight. Returns the chunks
+        played."""
+        chunks = (int(getattr(self.env_mod, 'MAX_STEPS', 256))
+                  // self.chunk_steps + 2)
+        for _ in range(chunks):
+            self.step()
+        return chunks
+
+    def play(self, games: int) -> List[dict]:
+        """Chunks until at least ``games`` matches have finished; returns
+        every finished match (``games`` or a few more)."""
+        results: List[dict] = []
+        while len(results) < games:
+            results.extend(self.step())
+        return results
 
     def drain(self) -> List[dict]:
         """The in-flight chunk's matches, at the loop's end."""

@@ -1,10 +1,11 @@
-"""Reconnect backoff (the subset of ``handyrl_tpu/fault.py`` the serving
-path uses)."""
+"""Reconnect backoff and the chaos knobs (the subset of
+``handyrl_tpu/fault.py`` the serving path and the learner use)."""
 
 from __future__ import annotations
 
+import os
 import random
-from typing import Optional
+from typing import Dict, Optional
 
 
 class Backoff:
@@ -29,3 +30,22 @@ class Backoff:
 
     def reset(self):
         self._cur = self.initial
+
+
+def parse_chaos(spec: Optional[str] = None) -> Dict[str, float]:
+    """Parse ``HANDYRL_TPU_CHAOS`` (or an explicit spec string) into a dict
+    of float knobs; empty/unset means chaos off. Malformed entries are
+    ignored rather than crashing a production run."""
+    if spec is None:
+        spec = os.environ.get('HANDYRL_TPU_CHAOS', '')
+    out: Dict[str, float] = {}
+    for part in (spec or '').split(','):
+        part = part.strip()
+        if not part:
+            continue
+        key, _, value = part.partition('=')
+        try:
+            out[key.strip()] = float(value)
+        except ValueError:
+            print('ignoring malformed HANDYRL_TPU_CHAOS entry %r' % part)
+    return out

@@ -1,13 +1,19 @@
 """Learner and service resilience: the subset of ``handyrl_tpu/guard.py``
 the serving path and the local learner use.
 
-* :class:`PreemptionGuard`: SIGTERM/SIGINT become a cooperative stop flag.
-  A process that drains on the flag and exits with
-  :data:`PREEMPT_EXIT_CODE` tells its supervisor "done cleanly, restart
-  me". A third signal is an operator override and exits at once with
-  ``128 + signum``.
+* :class:`PreemptionGuard`: SIGTERM/SIGINT become a cooperative stop flag
+  that the learner's loops check at safe points (between dispatches, at
+  the top of a loop iteration). On it the learner flushes a full
+  checkpoint, writes a ``preempted`` metrics row and exits with
+  :data:`PREEMPT_EXIT_CODE`: the supervisor contract "done cleanly,
+  restart me" (``restart_epoch: -1`` resumes). The service drains on it
+  the same way. A third signal is an operator override and exits at once
+  with ``128 + signum``.
 * :class:`NonFiniteGuard`: the host's escalation policy over the update
   step's on-device finiteness flag (skip, rollback, abort).
+* :class:`ChaosNaN` and :func:`arm_chaos_preempt`: the
+  ``HANDYRL_TPU_CHAOS`` drills (``nanstep``/``nanepoch`` + ``nanburst``
+  poison the lr of updates; ``preempt=<s>`` SIGTERMs the process).
 * :func:`numbered_checkpoints` and :func:`newest_valid_epoch`: the
   CRC-verified resume and rollback targets.
 * :func:`episode_is_finite`: the ingest screen for poisoned episodes.
@@ -24,6 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from . import telemetry
+from .fault import parse_chaos
 
 _LOG = telemetry.get_logger('guard')
 
@@ -34,26 +41,39 @@ PREEMPT_EXIT_CODE = 75
 class PreemptionGuard:
     """SIGTERM/SIGINT -> cooperative stop flag (checked at safe points).
 
-    ``install`` is a no-op off the main thread (the CPython signal API
-    requirement); ``uninstall`` restores the previous handlers."""
+    The handler only sets the flag (and counts): the flush runs on the
+    loop's thread, never inside a graph capture or replay. ``install`` is
+    a no-op off the main thread (the CPython signal API requirement) and
+    when ``enabled`` is False; ``uninstall`` restores the previous
+    handlers, so an in-process learner (tests) leaves the interpreter's
+    signal disposition as it found it."""
 
-    def __init__(self):
+    def __init__(self, enabled: bool = True):
+        self.enabled = bool(enabled)
         self.signum: Optional[int] = None
         self._event = threading.Event()
         self._count = 0
         self._previous: Dict[int, Any] = {}
 
     def install(self) -> 'PreemptionGuard':
-        if self._previous or \
-                threading.current_thread() is not threading.main_thread():
+        if not self.enabled or self._previous:
+            return self
+        if threading.current_thread() is not threading.main_thread():
             return self
         for sig in (signal.SIGTERM, signal.SIGINT):
-            self._previous[sig] = signal.signal(sig, self._handle)
+            try:
+                self._previous[sig] = signal.signal(sig, self._handle)
+            except (ValueError, OSError):   # exotic embedding: stay passive
+                self._previous.pop(sig, None)
+                break
         return self
 
     def uninstall(self):
         for sig, prev in self._previous.items():
-            signal.signal(sig, prev)
+            try:
+                signal.signal(sig, prev)
+            except (ValueError, OSError):
+                pass
         self._previous = {}
 
     def _handle(self, signum, frame):
@@ -61,7 +81,12 @@ class PreemptionGuard:
         self.signum = signum
         self._event.set()
         if self._count >= 3:
+            # operator insists: skip the graceful snapshot entirely
             os._exit(128 + signum)
+
+    @property
+    def fired(self) -> bool:
+        return self._event.is_set()
 
     def requested(self) -> bool:
         return self._event.is_set()
@@ -130,6 +155,57 @@ class NonFiniteGuard:
         self._loss_n = 0
         self._loss_mean = 0.0
         self._loss_var = 0.0
+
+
+class ChaosNaN:
+    """``nanstep``/``nanepoch``/``nanburst`` injection bookkeeping.
+
+    ``due(step, count)`` answers whether any of the ``count`` updates
+    dispatched starting at global SGD step ``step`` should be poisoned,
+    and consumes the burst budget when it fires: a rollback that rewinds
+    the step counter back into the window must not re-trigger the
+    injection forever. ``nanepoch`` arms lazily (the learner arms it at
+    the matching epoch boundary, once a rollback target exists on disk).
+    """
+
+    def __init__(self, chaos: Optional[Dict[str, float]] = None):
+        chaos = parse_chaos() if chaos is None else chaos
+        self.at = int(chaos['nanstep']) if 'nanstep' in chaos else None
+        self.epoch = int(chaos['nanepoch']) if 'nanepoch' in chaos else None
+        self.burst = max(1, int(chaos.get('nanburst', 1)))
+        self.remaining = self.burst if (self.at is not None
+                                        or self.epoch is not None) else 0
+
+    def arm(self, at: int):
+        """Start the injection window at step ``at`` (once)."""
+        if self.at is None:
+            self.at = int(at)
+
+    def due(self, step: int, count: int = 1) -> bool:
+        if self.at is None or self.remaining <= 0 or step + count <= self.at:
+            return False
+        self.remaining -= count
+        return True
+
+
+def arm_chaos_preempt(chaos: Optional[Dict[str, float]] = None):
+    """``HANDYRL_TPU_CHAOS=preempt=<s>``: SIGTERM this process after a
+    fixed delay, the drill's stand-in for a preemption notice. Returns the
+    timer (None when the knob is off)."""
+    chaos = parse_chaos() if chaos is None else chaos
+    delay = chaos.get('preempt')
+    if not delay:
+        return None
+
+    def _fire():
+        print('chaos: preempting learner (SIGTERM)', flush=True)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    timer = threading.Timer(float(delay), _fire)
+    timer.daemon = True
+    timer.start()
+    return timer
+
 
 
 # ---------------------------------------------------------------------------

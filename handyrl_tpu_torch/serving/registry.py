@@ -23,7 +23,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Set, Tuple
 
 from .. import telemetry
 from ..fault import Backoff
@@ -331,3 +331,25 @@ class ModelRegistry:
                              for vid, meta in entry['versions'].items()},
             }
         return out
+
+    def pinned_paths(self) -> Set[str]:
+        """Absolute checkpoint paths of every live version (champion or
+        candidate) across all lines: the retention GC's exclusion set."""
+        manifest = self._read()
+        return {self._abs(meta['path'])
+                for entry in manifest['lines'].values()
+                for meta in entry['versions'].values()}
+
+
+def pinned_checkpoint_paths(root: str) -> Optional[Set[str]]:
+    """The registry's pinned paths for the retention GC (an empty set when
+    no manifest exists under ``root``), or None when a manifest is present
+    but unusable: with the pin set unknown the caller skips the GC rather
+    than delete a possibly pinned champion. Never raises."""
+    try:
+        return ModelRegistry(root).pinned_paths()
+    except RegistryError as exc:
+        _LOG.error('registry manifest under %s unusable for GC pinning '
+                   '(%s); retention GC is suspended until it is repaired',
+                   root, exc)
+        return None

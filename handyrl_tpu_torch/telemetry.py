@@ -1,9 +1,10 @@
 """In-process telemetry: a leveled logger and a metric registry.
 
-The subset of ``handyrl_tpu/telemetry.py`` the serving path uses: one
-process-global :class:`MetricRegistry` of labeled counters, gauges and
-fixed-bucket histograms with a plain-data ``snapshot``, and
-:func:`get_logger`. The same environment variables switch them:
+The subset of ``handyrl_tpu/telemetry.py`` the serving path and the
+learner use: one process-global :class:`MetricRegistry` of labeled
+counters, gauges and fixed-bucket histograms with a plain-data
+``snapshot``, :func:`summarize` (the compact form a ``metrics_jsonl`` row
+carries), :func:`run_id` and :func:`get_logger`. The same environment variables switch them:
 ``HANDYRL_TPU_TELEMETRY=0`` turns collection off and
 ``HANDYRL_TPU_LOG_LEVEL`` sets the log level. Tracing, the exporter and
 alerts are not ported yet.
@@ -17,6 +18,7 @@ import os
 import sys
 import threading
 import time
+import uuid
 from typing import Any, Dict, Sequence, Tuple
 
 _ENABLED = os.environ.get('HANDYRL_TPU_TELEMETRY', '1').strip().lower() \
@@ -56,6 +58,16 @@ def get_logger(name: str = _ROOT) -> logging.Logger:
     if name in ('', _ROOT):
         return root
     return root.getChild(name)
+
+
+# ---------------------------------------------------------------------------
+# run id: one identity for every record of a training run
+
+_RUN_ID = os.environ.get('HANDYRL_TPU_RUN_ID') or uuid.uuid4().hex[:12]
+
+
+def run_id() -> str:
+    return _RUN_ID
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +147,25 @@ class Histogram:
             self.count += 1
 
 
+def hist_quantile(bounds: Sequence[float], buckets: Sequence[int],
+                  count: int, q: float) -> float:
+    """Linear-interpolated quantile of a bucketed distribution."""
+    if count <= 0:
+        return 0.0
+    rank = q * count
+    seen = 0.0
+    for i, n in enumerate(buckets):
+        if n <= 0:
+            continue
+        if seen + n >= rank:
+            lo = bounds[i - 1] if i > 0 else 0.0
+            hi = bounds[i] if i < len(bounds) else bounds[-1]
+            frac = (rank - seen) / n
+            return lo + (hi - lo) * min(max(frac, 0.0), 1.0)
+        seen += n
+    return float(bounds[-1])
+
+
 class MetricRegistry:
     """Process-local metric store; one lock guards every update."""
 
@@ -180,3 +211,19 @@ counter = REGISTRY.counter
 gauge = REGISTRY.gauge
 histogram = REGISTRY.histogram
 snapshot = REGISTRY.snapshot
+
+
+def summarize(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """Compact form for metrics_jsonl: counters and gauges verbatim,
+    histograms reduced to count/sum/p50/p95/p99."""
+    hists = {}
+    for k, h in (snap.get('hists') or {}).items():
+        n = int(h['count'])
+        hists[k] = {'count': n, 'sum': round(float(h['sum']), 6)}
+        for name, q in (('p50', 0.50), ('p95', 0.95), ('p99', 0.99)):
+            hists[k][name] = round(hist_quantile(h['bounds'], h['buckets'],
+                                                 n, q), 6)
+    return {'counters': dict(snap.get('counters') or {}),
+            'gauges': {k: round(float(v), 6)
+                       for k, v in (snap.get('gauges') or {}).items()},
+            'hists': hists}

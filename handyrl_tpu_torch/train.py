@@ -34,6 +34,15 @@ matches on the device (``DeviceEvaluator``); the host reads one packed
 tensor a dispatch, one dispatch late (``feed_device_chunk``), and writes
 the checkpoints every ``checkpoint_interval`` epochs and at the last.
 
+The run plane (handyrl_tpu/train.py's, on both loops): a ``metrics_jsonl``
+row per closed epoch; the ``HANDYRL_TPU_DEADLINE`` wall-clock budget;
+SIGTERM/SIGINT (``guard.PreemptionGuard``) stop the loop at its next safe
+point, where :meth:`Learner.final_flush` writes the checkpoint pair once,
+then a ``preempted`` row, and the CLI exits 75 (``restart_epoch: -1``
+resumes); ``keep_checkpoints`` retention; the registry publish hook
+(``serving.publish``); the ``init_params`` warm start; the
+``HANDYRL_TPU_CHAOS`` drills (``preempt``, ``nanstep``/``nanepoch``).
+
 Kernel launches are counted by path (``ops.launches``): 'generation' and
 'evaluation' run K1's serving form in the main thread, 'training' K1's
 training form, K2 and the targets' kernels in the trainer thread (in the
@@ -41,7 +50,8 @@ fused loop, all three in the main thread). The CLI prints the log lines
 of the JAX package's learner and, at exit, one JSON line of rates, epoch
 times, peak device memory, the last epoch's losses and the launches by
 path (and the fused loop's dispatches, sample reuse, ring and host
-seconds). It exits non-zero when the trainer failed.
+seconds). It exits 75 after a preemption flush and 1 when the trainer
+failed.
 """
 
 from __future__ import annotations
@@ -76,8 +86,8 @@ from .ops.train_step import (GraphedUpdateStep, ReplayUpdateStep,
                               StaticUpdateStep, TrainState, init_train_state,
                               opt_state_from_flax, opt_state_to_flax)
 from .utils import flax_msgpack
-from .utils.fs import (checksummed_write_bytes, read_verified_bytes,
-                       verify_checkpoint)
+from .utils.fs import (append_jsonl, checksummed_write_bytes,
+                       read_verified_bytes, sidecar_path, verify_checkpoint)
 
 _LOG = telemetry.get_logger('train')
 
@@ -248,6 +258,14 @@ class Trainer:
         self.train_stopped_at: Optional[float] = None
         self.batch_wait_seconds = 0.0
         self.guard = guard_mod.NonFiniteGuard(args.get('guard') or {})
+        # HANDYRL_TPU_CHAOS nanstep/nanepoch/nanburst: a NaN lr on the
+        # updates of the drill's window
+        self.chaos_nan = guard_mod.ChaosNaN()
+        # the epoch's SGD steps/s and learning dynamics (the diag_* sums
+        # reduced), for the metrics rows
+        self.last_steps_per_sec = 0.0
+        self._diag_sum: Dict[str, float] = {}
+        self.last_dynamics: Dict[str, float] = {}
         # installed by the Learner, which owns the checkpoint files
         self.rollback_source = None
         self.rollback_epoch: Optional[int] = None
@@ -311,8 +329,12 @@ class Trainer:
         return self._stager.stage(batch)
 
     def _step(self, staged) -> Dict[str, Tensor]:
-        lr = torch.full((), self._lr(), dtype=torch.float32,
-                        device=self.device)
+        lr_val = self._lr()
+        if self.chaos_nan.due(self.steps):
+            _LOG.warning('chaos: injecting non-finite update at step %d',
+                         self.steps)
+            lr_val = float('nan')
+        lr = torch.full((), lr_val, dtype=torch.float32, device=self.device)
         if self._stager is None:
             return self.update_step({k: torch.from_numpy(v)
                                      for k, v in staged.items()}, lr)
@@ -326,6 +348,7 @@ class Trainer:
         batch_cnt, data_cnt = 0, 0
         pending: List[Dict[str, Tensor]] = []
         staged = self._staged
+        epoch_t0 = time.time()
 
         def top_up():
             while len(staged) < self.prefetch_depth:
@@ -364,7 +387,34 @@ class Trainer:
                 [k + ':' + '%.3f' % v for k, v in self.last_losses.items()]))
             self.data_cnt_ema = (self.data_cnt_ema * 0.8
                                  + data_cnt / (1e-2 + batch_cnt) * 0.2)
+            self.last_steps_per_sec = batch_cnt / max(time.time() - epoch_t0,
+                                                      1e-9)
+            self.last_dynamics = self._epoch_dynamics(loss_sum, data_cnt,
+                                                      batch_cnt)
         return self.host_params()
+
+    def _epoch_dynamics(self, loss_sum: Dict[str, float], data_cnt: int,
+                        n_updates: int) -> Dict[str, float]:
+        """The epoch's learning dynamics from the summed ``diag_*`` metrics
+        (handyrl_tpu/train.py:950-985): V-Trace rho/c clip fractions,
+        importance-ratio mean and std, entropy per acting sample and the
+        mean pre-clip grad norm a step."""
+        d, self._diag_sum = self._diag_sum, {}
+        dc, nu = max(1, data_cnt), max(1, n_updates)
+        out: Dict[str, float] = {}
+        if 'ent' in loss_sum:
+            out['entropy'] = loss_sum['ent'] / dc
+        if 'diag_rho_clip' in d:
+            out['rho_clip_fraction'] = d['diag_rho_clip'] / dc
+            out['c_clip_fraction'] = d.get('diag_c_clip', 0.0) / dc
+        if 'diag_rho_sum' in d:
+            mean = d['diag_rho_sum'] / dc
+            out['importance_ratio_mean'] = mean
+            var = max(0.0, d.get('diag_rho_sq_sum', 0.0) / dc - mean * mean)
+            out['importance_ratio_std'] = var ** 0.5
+        if 'diag_grad_norm' in d:
+            out['grad_norm'] = d['diag_grad_norm'] / nu
+        return {k: round(float(v), 6) for k, v in out.items()}
 
     def _drain_metrics(self, pending: List[Dict[str, Tensor]]) -> int:
         """Bring the queued metric dicts to the host in one copy and fold
@@ -381,7 +431,9 @@ class Trainer:
                     data_cnt += int(v)
                 elif k == 'nonfinite':
                     bad += int(v)
-                elif not k.startswith('diag_'):
+                elif k.startswith('diag_'):
+                    self._diag_sum[k] = self._diag_sum.get(k, 0.0) + float(v)
+                else:
                     if k == 'total':
                         total_sum += float(v)
                     self._loss_sum[k] = self._loss_sum.get(k, 0.0) + float(v)
@@ -509,9 +561,22 @@ class Learner:
                             / args['update_episodes'])
         self.eval_rate = max(args['eval_rate'], eval_modify_rate)
         self.shutdown_flag = False
+        # the run plane (handyrl_tpu/train.py:1155-1166,1369-1379): the
+        # preemption flag, the chaos drills, the one final flush, the
+        # metrics rows and the wall-clock budget (absolute unix time)
+        self.preempt = guard_mod.PreemptionGuard(
+            enabled=bool(args['guard'].get('preempt_signals', True)))
         self._check_episodes = bool(args['guard'].get('check_episodes',
                                                       True))
         self._bad_episodes = 0
+        self._chaos = guard_mod.parse_chaos()
+        self._final_flushed = False
+        self._last_ckpt_epoch = -1
+        self._last_ckpt_steps = -1
+        self._registry = None
+        self._metrics_path = args.get('metrics_jsonl') or ''
+        self._deadline = float(os.environ.get('HANDYRL_TPU_DEADLINE', 0)
+                               or 0)
         self.model_dir = args.get('model_dir', 'models')
 
         if net is None:
@@ -525,12 +590,19 @@ class Learner:
             # start when none does
             self.model_epoch, _ = guard_mod.newest_valid_epoch(
                 self.model_dir)
+            args['restart_epoch'] = self.model_epoch
             if self.model_epoch > 0:
                 print('auto-resume: newest valid checkpoint is epoch %d'
                       % self.model_epoch)
         if self.model_epoch > 0:
             self._load_resume_params()
             resume = True
+        elif args.get('init_params'):
+            # warm start: params only; the epoch counter, the optimizer's
+            # moments and the lr EMA start fresh
+            with open(args['init_params'], 'rb') as f:
+                load_params_bytes(self.module, f.read())
+            print('warm-started params from %s' % args['init_params'])
         self.start_epoch = self.model_epoch
         # the learner's host copy of the params: checkpoints, the actor
         self.params = {k: v.detach().cpu().clone()
@@ -577,14 +649,23 @@ class Learner:
         return os.path.join(self.model_dir, 'trainer_state.ckpt')
 
     def update_model(self, params: Optional[Dict[str, Tensor]], steps: int,
-                     state_blob: Optional[bytes] = None):
-        """Advance the model epoch and write its checkpoint files (atomic,
-        each with a CRC32 sidecar); with ``params`` None (the fused loop's
-        epochs between ``checkpoint_interval`` writes) only advance."""
+                     state_blob: Optional[bytes] = None, bump: bool = True):
+        """Advance the model epoch (unless ``bump`` is False: the final
+        flush rewrites the current epoch's files) and write its checkpoint
+        files (atomic, each with a CRC32 sidecar), publish them and run the
+        retention GC; with ``params`` None (the fused loop's epochs between
+        ``checkpoint_interval`` writes) only advance."""
         print('updated model(%d)' % steps)
-        self.model_epoch += 1
+        if bump:
+            self.model_epoch += 1
+            # chaos 'nanepoch': poison updates right after this epoch's
+            # checkpoint lands, so a rollback target exists
+            if self._chaos.get('nanepoch') == self.model_epoch:
+                self.trainer.chaos_nan.arm(self.trainer.steps + 1)
         if params is None:
             return
+        self._last_ckpt_epoch = self.model_epoch
+        self._last_ckpt_steps = steps
         self.params = params
         os.makedirs(self.model_dir, exist_ok=True)
         raw = params_bytes(self.module, params)
@@ -593,6 +674,174 @@ class Learner:
             checksummed_write_bytes(path, raw)
         if state_blob is not None:
             checksummed_write_bytes(self.trainer_state_path(), state_blob)
+        # publish before the GC: a version the registry is about to pin
+        # must be pinned by the time the GC reads the manifest
+        self._publish_checkpoint(steps)
+        self._gc_checkpoints()
+
+    def _registry_root(self) -> str:
+        srv = self.args.get('serving') or {}
+        return srv.get('registry_dir') or self.model_dir
+
+    def _publish_checkpoint(self, steps: int):
+        """``serving.publish``: register the numbered checkpoint just
+        written with the ModelRegistry as ``<line>@<epoch>`` (which pins it
+        against the retention GC); ``serving.auto_promote`` also makes it
+        the line's champion in the same manifest swap. A registry failure
+        is logged and training goes on."""
+        srv = self.args.get('serving') or {}
+        if not srv.get('publish'):
+            return
+        from . import models as model_zoo
+        from .serving.registry import ModelRegistry
+        if self._registry is None:
+            self._registry = ModelRegistry(self._registry_root())
+        try:
+            self._registry.publish(
+                str(srv.get('line', 'default')),
+                path=self.model_path(self.model_epoch),
+                architecture=model_zoo.architecture_name(self.module),
+                config=self.module.config() or None, steps=int(steps),
+                version=self.model_epoch,
+                promote=bool(srv.get('auto_promote', True)))
+        except Exception as exc:
+            _LOG.error('registry publish of epoch %d failed (%s: %s); '
+                       'training continues unpublished', self.model_epoch,
+                       type(exc).__name__, str(exc)[:200])
+
+    def _gc_checkpoints(self):
+        """``keep_checkpoints: N``: drop the numbered checkpoints beyond
+        the newest N, each with its CRC sidecar. Registry-pinned versions
+        and checkpoint eval opponents are never deleted; the rollback
+        target (the newest valid epoch) is inside the kept window. An
+        unreadable registry manifest suspends the pass: with the pin set
+        unknown, deleting anything could pull a champion from under a
+        service."""
+        keep = int(self.args.get('keep_checkpoints') or 0)
+        if keep <= 0:
+            return
+        epochs = guard_mod.numbered_checkpoints(self.model_dir)
+        if len(epochs) <= keep:
+            return
+        from .serving.registry import pinned_checkpoint_paths
+        pinned = pinned_checkpoint_paths(self._registry_root())
+        if pinned is None:
+            return   # corrupt manifest: collect nothing
+        protected = {os.path.abspath(o)
+                     for o in (self.args.get('eval', {}).get('opponent') or [])
+                     if isinstance(o, str) and os.path.exists(o)}
+        for epoch in epochs[:-keep]:
+            path = self.model_path(epoch)
+            if os.path.abspath(path) in pinned | protected:
+                continue
+            for p in (path, sidecar_path(path)):
+                try:
+                    os.unlink(p)
+                except OSError:
+                    pass
+
+    def final_flush(self):
+        """One code path for the fused loop's tail flush and the
+        preemption snapshot: write the current params and train state at
+        most once, so a SIGTERM in the last epoch cannot write
+        trainer_state.ckpt twice with different steps. The fused loop's
+        state is read after the in-flight dispatch (its packed fetch was
+        drained); the host loop's trainer hands it over at its next step
+        boundary."""
+        if self._final_flushed:
+            return
+        self._final_flushed = True
+        tr = self.trainer
+        params = steps = blob = None
+        if self._fused is not None:
+            if (self.model_epoch, tr.steps) == (self._last_ckpt_epoch,
+                                                self._last_ckpt_steps):
+                return   # the last epoch's files hold this state
+            if self.device.type == 'cuda':
+                torch.cuda.synchronize(self.device)
+            params, steps, blob = tr.host_params(), tr.steps, tr.state_bytes()
+        elif (tr.train_started_at is not None and not tr.failed
+              and self._trainer_thread is not None
+              and self._trainer_thread.is_alive()):
+            try:
+                params, steps, blob = tr.update(timeout=60)
+            except queue.Empty:
+                _LOG.warning('flush: the trainer did not reach a safe point '
+                             'in time; keeping the last epoch checkpoint')
+        if params is None:
+            return
+        if (self.model_epoch == self._last_ckpt_epoch
+                and steps == self._last_ckpt_steps):
+            return   # nothing advanced since the last write
+        self.update_model(params, steps, blob, bump=False)
+
+    def _write_preempt_record(self):
+        """The ``preempted`` metrics row and the line a supervisor greps
+        for. Its steps are the flushed count (what the resume restores),
+        not the live counter, so the rows' steps stay monotonic across the
+        restart."""
+        steps = max(self._last_ckpt_steps, 0)
+        self._write_metrics(steps, extra={
+            'preempted': True, 'signal': int(self.preempt.signum or 0)})
+        print('preempted: checkpoint flushed at epoch %d (steps %d); '
+              'exiting %d for a supervisor restart'
+              % (self.model_epoch, steps, guard_mod.PREEMPT_EXIT_CODE),
+              flush=True)
+
+    def _write_metrics(self, steps: int, extra: Optional[dict] = None):
+        """One ``metrics_jsonl`` row (handyrl_tpu/train.py:2378-2496 without
+        the planes the port lacks: league, fleet, alerts, the lag
+        histograms, the perf plane, rotation), appended in one write."""
+        if not self._metrics_path:
+            return
+        tr = self.trainer
+        rec = {'epoch': self.model_epoch, 'steps': steps,
+               'episodes': self.num_returned_episodes, 'time': time.time(),
+               'run_id': telemetry.run_id(),
+               'sgd_steps_per_sec': round(tr.last_steps_per_sec, 3),
+               'buffer': len(tr.episodes)}
+        if extra:
+            rec.update(extra)
+        gen = self.generation_results.get(self.model_epoch - 1)
+        if gen:
+            n, r, _ = gen
+            rec['generation_mean'] = r / (n + 1e-6)
+        ev = self.results.get(self.model_epoch - 1)
+        if ev:
+            n, r, _ = ev
+            rec['win_rate'] = (r / (n + 1e-6) + 1) / 2
+        ev_opp = self.results_per_opponent.get(self.model_epoch - 1)
+        if ev_opp:
+            rec['eval_opponents'] = {
+                name: {'games': n,
+                       'win_rate': round((r / (n + 1e-6) + 1) / 2, 4)}
+                for name, (n, r, _r2) in sorted(ev_opp.items())}
+        # a trailing window keeps the quality curve readable when an epoch
+        # sees a handful of evaluation games
+        recent = [self.results[e] for e in
+                  range(max(0, self.model_epoch - 10), self.model_epoch)
+                  if e in self.results]
+        if recent:
+            n = sum(t[0] for t in recent)
+            r = sum(t[1] for t in recent)
+            rec['win_rate_recent10'] = (r / (n + 1e-6) + 1) / 2
+            rec['eval_games_recent10'] = n
+        if self.args.get('device_replay'):
+            stats = tr.replay_stats
+            fp = self._fused
+            rec['replay_dropped_episodes'] = 0   # the fused ingest drops none
+            rec['replay_ring_occupancy'] = round(
+                fp.ring_size_host / fp.capacity if fp is not None else 0.0, 4)
+            rec['replay_sample_reuse'] = round(
+                stats['samples_drawn'] / max(1, stats['windows_ingested']), 3)
+        rec.update(tr.last_dynamics)
+        rec['guard_nonfinite'] = tr.guard.total_bad
+        rec['guard_rollbacks'] = tr.guard.rollbacks
+        rec['guard_bad_episodes'] = self._bad_episodes
+        telemetry.gauge('learner_epoch').set(self.model_epoch)
+        telemetry.gauge('learner_buffer_episodes').set(len(tr.episodes))
+        rec['telemetry'] = telemetry.summarize(telemetry.snapshot())
+        append_jsonl(self._metrics_path, rec)
 
     def _load_resume_params(self):
         """Load the params of ``model_epoch``, falling back to the newest
@@ -725,12 +974,30 @@ class Learner:
             self.shutdown_flag = True
             return
         self.update_model(params, steps, state_blob)
+        self._write_metrics(steps)
         self.epoch_closed_at.append(time.time())
         self.epoch_steps.append(steps)
         self.epoch_losses = dict(self.trainer.last_losses)
 
+    def _deadline_passed(self) -> bool:
+        return self._deadline > 0 and time.time() >= self._deadline
+
     def _past_epoch_budget(self) -> bool:
-        return 0 <= self.args['epochs'] <= self.model_epoch
+        """True when the epoch budget or the wall-clock deadline
+        (``HANDYRL_TPU_DEADLINE``) is spent."""
+        return (0 <= self.args['epochs'] <= self.model_epoch
+                or self._deadline_passed())
+
+    def _stop_requested(self) -> bool:
+        """The loops' safe point at the top of an iteration: the
+        wall-clock budget spent mid-epoch, or a preemption signal."""
+        if self._deadline_passed():
+            return True
+        if self.preempt.requested():
+            _LOG.warning('preemption signal received; snapshotting and '
+                         'exiting')
+            return True
+        return False
 
     def _run_eval_share(self, evaluator, tracker: Optional[Dict] = None):
         """Advance online evaluation until its share of episodes reaches
@@ -771,6 +1038,8 @@ class Learner:
         actor_epoch = self.model_epoch
         self._run_started_at = time.time()
         while not self.shutdown_flag:
+            if self._stop_requested():
+                break
             self._poll_rollback()
             if actor_epoch != self.model_epoch:   # follow the latest epoch
                 with launches.capture_lock:
@@ -917,6 +1186,7 @@ class Learner:
         actor_epoch = self.model_epoch
         pending_metrics: List[Dict[str, float]] = []
         epoch_steps = 0
+        epoch_t0 = time.time()
         eval_tracker: Dict[str, int] = {}
         # the accounting arrives one dispatch late: the epoch of each
         # dispatch is kept until its chunk is read
@@ -934,6 +1204,8 @@ class Learner:
 
         self._run_started_at = time.time()
         while not self.shutdown_flag:
+            if self._stop_requested():
+                break
             if actor_epoch != self.model_epoch:
                 fp.refresh_actor(tr.update_step.state.params)
                 actor_epoch = self.model_epoch
@@ -947,7 +1219,12 @@ class Learner:
                 if tr.train_started_at is None:
                     tr.train_started_at = time.time()
                     tr.steps_at_start = tr.steps
-                prev = fp.train_step(tr.data_cnt_ema)
+                ema = tr.data_cnt_ema
+                if tr.chaos_nan.due(tr.steps, fp.sgd_steps):
+                    _LOG.warning('chaos: injecting non-finite update at '
+                                 'step %d', tr.steps)
+                    ema = float('nan')   # a NaN lr on the graphed steps
+                prev = fp.train_step(ema)
                 tr.steps += fp.sgd_steps
                 epoch_steps += fp.sgd_steps
                 self.plies['generation'] += fp.chunk_steps
@@ -958,9 +1235,11 @@ class Learner:
                 self._run_eval_share(evaluator, eval_tracker)
             t3 = time.perf_counter()
             if cadence.due(self.num_returned_episodes):
-                self._fused_epoch(pending_metrics, epoch_steps)
+                self._fused_epoch(pending_metrics, epoch_steps,
+                                  time.time() - epoch_t0, evaluator)
                 pending_metrics.clear()
                 epoch_steps = 0
+                epoch_t0 = time.time()
                 if self._past_epoch_budget():
                     self.shutdown_flag = True
             t4 = time.perf_counter()
@@ -974,13 +1253,17 @@ class Learner:
                               model_id=eval_tracker.get('prev'))
         tr.train_stopped_at = time.time()
         self._run_ended_at = time.time()
+        # checkpoint_interval may have skipped the last epoch's files, and
+        # a deadline or a preemption lands mid-epoch: the one idempotent
+        # flush covers both, between dispatches, after the packed fetch
+        self.final_flush()
 
     def _fused_epoch(self, pending_metrics: List[Dict[str, float]],
-                     epoch_steps: int):
+                     epoch_steps: int, epoch_wall: float, evaluator):
         """The fused loop's epoch close: the JAX learner's lines, the lr
-        EMA, and the checkpoint files every ``checkpoint_interval`` epochs
-        and always at the last epoch (the actor's params refresh on the
-        device every epoch either way)."""
+        EMA, the checkpoint files every ``checkpoint_interval`` epochs and
+        always at the last epoch (the actor's params refresh on the device
+        every epoch either way), and the metrics row."""
         tr = self.trainer
         print()
         print('epoch %d' % self.model_epoch)
@@ -988,11 +1271,16 @@ class Learner:
         self._print_generation_stats()
         data_cnt = 0
         loss_sum: Dict[str, float] = {}
+        diag_sum: Dict[str, float] = {}
         for metrics in pending_metrics:
             for k, v in metrics.items():
                 if k == 'data_count':
                     data_cnt += int(v)
-                elif k != 'nonfinite' and not k.startswith('diag_'):
+                elif k == 'nonfinite':
+                    continue   # the guard's count, observed a dispatch
+                elif k.startswith('diag_'):
+                    diag_sum[k] = diag_sum.get(k, 0.0) + float(v)
+                else:
                     loss_sum[k] = loss_sum.get(k, 0.0) + float(v)
         if epoch_steps > 0:
             tr.last_losses = {k: v / max(data_cnt, 1)
@@ -1001,6 +1289,10 @@ class Learner:
                 k + ':' + '%.3f' % v for k, v in tr.last_losses.items()))
             tr.data_cnt_ema = (tr.data_cnt_ema * 0.8
                                + data_cnt / (1e-2 + epoch_steps) * 0.2)
+            tr.last_steps_per_sec = epoch_steps / max(epoch_wall, 1e-9)
+            tr._diag_sum = diag_sum
+            tr.last_dynamics = tr._epoch_dynamics(loss_sum, data_cnt,
+                                                  epoch_steps)
         stats = tr.replay_stats
         stats['samples_drawn'] += epoch_steps * self.args['batch_size']
         stats['windows_ingested'] = self._fused.windows_ingested_host
@@ -1021,6 +1313,9 @@ class Learner:
                                          + time.perf_counter() - t1)
         else:
             self.update_model(None, tr.steps)
+        self._write_metrics(tr.steps, {
+            'dispatches_gen': self._fused.dispatches,
+            'dispatches_eval': getattr(evaluator, 'dispatches', 0)})
         self.epoch_closed_at.append(time.time())
         self.epoch_steps.append(tr.steps)
         self.epoch_losses = dict(tr.last_losses)
@@ -1049,24 +1344,34 @@ class Learner:
             fp.refresh_actor(tr.update_step.state.params)
 
     def run(self):
-        if self.args['device_generation']:
-            try:
-                self._run_device()
-            finally:
-                self.shutdown()
-            return
-        self._trainer_thread = threading.Thread(target=self.trainer.run,
-                                                name='trainer', daemon=True)
-        self._trainer_thread.start()
+        # SIGTERM/SIGINT -> a flush at the next safe point and exit 75;
+        # chaos 'preempt=<s>' arms a self-SIGTERM for the drills
+        self.preempt.install()
+        guard_mod.arm_chaos_preempt(self._chaos)
         try:
-            self._run_batched()
+            if self.args['device_generation']:
+                self._run_device()
+            else:
+                self._trainer_thread = threading.Thread(
+                    target=self.trainer.run, name='trainer', daemon=True)
+                self._trainer_thread.start()
+                self._run_batched()
         finally:
+            if self.preempt.fired:
+                # the full checkpoint before the threads are torn down: the
+                # restart finds the train state as of the last safe point
+                try:
+                    self.final_flush()
+                    self._write_preempt_record()
+                except Exception:
+                    traceback.print_exc()
             self.shutdown()
 
     def shutdown(self):
         """Stop and join the trainer and batcher threads, then drop the
         update step's graphs, so no thread is left on the device at exit."""
         self.shutdown_flag = True
+        self.preempt.uninstall()
         self.trainer.shutdown()
         if self._trainer_thread is not None:
             self._trainer_thread.join(timeout=300)
@@ -1181,6 +1486,9 @@ def main(argv=None) -> int:
     learner = Learner(args, device=device)
     learner.run()
     print(json.dumps(learner.summary()), flush=True)
+    if learner.preempt.fired:
+        # the supervisor contract: restart into restart_epoch -1
+        return guard_mod.PREEMPT_EXIT_CODE
     if learner.trainer.failed:
         print('training failed: %s' % learner.trainer.failed_reason,
               file=sys.stderr, flush=True)

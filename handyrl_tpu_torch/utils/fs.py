@@ -1,6 +1,6 @@
-"""Crash-safe file writes with CRC32 sidecars (the subset of
-``handyrl_tpu/utils/fs.py`` the model registry and the learner's
-checkpoints use).
+"""Crash-safe file writes with CRC32 sidecars and append-safe JSONL (the
+subset of ``handyrl_tpu/utils/fs.py`` the model registry and the
+learner's checkpoints and metrics rows use).
 
 Writes go to a temp file in the SAME directory (os.replace must not cross
 filesystems), are fsynced, then atomically renamed over the target, so a
@@ -88,3 +88,19 @@ def read_verified_bytes(path: str):
     the sidecar checksum (files without a sidecar pass)."""
     ok, _reason, data = _verify(path)
     return data if ok else None
+
+
+def append_jsonl(path: str, record: dict, fsync: bool = True):
+    """Append ``record`` to a JSONL file append-safely: the whole encoded
+    line (payload and newline) goes down in ONE ``os.write`` on an
+    ``O_APPEND`` descriptor and is fsynced (unless ``fsync`` is False)
+    before the descriptor closes, so a learner killed mid-epoch leaves
+    the complete line or no line, never a torn half-line."""
+    line = (json.dumps(record) + '\n').encode('utf-8')
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    try:
+        os.write(fd, line)
+        if fsync:
+            os.fsync(fd)
+    finally:
+        os.close(fd)

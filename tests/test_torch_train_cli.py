@@ -92,7 +92,7 @@ def test_cli_without_cuda_raises(tmp_path):
     ({}, {'parallel': {'model_parallel': 2}}, 'parallel'),
     ({}, {'batched_generation': False}, 'batched_generation'),
     ({}, {'burn_in_steps': 2}, 'burn_in_steps'),
-    ({}, {'metrics_jsonl': 'm.jsonl'}, 'metrics_jsonl'),
+    ({}, {'telemetry_port': 9100}, 'telemetry_port'),
     ({'net_kind': 'lstm'}, {}, 'net_kind'),
     ({'norm_kind': 'batch'}, {}, 'norm_kind'),
     ({'env': 'TicTacToe'}, {'device_generation': True}, 'TicTacToe'),
