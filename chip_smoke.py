@@ -94,6 +94,14 @@ non-zero, printing no result, when either is missing or any phase fails.
    included). Then loads ``latest.ckpt`` on the card and on the CPU and
    holds the card's forward to the CPU's on real boards (POLICY_TOL), and
    prints the learner's rates beside the bench's graphed step.
+5(b). The same run with ``batcher_processes`` and ``batcher_shared_memory``
+   and no --device: the batches are built by spawned processes into
+   shared-memory slots. The same checks, and it fails unless the learner's
+   JSON line says the shared-memory path was taken (batches mapped, slots
+   used, its segments' names) and no segment of the run is in /dev/shm
+   after the process exits (listings before and after). Prints both runs
+   side by side: episodes/s, trajectories/s, update steps/s, the
+   trainer's wait for batches and the loop's host seconds by stage.
 6. The fused device loop, through the same entry point with no --device
    (the card is the default): the JAX package's north-star configuration
    (full-width GeeseNet, B=64, T=16, VTRACE/VTRACE, 64 generation envs,
@@ -140,6 +148,27 @@ non-zero, printing no result, when either is missing or any phase fails.
    games for both agents in its report, played in 4 spawned processes.
    Prints the rates, the steps per epoch, K3's time at 256 lanes, the
    tournament's seconds and the main agent's win rate.
+7(b). The quick start with ``batcher_processes`` and
+   ``batcher_shared_memory``, cut to QUICK_SHM_EPOCHS epochs: phase 7's run
+   checks (K3 at 256 lanes once a step, no other kernel, checkpoints that
+   verify), the shared-memory path and /dev/shm as in 5(b), and its rates
+   beside phase 7's.
+7(c). The quick start on the fused device loop: ``tictactoe.json`` plus
+   config.yaml's commented lines (``device_generation``,
+   ``device_replay``, ``sgd_steps_per_chunk`` 16, ``checkpoint_interval``
+   10), QUICK_FUSED_EPOCHS epochs, no --device. Fails unless the learner
+   ran the fused pipeline in turn mode, every epoch closed with finite
+   losses, steps = fused dispatches x 16, K3 launched once a step under
+   'training' (T=16, P=2, 256 lanes) and no other kernel anywhere, the
+   checkpoints of epochs 10 and 15 and ``latest.ckpt`` verify, its forward
+   on the card matches the CPU's (POLICY_TOL) and phase 7's learning bar
+   holds. Then, in this process: the TicTacToe twin's step, auto-reset,
+   observation, legal mask, turn and outcome on the card against the CPU
+   (equal exactly); the 'turn' ingest of two chunks' card records into a
+   ring they wrap, card against CPU (equal exactly); three steps of the
+   K-step update graph against the CPU's step from the same state on the
+   same slots (phase 4's tolerances); a steady dispatch's chunk and step
+   graphs timed by CUDA events. Prints its rates beside phase 7's.
 8. Phase 6's run, read on. (a) ``scripts/torch_eval_checkpoints.py``
    scores its checkpoints of epoch 10 and of the last in a fresh process
    (counts from 0 at the first point): 512 games a point against
@@ -158,8 +187,10 @@ non-zero, printing no result, when either is missing or any phase fails.
    remain.
 9. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
    and K2b take their launches from K2's count, one of each a call; the
-   fused loop's under ``learner_fused_*``, the quick start's under
-   ``quick_start_*``, the scorer's under ``score_*``), the nvidia-smi
+   fused loop's under ``learner_fused_*``, 5(b)'s under
+   ``learner_shm_*``, the quick start's under ``quick_start_*``, 7(b)'s
+   and 7(c)'s under ``quick_start_shm_*`` and ``quick_start_fused_*``,
+   the scorer's under ``score_*``), the nvidia-smi
    line, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -1354,10 +1385,22 @@ LEARNER_FILES = ['%d.ckpt' % e for e in range(1, LEARNER_EPOCHS + 1)] + [
     'latest.ckpt', 'trainer_state.ckpt']
 
 
-def run_learner_entry(repo, tmp):
-    """``python -m handyrl_tpu_torch.train --config ... --device cuda`` on
-    LEARNER_CONFIG: its JSON line and the wall time of the process."""
+# phase 5(b): the same run with its batches built in spawned processes
+# into shared-memory slots
+BATCHER_SWITCHES = {'batcher_processes': True, 'batcher_shared_memory': True}
+
+
+def shm_listing():
+    """The names in /dev/shm (where POSIX shared memory lives on Linux)."""
+    return set(os.listdir('/dev/shm'))
+
+
+def run_learner_entry(repo, tmp, extra=None, device_flag=True):
+    """``python -m handyrl_tpu_torch.train --config ... [--device cuda]`` on
+    LEARNER_CONFIG with ``extra`` train_args: its JSON line and the wall
+    time of the process."""
     cfg = json.loads(json.dumps(LEARNER_CONFIG))
+    cfg['train_args'].update(extra or {})
     cfg['train_args']['model_dir'] = os.path.join(tmp, 'models')
     path = os.path.join(tmp, 'learner.json')
     with open(path, 'w') as f:
@@ -1366,7 +1409,7 @@ def run_learner_entry(repo, tmp):
     try:
         proc = subprocess.run(
             [sys.executable, '-m', 'handyrl_tpu_torch.train', '--config',
-             path, '--device', 'cuda'],
+             path] + (['--device', 'cuda'] if device_flag else []),
             cwd=repo, capture_output=True, text=True, timeout=600)
     except subprocess.TimeoutExpired as exc:
         fail('the learner did not finish within 600 s:\n%s' % (
@@ -1374,7 +1417,7 @@ def run_learner_entry(repo, tmp):
     wall = time.monotonic() - t0
     for line in proc.stdout.splitlines():
         if line.startswith(('epoch', 'win rate', 'generation stats', 'loss',
-                            'updated model')):
+                            'updated model', 'batcher processes')):
             log('  learner: %s' % line)
     if proc.returncode != 0:
         fail('the learner exited %d:\n%s' % (proc.returncode,
@@ -1385,7 +1428,10 @@ def run_learner_entry(repo, tmp):
     return json.loads(lines[0]), wall
 
 
-def phase_learner(torch, repo, make_env, bench_line):
+def phase_learner(torch, repo, make_env, bench_line, extra=None,
+                  device_flag=True):
+    """Phase 5 (and 5(b) with ``extra``): the learner's run and its
+    checks; returns its JSON line, with the process wall as 'wall'."""
     import math
     import numpy as np
     from handyrl_tpu_torch.evaluation import load_model
@@ -1395,7 +1441,8 @@ def phase_learner(torch, repo, make_env, bench_line):
     from handyrl_tpu_torch.utils.fs import verify_checkpoint
     tmp = tempfile.mkdtemp(prefix='chip_smoke_learner_')
     try:
-        line, wall = run_learner_entry(repo, tmp)
+        line, wall = run_learner_entry(repo, tmp, extra, device_flag)
+        line['wall'] = wall
         models = os.path.join(tmp, 'models')
         log('learner: %s' % json.dumps(line))
         if line['epochs'] != LEARNER_EPOCHS or line['failed']:
@@ -1462,6 +1509,60 @@ def phase_learner(torch, repo, make_env, bench_line):
         return line
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_shm_run(label, line, before, after):
+    """A learner run with BATCHER_SWITCHES took the shared-memory path
+    (its JSON line's 'batcher_mode' and 'shm': batches mapped, slots used,
+    segment names) and left no segment in /dev/shm (listings ``before``
+    and ``after`` the process)."""
+    shm = line.get('shm') or {}
+    left = sorted(set(shm.get('segments', [])) & after)
+    new = sorted(after - before)
+    log('%s: batcher mode %s; %d batches through %d shared-memory slots '
+        '(%d a batcher) in segments %s; /dev/shm after the run: %d names, '
+        'new %s, of the run %s' % (
+            label, line.get('batcher_mode'), shm.get('batches', 0),
+            shm.get('slots_used', 0), shm.get('slots_per_batcher', 0),
+            shm.get('segments'), len(after), new, left))
+    if line.get('batcher_mode') != 'shared_memory' or not (
+            shm.get('batches', 0) > 0 and shm.get('slots_used', 0) > 0
+            and shm.get('segments')):
+        fail('%s did not take the shared-memory batcher path: %s'
+             % (label, shm))
+    if left or new:
+        fail('%s left shared-memory segments behind: %s' % (label,
+                                                             left or new))
+
+
+def side_by_side(label, names, lines):
+    """The rates of runs of one config, one column a run."""
+    keys = ('episodes_per_s', 'trajectories_per_s', 'update_steps_per_s',
+            'trainer_batch_wait_seconds', 'train_seconds', 'wall')
+    log('%s, same card (%s):' % (label, nvidia_smi_line()))
+    log('  %-28s %s' % ('', ' '.join('%16s' % n for n in names)))
+    for k in keys:
+        log('  %-28s %s' % (k, ' '.join(
+            '%16.3f' % l[k] if l.get(k) is not None else '%16s' % '-'
+            for l in lines)))
+    stages = sorted(set().union(*(l['loop_seconds'] for l in lines)))
+    for k in stages:
+        log('  %-28s %s' % ('loop_seconds.' + k, ' '.join(
+            '%16.3f' % l['loop_seconds'].get(k, 0.0) for l in lines)))
+
+
+def phase_learner_shm(torch, repo, make_env, bench_line, threaded):
+    """Phase 5(b): phase 5's run with BATCHER_SWITCHES and no --device,
+    its checks, the shared-memory path and /dev/shm; the two runs side by
+    side."""
+    before = shm_listing()
+    line = phase_learner(torch, repo, make_env, bench_line,
+                         extra=BATCHER_SWITCHES, device_flag=False)
+    check_shm_run('learner (shm)', line, before, shm_listing())
+    side_by_side('host learner, batcher threads vs processes with '
+                 'shared-memory batches', ('threads', 'shm processes'),
+                 (threaded, line))
+    return line
 
 
 # ---------------------------------------------------- phase 6: fused loop
@@ -1613,19 +1714,27 @@ def fused_setup(torch, capacity=None):
     return fp, step, tg, args
 
 
-def fused_ingest_and_step_checks(torch, fp, tg, args):
+def fused_ingest_and_step_checks(torch, fp, tg, args, mode='solo',
+                                 make_net=None, cfg=None):
     """Records of INGEST_PLIES plies on the card, ingested on the card and
     on the CPU with the same draws into a ring of INGEST_CAPACITY rows: history, counts,
     ring rows, cursor and size equal exactly. Then three steps of the
     card's step graph (its first eager, then a capture and a replay) on
     that ring, each held against the CPU's step from the card's state with
     the slots the card drew, under phase 4's tolerances; the slots of two
-    replays must differ."""
+    replays must differ. ``mode`` is the windower's layout, ``make_net(
+    seed)`` a CPU net of the pipeline's architecture (the full-width
+    GeeseNet by default) and ``cfg`` the step's loss config (the args')."""
     from handyrl_tpu_torch.ops.device_windows import DeviceWindower
     from handyrl_tpu_torch.ops.train_step import ReplayUpdateStep, \
         TrainState, AdamState
     from handyrl_tpu_torch.models.geese import GeeseNet
     from handyrl_tpu_torch.train import loss_config
+    if make_net is None:
+        def make_net(seed):
+            return GeeseNet(torus_impl='pallas', generator=(
+                None if seed is None else torch.Generator().manual_seed(seed)))
+    P = tg.NUM_PLAYERS
     state = tg.State(*[t.clone() for t in fp.state])
     _, records = fp._rollout(state, INGEST_PLIES,
                              torch.Generator('cuda').manual_seed(SEED + 3))
@@ -1633,11 +1742,11 @@ def fused_ingest_and_step_checks(torch, fp, tg, args):
     W = fp.windower.W
     gen = torch.Generator().manual_seed(SEED + 12)
     draws = {'u': torch.rand((K, N, W), generator=gen),
-             'seat': torch.randint(0, 4, (K, N, W), generator=gen)}
+             'seat': torch.randint(0, P, (K, N, W), generator=gen)}
     out = {}
     for dev in ('cuda', 'cpu'):
-        wd = DeviceWindower('solo', args['forward_steps'], 0, tg.MAX_STEPS,
-                            W, INGEST_CAPACITY, 4, args['gamma'], False)
+        wd = DeviceWindower(mode, args['forward_steps'], 0, tg.MAX_STEPS,
+                            W, INGEST_CAPACITY, P, args['gamma'], False)
         rec = {k: v.to(dev) for k, v in records.items()}
         ws = wd.init_state(rec)
         ring = wd.init_ring(rec)
@@ -1658,21 +1767,20 @@ def fused_ingest_and_step_checks(torch, fp, tg, args):
             bad.append(k)
     if not torch.equal(c['ws']['counts'].cpu(), h['ws']['counts']):
         bad.append('counts')
-    log('fused: ingest of %d plies of %d envs on the card vs the CPU: '
+    log('fused: %s ingest of %d plies of %d envs on the card vs the CPU: '
         '%d episodes, %d windows into %d rows (cursor %d, size %d); unequal '
-        '%s' % (K, N, h['n_done'], h['n_win'], INGEST_CAPACITY,
+        '%s' % (mode, K, N, h['n_done'], h['n_win'], INGEST_CAPACITY,
                 int(h['cursor']), int(h['size']), bad))
     if bad or (c['n_done'], c['n_win']) != (h['n_done'], h['n_win']):
         fail('the ingest on the card differs from the CPU\'s in %s' % bad)
     if h['n_win'] <= INGEST_CAPACITY:
         fail('the ingest check\'s ring did not wrap')
 
-    cfg = loss_config(args)
-    net = GeeseNet(torus_impl='pallas',
-                   generator=torch.Generator().manual_seed(SEED + 1))
+    cfg = cfg or loss_config(args)
+    net = make_net(SEED + 1)
     from handyrl_tpu_torch.ops.train_step import init_train_state
     card = ReplayUpdateStep(net.cuda(), cfg, init_train_state(net.cuda()))
-    host_net = GeeseNet(torus_impl='pallas')
+    host_net = make_net(None)
     host = ReplayUpdateStep(host_net, cfg, init_train_state(host_net))
     card.bind(c['ring'], c['wd'].window_spec, c['size'], c['cursor'],
               INGEST_CAPACITY, args['batch_size'],
@@ -1710,8 +1818,8 @@ def fused_ingest_and_step_checks(torch, fp, tg, args):
         hm = host.unpack(host.run(1, ema, slots=slots[None]))
         after = snap(card, {k: float(v) for k, v in m.items()})
         cpu_after = snap(host, {k: float(v) for k, v in hm.items()})
-        check_against_cpu('fused K-step update, step %d (%s)' % (
-            i + 1, ('eager', 'captured and replayed', 'replayed')[i]),
+        check_against_cpu('fused K-step update (%s), step %d (%s)' % (
+            mode, i + 1, ('eager', 'captured and replayed', 'replayed')[i]),
             before['params'], after, cpu_after, lr=lr)
     if torch.equal(slots_seen[1], slots_seen[2]):
         fail('two replays of the step graph drew the same slots')
@@ -1740,26 +1848,7 @@ def fused_profile(torch, fp, args):
     if differ == 0:
         fail('two replays of the rollout graph drew the same actions')
     ema = float(args['batch_size'] * args['forward_steps'])
-    for _ in range(3):   # the step graph: eager, capture, replay
-        fp.train_step(ema)
-    torch.cuda.synchronize()
-    # the two parts of a dispatch apart, by CUDA events over 3 calls each
-    parts = {}
-    for name, fn in (('chunk', fp._chunk),
-                     ('steps', lambda: fp.update_step.run(FUSED_K, ema))):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(3):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        parts[name] = start.elapsed_time(end) / 3
-    log('fused: the chunk graph (%d plies of %d envs and their ingest) %.3f '
-        'ms a call; %d replays of the step graph %.3f ms (%.4f ms a step); '
-        'CUDA events' % (args['device_chunk_steps'], args['generation_envs'],
-                         parts['chunk'], FUSED_K, parts['steps'],
-                         parts['steps'] / FUSED_K))
+    parts = dispatch_parts_ms(torch, fp, args, FUSED_K, 'fused')
     result = fused_profile_window(torch, fp, args, ema)
     if result is None:
         # a window can lose records, as phase 4's profile_step found: one of
@@ -1772,6 +1861,33 @@ def fused_profile(torch, fp, args):
              'often as its graphs hold them, in two windows')
     result.update(chunk_ms=parts['chunk'], steps_ms=parts['steps'])
     return result
+
+
+def dispatch_parts_ms(torch, fp, args, k, label):
+    """A steady dispatch's two parts apart, by CUDA events over 3 calls
+    each, after the step graph's eager call, capture and replay:
+    {'chunk': ms a chunk graph, 'steps': ms of ``k`` step replays}."""
+    ema = float(args['batch_size'] * args['forward_steps'])
+    for _ in range(3):   # the step graph: eager, capture, replay
+        fp.train_step(ema)
+    torch.cuda.synchronize()
+    parts = {}
+    for name, fn in (('chunk', fp._chunk),
+                     ('steps', lambda: fp.update_step.run(k, ema))):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        parts[name] = start.elapsed_time(end) / 3
+    log('%s: the chunk graph (%d plies of %d envs and their ingest) %.3f '
+        'ms a call; %d replays of the step graph %.3f ms (%.4f ms a step); '
+        'CUDA events' % (label, args['device_chunk_steps'],
+                         args['generation_envs'], parts['chunk'], k,
+                         parts['steps'], parts['steps'] / k))
+    return parts
 
 
 def fused_profile_window(torch, fp, args, ema):
@@ -1994,6 +2110,16 @@ QUICK_GAMES, QUICK_PROCS = 100, 4
 QUICK_TARGETS = (16, 2, 256)   # (T, P, lanes) of the turn-based step's K3
 QUICK_FILES = ['%d.ckpt' % e for e in range(1, QUICK_EPOCHS + 1)] + [
     'latest.ckpt', 'trainer_state.ckpt']
+# 7(b): the same with batcher processes and shared-memory batches, cut to
+# QUICK_SHM_EPOCHS epochs
+QUICK_SHM_EPOCHS = 8
+# 7(c): the same on the fused device loop, config.yaml's commented lines
+QUICK_FUSED_EPOCHS = 15
+QUICK_FUSED_K = 16
+QUICK_FUSED_INTERVAL = 10
+QUICK_FUSED = {'device_generation': True, 'device_replay': True,
+               'sgd_steps_per_chunk': QUICK_FUSED_K,
+               'checkpoint_interval': QUICK_FUSED_INTERVAL}
 
 
 def tictactoe_observations(make_env, count, seed):
@@ -2010,13 +2136,21 @@ def tictactoe_observations(make_env, count, seed):
     return obs[:count]
 
 
-def run_quick_start(repo, tmp):
-    """``python -m handyrl_tpu_torch.train --config`` on tictactoe.json with
-    QUICK_EPOCHS epochs and a temporary model_dir (no --device: the card is
-    the default). Returns its JSON line, its epoch lines and its wall time."""
+def quick_config(repo, extra=None, epochs=QUICK_EPOCHS):
+    """tictactoe.json with ``extra`` train_args and ``epochs``."""
     with open(os.path.join(repo, QUICK_CONFIG)) as f:
         cfg = json.load(f)
-    cfg['train_args']['epochs'] = QUICK_EPOCHS
+    cfg['train_args'].update(extra or {})
+    cfg['train_args']['epochs'] = epochs
+    return cfg
+
+
+def run_quick_start(repo, tmp, extra=None, epochs=QUICK_EPOCHS):
+    """``python -m handyrl_tpu_torch.train --config`` on tictactoe.json with
+    ``extra`` train_args, ``epochs`` epochs and a temporary model_dir (no
+    --device: the card is the default). Returns its JSON line (with its
+    wall time as 'wall'), its epoch lines and its whole output."""
+    cfg = quick_config(repo, extra, epochs)
     cfg['train_args']['model_dir'] = os.path.join(tmp, 'models')
     path = os.path.join(tmp, 'quick_start.json')
     with open(path, 'w') as f:
@@ -2037,8 +2171,11 @@ def run_quick_start(repo, tmp):
     if len(lines) != 1:
         fail('the quick start printed %d JSON lines' % len(lines))
     shown = [l for l in proc.stdout.splitlines()
-             if l.startswith(('epoch', 'win rate', 'loss'))]
-    return json.loads(lines[0]), shown, wall
+             if l.startswith(('epoch', 'win rate', 'loss', 'batcher proc',
+                              'fused device'))]
+    line = json.loads(lines[0])
+    line['wall'] = wall
+    return line, shown, proc.stdout
 
 
 def run_quick_eval(repo, ckpt):
@@ -2077,92 +2214,117 @@ def run_quick_eval(repo, ckpt):
     return agents, report, wall
 
 
-def phase_quick_start(torch, repo, make_env, k3_rows):
+def check_quick_run(torch, line, models, epochs, label, files,
+                    warmup_steps):
+    """A quick-start run's checks: ``epochs`` closed with finite losses,
+    ``files`` pass ``verify_checkpoint``, the params moved from the first
+    numbered checkpoint to the last, K3 launched once a step (plus
+    ``warmup_steps`` eager steps of a capture) under 'training' and no
+    other kernel anywhere."""
     import math
-    import numpy as np
-    from handyrl_tpu_torch.evaluation import load_model
+    from handyrl_tpu_torch.environment import make_env
     from handyrl_tpu_torch.model import param_trees
-    from handyrl_tpu_torch.ops.train_step import GRAPH_WARMUP_STEPS
     from handyrl_tpu_torch.utils import flax_msgpack
     from handyrl_tpu_torch.utils.fs import verify_checkpoint
+    log('%s: %s' % (label, json.dumps(line)))
+    if line['epochs'] != epochs or line['failed']:
+        fail('the %s trained %s epochs (failed %s)'
+             % (label, line['epochs'], line['failed_reason']))
+    for name in files:
+        ok, reason = verify_checkpoint(os.path.join(models, name))
+        if not ok or reason != 'ok':
+            fail('%s checkpoint %s: %s' % (label, name, reason))
+    if not (line['losses'] and all(math.isfinite(v)
+                                   for v in line['losses'].values())):
+        fail('the %s reports non-finite losses: %s' % (label,
+                                                       line['losses']))
+    _, from_flax = param_trees(make_env({'env': 'TicTacToe'}).net())
+
+    def params(name):
+        with open(os.path.join(models, name), 'rb') as f:
+            return from_flax(flax_msgpack.from_bytes(f.read()))
+    numbered = [n for n in files if n.split('.')[0].isdigit()]
+    first, last = params(numbered[0]), params(numbered[-1])
+    moved = {k: (last[k] - first[k]).abs().max().item() for k in first}
+    if not any(v > 0 for v in moved.values()):
+        fail('the %s\'s params did not change from %s to %s'
+             % (label, numbered[0], numbered[-1]))
+
+    # K3 once an update step (and each capture warm-up), nothing else:
+    # the net's convs are PyTorch's, as the JAX package leaves them to XLA
+    by_path = line['kernel_launches']
+    runs = line['steps_at_exit'] + warmup_steps
+    train = by_path.get('training', {})
+    log('%s: kernel launches by path %s; %d update steps (and %d eager '
+        'warm-up steps of a capture)' % (label, by_path,
+                                          line['steps_at_exit'],
+                                          warmup_steps))
+    if train.get('td_lambda') != runs:
+        fail('the %s launched K3 %s times in %d steps'
+             % (label, train.get('td_lambda'), runs))
+    others = {(p, k): v for p, c in by_path.items() for k, v in c.items()
+              if v and (p, k) != ('training', 'td_lambda')}
+    if others:
+        fail('the %s launched other kernels: %s' % (label, others))
+
+
+def check_quick_forward(torch, make_env, models, label):
+    """``latest.ckpt``'s forward on the card against the CPU's on 256 real
+    boards (POLICY_TOL)."""
+    import numpy as np
+    from handyrl_tpu_torch.evaluation import load_model
+    env = make_env({'env': 'TicTacToe'})
+    obs = np.stack(tictactoe_observations(make_env, 256, SEED + 6))
+    ckpt = os.path.join(models, 'latest.ckpt')
+    card = load_model(ckpt, env, 'cuda')
+    cpu = load_model(ckpt, env, 'cpu')
+    got, want = card.batch_inference(obs), cpu.batch_inference(obs)
+    err = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+    log('%s: latest.ckpt forward on the card vs the CPU over %d real '
+        'boards: max abs err %s (tol %.0e)' % (label, len(obs), err,
+                                               POLICY_TOL))
+    if not all(np.isfinite(got[k]).all() for k in got) or \
+            max(err.values()) > POLICY_TOL:
+        fail('the %s\'s checkpoint computes other outputs on the card than '
+             'on the CPU' % label)
+
+
+def check_learning_bar(line, label):
+    """tests/test_train_e2e.py's slow bar over the last QUICK_LAST epochs:
+    >= QUICK_MIN_RESULTS evaluation results, a win rate above
+    QUICK_MIN_WIN_RATE. Returns (results, win rate)."""
+    last_epoch = line['model_epoch'] - 1
+    n = r = 0
+    for epoch in range(max(1, last_epoch - QUICK_LAST + 1), last_epoch + 1):
+        en, er = line['eval_by_epoch'].get(str(epoch), (0, 0))
+        n, r = n + en, r + er
+    win_rate = (r / (n + 1e-6) + 1) / 2
+    log('%s: %d evaluation results over epochs %d-%d, win rate %.4f '
+        'against random (bar: >= %d results, > %.2f)' % (
+            label, n, max(1, last_epoch - QUICK_LAST + 1), last_epoch,
+            win_rate, QUICK_MIN_RESULTS, QUICK_MIN_WIN_RATE))
+    if n < QUICK_MIN_RESULTS or not win_rate > QUICK_MIN_WIN_RATE:
+        fail('the %s missed the learning bar: %d results, win rate %.4f'
+             % (label, n, win_rate))
+    return n, win_rate
+
+
+def phase_quick_start(torch, repo, make_env, k3_rows):
+    from handyrl_tpu_torch.ops.train_step import GRAPH_WARMUP_STEPS
     tmp = tempfile.mkdtemp(prefix='chip_smoke_quick_')
     try:
-        line, shown, wall = run_quick_start(repo, tmp)
+        line, shown, _ = run_quick_start(repo, tmp)
+        wall = line['wall']
         for l in shown:
             log('  quick start: %s' % l)
         models = os.path.join(tmp, 'models')
-        log('quick start: %s' % json.dumps(line))
-        if line['epochs'] != QUICK_EPOCHS or line['failed']:
-            fail('the quick start trained %s epochs (failed %s)'
-                 % (line['epochs'], line['failed_reason']))
-        for name in QUICK_FILES:
-            ok, reason = verify_checkpoint(os.path.join(models, name))
-            if not ok or reason != 'ok':
-                fail('quick start checkpoint %s: %s' % (name, reason))
-        if not (line['losses'] and all(math.isfinite(v)
-                                       for v in line['losses'].values())):
-            fail('the quick start reports non-finite losses: %s'
-                 % line['losses'])
-        env = make_env({'env': 'TicTacToe'})
-        _, from_flax = param_trees(env.net())
-
-        def params(name):
-            with open(os.path.join(models, name), 'rb') as f:
-                return from_flax(flax_msgpack.from_bytes(f.read()))
-        first, last = params('1.ckpt'), params('%d.ckpt' % QUICK_EPOCHS)
-        moved = {k: (last[k] - first[k]).abs().max().item() for k in first}
-        if not any(v > 0 for v in moved.values()):
-            fail('the quick start\'s params did not change after epoch 1')
-
-        # K3 once an update step (and each capture warm-up), nothing else:
-        # the net's convs are PyTorch's, as the JAX package leaves them to XLA
-        by_path = line['kernel_launches']
-        runs = line['steps_at_exit'] + GRAPH_WARMUP_STEPS
-        train = by_path.get('training', {})
-        log('quick start: kernel launches by path %s; %d update steps (and %d '
-            'eager warm-up steps of the capture)' % (
-                by_path, line['steps_at_exit'], GRAPH_WARMUP_STEPS))
-        if train.get('td_lambda') != runs:
-            fail('the quick start launched K3 %s times in %d steps'
-                 % (train.get('td_lambda'), runs))
-        others = {(p, k): v for p, c in by_path.items() for k, v in c.items()
-                  if v and (p, k) != ('training', 'td_lambda')}
-        if others:
-            fail('the quick start launched other kernels: %s' % others)
-
-        # latest.ckpt on the card against the CPU, on real boards
-        obs = np.stack(tictactoe_observations(make_env, 256, SEED + 6))
-        ckpt = os.path.join(models, 'latest.ckpt')
-        card = load_model(ckpt, env, 'cuda')
-        cpu = load_model(ckpt, env, 'cpu')
-        got, want = card.batch_inference(obs), cpu.batch_inference(obs)
-        err = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
-        log('quick start: latest.ckpt forward on the card vs the CPU over %d '
-            'real boards: max abs err %s (tol %.0e)' % (len(obs), err,
-                                                       POLICY_TOL))
-        if not all(np.isfinite(got[k]).all() for k in got) or \
-                max(err.values()) > POLICY_TOL:
-            fail('the quick start\'s checkpoint computes other outputs on '
-                 'the card than on the CPU')
-
-        # the learning bar of tests/test_train_e2e.py's slow test
-        last_epoch = line['model_epoch'] - 1
-        n = r = 0
-        for epoch in range(max(1, last_epoch - QUICK_LAST + 1),
-                           last_epoch + 1):
-            en, er = line['eval_by_epoch'].get(str(epoch), (0, 0))
-            n, r = n + en, r + er
-        win_rate = (r / (n + 1e-6) + 1) / 2
+        check_quick_run(torch, line, models, QUICK_EPOCHS, 'quick start',
+                        QUICK_FILES, GRAPH_WARMUP_STEPS)
+        check_quick_forward(torch, make_env, models, 'quick start')
+        n, win_rate = check_learning_bar(line, 'quick start')
         steps = [b - a for a, b in zip([0] + line['epoch_steps'],
                                        line['epoch_steps'])]
-        log('quick start: %d evaluation results over epochs %d-%d, win rate '
-            '%.4f against random (bar: >= %d results, > %.2f)' % (
-                n, max(1, last_epoch - QUICK_LAST + 1), last_epoch,
-                win_rate, QUICK_MIN_RESULTS, QUICK_MIN_WIN_RATE))
-        if n < QUICK_MIN_RESULTS or not win_rate > QUICK_MIN_WIN_RATE:
-            fail('the quick start missed the learning bar: %d results, win '
-                 'rate %.4f' % (n, win_rate))
-
+        ckpt = os.path.join(models, 'latest.ckpt')
         agents, report, eval_wall = run_quick_eval(repo, ckpt)
         for l in report:
             log('  tournament: %s' % l)
@@ -2185,6 +2347,189 @@ def phase_quick_start(torch, repo, make_env, k3_rows):
         return {'line': line, 'wall': wall, 'win_rate': win_rate,
                 'eval_results': n, 'steps_per_epoch': steps,
                 'eval_wall': eval_wall, 'eval_win_rate': eval_wp}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_quick_shm(torch, repo, quick):
+    """Phase 7(b): the quick start with BATCHER_SWITCHES for
+    QUICK_SHM_EPOCHS epochs: phase 7's run checks, the shared-memory path,
+    /dev/shm, and its rates beside phase 7's threaded run."""
+    from handyrl_tpu_torch.ops.train_step import GRAPH_WARMUP_STEPS
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_quick_shm_')
+    try:
+        before = shm_listing()
+        line, shown, _ = run_quick_start(repo, tmp, BATCHER_SWITCHES,
+                                         QUICK_SHM_EPOCHS)
+        after = shm_listing()
+        for l in shown:
+            log('  quick start (shm): %s' % l)
+        files = ['%d.ckpt' % e for e in range(1, QUICK_SHM_EPOCHS + 1)] + [
+            'latest.ckpt', 'trainer_state.ckpt']
+        check_quick_run(torch, line, os.path.join(tmp, 'models'),
+                        QUICK_SHM_EPOCHS, 'quick start (shm)', files,
+                        GRAPH_WARMUP_STEPS)
+        check_shm_run('quick start (shm)', line, before, after)
+        side_by_side('quick start, batcher threads (%d epochs) vs processes '
+                     'with shared-memory batches (%d epochs)'
+                     % (QUICK_EPOCHS, QUICK_SHM_EPOCHS),
+                     ('threads', 'shm processes'), (quick['line'], line))
+        return {'line': line}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def quick_twin_checks(torch):
+    """The TicTacToe twin's step, auto_reset, observe, legal_mask, turn,
+    terminal and outcome on the card against the CPU, on 256 games after
+    5 random plies (finished ones reset) and the same actions: equal
+    exactly, every field."""
+    from handyrl_tpu_torch.envs import torch_tictactoe as tt
+    gen = torch.Generator().manual_seed(SEED + 21)
+
+    def random_legal(st):
+        u = torch.rand((st.boards.shape[0], tt.N_ACTIONS), generator=gen)
+        return torch.argmax(u * tt.legal_mask(st), dim=1)
+    state = tt.init_state(256)
+    for _ in range(5):
+        state = tt.step(state, random_legal(state))
+        state = tt.auto_reset(state, tt.terminal(state))
+    acts = random_legal(state)
+
+    def run(dev):
+        st = tt.State(*[t.to(dev) for t in state])
+        nxt = tt.step(st, acts.to(dev))
+        done = tt.terminal(nxt)
+        out = {'step.' + k: v for k, v in nxt._asdict().items()}
+        out.update({'reset.' + k: v for k, v in
+                    tt.auto_reset(nxt, done)._asdict().items()})
+        out.update(observe=tt.observe(st), legal_mask=tt.legal_mask(st),
+                   turn=tt.turn(st), terminal=done, outcome=tt.outcome(nxt))
+        return {k: v.cpu() for k, v in out.items()}
+
+    card, cpu = run('cuda'), run('cpu')
+    bad = [k for k in cpu if not torch.equal(card[k], cpu[k])]
+    log('quick fused: the TicTacToe twin on the card vs the CPU, 256 games: '
+        '%d fields (%d finished games), unequal %s'
+        % (len(cpu), int(cpu['terminal'].sum()), bad))
+    if bad:
+        fail('the TicTacToe twin computes other values on the card than on '
+             'the CPU in %s' % bad)
+
+
+def quick_fused_setup(torch, repo):
+    """An in-process fused pipeline at the quick start's widths on the card
+    ('turn' layout): (pipeline, env module, args, loss config, net
+    factory)."""
+    from handyrl_tpu_torch.config import apply_defaults
+    from handyrl_tpu_torch.environment import make_env
+    from handyrl_tpu_torch.envs import torch_tictactoe as tt
+    from handyrl_tpu_torch.ops.device_windows import DeviceWindower
+    from handyrl_tpu_torch.ops.fused_pipeline import FusedPipeline
+    from handyrl_tpu_torch.ops.replay import ring_capacity, \
+        windows_per_episode
+    from handyrl_tpu_torch.ops.train_step import ReplayUpdateStep, \
+        init_train_state
+    from handyrl_tpu_torch.train import loss_config
+    args = apply_defaults(quick_config(repo, QUICK_FUSED,
+                                       QUICK_FUSED_EPOCHS))['train_args']
+    env = make_env({'env': 'TicTacToe'})
+
+    def make_net(seed):
+        net = env.net()
+        if seed is not None:
+            net.reset_parameters(torch.Generator().manual_seed(seed))
+        return net
+    net = make_net(SEED).cuda()
+    actor = make_net(None).cuda()
+    actor.load_state_dict(net.state_dict())
+    cfg = loss_config(args)._replace(observation=False)
+    step = ReplayUpdateStep(net, cfg, init_train_state(net))
+    windower = DeviceWindower(
+        'turn', args['forward_steps'], 0, tt.MAX_STEPS,
+        windows_per_episode(args), ring_capacity(args), tt.NUM_PLAYERS,
+        args['gamma'], False)
+    fp = FusedPipeline(tt, actor, step, windower, args['generation_envs'],
+                       args['device_chunk_steps'], QUICK_FUSED_K,
+                       args['batch_size'], seed=SEED)
+    return fp, tt, args, cfg, make_net
+
+
+def phase_quick_fused(torch, repo, make_env, quick):
+    """Phase 7(c): the quick start on the fused loop ('turn' layout)."""
+    import math
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_quick_fused_')
+    try:
+        line, shown, stdout = run_quick_start(repo, tmp, QUICK_FUSED,
+                                              QUICK_FUSED_EPOCHS)
+        for l in shown[:8] + shown[-6:]:
+            log('  quick fused: %s' % l)
+        if 'fused device pipeline' not in stdout or \
+                '(turn mode)' not in stdout:
+            fail('the quick start did not run the fused pipeline in turn '
+                 'mode:\n%s' % stdout[-2000:])
+        # an epoch's loss line sums the metrics read by its close; they
+        # arrive a dispatch late, so the first epoch's may be empty
+        losses = [[float(kv.split(':')[1])
+                   for kv in l[len('loss = '):].split()]
+                  for l in stdout.splitlines() if l.startswith('loss = ')]
+        if len(losses) != QUICK_FUSED_EPOCHS or not all(
+                vals and all(math.isfinite(v) for v in vals)
+                for vals in losses[1:]):
+            fail('the fused quick start closed %d of %d epochs, with losses '
+                 '%s' % (len(losses), QUICK_FUSED_EPOCHS, losses))
+        steps = line['steps_at_exit']
+        if steps != line['fused_dispatches'] * QUICK_FUSED_K or steps <= 0:
+            fail('the fused quick start took %d steps in %d fused '
+                 'dispatches of %d' % (steps, line['fused_dispatches'],
+                                       QUICK_FUSED_K))
+        models = os.path.join(tmp, 'models')
+        epochs = sorted(set(range(QUICK_FUSED_INTERVAL,
+                                  QUICK_FUSED_EPOCHS + 1,
+                                  QUICK_FUSED_INTERVAL))
+                        | {QUICK_FUSED_EPOCHS})
+        got = sorted(int(n.split('.')[0]) for n in os.listdir(models)
+                     if n.endswith('.ckpt') and n.split('.')[0].isdigit())
+        if got != epochs:
+            fail('the fused quick start wrote checkpoints %s, not %s'
+                 % (got, epochs))
+        files = ['%d.ckpt' % e for e in epochs] + ['latest.ckpt',
+                                                   'trainer_state.ckpt']
+        # a graph's first call runs eagerly as a real step: no warm-ups
+        check_quick_run(torch, line, models, QUICK_FUSED_EPOCHS,
+                        'quick fused', files, 0)
+        check_quick_forward(torch, make_env, models, 'quick fused')
+        n, win_rate = check_learning_bar(line, 'quick fused')
+
+        quick_twin_checks(torch)
+        fp, tt, args, cfg, make_net = quick_fused_setup(torch, repo)
+        fused_ingest_and_step_checks(torch, fp, tt, args, mode='turn',
+                                     make_net=make_net, cfg=cfg)
+        for _ in range(2):   # the chunk graph: eager, then captured
+            fp.warm_step()
+        parts = dispatch_parts_ms(torch, fp, args, QUICK_FUSED_K,
+                                  'quick fused')
+        fp.release()
+        del fp
+        torch.cuda.empty_cache()
+        host = quick['line']
+        log('quick start, fused loop vs the host learner (phase 7), same '
+            'card (%s): %.1f vs %.1f episodes/s, %.2f vs %.2f SGD steps/s, '
+            '%.1f vs %.1f trajectories/s (B=128), %.1f vs %.1f s of process '
+            'wall for %d vs %d epochs; fused: %d steps in %d dispatches (+ '
+            '%d warm-up), sample reuse %.2f, %d windows ingested (ring %d of '
+            '%d), a steady dispatch: chunk %.3f ms, %d steps %.3f ms; %d '
+            'evaluation results over the last %d epochs, win rate %.4f' % (
+                nvidia_smi_line(), line['episodes_per_s'],
+                host['episodes_per_s'], line['sgd_steps_per_s'],
+                host['update_steps_per_s'], line['trajectories_per_s'],
+                host['trajectories_per_s'], line['wall'], host['wall'],
+                QUICK_FUSED_EPOCHS, QUICK_EPOCHS, steps,
+                line['fused_dispatches'], line['warm_dispatches'],
+                line['sample_reuse'], line['windows_ingested'],
+                line['ring_size'], line['ring_capacity'], parts['chunk'],
+                QUICK_FUSED_K, parts['steps'], n, QUICK_LAST, win_rate))
+        return {'line': line, 'parts': parts, 'win_rate': win_rate}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2402,6 +2747,11 @@ def main():
     log('== phase 5: main path (the local learner)')
     learner = phase_learner(torch, repo, make_env, train['bench'])
 
+    log('== phase 5(b): the local learner with batcher processes and '
+        'shared-memory batches')
+    learner_shm = phase_learner_shm(torch, repo, make_env, train['bench'],
+                                    learner)
+
     fused_tmp = tempfile.mkdtemp(prefix='chip_smoke_fused_')
     try:
         log('== phase 6: main path (the fused device loop)')
@@ -2409,6 +2759,14 @@ def main():
 
         log('== phase 7: main path (the quick start: TicTacToe, turn-based)')
         quick = phase_quick_start(torch, repo, make_env, target_rows)
+
+        log('== phase 7(b): the quick start with batcher processes and '
+            'shared-memory batches')
+        quick_shm = phase_quick_shm(torch, repo, quick)
+
+        log('== phase 7(c): the quick start on the fused device loop (turn '
+            'mode)')
+        quick_fused = phase_quick_fused(torch, repo, make_env, quick)
 
         log('== phase 8: main path (phase 6\'s checkpoints scored offline; '
             'a preemption drill)')
@@ -2424,10 +2782,16 @@ def main():
     paths = dict(train['paths'], serving=launches)
     for name, counts in learner['kernel_launches'].items():
         paths['learner_' + name] = counts
+    for name, counts in learner_shm['kernel_launches'].items():
+        paths['learner_shm_' + name] = counts
     for name, counts in fused['line']['kernel_launches'].items():
         paths['learner_fused_' + name] = counts
     for name, counts in quick['line']['kernel_launches'].items():
         paths['quick_start_' + name] = counts
+    for name, counts in quick_shm['line']['kernel_launches'].items():
+        paths['quick_start_shm_' + name] = counts
+    for name, counts in quick_fused['line']['kernel_launches'].items():
+        paths['quick_start_fused_' + name] = counts
     for name, counts in scored['score_summary']['kernel_launches'].items():
         paths['score_' + name] = counts
 

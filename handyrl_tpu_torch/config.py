@@ -12,12 +12,10 @@ device loop and of the run plane (``metrics_jsonl``, ``keep_checkpoints``,
 ``init_params``, ``guard.preempt_signals``, the publish hook's ``serving``
 block), and
 :func:`validate` raises for anything this port does not run yet (device
-generation without the fused loop, the threaded replay trainer, turn-based
-device training, batcher processes, streaming, the league, mesh
-parallelism, the worker plane, recurrent nets, BatchNorm, envs other than
-TicTacToe and Hungry Geese, and TicTacToe on the device path) instead of
-ignoring it. Without ``env_args`` the env is TicTacToe, as in the JAX
-package.
+generation without the fused loop, the threaded replay trainer, streaming,
+the league, mesh parallelism, the worker plane, recurrent nets, BatchNorm,
+envs other than TicTacToe and Hungry Geese) instead of ignoring it.
+Without ``env_args`` the env is TicTacToe, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -70,7 +68,9 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
     'minimum_episodes': 400,
     'maximum_episodes': 100000,
     'epochs': -1,
-    'num_batchers': 2,            # batcher threads
+    'num_batchers': 2,            # batcher threads (or processes)
+    'batcher_processes': False,   # build batches in spawned CPU processes instead of threads
+    'batcher_shared_memory': False,  # with batcher_processes: children build batches in shared-memory slots the trainer maps (no pickle over the pipe); a slot is freed once the batch was copied into the staging buffers
     'eval_rate': 0.1,
     'lambda': 0.7,
     'policy_target': 'TD',        # 'UPGO' 'VTRACE' 'TD' 'MC'
@@ -123,8 +123,6 @@ WORKER_DEFAULTS: Dict[str, Any] = {
 # train_args knobs of the JAX package that select what the port does not run
 # yet, with the one value of each that it does run (their JAX defaults)
 NOT_PORTED: Dict[str, Any] = {
-    'batcher_processes': False,
-    'batcher_shared_memory': False,
     'worker': {'num_parallel': 6},   # the worker cluster's size
 }
 # blocks of planes the port does not have yet: each turns its plane on
@@ -216,12 +214,10 @@ def validate(args: Dict[str, Any]) -> None:
     _require(ta['batched_generation'] is True,
              'train_args.batched_generation False: the worker-cluster '
              'generation %s' % pending)
-    _require(env['env'] != 'TicTacToe' or not (ta['device_generation']
-                                               or ta['device_replay']),
-             "train_args.device_generation/device_replay with TicTacToe: the "
-             "'turn' device layout (build_windows_turn) and the jax_tictactoe "
-             "device twin %s; TicTacToe trains on the host learner" % pending)
-    _validate_device_path(ta, pending)
+    _require(not ta['batcher_shared_memory'] or ta['batcher_processes'],
+             'train_args.batcher_shared_memory requires batcher_processes '
+             '(the thread batchers already share the trainer\'s memory)')
+    _validate_device_path(ta, env['env'], pending)
     _require(ta['burn_in_steps'] == 0,
              'train_args.burn_in_steps %r: burn-in (the recurrent loss '
              'path) %s' % (ta['burn_in_steps'], pending))
@@ -260,10 +256,12 @@ def validate(args: Dict[str, Any]) -> None:
              'guard.loss_spike_zscore must be >= 0 (0 disables the trip)')
 
 
-def _validate_device_path(ta: Dict[str, Any], pending: str) -> None:
-    """The device path runs as the fused loop in solo layout only: both
-    switches, ``fused_pipeline`` and ``device_ingest`` on, simultaneous
-    training (HungryGeese is checked for every config)."""
+def _validate_device_path(ta: Dict[str, Any], env: str, pending: str
+                          ) -> None:
+    """The device path runs as the fused loop only: both switches, with
+    ``fused_pipeline`` and ``device_ingest`` on. Its layout follows the
+    env: 'solo' for Hungry Geese (simultaneous training), 'turn' for
+    TicTacToe (``turn_based_training``), as the JAX learner chooses it."""
     gen, replay = bool(ta['device_generation']), bool(ta['device_replay'])
     _require(gen or not replay,
              'train_args.device_replay without device_generation: the '
@@ -279,10 +277,14 @@ def _validate_device_path(ta: Dict[str, Any], pending: str) -> None:
     _require(bool(ta['device_ingest']),
              'train_args.device_ingest false: host-built windows pushed to '
              'the device ring (DeviceReplay.push) %s' % pending)
-    _require(not ta['turn_based_training'],
-             "train_args.turn_based_training true on the device path: the "
-             "'turn' ingest layout and the turn-based device envs %s"
-             % pending)
+    turn = env == 'TicTacToe'
+    _require(bool(ta['turn_based_training']) == turn,
+             "train_args.turn_based_training %r with %s on the device path: "
+             "the fused loop runs 'solo' (HungryGeese, simultaneous "
+             "training) and 'turn' (TicTacToe, turn-based training); the "
+             "split device pipeline (DeviceGenerator) that the other "
+             "combinations take %s" % (ta['turn_based_training'], env,
+                                       pending))
     for key in ('device_chunk_steps', 'checkpoint_interval'):
         _require(int(ta[key]) >= 1, '%s must be >= 1' % key)
     for key in ('sgd_steps_per_chunk', 'replay_windows_per_episode',

@@ -14,19 +14,25 @@ compatible with it:
 * **Framing.** 4-byte big-endian length headers; :class:`FrameParser`
   validates every length before buffering.
 * **Hub.** One selector read loop plus one writer thread per endpoint.
+* **Process pool.** :func:`spawn_pipe_workers` and :class:`JobPool`: jobs
+  fanned out to spawned children over pipes (the batcher processes).
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import select
 import selectors
 import socket
 import struct
+import sys
 import threading
 import time
+import traceback
+import types
 from collections import deque
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -612,3 +618,180 @@ class Hub:
         self._selector.close()
         self._wake_r.close()
         self._wake_w.close()
+
+
+# ---------------------------------------------------------------------------
+# spawned worker processes
+
+
+_SPAWN_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _bare_main():
+    """Hide the parent's ``__main__`` while children are spawned. A spawned
+    child re-imports the parent's main module (``python -m
+    handyrl_tpu_torch.train`` imports torch); with a bare ``__main__`` it
+    imports only its target's module."""
+    with _SPAWN_LOCK:
+        main = sys.modules.get('__main__')
+        sys.modules['__main__'] = types.ModuleType('__main__')
+        try:
+            yield
+        finally:
+            sys.modules['__main__'] = main
+
+
+def spawn_pipe_workers(count: int, target: Callable,
+                       make_args: Callable[[int, Any], tuple],
+                       daemon: bool = False) -> List[Tuple[Any, Any]]:
+    """Spawn ``count`` processes, each holding one end of a duplex pipe;
+    returns ``(process, parent end)`` pairs. The 'spawn' context, never
+    fork: the parent may hold a CUDA context and threads. ``target`` must
+    live in a module that imports what the child needs and nothing more."""
+    import multiprocessing as mp
+    ctx = mp.get_context('spawn')
+    out = []
+    with _bare_main():
+        for i in range(count):
+            ours, theirs = ctx.Pipe(duplex=True)
+            proc = ctx.Process(target=target, args=make_args(i, theirs),
+                               daemon=daemon)
+            proc.start()
+            theirs.close()
+            out.append((proc, ours))
+    return out
+
+
+class JobPool:
+    """Fan jobs out to spawned worker processes, demand-driven.
+
+    ``job_source`` is an iterator of job payloads (it ends the pool by
+    ending); ``worker_fn(conn, idx)`` is the child entry point (receive a
+    job, send a result, until a ``None`` job or a closed pipe). One
+    dispatcher thread keeps every child busy: each result buys its sender
+    the next job, then lands (through ``transform``) in ``results``, whose
+    bound is the backpressure.
+
+    Unlike the JAX package's pool, which drops a child whose pipe ends and
+    leaves its consumer waiting, a child lost before :meth:`close` makes
+    :meth:`recv` raise, naming the child (``error``)."""
+
+    def __init__(self, worker_fn: Callable, job_source, num_workers: int,
+                 transform: Optional[Callable] = None, results_max: int = 8,
+                 name: str = 'worker process'):
+        self._jobs = job_source
+        self._transform = transform
+        self._name = name
+        self.results: queue.Queue = queue.Queue(maxsize=results_max)
+        self._workers = spawn_pipe_workers(
+            num_workers, worker_fn, lambda i, c: (c, i), daemon=True)
+        # Connection.send is not thread-safe: the dispatcher and the
+        # out-of-band senders (send_to: slot releases from the trainer
+        # thread) take the endpoint's lock
+        self._send_locks = [threading.Lock() for _ in self._workers]
+        self._closing = False
+        self._thread: Optional[threading.Thread] = None
+        self.error: Optional[str] = None
+
+    @property
+    def pids(self) -> List[int]:
+        return [proc.pid for proc, _ in self._workers]
+
+    def start(self):
+        self._thread = threading.Thread(target=self._dispatch,
+                                        name='jobpool-dispatch', daemon=True)
+        self._thread.start()
+
+    def recv(self, timeout: Optional[float] = None):
+        """The next result (``queue.Empty`` after ``timeout``); raises
+        RuntimeError once a child was lost."""
+        if self.error is not None:
+            raise RuntimeError(self.error)
+        try:
+            return self.results.get(timeout=timeout)
+        except queue.Empty:
+            if self.error is not None:
+                raise RuntimeError(self.error)
+            raise
+
+    def send_to(self, idx: int, msg):
+        """An out-of-band message to child ``idx`` (any thread). Best
+        effort: a lost child is reported by :meth:`recv`, not here."""
+        try:
+            with self._send_locks[idx]:
+                self._workers[idx][1].send(msg)
+        except (OSError, ValueError):
+            pass
+
+    def _send_job(self, idx: int) -> bool:
+        job = next(self._jobs, None)
+        if job is None:
+            return False
+        with self._send_locks[idx]:
+            self._workers[idx][1].send(job)
+        return True
+
+    def _lost(self, idx: int):
+        proc = self._workers[idx][0]
+        proc.join(timeout=1.0)
+        self.error = ('%s %d (pid %s) was lost: exit code %s' % (
+            self._name, idx, proc.pid, proc.exitcode))
+        _LOG.error(self.error)
+
+    def _dispatch(self):
+        try:
+            self._dispatch_loop()
+        except Exception:   # the consumer must hear of it, not wait
+            if not self._closing:
+                self.error = '%s dispatcher failed: %s' % (
+                    self._name, traceback.format_exc(limit=4))
+                _LOG.error(self.error)
+
+    def _dispatch_loop(self):
+        import multiprocessing.connection as mpc
+        for i in range(len(self._workers)):
+            if not self._send_job(i):
+                return
+        live = {conn: i for i, (_, conn) in enumerate(self._workers)}
+        while live:
+            for conn in mpc.wait(list(live), timeout=0.5):
+                i = live[conn]
+                try:
+                    result = conn.recv()
+                except (EOFError, OSError):
+                    del live[conn]
+                    if not self._closing:
+                        self._lost(i)
+                        return
+                    continue
+                if self._closing:
+                    continue   # drained so no child blocks in its send
+                if not self._send_job(i):   # refill before the maybe-block
+                    return
+                if self._transform is not None:
+                    result = self._transform(result)
+                while not self._closing:
+                    try:
+                        self.results.put(result, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+
+    def close(self, timeout: float = 5.0):
+        """Tell every child to exit (a ``None`` job), join them (terminate
+        the ones still running after ``timeout``) and the dispatcher."""
+        self._closing = True
+        for i in range(len(self._workers)):
+            self.send_to(i, None)
+        for proc, _ in self._workers:
+            proc.join(timeout)
+            if proc.is_alive():
+                _LOG.warning('%s pid %s did not exit; terminating',
+                             self._name, proc.pid)
+                proc.terminate()
+                proc.join(timeout)
+        if self._thread is not None:
+            self._thread.join(timeout)
+        for _, conn in self._workers:
+            conn.close()

@@ -1,13 +1,15 @@
 """Device-resident self-play and evaluation: whole chunks of plies on the
 card, with no host round trip inside a chunk.
 
-The port of ``handyrl_tpu/device_generation.py`` for simultaneous envs
-with a tensor twin (``envs/torch_hungry_geese.py``) and feed-forward nets:
-``_ply_inference`` (observe, the net on the (N, P) players folded into
-N * P rows, the illegal-action mask), ``make_gen_body`` (the self-play ply:
-inference, a Gumbel-max draw, transition, record, auto-reset) and
-:class:`DeviceEvaluator` (whole matches against 'random' and 'rulebase'
-opponents). The net is called on device tensors; nothing goes through
+The port of ``handyrl_tpu/device_generation.py`` for envs with a tensor
+twin (simultaneous: ``envs/torch_hungry_geese.py``; turn-based:
+``envs/torch_tictactoe.py``) and feed-forward nets: ``_ply_inference``
+(observe, the net on the (N, P) players folded into N * P rows, or on the
+acting player's N rows, and the illegal-action mask), ``make_gen_body``
+(the self-play ply: inference, a Gumbel-max draw, transition, record,
+auto-reset) and :class:`DeviceEvaluator` (whole matches against 'random'
+and, where the twin vectorizes it, 'rulebase' opponents). The net is
+called on device tensors; nothing goes through
 ``ModelWrapper.batch_inference``, which copies to the host.
 
 On the card a chunk runs as one CUDA graph (:class:`CapturedCall`): the
@@ -18,8 +20,8 @@ On the CPU the same functions run eagerly.
 
 What waits (ROADMAP.md): the split path's ``DeviceGenerator`` (episodes
 spliced on the host), checkpoint opponents on the device (the host
-``BatchedEvaluator`` plays them), recurrent nets' hidden state, the turn-
-based protocol and ``DeviceActorEngine``.
+``BatchedEvaluator`` plays them), recurrent nets' hidden state and
+``DeviceActorEngine``.
 """
 
 from __future__ import annotations
@@ -36,13 +38,21 @@ Tensor = torch.Tensor
 
 # -------------------------------------------------------- the ply bodies
 
+def simultaneous(env_mod) -> bool:
+    return bool(getattr(env_mod, 'SIMULTANEOUS', False))
+
+
 def _ply_inference(env_mod, net: torch.nn.Module, state):
-    """Observe, run the net with the (N, P) players folded into N * P rows,
-    and build the illegal-action mask. Returns (obs, logits, amask, out):
-    logits and amask (N, P, A), ``out`` the net's output dict."""
+    """Observe, run the net and build the illegal-action mask. Returns
+    (obs, logits, amask, out), ``out`` the net's output dict. A simultaneous
+    env's (N, P) players fold into N * P rows, logits and amask (N, P, A);
+    a turn-based env's N rows are the acting players', (N, A)."""
     obs = env_mod.observe(state)
     legal = env_mod.legal_mask(state)
     amask = (1.0 - legal) * 1e32
+    if not simultaneous(env_mod):
+        out = dict(net(obs))
+        return obs, out['policy'] - amask, amask, out
     n, p = obs.shape[:2]
     out = dict(net(obs.reshape((n * p,) + obs.shape[2:])))
     logits = out['policy'].reshape(n, p, -1) - amask
@@ -59,16 +69,15 @@ def gumbel_argmax(logits: Tensor, u: Tensor) -> Tensor:
 
 
 def make_gen_body(env_mod, net: torch.nn.Module):
-    """The self-play ply of a simultaneous env and a feed-forward net:
-    inference, sampling, transition, record, auto-reset. Returns
-    ``rollout_chunk(state, chunk_steps, generator) -> (state, records)``,
-    records stacked as (K, N, ...): 'obs' (K, N, P, 17, 7, 11), 'action',
-    'prob', 'amask', 'value', 'acting', 'done', 'outcome'; with the env's
-    rewards, 'reward'. Shared by the fused pipeline, so the recorded
-    trajectory has one definition."""
-    if not getattr(env_mod, 'SIMULTANEOUS', False):
-        raise NotImplementedError('device generation of turn-based envs is '
-                                  'not ported yet (ROADMAP.md)')
+    """The self-play ply of a feed-forward net: inference, sampling,
+    transition, record, auto-reset. Returns ``rollout_chunk(state,
+    chunk_steps, generator) -> (state, records)``, records stacked as
+    (K, N, ...): 'obs', 'action', 'prob', 'amask', 'value', 'done',
+    'outcome', and 'acting' (N, P) for a simultaneous env (obs (N, P, ...))
+    or 'player' (N,) for a turn-based one (the acting player's obs, prob,
+    value); with the env's rewards, 'reward'. Shared by the fused pipeline,
+    so the recorded trajectory has one definition."""
+    simult = simultaneous(env_mod)
 
     @torch.no_grad()
     def rollout_chunk(state, chunk_steps: int,
@@ -76,18 +85,21 @@ def make_gen_body(env_mod, net: torch.nn.Module):
         plies: List[Dict[str, Tensor]] = []
         for _ in range(chunk_steps):
             obs, logits, amask, out = _ply_inference(env_mod, net, state)
-            n, p = obs.shape[:2]
             u = torch.rand(logits.shape, generator=generator,
                            device=logits.device)
             actions = gumbel_argmax(logits, u)
             probs = torch.softmax(logits, dim=-1)
             sel = torch.gather(probs, -1, actions[..., None])[..., 0]
+            if simult:
+                n, p = obs.shape[:2]
+                who = {'value': out['value'].reshape(n, p, -1),
+                       'acting': env_mod.acting(state)}
+            else:
+                who = {'value': out['value'], 'player': env_mod.turn(state)}
             nstate = env_mod.step(state, actions, generator=generator)
             done = env_mod.terminal(nstate)
             record = {'obs': obs, 'action': actions.int(), 'prob': sel,
-                      'amask': amask,
-                      'value': out['value'].reshape(n, p, -1),
-                      'acting': env_mod.acting(state), 'done': done,
+                      'amask': amask, **who, 'done': done,
                       'outcome': env_mod.outcome(nstate)}
             if hasattr(env_mod, 'rewards'):
                 record['reward'] = env_mod.rewards(nstate)
@@ -117,9 +129,12 @@ class DeviceEvaluator:
     the trained model greedily (temperature 0, as the host
     ``BatchedEvaluator``); the envs split into one contiguous block per
     opponent, whose seats play uniformly ('random') or the env twin's
-    vectorized GreedyAgent ('rulebase'). The seat rotates on every reset so
-    every goose slot is balanced. The host reads (done, seat, outcome) of a
-    chunk as one packed tensor, one dispatch late (``pipelined``).
+    vectorized GreedyAgent ('rulebase', where the twin has
+    ``greedy_action``). In a turn-based env the model moves on the plies
+    whose acting player is its seat. The seat rotates over the env's
+    players on every reset, so every seat is balanced. The host reads
+    (done, seat, outcome) of a chunk as one packed tensor, one dispatch
+    late (``pipelined``).
 
     ``net`` is the actor's module on the device; its parameters are read in
     place on every ply, so the caller refreshes them with ``copy_`` (or
@@ -142,6 +157,10 @@ class DeviceEvaluator:
                              'opponents only, got %s' % bad)
         if n_envs < len(self.opponents):
             raise ValueError('need at least one eval env per opponent')
+        if 'rulebase' in self.opponents and not hasattr(env_mod,
+                                                        'greedy_action'):
+            raise ValueError('the env twin has no vectorized rulebase agent '
+                             '(greedy_action); the host evaluator plays it')
         bounds = np.linspace(0, n_envs, len(self.opponents) + 1).astype(int)
         self._opp_bounds = [(int(a), int(b), name) for a, b, name in
                             zip(bounds[:-1], bounds[1:], self.opponents)]
@@ -177,8 +196,11 @@ class DeviceEvaluator:
                 for a, b, name in self._opp_bounds:
                     if name == 'rulebase' and a < b:
                         opp = torch.cat([opp[:a], rule[a:b], opp[b:]])
-            actions = torch.where(players[None, :] == seat[:, None], greedy,
-                                  opp)
+            if simultaneous(env):
+                is_main = players[None, :] == seat[:, None]
+            else:
+                is_main = env.turn(state) == seat
+            actions = torch.where(is_main, greedy, opp)
             nstate = env.step(state, actions, generator=gen)
             done = env.terminal(nstate)
             rows += [done.float(), seat.float(),

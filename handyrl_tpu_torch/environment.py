@@ -22,6 +22,7 @@ ENVS = {
 # loop (device_generation.py), the JAX package's JAX_ENVS
 DEVICE_ENVS = {
     'HungryGeese': 'handyrl_tpu_torch.envs.torch_hungry_geese',
+    'TicTacToe': 'handyrl_tpu_torch.envs.torch_tictactoe',
 }
 
 

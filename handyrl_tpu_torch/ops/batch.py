@@ -2,8 +2,9 @@
 
 A copy of ``handyrl_tpu/ops/batch.py`` (numpy, bz2 and pickle only), without
 the streaming-ingest parts (per-chunk stamps and staleness-aware
-reselection), the stage timer and the caller-owned arenas, none of which
-the port runs yet. Episode records and moments are plain dicts of numpy
+reselection) and the stage timer, which the port does not run yet.
+``make_batch(out=)`` builds into caller-owned arenas (the shared-memory
+slots of ``ops/shm_batch.py``), restoring their pad defaults first. Episode records and moments are plain dicts of numpy
 arrays, so they cross between the packages unchanged, and one seed gives
 both the same batch.
 
@@ -337,6 +338,19 @@ def _alloc_arenas(B: int, S: int, moments0: List[dict], players: List,
     }
 
 
+def _reset_arenas(ar: Dict[str, Any]):
+    """Restore the pad defaults in a reused (e.g. shared-memory) arena set."""
+    for key, arena in ar.items():
+        if key == 'observation':
+            map_structure(lambda a: a.fill(0), arena)
+        elif key == 'selected_prob' or key == 'progress':
+            arena.fill(1)
+        elif key == 'action_mask':
+            arena.fill(1e32)
+        else:
+            arena.fill(0)
+
+
 def _fill_window(ar: Dict[str, Any], b: int, moments: List[dict], ep: dict,
                  args: Dict[str, Any], players: List,
                  obs_dsts: List[Tuple[Tuple, np.ndarray]]):
@@ -421,12 +435,15 @@ def _obs_dsts(ar: Dict[str, Any]) -> List[Tuple[Tuple, np.ndarray]]:
 
 
 def make_batch(episodes: Sequence[dict], args: Dict[str, Any],
+               out: Optional[Dict[str, Any]] = None,
                cache: Optional[BlockCache] = None) -> Dict[str, Any]:
     """Build a (B, T, P, ...) training batch from selected episode windows.
 
     Each distinct bz2 block is decoded at most once per batch (and, with a
     shared ``cache``, at most once across batches until evicted), and
-    windows are written directly into the batch arenas."""
+    windows are written directly into the batch arenas. ``out`` lets the
+    caller own the arenas (a shared-memory batcher slot, written in place;
+    its pad defaults are restored first); it is returned."""
     if cache is None:
         # within-batch de-dup at minimum: recency bias repeats episodes
         cache = BlockCache(max_blocks=max(256, 64 * len(episodes)))
@@ -435,8 +452,12 @@ def make_batch(episodes: Sequence[dict], args: Dict[str, Any],
     dims = (_tail_dim(windows, 'value'), _tail_dim(windows, 'reward'),
             _tail_dim(windows, 'return'))
     S = args['burn_in_steps'] + args['forward_steps']
-    ar = _alloc_arenas(len(episodes), S, windows[0], players_per[0], args,
-                       dims)
+    if out is None:
+        ar = _alloc_arenas(len(episodes), S, windows[0], players_per[0],
+                           args, dims)
+    else:
+        ar = out
+        _reset_arenas(ar)
     obs_dsts = _obs_dsts(ar)
     for b, (moments, players) in enumerate(zip(windows, players_per)):
         _fill_window(ar, b, moments, episodes[b], args, players, obs_dsts)

@@ -1,20 +1,27 @@
 """Window assembly on the device: rollout records -> replay ring, with no
 host copy of a trajectory.
 
-The port of ``handyrl_tpu/ops/device_windows.py`` in its 'solo' layout (a
-simultaneous env, ``turn_based_training=False``). A per-env episode
-history lives on the device as fixed (N, L, P, ...) tensors; the ingest
+The port of ``handyrl_tpu/ops/device_windows.py``. A per-env episode
+history lives on the device as fixed (N, L, ...) tensors; the ingest
 consumes a rollout chunk ply by ply, and wherever an episode ends it
 
   * draws ``clip(steps // forward_steps, 1, W)`` training windows at
-    uniform train starts (the host ingestion rate), each for a uniform
-    seat,
+    uniform train starts (the host ingestion rate),
   * builds them with the pad and mask rules of ``ops/batch.py``'s window
     builder (reference train.py:33-124): prob pad 1, action-mask pad
-    +1e32, value tail = the seat's final outcome, progress pad 1, the
-    episode, turn and observation masks; every leaf has P axis 1,
+    +1e32, value tail = the final outcome, progress pad 1, the episode,
+    turn and observation masks,
   * and writes them into the ring at consecutive slots from ``cursor``
     (prefix sums over the finished envs).
+
+Two layouts, the host builder's two player-axis regimes:
+
+  * 'solo' (a simultaneous env, ``turn_based_training=False``): each
+    window for one uniform seat; every leaf has P axis 1.
+  * 'turn' (a turn-based env, ``turn_based_training``; the compact batch
+    of ``observation=False``): observation, prob, action and action mask
+    are the acting player's (P axis 1), while value, reward, return,
+    outcome and the turn and observation masks span all players.
 
 Where the JAX package skips the window build on plies where no episode
 ended (``lax.cond``), this runs it on every ply and sends the windows of
@@ -24,9 +31,6 @@ values and can be captured in a CUDA graph.
 
 The ring stores each window as one flat row per leaf, (capacity + 1,
 prod(window shape)); ``window_spec`` restores the shapes after a gather.
-
-What waits (ROADMAP.md): the 'turn' layout (``build_windows_turn``),
-which comes with the turn-based device envs.
 """
 
 from __future__ import annotations
@@ -145,6 +149,81 @@ def build_windows_solo(hist: Dict[str, Tensor], S, ts: Tensor, seat: Tensor,
     return {k: v[0] for k, v in win.items()}
 
 
+def build_windows_turn_batched(hist: Dict[str, Tensor], S: Tensor,
+                               ts: Tensor, outcome: Tensor, fs: int, bi: int,
+                               L: int, num_players: int
+                               ) -> Dict[str, Tensor]:
+    """Turn windows of N envs at once: hist leaves (N, L, ...) hold the
+    acting player's record of each ply and hist['player'] (N, L); S (N,)
+    episode lengths, ts (N, W) train starts, outcome (N, P). Returns
+    flat-keyed leaves with leading axes (N, W)."""
+    T, P = bi + fs, num_players
+    n, w = ts.shape
+    dev = ts.device
+    m = ts[..., None].long() - bi + torch.arange(T, device=dev)   # (N, W, T)
+    lengths = S.long()[:, None, None]
+    in_ep = (m >= 0) & (m < lengths)
+    tail = m >= lengths
+    idxm = m.clamp(0, L - 1)
+    rows = torch.arange(n, device=dev)[:, None, None]
+
+    def take(x: Tensor) -> Tensor:
+        return x[rows, idxm]                                       # (N, W, T, ...)
+
+    def vmask(x: Tensor, fill: float, cond: Tensor) -> Tensor:
+        return torch.where(cond.reshape(cond.shape + (1,) * (x.dim() - 3)),
+                           x, fill)
+
+    player = take(hist['player'])
+    obs = vmask(take(hist['obs']), 0.0, in_ep)[:, :, :, None]
+    prob = torch.where(in_ep, take(hist['prob']), 1.0)
+    act = torch.where(in_ep, take(hist['action']), 0)
+    amask = vmask(take(hist['amask']), 1e32, in_ep)[:, :, :, None]
+    # (N, W, T, P): the acting player acted and observed
+    is_turn = ((player[..., None] == torch.arange(P, device=dev))
+               & in_ep[..., None])
+    val_turn = take(hist['value'])[..., 0]
+    oc = outcome[:, None, None, :]
+    val = torch.where(is_turn, val_turn[..., None],
+                      torch.where(tail[..., None], oc, 0.0))
+    if 'reward' in hist:
+        rew = torch.where(in_ep[..., None], take(hist['reward']), 0.0)
+        ret = torch.where(in_ep[..., None], take(hist['return']), 0.0)
+    else:
+        rew = torch.zeros((n, w, T, P), dtype=torch.float32, device=dev)
+        ret = rew
+    progress = torch.where(in_ep, m.float() / lengths.float(), 1.0)
+    f32 = torch.float32
+    return flatten_window_keys({
+        'observation': obs.to(f32),
+        'selected_prob': prob.to(f32)[..., None, None],
+        'action': act.to(torch.int32)[..., None, None],
+        'action_mask': amask.to(f32),
+        'value': val.to(f32)[..., None],
+        'reward': rew.to(f32)[..., None],
+        'return': ret.to(f32)[..., None],
+        'outcome': outcome.to(f32).reshape(n, 1, 1, P, 1).expand(
+            n, w, 1, P, 1),
+        'episode_mask': in_ep.to(f32)[..., None, None],
+        'turn_mask': is_turn.to(f32)[..., None],
+        'observation_mask': is_turn.to(f32)[..., None],
+        'progress': progress.to(f32)[..., None],
+    })
+
+
+def build_windows_turn(hist: Dict[str, Tensor], S, ts: Tensor,
+                       outcome: Tensor, fs: int, bi: int, L: int,
+                       num_players: int) -> Dict[str, Tensor]:
+    """Windows of ONE env in turn layout, as the JAX package's function:
+    hist leaves (L, ...) with hist['player'] (L,), S its episode length, ts
+    (W,), outcome (P,). Returns leaves with leading axis W."""
+    hist1 = {k: v[None] for k, v in hist.items()}
+    S1 = torch.as_tensor(S, device=ts.device).reshape(1)
+    win = build_windows_turn_batched(hist1, S1, ts[None], outcome[None], fs,
+                                     bi, L, num_players)
+    return {k: v[0] for k, v in win.items()}
+
+
 def discounted_returns(rewards: Tensor, valid: Tensor, gamma: float
                        ) -> Tensor:
     """Backward discounted returns over an (L, P) reward history:
@@ -169,16 +248,14 @@ class DeviceWindower:
     rollout chunk, updating the history, the ring, ``cursor`` and ``size``
     (0-d int64 tensors) in place, and returns (episodes finished, windows
     written) as 0-d tensors. The draws (per ply: the train starts' uniforms
-    (N, W) and the seats (N, W)) come from ``generator``, or from ``draws``
-    {'u': (K, N, W), 'seat': (K, N, W)}."""
+    (N, W) and, in 'solo' mode, the seats (N, W)) come from ``generator``,
+    or from ``draws`` {'u': (K, N, W), 'seat': (K, N, W)}."""
 
     def __init__(self, mode: str, fs: int, bi: int, max_steps: int,
                  windows_cap: int, capacity: int, num_players: int,
                  gamma: float, has_reward: bool):
-        if mode != 'solo':
-            raise NotImplementedError(
-                "the %r ingest layout is not ported yet (ROADMAP.md); the "
-                "port runs 'solo'" % (mode,))
+        if mode not in ('solo', 'turn'):
+            raise ValueError("ingest mode %r: 'solo' or 'turn'" % (mode,))
         self.mode = mode
         self.fs, self.bi = int(fs), int(bi)
         self.L = int(max_steps)
@@ -190,7 +267,8 @@ class DeviceWindower:
         self.window_spec: Optional[Dict[str, Tuple[tuple, torch.dtype]]] = None
 
     def _hist_keys(self):
-        return ['obs', 'action', 'prob', 'amask', 'value', 'acting'] + (
+        return ['obs', 'action', 'prob', 'amask', 'value',
+                'acting' if self.mode == 'solo' else 'player'] + (
             ['reward'] if self.has_reward else [])
 
     # -- allocation ---------------------------------------------------------
@@ -210,21 +288,24 @@ class DeviceWindower:
         last row takes the windows of envs that did not finish. Sets
         ``window_spec``."""
         T = self.bi + self.fs
-        obs_shape = tuple(records['obs'].shape[3:])
+        # records (K, N, [P,] ...): the players' axis is a solo record's
+        solo = self.mode == 'solo'
+        obs_shape = tuple(records['obs'].shape[3 if solo else 2:])
         A = records['amask'].shape[-1]
+        P = 1 if solo else self.P   # the leaves that span the players
         f32 = torch.float32
         self.window_spec = {
             'observation': ((T, 1) + obs_shape, f32),
             'selected_prob': ((T, 1, 1), f32),
             'action': ((T, 1, 1), torch.int32),
             'action_mask': ((T, 1, A), f32),
-            'value': ((T, 1, 1), f32),
-            'reward': ((T, 1, 1), f32),
-            'return': ((T, 1, 1), f32),
-            'outcome': ((1, 1, 1), f32),
+            'value': ((T, P, 1), f32),
+            'reward': ((T, P, 1), f32),
+            'return': ((T, P, 1), f32),
+            'outcome': ((1, P, 1), f32),
             'episode_mask': ((T, 1, 1), f32),
-            'turn_mask': ((T, 1, 1), f32),
-            'observation_mask': ((T, 1, 1), f32),
+            'turn_mask': ((T, P, 1), f32),
+            'observation_mask': ((T, P, 1), f32),
             'progress': ((T, 1), f32),
         }
         dev = records['done'].device
@@ -257,12 +338,13 @@ class DeviceWindower:
                 hist[key][rows, idx] = records[key][k]
             counts.add_(1)
             done = records['done'][k]
+            solo = self.mode == 'solo'
             if draws is None:
                 u = torch.rand((n, W), generator=generator, device=dev)
-                seat = torch.randint(0, self.P, (n, W), generator=generator,
-                                     device=dev)
+                seat = (torch.randint(0, self.P, (n, W), generator=generator,
+                                      device=dev) if solo else None)
             else:
-                u, seat = draws['u'][k], draws['seat'][k]
+                u, seat = draws['u'][k], draws['seat'][k] if solo else None
             win_hist = hist
             if self.has_reward:
                 valid = torch.arange(L, device=dev)[None, :] < counts[:, None]
@@ -275,9 +357,14 @@ class DeviceWindower:
             span = (counts - fs).clamp(min=0) + 1        # train start in [0, span)
             ts = torch.minimum((u * span[:, None]).to(torch.int64),
                                span[:, None] - 1)
-            windows = build_windows_solo_batched(win_hist, counts, ts, seat,
-                                                 records['outcome'][k], fs,
-                                                 bi, L)
+            if solo:
+                windows = build_windows_solo_batched(
+                    win_hist, counts, ts, seat, records['outcome'][k], fs,
+                    bi, L)
+            else:
+                windows = build_windows_turn_batched(
+                    win_hist, counts, ts, records['outcome'][k], fs, bi, L,
+                    self.P)
             # ring slots by prefix sums over the finished envs; the rest go
             # to the spare row
             dcount = torch.where(done, wcount, 0)

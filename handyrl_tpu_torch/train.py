@@ -6,7 +6,9 @@ local form (``batched_generation: True``, handyrl_tpu/train.py): one
 process generates episodes by batched self-play, evaluates the model
 online and trains it.
 
-* :class:`Batcher`: threads that sample windows from the episode buffer
+* :class:`Batcher`: threads (or, with ``batcher_processes``, spawned
+  processes that build into shared-memory slots with
+  ``batcher_shared_memory``) that sample windows from the episode buffer
   (recency-biased) and build ``(B, T, P, ...)`` numpy batches.
 * :class:`Trainer`: a thread that stages batches to the device (pinned host
   memory, a copy stream, ``prefetch_depth`` slots ahead) and runs the
@@ -25,7 +27,8 @@ online and trains it.
   package's files.
 
 With ``device_generation`` and ``device_replay`` (the JAX package's
-``_run_fused``, solo layout only) the learner runs the fused device loop
+``_run_fused``: Hungry Geese in the 'solo' layout, TicTacToe in the
+'turn' layout) the learner runs the fused device loop
 in one thread instead (``ops/fused_pipeline.py``): each dispatch is a
 rollout chunk on the env's tensor twin, its window ingest into a ring on
 the device and ``sgd_steps_per_chunk`` recency-sampled update steps
@@ -81,6 +84,9 @@ from .model import (ModelWrapper, fp32_on_card, load_params_bytes,
                     params_bytes, param_trees, resolve_device)
 from .ops import launches, reset_kernel_launches
 from .ops.batch import make_batch, make_block_cache, select_episode
+from .ops.shm_batch import (_SHM_SLOTS, JOB_ARG_KEYS, ArenaMap, SharedBatch,
+                            batcher_process as _batcher_process,
+                            batcher_process_shm as _batcher_process_shm)
 from .ops.losses import LossConfig
 from .ops.train_step import (GraphedUpdateStep, ReplayUpdateStep,
                               StaticUpdateStep, TrainState, init_train_state,
@@ -110,10 +116,18 @@ def loss_config(args: Dict[str, Any]) -> LossConfig:
 
 
 class Batcher:
-    """Batch prefetch threads over the shared episode deque: each selects
-    ``batch_size`` windows and builds them into one numpy batch (bz2 and
-    numpy release the interpreter lock for their heavy parts). One decoded
-    block cache serves every thread."""
+    """Batch prefetch over the shared episode deque: each batch is
+    ``batch_size`` windows selected (recency-biased) and built into one
+    numpy batch.
+
+    By default, threads (bz2 and numpy release the interpreter lock for
+    their heavy parts) with one decoded block cache between them. With
+    ``batcher_processes``, selection stays in this process and the builds
+    fan out to spawned children (``connection.JobPool``; each child keeps
+    its own cache); with ``batcher_shared_memory`` too, the children build
+    into shared-memory slots and :meth:`batch` yields
+    ``ops.shm_batch.SharedBatch`` views whose ``release()`` frees the slot.
+    A lost child makes :meth:`batch` raise, naming it."""
 
     def __init__(self, args: Dict[str, Any], episodes: deque):
         self.args = args
@@ -122,23 +136,80 @@ class Batcher:
         self.output_queue: queue.Queue = queue.Queue(maxsize=8)
         self.stop_flag = False
         self._threads: List[threading.Thread] = []
+        self._pool = None
+        self._arena_map = None
+        # per child: (spec, segment names) from its first descriptor
+        self._shm_layouts: Dict[int, tuple] = {}
+        self._shm_slots_used: set = set()
+        self.shm_batches = 0
+        if args.get('batcher_shared_memory'):
+            self.mode = 'shared_memory'
+        elif args.get('batcher_processes'):
+            self.mode = 'processes'
+        else:
+            self.mode = 'threads'
 
     def run(self):
-        if self._threads:
+        if self._threads or self._pool is not None:
             return
-        for i in range(self.args['num_batchers']):
+        n = self.args['num_batchers']
+        if self.mode != 'threads':
+            from .connection import JobPool
+            if self.mode == 'shared_memory':
+                self._arena_map = ArenaMap()
+                self._pool = JobPool(_batcher_process_shm, self._selector(),
+                                     n, transform=self._map_shm,
+                                     name='batcher process')
+            else:
+                self._pool = JobPool(_batcher_process, self._selector(), n,
+                                     name='batcher process')
+            self._pool.start()
+            print('batcher processes: %d spawned (%s)' % (
+                n, 'shared-memory batches, %d slots each' % _SHM_SLOTS
+                if self.mode == 'shared_memory' else 'pickled batches'))
+            return
+        for i in range(n):
             t = threading.Thread(target=self._worker, args=(i,),
                                  name='batcher-%d' % i, daemon=True)
             t.start()
             self._threads.append(t)
 
+    def _select(self) -> List[dict]:
+        return [select_episode(self.episodes, self.args)
+                for _ in range(self.args['batch_size'])]
+
+    def _selector(self):
+        """The process pool's jobs: selected windows and the args a
+        child's ``make_batch`` reads."""
+        job_args = {k: self.args[k] for k in JOB_ARG_KEYS}
+        while not self.stop_flag:
+            try:
+                selected = self._select()
+            except (IndexError, ValueError):   # buffer transiently empty
+                time.sleep(0.1)
+                continue
+            yield selected, job_args
+
+    def _map_shm(self, desc: Dict[str, Any]) -> SharedBatch:
+        """A child's slot descriptor as a mapped :class:`SharedBatch` (on
+        the pool's dispatcher thread)."""
+        bid, slot = desc['bid'], desc['slot']
+        if 'spec' in desc:
+            self._shm_layouts[bid] = (desc['spec'], desc['names'])
+        spec, names = self._shm_layouts[bid]
+        views = self._arena_map.attach(names[slot], spec)
+        self._shm_slots_used.add((bid, slot))
+        self.shm_batches += 1
+        pool = self._pool
+        return SharedBatch(views,
+                           lambda: pool.send_to(bid, ('__free__', slot)))
+
     def _worker(self, bid: int):
         _LOG.info('started batcher %d', bid)
         while not self.stop_flag:
             try:
-                selected = [select_episode(self.episodes, self.args)
-                            for _ in range(self.args['batch_size'])]
-                batch = make_batch(selected, self.args, cache=self.cache)
+                batch = make_batch(self._select(), self.args,
+                                   cache=self.cache)
             except (IndexError, ValueError):   # buffer transiently empty
                 time.sleep(0.1)
                 continue
@@ -149,13 +220,30 @@ class Batcher:
                 except queue.Full:
                     continue
 
-    def batch(self, timeout: Optional[float] = None) -> Dict[str, np.ndarray]:
+    def batch(self, timeout: Optional[float] = None):
+        """The next batch: a dict of numpy arrays, or a
+        :class:`SharedBatch`; ``queue.Empty`` after ``timeout``."""
+        if self._pool is not None:
+            return self._pool.recv(timeout)
         return self.output_queue.get(timeout=timeout)
 
+    def shm_summary(self) -> Dict[str, Any]:
+        """What the shared-memory path did: its segments' names (each child
+        unlinks its own at exit), the slots used and the batches mapped."""
+        names = sorted(n for _, ns in self._shm_layouts.values() for n in ns)
+        return {'segments': names, 'slots_used': len(self._shm_slots_used),
+                'slots_per_batcher': _SHM_SLOTS, 'batches': self.shm_batches}
+
     def stop(self):
+        """Stop the threads, or the children (each unlinks its segments as
+        it exits). The trainer's mappings stay open: it may still be
+        copying a mapped batch, and unlinking a name leaves the pages
+        mapped until then."""
         self.stop_flag = True
         for t in self._threads:
             t.join(timeout=5)
+        if self._pool is not None:
+            self._pool.close()
 
 
 class _Slot:
@@ -227,9 +315,15 @@ class Trainer:
         self.default_lr = 3e-8
         if args.get('device_replay'):
             # the fused device loop's K-step update on the ring; the
-            # pipeline binds it (ops/fused_pipeline.py)
+            # pipeline binds it (ops/fused_pipeline.py). The 'turn' ring
+            # (turn-based training) holds the compact layout, so the loss
+            # runs with observation=False there (the JAX learner's
+            # device_cfg)
+            self.device_cfg = (self.cfg._replace(observation=False)
+                               if args['turn_based_training'] else self.cfg)
             self.update_step = ReplayUpdateStep(
-                module, self.cfg, init_train_state(module), self.default_lr)
+                module, self.device_cfg, init_train_state(module),
+                self.default_lr)
             # the ring's accounting, read from the packed fetch at epochs
             self.replay_stats = {'windows_ingested': 0, 'samples_drawn': 0}
         else:
@@ -323,9 +417,17 @@ class Trainer:
         return self.update_queue.get(timeout=timeout)
 
     # -- the loop ----------------------------------------------------------
-    def _stage(self, batch: Dict[str, np.ndarray]):
+    def _stage(self, batch):
+        """A batch staged for its step: on the card, copied into a staging
+        slot's pinned buffers (a shared-memory batch is released right
+        after that copy); on the CPU, the batch itself."""
         if self._stager is None:
             return batch
+        if isinstance(batch, SharedBatch):
+            try:
+                return self._stager.stage(batch.batch)
+            finally:
+                batch.release()
         return self._stager.stage(batch)
 
     def _step(self, staged) -> Dict[str, Tensor]:
@@ -336,8 +438,14 @@ class Trainer:
             lr_val = float('nan')
         lr = torch.full((), lr_val, dtype=torch.float32, device=self.device)
         if self._stager is None:
-            return self.update_step({k: torch.from_numpy(v)
-                                     for k, v in staged.items()}, lr)
+            shared = isinstance(staged, SharedBatch)
+            try:
+                return self.update_step(
+                    {k: torch.from_numpy(v) for k, v in
+                     (staged.batch if shared else staged).items()}, lr)
+            finally:
+                if shared:   # the CPU step has read the mapped pages
+                    staged.release()
         metrics = self.update_step(self._stager.take(staged), lr)
         self._stager.release(staged)
         return metrics
@@ -519,6 +627,9 @@ class Trainer:
     def release(self):
         """Drop the update step (its CUDA graphs and buffers) and the staged
         batches, once the thread has stopped."""
+        for staged in self._staged:
+            if isinstance(staged, SharedBatch):
+                staged.release()
         self._staged.clear()
         self._stager = None
         self.update_step = None
@@ -1124,14 +1235,16 @@ class Learner:
         return len(ks)
 
     def _device_evaluator(self, env_mod, eval_envs: int, chunk_steps: int):
-        """The device evaluator when every opponent is 'random' or
-        'rulebase' (the env twin's vectorized GreedyAgent) and
-        ``device_eval`` is on; the host evaluator otherwise (checkpoint
-        opponents)."""
+        """The device evaluator when every opponent is 'random' or, where
+        the env twin vectorizes its GreedyAgent (``greedy_action``),
+        'rulebase', and ``device_eval`` is on; the host evaluator otherwise
+        (checkpoint opponents, TicTacToe's rulebase)."""
         args = self.args
         opponents = args.get('eval', {}).get('opponent', []) or ['random']
+        rulebase = hasattr(env_mod, 'greedy_action')
         if (args['device_eval'] and len(opponents) <= eval_envs
-                and all(o in ('random', 'rulebase') for o in opponents)):
+                and all(o == 'random' or (o == 'rulebase' and rulebase)
+                        for o in opponents)):
             from .device_generation import DeviceEvaluator
             return DeviceEvaluator(env_mod, self.actor.module, args,
                                    n_envs=eval_envs, chunk_steps=chunk_steps,
@@ -1143,8 +1256,10 @@ class Learner:
 
     def _run_device(self):
         """The device path (``device_generation`` and ``device_replay``):
-        the env twin, the evaluator, the windower in solo layout and the
-        fused loop."""
+        the env twin, the evaluator, the windower and the fused loop. The
+        ingest layout is the JAX learner's choice: 'solo' for a simultaneous
+        env trained simultaneously, 'turn' for a turn-based env with
+        ``turn_based_training`` (``config.validate`` refuses the rest)."""
         from .environment import make_device_env
         from .ops.device_windows import DeviceWindower
         from .ops.replay import ring_capacity, windows_per_episode
@@ -1154,13 +1269,14 @@ class Learner:
         eval_envs = int(args.get('eval_envs')
                         or max(4, args['generation_envs'] // 8))
         evaluator = self._device_evaluator(env_mod, eval_envs, chunk_steps)
+        mode = 'solo' if getattr(env_mod, 'SIMULTANEOUS', False) else 'turn'
         windower = DeviceWindower(
-            mode='solo', fs=args['forward_steps'], bi=args['burn_in_steps'],
+            mode=mode, fs=args['forward_steps'], bi=args['burn_in_steps'],
             max_steps=env_mod.MAX_STEPS,
             windows_cap=windows_per_episode(args),
             capacity=ring_capacity(args), num_players=env_mod.NUM_PLAYERS,
             gamma=args['gamma'], has_reward=hasattr(env_mod, 'rewards'))
-        self._run_fused(env_mod, evaluator, windower, 'solo')
+        self._run_fused(env_mod, evaluator, windower, mode)
 
     def _run_fused(self, env_mod, evaluator, windower, mode: str):
         """One thread: each loop iteration enqueues one dispatch (a rollout
@@ -1434,6 +1550,11 @@ class Learner:
             'losses': self.epoch_losses,
             'kernel_launches': launches.by_path(),
             'failed': tr.failed, 'failed_reason': tr.failed_reason,
+            # the host learner's batchers: threads, processes or
+            # shared_memory (none on the fused loop)
+            'batcher_mode': None if self._fused else tr.batcher.mode,
+            'shm': (tr.batcher.shm_summary() if not self._fused
+                    and tr.batcher.mode == 'shared_memory' else None),
             **self._fused_summary(steps, train_s),
         }
 

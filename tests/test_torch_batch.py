@@ -8,6 +8,8 @@ bit for bit (numpy only on both sides, so no tolerance), for observation
 True and False, solo and turn-based layouts, and windows longer and
 shorter than the episodes."""
 
+import os
+import torch
 import random
 
 import numpy as np
@@ -19,6 +21,24 @@ from handyrl_tpu.model import ModelWrapper as JaxModelWrapper
 from handyrl_tpu.models import build as jax_build
 from handyrl_tpu.ops import batch as jax_batch
 from handyrl_tpu_torch.ops import batch
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 B = 24
 _CACHE = {}

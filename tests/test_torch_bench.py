@@ -5,6 +5,8 @@ the CPU; the graphed form's fields are null), finite losses and the kernel
 counts (all 0 on the CPU); without a card, ``--device cuda`` raises. Its batch is
 the JAX package's ``__graft_entry__._synthetic_batch``, draw for draw."""
 
+import pytest
+import torch
 import json
 import os
 import subprocess
@@ -14,6 +16,24 @@ import numpy as np
 
 from __graft_entry__ import _synthetic_batch
 from handyrl_tpu_torch import bench
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -21,6 +21,8 @@ seat, outcome) rows, rotated seats and result records (exactly), with every
 state field but the food equal exactly in the envs that did not reset.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,25 @@ import torch
 from handyrl_tpu_torch import device_generation as dg
 from handyrl_tpu_torch.envs import torch_hungry_geese as tg
 from handyrl_tpu_torch.models.geese import GeeseNet
+
+pytestmark = pytest.mark.timeout(60)   # each test's own limit
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
 
 
 def _net():

@@ -16,6 +16,7 @@ simulator.
   tests/test_jax_geese.py holds the JAX twin.
 """
 
+import os
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +26,24 @@ import torch
 from handyrl_tpu.envs import jax_hungry_geese as jhg
 from handyrl_tpu_torch.envs import torch_hungry_geese as tg
 from handyrl_tpu_torch.envs.kaggle.hungry_geese import Environment as Host
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 N_ENVS = 8
 FIELDS = ('cells', 'length', 'alive', 'last_action', 'prev_heads', 'steps',

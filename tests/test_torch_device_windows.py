@@ -19,6 +19,7 @@ builder.
   computes progress through its own float32 arange).
 """
 
+import os
 import random
 
 import jax
@@ -31,6 +32,24 @@ from handyrl_tpu.envs import jax_hungry_geese as jhg
 from handyrl_tpu.ops import device_windows as jdw
 from handyrl_tpu_torch.ops import device_windows as dw
 from handyrl_tpu_torch.ops.batch import compress_moments, make_batch
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 FS, BI, L = 4, 2, 16
 P, A = 3, 4
@@ -226,8 +245,13 @@ def test_ingest_writes_nothing_but_the_spare_row_without_a_finished_episode():
 
 
 def test_windower_refuses_the_turn_layout():
-    with pytest.raises(NotImplementedError, match='turn'):
-        dw.DeviceWindower('turn', 2, 0, 16, 2, 8, 2, 0.99, False)
+    """The 'turn' layout is ported (tests/test_torch_device_turn.py holds
+    it to the JAX package): the windower takes it and refuses only a
+    layout it does not know."""
+    wd = dw.DeviceWindower('turn', 2, 0, 16, 2, 8, 2, 0.99, False)
+    assert wd.mode == 'turn' and 'player' in wd._hist_keys()
+    with pytest.raises(ValueError, match="'solo' or 'turn'"):
+        dw.DeviceWindower('wide', 2, 0, 16, 2, 8, 2, 0.99, False)
 
 
 def test_discounted_returns_match_jax():

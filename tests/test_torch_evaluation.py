@@ -14,6 +14,7 @@ relative (fp32 forwards summed in other orders). ``eval_main`` runs inline with
 one process (held to the JAX package's for the same seed) and with two
 spawned processes (every game counted, the report printed)."""
 
+import os
 import random
 
 import jax
@@ -32,6 +33,24 @@ from handyrl_tpu_torch.generation import BatchedEvaluator
 from handyrl_tpu_torch.model import params_bytes
 from handyrl_tpu_torch.models.tictactoe import (SimpleConv2dModel,
                                                 params_from_flax)
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 TOL = 1e-5
 ENV = {'env': 'TicTacToe'}

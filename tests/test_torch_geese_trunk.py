@@ -9,6 +9,7 @@ Tolerance rtol = atol = 2e-5, as tests/test_pallas_geese.py uses for the
 same function: fp32 throughout, the two frameworks sum the 9 taps and the
 GroupNorm statistics in different orders."""
 
+import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +19,24 @@ from handyrl_tpu.ops.pallas_geese import (tile_forward, trunk_apply,
                                           trunk_params_from_geesenet as
                                           jax_trunk_params)
 from handyrl_tpu_torch.ops import geese_trunk, kernel_launches
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 LAYERS, FILTERS, CIN, N = 2, 16, 17, 5
 GROUPS = min(8, FILTERS)

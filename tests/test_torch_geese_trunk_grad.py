@@ -13,6 +13,8 @@ taps, the GroupNorm statistics and the weight-grad reductions over N*77
 pixels in different orders, and the error grows through two normalised
 layers of the chain (observed about 1e-6 here)."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,24 @@ import torch
 
 from handyrl_tpu.ops.pallas_geese import trunk_apply as jax_trunk_apply
 from handyrl_tpu_torch.ops import geese_trunk, kernel_launches
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 LAYERS, FILTERS, CIN, N = 2, 16, 17, 5
 GROUPS = min(8, FILTERS)

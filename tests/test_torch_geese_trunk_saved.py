@@ -16,11 +16,30 @@ to their plain versions on the card by chip_smoke.py).
   largest element; one TF32 pass (hi*hi) does not, which is why the kernel
   takes three."""
 
+import os
 import numpy as np
 import pytest
 import torch
 
 from handyrl_tpu_torch.ops import geese_trunk, kernel_launches
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 LAYERS, FILTERS, CIN = 2, 16, 17
 GROUPS = min(8, FILTERS)

@@ -23,12 +23,32 @@ version on the card: fp32 sums in other orders and the 3xTF32 split (about
 2^-22 of each product) carried through 13 normalised layers. One TF32 pass
 (hi*hi alone) misses TOL, which is why the kernel keeps three."""
 
+import os
+import torch
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from handyrl_tpu.ops.pallas_geese import (_group_norm, _torus_conv,
                                           tile_forward)
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 CIN, FILTERS, LAYERS, GROUPS, N = 17, 32, 12, 8, 4
 EPS = 1e-6

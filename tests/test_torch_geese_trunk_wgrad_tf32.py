@@ -33,6 +33,7 @@ single TF32 pass (hi*hi alone) truncates each operand at 2^-10: a thousand
 times worse, past BWD_TOL (9e-4 to 1e-3 against 7e-7 to 8e-7 here), which
 is why the kernel keeps three products."""
 
+import torch
 import os
 import re
 
@@ -42,6 +43,24 @@ import numpy as np
 import pytest
 
 from handyrl_tpu.ops.pallas_geese import _group_norm, _torus_conv, tile_forward
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 CIN, FILTERS, LAYERS, GROUPS = 17, 32, 12, 8
 BWD_TOL = 1e-4

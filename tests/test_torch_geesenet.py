@@ -7,6 +7,7 @@ Tolerance atol 1e-4 (rtol 1e-5): fp32 on both sides, but the port's
 different order than XLA's, and 13 layers of GroupNorm carry the
 difference from layer to layer."""
 
+import os
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +18,24 @@ from handyrl_tpu.models.geese import GeeseNet as JaxGeeseNet
 from handyrl_tpu_torch.model import ModelWrapper
 from handyrl_tpu_torch.models.geese import (GeeseNet, params_from_flax,
                                             params_to_flax)
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 

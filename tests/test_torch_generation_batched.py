@@ -16,6 +16,7 @@ are the same numbers, so the actions only differ if two masked logits
 plus noise tie within that, which these seeds do not). The evaluator must
 give the same results, opponent by opponent."""
 
+import os
 import copy
 import random
 
@@ -36,6 +37,24 @@ from handyrl_tpu_torch.generation import (BatchedEvaluator, BatchedGenerator,
 from handyrl_tpu_torch.model import ModelWrapper
 from handyrl_tpu_torch.models.geese import GeeseNet, params_from_flax
 from handyrl_tpu_torch.ops import batch
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 TOL = 1e-5
 ENVS = 6

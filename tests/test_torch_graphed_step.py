@@ -18,6 +18,7 @@ Tolerances:
   lr / 10 over three steps (Adam divides by sqrt(v_hat) + 1e-8, so a grad
   near 1e-8 turns its reassociation into a change of up to lr a step)."""
 
+import os
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +32,24 @@ from handyrl_tpu.ops.train_step import build_update_step as jax_build_step
 from handyrl_tpu.ops.train_step import init_train_state as jax_init_state
 from handyrl_tpu_torch.models.geese import GeeseNet, params_from_flax
 from handyrl_tpu_torch.ops import losses, train_step
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 FILTERS, LAYERS, B, T = 16, 2, 4, 4
 LR = 1e-4

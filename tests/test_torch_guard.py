@@ -10,6 +10,7 @@ reads the same dict from the same specs; ``arm_chaos_preempt`` arms a
 timer only when ``preempt`` is set. No tolerance: every value compared
 is an integer, a boolean or a parsed float of the same text."""
 
+import torch
 import os
 import signal
 import time
@@ -20,6 +21,24 @@ from handyrl_tpu import guard as jax_guard
 from handyrl_tpu.fault import parse_chaos as jax_parse_chaos
 from handyrl_tpu_torch import guard
 from handyrl_tpu_torch.fault import parse_chaos
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 pytestmark = pytest.mark.timeout(60)   # each test's own limit
 

@@ -4,6 +4,8 @@ rule-based) actions, and every observation, legal-action list, reward,
 outcome, terminal flag and delta-sync record must be identical. Exact
 equality: both are pure Python and numpy on the same integers."""
 
+import os
+import torch
 import random
 
 import numpy as np
@@ -11,6 +13,23 @@ import pytest
 
 from handyrl_tpu.environment import make_env as jax_make_env
 from handyrl_tpu_torch.environment import make_env
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
 
 
 def _assert_same_state(a, b):

@@ -9,6 +9,8 @@ captured (``capture_lock``). On the CPU no wrapper counts, so these tests
 count through ``launches.count`` directly or through a counting stand-in
 for the backward wrapper."""
 
+import os
+import pytest
 import sys
 import threading
 
@@ -18,6 +20,23 @@ import torch
 from handyrl_tpu_torch.model import ModelWrapper
 from handyrl_tpu_torch.models.geese import GeeseNet
 from handyrl_tpu_torch.ops import geese_trunk, kernel_launches, launches
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
 
 
 def _join(threads, timeout=60):

@@ -17,6 +17,7 @@ each element is a sum over N*77 pixels of terms as large as that, taken in
 other orders through two normalised layers, so a small element carries the
 rounding of the large ones (observed up to 3e-6 of the largest)."""
 
+import os
 import jax
 import numpy as np
 import pytest
@@ -28,6 +29,24 @@ from handyrl_tpu.ops.losses import LossConfig as JaxLossConfig
 from handyrl_tpu.ops.losses import compute_loss as jax_compute_loss
 from handyrl_tpu_torch.models.geese import GeeseNet, params_from_flax
 from handyrl_tpu_torch.ops import losses
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 FILTERS, LAYERS, B, T = 16, 2, 4, 4
 LOSS_TOL = dict(rtol=1e-5, atol=1e-4)

@@ -16,6 +16,7 @@ row is on disk. A resumed fused run refills its ring for
 (handyrl_tpu/train.py:2740,2874: the ring is not saved). Every check is
 exact (exit codes, counts, steps)."""
 
+import torch
 import json
 import os
 import re
@@ -29,6 +30,24 @@ import pytest
 from handyrl_tpu.telemetry import validate_metrics_line
 from handyrl_tpu_torch import guard
 from handyrl_tpu_torch.utils.fs import verify_checkpoint
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 pytestmark = pytest.mark.timeout(60)   # each test's own limit
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

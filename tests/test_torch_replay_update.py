@@ -19,6 +19,7 @@ against the port's static step and the JAX package's
   version), B=4, T=4, VTRACE/VTRACE on a ring of 12 real-board windows.
 """
 
+import os
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +34,24 @@ from handyrl_tpu.ops.train_step import init_train_state as jax_init_state
 from handyrl_tpu_torch.models.geese import GeeseNet, params_from_flax
 from handyrl_tpu_torch.ops import losses, train_step
 from handyrl_tpu_torch.ops.replay import recency_slots, ring_capacity
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 FILTERS, LAYERS, B, T, K, CAP = 16, 2, 4, 4, 3, 12
 EMA = 3333.0                     # lr = 3e-8 * EMA ~ 1e-4

@@ -10,6 +10,8 @@ Tolerances: actions equal; ``prob`` and ``value`` within 1e-5 absolute
 (fp32 on both sides, different summation orders in the trunk); the port's
 reply bit-identical to the port's own local ``model_act``."""
 
+import os
+import torch
 import random
 
 import jax
@@ -32,6 +34,24 @@ from handyrl_tpu_torch.ops import kernel_launches
 from handyrl_tpu_torch.serving.client import ServiceClient, ServiceError
 from handyrl_tpu_torch.serving.registry import ModelRegistry
 from handyrl_tpu_torch.serving.service import InferenceService
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 NET = dict(layers=2, filters=16, torus_impl='pallas')
 SPEC = 'geese@champion'

@@ -15,6 +15,8 @@ Tolerance: policy and value within 1e-4 absolute (fp32 on both sides,
 the trunk's sums in other orders: about 1e-5 is seen); sampled actions
 equal; the snapshot bytes equal flax's exactly."""
 
+import os
+import torch
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +38,24 @@ from handyrl_tpu_torch.models.geese import params_to_flax
 from handyrl_tpu_torch.serving.client import ServiceClient
 from handyrl_tpu_torch.serving.service import InferenceService
 from handyrl_tpu_torch.utils import flax_msgpack
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 TOL = 1e-4
 NETS = {'narrow': (dict(layers=2, filters=16, torus_impl='pallas'), 4),

@@ -9,6 +9,7 @@ Tolerance rtol = atol = 1e-5, as tests/test_targets.py uses: fp32, at most
 T = 16 steps of a contraction (|gamma * lambda| <= 1), the two sides
 associate the products differently."""
 
+import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +18,24 @@ import torch
 from handyrl_tpu.ops import pallas_targets as jax_pallas
 from handyrl_tpu.ops import targets as jax_targets
 from handyrl_tpu_torch.ops import targets, kernel_launches
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -12,6 +12,7 @@ within 1e-5 (fp32 sums in other orders); the trained params moved; the
 compact batch (player axis 1 for the acting seat's data, 2 for values and
 masks) reached the step."""
 
+import pytest
 import json
 import os
 import subprocess
@@ -28,6 +29,24 @@ from handyrl_tpu_torch.environment import make_env
 from handyrl_tpu_torch.evaluation import load_model
 from handyrl_tpu_torch.models.tictactoe import SimpleConv2dModel
 from handyrl_tpu_torch.train import Learner
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 TOL = 1e-5
 TRAIN = {'batch_size': 16, 'update_episodes': 30, 'minimum_episodes': 40,

@@ -10,6 +10,7 @@ its ``latest.ckpt``, and the JAX forward matches the port's within 1e-4
 non-zero naming CUDA, before any training. ``apply_defaults`` rejects,
 with a message naming the key, each option this slice does not run."""
 
+import torch
 import json
 import os
 import subprocess
@@ -23,6 +24,24 @@ from handyrl_tpu.evaluation import load_model as jax_load_model
 from handyrl_tpu_torch.config import ConfigError, apply_defaults
 from handyrl_tpu_torch.environment import make_env
 from handyrl_tpu_torch.evaluation import load_model
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4
@@ -48,7 +67,7 @@ def test_cli_trains_on_the_cpu(tmp_path):
     config = json.loads(json.dumps(CONFIG))
     config['train_args']['model_dir'] = str(tmp_path / 'models')
     proc = _cli(tmp_path, config, '--device', 'cpu',
-                env=dict(os.environ, OMP_NUM_THREADS='2'))
+                env=dict(os.environ, OMP_NUM_THREADS='1'))
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = [l for l in proc.stdout.splitlines() if l.startswith('{')]
     assert len(lines) == 1
@@ -85,7 +104,7 @@ def test_cli_without_cuda_raises(tmp_path):
 @pytest.mark.parametrize('env_args,train_args,key', [
     ({}, {'device_generation': True}, 'device_generation'),
     ({}, {'device_replay': True}, 'device_replay'),
-    ({}, {'batcher_processes': True}, 'batcher_processes'),
+    ({}, {'batcher_shared_memory': True}, 'batcher_processes'),
     ({}, {'streaming': {'enabled': True}}, 'streaming'),
     ({}, {'streaming': {'target_clip': 1.0}}, 'streaming'),
     ({}, {'league': {'enabled': True}}, 'league'),
@@ -95,7 +114,8 @@ def test_cli_without_cuda_raises(tmp_path):
     ({}, {'telemetry_port': 9100}, 'telemetry_port'),
     ({'net_kind': 'lstm'}, {}, 'net_kind'),
     ({'norm_kind': 'batch'}, {}, 'norm_kind'),
-    ({'env': 'TicTacToe'}, {'device_generation': True}, 'TicTacToe'),
+    ({'env': 'TicTacToe'}, {'device_generation': True, 'device_replay': True,
+                            'turn_based_training': False}, 'TicTacToe'),
 ])
 def test_validate_rejects_what_the_slice_does_not_run(env_args, train_args,
                                                       key):

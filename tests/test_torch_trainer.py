@@ -16,6 +16,7 @@ and end in the same state; under 'rollback' (after 2) both restore the
 state their rollback source gives; under 'abort' both raise. A state of
 another net is refused without a change."""
 
+import os
 import queue
 
 import jax
@@ -32,6 +33,24 @@ from handyrl_tpu_torch.bench import synthetic_batch
 from handyrl_tpu_torch.config import apply_defaults
 from handyrl_tpu_torch.models.geese import GeeseNet, params_from_flax
 from handyrl_tpu_torch.train import Trainer
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 B, T, STEPS = 4, 4, 8
 MOMENT_RTOL, MOMENT_ATOL_OF_MAX = 1e-4, 1e-4

@@ -25,6 +25,7 @@ must be the same episodes. On them:
   Adam turns a reassociated grad near 1e-8 into a step of up to lr;
   moments rtol 1e-4, atol 1e-4 of the largest element)."""
 
+import os
 import random
 
 import jax
@@ -51,6 +52,24 @@ from handyrl_tpu_torch.model import ModelWrapper
 from handyrl_tpu_torch.models.tictactoe import (SimpleConv2dModel,
                                                 params_from_flax)
 from handyrl_tpu_torch.ops import batch, losses, targets, train_step
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The workers of a parallel test run share the cores: one intra-op
+    thread a process (and in the processes a test starts, through
+    OMP_NUM_THREADS) keeps these runs' many small ops from waiting on
+    descheduled OpenMP threads (tens of times slower without it)."""
+    before, omp = torch.get_num_threads(), os.environ.get('OMP_NUM_THREADS')
+    torch.set_num_threads(1)
+    os.environ['OMP_NUM_THREADS'] = '1'
+    yield
+    torch.set_num_threads(before)
+    if omp is None:
+        os.environ.pop('OMP_NUM_THREADS', None)
+    else:
+        os.environ['OMP_NUM_THREADS'] = omp
+
 
 B = 16
 LR = 1e-4
