@@ -185,12 +185,36 @@ non-zero, printing no result, when either is missing or any phase fails.
    again before it trains, the rows' steps are monotonic with unique
    epoch rows to the end, and only the newest 3 numbered checkpoints
    remain.
-9. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
+9. The worker plane, through its entry points with no --device (the card
+   is the default). (a) ``python -m handyrl_tpu_torch.train`` on phase
+   5's config with ``batched_generation: false`` and 6 workers, 2 epochs
+   of 128 episodes after 128: a local cluster of a spawned gather and 6
+   spawned worker processes, each playing its tasks one ply at a time on
+   the card (K1's serving form at the 8-row bucket), the learner training
+   on the graphed step. Fails unless it exits 0 with finite losses, wrote
+   both checkpoints with their CRC sidecars, moved the params between
+   them, launched K1, K2 and K3 once a training step (and the capture's
+   warm-ups) and nothing else in the learner, its worker processes
+   launched K1 and nothing else (``worker_kernel_launches``, from their
+   last beacons), heard from all 6, the ledger ends with nothing
+   outstanding, every episode counted once, and no gather or worker
+   process is left. Prints its rates beside phase 5's, the fleet
+   snapshot and a worker's time a generated ply. (b) ``--server`` and
+   ``python -m handyrl_tpu_torch.worker`` with 4 workers over localhost
+   TCP on free ports, 4 epochs of 128 episodes after 128,
+   ``HANDYRL_TPU_CHAOS`` killing the host's gather once (12 s after it
+   joined): fails unless both exit 0, the learner closed its epochs with
+   (a)'s launch checks, the host's supervisor respawned the gather, and no
+   episode counted twice (the ledger's re-issues and dropped duplicates
+   are printed). Each run under PHASE9_TIMEOUT.
+10. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
    and K2b take their launches from K2's count, one of each a call; the
    fused loop's under ``learner_fused_*``, 5(b)'s under
    ``learner_shm_*``, the quick start's under ``quick_start_*``, 7(b)'s
    and 7(c)'s under ``quick_start_shm_*`` and ``quick_start_fused_*``,
-   the scorer's under ``score_*``), the nvidia-smi
+   the scorer's under ``score_*``, phase 9's learners under
+   ``workers_local_*`` and ``workers_remote_*`` and their worker
+   processes under ``workers_*_worker_processes``), the nvidia-smi
    line, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -2707,6 +2731,297 @@ def phase_score_and_drill(repo, tmp):
     return {'score': scored, 'score_summary': summary}
 
 
+# ------------------------------------------------ phase 9: the worker plane
+
+# (a) the local cluster: phase 5's config with batched_generation false
+WORKERS_LOCAL = {'batched_generation': False, 'worker': {'num_parallel': 6},
+                 'epochs': 2, 'minimum_episodes': 128,
+                 'update_episodes': 128}
+# (b) the server and one worker host over localhost TCP, one gather killed
+# (chaos) once the workers play: the host's supervisor respawns it, the
+# learner re-issues what it stranded. A short quarantine, so that the
+# host's walk back to healthy fits the phase.
+# Model id 0 (epoch 0) is served as the RandomModel, as in the JAX
+# package: a run's first epoch plays no forward (a few seconds). The kill
+# comes 12.0 s after the host joined (the drill's first draw with seed 0
+# is 1.8606 x its mean): its workers ask for tasks 5-9 s after it joins
+# on an H100 host (a kill at 8.0 s once found no task booked), and the
+# run's epochs of net-played episodes last well past it. A kill after the
+# learner ended would leave the supervisor respawning against a closed
+# port.
+WORKERS_REMOTE = {'epochs': 4, 'minimum_episodes': 128,
+                  'update_episodes': 128,
+                  'fault_tolerance': {'host_quarantine_period': 5.0}}
+REMOTE_WORKERS = 4
+REMOTE_CHAOS = 'kill_gather=6.45,max_kills=1,seed=0'
+PHASE9_TIMEOUT = 150
+WORKER_PID = r'(?:started gather|opened worker) \d+ \(pid (\d+)\)'
+
+
+def free_ports(n):
+    """``n`` ports that were free a moment ago (bound to 0, released)."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(('', 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def worker_plane_config(tmp, extra, worker_args=None):
+    cfg = json.loads(json.dumps(LEARNER_CONFIG))
+    cfg['train_args'].update(json.loads(json.dumps(extra)))
+    cfg['train_args']['model_dir'] = os.path.join(tmp, 'models')
+    if worker_args:
+        cfg['worker_args'] = worker_args
+    path = os.path.join(tmp, 'config.json')
+    with open(path, 'w') as f:
+        json.dump(cfg, f)
+    return path
+
+
+def learner_json(label, out):
+    lines = [l for l in out.splitlines() if l.startswith('{')]
+    if len(lines) != 1:
+        fail('%s printed %d JSON lines' % (label, len(lines)))
+    return json.loads(lines[0])
+
+
+def processes_left(text):
+    """The gather and worker processes named in a run's log that still
+    exist (a second after the run)."""
+    import re
+    time.sleep(1.0)
+    return [int(p) for p in re.findall(WORKER_PID, text)
+            if os.path.exists('/proc/%s' % p)]
+
+
+def check_worker_plane_line(label, line, epochs):
+    """The learner's JSON line of a worker-plane run: epochs with finite
+    losses, K1, K2 and K3 once a training step (and the capture's warm-up
+    steps) and nothing else in this process, K1 and nothing else in the
+    worker processes, an empty ledger, every episode counted once."""
+    import math
+    from handyrl_tpu_torch.ops.train_step import GRAPH_WARMUP_STEPS
+    if line['epochs'] != epochs or line['failed'] or line['fleet_failure']:
+        fail('%s trained %s epochs (failed %s %s %s)' % (
+            label, line['epochs'], line['failed'], line['failed_reason'],
+            line['fleet_failure']))
+    if not (line['losses'] and all(math.isfinite(v)
+                                   for v in line['losses'].values())):
+        fail('%s reports non-finite losses: %s' % (label, line['losses']))
+    by_path = line['kernel_launches']
+    runs = line['steps_at_exit'] + GRAPH_WARMUP_STEPS
+    train = by_path.get('training', {})
+    if set(by_path) - {'training'}:
+        fail('%s launched kernels outside training in the learner: %s'
+             % (label, by_path))
+    for name in ('geese_trunk', 'geese_trunk_bwd', 'td_lambda'):
+        if train.get(name) != runs:
+            fail('%s training launched %s %s times in %d steps'
+                 % (label, name, train.get(name), runs))
+    workers = line['worker_kernel_launches']
+    if not workers.get('geese_trunk', 0) > 0 or any(
+            n for k, n in workers.items() if k != 'geese_trunk'):
+        fail('%s worker processes launched %s (K1 and nothing else '
+             'expected)' % (label, workers))
+    fleet = line['fleet']
+    if fleet['outstanding'] != 0 or fleet['live'] != 0:
+        fail('%s ended with tasks outstanding or peers attached: %s'
+             % (label, fleet))
+    if line['repeated_sample_keys'] or \
+            line['distinct_sample_keys'] != line['episodes']:
+        fail('%s counted an episode twice: %d repeated sample keys, %d '
+             'distinct for %d episodes' % (
+                 label, line['repeated_sample_keys'],
+                 line['distinct_sample_keys'], line['episodes']))
+    if not all(s['device'].startswith('cuda')
+               for s in line['worker_stats'].values()):
+        fail('%s workers ran off the card: %s' % (label,
+                                                   line['worker_stats']))
+
+
+def worker_ply_line(line):
+    """One worker's seconds a generated ply, and the range over all."""
+    stats = sorted(line['worker_stats'].items())
+    plies = [(k, s['ply_seconds'], s['plies']) for k, s in stats
+             if s.get('ply_seconds')]
+    if not plies:
+        fail('no worker reported a ply played by the net: %s' % stats)
+    k, ply_s, n = plies[0]
+    rand = [(s['random_seconds'], s['random_plies']) for _, s in stats]
+    return ('worker %s: %.2f ms a ply played by the net (%d plies); all %d '
+            'workers %.2f-%.2f ms; by model id 0 (no forward) %.2f ms a ply '
+            '(%d plies over all); fetching and materializing models %.2f s '
+            'a worker' % (
+                k, ply_s * 1e3, n, len(plies),
+                min(p[1] for p in plies) * 1e3,
+                max(p[1] for p in plies) * 1e3,
+                1e3 * sum(r[0] for r in rand) / max(1, sum(r[1] for r in rand)),
+                sum(r[1] for r in rand),
+                sum(s['model_seconds'] for _, s in stats) / len(stats)))
+
+
+def phase_workers_local(torch, repo, make_env, learner):
+    """Phase 9(a): the local cluster through the entry point, no
+    --device."""
+    from handyrl_tpu_torch.model import param_trees
+    from handyrl_tpu_torch.utils import flax_msgpack
+    from handyrl_tpu_torch.utils.fs import verify_checkpoint
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_workers_')
+    try:
+        path = worker_plane_config(tmp, WORKERS_LOCAL)
+        t0 = time.monotonic()
+        try:
+            proc = subprocess.run(
+                [sys.executable, '-m', 'handyrl_tpu_torch.train',
+                 '--config', path], cwd=repo, capture_output=True,
+                text=True, timeout=PHASE9_TIMEOUT)
+        except subprocess.TimeoutExpired as exc:
+            fail('the local cluster did not finish within %d s:\n%s' % (
+                PHASE9_TIMEOUT, (exc.stderr or b'')[-4000:]))
+        wall = time.monotonic() - t0
+        for l in proc.stdout.splitlines():
+            if l.startswith(('epoch', 'win rate', 'generation stats', 'loss',
+                             'updated model', 'fleet:')):
+                log('  workers: %s' % l)
+        if proc.returncode != 0:
+            fail('the local cluster exited %d:\n%s' % (
+                proc.returncode, proc.stderr[-4000:]))
+        line = learner_json('the local cluster', proc.stdout)
+        line['wall'] = wall
+        log('workers (local): %s' % json.dumps(line))
+        check_worker_plane_line('the local cluster', line,
+                                WORKERS_LOCAL['epochs'])
+        if line['worker_processes'] != WORKERS_LOCAL['worker'][
+                'num_parallel']:
+            fail('the local cluster heard from %d worker processes'
+                 % line['worker_processes'])
+        left = processes_left(proc.stderr)
+        if left:
+            fail('worker or gather processes left after the run: %s' % left)
+        models = os.path.join(tmp, 'models')
+        last = WORKERS_LOCAL['epochs']
+        for name in ['%d.ckpt' % e for e in range(1, last + 1)] + [
+                'latest.ckpt', 'trainer_state.ckpt']:
+            ok, reason = verify_checkpoint(os.path.join(models, name))
+            if not ok or reason != 'ok':
+                fail('local cluster checkpoint %s: %s' % (name, reason))
+        _, from_flax = param_trees(make_env(LEARNER_CONFIG['env_args']).net())
+
+        def params(name):
+            with open(os.path.join(models, name), 'rb') as f:
+                return from_flax(flax_msgpack.from_bytes(f.read()))
+        first, final = params('1.ckpt'), params('%d.ckpt' % last)
+        moved = max((final[k] - first[k]).abs().max().item() for k in first)
+        if not moved > 0:
+            fail('the local cluster\'s params did not move after epoch 1')
+        log('workers (local): params moved %.3g (max abs) from 1.ckpt to '
+            '%d.ckpt; fleet %s' % (moved, last, line['fleet']))
+        log('workers (local): kernel launches: learner %s, worker '
+            'processes %s' % (line['kernel_launches'],
+                              line['worker_kernel_launches']))
+        log('workers (local): %s' % worker_ply_line(line))
+        side_by_side('the host learner (phase 5, batched generation) vs '
+                     'the local worker cluster (6 workers)',
+                     ('batched (5)', 'workers (9a)'), (learner, line))
+        return line
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def tail(path, n=60):
+    with open(path, errors='replace') as f:
+        return ''.join(f.readlines()[-n:])
+
+
+def phase_workers_remote(torch, repo):
+    """Phase 9(b): ``--server`` and one worker host of REMOTE_WORKERS
+    workers on the card over localhost TCP, on free ports, with a gather
+    killed by the chaos drill. Each process writes to a file and leads a
+    session of its own, so that a hang is killed whole and shown."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_remote_')
+    procs = {}
+    try:
+        path = worker_plane_config(tmp, WORKERS_REMOTE, worker_args={
+            'server_address': '127.0.0.1', 'num_parallel': REMOTE_WORKERS})
+        entry, data = free_ports(2)
+        env = dict(os.environ, HANDYRL_TPU_ENTRY_PORT=str(entry),
+                   HANDYRL_TPU_DATA_PORT=str(data))
+        logs = {k: (os.path.join(tmp, k + '.out'),
+                    os.path.join(tmp, k + '.err'))
+                for k in ('server', 'host')}
+        cmds = {'server': ['handyrl_tpu_torch.train', '--config', path,
+                           '--server'],
+                'host': ['handyrl_tpu_torch.worker', '--config', path]}
+        t0 = time.monotonic()
+        for k in ('server', 'host'):
+            with open(logs[k][0], 'w') as out, open(logs[k][1], 'w') as err:
+                procs[k] = subprocess.Popen(
+                    [sys.executable, '-m'] + cmds[k], cwd=repo, stdout=out,
+                    stderr=err, start_new_session=True,
+                    env=dict(env, HANDYRL_TPU_CHAOS=REMOTE_CHAOS)
+                    if k == 'host' else env)
+        deadline = time.monotonic() + PHASE9_TIMEOUT
+        for k in ('host', 'server'):
+            try:
+                procs[k].wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail('the remote pair did not finish within %d s; the '
+                     'server:\n%s\n%s\nthe worker host:\n%s\n%s' % (
+                         PHASE9_TIMEOUT, tail(logs['server'][0], 20),
+                         tail(logs['server'][1]), tail(logs['host'][0]),
+                         tail(logs['host'][1])))
+        wall = time.monotonic() - t0
+        with open(logs['server'][0]) as f:
+            out = f.read()
+        with open(logs['host'][0]) as f:
+            host_out = f.read()
+        with open(logs['host'][1]) as f:
+            host_err = f.read()
+        for l in out.splitlines():
+            if l.startswith(('epoch', 'loss', 'updated model', 'fleet:')):
+                log('  server: %s' % l)
+        for l in host_out.splitlines():
+            log('  worker host: %s' % l)
+        for k in ('server', 'host'):
+            if procs[k].returncode != 0:
+                fail('the %s exited %d:\n%s' % (
+                    k, procs[k].returncode, tail(logs[k][1])))
+        line = learner_json('the training server', out)
+        line['wall'] = wall
+        log('workers (remote): %s' % json.dumps(line))
+        check_worker_plane_line('the training server', line,
+                                WORKERS_REMOTE['epochs'])
+        if 'chaos: killing gather' not in host_out or \
+                'worker host: 1 gather respawns' not in host_out:
+            fail('the worker host\'s supervisor did not respawn a killed '
+                 'gather:\n%s' % host_out[-2000:])
+        fleet = line['fleet']
+        log('workers (remote): gather killed and respawned; the ledger '
+            're-issued %d task(s) (duplicates dropped %d, detached %d, '
+            'hosts quarantined then readmitted %d, tasks withheld %d); '
+            '%d episodes, each counted once; %.1f s wall' % (
+                fleet['reissued'], fleet['duplicates_dropped'],
+                fleet['detached'], fleet['readmitted'], fleet['withheld'],
+                line['episodes'], wall))
+        log('workers (remote): %s' % worker_ply_line(line))
+        left = processes_left(host_err)
+        if left:
+            fail('worker or gather processes left after the run: %s' % left)
+        return line
+    finally:
+        for proc in procs.values():   # every process a session started
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     try:
         import torch
@@ -2774,7 +3089,16 @@ def main():
     finally:
         shutil.rmtree(fused_tmp, ignore_errors=True)
 
-    log('== phase 9: the kernels line')
+    t9 = time.monotonic()
+    log('== phase 9(a): main path (the worker plane: a local worker '
+        'cluster)')
+    workers_local = phase_workers_local(torch, repo, make_env, learner)
+    log('== phase 9(b): main path (the worker plane: a training server and '
+        'a worker host over TCP, one gather killed)')
+    workers_remote = phase_workers_remote(torch, repo)
+    log('phase 9: %.1f s (%s)' % (time.monotonic() - t9, nvidia_smi_line()))
+
+    log('== phase 10: the kernels line')
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -2794,6 +3118,11 @@ def main():
         paths['quick_start_fused_' + name] = counts
     for name, counts in scored['score_summary']['kernel_launches'].items():
         paths['score_' + name] = counts
+    for label, line in (('workers_local', workers_local),
+                        ('workers_remote', workers_remote)):
+        for name, counts in line['kernel_launches'].items():
+            paths['%s_%s' % (label, name)] = counts
+        paths[label + '_worker_processes'] = line['worker_kernel_launches']
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from

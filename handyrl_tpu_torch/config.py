@@ -8,13 +8,16 @@ given to the service (``--device``, default 'cuda'), so
 ``inference.engine_backend`` does not exist here, and the fleet, gateway,
 metrics-exporter and alert knobs wait for their modules. The learner's
 ``TRAIN_DEFAULTS`` hold the knobs of the local learner, of the fused
-device loop and of the run plane (``metrics_jsonl``, ``keep_checkpoints``,
+device loop, of the worker plane (``batched_generation: false``,
+``worker``, ``fault_tolerance``; ``WORKER_DEFAULTS`` for a worker host)
+and of the run plane (``metrics_jsonl``, ``keep_checkpoints``,
 ``init_params``, ``guard.preempt_signals``, the publish hook's ``serving``
 block), and
 :func:`validate` raises for anything this port does not run yet (device
 generation without the fused loop, the threaded replay trainer, streaming,
-the league, mesh parallelism, the worker plane, recurrent nets, BatchNorm,
-envs other than TicTacToe and Hungry Geese) instead of ignoring it.
+the league, mesh parallelism, the host inference engine and the device
+actor backend, recurrent nets, BatchNorm, envs other than TicTacToe and
+Hungry Geese) instead of ignoring it.
 Without ``env_args`` the env is TicTacToe, as in the JAX package.
 """
 
@@ -79,8 +82,26 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
     'seed': 0,
     'restart_epoch': 0,           # resume from model_dir/<n>.ckpt and trainer_state.ckpt; -1 = the newest checkpoint that passes verification (0 when none)
     'init_params': '',            # warm start: load model params (a .ckpt of the same architecture, written by either package) at epoch 0, fresh optimizer and counters
-    'batched_generation': True,   # in-process vectorized self-play (the only generation the port runs)
+    'batched_generation': True,   # in-process vectorized self-play; False = a local worker cluster (gather and worker processes)
     'generation_envs': 64,        # env count of the batched generator
+    'worker': {'num_parallel': 6},  # the local worker cluster's worker processes (batched_generation false)
+    # the worker plane's fault tolerance (worker.py, train.py server()):
+    # heartbeats, silent-peer detach, supervised reconnect, task re-issue
+    # and the per-host health states (fault.FleetController)
+    'fault_tolerance': {
+        'heartbeat_interval': 10.0,    # beacon period (s) of workers and socket gathers
+        'liveness_timeout': 60.0,      # detach a silent socket peer after (s); must exceed heartbeat_interval
+        'rpc_timeout': 120.0,          # a gather's blocking RPC deadline (s)
+        'task_deadline': 300.0,        # re-issue a task not returned within (s)
+        'reconnect_initial_delay': 1.0,  # first reconnect backoff step (s); doubles per failure, jittered
+        'reconnect_max_delay': 30.0,   # backoff ceiling (s)
+        'reconnect_max_tries': 30,     # redials before a gather gives up (and respawns before a worker host gives up a gather slot)
+        'resend_buffer': 256,          # unacknowledged uploads a gather keeps across reconnects; older ones are dropped and counted
+        'host_degrade_after': 1,       # fault signals within host_health_window before a host is degraded
+        'host_quarantine_after': 3,    # strandings within the window before a host is drained, then quarantined
+        'host_health_window': 120.0,   # sliding window (s) of a host's fault accounting
+        'host_quarantine_period': 60.0,  # quarantine (s) before a flapping host is re-admitted
+    },
     'eval_envs': None,            # concurrent online-eval matches; None = max(4, generation_envs // 8)
     'model_dir': 'models',        # checkpoint directory
     'metrics_jsonl': '',          # optional path: one JSON row per closed epoch (and a 'preempted' row)
@@ -120,11 +141,6 @@ WORKER_DEFAULTS: Dict[str, Any] = {
     'backend': '',
 }
 
-# train_args knobs of the JAX package that select what the port does not run
-# yet, with the one value of each that it does run (their JAX defaults)
-NOT_PORTED: Dict[str, Any] = {
-    'worker': {'num_parallel': 6},   # the worker cluster's size
-}
 # blocks of planes the port does not have yet: each turns its plane on
 # when one of the named keys is set (truthy; model_parallel above 1)
 NOT_PORTED_BLOCKS: Dict[str, tuple] = {
@@ -132,6 +148,18 @@ NOT_PORTED_BLOCKS: Dict[str, tuple] = {
     'league': ('enabled',),
     'parallel': ('model_parallel', 'partition_rules'),
     'distributed': ('coordinator_address', 'num_processes', 'process_id'),
+    'inference': ('enabled',),
+}
+# what each of those planes is, where the block's name does not say it
+PLANE_NAMES = {
+    'inference': 'host inference engine (EngineClient, EngineSupervisor, '
+                 'RemoteModelCache)',
+}
+# the generation backends of a gather host: the port runs '' and 'worker'
+_BACKENDS = ('', 'worker', 'engine', 'device')
+_BACKENDS_PENDING = {
+    'engine': 'the per-host inference engine (EngineSupervisor)',
+    'device': 'the device actor backend (DeviceActorGather)',
 }
 
 _ENV_KEYS = ('env', 'torus_impl', 'norm_kind', 'net_kind')
@@ -182,8 +210,13 @@ def validate(args: Dict[str, Any]) -> None:
     ta, env = args['train_args'], args['env_args']
     pending = 'is not ported yet (ROADMAP.md)'
 
-    _require(args.get('worker_args', WORKER_DEFAULTS) == WORKER_DEFAULTS,
-             'worker_args: the worker plane %s' % pending)
+    wa = args.get('worker_args', WORKER_DEFAULTS)
+    extra = sorted(set(wa) - set(WORKER_DEFAULTS) - {'num_gathers'})
+    _require(not extra, 'worker_args keys %s are not known to the port'
+             % extra)
+    _validate_backend('worker_args.backend', wa.get('backend'), pending)
+    _require(int(wa.get('num_parallel', 1)) >= 1,
+             'worker_args.num_parallel must be >= 1')
     _require(env.get('env') in _ENVS,
              'env_args.env %r: only %s are ported' % (env.get('env'),
                                                       ' and '.join(_ENVS)))
@@ -198,22 +231,26 @@ def validate(args: Dict[str, Any]) -> None:
     _require(env.get('torus_impl', 'pad') in ('pad', 'halo', 'pallas'),
              'env_args.torus_impl %r is unknown' % (env.get('torus_impl'),))
 
-    extra = sorted(set(ta) - set(TRAIN_DEFAULTS) - set(NOT_PORTED)
-                   - set(NOT_PORTED_BLOCKS) - {'env'})
+    extra = sorted(set(ta) - set(TRAIN_DEFAULTS) - set(NOT_PORTED_BLOCKS)
+                   - {'env', 'generation'})
     _require(not extra, 'train_args keys %s: the port\'s learner does not '
              'run them; the parts they configure %s' % (extra, pending))
-    for key, value in NOT_PORTED.items():
-        _require(ta.get(key, value) == value,
-                 'train_args.%s %r: %s' % (key, ta.get(key), pending))
     for key, switches in NOT_PORTED_BLOCKS.items():
         block = ta.get(key) or {}
         on = [k for k in switches if block.get(k)
               and not (k == 'model_parallel' and int(block[k]) == 1)]
-        _require(not on, 'train_args.%s.%s: the %s plane %s'
-                 % (key, on[0] if on else '', key, pending))
-    _require(ta['batched_generation'] is True,
-             'train_args.batched_generation False: the worker-cluster '
-             'generation %s' % pending)
+        _require(not on, 'train_args.%s.%s: the %s %s'
+                 % (key, on[0] if on else '',
+                    PLANE_NAMES.get(key, key + ' plane'), pending))
+    _validate_backend('train_args.generation.backend',
+                      (ta.get('generation') or {}).get('backend'), pending)
+    _require(isinstance(ta['batched_generation'], bool),
+             'train_args.batched_generation must be true or false')
+    _require(ta['batched_generation'] or not ta['device_generation'],
+             'train_args.device_generation with batched_generation false: '
+             "the device actor backend (DeviceActorGather, generation."
+             "backend 'device') %s" % pending)
+    _validate_worker_plane(ta)
     _require(not ta['batcher_shared_memory'] or ta['batcher_processes'],
              'train_args.batcher_shared_memory requires batcher_processes '
              '(the thread batchers already share the trainer\'s memory)')
@@ -254,6 +291,35 @@ def validate(args: Dict[str, Any]) -> None:
              '>= 1')
     _require(float(g['loss_spike_zscore']) >= 0,
              'guard.loss_spike_zscore must be >= 0 (0 disables the trip)')
+
+
+def _validate_backend(key: str, backend, pending: str) -> None:
+    backend = str(backend or '')
+    _require(backend in _BACKENDS, '%s must be one of %s' % (key,
+                                                            _BACKENDS))
+    _require(backend not in _BACKENDS_PENDING, '%s %r: %s %s' % (
+        key, backend, _BACKENDS_PENDING.get(backend), pending))
+
+
+def _validate_worker_plane(ta: Dict[str, Any]) -> None:
+    """The local cluster's size and the fault-tolerance knobs (each > 0;
+    the liveness deadline above the heartbeat period), as the JAX package
+    checks them."""
+    w = ta['worker']
+    extra = sorted(set(w) - {'num_parallel', 'num_gathers'})
+    _require(not extra, 'train_args.worker keys %s are not known' % extra)
+    for key in ('num_parallel', 'num_gathers'):
+        _require(w.get(key) is None or int(w[key]) >= 1,
+                 'train_args.worker.%s must be >= 1' % key)
+    ft = ta['fault_tolerance']
+    extra = sorted(set(ft) - set(TRAIN_DEFAULTS['fault_tolerance']))
+    _require(not extra, 'fault_tolerance keys %s are not known' % extra)
+    for key, value in ft.items():
+        _require(float(value) > 0, 'fault_tolerance.%s must be > 0' % key)
+    _require(float(ft['liveness_timeout']) > float(ft['heartbeat_interval']),
+             'fault_tolerance.liveness_timeout must exceed '
+             'heartbeat_interval, or every healthy peer is detached between '
+             'beacons')
 
 
 def _validate_device_path(ta: Dict[str, Any], env: str, pending: str

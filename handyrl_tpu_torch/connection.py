@@ -13,14 +13,23 @@ compatible with it:
   data, never to code.
 * **Framing.** 4-byte big-endian length headers; :class:`FrameParser`
   validates every length before buffering.
-* **Hub.** One selector read loop plus one writer thread per endpoint.
+* **Hub.** One selector read loop plus one writer thread per endpoint;
+  heartbeat frames (``HEARTBEAT_KIND``) refresh a peer's liveness deadline
+  and land in ``peer_info_snapshot`` instead of the inbox, and every
+  detach is journaled (``drain_detach_events``) for the learner's task
+  ledger. A detached peer's last heartbeat stays readable
+  (``departed_peer_info``): a worker's and a gather's final beacon arrive
+  just before they close.
 * **Process pool.** :func:`spawn_pipe_workers` and :class:`JobPool`: jobs
-  fanned out to spawned children over pipes (the batcher processes).
+  fanned out to spawned children over pipes (the batcher processes, and
+  the worker plane's gathers and workers, whose pipes the Hub multiplexes
+  through :class:`PipeEndpoint`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import queue
 import select
 import selectors
@@ -32,7 +41,8 @@ import time
 import traceback
 import types
 from collections import deque
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
+                    Optional, Tuple)
 
 import numpy as np
 
@@ -385,6 +395,45 @@ class FramedConnection:
         return out
 
 
+class PipeEndpoint:
+    """Adapter giving an ``mp.Connection`` the endpoint surface of
+    :class:`FramedConnection` (``drain`` for the Hub)."""
+
+    def __init__(self, conn):
+        self.conn = conn
+
+    def fileno(self) -> int:
+        return self.conn.fileno()
+
+    def close(self):
+        self.conn.close()
+
+    def send(self, msg):
+        self.conn.send(msg)
+
+    def recv(self):
+        return self.conn.recv()
+
+    def drain(self) -> List[Any]:
+        """Everything available now. A peer's last messages and its EOF
+        can arrive together: the messages are returned, and the EOF raises
+        on the next call (the JAX package's drain loses them)."""
+        out = []
+        try:
+            while self.conn.poll(0):
+                out.append(self.conn.recv())
+        except (EOFError, OSError):
+            if not out:
+                raise
+        return out
+
+
+def send_recv(conn, msg):
+    """One blocking call-response on an endpoint."""
+    conn.send(msg)
+    return conn.recv()
+
+
 # ---------------------------------------------------------------------------
 # sockets
 
@@ -402,8 +451,37 @@ def connect_socket_connection(host: str, port: int) -> FramedConnection:
     return FramedConnection(sock)
 
 
+def accept_socket_connections(port: int, timeout: Optional[float] = None,
+                              maxsize: int = 1024
+                              ) -> Iterator[Optional[FramedConnection]]:
+    """Yield one FramedConnection per accepted client; None on idle
+    timeout. The listening socket closes when the iteration ends."""
+    sock = open_socket_connection(port)
+    try:
+        sock.listen(maxsize)
+        sock.settimeout(timeout)
+        accepted = 0
+        while accepted < maxsize:
+            try:
+                conn, _ = sock.accept()
+            except socket.timeout:
+                yield None
+                continue
+            accepted += 1
+            yield FramedConnection(conn)
+    finally:   # the caller stopped iterating
+        sock.close()
+
+
 # ---------------------------------------------------------------------------
 # frame kinds
+
+# Heartbeat frames are a one-way beacon from blocking RPC clients (workers
+# to their gather, gathers to the learner): the Hub refreshes the sender's
+# liveness deadline, keeps the payload (the sender's stats) and never
+# replies, since a reply would land inside the client's call-response
+# stream.
+HEARTBEAT_KIND = '__hb__'
 
 # Inference-service frames: a request ``(INFER_KIND, body)`` is answered
 # with ``(INFER_KIND, reply)``, matched by the body's ``rid``.
@@ -412,6 +490,11 @@ INFER_KIND = '__infer__'
 # Serving-path trace context rides inside the INFER body under this key;
 # peers that do not trace ignore it.
 TRACE_KEY = 'trace'
+
+
+def is_heartbeat(msg) -> bool:
+    return (isinstance(msg, (list, tuple)) and len(msg) == 2
+            and msg[0] == HEARTBEAT_KIND)
 
 
 def is_infer(msg) -> bool:
@@ -434,8 +517,13 @@ def _describe(endpoint) -> str:
             peer = sock.getpeername()
         except OSError:
             return 'socket peer (already closed)'
-        return 'socket peer %s:%s' % peer[:2]
-    return 'endpoint'
+        if isinstance(peer, tuple) and len(peer) >= 2:   # AF_INET[6]
+            return 'socket peer %s:%s' % peer[:2]
+        return 'socket peer %r' % (peer,)                # AF_UNIX
+    try:
+        return 'pipe fd %d' % endpoint.fileno()
+    except Exception:
+        return 'endpoint'
 
 
 class Hub:
@@ -446,10 +534,18 @@ class Hub:
     endpoint's own writer thread, so a peer that stops reading delays only
     its own replies. A peer is detached on a read or write error, a send
     past ``SEND_TIMEOUT``, an outbox past ``OUTBOX_MAX`` messages, or
-    (when its ``liveness`` deadline is set) silence longer than that."""
+    silence longer than its liveness deadline (``LIVENESS_TIMEOUT`` for
+    sockets by default; pipes have none, a dead pipe peer is an EOF).
+    Any received frame refreshes the deadline; heartbeat frames stay out
+    of the inbox and their payloads are kept per endpoint
+    (``peer_info_snapshot``), and past its detach
+    (``departed_peer_info``). Every detach is counted by reason in
+    ``stats`` and journaled for ``drain_detach_events``."""
 
     SEND_TIMEOUT = 30.0
     OUTBOX_MAX = 512
+    LIVENESS_TIMEOUT = 60.0   # silent-socket-peer deadline; 0 disables
+    DEPARTED_MAX = 4096       # detached peers whose last heartbeat is kept
 
     def __init__(self, inbox_max: int = 256):
         self._inbox: queue.Queue = queue.Queue(maxsize=inbox_max)
@@ -458,6 +554,9 @@ class Hub:
         self._commands: deque = deque()                    # guarded-by: _lock
         self._liveness: Dict[Any, float] = {}              # guarded-by: _lock
         self._last_recv: Dict[Any, float] = {}             # guarded-by: _lock
+        self._peer_info: Dict[Any, Any] = {}               # guarded-by: _lock
+        self._departed: Dict[Any, Any] = {}                # guarded-by: _lock
+        self._detach_events: deque = deque(maxlen=4096)    # guarded-by: _lock
         self.stats: Dict[str, int] = {}                    # guarded-by: _lock
         self._closed = False
         self._wake_r, self._wake_w = socket.socketpair()
@@ -472,6 +571,28 @@ class Hub:
         with self._lock:
             return len(self._outboxes)
 
+    def stats_snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self.stats)
+
+    def peer_info_snapshot(self) -> Dict[Any, Any]:
+        """Latest heartbeat payload per live endpoint."""
+        with self._lock:
+            return dict(self._peer_info)
+
+    def departed_peer_info(self) -> Dict[Any, Any]:
+        """Last heartbeat payload of each detached endpoint (the newest
+        ``DEPARTED_MAX`` of them)."""
+        with self._lock:
+            return dict(self._departed)
+
+    def drain_detach_events(self) -> List[Tuple[Any, str, float]]:
+        """Consume the (endpoint, reason, time) disconnect journal."""
+        with self._lock:
+            events = list(self._detach_events)
+            self._detach_events.clear()
+        return events
+
     def recv(self, timeout: Optional[float] = None) -> Tuple[Any, Any]:
         return self._inbox.get(timeout=timeout)
 
@@ -485,12 +606,15 @@ class Hub:
         except queue.Full:      # peer hopelessly behind: treat as stalled
             self.detach(endpoint, reason='outbox_overflow')
 
-    def attach(self, endpoint, liveness: float = 0.0):
+    def attach(self, endpoint, liveness: Optional[float] = None):
         """Register ``endpoint``; ``liveness`` > 0 detaches it after that
-        many seconds without a received frame."""
+        many seconds without a received frame (default:
+        ``LIVENESS_TIMEOUT`` for a socket, none for a pipe)."""
         sock = getattr(endpoint, 'sock', None)
         if sock is not None:
             sock.settimeout(self.SEND_TIMEOUT)   # bound writer stalls
+        if liveness is None:
+            liveness = self.LIVENESS_TIMEOUT if sock is not None else 0.0
         outbox: queue.Queue = queue.Queue(maxsize=self.OUTBOX_MAX)
         with self._lock:
             if endpoint in self._outboxes:
@@ -510,9 +634,16 @@ class Hub:
             if outbox is not None:
                 self._liveness.pop(endpoint, None)
                 self._last_recv.pop(endpoint, None)
+                info = self._peer_info.pop(endpoint, None)
+                if info is not None:
+                    self._departed[endpoint] = info
+                    while len(self._departed) > self.DEPARTED_MAX:
+                        self._departed.pop(next(iter(self._departed)))
                 self._commands.append(('-', endpoint))
+                self.stats['detached'] = self.stats.get('detached', 0) + 1
                 key = 'disconnect_' + reason
                 self.stats[key] = self.stats.get(key, 0) + 1
+                self._detach_events.append((endpoint, reason, time.time()))
         if outbox is None:
             return
         _LOG.info('disconnected %s (%s)', _describe(endpoint), reason)
@@ -612,6 +743,13 @@ class Hub:
                         if ep in self._last_recv:
                             self._last_recv[ep] = time.monotonic()
                 for msg in msgs:
+                    if is_heartbeat(msg):
+                        with self._lock:
+                            if ep in self._outboxes:
+                                self._peer_info[ep] = msg[1]
+                            self.stats['heartbeats'] = (
+                                self.stats.get('heartbeats', 0) + 1)
+                        continue
                     self._inbox.put((ep, msg))
             self._apply_commands()
             self._check_liveness()
@@ -642,24 +780,45 @@ def _bare_main():
             sys.modules['__main__'] = main
 
 
+@contextlib.contextmanager
+def child_environ(env: Optional[Dict[str, str]]):
+    """Set ``env`` in ``os.environ`` while children are spawned (they copy
+    it at start), and restore it after."""
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def spawn_pipe_workers(count: int, target: Callable,
                        make_args: Callable[[int, Any], tuple],
-                       daemon: bool = False) -> List[Tuple[Any, Any]]:
+                       daemon: bool = False,
+                       env: Optional[Dict[str, str]] = None
+                       ) -> List[Tuple[Any, PipeEndpoint]]:
     """Spawn ``count`` processes, each holding one end of a duplex pipe;
-    returns ``(process, parent end)`` pairs. The 'spawn' context, never
-    fork: the parent may hold a CUDA context and threads. ``target`` must
-    live in a module that imports what the child needs and nothing more."""
+    returns ``(process, parent end)`` pairs, the parent end a
+    :class:`PipeEndpoint` (a Hub attaches it; ``multiprocessing.connection
+    .wait`` takes it). The 'spawn' context, never fork: the parent may hold
+    a CUDA context and threads. ``target`` must live in a module that
+    imports what the child needs and nothing more; ``env`` is set in the
+    children's environment."""
     import multiprocessing as mp
     ctx = mp.get_context('spawn')
     out = []
-    with _bare_main():
+    with _bare_main(), child_environ(env):
         for i in range(count):
             ours, theirs = ctx.Pipe(duplex=True)
             proc = ctx.Process(target=target, args=make_args(i, theirs),
                                daemon=daemon)
             proc.start()
             theirs.close()
-            out.append((proc, ours))
+            out.append((proc, PipeEndpoint(ours)))
     return out
 
 

@@ -12,8 +12,9 @@ forward per ply, self-play) and :class:`BatchedEvaluator` (online
 evaluation against host agents or checkpoints). They produce the JAX
 package's episode records: ``{'args', 'steps', 'outcome', 'moment': [bz2
 chunks]}`` with per-step moment dicts of 7 per-player entries and the turn
-list. The sequential ``Generator`` belongs to the worker plane and is not
-ported yet.
+list. The worker plane's :class:`Generator` plays one env a ply at a
+time, each acting seat through :func:`model_act` (the 8-row bucket of the
+batched forward), with draws keyed by the task's ``sample_key``.
 """
 
 from __future__ import annotations
@@ -169,6 +170,84 @@ def finalize_episode_record(outcome, moments: List[dict],
                               level=args.get('compress_level', 9))
     return {'args': gen_args, 'steps': len(moments), 'outcome': outcome,
             'moment': blocks}
+
+
+class Generator:
+    """Sequential single-env episode generator (a worker's engine).
+
+    ``namespace`` (the worker id) keys the fallback sampling stream of tasks
+    without a server-stamped ``sample_key``, so parallel workers never
+    replay one another's draws. With a ``sample_key`` (the learner stamps
+    every assignment) the episode is a pure function of (seed,
+    sample_key, model params), whichever worker plays it."""
+
+    def __init__(self, env, args: Dict[str, Any], namespace: int = 0):
+        self.env = env
+        self.args = args
+        self.namespace = int(namespace)
+        self._local_episodes = 0
+
+    def generate(self, models: Dict[int, Any], gen_args: Dict[str, Any]
+                 ) -> Optional[dict]:
+        base_seed = self.args.get('seed', 0)
+        skey = (gen_args or {}).get('sample_key')
+        episode_key = ((0, int(skey)) if skey is not None
+                       else (1, self.namespace, self._local_episodes))
+        self._local_episodes += 1
+        draws = 0
+        seed_env_rng(self.env, base_seed, episode_key)
+        moments: List[dict] = []
+        hidden = {p: models[p].init_hidden() for p in self.env.players()}
+        if self.env.reset():
+            return None
+
+        while not self.env.terminal():
+            moment = _blank_moment(self.env.players())
+            turn_players = self.env.turns()
+            observers = self.env.observers()
+            for player in turn_players:
+                obs = self.env.observation(player)
+                moment['observation'][player] = obs
+                seed_seq = sample_seed(base_seed, episode_key, draws)
+                draws += 1
+                res = model_act(models[player], obs, hidden[player],
+                                self.env.legal_actions(player), seed_seq)
+                hidden[player] = res.get('hidden', None)
+                moment['value'][player] = res.get('value', None)
+                moment['selected_prob'][player] = res['prob']
+                moment['action_mask'][player] = res['action_mask']
+                moment['action'][player] = res['action']
+
+            for player in observers:
+                if player in turn_players:
+                    continue
+                if (player in gen_args['player']
+                        and not self.args['observation']):
+                    continue
+                obs = self.env.observation(player)
+                outputs = bucketed_inference(models[player], obs,
+                                             hidden[player])
+                hidden[player] = outputs.get('hidden', None)
+                moment['observation'][player] = obs
+                moment['value'][player] = outputs.get('value', None)
+
+            if self.env.step(moment['action']):
+                return None
+
+            reward = self.env.reward()
+            for player in self.env.players():
+                moment['reward'][player] = reward.get(player, None)
+            moment['turn'] = turn_players
+            moments.append(moment)
+
+        return finalize_episode_record(self.env.outcome(), moments,
+                                       self.args, gen_args)
+
+    def execute(self, models, gen_args) -> Optional[dict]:
+        episode = self.generate(models, gen_args)
+        if episode is None:
+            print('None episode in generation!')
+        return episode
 
 
 class BatchedGenerator:

@@ -12,7 +12,8 @@ The subset of ``handyrl_tpu/inference.py`` the serving path uses:
   (``queue_max``): past it a request is shed with an immediate error reply.
   A failure while serving a group answers that group with errors; a fatal
   engine error answers everything in flight. No reply is dropped.
-* :class:`ModelVault` is the LRU of materialized snapshots the engine reads.
+* :class:`ModelVault` is the LRU of materialized snapshots the engine and
+  the worker plane's workers read.
 
 The engine supervisor, the chaos injectors and the worker-side client are
 not ported yet.
@@ -60,6 +61,13 @@ class ModelVault:
         self._device = resolve_device(device)
         self._slots: OrderedDict = OrderedDict()
         self.fetches = 0                       # snapshot pulls (cache misses)
+
+    def obtain(self, wanted: Dict[Any, Optional[int]]) -> Dict[Any, Any]:
+        """player -> model for every requested id (None or negative: no
+        model, the seat goes to a built-in opponent)."""
+        return {player: (None if mid is None or mid < 0
+                         else self.model(mid))
+                for player, mid in wanted.items()}
 
     def model(self, mid: int):
         """The materialized model for one id (admitting it on miss)."""

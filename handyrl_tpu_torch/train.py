@@ -1,10 +1,18 @@
-"""The local learner: ``python -m handyrl_tpu_torch.train --config FILE.json
-[--device cuda|cpu]``.
+"""The learner: ``python -m handyrl_tpu_torch.train --config FILE.json
+[--device cuda|cpu] [--server]``.
 
-The port of the JAX package's ``python main.py --train`` in its default
-local form (``batched_generation: True``, handyrl_tpu/train.py): one
-process generates episodes by batched self-play, evaluates the model
-online and trains it.
+The port of the JAX package's ``python main.py --train`` and
+``--train-server`` (handyrl_tpu/train.py). In its default local form
+(``batched_generation: True``) one process generates episodes by batched
+self-play, evaluates the model online and trains it. With
+``batched_generation: false`` the learner serves the worker plane's four
+RPCs (:meth:`Learner.server`) to a local worker cluster of spawned gather
+and worker processes; with ``--server`` it listens for worker hosts
+(``python -m handyrl_tpu_torch.worker``) on the entry and data ports.
+Every task is booked in a ``fault.TaskLedger`` (stranded tasks re-issued,
+duplicate uploads dropped) and every host has a health state
+(``fault.FleetController``). A local run whose gathers are lost stops with
+exit 1 naming them (the JAX learner waits for them forever).
 
 * :class:`Batcher`: threads (or, with ``batcher_processes``, spawned
   processes that build into shared-memory slots with
@@ -49,12 +57,15 @@ resumes); ``keep_checkpoints`` retention; the registry publish hook
 Kernel launches are counted by path (``ops.launches``): 'generation' and
 'evaluation' run K1's serving form in the main thread, 'training' K1's
 training form, K2 and the targets' kernels in the trainer thread (in the
-fused loop, all three in the main thread). The CLI prints the log lines
-of the JAX package's learner and, at exit, one JSON line of rates, epoch
-times, peak device memory, the last epoch's losses and the launches by
-path (and the fused loop's dispatches, sample reuse, ring and host
-seconds). It exits 75 after a preemption flush and 1 when the trainer
-failed.
+fused loop, all three in the main thread). The worker plane's workers
+count their own launches, which reach the learner on their beacons. The
+CLI prints the log lines of the JAX package's learner (and its ``fleet:``
+line an epoch on the worker plane) and, at exit, one JSON line of rates,
+epoch times, peak device memory, the last epoch's losses and the launches
+by path (and the fused loop's dispatches, sample reuse, ring and host
+seconds; the worker plane's fleet snapshot, the workers' launches and
+play stats). It exits 75 after a preemption flush and 1 when the trainer
+or the local worker cluster failed.
 """
 
 from __future__ import annotations
@@ -77,8 +88,9 @@ import torch
 
 from . import guard as guard_mod
 from . import telemetry
-from .config import apply_defaults
+from .config import ConfigError, apply_defaults
 from .environment import make_env
+from .fault import FleetController, TaskLedger
 from .generation import BatchedEvaluator, BatchedGenerator
 from .model import (ModelWrapper, fp32_on_card, load_params_bytes,
                     params_bytes, param_trees, resolve_device)
@@ -94,6 +106,7 @@ from .ops.train_step import (GraphedUpdateStep, ReplayUpdateStep,
 from .utils import flax_msgpack
 from .utils.fs import (append_jsonl, checksummed_write_bytes,
                        read_verified_bytes, sidecar_path, verify_checkpoint)
+from .worker import WorkerCluster, WorkerServer
 
 _LOG = telemetry.get_logger('train')
 
@@ -653,13 +666,15 @@ class _EpochCadence:
 
 
 class Learner:
-    """The local learner: model, generation and evaluation in this thread,
-    the trainer thread, episode and result accounting, epoch cadence and
-    checkpoints. ``net`` defaults to the env's net with weights drawn from
-    ``seed``; ``device`` to the card (without one it raises)."""
+    """The learner: model, generation and evaluation (or the worker plane's
+    server) in this thread, the trainer thread, episode and result
+    accounting, epoch cadence and checkpoints. ``net`` defaults to the
+    env's net with weights drawn from ``seed``; ``device`` to the card
+    (without one it raises). ``remote`` serves worker hosts over TCP
+    instead of generating in this process."""
 
     def __init__(self, args: Dict[str, Any], net: Optional[torch.nn.Module]
-                 = None, device: Any = 'cuda'):
+                 = None, device: Any = 'cuda', remote: bool = False):
         train_args = dict(args['train_args'])
         train_args['env'] = dict(args['env_args'])
         args = train_args
@@ -728,6 +743,28 @@ class Learner:
         self.results: Dict[int, tuple] = {}
         self.results_per_opponent: Dict[int, dict] = {}
         self.num_results = 0
+
+        # the worker plane (handyrl_tpu/train.py:1227-1234): a local
+        # cluster, or the listeners of a training server
+        self.remote = remote
+        self.use_batched_generation = (not remote
+                                       and args['batched_generation'])
+        if remote and args['device_generation']:
+            raise ConfigError(
+                'train_args.device_generation with --server: the device '
+                'actor backend (DeviceActorGather) is not ported yet '
+                '(ROADMAP.md)')
+        self.ledger: Optional[TaskLedger] = None      # built by server()
+        self.fleet: Optional[FleetController] = None  # built by server()
+        self.worker = None
+        self.fleet_failure: Optional[str] = None
+        self._snapshot_cache: Optional[tuple] = None
+        self._sample_keys: set = set()
+        self.repeated_sample_keys = 0
+        if not self.use_batched_generation and not args['device_generation']:
+            # the local cluster's workers run on the learner's device
+            args['worker']['device'] = str(self.device)
+            self.worker = WorkerServer(args) if remote else WorkerCluster(args)
 
         self.trainer = Trainer(args, net.to(self.device))
         self.trainer.rollback_source = self._rollback_source
@@ -1051,6 +1088,11 @@ class Learner:
                 n, r, r2 = self.generation_results.get(model_id, (0, 0, 0))
                 self.generation_results[model_id] = (n + 1, r + outcome,
                                                      r2 + outcome ** 2)
+            skey = episode['args'].get('sample_key')
+            if skey is not None:   # a worker-plane task: played once
+                if skey in self._sample_keys:
+                    self.repeated_sample_keys += 1
+                self._sample_keys.add(skey)
             self.num_returned_episodes += 1
             self.trainer.episodes.append(episode)
         while len(self.trainer.episodes) > self.args['maximum_episodes']:
@@ -1183,6 +1225,264 @@ class Learner:
                               ('epoch_close', t4 - t3)):
                 self.loop_seconds[stage] += dt
         self._run_ended_at = time.time()
+
+    # -- the worker plane: the 4-RPC server --------------------------------
+    def server(self):
+        """The 4-RPC conductor (handyrl_tpu/train.py:3034-3354 without the
+        league, streaming, resume-token and alert branches): 'args' hands
+        out tasks, 'episode' and 'result' take uploads, 'model' answers
+        with a snapshot.
+
+        Every assigned task is booked in a :class:`~.fault.TaskLedger`
+        with a deadline; tasks stranded on a detached endpoint or past
+        their deadline are re-issued ahead of fresh work without counting
+        again, and duplicate uploads are dropped. Each peer maps to a host
+        key (socket peers by address, pipe peers one by one) with a health
+        state (:class:`~.fault.FleetController`): a flapping host gets
+        'idle' placeholders instead of work while its booked tasks drain,
+        sits out a quarantine and is re-admitted. A local cluster that
+        loses its gathers stops the run (``fleet_failure``)."""
+        _LOG.info('started server')
+        cadence = _EpochCadence(self.args)
+        ft = self.args['fault_tolerance']
+        ledger = self.ledger = TaskLedger(deadline=float(ft['task_deadline']))
+        fleet = self.fleet = FleetController(
+            degrade_after=int(ft['host_degrade_after']),
+            quarantine_after=int(ft['host_quarantine_after']),
+            health_window=float(ft['host_health_window']),
+            quarantine_period=float(ft['host_quarantine_period']))
+        host_of: Dict[Any, str] = {}       # endpoint -> host key
+
+        def host_key(ep) -> str:
+            key = host_of.get(ep)
+            if key is None:
+                try:
+                    sock = getattr(ep, 'sock', None)
+                    if sock is None and hasattr(ep, 'sock'):
+                        raise OSError('socket already closed')
+                    key = ('host-%s' % sock.getpeername()[0]
+                           if sock is not None
+                           else 'local-%d' % ep.fileno())
+                except (OSError, AttributeError):
+                    key = 'host-unknown'
+                host_of[ep] = key
+                fleet.observe(key)
+            return key
+
+        def pump_fleet_health():
+            for ep, _reason, _t in ledger.drain_stranding_events():
+                host = host_of.get(ep)
+                if host is not None:
+                    fleet.record_stranding(host)
+            outstanding: Dict[str, int] = {}
+            for ep, n in ledger.outstanding_by_endpoint().items():
+                host = host_of.get(ep)
+                if host is not None:
+                    outstanding[host] = outstanding.get(host, 0) + n
+            fleet.tick(outstanding)
+            for host, prev, state, _t in fleet.drain_transitions():
+                _LOG.warning('fleet: host %s %s -> %s', host, prev, state)
+
+        self._run_started_at = time.time()
+        while self.worker.connection_count() > 0 or not self.shutdown_flag:
+            if self.preempt.requested():
+                # the flush happens in run(); the fleet is not waited for
+                _LOG.warning('preemption signal received; snapshotting '
+                             'and exiting')
+                self.shutdown_flag = True
+                break
+            if self._deadline_passed():
+                self.shutdown_flag = True   # wind the fleet down
+            lost = self.worker.lost(self.shutdown_flag)
+            if lost:
+                self.fleet_failure = lost
+                _LOG.error('worker cluster failed: %s', lost)
+                self.shutdown_flag = True
+                break
+            self._poll_rollback()
+            # supervision runs even when no RPC arrives: stranded tasks
+            # must re-enter the queue or the epoch cadence starves
+            detached = []
+            for ep, reason, _t in self.worker.drain_detach_events():
+                n = ledger.fail_endpoint(ep)
+                detached.append(ep)
+                if n:
+                    _LOG.warning('re-issuing %d task(s) from detached '
+                                 'peer (%s)', n, reason)
+            ledger.reap()
+            pump_fleet_health()
+            for ep in detached:       # after the stranding drain mapped them
+                host_of.pop(ep, None)
+            try:
+                conn, (req, data) = self.worker.recv(timeout=0.3)
+            except queue.Empty:
+                continue
+
+            multi_req = isinstance(data, list)
+            if not multi_req:
+                data = [data]
+            send_data: List[Any] = []
+            if req == 'args':
+                if self.shutdown_flag:
+                    send_data = [None] * len(data)
+                elif not fleet.admits(host_key(conn)):
+                    # drain before detach: placeholders, unbooked and
+                    # uncounted, keep the host's workers warm
+                    fleet.stats['withheld'] += len(data)
+                    send_data = [{'role': 'idle', 'wait': 1.0}
+                                 for _ in data]
+                else:
+                    for _ in data:
+                        role_args = ledger.next_reissue()
+                        if role_args is None:
+                            role_args = self._fresh_task()
+                        ledger.assign(conn, role_args)
+                        send_data.append(role_args)
+            elif req == 'episode':
+                self.feed_episodes(ledger.admit(data))
+                send_data = [None] * len(data)
+            elif req == 'result':
+                self.feed_results(ledger.admit(data))
+                send_data = [None] * len(data)
+            elif req == 'model':
+                send_data = [self._model_snapshot(mid) for mid in data]
+            else:
+                _LOG.warning('unknown request %r from %s', req,
+                             host_key(conn))
+                send_data = [None] * len(data)
+            if not multi_req and len(send_data) == 1:
+                send_data = send_data[0]
+            self.worker.send(conn, send_data)
+
+            if cadence.due(self.num_returned_episodes):
+                t0 = time.perf_counter()
+                self.update()
+                self._print_fleet_stats()
+                self.loop_seconds['epoch_close'] += time.perf_counter() - t0
+                if self._past_epoch_budget():
+                    self.shutdown_flag = True
+        self._run_ended_at = time.time()
+        _LOG.info('finished server')
+
+    def _fresh_task(self) -> Dict[str, Any]:
+        """A new task: evaluation ('e') while the results lag ``eval_rate``
+        of the episodes, else generation ('g'); both stamped with their
+        ``sample_key``, so the task (or its re-issue) plays the same
+        episode on any worker."""
+        players = self.env.players()
+        role_args: Dict[str, Any] = {'model_id': {}}
+        if self.num_results < self.eval_rate * self.num_episodes:
+            role_args['role'] = 'e'
+            role_args['player'] = [players[self.num_results % len(players)]]
+            for p in players:
+                role_args['model_id'][p] = (
+                    self.model_epoch if p in role_args['player'] else -1)
+            role_args['sample_key'] = self.num_results
+            self.num_results += 1
+        else:
+            role_args['role'] = 'g'
+            role_args['player'] = players
+            for p in players:
+                role_args['model_id'][p] = self.model_epoch
+            role_args['sample_key'] = self.num_episodes
+            self.num_episodes += 1
+        return role_args
+
+    def _model_snapshot(self, model_id: int) -> Dict[str, Any]:
+        """The 'model' reply: the current params for the current epoch (or
+        id 0 and below), a numbered checkpoint's bytes for an older one
+        (the current params when its file is gone)."""
+        from . import models as model_zoo
+        raw = None
+        if 0 < model_id != self.model_epoch:
+            try:
+                with open(self.model_path(model_id), 'rb') as f:
+                    raw = f.read()
+            except OSError:
+                raw = None
+        if raw is None:
+            key = (self.model_epoch, id(self.params))
+            if self._snapshot_cache is None or self._snapshot_cache[0] != key:
+                self._snapshot_cache = (key, params_bytes(self.module,
+                                                          self.params))
+            raw = self._snapshot_cache[1]
+        snap = {'architecture': model_zoo.architecture_name(self.module),
+                'params': raw}
+        config = self.module.config()
+        if config:
+            snap['config'] = config
+        return snap
+
+    def _fleet_snapshot(self) -> Dict[str, Any]:
+        """Fleet health: the ledger's and the hub's counts and the gathers'
+        stats from their beacons."""
+        led = self.ledger.stats
+        hub = self.worker.hub_stats()
+        gathers = self.worker.fleet_beacons()['gathers'].values()
+        snap = {
+            'live': self.worker.connection_count(),
+            'outstanding': self.ledger.outstanding(),
+            'pending_reissue': self.ledger.pending_reissue(),
+            'reissued': led['reissued'],
+            'expired': led['expired'],
+            'duplicates_dropped': led['duplicates'],
+            'detached': hub.get('detached', 0),
+            'reconnects': sum(int(g.get('reconnects', 0)) for g in gathers),
+            'dropped_uploads': sum(int(g.get('dropped_uploads', 0))
+                                   for g in gathers),
+        }
+        reasons = {k[len('disconnect_'):]: v for k, v in hub.items()
+                   if k.startswith('disconnect_')}
+        if reasons:
+            snap['disconnects'] = reasons
+        counts = self.fleet.counts()
+        snap['hosts'] = sum(counts.values())
+        snap['hosts_degraded'] = counts['degraded']
+        snap['hosts_draining'] = counts['draining']
+        snap['hosts_quarantined'] = counts['quarantined']
+        snap['withheld'] = self.fleet.stats['withheld']
+        snap['readmitted'] = self.fleet.stats['readmitted']
+        return snap
+
+    def _print_fleet_stats(self):
+        snap = self._fleet_snapshot()
+        snap['guard_nonfinite'] = self.trainer.guard.total_bad
+        snap['guard_rollbacks'] = self.trainer.guard.rollbacks
+        snap['guard_bad_episodes'] = self._bad_episodes
+        reasons = snap.pop('disconnects', {})
+        line = ' '.join('%s=%s' % kv for kv in snap.items())
+        if reasons:
+            line += ' (%s)' % ', '.join(
+                '%s=%d' % kv for kv in sorted(reasons.items()))
+        print('fleet: ' + line)
+
+    def _worker_summary(self) -> Dict[str, Any]:
+        """The worker plane's fields of the JSON line: the fleet snapshot,
+        the kernel launches of the worker processes (summed over each
+        process's newest beacon) and each worker's play stats with its
+        seconds a generated ply."""
+        if self.worker is None or self.ledger is None:
+            return {}
+        workers = self.worker.fleet_beacons()['workers']
+        total = {k: 0 for k in launches.KERNELS}
+        stats = {}
+        for (wid, pid), b in sorted(workers.items(),
+                                    key=lambda kv: (kv[0][0], kv[0][1] or 0)):
+            for k, n in (b.get('launches') or {}).items():
+                total[k] = total.get(k, 0) + int(n)
+            st = dict(b.get('stats') or {})
+            st['ply_seconds'] = (st['generation_seconds'] / st['plies']
+                                 if st.get('plies') else None)
+            st['device'] = b.get('device')
+            stats['%s/%s' % (wid, pid)] = st
+        return {'generation': 'server' if self.remote else 'workers',
+                'fleet': self._fleet_snapshot(),
+                'fleet_failure': self.fleet_failure,
+                'distinct_sample_keys': len(self._sample_keys),
+                'repeated_sample_keys': self.repeated_sample_keys,
+                'worker_processes': len(workers),
+                'worker_kernel_launches': total,
+                'worker_stats': stats}
 
     def _print_eval_stats(self):
         if self.model_epoch not in self.results:
@@ -1471,7 +1771,11 @@ class Learner:
                 self._trainer_thread = threading.Thread(
                     target=self.trainer.run, name='trainer', daemon=True)
                 self._trainer_thread.start()
-                self._run_batched()
+                if self.use_batched_generation:
+                    self._run_batched()
+                else:
+                    self.worker.run()
+                    self.server()
         finally:
             if self.preempt.fired:
                 # the full checkpoint before the threads are torn down: the
@@ -1488,6 +1792,10 @@ class Learner:
         update step's graphs, so no thread is left on the device at exit."""
         self.shutdown_flag = True
         self.preempt.uninstall()
+        if self.worker is not None:
+            # a failed or preempted run does not wait for its gathers
+            self.worker.close(timeout=0.0 if self.fleet_failure
+                              or self.preempt.fired else 30.0)
         self.trainer.shutdown()
         if self._trainer_thread is not None:
             self._trainer_thread.join(timeout=300)
@@ -1556,6 +1864,7 @@ class Learner:
             'shm': (tr.batcher.shm_summary() if not self._fused
                     and tr.batcher.mode == 'shared_memory' else None),
             **self._fused_summary(steps, train_s),
+            **self._worker_summary(),
         }
 
     def _fused_summary(self, steps: int, train_s: Optional[float]
@@ -1592,27 +1901,34 @@ class Learner:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog='python -m handyrl_tpu_torch.train',
-        description='train a model by batched self-play (the local learner '
-        'of handyrl_tpu_torch)')
+        description='train a model by self-play (the learner of '
+        'handyrl_tpu_torch): batched in this process, from a local worker '
+        'cluster (batched_generation: false), or from worker hosts '
+        '(--server)')
     ap.add_argument('--config', required=True,
                     help='JSON file with env_args and train_args blocks')
     ap.add_argument('--device', default='cuda',
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument('--server', action='store_true',
+                    help='serve worker hosts (python -m '
+                    'handyrl_tpu_torch.worker) on the entry and data ports '
+                    '(HANDYRL_TPU_ENTRY_PORT, HANDYRL_TPU_DATA_PORT)')
     a = ap.parse_args(argv)
     with open(a.config) as f:
         args = apply_defaults(json.load(f))
     device = resolve_device(a.device)
     fp32_on_card(device)
     reset_kernel_launches()
-    learner = Learner(args, device=device)
+    learner = Learner(args, device=device, remote=a.server)
     learner.run()
     print(json.dumps(learner.summary()), flush=True)
     if learner.preempt.fired:
         # the supervisor contract: restart into restart_epoch -1
         return guard_mod.PREEMPT_EXIT_CODE
-    if learner.trainer.failed:
-        print('training failed: %s' % learner.trainer.failed_reason,
-              file=sys.stderr, flush=True)
+    failed = (learner.trainer.failed_reason if learner.trainer.failed
+              else learner.fleet_failure)
+    if failed:
+        print('training failed: %s' % failed, file=sys.stderr, flush=True)
         return 1
     return 0
 

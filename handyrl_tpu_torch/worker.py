@@ -1,0 +1,795 @@
+"""The worker plane's actor side: episode workers, gathers and the cluster
+fronts (the port of ``handyrl_tpu/worker.py``).
+
+The wire is the JAX package's: the four RPCs (``args``, ``episode``,
+``result``, ``model``), the entry handshake on ``ENTRY_PORT`` (the host's
+``base_worker_id`` and the learner's merged config) and the data
+connections on ``DATA_PORT``; frames are the data-only codec's, snapshots
+flax bytes. So a worker host of either package can serve a learner of
+either.
+
+* :class:`Worker`: one process that asks for tasks and plays them,
+  generation ('g') with the sequential :class:`~.generation.Generator`
+  and evaluation ('e') with the sequential
+  :class:`~.evaluation.Evaluator`, on models materialized per id in a
+  :class:`~.inference.ModelVault` on its device. Workers run on the card
+  by default: every ply of a GeeseNet is one forward at the 8-row bucket
+  (kernel K1's serving form with ``torus_impl='pallas'``).
+* :class:`Gather`: the relay between about 16 workers and the learner. It
+  prefetches task blocks, caches snapshots per id and ships uploads in
+  batches; on a socket link it redials with backoff and resends what the
+  learner has not acknowledged, and beacons its stats. Gathers relay bytes
+  and never import torch.
+* :class:`WorkerCluster` (local: gathers over spawned pipes, ``python -m
+  handyrl_tpu_torch.train`` with ``batched_generation: false``),
+  :class:`WorkerServer` (the learner's listeners, ``--server``) and
+  :class:`RemoteWorkerCluster` (a worker host, ``python -m
+  handyrl_tpu_torch.worker``, whose supervisor respawns gathers).
+
+Every worker's and gather's beacon carries its process's kernel launch
+counts and play stats, and a last beacon goes out at its end, so the
+learner reports the launches of the whole fleet (``fleet_beacons``).
+Children are spawned, never forked, with one OpenMP thread each
+(``CHILD_ENV``): six workers with a thread per core each would thrash the
+host's cores.
+
+The per-host inference engine, the device actor backend, streaming and
+the resume-token reattach of the JAX package are not ported yet
+(ROADMAP.md); the config refuses them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import multiprocessing as mp
+import os
+import queue
+import random
+import sys
+import threading
+import time
+import traceback
+from collections import OrderedDict, defaultdict, deque
+from socket import gethostname
+from typing import Any, Dict, Iterable, List, Optional
+
+from . import telemetry
+from .connection import (HEARTBEAT_KIND, Hub, _bare_main,
+                         accept_socket_connections, child_environ,
+                         connect_socket_connection, send_recv,
+                         spawn_pipe_workers)
+from .fault import Backoff, parse_chaos
+
+_LOG = telemetry.get_logger('worker')
+
+# the well-known ports; HANDYRL_TPU_ENTRY_PORT and HANDYRL_TPU_DATA_PORT
+# override them, so that several fleets (or parallel test runs) share a host
+ENTRY_PORT = 9999
+DATA_PORT = 9998
+
+# the environment of every spawned gather and worker: one OpenMP thread
+CHILD_ENV = {'OMP_NUM_THREADS': '1'}
+
+# connection-death signatures on the blocking RPC paths (sockets and
+# pipes); socket.timeout and the reset errors are OSErrors
+_CONN_ERRORS = (OSError, EOFError, ConnectionError)
+
+
+def entry_port() -> int:
+    return int(os.environ.get('HANDYRL_TPU_ENTRY_PORT', ENTRY_PORT))
+
+
+def data_port() -> int:
+    return int(os.environ.get('HANDYRL_TPU_DATA_PORT', DATA_PORT))
+
+
+class Worker:
+    """One actor process: loops task requests over the 4-RPC protocol and
+    plays generation ('g') or evaluation ('e') assignments on
+    ``args['worker']['device']`` (default 'cuda'; without CUDA it raises
+    and the process exits non-zero)."""
+
+    def __init__(self, args: Dict[str, Any], conn, wid: int):
+        from .environment import make_env
+        from .evaluation import Evaluator
+        from .generation import Generator
+        from .inference import ModelVault
+        from .model import fp32_on_card, resolve_device
+        self.device = resolve_device(args['worker'].get('device', 'cuda'))
+        fp32_on_card(self.device)
+        _LOG.info('opened worker %d (pid %d) on %s', wid, os.getpid(),
+                  self.device)
+        self.worker_id = wid
+        self.conn = conn
+        self.env = make_env({**args['env'], 'id': wid})
+        random.seed(args['seed'] + wid)
+        ft = args.get('fault_tolerance') or {}
+        self._hb_interval = float(ft.get('heartbeat_interval', 10.0))
+        self._hb_next = time.time() + self._hb_interval
+        self._hb_seq = 0
+        self.env.reset()
+        example_obs = self.env.observation(self.env.players()[0])
+        self.vault = ModelVault(
+            lambda mid: send_recv(conn, ('model', mid)), example_obs,
+            capacity=int((args.get('inference') or {}).get('vault_size', 3)),
+            device=self.device)
+        generator = Generator(self.env, args, namespace=wid)
+        evaluator = Evaluator(self.env, args, device=self.device)
+        # role -> (episode producer, upload RPC name)
+        self.playbook = {'g': (generator.execute, 'episode'),
+                         'e': (evaluator.execute, 'result')}
+        # what the beacons report: tasks by role; the plies and seconds of
+        # generation played by a net and by model id 0 (the RandomModel:
+        # no forward), and the seconds of evaluation, each without the
+        # models' fetch and materialization (model_seconds)
+        self.stats = {'episodes': 0, 'results': 0, 'failures': 0,
+                      'plies': 0, 'generation_seconds': 0.0,
+                      'random_plies': 0, 'random_seconds': 0.0,
+                      'evaluation_seconds': 0.0, 'model_seconds': 0.0}
+
+    def beacon(self) -> Dict[str, Any]:
+        """This process's kernel launches and play stats."""
+        from .ops import kernel_launches
+        self._hb_seq += 1
+        return {'worker': self.worker_id, 'pid': os.getpid(),
+                'seq': self._hb_seq, 'device': str(self.device),
+                'launches': kernel_launches(), 'stats': dict(self.stats)}
+
+    def _maybe_heartbeat(self, final: bool = False):
+        now = time.time()
+        if not final and (self._hb_interval <= 0 or now < self._hb_next):
+            return
+        self._hb_next = now + self._hb_interval
+        self.conn.send((HEARTBEAT_KIND, self.beacon()))
+
+    def run(self):
+        """The task loop: a broken pipe to the gather ends the process; a
+        crashing episode costs that episode only (its payload becomes
+        None, and the learner's ledger re-issues the task on deadline)."""
+        chaos = parse_chaos()
+        doom = None
+        if chaos.get('kill_worker'):
+            rng = random.Random(int(chaos.get('seed', 0)) * 7919
+                                + self.worker_id)
+            doom = time.time() + rng.expovariate(1.0 / chaos['kill_worker'])
+        while True:
+            if doom is not None and time.time() >= doom:
+                print('chaos: worker %d self-destructing' % self.worker_id,
+                      flush=True)
+                os._exit(17)
+            try:
+                self._maybe_heartbeat()
+                task = send_recv(self.conn, ('args', None))
+                if task is None:   # the run is over: the last beacon
+                    self._maybe_heartbeat(final=True)
+                    return
+            except _CONN_ERRORS:
+                self._gather_lost()
+                return
+            if task.get('role') == 'idle':
+                # the learner withholds fresh tasks from this host
+                # (draining or quarantined): nap and ask again
+                time.sleep(min(5.0, float(task.get('wait', 1.0))))
+                continue
+            produce, upload_as = self.playbook[task['role']]
+            t0 = t1 = time.perf_counter()
+            models: Dict[Any, Any] = {}
+            try:
+                models = self.vault.obtain(dict(task.get('model_id', {})))
+                t1 = time.perf_counter()
+                payload = produce(models, task)
+            except _CONN_ERRORS:       # the model fetch rode the dead pipe
+                self._gather_lost()
+                return
+            except Exception:
+                traceback.print_exc()
+                payload = None
+                self.stats['failures'] += 1
+            self.stats['model_seconds'] += t1 - t0
+            dt = time.perf_counter() - t1
+            if task['role'] == 'g':
+                net = any(m is not None and hasattr(m, 'batch_inference')
+                          for m in models.values())
+                self.stats['generation_seconds' if net
+                           else 'random_seconds'] += dt
+                if payload is not None:
+                    self.stats['episodes'] += 1
+                    self.stats['plies' if net else 'random_plies'] += int(
+                        payload['steps'])
+            else:
+                self.stats['evaluation_seconds'] += dt
+                self.stats['results'] += payload is not None
+            try:
+                send_recv(self.conn, (upload_as, payload))
+            except _CONN_ERRORS:
+                self._gather_lost()
+                return
+
+    def _gather_lost(self):
+        _LOG.warning('worker %d: lost its gather; exiting', self.worker_id)
+
+
+def open_worker(args, conn, wid):
+    """A worker process's entry point."""
+    import torch
+    torch.set_num_threads(1)
+    Worker(args, conn, wid).run()
+
+
+def _shard(total: int, parts: int, index: int) -> int:
+    """Size of shard ``index`` when ``total`` items split across ``parts``."""
+    return total // parts + (1 if index < total % parts else 0)
+
+
+def latest_beacons(infos: Iterable[Any], key: str) -> Dict[tuple, dict]:
+    """The newest beacon of each process among heartbeat payloads (the
+    entries with ``key``), by (``key``, pid): a process's counts only
+    grow, and a gather that redialed shows up under two endpoints."""
+    out: Dict[tuple, dict] = {}
+    for info in infos:
+        if not isinstance(info, dict) or key not in info:
+            continue
+        k = (info[key], info.get('pid'))
+        if k not in out or info.get('seq', 0) >= out[k].get('seq', 0):
+            out[k] = info
+    return out
+
+
+class Gather:
+    """Fan-in relay between its workers and the learner.
+
+    Amortizes server round trips: task assignments are prefetched in
+    blocks, model snapshots are served from a per-id cache, and episode and
+    result uploads are shipped in batches.
+
+    On a socket link (``reconnect`` given) every server RPC is supervised:
+    a failure closes the link, redials the data port with exponential
+    backoff and jitter, and resends the same RPC, so the upload box
+    survives a severed link (the learner's ledger drops a resent
+    duplicate). A daemon thread sends one-way heartbeat beacons with this
+    relay's stats and its workers' newest beacons; the last one goes out
+    when the relay ends, on a pipe too.
+
+    When every worker was lost before it was told the run is over (a
+    ``None`` task), :attr:`lost` is set and the relay's process exits
+    non-zero."""
+
+    SNAP_SLOTS = 4                   # snapshots cached per relay
+
+    def __init__(self, args: Dict[str, Any], server_conn, gather_id: int,
+                 reconnect=None):
+        _LOG.info('started gather %d (pid %d)', gather_id, os.getpid())
+        self.gather_id = gather_id
+        ft = args.get('fault_tolerance') or {}
+        self._reconnect_fn = reconnect
+        self._rpc_timeout = float(ft.get('rpc_timeout', 120.0))
+        self._hb_interval = float(ft.get('heartbeat_interval', 10.0))
+        self._backoff_initial = float(ft.get('reconnect_initial_delay', 1.0))
+        self._backoff_max = float(ft.get('reconnect_max_delay', 30.0))
+        self._max_tries = int(ft.get('reconnect_max_tries', 30))
+        self._resend_max = int(ft.get('resend_buffer', 256))
+        self.stats = {'reconnects': 0, 'dropped_uploads': 0}
+        self._hb_seq = 0
+        self.hub: Optional[Hub] = None
+        if server_conn is None and reconnect is not None:
+            server_conn = reconnect()   # the child dials (respawn-friendly)
+        self.server = server_conn
+        if getattr(server_conn, 'sock', None) is not None:
+            # a silently dead server must fail the blocking recv
+            server_conn.sock.settimeout(self._rpc_timeout)
+            if self._hb_interval > 0:
+                threading.Thread(target=self._heartbeat_loop,
+                                 name='gather-%d-heartbeat' % gather_id,
+                                 daemon=True).start()
+
+        n_total = args['worker']['num_parallel']
+        n_relays = args['worker']['num_gathers']
+        n_here = _shard(n_total, n_relays, gather_id)
+        first_wid = args['worker'].get('base_worker_id', 0)
+
+        def worker_args(i, child_conn):
+            return (args, child_conn, first_wid + i * n_relays + gather_id)
+
+        self.hub = Hub()
+        self.workers = spawn_pipe_workers(n_here, open_worker, worker_args,
+                                          env=CHILD_ENV)
+        for _, ep in self.workers:
+            self.hub.attach(ep)
+        self.block = 1 + n_here // 4          # round-trip amortization
+        self._task_stock: deque = deque()
+        self._snap_cache: OrderedDict = OrderedDict()
+        self._upload_box: Dict[str, list] = defaultdict(list)
+        self._upload_count = 0
+        self._finished = 0                    # workers told the run is over
+        self.lost = False
+
+    # -- supervised server link --
+
+    def beacon(self) -> Dict[str, Any]:
+        """This relay's stats and its workers' newest beacons (of the live
+        ones and of those that have gone)."""
+        self._hb_seq += 1
+        infos: List[Any] = []
+        if self.hub is not None:
+            infos = (list(self.hub.peer_info_snapshot().values())
+                     + list(self.hub.departed_peer_info().values()))
+        return {'gather': self.gather_id, 'pid': os.getpid(),
+                'seq': self._hb_seq, **self.stats,
+                'workers': list(latest_beacons(infos, 'worker').values())}
+
+    def _heartbeat_loop(self):
+        """One-way beacons, sent even while the main loop blocks inside a
+        long RPC (the learner busy at an epoch boundary)."""
+        while True:
+            time.sleep(self._hb_interval)
+            try:
+                self.server.send((HEARTBEAT_KIND, self.beacon()))
+            except Exception:
+                pass   # the RPC path owns failure handling and reconnect
+
+    def _recover(self, exc: Exception):
+        """Redial the data port with exponential backoff and jitter."""
+        _LOG.warning('gather %d: server link lost (%s: %s); reconnecting',
+                     self.gather_id, type(exc).__name__, str(exc)[:120])
+        try:
+            self.server.close()
+        except Exception:
+            pass
+        backoff = Backoff(self._backoff_initial, self._backoff_max)
+        last_err: Optional[Exception] = exc
+        for _ in range(self._max_tries):
+            time.sleep(backoff.next_delay())
+            try:
+                conn = self._reconnect_fn()
+            except OSError as e:
+                last_err = e
+                continue
+            conn.sock.settimeout(self._rpc_timeout)
+            self.server = conn
+            self.stats['reconnects'] += 1
+            _LOG.warning('gather %d: reconnected to the server',
+                         self.gather_id)
+            return
+        raise ConnectionError(
+            'gather %d: could not re-reach the server after %d tries (%s)'
+            % (self.gather_id, self._max_tries, last_err))
+
+    def _server_rpc(self, msg):
+        """send_recv with supervised reconnect: the request is resent on
+        the fresh link (the server drops a duplicate by task_id). The
+        beacon thread's sends interleave whole frames
+        (``FramedConnection.send`` locks)."""
+        while True:
+            try:
+                return send_recv(self.server, msg)
+            except _CONN_ERRORS as exc:
+                if self._reconnect_fn is None:   # a pipe: unrecoverable
+                    raise
+                self._recover(exc)
+
+    # -- per-RPC handling --
+
+    def _next_task(self):
+        if not self._task_stock:
+            self._task_stock.extend(
+                self._server_rpc(('args', [None] * self.block)))
+        return self._task_stock.popleft()
+
+    def _snapshot(self, mid):
+        """Per-id snapshot LRU: one epoch's params an entry, bounded (the
+        epoch grows for the life of the run)."""
+        if mid not in self._snap_cache:
+            while len(self._snap_cache) >= self.SNAP_SLOTS:
+                self._snap_cache.popitem(last=False)
+            self._snap_cache[mid] = self._server_rpc(('model', mid))
+        self._snap_cache.move_to_end(mid)
+        return self._snap_cache[mid]
+
+    def _ship(self, kind: str):
+        self._server_rpc((kind, self._upload_box[kind]))
+        del self._upload_box[kind]   # acked: booked by the learner
+
+    def _stash_upload(self, kind: str, payload):
+        self._upload_box[kind].append(payload)
+        self._upload_count += 1
+        while self._upload_count > self._resend_max:
+            # a bounded resend buffer: in a long outage keep the newest
+            # uploads and count what was dropped
+            biggest = max(self._upload_box,
+                          key=lambda k: len(self._upload_box[k]))
+            self._upload_box[biggest].pop(0)
+            self._upload_count -= 1
+            self.stats['dropped_uploads'] += 1
+            _LOG.warning('gather %d: resend buffer full (%d); dropped a %r '
+                         'upload', self.gather_id, self._resend_max, biggest)
+        if self._upload_count >= self.block:
+            for kind in list(self._upload_box):
+                self._ship(kind)
+            self._upload_count = 0
+
+    def run(self):
+        while self.hub.count() > 0:
+            try:
+                ep, (kind, body) = self.hub.recv(timeout=0.3)
+            except queue.Empty:
+                continue
+            if kind == 'args':
+                task = self._next_task()
+                self._finished += task is None
+                self.hub.send(ep, task)
+            elif kind == 'model':
+                self.hub.send(ep, self._snapshot(body))
+            else:
+                self.hub.send(ep, None)       # ack now, ship in bulk later
+                self._stash_upload(kind, body)
+        if self._finished == 0:
+            codes = []
+            for proc, _ in self.workers:
+                proc.join(5.0)
+                codes.append(proc.exitcode)
+            self.lost = True
+            _LOG.error('gather %d: all %d of its workers were lost before '
+                       'the run ended (exit codes %s)', self.gather_id,
+                       len(self.workers), codes)
+        self._flush_and_beacon()
+        for proc, _ in self.workers:
+            proc.join(5.0)
+
+    def _flush_and_beacon(self):
+        """The relay's end: ship the last partial upload block and send a
+        last beacon, so the learner sees this relay's complete counts."""
+        for kind in list(self._upload_box):
+            if self._upload_box[kind]:
+                self._ship(kind)
+        self._upload_box.clear()
+        try:
+            self.server.send((HEARTBEAT_KIND, self.beacon()))
+        except Exception:
+            pass   # the run is over; a dead link changes nothing
+
+
+def resolve_generation_backend(args: Dict[str, Any]) -> str:
+    """The actor engine of a gather host: a host's ``worker_args.backend``
+    (riding the entry handshake) wins over the training config's
+    ``generation.backend``; with neither set, 'worker'. The port runs
+    'worker' only (per-worker inference)."""
+    backend = str((args.get('worker') or {}).get('backend') or ''
+                  ) or str((args.get('generation') or {}).get('backend')
+                           or '')
+    return backend or 'worker'
+
+
+def gather_loop(args, conn, gather_id, server_address=None):
+    """A gather process's entry point: pipe mode (``conn`` given) or
+    socket mode (it dials ``server_address``'s data port itself). Exits
+    1 when every worker was lost before the run ended."""
+    backend = resolve_generation_backend(args)
+    if backend != 'worker':
+        raise ValueError('generation backend %r is not ported yet '
+                         '(ROADMAP.md)' % backend)
+    reconnect = None
+    if server_address:
+        def reconnect():
+            return connect_socket_connection(server_address, data_port())
+    gather = Gather(args, conn, gather_id, reconnect=reconnect)
+    gather.run()
+    if gather.lost:
+        raise SystemExit(1)
+
+
+def default_num_gathers(num_parallel: int) -> int:
+    return 1 + max(0, num_parallel - 1) // 16
+
+
+class WorkerCluster:
+    """Local mode: gather processes over spawned pipes, one hub in the
+    learner. ``recv``/``send``/``connection_count`` delegate to the hub,
+    so the learner's server loop does not care about the transport.
+
+    Unlike the JAX package's cluster, which leaves the learner waiting
+    once every gather is gone, :meth:`lost_gathers` names the gathers that
+    exited non-zero, and the learner stops with exit 1."""
+
+    def __init__(self, args: Dict[str, Any]):
+        self.args = args
+        self.hub = Hub()
+        ft = args.get('fault_tolerance') or {}
+        self.hub.LIVENESS_TIMEOUT = float(
+            ft.get('liveness_timeout', Hub.LIVENESS_TIMEOUT))
+        self.procs: List[Any] = []
+
+    def connection_count(self) -> int:
+        return self.hub.count()
+
+    def recv(self, timeout: Optional[float] = None):
+        return self.hub.recv(timeout=timeout)
+
+    def send(self, conn, data):
+        self.hub.send(conn, data)
+
+    def hub_stats(self) -> Dict[str, int]:
+        return self.hub.stats_snapshot()
+
+    def drain_detach_events(self):
+        return self.hub.drain_detach_events()
+
+    def fleet_beacons(self) -> Dict[str, Dict[tuple, dict]]:
+        """The newest beacon of every gather and of every worker process
+        this learner has heard of, live or gone."""
+        infos = (list(self.hub.peer_info_snapshot().values())
+                 + list(self.hub.departed_peer_info().values()))
+        gathers = latest_beacons(infos, 'gather')
+        workers = latest_beacons(
+            [w for g in gathers.values() for w in g.get('workers', ())],
+            'worker')
+        return {'gathers': gathers, 'workers': workers}
+
+    def run(self):
+        wargs = self.args['worker']
+        wargs.setdefault('num_gathers',
+                         default_num_gathers(wargs['num_parallel']))
+        for proc, ep in spawn_pipe_workers(
+                wargs['num_gathers'], gather_loop,
+                lambda i, c: (self.args, c, i), env=CHILD_ENV):
+            self.procs.append(proc)
+            self.hub.attach(ep)
+
+    def _names(self, procs) -> str:
+        return ', '.join('gather %d (pid %s, exit code %s)'
+                         % (self.procs.index(p), p.pid, p.exitcode)
+                         for p in procs)
+
+    def lost(self, ending: bool) -> Optional[str]:
+        """Why the cluster can no longer serve the run, naming the gathers:
+        a gather exited non-zero (every worker of it was lost), or every
+        gather is gone while the run is not ``ending``; else None."""
+        failed = [p for p in self.procs if p.exitcode not in (None, 0)]
+        if failed:
+            return 'lost %s' % self._names(failed)
+        if self.procs and not ending and self.hub.count() == 0:
+            for p in self.procs:
+                p.join(5.0)   # their exit codes, for the message
+            return ('every gather left before the run ended: %s'
+                    % self._names(self.procs))
+        return None
+
+    def close(self, timeout: float = 30.0):
+        """Join the gathers (their workers end first); terminate the ones
+        still running after ``timeout``."""
+        deadline = time.monotonic() + timeout
+        for proc in self.procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+            if proc.is_alive():
+                _LOG.warning('gather pid %s did not exit; terminating',
+                             proc.pid)
+                proc.terminate()
+                proc.join(5.0)
+
+
+class WorkerServer(WorkerCluster):
+    """Remote mode, learner side: two listener threads. The entry port
+    hands each arriving host its ``base_worker_id`` and the merged config;
+    the data port attaches accepted sockets to the hub. Hosts may join or
+    leave at any time, so no gather counts as lost here."""
+
+    def __init__(self, args: Dict[str, Any]):
+        super().__init__(args)
+        self._next_base_wid = 0
+        self.entry_port = entry_port()
+        self.data_port = data_port()
+        self._closed = False
+
+    def _entry_loop(self):
+        _LOG.info('started entry server %d', self.entry_port)
+        for conn in accept_socket_connections(self.entry_port, timeout=0.5):
+            if self._closed:
+                return
+            if conn is None:
+                continue
+            try:
+                host_args = conn.recv()
+                _LOG.info('accepted connection from %s!',
+                          host_args['address'])
+                host_args['base_worker_id'] = self._next_base_wid
+                self._next_base_wid += host_args['num_parallel']
+                merged = dict(self.args)
+                merged['worker'] = host_args
+                conn.send(merged)
+            except (OSError, KeyError, TypeError) as exc:
+                _LOG.warning('entry handshake failed (%s: %s)',
+                             type(exc).__name__, str(exc)[:120])
+            finally:
+                conn.close()
+
+    def _data_loop(self):
+        _LOG.info('started worker server %d', self.data_port)
+        for conn in accept_socket_connections(self.data_port, timeout=0.5):
+            if self._closed:
+                return
+            if conn is not None:
+                self.hub.attach(conn)
+
+    def run(self):
+        for loop in (self._entry_loop, self._data_loop):
+            threading.Thread(target=loop, name=loop.__name__.strip('_'),
+                             daemon=True).start()
+
+    def lost(self, ending: bool) -> Optional[str]:
+        return None
+
+    def close(self, timeout: float = 30.0):
+        self._closed = True
+
+
+def entry(worker_args, retries: int = 30, delay: float = 2.0):
+    """The entry handshake, retried with backoff and jitter (the learner
+    may still be starting when a host comes up)."""
+    last_err: Optional[Exception] = None
+    port = entry_port()
+    backoff = Backoff(delay, maximum=4 * delay)
+    for _ in range(retries):
+        try:
+            conn = connect_socket_connection(
+                worker_args['server_address'], port)
+            try:
+                conn.send(worker_args)
+                return conn.recv()
+            finally:
+                conn.close()
+        except (OSError, ConnectionResetError) as e:
+            last_err = e
+            time.sleep(backoff.next_delay())
+    raise ConnectionError('could not reach training server at %s:%d (%s)'
+                          % (worker_args['server_address'], port, last_err))
+
+
+class RemoteWorkerCluster:
+    """Remote mode, worker-host side: the entry handshake, then one data
+    socket per gather, each dialed by its own spawned process, under a
+    supervisor that respawns crashed gathers (with per-slot backoff). A
+    gather that exits 0 (the learner handed out a ``None`` task: training
+    is over) is retired, so the host ends when the run ends.
+
+    ``HANDYRL_TPU_CHAOS=kill_gather=<mean s>[,max_kills=N][,seed=S]`` arms
+    a fault injector that SIGKILLs random gathers on an exponential clock.
+    """
+
+    RESPAWN_RESET_AFTER = 60.0   # alive this long: the backoff resets
+
+    def __init__(self, args: Dict[str, Any]):
+        args['address'] = gethostname()
+        args.setdefault('num_gathers',
+                        default_num_gathers(args['num_parallel']))
+        self.args = args
+        self.abandoned: List[int] = []   # slots given up after max respawns
+        self.respawns = 0
+
+    def run(self):
+        merged = entry(self.args)
+        _LOG.info('joined run as %s (base_worker_id %s, %s gathers)',
+                  self.args['address'],
+                  merged['worker'].get('base_worker_id'),
+                  self.args['num_gathers'])
+        ctx = mp.get_context('spawn')
+        address = self.args['server_address']
+        ft = merged.get('fault_tolerance') or {}
+        max_fails = int(ft.get('reconnect_max_tries', 30))
+
+        chaos = parse_chaos()
+        rng = random.Random(int(chaos.get('seed', 0)))
+        kills_left = int(chaos.get('max_kills', 1 << 30))
+        next_kill = None
+        if chaos.get('kill_gather'):
+            next_kill = time.time() + rng.expovariate(
+                1.0 / chaos['kill_gather'])
+
+        def spawn(i):
+            # the gather dials the data port itself: a respawn needs no
+            # socket of the parent's
+            proc = ctx.Process(target=gather_loop,
+                               args=(merged, None, i, address))
+            with _bare_main(), child_environ(CHILD_ENV):
+                proc.start()
+            return proc
+
+        n = self.args['num_gathers']
+        children = {i: spawn(i) for i in range(n)}
+        started_at = {i: time.time() for i in children}
+        backoffs = {i: Backoff(float(ft.get('reconnect_initial_delay', 1.0)),
+                               float(ft.get('reconnect_max_delay', 30.0)))
+                    for i in children}
+        fails = {i: 0 for i in children}
+        try:
+            while children:
+                time.sleep(0.5)
+                now = time.time()
+                if next_kill is not None and now >= next_kill:
+                    if kills_left > 0:
+                        live = [i for i, p in children.items()
+                                if p.is_alive()]
+                        if live:
+                            victim = rng.choice(live)
+                            print('chaos: killing gather %d' % victim,
+                                  flush=True)
+                            children[victim].kill()
+                            kills_left -= 1
+                    next_kill = now + rng.expovariate(
+                        1.0 / chaos['kill_gather'])
+                for i, proc in list(children.items()):
+                    if proc.is_alive():
+                        if (fails[i] and now - started_at[i]
+                                > self.RESPAWN_RESET_AFTER):
+                            fails[i] = 0
+                            backoffs[i].reset()
+                        continue
+                    if proc.exitcode == 0:
+                        del children[i]   # a clean exit: training ended
+                        continue
+                    fails[i] += 1
+                    if fails[i] > max_fails:
+                        _LOG.error('gather %d: giving up after %d failed '
+                                   'respawns', i, fails[i] - 1)
+                        self.abandoned.append(i)
+                        del children[i]
+                        continue
+                    delay = backoffs[i].next_delay()
+                    _LOG.warning('gather %d died (exit %s); respawning '
+                                 'in %.1fs', i, proc.exitcode, delay)
+                    print('supervisor: gather %d died (exit %s); respawning'
+                          % (i, proc.exitcode), flush=True)
+                    time.sleep(delay)
+                    children[i] = spawn(i)
+                    self.respawns += 1
+                    started_at[i] = time.time()
+        finally:
+            for proc in children.values():
+                if proc.is_alive():
+                    proc.terminate()
+                proc.join(5.0)
+
+
+def worker_main(args: Dict[str, Any], argv: List[str]) -> int:
+    """A worker host: ``args['worker_args']`` (``num_parallel`` from the
+    first of ``argv`` when given); 1 when a gather slot was given up."""
+    worker_args = args['worker_args']
+    if len(argv) >= 1:
+        worker_args['num_parallel'] = int(argv[0])
+    cluster = RemoteWorkerCluster(args=worker_args)
+    cluster.run()
+    print('worker host: %d gather respawns, %d slots given up'
+          % (cluster.respawns, len(cluster.abandoned)), flush=True)
+    return 1 if cluster.abandoned else 0
+
+
+def main(argv=None) -> int:
+    from .config import apply_defaults
+    from .model import resolve_device
+    ap = argparse.ArgumentParser(
+        prog='python -m handyrl_tpu_torch.worker',
+        description='a worker host: join a learner started with '
+        '`python -m handyrl_tpu_torch.train --server` and play its tasks')
+    ap.add_argument('--config', required=True,
+                    help='JSON file with env_args, train_args and '
+                    'worker_args (server_address, num_parallel)')
+    ap.add_argument('num_parallel', nargs='?', type=int, default=None,
+                    help='worker processes on this host (default: '
+                    'worker_args.num_parallel)')
+    ap.add_argument('--device', default='cuda',
+                    help="'cuda' (default) or 'cpu': where this host's "
+                    'workers run their models')
+    a = ap.parse_args(argv)
+    with open(a.config) as f:
+        args = apply_defaults(json.load(f))
+    # the host's workers run on this device; without CUDA it raises here,
+    # before the host joins
+    args['worker_args']['device'] = str(resolve_device(a.device))
+    return worker_main(args, [] if a.num_parallel is None
+                       else [str(a.num_parallel)])
+
+
+if __name__ == '__main__':
+    # run the named module's main, so that the spawned gathers find their
+    # entry point by its module name (they see a bare __main__)
+    from handyrl_tpu_torch import worker as _named
+    sys.exit(_named.main())

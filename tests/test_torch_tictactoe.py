@@ -246,8 +246,12 @@ def test_tictactoe_on_the_device_path_names_what_is_missing(train_args):
 def test_other_envs_and_worker_sizes_are_refused():
     with pytest.raises(ConfigError, match='Geister'):
         apply_defaults({'env_args': {'env': 'Geister'}})
+    # the worker plane runs: a cluster of 2 is taken, a size below 1 is
+    # refused
+    assert apply_defaults({'train_args': {'worker': {'num_parallel': 2}}}
+                          )['train_args']['worker'] == {'num_parallel': 2}
     with pytest.raises(ConfigError, match='worker'):
-        apply_defaults({'train_args': {'worker': {'num_parallel': 2}}})
+        apply_defaults({'train_args': {'worker': {'num_parallel': 0}}})
 
 
 def test_quick_start_config_is_config_yaml_as_json():

@@ -109,13 +109,21 @@ def test_cli_without_cuda_raises(tmp_path):
     ({}, {'streaming': {'target_clip': 1.0}}, 'streaming'),
     ({}, {'league': {'enabled': True}}, 'league'),
     ({}, {'parallel': {'model_parallel': 2}}, 'parallel'),
-    ({}, {'batched_generation': False}, 'batched_generation'),
+    # the worker plane runs; the device actor backend does not yet
+    ({}, {'batched_generation': False, 'device_generation': True,
+          'device_replay': True}, 'batched_generation'),
     ({}, {'burn_in_steps': 2}, 'burn_in_steps'),
     ({}, {'telemetry_port': 9100}, 'telemetry_port'),
     ({'net_kind': 'lstm'}, {}, 'net_kind'),
     ({'norm_kind': 'batch'}, {}, 'norm_kind'),
     ({'env': 'TicTacToe'}, {'device_generation': True, 'device_replay': True,
                             'turn_based_training': False}, 'TicTacToe'),
+    ({}, {'inference': {'enabled': True}}, 'host inference engine'),
+    ({}, {'generation': {'backend': 'engine'}}, 'inference engine'),
+    ({}, {'generation': {'backend': 'device'}}, 'DeviceActorGather'),
+    ({}, {'batched_generation': False, 'worker': {'num_parallel': 0}},
+     'num_parallel'),
+    ({}, {'fault_tolerance': {'liveness_timeout': 5.0}}, 'liveness_timeout'),
 ])
 def test_validate_rejects_what_the_slice_does_not_run(env_args, train_args,
                                                       key):
@@ -123,6 +131,39 @@ def test_validate_rejects_what_the_slice_does_not_run(env_args, train_args,
            'train_args': train_args}
     with pytest.raises(ConfigError, match=key):
         apply_defaults(raw)
+
+
+@pytest.mark.parametrize('backend,key', [
+    ('device', 'DeviceActorGather'), ('engine', 'inference engine'),
+    ('tpu', 'worker_args.backend')])
+def test_validate_rejects_a_worker_host_backend_it_lacks(backend, key):
+    with pytest.raises(ConfigError, match=key):
+        apply_defaults({'env_args': {'env': 'HungryGeese'},
+                        'worker_args': {'backend': backend}})
+
+
+def test_worker_plane_defaults_are_the_jax_packages():
+    from handyrl_tpu.config import TRAIN_DEFAULTS as JAX_TRAIN
+    from handyrl_tpu.config import WORKER_DEFAULTS as JAX_WORKER
+    from handyrl_tpu_torch.config import TRAIN_DEFAULTS, WORKER_DEFAULTS
+    assert TRAIN_DEFAULTS['worker'] == JAX_TRAIN['worker']
+    ft, jax_ft = TRAIN_DEFAULTS['fault_tolerance'], JAX_TRAIN['fault_tolerance']
+    assert list(ft) == list(jax_ft)
+    for key in jax_ft:
+        assert ft[key] == jax_ft[key] and type(ft[key]) is type(jax_ft[key])
+    assert WORKER_DEFAULTS == JAX_WORKER
+    # a config.yaml-shaped worker plane passes, local and remote
+    args = apply_defaults({
+        'env_args': {'env': 'HungryGeese'},
+        'train_args': {'batched_generation': False,
+                       'worker': {'num_parallel': 4},
+                       'fault_tolerance': {'heartbeat_interval': 5.0},
+                       'generation': {'backend': 'worker'},
+                       'inference': {'enabled': False, 'vault_size': 2}},
+        'worker_args': {'server_address': '127.0.0.1', 'num_parallel': 2,
+                        'backend': 'worker'}})
+    assert args['train_args']['fault_tolerance']['heartbeat_interval'] == 5.0
+    assert args['train_args']['fault_tolerance']['liveness_timeout'] == 60.0
 
 
 def test_validate_takes_the_jax_defaults_of_the_planes_it_lacks():
