@@ -207,15 +207,45 @@ non-zero, printing no result, when either is missing or any phase fails.
    (a)'s launch checks, the host's supervisor respawned the gather, and no
    episode counted twice (the ledger's re-issues and dropped duplicates
    are printed). Each run under PHASE9_TIMEOUT.
-10. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
+10. Network battles and the model specs, through ``python -m
+   handyrl_tpu_torch`` with no --device, on a full-width GeeseNet
+   (``torus_impl='pallas'``) and SimpleConv2dModel from seeded inits
+   written as checkpoints. Fails first if port 9876 (the battle's fixed
+   port) is taken; every process leads its own session, is waited for
+   under PHASE10_TIMEOUT and killed whole at the end. (a) ``--eval-server
+   8 1`` on Hungry Geese and four ``--eval-client CKPT 127.0.0.1``
+   programs: every process exits 0, the report is the JAX format with 8
+   games for each agent, one group of four children (each a fresh
+   process on the card, joined by its program) launched K1 and nothing
+   else, saw 8 outcomes the env gives, and each game's four sum to 0.
+   (a') One Geese match from a fixed ``random`` seed with the server in
+   a thread of this process and the four agents in spawned clients
+   against ``exec_match`` of the same four card agents here: the same
+   moves every ply and the same outcome; each command's round trip is
+   timed. (b) ``--eval-server 20 2`` on TicTacToe (two spawned runners,
+   each handed its group's sockets) and two client programs of two
+   children each: every game counted for both agents, the children pair
+   into groups whose outcomes cancel game by game. Beside each battle,
+   the inline tournament of ``--eval`` with the checkpoint in every seat
+   in this process. (c) The Geese checkpoint published to a registry,
+   ``--serve`` on it (started first) and, at once, ``--eval
+   registry://ROOT/geese@champion 8 1`` and ``--eval
+   serve://127.0.0.1:PORT/geese@champion 8 1``: both count 8 games, the
+   service's K1 launches (its ``status`` admin op: 0 just before, above
+   0 just after, no other kernel); in this process the registry:// model
+   equals the checkpoint's bit for bit on 24 boards and the serve:// one
+   lies within SERVE_TOL; SIGTERM ends the service with 75.
+11. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
    and K2b take their launches from K2's count, one of each a call; the
    fused loop's under ``learner_fused_*``, 5(b)'s under
    ``learner_shm_*``, the quick start's under ``quick_start_*``, 7(b)'s
    and 7(c)'s under ``quick_start_shm_*`` and ``quick_start_fused_*``,
    the scorer's under ``score_*``, phase 9's learners under
    ``workers_local_*`` and ``workers_remote_*`` and their worker
-   processes under ``workers_*_worker_processes``), the nvidia-smi
-   line, and as the last line ``{"ok": true, "device": {...}}``.
+   processes under ``workers_*_worker_processes``, phase 10's client
+   children under ``network_*_client_children`` and the service under
+   ``network_serve_service``), the nvidia-smi line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -2206,7 +2236,6 @@ def run_quick_eval(repo, ckpt):
     """``python -m handyrl_tpu_torch.evaluation CKPT QUICK_GAMES
     QUICK_PROCS --config tictactoe.json`` on the card: the tallies of its
     report by agent and its wall time."""
-    import ast
     t0 = time.monotonic()
     try:
         proc = subprocess.run(
@@ -2220,22 +2249,33 @@ def run_quick_eval(repo, ckpt):
     if proc.returncode != 0:
         fail('the tournament exited %d:\n%s' % (proc.returncode,
                                                 proc.stderr[-4000:]))
-    out = proc.stdout.splitlines()
-    head = '%d process, %d games' % (QUICK_PROCS, QUICK_GAMES)
-    if head not in out or 'total games = %d' % QUICK_GAMES not in out:
-        fail('the tournament did not print its header lines')
+    agents, report = parse_report(proc.stdout, QUICK_GAMES, QUICK_PROCS,
+                                  'the tournament')
+    return agents, report, wall
+
+
+def parse_report(stdout, games, procs, label):
+    """A tournament's report in the JAX package's format: its header lines
+    (``N process, G games``, ``total games = G``), then by agent the
+    ``---agent N---`` line and ``LABEL {score: count} WIN_RATE`` lines.
+    Returns ({agent: {label: (tally, win rate)}}, the report's lines)."""
+    import ast
+    out = stdout.splitlines()
+    head = '%d process, %d games' % (procs, games)
+    if head not in out or 'total games = %d' % games not in out:
+        fail('%s did not print its header lines' % label)
     agents, report = {}, []
     for line in out:
         if line.startswith('---agent '):
             current = int(line.strip('-').split()[1])
             report.append(line)
-        elif line.startswith(('default-', 'total ')) and report:
-            label, rest = line.split(' ', 1)
+        elif line.startswith(('default', 'total ')) and report:
+            name, rest = line.split(' ', 1)
             tally_text, wp = rest.rsplit(' ', 1)
-            agents.setdefault(current, {})[label] = (
+            agents.setdefault(current, {})[name] = (
                 ast.literal_eval(tally_text), float(wp))
             report.append(line)
-    return agents, report, wall
+    return agents, report
 
 
 def check_quick_run(torch, line, models, epochs, label, files,
@@ -3022,6 +3062,518 @@ def phase_workers_remote(torch, repo):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------- phase 10: network battles
+
+# The battle port is the JAX package's network_match_port, which the CLI
+# fixes: the phase fails naming it when another process holds it.
+BATTLE_PORT = 9876
+GEESE_ENV = {'env': 'HungryGeese', 'torus_impl': 'pallas'}
+TTT_ENV = {'env': 'TicTacToe'}
+# (a) --eval-server GAMES PROCS on Hungry Geese: one group of four client
+# connections, each a child on the card; (b) TicTacToe with two spawned
+# runners, each handed its group's sockets, and two client programs
+GEESE_BATTLE = (8, 1)
+TTT_BATTLE = (20, 2)
+SPEC_GAMES = 8           # (c) --eval registry:// and serve:// GAMES 1
+# the seeded full-width GeeseNet: its greedy geese live 40 plies on the
+# CPU's plain trunk (most seeds' die within a few, a weak test of the wire)
+NETWORK_NET_SEED = SEED + 11
+# serve:// against the .ckpt: the service's engine batches rows into other
+# buckets, so the heads' products may sum in other orders (about 1e-6 at
+# full width); registry:// must equal the .ckpt bit for bit
+SERVE_TOL = 1e-4
+PHASE10_TIMEOUT = 120    # each process
+CHILD_LINE = r'client child \(pid (\d+)\): (\{.*\})'
+# the pairwise-rank scores a Hungry Geese game can give a goose
+GEESE_SCORES = (-1.0, -2 / 3, -1 / 3, 0.0, 1 / 3, 2 / 3, 1.0)
+
+
+def port_is_free(port):
+    import socket
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    try:
+        s.bind(('', port))
+    except OSError as exc:
+        fail('port %d, the network battle\'s fixed port, is taken (%s): '
+             'phase 10 needs it free' % (port, exc))
+    finally:
+        s.close()
+
+
+def wait_listening(port, proc, timeout):
+    """Until a socket listens on ``port`` (the kernel's tables: a probe
+    connection would be accepted as a client); fails if ``proc`` (None for
+    an in-process server) exits first."""
+    needle = ':%04X ' % port
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for table in ('/proc/net/tcp', '/proc/net/tcp6'):
+            with open(table) as f:
+                if any(needle in l and l.split()[3] == '0A' for l in f):
+                    return
+        if proc is not None and proc.poll() is not None:
+            fail('the battle server exited %d before it listened'
+                 % proc.returncode)
+        time.sleep(0.05)
+    fail('nothing listened on port %d within %.0f s' % (port, timeout))
+
+
+class Sessions:
+    """Processes of the CLI, each leading a session of its own with its
+    output in files, so that a hang or a failure is killed whole (spawned
+    children included) and shown."""
+
+    def __init__(self, repo, tmp):
+        self.repo, self.tmp, self.procs = repo, tmp, {}
+
+    def start(self, name, args, stdout=None):
+        out = open(os.path.join(self.tmp, name + '.out'), 'w') \
+            if stdout is None else stdout
+        with open(os.path.join(self.tmp, name + '.err'), 'w') as err:
+            proc = subprocess.Popen(
+                [sys.executable, '-m', 'handyrl_tpu_torch'] + args,
+                cwd=self.repo, stdout=out, stderr=err,
+                start_new_session=True)
+        if stdout is None:
+            out.close()
+        self.procs[name] = proc
+        return proc
+
+    def text(self, name, which='out'):
+        with open(os.path.join(self.tmp, '%s.%s' % (name, which)),
+                  errors='replace') as f:
+            return f.read()
+
+    def wait(self, names, timeout=PHASE10_TIMEOUT):
+        """Wait for ``names`` to exit 0; fails naming the first that hangs
+        or fails, with its error tail."""
+        deadline = time.monotonic() + timeout
+        for name in names:
+            try:
+                self.procs[name].wait(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail('%s did not finish within %d s:\n%s' % (
+                    name, timeout, self.text(name, 'err')[-3000:]))
+        for name in names:
+            if self.procs[name].returncode != 0:
+                fail('%s exited %d:\n%s' % (
+                    name, self.procs[name].returncode,
+                    self.text(name, 'err')[-3000:]))
+
+    def kill(self):
+        for proc in self.procs.values():
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            proc.wait()
+
+
+def client_children(sessions, names):
+    """The ``client child`` lines of the client programs ``names`` by pid;
+    fails if a child outlived its program (the client joins them)."""
+    import re
+    children = {}
+    for name in names:
+        for pid, body in re.findall(CHILD_LINE, sessions.text(name)):
+            children[int(pid)] = json.loads(body)
+    alive = [p for p in children if os.path.exists('/proc/%d' % p)]
+    if alive:
+        fail('client children left after their programs exited: %s' % alive)
+    return children
+
+
+def sum_counts(dicts):
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def network_battle(sessions, label, config, ckpt, games, procs, clients,
+                   agents):
+    """``--eval-server GAMES PROCS`` and ``clients`` programs of
+    ``--eval-client CKPT 127.0.0.1`` on the card, with no --device: every
+    process exits 0, the report is the JAX format with every game counted
+    for every agent, and the children played their groups' games. Returns
+    (the children's lines by pid, wall seconds)."""
+    port_is_free(BATTLE_PORT)
+    t0 = time.monotonic()
+    server = sessions.start(label + '_server', [
+        '--eval-server', str(games), str(procs), '--config', config])
+    wait_listening(BATTLE_PORT, server, 60)
+    names = ['%s_client%d' % (label, i) for i in range(clients)]
+    for name in names:
+        sessions.start(name, ['--eval-client', ckpt, '127.0.0.1',
+                              '--config', config])
+    sessions.wait([label + '_server'] + names)
+    wall = time.monotonic() - t0
+    out = sessions.text(label + '_server')
+    tallies, report = parse_report(out, games, procs, label + ' server')
+    for line in report:
+        log('  %s server: %s' % (label, line))
+    for a in range(agents):
+        if sum(tallies.get(a, {}).get('total', ({}, 0))[0].values()) \
+                != games:
+            fail('%s: agent %d\'s report counts %s games, not %d' % (
+                label, a, tallies.get(a), games))
+    if 'network match server mode' not in out:
+        fail('%s: the server did not print its mode line' % label)
+    children = client_children(sessions, names)
+    if len(children) != procs * agents:
+        fail('%s: %d client children reported, %d expected (%d groups of '
+             '%d)' % (label, len(children), procs * agents, procs, agents))
+    if sum(len(c['outcomes']) for c in children.values()) != games * agents:
+        fail('%s: the children saw %d outcomes for %d games of %d seats'
+             % (label, sum(len(c['outcomes']) for c in children.values()),
+                games, agents))
+    for pid, c in children.items():
+        if not c['device'].startswith('cuda'):
+            fail('%s: client child %d ran on %s' % (label, pid, c['device']))
+    return children, wall
+
+
+def battle_rates(label, games, children, wall, inline_s):
+    play = max(c['play_seconds'] for c in children.values())
+    start = sorted(c['start_seconds'] for c in children.values())
+    actions = sum(c['actions'] for c in children.values())
+    log('%s: %d games in %.2f s of play (%.3f games/s; the slowest child\'s '
+        'play seconds), %.2f s wall with the processes\' start; --eval '
+        'inline of the same checkpoint in every seat %.2f s (%.3f games/s); '
+        '%d actions answered; children\'s start %.2f-%.2f s (torch, a CUDA '
+        'context, the model)' % (
+            label, games, play, games / play, wall, inline_s,
+            games / inline_s, actions, start[0], start[-1]))
+    return {'games': games, 'play_seconds': play, 'wall': wall,
+            'games_per_s': games / play, 'inline_seconds': inline_s,
+            'inline_games_per_s': games / inline_s, 'actions': actions,
+            'start_seconds': start}
+
+
+def eval_inline_seconds(env_args, ckpt, games):
+    """The inline tournament of ``--eval`` (one runner, ``evaluate_mp``)
+    in this process on the card, the checkpoint in every seat: the seconds
+    of its games, the agents loaded before."""
+    import contextlib
+    import io
+    from handyrl_tpu_torch import evaluation
+    from handyrl_tpu_torch.agent import Agent
+    from handyrl_tpu_torch.environment import make_env
+    env = make_env(env_args)
+    agents = [Agent(evaluation.load_model(ckpt, env, 'cuda'))
+              for _ in env.players()]
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()):
+        t = evaluation.evaluate_mp(env, agents, None, env_args,
+                                   {'default': {}}, 1, games, SEED)
+    seconds = time.monotonic() - t0
+    if sum(t.overall[0].values()) != games:
+        fail('the inline evaluation counted %s' % t.overall[0])
+    return seconds
+
+
+def recording(env, plies):
+    step = env.step
+
+    def recorded(moves):
+        plies.append(dict(moves))
+        return step(moves)
+    env.step = recorded
+    return env
+
+
+def wire_equality(sessions, make_env, config, ckpt):
+    """(a'): one Geese match from a fixed ``random`` seed, the server in a
+    thread of this process and the four agents in spawned clients on the
+    card, against ``exec_match`` of the same four card agents here: the
+    same moves every ply and the same outcome. Times each command's round
+    trip over localhost."""
+    import random
+    import threading
+    from handyrl_tpu_torch import evaluation
+    from handyrl_tpu_torch.agent import Agent
+    model = evaluation.load_model(ckpt, make_env(GEESE_ENV), 'cuda')
+    random.seed(SEED)
+    want = []
+    env = recording(make_env(GEESE_ENV), want)
+    want_result = evaluation.exec_match(
+        env, {p: Agent(model) for p in env.players()})['result']
+
+    port_is_free(BATTLE_PORT)
+    got, trips, box = [], {}, {}
+
+    def server():
+        try:
+            group = evaluation.network_match_acception(
+                1, GEESE_ENV, 4, BATTLE_PORT)[0]
+            for agent in group:
+                timed = agent._call
+
+                def call(command, *args, timed=timed):
+                    t0 = time.perf_counter()
+                    reply = timed(command, *args)
+                    trips.setdefault(command, []).append(
+                        time.perf_counter() - t0)
+                    return reply
+                agent._call = call
+            random.seed(SEED)
+            env = recording(make_env(GEESE_ENV), got)
+            box['result'] = evaluation.exec_network_match(
+                env, {p: group[i] for i, p in enumerate(env.players())}
+            )['result']
+            for agent in group:
+                agent.conn.close()
+        except BaseException as exc:   # reported by the main thread
+            box['error'] = exc
+    thread = threading.Thread(target=server, daemon=True)
+    thread.start()
+    wait_listening(BATTLE_PORT, None, 60)
+    names = ['wire_client%d' % i for i in range(4)]
+    for name in names:
+        sessions.start(name, ['--eval-client', ckpt, '127.0.0.1',
+                              '--config', config])
+    thread.join(timeout=PHASE10_TIMEOUT)
+    if thread.is_alive() or 'error' in box:
+        fail('(a\') the in-process server did not finish: %r'
+             % box.get('error'))
+    sessions.wait(names)
+    children = client_children(sessions, names)
+    if got != want or box['result'] != want_result:
+        first = next((i for i, (g, w) in enumerate(zip(got, want))
+                      if g != w), min(len(got), len(want)))
+        fail('(a\') the network match differs from exec_match from ply %d '
+             '(%d against %d plies; outcomes %s against %s)' % (
+                 first, len(got), len(want), box['result'], want_result))
+    log('(a\') network match == exec_match of the same four card agents: '
+        '%d plies, the same moves every ply, outcome %s' % (
+            len(want), want_result))
+    # the first update of each seat waits for its child's start (spawned
+    # after env_args): medians and tails, not means
+    ms = {}
+    for k, v in trips.items():
+        v = sorted(v)
+        ms[k] = {'n': len(v), 'p50': 1e3 * v[len(v) // 2],
+                 'p99': 1e3 * v[min(len(v) - 1, int(0.99 * len(v)))],
+                 'max': 1e3 * v[-1]}
+    log('(a\') round trip per seat over localhost (host clock, this '
+        'process): %s' % '; '.join(
+            '%s p50 %.3f ms, p99 %.3f ms, max %.1f ms (x %d)' % (
+                k, m['p50'], m['p99'], m['max'], m['n'])
+            for k, m in sorted(ms.items())))
+    return {'plies': len(want), 'round_trip_ms': ms, 'children': children}
+
+
+def check_geese_children(label, children):
+    """Each child launched K1 (its agent's forward on the card) and no
+    other kernel; the four seats' outcomes of each game are scores the env
+    gives and sum to 0."""
+    for pid, c in children.items():
+        counts = c['kernel_launches']
+        if not counts['geese_trunk'] > 0 or any(
+                n for k, n in counts.items() if k != 'geese_trunk'):
+            fail('%s: client child %d launched %s (K1 and nothing else '
+                 'expected)' % (label, pid, counts))
+        if any(min(abs(o - s) for s in GEESE_SCORES) > 1e-9
+               for o in c['outcomes']):
+            fail('%s: client child %d saw outcomes %s' % (label, pid,
+                                                         c['outcomes']))
+    for k, game in enumerate(zip(*(c['outcomes']
+                                   for c in children.values()))):
+        if abs(sum(game)) > 1e-9:
+            fail('%s: game %d\'s outcomes %s do not sum to 0'
+                 % (label, k, game))
+
+
+def check_zero_sum_pairs(label, children):
+    """TicTacToe: the children pair into groups whose outcomes sum to 0
+    game by game, each outcome a win, a draw or a loss."""
+    lists = [c['outcomes'] for c in children.values()]
+    if any(o not in (-1.0, 0.0, 1.0) for l in lists for o in l):
+        fail('%s: outcomes other than -1, 0 and 1: %s' % (label, lists))
+    while lists:
+        a = lists.pop()
+        b = next((l for l in lists if len(l) == len(a)
+                  and all(x + y == 0 for x, y in zip(a, l))), None)
+        if b is None:
+            fail('%s: no child\'s outcomes cancel %s' % (label, a))
+        lists.remove(b)
+
+
+def model_specs(sessions, make_env, torch, config, ckpt, root, service):
+    """(c): ``--eval registry://ROOT/geese@champion`` and ``--eval
+    serve://127.0.0.1:PORT/geese@champion`` (SPEC_GAMES games, 1 process,
+    both at once), the service's K1 launches read through its ``status``
+    admin op just before and just after; then in this process the
+    registry:// model's outputs against the .ckpt's bit for bit and the
+    serve:// model's within SERVE_TOL, and a ply's time of each."""
+    import numpy as np
+    from handyrl_tpu_torch import evaluation
+    from handyrl_tpu_torch.serving.client import ServiceClient
+    ready = read_ready_line(service, timeout=120)
+    if ready['device'] != 'cuda':
+        fail('the service runs on %r, not the card' % ready['device'])
+    client = ServiceClient('127.0.0.1', ready['port'], timeout=120)
+    try:
+        before = client.status()['kernel_launches']
+        if any(before.values()):
+            fail('the service\'s counts before serve:// are not 0: %s'
+                 % before)
+        specs = {'registry': 'registry://%s/geese@champion' % root,
+                 'serve': 'serve://127.0.0.1:%d/geese@champion'
+                          % ready['port']}
+        t0 = time.monotonic()
+        for name, spec in specs.items():
+            sessions.start('eval_' + name, ['--eval', spec, str(SPEC_GAMES),
+                                            '1', '--config', config])
+        sessions.wait(['eval_' + name for name in specs])
+        wall = time.monotonic() - t0
+        status = client.status()
+        launches = status['kernel_launches']
+    finally:
+        client.close()
+    for name in specs:
+        tallies, _ = parse_report(sessions.text('eval_' + name), SPEC_GAMES,
+                                  1, '--eval ' + name + '://')
+        if sum(tallies[0]['total'][0].values()) != SPEC_GAMES:
+            fail('--eval %s:// counted %s' % (name, tallies[0]))
+    if not launches.get('geese_trunk', 0) > 0 or any(
+            n for k, n in launches.items() if k != 'geese_trunk'):
+        fail('the service under serve:// launched %s (K1 and nothing else '
+             'expected)' % launches)
+    log('(c) --eval registry:// and serve:// (%d games each, at once) in '
+        '%.2f s; the service answered %d requests in %d batches, kernel '
+        'launches %s' % (SPEC_GAMES, wall, status['engine_requests'],
+                         status['engine_batches'], launches))
+
+    env = make_env(GEESE_ENV)
+    local = evaluation.load_model(ckpt, env, 'cuda')
+    registry = evaluation.load_model(specs['registry'], env, 'cuda')
+    served = evaluation.load_model(specs['serve'], env)
+    try:
+        boards = game_observations(make_env, 24, SEED)
+        worst = 0.0
+        for obs in boards:
+            want = local.inference(obs)
+            got = registry.inference(obs)
+            for k in want:
+                if not np.array_equal(got[k], want[k]):
+                    fail('registry:// %s differs from the .ckpt\'s' % k)
+            rep = served.inference(obs)
+            for k in ('policy', 'value'):
+                worst = max(worst, float(np.abs(np.asarray(rep[k])
+                                                - want[k]).max()))
+        if not worst <= SERVE_TOL:
+            fail('serve:// outputs differ from the .ckpt\'s by %.3g (tol '
+                 '%.0e)' % (worst, SERVE_TOL))
+        reps = 50
+
+        def ply_ms(model):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                for obs in boards[:4]:
+                    model.inference(obs)
+            return 1e3 * (time.perf_counter() - t0) / reps
+        local_ms, serve_ms = ply_ms(local), ply_ms(served)
+    finally:
+        served.close()
+    log('(c) registry:// == .ckpt bit for bit on %d boards; serve:// within '
+        '%.3g of it (tol %.0e); a ply of four forwards: .ckpt in this '
+        'process %.3f ms, serve:// %.3f ms (host clock, one after another)'
+        % (len(boards), worst, SERVE_TOL, local_ms, serve_ms))
+    return {'launches': launches, 'serve_err': worst,
+            'local_ply_ms': local_ms, 'serve_ply_ms': serve_ms,
+            'eval_wall': wall}
+
+
+def phase_network(torch, repo, make_env):
+    """Phase 10: network battles and the model specs through ``python -m
+    handyrl_tpu_torch``, with no --device (the card is the default)."""
+    from handyrl_tpu_torch.model import ModelWrapper, params_bytes
+    from handyrl_tpu_torch.models.geese import GeeseNet
+    from handyrl_tpu_torch.models.tictactoe import SimpleConv2dModel
+    from handyrl_tpu_torch.serving.registry import ModelRegistry
+    port_is_free(BATTLE_PORT)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_network_')
+    sessions = Sessions(repo, tmp)
+    try:
+        geese = GeeseNet(filters=WIDTH['filters'], layers=WIDTH['layers'],
+                         torus_impl='pallas', generator=torch.Generator()
+                         .manual_seed(NETWORK_NET_SEED))
+        torch.manual_seed(NETWORK_NET_SEED)
+        ttt = SimpleConv2dModel()
+        paths = {}
+        for name, module in (('geese', geese), ('ttt', ttt)):
+            paths[name] = os.path.join(tmp, name + '.ckpt')
+            with open(paths[name], 'wb') as f:
+                f.write(params_bytes(module))
+        root = os.path.join(tmp, 'registry')
+        ModelRegistry(root).publish(
+            'geese', snapshot=ModelWrapper(geese, 'cpu').snapshot(),
+            version=1, promote=True)
+        configs = {}
+        for name, cfg in (
+                ('geese', {'env_args': GEESE_ENV}),
+                ('ttt', {'env_args': TTT_ENV}),
+                ('serve', {'env_args': GEESE_ENV, 'train_args': {
+                    'serving': {'port': 0, 'registry_dir': root}}})):
+            configs[name] = os.path.join(tmp, name + '.json')
+            with open(configs[name], 'w') as f:
+                json.dump(cfg, f)
+        # (c)'s service starts first: its start overlaps the battles
+        service = sessions.start('service', ['--serve', '--config',
+                                             configs['serve']],
+                                 stdout=subprocess.PIPE)
+
+        log('(a) Hungry Geese: --eval-server %d %d, four --eval-client '
+            'programs' % GEESE_BATTLE)
+        a_children, a_wall = network_battle(
+            sessions, 'geese', configs['geese'], paths['geese'],
+            *GEESE_BATTLE, clients=4, agents=4)
+        check_geese_children('(a)', a_children)
+        a = battle_rates('(a) Hungry Geese', GEESE_BATTLE[0], a_children,
+                         a_wall, eval_inline_seconds(
+                             GEESE_ENV, paths['geese'], GEESE_BATTLE[0]))
+        a['launches'] = sum_counts(c['kernel_launches']
+                                   for c in a_children.values())
+
+        log('(a\') the wire against the in-process match')
+        wire = wire_equality(sessions, make_env, configs['geese'],
+                             paths['geese'])
+        check_geese_children('(a\')', wire['children'])
+        wire['launches'] = sum_counts(c['kernel_launches']
+                                      for c in wire['children'].values())
+
+        log('(b) TicTacToe: --eval-server %d %d, two --eval-client programs'
+            % TTT_BATTLE)
+        b_children, b_wall = network_battle(
+            sessions, 'ttt', configs['ttt'], paths['ttt'], *TTT_BATTLE,
+            clients=2, agents=2)
+        check_zero_sum_pairs('(b)', b_children)
+        b = battle_rates('(b) TicTacToe', TTT_BATTLE[0], b_children, b_wall,
+                         eval_inline_seconds(TTT_ENV, paths['ttt'],
+                                             TTT_BATTLE[0]))
+        b['launches'] = sum_counts(c['kernel_launches']
+                                   for c in b_children.values())
+
+        log('(c) registry:// and serve:// specs')
+        c = model_specs(sessions, make_env, torch, configs['geese'],
+                        paths['geese'], root, service)
+        service.send_signal(signal.SIGTERM)
+        try:
+            rc = service.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            fail('the service did not exit within 60 s of SIGTERM')
+        if rc != 75:
+            fail('the service exited %d after SIGTERM, expected 75' % rc)
+        return {'geese': a, 'wire': wire, 'ttt': b, 'specs': c}
+    finally:
+        sessions.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     try:
         import torch
@@ -3098,7 +3650,14 @@ def main():
     workers_remote = phase_workers_remote(torch, repo)
     log('phase 9: %.1f s (%s)' % (time.monotonic() - t9, nvidia_smi_line()))
 
-    log('== phase 10: the kernels line')
+    t10 = time.monotonic()
+    log('== phase 10: main path (network battles and the registry:// and '
+        'serve:// specs through python -m handyrl_tpu_torch)')
+    network = phase_network(torch, repo, make_env)
+    log('phase 10: %.1f s (%s)' % (time.monotonic() - t10,
+                                   nvidia_smi_line()))
+
+    log('== phase 11: the kernels line')
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -3123,6 +3682,12 @@ def main():
         for name, counts in line['kernel_launches'].items():
             paths['%s_%s' % (label, name)] = counts
         paths[label + '_worker_processes'] = line['worker_kernel_launches']
+    # phase 10: the eval clients' children (each a fresh process) and the
+    # service under serve:// (its counts 0 just before)
+    paths['network_geese_client_children'] = network['geese']['launches']
+    paths['network_wire_client_children'] = network['wire']['launches']
+    paths['network_tictactoe_client_children'] = network['ttt']['launches']
+    paths['network_serve_service'] = network['specs']['launches']
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from

@@ -1,0 +1,126 @@
+"""``python -m handyrl_tpu_torch MODE [ARGS...] [--config FILE.json]
+[--device cuda|cpu]``: the port's ``main.py``.
+
+The JAX package's modes, dispatched to the port's entry points:
+``--train``/``-t`` and ``--train-server``/``-ts`` (``train.train_main``),
+``--worker``/``-w [NUM_PARALLEL]`` (``worker.worker_main``),
+``--eval``/``-e``, ``--eval-server``/``-es`` and ``--eval-client``/``-ec``
+(``evaluation``), ``--serve``/``-sv`` (``serving.service.serve_main``).
+The config is JSON with the ``env_args``, ``train_args`` and
+``worker_args`` blocks of ``config.yaml`` (``tictactoe.json`` is
+config.yaml's); without ``--config`` the defaults (TicTacToe). ``--serve``
+reads its service's knobs from ``train_args.serving`` and
+``train_args.inference``, as the JAX ``serve_main`` does; the learner's
+modes take only the learner's keys there (``config.validate``). The device is
+the card unless ``--device cpu`` is given; the eval server loads no model
+and ignores it. ``--serve-fleet``, ``--gateway`` and ``--status`` exit 2,
+naming the module that is not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from typing import Dict, List, Optional, Tuple
+
+USAGE = """usage: python main.py MODE [args]
+modes:
+  --train, -t          stand-alone training on this host
+  --train-server, -ts  training server awaiting remote workers
+  --worker, -w         worker host feeding a training server [num_parallel]
+  --eval, -e           evaluate MODEL_PATH[:OPPONENT] [NUM_GAMES [NUM_PROC]]
+  --eval-server, -es   network battle server [NUM_GAMES [NUM_PROC]]
+  --eval-client, -ec   network battle client MODEL_PATH [HOST]
+  --serve, -sv         standalone model-serving tier (registry-versioned
+                       inference service; SIGTERM drains and exits 75)
+  --serve-fleet, -sf   replicated serving fleet: resolver/router +
+                       serving.fleet.replicas managed replicas (SLO-driven
+                       autoscaling, zero-loss failover, rolling promotes)
+  --gateway, -gw       match gateway over a serving fleet: server-held
+                       game sessions (open/play/close), drain handoff +
+                       journal-replay reconstruction, outcomes -> RatingBook
+  --status             render a live /statusz health view [HOST:PORT]
+                       (active alerts, fleet states, progress, recorder)
+"""
+
+NOT_PORTED = {
+    '--serve-fleet': 'serving/fleet.py (resolver_main)',
+    '-sf': 'serving/fleet.py (resolver_main)',
+    '--gateway': 'serving/gateway.py (gateway_main)',
+    '-gw': 'serving/gateway.py (gateway_main)',
+    '--status': "telemetry.py's status_main",
+}
+
+
+def split_options(argv: List[str]) -> Tuple[Dict[str, Optional[str]],
+                                            List[str]]:
+    """``--config`` and ``--device`` (``--opt VALUE`` or ``--opt=VALUE``,
+    anywhere) apart from the mode and its arguments."""
+    opts: Dict[str, Optional[str]] = {'--config': None, '--device': 'cuda'}
+    rest: List[str] = []
+    it = iter(argv)
+    for arg in it:
+        key, eq, value = arg.partition('=')
+        if key in opts:
+            value = value if eq else next(it, None)
+            if value is None:
+                raise SystemExit('%s needs a value' % key)
+            opts[key] = value
+        else:
+            rest.append(arg)
+    return opts, rest
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    opts, rest = split_options(sys.argv[1:] if argv is None else list(argv))
+    if not rest:
+        print(USAGE)
+        return 1
+    mode, rest = rest[0], rest[1:]
+    device = opts['--device']
+    if mode in NOT_PORTED:
+        print('mode %s: %s is not ported yet (ROADMAP.md)'
+              % (mode, NOT_PORTED[mode]), file=sys.stderr)
+        return 2
+    raw = {}
+    if opts['--config']:
+        with open(opts['--config']) as f:
+            raw = json.load(f)
+
+    if mode in ('--serve', '-sv'):
+        from .config import serving_args
+        from .serving.service import serve_main
+        ta = raw.get('train_args', {})
+        return serve_main(serving_args(
+            raw.get('env_args', {'env': 'TicTacToe'}), ta.get('inference'),
+            ta.get('serving')), device=device)
+
+    from .config import apply_defaults
+    args = apply_defaults(raw)
+    if mode in ('--train', '-t', '--train-server', '-ts'):
+        from .train import train_main
+        return train_main(args, device,
+                          server=mode in ('--train-server', '-ts'))
+    if mode in ('--worker', '-w'):
+        from .model import resolve_device
+        from .worker import worker_main
+        args['worker_args']['device'] = str(resolve_device(device))
+        return worker_main(args, rest)
+    if mode in ('--eval', '-e'):
+        from .evaluation import eval_main
+        eval_main(args, rest, device=device)
+        return 0
+    if mode in ('--eval-server', '-es'):
+        from .evaluation import eval_server_main
+        eval_server_main(args, rest)
+        return 0
+    if mode in ('--eval-client', '-ec'):
+        from .evaluation import eval_client_main
+        return eval_client_main(args, rest, device=device)
+    print('Not found mode %s.' % mode)
+    print(USAGE)
+    return 1
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -12,7 +12,9 @@ compatible with it:
   other. Numpy scalars travel as Python scalars. A frame decodes only to
   data, never to code.
 * **Framing.** 4-byte big-endian length headers; :class:`FrameParser`
-  validates every length before buffering.
+  validates every length before buffering. A spawned process takes a
+  connection, read-ahead included, as a :class:`SocketHandover` (the
+  network battle's runners and client children).
 * **Hub.** One selector read loop plus one writer thread per endpoint;
   heartbeat frames (``HEARTBEAT_KIND``) refresh a peer's liveness deadline
   and land in ``peer_info_snapshot`` instead of the inbox, and every
@@ -320,10 +322,26 @@ class FrameParser:
         return frames
 
 
+class SocketHandover(NamedTuple):
+    """A :class:`FramedConnection` on its way into a spawned process: the
+    socket, which multiprocessing's reducer duplicates into the child as
+    it starts, and the bytes the parent had read but not consumed, framed
+    again. :meth:`open` rebuilds the connection in the child."""
+
+    sock: socket.socket
+    pending: bytes
+
+    def open(self) -> 'FramedConnection':
+        conn = FramedConnection(self.sock)
+        conn._ready.extend(conn._parser.feed(self.pending))
+        return conn
+
+
 class FramedConnection:
     """Duplex message endpoint over a stream socket: blocking
     ``send``/``recv`` for call-response clients, non-blocking ``drain``
-    for the Hub."""
+    for the Hub. A connection cannot be pickled (its send lock); a spawned
+    process takes it as a :meth:`handover`."""
 
     def __init__(self, sock: socket.socket):
         self.sock: Optional[socket.socket] = sock
@@ -370,6 +388,17 @@ class FramedConnection:
                 raise ConnectionResetError('peer closed')
             self._ready.extend(self._parser.feed(chunk))
         return self._decode(self._ready.popleft())
+
+    def handover(self) -> SocketHandover:
+        """The socket and every frame and byte already read from it, as an
+        argument of a spawned process. A frame the peer sent with the last
+        one consumed here (a battle's first command behind its env_args)
+        may sit in this read-ahead; dropping it would leave the child
+        waiting for it forever. Under 'spawn' the child holds its
+        duplicate of the socket once ``Process.start()`` has returned:
+        only then may this copy be closed, and nothing reads it before."""
+        pending = b''.join(_HEADER.pack(len(p)) + p for p in self._ready)
+        return SocketHandover(self.sock, pending + bytes(self._parser._buf))
 
     def poll(self, timeout: float = 0.0) -> bool:
         """True when a recv() would find data within ``timeout`` seconds."""

@@ -1,25 +1,35 @@
-"""Evaluation: the match engine, the online evaluator's opponents and the
-offline tournament, ``python -m handyrl_tpu_torch.evaluation MODEL[:OPPONENT]
-[NUM_GAMES [NUM_PROC]] [--config FILE.json] [--device cuda|cpu]``.
+"""Evaluation: the match engine, the online evaluator's opponents, the
+offline tournament and network battles, ``python -m
+handyrl_tpu_torch.evaluation MODEL[:OPPONENT] [NUM_GAMES [NUM_PROC]]
+[--config FILE.json] [--device cuda|cpu]`` (and ``python -m
+handyrl_tpu_torch --eval/--eval-server/--eval-client``).
 
-The port of ``handyrl_tpu/evaluation.py`` without its network parts: one
-match engine (:func:`run_match`) drives every match through seat adapters
-(:class:`_AgentSeat`); the offline harness is a :class:`Tournament` with
-schedule / launch / collect / report phases; :class:`Evaluator` is the
-sequential online evaluator; model files are learner checkpoints
-(``<epoch>.ckpt``, the param tree in flax's ``to_bytes`` layout, as either
-package writes it), loaded into the env's net on the device asked for.
+The port of ``handyrl_tpu/evaluation.py``: one match engine
+(:func:`run_match`) drives every match through seat adapters, an
+in-process agent (:class:`_AgentSeat`) or a remote client that mirrors the
+env from ``diff_info`` deltas and answers actions as strings
+(:class:`_WireSeat`, the TCP battle protocol on port 9876); the offline
+harness is a :class:`Tournament` with schedule / launch / collect /
+report phases; :class:`Evaluator` is the sequential online evaluator.
+Models are learner checkpoints (``<epoch>.ckpt``, the param tree in
+flax's ``to_bytes`` layout, as either package writes it), registry
+entries (``registry://ROOT/line@selector``) loaded on the device asked
+for, or names served by a running service (``serve://host:port/
+line@selector``).
 
-A tournament over several processes starts them with the ``spawn`` method:
-a forked child could not use the parent's CUDA context, so each child gets
-the agents' specs and the device and loads its own models. With one
-process the tournament runs inline, as in the JAX package.
+Processes start with the ``spawn`` method: a forked child could not use
+the parent's CUDA context. A tournament's runners get the agents' specs
+and the device and load their own models; a network battle's runners
+(which load no model) and the client's children get their sockets as
+:class:`~.connection.SocketHandover`. With one process the tournament
+runs inline, as in the JAX package.
 
-stdout formats (``total games``, ``---agent N---``, the win-rate lines) are
-the JAX package's verbatim. Not ported yet (ROADMAP.md, the worker plane
-and the serving tier): the network battle mode (``NetworkAgent``,
-``exec_network_match``, the eval server and client), ``ExportedModel``
-(``.jaxexp``) and the ``registry://`` and ``serve://`` model specs.
+stdout formats (``total games``, ``---agent N---``, the win-rate lines,
+the client's ``outcome = ...`` and board views) are the JAX package's
+verbatim. Deliberate differences (ROADMAP.md section 3): a server whose
+client is lost ends with an error naming the seat (the JAX collector
+waits forever), and the client joins its children and fails when one
+did. Not ported yet: ``ExportedModel`` (``.jaxexp``).
 """
 
 from __future__ import annotations
@@ -27,15 +37,21 @@ from __future__ import annotations
 import argparse
 import json
 import multiprocessing as mp
+import os
 import queue
 import random
+import sys
 import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from .agent import Agent, RandomAgent, RuleBasedAgent
+from .connection import (_bare_main, accept_socket_connections,
+                         connect_socket_connection, send_recv)
 from .environment import make_env
+
+network_match_port = 9876
 
 
 def view(env, player=None):
@@ -48,6 +64,80 @@ def view(env, player=None):
 def view_transition(env):
     if hasattr(env, 'view_transition'):
         env.view_transition()
+
+
+# ---------------------------------------------------------------------------
+# network battle protocol
+
+
+class NetworkAgentClient:
+    """Remote side of a battle: executes server commands against a local
+    env + agent. Commands: update / action / observe / outcome / quit.
+    ``actions`` and ``outcomes`` count what it answered."""
+
+    def __init__(self, agent, env, conn):
+        self.conn = conn
+        self.agent = agent
+        self.env = env
+        self.actions = 0
+        self.outcomes: List[float] = []
+
+    def run(self):
+        while True:
+            try:
+                command, args = self.conn.recv()
+            except (ConnectionResetError, EOFError, OSError):
+                break
+            if command == 'quit':
+                break
+            self.conn.send(self._execute(command, list(args)))
+
+    def _execute(self, command: str, args: list):
+        if command == 'outcome':
+            print('outcome = %f' % args[0])
+            self.outcomes.append(args[0])
+            return None
+        if command in ('action', 'observe'):
+            view(self.env)
+            reply = getattr(self.agent, command)(self.env, *args, show=True)
+            if command == 'action':
+                self.actions += 1
+                reply = self.env.action2str(reply, args[0])
+            return reply
+        # env-state command (update etc.) mirrored onto the local env
+        reply = getattr(self.env, command)(*args)
+        if command == 'update':
+            if args[1]:                        # reset flag: new game
+                self.agent.reset(self.env, show=True)
+            else:
+                view_transition(self.env)
+        return reply
+
+
+class NetworkAgent:
+    """Server-side proxy for one remote NetworkAgentClient."""
+
+    def __init__(self, conn):
+        self.conn = conn
+
+    def _call(self, command: str, *args):
+        return send_recv(self.conn, (command, list(args)))
+
+    def update(self, data, reset):
+        return self._call('update', data, reset)
+
+    def outcome(self, value):
+        return self._call('outcome', value)
+
+    def action(self, player):
+        return self._call('action', player)
+
+    def observe(self, player):
+        return self._call('observe', player)
+
+
+class LostClient(ConnectionError):
+    """A network battle's client went away before its games ended."""
 
 
 # ---------------------------------------------------------------------------
@@ -74,6 +164,37 @@ class _AgentSeat:
 
     def finish(self, env, player, outcome):
         pass
+
+
+class _WireSeat:
+    """A player slot occupied by a remote client that mirrors the env from
+    diff_info deltas and exchanges actions as strings. A transport failure
+    raises :class:`LostClient` naming the seat."""
+
+    def __init__(self, proxy: NetworkAgent):
+        self.proxy = proxy
+
+    def _call(self, player, method: str, *args):
+        try:
+            return getattr(self.proxy, method)(*args)
+        except OSError as exc:
+            raise LostClient('lost the client in seat %s (%s: %s)'
+                             % (player, type(exc).__name__, exc)) from exc
+
+    def begin(self, env, player, show):
+        self._call(player, 'update', env.diff_info(player), True)
+
+    def act(self, env, player, show):
+        return env.str2action(self._call(player, 'action', player), player)
+
+    def watch(self, env, player, show):
+        self._call(player, 'observe', player)
+
+    def sync(self, env, player):
+        self._call(player, 'update', env.diff_info(player), False)
+
+    def finish(self, env, player, outcome):
+        self._call(player, 'outcome', outcome)
 
 
 def run_match(env, seats: Dict[int, Any], critic=None, show=False,
@@ -113,6 +234,15 @@ def exec_match(env, agents: Dict[int, Any], critic=None, show=False,
                game_args={}) -> Optional[dict]:
     """Match between in-process agents on one shared environment."""
     return run_match(env, {p: _AgentSeat(a) for p, a in agents.items()},
+                     critic, show, game_args)
+
+
+def exec_network_match(env, network_agents: Dict[int, NetworkAgent],
+                       critic=None, show=False, game_args={}
+                       ) -> Optional[dict]:
+    """Match against remote clients speaking the diff_info protocol."""
+    return run_match(env,
+                     {p: _WireSeat(a) for p, a in network_agents.items()},
                      critic, show, game_args)
 
 
@@ -195,9 +325,14 @@ def wp_func(results: Dict[Optional[float], int]) -> float:
 
 def _tournament_child(agents, critic, env_args, index, job_queue,
                       result_queue, seed, show=False):
-    """One match runner: drain jobs until the None sentinel."""
+    """One match runner: drain jobs until the None sentinel. Agents that
+    are :class:`NetworkAgent` proxies play through the wire protocol; a
+    lost client raises :class:`LostClient` naming the runner, the game and
+    the seat."""
     random.seed(seed + index)
     env = make_env({**env_args, 'id': index})
+    remote_mode = isinstance(agents[0], NetworkAgent)
+    engine = exec_network_match if remote_mode else exec_match
     while True:
         job = job_queue.get()
         if job is None:
@@ -206,10 +341,28 @@ def _tournament_child(agents, critic, env_args, index, job_queue,
         print('*** Game %d ***' % serial)
         lineup = {env.players()[i]: agents[ai]
                   for i, ai in enumerate(seat_ids)}
-        outcome = exec_match(env, lineup, critic, show=show,
+        try:
+            outcome = engine(env, lineup, critic, show=show,
                              game_args=game_args)
+        except LostClient as exc:
+            raise LostClient('network battle runner %d, game %d: %s'
+                             % (index, serial, exc)) from exc
         result_queue.put((label, seat_ids, outcome))
     result_queue.put(None)
+
+
+def _network_runner(handovers, env_args, index, job_queue, result_queue,
+                    seed):
+    """A spawned runner of a network battle: its group's sockets arrive
+    as handovers; it loads no model. A lost client's message goes to the
+    result queue (the server raises it) before this process fails."""
+    agents = [NetworkAgent(h.open()) for h in handovers]
+    try:
+        _tournament_child(agents, None, env_args, index, job_queue,
+                          result_queue, seed)
+    except LostClient as exc:
+        result_queue.put(str(exc))
+        raise
 
 
 def _spawned_child(specs, device, env_args, index, job_queue, result_queue,
@@ -230,9 +383,10 @@ class Tournament:
     ``schedule`` materializes every game up front (2-player games get
     first/second seat balancing; larger games get shuffled seats);
     ``launch`` runs the games inline for 1 process, or starts spawned
-    runner processes that load their agents from ``specs``; ``collect``
-    tallies outcomes per agent per pattern and joins the runners;
-    ``report`` prints the JAX package's summary.
+    runner processes that load their agents from ``specs`` (or, in a
+    network battle, take their group's sockets); ``collect`` tallies
+    outcomes per agent per pattern and joins the runners; ``report``
+    prints the JAX package's summary.
     """
 
     def __init__(self, env, agents: List[Any], critic, env_args,
@@ -270,10 +424,12 @@ class Tournament:
                 serial += 1
 
     def launch(self, show_inline: bool, specs: Optional[List[str]] = None,
-               device: Any = 'cpu'):
-        """Run the games inline (1 process, on ``self.agents``) or start
-        ``num_process`` spawned runners, each loading the agents named by
-        ``specs`` on ``device``."""
+               device: Any = 'cuda',
+               groups: Optional[List[List[NetworkAgent]]] = None):
+        """Run the games inline (1 process, on ``self.agents`` or the one
+        group of ``groups``) or start ``num_process`` spawned runners: in a
+        network battle runner i plays through ``groups[i]``, otherwise each
+        loads the agents named by ``specs`` on ``device``."""
         ctx = mp.get_context('spawn')
         # both queues stay referenced until collect(): a spawned child
         # unpickles them after start() returns
@@ -285,33 +441,51 @@ class Tournament:
         for _ in range(self.num_process):
             job_queue.put(None)
         if self.num_process == 1:
-            _tournament_child(self.agents, self.critic, self.env_args, 0,
-                              job_queue, self.results, self.seed,
-                              show=show_inline)
+            _tournament_child(groups[0] if groups else self.agents,
+                              self.critic, self.env_args, 0, job_queue,
+                              self.results, self.seed, show=show_inline)
+            return
+        if groups is not None:
+            for i, group in enumerate(groups):
+                self._start(ctx, _network_runner, (
+                    [a.conn.handover() for a in group], self.env_args, i,
+                    job_queue, self.results, self.seed))
+                for agent in group:   # the child holds its duplicates now
+                    agent.conn.close()
             return
         if specs is None or len(specs) != len(self.agents):
             raise ValueError('a tournament over %d processes needs a spec '
                              'for each of its %d agents'
                              % (self.num_process, len(self.agents)))
+        from .model import resolve_device
+        device = str(resolve_device(device))   # no CUDA: raise here
         for i in range(self.num_process):
-            proc = ctx.Process(target=_spawned_child, args=(
-                list(specs), str(device), self.env_args, i, job_queue,
-                self.results, self.seed), daemon=True)
+            self._start(ctx, _spawned_child, (
+                list(specs), device, self.env_args, i, job_queue,
+                self.results, self.seed))
+
+    def _start(self, ctx, target, args):
+        proc = ctx.Process(target=target, args=args, daemon=True)
+        with _bare_main():
             proc.start()
-            self._procs.append(proc)
+        self._procs.append(proc)
 
     def _next_result(self):
         """The next item of the result queue; raises when a runner died
-        without finishing its jobs."""
+        without finishing its jobs, or reported a lost client."""
         while True:
-            try:
-                return self.results.get(timeout=1.0)
+            dead = [p.exitcode for p in self._procs
+                    if p.exitcode not in (None, 0)]
+            try:   # what a dead runner sent before it exited comes first
+                item = self.results.get(timeout=1.0)
             except queue.Empty:
-                dead = [p.exitcode for p in self._procs
-                        if p.exitcode not in (None, 0)]
                 if dead:
                     raise RuntimeError('a tournament process exited with '
                                        'code %d' % dead[0])
+                continue
+            if isinstance(item, str):
+                raise LostClient(item)
+            return item
 
     def collect(self):
         pending = self.num_process
@@ -349,20 +523,52 @@ class Tournament:
 
 def evaluate_mp(env, agents: List[Any], critic, env_args, args_patterns,
                 num_process: int, num_games: int, seed: int,
-                specs: Optional[List[str]] = None, device: Any = 'cpu'
+                specs: Optional[List[str]] = None, device: Any = 'cuda'
                 ) -> Tournament:
     """Run an offline tournament; ``specs`` (one per agent) and ``device``
-    are what the spawned runners load when ``num_process`` > 1."""
+    are what the spawned runners load when ``num_process`` > 1. Agents of
+    None make it a network battle: ``num_process`` groups of clients are
+    accepted on ``network_match_port``."""
     tournament = Tournament(env, agents, critic, env_args, args_patterns,
                             num_process, num_games, seed)
     print('total games = %d' % (len(args_patterns) * num_games))
     time.sleep(0.1)
     tournament.schedule()
-    tournament.launch(show_inline=num_process == 1, specs=specs,
-                      device=device)
-    tournament.collect()
+    groups = None
+    if agents[0] is None:
+        groups = network_match_acception(num_process, env_args, len(agents),
+                                         network_match_port)
+    try:
+        tournament.launch(show_inline=num_process == 1, specs=specs,
+                          device=device, groups=groups)
+        tournament.collect()
+    finally:   # the clients end on the reset
+        for agent in sum(groups or [], []):
+            agent.conn.close()
     tournament.report()
     return tournament
+
+
+def network_match_acception(n: int, env_args, num_agents: int, port: int
+                            ) -> List[List[NetworkAgent]]:
+    """Accept exactly n*num_agents client connections, grouped per match;
+    every client of a group receives env_args once the group is full. The
+    listener closes on return, so a client's reconnect after the last
+    group is refused or reset."""
+    waiting, groups = [], []
+    acceptor = accept_socket_connections(port)
+    try:
+        while len(groups) < n:
+            conn = next(acceptor)
+            waiting.append(conn)
+            if len(waiting) == num_agents:
+                for c in waiting:
+                    c.send(env_args)
+                groups.append([NetworkAgent(c) for c in waiting])
+                waiting = []
+    finally:
+        acceptor.close()
+    return groups
 
 
 # ---------------------------------------------------------------------------
@@ -370,14 +576,35 @@ def evaluate_mp(env, agents: List[Any], critic, env_args, args_patterns,
 
 
 def load_model(model_path: str, env, device: Any = 'cuda'):
-    """A learner checkpoint file as a ``ModelWrapper`` on ``device``: the
-    env's net with the checkpoint's params."""
+    """A model spec as a model the agents call:
+
+    * a learner checkpoint (``.ckpt``): the env's net with its params, a
+      ``ModelWrapper`` on ``device``;
+    * ``registry://ROOT/line@selector``: the registry-pinned snapshot
+      (CRC-verified), a ``ModelWrapper`` on ``device``, e.g.
+      ``registry://models/default@champion``;
+    * ``serve://host:port/line@selector``: a proxy onto a running
+      InferenceService, every inference a request resolved by name there
+      (``device`` is the service's own).
+    """
+    if model_path.startswith('serve://'):
+        from .serving.client import model_from_spec
+        return model_from_spec(model_path)
     from .model import ModelWrapper, load_params_bytes
-    if '://' in model_path or not model_path.endswith('.ckpt'):
+    if model_path.startswith('registry://'):
+        from .serving.registry import ModelRegistry, parse_spec
+        root, _, spec = model_path[len('registry://'):].rpartition('/')
+        line, selector = parse_spec(spec)
+        snap = ModelRegistry(root or '.').load_snapshot(line, selector)
+        return ModelWrapper.from_snapshot(snap, device)
+    if model_path.endswith('.jaxexp'):
         raise ValueError(
-            'load_model reads learner checkpoints (.ckpt) only; %r is not '
-            'one (registry:// and serve:// specs and .jaxexp exports are not '
-            'ported yet, ROADMAP.md)' % (model_path,))
+            '%r is a .jaxexp export (StableHLO, which only JAX loads): '
+            'ExportedModel is not ported yet (ROADMAP.md)' % (model_path,))
+    if not model_path.endswith('.ckpt'):
+        raise ValueError(
+            'load_model reads learner checkpoints (.ckpt), registry:// and '
+            'serve:// specs; %r is none of them' % (model_path,))
     module = env.net()
     with open(model_path, 'rb') as f:
         load_params_bytes(module, f.read())
@@ -409,7 +636,7 @@ def split_model_specs(raw: str) -> List[str]:
 
 
 # ---------------------------------------------------------------------------
-# CLI entry point
+# CLI entry points
 
 
 def eval_main(args, argv, device: Any = 'cuda') -> Tournament:
@@ -443,6 +670,84 @@ def eval_main(args, argv, device: Any = 'cuda') -> Tournament:
                        num_process, num_games, seed, specs=specs, device=dev)
 
 
+def eval_server_main(args, argv) -> Tournament:
+    """The JAX package's ``eval_server_main``: ``argv`` is ``[NUM_GAMES
+    [NUM_PROC]]``; every seat is a network client accepted on
+    ``network_match_port``. Loads no model and touches no device."""
+    print('network match server mode')
+    env_args = args['env_args']
+    env = make_env(env_args)
+
+    num_games = int(argv[0]) if len(argv) >= 1 else 100
+    num_process = int(argv[1]) if len(argv) >= 2 else 1
+
+    print('%d process, %d games' % (num_process, num_games))
+    seed = random.randrange(int(1e8))
+    print('seed = %d' % seed)
+
+    return evaluate_mp(env, [None] * len(env.players()), None, env_args,
+                       {'default': {}}, num_process, num_games, seed)
+
+
+def client_mp_child(env_args, model_path, device, handover, spawned_at):
+    """One client child: plays its connection's games with MODEL on
+    ``device``, then prints one ``client child`` line (its start seconds,
+    what it answered, its kernel launches)."""
+    from .model import fp32_on_card, resolve_device
+    from .ops import kernel_launches
+    dev = resolve_device(device)
+    fp32_on_card(dev)
+    conn = handover.open()
+    env = make_env(env_args)
+    agent = _resolve_agent(model_path, env, dev)
+    started = time.time()
+    client = NetworkAgentClient(agent, env, conn)
+    client.run()
+    print('client child (pid %d): %s' % (os.getpid(), json.dumps({
+        'device': str(dev), 'start_seconds': started - spawned_at,
+        'play_seconds': time.time() - started, 'actions': client.actions,
+        'outcomes': client.outcomes,
+        'kernel_launches': kernel_launches()})), flush=True)
+
+
+def eval_client_main(args, argv, device: Any = 'cuda') -> int:
+    """The JAX package's ``eval_client_main``: ``argv`` is ``[MODEL
+    [HOST]]``. Connects to the server until it refuses; each connection
+    whose env_args arrive gets a spawned child that plays its games on
+    ``device``. Joins the children; 1 when one of them failed."""
+    from .model import resolve_device
+    print('network match client mode')
+    device = str(resolve_device(device))   # no CUDA: fail before joining
+    model_path = argv[0] if len(argv) >= 1 else 'models/latest.ckpt'
+    host = argv[1] if len(argv) >= 2 else 'localhost'
+    ctx = mp.get_context('spawn')
+    children = []
+    while True:
+        try:
+            conn = connect_socket_connection(host, network_match_port)
+        except OSError:   # refused: the server has all its clients
+            break
+        try:
+            env_args = conn.recv()
+        except OSError:   # reset: the listener closed with this in its backlog
+            conn.close()
+            break
+        with _bare_main():
+            proc = ctx.Process(target=client_mp_child, args=(
+                env_args, model_path, device, conn.handover(), time.time()))
+            proc.start()
+        conn.close()   # the child holds its duplicate now
+        children.append(proc)
+    for proc in children:
+        proc.join()
+    failed = [(p.pid, p.exitcode) for p in children if p.exitcode != 0]
+    if failed:
+        print('network match client: children failed (pid, exit code): %s'
+              % failed, file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog='python -m handyrl_tpu_torch.evaluation',
@@ -466,4 +771,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == '__main__':
-    raise SystemExit(main())
+    # run the named module's main, so that the spawned runners find their
+    # entry points by the module's name (they see a bare __main__)
+    from handyrl_tpu_torch import evaluation as _named
+    raise SystemExit(_named.main())

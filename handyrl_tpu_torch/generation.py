@@ -394,11 +394,17 @@ class BatchedEvaluator:
 
     def _opponent_model(self, path: str):
         """Load (once) a checkpoint-file opponent into the model pool, on
-        the trained model's device."""
+        the trained model's device. Its seats are batched, so a model
+        without ``batch_inference`` (a ``serve://`` proxy) is refused."""
         if path not in self._model_pool:
             from .evaluation import load_model
-            self._model_pool[path] = load_model(path, self.envs[0],
-                                                device=self.wrapper.device)
+            model = load_model(path, self.envs[0], device=self.wrapper.device)
+            if not hasattr(model, 'batch_inference'):
+                raise ValueError(
+                    'evaluator model opponents must be .ckpt checkpoints '
+                    '(batched inference); %r loads as %s'
+                    % (path, type(model).__name__))
+            self._model_pool[path] = model
         return self._model_pool[path]
 
     def _start_match(self, i: int):

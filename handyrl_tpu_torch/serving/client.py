@@ -1,10 +1,14 @@
-"""Client side of the serving tier: the framed-protocol transport.
+"""Client side of the serving tier: the framed-protocol transport and the
+``serve://`` model proxy.
 
-The subset of ``handyrl_tpu/serving/client.py`` the serving path uses.
-:class:`ServiceClient` owns one TCP connection to an
+The port of ``handyrl_tpu/serving/client.py`` without the fleet's routed
+client. :class:`ServiceClient` owns one TCP connection to an
 :class:`~.service.InferenceService` (of either package: the wire format is
 shared) and speaks the framed ``INFER_KIND`` protocol plus the
-``SERVE_KIND`` admin frames (status / resolve).
+``SERVE_KIND`` admin frames (status / resolve / fleet).
+:class:`RemoteServiceModel` wraps a client and a ``line@selector`` spec
+into the model surface the agents call (``inference`` / ``init_hidden``),
+so a match resolves its model by name against a running service.
 
 Reply canonicalization: the wire codec turns numpy scalars into Python
 floats; ``collect`` re-wraps the sampled probability as ``np.float32`` so a
@@ -16,7 +20,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -36,6 +40,12 @@ def is_serve(msg) -> bool:
     """True for a serving-tier admin frame (request or reply)."""
     return (isinstance(msg, (list, tuple)) and len(msg) == 2
             and msg[0] == SERVE_KIND)
+
+
+def parse_endpoint(endpoint: str) -> Tuple[str, int]:
+    """``'host:port'`` -> (host, port); a bare port means localhost."""
+    host, _, port = str(endpoint).rpartition(':')
+    return host or 'localhost', int(port)
 
 
 def canonicalize_reply(reply: Dict[str, Any]) -> Dict[str, Any]:
@@ -190,6 +200,11 @@ class ServiceClient:
         return self._call_admin({'op': 'resolve', 'model': str(spec)},
                                 timeout)
 
+    def fleet(self, timeout: Optional[float] = None) -> Dict[str, Any]:
+        """The fleet replica table (a resolver answers it; a plain service
+        answers an unknown-op error body, see :func:`model_from_spec`)."""
+        return self._call_admin({'op': 'fleet'}, timeout)
+
     # -- internals ---------------------------------------------------------
 
     def _send(self, msg):
@@ -232,3 +247,55 @@ class ServiceClient:
             if is_serve(msg) and isinstance(msg[1], dict):
                 self._admin.append(msg[1])
 
+
+
+class RemoteServiceModel:
+    """Model-surface proxy over a :class:`ServiceClient`: each call is a
+    request frame against one ``line@selector`` spec. ``init_hidden``
+    returns None by design: the engine substitutes a fresh initial state
+    for a None hidden, so the client needs no knowledge of the recurrent
+    state's structure."""
+
+    def __init__(self, client: ServiceClient, model: str):
+        self.client = client
+        self.model = str(model)
+
+    def init_hidden(self, batch_shape=None):
+        return None
+
+    def inference(self, obs, hidden=None) -> Dict[str, Any]:
+        return self.client.request(self.model, obs, hidden=hidden)['outputs']
+
+    def close(self):
+        self.client.close()
+
+
+def model_from_spec(spec: str, timeout: float = 10.0) -> RemoteServiceModel:
+    """``'serve://host:port/line@selector'`` -> a connected proxy model
+    (owning its client connection).
+
+    One ``fleet`` probe at connect time tells a single service (which
+    answers an unknown-op error body) from a fleet resolver. The JAX
+    package routes a resolver's specs through its ``RoutedClient``; the
+    port has no resolver client yet, so such an endpoint raises rather
+    than being read as one plain service."""
+    rest = str(spec)
+    if rest.startswith('serve://'):
+        rest = rest[len('serve://'):]
+    endpoint, _, model = rest.partition('/')
+    if not model:
+        raise ValueError('serve:// spec %r carries no line@selector path'
+                         % spec)
+    host, port = parse_endpoint(endpoint)
+    client = ServiceClient(host, port, timeout=timeout)
+    try:
+        probe = client.fleet(timeout=min(timeout, 5.0))
+    except (TimeoutError, ServiceUnavailable):
+        probe = {}
+    if probe.get('fleet'):
+        client.close()
+        raise ValueError(
+            'serve:// endpoint %s:%d is a fleet resolver: the routed client '
+            '(serving/fleet.py) is not ported yet (ROADMAP.md)'
+            % (host, port))
+    return RemoteServiceModel(client, model)

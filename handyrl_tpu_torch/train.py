@@ -1916,10 +1916,19 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     with open(a.config) as f:
         args = apply_defaults(json.load(f))
-    device = resolve_device(a.device)
+    return train_main(args, a.device, server=a.server)
+
+
+def train_main(args: Dict[str, Any], device: Any = 'cuda',
+               server: bool = False) -> int:
+    """Train on ``device`` from ``args`` (as :func:`apply_defaults` gives
+    them): the exit code, 75 after a preemption flush, 1 when training
+    failed. ``server`` serves worker hosts (the JAX package's
+    ``train_server_main``)."""
+    device = resolve_device(device)
     fp32_on_card(device)
     reset_kernel_launches()
-    learner = Learner(args, device=device, remote=a.server)
+    learner = Learner(args, device=device, remote=server)
     learner.run()
     print(json.dumps(learner.summary()), flush=True)
     if learner.preempt.fired:

@@ -256,12 +256,12 @@ def test_eval_main_in_two_spawned_processes(ckpt, capsys):
 
 def test_model_specs_the_port_does_not_load_are_named(ckpt):
     env = make_env(ENV)
-    for spec in ('registry://models/default@champion',
-                 'serve://localhost:9997/default@1', 'model.jaxexp'):
-        with pytest.raises(ValueError) as exc:
-            evaluation.load_model(spec, env, device='cpu')
-        for name in ('registry://', 'serve://', '.jaxexp', 'not ported'):
-            assert name in str(exc.value)
+    with pytest.raises(ValueError) as exc:
+        evaluation.load_model('model.jaxexp', env, device='cpu')
+    for name in ('.jaxexp', 'ExportedModel', 'not ported'):
+        assert name in str(exc.value)
+    with pytest.raises(ValueError, match='none of them'):
+        evaluation.load_model('model.pt', env, device='cpu')
     for raw in ('a.ckpt:random', 'serve://h:9/l@1:random',
                 'registry://m/l@champion', 'x.ckpt'):
         assert (evaluation.split_model_specs(raw)
@@ -270,6 +270,24 @@ def test_model_specs_the_port_does_not_load_are_named(ckpt):
                       agent.RandomAgent)
     assert isinstance(evaluation._resolve_agent(ckpt, env, 'cpu'),
                       agent.Agent)
+
+
+def test_a_spawned_tournament_without_a_device_names_cuda(ckpt,
+                                                           monkeypatch):
+    """The runners' device defaults to the card: with none, the launch
+    raises naming CUDA before it spawns anything."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    env = make_env(ENV)
+    agents = [agent.RandomAgent(), agent.RandomAgent()]
+    t = evaluation.Tournament(env, agents, None, ENV, {'default': {}}, 2, 2,
+                              0)
+    t.schedule()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        t.launch(show_inline=False, specs=[ckpt, 'random'])
+    assert t._procs == []
+    with pytest.raises(RuntimeError, match='CUDA'):
+        evaluation.evaluate_mp(env, agents, None, ENV, {'default': {}}, 2, 2,
+                               0, specs=[ckpt, 'random'])
 
 
 def test_cli_without_a_card_names_cuda(ckpt):

@@ -103,14 +103,18 @@ def test_sources_never_import_the_reference():
         r'yaml\b|handyrl_tpu(?!_torch)\b)|'
         r'import_module\(\s*[\'"](?:jax|flax|handyrl_tpu(?!_torch))',
         re.MULTILINE)
-    checked = 0
+    checked = []
     for path in _sources():
         with open(path) as f:
             text = f.read()
         hits = pattern.findall(text)
         assert not hits, (path, hits)
-        checked += 1
-    assert checked >= 25
+        checked.append(os.path.relpath(path, REPO))
+    assert len(checked) >= 25
+    # the port's main.py, the eval server and client, the serving client
+    for name in ('__main__.py', 'evaluation.py', 'connection.py',
+                 os.path.join('serving', 'client.py')):
+        assert os.path.join('handyrl_tpu_torch', name) in checked
 
 
 def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
