@@ -235,7 +235,32 @@ non-zero, printing no result, when either is missing or any phase fails.
    0 just after, no other kernel); in this process the registry:// model
    equals the checkpoint's bit for bit on 24 boards and the serve:// one
    lies within SERVE_TOL; SIGTERM ends the service with 75.
-11. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
+11. The device branches besides the fused loop, through ``python -m
+   handyrl_tpu_torch.train`` with no --device, and the export. (a) The
+   split path at phase 5's config with ``device_generation`` alone (rollout
+   chunks on the card, episodes spliced on the host, the host trainer), 2
+   epochs of 128 episodes after 128: K1 under 'generation' and
+   'evaluation', K1, K2 and K3 under 'training'. (b) The threaded replay
+   trainer with device ingest at phase 6's config with ``fused_pipeline:
+   false``, 8 steps a dispatch and ``max_sample_reuse`` 16, its evaluation
+   against 'random' and phase 6's last checkpoint on the device evaluator:
+   K1 under 'generation' and 'evaluation', K1, K2 and K5 under 'training'
+   once a step, every metrics row's samples drawn within the cap x windows
+   ingested plus one dispatch, and games against the checkpoint. (c) The
+   host push (``device_replay`` with the host's self-play) on
+   tictactoe.json, 3 epochs of 200 episodes after 200: K3 under 'training'
+   and no other kernel. (d) ``scripts/torch_export_model.py`` exports phase
+   6's checkpoint to ``.pt2`` on the CPU; a fresh process loads it with
+   ``ExportedModel`` on the card and holds 32 real boards to the
+   checkpoint's ``ModelWrapper`` on the card (EXPORT_TOL), its K1 launched
+   once an inference through the operator and nothing else; here the
+   operator's CUDA route against the plain version at N in {1, 8}, and the
+   latency of a serving forward with the operator against the direct
+   wrapper call (in turns). Every run fails the script on a non-zero exit,
+   a failed trainer, a kernel of its path that never launched or one off
+   its path.
+   Prints the branches' rates beside phases 5 and 6.
+12. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
    and K2b take their launches from K2's count, one of each a call; the
    fused loop's under ``learner_fused_*``, 5(b)'s under
    ``learner_shm_*``, the quick start's under ``quick_start_*``, 7(b)'s
@@ -244,7 +269,10 @@ non-zero, printing no result, when either is missing or any phase fails.
    ``workers_local_*`` and ``workers_remote_*`` and their worker
    processes under ``workers_*_worker_processes``, phase 10's client
    children under ``network_*_client_children`` and the service under
-   ``network_serve_service``), the nvidia-smi line, and as the last line
+   ``network_serve_service``, phase 11's runs under ``split_*``,
+   ``replay_*`` and ``host_push_*`` and the exported program's under
+   ``export_exported_model``; K1's row also holds the operator's checks),
+   the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -3574,6 +3602,388 @@ def phase_network(torch, repo, make_env):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -------------------------- phase 11: the other device branches, the export
+
+# (a) the split path at phase 5's config: rollout chunks on the card
+# (DeviceGenerator), episodes spliced on the host, the host trainer
+SPLIT_EPOCHS = 2
+SPLIT = {'device_generation': True, 'device_chunk_steps': 16,
+         'minimum_episodes': 128, 'update_episodes': 128,
+         'epochs': SPLIT_EPOCHS}
+# (b) the threaded replay trainer with device ingest at phase 6's
+# north-star config, a checkpoint of phase 6 among the eval opponents
+REPLAY_EPOCHS = 8
+REPLAY_K = 8
+REPLAY_REUSE_CAP = 16.0
+REPLAY = {'fused_pipeline': False, 'replay_fused_steps': REPLAY_K,
+          'max_sample_reuse': REPLAY_REUSE_CAP, 'epochs': REPLAY_EPOCHS,
+          'checkpoint_interval': 1}
+# (c) the host push on TicTacToe at tictactoe.json's widths
+HOST_PUSH_EPOCHS = 3
+HOST_PUSH = {'device_replay': True, 'device_ingest': False,
+             'replay_fused_steps': REPLAY_K, 'minimum_episodes': 200}
+EXPORT_TOL = 1e-4        # fp32, the card's program against the card's net
+EXPORT_BOARDS = 32
+OP_NS = (1, 8)           # the serving forwards: one seat, the 8-row bucket
+OP_REPS = 300
+
+
+def run_train_cli(repo, cfg, tmp, label, timeout=600):
+    """``python -m handyrl_tpu_torch.train --config`` on ``cfg`` (no
+    --device: the card is the default), its model dir and metrics rows in
+    ``tmp``: its JSON line (with the wall as 'wall') and its stdout."""
+    cfg = json.loads(json.dumps(cfg))
+    cfg['train_args']['model_dir'] = os.path.join(tmp, 'models')
+    cfg['train_args']['metrics_jsonl'] = os.path.join(tmp, 'metrics.jsonl')
+    path = os.path.join(tmp, 'config.json')
+    with open(path, 'w') as f:
+        json.dump(cfg, f)
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(
+            [sys.executable, '-m', 'handyrl_tpu_torch.train', '--config',
+             path], cwd=repo, capture_output=True, text=True,
+            timeout=timeout)
+    except subprocess.TimeoutExpired as exc:
+        fail('%s did not finish within %d s:\n%s' % (
+            label, timeout, (exc.stderr or b'')[-4000:]))
+    wall = time.monotonic() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith(('epoch', 'win rate', 'loss', 'device ingest',
+                            'updated model')):
+            log('  %s: %s' % (label, line))
+    if proc.returncode != 0:
+        fail('%s exited %d:\n%s' % (label, proc.returncode,
+                                    proc.stderr[-4000:]))
+    lines = [l for l in proc.stdout.splitlines() if l.startswith('{')]
+    if len(lines) != 1:
+        fail('%s printed %d JSON lines' % (label, len(lines)))
+    line = json.loads(lines[0])
+    line['wall'] = wall
+    return line, proc.stdout
+
+
+def check_branch(label, line, epochs, path, want):
+    """A device branch's run: its epochs with finite losses, the branch it
+    took, no failed trainer, and each kernel of ``want`` ({launch path:
+    kernels}) launched; returns its rates as a dict."""
+    import math
+    if line['failed'] or line['epochs'] != epochs:
+        fail('%s trained %s epochs (failed: %s)' % (
+            label, line['epochs'], line['failed_reason']))
+    if line.get('device_path') != path:
+        fail('%s took the %s branch, not %s' % (label,
+                                                line.get('device_path'),
+                                                path))
+    if not (line['losses'] and all(math.isfinite(v)
+                                   for v in line['losses'].values())):
+        fail('%s reports non-finite losses: %s' % (label, line['losses']))
+    by_path = line['kernel_launches']
+    for where, kernels in want.items():
+        for k in kernels:
+            if not by_path.get(where, {}).get(k, 0) > 0:
+                fail('%s: %s never launched %s (%s)' % (label, where, k,
+                                                         by_path))
+    wanted = {(w, k) for w, ks in want.items() for k in ks}
+    extra = {(w, k): n for w, c in by_path.items() for k, n in c.items()
+             if n and (w, k) not in wanted}
+    if extra:
+        fail('%s launched kernels off its path: %s' % (label, extra))
+    trainer_s = line['trainer_seconds'] or 0.0
+    rates = {
+        'episodes_per_s': line['episodes_per_s'],
+        'trajectories_per_s': line['trajectories_per_s'],
+        'update_steps_per_s': line['update_steps_per_s'],
+        'trainer_wait_share': (line['trainer_batch_wait_seconds'] / trainer_s
+                               if trainer_s else None),
+        'wall': line['wall']}
+    log('%s: %s; kernel launches by path %s; %s' % (
+        label, json.dumps({k: v for k, v in rates.items()}), by_path,
+        nvidia_smi_line()))
+    return rates
+
+
+def check_reuse_rows(label, rows, cap, per_dispatch):
+    """Every row's samples drawn within cap x windows ingested plus one
+    dispatch (the one an epoch waiting to close may take)."""
+    for r in rows:
+        drawn, ingested = (r['replay_samples_drawn'],
+                           r['replay_windows_ingested'])
+        if drawn > cap * ingested + per_dispatch:
+            fail('%s: epoch %d drew %d samples from %d windows (cap %g)'
+                 % (label, r['epoch'], drawn, ingested, cap))
+    last = rows[-1]
+    log('%s: %d samples drawn per %d windows ingested (%.2f a window, cap '
+        '%g)' % (label, last['replay_samples_drawn'],
+                 last['replay_windows_ingested'],
+                 last['replay_samples_drawn']
+                 / max(1, last['replay_windows_ingested']), cap))
+
+
+def phase_split(torch, repo):
+    """Phase 11(a)."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_split_')
+    try:
+        cfg = json.loads(json.dumps(LEARNER_CONFIG))
+        cfg['train_args'].update(SPLIT)
+        line, _ = run_train_cli(repo, cfg, tmp, 'split')
+        rates = check_branch('split', line, SPLIT_EPOCHS, 'split', {
+            'generation': ('geese_trunk',), 'evaluation': ('geese_trunk',),
+            'training': ('geese_trunk', 'geese_trunk_bwd', 'td_lambda')})
+        log('split: %d generator dispatches (%d-ply chunks), %d eval '
+            'dispatches, loop host seconds %s' % (
+                line['generator_dispatches'], SPLIT['device_chunk_steps'],
+                line['eval_dispatches'], line['loop_seconds']))
+        return {'line': line, 'rates': rates}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_replay(torch, repo, opponent_ckpt):
+    """Phase 11(b)."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_replay_')
+    try:
+        cfg = json.loads(json.dumps(FUSED_CONFIG))
+        cfg['train_args'].update(REPLAY)
+        cfg['train_args']['eval'] = {'opponent': ['random', opponent_ckpt]}
+        line, out = run_train_cli(repo, cfg, tmp, 'replay')
+        if 'device ingest: windows assembled on device (solo mode)' \
+                not in out:
+            fail('the threaded replay trainer did not take the device '
+                 'ingest')
+        rates = check_branch('replay', line, REPLAY_EPOCHS, 'ingest', {
+            'generation': ('geese_trunk',), 'evaluation': ('geese_trunk',),
+            'training': ('geese_trunk', 'geese_trunk_bwd', 'vtrace')})
+        replay = line['replay']
+        train = line['kernel_launches'].get('training', {})
+        if train.get('vtrace') != line['steps_at_exit'] or \
+                line['steps_at_exit'] % REPLAY_K:
+            fail('replay: %s V-trace launches in %d steps of %d a dispatch'
+                 % (train.get('vtrace'), line['steps_at_exit'], REPLAY_K))
+        rows = read_metrics(os.path.join(tmp, 'metrics.jsonl'))
+        check_reuse_rows('replay', rows, REPLAY_REUSE_CAP,
+                         REPLAY_K * cfg['train_args']['batch_size'])
+        games = sum(r.get('eval_opponents', {}).get(opponent_ckpt, {})
+                    .get('games', 0) for r in rows)
+        if not games > 0:
+            fail('replay: the device evaluator played no game against the '
+                 'checkpoint opponent')
+        log('replay: %s; the checkpoint opponent played %d games on the '
+            'card; eval opponents of the last rows %s' % (
+                json.dumps(replay), games,
+                [r.get('eval_opponents') for r in rows[-2:]]))
+        rates['samples_per_window'] = replay['sample_reuse']
+        return {'line': line, 'rates': rates}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_host_push(torch, repo):
+    """Phase 11(c)."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_host_push_')
+    try:
+        cfg = quick_config(repo, HOST_PUSH, HOST_PUSH_EPOCHS)
+        line, _ = run_train_cli(repo, cfg, tmp, 'host push')
+        rates = check_branch('host push', line, HOST_PUSH_EPOCHS,
+                             'host_push', {'training': ('td_lambda',)})
+        replay = line['replay']
+        if not (replay['windows_ingested'] > 0
+                and replay['samples_drawn'] == line['steps_at_exit']
+                * line['batch_size']):
+            fail('host push: %s' % replay)
+        log('host push: %s' % json.dumps(replay))
+        rates['samples_per_window'] = replay['sample_reuse']
+        return {'line': line, 'rates': rates}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+EXPORT_CHECK = r"""
+import json, sys, time
+import numpy as np
+import torch
+from handyrl_tpu_torch.environment import make_env
+from handyrl_tpu_torch.evaluation import ExportedModel, load_model
+from handyrl_tpu_torch.model import fp32_on_card
+from handyrl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+fp32_on_card(torch.device('cuda'))
+pt2, ckpt, boards = sys.argv[1:4]
+obs = np.load(boards)
+t0 = time.monotonic()
+model = ExportedModel(pt2)            # the card by default
+model.inference(obs[0])
+load_s = time.monotonic() - t0
+ref = load_model(ckpt, make_env({'env': 'HungryGeese',
+                                 'torus_impl': 'pallas'}))
+ref.inference(obs[0])
+reset_kernel_launches()
+got = [model.inference(o) for o in obs]
+launches = kernel_launches()
+want = [ref.inference(o) for o in obs]
+err = max(float(np.abs(g[k] - w[k]).max()) for g, w in zip(got, want)
+          for k in w)
+finite = all(np.isfinite(g[k]).all() for g in got for k in g)
+
+def per_call_ms(fn, reps=200):
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e3
+
+ms = [per_call_ms(lambda: model.inference(obs[0])),
+      per_call_ms(lambda: ref.inference(obs[0]))]
+ms += [per_call_ms(lambda: ref.inference(obs[0])),
+       per_call_ms(lambda: model.inference(obs[0]))]
+print(json.dumps({'device': torch.cuda.get_device_name(0), 'err': err,
+                  'finite': finite, 'launches': launches,
+                  'inferences': len(obs), 'load_seconds': load_s,
+                  'exported_ms': (ms[0] + ms[3]) / 2,
+                  'checkpoint_ms': (ms[1] + ms[2]) / 2}))
+"""
+
+
+def op_checks(torch, GeeseNet):
+    """K1's registered operator on the card: held to the plain version at
+    N in OP_NS, and a serving forward's latency (host clock, the net's
+    no-grad forward and a synchronise, as a served request waits for it)
+    with the operator against the direct wrapper call it replaced (the
+    net's no-grad trunk before the operator), in turns, the median of OP_REPS
+    calls a turn."""
+    import numpy as np
+    from handyrl_tpu_torch.models import geese as geese_mod
+    from handyrl_tpu_torch.ops import geese_trunk
+    net, weights = trunk_net(torch, GeeseNet)
+    net.torus_impl = 'pallas'
+    gen = torch.Generator().manual_seed(SEED + 21)
+    real = geese_mod.trunk_serve
+    rows = {}
+    for n in OP_NS:
+        x = torch.rand((n, 7, 11, WIDTH['cin']), generator=gen).cuda()
+        obs = torch.rand((n, 17, 7, 11), generator=gen).cuda()
+        with torch.no_grad():
+            got = torch.ops.handyrl_tpu_torch.geese_trunk(
+                x, *weights, WIDTH['groups'], geese_trunk.EPS)
+            want = geese_trunk.trunk_forward_reference(x, *weights,
+                                                       WIDTH['groups'])
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+        if not (torch.isfinite(got).all() and err <= TOL):
+            fail('the operator\'s CUDA route disagrees with the plain '
+                 'version at N=%d: max abs err %.3g (tol %.0e)'
+                 % (n, err, TOL))
+
+        def latency_ms(fn):
+            out = []
+            with torch.no_grad():
+                for _ in range(OP_REPS + 10):
+                    t = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    out.append((time.perf_counter() - t) * 1e3)
+            return float(np.median(out[10:]))
+        calls = {'direct': lambda: geese_trunk.trunk_forward(
+                     x, *weights, groups=WIDTH['groups']),
+                 'op': lambda: geese_trunk.trunk_serve(
+                     x, *weights, groups=WIDTH['groups'])}
+        t = {}
+        try:
+            for form in ('direct', 'op', 'op', 'direct') * 2:
+                geese_mod.trunk_serve = (real if form == 'op'
+                                         else geese_trunk.trunk_forward)
+                t.setdefault('call_' + form, []).append(
+                    latency_ms(calls[form]))
+                t.setdefault('forward_' + form, []).append(
+                    latency_ms(lambda: net(obs)))
+        finally:
+            geese_mod.trunk_serve = real
+        row = {k: float(np.mean(v)) for k, v in t.items()}
+        row['max_abs_err'] = err
+        row['forward_ratio'] = row['forward_op'] / row['forward_direct']
+        rows[n] = row
+        log('op N=%d: max abs err vs plain %.3g; latency ms (median of %d, '
+            'mean of 4 turns): the trunk direct %.4f, op %.4f; the net\'s '
+            'serving forward direct %.4f, op %.4f (x%.3f) (%s)' % (
+                n, err, OP_REPS, row['call_direct'], row['call_op'],
+                row['forward_direct'], row['forward_op'],
+                row['forward_ratio'], nvidia_smi_line()))
+    return rows
+
+
+def phase_export(torch, repo, GeeseNet, make_env, ckpt):
+    """Phase 11(d)."""
+    import numpy as np
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_export_')
+    try:
+        pt2 = os.path.join(tmp, 'model.pt2')
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, os.path.join('scripts', 'torch_export_model.py'),
+             'HungryGeese', ckpt, pt2], cwd=repo, capture_output=True,
+            text=True, timeout=300)
+        export_s = time.monotonic() - t0
+        log('export: %s' % ' | '.join(proc.stdout.strip().splitlines()))
+        if proc.returncode != 0 or 'K1 operator in the graph: True' \
+                not in proc.stdout:
+            fail('the export failed (exit %d):\n%s' % (proc.returncode,
+                                                        proc.stderr[-3000:]))
+        boards = os.path.join(tmp, 'boards.npy')
+        np.save(boards, np.stack(game_observations(make_env, EXPORT_BOARDS,
+                                                   SEED + 23)))
+        proc = subprocess.run(
+            [sys.executable, '-c', EXPORT_CHECK, pt2, ckpt, boards],
+            cwd=repo, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail('the exported program did not run on the card:\n%s'
+                 % proc.stderr[-3000:])
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        log('export: %.1f s to export on the CPU, %d bytes; on the card in '
+            'a fresh process: %s (%s)' % (export_s, os.path.getsize(pt2),
+                                         json.dumps(line), nvidia_smi_line()))
+        if not line['finite'] or line['err'] > EXPORT_TOL:
+            fail('the exported program disagrees with the checkpoint on the '
+                 'card: max abs err %.3g (tol %.0e)' % (line['err'],
+                                                        EXPORT_TOL))
+        k = line['launches']
+        if k.get('geese_trunk') != line['inferences'] or any(
+                n for name, n in k.items() if name != 'geese_trunk'):
+            fail('the exported program launched %s in %d inferences'
+                 % (k, line['inferences']))
+        line['op'] = op_checks(torch, GeeseNet)
+        return line
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_device_branches(torch, repo, GeeseNet, make_env, ckpt, learner,
+                          fused):
+    """Phase 11: (a)-(d) and the rates beside phases 5 and 6."""
+    log('== phase 11(a): the split path (DeviceGenerator, host trainer)')
+    split = phase_split(torch, repo)
+    log('== phase 11(b): the threaded replay trainer with device ingest, '
+        'a checkpoint opponent on the device evaluator')
+    replay = phase_replay(torch, repo, ckpt)
+    log('== phase 11(c): the threaded replay trainer with the host push '
+        '(TicTacToe)')
+    host_push = phase_host_push(torch, repo)
+    log('== phase 11(d): the export round trip (.pt2 with K1 inside)')
+    export = phase_export(torch, repo, GeeseNet, make_env, ckpt)
+    names = ('host (5)', 'fused (6)', 'split (11a)', 'replay (11b)')
+    lines = (learner, fused['line'], split['line'], replay['line'])
+    log('device branches beside the host learner and the fused loop, same '
+        'card (%s):' % nvidia_smi_line())
+    log('  %-28s %s' % ('', ' '.join('%14s' % n for n in names)))
+    for k in ('episodes_per_s', 'trajectories_per_s', 'update_steps_per_s',
+              'trainer_batch_wait_seconds', 'trainer_seconds'):
+        log('  %-28s %s' % (k, ' '.join(
+            '%14.3f' % l[k] if l.get(k) is not None else '%14s' % '-'
+            for l in lines)))
+    return {'split': split, 'replay': replay, 'host_push': host_push,
+            'export': export}
+
+
 def main():
     try:
         import torch
@@ -3620,9 +4030,15 @@ def main():
                                     learner)
 
     fused_tmp = tempfile.mkdtemp(prefix='chip_smoke_fused_')
+    # phase 6's last checkpoint, kept for phase 11 (phase 8's drill trims
+    # the model dir)
+    opponent_tmp = tempfile.mkdtemp(prefix='chip_smoke_opponent_')
+    opponent = os.path.join(opponent_tmp, '%d.ckpt' % FUSED_EPOCHS)
     try:
         log('== phase 6: main path (the fused device loop)')
         fused = phase_fused(torch, repo, make_env, learner, fused_tmp)
+        shutil.copy(os.path.join(fused_tmp, 'models', '%d.ckpt'
+                                 % FUSED_EPOCHS), opponent)
 
         log('== phase 7: main path (the quick start: TicTacToe, turn-based)')
         quick = phase_quick_start(torch, repo, make_env, target_rows)
@@ -3657,7 +4073,16 @@ def main():
     log('phase 10: %.1f s (%s)' % (time.monotonic() - t10,
                                    nvidia_smi_line()))
 
-    log('== phase 11: the kernels line')
+    t11 = time.monotonic()
+    try:
+        branches = phase_device_branches(torch, repo, GeeseNet, make_env,
+                                         opponent, learner, fused)
+    finally:
+        shutil.rmtree(opponent_tmp, ignore_errors=True)
+    log('phase 11: %.1f s (%s)' % (time.monotonic() - t11,
+                                   nvidia_smi_line()))
+
+    log('== phase 12: the kernels line')
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -3688,6 +4113,13 @@ def main():
     paths['network_wire_client_children'] = network['wire']['launches']
     paths['network_tictactoe_client_children'] = network['ttt']['launches']
     paths['network_serve_service'] = network['specs']['launches']
+    # phase 11: the device branches by launch path, and the exported
+    # program's K1 through the registered operator (a fresh process)
+    for label in ('split', 'replay', 'host_push'):
+        for name, counts in branches[label]['line'][
+                'kernel_launches'].items():
+            paths['%s_%s' % (label, name)] = counts
+    paths['export_exported_model'] = branches['export']['launches']
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from
@@ -3714,7 +4146,8 @@ def main():
               train_bound_ms={str(n): rows[n]['train_bound_ms']
                               for n in SAVED_NS},
               device_ms={str(n): r['device_ms'] for n, r in rows.items()},
-              sass_hmma=hmma.get('trunk_fwd_kernel<32>', 0)),
+              sass_hmma=hmma.get('trunk_fwd_kernel<32>', 0),
+              op={str(n): r for n, r in branches['export']['op'].items()}),
     ]
     # K2 as its two phases: each wrapper call launches each phase once
     notes = {'a': dict(plain_and_library_ms_are='of the whole K2'),

@@ -13,11 +13,10 @@ device loop, of the worker plane (``batched_generation: false``,
 and of the run plane (``metrics_jsonl``, ``keep_checkpoints``,
 ``init_params``, ``guard.preempt_signals``, the publish hook's ``serving``
 block), and
-:func:`validate` raises for anything this port does not run yet (device
-generation without the fused loop, the threaded replay trainer, streaming,
-the league, mesh parallelism, the host inference engine and the device
-actor backend, recurrent nets, BatchNorm, envs other than TicTacToe and
-Hungry Geese) instead of ignoring it.
+:func:`validate` raises for anything this port does not run yet (the
+device actor backend, streaming, the league, mesh parallelism, the host
+inference engine, recurrent nets, BatchNorm, envs other than TicTacToe
+and Hungry Geese) instead of ignoring it.
 Without ``env_args`` the env is TicTacToe, as in the JAX package.
 """
 
@@ -106,14 +105,18 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
     'model_dir': 'models',        # checkpoint directory
     'metrics_jsonl': '',          # optional path: one JSON row per closed epoch (and a 'preempted' row)
     'keep_checkpoints': 0,        # GC numbered <epoch>.ckpt beyond the newest N after each save (0 = keep all; registry-pinned versions and checkpoint eval opponents are never deleted)
-    # the fused device loop (device_generation.py, ops/fused_pipeline.py):
-    # both switches on, with fused_pipeline and device_ingest at True
+    # the device paths (device_generation.py, ops/replay.py,
+    # ops/fused_pipeline.py): both switches with fused_pipeline and
+    # device_ingest at True run the fused loop; the other combinations the
+    # split generator and the threaded replay trainer
     'device_generation': False,   # rollouts on the device (envs with a tensor twin)
     'device_replay': False,       # the replay ring on the device; batches sampled there
     'device_chunk_steps': 16,     # plies of a rollout chunk (one dispatch)
     'device_eval': True,          # evaluation matches on the device when every opponent is 'random' or 'rulebase'
     'device_ingest': True,        # training windows assembled on the device
     'replay_windows_per_episode': None,  # windows an episode contributes (and the ring's budget per episode); None = max(1, 64 // forward_steps)
+    'replay_fused_steps': 8,      # SGD steps a dispatch of the threaded replay trainer
+    'max_sample_reuse': None,     # threaded replay trainer: cap samples drawn / windows ingested (None = free-spin)
     'fused_pipeline': True,       # one dispatch = rollout chunk + ingest + K SGD steps
     'sgd_steps_per_chunk': None,  # SGD steps a fused dispatch (pins the replay ratio); None = 16
     'checkpoint_interval': 1,     # fused loop: write checkpoint files every N epochs (and at the last)
@@ -254,7 +257,7 @@ def validate(args: Dict[str, Any]) -> None:
     _require(not ta['batcher_shared_memory'] or ta['batcher_processes'],
              'train_args.batcher_shared_memory requires batcher_processes '
              '(the thread batchers already share the trainer\'s memory)')
-    _validate_device_path(ta, env['env'], pending)
+    _validate_device_path(ta)
     _require(ta['burn_in_steps'] == 0,
              'train_args.burn_in_steps %r: burn-in (the recurrent loss '
              'path) %s' % (ta['burn_in_steps'], pending))
@@ -322,38 +325,19 @@ def _validate_worker_plane(ta: Dict[str, Any]) -> None:
              'beacons')
 
 
-def _validate_device_path(ta: Dict[str, Any], env: str, pending: str
-                          ) -> None:
-    """The device path runs as the fused loop only: both switches, with
-    ``fused_pipeline`` and ``device_ingest`` on. Its layout follows the
-    env: 'solo' for Hungry Geese (simultaneous training), 'turn' for
-    TicTacToe (``turn_based_training``), as the JAX learner chooses it."""
-    gen, replay = bool(ta['device_generation']), bool(ta['device_replay'])
-    _require(gen or not replay,
-             'train_args.device_replay without device_generation: the '
-             'threaded replay trainer (DeviceReplay.push/sample) %s' % pending)
-    _require(replay or not gen,
-             'train_args.device_generation without device_replay: the split '
-             'device pipeline (DeviceGenerator) %s' % pending)
-    if not gen:
-        return
-    _require(bool(ta['fused_pipeline']),
-             'train_args.fused_pipeline false: the threaded replay trainer '
-             '%s' % pending)
-    _require(bool(ta['device_ingest']),
-             'train_args.device_ingest false: host-built windows pushed to '
-             'the device ring (DeviceReplay.push) %s' % pending)
-    turn = env == 'TicTacToe'
-    _require(bool(ta['turn_based_training']) == turn,
-             "train_args.turn_based_training %r with %s on the device path: "
-             "the fused loop runs 'solo' (HungryGeese, simultaneous "
-             "training) and 'turn' (TicTacToe, turn-based training); the "
-             "split device pipeline (DeviceGenerator) that the other "
-             "combinations take %s" % (ta['turn_based_training'], env,
-                                       pending))
-    for key in ('device_chunk_steps', 'checkpoint_interval'):
+def _validate_device_path(ta: Dict[str, Any]) -> None:
+    """The device knobs' ranges. Every combination of the switches runs
+    (the learner picks the JAX learner's branch: the fused loop, the split
+    generator, the threaded replay trainer with device or host ingest);
+    only the device actor backend is missing, and the checks above name
+    it."""
+    for key in ('device_chunk_steps', 'checkpoint_interval',
+                'replay_fused_steps'):
         _require(int(ta[key]) >= 1, '%s must be >= 1' % key)
     for key in ('sgd_steps_per_chunk', 'replay_windows_per_episode',
                 'eval_envs'):
         _require(ta[key] is None or int(ta[key]) >= 1,
                  '%s must be None or >= 1' % key)
+    _require(ta['max_sample_reuse'] is None
+             or float(ta['max_sample_reuse']) > 0,
+             'max_sample_reuse must be > 0 (unset it to free-spin)')

@@ -7,10 +7,13 @@ twin (simultaneous: ``envs/torch_hungry_geese.py``; turn-based:
 (observe, the net on the (N, P) players folded into N * P rows, or on the
 acting player's N rows, and the illegal-action mask), ``make_gen_body``
 (the self-play ply: inference, a Gumbel-max draw, transition, record,
-auto-reset) and :class:`DeviceEvaluator` (whole matches against 'random'
-and, where the twin vectorizes it, 'rulebase' opponents). The net is
-called on device tensors; nothing goes through
-``ModelWrapper.batch_inference``, which copies to the host.
+auto-reset), :class:`DeviceGenerator` (the split path: rollout chunks on
+the card, episodes spliced on the host or the records handed to the
+device ingest) and :class:`DeviceEvaluator` (whole matches against
+'random', 'rulebase' where the twin vectorizes it, and checkpoint
+opponents played by their own net in the same chunk). The net is called
+on device tensors; nothing goes through ``ModelWrapper.batch_inference``,
+which copies to the host.
 
 On the card a chunk runs as one CUDA graph (:class:`CapturedCall`): the
 env state, the draws' generator and the actor's parameters are static
@@ -18,19 +21,20 @@ tensors, updated in place, so the graph's pointers stay valid; the host
 reads one packed tensor a chunk, one dispatch late (:class:`PackedFetch`).
 On the CPU the same functions run eagerly.
 
-What waits (ROADMAP.md): the split path's ``DeviceGenerator`` (episodes
-spliced on the host), checkpoint opponents on the device (the host
-``BatchedEvaluator`` plays them), recurrent nets' hidden state and
+What waits (ROADMAP.md): recurrent nets' hidden state and
 ``DeviceActorEngine``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+import copy
+import os
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .ops.batch import compress_moments
 from .ops.graphs import CapturedCall, PackedFetch
 
 Tensor = torch.Tensor
@@ -121,16 +125,257 @@ def env_generator(device: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+# ------------------------------------------------------- the split path
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+class _RecordPacker:
+    """A records dict of device tensors packed into ONE float32 tensor (the
+    host's one copy a chunk) and unpacked to numpy with each leaf's shape
+    and dtype (the JAX package's ``_RecordPacker``: int and bool values
+    are small enough to round-trip through float32 exactly)."""
+
+    def __init__(self, records: Dict[str, Tensor]):
+        self.keys = list(records)
+        self.shapes = [tuple(records[k].shape) for k in self.keys]
+        self.dtypes = [_numpy_dtype(records[k].dtype) for k in self.keys]
+
+    def pack(self, records: Dict[str, Tensor]) -> Tensor:
+        return torch.cat([records[k].float().reshape(-1) for k in self.keys])
+
+    def unpack(self, flat: np.ndarray) -> Dict[str, np.ndarray]:
+        out, pos = {}, 0
+        for k, shape, dtype in zip(self.keys, self.shapes, self.dtypes):
+            n = int(np.prod(shape)) if shape else 1
+            out[k] = flat[pos:pos + n].reshape(shape).astype(dtype)
+            pos += n
+        return out
+
+
+class DeviceChunk(NamedTuple):
+    """A chunk's records handed to the device ingest: copies of the
+    generator's static record tensors (the next dispatch rewrites those),
+    and the event after the copy on the generator's stream (None on the
+    CPU), which the consumer's stream waits for."""
+    records: Dict[str, Tensor]
+    ready: Optional[Any]
+
+
+def _blank(players):
+    return {key: {p: None for p in players} for key in
+            ('observation', 'selected_prob', 'action_mask', 'action',
+             'value', 'reward', 'return')}
+
+
+class DeviceGenerator:
+    """Chunks of self-play on the device for an env twin, the split path:
+    the port of the JAX package's ``DeviceGenerator`` (device_generation.py
+    :226-386 there).
+
+    A chunk is one :class:`CapturedCall` over :func:`make_gen_body` that
+    advances the static env state and copies its records into static
+    tensors (:attr:`records`, rewritten by every dispatch). Dispatch is
+    pipelined one chunk deep: each ``step_chunk*`` call enqueues the next
+    chunk before it reads the previous one, so callers see a one-chunk
+    delay and nothing else.
+
+    * :meth:`step_chunk` / :meth:`drain_episodes` read the full records
+      (one packed copy) and splice them on the host into the JAX package's
+      episode dicts: moments by player, discounted returns,
+      ``compress_moments``.
+    * :meth:`step_chunk_records` / :meth:`drain_records` keep the records
+      on the device, copied into a :class:`DeviceChunk` right after their
+      dispatch (before the next one rewrites the static tensors), and read
+      only (done, outcome).
+
+    ``net`` is the actor's module on the device, read in place: refresh
+    its parameters between dispatches, on the dispatching thread."""
+
+    pipelined = True    # step_chunk* returns the PREVIOUS dispatch's chunk
+
+    def __init__(self, env_mod, net: torch.nn.Module, args: Dict[str, Any],
+                 n_envs: int = 256, chunk_steps: int = 16, seed: int = 0):
+        self.env_mod, self.net, self.args = env_mod, net, args
+        self.n_envs, self.chunk_steps = int(n_envs), int(chunk_steps)
+        self.simultaneous = simultaneous(env_mod)
+        self.device = next(net.parameters()).device
+        self.generator = env_generator(self.device, seed)
+        self.state = env_mod.init_state(self.n_envs,
+                                        generator=self.generator,
+                                        device=self.device)
+        self._rollout = make_gen_body(env_mod, net)
+        self.records: Optional[Dict[str, Tensor]] = None
+        self._calls: Dict[bool, CapturedCall] = {}
+        self._packers: Dict[bool, _RecordPacker] = {}
+        self._fetch = PackedFetch(self.device)
+        self._partials: List[List[dict]] = [[] for _ in range(self.n_envs)]
+        self._pending = None
+        self.dispatches = 0
+
+    def _chunk(self, full: bool) -> Tensor:
+        """One chunk in place: the env state and :attr:`records`; returns
+        the packed records (all of them, or done and outcome)."""
+        state, records = self._rollout(self.state, self.chunk_steps,
+                                       self.generator)
+        copy_state_(self.state, state)
+        with torch.no_grad():
+            if self.records is None:   # the first call, which runs eagerly
+                self.records = {k: torch.empty_like(v)
+                                for k, v in records.items()}
+            for k, v in records.items():
+                self.records[k].copy_(v)
+        subset = (self.records if full else
+                  {k: self.records[k] for k in ('done', 'outcome')})
+        if full not in self._packers:
+            self._packers[full] = _RecordPacker(subset)
+        return self._packers[full].pack(subset)
+
+    def _dispatch(self, full: bool):
+        call = self._calls.get(full)
+        if call is None:
+            call = self._calls[full] = CapturedCall(
+                lambda: self._chunk(full), self.device, [self.generator])
+        packed = call()
+        self.dispatches += 1
+        return self._fetch.put(packed)
+
+    def _dispatch_records(self):
+        handle = self._dispatch(False)
+        with torch.no_grad():
+            records = {k: v.clone() for k, v in self.records.items()}
+        ready = None
+        if self.device.type == 'cuda':
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        return DeviceChunk(records, ready), handle
+
+    def _acct(self, handle):
+        acct = self._packers[False].unpack(PackedFetch.get(handle))
+        return acct['done'], acct['outcome']
+
+    def step_chunk_records(self):
+        """One chunk, its trajectory kept on the device: returns the
+        PREVIOUS dispatch's (:class:`DeviceChunk`, done (K, N), outcome
+        (K, N, P)), the last two on the host."""
+        if self._pending is None:
+            self._pending = self._dispatch_records()
+        (chunk, handle), self._pending = (self._pending,
+                                          self._dispatch_records())
+        return (chunk,) + self._acct(handle)
+
+    def drain_records(self):
+        """The in-flight chunk at the loop's end, or None."""
+        if self._pending is None:
+            return None
+        (chunk, handle), self._pending = self._pending, None
+        return (chunk,) + self._acct(handle)
+
+    def step_chunk(self) -> List[dict]:
+        """One chunk; returns the episodes that finished in the PREVIOUS
+        dispatch's chunk."""
+        if self._pending is None:
+            self._pending = self._dispatch(True)
+        prev, self._pending = self._pending, self._dispatch(True)
+        return self._splice(self._packers[True].unpack(PackedFetch.get(prev)))
+
+    step = step_chunk   # the host generators' streaming surface
+
+    def drain_episodes(self) -> List[dict]:
+        """Splice the in-flight chunk at the loop's end."""
+        if self._pending is None:
+            return []
+        prev, self._pending = self._pending, None
+        return self._splice(self._packers[True].unpack(PackedFetch.get(prev)))
+
+    # -- host-side episode splicing (the JAX package's, on numpy) --------
+    def _splice(self, rec: Dict[str, np.ndarray]) -> List[dict]:
+        players = list(range(self.env_mod.NUM_PLAYERS))
+        episodes: List[dict] = []
+        for k in range(self.chunk_steps):
+            for i in range(self.n_envs):
+                if self.simultaneous:
+                    moment = self._moment_simultaneous(rec, k, i, players)
+                else:
+                    moment = self._moment_turn_based(rec, k, i, players)
+                self._partials[i].append(moment)
+                if rec['done'][k, i]:
+                    episodes.append(self._finalize(i, rec, k, players))
+        return episodes
+
+    def _moment_turn_based(self, rec, k, i, players):
+        player = int(rec['player'][k, i])
+        moment = _blank(players)
+        moment['observation'][player] = rec['obs'][k, i]
+        moment['selected_prob'][player] = float(rec['prob'][k, i])
+        moment['action_mask'][player] = rec['amask'][k, i]
+        moment['action'][player] = int(rec['action'][k, i])
+        if rec.get('value') is not None:
+            moment['value'][player] = rec['value'][k, i]
+        moment['reward'] = self._rewards(rec, k, i, players)
+        moment['turn'] = [player]
+        return moment
+
+    def _rewards(self, rec, k, i, players):
+        if rec.get('reward') is None:
+            return {p: None for p in players}
+        return {p: float(rec['reward'][k, i, p]) for p in players}
+
+    def _moment_simultaneous(self, rec, k, i, players):
+        moment = _blank(players)
+        turn_players = []
+        for p in players:
+            if not rec['acting'][k, i, p]:
+                continue
+            turn_players.append(p)
+            moment['observation'][p] = rec['obs'][k, i, p]
+            moment['selected_prob'][p] = float(rec['prob'][k, i, p])
+            moment['action_mask'][p] = rec['amask'][k, i, p]
+            moment['action'][p] = int(rec['action'][k, i, p])
+            if rec.get('value') is not None:
+                moment['value'][p] = rec['value'][k, i, p]
+        moment['reward'] = self._rewards(rec, k, i, players)
+        moment['turn'] = turn_players
+        return moment
+
+    def _finalize(self, i, rec, k, players):
+        moments = self._partials[i]
+        self._partials[i] = []
+        outcome = {p: float(rec['outcome'][k, i, p]) for p in players}
+        for p in players:
+            ret = 0.0
+            for t in range(len(moments) - 1, -1, -1):
+                ret = (moments[t]['reward'][p] or 0) + self.args['gamma'] * ret
+                moments[t]['return'][p] = ret
+        return {
+            'args': {'role': 'g', 'player': players,
+                     'model_id': {p: -1 for p in players}},
+            'steps': len(moments),
+            'outcome': outcome,
+            'moment': compress_moments(moments, self.args['compress_steps']),
+        }
+
+
 # ------------------------------------------------------------ evaluation
+
+def is_checkpoint_opponent(name: str) -> bool:
+    """An eval opponent that names a checkpoint file (the JAX learner's
+    ``device_eval_ok``: any existing path)."""
+    return name not in ('random', 'rulebase') and os.path.exists(name)
+
 
 class DeviceEvaluator:
     """Online evaluation as whole matches on the device: ``n_envs`` matches
     of ``chunk_steps`` plies a dispatch. One rotating seat per env plays
     the trained model greedily (temperature 0, as the host
     ``BatchedEvaluator``); the envs split into one contiguous block per
-    opponent, whose seats play uniformly ('random') or the env twin's
+    opponent, whose seats play uniformly ('random'), the env twin's
     vectorized GreedyAgent ('rulebase', where the twin has
-    ``greedy_action``). In a turn-based env the model moves on the plies
+    ``greedy_action``) or a checkpoint's own greedy policy (a path: its
+    params, read with ``load_params_bytes`` into a copy of ``net`` on the
+    device, inferenced on its block inside the same chunk, so a GeeseNet
+    opponent runs K1 too; feed-forward nets). In a turn-based env the model moves on the plies
     whose acting player is its seat. The seat rotates over the env's
     players on every reset, so every seat is balanced. The host reads
     (done, seat, outcome) of a chunk as one packed tensor, one dispatch
@@ -151,10 +396,12 @@ class DeviceEvaluator:
         self.n_envs, self.chunk_steps = n_envs, chunk_steps
         self.device = next(net.parameters()).device
         self.opponents = [str(o) for o in (opponents or ['random'])]
-        bad = [o for o in self.opponents if o not in ('random', 'rulebase')]
+        bad = [o for o in self.opponents if o not in ('random', 'rulebase')
+               and not is_checkpoint_opponent(o)]
         if bad:
-            raise ValueError('the device evaluator plays random and rulebase '
-                             'opponents only, got %s' % bad)
+            raise ValueError('the device evaluator plays random, rulebase '
+                             'and checkpoint opponents (an existing file), '
+                             'got %s' % bad)
         if n_envs < len(self.opponents):
             raise ValueError('need at least one eval env per opponent')
         if 'rulebase' in self.opponents and not hasattr(env_mod,
@@ -167,6 +414,15 @@ class DeviceEvaluator:
         self._env_opp = np.empty(n_envs, dtype=object)
         for a, b, name in self._opp_bounds:
             self._env_opp[a:b] = name
+        # one module a checkpoint opponent, its params on the device
+        self._opp_nets: Dict[str, torch.nn.Module] = {}
+        for name in self.opponents:
+            if is_checkpoint_opponent(name) and name not in self._opp_nets:
+                from .model import load_params_bytes
+                opp = copy.deepcopy(net).eval()
+                with open(name, 'rb') as f:
+                    load_params_bytes(opp, f.read())
+                self._opp_nets[name] = opp
         self.generator = env_generator(self.device, seed)
         self.state = env_mod.init_state(n_envs, generator=self.generator,
                                         device=self.device)
@@ -187,15 +443,20 @@ class DeviceEvaluator:
         rows: List[Tensor] = []
         players = torch.arange(env.NUM_PLAYERS, device=self.device)
         for _ in range(self.chunk_steps):
-            _, logits, amask, _ = _ply_inference(env, self.net, state)
+            obs, logits, amask, _ = _ply_inference(env, self.net, state)
             greedy = torch.argmax(logits, dim=-1)
             opp = gumbel_argmax(-amask, torch.rand(amask.shape, generator=gen,
                                                    device=self.device))
             if any(name == 'rulebase' for _, _, name in self._opp_bounds):
                 rule = env.greedy_action(state, generator=gen).long()
-                for a, b, name in self._opp_bounds:
-                    if name == 'rulebase' and a < b:
-                        opp = torch.cat([opp[:a], rule[a:b], opp[b:]])
+            for a, b, name in self._opp_bounds:
+                if name == 'random' or a == b:
+                    continue
+                if name == 'rulebase':
+                    block = rule[a:b]
+                else:
+                    block = self._opponent_greedy(name, obs[a:b], amask[a:b])
+                opp = torch.cat([opp[:a], block, opp[b:]])
             if simultaneous(env):
                 is_main = players[None, :] == seat[:, None]
             else:
@@ -211,6 +472,20 @@ class DeviceEvaluator:
         copy_state_(self.state, state)
         self.seat.copy_(seat)
         return torch.cat(rows)
+
+    def _opponent_greedy(self, name: str, obs: Tensor, amask: Tensor
+                         ) -> Tensor:
+        """A checkpoint opponent's greedy actions on its block: its net on
+        the block's observations (a simultaneous env's players folded into
+        rows), masked as the model's."""
+        net = self._opp_nets[name]
+        if simultaneous(self.env_mod):
+            n, p = obs.shape[:2]
+            policy = net(obs.reshape((n * p,) + obs.shape[2:]))['policy']
+            logits = policy.reshape(n, p, -1) - amask
+        else:
+            logits = net(obs)['policy'] - amask
+        return torch.argmax(logits, dim=-1)
 
     def _dispatch(self):
         packed = self._call()

@@ -14,8 +14,9 @@ report phases; :class:`Evaluator` is the sequential online evaluator.
 Models are learner checkpoints (``<epoch>.ckpt``, the param tree in
 flax's ``to_bytes`` layout, as either package writes it), registry
 entries (``registry://ROOT/line@selector``) loaded on the device asked
-for, or names served by a running service (``serve://host:port/
-line@selector``).
+for, names served by a running service (``serve://host:port/
+line@selector``), or the port's exported programs (``.pt2``, written by
+``scripts/torch_export_model.py``; :class:`ExportedModel`).
 
 Processes start with the ``spawn`` method: a forked child could not use
 the parent's CUDA context. A tournament's runners get the agents' specs
@@ -29,7 +30,8 @@ the client's ``outcome = ...`` and board views) are the JAX package's
 verbatim. Deliberate differences (ROADMAP.md section 3): a server whose
 client is lost ends with an error naming the seat (the JAX collector
 waits forever), and the client joins its children and fails when one
-did. Not ported yet: ``ExportedModel`` (``.jaxexp``).
+did. The JAX package's ``.jaxexp`` exports (StableHLO) only JAX loads; the
+port's counterpart is its own ``.pt2``.
 """
 
 from __future__ import annotations
@@ -575,6 +577,53 @@ def network_match_acception(n: int, env_args, num_agents: int, port: int
 # model loading
 
 
+class ExportedModel:
+    """Inference over the port's exported program (``.pt2``, written by
+    ``scripts/torch_export_model.py``): the counterpart of the JAX
+    package's ``ExportedModel`` (handyrl_tpu/evaluation.py:467-514) over
+    its ``.jaxexp``, with the same numpy-in, numpy-out ``inference`` and
+    ``init_hidden``, the batch axis of 1 added and taken away. The file
+    loads without the net's class: only the module that registers K1's
+    operator (``ops/geese_trunk``) is imported before
+    ``torch.export.load``. The program, exported on the CPU, is moved to
+    ``device`` (the card by default; it raises without one). The ported
+    nets are feed-forward, so ``init_hidden`` is None."""
+
+    def __init__(self, model_path: str, device: Any = 'cuda'):
+        self.model_path = model_path
+        self.device = device
+        self._module = None
+
+    def _open(self):
+        if self._module is not None:
+            return
+        import torch
+        from torch.export.passes import move_to_device_pass
+        from .ops import geese_trunk  # noqa: F401  (registers K1's operator)
+        dev = torch.device(self.device)
+        if dev.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError(
+                'ExportedModel on %r: torch sees no CUDA device; pass '
+                "device='cpu' to run on the host" % (str(self.device),))
+        program = move_to_device_pass(torch.export.load(self.model_path),
+                                      dev)
+        self.device = dev
+        self._module = program.module()
+
+    def init_hidden(self, batch_size=None):
+        return None
+
+    def inference(self, x, hidden=None) -> Dict[str, Any]:
+        import torch
+        self._open()
+        obs = torch.from_numpy(np.asarray(x, np.float32)[None]).to(
+            self.device)
+        with torch.no_grad():
+            outputs = self._module(obs)
+        return {k: v.cpu().numpy()[0] for k, v in outputs.items()
+                if v is not None}
+
+
 def load_model(model_path: str, env, device: Any = 'cuda'):
     """A model spec as a model the agents call:
 
@@ -585,7 +634,9 @@ def load_model(model_path: str, env, device: Any = 'cuda'):
       ``registry://models/default@champion``;
     * ``serve://host:port/line@selector``: a proxy onto a running
       InferenceService, every inference a request resolved by name there
-      (``device`` is the service's own).
+      (``device`` is the service's own);
+    * an exported program (``.pt2``): an :class:`ExportedModel` on
+      ``device``.
     """
     if model_path.startswith('serve://'):
         from .serving.client import model_from_spec
@@ -597,14 +648,19 @@ def load_model(model_path: str, env, device: Any = 'cuda'):
         line, selector = parse_spec(spec)
         snap = ModelRegistry(root or '.').load_snapshot(line, selector)
         return ModelWrapper.from_snapshot(snap, device)
+    if model_path.endswith('.pt2'):
+        return ExportedModel(model_path, device)
     if model_path.endswith('.jaxexp'):
         raise ValueError(
-            '%r is a .jaxexp export (StableHLO, which only JAX loads): '
-            'ExportedModel is not ported yet (ROADMAP.md)' % (model_path,))
+            '%r is a .jaxexp export (StableHLO, which only JAX loads; the '
+            'JAX package\'s ExportedModel reads it): export the checkpoint '
+            'to the port\'s .pt2 with scripts/torch_export_model.py, which '
+            'this port\'s ExportedModel loads' % (model_path,))
     if not model_path.endswith('.ckpt'):
         raise ValueError(
-            'load_model reads learner checkpoints (.ckpt), registry:// and '
-            'serve:// specs; %r is none of them' % (model_path,))
+            'load_model reads learner checkpoints (.ckpt), exported '
+            'programs (.pt2), registry:// and serve:// specs; %r is none of '
+            'them' % (model_path,))
     module = env.net()
     with open(model_path, 'rb') as f:
         load_params_bytes(module, f.read())

@@ -26,8 +26,8 @@ from torch import nn
 
 from . import register
 from .blocks import TorusConv, lecun_normal_, to_nhwc
-from ..ops.geese_trunk import (trunk_apply, trunk_forward,
-                               trunk_params_from_geesenet)
+from ..ops.geese_trunk import (trunk_apply, trunk_params_from_geesenet,
+                               trunk_serve)
 
 TORUS_IMPLS = ('pad', 'halo', 'pallas')
 
@@ -93,8 +93,9 @@ class GeeseNet(nn.Module):
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
         """(N,7,11,Cin) NHWC -> (N,7,11,F) NHWC."""
         if self.torus_impl == 'pallas':
-            # under autograd the trunk is K1 forward, K2 backward
-            fn = trunk_apply if torch.is_grad_enabled() else trunk_forward
+            # under autograd the trunk is K1 forward, K2 backward; without
+            # it K1's serving form, the registered operator
+            fn = trunk_apply if torch.is_grad_enabled() else trunk_serve
             return fn(x.contiguous(), self.stem_w, self.stem_scale,
                       self.stem_bias, self.block_w, self.block_scale,
                       self.block_bias, groups=self.groups)

@@ -14,7 +14,9 @@ autograd. The training forward saves, for K2, each block's input
 rstd (``rstd``); with the output ``y`` they are all K2 reads of the
 forward, so it recomputes no conv. Each kernel launch is counted by
 ``launches.count`` (as 'geese_trunk' and 'geese_trunk_bwd'; CPU calls never
-count).
+count). K1's serving form is also the registered operator
+``handyrl_tpu_torch::geese_trunk`` (:func:`trunk_serve`), which the net
+calls without autograd and ``torch.export`` keeps as one node.
 """
 
 from __future__ import annotations
@@ -333,6 +335,16 @@ def trunk_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
         return trunk_forward_reference(x, stem_w, stem_scale, stem_bias,
                                        block_w, block_scale, block_bias,
                                        groups, eps, acts, xhat, rstd)
+    return _launch_forward(x, stem_w, stem_scale, stem_bias, block_w,
+                           block_scale, block_bias, groups, eps, acts, xhat,
+                           rstd)
+
+
+def _launch_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
+                    block_bias, groups: int, eps: float, acts=None,
+                    xhat=None, rstd=None) -> torch.Tensor:
+    """K1 on a CUDA tensor: checks, launch, count; raises on anything the
+    kernel does not take and on a failed build or launch."""
     n, cin, filters, layers = _check_operands(
         x, stem_w, stem_scale, stem_bias, block_w, block_scale, block_bias,
         groups)
@@ -360,6 +372,41 @@ def trunk_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
     _raise_on(err, lib, 'forward')
     launches.count('geese_trunk')
     return out
+
+
+# K1's serving form as a registered operator, so that a program traced
+# with torch.export holds the kernel as one node
+# (``handyrl_tpu_torch::geese_trunk``) and runs it after a reload. The net
+# calls it on its no-grad path (models/geese.py); the training form stays
+# TrunkFunction. CPU tensors take the plain version, CUDA tensors launch K1.
+# It is defined through torch.library.Library, whose kernels the dispatcher
+# calls directly: torch.library.custom_op runs each call through an
+# autograd function and a torch._dynamo guard, and that guard's import
+# takes seconds at the first forward of every process.
+
+_OPS = torch.library.Library('handyrl_tpu_torch', 'DEF')
+_OPS.define('geese_trunk(Tensor x, Tensor stem_w, Tensor stem_scale, '
+            'Tensor stem_bias, Tensor block_w, Tensor block_scale, '
+            'Tensor block_bias, int groups, float eps) -> Tensor')
+
+
+def _geese_trunk_fake(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
+                      block_bias, groups, eps):
+    return x.new_empty((x.shape[0], ROWS, COLS, stem_w.shape[-1]))
+
+
+_OPS.impl('geese_trunk', trunk_forward_reference, 'CPU')
+_OPS.impl('geese_trunk', _launch_forward, 'CUDA')
+torch.library.register_fake('handyrl_tpu_torch::geese_trunk',
+                            _geese_trunk_fake, lib=_OPS)
+
+
+def trunk_serve(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
+                block_bias, groups: int = 8, eps: float = EPS) -> torch.Tensor:
+    """K1's serving form through the registered operator."""
+    return torch.ops.handyrl_tpu_torch.geese_trunk(
+        x, stem_w, stem_scale, stem_bias, block_w, block_scale, block_bias,
+        int(groups), float(eps))
 
 
 def trunk_backward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,

@@ -36,8 +36,11 @@ class CountedGraph:
     ``warmup`` (eager calls that load the kernels and create the libraries'
     handles before the capture) and the capture run under
     ``launches.capture_lock``, which every forward on the card outside a
-    graph holds too, so no other thread launches or synchronises while
-    the capture runs. :attr:`out` holds the tensors the capture returned,
+    graph holds too, so no other thread's eager forward lands in the
+    capture. The capture mode is 'thread_local': another thread that
+    replays its own graph, copies or synchronises on its own stream
+    meanwhile (the split generator beside the threaded replay trainer)
+    does not spoil it. :attr:`out` holds the tensors the capture returned,
     rewritten by each replay."""
 
     def __init__(self, fn: Callable[[], Any], stream: torch.cuda.Stream,
@@ -52,7 +55,8 @@ class CountedGraph:
                 self.graph.register_generator_state(gen)
             path = launches.current_path()
             before = launches.totals(path)
-            with torch.cuda.graph(self.graph, stream=stream):
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode='thread_local'):
                 self.out = fn()
             self.per_replay: Dict[str, int] = {
                 k: n - before[k] for k, n in launches.totals(path).items()}

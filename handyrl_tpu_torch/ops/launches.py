@@ -14,9 +14,10 @@ concurrently.
 
 :data:`capture_lock` is held by a CUDA graph's capture and by every
 forward that launches on the card outside a graph
-(``ModelWrapper.batch_inference``): under CUDA's global capture mode a
-synchronising call of another thread (a ``.cpu()``, an allocation) during
-the capture aborts it.
+(``ModelWrapper.batch_inference``), so no eager launch of another thread
+interleaves with a capture; the captures run in CUDA's 'thread_local'
+mode, so another thread's replays, copies and synchronisations on its
+own stream go on meanwhile.
 """
 
 from __future__ import annotations

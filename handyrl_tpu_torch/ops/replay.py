@@ -1,18 +1,20 @@
-"""The replay ring's sampling rule and size, for the device-resident loop.
+"""The replay ring on the device: its sampling rule, its size, and the ring
+the host pushes windows into.
 
-The port of ``handyrl_tpu/ops/replay.py:36-53`` (``recency_slots``) and of
-the ring-capacity rule of the JAX learner (``handyrl_tpu/train.py:445-
-460``). The ring itself lives in ``ops/device_windows.py`` (flat rows per
-window leaf) and is read by ``ops/train_step.ReplayUpdateStep``.
-
-What waits (ROADMAP.md): ``DeviceReplay.push``/``sample``, the ring the
-host pushes windows into for the threaded replay trainer.
+The port of ``handyrl_tpu/ops/replay.py`` (``recency_slots`` and
+``DeviceReplay``) and of the ring-capacity rule of the JAX learner
+(``handyrl_tpu/train.py:445-460``). The fused loop and the threaded
+trainer's device ingest keep their ring in ``ops/device_windows.py``;
+:class:`DeviceReplay` is the ring of the threaded trainer's host push
+(windows built on the host from whole episodes). Both hold one flat row
+per window leaf and are read by ``ops/train_step.ReplayUpdateStep``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -56,3 +58,64 @@ def recency_slots(u: Tensor, size: Tensor, cursor: Tensor,
     idx = torch.minimum(idx.clamp(min=0), (size - 1).clamp(min=0))
     start = torch.where(size >= capacity, cursor, torch.zeros_like(cursor))
     return torch.remainder(start + idx, capacity)
+
+
+class DeviceReplay:
+    """A fixed-capacity ring of training windows in device memory, the
+    port of the JAX package's ``DeviceReplay`` (ops/replay.py:56-130 there).
+
+    Windows are flat dicts of arrays shaped (T, P, ...) as
+    ``ops/batch.py`` builds them. The ring is one (capacity, prod(window
+    shape)) tensor a leaf, allocated at the first :meth:`push` from its
+    shapes; :attr:`window_spec` keeps each leaf's shape and dtype, and
+    :meth:`sample` restores them. :meth:`push` writes at the cursor with
+    wrap. ``size_t`` and ``cursor_t`` are 0-d device tensors that follow
+    :attr:`size` and :attr:`cursor` in place, so a captured update step
+    bound to :attr:`buffers` reads the ring's current extent."""
+
+    def __init__(self, capacity: int, device: Any = 'cpu'):
+        self.capacity = int(capacity)
+        self.device = torch.device(device)
+        self.buffers: Dict[str, Tensor] = {}
+        self.window_spec: Dict[str, Tuple[tuple, torch.dtype]] = {}
+        self.cursor = 0
+        self.size = 0
+        self.size_t = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.cursor_t = torch.zeros((), dtype=torch.int64, device=self.device)
+
+    def push(self, windows: Dict[str, Any]) -> None:
+        """Append a stack of windows (leading axis = window count), numpy
+        arrays or tensors."""
+        leaves = {k: torch.as_tensor(np.asarray(v) if not isinstance(
+            v, torch.Tensor) else v) for k, v in windows.items()}
+        n = next(iter(leaves.values())).shape[0]
+        if not self.buffers:
+            self.window_spec = {k: (tuple(v.shape[1:]), v.dtype)
+                                for k, v in leaves.items()}
+            self.buffers = {
+                k: torch.zeros((self.capacity, max(1, int(np.prod(shape)))),
+                               dtype=dtype, device=self.device)
+                for k, (shape, dtype) in self.window_spec.items()}
+        idx = torch.remainder(self.cursor + torch.arange(n), self.capacity
+                              ).to(self.device)
+        for k, buf in self.buffers.items():
+            buf[idx] = leaves[k].reshape(n, -1).to(self.device, buf.dtype)
+        self.cursor = (self.cursor + n) % self.capacity
+        self.size = min(self.size + n, self.capacity)
+        self.size_t.fill_(self.size)
+        self.cursor_t.fill_(self.cursor)
+
+    def sample(self, batch_size: int, generator: Optional[torch.Generator]
+               = None, u: Optional[Tensor] = None) -> Dict[str, Tensor]:
+        """A (B, T, P, ...) batch of ring windows drawn with
+        :func:`recency_slots`, from uniforms ``u`` (B,) or drawn from
+        ``generator``."""
+        if self.size <= 0:
+            raise ValueError('sampling from an empty replay buffer')
+        if u is None:
+            u = torch.rand((batch_size,), generator=generator,
+                           device=self.device)
+        slots = recency_slots(u.to(self.device), self.size_t, self.cursor_t,
+                              self.capacity)
+        return {k: buf[slots].reshape((batch_size,) + self.window_spec[k][0])
+                for k, buf in self.buffers.items()}

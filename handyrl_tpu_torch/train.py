@@ -44,6 +44,18 @@ the device and ``sgd_steps_per_chunk`` recency-sampled update steps
 matches on the device (``DeviceEvaluator``); the host reads one packed
 tensor a dispatch, one dispatch late (``feed_device_chunk``), and writes
 the checkpoints every ``checkpoint_interval`` epochs and at the last.
+The JAX learner's other device branches run with the trainer thread
+(:func:`ingest_layout` picks them as the JAX learner does): with
+``device_generation`` the rollout chunks run on the card
+(``DeviceGenerator``, on a stream of its own) and the host splices their
+episodes, or, with ``device_replay`` and an ingest layout but
+``fused_pipeline: false``, hands their records to the trainer thread,
+which writes their windows into the windower's ring; with
+``device_replay`` and no ingest the host builds windows from whole
+episodes and pushes them into ``ops/replay.DeviceReplay``. Either ring
+feeds the threaded replay trainer: ``replay_fused_steps`` recency-sampled
+update steps a dispatch (a CUDA graph replayed K times), reuse capped by
+``max_sample_reuse``.
 
 The run plane (handyrl_tpu/train.py's, on both loops): a ``metrics_jsonl``
 row per closed epoch; the ``HANDYRL_TPU_DEADLINE`` wall-clock budget;
@@ -71,6 +83,7 @@ or the local worker cluster failed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -95,7 +108,11 @@ from .generation import BatchedEvaluator, BatchedGenerator
 from .model import (ModelWrapper, fp32_on_card, load_params_bytes,
                     params_bytes, param_trees, resolve_device)
 from .ops import launches, reset_kernel_launches
-from .ops.batch import make_batch, make_block_cache, select_episode
+from .ops.batch import (build_window_reference, decompress_moments,
+                        make_batch, make_block_cache, select_episode,
+                        stack_windows)
+from .ops.graphs import CapturedCall
+from .ops.replay import DeviceReplay, ring_capacity
 from .ops.shm_batch import (_SHM_SLOTS, JOB_ARG_KEYS, ArenaMap, SharedBatch,
                             batcher_process as _batcher_process,
                             batcher_process_shm as _batcher_process_shm)
@@ -112,6 +129,24 @@ _LOG = telemetry.get_logger('train')
 
 Tensor = torch.Tensor
 METRICS_PER_DRAIN = 8   # update steps whose metrics come back in one copy
+
+
+def ingest_layout(args: Dict[str, Any]) -> Optional[str]:
+    """The device ingest's window layout, as the JAX learner chooses it
+    (handyrl_tpu/train.py:2590-2606): 'solo' for a simultaneous env
+    trained simultaneously, 'turn' for a turn-based env with
+    ``turn_based_training``, with ``device_generation``, ``device_replay``
+    and ``device_ingest`` on; None otherwise (the split generator splices
+    episodes on the host)."""
+    if not (args['device_generation'] and args['device_replay']
+            and args['device_ingest']):
+        return None
+    from .environment import make_device_env
+    simult = bool(getattr(make_device_env(args['env']), 'SIMULTANEOUS',
+                          False))
+    if simult != bool(args['turn_based_training']):
+        return 'solo' if simult else 'turn'
+    return None
 
 
 def loss_config(args: Dict[str, Any]) -> LossConfig:
@@ -326,19 +361,38 @@ class Trainer:
         self.episodes: deque = deque()
         self.cfg = loss_config(args)
         self.default_lr = 3e-8
+        # the device ring (device_replay): the fused loop's pipeline binds
+        # the K-step update to its ring (ops/fused_pipeline.py); the
+        # threaded replay trainer binds it at its first dispatch to the
+        # windower's ring (device ingest) or to the ring the host pushes
+        # windows into (DeviceReplay)
+        self.replay: Optional[DeviceReplay] = None
+        self.windower = None    # installed by the learner for device ingest
+        self.seen_episodes = 0  # episodes of device ingest (no host deque)
         if args.get('device_replay'):
-            # the fused device loop's K-step update on the ring; the
-            # pipeline binds it (ops/fused_pipeline.py). The 'turn' ring
-            # (turn-based training) holds the compact layout, so the loss
-            # runs with observation=False there (the JAX learner's
-            # device_cfg)
+            # the 'turn' ring holds the compact layout, so the loss runs
+            # with observation=False there (the JAX learner's device_cfg)
             self.device_cfg = (self.cfg._replace(observation=False)
-                               if args['turn_based_training'] else self.cfg)
+                               if ingest_layout(args) == 'turn' else self.cfg)
             self.update_step = ReplayUpdateStep(
                 module, self.device_cfg, init_train_state(module),
                 self.default_lr)
-            # the ring's accounting, read from the packed fetch at epochs
-            self.replay_stats = {'windows_ingested': 0, 'samples_drawn': 0}
+            self.replay = DeviceReplay(ring_capacity(args), self.device)
+            self.fused_steps = int(args['replay_fused_steps'])
+            self.replay_stats = {'dropped_episodes': 0,
+                                 'windows_ingested': 0, 'samples_drawn': 0}
+            self.ingest_queue: queue.Queue = queue.Queue(maxsize=1024)
+            self.chunk_queue: queue.Queue = queue.Queue(maxsize=4)
+            self._pending_rows: List[Dict[str, Any]] = []
+            self._ring = None          # the windower's ring and history
+            self._ring_ready = False
+            self._ring_size_host = 0
+            self._windows_pending = 0
+            self._bound = False
+            self._ingest_generator = torch.Generator(
+                device=self.device).manual_seed(args['seed'] + 2)
+            self._slot_generator = torch.Generator(
+                device=self.device).manual_seed(args['seed'] + 1)
         else:
             step_cls = (GraphedUpdateStep if self.device.type == 'cuda'
                         else StaticUpdateStep)
@@ -466,6 +520,8 @@ class Trainer:
     def train(self) -> Dict[str, Tensor]:
         """One epoch: steps until the learner asks for the update (and at
         least one batch's metrics are in). Returns the host params."""
+        if self.replay is not None:
+            return self._train_replay()
         batch_cnt, data_cnt = 0, 0
         pending: List[Dict[str, Tensor]] = []
         staged = self._staged
@@ -500,6 +556,11 @@ class Trainer:
         if pending:
             data_cnt += self._drain_metrics(pending)
 
+        self._close_epoch(batch_cnt, data_cnt, epoch_t0)
+        return self.host_params()
+
+    def _close_epoch(self, batch_cnt: int, data_cnt: int, epoch_t0: float):
+        """The epoch's loss line, lr EMA, step rate and dynamics."""
         if batch_cnt > 0:   # zero only when interrupted by shutdown
             loss_sum, self._loss_sum = self._loss_sum, {}
             self.last_losses = {k: l / max(data_cnt, 1)
@@ -512,7 +573,180 @@ class Trainer:
                                                       1e-9)
             self.last_dynamics = self._epoch_dynamics(loss_sum, data_cnt,
                                                       batch_cnt)
+
+    # -- the threaded replay trainer (device_replay without the fused loop)
+    PUSH_CHUNK = 8   # windows a host push (the JAX package's fixed size)
+
+    def _train_replay(self) -> Dict[str, Tensor]:
+        """One epoch of the threaded replay trainer (handyrl_tpu/train.py:
+        696-770): each dispatch is ``replay_fused_steps`` recency-sampled
+        update steps on the device ring (``ReplayUpdateStep``, a CUDA graph
+        replayed K times on the card), after ingesting what arrived: rollout
+        chunks through the windower (device ingest) or host-built windows
+        pushed to :class:`DeviceReplay`. ``max_sample_reuse`` holds samples
+        drawn to at most cap x windows ingested, except for an epoch that
+        waits to close. The seconds it waits for data (an empty ring, or
+        the cap) count as ``batch_wait_seconds``."""
+        batch_cnt, data_cnt = 0, 0
+        pending: List[Tensor] = []
+        epoch_t0 = time.time()
+        B, K = self.args['batch_size'], self.fused_steps
+        cap = self.args.get('max_sample_reuse')
+        stats = self.replay_stats
+        while ((data_cnt == 0 or not self.update_flag)
+               and not self.shutdown_flag):
+            t0 = time.perf_counter()
+            if not self._replay_ready():
+                time.sleep(0.02)
+                self.batch_wait_seconds += time.perf_counter() - t0
+                continue
+            # never throttle an epoch that is waiting to close: the loop
+            # must make a dispatch an epoch to hand back
+            if cap and not self.update_flag and (
+                    stats['samples_drawn'] + B * K
+                    > float(cap) * max(1, stats['windows_ingested'])):
+                time.sleep(0.01)
+                self.batch_wait_seconds += time.perf_counter() - t0
+                continue
+            ema = self.data_cnt_ema
+            if self.chaos_nan.due(self.steps, K):
+                _LOG.warning('chaos: injecting non-finite update at step %d',
+                             self.steps)
+                ema = float('nan')   # a NaN lr on the graphed steps
+            pending.append(self.update_step.run(K, ema).clone())
+            stats['samples_drawn'] += B * K
+            batch_cnt += K
+            self.steps += K
+            # one copy of the metrics every 4 dispatches, at once when an
+            # epoch waits to close
+            if len(pending) >= 4 or self.update_flag:
+                data_cnt += self._drain_metrics(
+                    [self.update_step.unpack(m) for m in pending], K)
+                pending = []
+        if pending:
+            data_cnt += self._drain_metrics(
+                [self.update_step.unpack(m) for m in pending], K)
+        self._close_epoch(batch_cnt, data_cnt, epoch_t0)
         return self.host_params()
+
+    def _replay_ready(self) -> bool:
+        """Ingest what arrived; bind the update step to the ring at the
+        first dispatch (the ring's window shapes are known only after the
+        first windows). False while the ring holds nothing."""
+        if self.windower is not None:
+            self._ingest_device_chunks()
+            if not self._ring_ready:
+                return False
+            ring, spec = self._ring, self.windower.window_spec
+            size, cursor, capacity = (self._size, self._cursor,
+                                      self.windower.capacity)
+        else:
+            self._ingest_new_episodes()
+            if self.replay.size == 0:
+                return False
+            ring, spec = self.replay.buffers, self.replay.window_spec
+            size, cursor = self.replay.size_t, self.replay.cursor_t
+            capacity = self.replay.capacity
+        if not self._bound:
+            self.update_step.bind(ring, spec, size, cursor, capacity,
+                                  self.args['batch_size'],
+                                  self._slot_generator)
+            self._bound = True
+        return True
+
+    def _ingest_device_chunks(self):
+        """Drain rollout chunks (:class:`~..device_generation.DeviceChunk`)
+        into the windower's ring, at most 8 a call. The first chunk
+        allocates the history and the ring from its shapes. Each chunk is
+        copied into static input tensors after its ready event, and the
+        ingest runs as one CUDA graph on the card (``CapturedCall``; its
+        window draws from a registered generator); the windows it wrote
+        are summed on the device and read at startup, every 8 chunks, or
+        on every call when ``max_sample_reuse`` needs them current."""
+        ingested = 0
+        while ingested < 8:
+            try:
+                chunk = self.chunk_queue.get_nowait()
+            except queue.Empty:
+                break
+            ingested += 1
+            self._ingest_chunk(chunk)
+        self._windows_pending += ingested
+        if self._windows_pending and (not self._ring_ready
+                                      or self._windows_pending >= 8
+                                      or self.args.get('max_sample_reuse')):
+            self._windows_pending = 0
+            total = int(self._windows_total.item())
+            new = total - self.replay_stats['windows_ingested']
+            self.replay_stats['windows_ingested'] = total
+            self._ring_size_host = min(self._ring_size_host + new,
+                                       self.windower.capacity)
+            if total > 0:
+                self._ring_ready = True
+
+    def _ingest_chunk(self, chunk):
+        records = chunk.records
+        if chunk.ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(chunk.ready)
+            for t in records.values():
+                t.record_stream(stream)
+        if self._ring is None:
+            w, dev = self.windower, self.device
+            self._wstate = w.init_state(records)
+            self._ring = w.init_ring(records)
+            self._cursor = torch.zeros((), dtype=torch.int64, device=dev)
+            self._size = torch.zeros((), dtype=torch.int64, device=dev)
+            self._windows_total = torch.zeros((), dtype=torch.int64,
+                                              device=dev)
+            self._chunk_in = {k: torch.empty_like(v)
+                              for k, v in records.items()}
+            self._ingest_call = CapturedCall(self._ingest_static, dev,
+                                             [self._ingest_generator])
+        for k, v in records.items():
+            self._chunk_in[k].copy_(v)
+        self._ingest_call()
+
+    def _ingest_static(self):
+        _, n_win = self.windower.ingest(self._chunk_in, self._wstate,
+                                        self._ring, self._cursor, self._size,
+                                        self._ingest_generator)
+        self._windows_total.add_(n_win)
+
+    def ring_occupancy(self) -> float:
+        if self.replay is None:
+            return 0.0
+        if self.windower is not None:
+            return self._ring_size_host / self.windower.capacity
+        return self.replay.size / self.replay.capacity
+
+    def _ingest_new_episodes(self):
+        """Window freshly generated episodes and push them into the ring
+        (handyrl_tpu/train.py:890-918): each episode decompressed once,
+        about steps / forward_steps windows at uniform train starts, pushed
+        :attr:`PUSH_CHUNK` at a time."""
+        ingested = 0
+        fs, bi = self.args['forward_steps'], self.args['burn_in_steps']
+        while ingested < 64:
+            try:
+                ep = self.ingest_queue.get_nowait()
+            except queue.Empty:
+                break
+            ingested += 1
+            moments = decompress_moments(ep['moment'])
+            for _ in range(max(1, ep['steps'] // fs)):
+                train_st = random.randrange(1 + max(0, ep['steps'] - fs))
+                st = max(0, train_st - bi)
+                ed = min(train_st + fs, ep['steps'])
+                meta = {'outcome': ep['outcome'], 'start': st, 'end': ed,
+                        'train_start': train_st, 'total': ep['steps']}
+                self._pending_rows.append(
+                    build_window_reference(moments[st:ed], meta, self.args))
+        while len(self._pending_rows) >= self.PUSH_CHUNK:
+            chunk = self._pending_rows[:self.PUSH_CHUNK]
+            self._pending_rows = self._pending_rows[self.PUSH_CHUNK:]
+            self.replay.push(stack_windows(chunk))
+            self.replay_stats['windows_ingested'] += self.PUSH_CHUNK
 
     def _epoch_dynamics(self, loss_sum: Dict[str, float], data_cnt: int,
                         n_updates: int) -> Dict[str, float]:
@@ -537,10 +771,12 @@ class Trainer:
             out['grad_norm'] = d['diag_grad_norm'] / nu
         return {k: round(float(v), 6) for k, v in out.items()}
 
-    def _drain_metrics(self, pending: List[Dict[str, Tensor]]) -> int:
+    def _drain_metrics(self, pending: List[Dict[str, Tensor]],
+                       per_entry: int = 1) -> int:
         """Bring the queued metric dicts to the host in one copy and fold
         them into the epoch's loss sums; returns the summed data count.
-        The 'nonfinite' flags go to the guard."""
+        The 'nonfinite' counts go to the guard; an entry sums
+        ``per_entry`` update steps."""
         names = list(pending[0])
         rows = torch.stack([torch.stack([m[k] for k in names])
                             for m in pending]).cpu().numpy()
@@ -558,7 +794,7 @@ class Trainer:
                     if k == 'total':
                         total_sum += float(v)
                     self._loss_sum[k] = self._loss_sum.get(k, 0.0) + float(v)
-        self._guard_observe(bad, len(pending) - bad,
+        self._guard_observe(bad, len(pending) * per_entry - bad,
                             total_sum / data_cnt if data_cnt else None)
         return data_cnt
 
@@ -594,16 +830,29 @@ class Trainer:
                    'checkpoint epoch %d (steps %d)', epoch, self.steps)
 
     def run(self):
-        with launches.path('training'):
+        # the threaded replay trainer runs on a stream of its own beside the
+        # generator's; the host trainer on the default stream
+        stream = (torch.cuda.stream(torch.cuda.Stream(self.device))
+                  if self.replay is not None and self.device.type == 'cuda'
+                  else contextlib.nullcontext())
+        with launches.path('training'), stream:
             self._run()
 
     def _run(self):
         _LOG.info('waiting training')
-        while (len(self.episodes) < self.args['minimum_episodes']
+        minimum = self.args['minimum_episodes']
+        while (len(self.episodes) < minimum
+               and self.seen_episodes < minimum
                and not self.shutdown_flag):
+            if self.windower is not None:
+                # the generator blocks on the chunk queue (the histories
+                # follow a contiguous ply stream), so the ring fills during
+                # the warm-up too
+                self._ingest_device_chunks()
             time.sleep(0.1)
         if not self.shutdown_flag:
-            self.batcher.run()
+            if self.replay is None:
+                self.batcher.run()
             self.steps_at_start = self.steps
             self.train_started_at = time.time()
             _LOG.info('started training')
@@ -646,6 +895,10 @@ class Trainer:
         self._staged.clear()
         self._stager = None
         self.update_step = None
+        if self.replay is not None:
+            self.replay.buffers = {}
+            self._ring = self._wstate = self._chunk_in = None
+            self._ingest_call = None
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
 
@@ -785,6 +1038,10 @@ class Learner:
         self._fused = None
         self._evaluator = None
         self._eval_dispatches = None
+        # the split path's DeviceGenerator (or the host generator), while
+        # it runs, and its dispatches after
+        self._generator = None
+        self._gen_dispatches = None
 
     # -- checkpoints -------------------------------------------------------
     def model_path(self, model_id: int) -> str:
@@ -974,14 +1231,17 @@ class Learner:
             r = sum(t[1] for t in recent)
             rec['win_rate_recent10'] = (r / (n + 1e-6) + 1) / 2
             rec['eval_games_recent10'] = n
-        if self.args.get('device_replay'):
+        if tr.replay is not None:
             stats = tr.replay_stats
             fp = self._fused
-            rec['replay_dropped_episodes'] = 0   # the fused ingest drops none
+            rec['replay_dropped_episodes'] = stats['dropped_episodes']
             rec['replay_ring_occupancy'] = round(
-                fp.ring_size_host / fp.capacity if fp is not None else 0.0, 4)
+                fp.ring_size_host / fp.capacity if fp is not None
+                else tr.ring_occupancy(), 4)
             rec['replay_sample_reuse'] = round(
                 stats['samples_drawn'] / max(1, stats['windows_ingested']), 3)
+            rec['replay_windows_ingested'] = stats['windows_ingested']
+            rec['replay_samples_drawn'] = stats['samples_drawn']
         rec.update(tr.last_dynamics)
         rec['guard_nonfinite'] = tr.guard.total_bad
         rec['guard_rollbacks'] = tr.guard.rollbacks
@@ -1095,7 +1355,20 @@ class Learner:
                 self._sample_keys.add(skey)
             self.num_returned_episodes += 1
             self.trainer.episodes.append(episode)
-        while len(self.trainer.episodes) > self.args['maximum_episodes']:
+            if self.trainer.replay is not None:
+                # the threaded replay trainer's host push: best effort under
+                # a backlog, every drop counted (handyrl_tpu/train.py:
+                # 2001-2006)
+                try:
+                    self.trainer.ingest_queue.put_nowait(episode)
+                except queue.Full:
+                    self.trainer.replay_stats['dropped_episodes'] += 1
+        maximum = self.args['maximum_episodes']
+        if self.trainer.replay is not None:
+            # the training data lives in the device ring; the host deque
+            # only gates the start
+            maximum = min(maximum, 2 * self.args['minimum_episodes'])
+        while len(self.trainer.episodes) > maximum:
             self.trainer.episodes.popleft()
 
     def feed_results(self, results: List[Optional[dict]],
@@ -1173,7 +1446,17 @@ class Learner:
             tracker['prev'] = cur
 
     def _run_batched(self):
-        """Batched self-play and interleaved evaluation in this thread."""
+        """Self-play and interleaved evaluation in this thread, the JAX
+        learner's non-fused branches (handyrl_tpu/train.py:2534-2774):
+        batched self-play on the host (``BatchedGenerator``), or with
+        ``device_generation`` rollout chunks on the card
+        (``DeviceGenerator``) whose episodes are spliced on the host or,
+        with the trainer's windower installed (device ingest), whose
+        records go to the trainer thread's ``chunk_queue`` with a blocking
+        hand-off. With ``device_generation`` the evaluator is the device
+        one where its opponents allow. The device loop runs on a stream of
+        its own; the actor's parameters are refreshed between its
+        dispatches."""
         args = self.args
         actor = self.actor
         env_args = args['env']
@@ -1183,48 +1466,114 @@ class Learner:
 
         eval_envs = int(args.get('eval_envs')
                         or max(4, args['generation_envs'] // 8))
-        evaluator = BatchedEvaluator(make_env_fn, actor, args,
-                                     n_envs=eval_envs)
-        gen = BatchedGenerator(make_env_fn, actor, args,
-                               n_envs=args['generation_envs'])
+        chunk_steps = int(args['device_chunk_steps'])
+        gen_stream = contextlib.nullcontext()
+        if args['device_generation']:
+            from .device_generation import DeviceGenerator
+            from .environment import make_device_env
+            env_mod = make_device_env(env_args)
+            evaluator = self._device_evaluator(env_mod, eval_envs,
+                                               chunk_steps)
+            gen = DeviceGenerator(env_mod, actor.module, args,
+                                  n_envs=args['generation_envs'],
+                                  chunk_steps=chunk_steps, seed=args['seed'])
+            if self.device.type == 'cuda':
+                gen_stream = torch.cuda.stream(torch.cuda.Stream(self.device))
+        else:
+            evaluator = BatchedEvaluator(make_env_fn, actor, args,
+                                         n_envs=eval_envs)
+            gen = BatchedGenerator(make_env_fn, actor, args,
+                                   n_envs=args['generation_envs'])
+        self._evaluator = evaluator
+        self._generator = gen
+        device_ingest = self.trainer.windower is not None
+        pipelined = getattr(gen, 'pipelined', False)
         cadence = _EpochCadence(args)
         actor_epoch = self.model_epoch
-        self._run_started_at = time.time()
-        while not self.shutdown_flag:
-            if self._stop_requested():
-                break
-            self._poll_rollback()
-            if actor_epoch != self.model_epoch:   # follow the latest epoch
-                with launches.capture_lock:
-                    actor.module.load_state_dict(self.params)
-                actor_epoch = self.model_epoch
-            t0 = time.perf_counter()
-            with launches.path('generation'):
-                episodes = gen.step()
-            t1 = time.perf_counter()
+        # a pipelined generator returns the PREVIOUS dispatch's chunk: its
+        # episodes are stamped with the epoch of that dispatch
+        chunk_epoch = self.model_epoch
+        eval_tracker: Dict[str, int] = {}
+
+        def stamp_and_feed(episodes, epoch):
             for ep in episodes:
                 self.num_episodes += 1
                 # stamp the epoch whose params played the episode
                 mid = ep['args'].setdefault('model_id', {})
                 for p, v in list(mid.items()):
                     if v is None or v < 0:
-                        mid[p] = self.model_epoch
+                        mid[p] = epoch
             self.feed_episodes(episodes)
-            t2 = time.perf_counter()
-            with launches.path('evaluation'):
-                self._run_eval_share(evaluator)
-            t3 = time.perf_counter()
-            if cadence.due(self.num_returned_episodes):
-                self.update()
-                if self._past_epoch_budget():
-                    self.shutdown_flag = True
-            t4 = time.perf_counter()
-            self.plies['generation'] += 1
-            for stage, dt in (('generation', t1 - t0), ('ingest', t2 - t1),
-                              ('evaluation', t3 - t2),
-                              ('epoch_close', t4 - t3)):
-                self.loop_seconds[stage] += dt
+
+        self._run_started_at = time.time()
+        with gen_stream:
+            while not self.shutdown_flag:
+                if self._stop_requested():
+                    break
+                self._poll_rollback()
+                if actor_epoch != self.model_epoch:   # follow the latest
+                    with launches.capture_lock:
+                        actor.module.load_state_dict(self.params)
+                    actor_epoch = self.model_epoch
+                dispatch_epoch = self.model_epoch
+                t0 = time.perf_counter()
+                with launches.path('generation'):
+                    if device_ingest:
+                        chunk, done, outcome = gen.step_chunk_records()
+                    else:
+                        episodes = gen.step()
+                t1 = time.perf_counter()
+                if device_ingest:
+                    self.feed_device_chunk(done, outcome, chunk_epoch)
+                    self.trainer.seen_episodes = self.num_returned_episodes
+                    self._hand_off(chunk)
+                else:
+                    stamp_and_feed(episodes, chunk_epoch if pipelined
+                                   else dispatch_epoch)
+                chunk_epoch = dispatch_epoch
+                t2 = time.perf_counter()
+                with launches.path('evaluation'):
+                    self._run_eval_share(evaluator, eval_tracker)
+                t3 = time.perf_counter()
+                if cadence.due(self.num_returned_episodes):
+                    self.update()
+                    if self._past_epoch_budget():
+                        self.shutdown_flag = True
+                t4 = time.perf_counter()
+                self.plies['generation'] += (gen.chunk_steps if pipelined
+                                             else 1)
+                for stage, dt in (('generation', t1 - t0),
+                                  ('ingest', t2 - t1),
+                                  ('evaluation', t3 - t2),
+                                  ('epoch_close', t4 - t3)):
+                    self.loop_seconds[stage] += dt
+            # account the chunk still in the pipeline
+            with launches.path('generation'):
+                if device_ingest:
+                    tail = gen.drain_records()
+                    if tail is not None:
+                        self.feed_device_chunk(tail[1], tail[2], chunk_epoch)
+                elif pipelined:
+                    stamp_and_feed(gen.drain_episodes(), chunk_epoch)
+            if hasattr(evaluator, 'drain'):
+                self.feed_results(evaluator.drain(),
+                                  model_id=eval_tracker.get('prev'))
         self._run_ended_at = time.time()
+
+    def _hand_off(self, chunk):
+        """The BLOCKING hand-off of a rollout chunk to the trainer's device
+        ingest: the windower's per-env histories follow a contiguous ply
+        stream, so a dropped chunk would splice different episodes
+        together; generation waits instead (the trainer drains chunks even
+        while it waits for ``minimum_episodes``)."""
+        tr = self.trainer
+        while not (self.shutdown_flag or self.preempt.requested()
+                   or tr.failed):
+            try:
+                tr.chunk_queue.put(chunk, timeout=1.0)
+                return
+            except queue.Full:
+                continue
 
     # -- the worker plane: the 4-RPC server --------------------------------
     def server(self):
@@ -1535,17 +1884,18 @@ class Learner:
         return len(ks)
 
     def _device_evaluator(self, env_mod, eval_envs: int, chunk_steps: int):
-        """The device evaluator when every opponent is 'random' or, where
-        the env twin vectorizes its GreedyAgent (``greedy_action``),
-        'rulebase', and ``device_eval`` is on; the host evaluator otherwise
-        (checkpoint opponents, TicTacToe's rulebase)."""
+        """The device evaluator when ``device_eval`` is on and every
+        opponent is 'random', a checkpoint file or, where the env twin
+        vectorizes its GreedyAgent (``greedy_action``), 'rulebase' (the JAX
+        learner's ``device_eval_ok``); the host evaluator otherwise
+        (TicTacToe's rulebase)."""
+        from .device_generation import DeviceEvaluator, is_checkpoint_opponent
         args = self.args
         opponents = args.get('eval', {}).get('opponent', []) or ['random']
         rulebase = hasattr(env_mod, 'greedy_action')
         if (args['device_eval'] and len(opponents) <= eval_envs
                 and all(o == 'random' or (o == 'rulebase' and rulebase)
-                        for o in opponents)):
-            from .device_generation import DeviceEvaluator
+                        or is_checkpoint_opponent(o) for o in opponents)):
             return DeviceEvaluator(env_mod, self.actor.module, args,
                                    n_envs=eval_envs, chunk_steps=chunk_steps,
                                    seed=args['seed'] + 77,
@@ -1554,40 +1904,39 @@ class Learner:
         return BatchedEvaluator(lambda i: make_env({**env_args, 'id': i}),
                                 self.actor, args, n_envs=eval_envs)
 
-    def _run_device(self):
-        """The device path (``device_generation`` and ``device_replay``):
-        the env twin, the evaluator, the windower and the fused loop. The
-        ingest layout is the JAX learner's choice: 'solo' for a simultaneous
-        env trained simultaneously, 'turn' for a turn-based env with
-        ``turn_based_training`` (``config.validate`` refuses the rest)."""
+    def _windower(self, mode: str):
+        """The device ingest's windower for layout ``mode``, sized by the
+        ring's budget."""
         from .environment import make_device_env
         from .ops.device_windows import DeviceWindower
-        from .ops.replay import ring_capacity, windows_per_episode
+        from .ops.replay import windows_per_episode
         args = self.args
         env_mod = make_device_env(args['env'])
-        chunk_steps = int(args['device_chunk_steps'])
-        eval_envs = int(args.get('eval_envs')
-                        or max(4, args['generation_envs'] // 8))
-        evaluator = self._device_evaluator(env_mod, eval_envs, chunk_steps)
-        mode = 'solo' if getattr(env_mod, 'SIMULTANEOUS', False) else 'turn'
-        windower = DeviceWindower(
+        return DeviceWindower(
             mode=mode, fs=args['forward_steps'], bi=args['burn_in_steps'],
             max_steps=env_mod.MAX_STEPS,
             windows_cap=windows_per_episode(args),
             capacity=ring_capacity(args), num_players=env_mod.NUM_PLAYERS,
             gamma=args['gamma'], has_reward=hasattr(env_mod, 'rewards'))
-        self._run_fused(env_mod, evaluator, windower, mode)
 
-    def _run_fused(self, env_mod, evaluator, windower, mode: str):
+    def _run_fused(self, mode: str):
         """One thread: each loop iteration enqueues one dispatch (a rollout
         chunk, its ingest and, past ``minimum_episodes``,
         ``sgd_steps_per_chunk`` update steps), then reads the previous
         dispatch's packed accounting, advances evaluation and closes the
-        epoch when due. Sample reuse is pinned by the steps a chunk."""
+        epoch when due. Sample reuse is pinned by the steps a chunk. The
+        ingest layout is the JAX learner's (:func:`ingest_layout`)."""
+        from .environment import make_device_env
         from .ops.fused_pipeline import FusedPipeline
         from .ops.replay import sgd_steps_per_chunk
         args = self.args
         tr = self.trainer
+        env_mod = make_device_env(args['env'])
+        chunk_steps = int(args['device_chunk_steps'])
+        eval_envs = int(args.get('eval_envs')
+                        or max(4, args['generation_envs'] // 8))
+        evaluator = self._device_evaluator(env_mod, eval_envs, chunk_steps)
+        windower = self._windower(mode)
         print('fused device pipeline: rollout+ingest+train in one dispatch '
               '(%s mode)' % mode)
         fp = FusedPipeline(
@@ -1765,9 +2114,14 @@ class Learner:
         self.preempt.install()
         guard_mod.arm_chaos_preempt(self._chaos)
         try:
-            if self.args['device_generation']:
-                self._run_device()
+            layout = ingest_layout(self.args)
+            if layout is not None and self.args['fused_pipeline']:
+                self._run_fused(layout)
             else:
+                if layout is not None:
+                    self.trainer.windower = self._windower(layout)
+                    print('device ingest: windows assembled on device '
+                          '(%s mode)' % layout)
                 self._trainer_thread = threading.Thread(
                     target=self.trainer.run, name='trainer', daemon=True)
                 self._trainer_thread.start()
@@ -1808,6 +2162,10 @@ class Learner:
             self._eval_dispatches = getattr(self._evaluator, 'dispatches',
                                             None)
             self._evaluator = None
+        if self._generator is not None:
+            self._gen_dispatches = getattr(self._generator, 'dispatches',
+                                           None)
+            self._generator = None
         self.trainer.release()
 
     def summary(self) -> Dict[str, Any]:
@@ -1864,8 +2222,42 @@ class Learner:
             'shm': (tr.batcher.shm_summary() if not self._fused
                     and tr.batcher.mode == 'shared_memory' else None),
             **self._fused_summary(steps, train_s),
+            **self._replay_summary(),
             **self._worker_summary(),
         }
+
+    def _replay_summary(self) -> Dict[str, Any]:
+        """The device paths other than the fused loop (none on the host
+        learner and the fused loop): which one ran, the generator's and
+        the evaluator's dispatches and, for the threaded replay trainer,
+        its dispatch size, reuse cap, windows ingested, samples drawn,
+        sample reuse, dropped episodes and ring."""
+        args, tr = self.args, self.trainer
+        if self._fused is not None or not (args['device_generation']
+                                           or args['device_replay']):
+            return {}
+        out: Dict[str, Any] = {
+            'device_path': ('ingest' if tr.windower is not None else
+                            'split' if args['device_generation'] else
+                            'host_push'),
+            'generator_dispatches': self._gen_dispatches,
+            'eval_dispatches': self._eval_dispatches,
+        }
+        if tr.replay is not None:
+            stats = tr.replay_stats
+            out['replay'] = {
+                'fused_steps': tr.fused_steps,
+                'max_sample_reuse': args['max_sample_reuse'],
+                'windows_ingested': stats['windows_ingested'],
+                'samples_drawn': stats['samples_drawn'],
+                'sample_reuse': (stats['samples_drawn']
+                                 / stats['windows_ingested']
+                                 if stats['windows_ingested'] else None),
+                'dropped_episodes': stats['dropped_episodes'],
+                'ring_occupancy': tr.ring_occupancy(),
+                'ring_capacity': (tr.windower.capacity if tr.windower
+                                  is not None else tr.replay.capacity)}
+        return out
 
     def _fused_summary(self, steps: int, train_s: Optional[float]
                        ) -> Dict[str, Any]:

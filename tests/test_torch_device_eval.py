@@ -18,7 +18,9 @@ from the same states and draws with the same weights (``params_from_flax``):
 the self-play ply's records (obs, amask, acting, action, done and outcome
 exactly; prob and value within 1e-5 abs) and the evaluator's packed (done,
 seat, outcome) rows, rotated seats and result records (exactly), with every
-state field but the food equal exactly in the envs that did not reset.
+state field but the food equal exactly in the envs that did not reset;
+also with a checkpoint opponent, whose own net plays its env block on the
+device.
 """
 
 import os
@@ -134,7 +136,9 @@ def test_rulebase_block_plays_the_greedy_agent(monkeypatch):
 
 
 def test_device_evaluator_refuses_checkpoint_opponents():
-    with pytest.raises(ValueError, match='random and rulebase'):
+    """A checkpoint opponent plays on the device when its file exists;
+    a path that names no file is refused."""
+    with pytest.raises(ValueError, match='random, rulebase and checkpoint'):
         dg.DeviceEvaluator(tg, _net(), {}, n_envs=4, chunk_steps=2,
                            opponents=['models/1.ckpt'])
 
@@ -259,16 +263,27 @@ def test_gen_body_matches_jax_ply_by_ply(monkeypatch):
     assert dones >= 3
 
 
-@pytest.mark.parametrize('opponents', [['random'], ['random', 'rulebase']])
-def test_device_evaluator_matches_jax_ply_by_ply(monkeypatch, opponents):
+@pytest.mark.parametrize('opponents', [['random'], ['random', 'rulebase'],
+                                       ['random', 'checkpoint']])
+def test_device_evaluator_matches_jax_ply_by_ply(monkeypatch, tmp_path,
+                                                 opponents):
     """The packed (done, seat, outcome) rows, the seats after the ply, the
-    result records and every live state field equal exactly."""
+    result records and every live state field equal exactly. A checkpoint
+    opponent (other weights, written with flax's ``to_bytes`` and read by
+    both evaluators) plays its greedy policy in its env block."""
     import jax
     import jax.numpy as jnp
+    from flax import serialization
     from handyrl_tpu import device_generation as jdg
     from handyrl_tpu.envs import jax_hungry_geese as jhg
     from handyrl_tpu.model import ModelWrapper as JaxModelWrapper
     jm, params, net = _jax_pair(seed=2)
+    if 'checkpoint' in opponents:
+        _, opp_params, _ = _jax_pair(seed=9)
+        path = tmp_path / '3.ckpt'
+        path.write_bytes(serialization.to_bytes(opp_params))
+        opponents = [str(path) if o == 'checkpoint' else o
+                     for o in opponents]
     jev = jdg.DeviceEvaluator(jhg, JaxModelWrapper(jm, params), {},
                               n_envs=N_JAX, chunk_steps=1, seed=6,
                               opponents=opponents)
@@ -305,8 +320,8 @@ def test_device_evaluator_matches_jax_ply_by_ply(monkeypatch, opponents):
         ev.seat.copy_(torch.from_numpy(np.array(jev.seat)).long())
         packed = ev._rollout().numpy()
         (jev.state, jev.hidden, jev.opp_hidden, jev.seat, jev.rng,
-         jrec) = jev._rollout(params, (), jev.state, None, None, jev.seat,
-                              jev.rng)
+         jrec) = jev._rollout(params, tuple(jev._opp_params), jev.state,
+                              None, None, jev.seat, jev.rng)
         jrec = {k: np.asarray(v) for k, v in jrec.items()}
         want = np.concatenate([jrec['done'].reshape(-1).astype(np.float32),
                                jrec['seat'].reshape(-1).astype(np.float32),

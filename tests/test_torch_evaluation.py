@@ -258,7 +258,8 @@ def test_model_specs_the_port_does_not_load_are_named(ckpt):
     env = make_env(ENV)
     with pytest.raises(ValueError) as exc:
         evaluation.load_model('model.jaxexp', env, device='cpu')
-    for name in ('.jaxexp', 'ExportedModel', 'not ported'):
+    for name in ('.jaxexp', 'ExportedModel', '.pt2',
+                 'scripts/torch_export_model.py'):
         assert name in str(exc.value)
     with pytest.raises(ValueError, match='none of them'):
         evaluation.load_model('model.pt', env, device='cpu')

@@ -211,21 +211,25 @@ def test_cli_without_cuda_raises_on_the_device_path(tmp_path):
 
 
 @pytest.mark.parametrize('env_args,train_args,key', [
-    ({}, {'device_replay': True}, 'device_replay without device_generation'),
-    ({}, {'device_generation': True},
-     'device_generation without device_replay'),
+    # the device actor backend (DeviceActorGather) is the one device part
+    # not ported; every combination of the switches runs
+    ({}, {'device_generation': True, 'batched_generation': False},
+     'DeviceActorGather'),
     ({}, {'device_generation': True, 'device_replay': True,
-          'fused_pipeline': False}, 'fused_pipeline'),
-    ({}, {'device_generation': True, 'device_replay': True,
-          'device_ingest': False}, 'device_ingest'),
-    ({}, {'device_generation': True, 'device_replay': True,
-          'turn_based_training': True}, 'turn_based_training'),
-    ({'env': 'TicTacToe'}, {'device_generation': True,
-                            'device_replay': True}, 'TicTacToe'),
+          'fused_pipeline': False, 'batched_generation': False},
+     'DeviceActorGather'),
+    ({}, {'device_generation': True, 'generation': {'backend': 'device'}},
+     'DeviceActorGather'),
+    ({}, {'device_replay': True, 'replay_fused_steps': 0},
+     'replay_fused_steps'),
+    ({}, {'device_replay': True, 'max_sample_reuse': 0}, 'max_sample_reuse'),
+    ({'env': 'TicTacToe'}, {'device_generation': True, 'device_replay': True,
+                            'max_sample_reuse': -2.0}, 'max_sample_reuse'),
     ({}, {'device_generation': True, 'device_replay': True,
           'device_chunk_steps': 0}, 'device_chunk_steps'),
     ({}, {'device_generation': True, 'device_replay': True,
-          'replay_fused_steps': 8}, 'replay_fused_steps'),
+          'fused_pipeline': False, 'replay_fused_steps': 0},
+     'replay_fused_steps'),
 ])
 def test_validate_rejects_device_combinations_the_port_does_not_run(
         env_args, train_args, key):

@@ -1,5 +1,5 @@
 """The quick start on the fused device loop on the CPU: the port's learner
-(handyrl_tpu_torch/train.py ``_run_device``) with ``device_generation``
+(handyrl_tpu_torch/train.py ``_run_fused``) with ``device_generation``
 and ``device_replay`` on TicTacToe runs the 'turn' layout, as the JAX
 package's tests/test_fused_pipeline.py:34-51 runs its own: ``(turn
 mode)``, two epochs, metrics rows, and checkpoints that the JAX package

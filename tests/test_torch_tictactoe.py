@@ -222,20 +222,21 @@ def test_config_defaults_to_tictactoe_like_the_reference():
 
 
 @pytest.mark.parametrize('train_args', [
+    {'device_generation': True, 'batched_generation': False},
     {'device_generation': True, 'device_replay': True,
-     'turn_based_training': False},
-    {'device_generation': True},
-    {'device_replay': True},
+     'generation': {'backend': 'device'}},
+    {'device_generation': True, 'device_replay': True,
+     'fused_pipeline': False, 'batched_generation': False},
 ])
 def test_tictactoe_on_the_device_path_names_what_is_missing(train_args):
-    """TicTacToe runs the fused loop in the 'turn' layout; the device
-    combinations that need another part of the JAX package still raise,
-    naming it."""
+    """TicTacToe runs the fused loop in the 'turn' layout and every other
+    device combination; the device actor backend, which the JAX package
+    has and the port not yet, still raises, naming it."""
     with pytest.raises(ConfigError) as exc:
         apply_defaults({'env_args': {'env': 'TicTacToe'},
                         'train_args': train_args})
     msg = str(exc.value)
-    assert 'DeviceGenerator' in msg or 'DeviceReplay' in msg
+    assert 'DeviceActorGather' in msg
     assert 'not ported' in msg
     args = apply_defaults({'env_args': {'env': 'TicTacToe'},
                            'train_args': {'device_generation': True,

@@ -102,8 +102,11 @@ def test_cli_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize('env_args,train_args,key', [
-    ({}, {'device_generation': True}, 'device_generation'),
-    ({}, {'device_replay': True}, 'device_replay'),
+    # every device combination runs; the device knobs' ranges are checked
+    ({}, {'device_generation': True, 'replay_fused_steps': 0},
+     'replay_fused_steps'),
+    ({}, {'device_replay': True, 'max_sample_reuse': -1.0},
+     'max_sample_reuse'),
     ({}, {'batcher_shared_memory': True}, 'batcher_processes'),
     ({}, {'streaming': {'enabled': True}}, 'streaming'),
     ({}, {'streaming': {'target_clip': 1.0}}, 'streaming'),
@@ -116,8 +119,9 @@ def test_cli_without_cuda_raises(tmp_path):
     ({}, {'telemetry_port': 9100}, 'telemetry_port'),
     ({'net_kind': 'lstm'}, {}, 'net_kind'),
     ({'norm_kind': 'batch'}, {}, 'norm_kind'),
-    ({'env': 'TicTacToe'}, {'device_generation': True, 'device_replay': True,
-                            'turn_based_training': False}, 'TicTacToe'),
+    ({'env': 'TicTacToe'}, {'device_generation': True,
+                            'batched_generation': False},
+     'DeviceActorGather'),
     ({}, {'inference': {'enabled': True}}, 'host inference engine'),
     ({}, {'generation': {'backend': 'engine'}}, 'inference engine'),
     ({}, {'generation': {'backend': 'device'}}, 'DeviceActorGather'),
