@@ -260,7 +260,34 @@ non-zero, printing no result, when either is missing or any phase fails.
    a failed trainer, a kernel of its path that never launched or one off
    its path.
    Prints the branches' rates beside phases 5 and 6.
-12. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
+12. The device actor backend (``generation.backend: 'device'``), one
+   JSON line. (a) ``DeviceActorEngine`` in this process on TicTacToe
+   (full-width SimpleConv2dModel, two seeded model ids in two slots), one
+   block of 64 stamped tasks in strict mode ('g' tasks and 'e' tasks
+   against 'random'): no task deferred, every episode byte-equal
+   (``connection.pack``) to the host ``Generator``'s record of the task on
+   the card; divergences (lanes rerun on the host) reported. (b) The
+   engine on Hungry Geese at full width (GeeseNet, ``torus_impl
+   'pallas'``), 'device' records, two blocks of 64 tasks ('g' self-play
+   and cross pairings, 'e' against 'random' and 'rulebase') with the slot
+   -> model id maps (1, 2) and (3, 4), every count 0 just before: every
+   lane finishes with ``record_version: 1``, one graph capture and one
+   chunk program over both maps, K1 launched chunks x 16 x 2 times and
+   nothing else, and the recorded probabilities and values within
+   POLICY_TOL of the slot's model on the recorded boards; chunk ms by
+   CUDA events, block seconds, the fill ratio. (c) ``python -m
+   handyrl_tpu_torch.train`` on phase 5's config with
+   ``batched_generation: false``, one ``DeviceActorGather`` (64 lanes,
+   16-ply chunks, 2 slots), 2 epochs of 128 episodes after 128,
+   VTRACE/VTRACE: exit 0, K1, K2 and K5 once a training step in the
+   learner and nothing else, every episode counted once, the stamped
+   episodes the engine's, no None payload, one capture, K1 in the gather;
+   episodes/s, the trainer's wait share, the deferred tasks. (d)
+   ``--server`` on tictactoe.json and ``python -m
+   handyrl_tpu_torch.worker`` with ``worker_args.backend: 'device'`` over
+   localhost TCP, 3 epochs: both exit 0, every episode counted once, K3
+   once a step in the learner. Each run under PHASE12_TIMEOUT.
+13. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
    and K2b take their launches from K2's count, one of each a call; the
    fused loop's under ``learner_fused_*``, 5(b)'s under
    ``learner_shm_*``, the quick start's under ``quick_start_*``, 7(b)'s
@@ -271,7 +298,10 @@ non-zero, printing no result, when either is missing or any phase fails.
    children under ``network_*_client_children`` and the service under
    ``network_serve_service``, phase 11's runs under ``split_*``,
    ``replay_*`` and ``host_push_*`` and the exported program's under
-   ``export_exported_model``; K1's row also holds the operator's checks),
+   ``export_exported_model``, phase 12's engine under
+   ``device_actor_engine`` and its learners and gathers under
+   ``device_actor_{local,remote}_*``; K1's row also holds the operator's
+   checks),
    the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -1775,12 +1805,13 @@ def fused_setup(torch, capacity=None):
     from handyrl_tpu_torch.models.geese import GeeseNet
     from handyrl_tpu_torch.ops.device_windows import DeviceWindower
     from handyrl_tpu_torch.ops.fused_pipeline import FusedPipeline
-    from handyrl_tpu_torch.ops.replay import ring_capacity, \
-        windows_per_episode
+    from handyrl_tpu_torch.ops.replay import (
+        resolve_windows_per_episode, ring_capacity, windows_per_episode)
     from handyrl_tpu_torch.ops.train_step import ReplayUpdateStep, \
         init_train_state
     from handyrl_tpu_torch.train import loss_config
     args = apply_defaults(FUSED_CONFIG)['train_args']
+    resolve_windows_per_episode(args, tg)    # as the learner sizes it
     net = GeeseNet(torus_impl='pallas',
                    generator=torch.Generator().manual_seed(SEED)).cuda()
     actor = GeeseNet(torus_impl='pallas').cuda()
@@ -2518,13 +2549,14 @@ def quick_fused_setup(torch, repo):
     from handyrl_tpu_torch.envs import torch_tictactoe as tt
     from handyrl_tpu_torch.ops.device_windows import DeviceWindower
     from handyrl_tpu_torch.ops.fused_pipeline import FusedPipeline
-    from handyrl_tpu_torch.ops.replay import ring_capacity, \
-        windows_per_episode
+    from handyrl_tpu_torch.ops.replay import (
+        resolve_windows_per_episode, ring_capacity, windows_per_episode)
     from handyrl_tpu_torch.ops.train_step import ReplayUpdateStep, \
         init_train_state
     from handyrl_tpu_torch.train import loss_config
     args = apply_defaults(quick_config(repo, QUICK_FUSED,
                                        QUICK_FUSED_EPOCHS))['train_args']
+    resolve_windows_per_episode(args, tt)    # as the learner sizes it
     env = make_env({'env': 'TicTacToe'})
 
     def make_net(seed):
@@ -3984,6 +4016,422 @@ def phase_device_branches(torch, repo, GeeseNet, make_env, ckpt, learner,
             'export': export}
 
 
+# ------------------------------------ phase 12: the device actor backend
+
+DA_LANES, DA_CHUNK, DA_SLOTS = 64, 16, 2
+DA_DEVICE = 'cuda'
+DA_GENERATION = {'backend': 'device', 'device_actor_envs': DA_LANES,
+                 'device_actor_chunk_steps': DA_CHUNK,
+                 'device_actor_slots': DA_SLOTS}
+# (c) a local learner whose one gather is a DeviceActorGather
+DA_LOCAL = {'batched_generation': False, 'worker': {'num_parallel': 1},
+            'generation': DA_GENERATION, 'epochs': 2,
+            'minimum_episodes': 128, 'update_episodes': 128,
+            'eval_rate': 0.1, 'policy_target': 'VTRACE',
+            'value_target': 'VTRACE'}
+# (d) tictactoe.json on --server and a worker host of backend 'device'
+DA_REMOTE_EPOCHS = 3
+PHASE12_TIMEOUT = 150
+
+
+def da_tasks(block, mids, players, opponents=('random', 'rulebase')):
+    """A block of DA_LANES stamped tasks: 40 'g' tasks (self-play of the
+    first id and cross pairings of both, alternating) and 24 'e' tasks
+    against the first and the last of ``opponents`` (explicit), keys from
+    ``block``."""
+    a, b = mids
+    tasks = []
+    for k in range(DA_LANES):
+        key = block * 1000 + k
+        if k < 40:
+            mid = ({p: a for p in range(players)} if k % 2 == 0 else
+                   {p: (a if p % 2 == 0 else b) for p in range(players)})
+            tasks.append({'role': 'g', 'player': list(range(players)),
+                          'model_id': mid, 'sample_key': key,
+                          'task_id': key})
+        else:
+            seat = k % players
+            tasks.append({'role': 'e', 'player': [seat],
+                          'model_id': {p: ((a if k % 2 else b) if p == seat
+                                           else -1)
+                                       for p in range(players)},
+                          'opponent': opponents[0 if k < 52 else -1],
+                          'sample_key': key, 'task_id': key})
+    return tasks
+
+
+def da_vault(torch, make_env, env_args, build, seed):
+    """A ModelVault on the card whose snapshots are seeded nets from
+    ``build()`` (model id m drawn from seed + m)."""
+    from handyrl_tpu_torch.inference import ModelVault
+    from handyrl_tpu_torch.model import ModelWrapper
+    env = make_env(env_args)
+    env.reset()
+    snaps = {}
+
+    def fetch(mid):
+        if mid not in snaps:
+            net = build()
+            net.reset_parameters(torch.Generator().manual_seed(seed + mid))
+            snaps[mid] = ModelWrapper(net, 'cpu').snapshot()
+        return snaps[mid]
+    return ModelVault(fetch, env.observation(env.players()[0]),
+                      capacity=DA_SLOTS + 2, device=DA_DEVICE)
+
+
+def da_train_args(env_args, extra=None):
+    from handyrl_tpu_torch.config import apply_defaults
+    cfg = apply_defaults({'env_args': dict(env_args), 'train_args': dict(
+        {'seed': SEED}, **(extra or {}))})
+    ta = dict(cfg['train_args'])
+    ta['env'] = cfg['env_args']
+    return ta
+
+
+def phase_da_strict(torch, make_env):
+    """12(a): one block of 64 stamped TicTacToe tasks on the card in
+    strict mode; every episode byte-equal to the host Generator's record
+    of the task on the card."""
+    from handyrl_tpu_torch.connection import pack
+    from handyrl_tpu_torch.device_generation import DeviceActorEngine
+    from handyrl_tpu_torch.environment import make_device_env
+    from handyrl_tpu_torch.generation import Generator
+    from handyrl_tpu_torch.models.tictactoe import SimpleConv2dModel
+    ta = da_train_args(TTT_ENV)
+    vault = da_vault(torch, make_env, TTT_ENV, SimpleConv2dModel, SEED + 40)
+    eng = DeviceActorEngine(make_device_env(TTT_ENV), vault,
+                            make_env(TTT_ENV), ta, n_envs=DA_LANES,
+                            chunk_steps=DA_CHUNK, slots=DA_SLOTS,
+                            seed=SEED, device=DA_DEVICE)
+    if eng.record_mode != 'strict':
+        fail('12(a): the TicTacToe engine runs %r records' % eng.record_mode)
+    tasks = da_tasks(0, (1, 2), 2, opponents=('random',))
+    t0 = time.monotonic()
+    uploads, deferred = eng.run_block(tasks)
+    block_s = time.monotonic() - t0
+    if deferred or len(uploads) != len(tasks) or any(
+            p is None for _, p in uploads):
+        fail('12(a): %d deferred, %d uploads for %d tasks, %d None'
+             % (len(deferred), len(uploads), len(tasks),
+                sum(p is None for _, p in uploads)))
+    gen = Generator(make_env(TTT_ENV), ta)
+    checked = 0
+    for task, (kind, payload) in zip(tasks, uploads):
+        if kind != 'episode':
+            continue
+        host = gen.execute(vault.obtain(dict(task['model_id'])), task)
+        if pack(payload) != pack(host):
+            fail('12(a): the episode of task %s is not the host '
+                 'Generator\'s record byte for byte' % task['task_id'])
+        if 'record_version' in payload:
+            fail('12(a): a strict record carries record_version')
+        checked += 1
+    st = eng.stats
+    out = {'episodes_byte_equal': checked, 'verified': st['episodes'],
+           'divergences': st['divergences'], 'results': st['results'],
+           'chunks': st['chunks'], 'block_seconds': block_s,
+           'fill_ratio': eng.last_block['fill_ratio'],
+           'chunk_ms': eng.last_block['chunk_ms']}
+    log('12(a) strict TicTacToe: %s' % json.dumps(out))
+    return out
+
+
+def phase_da_geese(torch, make_env, GeeseNet):
+    """12(b): two blocks of 64 tasks at full width on the card with
+    different slot -> model id maps; one graph capture; K1's serving
+    launches chunks x chunk_steps x slots; the recorded probabilities and
+    values held to the slot's model on the recorded boards."""
+    import numpy as np
+    from handyrl_tpu_torch.device_generation import DeviceActorEngine
+    from handyrl_tpu_torch.environment import make_device_env
+    from handyrl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from handyrl_tpu_torch.ops.batch import decompress_moments
+    ta = da_train_args(GEESE_ENV, {
+        'turn_based_training': False, 'observation': True, 'gamma': 0.99,
+        'eval': {'opponent': ['random', 'rulebase']}})
+    vault = da_vault(torch, make_env, GEESE_ENV,
+                     lambda: GeeseNet(torus_impl='pallas'), SEED + 50)
+    eng = DeviceActorEngine(make_device_env(GEESE_ENV), vault,
+                            make_env(GEESE_ENV), ta, n_envs=DA_LANES,
+                            chunk_steps=DA_CHUNK, slots=DA_SLOTS,
+                            seed=SEED, device=DA_DEVICE)
+    if eng.record_mode != 'device':
+        fail('12(b): the Geese engine runs %r records' % eng.record_mode)
+    for mid in (1, 2, 3, 4):
+        vault.model(mid)       # materialized before the counts (no forward)
+    blocks = []
+    reset_kernel_launches()
+    for block, mids in ((1, (1, 2)), (2, (3, 4))):
+        tasks = da_tasks(block, mids, 4)
+        uploads, deferred = eng.run_block(tasks)
+        if deferred or len(uploads) != DA_LANES:
+            fail('12(b): block %d deferred %d tasks, %d uploads'
+                 % (block, len(deferred), len(uploads)))
+        blocks.append((tasks, uploads, dict(eng.last_block)))
+    launches = kernel_launches()
+    st = eng.stats
+    want = st['chunks'] * DA_CHUNK * DA_SLOTS
+    if launches['geese_trunk'] != want or any(
+            n for k, n in launches.items() if k != 'geese_trunk'):
+        fail('12(b): kernel launches %s; K1 expected %d (%d chunks x %d '
+             'plies x %d slots)' % (launches, want, st['chunks'], DA_CHUNK,
+                                    DA_SLOTS))
+    if eng.captures != 1 or eng.builds != 1:
+        fail('12(b): %d graph captures and %d builds over two slot maps'
+             % (eng.captures, eng.builds))
+    if st['none_payloads']:
+        fail('12(b): %d lanes uploaded None' % st['none_payloads'])
+    for tasks, uploads, _ in blocks:
+        for task, (kind, payload) in zip(tasks, uploads):
+            if kind == 'episode' and payload.get('record_version') != 1:
+                fail('12(b): an episode without record_version 1')
+            if kind == 'result' and payload['opponent'] != task['opponent']:
+                fail('12(b): a result against %r for a task against %r'
+                     % (payload['opponent'], task['opponent']))
+    # the network oracle: the slot's model on the recorded boards gives
+    # the recorded probability and value
+    err = 0.0
+    tasks, uploads, _ = blocks[1]
+    for task, (kind, payload) in list(zip(tasks, uploads))[:4]:
+        if kind != 'episode':
+            continue
+        model = vault.model(task['model_id'][0])
+        for moment in decompress_moments(payload['moment']):
+            seats = [p for p in moment['turn']
+                     if task['model_id'][p] == task['model_id'][0]]
+            if not seats:
+                continue
+            out = model.batch_inference(np.stack(
+                [moment['observation'][p] for p in seats]))
+            logits = out['policy']
+            probs = np.exp(logits - logits.max(-1, keepdims=True))
+            probs /= probs.sum(-1, keepdims=True)
+            for row, p in enumerate(seats):
+                err = max(err, abs(float(probs[row, moment['action'][p]])
+                                   - moment['selected_prob'][p]),
+                          float(np.abs(out['value'][row]
+                                       - moment['value'][p]).max()))
+    if not err <= POLICY_TOL:
+        fail('12(b): recorded prob/value off the slot model by %.3g' % err)
+    chunk_ms = blocks[1][2]['chunk_ms']
+    out = {'launches': launches, 'chunks': st['chunks'],
+           'graph_captures': eng.captures, 'episodes': st['episodes'],
+           'results': st['results'], 'plies': st['plies'],
+           'fill_ratio': st['plies'] / st['scheduled_plies'],
+           'block_seconds': [b[2]['seconds'] for b in blocks],
+           'block_chunks': [b[2]['chunks'] for b in blocks],
+           'chunk_ms_replay_median': float(np.median(chunk_ms)),
+           'chunk_ms_replay_mean': float(np.mean(chunk_ms)),
+           'first_block_chunk_ms': blocks[0][2]['chunk_ms'][:3],
+           'oracle_max_abs_err': err,
+           'plies_per_s': st['plies'] / sum(b[2]['seconds']
+                                            for b in blocks)}
+    log('12(b) Geese device records, full width (%s): %s'
+        % (nvidia_smi_line(), json.dumps(out)))
+    return out
+
+
+def da_check_line(label, line, epochs, train_kernels):
+    """A device-actor learner's JSON line: its epochs, finite losses, the
+    training kernels once a step and nothing else in the learner, every
+    episode counted once, an empty ledger, and one gather's device actor
+    counts: no None payload, one chunk program, the stamped episodes the
+    engine's (device records), K1 in the gather when the env runs it."""
+    import math
+    from handyrl_tpu_torch.ops.train_step import GRAPH_WARMUP_STEPS
+    if line['epochs'] != epochs or line['failed'] or line['fleet_failure']:
+        fail('%s trained %s epochs (failed %s %s %s)' % (
+            label, line['epochs'], line['failed'], line['failed_reason'],
+            line['fleet_failure']))
+    if not (line['losses'] and all(math.isfinite(v)
+                                   for v in line['losses'].values())):
+        fail('%s reports non-finite losses: %s' % (label, line['losses']))
+    by_path = line['kernel_launches']
+    runs = line['steps_at_exit'] + GRAPH_WARMUP_STEPS
+    train = by_path.get('training', {})
+    if set(by_path) - {'training'} or any(
+            train.get(k, 0) != (runs if k in train_kernels else 0)
+            for k in train):
+        fail('%s launched %s in the learner (%s once a step of %d expected)'
+             % (label, by_path, train_kernels, runs))
+    if line['fleet']['outstanding'] != 0 or line['repeated_sample_keys'] \
+            or line['distinct_sample_keys'] != line['episodes']:
+        fail('%s: outstanding %d, repeated keys %d, %d distinct keys for %d '
+             'episodes' % (label, line['fleet']['outstanding'],
+                           line['repeated_sample_keys'],
+                           line['distinct_sample_keys'], line['episodes']))
+    if len(line['device_actor']) != 1:
+        fail('%s: %d device actor beacons' % (label,
+                                               len(line['device_actor'])))
+    actor = line['device_actor'][0]
+    if actor['none_payloads'] or actor['host_failures'] \
+            or actor['builds'] != 1 or actor['graph_captures'] != 1 \
+            or not actor['device'].startswith(DA_DEVICE):
+        fail('%s: device actor %s' % (label, actor))
+    stamped = actor['episodes'] if actor['record_mode'] == 'device' else 0
+    if line['stamped_episodes'] != stamped or not actor['episodes'] > 0:
+        fail('%s: %d stamped episodes, the engine spliced %d (%s records)'
+             % (label, line['stamped_episodes'], actor['episodes'],
+                actor['record_mode']))
+    return actor
+
+
+def phase_da_local(torch, repo):
+    """12(c): the local learner on phase 5's config with one
+    DeviceActorGather, VTRACE/VTRACE, through the entry point (no
+    --device)."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_da_local_')
+    try:
+        path = worker_plane_config(tmp, DA_LOCAL)
+        t0 = time.monotonic()
+        try:
+            proc = subprocess.run(
+                [sys.executable, '-m', 'handyrl_tpu_torch.train',
+                 '--config', path], cwd=repo, capture_output=True,
+                text=True, timeout=PHASE12_TIMEOUT)
+        except subprocess.TimeoutExpired as exc:
+            fail('12(c) did not finish within %d s:\n%s' % (
+                PHASE12_TIMEOUT, (exc.stderr or b'')[-4000:]))
+        wall = time.monotonic() - t0
+        for l in proc.stdout.splitlines():
+            if l.startswith(('epoch', 'win rate', 'loss', 'updated model')):
+                log('  12(c): %s' % l)
+        if proc.returncode != 0:
+            fail('12(c) exited %d:\n%s' % (proc.returncode,
+                                           proc.stderr[-4000:]))
+        line = learner_json('12(c)', proc.stdout)
+        line['wall'] = wall
+        actor = da_check_line('12(c)', line, DA_LOCAL['epochs'],
+                              ('geese_trunk', 'geese_trunk_bwd', 'vtrace'))
+        k1 = actor['launches'].get('geese_trunk', 0)
+        if not k1 >= actor['chunks'] * DA_CHUNK * DA_SLOTS:
+            fail('12(c): K1 launched %d times in the gather for %d chunks'
+                 % (k1, actor['chunks']))
+        left = processes_left(proc.stderr)
+        if left:
+            fail('12(c): gather processes left after the run: %s' % left)
+        out = {'episodes': line['episodes'],
+               'episodes_per_s': line['episodes_per_s'],
+               'trajectories_per_s': line['trajectories_per_s'],
+               'trainer_wait_share': (line['trainer_batch_wait_seconds']
+                                      / line['trainer_seconds']
+                                      if line['trainer_seconds'] else None),
+               'stamped_episodes': line['stamped_episodes'],
+               'device_episodes': actor['episodes'],
+               'results': actor['results'], 'deferred': actor['deferred'],
+               'gather_k1_launches': k1, 'chunks': actor['chunks'],
+               'fill_ratio': actor['fill_ratio'],
+               'chunk_seconds': actor['chunk_seconds'],
+               'block_seconds': actor['block_seconds'],
+               'none_payloads': actor['none_payloads'], 'wall': wall,
+               'kernel_launches': line['kernel_launches'],
+               'gather_launches': actor['launches']}
+        log('12(c) local learner, one DeviceActorGather (%s): %s'
+            % (nvidia_smi_line(), json.dumps(out)))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_da_remote(torch, repo):
+    """12(d): tictactoe.json on ``--server`` and a worker host whose
+    ``worker_args.backend`` is 'device', over localhost TCP on free
+    ports, DA_REMOTE_EPOCHS epochs."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_da_remote_')
+    procs = {}
+    try:
+        cfg = quick_config(repo, {'model_dir': os.path.join(tmp, 'models')},
+                           DA_REMOTE_EPOCHS)
+        cfg['worker_args'] = {'server_address': '127.0.0.1',
+                              'num_parallel': 1, 'backend': 'device'}
+        path = os.path.join(tmp, 'config.json')
+        with open(path, 'w') as f:
+            json.dump(cfg, f)
+        entry, data = free_ports(2)
+        env = dict(os.environ, HANDYRL_TPU_ENTRY_PORT=str(entry),
+                   HANDYRL_TPU_DATA_PORT=str(data))
+        logs = {k: (os.path.join(tmp, k + '.out'),
+                    os.path.join(tmp, k + '.err'))
+                for k in ('server', 'host')}
+        cmds = {'server': ['handyrl_tpu_torch.train', '--config', path,
+                           '--server'],
+                'host': ['handyrl_tpu_torch.worker', '--config', path]}
+        t0 = time.monotonic()
+        for k in ('server', 'host'):
+            with open(logs[k][0], 'w') as out, open(logs[k][1], 'w') as err:
+                procs[k] = subprocess.Popen(
+                    [sys.executable, '-m'] + cmds[k], cwd=repo, stdout=out,
+                    stderr=err, start_new_session=True, env=env)
+        deadline = time.monotonic() + PHASE12_TIMEOUT
+        for k in ('host', 'server'):
+            try:
+                procs[k].wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail('12(d) did not finish within %d s; the server:\n%s\n%s'
+                     '\nthe worker host:\n%s\n%s' % (
+                         PHASE12_TIMEOUT, tail(logs['server'][0], 20),
+                         tail(logs['server'][1]), tail(logs['host'][0]),
+                         tail(logs['host'][1])))
+        wall = time.monotonic() - t0
+        for k in ('server', 'host'):
+            if procs[k].returncode != 0:
+                fail('12(d): the %s exited %d:\n%s' % (
+                    k, procs[k].returncode, tail(logs[k][1])))
+        with open(logs['server'][0]) as f:
+            line = learner_json('12(d)', f.read())
+        with open(logs['host'][1]) as f:
+            host_err = f.read()
+        if 'device actor backend on %s' % DA_DEVICE not in host_err:
+            fail('12(d): the worker host\'s gather did not run the device '
+                 'actor backend:\n%s' % host_err[-2000:])
+        actor = da_check_line('12(d)', line, DA_REMOTE_EPOCHS,
+                              ('td_lambda',))
+        left = processes_left(host_err)
+        if left:
+            fail('12(d): gather processes left after the run: %s' % left)
+        out = {'episodes': line['episodes'],
+               'episodes_per_s': line['episodes_per_s'],
+               'record_mode': actor['record_mode'],
+               'device_episodes': actor['episodes'],
+               'divergences': actor['divergences'],
+               'results': actor['results'], 'deferred': actor['deferred'],
+               'chunks': actor['chunks'], 'fill_ratio': actor['fill_ratio'],
+               'wall': wall, 'kernel_launches': line['kernel_launches'],
+               'gather_launches': actor['launches']}
+        log('12(d) TicTacToe over TCP, worker_args.backend device (%s): %s'
+            % (nvidia_smi_line(), json.dumps(out)))
+        return out
+    finally:
+        for proc in procs.values():
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_device_actor(torch, repo, GeeseNet, make_env):
+    """Phase 12: (a)-(d), one JSON line."""
+    t0 = time.monotonic()
+    log('== phase 12(a): the device actor engine, TicTacToe, strict '
+        'records')
+    strict = phase_da_strict(torch, make_env)
+    log('== phase 12(b): the device actor engine, Hungry Geese at full '
+        'width, device records')
+    geese = phase_da_geese(torch, make_env, GeeseNet)
+    log('== phase 12(c): a local learner with one DeviceActorGather')
+    local = phase_da_local(torch, repo)
+    log('== phase 12(d): --server and a worker host with '
+        'worker_args.backend device (TicTacToe)')
+    remote = phase_da_remote(torch, repo)
+    out = {'phase': 12, 'strict': strict, 'geese': geese, 'local': local,
+           'remote': remote, 'seconds': time.monotonic() - t0,
+           'card': nvidia_smi_line()}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main():
     try:
         import torch
@@ -4082,7 +4530,12 @@ def main():
     log('phase 11: %.1f s (%s)' % (time.monotonic() - t11,
                                    nvidia_smi_line()))
 
-    log('== phase 12: the kernels line')
+    t12 = time.monotonic()
+    actor = phase_device_actor(torch, repo, GeeseNet, make_env)
+    log('phase 12: %.1f s (%s)' % (time.monotonic() - t12,
+                                   nvidia_smi_line()))
+
+    log('== phase 13: the kernels line')
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -4120,6 +4573,14 @@ def main():
                 'kernel_launches'].items():
             paths['%s_%s' % (label, name)] = counts
     paths['export_exported_model'] = branches['export']['launches']
+    # phase 12: the engine's blocks in this process (counts 0 just before),
+    # the learners and their device actor gathers (fresh processes)
+    paths['device_actor_engine'] = actor['geese']['launches']
+    for label in ('local', 'remote'):
+        for name, counts in actor[label]['kernel_launches'].items():
+            paths['device_actor_%s_%s' % (label, name)] = counts
+        paths['device_actor_%s_gather' % label] = actor[label][
+            'gather_launches']
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from

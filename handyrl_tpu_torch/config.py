@@ -9,14 +9,15 @@ given to the service (``--device``, default 'cuda'), so
 metrics-exporter and alert knobs wait for their modules. The learner's
 ``TRAIN_DEFAULTS`` hold the knobs of the local learner, of the fused
 device loop, of the worker plane (``batched_generation: false``,
-``worker``, ``fault_tolerance``; ``WORKER_DEFAULTS`` for a worker host)
+``worker``, ``fault_tolerance``, the gathers' ``generation`` backend;
+``WORKER_DEFAULTS`` for a worker host)
 and of the run plane (``metrics_jsonl``, ``keep_checkpoints``,
 ``init_params``, ``guard.preempt_signals``, the publish hook's ``serving``
 block), and
-:func:`validate` raises for anything this port does not run yet (the
-device actor backend, streaming, the league, mesh parallelism, the host
-inference engine, recurrent nets, BatchNorm, envs other than TicTacToe
-and Hungry Geese) instead of ignoring it.
+:func:`validate` raises for anything this port does not run yet
+(streaming, the league, mesh parallelism, the host inference engine,
+recurrent nets, BatchNorm, envs other than TicTacToe and Hungry Geese)
+instead of ignoring it.
 Without ``env_args`` the env is TicTacToe, as in the JAX package.
 """
 
@@ -134,6 +135,15 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
         'publish': False,         # register every numbered checkpoint as '<line>@<epoch>' (pinning it against keep_checkpoints GC)
         'auto_promote': True,     # with publish: each published version also becomes the line's champion
     },
+    # the gathers' actor engine (worker.py gather_loop, DeviceActorGather;
+    # device_generation.DeviceActorEngine), read on the worker plane only
+    'generation': {
+        'backend': '',            # '' = auto ('worker': the port has no host inference engine); 'worker' = per-worker stepping, 'device' = the fused rollout on the gather's card (envs with a tensor twin); 'engine' is not ported; a worker host overrides it with worker_args.backend
+        'device_actor_envs': 64,  # lanes of the device actor's chunk: one ledger task a lane
+        'device_actor_chunk_steps': 16,  # plies of a chunk (one CUDA graph replay)
+        'device_actor_slots': 2,  # stacked parameter slots of the chunk; pairings beyond them defer to the host fallback
+        'device_actor_record': '',  # '' = auto by the twin's RNG_COMPAT; 'strict' = records verified on the host, byte for byte a worker's; 'device' = device-sampled records stamped record_version 1
+    },
     'decode_cache_blocks': 1024,  # LRU capacity (bz2 blocks) of the batchers' decoded-moment cache; 0 disables
     'prefetch_depth': 2,          # batches staged to the device (pinned host memory, a copy stream) ahead of the step
 }
@@ -158,12 +168,13 @@ PLANE_NAMES = {
     'inference': 'host inference engine (EngineClient, EngineSupervisor, '
                  'RemoteModelCache)',
 }
-# the generation backends of a gather host: the port runs '' and 'worker'
+# the generation backends of a gather host: the port runs '', 'worker'
+# and 'device'
 _BACKENDS = ('', 'worker', 'engine', 'device')
 _BACKENDS_PENDING = {
     'engine': 'the per-host inference engine (EngineSupervisor)',
-    'device': 'the device actor backend (DeviceActorGather)',
 }
+_RECORD_MODES = ('', 'strict', 'device')
 
 _ENV_KEYS = ('env', 'torus_impl', 'norm_kind', 'net_kind')
 _ENVS = ('TicTacToe', 'HungryGeese')
@@ -235,7 +246,7 @@ def validate(args: Dict[str, Any]) -> None:
              'env_args.torus_impl %r is unknown' % (env.get('torus_impl'),))
 
     extra = sorted(set(ta) - set(TRAIN_DEFAULTS) - set(NOT_PORTED_BLOCKS)
-                   - {'env', 'generation'})
+                   - {'env'})
     _require(not extra, 'train_args keys %s: the port\'s learner does not '
              'run them; the parts they configure %s' % (extra, pending))
     for key, switches in NOT_PORTED_BLOCKS.items():
@@ -245,14 +256,13 @@ def validate(args: Dict[str, Any]) -> None:
         _require(not on, 'train_args.%s.%s: the %s %s'
                  % (key, on[0] if on else '',
                     PLANE_NAMES.get(key, key + ' plane'), pending))
-    _validate_backend('train_args.generation.backend',
-                      (ta.get('generation') or {}).get('backend'), pending)
+    _validate_generation(ta, env, wa, pending)
     _require(isinstance(ta['batched_generation'], bool),
              'train_args.batched_generation must be true or false')
-    _require(ta['batched_generation'] or not ta['device_generation'],
-             'train_args.device_generation with batched_generation false: '
-             "the device actor backend (DeviceActorGather, generation."
-             "backend 'device') %s" % pending)
+    # device_generation with batched_generation false (or --server) is the
+    # worker plane, which never reads device_generation (handyrl_tpu/
+    # train.py:1228-1236, :2551): the gathers' backend comes from
+    # generation.backend or worker_args.backend alone
     _validate_worker_plane(ta)
     _require(not ta['batcher_shared_memory'] or ta['batcher_processes'],
              'train_args.batcher_shared_memory requires batcher_processes '
@@ -304,6 +314,33 @@ def _validate_backend(key: str, backend, pending: str) -> None:
         key, backend, _BACKENDS_PENDING.get(backend), pending))
 
 
+def _validate_generation(ta: Dict[str, Any], env: Dict[str, Any],
+                         wa: Dict[str, Any], pending: str) -> None:
+    """The ``generation`` block, with the JAX package's checks
+    (handyrl_tpu/config.py:568-577), and the device backend's need for a
+    tensor twin of the env."""
+    gen = ta['generation']
+    extra = sorted(set(gen) - set(TRAIN_DEFAULTS['generation']))
+    _require(not extra, 'train_args.generation keys %s are not known'
+             % extra)
+    _validate_backend('train_args.generation.backend', gen.get('backend'),
+                      pending)
+    for key in ('device_actor_envs', 'device_actor_chunk_steps',
+                'device_actor_slots'):
+        _require(int(gen[key]) >= 1, 'train_args.generation.%s must be >= 1'
+                 % key)
+    _require(str(gen['device_actor_record'] or '') in _RECORD_MODES,
+             "train_args.generation.device_actor_record must be '', "
+             "'strict' or 'device'")
+    from .environment import DEVICE_ENVS
+    for key, backend in (('train_args.generation.backend', gen['backend']),
+                         ('worker_args.backend', wa.get('backend'))):
+        _require(str(backend or '') != 'device'
+                 or env.get('env') in DEVICE_ENVS,
+                 "%s 'device': env %r has no tensor twin "
+                 '(environment.DEVICE_ENVS)' % (key, env.get('env')))
+
+
 def _validate_worker_plane(ta: Dict[str, Any]) -> None:
     """The local cluster's size and the fault-tolerance knobs (each > 0;
     the liveness deadline above the heartbeat period), as the JAX package
@@ -328,9 +365,8 @@ def _validate_worker_plane(ta: Dict[str, Any]) -> None:
 def _validate_device_path(ta: Dict[str, Any]) -> None:
     """The device knobs' ranges. Every combination of the switches runs
     (the learner picks the JAX learner's branch: the fused loop, the split
-    generator, the threaded replay trainer with device or host ingest);
-    only the device actor backend is missing, and the checks above name
-    it."""
+    generator, the threaded replay trainer with device or host ingest; on
+    the worker plane the gathers' backend)."""
     for key in ('device_chunk_steps', 'checkpoint_interval',
                 'replay_fused_steps'):
         _require(int(ta[key]) >= 1, '%s must be >= 1' % key)

@@ -21,19 +21,30 @@ tensors, updated in place, so the graph's pointers stay valid; the host
 reads one packed tensor a chunk, one dispatch late (:class:`PackedFetch`).
 On the CPU the same functions run eagerly.
 
-What waits (ROADMAP.md): recurrent nets' hidden state and
-``DeviceActorEngine``.
+:class:`DeviceActorEngine` is the device actor backend's rollout
+(``generation.backend: 'device'``, ``worker.DeviceActorGather``): a block
+of ledger tasks, one lane each, played in chunks of one CUDA graph with a
+stack of parameter slots, the finished lanes spliced into upload records
+('strict' records verified on the host byte for byte, or 'device' records
+stamped ``record_version: 1``).
+
+What waits (ROADMAP.md): recurrent nets' hidden state and the engine's
+streaming emit.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import time
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .generation import (Generator, _blank_moment, bucketed_inference,
+                         finalize_episode_record, masked_sample,
+                         pad_to_bucket, sample_seed, seed_env_rng)
 from .ops.batch import compress_moments
 from .ops.graphs import CapturedCall, PackedFetch
 
@@ -546,3 +557,676 @@ class DeviceEvaluator:
                 'result': {q: float(outcomes[k, i, q]) for q in players},
             })
         return results
+
+
+# ------------------------------------------------- the device actor backend
+#
+# generation.backend 'device': a gather that owns a card answers the
+# learner's ledger tasks with one fused rollout on it instead of a fleet of
+# worker processes. One chunk program plays every pairing the learner
+# stamps (self-play, evaluation) by holding ``device_actor_slots`` copies
+# of the net and picking each seat's logits by a per-(lane, seat) slot
+# index, so a new pairing is a params upload, never a new capture.
+
+# a seat's policy inside the chunk (a device tensor of these codes):
+#   SAMPLE   - sample the seat's slot policy ('g' seats)
+#   GREEDY   - argmax of the seat's slot policy (evaluation model seats,
+#              the host Agent at temperature 0)
+#   UNIFORM  - uniform over the legal actions (model id 0 and 'random')
+#   FIRST    - the first legal action (an evaluation seat of model id 0:
+#              the Agent's argmax over a zero policy)
+#   RULEBASE - the env twin's vectorized ``greedy_action``
+MODE_SAMPLE, MODE_GREEDY, MODE_UNIFORM, MODE_FIRST, MODE_RULEBASE = range(5)
+
+
+class Divergence(Exception):
+    """A device-played action disagrees with the host sampling contract
+    (the card's float32 cumulative sum against the host's float64 one at a
+    boundary); the episode reruns on the host."""
+
+
+def resolve_record_mode(env_mod, recurrent: bool, requested: str = '') -> str:
+    """The device actor's record mode for an env twin.
+
+    'strict': episodes are verified on the host at splice time and
+    uploaded byte for byte as a worker's record (divergent lanes rerun on
+    the host); it needs a twin deterministic given the actions
+    (``RNG_COMPAT == 'strict'``), turn-based, and a feed-forward net.
+    'device': episodes are spliced from the device trajectory and stamped
+    ``record_version: 1``. '' picks strict where it is allowed."""
+    compat = str(getattr(env_mod, 'RNG_COMPAT', 'device'))
+    simult = simultaneous(env_mod)
+    strict_ok = compat == 'strict' and not recurrent and not simult
+    if requested == 'strict':
+        if not strict_ok:
+            raise ValueError(
+                'device_actor_record=strict requires a turn-based env twin '
+                "with RNG_COMPAT == 'strict' and a non-recurrent model "
+                '(got compat=%r, recurrent=%s, simultaneous=%s)'
+                % (compat, recurrent, simult))
+        return 'strict'
+    if requested == 'device':
+        return 'device'
+    return 'strict' if strict_ok else 'device'
+
+
+def _tree_where(cond: Tensor, a, b):
+    """Per lane ``a`` where ``cond`` else ``b``, over an env state
+    NamedTuple (``cond`` (N,) broadcast to each field)."""
+    return type(a)(*(torch.where(cond.reshape((-1,) + (1,) * (x.dim() - 1)),
+                                 x, y) for x, y in zip(a, b)))
+
+
+def _u_pick(weights: Tensor, legal: Tensor, u: Tensor) -> Tensor:
+    """The inverse-CDF draw of ``generation.masked_sample`` on the device:
+    the first legal action whose float32 cumulative weight exceeds
+    ``u * total``, else the last legal action (u rounded past the end).
+    Rows of all-zero weights fall through to the last legal action. Returns
+    (N,) int64."""
+    legalb = legal > 0
+    c = torch.cumsum(weights * legal, dim=-1)
+    total = c[:, -1:]
+    cond = (c > u[:, None] * total) & legalb
+    acts = legal.shape[-1]
+    last_legal = (acts - 1) - torch.argmax(legalb.flip(-1).to(torch.uint8),
+                                           dim=-1)
+    first = torch.argmax(cond.to(torch.uint8), dim=-1)
+    return torch.where(cond.any(dim=-1), first, last_legal)
+
+
+def is_recurrent(net: torch.nn.Module) -> bool:
+    """A net with a hidden state (``init_hidden`` returns one)."""
+    init = getattr(net, 'init_hidden', None)
+    return init is not None and init() is not None
+
+
+class DeviceActorEngine:
+    """The fused rollout behind a device actor gather: the port of the JAX
+    package's ``DeviceActorEngine`` (device_generation.py:686-1362 there)
+    without its streaming ``emit`` and its recurrent nets.
+
+    :meth:`run_block` takes a list of ledger tasks ('g' episodes and 'e'
+    evaluations, one lane each), plays them all in chunks of
+    ``chunk_steps`` plies (every slot's net on every lane, per-seat
+    modes, the transition, termination) and splices the finished lanes
+    into upload payloads. Lanes freeze when their episode ends (no
+    auto-reset), so a task's record is exactly one episode.
+
+    A chunk is one :class:`CapturedCall` on static tensors: the env state,
+    the lanes' liveness and ply counts, the per-seat slot and mode tables,
+    the strict draws and ``slots`` copies of the net, whose parameters are
+    overwritten in place for a new slot -> model id map. The graph is
+    captured once (at the first block's second chunk) and replayed for
+    every later chunk and block; :attr:`builds` counts the chunk programs
+    built and :attr:`captures` the graphs captured. On the CPU the chunk
+    runs eagerly.
+
+    Tasks the chunk cannot express (unknown opponents, checkpoint
+    opponents, more model ids than slots, strict tasks without a
+    ``sample_key``) come back for the caller's host fallback. A failed
+    build or launch raises; only a lane's splice is guarded, and a lane
+    that fails there uploads None (the ledger re-issues its task)."""
+
+    def __init__(self, env_mod, vault, host_env, args: Dict[str, Any],
+                 n_envs: int = 64, chunk_steps: int = 16, slots: int = 2,
+                 record_mode: str = '', seed: int = 0, device: Any = 'cuda'):
+        from .model import resolve_device
+        self.args = args
+        self.vault = vault
+        self.host_env = host_env
+        self.env_mod = env_mod
+        self.device = resolve_device(device)
+        self.n_envs = int(n_envs)
+        self.chunk_steps = int(chunk_steps)
+        self.slots = max(1, int(slots))
+        self.seed = int(seed)
+        self.num_players = int(env_mod.NUM_PLAYERS)
+        self.simultaneous = simultaneous(env_mod)
+        self.max_steps = int(getattr(env_mod, 'MAX_STEPS', 1000))
+        self._has_rule = hasattr(env_mod, 'greedy_action')
+        # recurrence is the architecture's: the env's net decides it before
+        # any snapshot arrives
+        self.recurrent = is_recurrent(host_env.net())
+        self.record_mode = resolve_record_mode(env_mod, self.recurrent,
+                                               str(record_mode or ''))
+        if self.recurrent:
+            raise NotImplementedError(
+                'the device actor backend plays feed-forward nets; '
+                'recurrent nets are not ported yet (ROADMAP.md)')
+        self.generator = env_generator(self.device, self.seed)
+        self.blocks = 0
+        self.builds = 0
+        self._call: Optional[CapturedCall] = None
+        self._nets: List[torch.nn.Module] = []
+        self._pack: Optional[_RecordPacker] = None
+        self._fetch = PackedFetch(self.device)
+        self._stack_key = None
+        self._gen = None            # the host Generator of strict reruns
+        # what the gather's beacon reports
+        self.stats = {'plies': 0, 'scheduled_plies': 0, 'episodes': 0,
+                      'results': 0, 'divergences': 0, 'none_payloads': 0,
+                      'chunks': 0, 'chunk_seconds': 0.0,
+                      'block_seconds': 0.0}
+        self.last_block: Dict[str, Any] = {}
+
+    @property
+    def captures(self) -> int:
+        return self._call.captures if self._call is not None else 0
+
+    # -- task classification ----------------------------------------------
+
+    def _classify(self, task) -> Optional[Dict[str, Any]]:
+        """One ledger task as per-seat (mode, slot model id) vectors, or
+        None when the chunk cannot express it (host fallback)."""
+        role = (task or {}).get('role')
+        P = self.num_players
+        raw = (task or {}).get('model_id') or {}
+        mids = {p: int(raw.get(p, -1)) for p in range(P)}
+        modes = [MODE_FIRST] * P
+        slot_mids: List[int] = []
+        if role == 'g':
+            if self.record_mode == 'strict' \
+                    and task.get('sample_key') is None:
+                return None     # no server key: no byte contract to keep
+            for p in range(P):
+                if mids[p] >= 1:
+                    modes[p] = MODE_SAMPLE
+                    slot_mids.append(mids[p])
+                elif mids[p] == 0:
+                    modes[p] = MODE_UNIFORM
+                else:
+                    return None
+            return {'task': task, 'kind': 'episode', 'modes': modes,
+                    'mids': mids, 'slot_mids': slot_mids, 'opponent': None}
+        if role == 'e':
+            seat = int(task['player'][0])
+            opponent = task.get('opponent')
+            if not opponent:
+                opponents = (self.args.get('eval') or {}).get('opponent', [])
+                skey = task.get('sample_key')
+                if opponents and skey is not None:
+                    # the Evaluator's namespace-2 pool draw, so the
+                    # opponent is the one a host re-issue would meet
+                    seq = sample_seed(self.args.get('seed', 0),
+                                      (2, int(skey)), 0)
+                    opponent = opponents[int(
+                        np.random.default_rng(seq).integers(len(opponents)))]
+                elif opponents:
+                    return None   # an unkeyed pool draw: the host decides
+                else:
+                    opponent = 'random'
+            for p in range(P):
+                if p == seat:
+                    modes[p] = MODE_GREEDY if mids[p] >= 1 else MODE_FIRST
+                    if mids[p] >= 1:
+                        slot_mids.append(mids[p])
+                elif mids[p] >= 1:
+                    modes[p] = MODE_GREEDY
+                    slot_mids.append(mids[p])
+                elif opponent == 'random':
+                    modes[p] = MODE_UNIFORM
+                elif str(opponent).startswith('rulebase') and self._has_rule:
+                    modes[p] = MODE_RULEBASE
+                else:
+                    return None   # checkpoint and other opponents: host
+            return {'task': task, 'kind': 'result', 'modes': modes,
+                    'mids': mids, 'slot_mids': slot_mids,
+                    'opponent': opponent}
+        return None
+
+    # -- the chunk program --------------------------------------------------
+
+    def _build(self, wrapper):
+        """The static tensors and the chunk's :class:`CapturedCall`, from
+        the first model the vault materializes: ``slots`` copies of its
+        net on the device, the env state, the lanes' liveness and ply
+        counts, the seat tables and the strict draws (N, MAX_STEPS) in
+        strict mode, (N, 1) otherwise."""
+        if is_recurrent(wrapper.module):
+            raise NotImplementedError('the env net and the snapshot '
+                                      'disagree on recurrence')
+        N, P, dev = self.n_envs, self.num_players, self.device
+        self._nets = [copy.deepcopy(wrapper.module).to(dev).eval()
+                      for _ in range(self.slots)]
+        self.state = self.env_mod.init_state(N, seed=self.seed, device=dev)
+        self._live = torch.zeros((N,), dtype=torch.bool, device=dev)
+        self._t = torch.zeros((N,), dtype=torch.int64, device=dev)
+        u_len = self.max_steps if self.record_mode == 'strict' else 1
+        self._u = torch.zeros((N, u_len), dtype=torch.float32, device=dev)
+        self._slot = torch.zeros((N, P), dtype=torch.int64, device=dev)
+        self._mode = torch.full((N, P), MODE_FIRST, dtype=torch.int64,
+                                device=dev)
+        self._call = CapturedCall(self._chunk, dev, [self.generator])
+        self._stack_key = None
+        self.builds += 1
+
+    @torch.no_grad()
+    def _chunk(self) -> Tensor:
+        """``chunk_steps`` plies in place on the static tensors; returns
+        the chunk's records packed into one float32 tensor."""
+        state, live, t = self.state, self._live, self._t
+        plies: List[Dict[str, Tensor]] = []
+        for _ in range(self.chunk_steps):
+            state, live, t, record = self._ply(state, live, t)
+            plies.append(record)
+        # stacked before the static tensors are written: the first ply's
+        # records may be views of them (its liveness, a twin's 'acting')
+        records = {k: torch.stack([r[k] for r in plies]) for k in plies[0]}
+        copy_state_(self.state, state)
+        self._live.copy_(live)
+        self._t.copy_(t)
+        if self._pack is None:     # the first call, which runs eagerly
+            self._pack = _RecordPacker(records)
+        return self._pack.pack(records)
+
+    def _ply(self, state, live: Tensor, t: Tensor):
+        """One ply of every lane: every slot's net on every lane, each
+        seat's logits from its slot, the seat modes' actions, the
+        transition (frozen where the lane is not live) and the record.
+        The draws come from the engine's generator in this order: the
+        sampled action's uniforms, the uniform action's, the rulebase
+        fallback's ('device' records; strict lanes take theirs from the
+        block's table)."""
+        env, gen, dev = self.env_mod, self.generator, self.device
+        N, P = self.n_envs, self.num_players
+        rows = torch.arange(N, device=dev)
+        per_slot = [_ply_inference(env, net, state) for net in self._nets]
+        obs, amask = per_slot[0][0], per_slot[0][2]
+        legal = (amask <= 0).float()
+        logits_m = torch.stack([s[1] for s in per_slot])
+        value_m = None
+        if per_slot[0][3].get('value') is not None:
+            value_m = torch.stack([
+                s[3]['value'].reshape(N, P, -1) if self.simultaneous
+                else s[3]['value'] for s in per_slot])
+        if self.simultaneous:
+            r2 = rows[:, None]
+            cols = torch.arange(P, device=dev)[None, :]
+            logits = logits_m[self._slot, r2, cols]             # (N, P, A)
+            value = (value_m[self._slot, r2, cols]
+                     if value_m is not None else None)
+            mode = self._mode
+        else:
+            player = env.turn(state)                            # (N,)
+            slot_act = self._slot[rows, player]
+            logits = logits_m[slot_act, rows]                   # (N, A)
+            value = value_m[slot_act, rows] if value_m is not None else None
+            mode = self._mode[rows, player]
+        if self.record_mode == 'strict' and not self.simultaneous:
+            idx = t.clamp(max=self._u.shape[1] - 1)
+            u = self._u[rows, idx]
+            a_sample = _u_pick(torch.softmax(logits, dim=-1), legal, u)
+            a_unif = _u_pick(torch.ones_like(legal), legal, u)
+        else:
+            a_sample = gumbel_argmax(logits, torch.rand(
+                logits.shape, generator=gen, device=dev))
+            a_unif = gumbel_argmax(-amask, torch.rand(
+                amask.shape, generator=gen, device=dev))
+        probs = torch.softmax(logits, dim=-1)
+        action = torch.argmax(legal, dim=-1)                    # FIRST
+        action = torch.where(mode == MODE_SAMPLE, a_sample, action)
+        action = torch.where(mode == MODE_GREEDY,
+                             torch.argmax(logits, dim=-1), action)
+        action = torch.where(mode == MODE_UNIFORM, a_unif, action)
+        if self._has_rule:
+            a_rule = env.greedy_action(state, generator=gen).long()
+            action = torch.where(mode == MODE_RULEBASE, a_rule, action)
+        sel = torch.gather(probs, -1, action[..., None])[..., 0]
+        gate = live[:, None] if self.simultaneous else live
+        action = torch.where(gate, action, torch.zeros_like(action))
+        nstate = env.step(state, action, generator=gen)
+        nstate = _tree_where(live, nstate, state)               # frozen lanes
+        done_now = env.terminal(nstate) & live
+        record = {'action': action.int(), 'live': live, 'done': done_now,
+                  'outcome': env.outcome(nstate)}
+        if self.simultaneous:
+            record['acting'] = env.acting(state)
+        else:
+            record['player'] = env.turn(state)
+        if self.record_mode == 'device':
+            record['obs'] = obs
+            record['prob'] = sel
+            record['amask'] = amask
+            if value is not None:
+                record['value'] = value
+            if hasattr(env, 'rewards'):
+                record['reward'] = env.rewards(nstate)
+        t = t + live.long()
+        live = live & ~done_now
+        return nstate, live, t, record
+
+    @torch.no_grad()
+    def _stack_params(self, assign: Dict[int, int]) -> None:
+        """Copy each slot's model's parameters into the slot's net, in
+        place (unused slots take the first assigned model's). Cached on
+        the slot -> model id map: the same pairing again costs nothing."""
+        by_slot: List[Optional[int]] = [None] * self.slots
+        for mid, slot in assign.items():
+            by_slot[slot] = mid
+        key = tuple(by_slot)
+        if key == self._stack_key:
+            return
+        pad = next(iter(assign))
+        for net, mid in zip(self._nets, by_slot):
+            src = self.vault.model(pad if mid is None else mid).module
+            src_state = src.state_dict()
+            for name, dst in net.state_dict().items():
+                dst.copy_(src_state[name])
+        self._stack_key = key
+
+    # -- block execution ----------------------------------------------------
+
+    def run_block(self, tasks):
+        """Serve one block of ledger tasks on the device. Returns
+        ``(uploads, deferred)``: uploads are ``(kind, payload)`` pairs for
+        the gather's upload box (payload None for a lane whose splice
+        failed: the ledger re-issues its task), deferred the tasks the
+        host fallback must play."""
+        t_block = time.perf_counter()
+        deferred, plan = [], []
+        for task in tasks:
+            if task.get('role') == 'idle':
+                continue
+            cls = self._classify(task)
+            if cls is None:
+                deferred.append(task)
+            else:
+                plan.append(cls)
+        if len(plan) > self.n_envs:
+            # more tasks than lanes: the overflow rides the host fallback
+            deferred.extend(cls['task'] for cls in plan[self.n_envs:])
+            plan = plan[:self.n_envs]
+        if not plan:
+            return [], deferred
+
+        # slot planning: tasks admitted in order until the stack is full;
+        # the overflow rides the host fallback
+        from .league import plan_slots
+        assign, admitted = plan_slots(
+            [cls['slot_mids'] for cls in plan], self.slots)
+        kept = []
+        for cls, ok in zip(plan, admitted):
+            if ok:
+                kept.append(cls)
+            else:
+                deferred.append(cls['task'])
+        plan = kept
+        if not assign or not plan:
+            # nothing slot-backed to run (epoch 0, or pure overflow): the
+            # chunk needs at least one model's params
+            deferred.extend(cls['task'] for cls in plan)
+            return [], deferred
+
+        if self._call is None:
+            self._build(self.vault.model(next(iter(assign))))
+        self._stack_params(assign)
+        self._load_block(plan, assign)
+
+        chunks: List[Dict[str, np.ndarray]] = []
+        chunk_ms: List[float] = []
+        n_chunks_cap = max(2, -(-self.max_steps // self.chunk_steps) + 2)
+        cuda = self.device.type == 'cuda'
+        for _ in range(n_chunks_cap):
+            t0 = time.perf_counter()
+            if cuda:
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+            packed = self._call()
+            if cuda:
+                end.record()
+            rec = self._pack.unpack(PackedFetch.get(self._fetch.put(packed)))
+            if cuda:
+                chunk_ms.append(start.elapsed_time(end))
+            self.stats['chunk_seconds'] += time.perf_counter() - t0
+            chunks.append(rec)
+            if not (rec['live'][-1] & ~rec['done'][-1]).any():
+                break
+        rec = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+        plies = int(rec['live'].sum())
+        scheduled = len(chunks) * self.chunk_steps * len(plan)
+        self.stats['plies'] += plies
+        self.stats['scheduled_plies'] += scheduled
+        self.stats['chunks'] += len(chunks)
+
+        uploads = []
+        for i, cls in enumerate(plan):
+            ks = np.nonzero(rec['live'][:, i])[0]
+            finished = len(ks) > 0 and bool(rec['done'][ks[-1], i])
+            payload = None
+            if finished:
+                try:
+                    if cls['kind'] == 'result':
+                        payload = self._result_record(cls, i, rec, ks)
+                    elif self.record_mode == 'strict':
+                        payload = self._splice_strict(cls, i, rec, ks)
+                    else:
+                        payload = self._splice_device(cls, i, rec, ks)
+                except Exception:
+                    import traceback
+                    traceback.print_exc()
+                    payload = None
+            self.stats['none_payloads'] += payload is None
+            uploads.append((cls['kind'], payload))
+        seconds = time.perf_counter() - t_block
+        self.stats['block_seconds'] += seconds
+        self.last_block = {'lanes': len(plan), 'chunks': len(chunks),
+                           'plies': plies, 'fill_ratio': plies / scheduled,
+                           'seconds': seconds, 'chunk_ms': chunk_ms}
+        return uploads, deferred
+
+    def _load_block(self, plan, assign: Dict[int, int]) -> None:
+        """The block's lanes into the static tensors: a fresh env state
+        (seeded per block), the lanes' liveness, ply counts 0, the seat
+        tables and, in strict mode, each lane's draws (the host
+        Generator's ``sample_seed`` stream of the task's key)."""
+        N, P = self.n_envs, self.num_players
+        strict = self.record_mode == 'strict'
+        seat_slot = np.zeros((N, P), np.int64)
+        seat_mode = np.full((N, P), MODE_FIRST, np.int64)
+        live = np.zeros((N,), bool)
+        u_tab = np.zeros(tuple(self._u.shape), np.float32)
+        base_seed = self.args.get('seed', 0)
+        for i, cls in enumerate(plan):
+            live[i] = True
+            for p in range(P):
+                seat_mode[i, p] = cls['modes'][p]
+                if cls['modes'][p] in (MODE_SAMPLE, MODE_GREEDY):
+                    seat_slot[i, p] = assign[cls['mids'][p]]
+            if strict:
+                skey = cls['task'].get('sample_key')
+                if cls['kind'] == 'episode':
+                    ekey, d0 = (0, int(skey)), 0
+                else:
+                    # evaluation lanes carry no byte contract; draw 0 named
+                    # the opponent, so the plies' draws continue the stream
+                    ekey, d0 = (2, int(skey if skey is not None else i)), 1
+                for tt in range(u_tab.shape[1]):
+                    seq = sample_seed(base_seed, ekey, d0 + tt)
+                    u_tab[i, tt] = np.random.default_rng(seq).random()
+        block_seed = self.seed + 7919 * self.blocks
+        self.blocks += 1
+        with torch.no_grad():
+            copy_state_(self.state, self.env_mod.init_state(
+                N, seed=block_seed, device=self.device))
+            self._live.copy_(torch.from_numpy(live))
+            self._t.zero_()
+            self._u.copy_(torch.from_numpy(u_tab))
+            self._slot.copy_(torch.from_numpy(seat_slot))
+            self._mode.copy_(torch.from_numpy(seat_mode))
+
+    # -- splicing -----------------------------------------------------------
+
+    def _result_record(self, cls, lane, rec, ks):
+        """An evaluation lane's outcome-only record (the Evaluator's
+        ``{'args', 'opponent', 'result'}``)."""
+        k = ks[-1]
+        self.stats['results'] += 1
+        return {'args': cls['task'], 'opponent': cls['opponent'],
+                'result': {p: float(rec['outcome'][k, lane, p])
+                           for p in range(self.num_players)}}
+
+    def _splice_device(self, cls, lane, rec, ks):
+        """A ``record_version: 1`` episode from the lane's device
+        trajectory (the split generator's moment layout)."""
+        players = list(range(self.num_players))
+        moments = []
+        for k in ks:
+            if self.simultaneous:
+                moments.append(self._lane_moment_simultaneous(
+                    rec, k, lane, players))
+            else:
+                moments.append(self._lane_moment_turn_based(
+                    rec, k, lane, players))
+        k = ks[-1]
+        outcome = {p: float(rec['outcome'][k, lane, p]) for p in players}
+        for p in players:
+            ret = 0.0
+            for t in range(len(moments) - 1, -1, -1):
+                ret = ((moments[t]['reward'][p] or 0)
+                       + self.args['gamma'] * ret)
+                moments[t]['return'][p] = ret
+        self.stats['episodes'] += 1
+        return {
+            'args': cls['task'], 'steps': len(moments), 'outcome': outcome,
+            'moment': compress_moments(
+                moments, self.args['compress_steps'],
+                level=self.args.get('compress_level', 9)),
+            # these records follow the device's draws, not the host byte
+            # contract: stamped, never silently different
+            'record_version': 1,
+        }
+
+    def _lane_moment_turn_based(self, rec, k, i, players):
+        player = int(rec['player'][k, i])
+        moment = _blank(players)
+        moment['observation'][player] = rec['obs'][k, i]
+        moment['selected_prob'][player] = float(rec['prob'][k, i])
+        moment['action_mask'][player] = rec['amask'][k, i]
+        moment['action'][player] = int(rec['action'][k, i])
+        if rec.get('value') is not None:
+            moment['value'][player] = rec['value'][k, i]
+        moment['reward'] = self._lane_rewards(rec, k, i, players)
+        moment['turn'] = [player]
+        return moment
+
+    def _lane_moment_simultaneous(self, rec, k, i, players):
+        moment = _blank(players)
+        turn_players = []
+        for p in players:
+            if not rec['acting'][k, i, p]:
+                continue
+            turn_players.append(p)
+            moment['observation'][p] = rec['obs'][k, i, p]
+            moment['selected_prob'][p] = float(rec['prob'][k, i, p])
+            moment['action_mask'][p] = rec['amask'][k, i, p]
+            moment['action'][p] = int(rec['action'][k, i, p])
+            if rec.get('value') is not None:
+                moment['value'][p] = rec['value'][k, i, p]
+        moment['reward'] = self._lane_rewards(rec, k, i, players)
+        moment['turn'] = turn_players
+        return moment
+
+    def _lane_rewards(self, rec, k, i, players):
+        if rec.get('reward') is None:
+            return {p: None for p in players}
+        return {p: float(rec['reward'][k, i, p]) for p in players}
+
+    def _splice_strict(self, cls, lane, rec, ks):
+        """Replay the lane's device actions through the host env and the
+        host sampling contract, verifying every draw: a verified lane's
+        record is the one the host Generator writes for the task, byte for
+        byte, with no version stamp. A mismatch reruns the task on the
+        host Generator and counts a divergence."""
+        task = cls['task']
+        try:
+            episode = self._replay_strict(task, lane, rec, ks)
+        except Divergence:
+            episode = None
+        if episode is None:
+            self.stats['divergences'] += 1
+            return self._host_rerun(task)
+        self.stats['episodes'] += 1
+        return episode
+
+    def _replay_strict(self, task, lane, rec, ks):
+        env = self.host_env
+        args = self.args
+        base_seed = args.get('seed', 0)
+        episode_key = (0, int(task['sample_key']))
+        seed_env_rng(env, base_seed, episode_key)
+        if env.reset():
+            raise Divergence
+        device_actions = [int(a) for a in rec['action'][ks, lane]]
+        plies = []      # [player, obs, legal, seed_seq, reward, action]
+        draws = 0
+        for a_dev in device_actions:
+            if env.terminal():
+                raise Divergence             # the device episode ran long
+            turn_players = env.turns()
+            if len(turn_players) != 1:
+                raise Divergence             # strict is turn-based only
+            p = turn_players[0]
+            obs = env.observation(p)
+            seed_seq = sample_seed(base_seed, episode_key, draws)
+            draws += 1
+            legal = env.legal_actions(p)
+            if a_dev not in legal:
+                raise Divergence
+            if env.step({p: a_dev}):
+                raise Divergence
+            plies.append([p, obs, legal, seed_seq, env.reward(), a_dev])
+        if not env.terminal():
+            raise Divergence                 # the device episode ended early
+
+        # the policy recomputed per model in buckets of 8 rows, the bucket
+        # the Generator's per-ply forward uses: rows of one bucket size are
+        # independent of each other, a larger bucket may round differently
+        models = self.vault.obtain(dict(task['model_id']))
+        outputs: List[Optional[dict]] = [None] * len(plies)
+        groups: Dict[int, list] = {}
+        for j, ply in enumerate(plies):
+            groups.setdefault(id(models[ply[0]]), []).append(j)
+        for idxs in groups.values():
+            model = models[plies[idxs[0]][0]]
+            if not hasattr(model, 'batch_inference'):
+                for j in idxs:               # RandomModel: zero outputs
+                    outputs[j] = bucketed_inference(model, plies[j][1])
+                continue
+            for lo in range(0, len(idxs), 8):
+                part = idxs[lo:lo + 8]
+                obs_b, _ = pad_to_bucket([plies[j][1] for j in part])
+                out = model.batch_inference(obs_b, None)
+                policy = np.asarray(out['policy'])
+                value = (np.asarray(out['value'])
+                         if out.get('value') is not None else None)
+                for row, j in enumerate(part):
+                    outputs[j] = {'policy': policy[row],
+                                  'value': (value[row] if value is not None
+                                            else None)}
+
+        moments = []
+        for j, (p, obs, legal, seed_seq, reward, a_dev) in enumerate(plies):
+            action, prob, mask = masked_sample(outputs[j]['policy'], legal,
+                                               seed_seq)
+            if action != a_dev:
+                raise Divergence             # a boundary collision: rerun
+            moment = _blank_moment(env.players())
+            moment['observation'][p] = obs
+            moment['value'][p] = outputs[j].get('value')
+            moment['selected_prob'][p] = prob
+            moment['action_mask'][p] = mask
+            moment['action'][p] = action
+            for player in env.players():
+                moment['reward'][player] = reward.get(player, None)
+            moment['turn'] = [p]
+            moments.append(moment)
+        return finalize_episode_record(env.outcome(), moments, args, task)
+
+    def _host_rerun(self, task):
+        """The byte-exact fallback: the host Generator plays the task from
+        its key (the record any worker would upload)."""
+        if self._gen is None:
+            self._gen = Generator(self.host_env, self.args, namespace=-1)
+        models = self.vault.obtain(dict(task['model_id']))
+        return self._gen.execute(models, task)

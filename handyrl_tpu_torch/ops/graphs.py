@@ -76,7 +76,8 @@ class CapturedCall:
     replays it, and every later call replays it. ``fn`` reads and writes
     static tensors in place and returns its outputs; a graph's outputs are
     the tensors its capture returned, rewritten by each replay. On the CPU
-    ``fn`` runs eagerly on every call."""
+    ``fn`` runs eagerly on every call. :attr:`captures` counts the graphs
+    captured (at most 1)."""
 
     def __init__(self, fn: Callable[[], Any], device: torch.device,
                  generators: Sequence[torch.Generator] = ()):
@@ -85,6 +86,7 @@ class CapturedCall:
         self.generators = tuple(generators)
         self.calls = 0
         self.graph: Optional[CountedGraph] = None
+        self.captures = 0
         self._side = (torch.cuda.Stream(self.device)
                       if self.device.type == 'cuda' else None)
 
@@ -105,6 +107,7 @@ class CapturedCall:
             return out
         if self.graph is None:
             self.graph = CountedGraph(self.fn, self._side, self.generators)
+            self.captures += 1
         return self.graph.replay()
 
 

@@ -33,6 +33,19 @@ def windows_per_episode(args: Dict[str, Any]) -> int:
                or max(1, 64 // args['forward_steps']))
 
 
+def resolve_windows_per_episode(args: Dict[str, Any], env_mod) -> None:
+    """The JAX learner's resolution of an unset
+    ``replay_windows_per_episode`` when ``device_replay`` is on
+    (handyrl_tpu/train.py:1212-1224): max(1, MAX_STEPS // forward_steps)
+    of the env twin ``env_mod``, written into ``args`` before the ring and
+    the windower are sized, so both read it."""
+    if not args.get('replay_windows_per_episode'):
+        max_steps = int(getattr(env_mod, 'MAX_STEPS',
+                                getattr(env_mod, 'MAX_PLIES', 64)))
+        args['replay_windows_per_episode'] = max(
+            1, max_steps // args['forward_steps'])
+
+
 def sgd_steps_per_chunk(args: Dict[str, Any]) -> int:
     """Update steps a fused dispatch (they pin the replay ratio):
     ``sgd_steps_per_chunk``, or 16."""

@@ -9,8 +9,12 @@ self-play, evaluates the model online and trains it. With
 RPCs (:meth:`Learner.server`) to a local worker cluster of spawned gather
 and worker processes; with ``--server`` it listens for worker hosts
 (``python -m handyrl_tpu_torch.worker``) on the entry and data ports.
-Every task is booked in a ``fault.TaskLedger`` (stranded tasks re-issued,
-duplicate uploads dropped) and every host has a health state
+A gather's backend is ``generation.backend`` or a host's
+``worker_args.backend``: 'worker' processes, or 'device', the fused
+rollout on the gather's card (``worker.DeviceActorGather``); the worker
+plane never reads ``device_generation``. Every task is booked in a
+``fault.TaskLedger`` (stranded tasks re-issued, duplicate uploads
+dropped) and every host has a health state
 (``fault.FleetController``). A local run whose gathers are lost stops with
 exit 1 naming them (the JAX learner waits for them forever).
 
@@ -76,7 +80,8 @@ line an epoch on the worker plane) and, at exit, one JSON line of rates,
 epoch times, peak device memory, the last epoch's losses and the launches
 by path (and the fused loop's dispatches, sample reuse, ring and host
 seconds; the worker plane's fleet snapshot, the workers' launches and
-play stats). It exits 75 after a preemption flush and 1 when the trainer
+play stats, the episodes stamped ``record_version`` and the device actor
+gathers' counts). It exits 75 after a preemption flush and 1 when the trainer
 or the local worker cluster failed.
 """
 
@@ -101,7 +106,7 @@ import torch
 
 from . import guard as guard_mod
 from . import telemetry
-from .config import ConfigError, apply_defaults
+from .config import apply_defaults
 from .environment import make_env
 from .fault import FleetController, TaskLedger
 from .generation import BatchedEvaluator, BatchedGenerator
@@ -112,7 +117,8 @@ from .ops.batch import (build_window_reference, decompress_moments,
                         make_batch, make_block_cache, select_episode,
                         stack_windows)
 from .ops.graphs import CapturedCall
-from .ops.replay import DeviceReplay, ring_capacity
+from .ops.replay import (DeviceReplay, resolve_windows_per_episode,
+                         ring_capacity)
 from .ops.shm_batch import (_SHM_SLOTS, JOB_ARG_KEYS, ArenaMap, SharedBatch,
                             batcher_process as _batcher_process,
                             batcher_process_shm as _batcher_process_shm)
@@ -993,20 +999,32 @@ class Learner:
         self.generation_results: Dict[int, tuple] = {}
         self.num_episodes = 0
         self.num_returned_episodes = 0
+        # episodes stamped record_version (the device actor's 'device'
+        # records, which follow the card's draws, not the host byte
+        # contract; handyrl_tpu/train.py:1966-1971)
+        self.stamped_episodes = 0
         self.results: Dict[int, tuple] = {}
         self.results_per_opponent: Dict[int, dict] = {}
         self.num_results = 0
+
+        # the replay's windows per episode, resolved once from the env
+        # twin's episode length before the trainer is built, so the ring's
+        # capacity and the windower's cap per episode both read it
+        if args['device_replay']:
+            from .environment import make_device_env
+            resolve_windows_per_episode(args, make_device_env(args['env']))
 
         # the worker plane (handyrl_tpu/train.py:1227-1234): a local
         # cluster, or the listeners of a training server
         self.remote = remote
         self.use_batched_generation = (not remote
                                        and args['batched_generation'])
-        if remote and args['device_generation']:
-            raise ConfigError(
-                'train_args.device_generation with --server: the device '
-                'actor backend (DeviceActorGather) is not ported yet '
-                '(ROADMAP.md)')
+        if not self.use_batched_generation:
+            # the worker plane never reads device_generation (handyrl_tpu/
+            # train.py:2551 reads it in the batched loop only): the
+            # gathers' backend is generation.backend or a host's
+            # worker_args.backend, and device_replay takes the host push
+            args['device_generation'] = False
         self.ledger: Optional[TaskLedger] = None      # built by server()
         self.fleet: Optional[FleetController] = None  # built by server()
         self.worker = None
@@ -1014,7 +1032,7 @@ class Learner:
         self._snapshot_cache: Optional[tuple] = None
         self._sample_keys: set = set()
         self.repeated_sample_keys = 0
-        if not self.use_batched_generation and not args['device_generation']:
+        if not self.use_batched_generation:
             # the local cluster's workers run on the learner's device
             args['worker']['device'] = str(self.device)
             self.worker = WorkerServer(args) if remote else WorkerCluster(args)
@@ -1348,6 +1366,8 @@ class Learner:
                 n, r, r2 = self.generation_results.get(model_id, (0, 0, 0))
                 self.generation_results[model_id] = (n + 1, r + outcome,
                                                      r2 + outcome ** 2)
+            if episode.get('record_version'):
+                self.stamped_episodes += 1
             skey = episode['args'].get('sample_key')
             if skey is not None:   # a worker-plane task: played once
                 if skey in self._sample_keys:
@@ -1824,7 +1844,13 @@ class Learner:
                                  if st.get('plies') else None)
             st['device'] = b.get('device')
             stats['%s/%s' % (wid, pid)] = st
+        device_actor = [dict(g['device_actor'], gather=g.get('gather'),
+                             pid=g.get('pid'))
+                        for g in self.worker.fleet_beacons()[
+                            'gathers'].values() if g.get('device_actor')]
         return {'generation': 'server' if self.remote else 'workers',
+                'stamped_episodes': self.stamped_episodes,
+                'device_actor': device_actor,
                 'fleet': self._fleet_snapshot(),
                 'fleet_failure': self.fleet_failure,
                 'distinct_sample_keys': len(self._sample_keys),

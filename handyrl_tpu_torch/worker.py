@@ -20,6 +20,12 @@ either.
   batches; on a socket link it redials with backoff and resends what the
   learner has not acknowledged, and beacons its stats. Gathers relay bytes
   and never import torch.
+* :class:`DeviceActorGather` (``generation.backend`` or a host's
+  ``worker_args.backend`` 'device'): a gather with no workers that plays
+  its task blocks as lanes of one fused rollout on its card
+  (``device_generation.DeviceActorEngine``: K1's serving form once a slot
+  and a ply, inside a CUDA graph), the tasks the engine defers on a host
+  Generator and Evaluator in the same process.
 * :class:`WorkerCluster` (local: gathers over spawned pipes, ``python -m
   handyrl_tpu_torch.train`` with ``batched_generation: false``),
   :class:`WorkerServer` (the learner's listeners, ``--server``) and
@@ -450,28 +456,165 @@ class Gather:
 
 
 def resolve_generation_backend(args: Dict[str, Any]) -> str:
-    """The actor engine of a gather host: a host's ``worker_args.backend``
-    (riding the entry handshake) wins over the training config's
-    ``generation.backend``; with neither set, 'worker'. The port runs
-    'worker' only (per-worker inference)."""
+    """The actor engine of a gather host: 'worker' (per-worker inference)
+    or 'device' (the fused rollout on the gather's card,
+    :class:`DeviceActorGather`). A host's ``worker_args.backend`` (riding
+    the entry handshake) wins over the training config's
+    ``generation.backend``; with neither set, the JAX package's auto rule
+    picks 'engine' when the inference block is on, else 'worker' (the
+    port refuses ``inference.enabled`` and 'engine' in ``config.validate``,
+    so its auto backend is 'worker')."""
     backend = str((args.get('worker') or {}).get('backend') or ''
                   ) or str((args.get('generation') or {}).get('backend')
                            or '')
-    return backend or 'worker'
+    if not backend:
+        backend = ('engine' if (args.get('inference') or {}).get('enabled')
+                   else 'worker')
+    return backend
+
+
+class DeviceActorGather(Gather):
+    """A gather whose lanes of one fused device rollout stand in for its
+    workers (the JAX package's ``DeviceActorGather``, worker.py:657-741
+    there, without the streaming sink).
+
+    It keeps all of :class:`Gather`'s learner side (the supervised server
+    RPC with reconnect, the task-block prefetch, the snapshot cache, the
+    batched upload box with its resend bound, the beacons) with zero
+    worker children, and serves its task blocks with a
+    :class:`~.device_generation.DeviceActorEngine` on ``worker.device``
+    (default 'cuda'; without CUDA it raises and the process exits
+    non-zero). Tasks the engine defers run on a host
+    :class:`~.generation.Generator` / :class:`~.evaluation.Evaluator` pair
+    in this process (their forwards on the same device), so every task is
+    answered either way. Its beacon carries the engine's counts
+    (``device_actor``)."""
+
+    def __init__(self, args: Dict[str, Any], server_conn, gather_id: int,
+                 reconnect=None):
+        from .device_generation import DeviceActorEngine
+        from .environment import make_device_env, make_env
+        from .evaluation import Evaluator
+        from .generation import Generator
+        from .inference import ModelVault
+        from .model import fp32_on_card, resolve_device
+        self.device = resolve_device(args['worker'].get('device', 'cuda'))
+        fp32_on_card(self.device)
+        doctored = dict(args)
+        doctored['worker'] = dict(args['worker'], num_parallel=0)
+        super().__init__(doctored, server_conn, gather_id,
+                         reconnect=reconnect)
+        gen = args.get('generation') or {}
+        n_envs = int(gen.get('device_actor_envs', 64))
+        slots = int(gen.get('device_actor_slots', 2))
+        self.block = max(1, n_envs // 4)      # task-prefetch granularity
+        self.host_env = make_env(args['env'])
+        self.host_env.reset()
+        example_obs = self.host_env.observation(self.host_env.players()[0])
+        self.vault = ModelVault(self._snapshot, example_obs,
+                                capacity=slots + 2, device=self.device)
+        self.engine = DeviceActorEngine(
+            make_device_env(args['env']), self.vault, self.host_env, args,
+            n_envs=n_envs,
+            chunk_steps=int(gen.get('device_actor_chunk_steps', 16)),
+            slots=slots,
+            record_mode=str(gen.get('device_actor_record', '') or ''),
+            seed=int(args.get('seed', 0)) * 1009 + gather_id,
+            device=self.device)
+        self._fallback_gen = Generator(self.host_env, args,
+                                       namespace=gather_id)
+        self._fallback_eval = Evaluator(self.host_env, args,
+                                        device=self.device)
+        self.stats['deferred'] = 0
+        self.stats['host_failures'] = 0
+        _LOG.info('gather %d: device actor backend on %s (%d lanes, %d '
+                  'slots, %s records)', gather_id, self.device, n_envs,
+                  slots, self.engine.record_mode)
+
+    def beacon(self) -> Dict[str, Any]:
+        from .ops import kernel_launches
+        info = super().beacon()
+        eng = getattr(self, 'engine', None)
+        if eng is None:           # a beacon before the engine was built
+            return info
+        info['device_actor'] = dict(
+            eng.stats, deferred=self.stats['deferred'],
+            host_failures=self.stats['host_failures'], blocks=eng.blocks,
+            fill_ratio=(eng.stats['plies']
+                        / max(1, eng.stats['scheduled_plies'])),
+            builds=eng.builds, graph_captures=eng.captures,
+            record_mode=eng.record_mode, device=str(self.device),
+            launches=kernel_launches())
+        return info
+
+    def _collect_block(self):
+        """Pull up to one lane-count of tasks; returns (tasks, stop)."""
+        tasks: List[dict] = []
+        while len(tasks) < self.engine.n_envs:
+            task = self._next_task()
+            if task is None:
+                return tasks, True
+            if task.get('role') == 'idle':
+                if tasks:
+                    return tasks, False   # serve the partial block now
+                time.sleep(min(5.0, float(task.get('wait', 1.0))))
+                continue
+            tasks.append(task)
+        return tasks, False
+
+    def _run_host(self, task):
+        """The host fallback for a task the engine deferred, with a
+        worker's payload contract; a crash costs that task (None: the
+        ledger re-issues it)."""
+        self.stats['deferred'] += 1
+        kind = 'result' if task.get('role') == 'e' else 'episode'
+        try:
+            models = self.vault.obtain(dict(task.get('model_id', {})))
+            if task.get('role') == 'e':
+                payload = self._fallback_eval.execute(models, task)
+            else:
+                payload = self._fallback_gen.execute(models, task)
+        except _CONN_ERRORS:
+            raise                 # the model fetch rode a dead pipe
+        except Exception:
+            traceback.print_exc()
+            payload = None
+            self.stats['host_failures'] += 1
+        self._stash_upload(kind, payload)
+
+    def run(self):
+        while True:
+            tasks, stop = self._collect_block()
+            if tasks:
+                uploads, deferred = self.engine.run_block(tasks)
+                for kind, payload in uploads:
+                    self._stash_upload(kind, payload)
+                for task in deferred:
+                    self._run_host(task)
+            if stop:
+                break
+        self._flush_and_beacon()
 
 
 def gather_loop(args, conn, gather_id, server_address=None):
     """A gather process's entry point: pipe mode (``conn`` given) or
-    socket mode (it dials ``server_address``'s data port itself). Exits
-    1 when every worker was lost before the run ended."""
+    socket mode (it dials ``server_address``'s data port itself). The
+    backend ``resolve_generation_backend`` names picks the relay: a
+    :class:`Gather` of worker processes, or a :class:`DeviceActorGather`.
+    Exits 1 when every worker was lost before the run ended."""
     backend = resolve_generation_backend(args)
-    if backend != 'worker':
+    if backend not in ('worker', 'device'):
         raise ValueError('generation backend %r is not ported yet '
                          '(ROADMAP.md)' % backend)
     reconnect = None
     if server_address:
         def reconnect():
             return connect_socket_connection(server_address, data_port())
+    if backend == 'device':
+        import torch
+        torch.set_num_threads(1)
+        DeviceActorGather(args, conn, gather_id, reconnect=reconnect).run()
+        return
     gather = Gather(args, conn, gather_id, reconnect=reconnect)
     gather.run()
     if gather.lost:
@@ -771,13 +914,14 @@ def main(argv=None) -> int:
         '`python -m handyrl_tpu_torch.train --server` and play its tasks')
     ap.add_argument('--config', required=True,
                     help='JSON file with env_args, train_args and '
-                    'worker_args (server_address, num_parallel)')
+                    "worker_args (server_address, num_parallel; backend "
+                    "'device' for device actor gathers)")
     ap.add_argument('num_parallel', nargs='?', type=int, default=None,
                     help='worker processes on this host (default: '
                     'worker_args.num_parallel)')
     ap.add_argument('--device', default='cuda',
                     help="'cuda' (default) or 'cpu': where this host's "
-                    'workers run their models')
+                    'workers (or device actor gathers) run their models')
     a = ap.parse_args(argv)
     with open(a.config) as f:
         args = apply_defaults(json.load(f))

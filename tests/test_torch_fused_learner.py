@@ -114,7 +114,7 @@ def test_one_epoch_and_checkpoints_the_jax_package_reads(tmp_path, capsys):
     assert line['windows_ingested'] >= line['ring_size'] > 0
     assert line['sample_reuse'] == pytest.approx(
         steps * 4 / line['windows_ingested'])
-    assert line['ring_capacity'] == 16 * 16     # min(16, 4096) * 64 // 4
+    assert line['ring_capacity'] == 16 * 50     # min(16, 4096) * 200 // 4
     assert line['sgd_steps_per_s'] > 0 and line['kernel_launches'] == {}
     loop = line['loop_seconds']
     assert loop['checkpoint_write'] > 0 and loop['checkpoint_wait'] >= 0
@@ -211,15 +211,17 @@ def test_cli_without_cuda_raises_on_the_device_path(tmp_path):
 
 
 @pytest.mark.parametrize('env_args,train_args,key', [
-    # the device actor backend (DeviceActorGather) is the one device part
-    # not ported; every combination of the switches runs
-    ({}, {'device_generation': True, 'batched_generation': False},
-     'DeviceActorGather'),
+    # every combination of the switches runs (on the worker plane the
+    # gathers' backend, 'device' included); the planes the port lacks and
+    # the device actor's knobs out of range are refused
+    ({}, {'device_generation': True, 'batched_generation': False,
+          'generation': {'backend': 'engine'}}, 'EngineSupervisor'),
     ({}, {'device_generation': True, 'device_replay': True,
-          'fused_pipeline': False, 'batched_generation': False},
-     'DeviceActorGather'),
-    ({}, {'device_generation': True, 'generation': {'backend': 'device'}},
-     'DeviceActorGather'),
+          'fused_pipeline': False, 'batched_generation': False,
+          'streaming': {'enabled': True}}, 'streaming'),
+    ({}, {'device_generation': True, 'generation': {'backend': 'device',
+                                                   'device_actor_slots': 0}},
+     'device_actor_slots'),
     ({}, {'device_replay': True, 'replay_fused_steps': 0},
      'replay_fused_steps'),
     ({}, {'device_replay': True, 'max_sample_reuse': 0}, 'max_sample_reuse'),

@@ -28,8 +28,10 @@ stay within cap x windows ingested plus one dispatch; with a cap that no
 ingest can meet, each epoch still closes with exactly one dispatch (an
 epoch waiting to close is never throttled) and the trainer's wait shows.
 The TicTacToe mismatch runs through the CLI with ``--device cpu``; a
-``--server`` learner with ``device_generation`` is refused, naming
-``DeviceActorGather``.
+``--server`` learner with ``device_generation`` is the worker plane, with
+the switch off and its gathers' backend from ``generation.backend``. Both
+learners resolve an unset ``replay_windows_per_episode`` from the env
+twin's episode length to the same value and ring capacity (F3).
 """
 
 import json
@@ -48,7 +50,7 @@ from handyrl_tpu.model import ModelWrapper as JaxModelWrapper
 from handyrl_tpu.models import build as jax_build
 from handyrl_tpu.train import Trainer as JaxTrainer
 from handyrl_tpu.utils.fs import verify_checkpoint as jax_verify
-from handyrl_tpu_torch.config import ConfigError, apply_defaults
+from handyrl_tpu_torch.config import apply_defaults
 from handyrl_tpu_torch.environment import make_env
 from handyrl_tpu_torch.model import ModelWrapper, load_params_bytes
 from handyrl_tpu_torch.models.geese import GeeseNet, params_from_flax
@@ -184,7 +186,7 @@ def test_branch_trains_and_the_jax_package_reads_its_checkpoints(
     assert replay['windows_ingested'] > 0
     assert replay['dropped_episodes'] == 0
     assert 0 < replay['ring_occupancy'] <= 1
-    assert replay['ring_capacity'] == 16 * 16   # min(16, 4096) * 64 // 4
+    assert replay['ring_capacity'] == 16 * 50   # min(16, 4096) * 200 // 4
     for r in rows:
         for key in ('replay_dropped_episodes', 'replay_ring_occupancy',
                     'replay_sample_reuse', 'replay_windows_ingested',
@@ -246,6 +248,58 @@ def test_tictactoe_mismatch_through_the_cli(tmp_path):
 
 def test_server_with_device_generation_names_the_device_actor_gather(
         tmp_path):
-    with pytest.raises(ConfigError, match='DeviceActorGather'):
-        Learner(apply_defaults(_raw(tmp_path, device_generation=True)),
-                net=_net(), device='cpu', remote=True)
+    """A ``--server`` learner with ``device_generation`` is the worker
+    plane, as in the JAX learner, which reads ``device_generation`` in its
+    batched loop only: it builds with the switch resolved off (the replay
+    takes the host push) and hands its gathers the backend that
+    ``generation.backend`` names, 'device' for a ``DeviceActorGather``."""
+    from handyrl_tpu_torch.worker import (WorkerServer,
+                                          resolve_generation_backend)
+    raw = _raw(tmp_path, device_generation=True, device_replay=True,
+               generation={'backend': 'device'})
+    learner = Learner(apply_defaults(raw), net=_net(), device='cpu',
+                      remote=True)
+    try:
+        assert isinstance(learner.worker, WorkerServer)
+        assert not learner.use_batched_generation
+        assert learner.args['device_generation'] is False
+        assert learner.trainer.replay is not None
+        assert resolve_generation_backend(learner.args) == 'device'
+    finally:
+        learner.shutdown()
+
+
+# F3: the replay's windows per episode, resolved by the learner from the
+# env twin's episode length when device_replay is on and the value unset
+@pytest.mark.parametrize('env_name,forward_steps', [
+    ('HungryGeese', 4), ('HungryGeese', 16), ('TicTacToe', 4),
+    ('TicTacToe', 16)])
+def test_learner_resolves_windows_per_episode_as_the_jax_learner(
+        tmp_path, env_name, forward_steps):
+    """Both learners on the same config, ``device_replay`` on and
+    ``replay_windows_per_episode`` unset: the resolved value
+    (max(1, MAX_STEPS // forward_steps), handyrl_tpu/train.py:1212-1224)
+    and the ring's capacity are equal exactly."""
+    from handyrl_tpu.train import Learner as JaxLearner
+    from handyrl_tpu_torch.ops.replay import ring_capacity
+    train = {'forward_steps': forward_steps, 'device_replay': True,
+             'maximum_episodes': 16, 'batch_size': B,
+             'model_dir': str(tmp_path / 'models')}
+    jax_net, net = None, None
+    if env_name == 'HungryGeese':
+        train.update(turn_based_training=False, observation=True)
+        jax_net, net = jax_build('GeeseNet', filters=16, layers=2), _net()
+    raw = {'env_args': {'env': env_name}, 'train_args': train}
+    jax_learner = JaxLearner(jax_apply_defaults(json.loads(json.dumps(raw))),
+                             net=jax_net)
+    learner = Learner(apply_defaults(json.loads(json.dumps(raw))), net=net,
+                      device='cpu')
+    try:
+        want = jax_learner.args['replay_windows_per_episode']
+        assert want == max(1, (200 if env_name == 'HungryGeese' else 9)
+                           // forward_steps)
+        assert learner.args['replay_windows_per_episode'] == want
+        assert (ring_capacity(learner.args) == learner.trainer.replay.capacity
+                == jax_learner.trainer.replay.capacity)
+    finally:
+        learner.shutdown()

@@ -221,22 +221,27 @@ def test_config_defaults_to_tictactoe_like_the_reference():
     assert args['train_args']['observation'] is False
 
 
-@pytest.mark.parametrize('train_args', [
-    {'device_generation': True, 'batched_generation': False},
-    {'device_generation': True, 'device_replay': True,
-     'generation': {'backend': 'device'}},
-    {'device_generation': True, 'device_replay': True,
-     'fused_pipeline': False, 'batched_generation': False},
+@pytest.mark.parametrize('train_args,missing', [
+    ({'device_generation': True, 'batched_generation': False,
+      'generation': {'backend': 'engine'}}, 'EngineSupervisor'),
+    ({'device_generation': True, 'device_replay': True,
+      'generation': {'backend': 'device'}, 'streaming': {'enabled': True}},
+     'streaming'),
+    ({'device_generation': True, 'device_replay': True,
+      'fused_pipeline': False, 'batched_generation': False,
+      'league': {'enabled': True}}, 'league'),
 ])
-def test_tictactoe_on_the_device_path_names_what_is_missing(train_args):
-    """TicTacToe runs the fused loop in the 'turn' layout and every other
-    device combination; the device actor backend, which the JAX package
-    has and the port not yet, still raises, naming it."""
+def test_tictactoe_on_the_device_path_names_what_is_missing(train_args,
+                                                            missing):
+    """TicTacToe runs the fused loop in the 'turn' layout, every other
+    device combination and the device actor backend; the planes the JAX
+    package has and the port not yet (the per-host inference engine,
+    streaming, the league) still raise, naming them."""
     with pytest.raises(ConfigError) as exc:
         apply_defaults({'env_args': {'env': 'TicTacToe'},
                         'train_args': train_args})
     msg = str(exc.value)
-    assert 'DeviceActorGather' in msg
+    assert missing in msg
     assert 'not ported' in msg
     args = apply_defaults({'env_args': {'env': 'TicTacToe'},
                            'train_args': {'device_generation': True,

@@ -112,19 +112,23 @@ def test_cli_without_cuda_raises(tmp_path):
     ({}, {'streaming': {'target_clip': 1.0}}, 'streaming'),
     ({}, {'league': {'enabled': True}}, 'league'),
     ({}, {'parallel': {'model_parallel': 2}}, 'parallel'),
-    # the worker plane runs; the device actor backend does not yet
+    # the worker plane runs, the device actor backend with it; its
+    # knobs are checked as the JAX package checks them
     ({}, {'batched_generation': False, 'device_generation': True,
-          'device_replay': True}, 'batched_generation'),
+          'device_replay': True,
+          'generation': {'device_actor_chunk_steps': 0}},
+     'device_actor_chunk_steps'),
     ({}, {'burn_in_steps': 2}, 'burn_in_steps'),
     ({}, {'telemetry_port': 9100}, 'telemetry_port'),
     ({'net_kind': 'lstm'}, {}, 'net_kind'),
     ({'norm_kind': 'batch'}, {}, 'norm_kind'),
     ({'env': 'TicTacToe'}, {'device_generation': True,
-                            'batched_generation': False},
-     'DeviceActorGather'),
+                            'batched_generation': False,
+                            'generation': {'device_actor_record': 'exact'}},
+     'device_actor_record'),
     ({}, {'inference': {'enabled': True}}, 'host inference engine'),
     ({}, {'generation': {'backend': 'engine'}}, 'inference engine'),
-    ({}, {'generation': {'backend': 'device'}}, 'DeviceActorGather'),
+    ({}, {'generation': {'backend': 'gpu'}}, 'generation.backend'),
     ({}, {'batched_generation': False, 'worker': {'num_parallel': 0}},
      'num_parallel'),
     ({}, {'fault_tolerance': {'liveness_timeout': 5.0}}, 'liveness_timeout'),
@@ -138,7 +142,7 @@ def test_validate_rejects_what_the_slice_does_not_run(env_args, train_args,
 
 
 @pytest.mark.parametrize('backend,key', [
-    ('device', 'DeviceActorGather'), ('engine', 'inference engine'),
+    ('gpu', 'worker_args.backend'), ('engine', 'inference engine'),
     ('tpu', 'worker_args.backend')])
 def test_validate_rejects_a_worker_host_backend_it_lacks(backend, key):
     with pytest.raises(ConfigError, match=key):
