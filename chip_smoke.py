@@ -46,8 +46,10 @@ non-zero, printing no result, when either is missing or any phase fails.
      one-row returns (the outcome, whose bootstrap row the kernels read in
      place): (T=16, P=1, N=128) is the headline step's and the row the
      kernels line reports, 16 the in-process steps', 64 the fused loop's
-     (B=64, T=16, P=1), 100 a ragged edge; and (T=16, P=2, N=256), the
-     turn-based step's of phase 7 (B=128, two players);
+     (B=64, T=16, P=1), 100 a ragged edge; (T=16, P=2, N=256), the
+     turn-based step's of phases 7 and 13(a) (B=128, two players); and
+     (T=16, P=4, N=512), the recurrent host learner's of phase 13(b)
+     (B=128, four geese);
      each timed by CUDA-graph replay (device time) and through its
      wrapper; no single PyTorch call computes a recursion, so they have no
      yardstick.
@@ -287,7 +289,37 @@ non-zero, printing no result, when either is missing or any phase fails.
    handyrl_tpu_torch.worker`` with ``worker_args.backend: 'device'`` over
    localhost TCP, 3 epochs: both exit 0, every episode counted once, K3
    once a step in the learner. Each run under PHASE12_TIMEOUT.
-13. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
+13. ConnectX and the recurrent GeeseNetLSTM, each run with every count 0
+   at its start. (a) ConnectX: ``python -m handyrl_tpu_torch.train`` on
+   tictactoe.json's train_args with ``env_args.env: 'ConnectX'`` (B=128,
+   T=16, TD/TD, the full-width ConnectFourNet), CX_EPOCHS epochs on the
+   host learner and as many on the fused loop's 'turn' layout
+   (config.yaml's device lines): exit 0, finite losses, K3 (P=2) in
+   training and nothing else; one strict device actor block of 64 tasks
+   ('g' and 'e' against 'random' and 'rulebase') byte-equal to the host
+   Generator on the card; the twin's ``greedy_action`` on CX_BOARDS boards
+   on the card equal to the host's ``rule_based_action``; a CX_GAMES-game
+   tournament of the host learner's checkpoint against 'rulebase' in
+   CX_PROCS spawned processes, every game counted. (b) GeeseNetLSTM at
+   full width (filters 32, 4 stem blocks; no trunk kernel, as in the JAX
+   package): ``python -m handyrl_tpu_torch.serving`` answers four geese a
+   ply for LSTM_SERVE_PLIES plies, each request carrying its goose's state
+   from the previous reply, every policy, value and next state within
+   POLICY_TOL of a CPU forward of the same weights and state chain; the
+   host learner on phase 5's config (episodes cut to 64 + 2 x 128,
+   LSTM_EPOCHS epochs) and the fused loop on phase 6's (LSTM_FUSED_EPOCHS
+   epochs: its metrics arrive a dispatch late), both with ``net_kind:
+   'lstm'``, VTRACE/VTRACE, burn-in LSTM_BURN_IN: exit 0, finite losses,
+   K5 in training and nothing else; one recurrent update step graphed at
+   B=64, T=16+4 (CUDA events over LSTM_STEP_REPS replays); the device
+   evaluator against 'random' and the host learner's checkpoint (its own
+   recurrent state), one captured chunk; one device actor block of 64
+   tasks on recurrent lanes ('device' records), each goose's recorded
+   probability and value within POLICY_TOL of its slot's model run over
+   its observations with the state carried. Prints episodes/s, the
+   trainers' wait share, peak memory; each learner under
+   PHASE13_TIMEOUT.
+14. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
    and K2b take their launches from K2's count, one of each a call; the
    fused loop's under ``learner_fused_*``, 5(b)'s under
    ``learner_shm_*``, the quick start's under ``quick_start_*``, 7(b)'s
@@ -300,7 +332,9 @@ non-zero, printing no result, when either is missing or any phase fails.
    ``replay_*`` and ``host_push_*`` and the exported program's under
    ``export_exported_model``, phase 12's engine under
    ``device_actor_engine`` and its learners and gathers under
-   ``device_actor_{local,remote}_*``; K1's row also holds the operator's
+   ``device_actor_{local,remote}_*``, phase 13's learners under
+   ``connectx_{host,fused}_*`` and ``lstm_{host,fused}_*`` and the LSTM
+   service under ``lstm_service``; K1's row also holds the operator's
    checks),
    the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -424,7 +458,8 @@ def graph_time_ms(torch, fn, reps):
         fn()
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    from handyrl_tpu_torch.ops.graphs import no_collection
+    with no_collection(), torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -911,6 +946,8 @@ def phase_targets(torch, targets):
                 rows.update(target_rows(torch, targets, np, T, P, n))
     # the turn-based step's (phase 7): two players, B=128
     rows.update(target_rows(torch, targets, np, *QUICK_TARGETS))
+    # the recurrent host learner's (phase 13(b)): four geese, B=128
+    rows.update(target_rows(torch, targets, np, *LSTM_TARGETS))
     return rows
 
 
@@ -4088,43 +4125,47 @@ def da_train_args(env_args, extra=None):
     return ta
 
 
-def phase_da_strict(torch, make_env):
-    """12(a): one block of 64 stamped TicTacToe tasks on the card in
-    strict mode; every episode byte-equal to the host Generator's record
-    of the task on the card."""
+def phase_da_strict(torch, make_env, env_args=TTT_ENV, build=None,
+                    label='12(a)', chunk=DA_CHUNK, opponents=('random',)):
+    """12(a) (and 13(a) on ConnectX): one block of 64 stamped tasks of a
+    turn-based env on the card in strict mode; every episode byte-equal to
+    the host Generator's record of the task on the card."""
     from handyrl_tpu_torch.connection import pack
     from handyrl_tpu_torch.device_generation import DeviceActorEngine
     from handyrl_tpu_torch.environment import make_device_env
     from handyrl_tpu_torch.generation import Generator
     from handyrl_tpu_torch.models.tictactoe import SimpleConv2dModel
-    ta = da_train_args(TTT_ENV)
-    vault = da_vault(torch, make_env, TTT_ENV, SimpleConv2dModel, SEED + 40)
-    eng = DeviceActorEngine(make_device_env(TTT_ENV), vault,
-                            make_env(TTT_ENV), ta, n_envs=DA_LANES,
-                            chunk_steps=DA_CHUNK, slots=DA_SLOTS,
+    ta = da_train_args(env_args)
+    vault = da_vault(torch, make_env, env_args, build or SimpleConv2dModel,
+                     SEED + 40)
+    eng = DeviceActorEngine(make_device_env(env_args), vault,
+                            make_env(env_args), ta, n_envs=DA_LANES,
+                            chunk_steps=chunk, slots=DA_SLOTS,
                             seed=SEED, device=DA_DEVICE)
     if eng.record_mode != 'strict':
-        fail('12(a): the TicTacToe engine runs %r records' % eng.record_mode)
-    tasks = da_tasks(0, (1, 2), 2, opponents=('random',))
+        fail('%s: the %s engine runs %r records' % (label, env_args['env'],
+                                                   eng.record_mode))
+    tasks = da_tasks(0, (1, 2), 2, opponents=opponents)
     t0 = time.monotonic()
     uploads, deferred = eng.run_block(tasks)
     block_s = time.monotonic() - t0
     if deferred or len(uploads) != len(tasks) or any(
             p is None for _, p in uploads):
-        fail('12(a): %d deferred, %d uploads for %d tasks, %d None'
-             % (len(deferred), len(uploads), len(tasks),
+        fail('%s: %d deferred, %d uploads for %d tasks, %d None'
+             % (label, len(deferred), len(uploads), len(tasks),
                 sum(p is None for _, p in uploads)))
-    gen = Generator(make_env(TTT_ENV), ta)
+    gen = Generator(make_env(env_args), ta)
     checked = 0
     for task, (kind, payload) in zip(tasks, uploads):
         if kind != 'episode':
             continue
         host = gen.execute(vault.obtain(dict(task['model_id'])), task)
         if pack(payload) != pack(host):
-            fail('12(a): the episode of task %s is not the host '
-                 'Generator\'s record byte for byte' % task['task_id'])
+            fail('%s: the episode of task %s is not the host '
+                 'Generator\'s record byte for byte' % (label,
+                                                       task['task_id']))
         if 'record_version' in payload:
-            fail('12(a): a strict record carries record_version')
+            fail('%s: a strict record carries record_version' % label)
         checked += 1
     st = eng.stats
     out = {'episodes_byte_equal': checked, 'verified': st['episodes'],
@@ -4132,7 +4173,7 @@ def phase_da_strict(torch, make_env):
            'chunks': st['chunks'], 'block_seconds': block_s,
            'fill_ratio': eng.last_block['fill_ratio'],
            'chunk_ms': eng.last_block['chunk_ms']}
-    log('12(a) strict TicTacToe: %s' % json.dumps(out))
+    log('%s strict %s: %s' % (label, env_args['env'], json.dumps(out)))
     return out
 
 
@@ -4432,6 +4473,500 @@ def phase_device_actor(torch, repo, GeeseNet, make_env):
     return out
 
 
+# ------------------------------- phase 13: ConnectX and the GeeseNetLSTM
+
+PHASE13_TIMEOUT = 300     # each learner process
+CX_ENV = {'env': 'ConnectX'}
+CX_EPOCHS = 3
+CX_GAMES, CX_PROCS = 100, 4
+CX_BOARDS = 1000
+LSTM_ENV = {'env': 'HungryGeese', 'net_kind': 'lstm'}
+LSTM_BURN_IN = 4
+LSTM_EPOCHS = 2
+LSTM_TARGETS = (16, 4, 512)    # (T, P, lanes) of the LSTM host step's K5
+# the timed recurrent step: the fused loop's batch (B=64, T=16 + burn-in,
+# the solo layout's one row a window)
+LSTM_STEP_B = 64
+LSTM_STEP_REPS = 20
+LSTM_SERVE_PLIES = 6
+LSTM_EVAL_GAMES = 64
+# phase 5's config on the recurrent net, its episodes cut to fit the
+# phase (64 + 2 x 128: the recurrent host learner plays ~10 episodes/s)
+LSTM_LEARNER = {
+    'env_args': dict(LSTM_ENV),
+    'train_args': dict(LEARNER_CONFIG['train_args'], **{
+        'policy_target': 'VTRACE', 'value_target': 'VTRACE',
+        'burn_in_steps': LSTM_BURN_IN, 'epochs': LSTM_EPOCHS,
+        'minimum_episodes': 64, 'update_episodes': 128}),
+}
+# phase 6's north-star config on the recurrent net; one epoch more than
+# the host learner's, as the fused loop's metrics arrive a dispatch late
+# (the second epoch's close reads the warm-up dispatch's, none)
+LSTM_FUSED_EPOCHS = LSTM_EPOCHS + 1
+LSTM_FUSED = {
+    'env_args': dict(LSTM_ENV),
+    'train_args': dict(FUSED_CONFIG['train_args'], **{
+        'burn_in_steps': LSTM_BURN_IN, 'epochs': LSTM_FUSED_EPOCHS,
+        'checkpoint_interval': LSTM_FUSED_EPOCHS}),
+}
+
+
+def check_learner_line(label, line, epochs, want):
+    """A phase-13 learner's JSON line: its epochs with finite losses and
+    no failed trainer; each kernel of ``want`` ({launch path: kernels})
+    launched and nothing else anywhere."""
+    import math
+    if line['failed'] or line['epochs'] != epochs:
+        fail('%s trained %s epochs (failed: %s)' % (
+            label, line['epochs'], line['failed_reason']))
+    if not (line['losses'] and all(math.isfinite(v)
+                                   for v in line['losses'].values())):
+        fail('%s reports non-finite losses: %s' % (label, line['losses']))
+    by_path = line['kernel_launches']
+    for where, kernels in want.items():
+        for k in kernels:
+            if not by_path.get(where, {}).get(k, 0) > 0:
+                fail('%s: %s never launched %s (%s)' % (label, where, k,
+                                                         by_path))
+    wanted = {(w, k) for w, ks in want.items() for k in ks}
+    extra = {(w, k): n for w, c in by_path.items() for k, n in c.items()
+             if n and (w, k) not in wanted}
+    if extra:
+        fail('%s launched kernels off its path: %s' % (label, extra))
+    trainer_s = line['trainer_seconds'] or 0.0
+    out = {'episodes': line['episodes'],
+           'episodes_per_s': line['episodes_per_s'],
+           'update_steps_per_s': line['update_steps_per_s'],
+           'trajectories_per_s': line['trajectories_per_s'],
+           'trainer_wait_share': (line['trainer_batch_wait_seconds']
+                                  / trainer_s if trainer_s else None),
+           'peak_memory_mib': line['peak_memory_mib'],
+           'kernel_launches': by_path, 'wall': line['wall']}
+    log('%s: %s (%s)' % (label, json.dumps(out), nvidia_smi_line()))
+    return out
+
+
+def cx_greedy_boards(torch, make_env):
+    """13(a): the twin's ``greedy_action`` on CX_BOARDS positions on the
+    card against the host env's ``rule_based_action`` on each (positions
+    from seeded play, half of it the heuristic's, so wins and blocks come
+    up)."""
+    import random
+    from handyrl_tpu_torch.envs import torch_connectx as tc
+    rng = random.Random(SEED + 13)
+    boards, sides, moves, want = [], [], [], []
+    env = make_env(CX_ENV)
+    env.reset()
+    while len(boards) < CX_BOARDS:
+        if env.terminal():
+            env.reset()
+            continue
+        boards.append(env.cells.copy())
+        sides.append(env.side)
+        moves.append(len(env.moves))
+        want.append(env.rule_based_action(env.turn()))
+        env.play(env.rule_based_action(env.turn()) if rng.random() < 0.5
+                 else rng.choice(env.legal_actions()))
+    import numpy as np
+    dev = torch.device('cuda')
+    state = tc.State(
+        boards=torch.from_numpy(np.stack(boards)).to(dev),
+        side=torch.tensor(sides, dtype=torch.int8, device=dev),
+        winner=torch.zeros(len(boards), dtype=torch.int8, device=dev),
+        moves=torch.tensor(moves, dtype=torch.int8, device=dev))
+    got = tc.greedy_action(state).cpu().numpy()
+    bad = int((got != np.asarray(want)).sum())
+    if bad:
+        fail('13(a): greedy_action on the card disagrees with '
+             'rule_based_action on %d of %d boards' % (bad, len(boards)))
+    return {'boards': len(boards), 'disagree': bad}
+
+
+def phase_connectx(torch, repo, make_env):
+    """13(a): ConnectX on the host learner and the fused 'turn' loop
+    (tictactoe.json's train_args, CX_EPOCHS epochs each), a strict device
+    actor block, the twin's heuristic against the host's, and a
+    tournament of the host learner's checkpoint against 'rulebase'."""
+    from handyrl_tpu_torch.models.connect_four import ConnectFourNet
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_connectx_')
+    try:
+        cfg = quick_config(repo, None, CX_EPOCHS)
+        cfg['env_args'] = dict(CX_ENV)
+        host_tmp = os.path.join(tmp, 'host')
+        os.makedirs(host_tmp)
+        line, _ = run_train_cli(repo, cfg, host_tmp, '13(a) host learner',
+                                timeout=PHASE13_TIMEOUT)
+        host = check_learner_line('13(a) ConnectX host learner', line,
+                                  CX_EPOCHS, {'training': ('td_lambda',)})
+        fcfg = quick_config(repo, QUICK_FUSED, CX_EPOCHS)
+        fcfg['env_args'] = dict(CX_ENV)
+        fused_tmp = os.path.join(tmp, 'fused')
+        os.makedirs(fused_tmp)
+        line, stdout = run_train_cli(repo, fcfg, fused_tmp,
+                                     '13(a) fused loop',
+                                     timeout=PHASE13_TIMEOUT)
+        if not line.get('fused') or '(turn mode)' not in stdout:
+            fail('13(a): ConnectX did not run the fused loop in turn mode')
+        fused = check_learner_line('13(a) ConnectX fused loop (turn mode)',
+                                   line, CX_EPOCHS,
+                                   {'training': ('td_lambda',)})
+        fused['windows_ingested'] = line['windows_ingested']
+        strict = phase_da_strict(torch, make_env, CX_ENV, ConnectFourNet,
+                                 '13(a)', opponents=('random', 'rulebase'))
+        greedy = cx_greedy_boards(torch, make_env)
+        log('13(a) greedy_action vs rule_based_action: %s'
+            % json.dumps(greedy))
+        # the tournament: the host learner's last checkpoint against the
+        # heuristic, in spawned processes on the card
+        config = os.path.join(tmp, 'connectx.json')
+        with open(config, 'w') as f:
+            json.dump({'env_args': dict(CX_ENV)}, f)
+        ckpt = os.path.join(host_tmp, 'models', 'latest.ckpt')
+        t0 = time.monotonic()
+        try:
+            proc = subprocess.run(
+                [sys.executable, '-m', 'handyrl_tpu_torch.evaluation',
+                 ckpt + ':rulebase', str(CX_GAMES), str(CX_PROCS),
+                 '--config', config], cwd=repo, capture_output=True,
+                text=True, timeout=PHASE13_TIMEOUT)
+        except subprocess.TimeoutExpired as exc:
+            fail('13(a): the tournament did not finish within %d s:\n%s'
+                 % (PHASE13_TIMEOUT, (exc.stderr or b'')[-4000:]))
+        if proc.returncode != 0:
+            fail('13(a): the tournament exited %d:\n%s'
+                 % (proc.returncode, proc.stderr[-4000:]))
+        agents, report = parse_report(proc.stdout, CX_GAMES, CX_PROCS,
+                                      '13(a) the tournament')
+        for l in report:
+            log('  13(a) tournament: %s' % l)
+        tally, win_rate = agents[0]['total']
+        if sum(tally.values()) != CX_GAMES:
+            fail('13(a): the tournament counted %s for %d games'
+                 % (tally, CX_GAMES))
+        tournament = {'games': CX_GAMES, 'win_rate_vs_rulebase': win_rate,
+                      'tally': {str(k): v for k, v in tally.items()},
+                      'wall': time.monotonic() - t0}
+        out = {'host': host, 'fused': fused, 'strict': strict,
+               'greedy': greedy, 'tournament': tournament}
+        log('13(a) ConnectX (%s): %s' % (nvidia_smi_line(), json.dumps(
+            {k: v for k, v in out.items() if k != 'strict'})))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def lstm_net(torch, seed):
+    from handyrl_tpu_torch.models.geese import GeeseNetLSTM
+    return GeeseNetLSTM(generator=torch.Generator().manual_seed(seed))
+
+
+def lstm_serving(torch, repo, make_env):
+    """13(b): ``python -m handyrl_tpu_torch.serving`` on a full-width
+    GeeseNetLSTM: four geese a ply over LSTM_SERVE_PLIES plies, each
+    request carrying its goose's state from the previous reply; every
+    served policy, value and next state against a local CPU forward of the
+    same weights and the same state chain."""
+    import numpy as np
+    from handyrl_tpu_torch.model import ModelWrapper
+    from handyrl_tpu_torch.serving.client import ServiceClient
+    from handyrl_tpu_torch.serving.registry import ModelRegistry
+    net = lstm_net(torch, SEED + 60)
+    local = ModelWrapper(net, device='cpu')
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_lstm_serve_')
+    proc, client = None, None
+    try:
+        root = os.path.join(tmp, 'registry')
+        ModelRegistry(root).publish('default', snapshot=local.snapshot(),
+                                    version=1, promote=True)
+        err_path = os.path.join(tmp, 'service.err')
+        with open(err_path, 'wb') as err:
+            proc = subprocess.Popen(
+                [sys.executable, '-m', 'handyrl_tpu_torch.serving', '--env',
+                 'HungryGeese', '--registry', root, '--port', '0'],
+                cwd=repo, stdout=subprocess.PIPE, stderr=err)
+        ready = read_ready_line(proc, timeout=300)
+        if ready['device'] != 'cuda':
+            fail('13(b): the service runs on %r' % ready['device'])
+        client = ServiceClient('localhost', ready['port'], timeout=120,
+                               name='chip_smoke_lstm')
+        env = make_env({'env': 'HungryGeese', 'id': SEED + 61})
+        env.reset()
+        served = {p: None for p in env.players()}
+        mine = {p: local.init_hidden() for p in env.players()}
+        err, ms = 0.0, []
+        for ply in range(LSTM_SERVE_PLIES):
+            if env.terminal():
+                break
+            t0 = time.perf_counter()
+            rids = {p: client.submit('default@champion', env.observation(p),
+                                     hidden=served[p]) for p in env.turns()}
+            replies = {p: client.collect(r, timeout=120)['outputs']
+                       for p, r in rids.items()}
+            ms.append(1e3 * (time.perf_counter() - t0))
+            actions = {}
+            for p, out in replies.items():
+                want = local.inference(env.observation(p), mine[p])
+                if len(out['hidden']) != 2 or out['hidden'][0].shape != (
+                        7, 11, net.filters):
+                    fail('13(b): the reply\'s hidden state is %s'
+                         % [np.shape(h) for h in out['hidden']])
+                for a, b in ([(out['policy'], want['policy']),
+                              (out['value'], want['value'])]
+                             + list(zip(out['hidden'], want['hidden']))):
+                    err = max(err, float(np.abs(np.asarray(a)
+                                                - np.asarray(b)).max()))
+                served[p], mine[p] = out['hidden'], want['hidden']
+                actions[p] = int(np.argmax(out['policy']))
+            env.step(actions)
+        status = client.status()
+        if not err <= POLICY_TOL:
+            fail('13(b): the served outputs and state are off the CPU '
+                 'forward by %.3g' % err)
+        if status['answered'] != status['received']:
+            fail('13(b): unanswered requests: %s' % status)
+        client.close()
+        client = None
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        if rc != 75:
+            fail('13(b): the service exited %d after SIGTERM' % rc)
+        out = {'plies': len(ms), 'max_abs_err': err,
+               'ply_ms': ms, 'requests': status['received'],
+               'launches': status['kernel_launches']}
+        log('13(b) served GeeseNetLSTM with hidden state (%s): %s'
+            % (nvidia_smi_line(), json.dumps(out)))
+        return out
+    finally:
+        if client is not None:
+            client.close()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def lstm_step_ms(torch):
+    """13(b): one recurrent update step at full width as a CUDA graph
+    (GraphedUpdateStep) on a batch of the fused loop's shape (B=64,
+    T=16 + LSTM_BURN_IN, P=1, VTRACE/VTRACE), CUDA events over
+    LSTM_STEP_REPS replays; its metrics finite and the step not
+    flagged."""
+    import numpy as np
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.ops.train_step import (build_graphed_update_step,
+                                                  init_train_state)
+    B, T = LSTM_STEP_B, 16 + LSTM_BURN_IN
+    rng = np.random.RandomState(SEED + 62)
+    net = lstm_net(torch, SEED + 63).cuda()
+    ones = np.ones((B, T, 1, 1), np.float32)
+    batch = {
+        'observation': (rng.rand(B, T, 1, 17, 7, 11) < 0.15).astype(
+            np.float32),
+        'selected_prob': rng.uniform(0.1, 1, (B, T, 1, 1)).astype(
+            np.float32),
+        'value': rng.uniform(-1, 1, (B, T, 1, 1)).astype(np.float32),
+        'action': rng.randint(0, 4, (B, T, 1, 1)).astype(np.int32),
+        'outcome': np.sign(rng.randn(B, 1, 1, 1)).astype(np.float32),
+        'reward': np.zeros((B, T, 1, 1), np.float32),
+        'return': np.zeros((B, T, 1, 1), np.float32),
+        'episode_mask': ones, 'turn_mask': ones, 'observation_mask': ones,
+        'action_mask': np.zeros((B, T, 1, 4), np.float32),
+        'progress': np.linspace(0, 1, T, dtype=np.float32)[None, :, None]
+        .repeat(B, 0)}
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in batch.items()}
+    cfg = LossConfig(turn_based_training=False, observation=True,
+                     burn_in_steps=LSTM_BURN_IN, policy_target='VTRACE',
+                     value_target='VTRACE', gamma=0.99)
+    step = build_graphed_update_step(net, cfg, init_train_state(net))
+    lr = torch.tensor(1e-5, device='cuda')
+    metrics = step(batch, lr)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(LSTM_STEP_REPS):
+        metrics = step(batch, lr)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / LSTM_STEP_REPS
+    vals = {k: float(v) for k, v in metrics.items()}
+    if vals['nonfinite'] or not all(np.isfinite(list(vals.values()))):
+        fail('13(b): the recurrent step\'s metrics: %s' % vals)
+    return {'ms': ms, 'B': B, 'T': T, 'reps': LSTM_STEP_REPS,
+            'total': vals['total']}
+
+
+def lstm_device_eval(torch, ckpt):
+    """13(b): the device evaluator with a full-width GeeseNetLSTM against
+    'random' and a recurrent checkpoint opponent (the host learner's last
+    checkpoint), LSTM_EVAL_GAMES matches on the card."""
+    import numpy as np
+    from handyrl_tpu_torch.device_generation import DeviceEvaluator
+    from handyrl_tpu_torch.envs import torch_hungry_geese as tg
+    net = lstm_net(torch, SEED + 64).cuda().eval()
+    ev = DeviceEvaluator(tg, net, {}, n_envs=32, chunk_steps=32,
+                         seed=SEED, opponents=['random', ckpt])
+    if not ev.recurrent or ev.opp_hidden is None:
+        fail('13(b): the device evaluator did not carry recurrent state')
+    t0 = time.monotonic()
+    results = ev.play(LSTM_EVAL_GAMES)
+    results += ev.drain()
+    seconds = time.monotonic() - t0
+    by_opp = {}
+    for r in results:
+        seat = r['args']['player'][0]
+        by_opp.setdefault(r['opponent'], []).append(r['result'][seat])
+        if abs(sum(r['result'].values())) > 1e-5:
+            fail('13(b): a result that is not zero-sum: %s' % r)
+    if set(by_opp) != {'random', ckpt}:
+        fail('13(b): the evaluator played %s' % sorted(by_opp))
+    graphs = int(getattr(ev._call, 'graph', None) is not None)
+    if not graphs:
+        fail('13(b): the recurrent evaluator\'s chunk was never captured')
+    for h in ev.hidden + ev.opp_hidden:
+        if not bool(torch.isfinite(h).all()):
+            fail('13(b): non-finite recurrent state in the evaluator')
+    out = {'games': len(results), 'dispatches': ev.dispatches,
+           'rollout_graphs': graphs, 'seconds': seconds,
+           'mean_by_opponent': {('checkpoint' if k == ckpt else k):
+                                float(np.mean(v))
+                                for k, v in by_opp.items()}}
+    log('13(b) device evaluator, recurrent checkpoint opponent: %s'
+        % json.dumps(out))
+    return out
+
+
+def lstm_device_actor(torch, make_env):
+    """13(b): one block of 64 Geese tasks on recurrent lanes on the card
+    ('device' records, as the JAX package plays a recurrent net); each
+    goose's recorded probability and value held to its slot's model run
+    over its own observations with its state carried (the first four
+    episodes)."""
+    import numpy as np
+    from handyrl_tpu_torch.device_generation import DeviceActorEngine
+    from handyrl_tpu_torch.environment import make_device_env
+    from handyrl_tpu_torch.models.geese import GeeseNetLSTM
+    from handyrl_tpu_torch.ops.batch import decompress_moments
+    ta = da_train_args(LSTM_ENV, {
+        'turn_based_training': False, 'observation': True, 'gamma': 0.99,
+        'burn_in_steps': LSTM_BURN_IN,
+        'eval': {'opponent': ['random', 'rulebase']}})
+    vault = da_vault(torch, make_env, LSTM_ENV, GeeseNetLSTM, SEED + 70)
+    eng = DeviceActorEngine(make_device_env(LSTM_ENV), vault,
+                            make_env(LSTM_ENV), ta, n_envs=DA_LANES,
+                            chunk_steps=DA_CHUNK, slots=DA_SLOTS,
+                            seed=SEED, device=DA_DEVICE)
+    if not eng.recurrent or eng.record_mode != 'device':
+        fail('13(b): the recurrent engine runs %r records (recurrent %s)'
+             % (eng.record_mode, eng.recurrent))
+    tasks = da_tasks(3, (1, 2), 4)
+    t0 = time.monotonic()
+    uploads, deferred = eng.run_block(tasks)
+    block_s = time.monotonic() - t0
+    if deferred or len(uploads) != DA_LANES or any(
+            p is None for _, p in uploads):
+        fail('13(b): the recurrent block deferred %d tasks, %d uploads'
+             % (len(deferred), len(uploads)))
+    err, checked = 0.0, 0
+    for task, (kind, payload) in zip(tasks, uploads):
+        if kind != 'episode':
+            continue
+        if payload.get('record_version') != 1:
+            fail('13(b): a recurrent episode without record_version 1')
+        if checked >= 4:
+            continue
+        checked += 1
+        moments = decompress_moments(payload['moment'])
+        for p in range(4):
+            model = vault.model(task['model_id'][p])
+            hidden = model.init_hidden()
+            for moment in moments:
+                if p not in moment['turn']:
+                    break
+                out = model.inference(moment['observation'][p], hidden)
+                hidden = out['hidden']
+                logits = out['policy']
+                probs = np.exp(logits - logits.max())
+                probs /= probs.sum()
+                err = max(err, abs(float(probs[moment['action'][p]])
+                                   - moment['selected_prob'][p]),
+                          float(np.abs(out['value']
+                                       - moment['value'][p]).max()))
+    if not err <= POLICY_TOL:
+        fail('13(b): recorded prob/value off the slot model\'s carried '
+             'state by %.3g' % err)
+    st = eng.stats
+    out = {'episodes': st['episodes'], 'results': st['results'],
+           'chunks': st['chunks'], 'graph_captures': eng.captures,
+           'block_seconds': block_s, 'fill_ratio': eng.last_block[
+               'fill_ratio'], 'oracle_max_abs_err': err,
+           'chunk_ms': eng.last_block['chunk_ms'][:4]}
+    log('13(b) device actor, recurrent lanes: %s' % json.dumps(out))
+    return out
+
+
+def phase_lstm(torch, repo, make_env):
+    """13(b): the full-width GeeseNetLSTM served with its state, trained on
+    the host learner and the fused loop with burn-in, on the device
+    evaluator against a recurrent checkpoint and on the device actor;
+    one recurrent update step timed."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_lstm_')
+    try:
+        serving = lstm_serving(torch, repo, make_env)
+        host_tmp = os.path.join(tmp, 'host')
+        os.makedirs(host_tmp)
+        line, _ = run_train_cli(repo, LSTM_LEARNER, host_tmp,
+                                '13(b) host learner',
+                                timeout=PHASE13_TIMEOUT)
+        host = check_learner_line('13(b) GeeseNetLSTM host learner', line,
+                                  LSTM_EPOCHS, {'training': ('vtrace',)})
+        fused_tmp = os.path.join(tmp, 'fused')
+        os.makedirs(fused_tmp)
+        line, stdout = run_train_cli(repo, LSTM_FUSED, fused_tmp,
+                                     '13(b) fused loop',
+                                     timeout=PHASE13_TIMEOUT)
+        if not line.get('fused') or '(solo mode)' not in stdout:
+            fail('13(b): the GeeseNetLSTM did not run the fused loop')
+        fused = check_learner_line('13(b) GeeseNetLSTM fused loop', line,
+                                   LSTM_FUSED_EPOCHS,
+                                   {'training': ('vtrace',)})
+        fused['dispatch_seconds'] = line.get('dispatch_seconds')
+        torch.cuda.reset_peak_memory_stats()
+        step = lstm_step_ms(torch)
+        log('13(b) recurrent update step, graphed: %s' % json.dumps(step))
+        evaluator = lstm_device_eval(
+            torch, os.path.join(host_tmp, 'models', 'latest.ckpt'))
+        actor = lstm_device_actor(torch, make_env)
+        out = {'serving': serving, 'host': host, 'fused': fused,
+               'step': step, 'evaluator': evaluator, 'actor': actor,
+               'in_process_peak_memory_mib':
+                   torch.cuda.max_memory_allocated() / 2 ** 20}
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_connectx_lstm(torch, repo, make_env):
+    """Phase 13: (a) and (b), one JSON line."""
+    from handyrl_tpu_torch.model import fp32_on_card
+    fp32_on_card(torch.device('cuda'))
+    t0 = time.monotonic()
+    log('== phase 13(a): ConnectX on the host learner, the fused turn '
+        'loop, the device actor and the tournament')
+    cx = phase_connectx(torch, repo, make_env)
+    t_a = time.monotonic() - t0
+    log('== phase 13(b): the GeeseNetLSTM served, trained with burn-in on '
+        'the host learner and the fused loop, evaluated and played on the '
+        'device')
+    lstm = phase_lstm(torch, repo, make_env)
+    out = {'phase': 13, 'connectx': cx, 'lstm': lstm,
+           'seconds_a': t_a, 'seconds': time.monotonic() - t0,
+           'card': nvidia_smi_line()}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main():
     try:
         import torch
@@ -4535,7 +5070,12 @@ def main():
     log('phase 12: %.1f s (%s)' % (time.monotonic() - t12,
                                    nvidia_smi_line()))
 
-    log('== phase 13: the kernels line')
+    t13 = time.monotonic()
+    cx_lstm = phase_connectx_lstm(torch, repo, make_env)
+    log('phase 13: %.1f s (%s)' % (time.monotonic() - t13,
+                                   nvidia_smi_line()))
+
+    log('== phase 14: the kernels line')
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -4581,6 +5121,14 @@ def main():
             paths['device_actor_%s_%s' % (label, name)] = counts
         paths['device_actor_%s_gather' % label] = actor[label][
             'gather_launches']
+    # phase 13: the ConnectX and GeeseNetLSTM learners by their launch
+    # paths (fresh processes), the LSTM service (its counts 0 at start)
+    for net_name, part in (('connectx', cx_lstm['connectx']),
+                           ('lstm', cx_lstm['lstm'])):
+        for label in ('host', 'fused'):
+            for name, counts in part[label]['kernel_launches'].items():
+                paths['%s_%s_%s' % (net_name, label, name)] = counts
+    paths['lstm_service'] = cx_lstm['lstm']['serving']['launches']
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from

@@ -7,10 +7,11 @@ code from the JAX package it keeps its own copy. Module names mirror
 Hungry Geese moves from GeeseNet (``python -m handyrl_tpu_torch.serving``),
 GeeseNet's update step (``ops/losses.py``, ``ops/train_step.py``, timed by
 ``python -m handyrl_tpu_torch.bench``), the local learner that trains
-it, or TicTacToe's ``SimpleConv2dModel`` turn-based, by batched self-play
-(``python -m handyrl_tpu_torch.train``; for Hungry Geese also the fused
-device loop), and the offline tournament of a checkpoint (``python -m
-handyrl_tpu_torch.evaluation``). The trunk's forward and backward and the
+it, or TicTacToe's ``SimpleConv2dModel`` and ConnectX's ``ConnectFourNet``
+turn-based, or Hungry Geese's recurrent ``GeeseNetLSTM`` with burn-in, by
+self-play (``python -m handyrl_tpu_torch.train``: the host learner, the
+device loops, the worker plane), and the offline tournament of a
+checkpoint (``python -m handyrl_tpu_torch.evaluation``). The trunk's forward and backward and the
 target recursions are hand-written CUDA kernels (``ops/`` wrappers,
 ``csrc/`` sources). Entry points run on the CUDA device unless the caller
 passes ``device='cpu'``.

@@ -16,8 +16,8 @@ and of the run plane (``metrics_jsonl``, ``keep_checkpoints``,
 block), and
 :func:`validate` raises for anything this port does not run yet
 (streaming, the league, mesh parallelism, the host inference engine,
-recurrent nets, BatchNorm, envs other than TicTacToe and Hungry Geese)
-instead of ignoring it.
+BatchNorm, nets other than GeeseNet and GeeseNetLSTM, envs other than
+TicTacToe, ConnectX and Hungry Geese) instead of ignoring it.
 Without ``env_args`` the env is TicTacToe, as in the JAX package.
 """
 
@@ -177,8 +177,10 @@ _BACKENDS_PENDING = {
 _RECORD_MODES = ('', 'strict', 'device')
 
 _ENV_KEYS = ('env', 'torus_impl', 'norm_kind', 'net_kind')
-_ENVS = ('TicTacToe', 'HungryGeese')
+_ENVS = ('TicTacToe', 'ConnectX', 'HungryGeese')
 _TARGETS = ('MC', 'TD', 'VTRACE', 'UPGO')
+# env_args.net_kind: GeeseNet ('conv') and GeeseNetLSTM ('lstm')
+_NET_KINDS = ('conv', 'lstm')
 
 
 class ConfigError(ValueError):
@@ -233,15 +235,15 @@ def validate(args: Dict[str, Any]) -> None:
              'worker_args.num_parallel must be >= 1')
     _require(env.get('env') in _ENVS,
              'env_args.env %r: only %s are ported' % (env.get('env'),
-                                                      ' and '.join(_ENVS)))
+                                                      ', '.join(_ENVS)))
     extra = sorted(set(env) - set(_ENV_KEYS))
     _require(not extra, 'env_args keys %s are not known to the port' % extra)
     _require(env.get('norm_kind', 'group') == 'group',
              "env_args.norm_kind %r: norm_kind='batch' training %s"
              % (env.get('norm_kind'), pending))
-    _require(env.get('net_kind', 'conv') == 'conv',
-             'env_args.net_kind %r: recurrent nets %s'
-             % (env.get('net_kind'), pending))
+    _require(env.get('net_kind', 'conv') in _NET_KINDS,
+             'env_args.net_kind %r: only %s are ported; the other nets %s'
+             % (env.get('net_kind'), ' and '.join(_NET_KINDS), pending))
     _require(env.get('torus_impl', 'pad') in ('pad', 'halo', 'pallas'),
              'env_args.torus_impl %r is unknown' % (env.get('torus_impl'),))
 
@@ -268,9 +270,7 @@ def validate(args: Dict[str, Any]) -> None:
              'train_args.batcher_shared_memory requires batcher_processes '
              '(the thread batchers already share the trainer\'s memory)')
     _validate_device_path(ta)
-    _require(ta['burn_in_steps'] == 0,
-             'train_args.burn_in_steps %r: burn-in (the recurrent loss '
-             'path) %s' % (ta['burn_in_steps'], pending))
+    _require(int(ta['burn_in_steps']) >= 0, 'burn_in_steps must be >= 0')
     _require(ta['policy_target'] in _TARGETS,
              'policy_target %r not in %s' % (ta['policy_target'], _TARGETS))
     _require(ta['value_target'] in _TARGETS,

@@ -3,9 +3,11 @@ card, with no host round trip inside a chunk.
 
 The port of ``handyrl_tpu/device_generation.py`` for envs with a tensor
 twin (simultaneous: ``envs/torch_hungry_geese.py``; turn-based:
-``envs/torch_tictactoe.py``) and feed-forward nets: ``_ply_inference``
-(observe, the net on the (N, P) players folded into N * P rows, or on the
-acting player's N rows, and the illegal-action mask), ``make_gen_body``
+``envs/torch_tictactoe.py``, ``envs/torch_connectx.py``), feed-forward and
+recurrent nets: ``_ply_inference`` (observe, the net on the (N, P)
+players folded into N * P rows, or on the acting player's N rows, a
+recurrent net's state advanced with it, and the illegal-action mask),
+``make_gen_body``
 (the self-play ply: inference, a Gumbel-max draw, transition, record,
 auto-reset), :class:`DeviceGenerator` (the split path: rollout chunks on
 the card, episodes spliced on the host or the records handed to the
@@ -28,7 +30,9 @@ stack of parameter slots, the finished lanes spliced into upload records
 ('strict' records verified on the host byte for byte, or 'device' records
 stamped ``record_version: 1``).
 
-What waits (ROADMAP.md): recurrent nets' hidden state and the engine's
+A recurrent net's hidden state, (N, P, ...) a leaf, is one more static
+tensor of each loop, zeroed where an episode ends
+(``_reset_hidden_where_done``). What waits (ROADMAP.md): the engine's
 streaming emit.
 """
 
@@ -47,6 +51,7 @@ from .generation import (Generator, _blank_moment, bucketed_inference,
                          pad_to_bucket, sample_seed, seed_env_rng)
 from .ops.batch import compress_moments
 from .ops.graphs import CapturedCall, PackedFetch
+from .utils.tree import map2, map_structure
 
 Tensor = torch.Tensor
 
@@ -57,21 +62,57 @@ def simultaneous(env_mod) -> bool:
     return bool(getattr(env_mod, 'SIMULTANEOUS', False))
 
 
-def _ply_inference(env_mod, net: torch.nn.Module, state):
+def _ply_inference(env_mod, net: torch.nn.Module, state, hidden=None):
     """Observe, run the net and build the illegal-action mask. Returns
-    (obs, logits, amask, out), ``out`` the net's output dict. A simultaneous
-    env's (N, P) players fold into N * P rows, logits and amask (N, P, A);
-    a turn-based env's N rows are the acting players', (N, A)."""
+    (obs, logits, amask, out, hidden), ``out`` the net's output dict
+    without 'hidden'. A simultaneous env's (N, P) players fold into N * P
+    rows, logits and amask (N, P, A); a turn-based env's N rows are the
+    acting players', (N, A). A recurrent net's ``hidden`` (N, P, ...) a
+    leaf advances for every player of a simultaneous env (they all
+    observe), and for the acting player's slot alone of a turn-based one
+    (gathered, run, scattered back: the omask-gated training carry);
+    None for a feed-forward net."""
     obs = env_mod.observe(state)
     legal = env_mod.legal_mask(state)
     amask = (1.0 - legal) * 1e32
     if not simultaneous(env_mod):
-        out = dict(net(obs))
-        return obs, out['policy'] - amask, amask, out
+        if hidden is None:
+            out = dict(net(obs))
+        else:
+            rows = torch.arange(obs.shape[0], device=obs.device)
+            player = env_mod.turn(state)
+            out = dict(net(obs, map_structure(lambda h: h[rows, player],
+                                              hidden)))
+            hidden = map2(lambda h, x: h.index_put((rows, player), x),
+                          hidden, out['hidden'])
+        out.pop('hidden', None)
+        return obs, out['policy'] - amask, amask, out, hidden
     n, p = obs.shape[:2]
-    out = dict(net(obs.reshape((n * p,) + obs.shape[2:])))
+    flat = obs.reshape((n * p,) + obs.shape[2:])
+    if hidden is None:
+        out = dict(net(flat))
+    else:
+        out = dict(net(flat, map_structure(
+            lambda h: h.reshape((n * p,) + h.shape[2:]), hidden)))
+        hidden = map_structure(lambda h: h.reshape((n, p) + h.shape[1:]),
+                               out['hidden'])
+    out.pop('hidden', None)
     logits = out['policy'].reshape(n, p, -1) - amask
-    return obs, logits, amask, out
+    return obs, logits, amask, out, hidden
+
+
+def _reset_hidden_where_done(hidden, done: Tensor):
+    """Fresh episodes start with zero recurrent state."""
+    return map_structure(
+        lambda h: torch.where(done.reshape((-1,) + (1,) * (h.dim() - 1)),
+                              torch.zeros_like(h), h), hidden)
+
+
+def copy_hidden_(dst, src) -> None:
+    """Write a hidden state into the static ``dst`` in place (nothing for
+    a feed-forward net's None)."""
+    if dst is not None:
+        map2(lambda d, x: d.copy_(x), dst, src)
 
 
 def gumbel_argmax(logits: Tensor, u: Tensor) -> Tensor:
@@ -84,9 +125,11 @@ def gumbel_argmax(logits: Tensor, u: Tensor) -> Tensor:
 
 
 def make_gen_body(env_mod, net: torch.nn.Module):
-    """The self-play ply of a feed-forward net: inference, sampling,
-    transition, record, auto-reset. Returns ``rollout_chunk(state,
-    chunk_steps, generator) -> (state, records)``, records stacked as
+    """The self-play ply: inference, sampling, transition, record,
+    auto-reset. Returns ``rollout_chunk(state, chunk_steps, generator,
+    hidden=None) -> (state, records)``, or ``(state, records, hidden)``
+    for a recurrent net's ``hidden`` (zeroed where an episode ended),
+    records stacked as
     (K, N, ...): 'obs', 'action', 'prob', 'amask', 'value', 'done',
     'outcome', and 'acting' (N, P) for a simultaneous env (obs (N, P, ...))
     or 'player' (N,) for a turn-based one (the acting player's obs, prob,
@@ -96,10 +139,12 @@ def make_gen_body(env_mod, net: torch.nn.Module):
 
     @torch.no_grad()
     def rollout_chunk(state, chunk_steps: int,
-                      generator: Optional[torch.Generator]):
+                      generator: Optional[torch.Generator], hidden=None):
+        recurrent = hidden is not None
         plies: List[Dict[str, Tensor]] = []
         for _ in range(chunk_steps):
-            obs, logits, amask, out = _ply_inference(env_mod, net, state)
+            obs, logits, amask, out, hidden = _ply_inference(
+                env_mod, net, state, hidden)
             u = torch.rand(logits.shape, generator=generator,
                            device=logits.device)
             actions = gumbel_argmax(logits, u)
@@ -120,7 +165,11 @@ def make_gen_body(env_mod, net: torch.nn.Module):
                 record['reward'] = env_mod.rewards(nstate)
             plies.append(record)
             state = env_mod.auto_reset(nstate, done, generator=generator)
+            if recurrent:
+                hidden = _reset_hidden_where_done(hidden, done)
         records = {k: torch.stack([r[k] for r in plies]) for k in plies[0]}
+        if recurrent:
+            return state, records, hidden
         return state, records
 
     return rollout_chunk
@@ -217,6 +266,10 @@ class DeviceGenerator:
                                         generator=self.generator,
                                         device=self.device)
         self._rollout = make_gen_body(env_mod, net)
+        # a recurrent net's state, (N, P, ...) a leaf, static like the env's
+        self.recurrent = is_recurrent(net)
+        self.hidden = (net.init_hidden((self.n_envs, env_mod.NUM_PLAYERS))
+                       if self.recurrent else None)
         self.records: Optional[Dict[str, Tensor]] = None
         self._calls: Dict[bool, CapturedCall] = {}
         self._packers: Dict[bool, _RecordPacker] = {}
@@ -228,10 +281,13 @@ class DeviceGenerator:
     def _chunk(self, full: bool) -> Tensor:
         """One chunk in place: the env state and :attr:`records`; returns
         the packed records (all of them, or done and outcome)."""
-        state, records = self._rollout(self.state, self.chunk_steps,
-                                       self.generator)
+        out = self._rollout(self.state, self.chunk_steps, self.generator,
+                            self.hidden)
+        state, records = out[:2]
         copy_state_(self.state, state)
         with torch.no_grad():
+            if self.recurrent:
+                copy_hidden_(self.hidden, out[2])
             if self.records is None:   # the first call, which runs eagerly
                 self.records = {k: torch.empty_like(v)
                                 for k, v in records.items()}
@@ -386,7 +442,8 @@ class DeviceEvaluator:
     ``greedy_action``) or a checkpoint's own greedy policy (a path: its
     params, read with ``load_params_bytes`` into a copy of ``net`` on the
     device, inferenced on its block inside the same chunk, so a GeeseNet
-    opponent runs K1 too; feed-forward nets). In a turn-based env the model moves on the plies
+    opponent runs K1 too; a recurrent one carries its own state in
+    ``opp_hidden``). In a turn-based env the model moves on the plies
     whose acting player is its seat. The seat rotates over the env's
     players on every reset, so every seat is balanced. The host reads
     (done, seat, outcome) of a chunk as one packed tensor, one dispatch
@@ -439,6 +496,13 @@ class DeviceEvaluator:
                                         device=self.device)
         self.seat = torch.remainder(
             torch.arange(n_envs, device=self.device), env_mod.NUM_PLAYERS)
+        # a recurrent net's state, and one more for the checkpoint
+        # opponents (their blocks are disjoint slices of it), static
+        self.recurrent = is_recurrent(net)
+        shape = (n_envs, env_mod.NUM_PLAYERS)
+        self.hidden = net.init_hidden(shape) if self.recurrent else None
+        self.opp_hidden = (net.init_hidden(shape)
+                           if self.recurrent and self._opp_nets else None)
         self._call = CapturedCall(self._rollout, self.device,
                                   [self.generator])
         self._fetch = PackedFetch(self.device)
@@ -451,10 +515,12 @@ class DeviceEvaluator:
         (done, seat, outcome) of its plies."""
         env, gen = self.env_mod, self.generator
         state, seat = self.state, self.seat
+        hidden, opp_hidden = self.hidden, self.opp_hidden
         rows: List[Tensor] = []
         players = torch.arange(env.NUM_PLAYERS, device=self.device)
         for _ in range(self.chunk_steps):
-            obs, logits, amask, _ = _ply_inference(env, self.net, state)
+            obs, logits, amask, _, hidden = _ply_inference(
+                env, self.net, state, hidden)
             greedy = torch.argmax(logits, dim=-1)
             opp = gumbel_argmax(-amask, torch.rand(amask.shape, generator=gen,
                                                    device=self.device))
@@ -466,7 +532,8 @@ class DeviceEvaluator:
                 if name == 'rulebase':
                     block = rule[a:b]
                 else:
-                    block = self._opponent_greedy(name, obs[a:b], amask[a:b])
+                    block, opp_hidden = self._opponent_greedy(
+                        name, obs[a:b], amask[a:b], state, a, b, opp_hidden)
                 opp = torch.cat([opp[:a], block, opp[b:]])
             if simultaneous(env):
                 is_main = players[None, :] == seat[:, None]
@@ -480,23 +547,52 @@ class DeviceEvaluator:
             state = env.auto_reset(nstate, done, generator=gen)
             seat = torch.where(done, torch.remainder(seat + 1,
                                                      env.NUM_PLAYERS), seat)
+            if self.recurrent:
+                hidden = _reset_hidden_where_done(hidden, done)
+                if opp_hidden is not None:
+                    opp_hidden = _reset_hidden_where_done(opp_hidden, done)
         copy_state_(self.state, state)
         self.seat.copy_(seat)
+        copy_hidden_(self.hidden, hidden)
+        copy_hidden_(self.opp_hidden, opp_hidden)
         return torch.cat(rows)
 
-    def _opponent_greedy(self, name: str, obs: Tensor, amask: Tensor
-                         ) -> Tensor:
-        """A checkpoint opponent's greedy actions on its block: its net on
-        the block's observations (a simultaneous env's players folded into
-        rows), masked as the model's."""
+    def _opponent_greedy(self, name: str, obs: Tensor, amask: Tensor,
+                         state, a: int, b: int, opp_hidden):
+        """A checkpoint opponent's greedy actions on its block [a, b): its
+        net on the block's observations (a simultaneous env's players
+        folded into rows), masked as the model's. A recurrent opponent
+        reads and advances its block's slice of ``opp_hidden`` as the
+        trained net does its own state. Returns (actions, opp_hidden)."""
         net = self._opp_nets[name]
         if simultaneous(self.env_mod):
             n, p = obs.shape[:2]
-            policy = net(obs.reshape((n * p,) + obs.shape[2:]))['policy']
+            flat = obs.reshape((n * p,) + obs.shape[2:])
+            if opp_hidden is None:
+                policy = net(flat)['policy']
+            else:
+                out = net(flat, map_structure(
+                    lambda h: h[a:b].reshape((n * p,) + h.shape[2:]),
+                    opp_hidden))
+                policy = out['policy']
+                opp_hidden = map2(lambda h, x: torch.cat(
+                    [h[:a], x.reshape((n, p) + x.shape[1:]), h[b:]]),
+                    opp_hidden, out['hidden'])
             logits = policy.reshape(n, p, -1) - amask
         else:
-            logits = net(obs)['policy'] - amask
-        return torch.argmax(logits, dim=-1)
+            if opp_hidden is None:
+                policy = net(obs)['policy']
+            else:
+                rows = torch.arange(b - a, device=obs.device)
+                pl = self.env_mod.turn(state)[a:b]
+                out = net(obs, map_structure(lambda h: h[a:b][rows, pl],
+                                             opp_hidden))
+                policy = out['policy']
+                opp_hidden = map2(
+                    lambda h, x: h.index_put((a + rows, pl), x),
+                    opp_hidden, out['hidden'])
+            logits = policy - amask
+        return torch.argmax(logits, dim=-1), opp_hidden
 
     def _dispatch(self):
         packed = self._call()
@@ -634,6 +730,19 @@ def _u_pick(weights: Tensor, legal: Tensor, u: Tensor) -> Tensor:
     return torch.where(cond.any(dim=-1), first, last_legal)
 
 
+def stack_select(per_slot, pick):
+    """The slots' next recurrent states (the last item of each
+    ``_ply_inference`` result) stacked leaf by leaf, (M, N, P, ...), each
+    stack indexed by ``pick``."""
+    def go(states):
+        head = states[0]
+        if isinstance(head, (list, tuple)):
+            return type(head)(go([st[i] for st in states])
+                              for i in range(len(head)))
+        return pick(torch.stack(states))
+    return go([s[4] for s in per_slot])
+
+
 def is_recurrent(net: torch.nn.Module) -> bool:
     """A net with a hidden state (``init_hidden`` returns one)."""
     init = getattr(net, 'init_hidden', None)
@@ -643,7 +752,7 @@ def is_recurrent(net: torch.nn.Module) -> bool:
 class DeviceActorEngine:
     """The fused rollout behind a device actor gather: the port of the JAX
     package's ``DeviceActorEngine`` (device_generation.py:686-1362 there)
-    without its streaming ``emit`` and its recurrent nets.
+    without its streaming ``emit``.
 
     :meth:`run_block` takes a list of ledger tasks ('g' episodes and 'e'
     evaluations, one lane each), plays them all in chunks of
@@ -689,10 +798,6 @@ class DeviceActorEngine:
         self.recurrent = is_recurrent(host_env.net())
         self.record_mode = resolve_record_mode(env_mod, self.recurrent,
                                                str(record_mode or ''))
-        if self.recurrent:
-            raise NotImplementedError(
-                'the device actor backend plays feed-forward nets; '
-                'recurrent nets are not ported yet (ROADMAP.md)')
         self.generator = env_generator(self.device, self.seed)
         self.blocks = 0
         self.builds = 0
@@ -782,13 +887,16 @@ class DeviceActorEngine:
         net on the device, the env state, the lanes' liveness and ply
         counts, the seat tables and the strict draws (N, MAX_STEPS) in
         strict mode, (N, 1) otherwise."""
-        if is_recurrent(wrapper.module):
-            raise NotImplementedError('the env net and the snapshot '
-                                      'disagree on recurrence')
+        if is_recurrent(wrapper.module) != self.recurrent:
+            raise ValueError('the env net and the snapshot disagree on '
+                             'recurrence')
         N, P, dev = self.n_envs, self.num_players, self.device
         self._nets = [copy.deepcopy(wrapper.module).to(dev).eval()
                       for _ in range(self.slots)]
         self.state = self.env_mod.init_state(N, seed=self.seed, device=dev)
+        # a recurrent net's lanes' state (N, P, ...), zeroed for a block
+        self._hidden = (self._nets[0].init_hidden((N, P))
+                        if self.recurrent else None)
         self._live = torch.zeros((N,), dtype=torch.bool, device=dev)
         self._t = torch.zeros((N,), dtype=torch.int64, device=dev)
         u_len = self.max_steps if self.record_mode == 'strict' else 1
@@ -805,32 +913,38 @@ class DeviceActorEngine:
         """``chunk_steps`` plies in place on the static tensors; returns
         the chunk's records packed into one float32 tensor."""
         state, live, t = self.state, self._live, self._t
+        hidden = self._hidden
         plies: List[Dict[str, Tensor]] = []
         for _ in range(self.chunk_steps):
-            state, live, t, record = self._ply(state, live, t)
+            state, hidden, live, t, record = self._ply(state, hidden, live,
+                                                       t)
             plies.append(record)
         # stacked before the static tensors are written: the first ply's
         # records may be views of them (its liveness, a twin's 'acting')
         records = {k: torch.stack([r[k] for r in plies]) for k in plies[0]}
         copy_state_(self.state, state)
+        copy_hidden_(self._hidden, hidden)
         self._live.copy_(live)
         self._t.copy_(t)
         if self._pack is None:     # the first call, which runs eagerly
             self._pack = _RecordPacker(records)
         return self._pack.pack(records)
 
-    def _ply(self, state, live: Tensor, t: Tensor):
+    def _ply(self, state, hidden, live: Tensor, t: Tensor):
         """One ply of every lane: every slot's net on every lane, each
         seat's logits from its slot, the seat modes' actions, the
-        transition (frozen where the lane is not live) and the record.
-        The draws come from the engine's generator in this order: the
-        sampled action's uniforms, the uniform action's, the rulebase
-        fallback's ('device' records; strict lanes take theirs from the
-        block's table)."""
+        transition (frozen where the lane is not live) and the record. A
+        recurrent net's state advances in every slot from the lanes'
+        state; each lane keeps its acting seat's slot's (turn-based), or
+        each seat its own slot's (simultaneous). The draws come from the
+        engine's generator in this order: the sampled action's uniforms,
+        the uniform action's, the rulebase fallback's ('device' records;
+        strict lanes take theirs from the block's table)."""
         env, gen, dev = self.env_mod, self.generator, self.device
         N, P = self.n_envs, self.num_players
         rows = torch.arange(N, device=dev)
-        per_slot = [_ply_inference(env, net, state) for net in self._nets]
+        per_slot = [_ply_inference(env, net, state, hidden)
+                    for net in self._nets]
         obs, amask = per_slot[0][0], per_slot[0][2]
         legal = (amask <= 0).float()
         logits_m = torch.stack([s[1] for s in per_slot])
@@ -852,6 +966,11 @@ class DeviceActorEngine:
             logits = logits_m[slot_act, rows]                   # (N, A)
             value = value_m[slot_act, rows] if value_m is not None else None
             mode = self._mode[rows, player]
+            if hidden is not None:
+                hidden = stack_select(per_slot, lambda hs: hs[slot_act, rows])
+        if self.simultaneous and hidden is not None:
+            hidden = stack_select(per_slot,
+                                  lambda hs: hs[self._slot, r2, cols])
         if self.record_mode == 'strict' and not self.simultaneous:
             idx = t.clamp(max=self._u.shape[1] - 1)
             u = self._u[rows, idx]
@@ -893,7 +1012,7 @@ class DeviceActorEngine:
                 record['reward'] = env.rewards(nstate)
         t = t + live.long()
         live = live & ~done_now
-        return nstate, live, t, record
+        return nstate, hidden, live, t, record
 
     @torch.no_grad()
     def _stack_params(self, assign: Dict[int, int]) -> None:
@@ -1051,6 +1170,8 @@ class DeviceActorEngine:
                 N, seed=block_seed, device=self.device))
             self._live.copy_(torch.from_numpy(live))
             self._t.zero_()
+            if self._hidden is not None:
+                map_structure(lambda h: h.zero_(), self._hidden)
             self._u.copy_(torch.from_numpy(u_tab))
             self._slot.copy_(torch.from_numpy(seat_slot))
             self._mode.copy_(torch.from_numpy(seat_mode))

@@ -1,5 +1,5 @@
 """Environment protocol and registry (copy of ``handyrl_tpu/environment.py``
-for the games the port has so far: TicTacToe and HungryGeese).
+for the games the port has so far: TicTacToe, ConnectX and HungryGeese).
 
 Environments are plain Python: the framework consumes only the numpy
 arrays they produce (``observation``) and the integer action spaces they
@@ -14,6 +14,7 @@ from typing import Any, Dict, List, Optional
 # short name -> module path; a fully-qualified dotted module path also works
 ENVS = {
     'TicTacToe': 'handyrl_tpu_torch.envs.tictactoe',
+    'ConnectX': 'handyrl_tpu_torch.envs.kaggle.connectx',
     'HungryGeese': 'handyrl_tpu_torch.envs.kaggle.hungry_geese',
 }
 
@@ -23,6 +24,7 @@ ENVS = {
 DEVICE_ENVS = {
     'HungryGeese': 'handyrl_tpu_torch.envs.torch_hungry_geese',
     'TicTacToe': 'handyrl_tpu_torch.envs.torch_tictactoe',
+    'ConnectX': 'handyrl_tpu_torch.envs.torch_connectx',
 }
 
 

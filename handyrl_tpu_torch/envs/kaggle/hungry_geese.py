@@ -272,13 +272,19 @@ class Environment(BaseEnvironment):
         return best[1]
 
     def net(self):
-        """The port's GeeseNet; env_args ``torus_impl`` picks the trunk
-        ('pallas' = the fused CUDA kernel, 'pad' / 'halo' = plain torch
-        convs). Only GroupNorm and the feed-forward net are ported."""
-        from ...models.geese import GeeseNet
-        if self.args.get('net_kind', 'conv') != 'conv':
-            raise ValueError('net_kind %r is not ported yet'
-                             % self.args['net_kind'])
+        """The port's GeeseNet, or GeeseNetLSTM for env_args ``net_kind:
+        'lstm'`` (the torus-conv stem and ConvLSTM core of the JAX
+        package's LSTM configuration); ``torus_impl`` picks GeeseNet's
+        trunk ('pallas' = the fused CUDA kernel, 'pad' / 'halo' = plain
+        torch convs; GeeseNetLSTM runs the last two). Only GroupNorm is
+        ported."""
+        from ...models.geese import GeeseNet, GeeseNetLSTM
+        kind = self.args.get('net_kind', 'conv')
+        if kind == 'lstm':
+            return GeeseNetLSTM(norm_kind=self.args.get('norm_kind', 'group'),
+                                torus_impl=self.args.get('torus_impl', 'pad'))
+        if kind != 'conv':
+            raise ValueError('net_kind %r is not ported yet' % (kind,))
         return GeeseNet(norm_kind=self.args.get('norm_kind', 'group'),
                         torus_impl=self.args.get('torus_impl', 'pad'))
 

@@ -647,6 +647,7 @@ def load_model(model_path: str, env, device: Any = 'cuda'):
         root, _, spec = model_path[len('registry://'):].rpartition('/')
         line, selector = parse_spec(spec)
         snap = ModelRegistry(root or '.').load_snapshot(line, selector)
+        env.reset()   # the JAX package's probe: the env's rng moves too
         return ModelWrapper.from_snapshot(snap, device)
     if model_path.endswith('.pt2'):
         return ExportedModel(model_path, device)
@@ -662,6 +663,10 @@ def load_model(model_path: str, env, device: Any = 'cuda'):
             'programs (.pt2), registry:// and serve:// specs; %r is none of '
             'them' % (model_path,))
     module = env.net()
+    # the JAX package resets the env to probe an example observation; an
+    # env with a random start (Hungry Geese) draws from its rng there, so
+    # the matches that follow start from the reference's boards
+    env.reset()
     with open(model_path, 'rb') as f:
         load_params_bytes(module, f.read())
     return ModelWrapper(module, device)

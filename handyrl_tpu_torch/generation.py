@@ -269,8 +269,12 @@ class BatchedGenerator:
         self.args = args
         self.n_envs = n_envs
         self._moments: List[List[dict]] = [[] for _ in range(n_envs)]
-        for env in self.envs:
+        # a recurrent net's state, per (env, player), on the host
+        self._hidden: List[Dict[int, Any]] = [{} for _ in range(n_envs)]
+        for i, env in enumerate(self.envs):
             env.reset()
+            self._hidden[i] = {p: wrapper.init_hidden()
+                               for p in env.players()}
 
     def _gen_args(self, env) -> Dict[str, Any]:
         return {'role': 'g', 'player': env.players(),
@@ -294,9 +298,14 @@ class BatchedGenerator:
             return []
 
         obs_batch, _ = pad_to_bucket([j[3] for j in jobs])
-        outputs = self.wrapper.batch_inference(obs_batch)
+        hidden_batch = None
+        if any(self._hidden[i].get(p) is not None for i, p, _, _ in jobs):
+            hidden_batch, _ = pad_to_bucket(
+                [self._hidden[i][p] for i, p, _, _ in jobs])
+        outputs = self.wrapper.batch_inference(obs_batch, hidden_batch)
         policies = np.asarray(outputs['policy'])
         values = np.asarray(outputs['value']) if 'value' in outputs else None
+        next_hidden = outputs.get('hidden')
 
         # one vectorized draw for every acting row: Gumbel-max over the
         # masked logits is a sample of the masked softmax
@@ -324,6 +333,9 @@ class BatchedGenerator:
             moment['observation'][player] = obs
             if values is not None:
                 moment['value'][player] = values[row]
+            if next_hidden is not None:
+                self._hidden[i][player] = map_structure(
+                    lambda a: np.asarray(a)[row], next_hidden)
             if acting:
                 n = row_to_sample[row]
                 action = int(sampled[n])
@@ -354,6 +366,8 @@ class BatchedGenerator:
     def _reset_slot(self, i: int):
         self._moments[i] = []
         self.envs[i].reset()
+        self._hidden[i] = {p: self.wrapper.init_hidden()
+                           for p in self.envs[i].players()}
 
 
 class BatchedEvaluator:
@@ -416,7 +430,9 @@ class BatchedEvaluator:
         opponent = random.choice(self._opponents)
 
         agents: Dict[int, Any] = {}
-        model_seats: Dict[int, str] = {seat: self.MAIN}
+        # each model seat: its pool key and its recurrent state
+        model_seats: Dict[int, dict] = {
+            seat: {'key': self.MAIN, 'hidden': self.wrapper.init_hidden()}}
         for p in players:
             if p == seat:
                 continue
@@ -424,21 +440,31 @@ class BatchedEvaluator:
             if agent is not None:
                 agents[p] = agent
             else:
-                self._opponent_model(opponent)
-                model_seats[p] = opponent
+                opp = self._opponent_model(opponent)
+                model_seats[p] = {'key': opponent,
+                                  'hidden': opp.init_hidden()}
         self._slot_state[i] = {'seat': seat, 'opponent': opponent,
                                'agents': agents, 'model_seats': model_seats}
 
     def _batched_actions(self, key: str, jobs: List[tuple]
                          ) -> Dict[tuple, int]:
         """Greedy actions for the (env_idx, player) seats of model ``key``:
-        one padded batch_inference call."""
+        one padded batch_inference call, the seats' hidden states with it."""
         obs_batch, _ = pad_to_bucket(
             [self.envs[i].observation(p) for i, p in jobs])
-        policies = np.asarray(
-            self._model_pool[key].batch_inference(obs_batch)['policy'])
+        seats = [self._slot_state[i]['model_seats'][p] for i, p in jobs]
+        hidden_batch = None
+        if seats[0]['hidden'] is not None:
+            hidden_batch, _ = pad_to_bucket([s['hidden'] for s in seats])
+        outputs = self._model_pool[key].batch_inference(obs_batch,
+                                                        hidden_batch)
+        policies = np.asarray(outputs['policy'])
+        next_hidden = outputs.get('hidden')
         actions: Dict[tuple, int] = {}
         for row, (i, p) in enumerate(jobs):
+            if next_hidden is not None:
+                seats[row]['hidden'] = map_structure(
+                    lambda a: np.asarray(a)[row], next_hidden)
             logits = policies[row]
             actions[(i, p)] = max(self.envs[i].legal_actions(p),
                                   key=lambda a: logits[a])   # greedy
@@ -451,7 +477,7 @@ class BatchedEvaluator:
             seats = self._slot_state[i]['model_seats']
             for p in env.turns():
                 if p in seats:
-                    due.setdefault(seats[p], []).append((i, p))
+                    due.setdefault(seats[p]['key'], []).append((i, p))
         model_actions: Dict[tuple, int] = {}
         for key, jobs in due.items():
             model_actions.update(self._batched_actions(key, jobs))

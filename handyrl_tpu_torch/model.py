@@ -87,7 +87,15 @@ class ModelWrapper:
         self.module = module.to(self.device).eval()
 
     def init_hidden(self, batch_shape=None):
-        return self.module.init_hidden(batch_shape)
+        """None for a feed-forward net. Otherwise, as the JAX package's
+        wrapper: without ``batch_shape`` a single sample's state as numpy
+        arrays (for host actors), else the module's state of that leading
+        shape on the device."""
+        if batch_shape is None:
+            hidden = self.module.init_hidden(())
+            return None if hidden is None else map_structure(
+                lambda t: t.cpu().numpy(), hidden)
+        return self.module.init_hidden(tuple(batch_shape))
 
     def _to_device(self, x):
         return map_structure(

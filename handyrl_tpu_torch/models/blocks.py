@@ -195,3 +195,71 @@ class ScalarHead(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = torch.relu(self.norm(self.conv(x)))
         return self.dense(_flatten_hwc(h))
+
+
+class ConvLSTMCell(nn.Module):
+    """Convolutional LSTM cell on NCHW feature maps, the port of the JAX
+    package's ``blocks.ConvLSTMCell``.
+
+    The gates come from one zero-padded ('SAME') ``kernel`` x ``kernel``
+    conv (with a bias) over the channel concatenation ``[x, h_prev]``,
+    split in the order i, f, o, g; then ``c = sigmoid(f) * c_prev +
+    sigmoid(i) * tanh(g)`` and ``h = sigmoid(o) * tanh(c)``. The state is
+    an ``(h, c)`` tuple of (N, F, H, W) tensors. The flax kernel (k, k,
+    C + F, 4F) is HWIO over the same concatenation, so it maps to the
+    torch weight by the permutation alone."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3):
+        super().__init__()
+        self.features = int(features)
+        self.conv = nn.Conv2d(in_channels + features, 4 * features, kernel,
+                              padding=kernel // 2)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        _reset_conv(self.conv, generator)
+
+    def forward(self, x: torch.Tensor, state):
+        h_prev, c_prev = state
+        gates = self.conv(torch.cat([x, h_prev.to(x.dtype)], dim=1))
+        i, f, o, g = torch.chunk(gates, 4, dim=1)
+        c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return h, (h, c)
+
+
+class DRC(nn.Module):
+    """Deep Repeated ConvLSTM (Guez et al. 2019) on NCHW feature maps, the
+    port of the JAX package's ``blocks.DRC``: ``num_layers`` stacked
+    :class:`ConvLSTMCell`s applied ``num_repeats`` times an observation;
+    layer i > 0 reads layer i - 1's fresh hidden state. The state is
+    ``(hs, cs)``, lists of (N, F, H, W) tensors, one a layer."""
+
+    def __init__(self, in_channels: int, num_layers: int = 3,
+                 features: int = 32, kernel: int = 3, num_repeats: int = 3):
+        super().__init__()
+        self.num_layers, self.features = int(num_layers), int(features)
+        self.num_repeats = int(num_repeats)
+        self.cells = nn.ModuleList(
+            ConvLSTMCell(in_channels if i == 0 else features, features,
+                         kernel) for i in range(self.num_layers))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for cell in self.cells:
+            cell.reset_parameters(generator)
+
+    def initial_state(self, x: torch.Tensor):
+        """Zeros for every layer, shaped as ``x``'s board with F
+        channels."""
+        shape = (x.shape[0], self.features) + tuple(x.shape[-2:])
+        return ([x.new_zeros(shape) for _ in range(self.num_layers)],
+                [x.new_zeros(shape) for _ in range(self.num_layers)])
+
+    def forward(self, x: torch.Tensor, state=None):
+        if state is None:
+            state = self.initial_state(x)
+        hs, cs = list(state[0]), list(state[1])
+        for _ in range(self.num_repeats):
+            for i, cell in enumerate(self.cells):
+                inp = x if i == 0 else hs[i - 1]
+                _, (hs[i], cs[i]) = cell(inp, (hs[i], cs[i]))
+        return hs[-1], (hs, cs)

@@ -1,6 +1,6 @@
-"""Hungry Geese net.
+"""Hungry Geese nets.
 
-The port of ``handyrl_tpu/models/geese.py:GeeseNet``: a 17->F torus-conv
+The port of ``handyrl_tpu/models/geese.py``. ``GeeseNet``: a 17->F torus-conv
 stem and ``layers`` residual torus-conv + GroupNorm blocks over the 17x7x11
 board encoding; the policy is read out at the acting goose's head cell, the
 value from the head cell and the board average.
@@ -13,6 +13,15 @@ forward, K2 backward under autograd; their plain versions on the CPU);
 ``'pad'`` and ``'halo'`` run it as plain torch
 convs, layer by layer, on slices of the same tensors. All three are the
 same function of the same parameters.
+
+``GeeseNetLSTM``: the recurrent net (``env_args.net_kind: 'lstm'``), a
+torus-conv stem of ``1 + stem_layers`` convs (residual after the first),
+a :class:`~.blocks.ConvLSTMCell` carrying ``(h, c)`` across plies, and
+GeeseNet's head readout. The JAX package runs no trunk kernel for it
+(its TorusConv has 'pad' and 'halo' only), so neither does the port: its
+convs are PyTorch's. The hidden state keeps the JAX package's layout at
+the module's boundary, a tuple ``(h, c)`` of (..., 7, 11, F) tensors, so
+requests over the wire carry the same arrays in both packages.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ import torch
 from torch import nn
 
 from . import register
-from .blocks import TorusConv, lecun_normal_, to_nhwc
+from .blocks import ConvLSTMCell, TorusConv, lecun_normal_, to_nhwc
 from ..ops.geese_trunk import (trunk_apply, trunk_params_from_geesenet,
                                trunk_serve)
 
@@ -121,10 +130,107 @@ class GeeseNet(nn.Module):
                 'value': value.reshape(lead + (1,))}
 
 
+@register('GeeseNetLSTM')
+class GeeseNetLSTM(nn.Module):
+    """The recurrent Hungry Geese net (BASELINE.md's LSTM configuration):
+    ``module(obs, hidden)`` returns 'policy', 'value' and 'hidden', the
+    next ``(h, c)``; a None ``hidden`` starts from zeros."""
+    DEFAULTS = {'filters': 32, 'stem_layers': 4, 'norm_kind': 'group',
+                'torus_impl': 'pad'}
+    RECURRENT = True
+
+    def __init__(self, filters: int = 32, stem_layers: int = 4,
+                 norm_kind: str = 'group', torus_impl: str = 'pad',
+                 in_channels: int = 17,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if norm_kind != 'group':
+            raise ValueError('the port implements GroupNorm only '
+                             '(norm_kind=%r)' % (norm_kind,))
+        if torus_impl not in ('pad', 'halo'):
+            # as the JAX package's TorusConv, which GeeseNetLSTM's stem is
+            raise ValueError('GeeseNetLSTM runs torus_impl \'pad\' or '
+                             '\'halo\' (got %r): no trunk kernel fuses its '
+                             'stem' % (torus_impl,))
+        self.filters, self.stem_layers = int(filters), int(stem_layers)
+        self.norm_kind, self.torus_impl = norm_kind, torus_impl
+        self.groups = min(8, self.filters)
+        F, L = self.filters, self.stem_layers
+        self.stem_w = nn.Parameter(torch.empty(3, 3, in_channels, F))
+        self.stem_scale = nn.Parameter(torch.empty(F))
+        self.stem_bias = nn.Parameter(torch.empty(F))
+        self.block_w = nn.Parameter(torch.empty(L, 3, 3, F, F))
+        self.block_scale = nn.Parameter(torch.empty(L, F))
+        self.block_bias = nn.Parameter(torch.empty(L, F))
+        self.lstm = ConvLSTMCell(F, F)
+        self.policy_w = nn.Parameter(torch.empty(F, 4))     # flax Dense_0
+        self.value_w = nn.Parameter(torch.empty(2 * F, 1))  # flax Dense_1
+        self.torus = TorusConv(torus_impl, self.groups)
+        self.reset_parameters(generator)
+
+    def config(self) -> Dict[str, Any]:
+        """Non-default constructor config (what a snapshot carries)."""
+        return {k: getattr(self, k) for k, d in self.DEFAULTS.items()
+                if getattr(self, k) != d}
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """flax defaults: lecun_normal kernels, zero biases, GroupNorm scale
+        1 and bias 0."""
+        cin, F = self.stem_w.shape[2], self.filters
+        lecun_normal_(self.stem_w, 9 * cin, generator)
+        lecun_normal_(self.block_w, 9 * F, generator)
+        self.lstm.reset_parameters(generator)
+        lecun_normal_(self.policy_w, F, generator)
+        lecun_normal_(self.value_w, 2 * F, generator)
+        with torch.no_grad():
+            for p in (self.stem_scale, self.block_scale):
+                p.fill_(1.0)
+            for p in (self.stem_bias, self.block_bias):
+                p.zero_()
+
+    def init_hidden(self, batch_shape=()):
+        """Zeros ``(h, c)``, each ``batch_shape + (7, 11, F)``, on the
+        parameters' device (two tensors, as the JAX package's two
+        arrays)."""
+        shape = tuple(batch_shape or ()) + (7, 11, self.filters)
+        w = self.stem_w
+        return (torch.zeros(shape, dtype=w.dtype, device=w.device),
+                torch.zeros(shape, dtype=w.dtype, device=w.device))
+
+    def forward(self, obs: torch.Tensor, hidden=None) -> Dict[str, Any]:
+        x = obs.to(self.stem_w.dtype)                  # (..., 17, 7, 11)
+        lead = x.shape[:-3]
+        x = x.reshape((-1,) + x.shape[-3:])
+        h = torch.relu(self.torus(x, self.stem_w, self.stem_scale,
+                                  self.stem_bias))
+        for i in range(self.stem_layers):
+            h = torch.relu(h + self.torus(h, self.block_w[i],
+                                          self.block_scale[i],
+                                          self.block_bias[i]))
+        if hidden is None:
+            hidden = self.init_hidden((x.shape[0],))
+        # the state crosses the boundary as (..., 7, 11, F)
+        h_prev, c_prev = (t.reshape((-1,) + tuple(t.shape[-3:]))
+                          .permute(0, 3, 1, 2) for t in hidden)
+        h, (h_next, c_next) = self.lstm(h, (h_prev, c_prev))
+        # pool features at the acting goose's head cell (channel 0 of obs)
+        h_head = (h * x[:, :1]).sum(dim=(2, 3))       # (N, F)
+        h_avg = h.mean(dim=(2, 3))                    # (N, F)
+        policy = h_head @ self.policy_w
+        value = torch.tanh(torch.cat([h_head, h_avg], dim=-1) @ self.value_w)
+
+        def out(t):
+            return t.permute(0, 2, 3, 1).reshape(lead + tuple(
+                t.shape[-2:]) + (self.filters,))
+        return {'policy': policy.reshape(lead + (4,)),
+                'value': value.reshape(lead + (1,)),
+                'hidden': (out(h_next), out(c_next))}
+
+
 # ------------------------------------------------- flax params in and out
 
 def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
-    """The port's GeeseNet state dict from the JAX GeeseNet's param tree
+    """The port's GeeseNet (or GeeseNetLSTM) state dict from the JAX GeeseNet's param tree
     (nested dicts of numpy arrays, with or without the top-level 'params'
     key): ``TorusConv_0..L/{Conv_0/kernel, GroupNorm_0/{scale,bias}}``,
     ``Dense_0/kernel`` (F,4) and ``Dense_1/kernel`` (2F,1). Load it with
@@ -136,14 +242,20 @@ def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
     arrays = dict(zip(names, trunk_params_from_geesenet(p, layers)))
     arrays['policy_w'] = p['Dense_0']['kernel']
     arrays['value_w'] = p['Dense_1']['kernel']
+    if 'ConvLSTMCell_0' in p:
+        # HWIO over [x, h] -> OIHW over the same concatenation
+        cell = p['ConvLSTMCell_0']['Conv_0']
+        arrays['lstm.conv.weight'] = np.asarray(
+            cell['kernel'], np.float32).transpose(3, 2, 0, 1)
+        arrays['lstm.conv.bias'] = cell['bias']
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in arrays.items()}
 
 
 def params_to_flax(net) -> Dict[str, Any]:
     """Inverse of :func:`params_from_flax`: the flax-shaped param tree
-    ``{'params': {...}}`` of numpy arrays (what snapshots carry), from a
-    GeeseNet or from a mapping of its parameter names to tensors (a state
+    ``{'params': {...}}`` of numpy arrays (what snapshots carry), in the
+    flax init's module order, from a GeeseNet, a GeeseNetLSTM or from a mapping of its parameter names to tensors (a state
     dict, or the Adam moments of one)."""
     t = dict(net) if isinstance(net, Mapping) else dict(net.named_parameters())
 
@@ -158,6 +270,11 @@ def params_to_flax(net) -> Dict[str, Any]:
         p['TorusConv_%d' % i] = {'Conv_0': {'kernel': arr(w)},
                                  'GroupNorm_0': {'scale': arr(s),
                                                  'bias': arr(b)}}
+    if 'lstm.conv.weight' in t:
+        p['ConvLSTMCell_0'] = {'Conv_0': {
+            'kernel': np.ascontiguousarray(
+                arr(t['lstm.conv.weight']).transpose(2, 3, 1, 0)),
+            'bias': arr(t['lstm.conv.bias'])}}
     p['Dense_0'] = {'kernel': arr(t['policy_w'])}
     p['Dense_1'] = {'kernel': arr(t['value_w'])}
     return {'params': p}

@@ -6,7 +6,9 @@ blocks, each followed by a ReLU, then a 9-way policy head and a tanh value
 head over the 3x3 board. Its convs are plain ``F.conv2d`` calls: the JAX
 package leaves them to XLA (no TPU kernel), so the port has no hand kernel
 here. Only the width the JAX package defines (filters 32, 3 blocks) is
-ever trained; other widths build for tests.
+ever trained; other widths build for tests. ``models/connect_four.py``'s
+ConnectFourNet is the same net on the 6x7 board (the class attributes
+``ROWS``, ``COLS``, ``ACTIONS``), and shares the snapshot format below.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from torch import nn
 from . import register
 from .blocks import ConvBlock, PolicyHead, ScalarHead, lecun_normal_
 
-CELLS, ACTIONS, PLANES = 9, 9, 3
+PLANES = 3
 
 
 @register('SimpleConv2dModel')
@@ -29,17 +31,23 @@ class SimpleConv2dModel(nn.Module):
     # constructor config and its defaults, in the JAX module's field order
     # (snapshots carry the non-default entries)
     DEFAULTS = {'filters': 32, 'layers': 3}
+    # the board and the policy's width
+    ROWS, COLS, ACTIONS = 3, 3, 9
 
-    def __init__(self, filters: int = 32, layers: int = 3,
+    def __init__(self, filters: Optional[int] = None,
+                 layers: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.filters, self.layers = int(filters), int(layers)
-        F = self.filters
+        self.filters = int(self.DEFAULTS['filters'] if filters is None
+                           else filters)
+        self.layers = int(self.DEFAULTS['layers'] if layers is None
+                          else layers)
+        F, cells = self.filters, self.ROWS * self.COLS
         self.conv = nn.Conv2d(PLANES, F, 3, padding=1)
         self.blocks = nn.ModuleList(ConvBlock(F, F)
                                     for _ in range(self.layers))
-        self.policy_head = PolicyHead(F, 2, ACTIONS, CELLS)
-        self.value_head = ScalarHead(F, 1, 1, CELLS)
+        self.policy_head = PolicyHead(F, 2, self.ACTIONS, cells)
+        self.value_head = ScalarHead(F, 1, 1, cells)
         self.reset_parameters(generator)
 
     def config(self) -> Dict[str, Any]:
@@ -62,14 +70,14 @@ class SimpleConv2dModel(nn.Module):
         return None
 
     def forward(self, obs: torch.Tensor, hidden=None) -> Dict[str, Any]:
-        x = obs.to(self.conv.weight.dtype)            # (..., 3, 3, 3)
+        x = obs.to(self.conv.weight.dtype)            # (..., 3, ROWS, COLS)
         lead = x.shape[:-3]
         h = torch.relu(self.conv(x.reshape((-1,) + x.shape[-3:])))
         for block in self.blocks:
             h = torch.relu(block(h))
         policy = self.policy_head(h)
         value = torch.tanh(self.value_head(h))
-        return {'policy': policy.reshape(lead + (ACTIONS,)),
+        return {'policy': policy.reshape(lead + (self.ACTIONS,)),
                 'value': value.reshape(lead + (1,))}
 
 
@@ -93,8 +101,9 @@ TORCH_TO_FLAX = {
 
 
 def _leaves(layers: int) -> List[Tuple[str, Tuple[str, ...], str]]:
-    """(state-dict name, flax path, conversion) of every parameter: the 18
-    leaves of ``SimpleConv2dModel().init`` at ``layers`` blocks."""
+    """(state-dict name, flax path, conversion) of every parameter: the
+    leaves of ``SimpleConv2dModel().init`` (and ``ConnectFourNet().init``)
+    at ``layers`` blocks, 18 at 3."""
     rows = [('conv.weight', ('Conv_0', 'kernel'), 'conv'),
             ('conv.bias', ('Conv_0', 'bias'), 'vector')]
     for i in range(layers):
@@ -115,7 +124,8 @@ def _leaves(layers: int) -> List[Tuple[str, Tuple[str, ...], str]]:
 
 
 def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
-    """The port's SimpleConv2dModel state dict from the JAX model's param
+    """The port's SimpleConv2dModel (or ConnectFourNet) state dict from the
+    JAX model's param
     tree (nested dicts of numpy arrays, with or without the top-level
     'params' key). Load it with ``net.load_state_dict(...)``."""
     p = tree['params'] if 'params' in tree else tree
@@ -131,7 +141,7 @@ def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
 
 def params_to_flax(net) -> Dict[str, Any]:
     """Inverse of :func:`params_from_flax`: ``{'params': {...}}`` of numpy
-    arrays, from a SimpleConv2dModel or from a mapping of its parameter
+    arrays, from a SimpleConv2dModel (or ConnectFourNet) or from a mapping of its parameter
     names to tensors (a state dict, or the Adam moments of one)."""
     t = dict(net) if isinstance(net, Mapping) else dict(net.named_parameters())
     layers = sum(1 for k in t if k.endswith('.conv.weight')

@@ -5,7 +5,8 @@ The port of ``handyrl_tpu/ops/fused_pipeline.py:48-385`` on one device.
 Where the JAX package compiles a dispatch into one XLA program with
 donated buffers, this keeps the loop's state in static tensors updated in
 place (the env state, the per-env history, the ring and its cursor and
-size, the train state inside ``ReplayUpdateStep``, the actor's parameters)
+size, the train state inside ``ReplayUpdateStep``, the actor's parameters,
+a recurrent actor's hidden state)
 and runs a dispatch as CUDA graphs:
 
     the chunk graph: ``chunk_steps`` self-play plies (device_generation.
@@ -40,7 +41,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..device_generation import copy_state_, env_generator, make_gen_body
+from ..device_generation import (copy_hidden_, copy_state_, env_generator,
+                                 is_recurrent, make_gen_body)
+from ..utils.tree import map_structure
 from . import launches
 from .graphs import CapturedCall, PackedFetch
 from .train_step import ReplayUpdateStep
@@ -71,6 +74,9 @@ class FusedPipeline:
         self.slot_generator = env_generator(dev, seed + 2)
         self.state = env_mod.init_state(self.n_envs,
                                         generator=self.generator, device=dev)
+        # a recurrent actor's state (N, P, ...) a leaf, static as the env's
+        self.hidden = (actor.init_hidden((self.n_envs, self.num_players))
+                       if is_recurrent(actor) else None)
         self._rollout = make_gen_body(env_mod, actor)
 
         # the history and the ring, shaped after the records of one ply
@@ -100,16 +106,21 @@ class FusedPipeline:
         rollout records for a copy of ``self.state`` (nothing advances; its
         forward counts under 'generation')."""
         state = type(self.state)(*[t.clone() for t in self.state])
+        hidden = (None if self.hidden is None else
+                  map_structure(torch.clone, self.hidden))
         with launches.path('generation'):
-            _, records = self._rollout(state, 1, torch.Generator(
-                device=self.device).manual_seed(0))
+            records = self._rollout(state, 1, torch.Generator(
+                device=self.device).manual_seed(0), hidden)[1]
         return {k: torch.zeros_like(v) for k, v in records.items()}
 
     def _gen_ingest(self) -> Dict[str, Tensor]:
         """One chunk of self-play, ingested; the static state in place."""
-        state, records = self._rollout(self.state, self.chunk_steps,
-                                       self.generator)
+        out = self._rollout(self.state, self.chunk_steps, self.generator,
+                            self.hidden)
+        state, records = out[:2]
         copy_state_(self.state, state)
+        if self.hidden is not None:
+            copy_hidden_(self.hidden, out[2])
         _, n_win = self.windower.ingest(records, self.wstate, self.ring,
                                         self.cursor, self.size,
                                         self.window_generator)

@@ -14,6 +14,8 @@ update step (``ops/train_step.ReplayUpdateStep``) are built on them.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -22,6 +24,24 @@ import torch
 from . import launches
 
 Tensor = torch.Tensor
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Collect Python's garbage now and none until the block ends. An
+    owner and its ``CapturedCall`` (which holds a bound method of the
+    owner) form a reference cycle, so a dropped pipeline's graphs are
+    destroyed by the cyclic collector, at whatever allocation triggers
+    it; a graph destroyed while another is being captured invalidates
+    that capture (torch no longer collects on entering a capture)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class CountedGraph:
@@ -41,7 +61,8 @@ class CountedGraph:
     replays its own graph, copies or synchronises on its own stream
     meanwhile (the split generator beside the threaded replay trainer)
     does not spoil it. :attr:`out` holds the tensors the capture returned,
-    rewritten by each replay."""
+    rewritten by each replay. No Python garbage is collected during the
+    capture (:func:`no_collection`)."""
 
     def __init__(self, fn: Callable[[], Any], stream: torch.cuda.Stream,
                  generators: Sequence[torch.Generator] = (),
@@ -55,8 +76,9 @@ class CountedGraph:
                 self.graph.register_generator_state(gen)
             path = launches.current_path()
             before = launches.totals(path)
-            with torch.cuda.graph(self.graph, stream=stream,
-                                  capture_error_mode='thread_local'):
+            with no_collection(), torch.cuda.graph(
+                    self.graph, stream=stream,
+                    capture_error_mode='thread_local'):
                 self.out = fn()
             self.per_replay: Dict[str, int] = {
                 k: n - before[k] for k, n in launches.totals(path).items()}

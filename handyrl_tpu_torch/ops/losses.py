@@ -3,16 +3,19 @@
 The port of ``handyrl_tpu/ops/losses.py`` (itself the reference training
 pipeline, train.py:127-267): the same masks, importance-sampling clipping,
 two-player value symmetrization and terminal bootstrap. Feed-forward nets
-fold (B, T, P) into one batch dimension and run the net once. Losses are
-sums, not means, so the learning-rate schedule sees the true data count.
+fold (B, T, P) into one batch dimension and run the net once; recurrent
+nets step over T with each player's hidden state gated by whether that
+player observed the step, the burn-in steps first in a pass without
+gradients (the JAX package's ``stop_gradient`` on the carried state).
+Losses are sums, not means, so the learning-rate schedule sees the true
+data count.
 
 The targets go through ``ops/targets.py``, which launches the CUDA kernels
 K3-K5 for tensors on the card.
 
-Not ported yet (each raises ``NotImplementedError``): the recurrent scan
-with hidden gating and burn-in replay, ``norm_kind='batch'`` running
-statistics and the IMPACT target network (losses.py:257-296); ROADMAP.md
-lists them under slice 2's subsets.
+Not ported yet (each raises ``NotImplementedError``): ``norm_kind='batch'``
+running statistics and the IMPACT target network (losses.py:257-296);
+ROADMAP.md queues them.
 """
 
 from __future__ import annotations
@@ -21,12 +24,12 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..utils.tree import map_structure
+from ..utils.tree import map2, map_structure
 from .targets import compute_target
 
 Tensor = torch.Tensor
 
-_DEFERRED = 'is not ported yet (ROADMAP.md, slice 2\'s subsets)'
+_DEFERRED = 'is not ported yet (ROADMAP.md)'
 
 
 class LossConfig(NamedTuple):
@@ -49,22 +52,88 @@ def _fold_bt(x: Tensor) -> Tensor:
     return x.reshape((-1,) + tuple(x.shape[3:]))
 
 
+def _recurrent_outputs(apply_fn: Callable, params, hidden,
+                       batch: Dict[str, Any], cfg: LossConfig
+                       ) -> Dict[str, Tensor]:
+    """A recurrent net stepped over the window's T steps: (B, T, P_obs,
+    ...) outputs, zeros at the burn-in steps. ``hidden`` is the (B, P, ...)
+    state at the window's start; at each step a player's state enters
+    gated by its observation mask and is replaced by the net's next state
+    where the player observed. The burn-in steps run without gradients,
+    so the state they leave is a constant of the loss."""
+    B, T, P_obs = batch['action'].shape[:3]
+    omask = batch['observation_mask']                        # (B, T, P, 1)
+
+    def step(h_carry, t):
+        omask_t = omask[:, t]
+
+        def gate(h):
+            return h * omask_t.reshape(omask_t.shape[:2]
+                                       + (1,) * (h.dim() - 2))
+        gated = map_structure(gate, h_carry)
+        obs_t = map_structure(lambda o: o[:, t], batch['observation'])
+        if cfg.turn_based_training and not cfg.observation:
+            # only the turn player observed: summing the player axis
+            # selects their state (the others were zeroed)
+            h_in = map_structure(lambda h: h.sum(dim=1), gated)
+            obs_in = map_structure(
+                lambda o: o.reshape((B,) + tuple(o.shape[2:])), obs_t)
+        else:
+            h_in = map_structure(
+                lambda h: h.reshape((-1,) + tuple(h.shape[2:])), gated)
+            obs_in = map_structure(
+                lambda o: o.reshape((-1,) + tuple(o.shape[2:])), obs_t)
+        out = dict(apply_fn(params, obs_in, h_in))
+        next_h = map_structure(
+            lambda h: h.reshape((B, -1) + tuple(h.shape[1:])),
+            out.pop('hidden'))
+        out = {k: v.reshape((B, P_obs) + tuple(v.shape[1:]))
+               for k, v in out.items() if v is not None}
+
+        def merge(h, nh):
+            m = omask_t.reshape(omask_t.shape[:2] + (1,) * (h.dim() - 2))
+            return h * (1 - m) + nh * m
+        return map2(merge, h_carry, next_h), out
+
+    bi = cfg.burn_in_steps
+    if bi > 0:
+        with torch.no_grad():
+            for t in range(bi):
+                hidden, _ = step(hidden, t)
+    steps = []
+    for t in range(bi, T):
+        hidden, out = step(hidden, t)
+        steps.append(out)
+    outputs = {k: torch.stack([o[k] for o in steps], dim=1)
+               for k in steps[0]}
+    if bi > 0:
+        # zero outputs at the burn-in steps, so the slicing downstream is
+        # the feed-forward path's
+        outputs = {k: torch.cat([v.new_zeros(v.shape[:1] + (bi,)
+                                             + v.shape[2:]), v], dim=1)
+                   for k, v in outputs.items()}
+    return outputs
+
+
 def forward_prediction(apply_fn: Callable, params, hidden,
                        batch: Dict[str, Any], cfg: LossConfig,
                        batch_stats=None) -> Dict[str, Tensor]:
-    """Run the net over a training window: ``apply_fn(params, obs,
-    hidden)`` on the (B*T*P_obs)-folded observations. Returns outputs
-    shaped (B, T, P, ...) with the policy turn-gathered and masked by the
-    legal actions, and every other output masked by observation_mask."""
-    if hidden is not None:
-        raise NotImplementedError('the recurrent loss path ' + _DEFERRED)
+    """Run the net over a training window: a feed-forward net (``hidden``
+    None) once, ``apply_fn(params, obs, None)`` on the
+    (B*T*P_obs)-folded observations; a recurrent one step by step from
+    ``hidden`` (:func:`_recurrent_outputs`). Returns outputs shaped (B, T,
+    P, ...) with the policy turn-gathered and masked by the legal actions,
+    and every other output masked by observation_mask."""
     if batch_stats is not None:
         raise NotImplementedError("norm_kind='batch' training " + _DEFERRED)
     B, T, P_obs = batch['action'].shape[:3]
-    obs = map_structure(_fold_bt, batch['observation'])
-    outputs = {k: v.reshape((B, T, P_obs) + tuple(v.shape[1:]))
-               for k, v in dict(apply_fn(params, obs, None)).items()
-               if k != 'hidden' and v is not None}
+    if hidden is None:
+        obs = map_structure(_fold_bt, batch['observation'])
+        outputs = {k: v.reshape((B, T, P_obs) + tuple(v.shape[1:]))
+                   for k, v in dict(apply_fn(params, obs, None)).items()
+                   if k != 'hidden' and v is not None}
+    else:
+        outputs = _recurrent_outputs(apply_fn, params, hidden, batch, cfg)
     masked = {}
     for k, o in outputs.items():
         if k == 'policy':
@@ -128,11 +197,12 @@ def compute_loss(apply_fn: Callable, params, init_hidden,
     ('data_count') and the off-policy diagnostics ('diag')."""
     if target_params is not None and cfg.target_clip > 0:
         raise NotImplementedError('the IMPACT target network ' + _DEFERRED)
-    if cfg.burn_in_steps > 0:
-        raise NotImplementedError('burn-in (the recurrent loss path) '
-                                  + _DEFERRED)
     outputs = forward_prediction(apply_fn, params, init_hidden, batch, cfg,
                                  batch_stats)
+    bi = cfg.burn_in_steps
+    if bi > 0:
+        batch = _slice_burn_in(batch, bi)
+        outputs = {k: v[:, bi:] for k, v in outputs.items()}
 
     actions = batch['action'].long()
     emasks = batch['episode_mask']
@@ -196,3 +266,13 @@ def compute_loss(apply_fn: Callable, params, init_hidden,
     }
     return losses['total'], {'losses': losses, 'data_count': dcnt,
                              'diag': diag}
+
+
+def _slice_burn_in(batch: Dict[str, Any], bi: int) -> Dict[str, Any]:
+    """Drop the burn-in steps from every time-indexed entry (entries with
+    a time axis of 1, such as the outcome, pass through, as the JAX
+    package's ``_slice_burn_in``)."""
+    def cut(v):
+        return v if v.shape[1] <= 1 else v[:, bi:]
+    return {k: map_structure(cut, v) if isinstance(v, (dict, list, tuple))
+            else cut(v) for k, v in batch.items()}

@@ -69,15 +69,25 @@ def global_norm(tensors) -> Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
+def init_hidden_for(module: torch.nn.Module, batch: Dict[str, Any]):
+    """The recurrent state a window starts from, (B, P) zeros of the
+    module's ``init_hidden``, B and P read from ``batch['value']``; None
+    for a feed-forward net (the JAX package's ``init_hidden_for``)."""
+    value = batch['value']
+    return module.init_hidden((value.shape[0], value.shape[2]))
+
+
 def _step_math(apply_fn: Callable, cfg: LossConfig, params: Dict[str, Tensor],
-               opt: AdamState, batch: Dict[str, Any], lr: Tensor
+               opt: AdamState, batch: Dict[str, Any], lr: Tensor,
+               hidden=None
                ) -> Tuple[Dict[str, Tensor], AdamState, Dict[str, Tensor]]:
-    """One step's math at ``params``, leaves that require grad: forward,
+    """One step's math at ``params``, leaves that require grad: forward
+    (from ``hidden``, a recurrent net's state at the windows' start),
     targets, losses, grads, clip, decay, Adam and the guard. Returns the
     new parameters, the new Adam state and the metrics, as new tensors
     (``params`` and ``opt`` are only read)."""
     names = list(params)
-    total, aux = compute_loss(apply_fn, params, None, batch, cfg)
+    total, aux = compute_loss(apply_fn, params, hidden, batch, cfg)
     grads = dict(zip(names, torch.autograd.grad(
         total, [params[k] for k in names])))
     with torch.no_grad():
@@ -138,7 +148,8 @@ def build_update_step(module: torch.nn.Module, cfg: LossConfig
         live = {k: v.detach().requires_grad_(True)
                 for k, v in state.params.items()}
         params, opt, metrics = _step_math(apply_fn, cfg, live,
-                                          state.opt_state, batch, lr)
+                                          state.opt_state, batch, lr,
+                                          init_hidden_for(module, batch))
         return (TrainState(params=params, opt_state=opt,
                            steps=state.steps + 1), metrics)
 
@@ -170,6 +181,7 @@ class StaticUpdateStep:
     def __init__(self, module: torch.nn.Module, cfg: LossConfig,
                  state: TrainState):
         self._apply = _apply_fn(module)
+        self._module = module
         self._cfg = cfg
         self._device = state.steps.device
 
@@ -237,9 +249,9 @@ class StaticUpdateStep:
     def _body(self, batch: Dict[str, Tensor]) -> Tensor:
         """One step on the buffers; returns the metrics packed in
         :attr:`metric_names` order."""
-        params, opt, metrics = _step_math(self._apply, self._cfg,
-                                          self._params, self._opt, batch,
-                                          self._lr)
+        params, opt, metrics = _step_math(
+            self._apply, self._cfg, self._params, self._opt, batch, self._lr,
+            init_hidden_for(self._module, batch))
         with torch.no_grad():
             for k, p in self._params.items():
                 p.copy_(params[k])

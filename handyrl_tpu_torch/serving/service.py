@@ -38,7 +38,7 @@ from .. import telemetry
 from ..connection import (FramedConnection, Hub, INFER_KIND, is_infer,
                           open_socket_connection)
 from ..guard import PREEMPT_EXIT_CODE, PreemptionGuard
-from ..model import resolve_device
+from ..model import fp32_on_card, resolve_device
 from .. import ops
 from ..ops import cuda_build
 from .client import SERVE_KIND, is_serve
@@ -67,6 +67,9 @@ class InferenceService:
                  registry: Optional[ModelRegistry] = None,
                  device: Any = 'cuda'):
         self.device = resolve_device(device)
+        # fp32 means fp32 in every served net's PyTorch convs and products
+        # too (GeeseNetLSTM's, the heads'), as in the learners
+        fp32_on_card(self.device)
         srv = dict(args.get('serving') or {})
         self._args = args
         self.host = str(srv.get('host') or '')

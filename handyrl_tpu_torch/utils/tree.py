@@ -1,6 +1,6 @@
 """Small host-side pytree helpers.
 
-Copy of ``handyrl_tpu/utils/tree.py``. They cover nested lists, tuples and
+Copy of ``handyrl_tpu/utils/tree.py``, with :func:`map2`. They cover nested lists, tuples and
 dicts of numpy arrays where ``None`` is a meaningful leaf (a player who did
 not observe a step).
 """
@@ -18,6 +18,16 @@ def map_structure(fn, x):
     if isinstance(x, dict):
         return {k: map_structure(fn, v) for k, v in x.items()}
     return fn(x)
+
+
+def map2(fn, a, b):
+    """``fn`` over the paired leaves of two structures of one shape (a
+    recurrent state and its update)."""
+    if isinstance(a, (list, tuple)):
+        return type(a)(map2(fn, x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return {k: map2(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
 
 
 def stack_structure(items, axis=0):

@@ -19,7 +19,7 @@ trains, as the JAX package's does.
 Usage:
   python scripts/torch_run_north_star.py [--epochs N] [--host] \\
       [--budget-s S] [--metrics-out PATH] [--model-dir DIR] \\
-      [--device cuda|cpu]
+      [--seed S] [--device cuda|cpu]
 
 --budget-s sets HANDYRL_TPU_DEADLINE (unless it is set already): the run
 stops at the first safe point past it and writes its final checkpoint;
@@ -30,7 +30,9 @@ the graphed step) instead of the fused loop: the control that splits the
 device loop from the shared loss and step code. --metrics-out redirects
 the rows (default north_star_torch_<tag>.jsonl); --model-dir defaults to
 models_north_star_torch_<tag>. Exits 75 after a SIGTERM (checkpoint
-flushed: run it again to resume).
+flushed: run it again to resume). --seed sets the learner's ``seed`` (the
+net's init, the rollout's and the replay's generators; without it the
+config's default, 0) and tags the default paths ``<tag>_s<S>``.
 """
 
 import argparse
@@ -38,6 +40,7 @@ import json
 import os
 import sys
 import time
+from typing import Optional
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
@@ -59,7 +62,7 @@ DEVICE_ONLY = ('device_generation', 'device_replay', 'device_chunk_steps',
 
 
 def config(host: bool, epochs: int, model_dir: str, metrics: str,
-           start: int) -> dict:
+           start: int, seed: Optional[int] = None) -> dict:
     """The run's raw config: BASE, or its host-learner control."""
     raw = json.loads(json.dumps(BASE))
     ta = raw['train_args']
@@ -69,6 +72,8 @@ def config(host: bool, epochs: int, model_dir: str, metrics: str,
         ta['generation_envs'] = 16
     ta.update(model_dir=model_dir, metrics_jsonl=metrics, epochs=epochs,
               restart_epoch=start)
+    if seed is not None:
+        ta['seed'] = seed
     return raw
 
 
@@ -79,6 +84,7 @@ def main(argv=None):
     ap.add_argument('--budget-s', type=float, default=None)
     ap.add_argument('--metrics-out', default=None)
     ap.add_argument('--model-dir', default=None)
+    ap.add_argument('--seed', type=int, default=None)
     ap.add_argument('--device', default='cuda')
     a = ap.parse_args(sys.argv[1:] if argv is None else argv)
 
@@ -89,6 +95,8 @@ def main(argv=None):
     from handyrl_tpu_torch.train import Learner
 
     tag = 'host' if a.host else 'device'
+    if a.seed is not None:
+        tag += '_s%d' % a.seed
     model_dir = a.model_dir or 'models_north_star_torch_%s' % tag
     metrics = a.metrics_out or 'north_star_torch_%s.jsonl' % tag
     epochs = a.epochs
@@ -99,19 +107,22 @@ def main(argv=None):
     if a.budget_s is not None:
         os.environ.setdefault('HANDYRL_TPU_DEADLINE',
                               str(time.time() + a.budget_s))
-    args = apply_defaults(config(a.host, epochs, model_dir, metrics, start))
+    args = apply_defaults(config(a.host, epochs, model_dir, metrics, start,
+                                       a.seed))
 
     device = resolve_device(a.device)
     fp32_on_card(device)
     reset_kernel_launches()
-    print('north-star %s run: epochs %d->%d, model_dir=%s' %
-          (tag, start, epochs, model_dir), flush=True)
+    print('north-star %s run: epochs %d->%d, seed %s, model_dir=%s' %
+          (tag, start, epochs, args['train_args']['seed'], model_dir),
+          flush=True)
     t0 = time.time()
     learner = Learner(args, device=device)
     learner.run()
     line = learner.summary()
     print(json.dumps({
         'row': 'north-star-torch-%s' % tag,
+        'seed': args['train_args']['seed'],
         'epochs': learner.model_epoch,
         'episodes': learner.num_returned_episodes,
         'wall_s': round(time.time() - t0, 1),

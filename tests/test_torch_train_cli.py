@@ -118,9 +118,9 @@ def test_cli_without_cuda_raises(tmp_path):
           'device_replay': True,
           'generation': {'device_actor_chunk_steps': 0}},
      'device_actor_chunk_steps'),
-    ({}, {'burn_in_steps': 2}, 'burn_in_steps'),
+    ({}, {'compute_dtype': 'bfloat16'}, 'compute_dtype'),
     ({}, {'telemetry_port': 9100}, 'telemetry_port'),
-    ({'net_kind': 'lstm'}, {}, 'net_kind'),
+    ({'net_kind': 'former'}, {}, 'net_kind'),
     ({'norm_kind': 'batch'}, {}, 'norm_kind'),
     ({'env': 'TicTacToe'}, {'device_generation': True,
                             'batched_generation': False,
