@@ -458,8 +458,7 @@ def graph_time_ms(torch, fn, reps):
         fn()
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    from handyrl_tpu_torch.ops.graphs import no_collection
-    with no_collection(), torch.cuda.graph(graph):
+    with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -1886,8 +1885,8 @@ def fused_ingest_and_step_checks(torch, fp, tg, args, mode='solo',
                 None if seed is None else torch.Generator().manual_seed(seed)))
     P = tg.NUM_PLAYERS
     state = tg.State(*[t.clone() for t in fp.state])
-    _, records = fp._rollout(state, INGEST_PLIES,
-                             torch.Generator('cuda').manual_seed(SEED + 3))
+    _, records, _ = fp._rollout(state, INGEST_PLIES,
+                                torch.Generator('cuda').manual_seed(SEED + 3))
     K, N = records['done'].shape
     W = fp.windower.W
     gen = torch.Generator().manual_seed(SEED + 12)

@@ -51,7 +51,7 @@ from .generation import (Generator, _blank_moment, bucketed_inference,
                          pad_to_bucket, sample_seed, seed_env_rng)
 from .ops.batch import compress_moments
 from .ops.graphs import CapturedCall, PackedFetch
-from .utils.tree import map2, map_structure
+from .utils.tree import map_zip, map_structure
 
 Tensor = torch.Tensor
 
@@ -83,7 +83,7 @@ def _ply_inference(env_mod, net: torch.nn.Module, state, hidden=None):
             player = env_mod.turn(state)
             out = dict(net(obs, map_structure(lambda h: h[rows, player],
                                               hidden)))
-            hidden = map2(lambda h, x: h.index_put((rows, player), x),
+            hidden = map_zip(lambda h, x: h.index_put((rows, player), x),
                           hidden, out['hidden'])
         out.pop('hidden', None)
         return obs, out['policy'] - amask, amask, out, hidden
@@ -112,7 +112,7 @@ def copy_hidden_(dst, src) -> None:
     """Write a hidden state into the static ``dst`` in place (nothing for
     a feed-forward net's None)."""
     if dst is not None:
-        map2(lambda d, x: d.copy_(x), dst, src)
+        map_zip(lambda d, x: d.copy_(x), dst, src)
 
 
 def gumbel_argmax(logits: Tensor, u: Tensor) -> Tensor:
@@ -127,9 +127,9 @@ def gumbel_argmax(logits: Tensor, u: Tensor) -> Tensor:
 def make_gen_body(env_mod, net: torch.nn.Module):
     """The self-play ply: inference, sampling, transition, record,
     auto-reset. Returns ``rollout_chunk(state, chunk_steps, generator,
-    hidden=None) -> (state, records)``, or ``(state, records, hidden)``
-    for a recurrent net's ``hidden`` (zeroed where an episode ended),
-    records stacked as
+    hidden=None) -> (state, records, hidden)``: a recurrent net's next
+    ``hidden`` (zeroed where an episode ended), None for a feed-forward
+    net's, and the records stacked as
     (K, N, ...): 'obs', 'action', 'prob', 'amask', 'value', 'done',
     'outcome', and 'acting' (N, P) for a simultaneous env (obs (N, P, ...))
     or 'player' (N,) for a turn-based one (the acting player's obs, prob,
@@ -168,9 +168,7 @@ def make_gen_body(env_mod, net: torch.nn.Module):
             if recurrent:
                 hidden = _reset_hidden_where_done(hidden, done)
         records = {k: torch.stack([r[k] for r in plies]) for k in plies[0]}
-        if recurrent:
-            return state, records, hidden
-        return state, records
+        return state, records, hidden
 
     return rollout_chunk
 
@@ -281,13 +279,11 @@ class DeviceGenerator:
     def _chunk(self, full: bool) -> Tensor:
         """One chunk in place: the env state and :attr:`records`; returns
         the packed records (all of them, or done and outcome)."""
-        out = self._rollout(self.state, self.chunk_steps, self.generator,
-                            self.hidden)
-        state, records = out[:2]
+        state, records, hidden = self._rollout(
+            self.state, self.chunk_steps, self.generator, self.hidden)
         copy_state_(self.state, state)
         with torch.no_grad():
-            if self.recurrent:
-                copy_hidden_(self.hidden, out[2])
+            copy_hidden_(self.hidden, hidden)
             if self.records is None:   # the first call, which runs eagerly
                 self.records = {k: torch.empty_like(v)
                                 for k, v in records.items()}
@@ -303,7 +299,7 @@ class DeviceGenerator:
         call = self._calls.get(full)
         if call is None:
             call = self._calls[full] = CapturedCall(
-                lambda: self._chunk(full), self.device, [self.generator])
+                self._chunk, self.device, [self.generator], args=(full,))
         packed = call()
         self.dispatches += 1
         return self._fetch.put(packed)
@@ -575,7 +571,7 @@ class DeviceEvaluator:
                     lambda h: h[a:b].reshape((n * p,) + h.shape[2:]),
                     opp_hidden))
                 policy = out['policy']
-                opp_hidden = map2(lambda h, x: torch.cat(
+                opp_hidden = map_zip(lambda h, x: torch.cat(
                     [h[:a], x.reshape((n, p) + x.shape[1:]), h[b:]]),
                     opp_hidden, out['hidden'])
             logits = policy.reshape(n, p, -1) - amask
@@ -588,7 +584,7 @@ class DeviceEvaluator:
                 out = net(obs, map_structure(lambda h: h[a:b][rows, pl],
                                              opp_hidden))
                 policy = out['policy']
-                opp_hidden = map2(
+                opp_hidden = map_zip(
                     lambda h, x: h.index_put((a + rows, pl), x),
                     opp_hidden, out['hidden'])
             logits = policy - amask
@@ -728,19 +724,6 @@ def _u_pick(weights: Tensor, legal: Tensor, u: Tensor) -> Tensor:
                                            dim=-1)
     first = torch.argmax(cond.to(torch.uint8), dim=-1)
     return torch.where(cond.any(dim=-1), first, last_legal)
-
-
-def stack_select(per_slot, pick):
-    """The slots' next recurrent states (the last item of each
-    ``_ply_inference`` result) stacked leaf by leaf, (M, N, P, ...), each
-    stack indexed by ``pick``."""
-    def go(states):
-        head = states[0]
-        if isinstance(head, (list, tuple)):
-            return type(head)(go([st[i] for st in states])
-                              for i in range(len(head)))
-        return pick(torch.stack(states))
-    return go([s[4] for s in per_slot])
 
 
 def is_recurrent(net: torch.nn.Module) -> bool:
@@ -956,21 +939,18 @@ class DeviceActorEngine:
         if self.simultaneous:
             r2 = rows[:, None]
             cols = torch.arange(P, device=dev)[None, :]
-            logits = logits_m[self._slot, r2, cols]             # (N, P, A)
-            value = (value_m[self._slot, r2, cols]
-                     if value_m is not None else None)
+            seat = (self._slot, r2, cols)           # each seat its own slot
             mode = self._mode
         else:
             player = env.turn(state)                            # (N,)
-            slot_act = self._slot[rows, player]
-            logits = logits_m[slot_act, rows]                   # (N, A)
-            value = value_m[slot_act, rows] if value_m is not None else None
+            seat = (self._slot[rows, player], rows)  # the acting seat's slot
             mode = self._mode[rows, player]
-            if hidden is not None:
-                hidden = stack_select(per_slot, lambda hs: hs[slot_act, rows])
-        if self.simultaneous and hidden is not None:
-            hidden = stack_select(per_slot,
-                                  lambda hs: hs[self._slot, r2, cols])
+        logits = logits_m[seat]                 # (N, P, A) or (N, A)
+        value = value_m[seat] if value_m is not None else None
+        if hidden is not None:
+            # the slots' next states, stacked (M, N, P, ...), at ``seat``
+            hidden = map_zip(lambda *hs: torch.stack(hs)[seat],
+                             *(s[4] for s in per_slot))
         if self.record_mode == 'strict' and not self.simultaneous:
             idx = t.clamp(max=self._u.shape[1] - 1)
             u = self._u[rows, idx]

@@ -44,7 +44,7 @@ import queue
 import random
 import sys
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -586,13 +586,18 @@ class ExportedModel:
     loads without the net's class: only the module that registers K1's
     operator (``ops/geese_trunk``) is imported before
     ``torch.export.load``. The program, exported on the CPU, is moved to
-    ``device`` (the card by default; it raises without one). The ported
-    nets are feed-forward, so ``init_hidden`` is None."""
+    ``device`` (the card by default; it raises without one). A recurrent
+    net's program takes the hidden state after the observation: its
+    shapes are read from the program's inputs, ``init_hidden`` gives
+    zeros of them (None for a feed-forward net), and ``inference``
+    returns the next state under 'hidden', with its batch axis of 1, as
+    the JAX package's does."""
 
     def __init__(self, model_path: str, device: Any = 'cuda'):
         self.model_path = model_path
         self.device = device
         self._module = None
+        self._hidden_shapes: List[Tuple[int, ...]] = []
 
     def _open(self):
         if self._module is not None:
@@ -607,21 +612,41 @@ class ExportedModel:
                 "device='cpu' to run on the host" % (str(self.device),))
         program = move_to_device_pass(torch.export.load(self.model_path),
                                       dev)
+        # the user inputs after the observation are the hidden state's
+        names = program.graph_signature.user_inputs[1:]
+        nodes = {n.name: n for n in program.graph.nodes
+                 if n.op == 'placeholder'}
+        self._hidden_shapes = [tuple(nodes[n].meta['val'].shape)
+                               for n in names]
         self.device = dev
         self._module = program.module()
 
     def init_hidden(self, batch_size=None):
-        return None
+        self._open()
+        if not self._hidden_shapes:
+            return None
+        return tuple(np.zeros(s, np.float32) for s in self._hidden_shapes)
 
     def inference(self, x, hidden=None) -> Dict[str, Any]:
         import torch
         self._open()
         obs = torch.from_numpy(np.asarray(x, np.float32)[None]).to(
             self.device)
+        args = (obs,)
+        if self._hidden_shapes:
+            if hidden is None:
+                hidden = self.init_hidden()
+            args += (tuple(torch.from_numpy(np.asarray(h, np.float32)).to(
+                self.device) for h in hidden),)
         with torch.no_grad():
-            outputs = self._module(obs)
-        return {k: v.cpu().numpy()[0] for k, v in outputs.items()
-                if v is not None}
+            outputs = self._module(*args)
+        result = {}
+        for k, v in outputs.items():
+            if k == 'hidden':
+                result[k] = tuple(h.cpu().numpy() for h in v)
+            elif v is not None:
+                result[k] = v.cpu().numpy()[0]
+        return result
 
 
 def load_model(model_path: str, env, device: Any = 'cuda'):

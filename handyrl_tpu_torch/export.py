@@ -9,7 +9,11 @@ GeeseNet on ``torus_impl='pallas'`` keeps K1 as one node, the registered
 operator ``handyrl_tpu_torch::geese_trunk``. The net is traced in eval
 mode under ``torch.no_grad()``, so the trunk takes that operator and not
 the training form's autograd function. The input is a batch-1
-observation, as the JAX export fixes batch 1.
+observation, as the JAX export fixes batch 1. A recurrent net
+(``GeeseNetLSTM``, ``net_kind: 'lstm'``) is traced on the observation and
+its batch-1 ``init_hidden`` and returns its next hidden state beside
+'policy' and 'value', as the JAX export keeps a recurrent net's hidden
+inputs and outputs.
 
 ``evaluation.ExportedModel`` loads the file with no net class (it imports
 only the operator's module) and moves it to the card.
@@ -30,11 +34,15 @@ from .environment import make_env
 OP_NAME = 'handyrl_tpu_torch::geese_trunk'
 
 
-def export_env_args(env_name: str) -> Dict[str, Any]:
-    """The env args an export builds its net from: Hungry Geese takes the
-    kernel trunk (``torus_impl='pallas'``, the same params as every other
-    trunk)."""
+def export_env_args(env_name: str, net_kind: str = 'conv'
+                    ) -> Dict[str, Any]:
+    """The env args an export builds its net from: Hungry Geese's GeeseNet
+    takes the kernel trunk (``torus_impl='pallas'``, the same params as
+    every other trunk); ``net_kind='lstm'`` builds its GeeseNetLSTM, which
+    no trunk kernel fuses."""
     if env_name == 'HungryGeese':
+        if net_kind == 'lstm':
+            return {'env': env_name, 'net_kind': net_kind}
         return {'env': env_name, 'torus_impl': 'pallas'}
     return {'env': env_name}
 
@@ -48,12 +56,16 @@ def example_observation(env) -> np.ndarray:
 
 def export_program(module: torch.nn.Module, obs: np.ndarray):
     """``torch.export`` of ``module`` in eval mode, without autograd, on a
-    batch-1 ``obs``. Returns the ``ExportedProgram``."""
+    batch-1 ``obs`` (and, for a recurrent module, its batch-1
+    ``init_hidden``). Returns the ``ExportedProgram``."""
     module = module.eval()
     x = torch.from_numpy(np.asarray(obs, np.float32)[None]).to(
         next(module.parameters()).device)
+    init = getattr(module, 'init_hidden', None)
+    hidden = init((1,)) if init is not None else None
+    args = (x,) if hidden is None else (x, hidden)
     with torch.no_grad():
-        return torch.export.export(module, (x,))
+        return torch.export.export(module, args)
 
 
 def program_ops(program) -> list:

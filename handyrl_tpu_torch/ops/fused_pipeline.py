@@ -115,12 +115,10 @@ class FusedPipeline:
 
     def _gen_ingest(self) -> Dict[str, Tensor]:
         """One chunk of self-play, ingested; the static state in place."""
-        out = self._rollout(self.state, self.chunk_steps, self.generator,
-                            self.hidden)
-        state, records = out[:2]
+        state, records, hidden = self._rollout(
+            self.state, self.chunk_steps, self.generator, self.hidden)
         copy_state_(self.state, state)
-        if self.hidden is not None:
-            copy_hidden_(self.hidden, out[2])
+        copy_hidden_(self.hidden, hidden)
         _, n_win = self.windower.ingest(records, self.wstate, self.ring,
                                         self.cursor, self.size,
                                         self.window_generator)

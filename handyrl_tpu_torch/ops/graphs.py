@@ -14,8 +14,8 @@ update step (``ops/train_step.ReplayUpdateStep``) are built on them.
 
 from __future__ import annotations
 
-import contextlib
-import gc
+import inspect
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -24,24 +24,6 @@ import torch
 from . import launches
 
 Tensor = torch.Tensor
-
-
-@contextlib.contextmanager
-def no_collection():
-    """Collect Python's garbage now and none until the block ends. An
-    owner and its ``CapturedCall`` (which holds a bound method of the
-    owner) form a reference cycle, so a dropped pipeline's graphs are
-    destroyed by the cyclic collector, at whatever allocation triggers
-    it; a graph destroyed while another is being captured invalidates
-    that capture (torch no longer collects on entering a capture)."""
-    gc.collect()
-    enabled = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if enabled:
-            gc.enable()
 
 
 class CountedGraph:
@@ -61,8 +43,7 @@ class CountedGraph:
     replays its own graph, copies or synchronises on its own stream
     meanwhile (the split generator beside the threaded replay trainer)
     does not spoil it. :attr:`out` holds the tensors the capture returned,
-    rewritten by each replay. No Python garbage is collected during the
-    capture (:func:`no_collection`)."""
+    rewritten by each replay."""
 
     def __init__(self, fn: Callable[[], Any], stream: torch.cuda.Stream,
                  generators: Sequence[torch.Generator] = (),
@@ -76,9 +57,8 @@ class CountedGraph:
                 self.graph.register_generator_state(gen)
             path = launches.current_path()
             before = launches.totals(path)
-            with no_collection(), torch.cuda.graph(
-                    self.graph, stream=stream,
-                    capture_error_mode='thread_local'):
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode='thread_local'):
                 self.out = fn()
             self.per_replay: Dict[str, int] = {
                 k: n - before[k] for k, n in launches.totals(path).items()}
@@ -99,11 +79,21 @@ class CapturedCall:
     static tensors in place and returns its outputs; a graph's outputs are
     the tensors its capture returned, rewritten by each replay. On the CPU
     ``fn`` runs eagerly on every call. :attr:`captures` counts the graphs
-    captured (at most 1)."""
+    captured (at most 1).
 
-    def __init__(self, fn: Callable[[], Any], device: torch.device,
-                 generators: Sequence[torch.Generator] = ()):
-        self.fn = fn
+    ``fn(*args)`` is what runs. A bound method ``fn`` is held weakly: its
+    owner keeps this call, so a strong hold would make a reference cycle,
+    and a dropped owner's graph would then be destroyed by Python's cyclic
+    collector, at whatever allocation triggers it, perhaps inside another
+    graph's capture, which a graph's destruction there invalidates. Held
+    weakly, a graph goes with its owner's last reference."""
+
+    def __init__(self, fn: Callable[..., Any], device: torch.device,
+                 generators: Sequence[torch.Generator] = (),
+                 args: Sequence[Any] = ()):
+        ref = weakref.WeakMethod(fn) if inspect.ismethod(fn) else None
+        self._fn = ref if ref is not None else (lambda: fn)
+        self.args = tuple(args)
         self.device = torch.device(device)
         self.generators = tuple(generators)
         self.calls = 0
@@ -115,6 +105,9 @@ class CapturedCall:
     @property
     def _out(self):
         return self.graph.out
+
+    def fn(self):
+        return self._fn()(*self.args)
 
     def __call__(self):
         self.calls += 1

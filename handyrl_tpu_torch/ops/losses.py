@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..utils.tree import map2, map_structure
+from ..utils.tree import map_zip, map_structure
 from .targets import compute_target
 
 Tensor = torch.Tensor
@@ -93,7 +93,7 @@ def _recurrent_outputs(apply_fn: Callable, params, hidden,
         def merge(h, nh):
             m = omask_t.reshape(omask_t.shape[:2] + (1,) * (h.dim() - 2))
             return h * (1 - m) + nh * m
-        return map2(merge, h_carry, next_h), out
+        return map_zip(merge, h_carry, next_h), out
 
     bi = cfg.burn_in_steps
     if bi > 0:

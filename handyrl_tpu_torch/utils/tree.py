@@ -1,6 +1,6 @@
 """Small host-side pytree helpers.
 
-Copy of ``handyrl_tpu/utils/tree.py``, with :func:`map2`. They cover nested lists, tuples and
+Copy of ``handyrl_tpu/utils/tree.py``, with :func:`map_zip`. They cover nested lists, tuples and
 dicts of numpy arrays where ``None`` is a meaningful leaf (a player who did
 not observe a step).
 """
@@ -20,14 +20,16 @@ def map_structure(fn, x):
     return fn(x)
 
 
-def map2(fn, a, b):
-    """``fn`` over the paired leaves of two structures of one shape (a
-    recurrent state and its update)."""
-    if isinstance(a, (list, tuple)):
-        return type(a)(map2(fn, x, y) for x, y in zip(a, b))
-    if isinstance(a, dict):
-        return {k: map2(fn, a[k], b[k]) for k in a}
-    return fn(a, b)
+def map_zip(fn, first, *rest):
+    """``fn`` over the matching leaves of structures of one shape (a
+    recurrent state and its update, or the states of several nets)."""
+    if isinstance(first, (list, tuple)):
+        return type(first)(map_zip(fn, *leaves)
+                           for leaves in zip(first, *rest))
+    if isinstance(first, dict):
+        return {k: map_zip(fn, first[k], *(r[k] for r in rest))
+                for k in first}
+    return fn(first, *rest)
 
 
 def stack_structure(items, axis=0):

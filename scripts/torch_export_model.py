@@ -3,13 +3,16 @@
 The counterpart of ``scripts/export_model.py``'s default mode for the
 port (``handyrl_tpu_torch/export.py``): the checkpoint's net, traced with
 ``torch.export`` in eval mode without autograd on a batch-1 observation,
-its params inside, and for Hungry Geese the trunk as the registered CUDA
-kernel operator ``handyrl_tpu_torch::geese_trunk``. The export runs on
-the CPU. A self-test reloads the file with
+its params inside, and for Hungry Geese's GeeseNet the trunk as the
+registered CUDA kernel operator ``handyrl_tpu_torch::geese_trunk``.
+``--net-kind lstm`` exports a GeeseNetLSTM checkpoint, its hidden state
+an input and an output of the program. The export runs on the CPU. A
+self-test reloads the file with
 ``handyrl_tpu_torch.evaluation.ExportedModel`` on the CPU and holds one
-inference to the checkpoint's.
+inference (and a recurrent net's next hidden state) to the checkpoint's.
 
-Usage: python scripts/torch_export_model.py ENV CKPT_PATH OUT_PATH
+Usage: python scripts/torch_export_model.py [--net-kind conv|lstm] ENV
+       CKPT_PATH OUT_PATH
 """
 
 import argparse
@@ -26,20 +29,25 @@ def main(argv=None) -> int:
     ap.add_argument('env', nargs='?', default='TicTacToe')
     ap.add_argument('ckpt', nargs='?', default='models/latest.ckpt')
     ap.add_argument('out', nargs='?', default='models/latest.pt2')
+    ap.add_argument('--net-kind', default='conv', choices=('conv', 'lstm'))
     a = ap.parse_args(argv)
 
     import numpy as np
     from handyrl_tpu_torch.evaluation import ExportedModel
     from handyrl_tpu_torch.export import export_env_args, export_model
 
-    info = export_model(export_env_args(a.env), a.ckpt, a.out)
+    info = export_model(export_env_args(a.env, a.net_kind), a.ckpt, a.out)
     print('wrote', info['path'], info['bytes'], 'bytes (K1 operator in the '
           'graph: %s)' % info['kernel_op'])
 
     # self-test: reload with no net class and run one inference
     model = ExportedModel(a.out, device='cpu')
     out = model.inference(info['obs'], model.init_hidden())
-    want = info['wrapper'].inference(info['obs'])
+    wrapper = info['wrapper']
+    want = wrapper.inference(info['obs'], wrapper.init_hidden())
+    if 'hidden' in want:     # the next state, batch axis 1 in the program's
+        out.update(zip(('h', 'c'), (h[0] for h in out.pop('hidden'))))
+        want.update(zip(('h', 'c'), want.pop('hidden')))
     dev = max(float(np.max(np.abs(out[k] - want[k]))) for k in want)
     if dev > SELF_TEST_ATOL:
         print('self-test failed: max deviation from the checkpoint %.2e, '

@@ -1,14 +1,14 @@
 """Seed sweep of the port's north-star quality run, on the card.
 
-Runs ``scripts/torch_run_north_star.py --epochs E --seed S`` for each seed,
-then scores the epochs asked for with ``scripts/torch_eval_checkpoints.py``
-against 'random' and 'rulebase', and prints one table row a seed and
-point. Each run is a child process of its own; the scorer reads the
-run's ``<epoch>.ckpt`` files (``checkpoint_interval`` 10).
+Runs ``scripts/torch_run_north_star.py --epochs 200 --seed S`` for seeds
+0, 1 and 2, then scores epochs 10, 60, 110 and 160 of each run with
+``scripts/torch_eval_checkpoints.py`` (1,000 games a point) against
+'random' and 'rulebase', and prints one table row a seed. Each run is a
+child process of its own; the scorer reads the run's ``<epoch>.ckpt``
+files (``checkpoint_interval`` 10).
 
 Usage:
-  python scripts/torch_north_star_seeds.py [--seeds 0,1,2] [--epochs 200] \\
-      [--points 10,60,110,160] [--games 1000] [--out-dir DIR] [--device cuda]
+  python scripts/torch_north_star_seeds.py [--out-dir DIR] [--device cuda]
 
 Writes ``<out-dir>/metrics_s<S>.jsonl`` (the run's rows),
 ``<out-dir>/curve_s<S>.jsonl`` (the scorer's rows, both opponents) and
@@ -26,6 +26,10 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+SEEDS = (0, 1, 2)
+EPOCHS = 200
+POINTS = (10, 60, 110, 160)     # the epochs scored, each a checkpoint
+GAMES = 1000                    # games a point and opponent
 
 
 def run(cmd):
@@ -43,19 +47,13 @@ def run(cmd):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog='scripts/torch_north_star_seeds.py')
-    ap.add_argument('--seeds', default='0,1,2')
-    ap.add_argument('--epochs', type=int, default=200)
-    ap.add_argument('--points', default='10,60,110,160')
-    ap.add_argument('--games', type=int, default=1000)
     ap.add_argument('--out-dir', default='north_star_seeds')
     ap.add_argument('--device', default='cuda')
     a = ap.parse_args(sys.argv[1:] if argv is None else argv)
-    seeds = [int(s) for s in a.seeds.split(',')]
-    points = [int(p) for p in a.points.split(',')]
     os.makedirs(a.out_dir, exist_ok=True)
     py = sys.executable
     table, failed = [], False
-    for seed in seeds:
+    for seed in SEEDS:
         model_dir = os.path.join(a.out_dir, 'models_s%d' % seed)
         metrics = os.path.join(a.out_dir, 'metrics_s%d.jsonl' % seed)
         curve = os.path.join(a.out_dir, 'curve_s%d.jsonl' % seed)
@@ -65,19 +63,19 @@ def main(argv=None):
                 os.remove(p)
         rc, train_s, line = run([
             py, os.path.join(HERE, 'torch_run_north_star.py'),
-            '--epochs', str(a.epochs), '--seed', str(seed),
+            '--epochs', str(EPOCHS), '--seed', str(seed),
             '--model-dir', model_dir, '--metrics-out', metrics,
             '--device', a.device])
         if rc != 0:
             failed = True
             print('seed %d: the run exited %d' % (seed, rc), flush=True)
             continue
-        # keep only the points asked for, so the scorer's --every 1 takes
+        # keep only POINTS, so the scorer's --every 1 takes
         # exactly them
         picked = os.path.join(a.out_dir, 'points_s%d' % seed)
         shutil.rmtree(picked, ignore_errors=True)
         os.makedirs(picked)
-        for e in points:
+        for e in POINTS:
             src = os.path.join(model_dir, '%d.ckpt' % e)
             if not os.path.exists(src):
                 failed = True
@@ -89,7 +87,7 @@ def main(argv=None):
             rc, _, _ = run([
                 py, os.path.join(HERE, 'torch_eval_checkpoints.py'),
                 picked, 'HungryGeese', curve, '--every', '1',
-                '--games', str(a.games), '--opponent', opp,
+                '--games', str(GAMES), '--opponent', opp,
                 '--env-args', '{"torus_impl": "pallas"}',
                 '--device', a.device])
             failed |= rc != 0

@@ -148,7 +148,7 @@ def test_gen_body_records_and_draws():
     rollout = dg.make_gen_body(tg, net)
     gen = torch.Generator().manual_seed(2)
     state = tg.init_state(6, generator=gen)
-    state, rec = rollout(state, 5, gen)
+    state, rec, _ = rollout(state, 5, gen)
     assert rec['obs'].shape == (5, 6, 4, 17, 7, 11)
     assert rec['action'].shape == rec['prob'].shape == (5, 6, 4)
     assert rec['action'].dtype == torch.int32
@@ -247,7 +247,7 @@ def test_gen_body_matches_jax_ply_by_ply(monkeypatch):
         _, key = jax.random.split(rng)
         cur['u'] = torch.from_numpy(np.array(jax.random.uniform(
             key, (N_JAX, 4, 4), minval=TINY, maxval=1.0)))
-        _, rec = rollout(_to_port(js), 1, gen)
+        _, rec, _ = rollout(_to_port(js), 1, gen)
         js, _, rng, jrec = jroll(params, js, None, rng, 1)
         for k in ('obs', 'amask', 'acting', 'action', 'done', 'outcome'):
             np.testing.assert_array_equal(rec[k].numpy(),

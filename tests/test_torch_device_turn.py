@@ -309,7 +309,8 @@ def _jax_pair(seed=0):
 def test_gen_body_records_the_turn_layout():
     _, _, net = _jax_pair()
     rollout = dg.make_gen_body(tt, net)
-    state, rec = rollout(tt.init_state(5), 7, torch.Generator().manual_seed(1))
+    state, rec, _ = rollout(tt.init_state(5), 7,
+                            torch.Generator().manual_seed(1))
     assert rec['obs'].shape == (7, 5, 3, 3, 3)
     assert rec['action'].shape == rec['prob'].shape == (7, 5)
     assert rec['amask'].shape == (7, 5, 9) and rec['value'].shape == (7, 5, 1)
@@ -338,7 +339,7 @@ def test_gen_body_matches_jax_ply_by_ply(monkeypatch):
         _, key = jax.random.split(rng)
         cur['u'] = torch.from_numpy(np.array(jax.random.uniform(
             key, (N, 9), minval=TINY, maxval=1.0)))
-        ps, rec = rollout(_to_port(js), 1, gen)
+        ps, rec, _ = rollout(_to_port(js), 1, gen)
         js, _, rng, jrec = jroll(params, js, None, rng, 1)
         for k in ('obs', 'amask', 'player', 'action', 'done', 'outcome'):
             np.testing.assert_array_equal(rec[k].numpy(),

@@ -19,6 +19,14 @@ the same outputs there exactly (the same program on the same CPU).
 ``load_model`` returns an ``ExportedModel`` for ``.pt2``, refuses
 ``.jaxexp`` naming ``.pt2`` and the export script, and without a card
 the default device raises naming CUDA.
+
+The recurrent GeeseNetLSTM (filters 32, 4 stem layers) is exported with
+``--net-kind lstm``: its program takes and returns the hidden state. The
+JAX script builds only the env's default net, so its export of the same
+checkpoint is made here as the script makes it for a recurrent net
+(``scripts/export_model.py:77-92``: the hidden state's batch-1 spec an
+input). The two ``ExportedModel``s are held to each other over plies of
+carried hidden state within 1e-4 abs, the hidden state too.
 """
 
 import importlib.util
@@ -167,3 +175,61 @@ def test_jaxexp_is_refused_and_the_card_is_the_default(exported):
         pytest.skip('a card is present: the default device loads there')
     with pytest.raises(RuntimeError, match='CUDA'):
         evaluation.load_model(pt2, env).inference(_observations(name, 1)[0])
+
+
+def _jax_export_recurrent(ckpt, out_path):
+    """The JAX package's export of a recurrent checkpoint, as
+    ``scripts/export_model.py`` makes it for a net with a hidden state."""
+    import jax
+    import jax.numpy as jnp
+    from jax import export as jexport
+    from handyrl_tpu.environment import make_env as jax_make_env
+    from handyrl_tpu.evaluation import load_model as jax_load_model
+    env = jax_make_env({'env': 'HungryGeese', 'net_kind': 'lstm'})
+    env.reset()
+    obs = np.asarray(env.observation(env.players()[0]), np.float32)
+    wrapper = jax_load_model(ckpt, env)
+    params, hidden = wrapper.params, wrapper.init_hidden((1,))
+
+    def infer(o, h):
+        return wrapper.module.apply(params, o, h)
+    spec = jax.tree_util.tree_map(
+        lambda v: jax.ShapeDtypeStruct(v.shape, v.dtype), hidden)
+    exported = jexport.export(jax.jit(infer))(
+        jax.ShapeDtypeStruct((1,) + obs.shape, jnp.float32), spec)
+    with open(out_path, 'wb') as f:
+        f.write(exported.serialize())
+
+
+def test_a_recurrent_export_carries_the_hidden_state(tmp_path):
+    env_args = {'env': 'HungryGeese', 'net_kind': 'lstm'}
+    net = make_env(env_args).net()
+    net.reset_parameters(torch.Generator().manual_seed(6))
+    ckpt = str(tmp_path / 'lstm.ckpt')
+    with open(ckpt, 'wb') as f:
+        f.write(params_bytes(net, dict(net.named_parameters())))
+    pt2, jaxexp = str(tmp_path / 'lstm.pt2'), str(tmp_path / 'lstm.jaxexp')
+    assert _script('torch_export_model').main(
+        ['--net-kind', 'lstm', 'HungryGeese', ckpt, pt2]) == 0
+    _jax_export_recurrent(ckpt, jaxexp)
+    model = evaluation.load_model(pt2, make_env(env_args), device='cpu')
+    jm = JaxExportedModel(jaxexp)
+    hidden, jhidden = model.init_hidden(), jm.init_hidden()
+    assert [h.shape for h in hidden] == [(1, 7, 11, 32)] * 2
+    for h, jh in zip(hidden, jhidden):
+        np.testing.assert_array_equal(h, np.asarray(jh))
+    for obs in _observations('HungryGeese', n=6):
+        got, want = model.inference(obs, hidden), jm.inference(obs, jhidden)
+        assert sorted(got) == sorted(want) == ['hidden', 'policy', 'value']
+        for k in ('policy', 'value'):
+            np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=0,
+                                       atol=TOL, err_msg=k)
+        for h, jh in zip(got['hidden'], want['hidden']):
+            np.testing.assert_allclose(h, np.asarray(jh), rtol=0, atol=TOL)
+        hidden, jhidden = got['hidden'], want['hidden']
+    assert float(np.abs(hidden[1]).max()) > 0    # the state moved
+    # a None hidden starts from zeros, as the engine's does
+    first = _observations('HungryGeese', n=1)[0]
+    np.testing.assert_array_equal(
+        model.inference(first)['policy'],
+        model.inference(first, model.init_hidden())['policy'])
