@@ -319,7 +319,38 @@ non-zero, printing no result, when either is missing or any phase fails.
    its observations with the state carried. Prints episodes/s, the
    trainers' wait share, peak memory; each learner under
    PHASE13_TIMEOUT.
-14. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
+14. Geister and ParallelTicTacToe, and norm_kind 'batch' through the
+   update step, the checkpoints and inference, one JSON line with each
+   part's seconds (budget 150 s). (a) ``python -m
+   handyrl_tpu_torch.serving`` on a full-width GeisterNet('batch',
+   'spatial') with seeded weights and running averages off their init:
+   both seats for G_SERVE_PLIES plies, each request carrying its seat's
+   DRC state, every policy, value and next state within POLICY_TOL of a
+   CPU forward in inference mode, and G_BATCHED requests coalesced into
+   one batch against each sent alone. (b) The host learner on the JAX
+   package's 'geister' row (B=32, T=16, burn-in 4, 32 envs, observation)
+   with 'batch' and 'spatial', its depth cut to one epoch of G_UPDATE (8)
+   episodes after G_MINIMUM (64) (the row: 100 after 200; its host
+   self-play is Python-bound): exit 0, finite losses, K3 twice a step
+   (value and return, P=2) and no other kernel, and the checkpoint's
+   running averages, read by the JAX-layout reader, moved off their
+   init. (c) The fused 'turn' loop on
+   'geister-fused-sp-bn' (32-ply chunks, 4 SGD steps a chunk), its depth
+   cut to G_FUSED_EPOCHS (2) epochs of 32 episodes after 64 (the row:
+   100 after 200): the same checks, its device evaluator against
+   'random' and (b)'s checkpoint; in this process a small fused pipeline
+   at full width whose ``refresh_actor`` leaves the actor's parameters
+   and running averages equal to the trainer's. (d) The recurrent
+   GeisterNet step at B=32, T=16+4 (TD/TD, the wide layout): eager and
+   graphed on the card against each other and the CPU step (phase 4's
+   tolerances; the running averages within STATS_RTOL), K3 only, the
+   graph's replay timed by CUDA events. (e) The same for GeeseNet('batch',
+   'pad'), one VTRACE window batch (B=16, T=16): K5 only. (f) The host
+   learner on tictactoe.json's train_args, not turn-based, on
+   ParallelTicTacToe, 2 epochs: K3 only. (g) One device actor block of
+   DA_LANES Geister tasks ('device' records, recurrent lanes): every task
+   answered, the moments the acting seat's alone, no kernel.
+15. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
    and K2b take their launches from K2's count, one of each a call; the
    fused loop's under ``learner_fused_*``, 5(b)'s under
    ``learner_shm_*``, the quick start's under ``quick_start_*``, 7(b)'s
@@ -334,8 +365,12 @@ non-zero, printing no result, when either is missing or any phase fails.
    ``device_actor_engine`` and its learners and gathers under
    ``device_actor_{local,remote}_*``, phase 13's learners under
    ``connectx_{host,fused}_*`` and ``lstm_{host,fused}_*`` and the LSTM
-   service under ``lstm_service``; K1's row also holds the operator's
-   checks),
+   service under ``lstm_service``, phase 14's learners under
+   ``geister_{host,fused}_*`` and ``parallel_tictactoe_host_*``, its
+   in-process steps under ``geister_recurrent_step`` and
+   ``geese_batch_norm_step``, its service and device actor under
+   ``geister_service`` and ``geister_device_actor``; K1's row also holds
+   the operator's checks),
    the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -4966,6 +5001,577 @@ def phase_connectx_lstm(torch, repo, make_env):
     return out
 
 
+# ------------------------------------------ phase 14: Geister, BatchNorm
+
+PHASE14_TIMEOUT = 240     # each learner process
+GEISTER_ENV = {'env': 'Geister', 'norm_kind': 'batch',
+               'policy_head': 'spatial'}
+# the JAX package's 'geister' row (scripts/run_benchmark_matrix.py:55-60)
+# with norm_kind 'batch' and the spatial head: its shapes (B=32, T=16,
+# burn-in 4, 32 envs, observation), its depth cut to one epoch of
+# G_UPDATE episodes after G_MINIMUM (the row: 100 after 200). The host
+# self-play of Geister is bound by its Python (about 6 episodes/s on an
+# H100 host before the trainer starts, 0.3/s beside it, PERF.md), so the
+# row's depth would take minutes
+G_EPOCHS = 1
+G_MINIMUM, G_UPDATE = 64, 8
+G_TRAIN = {'batch_size': 32, 'forward_steps': 16, 'burn_in_steps': 4,
+           'update_episodes': 100, 'minimum_episodes': 200,
+           'generation_envs': 32, 'observation': True, 'eval_envs': 32}
+G_LEARNER = {'env_args': dict(GEISTER_ENV), 'train_args': dict(
+    G_TRAIN, epochs=G_EPOCHS, minimum_episodes=G_MINIMUM,
+    update_episodes=G_UPDATE)}
+# the 'geister-fused-sp-bn' row (:81-90, :143-147: 32-ply chunks, 4 SGD
+# steps a chunk) at the same shapes, its depth cut to G_FUSED_EPOCHS
+# epochs of G_FUSED_UPDATE episodes after G_FUSED_MINIMUM (the row: 100
+# after 200; 510 episodes took 162 s on an H100)
+G_FUSED_EPOCHS = 2
+G_FUSED_MINIMUM, G_FUSED_UPDATE = 64, 32
+G_FUSED = {'env_args': dict(GEISTER_ENV), 'train_args': dict(
+    G_TRAIN, device_generation=True, device_replay=True,
+    device_chunk_steps=32, sgd_steps_per_chunk=4, epochs=G_FUSED_EPOCHS,
+    minimum_episodes=G_FUSED_MINIMUM, update_episodes=G_FUSED_UPDATE,
+    checkpoint_interval=G_FUSED_EPOCHS)}
+# the in-process refresh check's pipeline: the full-width net on a few
+# lanes (the refresh copies every leaf whatever the lanes)
+G_REFRESH = dict(envs=8, chunk=16, batch=8)
+G_SERVE_PLIES = 6
+G_BATCHED = 8             # requests coalesced against one alone
+G_STEP_B = 32             # the recurrent step: B=32, T=16 + burn-in 4
+G_STEP_REPS = 10
+GEESE_BN_B = 16           # the GeeseNet('batch') VTRACE step, solo, T=16
+# a step's running averages on the card against the CPU's: EMAs of fp32
+# batch moments summed in other orders, each leaf within 1e-5 of its
+# largest element
+STATS_RTOL = 1e-5
+
+
+def geister_net(torch, seed, stats_seed=None):
+    """The full-width GeisterNet('batch', 'spatial') with seeded weights
+    and, with ``stats_seed``, running averages off their init."""
+    from handyrl_tpu_torch.models.geister import GeisterNet
+    net = GeisterNet(norm_kind='batch', policy_head='spatial',
+                     generator=torch.Generator().manual_seed(seed))
+    if stats_seed is not None:
+        g = torch.Generator().manual_seed(stats_seed)
+        with torch.no_grad():
+            for name, b in net.named_buffers():
+                noise = torch.rand(b.shape, generator=g)
+                b.copy_(0.2 * (noise - 0.5) if name.endswith('mean')
+                        else 0.5 + noise)
+    return net
+
+
+def geister_serving(torch, repo, make_env):
+    """14(a): ``python -m handyrl_tpu_torch.serving`` on the full-width
+    GeisterNet('batch', 'spatial'): both seats for G_SERVE_PLIES plies,
+    each request carrying its seat's DRC state from the previous reply,
+    every policy, value and next state within POLICY_TOL of a CPU forward
+    in inference mode (the running averages); then G_BATCHED requests
+    submitted at once (coalesced into one batch) against each sent
+    alone."""
+    import numpy as np
+    from handyrl_tpu_torch.model import ModelWrapper
+    from handyrl_tpu_torch.serving.client import ServiceClient
+    from handyrl_tpu_torch.serving.registry import ModelRegistry
+    net = geister_net(torch, SEED + 140, stats_seed=SEED + 141)
+    local = ModelWrapper(net, device='cpu')
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_geister_serve_')
+    proc, client = None, None
+    try:
+        root = os.path.join(tmp, 'registry')
+        ModelRegistry(root).publish('default', snapshot=local.snapshot(),
+                                    version=1, promote=True)
+        err_path = os.path.join(tmp, 'service.err')
+        with open(err_path, 'wb') as err:
+            proc = subprocess.Popen(
+                [sys.executable, '-m', 'handyrl_tpu_torch.serving', '--env',
+                 'Geister', '--registry', root, '--port', '0'],
+                cwd=repo, stdout=subprocess.PIPE, stderr=err)
+        ready = read_ready_line(proc, timeout=300)
+        if ready['device'] != 'cuda':
+            fail('14(a): the service runs on %r' % ready['device'])
+        client = ServiceClient('localhost', ready['port'], timeout=120,
+                               name='chip_smoke_geister')
+        env = make_env(dict(GEISTER_ENV, id=SEED + 142))
+        env.reset()
+        served = {p: None for p in env.players()}
+        mine = {p: local.init_hidden() for p in env.players()}
+        err, ms, boards = 0.0, [], []
+        for ply in range(G_SERVE_PLIES):
+            if env.terminal():
+                break
+            p = env.turn()
+            obs = env.observation(p)
+            boards.append(obs)
+            t0 = time.perf_counter()
+            out = client.request('default@champion', obs,
+                                 hidden=served[p])['outputs']
+            ms.append(1e3 * (time.perf_counter() - t0))
+            want = local.inference(obs, mine[p])
+            hs, cs = out['hidden']
+            if len(hs) != 3 or np.shape(hs[0]) != (6, 6, net.filters):
+                fail('14(a): the reply\'s DRC state is %s'
+                     % [np.shape(h) for h in hs + cs])
+            for a, b in ([(out['policy'], want['policy']),
+                          (out['value'], want['value'])]
+                         + list(zip(hs + cs, want['hidden'][0]
+                                    + want['hidden'][1]))):
+                err = max(err, float(np.abs(np.asarray(a)
+                                            - np.asarray(b)).max()))
+            served[p], mine[p] = out['hidden'], want['hidden']
+            legal = env.legal_actions(p)
+            env.play(legal[int(np.argmax(np.asarray(out['policy'])[legal]))])
+        # a B=1 request against its row of a coalesced batch
+        boards = (boards * G_BATCHED)[:G_BATCHED]
+        alone = [client.request('default@champion', b)['outputs']['policy']
+                 for b in boards]
+        rids = [client.submit('default@champion', b) for b in boards]
+        batched = [client.collect(r, timeout=120)['outputs']['policy']
+                   for r in rids]
+        row_err = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                      for a, b in zip(alone, batched))
+        status = client.status()
+        if not err <= POLICY_TOL:
+            fail('14(a): the served outputs and state are off the CPU '
+                 'forward by %.3g' % err)
+        if not row_err <= POLICY_TOL:
+            fail('14(a): a B=1 request is off its row of a batch by %.3g'
+                 % row_err)
+        if status['answered'] != status['received']:
+            fail('14(a): unanswered requests: %s' % status)
+        client.close()
+        client = None
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        if rc != 75:
+            fail('14(a): the service exited %d after SIGTERM' % rc)
+        out = {'plies': len(ms), 'max_abs_err': err, 'row_max_abs_err':
+               row_err, 'ply_ms': ms, 'requests': status['received'],
+               'launches': status['kernel_launches']}
+        log('14(a) served GeisterNet(batch, spatial) with its DRC state '
+            '(%s): %s' % (nvidia_smi_line(), json.dumps(out)))
+        return out
+    finally:
+        if client is not None:
+            client.close()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_moved_stats(torch, label, ckpt):
+    """A 'batch' GeisterNet checkpoint read by the JAX-layout reader
+    (``load_params_bytes``, flax's msgpack tree with its ``batch_stats``):
+    every running average moved off its init (mean 0, var 1)."""
+    from handyrl_tpu_torch.model import load_params_bytes
+    net = geister_net(torch, 0)
+    with open(ckpt, 'rb') as f:
+        load_params_bytes(net, f.read())
+    stale = [n for n, b in net.named_buffers()
+             if torch.equal(b, torch.zeros_like(b) if n.endswith('mean')
+                            else torch.ones_like(b))]
+    if stale or not list(net.named_buffers()):
+        fail('%s: running averages at their init: %s' % (label, stale))
+    return {n: float(b.abs().mean()) for n, b in net.named_buffers()}
+
+
+def geister_learners(torch, repo, tmp):
+    """14(b) the host learner on the 'geister' row ('batch', 'spatial'),
+    14(c) the fused 'turn' loop on 'geister-fused-sp-bn', its evaluator
+    against 'random' and (b)'s checkpoint."""
+    host_tmp = os.path.join(tmp, 'host')
+    os.makedirs(host_tmp)
+    line, _ = run_train_cli(repo, G_LEARNER, host_tmp, '14(b) host learner',
+                            timeout=PHASE14_TIMEOUT)
+    host = check_learner_line('14(b) Geister host learner', line, G_EPOCHS,
+                              {'training': ('td_lambda',)})
+    ckpt = os.path.join(host_tmp, 'models', 'latest.ckpt')
+    host['stats'] = check_moved_stats(torch, '14(b)', ckpt)
+    # once a step (the graph's replays and its eager warm-up steps)
+    k3 = line['kernel_launches']['training']['td_lambda']
+    if k3 < line['steps_at_exit']:
+        fail('14(b): K3 launched %d times for %d steps'
+             % (k3, line['steps_at_exit']))
+    host['td_lambda_per_step'] = k3 / max(line['steps_at_exit'], 1)
+    cfg = json.loads(json.dumps(G_FUSED))
+    cfg['train_args']['eval'] = {'opponent': ['random', ckpt]}
+    fused_tmp = os.path.join(tmp, 'fused')
+    os.makedirs(fused_tmp)
+    line, stdout = run_train_cli(repo, cfg, fused_tmp, '14(c) fused loop',
+                                 timeout=PHASE14_TIMEOUT)
+    if not line.get('fused') or '(turn mode)' not in stdout:
+        fail('14(c): Geister did not run the fused loop in turn mode')
+    fused = check_learner_line('14(c) Geister fused loop (turn mode)', line,
+                               G_FUSED_EPOCHS, {'training': ('td_lambda',)})
+    if 'win rate (%s)' % ckpt not in stdout or 'win rate (random)' \
+            not in stdout:
+        fail('14(c): the device evaluator did not play random and (b)\'s '
+             'checkpoint')
+    fused['stats'] = check_moved_stats(
+        torch, '14(c)', os.path.join(fused_tmp, 'models', 'latest.ckpt'))
+    fused['windows_ingested'] = line['windows_ingested']
+    return host, fused
+
+
+def geister_refresh(torch, repo):
+    """14(c): an in-process fused 'turn' pipeline for Geister on the card:
+    a warm chunk, a chunk with its 4 SGD steps, then ``refresh_actor``
+    leaves the actor's parameters and running averages equal to the
+    trainer's."""
+    from handyrl_tpu_torch.config import apply_defaults
+    from handyrl_tpu_torch.envs import torch_geister as tg
+    from handyrl_tpu_torch.ops.device_windows import DeviceWindower
+    from handyrl_tpu_torch.ops.fused_pipeline import FusedPipeline
+    from handyrl_tpu_torch.ops.replay import (
+        resolve_windows_per_episode, ring_capacity, windows_per_episode)
+    from handyrl_tpu_torch.ops.train_step import (ReplayUpdateStep,
+                                                  init_train_state)
+    from handyrl_tpu_torch.train import loss_config
+    raw = json.loads(json.dumps(G_FUSED))
+    raw['train_args'].update(generation_envs=G_REFRESH['envs'],
+                             device_chunk_steps=G_REFRESH['chunk'],
+                             batch_size=G_REFRESH['batch'],
+                             maximum_episodes=64)
+    args = apply_defaults(raw)['train_args']
+    resolve_windows_per_episode(args, tg)
+    net = geister_net(torch, SEED + 143).cuda()
+    actor = geister_net(torch, SEED + 144).cuda().eval()
+    step = ReplayUpdateStep(net, loss_config(args)._replace(
+        observation=False), init_train_state(net))
+    windower = DeviceWindower(
+        'turn', args['forward_steps'], args['burn_in_steps'], tg.MAX_PLIES,
+        windows_per_episode(args), ring_capacity(args), tg.NUM_PLAYERS,
+        args['gamma'], True)
+    fp = FusedPipeline(tg, actor, step, windower, args['generation_envs'],
+                       args['device_chunk_steps'], 4, args['batch_size'],
+                       seed=SEED)
+    for _ in range(64):      # until the ring holds a batch of windows
+        fp.warm_step()
+        if fp.ring_size_host >= args['batch_size']:
+            break
+    fp.train_step(float(args['batch_size'] * args['forward_steps']))
+    torch.cuda.synchronize()
+    trainer = step.state.params
+    fp.refresh_actor(trainer)
+    torch.cuda.synchronize()
+    own = dict(actor.named_parameters())
+    own.update(actor.named_buffers())
+    if set(own) != set(trainer) or not all(torch.equal(own[k], trainer[k])
+                                           for k in own):
+        fail('14(c): the actor after refresh_actor differs from the '
+             'trainer')
+    start = geister_net(torch, SEED + 143).state_dict()
+    moved = [n for n, _ in actor.named_buffers()
+             if not torch.equal(trainer[n].cpu(), start[n])]
+    if not moved:
+        fail('14(c): the trainer\'s running averages never moved')
+    out = {'ring_size': fp.ring_size_host, 'stats_moved': len(moved),
+           'buffers': len(list(actor.named_buffers()))}
+    fp.release()
+    return out
+
+
+def geister_step_batch(torch, B, T, seed):
+    """A wide (observation: true) Geister batch on real-shaped planes:
+    (B, T, 2, ...) with the acting seat alternating ply by ply."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    P = 2
+    acting = np.zeros((B, T, P, 1), np.float32)
+    acting[:, np.arange(T), np.arange(T) % 2] = 1
+    board = (rng.rand(B, T, P, 7, 6, 6) < 0.2).astype(np.float32)
+    board[..., 0, :, :] = 1
+    scalar = (rng.rand(B, T, P, 18) < 0.3).astype(np.float32)
+    first = np.sign(rng.randn(B, 1, 1, 1)).astype(np.float32)
+    batch = {
+        'observation': {'board': board * acting[..., None, None],
+                        'scalar': scalar * acting},
+        'selected_prob': np.where(acting > 0, rng.uniform(
+            0.05, 1, (B, T, P, 1)), 1).astype(np.float32),
+        'value': (rng.uniform(-1, 1, (B, T, P, 1)) * acting).astype(
+            np.float32),
+        'action': (rng.randint(0, 214, (B, T, P, 1)) * acting).astype(
+            np.int32),
+        'outcome': np.concatenate([first, -first], axis=2),
+        'reward': np.full((B, T, P, 1), -0.01, np.float32),
+        'return': np.zeros((B, T, P, 1), np.float32),
+        'episode_mask': np.ones((B, T, 1, 1), np.float32),
+        'turn_mask': acting, 'observation_mask': acting.copy(),
+        'action_mask': np.zeros((B, T, P, 214), np.float32),
+        'progress': np.linspace(0, 1, T, dtype=np.float32)[None, :, None]
+        .repeat(B, 0)}
+    return batch
+
+
+def to_device_batch(torch, batch, device):
+    import numpy as np
+    return {k: ({kk: torch.from_numpy(np.ascontiguousarray(vv)).to(device)
+                 for kk, vv in v.items()} if isinstance(v, dict)
+                else torch.from_numpy(np.ascontiguousarray(v)).to(device))
+            for k, v in batch.items()}
+
+
+def stats_steps(torch, make_net, cfg, batch_np, device, lrs, graphed):
+    """Update steps of ``make_net()`` on ``device`` from the same state,
+    one an lr: eager or graphed. Returns (params before, [after a step:
+    params and running averages, mu, nu, count, steps, metrics] on the
+    CPU)."""
+    from handyrl_tpu_torch.ops.train_step import (build_graphed_update_step,
+                                                  build_update_step,
+                                                  init_train_state)
+    from handyrl_tpu_torch.ops.device_windows import flatten_window_keys
+    net = make_net().to(device)
+    state = init_train_state(net)
+    batch = to_device_batch(torch, batch_np, device)
+    if graphed:
+        step = build_graphed_update_step(net, cfg, state)
+        batch = flatten_window_keys(batch)
+    else:
+        update = build_update_step(net, cfg)
+
+    def cpu(d):
+        return {k: v.detach().cpu().clone() for k, v in d.items()}
+    before = cpu(state.params)
+    after = []
+    for lr in lrs:
+        lr = torch.tensor(lr, device=device)
+        if graphed:
+            metrics = step(batch, lr)
+            state = step.state
+        else:
+            state, metrics = update(state, batch, lr)
+        after.append({'params': cpu(state.params),
+                      'mu': cpu(state.opt_state.mu),
+                      'nu': cpu(state.opt_state.nu),
+                      'count': int(state.opt_state.count),
+                      'steps': int(state.steps),
+                      'metrics': {k: float(v) for k, v in metrics.items()}})
+    return before, after, (step if graphed else None)
+
+
+def check_stats(label, card, cpu, names):
+    """The running averages after a card step against the CPU step's:
+    each leaf within STATS_RTOL of its largest element."""
+    worst = max(((card['params'][k] - cpu['params'][k]).abs().max()
+                 / cpu['params'][k].abs().max().clamp_min(1e-30)).item()
+                for k in names)
+    if not worst <= STATS_RTOL:
+        fail('%s: the running averages on the card are off the CPU\'s by '
+             '%.3g of a leaf' % (label, worst))
+    return worst
+
+
+def bn_step_checks(torch, label, make_net, cfg, batch_np, kernel, lr):
+    """(d)/(e): eager and graphed steps of a 'batch' net on the card (3
+    each, the counts 0 just before the graphed ones), held to each other
+    and the first to the CPU step (phase 4's tolerances for the loss terms,
+    the params and Adam's moments; STATS_RTOL for the running averages);
+    then the graph's replays timed by CUDA events. Returns the row."""
+    from handyrl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    lrs = [lr] * 3
+    old, cpu_after, _ = stats_steps(torch, make_net, cfg, batch_np, 'cpu',
+                                    lrs[:1], False)
+    _, eager, _ = stats_steps(torch, make_net, cfg, batch_np, 'cuda', lrs,
+                              False)
+    reset_kernel_launches()
+    _, graphed, step = stats_steps(torch, make_net, cfg, batch_np, 'cuda',
+                                   lrs, True)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    names = [k for k in old if k not in cpu_after[0]['mu']]
+    if not names:
+        fail('%s: the net has no running averages' % label)
+    moved = [k for k in names if torch.equal(old[k], eager[0]['params'][k])]
+    if moved:
+        fail('%s: the step left running averages unchanged: %s'
+             % (label, moved))
+    check_against_cpu(label, old, eager[0], cpu_after[0], lr=lr)
+    stats_err = check_stats(label, eager[0], cpu_after[0], names)
+    worst = check_graphed_against_eager(label, graphed, eager)
+    if launches.get(kernel, 0) < 3 or any(
+            n for k, n in launches.items() if k != kernel):
+        fail('%s: launches %s (want %s once a step and nothing else)'
+             % (label, launches, kernel))
+    from handyrl_tpu_torch.ops.device_windows import flatten_window_keys
+    batch = flatten_window_keys(to_device_batch(torch, batch_np, 'cuda'))
+    lr_t = torch.tensor(lr, device='cuda')
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    step(batch, lr_t)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(G_STEP_REPS):
+        step(batch, lr_t)
+    end.record()
+    torch.cuda.synchronize()
+    row = {'graphed_ms': start.elapsed_time(end) / G_STEP_REPS,
+           'reps': G_STEP_REPS, 'stats_max_rel_err': stats_err,
+           'graphed_vs_eager': worst, 'launches': launches,
+           'total': eager[0]['metrics']['total']}
+    log('%s (%s): %s' % (label, nvidia_smi_line(), json.dumps(row)))
+    return row
+
+
+def geister_recurrent_step(torch):
+    """14(d): the full-width GeisterNet('batch', 'spatial') recurrent step
+    at B=32, T=16+4 (burn-in 4), the wide observation layout, TD/TD."""
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    cfg = LossConfig(turn_based_training=True, observation=True,
+                     burn_in_steps=4, gamma=0.8)
+    batch = geister_step_batch(torch, G_STEP_B, 20, SEED + 145)
+    return bn_step_checks(torch, '14(d) GeisterNet recurrent step',
+                          lambda: geister_net(torch, SEED + 146,
+                                              stats_seed=SEED + 147),
+                          cfg, batch, 'td_lambda', 1e-5)
+
+
+def geese_bn_step(torch):
+    """14(e): GeeseNet(norm_kind 'batch', torus_impl 'pad') at full width,
+    one solo VTRACE window batch (B=16, T=16), graphed and held to the CPU
+    step (K5)."""
+    import numpy as np
+    from handyrl_tpu_torch.models.geese import GeeseNet
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    B, T = GEESE_BN_B, 16
+    rng = np.random.RandomState(SEED + 148)
+    ones = np.ones((B, T, 1, 1), np.float32)
+    batch = {
+        'observation': (rng.rand(B, T, 1, 17, 7, 11) < 0.15).astype(
+            np.float32),
+        'selected_prob': rng.uniform(0.1, 1, (B, T, 1, 1)).astype(
+            np.float32),
+        'value': rng.uniform(-1, 1, (B, T, 1, 1)).astype(np.float32),
+        'action': rng.randint(0, 4, (B, T, 1, 1)).astype(np.int32),
+        'outcome': np.sign(rng.randn(B, 1, 1, 1)).astype(np.float32),
+        'reward': np.zeros((B, T, 1, 1), np.float32),
+        'return': np.zeros((B, T, 1, 1), np.float32),
+        'episode_mask': ones, 'turn_mask': ones, 'observation_mask': ones,
+        'action_mask': np.zeros((B, T, 1, 4), np.float32),
+        'progress': np.linspace(0, 1, T, dtype=np.float32)[None, :, None]
+        .repeat(B, 0)}
+    cfg = LossConfig(turn_based_training=False, observation=True,
+                     policy_target='VTRACE', value_target='VTRACE',
+                     gamma=0.99)
+    return bn_step_checks(
+        torch, '14(e) GeeseNet(batch, pad) VTRACE step',
+        lambda: GeeseNet(norm_kind='batch', torus_impl='pad',
+                         generator=torch.Generator().manual_seed(
+                             SEED + 149)), cfg, batch, 'vtrace', 1e-5)
+
+
+def parallel_tictactoe_learner(repo, tmp):
+    """14(f): the host learner on tictactoe.json's train_args, not
+    turn-based, on ParallelTicTacToe, 2 epochs: K3 in training."""
+    cfg = quick_config(repo, {'turn_based_training': False}, 2)
+    cfg['env_args'] = {'env': 'ParallelTicTacToe'}
+    ptt_tmp = os.path.join(tmp, 'ptt')
+    os.makedirs(ptt_tmp)
+    line, _ = run_train_cli(repo, cfg, ptt_tmp, '14(f) ParallelTicTacToe',
+                            timeout=PHASE14_TIMEOUT)
+    return check_learner_line('14(f) ParallelTicTacToe host learner', line,
+                              2, {'training': ('td_lambda',)})
+
+
+def geister_device_actor(torch, make_env):
+    """14(g): one block of DA_LANES Geister tasks on recurrent lanes
+    ('device' records; 'e' tasks against 'random'), the counts 0 just
+    before: every lane answered, each episode stamped and its moments the
+    acting seat's alone, no kernel launched (GeisterNet has none)."""
+    from handyrl_tpu_torch.device_generation import DeviceActorEngine
+    from handyrl_tpu_torch.environment import make_device_env
+    from handyrl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from handyrl_tpu_torch.ops.batch import decompress_moments
+    ta = da_train_args(GEISTER_ENV, {'observation': True,
+                                     'burn_in_steps': 4})
+
+    def build():
+        return geister_net(torch, 0)
+    vault = da_vault(torch, make_env, GEISTER_ENV, build, SEED + 150)
+    eng = DeviceActorEngine(make_device_env(GEISTER_ENV), vault,
+                            make_env(GEISTER_ENV), ta, n_envs=DA_LANES,
+                            chunk_steps=DA_CHUNK, slots=DA_SLOTS,
+                            seed=SEED, device=DA_DEVICE)
+    if not eng.recurrent or eng.record_mode != 'device':
+        fail('14(g): the Geister engine runs %r records (recurrent %s)'
+             % (eng.record_mode, eng.recurrent))
+    tasks = da_tasks(4, (1, 2), 2, opponents=('random', 'random'))
+    reset_kernel_launches()
+    t0 = time.monotonic()
+    uploads, deferred = eng.run_block(tasks)
+    block_s = time.monotonic() - t0
+    launches = kernel_launches()
+    if deferred or len(uploads) != DA_LANES or any(
+            p is None for _, p in uploads):
+        fail('14(g): the block deferred %d tasks, %d uploads'
+             % (len(deferred), len(uploads)))
+    for task, (kind, payload) in zip(tasks, uploads):
+        if kind != 'episode':
+            continue
+        if payload.get('record_version') != 1:
+            fail('14(g): a Geister episode without record_version 1')
+        for m in decompress_moments(payload['moment']):
+            (p,) = m['turn']
+            if m['observation'][1 - p] is not None:
+                fail('14(g): a moment where the other seat observed')
+    if any(launches.values()):
+        fail('14(g): kernels launched by GeisterNet lanes: %s' % launches)
+    st = eng.stats
+    out = {'episodes': st['episodes'], 'results': st['results'],
+           'chunks': st['chunks'], 'graph_captures': eng.captures,
+           'block_seconds': block_s,
+           'fill_ratio': eng.last_block['fill_ratio'],
+           'chunk_ms': eng.last_block['chunk_ms'][:4], 'launches': launches}
+    log('14(g) device actor, Geister lanes: %s' % json.dumps(out))
+    return out
+
+
+def phase_geister(torch, repo, make_env):
+    """Phase 14: Geister and ParallelTicTacToe, BatchNorm through the step,
+    the checkpoints and inference; each part's seconds, one JSON line."""
+    from handyrl_tpu_torch.model import fp32_on_card
+    fp32_on_card(torch.device('cuda'))
+    t0 = time.monotonic()
+    seconds = {}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_geister_')
+    try:
+        log('== phase 14(a): GeisterNet(batch, spatial) served with its DRC '
+            'state')
+        t = time.monotonic()
+        serving = geister_serving(torch, repo, make_env)
+        seconds['a'] = time.monotonic() - t
+        log('== phase 14(b)/(c): Geister on the host learner and the fused '
+            'turn loop')
+        t = time.monotonic()
+        host, fused = geister_learners(torch, repo, tmp)
+        fused['refresh'] = geister_refresh(torch, repo)
+        log('14(c) refresh_actor: %s' % json.dumps(fused['refresh']))
+        seconds['b_c'] = time.monotonic() - t
+        log('== phase 14(d)/(e): the recurrent GeisterNet step and the '
+            'GeeseNet(batch) step')
+        t = time.monotonic()
+        step = geister_recurrent_step(torch)
+        geese = geese_bn_step(torch)
+        seconds['d_e'] = time.monotonic() - t
+        log('== phase 14(f): ParallelTicTacToe on the host learner')
+        t = time.monotonic()
+        ptt = parallel_tictactoe_learner(repo, tmp)
+        seconds['f'] = time.monotonic() - t
+        log('== phase 14(g): the device actor on Geister lanes')
+        t = time.monotonic()
+        actor = geister_device_actor(torch, make_env)
+        seconds['g'] = time.monotonic() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds['total'] = time.monotonic() - t0
+    out = {'phase': 14, 'serving': serving, 'host': host, 'fused': fused,
+           'step': step, 'geese_bn': geese, 'parallel_tictactoe': ptt,
+           'actor': actor, 'seconds': seconds, 'card': nvidia_smi_line()}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main():
     try:
         import torch
@@ -5074,7 +5680,12 @@ def main():
     log('phase 13: %.1f s (%s)' % (time.monotonic() - t13,
                                    nvidia_smi_line()))
 
-    log('== phase 14: the kernels line')
+    t14 = time.monotonic()
+    geister = phase_geister(torch, repo, make_env)
+    log('phase 14: %.1f s (%s)' % (time.monotonic() - t14,
+                                   nvidia_smi_line()))
+
+    log('== phase 15: the kernels line')
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -5128,6 +5739,19 @@ def main():
             for name, counts in part[label]['kernel_launches'].items():
                 paths['%s_%s_%s' % (net_name, label, name)] = counts
     paths['lstm_service'] = cx_lstm['lstm']['serving']['launches']
+    # phase 14: the Geister and ParallelTicTacToe learners by their launch
+    # paths (fresh processes), the in-process graphed 'batch' steps (counts
+    # 0 just before each), the Geister service and device actor block
+    for label, part in (('geister_host', geister['host']),
+                        ('geister_fused', geister['fused']),
+                        ('parallel_tictactoe_host',
+                         geister['parallel_tictactoe'])):
+        for name, counts in part['kernel_launches'].items():
+            paths['%s_%s' % (label, name)] = counts
+    paths['geister_recurrent_step'] = geister['step']['launches']
+    paths['geese_batch_norm_step'] = geister['geese_bn']['launches']
+    paths['geister_service'] = geister['serving']['launches']
+    paths['geister_device_actor'] = geister['actor']['launches']
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from

@@ -176,8 +176,12 @@ _BACKENDS_PENDING = {
 }
 _RECORD_MODES = ('', 'strict', 'device')
 
-_ENV_KEYS = ('env', 'torus_impl', 'norm_kind', 'net_kind')
-_ENVS = ('TicTacToe', 'ConnectX', 'HungryGeese')
+_ENV_KEYS = ('env', 'torus_impl', 'norm_kind', 'net_kind', 'policy_head',
+             'init_kind')
+_ENVS = ('TicTacToe', 'ParallelTicTacToe', 'Geister', 'ConnectX',
+         'HungryGeese')
+# env_args.norm_kind: the JAX package's make_norm kinds a net takes
+_NORM_KINDS = ('group', 'batch', 'batchstats', 'layer')
 _TARGETS = ('MC', 'TD', 'VTRACE', 'UPGO')
 # env_args.net_kind: GeeseNet ('conv') and GeeseNetLSTM ('lstm')
 _NET_KINDS = ('conv', 'lstm')
@@ -238,9 +242,17 @@ def validate(args: Dict[str, Any]) -> None:
                                                       ', '.join(_ENVS)))
     extra = sorted(set(env) - set(_ENV_KEYS))
     _require(not extra, 'env_args keys %s are not known to the port' % extra)
-    _require(env.get('norm_kind', 'group') == 'group',
-             "env_args.norm_kind %r: norm_kind='batch' training %s"
-             % (env.get('norm_kind'), pending))
+    _require(env.get('norm_kind', 'group') in _NORM_KINDS,
+             'env_args.norm_kind %r must be one of %s'
+             % (env.get('norm_kind'), ', '.join(_NORM_KINDS)))
+    _require(env.get('norm_kind', 'group') == 'group'
+             or env.get('torus_impl', 'pad') != 'pallas',
+             "env_args.torus_impl 'pallas' runs norm_kind 'group' only "
+             '(the trunk kernel is GroupNorm)')
+    _require(env.get('policy_head', 'dense') in ('dense', 'spatial'),
+             "env_args.policy_head must be 'dense' or 'spatial'")
+    _require(env.get('init_kind', 'flax') in ('flax', 'torch'),
+             "env_args.init_kind must be 'flax' or 'torch'")
     _require(env.get('net_kind', 'conv') in _NET_KINDS,
              'env_args.net_kind %r: only %s are ported; the other nets %s'
              % (env.get('net_kind'), ' and '.join(_NET_KINDS), pending))

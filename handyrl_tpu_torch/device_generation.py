@@ -50,8 +50,9 @@ from .generation import (Generator, _blank_moment, bucketed_inference,
                          finalize_episode_record, masked_sample,
                          pad_to_bucket, sample_seed, seed_env_rng)
 from .ops.batch import compress_moments
+from .ops.device_windows import flatten_window_keys, unflatten_window_keys
 from .ops.graphs import CapturedCall, PackedFetch
-from .utils.tree import map_zip, map_structure
+from .utils.tree import map_structure, map_zip
 
 Tensor = torch.Tensor
 
@@ -79,7 +80,7 @@ def _ply_inference(env_mod, net: torch.nn.Module, state, hidden=None):
         if hidden is None:
             out = dict(net(obs))
         else:
-            rows = torch.arange(obs.shape[0], device=obs.device)
+            rows = torch.arange(legal.shape[0], device=legal.device)
             player = env_mod.turn(state)
             out = dict(net(obs, map_structure(lambda h: h[rows, player],
                                               hidden)))
@@ -133,8 +134,10 @@ def make_gen_body(env_mod, net: torch.nn.Module):
     (K, N, ...): 'obs', 'action', 'prob', 'amask', 'value', 'done',
     'outcome', and 'acting' (N, P) for a simultaneous env (obs (N, P, ...))
     or 'player' (N,) for a turn-based one (the acting player's obs, prob,
-    value); with the env's rewards, 'reward'. Shared by the fused pipeline,
-    so the recorded trajectory has one definition."""
+    value: only the acting seat observes a ply, with ``observation`` on or
+    off, as in the JAX package); with the env's rewards, 'reward'. A dict
+    observation (Geister's) stays a dict of stacked leaves. Shared by the
+    fused pipeline, so the recorded trajectory has one definition."""
     simult = simultaneous(env_mod)
 
     @torch.no_grad()
@@ -167,7 +170,8 @@ def make_gen_body(env_mod, net: torch.nn.Module):
             state = env_mod.auto_reset(nstate, done, generator=generator)
             if recurrent:
                 hidden = _reset_hidden_where_done(hidden, done)
-        records = {k: torch.stack([r[k] for r in plies]) for k in plies[0]}
+        records = {k: map_zip(lambda *xs: torch.stack(xs),
+                              *[r[k] for r in plies]) for k in plies[0]}
         return state, records, hidden
 
     return rollout_chunk
@@ -195,21 +199,24 @@ class _RecordPacker:
     and dtype (the JAX package's ``_RecordPacker``: int and bool values
     are small enough to round-trip through float32 exactly)."""
 
-    def __init__(self, records: Dict[str, Tensor]):
+    def __init__(self, records: Dict[str, Any]):
+        # a dict observation's leaves under dotted keys
+        records = flatten_window_keys(records)
         self.keys = list(records)
         self.shapes = [tuple(records[k].shape) for k in self.keys]
         self.dtypes = [_numpy_dtype(records[k].dtype) for k in self.keys]
 
-    def pack(self, records: Dict[str, Tensor]) -> Tensor:
+    def pack(self, records: Dict[str, Any]) -> Tensor:
+        records = flatten_window_keys(records)
         return torch.cat([records[k].float().reshape(-1) for k in self.keys])
 
-    def unpack(self, flat: np.ndarray) -> Dict[str, np.ndarray]:
+    def unpack(self, flat: np.ndarray) -> Dict[str, Any]:
         out, pos = {}, 0
         for k, shape, dtype in zip(self.keys, self.shapes, self.dtypes):
             n = int(np.prod(shape)) if shape else 1
             out[k] = flat[pos:pos + n].reshape(shape).astype(dtype)
             pos += n
-        return out
+        return unflatten_window_keys(out)
 
 
 class DeviceChunk(NamedTuple):
@@ -285,10 +292,8 @@ class DeviceGenerator:
         with torch.no_grad():
             copy_hidden_(self.hidden, hidden)
             if self.records is None:   # the first call, which runs eagerly
-                self.records = {k: torch.empty_like(v)
-                                for k, v in records.items()}
-            for k, v in records.items():
-                self.records[k].copy_(v)
+                self.records = map_structure(torch.empty_like, records)
+            map_zip(lambda d, v: d.copy_(v), self.records, records)
         subset = (self.records if full else
                   {k: self.records[k] for k in ('done', 'outcome')})
         if full not in self._packers:
@@ -307,7 +312,7 @@ class DeviceGenerator:
     def _dispatch_records(self):
         handle = self._dispatch(False)
         with torch.no_grad():
-            records = {k: v.clone() for k, v in self.records.items()}
+            records = map_structure(torch.clone, self.records)
         ready = None
         if self.device.type == 'cuda':
             ready = torch.cuda.Event()
@@ -370,7 +375,8 @@ class DeviceGenerator:
     def _moment_turn_based(self, rec, k, i, players):
         player = int(rec['player'][k, i])
         moment = _blank(players)
-        moment['observation'][player] = rec['obs'][k, i]
+        moment['observation'][player] = map_structure(lambda o: o[k, i],
+                                                      rec['obs'])
         moment['selected_prob'][player] = float(rec['prob'][k, i])
         moment['action_mask'][player] = rec['amask'][k, i]
         moment['action'][player] = int(rec['action'][k, i])
@@ -529,7 +535,8 @@ class DeviceEvaluator:
                     block = rule[a:b]
                 else:
                     block, opp_hidden = self._opponent_greedy(
-                        name, obs[a:b], amask[a:b], state, a, b, opp_hidden)
+                        name, map_structure(lambda o: o[a:b], obs),
+                        amask[a:b], state, a, b, opp_hidden)
                 opp = torch.cat([opp[:a], block, opp[b:]])
             if simultaneous(env):
                 is_main = players[None, :] == seat[:, None]
@@ -579,7 +586,7 @@ class DeviceEvaluator:
             if opp_hidden is None:
                 policy = net(obs)['policy']
             else:
-                rows = torch.arange(b - a, device=obs.device)
+                rows = torch.arange(b - a, device=amask.device)
                 pl = self.env_mod.turn(state)[a:b]
                 out = net(obs, map_structure(lambda h: h[a:b][rows, pl],
                                              opp_hidden))
@@ -904,7 +911,8 @@ class DeviceActorEngine:
             plies.append(record)
         # stacked before the static tensors are written: the first ply's
         # records may be views of them (its liveness, a twin's 'acting')
-        records = {k: torch.stack([r[k] for r in plies]) for k in plies[0]}
+        records = {k: map_zip(lambda *xs: torch.stack(xs),
+                              *[r[k] for r in plies]) for k in plies[0]}
         copy_state_(self.state, state)
         copy_hidden_(self._hidden, hidden)
         self._live.copy_(live)
@@ -1081,7 +1089,8 @@ class DeviceActorEngine:
             chunks.append(rec)
             if not (rec['live'][-1] & ~rec['done'][-1]).any():
                 break
-        rec = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+        rec = {k: map_zip(lambda *xs: np.concatenate(xs),
+                          *[c[k] for c in chunks]) for k in chunks[0]}
         plies = int(rec['live'].sum())
         scheduled = len(chunks) * self.chunk_steps * len(plan)
         self.stats['plies'] += plies
@@ -1201,7 +1210,8 @@ class DeviceActorEngine:
     def _lane_moment_turn_based(self, rec, k, i, players):
         player = int(rec['player'][k, i])
         moment = _blank(players)
-        moment['observation'][player] = rec['obs'][k, i]
+        moment['observation'][player] = map_structure(lambda o: o[k, i],
+                                                      rec['obs'])
         moment['selected_prob'][player] = float(rec['prob'][k, i])
         moment['action_mask'][player] = rec['amask'][k, i]
         moment['action'][player] = int(rec['action'][k, i])

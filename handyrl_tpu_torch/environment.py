@@ -1,5 +1,6 @@
 """Environment protocol and registry (copy of ``handyrl_tpu/environment.py``
-for the games the port has so far: TicTacToe, ConnectX and HungryGeese).
+for the games the port has: TicTacToe, ParallelTicTacToe, Geister,
+ConnectX and HungryGeese).
 
 Environments are plain Python: the framework consumes only the numpy
 arrays they produce (``observation``) and the integer action spaces they
@@ -14,6 +15,8 @@ from typing import Any, Dict, List, Optional
 # short name -> module path; a fully-qualified dotted module path also works
 ENVS = {
     'TicTacToe': 'handyrl_tpu_torch.envs.tictactoe',
+    'ParallelTicTacToe': 'handyrl_tpu_torch.envs.parallel_tictactoe',
+    'Geister': 'handyrl_tpu_torch.envs.geister',
     'ConnectX': 'handyrl_tpu_torch.envs.kaggle.connectx',
     'HungryGeese': 'handyrl_tpu_torch.envs.kaggle.hungry_geese',
 }
@@ -24,6 +27,7 @@ ENVS = {
 DEVICE_ENVS = {
     'HungryGeese': 'handyrl_tpu_torch.envs.torch_hungry_geese',
     'TicTacToe': 'handyrl_tpu_torch.envs.torch_tictactoe',
+    'Geister': 'handyrl_tpu_torch.envs.torch_geister',
     'ConnectX': 'handyrl_tpu_torch.envs.torch_connectx',
 }
 

@@ -276,8 +276,9 @@ class Environment(BaseEnvironment):
         'lstm'`` (the torus-conv stem and ConvLSTM core of the JAX
         package's LSTM configuration); ``torus_impl`` picks GeeseNet's
         trunk ('pallas' = the fused CUDA kernel, 'pad' / 'halo' = plain
-        torch convs; GeeseNetLSTM runs the last two). Only GroupNorm is
-        ported."""
+        torch convs; GeeseNetLSTM runs the last two); ``norm_kind`` its
+        norm ('group', or 'batch', 'batchstats', 'layer' with 'pad' /
+        'halo')."""
         from ...models.geese import GeeseNet, GeeseNetLSTM
         kind = self.args.get('net_kind', 'conv')
         if kind == 'lstm':

@@ -789,11 +789,16 @@ def client_mp_child(env_args, model_path, device, handover, spawned_at):
     started = time.time()
     client = NetworkAgentClient(agent, env, conn)
     client.run()
-    print('client child (pid %d): %s' % (os.getpid(), json.dumps({
+    line = 'client child (pid %d): %s\n' % (os.getpid(), json.dumps({
         'device': str(dev), 'start_seconds': started - spawned_at,
         'play_seconds': time.time() - started, 'actions': client.actions,
         'outcomes': client.outcomes,
-        'kernel_launches': kernel_launches()})), flush=True)
+        'kernel_launches': kernel_launches()}))
+    # the group's children share the client's stdout: the buffered boards
+    # go first, then the report in one write, so a sibling's flush cannot
+    # land inside it
+    sys.stdout.flush()
+    os.write(sys.stdout.fileno(), line.encode())
 
 
 def eval_client_main(args, argv, device: Any = 'cuda') -> int:

@@ -15,6 +15,7 @@ ask for ``'cpu'`` explicitly, or the wrapper raises.
 
 from __future__ import annotations
 
+import functools
 import importlib
 from typing import Any, Dict
 
@@ -53,13 +54,19 @@ def param_trees(module):
     a mapping of its parameter names to tensors) to the flax param tree of
     numpy arrays, and back to a state dict of CPU tensors: the
     ``params_to_flax`` and ``params_from_flax`` of the module that defines
-    the architecture."""
+    the architecture. A net with a ``norm_kind`` gets it bound into
+    ``to_flax`` (its flax norm layers' names depend on it, a mapping of
+    state-dict names does not show it). A 'batch' net's tree holds its
+    running averages as flax's ``batch_stats`` collection where the source
+    holds them (the module's buffers, or the params of a train state)."""
     defining = importlib.import_module(type(module).__module__)
     to_flax = getattr(defining, 'params_to_flax', None)
     from_flax = getattr(defining, 'params_from_flax', None)
     if to_flax is None or from_flax is None:
         raise KeyError('no snapshot format for %s'
                        % model_zoo.architecture_name(module))
+    if hasattr(module, 'norm_kind'):
+        to_flax = functools.partial(to_flax, norm_kind=module.norm_kind)
     return to_flax, from_flax
 
 
@@ -98,9 +105,11 @@ class ModelWrapper:
         return self.module.init_hidden(tuple(batch_shape))
 
     def _to_device(self, x):
+        # contiguous: an env may hand over a view with negative strides
+        # (Geister's rotated board), which torch cannot wrap
         return map_structure(
-            lambda v: None if v is None
-            else torch.as_tensor(np.asarray(v), device=self.device), x)
+            lambda v: None if v is None else torch.as_tensor(
+                np.ascontiguousarray(v), device=self.device), x)
 
     @torch.no_grad()
     def batch_inference(self, obs, hidden=None) -> Dict[str, Any]:

@@ -3,22 +3,124 @@
 Model convention (as in the JAX package): ``module(obs, hidden)`` returns a
 dict with 'policy' (logits) and 'value' (shape (..., 1)); observations
 arrive channel-first (..., C, H, W) exactly as environments emit them.
-Normalization is GroupNorm with ``min(8, F)`` groups ('group') or one group
-('group1', the heads'), flax's eps 1e-6, statistics in fp32. The zero-padded
-blocks (:class:`ConvBlock`, :class:`PolicyHead`, :class:`ScalarHead`) run
-NCHW and flatten their heads in flax's (H, W, C) order, so a flax ``Dense``
+Normalization (``make_norm``) is the JAX package's, written out on NCHW
+tensors: GroupNorm with ``min(8, F)`` groups ('group') or one group
+('group1', the heads'), flax's eps 1e-6; flax's BatchNorm ('batch':
+statistics of the current batch in a training forward, running averages
+everywhere else); the batch statistics without running averages
+('batchstats'); flax's LayerNorm over the channels of each cell ('layer').
+Statistics are fp32. The mode is the explicit ``train`` argument of a
+forward, never ``module.training``. The zero-padded blocks
+(:class:`ConvBlock`, :class:`PolicyHead`, :class:`ScalarHead`,
+:class:`SpatialPolicyHead`) run NCHW; :class:`PolicyHead` and
+:class:`ScalarHead` flatten in flax's (H, W, C) order, so a flax ``Dense``
 kernel is the transpose of the torch ``Linear`` weight.
+
+A training forward of a 'batch' net reports the running averages it
+advanced to the innermost :func:`batch_stats_sink`, so a functional step
+(``ops/train_step.py``, :func:`collect_batch_stats`) gets them as new
+values of the module's buffers and the buffers themselves never change in
+a forward.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 GN_EPS = 1e-6   # flax nn.GroupNorm's epsilon (torch's default is 1e-5)
+BN_EPS = 1e-5   # flax nn.BatchNorm's, as the JAX package builds it
+LN_EPS = 1e-6   # flax nn.LayerNorm's
+# flax weights the old running average by 0.9 (torch's momentum 0.1)
+BN_MOMENTUM = 0.9
+NORM_KINDS = ('group', 'group1', 'batch', 'batchstats', 'layer')
+# the flax module name of each kind's norm layer
+NORM_MODULE = {'group': 'GroupNorm_0', 'group1': 'GroupNorm_0',
+               'batch': 'BatchNorm_0', 'batchstats': 'BatchStatsNorm_0',
+               'layer': 'LayerNorm_0'}
+
+_SINK = threading.local()
+
+
+@contextlib.contextmanager
+def batch_stats_sink():
+    """Collects, for the forwards run inside it on this thread, the
+    running averages each 'batch' norm advanced: a dict ``(module, buffer
+    name) -> new tensor`` (detached), ``(module, buffer name, row)`` for a
+    row of a stacked buffer."""
+    prev = getattr(_SINK, 'out', None)
+    _SINK.out = out = {}
+    try:
+        yield out
+    finally:
+        _SINK.out = prev
+
+
+def _moments(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flax's ``_compute_stats``: fp32 mean and the fast (biased) variance
+    E[x^2] - E[x]^2, clipped at 0, over ``dims`` (kept)."""
+    xf = x.float()
+    mu = xf.mean(dim=dims, keepdim=True)
+    mu2 = (xf * xf).mean(dim=dims, keepdim=True)
+    return mu, torch.clamp(mu2 - mu * mu, min=0.0)
+
+
+def _channel(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """(C,) -> broadcastable against an (N, C, H, W)-like tensor."""
+    return v.float().reshape((1, -1) + (1,) * (ndim - 2))
+
+
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               mean: torch.Tensor, var: torch.Tensor, train: bool
+               ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor,
+                                                       torch.Tensor]]]:
+    """flax nn.BatchNorm(momentum 0.9, eps 1e-5) on an NCHW tensor. In a
+    training forward the current batch's statistics over every axis but
+    the channels normalise, and the new running averages ``0.9 * old +
+    0.1 * batch`` (the biased variance, as flax) come back beside the
+    output; otherwise the running averages normalise and None comes
+    back."""
+    dims = (0,) + tuple(range(2, x.dim()))
+    if train:
+        mu, v = _moments(x, dims)
+        new = tuple(BN_MOMENTUM * old + (1 - BN_MOMENTUM)
+                    * batch.reshape(-1).detach()
+                    for old, batch in ((mean, mu), (var, v)))
+    else:
+        mu, v, new = _channel(mean, x.dim()), _channel(var, x.dim()), None
+    mul = torch.rsqrt(v + BN_EPS) * _channel(scale, x.dim())
+    y = (x.float() - mu) * mul + _channel(bias, x.dim())
+    return y.to(x.dtype), new
+
+
+def batchstats_norm(x: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``BatchStatsNorm``: the current batch's fp32
+    statistics over every axis but the channels (the two-pass variance,
+    as ``jnp.var``), eps 1e-5, in every forward; no running averages."""
+    dims = (0,) + tuple(range(2, x.dim()))
+    xf = x.float()
+    mu = xf.mean(dim=dims, keepdim=True)
+    v = ((xf - mu) ** 2).mean(dim=dims, keepdim=True)
+    y = (xf - mu) / torch.sqrt(v + BN_EPS)
+    return (y * _channel(scale, x.dim()) + _channel(bias, x.dim())).to(
+        x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """flax nn.LayerNorm on an NCHW tensor: each cell normalised over its
+    channels alone (flax's last axis of NHWC), eps 1e-6, fp32 fast
+    variance."""
+    mu, v = _moments(x, (1,))
+    y = (x.float() - mu) * (torch.rsqrt(v + LN_EPS)
+                            * _channel(scale, x.dim()))
+    return (y + _channel(bias, x.dim())).to(x.dtype)
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -76,24 +178,35 @@ def torus_conv(x: torch.Tensor, kernel: torch.Tensor,
 
 
 class TorusConv(nn.Module):
-    """Torus conv + GroupNorm on NCHW tensors, the counterpart of the JAX
-    package's ``blocks.TorusConv`` (norm_kind='group').
+    """Torus conv + norm on NCHW tensors, the counterpart of the JAX
+    package's ``blocks.TorusConv``.
 
     It holds no parameters: the caller passes the conv kernel (HWIO) and
-    the GroupNorm scale and bias, so a net can keep its layers stacked in
-    the fused kernel's layout and slice them per layer."""
+    the norm's scale and bias, so a net can keep its layers stacked in the
+    fused kernel's layout and slice them per layer. A 'batch' norm reads
+    its running averages from the caller's stacked buffers (``owner``,
+    ``stats`` names, row ``index``; :func:`norm_nchw`)."""
 
-    def __init__(self, impl: str = 'pad', groups: int = 8):
+    def __init__(self, impl: str = 'pad', groups: int = 8,
+                 norm_kind: str = 'group'):
         super().__init__()
         if impl not in ('pad', 'halo'):
             raise ValueError('unknown TorusConv impl %r' % (impl,))
+        if norm_kind not in NORM_KINDS:
+            raise ValueError('unknown norm kind %r' % (norm_kind,))
         self.impl = impl
         self.groups = groups
+        self.norm_kind = norm_kind
 
     def forward(self, x: torch.Tensor, kernel: torch.Tensor,
-                scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        return group_norm(torus_conv(x, kernel, self.impl), scale, bias,
-                          self.groups)
+                scale: torch.Tensor, bias: torch.Tensor,
+                owner: Optional[nn.Module] = None,
+                stats: Tuple[str, str] = ('mean', 'var'),
+                index: Optional[int] = None,
+                train: bool = False) -> torch.Tensor:
+        return norm_nchw(self.norm_kind, torus_conv(x, kernel, self.impl),
+                         scale, bias, self.groups, owner, train, stats,
+                         index)
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int,
@@ -107,31 +220,137 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
         t.mul_(std)
 
 
-def make_norm(kind: str, filters: int) -> nn.GroupNorm:
-    """The JAX package's ``make_norm`` for 'group' (``min(8, filters)``
-    groups) and 'group1' (one group over (H, W, C), the heads' flavour);
-    its other kinds are not ported and raise."""
-    if kind == 'group':
-        return nn.GroupNorm(min(8, filters), filters, eps=GN_EPS)
-    if kind == 'group1':
-        return nn.GroupNorm(1, filters, eps=GN_EPS)
-    raise ValueError('norm kind %r is not ported (the port has group and '
-                     'group1)' % (kind,))
+class _Norm(nn.Module):
+    """A norm over ``filters`` channels with flax's scale ('weight') and
+    bias; ``forward(x, train=False)`` on NCHW tensors."""
+
+    def __init__(self, kind: str, filters: int):
+        super().__init__()
+        self.kind = kind
+        self.weight = nn.Parameter(torch.ones(filters))
+        self.bias = nn.Parameter(torch.zeros(filters))
+        self.groups = 1
+        if kind == 'group':
+            self.groups = min(8, filters)
+        elif kind == 'batch':
+            # flax's batch_stats collection: running mean 0 and var 1
+            self.register_buffer('mean', torch.zeros(filters))
+            self.register_buffer('var', torch.ones(filters))
+        elif kind not in ('group1', 'batchstats', 'layer'):
+            # never fall back silently: a typo'd kind reinstating GroupNorm
+            # would run another net than the one asked for
+            raise ValueError('unknown norm kind %r' % (kind,))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return norm_nchw(self.kind, x, self.weight, self.bias, self.groups,
+                         self, train=train)
 
 
-def _reset_norm(norm: nn.GroupNorm):
+def norm_nchw(kind: str, x: torch.Tensor, scale: torch.Tensor,
+              bias: torch.Tensor, groups: int = 1,
+              owner: Optional[nn.Module] = None, train: bool = False,
+              stats: Tuple[str, str] = ('mean', 'var'),
+              index: Optional[int] = None) -> torch.Tensor:
+    """The norm ``kind`` of :func:`make_norm` on an NCHW tensor with the
+    given scale and bias. A 'batch' norm reads its running averages from
+    ``owner``'s buffers named ``stats`` (row ``index`` of stacked ones)
+    and, in a training forward, reports their new values for that row to
+    the active :func:`batch_stats_sink` (stacked buffers collect one row
+    a call, under (owner, name, index))."""
+    if kind in ('group', 'group1'):
+        return group_norm(x, scale, bias, groups)
+    if kind == 'batchstats':
+        return batchstats_norm(x, scale, bias)
+    if kind == 'layer':
+        return layer_norm(x, scale, bias)
+    if kind != 'batch':
+        raise ValueError('unknown norm kind %r' % (kind,))
+    mean, var = (getattr(owner, n) for n in stats)
+    if index is not None:
+        mean, var = mean[index], var[index]
+    y, new = batch_norm(x, scale, bias, mean, var, train)
+    if new is not None:
+        out = getattr(_SINK, 'out', None)
+        if out is not None:
+            for name, t in zip(stats, new):
+                out[(owner, name) if index is None
+                    else (owner, name, index)] = t.detach()
+    return y
+
+
+def make_norm(kind: str, filters: int) -> nn.Module:
+    """The JAX package's ``make_norm`` on NCHW tensors: 'group'
+    (``min(8, filters)`` groups), 'group1' (one group over (C, H, W), the
+    heads' flavour), 'batch' (flax's BatchNorm with running averages in
+    the buffers ``mean`` and ``var``), 'batchstats' or 'layer'. Every kind
+    holds a scale ('weight', ones) and a bias (zeros); an unknown kind
+    raises."""
+    return _Norm(kind, filters)
+
+
+def collect_batch_stats(module: nn.Module, sink: Dict) -> Dict[str,
+                                                               torch.Tensor]:
+    """A :func:`batch_stats_sink`'s entries as new values of ``module``'s
+    buffers by their state-dict names (rows of a stacked buffer stacked
+    back in order)."""
+    names = {m: n for n, m in module.named_modules()}
+    rows: Dict[str, Dict[int, torch.Tensor]] = {}
+    out: Dict[str, torch.Tensor] = {}
+    for key, t in sink.items():
+        prefix = names[key[0]]
+        name = (prefix + '.' if prefix else '') + key[1]
+        if len(key) == 3:
+            rows.setdefault(name, {})[key[2]] = t
+        else:
+            out[name] = t
+    for name, by_row in rows.items():
+        out[name] = torch.stack([by_row[i] for i in sorted(by_row)])
+    return out
+
+
+def _reset_norm(norm: nn.Module):
     with torch.no_grad():
         norm.weight.fill_(1.0)
         norm.bias.zero_()
+        if getattr(norm, 'kind', None) == 'batch':
+            norm.mean.zero_()
+            norm.var.fill_(1.0)
 
 
-def _reset_conv(conv: nn.Conv2d, generator: Optional[torch.Generator]):
-    """flax's nn.Conv defaults: lecun_normal kernel, zero bias."""
-    o, i, kh, kw = conv.weight.shape
-    lecun_normal_(conv.weight, i * kh * kw, generator)
-    if conv.bias is not None:
+def init_kernel_(weight: torch.Tensor, fan_in: int, init_kind: str,
+                 generator: Optional[torch.Generator],
+                 bias: Optional[torch.Tensor] = None):
+    """A conv or dense layer's init under the JAX package's ``init_kind``
+    (``conv_inits`` / ``dense_inits``): 'flax', lecun_normal kernel and
+    zero bias; 'torch', ``torch_default_inits``: kernel and bias uniform
+    in +-1/sqrt(fan_in) (fan_in = receptive field x input channels)."""
+    if init_kind == 'flax':
+        lecun_normal_(weight, fan_in, generator)
+        if bias is not None:
+            with torch.no_grad():
+                bias.zero_()
+    elif init_kind == 'torch':
+        bound = 1.0 / fan_in ** 0.5
         with torch.no_grad():
-            conv.bias.zero_()
+            for t in (weight, bias):
+                if t is not None:
+                    t.uniform_(-bound, bound, generator=generator)
+    else:
+        raise ValueError('unknown init_kind %r' % (init_kind,))
+
+
+def _reset_conv(conv: nn.Conv2d, generator: Optional[torch.Generator],
+                init_kind: str = 'flax'):
+    """flax's nn.Conv init under ``init_kind`` (lecun_normal kernel, zero
+    bias by default)."""
+    o, i, kh, kw = conv.weight.shape
+    init_kernel_(conv.weight, i * kh * kw, init_kind, generator, conv.bias)
+
+
+def _reset_dense(dense: nn.Linear, generator: Optional[torch.Generator],
+                 init_kind: str = 'flax'):
+    init_kernel_(dense.weight, dense.in_features, init_kind, generator,
+                 dense.bias)
 
 
 def _flatten_hwc(h: torch.Tensor) -> torch.Tensor:
@@ -140,21 +359,23 @@ def _flatten_hwc(h: torch.Tensor) -> torch.Tensor:
 
 
 class ConvBlock(nn.Module):
-    """Zero-padded ('SAME') 3x3 conv without a bias + GroupNorm on NCHW
+    """Zero-padded ('SAME') 3x3 conv without a bias + norm on NCHW
     (``handyrl_tpu/models/blocks.py`` ConvBlock as every JAX net uses
     it)."""
 
-    def __init__(self, in_channels: int, filters: int):
+    def __init__(self, in_channels: int, filters: int,
+                 norm_kind: str = 'group', init_kind: str = 'flax'):
         super().__init__()
+        self.init_kind = init_kind
         self.conv = nn.Conv2d(in_channels, filters, 3, padding=1, bias=False)
-        self.norm = make_norm('group', filters)
+        self.norm = make_norm(norm_kind, filters)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        _reset_conv(self.conv, generator)
+        _reset_conv(self.conv, generator, self.init_kind)
         _reset_norm(self.norm)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(self.conv(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.norm(self.conv(x), train)
 
 
 class PolicyHead(nn.Module):
@@ -162,14 +383,15 @@ class PolicyHead(nn.Module):
     bias, over a board of ``cells`` cells."""
 
     def __init__(self, in_channels: int, out_filters: int, outputs: int,
-                 cells: int):
+                 cells: int, init_kind: str = 'flax'):
         super().__init__()
+        self.init_kind = init_kind
         self.conv = nn.Conv2d(in_channels, out_filters, 1)
         self.dense = nn.Linear(out_filters * cells, outputs, bias=False)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        _reset_conv(self.conv, generator)
-        lecun_normal_(self.dense.weight, self.dense.in_features, generator)
+        _reset_conv(self.conv, generator, self.init_kind)
+        _reset_dense(self.dense, generator, self.init_kind)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.leaky_relu(self.conv(x), negative_slope=0.1)
@@ -177,24 +399,50 @@ class PolicyHead(nn.Module):
 
 
 class ScalarHead(nn.Module):
-    """1x1 conv (no bias) + one-group GroupNorm + relu -> dense scalar(s)
-    without a bias, over a board of ``cells`` cells."""
+    """1x1 conv (no bias) + norm (one-group GroupNorm by default) + relu ->
+    dense scalar(s) without a bias, over a board of ``cells`` cells."""
 
     def __init__(self, in_channels: int, filters: int, outputs: int,
-                 cells: int):
+                 cells: int, norm_kind: str = 'group1',
+                 init_kind: str = 'flax'):
         super().__init__()
+        self.init_kind = init_kind
         self.conv = nn.Conv2d(in_channels, filters, 1, bias=False)
-        self.norm = make_norm('group1', filters)
+        self.norm = make_norm(norm_kind, filters)
         self.dense = nn.Linear(filters * cells, outputs, bias=False)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        _reset_conv(self.conv, generator)
+        _reset_conv(self.conv, generator, self.init_kind)
         _reset_norm(self.norm)
-        lecun_normal_(self.dense.weight, self.dense.in_features, generator)
+        _reset_dense(self.dense, generator, self.init_kind)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(self.norm(self.conv(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = torch.relu(self.norm(self.conv(x), train))
         return self.dense(_flatten_hwc(h))
+
+
+class SpatialPolicyHead(nn.Module):
+    """Per-cell policy logits, the JAX package's ``SpatialPolicyHead``: a
+    zero-padded 3x3 conv (no bias) + norm + relu, then a 1x1 conv (with a
+    bias) to ``out_filters`` logits per cell, flattened channel-major
+    (logit = f * H * W + x * W + y, the '4 x 36' move encoding)."""
+
+    def __init__(self, in_channels: int, filters: int, out_filters: int,
+                 norm_kind: str = 'group1', init_kind: str = 'flax'):
+        super().__init__()
+        self.init_kind = init_kind
+        self.conv = nn.Conv2d(in_channels, filters, 3, padding=1, bias=False)
+        self.norm = make_norm(norm_kind, filters)
+        self.out = nn.Conv2d(filters, out_filters, 1)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        _reset_conv(self.conv, generator, self.init_kind)
+        _reset_norm(self.norm)
+        _reset_conv(self.out, generator, self.init_kind)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = torch.relu(self.norm(self.conv(x), train))
+        return self.out(h).reshape(x.shape[0], -1)   # NCHW: channel-major
 
 
 class ConvLSTMCell(nn.Module):
@@ -209,14 +457,16 @@ class ConvLSTMCell(nn.Module):
     C + F, 4F) is HWIO over the same concatenation, so it maps to the
     torch weight by the permutation alone."""
 
-    def __init__(self, in_channels: int, features: int, kernel: int = 3):
+    def __init__(self, in_channels: int, features: int, kernel: int = 3,
+                 init_kind: str = 'flax'):
         super().__init__()
         self.features = int(features)
+        self.init_kind = init_kind
         self.conv = nn.Conv2d(in_channels + features, 4 * features, kernel,
                               padding=kernel // 2)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        _reset_conv(self.conv, generator)
+        _reset_conv(self.conv, generator, self.init_kind)
 
     def forward(self, x: torch.Tensor, state):
         h_prev, c_prev = state
@@ -235,13 +485,14 @@ class DRC(nn.Module):
     ``(hs, cs)``, lists of (N, F, H, W) tensors, one a layer."""
 
     def __init__(self, in_channels: int, num_layers: int = 3,
-                 features: int = 32, kernel: int = 3, num_repeats: int = 3):
+                 features: int = 32, kernel: int = 3, num_repeats: int = 3,
+                 init_kind: str = 'flax'):
         super().__init__()
         self.num_layers, self.features = int(num_layers), int(features)
         self.num_repeats = int(num_repeats)
         self.cells = nn.ModuleList(
             ConvLSTMCell(in_channels if i == 0 else features, features,
-                         kernel) for i in range(self.num_layers))
+                         kernel, init_kind) for i in range(self.num_layers))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         for cell in self.cells:

@@ -31,6 +31,8 @@ values and can be captured in a CUDA graph.
 
 The ring stores each window as one flat row per leaf, (capacity + 1,
 prod(window shape)); ``window_spec`` restores the shapes after a gather.
+A dict observation (Geister's) is a dict in the records and the history
+and one ring leaf per entry ('observation.board').
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.tree import map_structure, map_zip
 
 Tensor = torch.Tensor
 
@@ -106,7 +110,8 @@ def build_windows_solo_batched(hist: Dict[str, Tensor], S: Tensor,
 
     valid = in_ep & take(hist['acting'])
     oc = torch.gather(outcome, 1, seat.long())                     # (N, W)
-    obs = vmask(take(hist['obs']), 0.0, valid)[:, :, :, None]
+    obs = map_structure(lambda o: vmask(take(o), 0.0, valid)[:, :, :, None],
+                        hist['obs'])
     prob = torch.where(valid, take(hist['prob']), 1.0)
     act = torch.where(valid, take(hist['action']), 0)
     amask = vmask(take(hist['amask']), 1e32, valid)[:, :, :, None]
@@ -121,7 +126,7 @@ def build_windows_solo_batched(hist: Dict[str, Tensor], S: Tensor,
     progress = torch.where(in_ep, m.float() / lengths.float(), 1.0)
     f32 = torch.float32
     return flatten_window_keys({
-        'observation': obs.to(f32),
+        'observation': map_structure(lambda o: o.to(f32), obs),
         'selected_prob': prob.to(f32)[..., None, None],
         'action': act.to(torch.int32)[..., None, None],
         'action_mask': amask.to(f32),
@@ -142,7 +147,7 @@ def build_windows_solo(hist: Dict[str, Tensor], S, ts: Tensor, seat: Tensor,
     """Windows of ONE env in solo layout, as the JAX package's function:
     hist leaves (L, P, ...), S its episode length, ts and seat (W,),
     outcome (P,). Returns leaves with leading axis W."""
-    hist1 = {k: v[None] for k, v in hist.items()}
+    hist1 = {k: map_structure(lambda v: v[None], v) for k, v in hist.items()}
     S1 = torch.as_tensor(S, device=ts.device).reshape(1)
     win = build_windows_solo_batched(hist1, S1, ts[None], seat[None],
                                      outcome[None], fs, bi, L)
@@ -175,7 +180,8 @@ def build_windows_turn_batched(hist: Dict[str, Tensor], S: Tensor,
                            x, fill)
 
     player = take(hist['player'])
-    obs = vmask(take(hist['obs']), 0.0, in_ep)[:, :, :, None]
+    obs = map_structure(lambda o: vmask(take(o), 0.0, in_ep)[:, :, :, None],
+                        hist['obs'])
     prob = torch.where(in_ep, take(hist['prob']), 1.0)
     act = torch.where(in_ep, take(hist['action']), 0)
     amask = vmask(take(hist['amask']), 1e32, in_ep)[:, :, :, None]
@@ -195,7 +201,7 @@ def build_windows_turn_batched(hist: Dict[str, Tensor], S: Tensor,
     progress = torch.where(in_ep, m.float() / lengths.float(), 1.0)
     f32 = torch.float32
     return flatten_window_keys({
-        'observation': obs.to(f32),
+        'observation': map_structure(lambda o: o.to(f32), obs),
         'selected_prob': prob.to(f32)[..., None, None],
         'action': act.to(torch.int32)[..., None, None],
         'action_mask': amask.to(f32),
@@ -217,7 +223,7 @@ def build_windows_turn(hist: Dict[str, Tensor], S, ts: Tensor,
     """Windows of ONE env in turn layout, as the JAX package's function:
     hist leaves (L, ...) with hist['player'] (L,), S its episode length, ts
     (W,), outcome (P,). Returns leaves with leading axis W."""
-    hist1 = {k: v[None] for k, v in hist.items()}
+    hist1 = {k: map_structure(lambda v: v[None], v) for k, v in hist.items()}
     S1 = torch.as_tensor(S, device=ts.device).reshape(1)
     win = build_windows_turn_batched(hist1, S1, ts[None], outcome[None], fs,
                                      bi, L, num_players)
@@ -228,15 +234,15 @@ def discounted_returns(rewards: Tensor, valid: Tensor, gamma: float
                        ) -> Tensor:
     """Backward discounted returns over an (L, P) reward history:
     ret[m] = r[m] + gamma * ret[m+1] within the valid prefix, 0 outside
-    (the JAX package's ``_discounted_returns``)."""
+    (the JAX package's ``_discounted_returns``). Leading axes of both
+    (rewards (..., L, P), valid (..., L)) are histories side by side, each
+    with the same arithmetic as alone."""
     out = torch.zeros_like(rewards)
-    carry = torch.zeros_like(rewards[0])
-    for m in range(rewards.shape[0] - 1, -1, -1):
-        nxt = rewards[m] + gamma * carry
-        v = valid[m].reshape(valid[m].shape + (1,) * (nxt.dim()
-                                                      - valid[m].dim()))
-        carry = torch.where(v, nxt, 0.0)
-        out[m] = carry
+    carry = torch.zeros_like(rewards[..., 0, :])
+    for m in range(rewards.shape[-2] - 1, -1, -1):
+        nxt = rewards[..., m, :] + gamma * carry
+        carry = torch.where(valid[..., m, None], nxt, 0.0)
+        out[..., m, :] = carry
     return out
 
 
@@ -275,8 +281,10 @@ class DeviceWindower:
     def init_state(self, records: Dict[str, Tensor]) -> Dict[str, Any]:
         """Zero history tensors shaped after a chunk's records (K, N, ...):
         {'hist': {key: (N, L, ...)}, 'counts': (N,) int64}."""
-        hist = {k: torch.zeros((r.shape[1], self.L) + tuple(r.shape[2:]),
-                               dtype=r.dtype, device=r.device)
+        hist = {k: map_structure(
+                    lambda r: torch.zeros((r.shape[1], self.L)
+                                          + tuple(r.shape[2:]),
+                                          dtype=r.dtype, device=r.device), r)
                 for k, r in records.items() if k in self._hist_keys()}
         n = records['done'].shape[1]
         return {'hist': hist,
@@ -290,12 +298,17 @@ class DeviceWindower:
         T = self.bi + self.fs
         # records (K, N, [P,] ...): the players' axis is a solo record's
         solo = self.mode == 'solo'
-        obs_shape = tuple(records['obs'].shape[3 if solo else 2:])
         A = records['amask'].shape[-1]
         P = 1 if solo else self.P   # the leaves that span the players
         f32 = torch.float32
+
+        def spec(o):
+            return ((T, 1) + tuple(o.shape[3 if solo else 2:]), f32)
+        obs = records['obs']
+        obs_spec = ({'observation.' + k: spec(o) for k, o in obs.items()}
+                    if isinstance(obs, dict) else {'observation': spec(obs)})
         self.window_spec = {
-            'observation': ((T, 1) + obs_shape, f32),
+            **obs_spec,
             'selected_prob': ((T, 1, 1), f32),
             'action': ((T, 1, 1), torch.int32),
             'action_mask': ((T, 1, A), f32),
@@ -335,7 +348,8 @@ class DeviceWindower:
         for k in range(records['done'].shape[0]):
             idx = counts.clamp(0, L - 1)
             for key in hist:
-                hist[key][rows, idx] = records[key][k]
+                map_zip(lambda h, r: h.__setitem__((rows, idx), r[k]),
+                        hist[key], records[key])
             counts.add_(1)
             done = records['done'][k]
             solo = self.mode == 'solo'
@@ -348,9 +362,8 @@ class DeviceWindower:
             win_hist = hist
             if self.has_reward:
                 valid = torch.arange(L, device=dev)[None, :] < counts[:, None]
-                win_hist = dict(hist, **{'return': torch.stack([
-                    discounted_returns(hist['reward'][i], valid[i],
-                                       self.gamma) for i in range(n)])})
+                win_hist = dict(hist, **{'return': discounted_returns(
+                    hist['reward'], valid, self.gamma)})
             # windows a finished episode contributes: the host ingestion rate
             wcount = torch.clamp(torch.div(counts, fs, rounding_mode='floor'),
                                  1, W)

@@ -111,7 +111,8 @@ class FusedPipeline:
         with launches.path('generation'):
             records = self._rollout(state, 1, torch.Generator(
                 device=self.device).manual_seed(0), hidden)[1]
-        return {k: torch.zeros_like(v) for k, v in records.items()}
+        return {k: map_structure(torch.zeros_like, v)
+                for k, v in records.items()}
 
     def _gen_ingest(self) -> Dict[str, Tensor]:
         """One chunk of self-play, ingested; the static state in place."""
@@ -157,10 +158,13 @@ class FusedPipeline:
 
     def refresh_actor(self, params: Dict[str, Tensor]) -> None:
         """Copy ``params`` (the trainer's, on the device) into the actor's
-        parameters in place."""
+        parameters and buffers (a 'batch' net's running averages) in
+        place."""
         with torch.no_grad():
             for name, p in self.actor.named_parameters():
                 p.copy_(params[name])
+            for name, b in self.actor.named_buffers():
+                b.copy_(params[name])
 
     def warm_step(self) -> Optional[Dict[str, Any]]:
         """A chunk and its ingest, no SGD. Returns the PREVIOUS dispatch's

@@ -513,13 +513,14 @@ def trunk_apply(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
 
 # ------------------------------------------------- flax param extraction
 
-def trunk_params_from_geesenet(params: Dict, layers: int = 12
+def trunk_params_from_geesenet(params: Dict, layers: int = 12,
+                               norm: str = 'GroupNorm_0'
                                ) -> Tuple[np.ndarray, ...]:
     """Stack the GeeseNet trunk's flax params (``TorusConv_i/{Conv_0/kernel,
     GroupNorm_0/{scale,bias}}``, with or without the top-level 'params'
-    key) into the kernel's operands: stem_w (3,3,Cin,F), stem_scale (F,),
-    stem_bias (F,), block_w (L,3,3,F,F), block_scale (L,F), block_bias
-    (L,F), as numpy arrays."""
+    key; ``norm`` names another norm layer) into the kernel's operands:
+    stem_w (3,3,Cin,F), stem_scale (F,), stem_bias (F,), block_w
+    (L,3,3,F,F), block_scale (L,F), block_bias (L,F), as numpy arrays."""
     p = params['params'] if 'params' in params else params
     stem = p['TorusConv_0']
     blocks = [p['TorusConv_%d' % i] for i in range(1, layers + 1)]
@@ -528,8 +529,8 @@ def trunk_params_from_geesenet(params: Dict, layers: int = 12
         return np.stack([np.asarray(get(b)) for b in blocks])
 
     return (np.asarray(stem['Conv_0']['kernel']),
-            np.asarray(stem['GroupNorm_0']['scale']),
-            np.asarray(stem['GroupNorm_0']['bias']),
+            np.asarray(stem[norm]['scale']),
+            np.asarray(stem[norm]['bias']),
             stack(lambda b: b['Conv_0']['kernel']),
-            stack(lambda b: b['GroupNorm_0']['scale']),
-            stack(lambda b: b['GroupNorm_0']['bias']))
+            stack(lambda b: b[norm]['scale']),
+            stack(lambda b: b[norm]['bias']))

@@ -13,9 +13,15 @@ data count.
 The targets go through ``ops/targets.py``, which launches the CUDA kernels
 K3-K5 for tensors on the card.
 
-Not ported yet (each raises ``NotImplementedError``): ``norm_kind='batch'``
-running statistics and the IMPACT target network (losses.py:257-296);
-ROADMAP.md queues them.
+A ``norm_kind='batch'`` net trains as the JAX package's does: with
+``batch_stats`` (its running averages by buffer name) the forward runs in
+training mode, normalising by the batch's statistics, and the running
+averages advance once a window for a feed-forward net and once a step for
+a recurrent one, burn-in steps included; they come back in
+``aux['batch_stats']``, without gradients.
+
+Not ported yet (raises ``NotImplementedError``): the IMPACT target
+network (losses.py:257-296); ROADMAP.md queues it.
 """
 
 from __future__ import annotations
@@ -52,17 +58,30 @@ def _fold_bt(x: Tensor) -> Tensor:
     return x.reshape((-1,) + tuple(x.shape[3:]))
 
 
+def _apply(apply_fn: Callable, params, obs, hidden, batch_stats):
+    """One forward: ``(outputs, None)`` in inference mode, or, with
+    ``batch_stats``, ``apply_fn(..., batch_stats=...)``'s training-mode
+    ``(outputs, advanced running averages)``."""
+    if batch_stats is None:
+        return dict(apply_fn(params, obs, hidden)), None
+    out, new_bs = apply_fn(params, obs, hidden, batch_stats=batch_stats)
+    return dict(out), new_bs
+
+
 def _recurrent_outputs(apply_fn: Callable, params, hidden,
-                       batch: Dict[str, Any], cfg: LossConfig
-                       ) -> Dict[str, Tensor]:
+                       batch: Dict[str, Any], cfg: LossConfig,
+                       batch_stats=None):
     """A recurrent net stepped over the window's T steps: (B, T, P_obs,
-    ...) outputs, zeros at the burn-in steps. ``hidden`` is the (B, P, ...)
-    state at the window's start; at each step a player's state enters
-    gated by its observation mask and is replaced by the net's next state
-    where the player observed. The burn-in steps run without gradients,
-    so the state they leave is a constant of the loss."""
+    ...) outputs, zeros at the burn-in steps, and the running averages
+    after the last step (None without ``batch_stats``). ``hidden`` is the
+    (B, P, ...) state at the window's start; at each step a player's state
+    enters gated by its observation mask and is replaced by the net's next
+    state where the player observed. The burn-in steps run without
+    gradients, so the state they leave is a constant of the loss; they
+    advance the running averages all the same."""
     B, T, P_obs = batch['action'].shape[:3]
     omask = batch['observation_mask']                        # (B, T, P, 1)
+    bs = [batch_stats]
 
     def step(h_carry, t):
         omask_t = omask[:, t]
@@ -83,7 +102,7 @@ def _recurrent_outputs(apply_fn: Callable, params, hidden,
                 lambda h: h.reshape((-1,) + tuple(h.shape[2:])), gated)
             obs_in = map_structure(
                 lambda o: o.reshape((-1,) + tuple(o.shape[2:])), obs_t)
-        out = dict(apply_fn(params, obs_in, h_in))
+        out, bs[0] = _apply(apply_fn, params, obs_in, h_in, bs[0])
         next_h = map_structure(
             lambda h: h.reshape((B, -1) + tuple(h.shape[1:])),
             out.pop('hidden'))
@@ -112,28 +131,31 @@ def _recurrent_outputs(apply_fn: Callable, params, hidden,
         outputs = {k: torch.cat([v.new_zeros(v.shape[:1] + (bi,)
                                              + v.shape[2:]), v], dim=1)
                    for k, v in outputs.items()}
-    return outputs
+    return outputs, bs[0]
 
 
 def forward_prediction(apply_fn: Callable, params, hidden,
                        batch: Dict[str, Any], cfg: LossConfig,
-                       batch_stats=None) -> Dict[str, Tensor]:
+                       batch_stats=None):
     """Run the net over a training window: a feed-forward net (``hidden``
     None) once, ``apply_fn(params, obs, None)`` on the
     (B*T*P_obs)-folded observations; a recurrent one step by step from
     ``hidden`` (:func:`_recurrent_outputs`). Returns outputs shaped (B, T,
     P, ...) with the policy turn-gathered and masked by the legal actions,
-    and every other output masked by observation_mask."""
-    if batch_stats is not None:
-        raise NotImplementedError("norm_kind='batch' training " + _DEFERRED)
+    and every other output masked by observation_mask; with
+    ``batch_stats`` (a 'batch' net's running averages) the forward runs in
+    training mode and ``(outputs, advanced running averages)`` comes
+    back."""
     B, T, P_obs = batch['action'].shape[:3]
     if hidden is None:
         obs = map_structure(_fold_bt, batch['observation'])
+        out, new_bs = _apply(apply_fn, params, obs, None, batch_stats)
         outputs = {k: v.reshape((B, T, P_obs) + tuple(v.shape[1:]))
-                   for k, v in dict(apply_fn(params, obs, None)).items()
+                   for k, v in out.items()
                    if k != 'hidden' and v is not None}
     else:
-        outputs = _recurrent_outputs(apply_fn, params, hidden, batch, cfg)
+        outputs, new_bs = _recurrent_outputs(apply_fn, params, hidden,
+                                             batch, cfg, batch_stats)
     masked = {}
     for k, o in outputs.items():
         if k == 'policy':
@@ -144,7 +166,9 @@ def forward_prediction(apply_fn: Callable, params, hidden,
             masked[k] = o - batch['action_mask']
         else:
             masked[k] = o * batch['observation_mask']
-    return masked
+    if batch_stats is None:
+        return masked
+    return masked, new_bs
 
 
 def _entropy(logits: Tensor) -> Tensor:
@@ -194,11 +218,16 @@ def compute_loss(apply_fn: Callable, params, init_hidden,
                  target_params=None) -> Tuple[Tensor, Dict[str, Any]]:
     """Forward, targets, advantages, composed losses. Returns (total loss,
     aux) where aux carries the per-term sums ('losses'), the data count
-    ('data_count') and the off-policy diagnostics ('diag')."""
+    ('data_count'), the off-policy diagnostics ('diag') and, given a
+    'batch' net's ``batch_stats``, the advanced running averages
+    ('batch_stats')."""
     if target_params is not None and cfg.target_clip > 0:
         raise NotImplementedError('the IMPACT target network ' + _DEFERRED)
     outputs = forward_prediction(apply_fn, params, init_hidden, batch, cfg,
                                  batch_stats)
+    new_bs = None
+    if batch_stats is not None:
+        outputs, new_bs = outputs
     bi = cfg.burn_in_steps
     if bi > 0:
         batch = _slice_burn_in(batch, bi)
@@ -264,8 +293,10 @@ def compute_loss(apply_fn: Callable, params, init_hidden,
         'rho_sum': (rhos * tmask).sum(),
         'rho_sq_sum': (rhos.square() * tmask).sum(),
     }
-    return losses['total'], {'losses': losses, 'data_count': dcnt,
-                             'diag': diag}
+    aux = {'losses': losses, 'data_count': dcnt, 'diag': diag}
+    if new_bs is not None:
+        aux['batch_stats'] = new_bs
+    return losses['total'], aux
 
 
 def _slice_burn_in(batch: Dict[str, Any], bi: int) -> Dict[str, Any]:

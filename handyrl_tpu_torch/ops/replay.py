@@ -17,6 +17,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .device_windows import flatten_window_keys
+
 Tensor = torch.Tensor
 
 # the JAX learner's caps on the ring: at most 4096 episodes' worth of
@@ -98,9 +100,11 @@ class DeviceReplay:
 
     def push(self, windows: Dict[str, Any]) -> None:
         """Append a stack of windows (leading axis = window count), numpy
-        arrays or tensors."""
+        arrays or tensors; a dict observation's leaves go to one ring leaf
+        each ('observation.board')."""
         leaves = {k: torch.as_tensor(np.asarray(v) if not isinstance(
-            v, torch.Tensor) else v) for k, v in windows.items()}
+            v, torch.Tensor) else v)
+            for k, v in flatten_window_keys(windows).items()}
         n = next(iter(leaves.values())).shape[0]
         if not self.buffers:
             self.window_spec = {k: (tuple(v.shape[1:]), v.dtype)

@@ -11,6 +11,13 @@ net runs on the state's parameters through ``torch.func.functional_call``.
 static buffers, updated in place: the port's counterpart of the JAX
 package's jitted step with its donated state (train_step.py:174 there).
 
+A ``norm_kind='batch'`` net's running averages ride in ``params`` beside
+the parameters, by their buffer names, as the JAX package keeps its
+``batch_stats`` collection in the variables: Adam's moments cover the
+parameters alone (``opt_state.mu``'s names), the averages advance by the
+training forward's EMA (``ops/losses.py``), and a non-finite step keeps
+the old ones.
+
 The optimizer is written out on tensors, because ``torch.optim.Adam`` and
 ``clip_grad_norm_`` compute other numbers than the optax chain
 ``clip_by_global_norm(4.0) -> add_decayed_weights(1e-5) -> scale_by_adam()``
@@ -28,6 +35,8 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from ..models.blocks import batch_stats_sink, collect_batch_stats
+from .device_windows import unflatten_window_keys
 from .graphs import CapturedCall, CountedGraph
 from .losses import LossConfig, compute_loss
 
@@ -46,22 +55,33 @@ class AdamState(NamedTuple):
 
 
 class TrainState(NamedTuple):
+    # the parameters and a 'batch' net's running averages (its buffers)
     params: Dict[str, Tensor]
     opt_state: AdamState
     steps: Tensor            # int32 0-d
 
 
 def init_train_state(module: torch.nn.Module) -> TrainState:
-    """The module's parameters (detached copies) with zero Adam moments."""
-    params = {k: v.detach().clone() for k, v in module.named_parameters()}
+    """The module's parameters and buffers (detached copies) with zero
+    Adam moments over the parameters."""
+    trainable = {k: v.detach().clone() for k, v in module.named_parameters()}
+    params = dict(trainable)
+    params.update((k, v.detach().clone()) for k, v in module.named_buffers())
     dev = next(iter(params.values())).device
-    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
     return TrainState(
         params=params,
         opt_state=AdamState(
-            count=torch.zeros((), dtype=torch.int32, device=dev), mu=zeros,
-            nu={k: torch.zeros_like(v) for k, v in params.items()}),
+            count=torch.zeros((), dtype=torch.int32, device=dev),
+            mu={k: torch.zeros_like(v) for k, v in trainable.items()},
+            nu={k: torch.zeros_like(v) for k, v in trainable.items()}),
         steps=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def split_batch_stats(params: Dict[str, Tensor], opt: AdamState):
+    """(the parameters Adam updates, the running averages or None): the
+    port's ``split_batch_stats``, by Adam's names."""
+    stats = {k: v for k, v in params.items() if k not in opt.mu}
+    return {k: params[k] for k in opt.mu}, (stats or None)
 
 
 def global_norm(tensors) -> Tensor:
@@ -81,13 +101,16 @@ def _step_math(apply_fn: Callable, cfg: LossConfig, params: Dict[str, Tensor],
                opt: AdamState, batch: Dict[str, Any], lr: Tensor,
                hidden=None
                ) -> Tuple[Dict[str, Tensor], AdamState, Dict[str, Tensor]]:
-    """One step's math at ``params``, leaves that require grad: forward
-    (from ``hidden``, a recurrent net's state at the windows' start),
-    targets, losses, grads, clip, decay, Adam and the guard. Returns the
-    new parameters, the new Adam state and the metrics, as new tensors
-    (``params`` and ``opt`` are only read)."""
-    names = list(params)
-    total, aux = compute_loss(apply_fn, params, hidden, batch, cfg)
+    """One step's math at ``params``, leaves that require grad (and a
+    'batch' net's running averages, which do not): forward (from
+    ``hidden``, a recurrent net's state at the windows' start), targets,
+    losses, grads, clip, decay, Adam and the guard. Returns the new
+    parameters (and running averages), the new Adam state and the
+    metrics, as new tensors (``params`` and ``opt`` are only read)."""
+    names = list(opt.mu)
+    trainable, stats = split_batch_stats(params, opt)
+    total, aux = compute_loss(apply_fn, trainable, hidden, batch, cfg,
+                              batch_stats=stats)
     grads = dict(zip(names, torch.autograd.grad(
         total, [params[k] for k in names])))
     with torch.no_grad():
@@ -110,6 +133,8 @@ def _step_math(apply_fn: Callable, cfg: LossConfig, params: Dict[str, Tensor],
             new_params[k] = torch.where(ok, p + (-lr * u), p)
             mu[k] = torch.where(ok, m, opt.mu[k])
             nu[k] = torch.where(ok, v, opt.nu[k])
+        for k, old in (stats or {}).items():
+            new_params[k] = torch.where(ok, aux['batch_stats'][k], old)
         new_opt = AdamState(count=torch.where(ok, count, opt.count),
                             mu=mu, nu=nu)
         metrics = {k: v.detach() for k, v in aux['losses'].items()}
@@ -124,8 +149,17 @@ def _step_math(apply_fn: Callable, cfg: LossConfig, params: Dict[str, Tensor],
 
 
 def _apply_fn(module: torch.nn.Module) -> Callable:
-    def apply_fn(params, obs, hidden):
-        return functional_call(module, params, (obs, hidden))
+    """``apply_fn(params, obs, hidden)`` runs the module on ``params`` in
+    inference mode; with ``batch_stats`` (its running averages by buffer
+    name) in training mode (``train=True``, whatever ``module.training``
+    says), returning ``(outputs, advanced running averages)``."""
+    def apply_fn(params, obs, hidden, batch_stats=None):
+        if batch_stats is None:
+            return functional_call(module, params, (obs, hidden))
+        with batch_stats_sink() as sink:
+            out = functional_call(module, {**params, **batch_stats},
+                                  (obs, hidden), {'train': True})
+        return out, collect_batch_stats(module, sink)
     return apply_fn
 
 
@@ -145,7 +179,7 @@ def build_update_step(module: torch.nn.Module, cfg: LossConfig
 
     def update(state: TrainState, batch: Dict[str, Any], lr: Tensor
                ) -> Tuple[TrainState, Dict[str, Tensor]]:
-        live = {k: v.detach().requires_grad_(True)
+        live = {k: v.detach().requires_grad_(k in state.opt_state.mu)
                 for k, v in state.params.items()}
         params, opt, metrics = _step_math(apply_fn, cfg, live,
                                           state.opt_state, batch, lr,
@@ -172,7 +206,9 @@ class StaticUpdateStep:
     """The update step on buffers that live as long as the object: the
     parameters (leaves that require grad), Adam's moments and count,
     ``steps``, the learning rate and, for each batch signature (the shape
-    and dtype of every batch leaf), the batch. Each call copies the batch
+    and dtype of every batch leaf), the batch: a flat dict of tensors,
+    a dict observation's leaves under '.' keys (``ops.device_windows.
+    flatten_window_keys``). Each call copies the batch
     and ``lr`` into them, runs :func:`build_update_step`'s math, writes the
     new state back in place and returns the metrics, copied out of one
     packed tensor. The body runs on any device; :class:`GraphedUpdateStep`
@@ -187,9 +223,9 @@ class StaticUpdateStep:
 
         def own(t):
             return t.detach().clone()
-        self._params = {k: own(v).requires_grad_(True)
-                        for k, v in state.params.items()}
         opt = state.opt_state
+        self._params = {k: own(v).requires_grad_(k in opt.mu)
+                        for k, v in state.params.items()}
         self._opt = AdamState(count=own(opt.count),
                               mu={k: own(v) for k, v in opt.mu.items()},
                               nu={k: own(v) for k, v in opt.nu.items()})
@@ -221,6 +257,7 @@ class StaticUpdateStep:
         with torch.no_grad():
             for k, p in self._params.items():
                 p.copy_(state.params[k])
+            for k in self._opt.mu:
                 self._opt.mu[k].copy_(state.opt_state.mu[k])
                 self._opt.nu[k].copy_(state.opt_state.nu[k])
             self._opt.count.copy_(state.opt_state.count)
@@ -249,12 +286,14 @@ class StaticUpdateStep:
     def _body(self, batch: Dict[str, Tensor]) -> Tensor:
         """One step on the buffers; returns the metrics packed in
         :attr:`metric_names` order."""
+        batch = unflatten_window_keys(batch)
         params, opt, metrics = _step_math(
             self._apply, self._cfg, self._params, self._opt, batch, self._lr,
             init_hidden_for(self._module, batch))
         with torch.no_grad():
             for k, p in self._params.items():
                 p.copy_(params[k])
+            for k in self._opt.mu:
                 self._opt.mu[k].copy_(opt.mu[k])
                 self._opt.nu[k].copy_(opt.nu[k])
             self._opt.count.copy_(opt.count)

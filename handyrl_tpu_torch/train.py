@@ -129,6 +129,8 @@ from .ops.train_step import (GraphedUpdateStep, ReplayUpdateStep,
 from .utils import flax_msgpack
 from .utils.fs import (append_jsonl, checksummed_write_bytes,
                        read_verified_bytes, sidecar_path, verify_checkpoint)
+from .ops.device_windows import flatten_window_keys
+from .utils.tree import map_structure, map_zip
 from .worker import WorkerCluster, WorkerServer
 
 _LOG = telemetry.get_logger('train')
@@ -498,10 +500,10 @@ class Trainer:
             return batch
         if isinstance(batch, SharedBatch):
             try:
-                return self._stager.stage(batch.batch)
+                return self._stager.stage(flatten_window_keys(batch.batch))
             finally:
                 batch.release()
-        return self._stager.stage(batch)
+        return self._stager.stage(flatten_window_keys(batch))
 
     def _step(self, staged) -> Dict[str, Tensor]:
         lr_val = self._lr()
@@ -514,8 +516,8 @@ class Trainer:
             shared = isinstance(staged, SharedBatch)
             try:
                 return self.update_step(
-                    {k: torch.from_numpy(v) for k, v in
-                     (staged.batch if shared else staged).items()}, lr)
+                    {k: torch.from_numpy(v) for k, v in flatten_window_keys(
+                        staged.batch if shared else staged).items()}, lr)
             finally:
                 if shared:   # the CPU step has read the mapped pages
                     staged.release()
@@ -695,8 +697,7 @@ class Trainer:
         if chunk.ready is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(chunk.ready)
-            for t in records.values():
-                t.record_stream(stream)
+            map_structure(lambda t: t.record_stream(stream), records)
         if self._ring is None:
             w, dev = self.windower, self.device
             self._wstate = w.init_state(records)
@@ -705,12 +706,10 @@ class Trainer:
             self._size = torch.zeros((), dtype=torch.int64, device=dev)
             self._windows_total = torch.zeros((), dtype=torch.int64,
                                               device=dev)
-            self._chunk_in = {k: torch.empty_like(v)
-                              for k, v in records.items()}
+            self._chunk_in = map_structure(torch.empty_like, records)
             self._ingest_call = CapturedCall(self._ingest_static, dev,
                                              [self._ingest_generator])
-        for k, v in records.items():
-            self._chunk_in[k].copy_(v)
+        map_zip(lambda d, v: d.copy_(v), self._chunk_in, records)
         self._ingest_call()
 
     def _ingest_static(self):
@@ -989,9 +988,10 @@ class Learner:
                 load_params_bytes(self.module, f.read())
             print('warm-started params from %s' % args['init_params'])
         self.start_epoch = self.model_epoch
-        # the learner's host copy of the params: checkpoints, the actor
+        # the learner's host copy of the params (and a 'batch' net's
+        # running averages): checkpoints, the actor
         self.params = {k: v.detach().cpu().clone()
-                       for k, v in net.named_parameters()}
+                       for k, v in net.state_dict().items()}
         # the actor runs its own copy of the net: the trainer swaps its
         # module's parameters while it runs the step
         self.actor = ModelWrapper(copy.deepcopy(net), self.device)
@@ -1621,6 +1621,10 @@ class Learner:
             health_window=float(ft['host_health_window']),
             quarantine_period=float(ft['host_quarantine_period']))
         host_of: Dict[Any, str] = {}       # endpoint -> host key
+        # endpoints whose detach was handled: a request of theirs still in
+        # the inbox (read before the peer's EOF) is booked no task, or the
+        # task would sit on a dead endpoint past every re-issue
+        gone = set()
 
         def host_key(ep) -> str:
             key = host_of.get(ep)
@@ -1675,6 +1679,7 @@ class Learner:
             for ep, reason, _t in self.worker.drain_detach_events():
                 n = ledger.fail_endpoint(ep)
                 detached.append(ep)
+                gone.add(ep)
                 if n:
                     _LOG.warning('re-issuing %d task(s) from detached '
                                  'peer (%s)', n, reason)
@@ -1691,6 +1696,8 @@ class Learner:
             if not multi_req:
                 data = [data]
             send_data: List[Any] = []
+            if req == 'args' and conn in gone:
+                continue            # no reply can reach the peer either
             if req == 'args':
                 if self.shutdown_flag:
                     send_data = [None] * len(data)
@@ -1940,7 +1947,8 @@ class Learner:
         env_mod = make_device_env(args['env'])
         return DeviceWindower(
             mode=mode, fs=args['forward_steps'], bi=args['burn_in_steps'],
-            max_steps=env_mod.MAX_STEPS,
+            max_steps=int(getattr(env_mod, 'MAX_STEPS',
+                                  getattr(env_mod, 'MAX_PLIES', 256))),
             windows_cap=windows_per_episode(args),
             capacity=ring_capacity(args), num_players=env_mod.NUM_PLAYERS,
             gamma=args['gamma'], has_reward=hasattr(env_mod, 'rewards'))

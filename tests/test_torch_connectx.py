@@ -326,9 +326,12 @@ def test_config_accepts_connectx_on_every_path():
         == ENV_ARGS
 
 
-@pytest.mark.parametrize('env', ['Geister', 'ParallelTicTacToe'])
+@pytest.mark.parametrize('env', ['Othello', 'handyrl_tpu.envs.geister'])
 def test_the_envs_still_missing_are_refused_by_name(env):
-    with pytest.raises(ConfigError, match=env):
+    """Every env of the JAX registry is ported; a name outside the port's
+    registry (an unknown game, or a module path, which the port never
+    imports) is refused by name."""
+    with pytest.raises(ConfigError, match=env.replace('.', r'\.')):
         apply_defaults({'env_args': {'env': env}})
 
 

@@ -188,9 +188,6 @@ def test_deferred_paths_raise():
 
     def apply_fn(p, obs, hidden):
         return net(obs, hidden)
-    with pytest.raises(NotImplementedError, match='batch'):
-        losses.compute_loss(apply_fn, None, None, tb, cfg,
-                            batch_stats={'x': torch.zeros(1)})
     with pytest.raises(NotImplementedError, match='IMPACT'):
         losses.compute_loss(apply_fn, None, None, tb,
                             cfg._replace(target_clip=2.0), target_params={})

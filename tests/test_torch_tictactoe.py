@@ -250,8 +250,9 @@ def test_tictactoe_on_the_device_path_names_what_is_missing(train_args,
 
 
 def test_other_envs_and_worker_sizes_are_refused():
-    with pytest.raises(ConfigError, match='Geister'):
-        apply_defaults({'env_args': {'env': 'Geister'}})
+    # every env of the JAX registry is ported; one outside it is refused
+    with pytest.raises(ConfigError, match='Othello'):
+        apply_defaults({'env_args': {'env': 'Othello'}})
     # the worker plane runs: a cluster of 2 is taken, a size below 1 is
     # refused
     assert apply_defaults({'train_args': {'worker': {'num_parallel': 2}}}

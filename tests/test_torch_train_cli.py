@@ -121,7 +121,7 @@ def test_cli_without_cuda_raises(tmp_path):
     ({}, {'compute_dtype': 'bfloat16'}, 'compute_dtype'),
     ({}, {'telemetry_port': 9100}, 'telemetry_port'),
     ({'net_kind': 'former'}, {}, 'net_kind'),
-    ({'norm_kind': 'batch'}, {}, 'norm_kind'),
+    ({'norm_kind': 'batch', 'torus_impl': 'pallas'}, {}, 'pallas'),
     ({'env': 'TicTacToe'}, {'device_generation': True,
                             'batched_generation': False,
                             'generation': {'device_actor_record': 'exact'}},
