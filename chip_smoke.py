@@ -9,8 +9,9 @@ non-zero, printing no result, when either is missing or any phase fails.
    CUDA versions, and builds every CUDA kernel of the port from the
    checkout's sources (one nvcc per source, all started together). It
    counts the tensor-core instructions (HMMA) in the trunk kernels' SASS
-   (``cuobjdump --dump-sass``) and fails unless K1's and K2b's are more
-   than 0.
+   (``cuobjdump --dump-sass``), by instantiation, and fails unless K1's
+   and K2b's are more than 0 in both forms (fp32 and bf16) at both widths.
+   Every phase logs its seconds and the card.
 2. Holds each kernel against its plain PyTorch version on the card, fp32
    with TF32 off, and times the kernel, the plain version and, where one
    PyTorch call computes the same function, that call:
@@ -350,8 +351,40 @@ non-zero, printing no result, when either is missing or any phase fails.
    ParallelTicTacToe, 2 epochs: K3 only. (g) One device actor block of
    DA_LANES Geister tasks ('device' records, recurrent lanes): every task
    answered, the moments the acting seat's alone, no kernel.
-15. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, K3-K5; K2a
-   and K2b take their launches from K2's count, one of each a call; the
+15. ``compute_dtype: 'bfloat16'`` (the JAX headline's dtype), then
+   GeeseFormer, one JSON line with each part's seconds (budget 100 s).
+   (a), which runs right after phase 2 (late in the script torch.profiler
+   records no kernel, and it times K2's phases apart): the bf16 forms of K1 (serving and training), K2a and K2b at full
+   width on real boards, N in BF16_NS, against their plain bf16 versions
+   (BF16_TOL of each output's largest element; y's mean error within
+   BF16_MEAN_TOL; the training form's output equal to the serving
+   form's), timed with CUDA events (K2's phases by the profiler) beside
+   the plain versions and the yardsticks: the 'pad' trunk in bf16
+   (cuDNN's bf16 convs, the bf16 norms; autograd through it for K2) and
+   cuDNN's bf16 weight grads for K2b; bounds over 989 TFLOP/s dense bf16
+   and 3.35 TB/s. (b) ``python -m handyrl_tpu_torch.bench --device cuda
+   --compute-dtype bfloat16``: finite losses, both forms timed, K1-bf16,
+   K2-bf16 and K3 once a step and no fp32 trunk kernel. (c) The headline
+   step in bf16 at B=16 on real boards, TD/TD, eager and graphed on the
+   card against the CPU's bf16 step (BF16_STEP_RTOL, BF16_MU_RTOL, 2 lr)
+   and each other, every param and moment fp32 after; the graph's replays
+   timed. (d) ``python -m handyrl_tpu_torch.train`` on phase 6's config in
+   bf16, BF16_FUSED_EPOCHS epochs: exit 0, finite losses, K1-bf16 in
+   generation, K1-bf16, K2-bf16 and K5 in training, no fp32 trunk kernel;
+   episodes/s. (e) TicTacToe's host learner in bf16 in this process
+   (tests/test_bf16.py's config, 1 epoch): the net bf16, every param and
+   Adam moment fp32 after, K3 in training. (f) A full-width GeeseFormer
+   (dim 64, 4 layers, 4 heads) published to a registry and served by
+   ``python -m handyrl_tpu_torch.serving``: four geese for FORMER_PLIES
+   plies, each reply within POLICY_TOL of a CPU forward, no kernel (its
+   attention is plain PyTorch, as the JAX package's is plain XLA). (g)
+   ``Learner(args, net=GeeseFormer())`` in this process on phase 6's
+   config, FORMER_EPOCHS epochs (K5 in training, every param moved), then
+   one graphed VTRACE step (B=64, T=16) against the CPU step (phase 4's
+   tolerances), its replays timed by CUDA events.
+16. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, their bf16
+   forms as rows of their own, K3-K5; K2a and K2b take their launches
+   from K2's count, one of each a call, the bf16 rows from K2-bf16's; the
    fused loop's under ``learner_fused_*``, 5(b)'s under
    ``learner_shm_*``, the quick start's under ``quick_start_*``, 7(b)'s
    and 7(c)'s under ``quick_start_shm_*`` and ``quick_start_fused_*``,
@@ -369,8 +402,10 @@ non-zero, printing no result, when either is missing or any phase fails.
    ``geister_{host,fused}_*`` and ``parallel_tictactoe_host_*``, its
    in-process steps under ``geister_recurrent_step`` and
    ``geese_batch_norm_step``, its service and device actor under
-   ``geister_service`` and ``geister_device_actor``; K1's row also holds
-   the operator's checks),
+   ``geister_service`` and ``geister_device_actor``, phase 15's under
+   ``bf16_bench``, ``bf16_step_graphed``, ``bf16_fused_*``,
+   ``bf16_tictactoe_*``, ``former_service``, ``former_fused_*`` and
+   ``former_step``; K1's row also holds the operator's checks),
    the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -604,17 +639,20 @@ def phase_build(cuda_build):
         log('  SASS of %s: %d HMMA instructions' % (kernel, count))
     for name, kernel in (('K1', 'trunk_fwd_kernel'),
                          ('K2b', 'trunk_wgrad_kernel')):
-        counts = {k: c for k, c in hmma.items() if k.startswith(kernel)}
-        if not counts or not all(counts.values()):
-            fail('%s (%s) does not run on the tensor cores: HMMA counts %s'
-                 % (name, kernel, counts))
+        for form in ('float', 'bf16'):   # both forms, both widths
+            counts = {k: c for k, c in hmma.items()
+                      if k.startswith(kernel) and k.endswith(form + '>')}
+            if len(counts) != 2 or not all(counts.values()):
+                fail('%s (%s, %s form) does not run on the tensor cores: '
+                     'HMMA counts %s' % (name, kernel, form, counts))
     return hmma
 
 
 def sass_hmma_counts(cuobjdump, library):
     """The tensor-core mma instructions (HMMA) in the SASS of each trunk
-    kernel in ``library``, by kernel and width: {'trunk_fwd_kernel<32>':
-    count, ...}."""
+    kernel in ``library``, by kernel, width and activation type (the fp32
+    and the bf16 forms): {'trunk_fwd_kernel<32,float>': count,
+    'trunk_fwd_kernel<32,bf16>': count, ...}."""
     import re
     out = subprocess.run([cuobjdump, '--dump-sass', library],
                          capture_output=True, text=True, timeout=300)
@@ -623,8 +661,11 @@ def sass_hmma_counts(cuobjdump, library):
     counts, kernel = {}, None
     for line in out.stdout.splitlines():
         if 'Function : ' in line:
-            m = re.search(r'(trunk_[a-z]+_kernel)ILi(\d+)E', line)
-            kernel = '%s<%s>' % m.groups() if m else None
+            m = re.search(r'(trunk_[a-z]+_kernel)ILi(\d+)E(f|13__nv_bfloat16)E',
+                          line)
+            kernel = ('%s<%s,%s>' % (m.group(1), m.group(2),
+                                     'float' if m.group(3) == 'f' else 'bf16')
+                      if m else None)
             if kernel:
                 counts[kernel] = 0
         elif kernel and 'HMMA' in line:
@@ -778,23 +819,29 @@ PHASES = {'a': ('trunk_bwd_kernel',), 'b': ('trunk_wgrad_kernel',
                                              'column_sum')}
 
 
-def layer_inputs_and_dc(geese_trunk, x, weights, dy, groups, saved):
+def layer_inputs_and_dc(geese_trunk, x, weights, dy, groups, saved,
+                        bf16=False):
     """What K2b reads: each layer's input (x, then each block's) and its
     conv-output grad dc, from the plain backward's steps on the training
-    forward's saved tensors."""
+    forward's saved tensors; with ``bf16``, the bf16 form's (dc and the
+    block grads rounded to bf16 where the plain bf16 backward rounds them,
+    held in fp32)."""
     stem_w, stem_scale, _, block_w, block_scale, _ = weights
     layers = block_w.shape[0]
     inputs = [x] + [saved['acts'][:, i] for i in range(layers)]
     outs = inputs[1:] + [saved['y']]
     ws, scales = [stem_w] + list(block_w), [stem_scale] + list(block_scale)
-    dh, dcs = dy, [None] * (layers + 1)
+
+    def rd(t):
+        return t.to(x.dtype).float() if bf16 else t
+    dh, dcs = dy.float(), [None] * (layers + 1)
     for l in range(layers, -1, -1):
         g = dh * (outs[l] > 0)
-        dcs[l] = geese_trunk._group_norm_backward(
+        dcs[l] = rd(geese_trunk._group_norm_backward(
             g, saved['xhat'][:, l], saved['rstd'][:, l], scales[l],
-            groups)[0]
+            groups)[0])
         if l > 0:
-            dh = g + geese_trunk._conv_transpose(dcs[l], ws[l])
+            dh = rd(g + rd(geese_trunk._conv_transpose(dcs[l], rd(ws[l]))))
     return inputs, dcs
 
 
@@ -1200,15 +1247,18 @@ def phase_main_path(torch, repo):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_bench_entry(repo):
-    """``python -m handyrl_tpu_torch.bench --device cuda``: its one JSON
-    line, checked: finite losses, both forms timed, and K1, K2 and K3
+def run_bench_entry(repo, compute_dtype='float32'):
+    """``python -m handyrl_tpu_torch.bench --device cuda [--compute-dtype
+    bfloat16]``: its one JSON line, checked: finite losses, both forms
+    timed, the dtype that ran, and K1, K2 (the bf16 forms in bf16) and K3
     launched once a step in each form (the graphed form's steps include
-    the eager warm-up steps of its capture)."""
+    the eager warm-up steps of its capture) and the other form's trunk
+    kernels never."""
     import math
     t0 = time.monotonic()
     proc = subprocess.run(
-        [sys.executable, '-m', 'handyrl_tpu_torch.bench', '--device', 'cuda'],
+        [sys.executable, '-m', 'handyrl_tpu_torch.bench', '--device', 'cuda',
+         '--compute-dtype', compute_dtype],
         cwd=repo, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         fail('the bench entry exited %d:\n%s' % (proc.returncode,
@@ -1235,12 +1285,23 @@ def run_bench_entry(repo):
         fail('the bench entry reports non-finite losses: %s' % line['losses'])
     if line['nonfinite'] != 0:
         fail('the bench entry hit the non-finite guard')
+    if line['compute_dtype'] != compute_dtype:
+        fail('the bench entry ran %s, not %s' % (line['compute_dtype'],
+                                                  compute_dtype))
+    trunk = ('geese_trunk', 'geese_trunk_bwd')
+    bf16 = tuple(k + '_bf16' for k in trunk)
+    want, never = ((bf16, trunk) if compute_dtype == 'bfloat16'
+                   else (trunk, bf16))
     for form, counts in line['kernel_launches_by_form'].items():
         run = line['steps_by_form'][form]['run']
-        for name in ('geese_trunk', 'geese_trunk_bwd', 'td_lambda'):
+        for name in want + ('td_lambda',):
             if counts[name] != run:
                 fail('the bench entry\'s %s form launched %s %d times in %d '
                      'steps' % (form, name, counts[name], run))
+        for name in never:
+            if counts[name]:
+                fail('the bench entry\'s %s %s form launched %s'
+                     % (compute_dtype, form, name))
     if sum(line['steps_by_form'][f]['run'] for f in ('eager', 'graphed')) \
             != steps:
         fail('the bench entry\'s steps do not add up: %s' % line)
@@ -1248,20 +1309,21 @@ def run_bench_entry(repo):
 
 
 def card_steps(torch, device, policy_target, value_target, obs, lrs,
-               graphed=False):
+               graphed=False, compute_dtype='float32'):
     """Headline update steps at B=STEP_B on ``device``, one for each lr in
     ``lrs`` (floats; NaN drives the guard), from the seeded weights and
     batch of the bench entry with ``obs`` (B, T, 1, 17, 7, 11) for its
     observations; eager (``build_update_step``) or, with ``graphed``, as
-    the CUDA graph (``build_graphed_update_step``). Returns the params
-    before the first step and, after each step, a dict of the params,
-    Adam's moments (mu, nu) and count, steps and the metrics, on the CPU."""
+    the CUDA graph (``build_graphed_update_step``); the net in
+    ``compute_dtype``. Returns the params before the first step and, after
+    each step, a dict of the params, Adam's moments (mu, nu) and count,
+    steps and the metrics, on the CPU."""
     from handyrl_tpu_torch import bench
     from handyrl_tpu_torch.ops.train_step import (build_graphed_update_step,
                                                   build_update_step)
     net, cfg, batch, state = bench.headline_setup(
         device, B=STEP_B, policy_target=policy_target,
-        value_target=value_target)
+        value_target=value_target, compute_dtype=compute_dtype)
     batch['observation'] = torch.from_numpy(obs).to(device)
 
     def cpu(d):
@@ -5572,6 +5634,656 @@ def phase_geister(torch, repo, make_env):
     return out
 
 
+# ------------------------------------------------ phase 15: bf16, GeeseFormer
+
+# (a) the bf16 kernels at the serving bucket (8), a generation batch (256:
+# 64 envs x 4 geese) and the fused loop's step (1,024: B=64 x T=16)
+BF16_NS = (8, 256, 1024)
+BF16_MAIN_N = 8          # the kernels line's K1 row (serving)
+BF16_TRAIN_N = 1024      # ... and its K2 rows (the fused loop's step)
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores, dense
+# The bf16 kernels against their plain bf16 versions, each output (y, and
+# each grad of K2) by its max abs error over its largest element. Both
+# round to bf16 (8 significant bits) at the same points but sum the taps
+# and the statistics in other orders, so a value near a rounding boundary
+# rounds one ulp (2^-8 relative) the other way and 13 normalised layers
+# carry it on: an H100 run saw 1.2% for y and 0.7% for the grads at full
+# width; the bound leaves about twice that. y's mean abs
+# error over its mean |y| within BF16_MEAN_TOL (one ulp).
+BF16_TOL = 2.0 ** -5
+BF16_MEAN_TOL = 2.0 ** -8
+# (c) the bf16 step on the card against the CPU's bf16 step: the loss
+# terms within BF16_STEP_RTOL of max(|total|, |v|, 1), the grad norm of
+# itself; Adam's first moment leaf by leaf within BF16_MU_RTOL of its
+# largest element (the grads carry the kernels' bf16 roundings above: a
+# leaf of few elements, such as a norm's scale, has no large element to
+# dwarf a flipped rounding; 5.1% seen on an H100, the loss terms within
+# 0.2%); the params within 2 lr (Adam's first step is g /
+# (|g| + 1e-8): a grad within bf16 rounding of 0 may take the other
+# sign) plus BF16_PARAM_SLACK, an fp32 ulp of a param of size 1 (the
+# first card run saw 2 lr + 2.7e-8).
+BF16_STEP_RTOL = 2e-2
+BF16_MU_RTOL = 1e-1
+BF16_PARAM_SLACK = 1.2e-7
+BF16_FUSED_EPOCHS = 3    # (d): the north-star config cut to 3 epochs
+BF16_TTT = {             # (e): tests/test_bf16.py's config
+    'env_args': {'env': 'TicTacToe'},
+    'train_args': {'batch_size': 8, 'update_episodes': 20,
+                   'minimum_episodes': 20, 'epochs': 1,
+                   'generation_envs': 8, 'forward_steps': 8,
+                   'num_batchers': 1, 'compute_dtype': 'bfloat16',
+                   'seed': SEED}}
+FORMER_PLIES = 6         # (f): plies of served four-goose play
+# (g): the fused loop at the north-star config, 3 epochs: it reports an
+# epoch's losses one dispatch late, so a run of 2 closes with none
+FORMER_EPOCHS = 3
+FORMER_STEP = (64, 16)   # (g): the graphed VTRACE step's B, T
+FORMER_STEP_REPS = 20
+
+
+def bf16_trunk_bound_ms(n, cin, filters, layers, groups, training=False):
+    """Least time for K1's bf16 form at batch n: its products over the
+    dense bf16 peak, its bytes (x, the output and the saved block inputs
+    2 bytes an element; the weights, xhat and rstd 4) over the HBM rate."""
+    flops = n * 2 * 77 * 9 * (cin * filters + layers * filters * filters)
+    weights = 9 * cin * filters + layers * 9 * filters * filters \
+        + 2 * filters * (layers + 1)
+    nbytes = 2 * n * 77 * (cin + filters) + 4 * weights
+    if training:
+        nbytes += n * (2 * layers * 77 * filters
+                       + 4 * (layers + 1) * (77 * filters + groups))
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
+
+
+def bf16_bwd_bounds_ms(n, cin, filters, layers, groups):
+    """K2's bf16 form's two phases at batch n, as :func:`bwd_bounds_ms`
+    with the products over the dense bf16 peak and 2 bytes an element of
+    x, acts, y, dy and dc (xhat, rstd, the weights and the grads 4)."""
+    nl = layers + 1
+    weights = 9 * cin * filters + layers * 9 * filters * filters
+    grads = weights + 2 * filters * nl
+    px = 77 * filters
+    a_flops = n * 2 * 77 * 9 * layers * filters * filters
+    a_bytes = (n * (4 * nl * px + 4 * nl * groups + 2 * layers * px
+                    + 4 * px + 2 * nl * px + 4 * nl * 2 * filters)
+               + 4 * (weights + 2 * nl * filters))
+    b_flops = n * 2 * 77 * 9 * (cin * filters + layers * filters * filters)
+    b_bytes = (n * (2 * 77 * cin + 2 * layers * px + 2 * nl * px
+                    + 4 * nl * 2 * filters) + 4 * grads)
+    out = {}
+    for phase, flops, nbytes in (('a', a_flops, a_bytes),
+                                 ('b', b_flops, b_bytes)):
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        out[phase] = (1e3 * max(t_ops, t_bytes),
+                      'operations' if t_ops >= t_bytes else 'bytes', flops,
+                      nbytes)
+    return out
+
+
+def rel_err(torch, got, ref):
+    """max |got - ref| over max |ref|, in fp32."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def bf16_forward_row(torch, geese_trunk, net, weights, x, n):
+    """15(a): K1's bf16 form (serving and training) at batch n against its
+    plain bf16 version, timed beside the plain version and the 'pad' trunk
+    in bf16 (cuDNN's bf16 convs and the bf16 norms)."""
+    G, L, F = WIDTH['groups'], WIDTH['layers'], WIDTH['filters']
+    xb = x.to(torch.bfloat16)
+
+    def kernel():
+        return geese_trunk.trunk_forward(xb, *weights, groups=G)
+
+    def plain():
+        return geese_trunk.trunk_forward_reference(xb, *weights, groups=G)
+
+    def library():
+        return net.trunk(x)
+
+    def training():
+        return geese_trunk.trunk_forward(xb, *weights, groups=G, **saved)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    if got.dtype != torch.bfloat16 or not bool(
+            torch.isfinite(got.float()).all().item()):
+        fail('15(a) K1 bf16 at N=%d: %s output, or non-finite' % (n,
+                                                                  got.dtype))
+    err = rel_err(torch, got, ref)
+    mean_err = ((got.float() - ref.float()).abs().mean()
+                / ref.float().abs().mean()).item()
+    lib_err = rel_err(torch, library(), ref)
+    saved = geese_trunk.training_buffers(n, L, F, G, x.device,
+                                         torch.bfloat16)
+    ref_saved = geese_trunk.training_buffers(n, L, F, G, x.device,
+                                             torch.bfloat16)
+    y = training()
+    torch.cuda.synchronize()
+    geese_trunk.trunk_forward_reference(xb, *weights, groups=G, **ref_saved)
+    if not torch.equal(y, got):
+        fail('15(a) K1 bf16 at N=%d: the training form\'s output is not the '
+             'serving form\'s' % n)
+    saved_err = {'acts': rel_err(torch, saved['acts'], ref_saved['acts']),
+                 'xhat': rel_err(torch, saved['xhat'], ref_saved['xhat']),
+                 'rstd': rel_err(torch, saved['rstd'], ref_saved['rstd'])}
+    bound, bound_by, flops, nbytes = bf16_trunk_bound_ms(
+        n, WIDTH['cin'], F, L, G)
+    tb = bf16_trunk_bound_ms(n, WIDTH['cin'], F, L, G, training=True)
+    row = {'n': n, 'max_abs_err': err, 'mean_err': mean_err,
+           'library_err': lib_err, 'saved_err': saved_err,
+           'ms': cuda_time_ms(torch, kernel, 100),
+           'train_ms': cuda_time_ms(torch, training, 50),
+           'plain_ms': cuda_time_ms(torch, plain, 5),
+           'library_ms': cuda_time_ms(torch, library, 20),
+           'bound_ms': bound, 'bound_by': bound_by, 'train_bound_ms': tb[0],
+           'flops': flops, 'bytes': nbytes}
+    log('geese_trunk_bf16 N=%-4d err %.3g of max |y| (tol %.3g), mean %.3g '
+        '(tol %.3g); pad-trunk bf16 vs plain %.3g; saved %s  kernel %.4f '
+        'ms, training form %.4f ms, plain %.4f ms, library %.4f ms, bound '
+        '%.4f ms (%s), training bound %.4f ms' % (
+            n, err, BF16_TOL, mean_err, BF16_MEAN_TOL, lib_err,
+            json.dumps({k: round(v, 6) for k, v in saved_err.items()}),
+            row['ms'], row['train_ms'], row['plain_ms'], row['library_ms'],
+            bound, bound_by, tb[0]))
+    if not (err <= BF16_TOL and mean_err <= BF16_MEAN_TOL
+            and max(saved_err.values()) <= BF16_TOL):
+        fail('15(a) K1 bf16 disagrees with its plain bf16 version at N=%d'
+             % n)
+    return row, xb, y, saved
+
+
+def bf16_backward_row(torch, geese_trunk, net, weights, x, xb, y, saved, n,
+                      gen):
+    """15(a): K2's bf16 form at batch n from K1's bf16 training forward,
+    every grad against the plain bf16 backward on the same saved tensors;
+    its phases timed by the profiler; the whole K2 beside the plain
+    version and autograd through the 'pad' trunk in bf16, K2b beside the
+    13 plain weight grads and cuDNN's bf16 weight grads."""
+    import torch.nn.functional as F
+    G, L, Fw = WIDTH['groups'], WIDTH['layers'], WIDTH['filters']
+    dy = torch.randn(n, 7, 11, Fw, generator=gen).cuda().to(torch.bfloat16)
+    kw = dict(acts=saved['acts'], y=y, xhat=saved['xhat'],
+              rstd=saved['rstd'])
+    names = ('dx', 'd_stem_w', 'd_stem_scale', 'd_stem_bias', 'd_block_w',
+             'd_block_scale', 'd_block_bias')
+
+    def kernel(need_dx=False):
+        return geese_trunk.trunk_backward(xb, *weights, dy, groups=G,
+                                          need_dx=need_dx, **kw)
+
+    def plain():
+        return geese_trunk.trunk_backward_reference(
+            xb, *weights, dy, groups=G, need_dx=False, **kw)
+
+    with torch.no_grad():
+        got = kernel(need_dx=True)
+        torch.cuda.synchronize()
+        ref = geese_trunk.trunk_backward_reference(xb, *weights, dy,
+                                                   groups=G, **kw)
+        errs = {}
+        for name, g, r in zip(names, got, ref):
+            if not bool(torch.isfinite(g.float()).all().item()):
+                fail('15(a) K2 bf16: non-finite %s at N=%d' % (name, n))
+            want = torch.bfloat16 if name == 'dx' else torch.float32
+            if g.dtype != want:
+                fail('15(a) K2 bf16: %s is %s' % (name, g.dtype))
+            errs[name] = rel_err(torch, g, r)
+        ms = cuda_time_ms(torch, kernel, 20)
+        plain_ms = cuda_time_ms(torch, plain, 3)
+        by_kernel = kernel_ms(torch, kernel, 10)
+        inputs, dcs = layer_inputs_and_dc(geese_trunk, xb, weights, dy, G,
+                                          dict(kw), bf16=True)
+        padded = [F.pad(h.permute(0, 3, 1, 2).contiguous(), (1, 1, 1, 1),
+                        mode='circular') for h in inputs]
+        dcs_nchw = [d.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous()
+                    for d in dcs]
+        sizes = [(d.shape[-1], h.shape[-1], 3, 3)
+                 for h, d in zip(inputs, dcs)]
+        ref_w = [ref[1]] + list(ref[4])
+
+        def b_plain():
+            return [geese_trunk._conv_weight_grad(h.float(), d)
+                    for h, d in zip(inputs, dcs)]
+
+        def b_library():
+            return [torch.nn.grad.conv2d_weight(p, s, d)
+                    for p, s, d in zip(padded, sizes, dcs_nchw)]
+        b_lib_err = max(rel_err(torch, g.permute(2, 3, 1, 0), r)
+                        for g, r in zip(b_library(), ref_w))
+        b_plain_ms = cuda_time_ms(torch, b_plain, 5)
+        b_library_ms = graph_time_ms(torch, b_library, 20)
+        del inputs, dcs, padded, dcs_nchw
+    with torch.enable_grad():
+        yp = net.trunk(x)
+        library_ms = cuda_time_ms(torch, lambda: torch.autograd.grad(
+            yp, weights, dy, retain_graph=True), 5)
+    del yp
+    err = max(errs.values())
+    bounds = bf16_bwd_bounds_ms(n, WIDTH['cin'], Fw, L, G)
+    row = {'n': n, 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+           'library_ms': library_ms, 'errs': errs}
+    for phase, kernels in PHASES.items():
+        times = [t for k, t in by_kernel.items()
+                 if any(name in k for name in kernels)]
+        if len(times) != len(kernels):
+            fail('15(a): the profiler shows %d of K2 bf16 phase %s\'s '
+                 'kernels %s: %s' % (len(times), phase, kernels,
+                                     sorted(by_kernel)))
+        bound, bound_by, flops, nbytes = bounds[phase]
+        row[phase] = {'ms': sum(times), 'bound_ms': bound,
+                      'bound_by': bound_by, 'flops': flops, 'bytes': nbytes}
+    row['b'].update(plain_ms=b_plain_ms, library_ms=b_library_ms,
+                    library_err=b_lib_err)
+    log('geese_trunk_bwd_bf16 N=%-4d err / max |grad| %.3g (tol %.3g; %s)  '
+        'kernel %.4f ms (a %.4f, b %.4f by the profiler; bounds %.4f, '
+        '%.4f)  plain %.4f ms  library %.4f ms; K2b plain %.4f ms, cuDNN '
+        'bf16 weight grads %.4f ms (err %.3g)' % (
+            n, err, BF16_TOL, ', '.join('%s %.2g' % kv for kv in
+                                        errs.items()), ms, row['a']['ms'],
+            row['b']['ms'], row['a']['bound_ms'], row['b']['bound_ms'],
+            plain_ms, library_ms, b_plain_ms, b_library_ms, b_lib_err))
+    if not err <= BF16_TOL:
+        fail('15(a) K2 bf16 disagrees with its plain bf16 version at N=%d'
+             % n)
+    return row
+
+
+def bf16_kernels(torch, geese_trunk, GeeseNet, make_env):
+    """15(a): the bf16 forms of K1 (both forms), K2a and K2b at full width
+    on real boards, N in BF16_NS. Returns ({n: K1 row}, {n: K2 row})."""
+    import numpy as np
+    from handyrl_tpu_torch.models.blocks import set_compute_dtype
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net, weights = trunk_net(torch, GeeseNet)
+    set_compute_dtype(net, torch.bfloat16)   # the 'pad' yardstick in bf16
+    all_obs = np.stack(game_observations(make_env, max(BF16_NS), SEED + 151))
+    gen = torch.Generator().manual_seed(SEED + 152)
+    fwd, bwd = {}, {}
+    for n in BF16_NS:
+        x = torch.from_numpy(all_obs[:n]).cuda().permute(0, 2, 3, 1) \
+            .contiguous()
+        with torch.no_grad():
+            fwd[n], xb, y, saved = bf16_forward_row(torch, geese_trunk, net,
+                                                    weights, x, n)
+        bwd[n] = bf16_backward_row(torch, geese_trunk, net, weights, x, xb,
+                                   y, saved, n, gen)
+    return fwd, bwd
+
+
+def check_bf16_step(label, old, card, cpu, lr):
+    """A bf16 update step on the card against the CPU's bf16 step under the
+    BF16_STEP_* bounds; every param and moment fp32. Returns the errors."""
+    import torch
+    m, cm = card['metrics'], cpu['metrics']
+    scale = max(abs(cm['total']), abs(cm['v']), 1.0)
+    errs = {k: abs(m[k] - cm[k]) / scale for k in ('total', 'p', 'v', 'ent')}
+    errs['diag_grad_norm'] = (abs(m['diag_grad_norm'] - cm['diag_grad_norm'])
+                              / max(cm['diag_grad_norm'], 1e-30))
+    step_max = max((card['params'][k] - cpu['params'][k]).abs().max().item()
+                   for k in card['params'])
+    mu_by_leaf = {k: ((card['mu'][k] - cpu['mu'][k]).abs().max()
+                      / cpu['mu'][k].abs().max().clamp_min(1e-30)).item()
+                  for k in card['mu']}
+    mu = max(mu_by_leaf.values())
+    dtypes = {t.dtype for d in (card['params'], card['mu'], card['nu'])
+              for t in d.values()}
+    out = {'terms': errs, 'params_max_abs': step_max, 'mu_rel': mu,
+           'mu_rel_by_leaf': mu_by_leaf,
+           'dtypes': sorted(str(d) for d in dtypes)}
+    log('%s card vs CPU (bf16): %s' % (label, json.dumps(out)))
+    if m['nonfinite'] or cm['nonfinite']:
+        fail('%s hit the non-finite guard' % label)
+    if dtypes != {torch.float32}:
+        fail('%s: params or Adam moments not fp32: %s' % (label, dtypes))
+    if not (max(errs.values()) <= BF16_STEP_RTOL
+            and step_max <= 2 * lr + BF16_PARAM_SLACK
+            and mu <= BF16_MU_RTOL and cm['diag_grad_norm'] > 0):
+        fail('%s: the bf16 step on the card disagrees with the CPU\'s'
+             % label)
+    return out
+
+
+def bf16_step(torch, make_env):
+    """15(c): the headline step in bf16 at B=16 on real boards, TD/TD: one
+    CPU step, 3 eager and 3 graphed card steps (the counts 0 just before
+    the graphed ones), each card form's first step held to the CPU's and
+    the graphed steps to the eager ones; then the graph's replays timed by
+    CUDA events."""
+    import numpy as np
+    from handyrl_tpu_torch import bench
+    from handyrl_tpu_torch.bench import LR
+    from handyrl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from handyrl_tpu_torch.ops.train_step import build_graphed_update_step
+    obs = np.stack(game_observations(make_env, STEP_B * 16, SEED + 153))
+    obs = obs.reshape(STEP_B, 16, 1, 17, 7, 11)
+    bf = dict(compute_dtype='bfloat16')
+    _, cpu = card_steps(torch, 'cpu', 'TD', 'TD', obs, (LR,), **bf)
+    old, eager = card_steps(torch, 'cuda', 'TD', 'TD', obs, (LR,) * 3, **bf)
+    reset_kernel_launches()
+    _, graphed = card_steps(torch, 'cuda', 'TD', 'TD', obs, (LR,) * 3,
+                            graphed=True, **bf)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    out = {'eager': check_bf16_step('15(c) eager', old, eager[0], cpu[0], LR),
+           'graphed': check_bf16_step('15(c) graphed', old, graphed[0],
+                                      cpu[0], LR)}
+    worst = 0.0
+    for g, e in zip(graphed, eager):
+        worst = max([worst] + [(g['params'][k] - e['params'][k]).abs().max()
+                               .item() for k in g['params']])
+    if not worst <= 2 * LR + BF16_PARAM_SLACK:
+        fail('15(c): the graphed bf16 steps move the params unlike the eager '
+             'ones by %.3g' % worst)
+    want = ('geese_trunk_bf16', 'geese_trunk_bwd_bf16', 'td_lambda')
+    if any(launches[k] < 3 for k in want) or launches['geese_trunk'] or \
+            launches['geese_trunk_bwd']:
+        fail('15(c): the graphed bf16 steps launched %s' % launches)
+    net, cfg, batch, state = bench.headline_setup('cuda', B=STEP_B, **bf)
+    batch['observation'] = torch.from_numpy(obs).cuda()
+    step = build_graphed_update_step(net, cfg, state)
+    lr = torch.tensor(LR, device='cuda')
+    step(batch, lr)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(G_STEP_REPS):
+        step(batch, lr)
+    end.record()
+    torch.cuda.synchronize()
+    out.update(graphed_vs_eager_params=worst, launches=launches,
+               graphed_ms=start.elapsed_time(end) / G_STEP_REPS)
+    log('15(c) bf16 step B=%d (%s): graphed %.3f ms a step; graphed vs eager '
+        'params %.3g; launches %s' % (STEP_B, nvidia_smi_line(),
+                                      out['graphed_ms'], worst, launches))
+    return out
+
+
+def bf16_fused(repo, tmp):
+    """15(d): the fused loop at the north-star config (phase 6) in bf16,
+    cut to BF16_FUSED_EPOCHS epochs."""
+    cfg = json.loads(json.dumps(FUSED_CONFIG))
+    cfg['train_args'].update(epochs=BF16_FUSED_EPOCHS,
+                             checkpoint_interval=BF16_FUSED_EPOCHS,
+                             compute_dtype='bfloat16')
+    line, stdout = run_train_cli(repo, cfg, tmp, '15(d) fused bf16')
+    if not line.get('fused') or '(solo mode)' not in stdout:
+        fail('15(d): the bf16 learner did not run the fused loop')
+    out = check_learner_line(
+        '15(d) fused loop, bf16', line, BF16_FUSED_EPOCHS,
+        {'generation': ('geese_trunk_bf16',),
+         'evaluation': ('geese_trunk_bf16',),
+         'training': ('geese_trunk_bf16', 'geese_trunk_bwd_bf16', 'vtrace')})
+    out['steps'] = line['steps']
+    return out
+
+
+def bf16_tictactoe(torch, tmp):
+    """15(e): TicTacToe's host learner in bf16 in this process
+    (tests/test_bf16.py's config, 1 epoch): the net runs bf16, every param
+    and Adam moment stays fp32."""
+    from handyrl_tpu_torch.config import apply_defaults
+    from handyrl_tpu_torch.models.blocks import compute_dtype_of
+    from handyrl_tpu_torch.ops import reset_kernel_launches
+    from handyrl_tpu_torch.train import Learner
+    raw = json.loads(json.dumps(BF16_TTT))
+    raw['train_args']['model_dir'] = os.path.join(tmp, 'models')
+    learner = Learner(apply_defaults(raw), device='cuda')
+    if compute_dtype_of(learner.module) != torch.bfloat16:
+        fail('15(e): the learner\'s net runs %s'
+             % compute_dtype_of(learner.module))
+    reset_kernel_launches()
+    t0 = time.monotonic()
+    learner.run()
+    line = dict(learner.summary(), wall=time.monotonic() - t0)
+    state = learner.trainer.update_step.state if \
+        learner.trainer.update_step is not None else None
+    dtypes = {t.dtype for t in learner.params.values()}
+    if state is not None:
+        dtypes |= {t.dtype for d in (state.params, state.opt_state.mu,
+                                     state.opt_state.nu) for t in d.values()}
+    if learner.model_epoch != 1 or dtypes != {torch.float32}:
+        fail('15(e): model epoch %d, params and moments %s'
+             % (learner.model_epoch, dtypes))
+    out = check_learner_line('15(e) TicTacToe host learner, bf16', line, 1,
+                             {'training': ('td_lambda',)})
+    out['dtypes'] = sorted(map(str, dtypes))
+    return out
+
+
+def former_net(torch, seed):
+    from handyrl_tpu_torch.models.transformer import GeeseFormer
+    return GeeseFormer(generator=torch.Generator().manual_seed(seed))
+
+
+def former_serving(torch, repo, make_env):
+    """15(f): a full-width GeeseFormer snapshot in a temporary registry,
+    served by ``python -m handyrl_tpu_torch.serving`` on the card: four
+    geese for FORMER_PLIES plies, each reply's policy and value within
+    POLICY_TOL of a CPU forward, no kernel launched (GeeseFormer has
+    none)."""
+    import numpy as np
+    from handyrl_tpu_torch.model import ModelWrapper
+    from handyrl_tpu_torch.serving.client import ServiceClient
+    from handyrl_tpu_torch.serving.registry import ModelRegistry
+    local = ModelWrapper(former_net(torch, SEED + 154), device='cpu')
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_former_serve_')
+    proc, client = None, None
+    try:
+        root = os.path.join(tmp, 'registry')
+        ModelRegistry(root).publish('default', snapshot=local.snapshot(),
+                                    version=1, promote=True)
+        with open(os.path.join(tmp, 'service.err'), 'wb') as err:
+            proc = subprocess.Popen(
+                [sys.executable, '-m', 'handyrl_tpu_torch.serving', '--env',
+                 'HungryGeese', '--registry', root, '--port', '0'],
+                cwd=repo, stdout=subprocess.PIPE, stderr=err)
+        ready = read_ready_line(proc, timeout=300)
+        if ready['device'] != 'cuda':
+            fail('15(f): the service runs on %r' % ready['device'])
+        client = ServiceClient('localhost', ready['port'], timeout=120,
+                               name='chip_smoke_former')
+        env = make_env({'env': 'HungryGeese', 'id': SEED + 155})
+        env.reset()
+        err, ms, replies = 0.0, [], 0
+        for _ in range(FORMER_PLIES):
+            if env.terminal():
+                break
+            t0 = time.perf_counter()
+            actions = {}
+            for p in env.turns():
+                obs = env.observation(p)
+                out = client.request('default@champion', obs)['outputs']
+                want = local.inference(obs)
+                for k in ('policy', 'value'):
+                    err = max(err, float(np.abs(np.asarray(out[k])
+                                                - want[k]).max()))
+                actions[p] = int(np.argmax(np.asarray(out['policy'])))
+                replies += 1
+            ms.append(1e3 * (time.perf_counter() - t0))
+            env.step(actions)
+        status = client.status()
+        if not err <= POLICY_TOL:
+            fail('15(f): served GeeseFormer is off the CPU forward by %.3g'
+                 % err)
+        if status['answered'] != status['received'] or any(
+                status['kernel_launches'].values()):
+            fail('15(f): the service answered %s' % status)
+        client.close()
+        client = None
+        proc.send_signal(signal.SIGTERM)
+        if proc.wait(timeout=120) != 75:
+            fail('15(f): the service did not exit 75 after SIGTERM')
+        out = {'replies': replies, 'max_abs_err': err, 'ply_ms': ms,
+               'launches': status['kernel_launches']}
+        log('15(f) served GeeseFormer (%s): %s' % (nvidia_smi_line(),
+                                                   json.dumps(out)))
+        return out
+    finally:
+        if client is not None:
+            client.close()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def former_batch(make_env, B, T, seed):
+    """A solo VTRACE window batch of real boards, (B, T, 1, ...)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    obs = np.stack(game_observations(make_env, B * T, seed))
+    ones = np.ones((B, T, 1, 1), np.float32)
+    return {
+        'observation': obs.reshape(B, T, 1, 17, 7, 11),
+        'selected_prob': rng.uniform(0.1, 1, (B, T, 1, 1)).astype(
+            np.float32),
+        'value': rng.uniform(-1, 1, (B, T, 1, 1)).astype(np.float32),
+        'action': rng.randint(0, 4, (B, T, 1, 1)).astype(np.int32),
+        'outcome': np.sign(rng.randn(B, 1, 1, 1)).astype(np.float32),
+        'reward': np.zeros((B, T, 1, 1), np.float32),
+        'return': np.zeros((B, T, 1, 1), np.float32),
+        'episode_mask': ones, 'turn_mask': ones, 'observation_mask': ones,
+        'action_mask': np.zeros((B, T, 1, 4), np.float32),
+        'progress': np.linspace(0, 1, T, dtype=np.float32)[None, :, None]
+        .repeat(B, 0)}
+
+
+def former_training(torch, make_env, tmp):
+    """15(g): ``Learner(args, net=GeeseFormer())`` in this process on the
+    fused loop at the north-star config, FORMER_EPOCHS epochs (K5 in
+    training, no trunk kernel); then one graphed VTRACE step (B, T =
+    FORMER_STEP) on the card held to the CPU step (phase 4's tolerances;
+    fp32, TF32 off), its replays timed by CUDA events."""
+    from handyrl_tpu_torch.bench import LR
+    from handyrl_tpu_torch.config import apply_defaults
+    from handyrl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.train import Learner
+    raw = json.loads(json.dumps(FUSED_CONFIG))
+    raw['env_args'] = {'env': 'HungryGeese'}
+    raw['train_args'].update(epochs=FORMER_EPOCHS,
+                             checkpoint_interval=FORMER_EPOCHS,
+                             model_dir=os.path.join(tmp, 'models'))
+    net = former_net(torch, SEED + 156)
+    before = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    learner = Learner(apply_defaults(raw), net=net, device='cuda')
+    reset_kernel_launches()
+    t0 = time.monotonic()
+    learner.run()
+    line = dict(learner.summary(), wall=time.monotonic() - t0)
+    if not line.get('fused'):
+        fail('15(g): GeeseFormer did not run the fused loop')
+    out = check_learner_line('15(g) GeeseFormer fused loop', line,
+                             FORMER_EPOCHS, {'training': ('vtrace',)})
+    moved = sum(not torch.equal(before[k], learner.params[k].cpu())
+                for k in before)
+    if moved != len(before):
+        fail('15(g): %d of %d params moved' % (moved, len(before)))
+    B, T = FORMER_STEP
+    batch = former_batch(make_env, B, T, SEED + 157)
+    cfg = LossConfig(turn_based_training=False, observation=True,
+                     policy_target='VTRACE', value_target='VTRACE',
+                     gamma=0.99)
+
+    def make():
+        return former_net(torch, SEED + 158)
+    old, cpu, _ = stats_steps(torch, make, cfg, batch, 'cpu', (LR,), False)
+    reset_kernel_launches()
+    _, graphed, step = stats_steps(torch, make, cfg, batch, 'cuda', (LR,),
+                                   True)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    check_against_cpu('15(g) GeeseFormer VTRACE B=%d T=%d graphed' % (B, T),
+                      old, graphed[0], cpu[0], lr=LR)
+    if launches['vtrace'] < 1 or any(n for k, n in launches.items()
+                                     if k != 'vtrace'):
+        fail('15(g): the GeeseFormer step launched %s' % launches)
+    dev_batch = to_device_batch(torch, batch, 'cuda')
+    lr = torch.tensor(LR, device='cuda')
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(FORMER_STEP_REPS):
+        step(dev_batch, lr)
+    end.record()
+    torch.cuda.synchronize()
+    out.update(step_launches=launches,
+               graphed_ms=start.elapsed_time(end) / FORMER_STEP_REPS)
+    log('15(g) GeeseFormer graphed VTRACE step B=%d T=%d (%s): %.3f ms'
+        % (B, T, nvidia_smi_line(), out['graphed_ms']))
+    return out
+
+
+def phase_bf16_kernels(torch, geese_trunk, GeeseNet, make_env):
+    """Phase 15(a), which main() runs right after phase 2: late in the
+    script torch.profiler records no kernel (an H100 run of the whole
+    script: an empty profile in 15(a) after phase 14), and K2's two phases
+    are timed apart by it. Returns ({n: K1 row}, {n: K2 row}, seconds)."""
+    log('== phase 15(a), run after phase 2: the bf16 kernels against their '
+        'plain bf16 versions')
+    t = time.monotonic()
+    fwd, bwd = bf16_kernels(torch, geese_trunk, GeeseNet, make_env)
+    return fwd, bwd, time.monotonic() - t
+
+
+def phase_bf16_former(torch, repo, make_env, kernels):
+    """Phase 15: compute_dtype bfloat16 (``kernels``, 15(a)'s result; the
+    bench, one step, the fused loop, TicTacToe's host learner), then
+    GeeseFormer (served, trained); each part's seconds, one JSON line."""
+    from handyrl_tpu_torch.model import fp32_on_card
+    t0 = time.monotonic()
+    fwd, bwd, seconds_a = kernels
+    seconds = {'a': seconds_a}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_bf16_')
+    try:
+        log('== phase 15(b): the bench entry in bf16')
+        t = time.monotonic()
+        bench = run_bench_entry(repo, 'bfloat16')
+        seconds['b'] = time.monotonic() - t
+        log('== phase 15(c): one graphed bf16 step against the CPU')
+        t = time.monotonic()
+        step = bf16_step(torch, make_env)
+        seconds['c'] = time.monotonic() - t
+        log('== phase 15(d): the fused loop in bf16')
+        t = time.monotonic()
+        os.makedirs(os.path.join(tmp, 'fused'))
+        fused = bf16_fused(repo, os.path.join(tmp, 'fused'))
+        seconds['d'] = time.monotonic() - t
+        log('== phase 15(e): TicTacToe\'s host learner in bf16')
+        t = time.monotonic()
+        ttt = bf16_tictactoe(torch, os.path.join(tmp, 'ttt'))
+        fp32_on_card(torch.device('cuda'))
+        seconds['e'] = time.monotonic() - t
+        log('== phase 15(f): GeeseFormer served from a registry snapshot')
+        t = time.monotonic()
+        serving = former_serving(torch, repo, make_env)
+        seconds['f'] = time.monotonic() - t
+        log('== phase 15(g): GeeseFormer trained (fused loop, graphed step)')
+        t = time.monotonic()
+        former = former_training(torch, make_env, os.path.join(tmp, 'former'))
+        seconds['g'] = time.monotonic() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds['total'] = time.monotonic() - t0 + seconds_a
+    out = {'phase': 15, 'fwd': {str(n): r for n, r in fwd.items()},
+           'bwd': {str(n): {k: v for k, v in r.items()}
+                   for n, r in bwd.items()},
+           'bench': bench, 'step': step, 'fused': fused, 'tictactoe': ttt,
+           'serving': serving, 'former': former, 'seconds': seconds,
+           'card': nvidia_smi_line()}
+    print(json.dumps(out), flush=True)
+    out['fwd'], out['bwd'] = fwd, bwd
+    return out
+
+
 def main():
     try:
         import torch
@@ -5594,28 +6306,45 @@ def main():
         smi, torch.__version__, torch.version.cuda,
         torch.cuda.device_count()))
 
+    timer = {'t': time.monotonic()}
+
+    def took(name):
+        """Log the seconds since the last phase ended (and the card)."""
+        now = time.monotonic()
+        log('%s: %.1f s (%s)' % (name, now - timer['t'], nvidia_smi_line()))
+        timer['t'] = now
+
     log('== phase 1: build')
     hmma = phase_build(cuda_build)
+    took('phase 1')
 
     log('== phase 2: kernels against their plain versions')
     rows = phase_kernels(torch, geese_trunk, GeeseNet, make_env)
     bwd_rows = phase_backward(torch, geese_trunk, GeeseNet, make_env)
     phase_narrow(torch, geese_trunk)
     target_rows = phase_targets(torch, targets)
+    took('phase 2')
+    bf16_kernel_rows = phase_bf16_kernels(torch, geese_trunk, GeeseNet,
+                                          make_env)
+    took('phase 15(a)')
 
     log('== phase 3: main path (serving)')
     launches = phase_main_path(torch, repo)
+    took('phase 3')
 
     log('== phase 4: main path (training)')
     train = phase_training(torch, repo, make_env)
+    took('phase 4')
 
     log('== phase 5: main path (the local learner)')
     learner = phase_learner(torch, repo, make_env, train['bench'])
+    took('phase 5')
 
     log('== phase 5(b): the local learner with batcher processes and '
         'shared-memory batches')
     learner_shm = phase_learner_shm(torch, repo, make_env, train['bench'],
                                     learner)
+    took('phase 5(b)')
 
     fused_tmp = tempfile.mkdtemp(prefix='chip_smoke_fused_')
     # phase 6's last checkpoint, kept for phase 11 (phase 8's drill trims
@@ -5627,21 +6356,26 @@ def main():
         fused = phase_fused(torch, repo, make_env, learner, fused_tmp)
         shutil.copy(os.path.join(fused_tmp, 'models', '%d.ckpt'
                                  % FUSED_EPOCHS), opponent)
+        took('phase 6')
 
         log('== phase 7: main path (the quick start: TicTacToe, turn-based)')
         quick = phase_quick_start(torch, repo, make_env, target_rows)
+        took('phase 7')
 
         log('== phase 7(b): the quick start with batcher processes and '
             'shared-memory batches')
         quick_shm = phase_quick_shm(torch, repo, quick)
+        took('phase 7(b)')
 
         log('== phase 7(c): the quick start on the fused device loop (turn '
             'mode)')
         quick_fused = phase_quick_fused(torch, repo, make_env, quick)
+        took('phase 7(c)')
 
         log('== phase 8: main path (phase 6\'s checkpoints scored offline; '
             'a preemption drill)')
         scored = phase_score_and_drill(repo, fused_tmp)
+        took('phase 8')
     finally:
         shutil.rmtree(fused_tmp, ignore_errors=True)
 
@@ -5685,7 +6419,12 @@ def main():
     log('phase 14: %.1f s (%s)' % (time.monotonic() - t14,
                                    nvidia_smi_line()))
 
-    log('== phase 15: the kernels line')
+    t15 = time.monotonic()
+    bf16 = phase_bf16_former(torch, repo, make_env, bf16_kernel_rows)
+    log('phase 15: %.1f s (%s)' % (time.monotonic() - t15,
+                                   nvidia_smi_line()))
+
+    log('== phase 16: the kernels line')
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -5752,6 +6491,19 @@ def main():
     paths['geese_batch_norm_step'] = geister['geese_bn']['launches']
     paths['geister_service'] = geister['serving']['launches']
     paths['geister_device_actor'] = geister['actor']['launches']
+    # phase 15: the bf16 bench (a fresh process), the in-process graphed
+    # bf16 steps (counts 0 just before), the bf16 fused loop (a fresh
+    # process) and TicTacToe learner, and GeeseFormer's service, learner
+    # and graphed step
+    paths['bf16_bench'] = bf16['bench']['kernel_launches']
+    paths['bf16_step_graphed'] = bf16['step']['launches']
+    for label, part in (('bf16_fused', bf16['fused']),
+                        ('bf16_tictactoe', bf16['tictactoe']),
+                        ('former_fused', bf16['former'])):
+        for name, counts in part['kernel_launches'].items():
+            paths['%s_%s' % (label, name)] = counts
+    paths['former_service'] = bf16['serving']['launches']
+    paths['former_step'] = bf16['former']['step_launches']
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from
@@ -5778,7 +6530,7 @@ def main():
               train_bound_ms={str(n): rows[n]['train_bound_ms']
                               for n in SAVED_NS},
               device_ms={str(n): r['device_ms'] for n, r in rows.items()},
-              sass_hmma=hmma.get('trunk_fwd_kernel<32>', 0),
+              sass_hmma=hmma.get('trunk_fwd_kernel<32,float>', 0),
               op={str(n): r for n, r in branches['export']['op'].items()}),
     ]
     # K2 as its two phases: each wrapper call launches each phase once
@@ -5786,7 +6538,8 @@ def main():
              'b': dict(plain_ms_is='the 13 plain weight grads',
                        library_ms_is='cuDNN\'s weight grads of the 13 torus '
                        'convs (conv2d_weight, fp32), by CUDA-graph replay',
-                       sass_hmma=hmma.get('trunk_wgrad_kernel<32>', 0))}
+                       sass_hmma=hmma.get('trunk_wgrad_kernel<32,float>',
+                                          0))}
     for phase, kernel_names in PHASES.items():
         by_n = {n: dict(r, **r[phase]) for n, r in bwd_rows.items()}
         kernels.append(entry(
@@ -5796,6 +6549,35 @@ def main():
             k2_ms=bwd_rows[TRAIN_N]['ms'],
             max_abs_err_is='of K2\'s grads, relative to each grad\'s '
             'largest element', **notes[phase]))
+    # the bf16 forms, rows of their own: K1 at the serving bucket (its
+    # training form by N beside it), K2's phases at the fused loop's step
+    fwd16, bwd16 = bf16['fwd'], bf16['bwd']
+    kernels.append(entry(
+        'geese_trunk_bf16', 'geese_trunk.cu',
+        'handyrl_tpu/ops/pallas_geese.py:108', fwd16[BF16_MAIN_N], fwd16,
+        peak_flops='989 TFLOP/s dense bf16 (H100 SXM data sheet)',
+        max_abs_err_is='of y, relative to its largest element',
+        train_ms={str(n): r['train_ms'] for n, r in fwd16.items()},
+        train_bound_ms={str(n): r['train_bound_ms']
+                        for n, r in fwd16.items()},
+        sass_hmma=hmma.get('trunk_fwd_kernel<32,bf16>', 0)))
+    notes16 = {'a': dict(plain_and_library_ms_are='of the whole K2 (library: '
+                         'autograd through the \'pad\' trunk in bf16)'),
+               'b': dict(plain_ms_is='the 13 plain weight grads',
+                         library_ms_is='cuDNN\'s bf16 weight grads of the 13 '
+                         'torus convs, by CUDA-graph replay',
+                         sass_hmma=hmma.get('trunk_wgrad_kernel<32,bf16>',
+                                            0))}
+    for phase, kernel_names in PHASES.items():
+        by_n = {n: dict(r, **r[phase]) for n, r in bwd16.items()}
+        kernels.append(entry(
+            'geese_trunk_bwd_bf16_' + phase, 'geese_trunk.cu',
+            'handyrl_tpu/ops/pallas_geese.py:115', by_n[BF16_TRAIN_N], by_n,
+            count='geese_trunk_bwd_bf16', kernels=kernel_names,
+            k2_ms=bwd16[BF16_TRAIN_N]['ms'],
+            peak_flops='989 TFLOP/s dense bf16 (H100 SXM data sheet)',
+            max_abs_err_is='of K2\'s grads, relative to each grad\'s '
+            'largest element', **notes16[phase]))
     for name, line in (('td_lambda', 129), ('upgo', 138), ('vtrace', 149)):
         by_n = {'T%d_P%d_N%d' % key[1:]: r
                 for key, r in target_rows.items() if key[0] == name}

@@ -8,6 +8,11 @@ trajectories of T=16 steps, TD/TD targets, ``observation=True``,
 ``--steps`` timed steps, and prints one JSON line: trajectories per second,
 the step time, the card, the final losses, and every kernel's launch count
 over all the steps it ran (the counts are set to 0 just before the first).
+``--compute-dtype bfloat16`` runs the same step with the net in bf16
+activations (the params, grads and Adam's moments fp32): the program the
+JAX package's headline times (its ``bench.py`` runs ``headline_setup``
+with ``dtype=jnp.bfloat16``), whose trunk is the kernels' bf16 form; the
+line's ``compute_dtype`` says which ran.
 
 Runs on ``--device cuda`` (the default; without a card it raises), where it
 times the step in both forms, eager and as one CUDA graph (the line's
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from .model import fp32_on_card, resolve_device
+from .models.blocks import set_compute_dtype
 from .models.geese import GeeseNet
 from .ops import kernel_launches, reset_kernel_launches
 from .ops.losses import LossConfig
@@ -68,14 +74,17 @@ def synthetic_batch(B, T, P, obs_shape, n_actions, rng) -> Dict[str, np.ndarray]
 
 def headline_setup(device: Any = 'cuda', B: int = 128, T: int = 16,
                    filters: int = 32, layers: int = 12,
-                   policy_target: str = 'TD', value_target: str = 'TD'
+                   policy_target: str = 'TD', value_target: str = 'TD',
+                   compute_dtype: str = 'float32'
                    ) -> Tuple[GeeseNet, LossConfig, Dict[str, torch.Tensor],
                               TrainState]:
     """(net, cfg, batch, state) of the headline step on ``device``: weights
-    from a seeded torch generator, the batch from a seeded numpy one."""
+    from a seeded torch generator, the batch from a seeded numpy one; the
+    net runs in ``compute_dtype``."""
     dev = resolve_device(device)
     net = GeeseNet(filters=filters, layers=layers, torus_impl='pallas',
                    generator=torch.Generator().manual_seed(SEED)).to(dev)
+    set_compute_dtype(net, compute_dtype)
     batch = synthetic_batch(B, T, 1, (17, 7, 11), 4,
                             np.random.RandomState(SEED))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
@@ -100,9 +109,10 @@ def _time_steps(step, warmup: int, steps: int):
 
 
 def run_bench(device: Any = 'cuda', steps: int = 30, B: int = 128,
-              T: int = 16, filters: int = 32, layers: int = 12
-              ) -> Dict[str, Any]:
-    """Time the TD/TD update step; returns the result line as a dict.
+              T: int = 16, filters: int = 32, layers: int = 12,
+              compute_dtype: str = 'float32') -> Dict[str, Any]:
+    """Time the TD/TD update step, the net in ``compute_dtype`` ('float32'
+    or 'bfloat16'); returns the result line as a dict.
 
     On the card it times both forms from the same initial state, eager
     (:func:`build_update_step`) and then graphed
@@ -117,7 +127,11 @@ def run_bench(device: Any = 'cuda', steps: int = 30, B: int = 128,
     its warm-up steps are in ``steps_by_form`` and the launch counts."""
     dev = resolve_device(device)
     fp32_on_card(dev)
-    net, cfg, batch, state = headline_setup(dev, B, T, filters, layers)
+    if compute_dtype not in ('float32', 'bfloat16'):
+        raise ValueError("compute_dtype must be 'float32' or 'bfloat16', got "
+                         '%r' % (compute_dtype,))
+    net, cfg, batch, state = headline_setup(dev, B, T, filters, layers,
+                                            compute_dtype=compute_dtype)
     lr = torch.tensor(LR, device=dev)
     forms = ['eager'] + (['graphed'] if dev.type == 'cuda' else [])
     seconds, finals, launches, peak_mib, runs = {}, {}, {}, {}, {}
@@ -166,7 +180,7 @@ def run_bench(device: Any = 'cuda', steps: int = 30, B: int = 128,
         'peak_memory_mib': peak_mib or None,
         'device': (torch.cuda.get_device_name(dev) if dev.type == 'cuda'
                    else 'cpu'),
-        'compute_dtype': 'float32',
+        'compute_dtype': compute_dtype,
         'config': {'B': B, 'T': T, 'filters': filters, 'layers': layers,
                    'policy_target': cfg.policy_target,
                    'value_target': cfg.value_target, 'lr': LR},
@@ -189,8 +203,13 @@ def main(argv=None) -> int:
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument('--steps', type=int, default=30,
                     help='timed steps (after %d warm-up steps)' % WARMUP)
+    ap.add_argument('--compute-dtype', default='float32',
+                    choices=('float32', 'bfloat16'),
+                    help="the net's activations: 'float32' (default) or "
+                         "'bfloat16' (the JAX headline's dtype)")
     a = ap.parse_args(argv)
-    print(json.dumps(run_bench(a.device, a.steps)), flush=True)
+    print(json.dumps(run_bench(a.device, a.steps,
+                               compute_dtype=a.compute_dtype)), flush=True)
     return 0
 
 

@@ -146,6 +146,7 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
     },
     'decode_cache_blocks': 1024,  # LRU capacity (bz2 blocks) of the batchers' decoded-moment cache; 0 disables
     'prefetch_depth': 2,          # batches staged to the device (pinned host memory, a copy stream) ahead of the step
+    'compute_dtype': '',          # '' = float32; 'bfloat16' runs the learner's net in bf16 activations (flax's module dtype), params, grads and Adam's moments fp32
 }
 
 WORKER_DEFAULTS: Dict[str, Any] = {
@@ -183,6 +184,8 @@ _ENVS = ('TicTacToe', 'ParallelTicTacToe', 'Geister', 'ConnectX',
 # env_args.norm_kind: the JAX package's make_norm kinds a net takes
 _NORM_KINDS = ('group', 'batch', 'batchstats', 'layer')
 _TARGETS = ('MC', 'TD', 'VTRACE', 'UPGO')
+# train_args.compute_dtype: '' and 'float32' run the params' dtype
+COMPUTE_DTYPES = ('', 'float32', 'bfloat16')
 # env_args.net_kind: GeeseNet ('conv') and GeeseNetLSTM ('lstm')
 _NET_KINDS = ('conv', 'lstm')
 
@@ -283,6 +286,10 @@ def validate(args: Dict[str, Any]) -> None:
              '(the thread batchers already share the trainer\'s memory)')
     _validate_device_path(ta)
     _require(int(ta['burn_in_steps']) >= 0, 'burn_in_steps must be >= 0')
+    _require(ta['compute_dtype'] in COMPUTE_DTYPES,
+             'train_args.compute_dtype %r: the port runs %s'
+             % (ta['compute_dtype'], ', '.join(repr(d) for d in
+                                               COMPUTE_DTYPES)))
     _require(ta['policy_target'] in _TARGETS,
              'policy_target %r not in %s' % (ta['policy_target'], _TARGETS))
     _require(ta['value_target'] in _TARGETS,

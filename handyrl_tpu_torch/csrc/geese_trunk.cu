@@ -59,8 +59,37 @@
 // layer's normalised conv output xhat = (conv - mean) rstd (N x (L+1) x 77
 // x F) and per-group rstd (N x (L+1) x groups), straight from the
 // accumulators. The serving form computes and stores only the output.
+//
+// ------------------------------------------------------------ bf16 form
+//
+// The same kernels instantiated for T = bf16 activations (K1, K2a and K2b
+// alike): the port of the TPU kernels' bf16 form, tile_forward with dtype
+// bfloat16 (pallas_geese.py:89-102), which casts x and each layer's weights
+// to bf16, sums the nine taps in fp32 and rounds the conv output to bf16
+// (_torus_conv), keeps the GroupNorm statistics in fp32 and rounds its
+// output to bf16 (_group_norm), and runs the residual add and the ReLU in
+// bf16; _bwd_kernel transposes that forward. Every bf16 value is a TF32
+// value (8 mantissa bits against 10), so each product of the bf16 form is
+// one mma.sync m16n8k8 TF32 with fp32 accumulation, exact, where 3xTF32
+// issues three: the weights are rounded to bf16 as A's fragments load
+// (K1) or when staged (K2a), and the activations' lo halves are 0. The
+// forward rounds where tile_forward does: the conv output before its
+// statistics, the normalised output (xhat scale + bias, not fused), the
+// residual sum. x, the output, the saved block inputs (acts), dy, dx and
+// dc are bf16 in device memory, half the fp32 form's bytes; xhat, rstd,
+// the scale and bias grads and the weight grads stay fp32. The backward
+// rounds what the forward's bf16 tensors receive: dc (the conv output's
+// grad), the transposed conv's output and its sum with the residual grad,
+// and dx. Shared memory keeps the fp32 form's layout (a bf16 load is
+// widened as it is copied in, synchronously, where the fp32 form uses
+// cp.async). Bound (N=1024, H100 SXM): 18.2 GFLOP of K1 over 989 TFLOP/s
+// dense bf16 is 0.018 ms, below its bytes; a simple form, not yet
+// redesigned for Hopper (no wgmma, no bf16 mma).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -129,12 +158,78 @@ __device__ __forceinline__ float2 split_tf32_trunc(float x) {
       hi, __uint_as_float(__float_as_uint(x - hi) & 0xFFFFE000u));
 }
 
-// Four floats as (hi, lo) pairs into 8 floats at dst (16-byte aligned).
+// x rounded to bf16, to nearest even (JAX's astype and torch's .to), as
+// a float.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+using bf16 = __nv_bfloat16;
+
+// The activations' type in device memory, T: float (the fp32 form, its
+// products 3xTF32 on operands split into (hi, lo)) or bf16 (the bf16 form,
+// one TF32 product on operands rounded to bf16, whose lo is 0).
+template <typename T>
+constexpr bool kSplit = std::is_same<T, float>::value;
+
+// An operand as its (hi, lo) pair: split into TF32 (the fp32 form), or
+// rounded to bf16 with lo 0 (the bf16 form's weights; idempotent on a
+// bf16 value).
+template <bool S>
+__device__ __forceinline__ float2 operand(float x) {
+  if constexpr (S) return split_tf32(x);
+  return make_float2(bf16r(x), 0.f);
+}
+
+// Four floats as operand pairs into 8 floats at dst (16-byte aligned).
+template <bool S = true>
 __device__ __forceinline__ void store_split4(float* dst, float4 v) {
-  const float2 a = split_tf32(v.x), b = split_tf32(v.y);
-  const float2 c = split_tf32(v.z), d = split_tf32(v.w);
+  const float2 a = operand<S>(v.x), b = operand<S>(v.y);
+  const float2 c = operand<S>(v.z), d = operand<S>(v.w);
   reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
   reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const bf16* p) {
+  return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Four floats to p in device memory (16 bytes as float, 8 as bf16).
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      *reinterpret_cast<unsigned*>(&lo), *reinterpret_cast<unsigned*>(&hi));
+}
+
+// Four values at src into four floats at dst in shared memory (16-byte
+// aligned): cp.async for float (the caller waits), widened as loaded for
+// bf16.
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  cp_async16(dst, src);
+}
+__device__ __forceinline__ void copy4(float* dst, const bf16* src) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void copy1(float* dst, const float* src) {
+  cp_async4(dst, src);
+}
+__device__ __forceinline__ void copy1(float* dst, const bf16* src) {
+  *dst = __bfloat162float(*src);
 }
 
 // c += a * b on the tensor cores: one m16n8k8 TF32 product with fp32
@@ -188,8 +283,9 @@ struct FwdShape {
 // k-step is three mma, hi*hi into acc and lo*hi + hi*lo into a second set
 // of accumulators added at the end, so that the small terms are not
 // rounded against the large ones. KC > 0 is cw known at compile time (the
-// blocks); KC == 0 takes cw (the stem).
-template <int F, int KC>
+// blocks); KC == 0 takes cw (the stem). With S false (the bf16 form) A is
+// rounded to bf16 as it loads and each k-step is the hi*hi mma alone.
+template <int F, int KC, bool S = true>
 __device__ __forceinline__ void conv_mma(const float* in, int in_pair,
                                          const float* ws, int cw, int mt,
                                          int nh, const int* nbr,
@@ -214,16 +310,18 @@ __device__ __forceinline__ void conv_mma(const float* in, int in_pair,
     const float* ap = ws + (t * cw + tq) * kW + 16 * mt + gid;
     auto k_step = [&](int kk) {
       const float* ak = ap + 8 * kk * kW;
-      const float2 a0 = split_tf32(ak[0]), a1 = split_tf32(ak[8]);
-      const float2 a2 = split_tf32(ak[4 * kW]);
-      const float2 a3 = split_tf32(ak[4 * kW + 8]);
+      const float2 a0 = operand<S>(ak[0]), a1 = operand<S>(ak[8]);
+      const float2 a2 = operand<S>(ak[4 * kW]);
+      const float2 a3 = operand<S>(ak[4 * kW + 8]);
 #pragma unroll
       for (int j = 0; j < kPixTiles; ++j) {
         const float2 b0 = *reinterpret_cast<const float2*>(bp[j] + 16 * kk);
         const float2 b1 =
             *reinterpret_cast<const float2*>(bp[j] + 16 * kk + 8);
-        mma_tf32(lo_terms[j], a0.y, a1.y, a2.y, a3.y, b0.x, b1.x);
-        mma_tf32(lo_terms[j], a0.x, a1.x, a2.x, a3.x, b0.y, b1.y);
+        if constexpr (S) {
+          mma_tf32(lo_terms[j], a0.y, a1.y, a2.y, a3.y, b0.x, b1.x);
+          mma_tf32(lo_terms[j], a0.x, a1.x, a2.x, a3.x, b0.y, b1.y);
+        }
         mma_tf32(acc[j], a0.x, a1.x, a2.x, a3.x, b0.x, b1.x);
       }
     };
@@ -288,18 +386,19 @@ __device__ __forceinline__ void channel_sums(const float (&v)[kPixTiles][4],
   }
 }
 
-template <int F>
+template <int F, typename T>
 __global__ void __launch_bounds__(FwdShape<F>::kThreads, 3)
-trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
+trunk_fwd_kernel(const T* __restrict__ x, const float* __restrict__ stem_w,
                  const float* __restrict__ stem_scale,
                  const float* __restrict__ stem_bias,
                  const float* __restrict__ block_w,
                  const float* __restrict__ block_scale,
-                 const float* __restrict__ block_bias, float* __restrict__ out,
-                 float* __restrict__ saved, float* __restrict__ xhat_out,
+                 const float* __restrict__ block_bias, T* __restrict__ out,
+                 T* __restrict__ saved, float* __restrict__ xhat_out,
                  float* __restrict__ rstd_out, int cin, int layers,
                  int groups, float eps) {
   using S = FwdShape<F>;
+  constexpr bool kS = kSplit<T>;
   extern __shared__ __align__(16) float smem[];
   const int cw = round8(cin);                    // the stem's K per tap
   const int xpair = pair_stride(cw);             // its input's row stride
@@ -324,11 +423,11 @@ trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
       *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   fill_neighbours(nbr, S::kThreads);
-  const float* xn = x + n * kPix * cin;
+  const T* xn = x + n * kPix * cin;
   for (int i = tid; i < kPix * cw; i += S::kThreads) {   // x as pairs,
     const int p = i / cw, c = i % cw;                   //   zero-padded
     *reinterpret_cast<float2*>(hs + p * xpair + 2 * c) =
-        split_tf32(c < cin ? __ldg(xn + p * cin + c) : 0.f);
+        split_tf32(c < cin ? load1(xn + p * cin + c) : 0.f);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -340,7 +439,7 @@ trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
   const int cpg = F / groups;                            //   channels
   const float inv_count = 1.f / static_cast<float>(kPix * cpg);
   float hv[kPixTiles][4];   // h, fp32, in the accumulator layout
-  float* on = out + n * kPix * F;
+  T* on = out + n * kPix * F;
 
   for (int layer = 0; layer <= layers; ++layer) {
     const float* scale = layer == 0 ? stem_scale : block_scale + (layer - 1) * F;
@@ -353,9 +452,15 @@ trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
     }
     float acc[kPixTiles][4];
     if (layer == 0)
-      conv_mma<F, 0>(hs, xpair, ws, cw, mt, nh, nbr, acc);
+      conv_mma<F, 0, kS>(hs, xpair, ws, cw, mt, nh, nbr, acc);
     else
-      conv_mma<F, F>(hs, S::kPair, ws, F, mt, nh, nbr, acc);
+      conv_mma<F, F, kS>(hs, S::kPair, ws, F, mt, nh, nbr, acc);
+    if constexpr (!kS) {   // the conv output in bf16, then its statistics
+#pragma unroll
+      for (int j = 0; j < kPixTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = bf16r(acc[j][e]);
+    }
     channel_sums<F>(acc, nh, f, red1);
     __syncthreads();   // A: the conv is done with ws and hs; red1 is complete
 
@@ -386,8 +491,8 @@ trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
     }
     const size_t nl_index = n * (layers + 1) + layer;
     float* xo = xhat_out ? xhat_out + nl_index * kPix * F : nullptr;
-    float* ao = saved && layer < layers
-                    ? saved + (n * layers + layer) * kPix * F : nullptr;
+    T* ao = saved && layer < layers
+                ? saved + (n * layers + layer) * kPix * F : nullptr;
     if (xhat_out && nh == 0 && tq == 0)   // one writer per group
 #pragma unroll
       for (int h = 0; h < 2; ++h)
@@ -400,16 +505,23 @@ trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
         if (p >= kPix) continue;
         const int h = e >> 1;
         const int o = p * F + f[h];
-        if (xo) xo[o] = (acc[j][e] - mean[h]) * rstd[h];
-        const float v = fmaxf((layer == 0 ? 0.f : hv[j][e]) +
-                                  fmaf(acc[j][e], mul[h], add[h]), 0.f);
+        const float xh = (acc[j][e] - mean[h]) * rstd[h];
+        if (xo) xo[o] = xh;
+        float v;
+        if constexpr (kS) {
+          v = fmaxf((layer == 0 ? 0.f : hv[j][e]) +
+                        fmaf(acc[j][e], mul[h], add[h]), 0.f);
+        } else {   // GroupNorm's output in bf16, then the residual sum
+          const float z = bf16r(__fadd_rn(__fmul_rn(xh, sc[h]), bi[h]));
+          v = fmaxf(layer == 0 ? z : bf16r(hv[j][e] + z), 0.f);
+        }
         hv[j][e] = v;
         if (layer == layers) {
-          on[o] = v;
+          store1(on + o, v);
         } else {   // the next layer's input; block layer+1's for K2
           *reinterpret_cast<float2*>(hs + p * S::kPair + 2 * f[h]) =
               split_tf32(v);
-          if (ao) ao[o] = v;
+          if (ao) store1(ao + o, v);
         }
       }
     cp_async_wait_all();
@@ -417,11 +529,11 @@ trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ stem_w,
   }
 }
 
-template <int F>
-cudaError_t launch(const float* x, const float* stem_w, const float* stem_scale,
+template <int F, typename T>
+cudaError_t launch(const T* x, const float* stem_w, const float* stem_scale,
                    const float* stem_bias, const float* block_w,
                    const float* block_scale, const float* block_bias,
-                   float* out, float* saved, float* xhat, float* rstd, int n,
+                   T* out, T* saved, float* xhat, float* rstd, int n,
                    int cin, int layers, int groups, float eps,
                    cudaStream_t stream) {
   using S = FwdShape<F>;
@@ -433,9 +545,10 @@ cudaError_t launch(const float* x, const float* stem_w, const float* stem_scale,
       sizeof(int) * kPix * kTaps);
   // set on every launch: the attribute belongs to the current device
   const cudaError_t err = cudaFuncSetAttribute(
-      trunk_fwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      trunk_fwd_kernel<F, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  trunk_fwd_kernel<F><<<n, S::kThreads, smem, stream>>>(
+  trunk_fwd_kernel<F, T><<<n, S::kThreads, smem, stream>>>(
       x, stem_w, stem_scale, stem_bias, block_w, block_scale, block_bias, out,
       saved, xhat, rstd, cin, layers, groups, eps);
   return cudaGetLastError();
@@ -609,8 +722,8 @@ __device__ __forceinline__ void load_block_weights(
 }
 
 // Split the weights of load_block_weights into ws as (9, F) rows of F
-// (hi, lo) pairs at a row stride of kPair floats.
-template <int F>
+// (hi, lo) pairs at a row stride of kPair floats (S false: bf16, lo 0).
+template <int F, bool S>
 __device__ __forceinline__ void stage_block_weights(
     float* ws, const float4 (&wr)[BwdShape<F>::kWChunks]) {
   using B = BwdShape<F>;
@@ -618,13 +731,14 @@ __device__ __forceinline__ void stage_block_weights(
   for (int k = 0; k < B::kWChunks; ++k) {
     const int i = threadIdx.x + k * B::kThreads;
     if (i < kTaps * F * F / 4)
-      store_split4(ws + (i / (F / 4)) * B::kPair + 8 * (i % (F / 4)), wr[k]);
+      store_split4<S>(ws + (i / (F / 4)) * B::kPair + 8 * (i % (F / 4)),
+                      wr[k]);
   }
 }
 
 // The same for the stem's weights (9, cin, F), as (9, cw) rows with the
 // rows ci >= cin zero.
-template <int F>
+template <int F, bool S>
 __device__ void stage_stem_weights(float* ws, const float* __restrict__ w,
                                    int cin, int cw) {
   using B = BwdShape<F>;
@@ -634,7 +748,7 @@ __device__ void stage_stem_weights(float* ws, const float* __restrict__ w,
     const float4 v = ci < cin ? __ldg(reinterpret_cast<const float4*>(
                                     w + (t * cin + ci) * F) + f4)
                               : make_float4(0.f, 0.f, 0.f, 0.f);
-    store_split4(ws + row * B::kPair + 8 * f4, v);
+    store_split4<S>(ws + row * B::kPair + 8 * f4, v);
   }
 }
 
@@ -654,8 +768,9 @@ __device__ void stage_stem_weights(float* ws, const float* __restrict__ w,
 // no conflicts. Each k-step is three mma: hi*hi into acc, lo*hi + hi*lo
 // into a second set of fp32 accumulators added at the end, so that the
 // three do not wait on each other and the small terms are not rounded
-// against the large ones (it halved K2's error on the card).
-template <int F>
+// against the large ones (it halved K2's error on the card). With S false
+// (the bf16 form, every lo 0) a k-step is the hi*hi mma alone.
+template <int F, bool S>
 __device__ __forceinline__ void conv_transpose_mma(const float* dcs,
                                                    const float* ws, int cw,
                                                    int mt, int nh,
@@ -691,8 +806,10 @@ __device__ __forceinline__ void conv_transpose_mma(const float* dcs,
         const float2 b0 = *reinterpret_cast<const float2*>(bp[j] + 16 * kk);
         const float2 b1 =
             *reinterpret_cast<const float2*>(bp[j] + 16 * kk + 8);
-        mma_tf32(small[j], a0.y, a1.y, a2.y, a3.y, b0.x, b1.x);
-        mma_tf32(small[j], a0.x, a1.x, a2.x, a3.x, b0.y, b1.y);
+        if constexpr (S) {
+          mma_tf32(small[j], a0.y, a1.y, a2.y, a3.y, b0.x, b1.x);
+          mma_tf32(small[j], a0.x, a1.x, a2.x, a3.x, b0.y, b1.y);
+        }
         mma_tf32(acc[j], a0.x, a1.x, a2.x, a3.x, b0.x, b1.x);
       }
     }
@@ -703,20 +820,21 @@ __device__ __forceinline__ void conv_transpose_mma(const float* dcs,
     for (int e = 0; e < 4; ++e) acc[j][e] += small[j][e];
 }
 
-template <int F>
+template <int F, typename T>
 __global__ void __launch_bounds__(BwdShape<F>::kThreads, 1)
 trunk_bwd_kernel(const float* __restrict__ stem_w,
                  const float* __restrict__ stem_scale,
                  const float* __restrict__ block_w,
                  const float* __restrict__ block_scale,
-                 const float* __restrict__ acts, const float* __restrict__ y,
+                 const T* __restrict__ acts, const T* __restrict__ y,
                  const float* __restrict__ xhat,
                  const float* __restrict__ rstd_in,
-                 const float* __restrict__ dy, float* __restrict__ dx,
-                 float* __restrict__ dc_out, float* __restrict__ dsn, int n,
+                 const T* __restrict__ dy, T* __restrict__ dx,
+                 T* __restrict__ dc_out, float* __restrict__ dsn, int n,
                  int cin, int layers, int groups) {
   using S = Shape<F>;
   using B = BwdShape<F>;
+  constexpr bool kS = kSplit<T>;
   extern __shared__ __align__(16) float smem[];
   const int cw = round16(cin);                   // the stem's conv width
   const int wrows = dx && cw > F ? cw : F;
@@ -745,11 +863,11 @@ trunk_bwd_kernel(const float* __restrict__ stem_w,
   // saved output) and its rstd into xm_s
   auto prefetch = [&](int l) {
     const float* xg = xhat + (nr * nl + l) * kPix * F;
-    const float* og = l == layers ? y + nr * kPix * F
-                                  : acts + (nr * layers + l) * kPix * F;
+    const T* og = l == layers ? y + nr * kPix * F
+                              : acts + (nr * layers + l) * kPix * F;
     for (int i = lt; i < kPix * F / 4; i += B::kSampleThreads) {
       cp_async16(xm_s + 4 * i, xg + 4 * i);
-      cp_async16(xm_s + kPix * F + 4 * i, og + 4 * i);
+      copy4(xm_s + kPix * F + 4 * i, og + 4 * i);
     }
     for (int i = lt; i < groups; i += B::kSampleThreads)
       cp_async4(xm_s + 2 * kPix * F + i, rstd_in + (nr * nl + l) * groups + i);
@@ -760,10 +878,10 @@ trunk_bwd_kernel(const float* __restrict__ stem_w,
     load_block_weights<F>(
         wr, block_w + static_cast<size_t>(layers - 1) * kTaps * F * F);
   fill_neighbours(nbr, B::kThreads);
-  const float* dyn = dy + nr * kPix * F;
+  const T* dyn = dy + nr * kPix * F;
   for (int i = lt; i < kPix * F / 4; i += B::kSampleThreads)
-    cp_async16(dhs_s + (i / (F / 4)) * S::kHStride + 4 * (i % (F / 4)),
-               dyn + 4 * i);
+    copy4(dhs_s + (i / (F / 4)) * S::kHStride + 4 * (i % (F / 4)),
+          dyn + 4 * i);
   prefetch(layers);
   cp_async_wait_all();
   __syncthreads();
@@ -817,7 +935,7 @@ trunk_bwd_kernel(const float* __restrict__ stem_w,
     }
     channel_partials<F>(g, own, q, red1);
     channel_partials<F>(tmp, own, q, red2);
-    if (l > 0) stage_block_weights<F>(ws, wr);   // the last conv is done
+    if (l > 0) stage_block_weights<F, kS>(ws, wr);   // the last conv is done
     __syncthreads();
     if (lt < F) {
       float s1 = 0.f, s2 = 0.f;
@@ -836,24 +954,27 @@ trunk_bwd_kernel(const float* __restrict__ stem_w,
     __syncthreads();
 
     // dc = rstd (g scale - mean(g scale) - xhat mean(g scale xhat)), to
-    // memory for phase B and, split into (hi, lo), to dcs for the conv
+    // memory for phase B and, split into (hi, lo), to dcs for the conv;
+    // the bf16 form rounds it to bf16 (the grad of a bf16 conv output)
     float m1[4], m2[4];
     group_sums_of<F>(chan_s, q, cpg, m1);
     group_sums_of<F>(chan_s + F, q, cpg, m2);
-    float* dcn = dc_out + (ns * nl + l) * kPix * F;
+    T* dcn = dc_out + (ns * nl + l) * kPix * F;
 #pragma unroll
     for (int k = 0; k < kPPT; ++k) {
       float d[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j) {
         d[j] = rstd[j] * (g[k][j] * scv[j] - m1[j] * inv_count -
                           xv[k][j] * (m2[j] * inv_count));
+        if constexpr (!kS) d[j] = bf16r(d[j]);
+      }
       if (!own[k]) continue;
       const float4 d4 = make_float4(d[0], d[1], d[2], d[3]);
       store_split4(dcs_s + pix[k] * B::kPair + 8 * q, d4);
-      if (valid) reinterpret_cast<float4*>(dcn + pix[k] * F)[q] = d4;
+      if (valid) store4(dcn + pix[k] * F + 4 * q, d4);
     }
-    if (l == 0 && dx) stage_stem_weights<F>(ws, stem_w, cin, cw);
+    if (l == 0 && dx) stage_stem_weights<F, kS>(ws, stem_w, cin, cw);
     __syncthreads();   // dcs and ws are complete; xm_s is free
 
     const int lane = tid & 31;
@@ -867,19 +988,23 @@ trunk_bwd_kernel(const float* __restrict__ stem_w,
       prefetch(l - 1);
       // dh of block l's input: the residual g plus the transposed conv
       const int mt = wis >> 1, nh = wis & 1;
-      conv_transpose_mma<F>(dcs_s, ws, F, mt, nh, nbr, acc);
+      conv_transpose_mma<F, kS>(dcs_s, ws, F, mt, nh, nbr, acc);
 #pragma unroll
       for (int j = 0; j < kPixTiles; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int p = 8 * (kPixTiles * nh + j) + 2 * tq + (e & 1);
-          if (p < kPix)
-            dhs_s[p * S::kHStride + 16 * mt + gid + 8 * (e >> 1)] += acc[j][e];
+          if (p >= kPix) continue;
+          float& d = dhs_s[p * S::kHStride + 16 * mt + gid + 8 * (e >> 1)];
+          if constexpr (kS)
+            d += acc[j][e];
+          else   // the conv's grad in bf16, then its sum with the residual's
+            d = bf16r(d + bf16r(acc[j][e]));
         }
     } else if (dx) {
       for (int job = wis; job < 2 * (cw / 16); job += B::kSampleWarps) {
         const int mt = job >> 1, nh = job & 1;
-        conv_transpose_mma<F>(dcs_s, ws, cw, mt, nh, nbr, acc);
+        conv_transpose_mma<F, kS>(dcs_s, ws, cw, mt, nh, nbr, acc);
         if (!valid) continue;
 #pragma unroll
         for (int j = 0; j < kPixTiles; ++j)
@@ -887,7 +1012,8 @@ trunk_bwd_kernel(const float* __restrict__ stem_w,
           for (int e = 0; e < 4; ++e) {
             const int p = 8 * (kPixTiles * nh + j) + 2 * tq + (e & 1);
             const int ci = 16 * mt + gid + 8 * (e >> 1);
-            if (p < kPix && ci < cin) dx[(ns * kPix + p) * cin + ci] = acc[j][e];
+            if (p < kPix && ci < cin)
+              store1(dx + (ns * kPix + p) * cin + ci, acc[j][e]);
           }
       }
     }
@@ -957,8 +1083,9 @@ struct WShape {
 // added by the caller at the end. The mma issue in the order written (asm
 // volatile), so a k-step issues every tile's lo*hi, then every hi*hi, then
 // every hi*lo: the two into one small accumulator lie 36 mma apart (back
-// to back, the products ran at half the rate).
-template <int F>
+// to back, the products ran at half the rate). With S false (the bf16
+// form: both operands bf16, a TF32 value already) only the hi*hi mma run.
+template <int F, bool S>
 __device__ __forceinline__ void wgrad_mma(
     const float* dcs, const float* ins, int is, const int* base, int ct,
     float (&acc)[WShape<F>::kMT][9][4], float (&small)[WShape<F>::kMT][9][4]) {
@@ -991,31 +1118,35 @@ __device__ __forceinline__ void wgrad_mma(
       bv[t][0] = split_tf32_trunc(b0p[tap[t]]);
       bv[t][1] = split_tf32_trunc(b1p[tap[t]]);
     }
+    if constexpr (S) {
 #pragma unroll
-    for (int mi = 0; mi < kMT; ++mi)
+      for (int mi = 0; mi < kMT; ++mi)
 #pragma unroll
-      for (int t = 0; t < 9; ++t)
-        mma_tf32(small[mi][t], av[mi][0].y, av[mi][1].y, av[mi][2].y,
-                 av[mi][3].y, bv[t][0].x, bv[t][1].x);
+        for (int t = 0; t < 9; ++t)
+          mma_tf32(small[mi][t], av[mi][0].y, av[mi][1].y, av[mi][2].y,
+                   av[mi][3].y, bv[t][0].x, bv[t][1].x);
+    }
 #pragma unroll
     for (int mi = 0; mi < kMT; ++mi)
 #pragma unroll
       for (int t = 0; t < 9; ++t)
         mma_tf32(acc[mi][t], av[mi][0].x, av[mi][1].x, av[mi][2].x,
                  av[mi][3].x, bv[t][0].x, bv[t][1].x);
+    if constexpr (S) {
 #pragma unroll
-    for (int mi = 0; mi < kMT; ++mi)
+      for (int mi = 0; mi < kMT; ++mi)
 #pragma unroll
-      for (int t = 0; t < 9; ++t)
-        mma_tf32(small[mi][t], av[mi][0].x, av[mi][1].x, av[mi][2].x,
-                 av[mi][3].x, bv[t][0].y, bv[t][1].y);
+        for (int t = 0; t < 9; ++t)
+          mma_tf32(small[mi][t], av[mi][0].x, av[mi][1].x, av[mi][2].x,
+                   av[mi][3].x, bv[t][0].y, bv[t][1].y);
+    }
   }
 }
 
-template <int F>
+template <int F, typename T>
 __global__ void __launch_bounds__(WShape<F>::kThreads, 2)
-trunk_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ acts,
-                   const float* __restrict__ dc_all,
+trunk_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ acts,
+                   const T* __restrict__ dc_all,
                    const float* __restrict__ dsn, float* __restrict__ partials,
                    int n, int cin, int layers, size_t total) {
   using W = WShape<F>;
@@ -1066,24 +1197,24 @@ trunk_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ acts,
   // start copying sample s's dc rows and input (onto the halo board) into
   // set b, as they are
   auto stage = [&](int s, int b) {
-    const float* dn = dc_all + (static_cast<size_t>(s) * nl + l) * kPix * F;
+    const T* dn = dc_all + (static_cast<size_t>(s) * nl + l) * kPix * F;
     for (int i = tid; i < kPix * F / 4; i += W::kThreads)
-      cp_async16(dcs(b) + (i / (F / 4)) * W::kDcStride + 4 * (i % (F / 4)),
-                 dn + 4 * i);
+      copy4(dcs(b) + (i / (F / 4)) * W::kDcStride + 4 * (i % (F / 4)),
+            dn + 4 * i);
     if (l == 0) {   // x rows of cin floats: not 16-byte aligned
-      const float* xn = x + static_cast<size_t>(s) * kPix * cin;
+      const T* xn = x + static_cast<size_t>(s) * kPix * cin;
       for (int i = tid; i < kBoard * cin; i += W::kThreads) {
         const int2 h = halo[i / cin];
         const int c = i % cin;
-        cp_async4(ins(b) + h.x * is + c, xn + h.y * cin + c);
+        copy1(ins(b) + h.x * is + c, xn + h.y * cin + c);
       }
     } else {
-      const float* an =
+      const T* an =
           acts + (static_cast<size_t>(s) * layers + l - 1) * kPix * F;
       for (int i = tid; i < kBoard * F / 4; i += W::kThreads) {
         const int2 h = halo[i / (F / 4)];
         const int q = 4 * (i % (F / 4));
-        cp_async16(ins(b) + h.x * is + q, an + h.y * F + q);
+        copy4(ins(b) + h.x * is + q, an + h.y * F + q);
       }
     }
   };
@@ -1125,7 +1256,8 @@ trunk_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ acts,
         stage(s + 1, b ^ 1);
         add_sb(s + 1, ct0);
       }
-      if (ct < nct) wgrad_mma<F>(dcs(b), ins(b), is, base, ct, acc, small);
+      if (ct < nct)
+        wgrad_mma<F, kSplit<T>>(dcs(b), ins(b), is, base, ct, acc, small);
     }
     if (ct < nct) {
 #pragma unroll
@@ -1158,13 +1290,13 @@ __global__ void column_sum(const float* __restrict__ in, float* __restrict__ out
   out[j] = s;
 }
 
-template <int F>
-cudaError_t launch_backward(const float* x, const float* stem_w,
+template <int F, typename T>
+cudaError_t launch_backward(const T* x, const float* stem_w,
                             const float* stem_scale, const float* block_w,
-                            const float* block_scale, const float* acts,
-                            const float* y, const float* xhat,
-                            const float* rstd, const float* dy, float* dx,
-                            float* dc_all, float* dsn, float* partials,
+                            const float* block_scale, const T* acts,
+                            const T* y, const float* xhat,
+                            const float* rstd, const T* dy, T* dx,
+                            T* dc_all, float* dsn, float* partials,
                             float* out, int n, int cin, int layers,
                             int groups, cudaStream_t stream) {
   using S = Shape<F>;
@@ -1179,9 +1311,10 @@ cudaError_t launch_backward(const float* x, const float* stem_w,
                        2 * kSamples * S::kWarps * F + kSamples * 2 * F) +
       sizeof(int) * kPix * kTaps);
   cudaError_t err = cudaFuncSetAttribute(
-      trunk_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
+      trunk_bwd_kernel<F, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_a);
   if (err != cudaSuccess) return err;
-  trunk_bwd_kernel<F><<<(n + kSamples - 1) / kSamples, B::kThreads, smem_a,
+  trunk_bwd_kernel<F, T><<<(n + kSamples - 1) / kSamples, B::kThreads, smem_a,
                         stream>>>(stem_w, stem_scale, block_w, block_scale,
                                   acts, y, xhat, rstd, dy, dx, dc_all, dsn, n,
                                   cin, layers, groups);
@@ -1194,11 +1327,11 @@ cudaError_t launch_backward(const float* x, const float* stem_w,
   const int smem_b = static_cast<int>(
       sizeof(float) * 2 * W::set_floats(cin) +
       sizeof(int) * (kKPix + 2 * (kRows + 2) * (kCols + 2)));
-  err = cudaFuncSetAttribute(trunk_wgrad_kernel<F>,
+  err = cudaFuncSetAttribute(trunk_wgrad_kernel<F, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_b);
   if (err != cudaSuccess) return err;
-  trunk_wgrad_kernel<F><<<dim3(nl, chunks), W::kThreads, smem_b, stream>>>(
+  trunk_wgrad_kernel<F, T><<<dim3(nl, chunks), W::kThreads, smem_b, stream>>>(
       x, acts, dc_all, dsn, partials, n, cin, layers, total);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1206,6 +1339,56 @@ cudaError_t launch_backward(const float* x, const float* stem_w,
   column_sum<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
       partials, out, chunks, total);
   return cudaGetLastError();
+}
+
+// The C entry points' dispatch on F (16 or 32) for activations of type T.
+template <typename T>
+int forward_entry(const T* x, const float* stem_w, const float* stem_scale,
+                  const float* stem_bias, const float* block_w,
+                  const float* block_scale, const float* block_bias, T* out,
+                  T* saved, float* xhat, float* rstd, int n, int cin, int f,
+                  int layers, int groups, float eps, void* stream) {
+  if (n <= 0 || cin <= 0 || layers < 0 || groups <= 0 || f % groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (f) {
+    case 16:
+      return launch<16, T>(x, stem_w, stem_scale, stem_bias, block_w,
+                           block_scale, block_bias, out, saved, xhat, rstd, n,
+                           cin, layers, groups, eps, s);
+    case 32:
+      return launch<32, T>(x, stem_w, stem_scale, stem_bias, block_w,
+                           block_scale, block_bias, out, saved, xhat, rstd, n,
+                           cin, layers, groups, eps, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int backward_entry(const T* x, const float* stem_w, const float* stem_scale,
+                   const float* block_w, const float* block_scale,
+                   const T* acts, const T* y, const float* xhat,
+                   const float* rstd, const T* dy, T* dx, T* dc_all,
+                   float* dsn, float* partials, float* out, int n, int cin,
+                   int f, int layers, int groups, void* stream) {
+  if (n <= 0 || cin <= 0 || layers < 0 || groups <= 0 || f % groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (f) {
+    case 16:
+      return launch_backward<16, T>(x, stem_w, stem_scale, block_w,
+                                    block_scale, acts, y, xhat, rstd, dy, dx,
+                                    dc_all, dsn, partials, out, n, cin,
+                                    layers, groups, s);
+    case 32:
+      return launch_backward<32, T>(x, stem_w, stem_scale, block_w,
+                                    block_scale, acts, y, xhat, rstd, dy, dx,
+                                    dc_all, dsn, partials, out, n, cin,
+                                    layers, groups, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -1219,21 +1402,22 @@ extern "C" int geese_trunk_forward(const float* x, const float* stem_w,
                                    float* saved, float* xhat, float* rstd,
                                    int n, int cin, int f, int layers,
                                    int groups, float eps, void* stream) {
-  if (n <= 0 || cin <= 0 || layers < 0 || groups <= 0 || f % groups != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (f) {
-    case 16:
-      return launch<16>(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
-                        block_bias, out, saved, xhat, rstd, n, cin, layers,
-                        groups, eps, s);
-    case 32:
-      return launch<32>(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
-                        block_bias, out, saved, xhat, rstd, n, cin, layers,
-                        groups, eps, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return forward_entry<float>(x, stem_w, stem_scale, stem_bias, block_w,
+                              block_scale, block_bias, out, saved, xhat, rstd,
+                              n, cin, f, layers, groups, eps, stream);
+}
+
+// The bf16 form: x, out and saved (the block inputs) are bf16; the
+// weights, xhat and rstd float.
+extern "C" int geese_trunk_forward_bf16(
+    const bf16* x, const float* stem_w, const float* stem_scale,
+    const float* stem_bias, const float* block_w, const float* block_scale,
+    const float* block_bias, bf16* out, bf16* saved, float* xhat,
+    float* rstd, int n, int cin, int f, int layers, int groups, float eps,
+    void* stream) {
+  return forward_entry<bf16>(x, stem_w, stem_scale, stem_bias, block_w,
+                             block_scale, block_bias, out, saved, xhat, rstd,
+                             n, cin, f, layers, groups, eps, stream);
 }
 
 // acts (n, layers, 77, f), y (n, 77, f), xhat (n, layers+1, 77, f) and
@@ -1247,21 +1431,23 @@ extern "C" int geese_trunk_backward(
     const float* y, const float* xhat, const float* rstd, const float* dy,
     float* dx, float* dc_all, float* dsn, float* partials, float* out, int n,
     int cin, int f, int layers, int groups, void* stream) {
-  if (n <= 0 || cin <= 0 || layers < 0 || groups <= 0 || f % groups != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (f) {
-    case 16:
-      return launch_backward<16>(x, stem_w, stem_scale, block_w, block_scale,
-                                 acts, y, xhat, rstd, dy, dx, dc_all, dsn,
-                                 partials, out, n, cin, layers, groups, s);
-    case 32:
-      return launch_backward<32>(x, stem_w, stem_scale, block_w, block_scale,
-                                 acts, y, xhat, rstd, dy, dx, dc_all, dsn,
-                                 partials, out, n, cin, layers, groups, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return backward_entry<float>(x, stem_w, stem_scale, block_w, block_scale,
+                               acts, y, xhat, rstd, dy, dx, dc_all, dsn,
+                               partials, out, n, cin, f, layers, groups,
+                               stream);
+}
+
+// The bf16 form: x, acts, y, dy, dx and dc_all are bf16; the rest float.
+extern "C" int geese_trunk_backward_bf16(
+    const bf16* x, const float* stem_w, const float* stem_scale,
+    const float* block_w, const float* block_scale, const bf16* acts,
+    const bf16* y, const float* xhat, const float* rstd, const bf16* dy,
+    bf16* dx, bf16* dc_all, float* dsn, float* partials, float* out, int n,
+    int cin, int f, int layers, int groups, void* stream) {
+  return backward_entry<bf16>(x, stem_w, stem_scale, block_w, block_scale,
+                              acts, y, xhat, rstd, dy, dx, dc_all, dsn,
+                              partials, out, n, cin, f, layers, groups,
+                              stream);
 }
 
 extern "C" int geese_trunk_backward_chunk() { return kChunk; }

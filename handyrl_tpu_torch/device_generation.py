@@ -190,6 +190,10 @@ def env_generator(device: torch.device, seed: int) -> torch.Generator:
 # ------------------------------------------------------- the split path
 
 def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """numpy's dtype of ``dtype``; bf16 (a bf16 net's value, which numpy
+    lacks) is fp32, which holds its values."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.float32)
     return torch.empty(0, dtype=dtype).numpy().dtype
 
 

@@ -23,9 +23,17 @@ import numpy as np
 import torch
 
 from . import models as model_zoo
+from .models.blocks import compute_dtype_of
 from .ops import launches
 from .utils import flax_msgpack
 from .utils.tree import map_structure
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bf16 (which numpy lacks) as
+    fp32 holding the same values."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def resolve_device(device: Any = 'cuda') -> torch.device:
@@ -67,6 +75,9 @@ def param_trees(module):
                        % model_zoo.architecture_name(module))
     if hasattr(module, 'norm_kind'):
         to_flax = functools.partial(to_flax, norm_kind=module.norm_kind)
+    if hasattr(module, 'remat'):
+        # flax names a rematerialised block 'CheckpointBlock_i'
+        to_flax = functools.partial(to_flax, remat=module.remat)
     return to_flax, from_flax
 
 
@@ -100,16 +111,17 @@ class ModelWrapper:
         shape on the device."""
         if batch_shape is None:
             hidden = self.module.init_hidden(())
-            return None if hidden is None else map_structure(
-                lambda t: t.cpu().numpy(), hidden)
+            return None if hidden is None else map_structure(to_host,
+                                                             hidden)
         return self.module.init_hidden(tuple(batch_shape))
 
-    def _to_device(self, x):
+    def _to_device(self, x, dtype=None):
         # contiguous: an env may hand over a view with negative strides
         # (Geister's rotated board), which torch cannot wrap
         return map_structure(
             lambda v: None if v is None else torch.as_tensor(
-                np.ascontiguousarray(v), device=self.device), x)
+                np.ascontiguousarray(v), device=self.device, dtype=dtype),
+            x)
 
     @torch.no_grad()
     def batch_inference(self, obs, hidden=None) -> Dict[str, Any]:
@@ -121,9 +133,13 @@ class ModelWrapper:
             return self._forward_to_host(obs, hidden)
 
     def _forward_to_host(self, obs, hidden):
-        # every device tensor of the call is freed by the time it returns
-        outputs = self.module(self._to_device(obs), self._to_device(hidden))
-        return {k: map_structure(lambda t: t.cpu().numpy(), v)
+        # every device tensor of the call is freed by the time it returns;
+        # a recurrent state comes back in the net's compute dtype (the JAX
+        # actor's arrays stay bf16; numpy hands them over as fp32)
+        outputs = self.module(
+            self._to_device(obs),
+            self._to_device(hidden, compute_dtype_of(self.module)))
+        return {k: map_structure(to_host, v)
                 for k, v in outputs.items() if v is not None}
 
     def inference(self, obs, hidden=None) -> Dict[str, Any]:

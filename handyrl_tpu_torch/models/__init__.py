@@ -20,7 +20,8 @@ def register(name: str):
 def _constructor(name: str) -> Callable:
     if name not in _REGISTRY:
         # lazily import the built-in model modules, which self-register
-        from . import connect_four, geese, geister, tictactoe  # noqa: F401
+        from . import (connect_four, geese, geister,  # noqa: F401
+                       tictactoe, transformer)
     if name not in _REGISTRY:
         raise KeyError('architecture %r is not ported' % (name,))
     return _REGISTRY[name]

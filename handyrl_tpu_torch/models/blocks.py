@@ -21,6 +21,16 @@ advanced to the innermost :func:`batch_stats_sink`, so a functional step
 (``ops/train_step.py``, :func:`collect_batch_stats`) gets them as new
 values of the module's buffers and the buffers themselves never change in
 a forward.
+
+The compute dtype (:func:`set_compute_dtype`, the learner's
+``compute_dtype``) is flax's ``dtype`` on a module, op by op, not
+``torch.autocast``: a conv or dense layer casts its input, its kernel
+and its bias to it and returns it (:func:`conv2d`, :func:`linear`,
+:func:`dense`); a norm keeps fp32 statistics (and fp32 running averages)
+and returns its input's dtype; params stay in their own dtype (fp32).
+Where an fp32 tensor meets a bf16 one, torch promotes to fp32 as JAX
+does. None, the default, casts nothing: the net runs in its params'
+dtype.
 """
 
 from __future__ import annotations
@@ -59,6 +69,55 @@ def batch_stats_sink():
         yield out
     finally:
         _SINK.out = prev
+
+
+def compute_dtype_of(module: nn.Module) -> Optional[torch.dtype]:
+    """The module's compute dtype; None: its params' own."""
+    return getattr(module, 'compute_dtype', None)
+
+
+def set_compute_dtype(net: nn.Module, dtype) -> nn.Module:
+    """Run ``net`` (and each of its submodules) in ``dtype`` (a torch dtype
+    or its name; None, '' or float32 for the params' own), as flax's
+    ``module.clone(dtype=...)``. The params are left as they are. Returns
+    ``net``."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype) if dtype else None
+    if dtype == torch.float32:
+        dtype = None
+    for m in net.modules():
+        m.compute_dtype = dtype
+    return net
+
+
+def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    return t if t is None or dtype is None else t.to(dtype)
+
+
+def conv2d(layer: nn.Conv2d, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """flax nn.Conv(dtype=...): the input and the kernel in ``dtype``, the
+    bias added in it (flax rounds the conv, then the sum); None runs the
+    layer as it is."""
+    if dtype is None:
+        return layer(x)
+    y = layer._conv_forward(x.to(dtype), layer.weight.to(dtype), None)
+    if layer.bias is not None:
+        y = y + layer.bias.to(dtype).reshape(1, -1, 1, 1)
+    return y
+
+
+def linear(layer: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """flax nn.Dense(dtype=...) on a torch Linear, as :func:`conv2d`."""
+    if dtype is None:
+        return layer(x)
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
+def dense(x: torch.Tensor, kernel: torch.Tensor, dtype=None) -> torch.Tensor:
+    """flax nn.Dense(use_bias=False, dtype=...) with a flax-layout kernel
+    (in, out): ``x @ kernel`` with both in ``dtype``."""
+    return _cast(x, dtype) @ _cast(kernel, dtype)
 
 
 def _moments(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -102,14 +161,16 @@ def batchstats_norm(x: torch.Tensor, scale: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
     """The JAX package's ``BatchStatsNorm``: the current batch's fp32
     statistics over every axis but the channels (the two-pass variance,
-    as ``jnp.var``), eps 1e-5, in every forward; no running averages."""
+    as ``jnp.var``), eps 1e-5, in every forward; no running averages. The
+    normalised value is rounded to x's dtype and scaled in it, as the JAX
+    module does (its scale and bias are params of its dtype)."""
     dims = (0,) + tuple(range(2, x.dim()))
     xf = x.float()
     mu = xf.mean(dim=dims, keepdim=True)
     v = ((xf - mu) ** 2).mean(dim=dims, keepdim=True)
-    y = (xf - mu) / torch.sqrt(v + BN_EPS)
-    return (y * _channel(scale, x.dim()) + _channel(bias, x.dim())).to(
-        x.dtype)
+    y = ((xf - mu) / torch.sqrt(v + BN_EPS)).to(x.dtype)
+    return (y * _channel(scale, x.dim()).to(x.dtype)
+            + _channel(bias, x.dim()).to(x.dtype))
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -204,6 +265,7 @@ class TorusConv(nn.Module):
                 stats: Tuple[str, str] = ('mean', 'var'),
                 index: Optional[int] = None,
                 train: bool = False) -> torch.Tensor:
+        x = _cast(x, compute_dtype_of(self))
         return norm_nchw(self.norm_kind, torus_conv(x, kernel, self.impl),
                          scale, bias, self.groups, owner, train, stats,
                          index)
@@ -361,7 +423,7 @@ def _flatten_hwc(h: torch.Tensor) -> torch.Tensor:
 class ConvBlock(nn.Module):
     """Zero-padded ('SAME') 3x3 conv without a bias + norm on NCHW
     (``handyrl_tpu/models/blocks.py`` ConvBlock as every JAX net uses
-    it)."""
+    it), in the compute dtype."""
 
     def __init__(self, in_channels: int, filters: int,
                  norm_kind: str = 'group', init_kind: str = 'flax'):
@@ -375,7 +437,7 @@ class ConvBlock(nn.Module):
         _reset_norm(self.norm)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return self.norm(self.conv(x), train)
+        return self.norm(conv2d(self.conv, x, compute_dtype_of(self)), train)
 
 
 class PolicyHead(nn.Module):
@@ -394,8 +456,9 @@ class PolicyHead(nn.Module):
         _reset_dense(self.dense, generator, self.init_kind)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.leaky_relu(self.conv(x), negative_slope=0.1)
-        return self.dense(_flatten_hwc(h))
+        dt = compute_dtype_of(self)
+        h = F.leaky_relu(conv2d(self.conv, x, dt), negative_slope=0.1)
+        return linear(self.dense, _flatten_hwc(h), dt)
 
 
 class ScalarHead(nn.Module):
@@ -417,8 +480,9 @@ class ScalarHead(nn.Module):
         _reset_dense(self.dense, generator, self.init_kind)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        h = torch.relu(self.norm(self.conv(x), train))
-        return self.dense(_flatten_hwc(h))
+        dt = compute_dtype_of(self)
+        h = torch.relu(self.norm(conv2d(self.conv, x, dt), train))
+        return linear(self.dense, _flatten_hwc(h), dt)
 
 
 class SpatialPolicyHead(nn.Module):
@@ -441,8 +505,10 @@ class SpatialPolicyHead(nn.Module):
         _reset_conv(self.out, generator, self.init_kind)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        h = torch.relu(self.norm(self.conv(x), train))
-        return self.out(h).reshape(x.shape[0], -1)   # NCHW: channel-major
+        dt = compute_dtype_of(self)
+        h = torch.relu(self.norm(conv2d(self.conv, x, dt), train))
+        # NCHW: channel-major
+        return conv2d(self.out, h, dt).reshape(x.shape[0], -1)
 
 
 class ConvLSTMCell(nn.Module):
@@ -470,7 +536,8 @@ class ConvLSTMCell(nn.Module):
 
     def forward(self, x: torch.Tensor, state):
         h_prev, c_prev = state
-        gates = self.conv(torch.cat([x, h_prev.to(x.dtype)], dim=1))
+        gates = conv2d(self.conv, torch.cat([x, h_prev.to(x.dtype)], dim=1),
+                       compute_dtype_of(self))
         i, f, o, g = torch.chunk(gates, 4, dim=1)
         c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
@@ -499,11 +566,12 @@ class DRC(nn.Module):
             cell.reset_parameters(generator)
 
     def initial_state(self, x: torch.Tensor):
-        """Zeros for every layer, shaped as ``x``'s board with F
-        channels."""
+        """Zeros for every layer, shaped as ``x``'s board with F channels,
+        in the compute dtype (else x's)."""
         shape = (x.shape[0], self.features) + tuple(x.shape[-2:])
-        return ([x.new_zeros(shape) for _ in range(self.num_layers)],
-                [x.new_zeros(shape) for _ in range(self.num_layers)])
+        kw = dict(dtype=compute_dtype_of(self) or x.dtype)
+        return ([x.new_zeros(shape, **kw) for _ in range(self.num_layers)],
+                [x.new_zeros(shape, **kw) for _ in range(self.num_layers)])
 
     def forward(self, x: torch.Tensor, state=None):
         if state is None:

@@ -15,7 +15,11 @@ convs, layer by layer, on slices of the same tensors. All three are the
 same function of the same parameters.
 
 ``norm_kind`` is the JAX module's ('group', 'batch', 'batchstats',
-'layer'; the kernel trunk runs 'group' alone, as the TPU kernel does). A
+'layer'; the kernel trunk runs 'group' alone, as the TPU kernel does).
+In a bf16 compute dtype (``blocks.set_compute_dtype``) the trunk runs in
+bf16 (the kernel trunk's bf16 form), the head-cell readout multiplies by
+the fp32 observation (so ``h_head`` is fp32, as in JAX, until the dense
+layers cast it) and the outputs are bf16. A
 'batch' net keeps its running averages in the buffers ``stem_mean``,
 ``stem_var``, ``block_mean`` (L, F) and ``block_var``, flax's
 ``batch_stats`` ``TorusConv_i/BatchNorm_0/{mean, var}`` in a snapshot.
@@ -40,8 +44,8 @@ import torch
 from torch import nn
 
 from . import register
-from .blocks import (NORM_MODULE, ConvLSTMCell, TorusConv, lecun_normal_,
-                     to_nhwc)
+from .blocks import (NORM_MODULE, ConvLSTMCell, TorusConv, compute_dtype_of,
+                     dense, lecun_normal_, to_nhwc)
 from ..ops.geese_trunk import (trunk_apply, trunk_params_from_geesenet,
                                trunk_serve)
 
@@ -148,10 +152,14 @@ class GeeseNet(nn.Module):
         return None
 
     def trunk(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """(N,7,11,Cin) NHWC -> (N,7,11,F) NHWC."""
+        """(N,7,11,Cin) NHWC -> (N,7,11,F) NHWC, in the compute dtype."""
         if self.torus_impl == 'pallas':
             # under autograd the trunk is K1 forward, K2 backward; without
-            # it K1's serving form, the registered operator
+            # it K1's serving form, the registered operator; x's dtype
+            # picks the kernels' form
+            dt = compute_dtype_of(self)
+            if dt is not None:
+                x = x.to(dt)
             fn = trunk_apply if torch.is_grad_enabled() else trunk_serve
             return fn(x.contiguous(), self.stem_w, self.stem_scale,
                       self.stem_bias, self.block_w, self.block_scale,
@@ -161,15 +169,19 @@ class GeeseNet(nn.Module):
 
     def forward(self, obs: torch.Tensor, hidden=None,
                 train: bool = False) -> Dict[str, Any]:
+        # the observation stays in the params' dtype: the head mask below
+        # is the fp32 observation, as in JAX
         x = to_nhwc(obs).to(self.stem_w.dtype)        # (..., 7, 11, 17)
         lead = x.shape[:-3]
         x = x.reshape((-1,) + x.shape[-3:])
         h = self.trunk(x, train)
+        dt = compute_dtype_of(self)
         # pool features at the acting goose's head cell (channel 0 of obs)
         h_head = (h * x[..., :1]).sum(dim=(1, 2))     # (N, F)
         h_avg = h.mean(dim=(1, 2))                    # (N, F)
-        policy = h_head @ self.policy_w
-        value = torch.tanh(torch.cat([h_head, h_avg], dim=-1) @ self.value_w)
+        policy = dense(h_head, self.policy_w, dt)
+        value = torch.tanh(dense(torch.cat([h_head, h_avg], dim=-1),
+                                 self.value_w, dt))
         return {'policy': policy.reshape(lead + (4,)),
                 'value': value.reshape(lead + (1,))}
 
@@ -220,12 +232,13 @@ class GeeseNetLSTM(nn.Module):
 
     def init_hidden(self, batch_shape=()):
         """Zeros ``(h, c)``, each ``batch_shape + (7, 11, F)``, on the
-        parameters' device (two tensors, as the JAX package's two
-        arrays)."""
+        parameters' device in the compute dtype (two tensors, as the JAX
+        package's two arrays)."""
         shape = tuple(batch_shape or ()) + (7, 11, self.filters)
         w = self.stem_w
-        return (torch.zeros(shape, dtype=w.dtype, device=w.device),
-                torch.zeros(shape, dtype=w.dtype, device=w.device))
+        dtype = compute_dtype_of(self) or w.dtype
+        return (torch.zeros(shape, dtype=dtype, device=w.device),
+                torch.zeros(shape, dtype=dtype, device=w.device))
 
     def forward(self, obs: torch.Tensor, hidden=None,
                 train: bool = False) -> Dict[str, Any]:
@@ -233,17 +246,21 @@ class GeeseNetLSTM(nn.Module):
         lead = x.shape[:-3]
         x = x.reshape((-1,) + x.shape[-3:])
         h = _torus_trunk(self, x, train)
+        dt = compute_dtype_of(self)
         if hidden is None:
             hidden = self.init_hidden((x.shape[0],))
-        # the state crosses the boundary as (..., 7, 11, F)
+        # the state crosses the boundary as (..., 7, 11, F), in its own
+        # dtype: an fp32 state (the learner's gated one) promotes the cell
+        # to fp32 as in JAX
         h_prev, c_prev = (t.reshape((-1,) + tuple(t.shape[-3:]))
                           .permute(0, 3, 1, 2) for t in hidden)
         h, (h_next, c_next) = self.lstm(h, (h_prev, c_prev))
         # pool features at the acting goose's head cell (channel 0 of obs)
         h_head = (h * x[:, :1]).sum(dim=(2, 3))       # (N, F)
         h_avg = h.mean(dim=(2, 3))                    # (N, F)
-        policy = h_head @ self.policy_w
-        value = torch.tanh(torch.cat([h_head, h_avg], dim=-1) @ self.value_w)
+        policy = dense(h_head, self.policy_w, dt)
+        value = torch.tanh(dense(torch.cat([h_head, h_avg], dim=-1),
+                                 self.value_w, dt))
 
         def out(t):
             return t.permute(0, 2, 3, 1).reshape(lead + tuple(

@@ -31,7 +31,8 @@ from torch import nn
 
 from . import register
 from .blocks import (DRC, NORM_MODULE, ConvBlock, PolicyHead, ScalarHead,
-                     SpatialPolicyHead, _reset_dense)
+                     SpatialPolicyHead, _reset_dense, compute_dtype_of,
+                     linear)
 from .tictactoe import FLAX_TO_TORCH, TORCH_TO_FLAX
 
 BOARD_PLANES, SCALARS, SIDE = 7, 18, 6
@@ -100,12 +101,14 @@ class GeisterNet(nn.Module):
 
     def init_hidden(self, batch_shape=()):
         """Zero DRC state ``(hs, cs)``: lists of ``drc_layers`` distinct
-        ``batch_shape + (6, 6, F)`` tensors on the parameters' device."""
+        ``batch_shape + (6, 6, F)`` tensors on the parameters' device, in
+        the compute dtype."""
         shape = tuple(batch_shape or ()) + (SIDE, SIDE, self.filters)
         w = self.p_set.weight
+        dtype = compute_dtype_of(self) or w.dtype
 
         def mk():
-            return torch.zeros(shape, dtype=w.dtype, device=w.device)
+            return torch.zeros(shape, dtype=dtype, device=w.device)
         return ([mk() for _ in range(self.drc_layers)],
                 [mk() for _ in range(self.drc_layers)])
 
@@ -122,18 +125,24 @@ class GeisterNet(nn.Module):
         x = torch.cat([board, s_map], dim=1)            # (N, 25, 6, 6)
         h = torch.relu(self.stem(x, train))
         state = None
+        dt = compute_dtype_of(self)
         if hidden is not None:
-            # (..., 6, 6, F) at the boundary -> (N, F, 6, 6)
+            # (..., 6, 6, F) at the boundary -> (N, F, 6, 6); an fp32 or
+            # bf16 state keeps its dtype (an fp32 one promotes the cells
+            # to fp32, as in JAX), any other is taken in the params'
             state = tuple([t.reshape((n,) + tuple(t.shape[-3:]))
-                           .permute(0, 3, 1, 2).to(dtype) for t in part]
-                          for part in hidden)
+                           .permute(0, 3, 1, 2).to(
+                               t.dtype if t.dtype in (torch.float32,
+                                                      torch.bfloat16)
+                               else dtype)
+                           for t in part] for part in hidden)
         h, (hs, cs) = self.body(h, state)
         if self.policy_head == 'spatial':
             p_move = self.move_head(h, train)
         else:
             p_move = self.move_head(h)
         # setup-phase logits conditioned only on the side-to-move bit
-        p_set = self.p_set(scalar[:, :1])
+        p_set = linear(self.p_set, scalar[:, :1], dt)
         policy = torch.cat([p_move, p_set], dim=-1)
         value = torch.tanh(self.value_head(h, train))
         ret = self.return_head(h, train)

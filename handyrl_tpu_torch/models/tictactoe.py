@@ -21,7 +21,8 @@ import torch
 from torch import nn
 
 from . import register
-from .blocks import ConvBlock, PolicyHead, ScalarHead, lecun_normal_
+from .blocks import (ConvBlock, PolicyHead, ScalarHead, compute_dtype_of,
+                     conv2d, lecun_normal_)
 
 PLANES = 3
 
@@ -72,7 +73,8 @@ class SimpleConv2dModel(nn.Module):
     def forward(self, obs: torch.Tensor, hidden=None) -> Dict[str, Any]:
         x = obs.to(self.conv.weight.dtype)            # (..., 3, ROWS, COLS)
         lead = x.shape[:-3]
-        h = torch.relu(self.conv(x.reshape((-1,) + x.shape[-3:])))
+        h = torch.relu(conv2d(self.conv, x.reshape((-1,) + x.shape[-3:]),
+                              compute_dtype_of(self)))
         for block in self.blocks:
             h = torch.relu(block(h))
         policy = self.policy_head(h)

@@ -17,6 +17,18 @@ forward, so it recomputes no conv. Each kernel launch is counted by
 count). K1's serving form is also the registered operator
 ``handyrl_tpu_torch::geese_trunk`` (:func:`trunk_serve`), which the net
 calls without autograd and ``torch.export`` keeps as one node.
+
+The dtype of x picks the form. float32 is the fp32 form. bfloat16 is the
+bf16 form, the TPU kernel's ``dtype=bfloat16`` (``tile_forward``: the
+weights cast to bf16, fp32 tap sums and GroupNorm statistics, the conv
+output, the norm's output and the residual sum rounded to bf16); its
+launches count as 'geese_trunk_bf16' and 'geese_trunk_bwd_bf16'. The
+weights, scales and biases are float32 in both forms (the net's params);
+in the bf16 form the output, the saved block inputs, dy and dx are bf16,
+``xhat``, ``rstd`` and every weight grad float32. The bf16 backward rounds
+to bf16 what the forward's bf16 tensors receive: each conv output's grad,
+each transposed conv and its sum with the residual grad, and dx; its
+weight grads are fp32 sums of bf16 products.
 """
 
 from __future__ import annotations
@@ -32,6 +44,10 @@ from . import cuda_build, launches
 ROWS, COLS = 7, 11
 EPS = 1e-6
 SUPPORTED_FILTERS = (16, 32)   # the kernel's instantiations
+# the activations' dtype of each of the kernel's two forms, and its
+# launch counters (forward, backward)
+COUNTERS = {torch.float32: ('geese_trunk', 'geese_trunk_bwd'),
+            torch.bfloat16: ('geese_trunk_bf16', 'geese_trunk_bwd_bf16')}
 
 
 # ------------------------------------------------------------ plain version
@@ -84,11 +100,14 @@ def trunk_forward_reference(x, stem_w, stem_scale, stem_bias, block_w,
                             eps: float = EPS, acts=None, xhat=None,
                             rstd=None) -> torch.Tensor:
     """Plain PyTorch twin of ``pallas_geese.tile_forward``, step by step:
-    relu(GN(conv(x))) stem, then L x relu(h + GN(conv(h))). The training
+    relu(GN(conv(x))) stem, then L x relu(h + GN(conv(h))), in x's dtype
+    (the weights cast to it; float32 sums and statistics). The training
     forward's buffers, each optional: ``acts`` (N,L,7,11,F) gets block i's
     input at ``acts[:, i]``; ``xhat`` (N,L+1,7,11,F) and ``rstd``
     (N,L+1,groups) get layer l's normalised conv output and per-group rstd
     at ``[:, l]`` (layer 0 is the stem)."""
+    stem_w, block_w = stem_w.to(x.dtype), block_w.to(x.dtype)
+
     def norm(c, l, scale, bias):
         saved = None
         if xhat is not None and rstd is not None:
@@ -177,7 +196,11 @@ def trunk_backward_reference(x, stem_w, stem_scale, stem_bias, block_w,
     normalised conv output and rstd are ``xhat`` and ``rstd`` from that
     forward (as K2 reads them); without them they are recomputed from the
     layer inputs. Returns (dx or None, d_stem_w, d_stem_scale,
-    d_stem_bias, d_block_w, d_block_scale, d_block_bias)."""
+    d_stem_bias, d_block_w, d_block_scale, d_block_bias): dx in x's
+    dtype, the rest float32. With x in bf16 the math runs in float32 on
+    the bf16 values, the weights rounded to bf16, and rounds to bf16 each
+    conv output's grad, each transposed conv, its sum with the residual
+    grad and dx, as the bf16 kernel does."""
     layers = [(stem_w, stem_scale, stem_bias)] + [
         (block_w[i], block_scale[i], block_bias[i])
         for i in range(block_w.shape[0])]
@@ -190,23 +213,31 @@ def trunk_backward_reference(x, stem_w, stem_scale, stem_bias, block_w,
     blocks_in = [acts[:, i] for i in range(acts.shape[1])]
     inputs, outs = [x] + blocks_in, blocks_in + [y]
     if xhat is None or rstd is None:
-        normed = [_normalize(_torus_conv(h, w), groups, eps)
+        normed = [_normalize(_torus_conv(h, w.to(x.dtype)), groups, eps)
                   for h, (w, _, _) in zip(inputs, layers)]
     else:
         normed = [(xhat[:, l], rstd[:, l], None) for l in range(len(layers))]
-    dh = dy
+    if x.dtype == torch.float32:
+        def rd(t):
+            return t
+    else:   # the bf16 form's rounding points
+        def rd(t):
+            return t.to(x.dtype).float()
+    dh = dy.float()
     grads = [None] * len(layers)
     dx = None
     for i in range(len(layers) - 1, -1, -1):
         w, s, _ = layers[i]
+        w = rd(w)
         g = dh * (outs[i] > 0)
         dc, ds, db = _group_norm_backward(g, *normed[i][:2], s, groups,
                                           normed[i][2])
-        grads[i] = (_conv_weight_grad(inputs[i], dc), ds, db)
+        dc = rd(dc)
+        grads[i] = (_conv_weight_grad(inputs[i].float(), dc), ds, db)
         if i > 0:
-            dh = g + _conv_transpose(dc, w)
+            dh = rd(g + rd(_conv_transpose(dc, w)))
         elif need_dx:
-            dx = _conv_transpose(dc, w)
+            dx = _conv_transpose(dc, w).to(x.dtype)
     blocks = grads[1:]
 
     def stack(k, like):
@@ -229,11 +260,13 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_build.load('geese_trunk')
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.geese_trunk_forward.argtypes = [p] * 11 + [i] * 5 + [
-            ctypes.c_float, p]
-        lib.geese_trunk_forward.restype = ctypes.c_int
-        lib.geese_trunk_backward.argtypes = [p] * 15 + [i] * 5 + [p]
-        lib.geese_trunk_backward.restype = ctypes.c_int
+        for suffix in ('', '_bf16'):
+            fwd = getattr(lib, 'geese_trunk_forward' + suffix)
+            fwd.argtypes = [p] * 11 + [i] * 5 + [ctypes.c_float, p]
+            fwd.restype = ctypes.c_int
+            bwd = getattr(lib, 'geese_trunk_backward' + suffix)
+            bwd.argtypes = [p] * 15 + [i] * 5 + [p]
+            bwd.restype = ctypes.c_int
         lib.geese_trunk_backward_chunk.argtypes = []
         lib.geese_trunk_backward_chunk.restype = ctypes.c_int
         lib.geese_trunk_error_string.argtypes = [i]
@@ -243,15 +276,15 @@ def _library() -> ctypes.CDLL:
 
 
 def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
-           device: torch.device):
+           device: torch.device, dtype: torch.dtype = torch.float32):
     if not isinstance(t, torch.Tensor):
         raise TypeError('geese_trunk: %s must be a tensor' % name)
     if t.device != device:
         raise ValueError('geese_trunk: %s is on %s, x on %s'
                          % (name, t.device, device))
-    if t.dtype != torch.float32:
-        raise TypeError('geese_trunk: %s is %s; the kernel takes float32'
-                        % (name, t.dtype))
+    if t.dtype != dtype:
+        raise TypeError('geese_trunk: %s is %s; the kernel takes %s here'
+                        % (name, t.dtype, dtype))
     if tuple(t.shape) != tuple(shape):
         raise ValueError('geese_trunk: %s has shape %s, expected %s'
                          % (name, tuple(t.shape), tuple(shape)))
@@ -277,7 +310,10 @@ def _check_operands(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
         raise ValueError('geese_trunk: %d groups do not divide F=%d'
                          % (groups, filters))
     dev = x.device
-    _check('x', x, (n, ROWS, COLS, cin), dev)
+    if x.dtype not in COUNTERS:
+        raise TypeError('geese_trunk: x is %s; the kernel takes float32 or '
+                        'bfloat16' % (x.dtype,))
+    _check('x', x, (n, ROWS, COLS, cin), dev, x.dtype)
     _check('stem_w', stem_w, (3, 3, cin, filters), dev)
     _check('stem_scale', stem_scale, (filters,), dev)
     _check('stem_bias', stem_bias, (filters,), dev)
@@ -301,24 +337,28 @@ def _raise_on(err: int, lib, what: str):
 
 
 def training_buffers(n: int, layers: int, filters: int, groups: int,
-                     device) -> Dict[str, torch.Tensor]:
-    """Empty float32 buffers for what the training forward saves for K2:
-    ``acts`` (n,L,7,11,F), ``xhat`` (n,L+1,7,11,F), ``rstd`` (n,L+1,groups),
-    to pass to :func:`trunk_forward` as keywords."""
+                     device, dtype: torch.dtype = torch.float32
+                     ) -> Dict[str, torch.Tensor]:
+    """Empty buffers for what the training forward saves for K2: ``acts``
+    (n,L,7,11,F) in the activations' ``dtype``, float32 ``xhat``
+    (n,L+1,7,11,F) and ``rstd`` (n,L+1,groups), to pass to
+    :func:`trunk_forward` as keywords."""
     f32 = dict(device=device, dtype=torch.float32)
-    return {'acts': torch.empty((n, layers, ROWS, COLS, filters), **f32),
+    return {'acts': torch.empty((n, layers, ROWS, COLS, filters),
+                                device=device, dtype=dtype),
             'xhat': torch.empty((n, layers + 1, ROWS, COLS, filters), **f32),
             'rstd': torch.empty((n, layers + 1, groups), **f32)}
 
 
-def _check_saved(n, layers, filters, groups, dev, acts=None, xhat=None,
-                 rstd=None, y=None):
-    """Shape checks of the training forward's saved tensors."""
-    _check('acts', acts, (n, layers, ROWS, COLS, filters), dev)
+def _check_saved(n, layers, filters, groups, dev, dtype, acts=None,
+                 xhat=None, rstd=None, y=None):
+    """Shape and dtype checks of the training forward's saved tensors
+    (``dtype``: the activations')."""
+    _check('acts', acts, (n, layers, ROWS, COLS, filters), dev, dtype)
     _check('xhat', xhat, (n, layers + 1, ROWS, COLS, filters), dev)
     _check('rstd', rstd, (n, layers + 1, groups), dev)
     if y is not None:
-        _check('y', y, (n, ROWS, COLS, filters), dev)
+        _check('y', y, (n, ROWS, COLS, filters), dev, dtype)
 
 
 def trunk_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
@@ -326,11 +366,12 @@ def trunk_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
                   acts=None, xhat=None, rstd=None) -> torch.Tensor:
     """The trunk, (N,7,11,Cin) -> (N,7,11,F). CPU tensors take the plain
     version; CUDA tensors launch the kernel, and anything the kernel does
-    not take (dtype, shape, layout, F) raises. The training forward, which
-    K2 reads, also writes ``acts`` (N,L,7,11,F; each block's input),
-    ``xhat`` (N,L+1,7,11,F; each layer's normalised conv output) and
-    ``rstd`` (N,L+1,groups), all float32; the kernel takes the three
-    together or none of them."""
+    not take (dtype, shape, layout, F) raises. x's dtype (float32 or
+    bfloat16) picks the form; the output is in it. The training forward,
+    which K2 reads, also writes ``acts`` (N,L,7,11,F; each block's input,
+    in x's dtype), ``xhat`` (N,L+1,7,11,F; each layer's normalised conv
+    output) and ``rstd`` (N,L+1,groups), both float32; the kernel takes
+    the three together or none of them."""
     if _device_kind(x) == 'cpu':
         return trunk_forward_reference(x, stem_w, stem_scale, stem_bias,
                                        block_w, block_scale, block_bias,
@@ -355,22 +396,23 @@ def _launch_forward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
         raise ValueError('geese_trunk: the training forward takes acts, '
                          'xhat and rstd together')
     if training:
-        _check_saved(n, layers, filters, groups, dev, *saved)
-    out = torch.empty((n, ROWS, COLS, filters), device=dev,
-                      dtype=torch.float32)
+        _check_saved(n, layers, filters, groups, dev, x.dtype, *saved)
+    out = torch.empty((n, ROWS, COLS, filters), device=dev, dtype=x.dtype)
     if n == 0:
         return out
     lib = _library()
     ptrs = [None if t is None else t.data_ptr() for t in saved]
+    bf16 = x.dtype == torch.bfloat16
+    fn = lib.geese_trunk_forward_bf16 if bf16 else lib.geese_trunk_forward
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.geese_trunk_forward(
+        err = fn(
             x.data_ptr(), stem_w.data_ptr(), stem_scale.data_ptr(),
             stem_bias.data_ptr(), block_w.data_ptr(), block_scale.data_ptr(),
             block_bias.data_ptr(), out.data_ptr(), *ptrs, n, cin, filters,
             layers, groups, float(eps), stream)
     _raise_on(err, lib, 'forward')
-    launches.count('geese_trunk')
+    launches.count(COUNTERS[x.dtype][0])
     return out
 
 
@@ -414,8 +456,9 @@ def trunk_backward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
                    need_dx: bool = True, acts=None, y=None, xhat=None,
                    rstd=None):
     """The trunk's vector-Jacobian product at (x, weights) for the output
-    grad dy (N,7,11,F): (dx or None, d_stem_w, d_stem_scale, d_stem_bias,
-    d_block_w, d_block_scale, d_block_bias), all float32. CPU tensors take
+    grad dy (N,7,11,F) in x's dtype: (dx or None, d_stem_w, d_stem_scale,
+    d_stem_bias, d_block_w, d_block_scale, d_block_bias), dx in x's dtype
+    and the rest float32. CPU tensors take
     :func:`trunk_backward_reference`; CUDA tensors launch K2 or raise.
     ``acts``, ``y``, ``xhat`` and ``rstd`` are what the training forward
     of the same operands saved (:func:`trunk_forward` with acts, xhat and
@@ -430,12 +473,13 @@ def trunk_backward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
         x, stem_w, stem_scale, stem_bias, block_w, block_scale, block_bias,
         groups)
     dev = x.device
-    _check('dy', dy, (n, ROWS, COLS, filters), dev)
+    _check('dy', dy, (n, ROWS, COLS, filters), dev, x.dtype)
     if acts is None or y is None or xhat is None or rstd is None:
         raise ValueError('geese_trunk: the backward kernel takes acts, y, '
                          'xhat and rstd from the training forward '
                          '(trunk_forward(..., acts=, xhat=, rstd=))')
-    _check_saved(n, layers, filters, groups, dev, acts, xhat, rstd, y)
+    _check_saved(n, layers, filters, groups, dev, x.dtype, acts, xhat, rstd,
+                 y)
     nl = layers + 1
     n_stem, n_blocks = 9 * cin * filters, layers * 9 * filters * filters
     total = n_stem + n_blocks + 2 * nl * filters
@@ -447,12 +491,16 @@ def trunk_backward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
         lib = _library()
         chunks = -(-n // lib.geese_trunk_backward_chunk())
         f32 = dict(device=dev, dtype=torch.float32)
-        dc_all = torch.empty((n, nl, ROWS * COLS, filters), **f32)
+        dc_all = torch.empty((n, nl, ROWS * COLS, filters), device=dev,
+                             dtype=x.dtype)
         dsn = torch.empty((n, nl, 2 * filters), **f32)
         partials = torch.empty((chunks, total), **f32)
+        bf16 = x.dtype == torch.bfloat16
+        fn = (lib.geese_trunk_backward_bf16 if bf16
+              else lib.geese_trunk_backward)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.geese_trunk_backward(
+            err = fn(
                 x.data_ptr(), stem_w.data_ptr(), stem_scale.data_ptr(),
                 block_w.data_ptr(), block_scale.data_ptr(), acts.data_ptr(),
                 y.data_ptr(), xhat.data_ptr(), rstd.data_ptr(),
@@ -460,7 +508,7 @@ def trunk_backward(x, stem_w, stem_scale, stem_bias, block_w, block_scale,
                 dc_all.data_ptr(), dsn.data_ptr(), partials.data_ptr(),
                 flat.data_ptr(), n, cin, filters, layers, groups, stream)
         _raise_on(err, lib, 'backward')
-        launches.count('geese_trunk_bwd')
+        launches.count(COUNTERS[x.dtype][1])
     elif dx is not None:
         dx.zero_()
     scales = flat[n_stem + n_blocks:].view(2, nl, filters)
@@ -483,7 +531,7 @@ class TrunkFunction(torch.autograd.Function):
     def forward(ctx, x, stem_w, stem_scale, stem_bias, block_w, block_scale,
                 block_bias, groups, eps):
         saved = training_buffers(x.shape[0], block_w.shape[0],
-                                 stem_w.shape[-1], groups, x.device)
+                                 stem_w.shape[-1], groups, x.device, x.dtype)
         y = trunk_forward(x, stem_w, stem_scale, stem_bias, block_w,
                           block_scale, block_bias, groups, eps, **saved)
         ctx.save_for_backward(x, stem_w, stem_scale, stem_bias, block_w,

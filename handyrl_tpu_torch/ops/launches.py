@@ -26,7 +26,8 @@ import contextlib
 import threading
 from typing import Dict, Iterator, Mapping, Optional
 
-KERNELS = ('geese_trunk', 'geese_trunk_bwd', 'td_lambda', 'upgo', 'vtrace')
+KERNELS = ('geese_trunk', 'geese_trunk_bwd', 'geese_trunk_bf16',
+           'geese_trunk_bwd_bf16', 'td_lambda', 'upgo', 'vtrace')
 DEFAULT_PATH = 'main'
 
 capture_lock = threading.Lock()

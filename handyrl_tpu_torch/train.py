@@ -123,6 +123,7 @@ from .ops.shm_batch import (_SHM_SLOTS, JOB_ARG_KEYS, ArenaMap, SharedBatch,
                             batcher_process as _batcher_process,
                             batcher_process_shm as _batcher_process_shm)
 from .ops.losses import LossConfig
+from .models.blocks import set_compute_dtype
 from .ops.train_step import (GraphedUpdateStep, ReplayUpdateStep,
                               StaticUpdateStep, TrainState, init_train_state,
                               opt_state_from_flax, opt_state_to_flax)
@@ -966,6 +967,11 @@ class Learner:
         if net is None:
             net = self.env.net()
             net.reset_parameters(torch.Generator().manual_seed(args['seed']))
+        if args.get('compute_dtype'):
+            # bf16 activations (flax's module.clone(dtype=...),
+            # handyrl_tpu/train.py:1172-1175); the params stay float32, and
+            # snapshots and checkpoints carry no dtype
+            set_compute_dtype(net, args['compute_dtype'])
         self.module = net
         self.model_epoch = args['restart_epoch']
         resume = False

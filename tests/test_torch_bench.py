@@ -54,8 +54,8 @@ def test_cpu_run_prints_one_json_line():
               'kernel_launches_by_form'):
         assert line[k] is None, k
     assert line['kernel_launches'] == {
-        'geese_trunk': 0, 'geese_trunk_bwd': 0, 'td_lambda': 0, 'upgo': 0,
-        'vtrace': 0}
+        'geese_trunk': 0, 'geese_trunk_bwd': 0, 'geese_trunk_bf16': 0,
+        'geese_trunk_bwd_bf16': 0, 'td_lambda': 0, 'upgo': 0, 'vtrace': 0}
 
 
 def test_cuda_without_a_card_raises():
@@ -89,8 +89,9 @@ def test_kernel_counts_in_one_place():
     with launches.path('training'):
         ops.add_kernel_launches({'geese_trunk': 2, 'geese_trunk_bwd': 2,
                                  'vtrace': 1})
-    want = {'geese_trunk': 3, 'geese_trunk_bwd': 2, 'td_lambda': 0,
-            'upgo': 0, 'vtrace': 1}
+    want = {'geese_trunk': 3, 'geese_trunk_bwd': 2, 'geese_trunk_bf16': 0,
+            'geese_trunk_bwd_bf16': 0, 'td_lambda': 0, 'upgo': 0,
+            'vtrace': 1}
     assert ops.kernel_launches() == service.kernel_launches() == want
     assert ops.kernel_launches('training') == dict(want, geese_trunk=2)
     ops.reset_kernel_launches()

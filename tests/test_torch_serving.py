@@ -156,8 +156,8 @@ def test_port_service_matches_jax_service(services):
     # the CPU path never launches a CUDA kernel; the status lists every
     # kernel of the port
     assert status['kernel_launches'] == {
-        'geese_trunk': 0, 'geese_trunk_bwd': 0, 'td_lambda': 0, 'upgo': 0,
-        'vtrace': 0}
+        'geese_trunk': 0, 'geese_trunk_bwd': 0, 'geese_trunk_bf16': 0,
+        'geese_trunk_bwd_bf16': 0, 'td_lambda': 0, 'upgo': 0, 'vtrace': 0}
     assert kernel_launches()['geese_trunk'] == 0
 
 

@@ -118,7 +118,7 @@ def test_cli_without_cuda_raises(tmp_path):
           'device_replay': True,
           'generation': {'device_actor_chunk_steps': 0}},
      'device_actor_chunk_steps'),
-    ({}, {'compute_dtype': 'bfloat16'}, 'compute_dtype'),
+    ({}, {'compute_dtype': 'float16'}, 'compute_dtype'),
     ({}, {'telemetry_port': 9100}, 'telemetry_port'),
     ({'net_kind': 'former'}, {}, 'net_kind'),
     ({'norm_kind': 'batch', 'torus_impl': 'pallas'}, {}, 'pallas'),
