@@ -86,11 +86,12 @@ non-zero, printing no result, when either is missing or any phase fails.
 5. The local learner, through its entry point: writes the slice's JSON
    config (full-width GeeseNet, ``torus_impl='pallas'``, B=128, T=16,
    TD/TD, 64 generation envs, 256 episodes before the first epoch and
-   512 an epoch (about 100 update steps an epoch at 256), 3 epochs, online
+   512 an epoch (about 100 update steps an epoch at 256), LEARNER_EPOCHS
+   epochs (2 since phase 16 came: 3 before), online
    evaluation against 'random') into a temporary directory and runs
    ``python -m handyrl_tpu_torch.train --config ... --device cuda`` (a
    fresh process, every count at 0). Fails unless it exits 0 having
-   trained 3 epochs with finite losses, wrote every checkpoint with its CRC
+   trained its epochs with finite losses, wrote every checkpoint with its CRC
    sidecar, changed the params between ``1.ckpt`` and the last one, and
    launched K1 in generation and evaluation (serving form) and K1, K2 and
    K3 in training once a step (the capture's eager warm-up steps
@@ -307,7 +308,7 @@ non-zero, printing no result, when either is missing or any phase fails.
    ply for LSTM_SERVE_PLIES plies, each request carrying its goose's state
    from the previous reply, every policy, value and next state within
    POLICY_TOL of a CPU forward of the same weights and state chain; the
-   host learner on phase 5's config (episodes cut to 64 + 2 x 128,
+   host learner on phase 5's config (episodes cut to 64 + 128,
    LSTM_EPOCHS epochs) and the fused loop on phase 6's (LSTM_FUSED_EPOCHS
    epochs: its metrics arrive a dispatch late), both with ``net_kind:
    'lstm'``, VTRACE/VTRACE, burn-in LSTM_BURN_IN: exit 0, finite losses,
@@ -330,7 +331,7 @@ non-zero, printing no result, when either is missing or any phase fails.
    CPU forward in inference mode, and G_BATCHED requests coalesced into
    one batch against each sent alone. (b) The host learner on the JAX
    package's 'geister' row (B=32, T=16, burn-in 4, 32 envs, observation)
-   with 'batch' and 'spatial', its depth cut to one epoch of G_UPDATE (8)
+   with 'batch' and 'spatial', its depth cut to one epoch of G_UPDATE (4)
    episodes after G_MINIMUM (64) (the row: 100 after 200; its host
    self-play is Python-bound): exit 0, finite losses, K3 twice a step
    (value and return, P=2) and no other kernel, and the checkpoint's
@@ -382,7 +383,37 @@ non-zero, printing no result, when either is missing or any phase fails.
    config, FORMER_EPOCHS epochs (K5 in training, every param moved), then
    one graphed VTRACE step (B=64, T=16) against the CPU step (phase 4's
    tolerances), its replays timed by CUDA events.
-16. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, their bf16
+16. The durable training plane, streaming ingest and the IMPACT target
+   network. (c) first, in this process: the graphed VTRACE step with the
+   target (``streaming.target_clip`` 1.0) at B=128, T=16 on real boards
+   beside the same step without it: a fresh target gives the no-target
+   loss terms (within STEP_RTOL; the log says whether bit for bit), K1
+   twice (training and serving forms), K2 and K5 once a replay (counts 0
+   just before), both timed by CUDA events and the host clock; a
+   ``sync_target`` is a ``copy_`` into the graph's buffers (one capture,
+   the same pointers, the log-prob gap back to 0 on the next replay);
+   IMPACT_LAG_STEPS lagged steps at STEP_B against the CPU's static step
+   (STEP_RTOL of the terms, 2 lr a step of the params). (a) The SIGKILL
+   drill: ``python -m handyrl_tpu_torch.train --server`` on Hungry Geese
+   at full width (VTRACE, 32-ply streamed chunks, the target at clip 1.0
+   synced every 2 epochs, the ``durability`` defaults, ``restart_epoch``
+   -1) fed by one worker host whose gather is a DeviceActorGather
+   ('device' records streaming through its emit sink); the learner is
+   SIGKILLed once DURABLE_KILL_EPOCH epochs closed and a record was
+   spooled past the snapshot, then restarted: it must restore its ledger
+   book, replay the spool, keep the gather (reattached, zero respawns),
+   finish DURABLE_EPOCHS with every episode counted once (restored +
+   whole + streamed = counted, each assembly once) and launch K1 twice,
+   K2 and K5 once a training step, K1 in the gather's chunk graph. It
+   logs the MTTR (SIGKILL to the restarted trainer's first step, host
+   clock) and episodes/s and plies/s before and after (metrics rows).
+   (b) The host-worker stream: tictactoe.json streaming 2-ply chunks from
+   a worker host of STREAM_WORKERS workers on the card, its gather
+   SIGKILLed after the first epoch: the supervisor respawns it, the
+   stranded tasks re-issue under their sample keys and their regenerated
+   chunks screen as duplicates (at least one), no key counted twice, K3
+   once a step. Prints one ``{"phase16": ...}`` JSON line.
+17. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, their bf16
    forms as rows of their own, K3-K5; K2a and K2b take their launches
    from K2's count, one of each a call, the bf16 rows from K2-bf16's; the
    fused loop's under ``learner_fused_*``, 5(b)'s under
@@ -405,7 +436,9 @@ non-zero, printing no result, when either is missing or any phase fails.
    ``geister_service`` and ``geister_device_actor``, phase 15's under
    ``bf16_bench``, ``bf16_step_graphed``, ``bf16_fused_*``,
    ``bf16_tictactoe_*``, ``former_service``, ``former_fused_*`` and
-   ``former_step``; K1's row also holds the operator's checks),
+   ``former_step``, phase 16's under ``impact_step``,
+   ``durable_drill_*`` (the restarted learner), ``durable_drill_gather``
+   and ``stream_chaos_*``; K1's row also holds the operator's checks),
    the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -1614,7 +1647,7 @@ def profile_window(torch, form, step, steps):
 # the learner phase's config: the update step of the bench (B=128, T=16,
 # TD/TD, gamma 0.99, solo training with observations) fed by batched
 # self-play of 64 Hungry Geese envs on the full-width GeeseNet's kernels
-LEARNER_EPOCHS = 3
+LEARNER_EPOCHS = 2       # 3 until phase 16 needed the time (PERF.md §4)
 LEARNER_CONFIG = {
     'env_args': {'env': 'HungryGeese', 'torus_impl': 'pallas'},
     'train_args': {
@@ -4578,7 +4611,7 @@ CX_GAMES, CX_PROCS = 100, 4
 CX_BOARDS = 1000
 LSTM_ENV = {'env': 'HungryGeese', 'net_kind': 'lstm'}
 LSTM_BURN_IN = 4
-LSTM_EPOCHS = 2
+LSTM_EPOCHS = 1          # 2 until phase 16 needed the time (PERF.md §4)
 LSTM_TARGETS = (16, 4, 512)    # (T, P, lanes) of the LSTM host step's K5
 # the timed recurrent step: the fused loop's batch (B=64, T=16 + burn-in,
 # the solo layout's one row a window)
@@ -4587,7 +4620,7 @@ LSTM_STEP_REPS = 20
 LSTM_SERVE_PLIES = 6
 LSTM_EVAL_GAMES = 64
 # phase 5's config on the recurrent net, its episodes cut to fit the
-# phase (64 + 2 x 128: the recurrent host learner plays ~10 episodes/s)
+# phase (64 + 128: the recurrent host learner plays ~10 episodes/s)
 LSTM_LEARNER = {
     'env_args': dict(LSTM_ENV),
     'train_args': dict(LEARNER_CONFIG['train_args'], **{
@@ -4595,10 +4628,10 @@ LSTM_LEARNER = {
         'burn_in_steps': LSTM_BURN_IN, 'epochs': LSTM_EPOCHS,
         'minimum_episodes': 64, 'update_episodes': 128}),
 }
-# phase 6's north-star config on the recurrent net; one epoch more than
-# the host learner's, as the fused loop's metrics arrive a dispatch late
-# (the second epoch's close reads the warm-up dispatch's, none)
-LSTM_FUSED_EPOCHS = LSTM_EPOCHS + 1
+# phase 6's north-star config on the recurrent net, 3 epochs: the fused
+# loop's metrics arrive a dispatch late (the second epoch's close reads
+# the warm-up dispatch's, none)
+LSTM_FUSED_EPOCHS = 3
 LSTM_FUSED = {
     'env_args': dict(LSTM_ENV),
     'train_args': dict(FUSED_CONFIG['train_args'], **{
@@ -5076,7 +5109,7 @@ GEISTER_ENV = {'env': 'Geister', 'norm_kind': 'batch',
 # H100 host before the trainer starts, 0.3/s beside it, PERF.md), so the
 # row's depth would take minutes
 G_EPOCHS = 1
-G_MINIMUM, G_UPDATE = 64, 8
+G_MINIMUM, G_UPDATE = 64, 4   # 8 until phase 16 needed the time
 G_TRAIN = {'batch_size': 32, 'forward_steps': 16, 'burn_in_steps': 4,
            'update_episodes': 100, 'minimum_episodes': 200,
            'generation_envs': 32, 'observation': True, 'eval_envs': 32}
@@ -6284,6 +6317,546 @@ def phase_bf16_former(torch, repo, make_env, kernels):
     return out
 
 
+# ------------------ phase 16: the durable training plane, streaming, IMPACT
+
+# (a) the SIGKILL drill: --server on Hungry Geese at full width, VTRACE,
+# the IMPACT target and 32-ply streamed chunks, one worker host whose one
+# gather is a DeviceActorGather ('device' records stream through its emit
+# sink); the learner is SIGKILLed once DURABLE_KILL_EPOCH epochs closed,
+# restarted with restart_epoch -1, and finishes DURABLE_EPOCHS (epochs of
+# 64 episodes: after two, the geese live about ten times as many plies)
+DURABLE_EPOCHS, DURABLE_KILL_EPOCH = 3, 2
+DURABLE_STREAMING = {'enabled': True, 'chunk_steps': 32, 'target_clip': 1.0,
+                     'target_sync_epochs': 2}
+DURABLE_FT = {'heartbeat_interval': 1.0, 'liveness_timeout': 8.0,
+              'rpc_timeout': 30.0, 'task_deadline': 60.0,
+              'reconnect_initial_delay': 0.25, 'reconnect_max_delay': 1.0,
+              'reconnect_max_tries': 240}
+DURABLE_TRAIN = {'epochs': DURABLE_EPOCHS, 'restart_epoch': -1,
+                 'minimum_episodes': 64, 'update_episodes': 64,
+                 'eval_rate': 0.1, 'policy_target': 'VTRACE',
+                 'value_target': 'VTRACE', 'generation': DA_GENERATION,
+                 'streaming': DURABLE_STREAMING,
+                 'fault_tolerance': DURABLE_FT}
+# (b) the host-worker stream: tictactoe.json with 2-ply chunks (every game
+# streams in several), a worker host of STREAM_WORKERS workers whose gather
+# is SIGKILLed mid-stream, STREAM_KILL_AFTER s after the first epoch closed
+# (the workers then play the net, whose plies take long enough that the
+# stranded tasks have chunks delivered); the host is never quarantined
+# (the drill shows the merge, phase 9(b) the quarantine)
+STREAM_WORKERS, STREAM_KILL_AFTER = 4, 0.5
+STREAM_TRAIN = {'compress_steps': 2, 'minimum_episodes': 64,
+                'update_episodes': 64,
+                'streaming': {'enabled': True, 'chunk_steps': 2},
+                'fault_tolerance': dict(DURABLE_FT,
+                                        host_quarantine_after=1000)}
+STREAM_EPOCHS = 2
+# (c) the graphed VTRACE step with the target at B=128, T=16 on real
+# boards; IMPACT_LAG_STEPS steps of lag at IMPACT_LR (the bench's lr moves
+# the target too little to see) held to the CPU's static step at STEP_B
+IMPACT_LAG_STEPS, IMPACT_LR = 3, 1e-3
+PHASE16_TIMEOUT = 240     # each run's processes
+
+
+def start_session(cmd, repo, env, logs):
+    """``python -m cmd...`` writing to ``logs`` (stdout, stderr) in a
+    session of its own."""
+    with open(logs[0], 'w') as out, open(logs[1], 'w') as err:
+        return subprocess.Popen([sys.executable, '-m'] + cmd, cwd=repo,
+                                stdout=out, stderr=err, env=env,
+                                start_new_session=True)
+
+
+def read_text(path):
+    try:
+        with open(path) as f:
+            return f.read()
+    except OSError:
+        return ''
+
+
+def kill_sessions(procs):
+    for proc in procs:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except OSError:
+            pass
+        proc.wait()
+
+
+def check_durable_training(label, line, kernels_a_step):
+    """The restarted learner's launches: ``kernels_a_step`` ({name: per
+    step}) in training for each step it ran (the graph's warm-up steps
+    included) and nothing outside training."""
+    from handyrl_tpu_torch.ops.train_step import GRAPH_WARMUP_STEPS
+    by_path = line['kernel_launches']
+    runs = line['steps_at_exit'] - line['steps_at_start'] + GRAPH_WARMUP_STEPS
+    train = by_path.get('training', {})
+    if set(by_path) - {'training'} or any(
+            train.get(k, 0) != kernels_a_step.get(k, 0) * runs
+            for k in set(train) | set(kernels_a_step)):
+        fail('%s launched %s (%s a step of %d steps expected)'
+             % (label, by_path, kernels_a_step, runs))
+    return runs
+
+
+def durable_drill(torch, repo):
+    """16(a): the SIGKILL drill (DURABLE_*): MTTR from the SIGKILL to the
+    restarted trainer's first step; episodes/s and plies/s (of the counted
+    episodes) before, between the first learner's last two epoch closes,
+    and after, from the restarted trainer's first step to its first epoch
+    close (host clock)."""
+    import math
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_durable_')
+    procs = []
+    try:
+        cfg = json.loads(json.dumps(LEARNER_CONFIG))
+        cfg['train_args'].update(json.loads(json.dumps(DURABLE_TRAIN)))
+        cfg['train_args']['model_dir'] = os.path.join(tmp, 'models')
+        metrics = os.path.join(tmp, 'metrics.jsonl')
+        cfg['train_args']['metrics_jsonl'] = metrics
+        cfg['worker_args'] = {'server_address': '127.0.0.1',
+                              'num_parallel': 1, 'backend': 'device'}
+        path = os.path.join(tmp, 'config.json')
+        with open(path, 'w') as f:
+            json.dump(cfg, f)
+        entry, data = free_ports(2)
+        env = dict(os.environ, PYTHONUNBUFFERED='1',
+                   HANDYRL_TPU_ENTRY_PORT=str(entry),
+                   HANDYRL_TPU_DATA_PORT=str(data))
+        logs = {k: (os.path.join(tmp, k + '.out'),
+                    os.path.join(tmp, k + '.err'))
+                for k in ('learner1', 'learner2', 'host')}
+        learner_cmd = ['handyrl_tpu_torch.train', '--config', path,
+                       '--server']
+        deadline = time.monotonic() + PHASE16_TIMEOUT
+        procs.append(start_session(learner_cmd, repo, env,
+                                   logs['learner1']))
+        learner1 = procs[-1]
+        procs.append(start_session(['handyrl_tpu_torch.worker', '--config',
+                                    path], repo, env, logs['host']))
+        host = procs[-1]
+
+        def closed_epochs():
+            if not os.path.exists(metrics):
+                return []
+            return [r for r in read_metrics(metrics) if 'preempted' not in r]
+        while len(closed_epochs()) < DURABLE_KILL_EPOCH:
+            if learner1.poll() is not None or host.poll() is not None \
+                    or time.monotonic() > deadline:
+                fail('16(a): the first learner did not close %d epochs; '
+                     'the learner:\n%s\n%s\nthe host:\n%s' % (
+                         DURABLE_KILL_EPOCH, tail(logs['learner1'][0], 20),
+                         tail(logs['learner1'][1]), tail(logs['host'][1])))
+            time.sleep(0.05)
+        # with records in flight: the kill waits for the spool to grow
+        # past the epoch's snapshot (a record the restart must replay)
+        spool = os.path.join(tmp, 'models', 'spool')
+
+        def spooled():
+            return sum(os.path.getsize(os.path.join(spool, n))
+                       for n in os.listdir(spool))
+        mark = spooled()
+        while spooled() == mark and time.monotonic() < deadline:
+            time.sleep(0.01)
+        learner1.send_signal(signal.SIGKILL)
+        t_kill = time.time()
+        learner1.wait()
+        before = closed_epochs()
+        procs.append(start_session(learner_cmd, repo, env, logs['learner2']))
+        learner2 = procs[-1]
+        for proc in (learner2, host):
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail('16(a) did not finish within %d s; the restarted '
+                     'learner:\n%s\n%s\nthe host:\n%s\n%s' % (
+                         PHASE16_TIMEOUT, tail(logs['learner2'][0], 20),
+                         tail(logs['learner2'][1]), tail(logs['host'][0]),
+                         tail(logs['host'][1])))
+        for k, proc in (('learner2', learner2), ('host', host)):
+            if proc.returncode != 0:
+                fail('16(a): the %s exited %d:\n%s' % (
+                    k, proc.returncode, tail(logs[k][1])))
+        out2 = read_text(logs['learner2'][0])
+        host_out = read_text(logs['host'][0])
+        host_err = read_text(logs['host'][1])
+        for l in out2.splitlines():
+            if l.startswith(('durable plane', 'auto-resume', 'resumed',
+                             'epoch', 'updated model', 'fleet:')):
+                log('  16(a) restarted learner: %s' % l)
+        line = learner_json('16(a)', out2)
+        if 'durable plane: restored ledger book' not in out2:
+            fail('16(a): the restarted learner did not restore its ledger '
+                 'book:\n%s' % out2[-3000:])
+        restored = int(out2.split('returned=')[1].split(')')[0])
+        dur, stream, fleet = line['durable'], line['streaming'], \
+            line['fleet']
+        replayed = dur['recovered_episodes'] + dur['recovered_chunks']
+        if not replayed > 0:
+            fail('16(a): nothing replayed from the spool: %s' % dur)
+        if not ('reattached across a learner restart' in host_err
+                and 'worker host: 0 gather respawns' in host_out
+                and dur['reattached'] >= 1 and fleet['reattaches'] >= 1):
+            fail('16(a): the gather did not reattach without a respawn: %s '
+                 '%s\n%s' % (dur, fleet, host_out[-1000:]))
+        if line['model_epoch'] != DURABLE_EPOCHS or line['failed'] \
+                or not (line['losses'] and all(
+                    math.isfinite(v) for v in line['losses'].values())):
+            fail('16(a): the restarted learner ended at epoch %s (failed %s '
+                 '%s), losses %s' % (line['model_epoch'], line['failed'],
+                                     line['failed_reason'], line['losses']))
+        sources = stream['episodes']
+        if not (stream['reassembled_episodes'] > 0
+                and sources['streamed'] == stream['reassembled_episodes']
+                and line['episodes'] == restored + sources['whole']
+                + sources['streamed']
+                and line['repeated_sample_keys'] <= fleet['reissued']):
+            fail('16(a): the episodes were not each counted once: %d '
+                 'counted, %d restored, %s, %d reassembled, %d repeated '
+                 'keys, %d re-issued' % (
+                     line['episodes'], restored, sources,
+                     stream['reassembled_episodes'],
+                     line['repeated_sample_keys'], fleet['reissued']))
+        runs = check_durable_training(
+            '16(a) restarted learner', line,
+            {'geese_trunk': 2, 'geese_trunk_bwd': 1, 'vtrace': 1})
+        actor = line['device_actor'][0] if line['device_actor'] else {}
+        k1 = (actor.get('launches') or {}).get('geese_trunk', 0)
+        if not (actor.get('record_mode') == 'device'
+                and actor.get('streamed_chunks', 0) > 0
+                and k1 >= actor['chunks'] * DA_CHUNK * DA_SLOTS
+                and not actor['none_payloads']):
+            fail('16(a): the device actor gather did not stream through '
+                 'its chunk graph: %s' % actor)
+        rows = read_metrics(metrics)
+        after = [r for r in rows if r['epoch'] > DURABLE_KILL_EPOCH]
+
+        if len(before) < 2 or not after or line['first_step_at'] is None:
+            fail('16(a): rows before %d, after %d, first step %s' % (
+                len(before), len(after), line['first_step_at']))
+        # the restarted learner counts from the restored episodes and from
+        # 0 plies (a restart restores the count of episodes, not of plies)
+        restart = {'episodes': restored, 'episode_steps': 0,
+                   'time': line['first_step_at']}
+
+        def rate(a, b, key='episodes'):
+            return (b[key] - a[key]) / (b['time'] - a['time'])
+        out = {'mttr_s': line['first_step_at'] - t_kill,
+               'episodes_per_s_before': rate(before[-2], before[-1]),
+               'episodes_per_s_after': rate(restart, after[0]),
+               'restored_returned': restored,
+               'recovered_episodes': dur['recovered_episodes'],
+               'recovered_chunks': dur['recovered_chunks'],
+               'recovered_reassembled': dur['recovered_reassembled'],
+               'reattached': dur['reattached'],
+               'generation': dur['generation'],
+               'episodes': line['episodes'], 'sources': sources,
+               'reassembled_episodes': stream['reassembled_episodes'],
+               'open_assemblies': stream['open_assemblies'],
+               'abandoned_assemblies': stream['abandoned_assemblies'],
+               'repeated_sample_keys': line['repeated_sample_keys'],
+               'reissued': fleet['reissued'],
+               'duplicates_dropped': fleet['duplicates_dropped'],
+               'streamed_chunks': actor['streamed_chunks'],
+               'gather_k1_launches': k1, 'chunks': actor['chunks'],
+               'training_runs': runs,
+               'plies_per_s_before': rate(before[-2], before[-1],
+                                          'episode_steps'),
+               'plies_per_s_after': rate(restart, after[0], 'episode_steps'),
+               'rows': [{k: r.get(k) for k in (
+                   'epoch', 'episodes', 'episode_steps', 'time', 'steps',
+                   'sgd_steps_per_sec', 'buffer')} for r in rows],
+               'actor': {k: actor.get(k) for k in (
+                   'blocks', 'chunks', 'chunk_seconds', 'block_seconds',
+                   'fill_ratio', 'deferred', 'host_failures', 'episodes',
+                   'results', 'plies', 'builds', 'graph_captures')},
+               'trainer_batch_wait_seconds':
+                   line['trainer_batch_wait_seconds'],
+               'trainer_seconds': line['trainer_seconds'],
+               'loop_seconds': line['loop_seconds'],
+               'dynamics': {k: v for r in after[-1:] for k, v in r.items()
+                            if k.startswith('target_')},
+               'kernel_launches': line['kernel_launches'],
+               'gather_launches': actor['launches']}
+        log('16(a) SIGKILL drill, streaming on (%s): %s' % (
+            nvidia_smi_line(), json.dumps(out)))
+        log('16(a): restored the ledger book, replayed %d spooled record(s) '
+            '(%d episode(s) reassembled from them), the gather reattached '
+            'with 0 respawns, epoch budget %d complete, %d episodes (%d '
+            'restored + %d whole + %d streamed); MTTR %.2f s; episodes/s '
+            '%.2f before, %.2f after; plies/s %.1f before, %.1f after' % (
+                replayed, dur['recovered_reassembled'], DURABLE_EPOCHS,
+                line['episodes'], restored, sources['whole'],
+                sources['streamed'], out['mttr_s'],
+                out['episodes_per_s_before'], out['episodes_per_s_after'],
+                out['plies_per_s_before'], out['plies_per_s_after']))
+        left = processes_left(host_err)
+        if left:
+            fail('16(a): gather processes left after the run: %s' % left)
+        return out
+    finally:
+        kill_sessions(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def stream_chaos(torch, repo):
+    """16(b): tictactoe.json streaming 2-ply chunks from a worker host of
+    STREAM_WORKERS card workers, its gather SIGKILLed mid-stream: the
+    stranded tasks re-issue under their sample_keys and their regenerated
+    chunks merge (screened as duplicates), no episode counted twice."""
+    from handyrl_tpu_torch.ops.train_step import GRAPH_WARMUP_STEPS
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_stream_')
+    procs = []
+    try:
+        cfg = quick_config(repo, dict(json.loads(json.dumps(STREAM_TRAIN)),
+                                      model_dir=os.path.join(tmp, 'models')),
+                           STREAM_EPOCHS)
+        cfg['worker_args'] = {'server_address': '127.0.0.1',
+                              'num_parallel': STREAM_WORKERS}
+        path = os.path.join(tmp, 'config.json')
+        with open(path, 'w') as f:
+            json.dump(cfg, f)
+        entry, data = free_ports(2)
+        env = dict(os.environ, PYTHONUNBUFFERED='1',
+                   HANDYRL_TPU_ENTRY_PORT=str(entry),
+                   HANDYRL_TPU_DATA_PORT=str(data))
+        logs = {k: (os.path.join(tmp, k + '.out'),
+                    os.path.join(tmp, k + '.err'))
+                for k in ('server', 'host')}
+        t0 = time.monotonic()
+        procs.append(start_session(['handyrl_tpu_torch.train', '--config',
+                                    path, '--server'], repo, env,
+                                   logs['server']))
+        procs.append(start_session(['handyrl_tpu_torch.worker', '--config',
+                                    path], repo, env, logs['host']))
+        deadline = time.monotonic() + PHASE16_TIMEOUT
+        import re
+        while 'updated model' not in read_text(logs['server'][0]):
+            if any(p.poll() is not None for p in procs) \
+                    or time.monotonic() > deadline:
+                fail('16(b): the first epoch did not close:\n%s\n%s' % (
+                    tail(logs['server'][1]), tail(logs['host'][1])))
+            time.sleep(0.02)
+        time.sleep(STREAM_KILL_AFTER)
+        gather = int(re.findall(r'started gather 0 \(pid (\d+)\)',
+                                read_text(logs['host'][1]))[0])
+        os.kill(gather, signal.SIGKILL)
+        log('16(b): SIGKILLed gather 0 (pid %d) mid-stream' % gather)
+        for proc in procs[::-1]:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail('16(b) did not finish within %d s; the server:\n%s\n%s'
+                     '\nthe worker host:\n%s\n%s' % (
+                         PHASE16_TIMEOUT, tail(logs['server'][0], 20),
+                         tail(logs['server'][1]), tail(logs['host'][0]),
+                         tail(logs['host'][1])))
+        wall = time.monotonic() - t0
+        for k, proc in zip(('server', 'host'), procs):
+            if proc.returncode != 0:
+                fail('16(b): the %s exited %d:\n%s' % (
+                    k, proc.returncode, tail(logs[k][1])))
+        line = learner_json('16(b)', read_text(logs['server'][0]))
+        host_out = read_text(logs['host'][0])
+        if 'worker host: 1 gather respawns' not in host_out:
+            fail('16(b): the gather was not killed and respawned:\n%s'
+                 % host_out[-2000:])
+        fleet, stream = line['fleet'], line['streaming']
+        if line['epochs'] != STREAM_EPOCHS or line['failed'] \
+                or line['fleet_failure']:
+            fail('16(b) trained %s epochs (%s %s)' % (
+                line['epochs'], line['failed_reason'], line['fleet_failure']))
+        if not (fleet['reissued'] > 0 and fleet['duplicates_dropped'] > 0
+                and stream['reassembled_episodes'] > 0
+                and line['repeated_sample_keys'] == 0
+                and stream['episodes']['whole'] == 0
+                and line['distinct_sample_keys'] == line['episodes']
+                == stream['reassembled_episodes']):
+            fail('16(b): the re-issued streams did not merge once: %s %s, '
+                 '%d episodes, %d distinct keys, %d repeated' % (
+                     fleet, stream, line['episodes'],
+                     line['distinct_sample_keys'],
+                     line['repeated_sample_keys']))
+        by_path = line['kernel_launches']
+        runs = line['steps_at_exit'] + GRAPH_WARMUP_STEPS
+        if set(by_path) - {'training'} or {
+                k: n for k, n in by_path.get('training', {}).items()
+                if n} != {'td_lambda': runs}:
+            fail('16(b) launched %s (K3 once a step of %d expected)'
+                 % (by_path, runs))
+        out = {'episodes': line['episodes'], 'epochs': line['epochs'],
+               'reassembled_episodes': stream['reassembled_episodes'],
+               'reissued': fleet['reissued'],
+               'duplicates_dropped': fleet['duplicates_dropped'],
+               'outstanding': fleet['outstanding'],
+               'episodes_per_s': line['episodes_per_s'], 'wall': wall,
+               'kernel_launches': by_path}
+        log('16(b) host-worker stream, a gather killed (%s): %s' % (
+            nvidia_smi_line(), json.dumps(out)))
+        left = processes_left(read_text(logs['host'][1]))
+        if left:
+            fail('16(b): worker or gather processes left: %s' % left)
+        return out
+    finally:
+        kill_sessions(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def impact_step(torch, make_env):
+    """16(c): the graphed VTRACE step with the IMPACT target at B=128,
+    T=16 on real boards beside the same step without it: a fresh target at
+    clip 1.0 gives the no-target loss terms (the target's forward is K1's
+    serving form, the live one its training form: the same math in other
+    kernels, so within STEP_RTOL, the log says by how much); K1 twice
+    and K2 and K5 once a step; both timed by CUDA events and the host
+    clock; a sync is a copy_ into the graph's buffers (no capture); then
+    IMPACT_LAG_STEPS lagged steps at STEP_B against the CPU's."""
+    import numpy as np
+    from handyrl_tpu_torch import bench
+    from handyrl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from handyrl_tpu_torch.ops.train_step import (StaticUpdateStep,
+                                                  build_graphed_update_step)
+    obs = np.stack(game_observations(make_env, 128 * 16, SEED + 161))
+    obs = obs.reshape(128, 16, 1, 17, 7, 11)
+
+    def setup(device, B, target):
+        net, cfg, batch, state = bench.headline_setup(
+            device, B=B, policy_target='VTRACE', value_target='VTRACE')
+        batch['observation'] = torch.from_numpy(obs[:B]).to(device)
+        if target:
+            cfg = cfg._replace(target_clip=1.0)
+        return net, cfg, batch, state
+
+    steps = {}
+    for name, target in (('target', True), ('none', False)):
+        net, cfg, batch, state = setup('cuda', 128, target)
+        steps[name] = (build_graphed_update_step(net, cfg, state), batch)
+    lr = torch.tensor(bench.LR, device='cuda')
+    first = {name: {k: float(v) for k, v in step(batch, lr).items()}
+             for name, (step, batch) in steps.items()}
+    scale = max(abs(first['none']['total']), abs(first['none']['v']), 1.0)
+    fresh = {k: abs(first['target'][k] - first['none'][k]) / scale
+             for k in ('total', 'p', 'v', 'ent')}
+    if not all(e <= STEP_RTOL for e in fresh.values()) or \
+            abs(first['target']['diag_target_gap_sum']) > 1e-3:
+        fail('16(c): a fresh target at clip 1.0 gives other loss terms than '
+             'no target: %s (tol %.0e), gap %s' % (
+                 fresh, STEP_RTOL, first['target']['diag_target_gap_sum']))
+    exact = all(first['target'][k] == first['none'][k]
+                for k in ('total', 'p', 'v', 'ent'))
+    # the launches of REPS replays with the target (counts 0 just before)
+    REPS = 5
+    step_t, batch_t = steps['target']
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    for _ in range(REPS):
+        step_t(batch_t, lr)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    want = {'geese_trunk': 2 * REPS, 'geese_trunk_bwd': REPS,
+            'vtrace': REPS}
+    if {k: n for k, n in launches.items() if n} != want:
+        fail('16(c): %d graphed steps with the target launched %s (%s '
+             'expected)' % (REPS, launches, want))
+    timing = {}
+    for name in ('target', 'none', 'none', 'target'):
+        step, batch = steps[name]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(G_STEP_REPS):
+            step(batch, lr)
+        end.record()
+        torch.cuda.synchronize()
+        timing.setdefault(name, []).append(
+            (start.elapsed_time(end) / G_STEP_REPS,
+             (time.perf_counter() - t0) * 1e3 / G_STEP_REPS))
+    ms = {name: {'event_ms': min(t[0] for t in v),
+                 'host_ms': min(t[1] for t in v)}
+          for name, v in timing.items()}
+    # a sync: copy_ into the buffers the graph reads, no new capture
+    ptrs = {k: t.data_ptr() for k, t in step_t.target.items()}
+    before = step_t(batch_t, lr)
+    gap_lagged = float(before['diag_target_gap_sum'])
+    captures = step_t.captures
+    step_t.sync_target()
+    synced = {k: float(v) for k, v in step_t(batch_t, lr).items()}
+    if step_t.captures != captures or captures != 1 or any(
+            t.data_ptr() != ptrs[k] for k, t in step_t.target.items()):
+        fail('16(c): the sync recaptured the graph or moved its buffers '
+             '(captures %d -> %d)' % (captures, step_t.captures))
+    if not abs(synced['diag_target_gap_sum']) < abs(gap_lagged):
+        fail('16(c): after the sync the replay still reads the old target '
+             '(gap %s before, %s after)' % (gap_lagged,
+                                            synced['diag_target_gap_sum']))
+    # lagged steps on the card against the CPU (STEP_B boards)
+    lag = {}
+    for device in ('cuda', 'cpu'):
+        net, cfg, batch, state = setup(device, STEP_B, True)
+        cls = build_graphed_update_step if device == 'cuda' \
+            else StaticUpdateStep
+        step = cls(net, cfg, state)
+        lr_lag = torch.tensor(IMPACT_LR, device=device)
+        for _ in range(IMPACT_LAG_STEPS):
+            m = step(batch, lr_lag)
+        lag[device] = ({k: float(v) for k, v in m.items()},
+                       {k: v.detach().cpu() for k, v in
+                        step.state.params.items()})
+    (cm, cp), (hm, hp) = lag['cuda'], lag['cpu']
+    scale = max(abs(hm['total']), abs(hm['v']), 1.0)
+    errs = {k: abs(cm[k] - hm[k]) / scale for k in ('total', 'p', 'v', 'ent')}
+    errs.update({k: abs(cm[k] - hm[k]) / max(hm['data_count'], 1.0)
+                 for k in ('diag_target_ratio_sum', 'diag_target_gap_sum')})
+    params_err = max((cp[k] - hp[k]).abs().max().item() for k in cp)
+    if not (all(e <= STEP_RTOL for e in errs.values())
+            and params_err <= 2 * IMPACT_LR * IMPACT_LAG_STEPS
+            and abs(cm['diag_target_clip'] - hm['diag_target_clip'])
+            <= 0.01 * hm['data_count'] and hm['diag_target_gap_sum'] != 0):
+        fail('16(c): %d lagged steps on the card disagree with the CPU: %s '
+             '(tol %.0e), params %.3g (tol %.0e), target clip %s/%s' % (
+                 IMPACT_LAG_STEPS, errs, STEP_RTOL, params_err,
+                 2 * IMPACT_LR * IMPACT_LAG_STEPS, cm['diag_target_clip'],
+                 hm['diag_target_clip']))
+    out = {'fresh_rel_diff': fresh, 'fresh_exact': exact, 'ms': ms,
+           'target_over_none': ms['target']['event_ms']
+           / ms['none']['event_ms'],
+           'launches': launches, 'reps': REPS, 'captures': step_t.captures,
+           'syncs': step_t.target_syncs, 'gap_lagged': gap_lagged,
+           'gap_synced': synced['diag_target_gap_sum'],
+           'lag_vs_cpu': errs, 'lag_params_max_abs_diff': params_err,
+           'lag_target_clip': [cm['diag_target_clip'],
+                               hm['diag_target_clip']]}
+    log('16(c) IMPACT step B=128 T=16 (%s): %s' % (nvidia_smi_line(),
+                                                   json.dumps(out)))
+    return out
+
+
+def phase_durable(torch, repo, make_env):
+    """Phase 16: (a)-(c), one JSON line."""
+    out = {}
+    for part, label, fn in (
+            ('impact', '(c) the graphed IMPACT step',
+             lambda: impact_step(torch, make_env)),
+            ('drill', '(a) the SIGKILL drill, streaming on',
+             lambda: durable_drill(torch, repo)),
+            ('stream', '(b) the host-worker stream, a gather killed',
+             lambda: stream_chaos(torch, repo))):
+        t0 = time.monotonic()
+        log('== phase 16%s' % label)
+        out[part] = fn()
+        out[part]['seconds'] = time.monotonic() - t0
+    out['card'] = nvidia_smi_line()
+    print(json.dumps({'phase16': {k: {kk: vv for kk, vv in v.items()
+                                      if 'launches' not in kk}
+                                  if isinstance(v, dict) else v
+                                  for k, v in out.items()}}), flush=True)
+    return out
+
+
+
 def main():
     try:
         import torch
@@ -6424,7 +6997,12 @@ def main():
     log('phase 15: %.1f s (%s)' % (time.monotonic() - t15,
                                    nvidia_smi_line()))
 
-    log('== phase 16: the kernels line')
+    t16 = time.monotonic()
+    durable = phase_durable(torch, repo, make_env)
+    log('phase 16: %.1f s (%s)' % (time.monotonic() - t16,
+                                   nvidia_smi_line()))
+
+    log('== phase 17: the kernels line')
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -6504,6 +7082,15 @@ def main():
             paths['%s_%s' % (label, name)] = counts
     paths['former_service'] = bf16['serving']['launches']
     paths['former_step'] = bf16['former']['step_launches']
+    # phase 16: the graphed IMPACT steps (counts 0 just before), the
+    # restarted durable learner and its surviving device actor gather
+    # (fresh processes), the streaming TicTacToe server
+    paths['impact_step'] = durable['impact']['launches']
+    for name, counts in durable['drill']['kernel_launches'].items():
+        paths['durable_drill_%s' % name] = counts
+    paths['durable_drill_gather'] = durable['drill']['gather_launches']
+    for name, counts in durable['stream']['kernel_launches'].items():
+        paths['stream_chaos_%s' % name] = counts
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from

@@ -13,11 +13,10 @@ device loop, of the worker plane (``batched_generation: false``,
 ``WORKER_DEFAULTS`` for a worker host)
 and of the run plane (``metrics_jsonl``, ``keep_checkpoints``,
 ``init_params``, ``guard.preempt_signals``, the publish hook's ``serving``
-block), and
-:func:`validate` raises for anything this port does not run yet
-(streaming, the league, mesh parallelism, the host inference engine,
-BatchNorm, nets other than GeeseNet and GeeseNetLSTM, envs other than
-TicTacToe, ConnectX and Hungry Geese) instead of ignoring it.
+block) and of the durable plane (``durability``, ``streaming`` with the
+IMPACT target network), and :func:`validate` raises for anything this
+port does not run yet (the league, mesh parallelism, the host inference
+engine, nets other than the ported ones) instead of ignoring it.
 Without ``env_args`` the env is TicTacToe, as in the JAX package.
 """
 
@@ -147,6 +146,26 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
     'decode_cache_blocks': 1024,  # LRU capacity (bz2 blocks) of the batchers' decoded-moment cache; 0 disables
     'prefetch_depth': 2,          # batches staged to the device (pinned host memory, a copy stream) ahead of the step
     'compute_dtype': '',          # '' = float32; 'bfloat16' runs the learner's net in bf16 activations (flax's module dtype), params, grads and Adam's moments fp32
+    # the durable training plane (spool.EpisodeSpool, fault.LedgerJournal):
+    # a SIGKILLed remote learner restarts with no admitted episode lost,
+    # and surviving gathers reattach through the resume-token handshake
+    'durability': {
+        'spool': True,            # WAL every admitted episode (and streamed chunk) under model_dir/spool/ before it is counted (remote learners only); a restart replays the records past the newest checkpoint's consumption horizon
+        'segment_mb': 64,         # spool segment rotation size (MB); only the live segment can hold a torn tail
+        'keep_segments': 2,       # closed segments kept past the GC horizon (GC at each epoch sync)
+        'ledger_snapshot': True,  # persist the TaskLedger book (ledger.snap at each epoch, ledger.delta.wal between), so a restarted learner re-issues stranded tasks with their original sample_keys
+    },
+    # streaming partial-episode ingest (streaming.ChunkAssembler): workers
+    # and the device actor flush fixed-T window chunks of in-flight
+    # episodes through the upload path; off is the whole-episode path
+    'streaming': {
+        'enabled': False,         # flush in-flight episodes as fixed-T chunks (remote 'g' tasks); the final chunk carries the outcome
+        'chunk_steps': 32,        # plies a chunk (T); a multiple of compress_steps, so chunk blocks land on the whole-episode block grid
+        'staleness_half_life': 0.0,  # seconds after which a sampled window's selection weight halves (its chunk's receive age); 0 = off (the sampler's draws unchanged)
+        'max_reselect': 4,        # re-draws before a stale window is accepted regardless
+        'target_clip': 0.0,       # IMPACT clipped target network: V-trace rhos from a lagged target policy, clipped at this ceiling; 0 = off (independent of streaming.enabled)
+        'target_sync_epochs': 1,  # epochs between target refreshes from the live params (target_clip > 0)
+    },
 }
 
 WORKER_DEFAULTS: Dict[str, Any] = {
@@ -158,7 +177,6 @@ WORKER_DEFAULTS: Dict[str, Any] = {
 # blocks of planes the port does not have yet: each turns its plane on
 # when one of the named keys is set (truthy; model_parallel above 1)
 NOT_PORTED_BLOCKS: Dict[str, tuple] = {
-    'streaming': ('enabled', 'staleness_half_life', 'target_clip'),
     'league': ('enabled',),
     'parallel': ('model_parallel', 'partition_rules'),
     'distributed': ('coordinator_address', 'num_processes', 'process_id'),
@@ -323,6 +341,37 @@ def validate(args: Dict[str, Any]) -> None:
              '>= 1')
     _require(float(g['loss_spike_zscore']) >= 0,
              'guard.loss_spike_zscore must be >= 0 (0 disables the trip)')
+    _validate_durable_plane(ta)
+
+
+def _validate_durable_plane(ta: Dict[str, Any]) -> None:
+    """The ``durability`` and ``streaming`` blocks, with the JAX
+    package's checks (handyrl_tpu/config.py:361-388)."""
+    for block in ('durability', 'streaming'):
+        _require(isinstance(ta[block], dict), '%s must be a block of %s'
+                 % (block, ', '.join(TRAIN_DEFAULTS[block])))
+        extra = sorted(set(ta[block]) - set(TRAIN_DEFAULTS[block]))
+        _require(not extra, 'train_args.%s keys %s are not known'
+                 % (block, extra))
+    dur, stm = ta['durability'], ta['streaming']
+    _require(float(dur['segment_mb']) > 0,
+             'durability.segment_mb must be > 0')
+    _require(int(dur['keep_segments']) >= 0,
+             'durability.keep_segments must be >= 0 (0 = GC every closed '
+             'segment past the horizon)')
+    _require(int(stm['chunk_steps']) >= 1,
+             'streaming.chunk_steps must be >= 1')
+    _require(int(stm['chunk_steps']) % int(ta['compress_steps']) == 0,
+             'streaming.chunk_steps must be a multiple of compress_steps so '
+             'chunk-local bz2 blocks align with the whole-episode block grid')
+    _require(float(stm['staleness_half_life']) >= 0,
+             'streaming.staleness_half_life must be >= 0 (0 = off)')
+    _require(int(stm['max_reselect']) >= 1,
+             'streaming.max_reselect must be >= 1')
+    _require(float(stm['target_clip']) >= 0,
+             'streaming.target_clip must be >= 0 (0 = no target network)')
+    _require(int(stm['target_sync_epochs']) >= 1,
+             'streaming.target_sync_epochs must be >= 1')
 
 
 def _validate_backend(key: str, backend, pending: str) -> None:

@@ -516,6 +516,14 @@ HEARTBEAT_KIND = '__hb__'
 # with ``(INFER_KIND, reply)``, matched by the body's ``rid``.
 INFER_KIND = '__infer__'
 
+# The resume-token handshake of the durable training plane: a gather's
+# first frame after a redial is a ``(RESUME_KIND, {gather, run_id,
+# generation})`` RPC. A restarted learner that recognizes the run_id
+# answers ``{'ok': True, 'run_id', 'generation'}`` and the gather
+# reattaches in place (its resend buffer replayed, nothing respawned); any
+# other answer sends the gather down the cold-respawn path.
+RESUME_KIND = '__resume__'
+
 # Serving-path trace context rides inside the INFER body under this key;
 # peers that do not trace ignore it.
 TRACE_KEY = 'trace'

@@ -32,8 +32,9 @@ stamped ``record_version: 1``).
 
 A recurrent net's hidden state, (N, P, ...) a leaf, is one more static
 tensor of each loop, zeroed where an episode ends
-(``_reset_hidden_where_done``). What waits (ROADMAP.md): the engine's
-streaming emit.
+(``_reset_hidden_where_done``). With ``emit`` set (streaming on), the
+engine's 'device' record lanes leave in fixed-T window chunks as they
+fill, the final one with the outcome (``generation.build_chunk``).
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ import numpy as np
 import torch
 
 from .generation import (Generator, _blank_moment, bucketed_inference,
-                         finalize_episode_record, masked_sample,
+                         build_chunk, finalize_episode_record, masked_sample,
                          pad_to_bucket, sample_seed, seed_env_rng)
 from .ops.batch import compress_moments
 from .ops.device_windows import flatten_window_keys, unflatten_window_keys
@@ -745,8 +746,7 @@ def is_recurrent(net: torch.nn.Module) -> bool:
 
 class DeviceActorEngine:
     """The fused rollout behind a device actor gather: the port of the JAX
-    package's ``DeviceActorEngine`` (device_generation.py:686-1362 there)
-    without its streaming ``emit``.
+    package's ``DeviceActorEngine`` (device_generation.py:686-1362 there).
 
     :meth:`run_block` takes a list of ledger tasks ('g' episodes and 'e'
     evaluations, one lane each), plays them all in chunks of
@@ -768,7 +768,17 @@ class DeviceActorEngine:
     opponents, more model ids than slots, strict tasks without a
     ``sample_key``) come back for the caller's host fallback. A failed
     build or launch raises; only a lane's splice is guarded, and a lane
-    that fails there uploads None (the ledger re-issues its task)."""
+    that fails there uploads None (the ledger re-issues its task).
+
+    The streaming sink :attr:`emit` (set by the gather when the
+    ``streaming`` block is on) takes the windows of the 'device' record
+    lanes: each lane's moments are folded in after every chunk, a filled
+    window of ``streaming.chunk_steps`` plies leaves as a chunk stamped
+    ``record_version`` (the learner keys such streams by task_id), a
+    finished lane's tail leaves as the final chunk with the outcome, and
+    at the block's cap the unfinished lanes' tails leave as non-final
+    chunks. 'strict' lanes never stream: their byte contract is checked
+    on the whole episode."""
 
     def __init__(self, env_mod, vault, host_env, args: Dict[str, Any],
                  n_envs: int = 64, chunk_steps: int = 16, slots: int = 2,
@@ -805,8 +815,9 @@ class DeviceActorEngine:
         self.stats = {'plies': 0, 'scheduled_plies': 0, 'episodes': 0,
                       'results': 0, 'divergences': 0, 'none_payloads': 0,
                       'chunks': 0, 'chunk_seconds': 0.0,
-                      'block_seconds': 0.0}
+                      'block_seconds': 0.0, 'streamed_chunks': 0}
         self.last_block: Dict[str, Any] = {}
+        self.emit = None            # the streaming sink (the gather's)
 
     @property
     def captures(self) -> int:
@@ -1073,6 +1084,17 @@ class DeviceActorEngine:
         self._stack_params(assign)
         self._load_block(plan, assign)
 
+        stream = None
+        if self.emit is not None and self.record_mode != 'strict' \
+                and (self.args.get('streaming') or {}).get('enabled'):
+            stream = {
+                'T': int((self.args.get('streaming') or {})
+                         .get('chunk_steps', 32)),
+                'lanes': [dict(moments=[], flushed=0, chunk=0, done=False)
+                          if cls['kind'] == 'episode' else None
+                          for cls in plan],
+            }
+
         chunks: List[Dict[str, np.ndarray]] = []
         chunk_ms: List[float] = []
         n_chunks_cap = max(2, -(-self.max_steps // self.chunk_steps) + 2)
@@ -1091,8 +1113,19 @@ class DeviceActorEngine:
                 chunk_ms.append(start.elapsed_time(end))
             self.stats['chunk_seconds'] += time.perf_counter() - t0
             chunks.append(rec)
+            if stream is not None:
+                self._stream_lanes(plan, rec, stream)
             if not (rec['live'][-1] & ~rec['done'][-1]).any():
                 break
+        if stream is not None:
+            # the block's cap: the unfinished lanes' tails leave as
+            # non-final windows (the learner trains on the exposed prefix;
+            # the deadline re-issues the task)
+            for i, st in enumerate(stream['lanes']):
+                if st is None or st['done'] \
+                        or len(st['moments']) <= st['flushed']:
+                    continue
+                self._emit_lane_chunk(plan[i], st, final=False)
         rec = {k: map_zip(lambda *xs: np.concatenate(xs),
                           *[c[k] for c in chunks]) for k in chunks[0]}
         plies = int(rec['live'].sum())
@@ -1103,6 +1136,10 @@ class DeviceActorEngine:
 
         uploads = []
         for i, cls in enumerate(plan):
+            if stream is not None and stream['lanes'][i] is not None:
+                # every window of the lane already left through the sink;
+                # an unfinished lane re-issues on its deadline
+                continue
             ks = np.nonzero(rec['live'][:, i])[0]
             finished = len(ks) > 0 and bool(rec['done'][ks[-1], i])
             payload = None
@@ -1168,6 +1205,58 @@ class DeviceActorEngine:
             self._u.copy_(torch.from_numpy(u_tab))
             self._slot.copy_(torch.from_numpy(seat_slot))
             self._mode.copy_(torch.from_numpy(seat_mode))
+
+    # -- streaming ----------------------------------------------------------
+
+    def _stream_lanes(self, plan, rec, stream):
+        """Fold one chunk's records into the lanes' streams, sending every
+        filled window through :attr:`emit`; a lane whose episode ended
+        sends its final chunk (tail and outcome) and stops."""
+        players = list(range(self.num_players))
+        for i, cls in enumerate(plan):
+            st = stream['lanes'][i]
+            if st is None or st['done']:
+                continue
+            try:
+                ks = np.nonzero(rec['live'][:, i])[0]
+                for k in ks:
+                    if self.simultaneous:
+                        st['moments'].append(self._lane_moment_simultaneous(
+                            rec, k, i, players))
+                    else:
+                        st['moments'].append(self._lane_moment_turn_based(
+                            rec, k, i, players))
+                while len(st['moments']) - st['flushed'] >= stream['T']:
+                    self._emit_lane_chunk(cls, st, final=False,
+                                          upto=st['flushed'] + stream['T'])
+                if len(ks) > 0 and bool(rec['done'][ks[-1], i]):
+                    outcome = {p: float(rec['outcome'][ks[-1], i, p])
+                               for p in players}
+                    self._emit_lane_chunk(cls, st, final=True,
+                                          outcome=outcome)
+                    st['done'] = True
+                    self.stats['episodes'] += 1
+            except Exception:
+                import traceback
+                traceback.print_exc()
+                # the lane stops streaming; its sent prefix stays usable
+                # and the deadline re-issues the task
+                st['done'] = True
+                self.stats['none_payloads'] += 1
+
+    def _emit_lane_chunk(self, cls, st, final, outcome=None, upto=None):
+        """Send one window of a streamed lane, stamped ``record_version``
+        (device records follow the block's draws, not the host byte
+        contract)."""
+        upto = len(st['moments']) if upto is None else upto
+        window = st['moments'][st['flushed']:upto]
+        chunk = build_chunk(cls['task'], st['chunk'], st['flushed'], window,
+                            self.args, final=final, outcome=outcome)
+        chunk['record_version'] = 1
+        st['flushed'] = upto
+        st['chunk'] += 1
+        self.stats['streamed_chunks'] += 1
+        self.emit(chunk)
 
     # -- splicing -----------------------------------------------------------
 

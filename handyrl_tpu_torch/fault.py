@@ -5,7 +5,11 @@
 * :class:`TaskLedger`: the learner's book of outstanding tasks. Tasks
   stranded by a detached endpoint or a missed deadline are re-issued ahead
   of fresh work, and late duplicate uploads are dropped once, so episode
-  accounting converges while actors come and go.
+  accounting converges while actors come and go. It also screens streamed
+  chunks per (assembly, chunk index).
+* :class:`LedgerJournal`: the book on disk (``ledger.snap`` and
+  ``ledger.delta.wal``), the JAX package's files byte for byte, so a
+  restarted learner of either package restores it.
 * :class:`FleetController`: the per-host health states (healthy,
   degraded, draining, quarantined) that decide whether a host gets fresh
   tasks.
@@ -14,7 +18,7 @@
   ``max_kills``/``seed`` on the worker plane; ``preempt``, ``nanstep`` and
   friends in the learner).
 
-Both classes are pure Python on an injectable clock.
+The book and the fleet controller are pure Python on an injectable clock.
 """
 
 from __future__ import annotations
@@ -25,6 +29,14 @@ import random
 import time
 from collections import defaultdict, deque
 from typing import Any, Dict, Optional
+
+from . import telemetry
+from .utils.fs import (append_framed_record, atomic_write_bytes,
+                       open_append, read_framed_records)
+
+# the endpoint of tasks restored from a persisted book: their endpoints
+# died with the previous learner process
+RESTORED_ENDPOINT = '<restored>'
 
 
 class Backoff:
@@ -63,9 +75,18 @@ class TaskLedger:
     ``fail_endpoint`` / ``reap`` move stranded tasks to the re-issue queue,
     which ``next_reissue`` serves ahead of fresh assignments: a re-issue
     must not count again in the server's num_episodes/num_results, which
-    is why it bypasses the fresh-task path. The JAX package's book also
-    screens streamed chunks and journals itself to disk; those parts wait
-    for the port's streaming and durability planes."""
+    is why it bypasses the fresh-task path.
+
+    With a :class:`LedgerJournal` attached (``self.journal``) the book is
+    durable: assignments, strandings and cancels journal at once,
+    completions and chunk deliveries are batched until
+    :meth:`flush_journal`, which the server calls after the episode
+    spool's append, so "admitted but completion unjournaled" is the only
+    crash window, and spool recovery closes it by cancelling the spooled
+    task ids. :meth:`restore_state` repopulates the book from a journal
+    replay: restored tasks re-issue with their original payloads
+    (``sample_key`` included) ahead of fresh work, unless a reattached
+    gather's resent upload completes them first."""
 
     def __init__(self, deadline: float = 300.0, clock=time.time):
         self.deadline = float(deadline)
@@ -73,8 +94,18 @@ class TaskLedger:
         self._tasks: Dict[int, tuple] = {}          # tid -> (endpoint, base, expires)
         self._by_endpoint: Dict[Any, set] = defaultdict(set)
         self._reissue: deque = deque()
+        self._restored_reissue: deque = deque()     # (tid, base) restored
         self._strandings: deque = deque(maxlen=4096)  # (endpoint, reason, t)
         self._next_tid = 0
+        self.journal: Optional['LedgerJournal'] = None
+        self._pending_complete: list = []   # ('c', tid), ('p', ...), ('q', key)
+        # streamed ingest (streaming.py): the chunk indices delivered per
+        # assembly key (sample_key for host streams, task_id for device
+        # ones); closed keys move to a bounded ring, so resends of a
+        # finished episode's chunks still screen as duplicates
+        self._chunks: Dict[Any, set] = {}
+        self._closed_chunk_keys: deque = deque(maxlen=4096)
+        self._closed_chunk_set: set = set()
         self.stats: Dict[str, int] = {
             'assigned': 0, 'completed': 0, 'duplicates': 0,
             'reissued': 0, 'expired': 0, 'endpoint_failures': 0,
@@ -94,6 +125,8 @@ class TaskLedger:
         self._tasks[tid] = (endpoint, base, self._clock() + self.deadline)
         self._by_endpoint[endpoint].add(tid)
         self.stats['assigned'] += 1
+        if self.journal is not None:
+            self.journal.record('a', tid, base)
         return tid
 
     def _unbook(self, tid):
@@ -112,6 +145,9 @@ class TaskLedger:
             self.stats['duplicates'] += 1
             return False
         self.stats['completed'] += 1
+        if self.journal is not None:
+            # journaled at flush_journal, after the spool's append
+            self._pending_complete.append(('c', tid))
         return True
 
     def admit(self, items):
@@ -128,6 +164,86 @@ class TaskLedger:
                 out.append(item)
         return out
 
+    def admit_chunks(self, items):
+        """Screen a streamed chunk batch for duplicates (streaming.py).
+        A chunk does not close its task (the task completes when the
+        assembler reports the episode whole, :meth:`complete_chunked`).
+        The screen is per (assembly key, chunk index): re-issued attempts
+        of a host task share the sample_key, so their regenerated chunks
+        merge here instead of counting twice, and chunks of an assembly
+        already closed drop like any duplicate upload. Accepted deliveries
+        journal as ``p`` ops at the next flush."""
+        from .streaming import chunk_key
+        out = []
+        for chunk in items:
+            if chunk is None:
+                continue
+            key = chunk_key(chunk)
+            ci = int(chunk.get('chunk', 0))
+            if key is None or key in self._closed_chunk_set \
+                    or ci in self._chunks.get(key, ()):
+                self.stats['duplicates'] += 1
+                telemetry.counter('chunk_duplicates_total').inc()
+                continue
+            self._chunks.setdefault(key, set()).add(ci)
+            if self.journal is not None:
+                # after the spool's append, or a kill between them would
+                # journal a delivery whose bytes no replay can produce
+                self._pending_complete.append(
+                    ('p', (int((chunk.get('args') or {})
+                               .get('task_id') or -1), list(key), ci)))
+            telemetry.counter('chunks_ingested_total').inc()
+            out.append(chunk)
+        return out
+
+    def seed_chunk(self, key, ci: int):
+        """Re-seed the screen during spool recovery (the replayed chunks
+        were journaled already; no new op)."""
+        self._chunks.setdefault(key, set()).add(int(ci))
+
+    def complete_chunked(self, key, tid) -> bool:
+        """Close the book on a reassembled streamed episode: its task
+        completes (the final chunk's tid, or, when that attempt's entry
+        closed already, whichever open 'g' task carries the assembly's
+        sample_key), and the key moves to the closed ring."""
+        done = tid is not None and self.complete(tid)
+        if not done and isinstance(key, (list, tuple)) \
+                and len(key) == 2 and key[0] == 'k':
+            for other_tid, (_ep, base, _exp) in list(self._tasks.items()):
+                if isinstance(base, dict) \
+                        and base.get('sample_key') == key[1] \
+                        and base.get('role') == 'g':
+                    done = self.complete(other_tid)
+                    break
+        self._pending_complete.append(('q', self._close_chunk_key(key)))
+        return done
+
+    def _close_chunk_key(self, key):
+        """Drop ``key``'s chunk book and move it into the bounded closed
+        ring (stragglers and resends of a finished assembly screen as
+        duplicates)."""
+        k = tuple(key) if isinstance(key, list) else key
+        self._chunks.pop(k, None)
+        if k not in self._closed_chunk_set:
+            if len(self._closed_chunk_keys) == self._closed_chunk_keys.maxlen:
+                self._closed_chunk_set.discard(self._closed_chunk_keys[0])
+            self._closed_chunk_keys.append(k)
+            self._closed_chunk_set.add(k)
+        return k
+
+    def seed_closed_chunks(self, keys):
+        """Mark the assemblies spool recovery completed as closed (no op:
+        the recovery re-derives them at every restart), so a reattached
+        gather's resends screen as duplicates."""
+        for key in keys:
+            self._close_chunk_key(key)
+
+    def abandon_chunks(self, key):
+        """Drop an abandoned assembly's screen (the assembler's reap)."""
+        k = tuple(key) if isinstance(key, list) else key
+        if self._chunks.pop(k, None) is not None:
+            self._pending_complete.append(('q', k))
+
     # -- loss handling --
 
     def _strand(self, tid, reason: str = 'detach'):
@@ -135,6 +251,8 @@ class TaskLedger:
         self._reissue.append(base)
         self._strandings.append((endpoint, reason, self._clock()))
         self.stats['reissued'] += 1
+        if self.journal is not None:
+            self.journal.record('s', tid)
 
     def fail_endpoint(self, endpoint) -> int:
         """Re-queue every task booked against a detached endpoint."""
@@ -157,7 +275,79 @@ class TaskLedger:
         return len(expired)
 
     def next_reissue(self) -> Optional[Dict[str, Any]]:
+        # a previous learner's restored book goes first; cancel() is the
+        # guard: None means the task closed meanwhile (a resent upload,
+        # spool recovery), so a restored entry is never issued twice
+        while self._restored_reissue:
+            tid, base = self._restored_reissue.popleft()
+            if self.cancel(tid) is not None:
+                self.stats['reissued'] += 1
+                return copy.deepcopy(base)
         return self._reissue.popleft() if self._reissue else None
+
+    def cancel(self, tid) -> Optional[Dict[str, Any]]:
+        """Close ``tid`` silently (no duplicate count, no re-issue);
+        returns its booked payload, or None when the book holds no such
+        task."""
+        entry = self._unbook(tid)
+        if entry is None:
+            return None
+        if self.journal is not None:
+            self.journal.record('x', tid)
+        return entry[1]
+
+    # -- persistence --
+
+    def flush_journal(self):
+        """Journal the batched completions and chunk deliveries (called by
+        the server after the spool append that makes them safe)."""
+        if self.journal is None or not self._pending_complete:
+            self._pending_complete = []
+            return
+        for op, val in self._pending_complete:
+            if op == 'q':
+                self.journal.record('q', -1, key=list(val))
+            elif op == 'p':
+                tid, key, ci = val
+                self.journal.record('p', tid, key=key, ci=ci)
+            else:
+                self.journal.record('c', val)
+        self._pending_complete = []
+
+    def snapshot_state(self) -> Dict[str, Any]:
+        """The durable book: outstanding tasks, the re-issue queue, the
+        task id high-water mark and the chunk screen (``[key, [chunk
+        indices]]`` pairs: msgpack maps cannot key on tuples)."""
+        state = {
+            'tasks': {tid: entry[1] for tid, entry in self._tasks.items()},
+            'reissue': [copy.deepcopy(b) for b in self._reissue],
+            'next_tid': self._next_tid,
+        }
+        if self._chunks:
+            state['chunks'] = [[list(k), sorted(cis)]
+                               for k, cis in self._chunks.items()]
+        return state
+
+    def restore_state(self, state: Dict[str, Any]):
+        """Repopulate the book from :meth:`LedgerJournal.load`: restored
+        tasks are booked under :data:`RESTORED_ENDPOINT` with a fresh
+        deadline and queued for priority re-issue; the re-issue queue is
+        carried over as it was."""
+        now = self._clock()
+        for tid, base in sorted((state.get('tasks') or {}).items()):
+            tid = int(tid)
+            self._tasks[tid] = (RESTORED_ENDPOINT, base, now + self.deadline)
+            self._by_endpoint[RESTORED_ENDPOINT].add(tid)
+            self._restored_reissue.append((tid, base))
+        self._reissue.extend(state.get('reissue') or ())
+        self._next_tid = max(self._next_tid, int(state.get('next_tid') or 0))
+        for pair in state.get('chunks') or ():
+            try:
+                key, cis = pair
+            except Exception:
+                continue
+            k = (str(key[0]), int(key[1]))
+            self._chunks.setdefault(k, set()).update(int(c) for c in cis)
 
     # -- observability --
 
@@ -180,6 +370,151 @@ class TaskLedger:
         events = list(self._strandings)
         self._strandings.clear()
         return events
+
+
+class LedgerJournal:
+    """The :class:`TaskLedger`'s book on disk under ``model_dir``:
+
+    * ``ledger.snap``: the whole book (outstanding tasks, re-issue queue,
+      task id high-water mark, chunk screen and the learner's counters
+      under ``extra``), republished atomically at every epoch sync;
+    * ``ledger.delta.wal``: CRC-framed records journaled between
+      snapshots, ``a`` (assign: tid and payload), ``c`` (complete), ``s``
+      (strand, re-issue), ``x`` (cancel), ``p`` (a streamed chunk
+      delivered: key and chunk index) and ``q`` (a streamed assembly
+      closed). One O_APPEND write a record, no fsync a record; a torn
+      tail is truncated at load.
+
+    Records are the data-only codec's (``connection.pack``: msgpack's
+    bytes), because payloads carry int-keyed dicts (``model_id``) that
+    JSON would turn into strings. :meth:`snapshot` lands the snap before
+    it truncates the delta, and every op replays idempotently over a
+    snapshot that folded it in already, so a crash between the two loads
+    the same book."""
+
+    SNAP = 'ledger.snap'
+    DELTA = 'ledger.delta.wal'
+
+    def __init__(self, model_dir: str):
+        from .connection import pack, unpack
+        self._pack, self._unpack = pack, unpack
+        self.snap_path = os.path.join(model_dir, self.SNAP)
+        self.delta_path = os.path.join(model_dir, self.DELTA)
+        self._delta_fd: Optional[int] = None
+
+    def exists(self) -> bool:
+        return (os.path.exists(self.snap_path)
+                or os.path.exists(self.delta_path))
+
+    def record(self, op: str, tid: int, base: Optional[dict] = None,
+               **extra):
+        """Append one delta op in a single torn-safe write; ``extra``
+        carries the ``p``/``q`` ops' assembly ``key`` and chunk ``ci``."""
+        if self._delta_fd is None:
+            os.makedirs(os.path.dirname(self.delta_path) or '.',
+                        exist_ok=True)
+            self._delta_fd = open_append(self.delta_path)
+        rec: Dict[str, Any] = {'op': op, 'tid': int(tid)}
+        if base is not None:
+            rec['base'] = base
+        if extra:
+            rec.update(extra)
+        append_framed_record(self._delta_fd, self._pack(rec))
+
+    def snapshot(self, state: Dict[str, Any]):
+        """Republish the whole book atomically, then truncate the delta
+        journal."""
+        os.makedirs(os.path.dirname(self.snap_path) or '.', exist_ok=True)
+        atomic_write_bytes(self.snap_path, self._pack(state))
+        if self._delta_fd is not None:
+            os.close(self._delta_fd)
+            self._delta_fd = None
+        atomic_write_bytes(self.delta_path, b'')
+
+    def load(self) -> Optional[Dict[str, Any]]:
+        """Replay the snapshot and the deltas into a restorable book,
+        truncating a torn delta tail in place; None when nothing was ever
+        journaled. ``chunks_closed`` lists the assemblies closed after the
+        snapshot (their episodes post-date its counters). ``key_marks``
+        holds, by role ('g', 'e'), one past the largest ``sample_key``
+        of every task assigned since the snapshot, completed ones
+        included: a learner killed before its first snapshot has no
+        counters in ``extra``, and without the marks its fresh tasks
+        would reuse the keys of episodes the spool replays (the JAX
+        package's book has no such marks; ROADMAP.md F4)."""
+        try:
+            with open(self.snap_path, 'rb') as f:
+                state = self._unpack(f.read())
+        except Exception:
+            state = None          # missing or corrupt: the deltas alone
+        if not isinstance(state, dict):
+            state = None
+        snap = state or {}
+        tasks = dict(snap.get('tasks') or {})
+        reissue = list(snap.get('reissue') or ())
+        next_tid = int(snap.get('next_tid') or 0)
+        chunks: Dict[Any, set] = {}
+        closed_chunks: list = []
+        key_marks: Dict[str, int] = {}
+        for pair in snap.get('chunks') or ():
+            try:
+                key, cis = pair
+                chunks[(str(key[0]), int(key[1]))] = set(int(c) for c in cis)
+            except Exception:
+                continue
+        records, valid_bytes, torn = read_framed_records(self.delta_path)
+        if torn:
+            os.truncate(self.delta_path, valid_bytes)
+        for payload in records:
+            try:
+                rec = self._unpack(payload)
+                op, tid = rec['op'], int(rec['tid'])
+            except Exception:
+                continue
+            if op == 'a':
+                base = rec.get('base')
+                tasks[tid] = base
+                next_tid = max(next_tid, tid + 1)
+                if isinstance(base, dict) \
+                        and base.get('sample_key') is not None:
+                    role = str(base.get('role'))
+                    key_marks[role] = max(key_marks.get(role, 0),
+                                          int(base['sample_key']) + 1)
+            elif op in ('c', 'x'):
+                tasks.pop(tid, None)
+            elif op == 's':
+                base = tasks.pop(tid, None)
+                if base is not None:
+                    reissue.append(base)
+            elif op in ('p', 'q'):
+                try:
+                    key = rec['key']
+                    k = (str(key[0]), int(key[1]))
+                    if op == 'p':
+                        chunks.setdefault(k, set()).add(int(rec['ci']))
+                        continue
+                except Exception:
+                    continue
+                chunks.pop(k, None)
+                if k not in closed_chunks:
+                    closed_chunks.append(k)
+        if state is None and not records:
+            return None
+        out = {'tasks': tasks, 'reissue': reissue, 'next_tid': next_tid,
+               'extra': dict(snap.get('extra') or {})}
+        if chunks:
+            out['chunks'] = [[list(k), sorted(cis)]
+                             for k, cis in chunks.items()]
+        if closed_chunks:
+            out['chunks_closed'] = [list(k) for k in closed_chunks]
+        if key_marks:
+            out['key_marks'] = key_marks
+        return out
+
+    def close(self):
+        if self._delta_fd is not None:
+            os.close(self._delta_fd)
+            self._delta_fd = None
 
 
 # host health states, in escalation order

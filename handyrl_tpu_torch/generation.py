@@ -172,6 +172,24 @@ def finalize_episode_record(outcome, moments: List[dict],
             'moment': blocks}
 
 
+def build_chunk(gen_args: Dict[str, Any], chunk_index: int, base: int,
+                window: List[dict], args: Dict[str, Any],
+                final: bool = False, outcome=None) -> dict:
+    """One streaming upload: a fixed-T window of in-flight moments, whose
+    ``'return'`` entries are None (the learner fills the returns once the
+    final chunk lands). Its blocks use the whole episode's
+    ``compress_steps`` grid (``streaming.chunk_steps`` is a multiple of
+    it), so a partial episode's blocks index like a finished record's."""
+    return {
+        'args': dict(gen_args), 'chunk': int(chunk_index), 'base': int(base),
+        'steps': len(window),
+        'moment': compress_moments(window, args['compress_steps'],
+                                   level=args.get('compress_level', 9)),
+        'final': bool(final),
+        'outcome': outcome if final else None,
+    }
+
+
 class Generator:
     """Sequential single-env episode generator (a worker's engine).
 
@@ -179,7 +197,14 @@ class Generator:
     without a server-stamped ``sample_key``, so parallel workers never
     replay one another's draws. With a ``sample_key`` (the learner stamps
     every assignment) the episode is a pure function of (seed,
-    sample_key, model params), whichever worker plays it."""
+    sample_key, model params), whichever worker plays it.
+
+    With ``emit`` (streaming) a keyed task's episode leaves in chunks of
+    ``streaming.chunk_steps`` plies as they fill, the last one with the
+    outcome, and :meth:`generate` returns a ``{'streamed': True}``
+    sentinel instead of the record. Chunk boundaries are a pure function
+    of (seed, sample_key, T), so a re-issued attempt regenerates the same
+    chunks and the learner's screen merges them."""
 
     def __init__(self, env, args: Dict[str, Any], namespace: int = 0):
         self.env = env
@@ -187,14 +212,19 @@ class Generator:
         self.namespace = int(namespace)
         self._local_episodes = 0
 
-    def generate(self, models: Dict[int, Any], gen_args: Dict[str, Any]
-                 ) -> Optional[dict]:
+    def generate(self, models: Dict[int, Any], gen_args: Dict[str, Any],
+                 emit=None) -> Optional[dict]:
         base_seed = self.args.get('seed', 0)
         skey = (gen_args or {}).get('sample_key')
         episode_key = ((0, int(skey)) if skey is not None
                        else (1, self.namespace, self._local_episodes))
         self._local_episodes += 1
         draws = 0
+        stream = None
+        if emit is not None and skey is not None:
+            stream = {'T': int((self.args.get('streaming') or {})
+                               .get('chunk_steps', 32)),
+                      'flushed': 0, 'chunk': 0}
         seed_env_rng(self.env, base_seed, episode_key)
         moments: List[dict] = []
         hidden = {p: models[p].init_hidden() for p in self.env.players()}
@@ -240,11 +270,31 @@ class Generator:
             moment['turn'] = turn_players
             moments.append(moment)
 
+            if stream is not None and \
+                    len(moments) - stream['flushed'] >= stream['T']:
+                window = moments[stream['flushed']:
+                                 stream['flushed'] + stream['T']]
+                emit(build_chunk(gen_args, stream['chunk'],
+                                 stream['flushed'], window, self.args))
+                stream['flushed'] += stream['T']
+                stream['chunk'] += 1
+
+        if stream is not None:
+            if len(moments) < 1:
+                return None
+            # the final chunk: the moments past the last full window (maybe
+            # none) and the outcome that closes the episode
+            emit(build_chunk(gen_args, stream['chunk'], stream['flushed'],
+                             moments[stream['flushed']:], self.args,
+                             final=True, outcome=self.env.outcome()))
+            return {'streamed': True, 'args': gen_args,
+                    'steps': len(moments)}
+
         return finalize_episode_record(self.env.outcome(), moments,
                                        self.args, gen_args)
 
-    def execute(self, models, gen_args) -> Optional[dict]:
-        episode = self.generate(models, gen_args)
+    def execute(self, models, gen_args, emit=None) -> Optional[dict]:
+        episode = self.generate(models, gen_args, emit=emit)
         if episode is None:
             print('None episode in generation!')
         return episode

@@ -1,8 +1,8 @@
 """Episode storage and training-batch construction (host side).
 
-A copy of ``handyrl_tpu/ops/batch.py`` (numpy, bz2 and pickle only), without
-the streaming-ingest parts (per-chunk stamps and staleness-aware
-reselection) and the stage timer, which the port does not run yet.
+A copy of ``handyrl_tpu/ops/batch.py`` (numpy, bz2 and pickle only), the
+streaming ingest's per-chunk receive stamps and staleness-aware
+reselection included, without the stage timer.
 ``make_batch(out=)`` builds into caller-owned arenas (the shared-memory
 slots of ``ops/shm_batch.py``), restoring their pad defaults first. Episode records and moments are plain dicts of numpy
 arrays, so they cross between the packages unchanged, and one seed gives
@@ -40,6 +40,7 @@ from __future__ import annotations
 import bz2
 import pickle
 import random
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,29 +71,63 @@ def decompress_moments(blocks: Sequence[bytes]) -> List[dict]:
     return out
 
 
-def select_episode(episodes: Sequence[dict], args: Dict[str, Any]) -> dict:
+def _chunk_recv_time(ep: dict, train_st: int):
+    """The receive time of the window at ``train_st``: its chunk's for a
+    streamed entry (the assembler stamps ``chunk_recv`` per exposed
+    window), the whole episode's otherwise."""
+    recv = ep.get('chunk_recv')
+    if recv:
+        T = max(1, int(ep.get('chunk_steps') or 1))
+        return recv[min(train_st // T, len(recv) - 1)]
+    return ep.get('recv_time')
+
+
+def select_episode(episodes: Sequence[dict], args: Dict[str, Any],
+                   now=None) -> dict:
     """Recency-biased episode + window sampling (HandyRL train.py:291-315).
 
     Index i among N buffered episodes is accepted with probability
     (i+1)/N (newer episodes are proportionally more likely), then a uniform
     random ``forward_steps`` window (plus up to ``burn_in_steps`` of warmup
     context) is sliced out, keeping only the compressed blocks it covers.
-    The draws are those of the JAX package's sampler with streaming off.
-    """
-    while True:
-        ep_count = min(len(episodes), args['maximum_episodes'])
-        ep_idx = random.randrange(ep_count)
-        accept_rate = 1 - (ep_count - 1 - ep_idx) / ep_count
-        if random.random() >= accept_rate:
-            continue
-        try:
-            ep = episodes[ep_idx]
-            break
-        except IndexError:
-            continue
 
-    turn_candidates = 1 + max(0, ep['steps'] - args['forward_steps'])
-    train_st = random.randrange(turn_candidates)
+    With ``streaming.staleness_half_life`` > 0, a drawn window with a
+    receive stamp is also accepted with probability ``0.5 ** (age /
+    half_life)`` over its chunk's age, re-drawing episode and window up to
+    ``streaming.max_reselect`` times before it is accepted regardless. At
+    0 the knob adds no draw: the draws are those of the JAX package's
+    sampler with streaming off.
+    """
+    stm = args.get('streaming') or {}
+    half_life = float(stm.get('staleness_half_life', 0.0) or 0.0)
+    reselects = int(stm.get('max_reselect', 4)) if half_life > 0 else 0
+    while True:
+        while True:
+            ep_count = min(len(episodes), args['maximum_episodes'])
+            ep_idx = random.randrange(ep_count)
+            accept_rate = 1 - (ep_count - 1 - ep_idx) / ep_count
+            if random.random() >= accept_rate:
+                continue
+            try:
+                ep = episodes[ep_idx]
+                break
+            except IndexError:
+                continue
+
+        turn_candidates = 1 + max(0, ep['steps'] - args['forward_steps'])
+        train_st = random.randrange(turn_candidates)
+        if reselects <= 0:
+            break
+        recv = _chunk_recv_time(ep, train_st)
+        if recv is None:
+            break
+        if now is None:
+            now = time.time()
+        age = max(0.0, float(now) - float(recv))
+        if random.random() < 0.5 ** (age / half_life):
+            break
+        reselects -= 1
+
     st = max(0, train_st - args['burn_in_steps'])
     ed = min(train_st + args['forward_steps'], ep['steps'])
     cs = args['compress_steps']
@@ -102,6 +137,7 @@ def select_episode(episodes: Sequence[dict], args: Dict[str, Any]) -> dict:
         'moment': ep['moment'][st_block:ed_block],
         'base': st_block * cs,
         'start': st, 'end': ed, 'train_start': train_st, 'total': ep['steps'],
+        'recv_time': _chunk_recv_time(ep, train_st),
     }
 
 

@@ -20,8 +20,13 @@ averages advance once a window for a feed-forward net and once a step for
 a recurrent one, burn-in steps included; they come back in
 ``aux['batch_stats']``, without gradients.
 
-Not ported yet (raises ``NotImplementedError``): the IMPACT target
-network (losses.py:257-296); ROADMAP.md queues it.
+With ``target_params`` and ``target_clip`` > 0 the loss runs the IMPACT
+clipped target network (losses.py:229-352 there): a second forward under
+``torch.no_grad`` with the target's parameters (a 'batch' net's target
+normalizes by the batch's statistics and its running averages never
+advance) gives the importance ratio pi_target / mu of the V-trace
+corrections, clipped at ``target_clip`` for rho and at 1 for c; the
+policy gradient still differentiates the current policy's log-prob.
 """
 
 from __future__ import annotations
@@ -35,8 +40,6 @@ from .targets import compute_target
 
 Tensor = torch.Tensor
 
-_DEFERRED = 'is not ported yet (ROADMAP.md)'
-
 
 class LossConfig(NamedTuple):
     """The training configuration the step is built for."""
@@ -49,7 +52,7 @@ class LossConfig(NamedTuple):
     gamma: float = 0.8
     entropy_regularization: float = 0.1
     entropy_regularization_decay: float = 0.1
-    # IMPACT-style clipped target network; 0 = off (the only mode ported)
+    # IMPACT clipped target network's rho ceiling; 0 = off
     target_clip: float = 0.0
 
 
@@ -220,18 +223,39 @@ def compute_loss(apply_fn: Callable, params, init_hidden,
     aux) where aux carries the per-term sums ('losses'), the data count
     ('data_count'), the off-policy diagnostics ('diag') and, given a
     'batch' net's ``batch_stats``, the advanced running averages
-    ('batch_stats')."""
-    if target_params is not None and cfg.target_clip > 0:
-        raise NotImplementedError('the IMPACT target network ' + _DEFERRED)
+    ('batch_stats').
+
+    ``target_params`` (the target network's parameters, and a 'batch'
+    net's running averages under ``batch_stats``'s names) with
+    ``cfg.target_clip`` > 0 engages the IMPACT target: the V-trace rhos
+    and cs come from pi_target / mu, and ``diag`` gains
+    'target_clip', 'target_ratio_sum' and 'target_gap_sum'."""
     outputs = forward_prediction(apply_fn, params, init_hidden, batch, cfg,
                                  batch_stats)
     new_bs = None
     if batch_stats is not None:
         outputs, new_bs = outputs
+
+    use_target = target_params is not None and cfg.target_clip > 0
+    tgt_outputs = None
+    if use_target:
+        t_bs = None
+        if batch_stats is not None:
+            t_bs = {k: target_params[k] for k in batch_stats}
+        t_params = {k: v for k, v in target_params.items()
+                    if t_bs is None or k not in t_bs}
+        with torch.no_grad():
+            tgt_outputs = forward_prediction(apply_fn, t_params, init_hidden,
+                                             batch, cfg, t_bs)
+        if t_bs is not None:
+            tgt_outputs, _ = tgt_outputs   # the target's stats stay put
+
     bi = cfg.burn_in_steps
     if bi > 0:
         batch = _slice_burn_in(batch, bi)
         outputs = {k: v[:, bi:] for k, v in outputs.items()}
+        if tgt_outputs is not None:
+            tgt_outputs = {k: v[:, bi:] for k, v in tgt_outputs.items()}
 
     actions = batch['action'].long()
     emasks = batch['episode_mask']
@@ -244,8 +268,15 @@ def compute_loss(apply_fn: Callable, params, init_hidden,
     log_t = torch.gather(logp, -1, actions) * emasks
 
     rhos = torch.exp(log_t.detach() - log_b)
-    clipped_rhos = torch.clamp(rhos, 0, clip_rho)
-    cs = torch.clamp(rhos, 0, clip_c)
+    if use_target:
+        logp_tgt = torch.log_softmax(tgt_outputs['policy'], dim=-1)
+        log_tgt = torch.gather(logp_tgt, -1, actions) * emasks
+        rhos_tgt = torch.exp(log_tgt - log_b)
+        clipped_rhos = torch.clamp(rhos_tgt, 0, cfg.target_clip)
+        cs = torch.clamp(rhos_tgt, 0, clip_c)
+    else:
+        clipped_rhos = torch.clamp(rhos, 0, clip_rho)
+        cs = torch.clamp(rhos, 0, clip_c)
     outputs_nograd = {k: v.detach() for k, v in outputs.items()}
 
     if 'value' in outputs_nograd:
@@ -293,6 +324,13 @@ def compute_loss(apply_fn: Callable, params, init_hidden,
         'rho_sum': (rhos * tmask).sum(),
         'rho_sq_sum': (rhos.square() * tmask).sum(),
     }
+    if use_target:
+        # the target's health: its clip fraction, the mean target /
+        # behavior ratio and the current-vs-target log-prob gap on the
+        # taken actions (how far the live policy moved since the sync)
+        diag['target_clip'] = ((rhos_tgt > cfg.target_clip) * tmask).sum()
+        diag['target_ratio_sum'] = (rhos_tgt * tmask).sum()
+        diag['target_gap_sum'] = ((log_t.detach() - log_tgt) * tmask).sum()
     aux = {'losses': losses, 'data_count': dcnt, 'diag': diag}
     if new_bs is not None:
         aux['batch_stats'] = new_bs

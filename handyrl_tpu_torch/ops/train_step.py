@@ -18,6 +18,14 @@ parameters alone (``opt_state.mu``'s names), the averages advance by the
 training forward's EMA (``ops/losses.py``), and a non-finite step keeps
 the old ones.
 
+With ``cfg.target_clip`` > 0 the step takes the IMPACT target network's
+parameters (``ops/losses.py``; train_step.py:60-80 there): an argument of
+:func:`build_update_step`'s ``update``, and in :class:`StaticUpdateStep`
+and the graph that captures it static buffers of their own, never updated
+by the step, refreshed by :meth:`StaticUpdateStep.sync_target` with
+``copy_`` (so a sync is no new capture), and never part of the state a
+checkpoint holds.
+
 The optimizer is written out on tensors, because ``torch.optim.Adam`` and
 ``clip_grad_norm_`` compute other numbers than the optax chain
 ``clip_by_global_norm(4.0) -> add_decayed_weights(1e-5) -> scale_by_adam()``
@@ -99,18 +107,19 @@ def init_hidden_for(module: torch.nn.Module, batch: Dict[str, Any]):
 
 def _step_math(apply_fn: Callable, cfg: LossConfig, params: Dict[str, Tensor],
                opt: AdamState, batch: Dict[str, Any], lr: Tensor,
-               hidden=None
+               hidden=None, target: Optional[Dict[str, Tensor]] = None
                ) -> Tuple[Dict[str, Tensor], AdamState, Dict[str, Tensor]]:
     """One step's math at ``params``, leaves that require grad (and a
     'batch' net's running averages, which do not): forward (from
-    ``hidden``, a recurrent net's state at the windows' start), targets,
-    losses, grads, clip, decay, Adam and the guard. Returns the new
-    parameters (and running averages), the new Adam state and the
-    metrics, as new tensors (``params`` and ``opt`` are only read)."""
+    ``hidden``, a recurrent net's state at the windows' start), targets
+    (through the IMPACT ``target`` parameters where given), losses,
+    grads, clip, decay, Adam and the guard. Returns the new parameters
+    (and running averages), the new Adam state and the metrics, as new
+    tensors (``params``, ``opt`` and ``target`` are only read)."""
     names = list(opt.mu)
     trainable, stats = split_batch_stats(params, opt)
     total, aux = compute_loss(apply_fn, trainable, hidden, batch, cfg,
-                              batch_stats=stats)
+                              batch_stats=stats, target_params=target)
     grads = dict(zip(names, torch.autograd.grad(
         total, [params[k] for k in names])))
     with torch.no_grad():
@@ -164,9 +173,11 @@ def _apply_fn(module: torch.nn.Module) -> Callable:
 
 
 def build_update_step(module: torch.nn.Module, cfg: LossConfig
-                      ) -> Callable[[TrainState, Dict[str, Any], Tensor],
-                                    Tuple[TrainState, Dict[str, Tensor]]]:
-    """Returns ``update(state, batch, lr) -> (state, metrics)``.
+                      ) -> Callable[..., Tuple[TrainState,
+                                               Dict[str, Tensor]]]:
+    """Returns ``update(state, batch, lr, target_params=None) -> (state,
+    metrics)``; ``target_params`` (a copy of ``state.params``, the IMPACT
+    target's) counts with ``cfg.target_clip`` > 0.
 
     ``metrics`` holds the per-term loss sums, the turn count of the batch
     (``data_count``), the ``diag_*`` off-policy diagnostics and
@@ -177,13 +188,15 @@ def build_update_step(module: torch.nn.Module, cfg: LossConfig
     """
     apply_fn = _apply_fn(module)
 
-    def update(state: TrainState, batch: Dict[str, Any], lr: Tensor
+    def update(state: TrainState, batch: Dict[str, Any], lr: Tensor,
+               target_params: Optional[Dict[str, Tensor]] = None
                ) -> Tuple[TrainState, Dict[str, Tensor]]:
         live = {k: v.detach().requires_grad_(k in state.opt_state.mu)
                 for k, v in state.params.items()}
         params, opt, metrics = _step_math(apply_fn, cfg, live,
                                           state.opt_state, batch, lr,
-                                          init_hidden_for(module, batch))
+                                          init_hidden_for(module, batch),
+                                          target_params)
         return (TrainState(params=params, opt_state=opt,
                            steps=state.steps + 1), metrics)
 
@@ -212,7 +225,12 @@ class StaticUpdateStep:
     and ``lr`` into them, runs :func:`build_update_step`'s math, writes the
     new state back in place and returns the metrics, copied out of one
     packed tensor. The body runs on any device; :class:`GraphedUpdateStep`
-    captures it as a CUDA graph."""
+    captures it as a CUDA graph.
+
+    With ``cfg.target_clip`` > 0 the IMPACT target's parameters are
+    buffers of their own (:attr:`target`), a copy of the state's at
+    construction, read by every step and written only by
+    :meth:`sync_target`."""
 
     def __init__(self, module: torch.nn.Module, cfg: LossConfig,
                  state: TrainState):
@@ -233,6 +251,22 @@ class StaticUpdateStep:
         self._lr = torch.zeros((), dtype=torch.float32, device=self._device)
         self._batches: Dict[Tuple, Dict[str, Tensor]] = {}
         self.metric_names: Tuple[str, ...] = ()
+        self.target: Optional[Dict[str, Tensor]] = None
+        if cfg.target_clip > 0:
+            self.target = {k: own(v) for k, v in state.params.items()}
+            self.target_syncs = 0
+
+    def sync_target(self) -> None:
+        """Copy the live parameters (and running averages) into the
+        target's buffers, in place: a captured graph reads the new target
+        on its next replay, with no new capture."""
+        if self.target is None:
+            raise RuntimeError('sync_target: the step has no target network '
+                               '(target_clip is 0)')
+        with torch.no_grad():
+            for k, t in self.target.items():
+                t.copy_(self._params[k])
+        self.target_syncs += 1
 
     @property
     def state(self) -> TrainState:
@@ -289,7 +323,7 @@ class StaticUpdateStep:
         batch = unflatten_window_keys(batch)
         params, opt, metrics = _step_math(
             self._apply, self._cfg, self._params, self._opt, batch, self._lr,
-            init_hidden_for(self._module, batch))
+            init_hidden_for(self._module, batch), self.target)
         with torch.no_grad():
             for k, p in self._params.items():
                 p.copy_(params[k])
@@ -339,6 +373,11 @@ class GraphedUpdateStep(StaticUpdateStep):
         super().__init__(module, cfg, state)
         # signature -> its graph (its output, the packed metrics)
         self._graphs: Dict[Tuple, CountedGraph] = {}
+
+    @property
+    def captures(self) -> int:
+        """Graphs captured so far (one a batch signature)."""
+        return len(self._graphs)
 
     def _capture(self, key: Tuple) -> CountedGraph:
         batch = self._batches[key]

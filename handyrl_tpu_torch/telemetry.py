@@ -4,7 +4,7 @@ The subset of ``handyrl_tpu/telemetry.py`` the serving path and the
 learner use: one process-global :class:`MetricRegistry` of labeled
 counters, gauges and fixed-bucket histograms with a plain-data
 ``snapshot``, :func:`summarize` (the compact form a ``metrics_jsonl`` row
-carries), :func:`run_id` and :func:`get_logger`. The same environment variables switch them:
+carries), :func:`run_id` (:func:`set_run_id`) and :func:`get_logger`. The same environment variables switch them:
 ``HANDYRL_TPU_TELEMETRY=0`` turns collection off and
 ``HANDYRL_TPU_LOG_LEVEL`` sets the log level. Tracing, the exporter and
 alerts are not ported yet.
@@ -68,6 +68,12 @@ _RUN_ID = os.environ.get('HANDYRL_TPU_RUN_ID') or uuid.uuid4().hex[:12]
 
 def run_id() -> str:
     return _RUN_ID
+
+
+def set_run_id(value: str) -> None:
+    """Adopt a run id (a restarted durable learner keeps its run's)."""
+    global _RUN_ID
+    _RUN_ID = str(value)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,21 @@ dropped) and every host has a health state
 (``fault.FleetController``). A local run whose gathers are lost stops with
 exit 1 naming them (the JAX learner waits for them forever).
 
+The durable training plane (``--server`` only; the ``durability``
+block): every admitted episode or streamed chunk is written ahead to the
+episode spool (``spool.EpisodeSpool``) before it is counted, the book is
+journaled (``fault.LedgerJournal``: a snapshot at each checkpoint, deltas
+between) and a resume token (``run_token.json``: the run id and a restart
+generation) rides the entry handshake. A learner restarted after a
+SIGKILL (``restart_epoch: -1``) adopts the token, restores the book and
+the counters, replays the spool past the checkpoint's horizon and answers
+the gathers' ``RESUME_KIND`` handshake, so they reattach without a
+respawn. With ``streaming.enabled`` the uploads are chunks
+(``feed_chunks``, ``streaming.ChunkAssembler``), trained on as their
+prefix grows; ``streaming.target_clip`` > 0 trains through the IMPACT
+target network, synced into the step's buffers every
+``target_sync_epochs``.
+
 * :class:`Batcher`: threads (or, with ``batcher_processes``, spawned
   processes that build into shared-memory slots with
   ``batcher_shared_memory``) that sample windows from the episode buffer
@@ -108,7 +123,8 @@ from . import guard as guard_mod
 from . import telemetry
 from .config import apply_defaults
 from .environment import make_env
-from .fault import FleetController, TaskLedger
+from .connection import RESUME_KIND, pack as conn_pack, unpack as conn_unpack
+from .fault import FleetController, LedgerJournal, TaskLedger
 from .generation import BatchedEvaluator, BatchedGenerator
 from .model import (ModelWrapper, fp32_on_card, load_params_bytes,
                     params_bytes, param_trees, resolve_device)
@@ -128,8 +144,11 @@ from .ops.train_step import (GraphedUpdateStep, ReplayUpdateStep,
                               StaticUpdateStep, TrainState, init_train_state,
                               opt_state_from_flax, opt_state_to_flax)
 from .utils import flax_msgpack
-from .utils.fs import (append_jsonl, checksummed_write_bytes,
-                       read_verified_bytes, sidecar_path, verify_checkpoint)
+from .spool import EpisodeSpool
+from .streaming import ChunkAssembler, chunk_key
+from .utils.fs import (append_jsonl, atomic_write_bytes,
+                       checksummed_write_bytes, read_verified_bytes,
+                       sidecar_path, verify_checkpoint)
 from .ops.device_windows import flatten_window_keys
 from .utils.tree import map_structure, map_zip
 from .worker import WorkerCluster, WorkerServer
@@ -169,7 +188,9 @@ def loss_config(args: Dict[str, Any]) -> LossConfig:
         lmb=float(args['lambda']), gamma=float(args['gamma']),
         entropy_regularization=float(args['entropy_regularization']),
         entropy_regularization_decay=float(
-            args['entropy_regularization_decay']))
+            args['entropy_regularization_decay']),
+        target_clip=float((args.get('streaming') or {})
+                          .get('target_clip') or 0.0))
 
 
 class Batcher:
@@ -370,6 +391,23 @@ class Trainer:
         self.episodes: deque = deque()
         self.cfg = loss_config(args)
         self.default_lr = 3e-8
+        # the IMPACT target network (streaming.target_clip > 0;
+        # handyrl_tpu/train.py:401-416): buffers of the update step,
+        # refreshed every target_sync_epochs epochs and after a load or a
+        # rollback, never checkpointed. The replay trainers have no target
+        # variant, so device_replay ignores the knob, as the JAX trainer
+        # does
+        stm = args.get('streaming') or {}
+        self.use_target = self.cfg.target_clip > 0
+        if self.use_target and args.get('device_replay'):
+            _LOG.warning('streaming.target_clip is ignored in device_replay '
+                         'mode (the fused trainer has no target variant)')
+            self.use_target = False
+            self.cfg = self.cfg._replace(target_clip=0.0)
+        self.target_sync_epochs = max(
+            1, int(stm.get('target_sync_epochs') or 1))
+        self._target_age_epochs = 0
+        self._target_stale = True      # synced at the next epoch's start
         # the device ring (device_replay): the fused loop's pipeline binds
         # the K-step update to its ring (ops/fused_pipeline.py); the
         # threaded replay trainer binds it at its first dispatch to the
@@ -425,6 +463,7 @@ class Trainer:
         # stopped, and the seconds spent waiting for the batchers, for rates
         self.steps_at_start = 0
         self.train_started_at: Optional[float] = None
+        self.first_step_at: Optional[float] = None   # wall clock
         self.train_stopped_at: Optional[float] = None
         self.batch_wait_seconds = 0.0
         self.guard = guard_mod.NonFiniteGuard(args.get('guard') or {})
@@ -484,6 +523,9 @@ class Trainer:
         steps, ema = int(payload['steps']), float(payload['data_cnt_ema'])
         self.update_step.load_state(state)
         self.steps, self.data_cnt_ema = steps, ema
+        # the target is not part of the checkpoint: the next epoch
+        # re-syncs it from the loaded params
+        self._target_stale = True
 
     def update(self, timeout: Optional[float] = None):
         """Called by the learner at each epoch boundary; blocks until the
@@ -535,6 +577,13 @@ class Trainer:
         pending: List[Dict[str, Tensor]] = []
         staged = self._staged
         epoch_t0 = time.time()
+        if self.use_target and (
+                self._target_stale
+                or self._target_age_epochs >= self.target_sync_epochs):
+            # copy_ into the step's target buffers: no new capture
+            self.update_step.sync_target()
+            self._target_age_epochs = 0
+            self._target_stale = False
 
         def top_up():
             while len(staged) < self.prefetch_depth:
@@ -554,6 +603,8 @@ class Trainer:
                 if not staged:
                     continue
             metrics = self._step(staged.popleft())
+            if self.first_step_at is None:
+                self.first_step_at = time.time()
             # the next uploads are staged while the step runs on the device
             top_up()
             pending.append(metrics)
@@ -580,6 +631,8 @@ class Trainer:
                                  + data_cnt / (1e-2 + batch_cnt) * 0.2)
             self.last_steps_per_sec = batch_cnt / max(time.time() - epoch_t0,
                                                       1e-9)
+            if self.use_target:
+                self._target_age_epochs += 1
             self.last_dynamics = self._epoch_dynamics(loss_sum, data_cnt,
                                                       batch_cnt)
 
@@ -773,6 +826,13 @@ class Trainer:
             out['importance_ratio_mean'] = mean
             var = max(0.0, d.get('diag_rho_sq_sum', 0.0) / dc - mean * mean)
             out['importance_ratio_std'] = var ** 0.5
+        if 'diag_target_clip' in d:
+            # the IMPACT target's clip fraction, mean target / behavior
+            # ratio and mean current-vs-target log-prob gap
+            out['target_clip_fraction'] = d['diag_target_clip'] / dc
+            out['target_ratio_mean'] = (
+                d.get('diag_target_ratio_sum', 0.0) / dc)
+            out['target_gap_mean'] = d.get('diag_target_gap_sum', 0.0) / dc
         if 'diag_grad_norm' in d:
             out['grad_norm'] = d['diag_grad_norm'] / nu
         return {k: round(float(v), 6) for k, v in out.items()}
@@ -940,6 +1000,10 @@ class Learner:
         self.args = args
         self.device = resolve_device(device)
         random.seed(args['seed'])
+        # one identity for every record of the run; a restarted durable
+        # learner adopts its run's from the resume token
+        args.setdefault('run_id', telemetry.run_id())
+        telemetry.set_run_id(args['run_id'])
 
         self.env = make_env(args['env'])
         eval_modify_rate = ((args['update_episodes'] ** 0.85)
@@ -1009,6 +1073,10 @@ class Learner:
         # records, which follow the card's draws, not the host byte
         # contract; handyrl_tpu/train.py:1966-1971)
         self.stamped_episodes = 0
+        # counted episodes by how they arrived: whole uploads (and the
+        # in-process generators' records) or reassembled streams
+        self.episode_sources = {'whole': 0, 'streamed': 0}
+        self.episode_steps = 0     # plies of the counted episodes
         self.results: Dict[int, tuple] = {}
         self.results_per_opponent: Dict[int, dict] = {}
         self.num_results = 0
@@ -1047,6 +1115,33 @@ class Learner:
         self.trainer.rollback_source = self._rollback_source
         if resume:
             self._load_resume_state()
+
+        # the durable training plane (handyrl_tpu/train.py:1327-1360), for
+        # remote learners only: the episode spool, the ledger journal and
+        # the resume token; the assembler of streamed chunks is built
+        # always (inert while no chunk arrives), so recovery can replay
+        # chunk records whatever the restarted config says
+        dur = args['durability']
+        self._spool: Optional[EpisodeSpool] = None
+        self._ledger_journal: Optional[LedgerJournal] = None
+        self._restored_ledger: Optional[dict] = None
+        self._durable_restored = False
+        self._spool_horizon = 0          # consumption horizon at last ckpt
+        self._run_generation = 0         # restart generation (resume token)
+        self._token_path = os.path.join(self.model_dir, 'run_token.json')
+        self.durable = {'recovered_episodes': 0, 'recovered_chunks': 0,
+                        'recovered_reassembled': 0, 'reattached': 0,
+                        'rejected_tokens': 0}
+        if remote and dur['spool']:
+            self._spool = EpisodeSpool(
+                self.model_dir, segment_mb=float(dur['segment_mb']),
+                keep_segments=int(dur['keep_segments']))
+        if remote and dur['ledger_snapshot']:
+            self._ledger_journal = LedgerJournal(self.model_dir)
+        self._assembler = ChunkAssembler(args,
+                                         check_finite=self._check_episodes)
+        self._recovered_closed_chunks: list = []
+        self._load_durable_state()
         self._trainer_thread: Optional[threading.Thread] = None
         # the wall clock of generation, and of each epoch's close
         self._run_started_at: Optional[float] = None
@@ -1066,6 +1161,171 @@ class Learner:
         # it runs, and its dispatches after
         self._generator = None
         self._gen_dispatches = None
+
+    # -- the durable training plane ----------------------------------------
+    def _load_durable_state(self):
+        """Restart recovery (handyrl_tpu/train.py:1382-1540): adopt the
+        previous incarnation's resume token (same run_id, generation + 1),
+        replay the journaled ledger book, restore the admission counters,
+        cancel the tasks whose episodes reached the spool, and feed every
+        spooled episode and chunk past the newest checkpoint's
+        consumption horizon back into the buffer, all before the fleet is
+        served a task. Then publish this incarnation's token."""
+        if self._ledger_journal is None and self._spool is None:
+            return
+        try:
+            with open(self._token_path) as f:
+                token = json.load(f)
+        except (OSError, ValueError):
+            token = None
+        if isinstance(token, dict) and token.get('run_id'):
+            # keep the dead incarnation's run_id: surviving gathers prove
+            # membership against it in the resume-token handshake
+            self.args['run_id'] = str(token['run_id'])
+            telemetry.set_run_id(self.args['run_id'])
+            self._run_generation = int(token.get('generation') or 0) + 1
+
+        state = (self._ledger_journal.load()
+                 if self._ledger_journal is not None else None)
+        if state is not None:
+            extra = state.get('extra') or {}
+            # the counters: at least the snapshot's, past every sample_key
+            # of the restored book and past every key assigned since the
+            # snapshot (``key_marks``), so a fresh task never reuses a key
+            # (one key, one episode)
+            marks = state.get('key_marks') or {}
+            g_max = int(marks.get('g', 0)) - 1
+            e_max = int(marks.get('e', 0)) - 1
+            for base in (list((state.get('tasks') or {}).values())
+                         + list(state.get('reissue') or ())):
+                if not isinstance(base, dict) \
+                        or base.get('sample_key') is None:
+                    continue
+                if base.get('role') == 'g':
+                    g_max = max(g_max, int(base['sample_key']))
+                elif base.get('role') == 'e':
+                    e_max = max(e_max, int(base['sample_key']))
+            self.num_episodes = max(int(extra.get('num_episodes') or 0),
+                                    g_max + 1)
+            self.num_results = max(int(extra.get('num_results') or 0),
+                                   e_max + 1)
+            self.num_returned_episodes = int(
+                extra.get('num_returned_episodes') or 0)
+            self._spool_horizon = int(extra.get('spool_horizon') or 0)
+            self._durable_restored = True
+            print('durable plane: restored ledger book (%d outstanding, '
+                  '%d pending re-issue, counters g=%d e=%d returned=%d)'
+                  % (len(state.get('tasks') or {}),
+                     len(state.get('reissue') or ()), self.num_episodes,
+                     self.num_results, self.num_returned_episodes))
+
+        if self._spool is not None:
+            recovered = self._spool.recover(self._spool_horizon, conn_unpack)
+            if recovered:
+                self._replay_spool(recovered, state)
+        self._restored_ledger = state
+        if self._durable_restored:
+            # the trainer resumes mid-stream: no fresh minimum_episodes
+            # warmup on top of the restored buffer
+            self.trainer.seen_episodes = self.num_returned_episodes
+
+        # this incarnation's token, before the entry listener opens: the
+        # next restart adopts the run_id and bumps the generation
+        os.makedirs(self.model_dir, exist_ok=True)
+        token = {'run_id': str(self.args['run_id']),
+                 'generation': self._run_generation}
+        atomic_write_bytes(self._token_path,
+                           (json.dumps(token) + '\n').encode('utf-8'))
+        self.args['resume_token'] = token
+
+    def _replay_spool(self, recovered: List[dict], state: Optional[dict]):
+        """Feed the spooled records back: whole episodes past the restored
+        returned-counter, and the chunks of assemblies still open in the
+        restored book, closed after its snapshot, or spooled past the
+        counter. An episode that reached the spool (or reassembled here)
+        cancels its restored task, so it neither re-issues nor counts
+        twice."""
+        tasks = (state or {}).get('tasks')
+        # records below the restored counter were counted by the dead
+        # incarnation; they live on only because the GC horizon holds
+        # back to the oldest open streamed assembly
+        counted = self.num_returned_episodes
+        episodes = []
+        for rec in recovered:
+            episode = rec.get('episode')
+            if episode is None or int(rec.get('idx') or 0) < counted:
+                continue
+            episodes.append(episode)
+            tid = (episode.get('args') or {}).get('task_id')
+            if tasks is not None and tid is not None:
+                tasks.pop(tid, None)
+        self.feed_episodes(episodes, recovered=True)
+        self.durable['recovered_episodes'] += len(episodes)
+        live_keys = set()
+        for pair in (state or {}).get('chunks') or ():
+            try:
+                live_keys.add((str(pair[0][0]), int(pair[0][1])))
+            except Exception:
+                continue
+        for k in (state or {}).get('chunks_closed') or ():
+            try:
+                live_keys.add((str(k[0]), int(k[1])))
+            except Exception:
+                continue
+        chunk_recs = [rec for rec in recovered
+                      if rec.get('chunk') is not None
+                      and (int(rec.get('idx') or 0) >= counted
+                           or chunk_key(rec['chunk']) in live_keys)]
+        if chunk_recs:
+            done = self.feed_chunks(
+                [rec['chunk'] for rec in chunk_recs], recovered=True,
+                marks=[int(rec.get('idx') or 0) for rec in chunk_recs])
+            for key, final_args in done:
+                self._recovered_closed_chunks.append(key)
+                if tasks is None:
+                    continue
+                tid = (final_args or {}).get('task_id')
+                if tid is not None:
+                    tasks.pop(tid, None)
+                if key and key[0] == 'k':
+                    for t, base in list(tasks.items()):
+                        if isinstance(base, dict) \
+                                and base.get('sample_key') == key[1] \
+                                and base.get('role') == 'g':
+                            tasks.pop(t, None)
+            self.durable['recovered_chunks'] += len(chunk_recs)
+            self.durable['recovered_reassembled'] += len(done)
+            print('durable plane: replayed %d spooled chunk(s) (%d '
+                  'episode(s) reassembled, %d assembly(ies) still open)'
+                  % (len(chunk_recs), len(done),
+                     self._assembler.open_count()))
+        self._durable_restored = True
+        print('durable plane: recovered %d spooled episode(s) past horizon '
+              '%d (zero admitted episodes lost)'
+              % (len(recovered), self._spool_horizon))
+
+    def _sync_durable_state(self):
+        """The epoch sync of the durable plane, with every checkpoint
+        write: fold the journal into a fresh ledger snapshot and GC the
+        spool behind the new consumption horizon, held back to the oldest
+        open streamed assembly's first spool mark."""
+        horizon = self.num_returned_episodes
+        open_mark = self._assembler.min_open_mark()
+        if open_mark is not None:
+            horizon = min(horizon, int(open_mark))
+        if self.ledger is not None and self._ledger_journal is not None:
+            self.ledger.flush_journal()
+            state = self.ledger.snapshot_state()
+            state['extra'] = {
+                'num_episodes': self.num_episodes,
+                'num_results': self.num_results,
+                'num_returned_episodes': self.num_returned_episodes,
+                'spool_horizon': horizon,
+            }
+            self._ledger_journal.snapshot(state)
+        if self._spool is not None:
+            self._spool_horizon = horizon
+            self._spool.gc(self._spool_horizon)
 
     # -- checkpoints -------------------------------------------------------
     def model_path(self, model_id: int) -> str:
@@ -1107,6 +1367,9 @@ class Learner:
         # must be pinned by the time the GC reads the manifest
         self._publish_checkpoint(steps)
         self._gc_checkpoints()
+        # the durable plane rides the checkpoint cadence: its snapshot and
+        # horizon describe a state a restart can resume from
+        self._sync_durable_state()
 
     def _registry_root(self) -> str:
         srv = self.args.get('serving') or {}
@@ -1228,7 +1491,8 @@ class Learner:
                'episodes': self.num_returned_episodes, 'time': time.time(),
                'run_id': telemetry.run_id(),
                'sgd_steps_per_sec': round(tr.last_steps_per_sec, 3),
-               'buffer': len(tr.episodes)}
+               'buffer': len(tr.episodes),
+               'episode_steps': self.episode_steps}
         if extra:
             rec.update(extra)
         gen = self.generation_results.get(self.model_epoch - 1)
@@ -1354,7 +1618,12 @@ class Learner:
               % (self.model_epoch, prev))
 
     # -- accounting --------------------------------------------------------
-    def feed_episodes(self, episodes: List[Optional[dict]]):
+    def feed_episodes(self, episodes: List[Optional[dict]],
+                      recovered: bool = False):
+        """Count and buffer uploaded episodes. On a durable learner each
+        is appended to the episode spool before it is counted; a
+        ``recovered`` episode (a restart's replay of the spool) skips that
+        append and is treated as a fresh upload otherwise."""
         for episode in episodes:
             if episode is None:
                 continue
@@ -1364,31 +1633,54 @@ class Learner:
                 _LOG.warning('guard: dropped episode with non-finite data '
                              '(%d total)', self._bad_episodes)
                 continue
-            for p in episode['args']['player']:
-                model_id = (episode['args'].get('model_id') or {}).get(p, -1)
-                if model_id is None or model_id < 0:
-                    model_id = self.model_epoch
-                outcome = episode['outcome'][p]
-                n, r, r2 = self.generation_results.get(model_id, (0, 0, 0))
-                self.generation_results[model_id] = (n + 1, r + outcome,
-                                                     r2 + outcome ** 2)
-            if episode.get('record_version'):
-                self.stamped_episodes += 1
-            skey = episode['args'].get('sample_key')
-            if skey is not None:   # a worker-plane task: played once
-                if skey in self._sample_keys:
-                    self.repeated_sample_keys += 1
-                self._sample_keys.add(skey)
-            self.num_returned_episodes += 1
+            if self._spool is not None and not recovered:
+                # written ahead of any accounting: a SIGKILL past this line
+                # replays the episode at the restart; before it, the
+                # episode never existed (its task re-issues)
+                self._spool.append(
+                    self.num_returned_episodes,
+                    conn_pack({'idx': self.num_returned_episodes,
+                               'episode': episode}))
+            self._count_episode(episode)
+            self.episode_sources['whole'] += 1
+            episode.setdefault('recv_time', time.time())
             self.trainer.episodes.append(episode)
-            if self.trainer.replay is not None:
-                # the threaded replay trainer's host push: best effort under
-                # a backlog, every drop counted (handyrl_tpu/train.py:
-                # 2001-2006)
-                try:
-                    self.trainer.ingest_queue.put_nowait(episode)
-                except queue.Full:
-                    self.trainer.replay_stats['dropped_episodes'] += 1
+            self._push_replay(episode)
+        self._evict_episode_overflow()
+
+    def _count_episode(self, episode: dict):
+        """The accounting of a whole or reassembled episode: generation
+        stats by model id, stamped records, repeated sample keys and the
+        returned-episode counter."""
+        for p in episode['args']['player']:
+            model_id = (episode['args'].get('model_id') or {}).get(p, -1)
+            if model_id is None or model_id < 0:
+                model_id = self.model_epoch
+            outcome = episode['outcome'][p]
+            n, r, r2 = self.generation_results.get(model_id, (0, 0, 0))
+            self.generation_results[model_id] = (n + 1, r + outcome,
+                                                 r2 + outcome ** 2)
+        if episode.get('record_version'):
+            self.stamped_episodes += 1
+        skey = episode['args'].get('sample_key')
+        if skey is not None:   # a worker-plane task: played once
+            if skey in self._sample_keys:
+                self.repeated_sample_keys += 1
+            self._sample_keys.add(skey)
+        self.num_returned_episodes += 1
+        self.episode_steps += int(episode['steps'])
+
+    def _push_replay(self, episode: dict):
+        """The threaded replay trainer's host push: best effort under a
+        backlog, every drop counted (handyrl_tpu/train.py:2001-2006)."""
+        if self.trainer.replay is None:
+            return
+        try:
+            self.trainer.ingest_queue.put_nowait(episode)
+        except queue.Full:
+            self.trainer.replay_stats['dropped_episodes'] += 1
+
+    def _evict_episode_overflow(self):
         maximum = self.args['maximum_episodes']
         if self.trainer.replay is not None:
             # the training data lives in the device ring; the host deque
@@ -1396,6 +1688,57 @@ class Learner:
             maximum = min(maximum, 2 * self.args['minimum_episodes'])
         while len(self.trainer.episodes) > maximum:
             self.trainer.episodes.popleft()
+
+    def feed_chunks(self, chunks: List[Optional[dict]],
+                    recovered: bool = False,
+                    marks: Optional[List[int]] = None) -> list:
+        """The streamed twin of :meth:`feed_episodes` (handyrl_tpu/
+        train.py:2032-2107): each chunk (screened by the ledger) is
+        spooled, folded into its assembly and, as its contiguous prefix
+        grows, trainable as a partial buffer entry. A completed assembly
+        closes its ledger task and is counted as :meth:`feed_episodes`
+        counts a whole episode. Returns the ``(key, final_args)`` of the
+        episodes completed here (spool recovery cancels their restored
+        tasks)."""
+        completed = []
+        for j, chunk in enumerate(chunks):
+            if chunk is None:
+                continue
+            mark = marks[j] if marks is not None \
+                else self.num_returned_episodes
+            if self._spool is not None and not recovered:
+                self._spool.append(
+                    self.num_returned_episodes,
+                    conn_pack({'idx': self.num_returned_episodes,
+                               'chunk': chunk}))
+            res = self._assembler.add(chunk, mark=mark)
+            if res['status'] == 'dropped':
+                continue
+            entry = res.get('entry')
+            if res.get('new') and entry is not None:
+                entry.setdefault('recv_time', time.time())
+                self.trainer.episodes.append(entry)
+            if res['status'] != 'complete':
+                continue
+            key = chunk_key(chunk)
+            final_args = res.get('final_args') or {}
+            completed.append((key, final_args))
+            if self.ledger is not None:
+                self.ledger.complete_chunked(key, final_args.get('task_id'))
+            record = res.get('record')
+            if record is None:
+                # a poisoned chunk froze the assembly: the task closed and
+                # the record drops whole
+                self._bad_episodes += 1
+                _LOG.warning('guard: dropped streamed episode with '
+                             'non-finite data (%d total)', self._bad_episodes)
+                continue
+            self._count_episode(record)
+            self.episode_sources['streamed'] += 1
+            if entry is not None:
+                self._push_replay(entry)
+        self._evict_episode_overflow()
+        return completed
 
     def feed_results(self, results: List[Optional[dict]],
                      model_id: Optional[int] = None):
@@ -1604,9 +1947,11 @@ class Learner:
     # -- the worker plane: the 4-RPC server --------------------------------
     def server(self):
         """The 4-RPC conductor (handyrl_tpu/train.py:3034-3354 without the
-        league, streaming, resume-token and alert branches): 'args' hands
-        out tasks, 'episode' and 'result' take uploads, 'model' answers
-        with a snapshot.
+        league and alert branches): 'args' hands out tasks, 'episode' and
+        'result' take uploads, 'chunk' takes streamed windows, 'model'
+        answers with a snapshot, and ``RESUME_KIND`` answers a redialing
+        gather's resume token (ok for this run's id: it reattaches in
+        place).
 
         Every assigned task is booked in a :class:`~.fault.TaskLedger`
         with a deadline; tasks stranded on a detached endpoint or past
@@ -1621,6 +1966,24 @@ class Learner:
         cadence = _EpochCadence(self.args)
         ft = self.args['fault_tolerance']
         ledger = self.ledger = TaskLedger(deadline=float(ft['task_deadline']))
+        if self._restored_ledger is not None:
+            # the previous incarnation's book: its tasks re-issue with
+            # their original sample_keys ahead of fresh work
+            ledger.restore_state(self._restored_ledger)
+            self._restored_ledger = None
+        if self._recovered_closed_chunks:
+            # assemblies the spool's replay completed: a reattached
+            # gather's resends of them screen as duplicates
+            ledger.seed_closed_chunks(self._recovered_closed_chunks)
+            self._recovered_closed_chunks = []
+        if self._ledger_journal is not None:
+            ledger.journal = self._ledger_journal
+        if self._durable_restored:
+            # the dead incarnation consumed the epochs its counters crossed
+            # (its checkpoints exist): they are not fired again as empty
+            # epochs
+            while cadence.due(self.num_returned_episodes):
+                pass
         fleet = self.fleet = FleetController(
             degrade_after=int(ft['host_degrade_after']),
             quarantine_after=int(ft['host_quarantine_after']),
@@ -1722,10 +2085,41 @@ class Learner:
                         send_data.append(role_args)
             elif req == 'episode':
                 self.feed_episodes(ledger.admit(data))
+                # completions journal after the spool's append: a kill in
+                # between recovers the episode from the spool, whose
+                # task_id cancels the restored book entry
+                ledger.flush_journal()
+                send_data = [None] * len(data)
+            elif req == 'chunk':
+                # streamed windows: screened per (assembly, chunk index),
+                # spooled and merged, journaled in the same order
+                self.feed_chunks(ledger.admit_chunks(data))
+                ledger.flush_journal()
                 send_data = [None] * len(data)
             elif req == 'result':
                 self.feed_results(ledger.admit(data))
+                ledger.flush_journal()
                 send_data = [None] * len(data)
+            elif req == RESUME_KIND:
+                # a surviving gather redialed: the same run_id reattaches
+                # it in place (its resend buffer replays as ordinary
+                # screened uploads); another run's id sends it down the
+                # cold-respawn path
+                for tok in data:
+                    tok = tok if isinstance(tok, dict) else {}
+                    ok = str(tok.get('run_id')) == str(self.args['run_id'])
+                    if not ok:
+                        self.durable['rejected_tokens'] += 1
+                    elif int(tok.get('generation', -1)) \
+                            != self._run_generation:
+                        self.durable['reattached'] += 1
+                        _LOG.info('gather %s reattached across a learner '
+                                  'restart (generation %s -> %d)',
+                                  tok.get('gather'), tok.get('generation'),
+                                  self._run_generation)
+                    send_data.append({'ok': ok,
+                                      'run_id': str(self.args['run_id']),
+                                      'generation': self._run_generation})
             elif req == 'model':
                 send_data = [self._model_snapshot(mid) for mid in data]
             else:
@@ -1738,6 +2132,11 @@ class Learner:
 
             if cadence.due(self.num_returned_episodes):
                 t0 = time.perf_counter()
+                # abandon the streamed assemblies no attempt can finish (a
+                # dead device stream), so they stop pinning the spool's GC
+                # horizon
+                for key in self._assembler.reap(2 * ledger.deadline):
+                    ledger.abandon_chunks(key)
                 self.update()
                 self._print_fleet_stats()
                 self.loop_seconds['epoch_close'] += time.perf_counter() - t0
@@ -1812,6 +2211,7 @@ class Learner:
             'reconnects': sum(int(g.get('reconnects', 0)) for g in gathers),
             'dropped_uploads': sum(int(g.get('dropped_uploads', 0))
                                    for g in gathers),
+            'reattaches': sum(int(g.get('reattaches', 0)) for g in gathers),
         }
         reasons = {k[len('disconnect_'):]: v for k, v in hub.items()
                    if k.startswith('disconnect_')}
@@ -1867,6 +2267,13 @@ class Learner:
                 'fleet': self._fleet_snapshot(),
                 'fleet_failure': self.fleet_failure,
                 'distinct_sample_keys': len(self._sample_keys),
+                'streaming': dict(self._assembler.counts(),
+                                  episodes=self.episode_sources),
+                'durable': dict(self.durable,
+                                run_id=str(self.args['run_id']),
+                                generation=self._run_generation,
+                                spool=self._spool is not None,
+                                journal=self._ledger_journal is not None),
                 'repeated_sample_keys': self.repeated_sample_keys,
                 'worker_processes': len(workers),
                 'worker_kernel_launches': total,
@@ -2190,6 +2597,10 @@ class Learner:
             # a failed or preempted run does not wait for its gathers
             self.worker.close(timeout=0.0 if self.fleet_failure
                               or self.preempt.fired else 30.0)
+        if self._spool is not None:
+            self._spool.close()
+        if self._ledger_journal is not None:
+            self._ledger_journal.close()
         self.trainer.shutdown()
         if self._trainer_thread is not None:
             self._trainer_thread.join(timeout=300)
@@ -2229,6 +2640,8 @@ class Learner:
             'epochs': self.model_epoch - self.start_epoch,
             'model_epoch': self.model_epoch,
             'steps': steps, 'steps_at_exit': tr.steps,
+            'steps_at_start': tr.steps_at_start,
+            'first_step_at': tr.first_step_at,
             'episodes': self.num_returned_episodes,
             'eval_results': self.num_results,
             # (n, r) of each epoch's online evaluation, as the JAX learner's

@@ -1,6 +1,7 @@
-"""Crash-safe file writes with CRC32 sidecars and append-safe JSONL (the
-subset of ``handyrl_tpu/utils/fs.py`` the model registry and the
-learner's checkpoints and metrics rows use).
+"""Crash-safe file writes with CRC32 sidecars, append-safe JSONL and
+CRC-framed records (the subset of ``handyrl_tpu/utils/fs.py`` the model
+registry, the learner's checkpoints and metrics rows, the episode spool
+and the ledger journal use).
 
 Writes go to a temp file in the SAME directory (os.replace must not cross
 filesystems), are fsynced, then atomically renamed over the target, so a
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import json
 import os
+import struct
 import tempfile
 import time
 import zlib
@@ -104,3 +106,64 @@ def append_jsonl(path: str, record: dict, fsync: bool = True):
             os.fsync(fd)
     finally:
         os.close(fd)
+
+
+# ---------------------------------------------------------------------------
+# CRC-framed binary records (the episode spool's and the ledger journal's
+# vocabulary, byte for byte the JAX package's)
+#
+# One record = MAGIC(4) + length(4, big-endian) + crc32(4, big-endian) +
+# payload. An append goes down in ONE os.write on an O_APPEND descriptor,
+# so a SIGKILL leaves at worst one torn record at the tail, which
+# read_framed_records detects (bad magic, short header, short payload or
+# crc mismatch) so that recovery can truncate it.
+
+RECORD_MAGIC = b'HRLW'
+_RECORD_HEADER = struct.Struct('>II')   # payload length, crc32
+
+
+def frame_record(payload: bytes) -> bytes:
+    """One self-verifying framed record for ``payload``."""
+    return (RECORD_MAGIC
+            + _RECORD_HEADER.pack(len(payload),
+                                  zlib.crc32(payload) & 0xffffffff)
+            + payload)
+
+
+def open_append(path: str) -> int:
+    """An O_APPEND descriptor for a record file (created if missing)."""
+    return os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+
+
+def append_framed_record(fd: int, payload: bytes) -> int:
+    """Append one framed record in a single write; returns bytes written."""
+    frame = frame_record(payload)
+    os.write(fd, frame)
+    return len(frame)
+
+
+def read_framed_records(path: str):
+    """Decode a framed-record file tolerantly: ``(records, valid_bytes,
+    torn)``, the verified payloads, the offset just past the last good
+    record, and whether bytes past it failed the framing or the CRC (a
+    SIGKILL mid-append; the caller truncates the file to ``valid_bytes``).
+    A missing file reads as no records."""
+    try:
+        with open(path, 'rb') as f:
+            data = f.read()
+    except OSError:
+        return [], 0, False
+    records, offset = [], 0
+    frame_len = len(RECORD_MAGIC) + _RECORD_HEADER.size
+    while offset + frame_len <= len(data):
+        if data[offset:offset + len(RECORD_MAGIC)] != RECORD_MAGIC:
+            break
+        size, crc = _RECORD_HEADER.unpack_from(data,
+                                               offset + len(RECORD_MAGIC))
+        start = offset + frame_len
+        payload = data[start:start + size]
+        if len(payload) < size or (zlib.crc32(payload) & 0xffffffff) != crc:
+            break
+        records.append(payload)
+        offset = start + size
+    return records, offset, offset < len(data)

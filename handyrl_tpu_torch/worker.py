@@ -39,9 +39,17 @@ Children are spawned, never forked, with one OpenMP thread each
 (``CHILD_ENV``): six workers with a thread per core each would thrash the
 host's cores.
 
-The per-host inference engine, the device actor backend, streaming and
-the resume-token reattach of the JAX package are not ported yet
-(ROADMAP.md); the config refuses them.
+With the ``streaming`` block on, a worker's generation streams fixed-T
+chunks (``'chunk'`` uploads) through its gather's stash, resend buffer and
+last flush, and a device actor gather's engine streams its 'device'
+record lanes the same way. A gather given the learner's resume token
+(``resume_token``, in the entry handshake's config) presents it on every
+redial (``RESUME_KIND``): a restarted learner of the same run answers ok
+and the gather reattaches in place, its unacknowledged uploads resent; a
+learner of another run refuses and the gather exits for a cold respawn.
+
+The per-host inference engine of the JAX package is not ported yet
+(ROADMAP.md); the config refuses it.
 """
 
 from __future__ import annotations
@@ -61,7 +69,7 @@ from socket import gethostname
 from typing import Any, Dict, Iterable, List, Optional
 
 from . import telemetry
-from .connection import (HEARTBEAT_KIND, Hub, _bare_main,
+from .connection import (HEARTBEAT_KIND, RESUME_KIND, Hub, _bare_main,
                          accept_socket_connections, child_environ,
                          connect_socket_connection, send_recv,
                          spawn_pipe_workers)
@@ -125,6 +133,16 @@ class Worker:
         # role -> (episode producer, upload RPC name)
         self.playbook = {'g': (generator.execute, 'episode'),
                          'e': (evaluator.execute, 'result')}
+        if (args.get('streaming') or {}).get('enabled'):
+            # streaming: the generator flushes chunks through the gather
+            # pipe mid-episode ('chunk' uploads ride the gather's stash and
+            # resend buffer); the episode's own upload becomes a streamed
+            # sentinel the loop skips
+            self.playbook['g'] = (
+                lambda models, task: generator.execute(
+                    models, task,
+                    emit=lambda c: send_recv(self.conn, ('chunk', c))),
+                'episode')
         # what the beacons report: tasks by role; the plies and seconds of
         # generation played by a net and by model id 0 (the RandomModel:
         # no forward), and the seconds of evaluation, each without the
@@ -206,6 +224,8 @@ class Worker:
             else:
                 self.stats['evaluation_seconds'] += dt
                 self.stats['results'] += payload is not None
+            if isinstance(payload, dict) and payload.get('streamed'):
+                continue   # every window already rode the pipe
             try:
                 send_recv(self.conn, (upload_as, payload))
             except _CONN_ERRORS:
@@ -275,7 +295,12 @@ class Gather:
         self._backoff_max = float(ft.get('reconnect_max_delay', 30.0))
         self._max_tries = int(ft.get('reconnect_max_tries', 30))
         self._resend_max = int(ft.get('resend_buffer', 256))
-        self.stats = {'reconnects': 0, 'dropped_uploads': 0}
+        # the durable learner's resume token (in the entry handshake's
+        # config): presented on every redial, so a restarted learner of the
+        # same run keeps this gather instead of it respawning
+        self._resume_token = dict(args.get('resume_token') or {})
+        self.stats = {'reconnects': 0, 'dropped_uploads': 0,
+                      'reattaches': 0}
         self._hb_seq = 0
         self.hub: Optional[Hub] = None
         if server_conn is None and reconnect is not None:
@@ -352,6 +377,8 @@ class Gather:
                 last_err = e
                 continue
             conn.sock.settimeout(self._rpc_timeout)
+            if self._resume_token and not self._present_token(conn):
+                continue
             self.server = conn
             self.stats['reconnects'] += 1
             _LOG.warning('gather %d: reconnected to the server',
@@ -360,6 +387,38 @@ class Gather:
         raise ConnectionError(
             'gather %d: could not re-reach the server after %d tries (%s)'
             % (self.gather_id, self._max_tries, last_err))
+
+    def _present_token(self, conn) -> bool:
+        """The resume-token handshake on a fresh link: True when the
+        learner recognized the run (a changed generation is a reattach
+        across its restart), False when the link died first. A learner
+        that refuses the token is another run: raise, so the gather exits
+        and its supervisor respawns it cold."""
+        try:
+            reply = send_recv(conn, (RESUME_KIND, dict(
+                self._resume_token, gather=self.gather_id)))
+        except _CONN_ERRORS:
+            try:
+                conn.close()
+            except Exception:
+                pass
+            return False
+        if not (isinstance(reply, dict) and reply.get('ok')):
+            try:
+                conn.close()
+            except Exception:
+                pass
+            raise ConnectionError(
+                'gather %d: learner rejected the resume token (run over or '
+                'replaced); cold respawn required' % self.gather_id)
+        gen = int(reply.get('generation',
+                            self._resume_token.get('generation', 0)))
+        if gen != int(self._resume_token.get('generation', 0)):
+            self._resume_token['generation'] = gen
+            self.stats['reattaches'] += 1
+            _LOG.warning('gather %d: reattached across a learner restart '
+                         '(generation %d)', self.gather_id, gen)
+        return True
 
     def _server_rpc(self, msg):
         """send_recv with supervised reconnect: the request is resent on
@@ -476,7 +535,8 @@ def resolve_generation_backend(args: Dict[str, Any]) -> str:
 class DeviceActorGather(Gather):
     """A gather whose lanes of one fused device rollout stand in for its
     workers (the JAX package's ``DeviceActorGather``, worker.py:657-741
-    there, without the streaming sink).
+    there). With streaming on, the engine's 'device' record lanes stream
+    their windows into the upload box as ``'chunk'`` uploads.
 
     It keeps all of :class:`Gather`'s learner side (the supervised server
     RPC with reconnect, the task-block prefetch, the snapshot cache, the
@@ -521,6 +581,10 @@ class DeviceActorGather(Gather):
             record_mode=str(gen.get('device_actor_record', '') or ''),
             seed=int(args.get('seed', 0)) * 1009 + gather_id,
             device=self.device)
+        if (args.get('streaming') or {}).get('enabled'):
+            # streamed windows ride the upload box like whole episodes (the
+            # resend buffer, the reconnect replay and the last flush)
+            self.engine.emit = lambda c: self._stash_upload('chunk', c)
         self._fallback_gen = Generator(self.host_env, args,
                                        namespace=gather_id)
         self._fallback_eval = Evaluator(self.host_env, args,
@@ -616,7 +680,15 @@ def gather_loop(args, conn, gather_id, server_address=None):
         DeviceActorGather(args, conn, gather_id, reconnect=reconnect).run()
         return
     gather = Gather(args, conn, gather_id, reconnect=reconnect)
-    gather.run()
+    try:
+        gather.run()
+    except BaseException:
+        # a gather that fails (the server gone for good, or a refused
+        # resume token) ends its workers first: at exit, multiprocessing
+        # would join them while they wait on this gather's pipes
+        for proc, _ in gather.workers:
+            proc.terminate()
+        raise
     if gather.lost:
         raise SystemExit(1)
 

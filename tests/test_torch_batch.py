@@ -89,7 +89,7 @@ def test_selection_and_batches_equal_bit_for_bit(turn_based, observation,
     random.seed(7)
     jax_sel = [jax_batch.select_episode(eps, args) for _ in range(B)]
     for p, j in zip(port_sel, jax_sel):
-        assert set(p) == set(j) - {'recv_time'}
+        assert set(p) == set(j)       # recv_time included
         for k in p:
             assert p[k] == j[k], k
 

@@ -183,11 +183,29 @@ def test_huber_matches_optax():
 
 
 def test_deferred_paths_raise():
+    """The IMPACT target network, the last path this test found deferred
+    (a NotImplementedError), now runs: a target equal to the params at
+    clip 1.0 gives the no-target loss terms (rtol 1e-6: the target's
+    no-grad forward is the same numbers through the trunk's serving
+    operator) with the three target diagnostics, and a target_clip
+    without target params is no target, as in the JAX ``use_target``."""
     _, _, net, batch, _, cfg = setup('TD', 'TD', False)
     tb = torch_batch(batch)
 
     def apply_fn(p, obs, hidden):
-        return net(obs, hidden)
-    with pytest.raises(NotImplementedError, match='IMPACT'):
-        losses.compute_loss(apply_fn, None, None, tb,
-                            cfg._replace(target_clip=2.0), target_params={})
+        return torch.func.functional_call(net, p, (obs, hidden))
+    params = dict(net.named_parameters())
+    _, base = losses.compute_loss(apply_fn, params, None, tb, cfg)
+    _, aux = losses.compute_loss(apply_fn, params, None, tb,
+                                 cfg._replace(target_clip=1.0),
+                                 target_params={k: v.detach().clone()
+                                                for k, v in params.items()})
+    for k, v in base['losses'].items():
+        np.testing.assert_allclose(aux['losses'][k].item(), v.item(),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+    assert {'target_clip', 'target_ratio_sum', 'target_gap_sum'} <= set(
+        aux['diag'])
+    _, none = losses.compute_loss(apply_fn, params, None, tb,
+                                  cfg._replace(target_clip=2.0),
+                                  target_params=None)
+    assert set(none['diag']) == set(base['diag'])

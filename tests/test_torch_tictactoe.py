@@ -225,8 +225,8 @@ def test_config_defaults_to_tictactoe_like_the_reference():
     ({'device_generation': True, 'batched_generation': False,
       'generation': {'backend': 'engine'}}, 'EngineSupervisor'),
     ({'device_generation': True, 'device_replay': True,
-      'generation': {'backend': 'device'}, 'streaming': {'enabled': True}},
-     'streaming'),
+      'generation': {'backend': 'device'}, 'league': {'enabled': True}},
+     'league'),
     ({'device_generation': True, 'device_replay': True,
       'fused_pipeline': False, 'batched_generation': False,
       'league': {'enabled': True}}, 'league'),
@@ -235,8 +235,8 @@ def test_tictactoe_on_the_device_path_names_what_is_missing(train_args,
                                                             missing):
     """TicTacToe runs the fused loop in the 'turn' layout, every other
     device combination and the device actor backend; the planes the JAX
-    package has and the port not yet (the per-host inference engine,
-    streaming, the league) still raise, naming them."""
+    package has and the port not yet (the per-host inference engine, the
+    league) still raise, naming them."""
     with pytest.raises(ConfigError) as exc:
         apply_defaults({'env_args': {'env': 'TicTacToe'},
                         'train_args': train_args})
