@@ -4,6 +4,10 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc`` (CUDA_HOME, PATH or /usr/local/cuda), and exits
 non-zero, printing no result, when either is missing or any phase fails.
+To fit its time, the learner processes of 11(a)-(c), of 12(c) and (d),
+of 13(a), of 13(b), of 14(b)/(c) and 14(f), and of 16(a) and (b) run at
+once (each part still checks its own run; their rates and 16(a)'s MTTR
+share the host and the card).
 
 1. Prints the card (name and power limit from nvidia-smi), the torch and
    CUDA versions, and builds every CUDA kernel of the port from the
@@ -205,7 +209,7 @@ non-zero, printing no result, when either is missing or any phase fails.
    process is left. Prints its rates beside phase 5's, the fleet
    snapshot and a worker's time a generated ply. (b) ``--server`` and
    ``python -m handyrl_tpu_torch.worker`` with 4 workers over localhost
-   TCP on free ports, 4 epochs of 128 episodes after 128,
+   TCP on free ports, 3 epochs of 128 episodes after 128,
    ``HANDYRL_TPU_CHAOS`` killing the host's gather once (12 s after it
    joined): fails unless both exit 0, the learner closed its epochs with
    (a)'s launch checks, the host's supervisor respawned the gather, and no
@@ -246,14 +250,15 @@ non-zero, printing no result, when either is missing or any phase fails.
    epochs of 128 episodes after 128: K1 under 'generation' and
    'evaluation', K1, K2 and K3 under 'training'. (b) The threaded replay
    trainer with device ingest at phase 6's config with ``fused_pipeline:
-   false``, 8 steps a dispatch and ``max_sample_reuse`` 16, its evaluation
+   false``, REPLAY_EPOCHS epochs, 8 steps a dispatch and
+   ``max_sample_reuse`` 16, its evaluation
    against 'random' and phase 6's last checkpoint on the device evaluator:
    K1 under 'generation' and 'evaluation', K1, K2 and K5 under 'training'
    once a step, every metrics row's samples drawn within the cap x windows
    ingested plus one dispatch, and games against the checkpoint. (c) The
    host push (``device_replay`` with the host's self-play) on
-   tictactoe.json, 3 epochs of 200 episodes after 200: K3 under 'training'
-   and no other kernel. (d) ``scripts/torch_export_model.py`` exports phase
+   tictactoe.json, HOST_PUSH_EPOCHS epochs of 200 episodes after 200: K3
+   under 'training' and no other kernel. (d) ``scripts/torch_export_model.py`` exports phase
    6's checkpoint to ``.pt2`` on the CPU; a fresh process loads it with
    ``ExportedModel`` on the card and holds 32 real boards to the
    checkpoint's ``ModelWrapper`` on the card (EXPORT_TOL), its K1 launched
@@ -289,13 +294,14 @@ non-zero, printing no result, when either is missing or any phase fails.
    episodes/s, the trainer's wait share, the deferred tasks. (d)
    ``--server`` on tictactoe.json and ``python -m
    handyrl_tpu_torch.worker`` with ``worker_args.backend: 'device'`` over
-   localhost TCP, 3 epochs: both exit 0, every episode counted once, K3
+   localhost TCP, DA_REMOTE_EPOCHS epochs: both exit 0, every episode
+   counted once, K3
    once a step in the learner. Each run under PHASE12_TIMEOUT.
 13. ConnectX and the recurrent GeeseNetLSTM, each run with every count 0
    at its start. (a) ConnectX: ``python -m handyrl_tpu_torch.train`` on
    tictactoe.json's train_args with ``env_args.env: 'ConnectX'`` (B=128,
-   T=16, TD/TD, the full-width ConnectFourNet), CX_EPOCHS epochs on the
-   host learner and as many on the fused loop's 'turn' layout
+   T=16, TD/TD, the full-width ConnectFourNet), CX_HOST_EPOCHS epochs on
+   the host learner and CX_EPOCHS on the fused loop's 'turn' layout
    (config.yaml's device lines): exit 0, finite losses, K3 (P=2) in
    training and nothing else; one strict device actor block of 64 tasks
    ('g' and 'e' against 'random' and 'rulebase') byte-equal to the host
@@ -308,7 +314,7 @@ non-zero, printing no result, when either is missing or any phase fails.
    ply for LSTM_SERVE_PLIES plies, each request carrying its goose's state
    from the previous reply, every policy, value and next state within
    POLICY_TOL of a CPU forward of the same weights and state chain; the
-   host learner on phase 5's config (episodes cut to 64 + 128,
+   host learner on phase 5's config (episodes cut to 64 + 64,
    LSTM_EPOCHS epochs) and the fused loop on phase 6's (LSTM_FUSED_EPOCHS
    epochs: its metrics arrive a dispatch late), both with ``net_kind:
    'lstm'``, VTRACE/VTRACE, burn-in LSTM_BURN_IN: exit 0, finite losses,
@@ -332,7 +338,7 @@ non-zero, printing no result, when either is missing or any phase fails.
    one batch against each sent alone. (b) The host learner on the JAX
    package's 'geister' row (B=32, T=16, burn-in 4, 32 envs, observation)
    with 'batch' and 'spatial', its depth cut to one epoch of G_UPDATE (4)
-   episodes after G_MINIMUM (64) (the row: 100 after 200; its host
+   episodes after G_MINIMUM (32) (the row: 100 after 200; its host
    self-play is Python-bound): exit 0, finite losses, K3 twice a step
    (value and return, P=2) and no other kernel, and the checkpoint's
    running averages, read by the JAX-layout reader, moved off their
@@ -349,9 +355,9 @@ non-zero, printing no result, when either is missing or any phase fails.
    graph's replay timed by CUDA events. (e) The same for GeeseNet('batch',
    'pad'), one VTRACE window batch (B=16, T=16): K5 only. (f) The host
    learner on tictactoe.json's train_args, not turn-based, on
-   ParallelTicTacToe, 2 epochs: K3 only. (g) One device actor block of
-   DA_LANES Geister tasks ('device' records, recurrent lanes): every task
-   answered, the moments the acting seat's alone, no kernel.
+   ParallelTicTacToe, PTTT_EPOCHS epochs: K3 only. (g) One device actor
+   block of DA_LANES Geister tasks ('device' records, recurrent lanes):
+   every task answered, the moments the acting seat's alone, no kernel.
 15. ``compute_dtype: 'bfloat16'`` (the JAX headline's dtype), then
    GeeseFormer, one JSON line with each part's seconds (budget 100 s).
    (a), which runs right after phase 2 (late in the script torch.profiler
@@ -409,11 +415,34 @@ non-zero, printing no result, when either is missing or any phase fails.
    clock) and episodes/s and plies/s before and after (metrics rows).
    (b) The host-worker stream: tictactoe.json streaming 2-ply chunks from
    a worker host of STREAM_WORKERS workers on the card, its gather
-   SIGKILLed after the first epoch: the supervisor respawns it, the
+   SIGKILLed after the first epoch once the spool holds
+   STREAM_OPEN_AT_KILL streams in flight: the supervisor respawns it, the
    stranded tasks re-issue under their sample keys and their regenerated
    chunks screen as duplicates (at least one), no key counted twice, K3
    once a step. Prints one ``{"phase16": ...}`` JSON line.
-17. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, their bf16
+17. The league on the worker plane and the device actor (LEAGUE_*):
+   ``python -m handyrl_tpu_torch.train --server`` on Hungry Geese at full
+   width (VTRACE) with ``serving.publish`` (line LEAGUE_LINE) and
+   ``league.enabled`` (anchors 'random' and 'rulebase', self-play 0.5,
+   rating matches 0.25, the gate at margin 0 after 8 games), fed by one
+   worker host whose gather is a DeviceActorGather (64 lanes, 16-ply
+   chunks, 2 slots), LEAGUE_EPOCHS epochs of 64 episodes after 64: both
+   exit 0; at least 2 distinct registry members seated in 'g' episodes;
+   each epoch's promote/no-promote equal to ``should_promote`` recomputed
+   on the book as it stood; the promotions booked, the metrics rows' and
+   the manifest's champion agree; the journal's bytes unchanged by a
+   ``RatingBook.load`` + ``save``; K1, K2 and K5 once a training step in
+   the learner, K1 at least chunks x 16 x 2 in the gather. F6: ``python
+   -m handyrl_tpu_torch --serve --config`` on the phase's config (a copy
+   with ``serving.port`` 0 only if the default port is taken), started
+   beside the learner, serves the learner's model_dir and, once the
+   learner ended, answers one INFER for the gate's champion within
+   SERVE_TOL of its checkpoint's forward; SIGTERM exits 75. Prints one
+   ``{"phase17": ...}`` JSON line (members seated, rating matches by
+   member and anchor, games, promotions, the champion, the gates, the
+   journal's round trip, the device actor's lanes on slots and tasks on
+   the host fallback).
+18. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, their bf16
    forms as rows of their own, K3-K5; K2a and K2b take their launches
    from K2's count, one of each a call, the bf16 rows from K2-bf16's; the
    fused loop's under ``learner_fused_*``, 5(b)'s under
@@ -438,7 +467,9 @@ non-zero, printing no result, when either is missing or any phase fails.
    ``bf16_tictactoe_*``, ``former_service``, ``former_fused_*`` and
    ``former_step``, phase 16's under ``impact_step``,
    ``durable_drill_*`` (the restarted learner), ``durable_drill_gather``
-   and ``stream_chaos_*``; K1's row also holds the operator's checks),
+   and ``stream_chaos_*``, phase 17's under ``league_*`` (the learner),
+   ``league_gather`` and ``league_service``; K1's row also holds the
+   operator's checks),
    the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -521,6 +552,31 @@ def fail(msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def concurrently(*fns):
+    """Run ``fns`` (each a part that waits on processes of its own and does
+    no CUDA work in this process) in threads at once; their results in
+    order. A failure in any (``fail`` exits through SystemExit) is raised
+    here once all have ended."""
+    import threading
+    results, errors = [None] * len(fns), [None] * len(fns)
+
+    def run(i, fn):
+        try:
+            results[i] = fn()
+        except BaseException as exc:
+            errors[i] = exc
+    threads = [threading.Thread(target=run, args=(i, fn))
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for exc in errors:
+        if exc is not None:
+            raise exc
+    return results
 
 
 def nvidia_smi_line():
@@ -2391,7 +2447,7 @@ QUICK_FILES = ['%d.ckpt' % e for e in range(1, QUICK_EPOCHS + 1)] + [
     'latest.ckpt', 'trainer_state.ckpt']
 # 7(b): the same with batcher processes and shared-memory batches, cut to
 # QUICK_SHM_EPOCHS epochs
-QUICK_SHM_EPOCHS = 8
+QUICK_SHM_EPOCHS = 5     # 8 until phase 17 needed the time (PERF.md §4)
 # 7(c): the same on the fused device loop, config.yaml's commented lines
 QUICK_FUSED_EPOCHS = 15
 QUICK_FUSED_K = 16
@@ -3015,7 +3071,7 @@ WORKERS_LOCAL = {'batched_generation': False, 'worker': {'num_parallel': 6},
 # run's epochs of net-played episodes last well past it. A kill after the
 # learner ended would leave the supervisor respawning against a closed
 # port.
-WORKERS_REMOTE = {'epochs': 4, 'minimum_episodes': 128,
+WORKERS_REMOTE = {'epochs': 3, 'minimum_episodes': 128,   # 4 until phase 17
                   'update_episodes': 128,
                   'fault_tolerance': {'host_quarantine_period': 5.0}}
 REMOTE_WORKERS = 4
@@ -3024,15 +3080,25 @@ PHASE9_TIMEOUT = 150
 WORKER_PID = r'(?:started gather|opened worker) \d+ \(pid (\d+)\)'
 
 
+_GIVEN_PORTS = set()       # free_ports' answers: parts run at once
+
+
 def free_ports(n):
-    """``n`` ports that were free a moment ago (bound to 0, released)."""
+    """``n`` ports that were free a moment ago (bound to 0, released) and
+    not given out before in this run."""
     import socket
-    socks = [socket.socket() for _ in range(n)]
-    for s in socks:
-        s.bind(('', 0))
-    ports = [s.getsockname()[1] for s in socks]
-    for s in socks:
-        s.close()
+    ports = []
+    while len(ports) < n:
+        socks = [socket.socket() for _ in range(n)]
+        for s in socks:
+            s.bind(('', 0))
+        for s in socks:
+            port = s.getsockname()[1]
+            if port not in _GIVEN_PORTS and len(ports) < n:
+                _GIVEN_PORTS.add(port)
+                ports.append(port)
+        for s in socks:
+            s.close()
     return ports
 
 
@@ -3315,14 +3381,20 @@ GEESE_SCORES = (-1.0, -2 / 3, -1 / 3, 0.0, 1 / 3, 2 / 3, 1.0)
 
 
 def port_is_free(port):
+    if not port_free(port):
+        fail('port %d, the network battle\'s fixed port, is taken: phase '
+             '10 needs it free' % port)
+
+
+def port_free(port):
     import socket
     s = socket.socket()
     s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
     try:
         s.bind(('', port))
-    except OSError as exc:
-        fail('port %d, the network battle\'s fixed port, is taken (%s): '
-             'phase 10 needs it free' % (port, exc))
+        return True
+    except OSError:
+        return False
     finally:
         s.close()
 
@@ -3810,14 +3882,14 @@ SPLIT = {'device_generation': True, 'device_chunk_steps': 16,
          'epochs': SPLIT_EPOCHS}
 # (b) the threaded replay trainer with device ingest at phase 6's
 # north-star config, a checkpoint of phase 6 among the eval opponents
-REPLAY_EPOCHS = 8
+REPLAY_EPOCHS = 4        # 8 until phase 17 needed the time (PERF.md §4)
 REPLAY_K = 8
 REPLAY_REUSE_CAP = 16.0
 REPLAY = {'fused_pipeline': False, 'replay_fused_steps': REPLAY_K,
           'max_sample_reuse': REPLAY_REUSE_CAP, 'epochs': REPLAY_EPOCHS,
           'checkpoint_interval': 1}
 # (c) the host push on TicTacToe at tictactoe.json's widths
-HOST_PUSH_EPOCHS = 3
+HOST_PUSH_EPOCHS = 2     # 3 until phase 17 needed the time (PERF.md §4)
 HOST_PUSH = {'device_replay': True, 'device_ingest': False,
              'replay_fused_steps': REPLAY_K, 'minimum_episodes': 200}
 EXPORT_TOL = 1e-4        # fp32, the card's program against the card's net
@@ -4158,14 +4230,14 @@ def phase_export(torch, repo, GeeseNet, make_env, ckpt):
 def phase_device_branches(torch, repo, GeeseNet, make_env, ckpt, learner,
                           fused):
     """Phase 11: (a)-(d) and the rates beside phases 5 and 6."""
-    log('== phase 11(a): the split path (DeviceGenerator, host trainer)')
-    split = phase_split(torch, repo)
-    log('== phase 11(b): the threaded replay trainer with device ingest, '
-        'a checkpoint opponent on the device evaluator')
-    replay = phase_replay(torch, repo, ckpt)
-    log('== phase 11(c): the threaded replay trainer with the host push '
-        '(TicTacToe)')
-    host_push = phase_host_push(torch, repo)
+    log('== phase 11(a)-(c), at once: the split path (DeviceGenerator, host '
+        'trainer); the threaded replay trainer with device ingest, a '
+        'checkpoint opponent on the device evaluator; the threaded replay '
+        'trainer with the host push (TicTacToe)')
+    split, replay, host_push = concurrently(
+        lambda: phase_split(torch, repo),
+        lambda: phase_replay(torch, repo, ckpt),
+        lambda: phase_host_push(torch, repo))
     log('== phase 11(d): the export round trip (.pt2 with K1 inside)')
     export = phase_export(torch, repo, GeeseNet, make_env, ckpt)
     names = ('host (5)', 'fused (6)', 'split (11a)', 'replay (11b)')
@@ -4196,7 +4268,7 @@ DA_LOCAL = {'batched_generation': False, 'worker': {'num_parallel': 1},
             'eval_rate': 0.1, 'policy_target': 'VTRACE',
             'value_target': 'VTRACE'}
 # (d) tictactoe.json on --server and a worker host of backend 'device'
-DA_REMOTE_EPOCHS = 3
+DA_REMOTE_EPOCHS = 2     # 3 until phase 17 needed the time (PERF.md §4)
 PHASE12_TIMEOUT = 150
 
 
@@ -4590,11 +4662,11 @@ def phase_device_actor(torch, repo, GeeseNet, make_env):
     log('== phase 12(b): the device actor engine, Hungry Geese at full '
         'width, device records')
     geese = phase_da_geese(torch, make_env, GeeseNet)
-    log('== phase 12(c): a local learner with one DeviceActorGather')
-    local = phase_da_local(torch, repo)
-    log('== phase 12(d): --server and a worker host with '
+    log('== phase 12(c), (d), at once: a local learner with one '
+        'DeviceActorGather; --server and a worker host with '
         'worker_args.backend device (TicTacToe)')
-    remote = phase_da_remote(torch, repo)
+    local, remote = concurrently(lambda: phase_da_local(torch, repo),
+                                 lambda: phase_da_remote(torch, repo))
     out = {'phase': 12, 'strict': strict, 'geese': geese, 'local': local,
            'remote': remote, 'seconds': time.monotonic() - t0,
            'card': nvidia_smi_line()}
@@ -4606,8 +4678,9 @@ def phase_device_actor(torch, repo, GeeseNet, make_env):
 
 PHASE13_TIMEOUT = 300     # each learner process
 CX_ENV = {'env': 'ConnectX'}
-CX_EPOCHS = 3
-CX_GAMES, CX_PROCS = 100, 4
+CX_EPOCHS = 2            # the fused loop's; 3 until phase 17 (PERF.md §4)
+CX_HOST_EPOCHS = 1       # the host learner's; 3 until phase 17
+CX_GAMES, CX_PROCS = 16, 4   # 100 games until phase 17
 CX_BOARDS = 1000
 LSTM_ENV = {'env': 'HungryGeese', 'net_kind': 'lstm'}
 LSTM_BURN_IN = 4
@@ -4620,13 +4693,14 @@ LSTM_STEP_REPS = 20
 LSTM_SERVE_PLIES = 6
 LSTM_EVAL_GAMES = 64
 # phase 5's config on the recurrent net, its episodes cut to fit the
-# phase (64 + 128: the recurrent host learner plays ~10 episodes/s)
+# phase (64 + 64, 64 + 128 until phase 17: the recurrent host learner
+# plays ~10 episodes/s)
 LSTM_LEARNER = {
     'env_args': dict(LSTM_ENV),
     'train_args': dict(LEARNER_CONFIG['train_args'], **{
         'policy_target': 'VTRACE', 'value_target': 'VTRACE',
         'burn_in_steps': LSTM_BURN_IN, 'epochs': LSTM_EPOCHS,
-        'minimum_episodes': 64, 'update_episodes': 128}),
+        'minimum_episodes': 64, 'update_episodes': 64}),
 }
 # phase 6's north-star config on the recurrent net, 3 epochs: the fused
 # loop's metrics arrive a dispatch late (the second epoch's close reads
@@ -4712,34 +4786,37 @@ def cx_greedy_boards(torch, make_env):
 
 
 def phase_connectx(torch, repo, make_env):
-    """13(a): ConnectX on the host learner and the fused 'turn' loop
-    (tictactoe.json's train_args, CX_EPOCHS epochs each), a strict device
+    """13(a): ConnectX on the host learner and the fused 'turn' loop at
+    once (tictactoe.json's train_args, CX_HOST_EPOCHS and CX_EPOCHS
+    epochs), a strict device
     actor block, the twin's heuristic against the host's, and a
     tournament of the host learner's checkpoint against 'rulebase'."""
     from handyrl_tpu_torch.models.connect_four import ConnectFourNet
     tmp = tempfile.mkdtemp(prefix='chip_smoke_connectx_')
     try:
-        cfg = quick_config(repo, None, CX_EPOCHS)
+        cfg = quick_config(repo, None, CX_HOST_EPOCHS)
         cfg['env_args'] = dict(CX_ENV)
         host_tmp = os.path.join(tmp, 'host')
         os.makedirs(host_tmp)
-        line, _ = run_train_cli(repo, cfg, host_tmp, '13(a) host learner',
-                                timeout=PHASE13_TIMEOUT)
-        host = check_learner_line('13(a) ConnectX host learner', line,
-                                  CX_EPOCHS, {'training': ('td_lambda',)})
         fcfg = quick_config(repo, QUICK_FUSED, CX_EPOCHS)
         fcfg['env_args'] = dict(CX_ENV)
         fused_tmp = os.path.join(tmp, 'fused')
         os.makedirs(fused_tmp)
-        line, stdout = run_train_cli(repo, fcfg, fused_tmp,
-                                     '13(a) fused loop',
-                                     timeout=PHASE13_TIMEOUT)
-        if not line.get('fused') or '(turn mode)' not in stdout:
+        # the two learners at once (each a process of its own)
+        (line, _), (fline, stdout) = concurrently(
+            lambda: run_train_cli(repo, cfg, host_tmp, '13(a) host learner',
+                                  timeout=PHASE13_TIMEOUT),
+            lambda: run_train_cli(repo, fcfg, fused_tmp, '13(a) fused loop',
+                                  timeout=PHASE13_TIMEOUT))
+        host = check_learner_line('13(a) ConnectX host learner', line,
+                                  CX_HOST_EPOCHS,
+                                  {'training': ('td_lambda',)})
+        if not fline.get('fused') or '(turn mode)' not in stdout:
             fail('13(a): ConnectX did not run the fused loop in turn mode')
         fused = check_learner_line('13(a) ConnectX fused loop (turn mode)',
-                                   line, CX_EPOCHS,
+                                   fline, CX_EPOCHS,
                                    {'training': ('td_lambda',)})
-        fused['windows_ingested'] = line['windows_ingested']
+        fused['windows_ingested'] = fline['windows_ingested']
         strict = phase_da_strict(torch, make_env, CX_ENV, ConnectFourNet,
                                  '13(a)', opponents=('random', 'rulebase'))
         greedy = cx_greedy_boards(torch, make_env)
@@ -5045,22 +5122,24 @@ def phase_lstm(torch, repo, make_env):
         serving = lstm_serving(torch, repo, make_env)
         host_tmp = os.path.join(tmp, 'host')
         os.makedirs(host_tmp)
-        line, _ = run_train_cli(repo, LSTM_LEARNER, host_tmp,
-                                '13(b) host learner',
-                                timeout=PHASE13_TIMEOUT)
-        host = check_learner_line('13(b) GeeseNetLSTM host learner', line,
-                                  LSTM_EPOCHS, {'training': ('vtrace',)})
         fused_tmp = os.path.join(tmp, 'fused')
         os.makedirs(fused_tmp)
-        line, stdout = run_train_cli(repo, LSTM_FUSED, fused_tmp,
-                                     '13(b) fused loop',
-                                     timeout=PHASE13_TIMEOUT)
-        if not line.get('fused') or '(solo mode)' not in stdout:
+        # the two learners at once (each a process of its own)
+        (line, _), (fline, stdout) = concurrently(
+            lambda: run_train_cli(repo, LSTM_LEARNER, host_tmp,
+                                  '13(b) host learner',
+                                  timeout=PHASE13_TIMEOUT),
+            lambda: run_train_cli(repo, LSTM_FUSED, fused_tmp,
+                                  '13(b) fused loop',
+                                  timeout=PHASE13_TIMEOUT))
+        host = check_learner_line('13(b) GeeseNetLSTM host learner', line,
+                                  LSTM_EPOCHS, {'training': ('vtrace',)})
+        if not fline.get('fused') or '(solo mode)' not in stdout:
             fail('13(b): the GeeseNetLSTM did not run the fused loop')
-        fused = check_learner_line('13(b) GeeseNetLSTM fused loop', line,
+        fused = check_learner_line('13(b) GeeseNetLSTM fused loop', fline,
                                    LSTM_FUSED_EPOCHS,
                                    {'training': ('vtrace',)})
-        fused['dispatch_seconds'] = line.get('dispatch_seconds')
+        fused['dispatch_seconds'] = fline.get('dispatch_seconds')
         torch.cuda.reset_peak_memory_stats()
         step = lstm_step_ms(torch)
         log('13(b) recurrent update step, graphed: %s' % json.dumps(step))
@@ -5109,7 +5188,7 @@ GEISTER_ENV = {'env': 'Geister', 'norm_kind': 'batch',
 # H100 host before the trainer starts, 0.3/s beside it, PERF.md), so the
 # row's depth would take minutes
 G_EPOCHS = 1
-G_MINIMUM, G_UPDATE = 64, 4   # 8 until phase 16 needed the time
+G_MINIMUM, G_UPDATE = 32, 4   # 64 after 64 + 8, cut by phases 16, 17
 G_TRAIN = {'batch_size': 32, 'forward_steps': 16, 'burn_in_steps': 4,
            'update_episodes': 100, 'minimum_episodes': 200,
            'generation_envs': 32, 'observation': True, 'eval_envs': 32}
@@ -5556,17 +5635,21 @@ def geese_bn_step(torch):
                              SEED + 149)), cfg, batch, 'vtrace', 1e-5)
 
 
+PTTT_EPOCHS = 1           # 2 until phase 17 needed the time (PERF.md §4)
+
+
 def parallel_tictactoe_learner(repo, tmp):
     """14(f): the host learner on tictactoe.json's train_args, not
-    turn-based, on ParallelTicTacToe, 2 epochs: K3 in training."""
-    cfg = quick_config(repo, {'turn_based_training': False}, 2)
+    turn-based, on ParallelTicTacToe, PTTT_EPOCHS epochs: K3 in
+    training."""
+    cfg = quick_config(repo, {'turn_based_training': False}, PTTT_EPOCHS)
     cfg['env_args'] = {'env': 'ParallelTicTacToe'}
     ptt_tmp = os.path.join(tmp, 'ptt')
     os.makedirs(ptt_tmp)
     line, _ = run_train_cli(repo, cfg, ptt_tmp, '14(f) ParallelTicTacToe',
                             timeout=PHASE14_TIMEOUT)
     return check_learner_line('14(f) ParallelTicTacToe host learner', line,
-                              2, {'training': ('td_lambda',)})
+                              PTTT_EPOCHS, {'training': ('td_lambda',)})
 
 
 def geister_device_actor(torch, make_env):
@@ -5636,23 +5719,24 @@ def phase_geister(torch, repo, make_env):
         t = time.monotonic()
         serving = geister_serving(torch, repo, make_env)
         seconds['a'] = time.monotonic() - t
-        log('== phase 14(b)/(c): Geister on the host learner and the fused '
-            'turn loop')
+        log('== phase 14(b)/(c), with 14(f) at once: Geister on the host '
+            'learner and the fused turn loop; ParallelTicTacToe on the host '
+            'learner')
         t = time.monotonic()
-        host, fused = geister_learners(torch, repo, tmp)
+        (host, fused), ptt = concurrently(
+            lambda: geister_learners(torch, repo, tmp),
+            lambda: parallel_tictactoe_learner(repo, tmp))
+        seconds['b_c_f'] = time.monotonic() - t
+        t = time.monotonic()
         fused['refresh'] = geister_refresh(torch, repo)
         log('14(c) refresh_actor: %s' % json.dumps(fused['refresh']))
-        seconds['b_c'] = time.monotonic() - t
+        seconds['c_refresh'] = time.monotonic() - t
         log('== phase 14(d)/(e): the recurrent GeisterNet step and the '
             'GeeseNet(batch) step')
         t = time.monotonic()
         step = geister_recurrent_step(torch)
         geese = geese_bn_step(torch)
         seconds['d_e'] = time.monotonic() - t
-        log('== phase 14(f): ParallelTicTacToe on the host learner')
-        t = time.monotonic()
-        ptt = parallel_tictactoe_learner(repo, tmp)
-        seconds['f'] = time.monotonic() - t
         log('== phase 14(g): the device actor on Geister lanes')
         t = time.monotonic()
         actor = geister_device_actor(torch, make_env)
@@ -6340,11 +6424,13 @@ DURABLE_TRAIN = {'epochs': DURABLE_EPOCHS, 'restart_epoch': -1,
                  'fault_tolerance': DURABLE_FT}
 # (b) the host-worker stream: tictactoe.json with 2-ply chunks (every game
 # streams in several), a worker host of STREAM_WORKERS workers whose gather
-# is SIGKILLed mid-stream, STREAM_KILL_AFTER s after the first epoch closed
-# (the workers then play the net, whose plies take long enough that the
-# stranded tasks have chunks delivered); the host is never quarantined
-# (the drill shows the merge, phase 9(b) the quarantine)
-STREAM_WORKERS, STREAM_KILL_AFTER = 4, 0.5
+# is SIGKILLed mid-stream: after the first epoch closed, once the spool
+# holds at least STREAM_OPEN_AT_KILL assemblies with chunks delivered and
+# no final chunk (a fixed delay after the close once found every stranded
+# task still before its first chunk, the workers loading the new model);
+# the host is never quarantined (the drill shows the merge, phase 9(b)
+# the quarantine)
+STREAM_WORKERS, STREAM_OPEN_AT_KILL = 4, 2
 STREAM_TRAIN = {'compress_steps': 2, 'minimum_episodes': 64,
                 'update_episodes': 64,
                 'streaming': {'enabled': True, 'chunk_steps': 2},
@@ -6600,6 +6686,27 @@ def durable_drill(torch, repo):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def open_assemblies(spool):
+    """The keys of the streamed episodes whose chunks the learner spooled
+    and whose final chunk it has not: the streams in flight."""
+    from handyrl_tpu_torch.connection import unpack
+    from handyrl_tpu_torch.streaming import chunk_key
+    from handyrl_tpu_torch.utils.fs import read_framed_records
+    seen, closed = set(), set()
+    names = sorted(os.listdir(spool)) if os.path.isdir(spool) else []
+    for name in (n for n in names if n.endswith('.wal')):
+        records, _, _ = read_framed_records(os.path.join(spool, name))
+        for payload in records:
+            chunk = unpack(payload).get('chunk')
+            if chunk is None:
+                continue
+            key = chunk_key(chunk)
+            seen.add(key)
+            if chunk.get('final'):
+                closed.add(key)
+    return seen - closed
+
+
 def stream_chaos(torch, repo):
     """16(b): tictactoe.json streaming 2-ply chunks from a worker host of
     STREAM_WORKERS card workers, its gather SIGKILLed mid-stream: the
@@ -6638,7 +6745,13 @@ def stream_chaos(torch, repo):
                 fail('16(b): the first epoch did not close:\n%s\n%s' % (
                     tail(logs['server'][1]), tail(logs['host'][1])))
             time.sleep(0.02)
-        time.sleep(STREAM_KILL_AFTER)
+        spool = os.path.join(tmp, 'models', 'spool')
+        while len(open_assemblies(spool)) < STREAM_OPEN_AT_KILL:
+            if any(p.poll() is not None for p in procs) \
+                    or time.monotonic() > deadline:
+                fail('16(b): no %d streams in flight after the first epoch'
+                     % STREAM_OPEN_AT_KILL)
+            time.sleep(0.01)
         gather = int(re.findall(r'started gather 0 \(pid (\d+)\)',
                                 read_text(logs['host'][1]))[0])
         os.kill(gather, signal.SIGKILL)
@@ -6837,17 +6950,18 @@ def impact_step(torch, make_env):
 def phase_durable(torch, repo, make_env):
     """Phase 16: (a)-(c), one JSON line."""
     out = {}
-    for part, label, fn in (
-            ('impact', '(c) the graphed IMPACT step',
-             lambda: impact_step(torch, make_env)),
-            ('drill', '(a) the SIGKILL drill, streaming on',
-             lambda: durable_drill(torch, repo)),
-            ('stream', '(b) the host-worker stream, a gather killed',
-             lambda: stream_chaos(torch, repo))):
+
+    def timed(part, fn):
         t0 = time.monotonic()
-        log('== phase 16%s' % label)
         out[part] = fn()
         out[part]['seconds'] = time.monotonic() - t0
+    log('== phase 16(c) the graphed IMPACT step')
+    timed('impact', lambda: impact_step(torch, make_env))
+    # (a) and (b) at once: each waits on processes of its own
+    log('== phase 16(a) the SIGKILL drill, streaming on, and (b) the '
+        'host-worker stream, a gather killed, at once')
+    concurrently(lambda: timed('drill', lambda: durable_drill(torch, repo)),
+                 lambda: timed('stream', lambda: stream_chaos(torch, repo)))
     out['card'] = nvidia_smi_line()
     print(json.dumps({'phase16': {k: {kk: vv for kk, vv in v.items()
                                       if 'launches' not in kk}
@@ -6855,6 +6969,249 @@ def phase_durable(torch, repo, make_env):
                                   for k, v in out.items()}}), flush=True)
     return out
 
+
+
+# phase 17: the league on the worker plane and the device actor. A
+# --server learner on Hungry Geese at full width (VTRACE) fed by one
+# DeviceActorGather, publishing every epoch to the registry line
+# LEAGUE_LINE, the league's PFSP pool over it, rating matches against the
+# members and both anchors, and a gate at margin 0 after 8 games
+LEAGUE_LINE = 'geese'
+LEAGUE_EPOCHS = 5
+LEAGUE = {'enabled': True, 'anchors': ['random', 'rulebase'],
+          'self_play_rate': 0.5, 'rating_match_rate': 0.25, 'min_games': 8,
+          'promote_margin': 0.0}
+LEAGUE_TRAIN = {'epochs': LEAGUE_EPOCHS, 'minimum_episodes': 64,
+                'update_episodes': 64, 'eval_rate': 0.1,
+                'policy_target': 'VTRACE', 'value_target': 'VTRACE',
+                'generation': DA_GENERATION,
+                'serving': {'publish': True, 'line': LEAGUE_LINE},
+                'league': LEAGUE}
+SERVE_DEFAULT_PORT = 9997  # the service's default (config.SERVING_DEFAULTS)
+PHASE17_TIMEOUT = 180      # the learner and its worker host
+
+
+def league_gates(line, league_mod):
+    """Each epoch sync's verdict against ``should_promote`` recomputed on
+    the book as it stood (the state the journal would hold), and the
+    promotions they add up to."""
+    out = []
+    for d in line['league']['decisions']:
+        book = league_mod.RatingBook()
+        book.from_state(d['state'])
+        pool = league_mod.LeaguePool(LEAGUE, LEAGUE_LINE)
+        pool.champion = d['champion']
+        out.append({'epoch': d['epoch'], 'champion': d['champion'],
+                    'promoted': d['promoted'],
+                    'recomputed': pool.should_promote(book),
+                    'learner': book.rating(league_mod.LEARNER),
+                    'incumbent': (book.rating(d['champion'])
+                                  if d['champion'] else None),
+                    'games_since_promote': book.games_since_promote})
+    return out
+
+
+def league_service(repo, cfg, path, tmp):
+    """F6 on the card: ``python -m handyrl_tpu_torch --serve --config`` on
+    the phase's config (no --device: the card), started beside the
+    learner (its start-up overlaps the run; it reads the registry at each
+    request). Returns the process and the config file it read."""
+    serve_path = path
+    if not port_free(SERVE_DEFAULT_PORT):
+        # the learner refuses the service's keys in its serving block, so
+        # a taken default port is worked around in a copy of the config
+        serve_path = os.path.join(tmp, 'serve_config.json')
+        cfg = json.loads(json.dumps(cfg))
+        cfg['train_args']['serving']['port'] = 0
+        with open(serve_path, 'w') as f:
+            json.dump(cfg, f)
+        log('17: port %d taken; --serve reads a copy of the config with '
+            'serving.port 0' % SERVE_DEFAULT_PORT)
+    with open(os.path.join(tmp, 'serve.err'), 'w') as err:
+        proc = subprocess.Popen(
+            [sys.executable, '-m', 'handyrl_tpu_torch', '--serve',
+             '--config', serve_path], cwd=repo, stdout=subprocess.PIPE,
+            stderr=err, start_new_session=True)
+    return proc, serve_path
+
+
+def league_serve(make_env, proc, serve_path, model_dir, champion):
+    """The service answers one INFER for the line's champion, the version
+    the gate left, from the learner's model_dir (F6), within SERVE_TOL of
+    that checkpoint's forward in this process; SIGTERM exits 75."""
+    import numpy as np
+    from handyrl_tpu_torch import evaluation
+    from handyrl_tpu_torch.serving.client import ServiceClient
+    ready = read_ready_line(proc, timeout=120)
+    if os.path.abspath(ready['registry']) != os.path.abspath(model_dir) \
+            or ready['device'] != 'cuda':
+        fail('17: --serve serves %s on %s, not the learner\'s registry %s '
+             'on the card (F6)' % (ready['registry'], ready['device'],
+                                   model_dir))
+    client = ServiceClient('127.0.0.1', ready['port'], timeout=120)
+    try:
+        spec = '%s@champion' % LEAGUE_LINE
+        resolved = client.resolve(spec)
+        if str(resolved.get('version')) != str(champion):
+            fail('17: the service resolves %s to %s, the manifest\'s '
+                 'champion is %s' % (spec, resolved, champion))
+        obs = game_observations(make_env, 1, SEED)[0]
+        t0 = time.monotonic()
+        reply = client.request(spec, obs)
+        infer_s = time.monotonic() - t0
+        launches = client.status()['kernel_launches']
+    finally:
+        client.close()
+    env = make_env(GEESE_ENV)
+    local = evaluation.load_model(
+        os.path.join(model_dir, '%s.ckpt' % champion), env, 'cuda')
+    want = local.inference(obs)
+    err = max(float(np.abs(np.asarray(reply['outputs'][k]) - want[k]).max())
+              for k in ('policy', 'value'))
+    if not err <= SERVE_TOL or not launches.get('geese_trunk', 0) > 0:
+        fail('17: the served champion is %.3g off its checkpoint (tol %.0e); '
+             'service launches %s' % (err, SERVE_TOL, launches))
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=60)
+    proc.stdout.close()
+    if rc != 75:
+        fail('17: the service exited %d after SIGTERM (75 expected)' % rc)
+    return {'registry': ready['registry'], 'champion': str(champion),
+            'config': os.path.basename(serve_path), 'infer_s': infer_s,
+            'max_abs_err': err, 'launches': launches}
+
+
+def phase_league(torch, repo, make_env):
+    """Phase 17: the league (LEAGUE_*), one JSON line; F6's service on
+    the phase's config, started beside it, answers for the champion."""
+    from handyrl_tpu_torch import league as league_mod
+    from handyrl_tpu_torch.serving.registry import ModelRegistry
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_league_')
+    procs = []
+    try:
+        cfg = json.loads(json.dumps(LEARNER_CONFIG))
+        cfg['train_args'].update(json.loads(json.dumps(LEAGUE_TRAIN)))
+        model_dir = os.path.join(tmp, 'models')
+        cfg['train_args']['model_dir'] = model_dir
+        metrics = os.path.join(tmp, 'metrics.jsonl')
+        cfg['train_args']['metrics_jsonl'] = metrics
+        cfg['worker_args'] = {'server_address': '127.0.0.1',
+                              'num_parallel': 1, 'backend': 'device'}
+        path = os.path.join(tmp, 'config.json')
+        with open(path, 'w') as f:
+            json.dump(cfg, f)
+        entry, data = free_ports(2)
+        env = dict(os.environ, PYTHONUNBUFFERED='1',
+                   HANDYRL_TPU_ENTRY_PORT=str(entry),
+                   HANDYRL_TPU_DATA_PORT=str(data))
+        logs = {k: (os.path.join(tmp, k + '.out'),
+                    os.path.join(tmp, k + '.err'))
+                for k in ('learner', 'host')}
+        t0 = time.monotonic()
+        procs.append(start_session(['handyrl_tpu_torch.train', '--config',
+                                    path, '--server'], repo, env,
+                                   logs['learner']))
+        procs.append(start_session(['handyrl_tpu_torch.worker', '--config',
+                                    path], repo, env, logs['host']))
+        service, serve_path = league_service(repo, cfg, path, tmp)
+        procs.append(service)
+        deadline = time.monotonic() + PHASE17_TIMEOUT
+        for k, proc in zip(('learner', 'host'), list(procs)):
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail('17 did not finish within %d s; the learner:\n%s\n%s\n'
+                     'the host:\n%s\n%s' % (
+                         PHASE17_TIMEOUT, tail(logs['learner'][0], 20),
+                         tail(logs['learner'][1]), tail(logs['host'][0]),
+                         tail(logs['host'][1])))
+            if proc.returncode != 0:
+                fail('17: the %s exited %d:\n%s' % (k, proc.returncode,
+                                                    tail(logs[k][1])))
+        wall = time.monotonic() - t0
+        out_text = read_text(logs['learner'][0])
+        for l in out_text.splitlines():
+            if l.startswith('league:'):
+                log('  17 learner: %s' % l)
+        line = learner_json('17', out_text)
+        actor = da_check_line('17', line, LEAGUE_EPOCHS,
+                              ('geese_trunk', 'geese_trunk_bwd', 'vtrace'))
+        k1 = actor['launches'].get('geese_trunk', 0)
+        if not k1 >= actor['chunks'] * DA_CHUNK * DA_SLOTS:
+            fail('17: K1 launched %d times in the gather for %d chunks'
+                 % (k1, actor['chunks']))
+        lg = line['league']
+        seated = sorted(m for m in lg['opponents_sampled'] if '@' in m)
+        if len(seated) < 2:
+            fail('17: %d distinct registry members seated in \'g\' episodes '
+                 '(%s; 2 required)' % (len(seated), lg['opponents_sampled']))
+        gates = league_gates(line, league_mod)
+        if len(gates) != LEAGUE_EPOCHS or any(
+                g['promoted'] != g['recomputed'] for g in gates):
+            fail('17: the gate\'s decisions differ from should_promote: %s'
+                 % gates)
+        reg = ModelRegistry(model_dir).describe()[LEAGUE_LINE]
+        promoted = sum(g['promoted'] for g in gates)
+        if lg['promotions'] != promoted or \
+                '%s@%s' % (LEAGUE_LINE, reg['champion']) != lg['champion']:
+            fail('17: %d promotions booked, %d decided; the manifest\'s '
+                 'champion %s, the pool\'s %s' % (
+                     lg['promotions'], promoted, reg['champion'],
+                     lg['champion']))
+        rows = [r for r in read_metrics(metrics) if 'league' in r]
+        if [r['league']['promotions'] for r in rows] != [
+                sum(g['promoted'] for g in gates[:i + 1])
+                for i in range(len(rows))]:
+            fail('17: the metrics rows\' promotions %s differ from the '
+                 'gates %s' % ([r['league']['promotions'] for r in rows],
+                               gates))
+        journal = lg['journal']
+        with open(journal, 'rb') as f:
+            raw = f.read()
+        book = league_mod.RatingBook()
+        if not book.load(journal):
+            fail('17: the journal %s does not load' % journal)
+        again = os.path.join(tmp, 'journal_again.json')
+        book.save(again)
+        with open(again, 'rb') as f:
+            identical = f.read() == raw
+        if not identical:
+            fail('17: the journal\'s load + save changed its bytes')
+        left = processes_left(read_text(logs['host'][1]))
+        if left:
+            fail('17: gather processes left after the run: %s' % left)
+        served = league_serve(make_env, service, serve_path, model_dir,
+                              reg['champion'])
+        out = {'card': nvidia_smi_line(), 'wall': wall,
+               'episodes': line['episodes'],
+               'episodes_per_s': line['episodes_per_s'],
+               'members_seated': seated,
+               'opponents_sampled': lg['opponents_sampled'],
+               'rating_matches': lg['rating_matches'],
+               'games': lg['games'], 'ratings': lg['ratings'],
+               'promotions': lg['promotions'],
+               'champion': reg['champion'], 'versions': sorted(
+                   reg['versions'], key=int),
+               'gates': gates, 'journal_bytes': len(raw),
+               'journal_round_trip_identical': identical,
+               'device_actor': {k: actor.get(k) for k in (
+                   'blocks', 'episodes', 'results', 'deferred', 'chunks',
+                   'fill_ratio', 'chunk_seconds', 'block_seconds',
+                   'host_failures', 'record_mode')},
+               'serve': {k: v for k, v in served.items()
+                         if k != 'launches'},
+               'kernel_launches': line['kernel_launches'],
+               'gather_launches': actor['launches'],
+               'service_launches': served['launches']}
+        print(json.dumps({'phase17': {k: v for k, v in out.items()
+                                      if 'launches' not in k}}), flush=True)
+        log('17: launches by kernel: learner %s, its gather %s, the '
+            'service %s' % (line['kernel_launches'], actor['launches'],
+                            served['launches']))
+        return out
+    finally:
+        kill_sessions(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
@@ -7002,7 +7359,13 @@ def main():
     log('phase 16: %.1f s (%s)' % (time.monotonic() - t16,
                                    nvidia_smi_line()))
 
-    log('== phase 17: the kernels line')
+    t17 = time.monotonic()
+    log('== phase 17: the league on the worker plane and the device actor')
+    league_run = phase_league(torch, repo, make_env)
+    log('phase 17: %.1f s (%s)' % (time.monotonic() - t17,
+                                   nvidia_smi_line()))
+
+    log('== phase 18: the kernels line')
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -7091,6 +7454,12 @@ def main():
     paths['durable_drill_gather'] = durable['drill']['gather_launches']
     for name, counts in durable['stream']['kernel_launches'].items():
         paths['stream_chaos_%s' % name] = counts
+    # phase 17: the league's learner by its launch paths, its device actor
+    # gather and F6's service (fresh processes)
+    for name, counts in league_run['kernel_launches'].items():
+        paths['league_%s' % name] = counts
+    paths['league_gather'] = league_run['gather_launches']
+    paths['league_service'] = league_run['service_launches']
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from

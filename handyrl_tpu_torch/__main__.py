@@ -10,10 +10,12 @@ The config is JSON with the ``env_args``, ``train_args`` and
 ``worker_args`` blocks of ``config.yaml`` (``tictactoe.json`` is
 config.yaml's); without ``--config`` the defaults (TicTacToe). ``--serve``
 reads its service's knobs from ``train_args.serving`` and
-``train_args.inference``, as the JAX ``serve_main`` does; the learner's
-modes take only the learner's keys there (``config.validate``). The device is
-the card unless ``--device cpu`` is given; the eval server loads no model
-and ignores it. ``--serve-fleet``, ``--gateway`` and ``--status`` exit 2,
+``train_args.inference``, as the JAX ``serve_main`` does, and serves the
+registry under ``serving.registry_dir``, else under ``model_dir``
+(where the learner of the same config publishes), else under
+``models``; the learner's modes take only the learner's keys there
+(``config.validate``). The device is the card unless ``--device cpu`` is
+given; the eval server loads no model and ignores it. ``--serve-fleet``, ``--gateway`` and ``--status`` exit 2,
 naming the module that is not ported yet.
 """
 
@@ -91,9 +93,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .config import serving_args
         from .serving.service import serve_main
         ta = raw.get('train_args', {})
+        serving = dict(ta.get('serving') or {})
+        # the registry root as the JAX service resolves it: the serving
+        # block's, else the learner's model_dir, where it publishes
+        serving['registry_dir'] = (serving.get('registry_dir')
+                                   or ta.get('model_dir') or 'models')
         return serve_main(serving_args(
             raw.get('env_args', {'env': 'TicTacToe'}), ta.get('inference'),
-            ta.get('serving')), device=device)
+            serving), device=device)
 
     from .config import apply_defaults
     args = apply_defaults(raw)

@@ -14,9 +14,11 @@ device loop, of the worker plane (``batched_generation: false``,
 and of the run plane (``metrics_jsonl``, ``keep_checkpoints``,
 ``init_params``, ``guard.preempt_signals``, the publish hook's ``serving``
 block) and of the durable plane (``durability``, ``streaming`` with the
-IMPACT target network), and :func:`validate` raises for anything this
-port does not run yet (the league, mesh parallelism, the host inference
-engine, nets other than the ported ones) instead of ignoring it.
+IMPACT target network) and of the league (``league``: PFSP opponents
+over the registry, the rating book, rating-gated promotion), and
+:func:`validate` raises for anything this port does not run yet (mesh
+parallelism, the host inference engine, nets other than the ported ones)
+instead of ignoring it.
 Without ``env_args`` the env is TicTacToe, as in the JAX package.
 """
 
@@ -60,7 +62,7 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
     'observation': False,
     'gamma': 0.8,
     'forward_steps': 16,
-    'burn_in_steps': 0,           # > 0 needs the recurrent loss path (not ported)
+    'burn_in_steps': 0,           # leading steps of each window that only warm the recurrent state (no loss); nets without a state ignore it
     'compress_steps': 4,
     'compress_level': 9,          # bz2 compresslevel for episode moments (1 fastest .. 9 smallest)
     'entropy_regularization': 1.0e-1,
@@ -166,6 +168,27 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
         'target_clip': 0.0,       # IMPACT clipped target network: V-trace rhos from a lagged target policy, clipped at this ceiling; 0 = off (independent of streaming.enabled)
         'target_sync_epochs': 1,  # epochs between target refreshes from the live params (target_clip > 0)
     },
+    # league training (league.py): PFSP opponents over the registry's
+    # versions and anchors, persistent Elo ratings, and a rating-gated
+    # promotion in place of serving.auto_promote (the worker plane only)
+    'league': {
+        'enabled': False,        # the worker plane's 'g' tasks seat PFSP-drawn pool members and a slice of 'e' tasks become rating matches; requires serving.publish (the pool is the registry line). False = mirror self-play, tasks and records unchanged
+        'line': '',              # registry line the pool draws members from; '' = serving.line
+        'anchors': ['random'],   # built-in members without a checkpoint: 'random' (uniform legal play, in 'g' and 'e') and 'rulebase'/'rulebase-<key>' (the env's rule_based_action; 'e' rating matches only)
+        'curve': 'variance',     # PFSP weight over the learner's win rate p against a member: 'variance' (p*(1-p)), 'hard' ((1-p)^hard_exponent), 'uniform'
+        'hard_exponent': 2.0,    # k of the 'hard' curve's (1-p)^k
+        'self_play_rate': 0.5,   # share of 'g' tasks kept as mirror self-play; the rest seat a PFSP-drawn member (a pure function of (seed, sample_key))
+        'rating_match_rate': 0.25,  # share of 'e' tasks turned into rating matches against the roster in round robin
+        'max_members': 8,        # newest registry versions in the member window (the champion and the rollback target always in); bounds the GC-pinned set
+        'initial_rating': 1200.0,  # Elo rating every member and the learner start from
+        'k_factor': 32.0,        # Elo K: the most a game moves a rating (scaled by sigma/initial_sigma with track_sigma)
+        'track_sigma': True,     # TrueSkill-lite: a member's sigma shrinks with its games and scales its K
+        'initial_sigma': 200.0,  # starting sigma with track_sigma
+        'min_sigma': 50.0,       # sigma's floor with track_sigma
+        'promote_margin': 30.0,  # the learner must clear the champion's rating by this many Elo points to be promoted
+        'min_games': 20,         # the learner's rated games since the last promotion before the gate opens
+        'rating_flush_seconds': 5.0,  # write the rating journal at most this often after an outcome lands (s); 0 = at the epoch's sync only
+    },
 }
 
 WORKER_DEFAULTS: Dict[str, Any] = {
@@ -177,7 +200,6 @@ WORKER_DEFAULTS: Dict[str, Any] = {
 # blocks of planes the port does not have yet: each turns its plane on
 # when one of the named keys is set (truthy; model_parallel above 1)
 NOT_PORTED_BLOCKS: Dict[str, tuple] = {
-    'league': ('enabled',),
     'parallel': ('model_parallel', 'partition_rules'),
     'distributed': ('coordinator_address', 'num_processes', 'process_id'),
     'inference': ('enabled',),
@@ -342,6 +364,42 @@ def validate(args: Dict[str, Any]) -> None:
     _require(float(g['loss_spike_zscore']) >= 0,
              'guard.loss_spike_zscore must be >= 0 (0 disables the trip)')
     _validate_durable_plane(ta)
+    _validate_league(ta)
+
+
+def _validate_league(ta: Dict[str, Any]) -> None:
+    """The ``league`` block, with the JAX package's checks
+    (handyrl_tpu/config.py:532-562)."""
+    lg = ta['league']
+    _require(isinstance(lg, dict), 'league must be a block of %s'
+             % ', '.join(TRAIN_DEFAULTS['league']))
+    extra = sorted(set(lg) - set(TRAIN_DEFAULTS['league']))
+    _require(not extra, 'train_args.league keys %s are not known' % extra)
+    _require(str(lg['curve']) in ('variance', 'hard', 'uniform'),
+             "league.curve must be 'variance', 'hard' or 'uniform'")
+    _require(float(lg['hard_exponent']) > 0,
+             'league.hard_exponent must be > 0')
+    for key in ('self_play_rate', 'rating_match_rate'):
+        _require(0.0 <= float(lg[key]) <= 1.0,
+                 'league.%s must be a fraction in [0, 1]' % key)
+    _require(int(lg['max_members']) >= 1, 'league.max_members must be >= 1')
+    _require(float(lg['k_factor']) > 0, 'league.k_factor must be > 0')
+    _require(float(lg['promote_margin']) >= 0,
+             'league.promote_margin must be >= 0')
+    _require(int(lg['min_games']) >= 1, 'league.min_games must be >= 1')
+    _require(float(lg['initial_sigma']) >= float(lg['min_sigma']) > 0,
+             'league.initial_sigma and league.min_sigma: the sigma bounds '
+             'need initial_sigma >= min_sigma > 0')
+    _require(float(lg['rating_flush_seconds']) >= 0,
+             'league.rating_flush_seconds must be >= 0 (0 = the epoch '
+             'sync\'s flushes only)')
+    for anchor in (lg['anchors'] or []):
+        _require(anchor == 'random' or str(anchor).startswith('rulebase'),
+                 "league.anchors entries must be 'random' or "
+                 "'rulebase[-key]' (got %r)" % (anchor,))
+    _require(not lg['enabled'] or ta['serving']['publish'],
+             'league.enabled requires serving.publish (the pool\'s members '
+             'are the registry line\'s versions)')
 
 
 def _validate_durable_plane(ta: Dict[str, Any]) -> None:

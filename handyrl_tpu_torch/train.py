@@ -33,6 +33,15 @@ prefix grows; ``streaming.target_clip`` > 0 trains through the IMPACT
 target network, synced into the step's buffers every
 ``target_sync_epochs``.
 
+The league (``league.enabled``, the worker plane's tasks only; the
+JAX learner's): ``league.LeaguePool`` over the registry line the learner
+publishes to, PFSP-drawn members stamped on a share of the 'g' tasks and
+round-robin rating matches on a stride of the 'e' tasks
+(:meth:`Learner._fresh_task`), their outcomes booked in a
+``league.RatingBook`` journaled under the registry root, and the
+champion promoted at an epoch's close only through the rating gate
+(:meth:`Learner._league_epoch_sync`).
+
 * :class:`Batcher`: threads (or, with ``batcher_processes``, spawned
   processes that build into shared-memory slots with
   ``batcher_shared_memory``) that sample windows from the episode buffer
@@ -120,6 +129,7 @@ import numpy as np
 import torch
 
 from . import guard as guard_mod
+from . import league as league_mod
 from . import telemetry
 from .config import apply_defaults
 from .environment import make_env
@@ -1116,6 +1126,39 @@ class Learner:
         if resume:
             self._load_resume_state()
 
+        # the league (handyrl_tpu/train.py:1297-1325): the pool, the rating
+        # book (reloaded from its journal) and the tally of opponents
+        # seated. All None with league.enabled false, so the tasks, records
+        # and metrics rows are those of a run without it
+        lg = args['league']
+        self._league: Optional[league_mod.LeaguePool] = None
+        self._league_ratings: Optional[league_mod.RatingBook] = None
+        self._league_journal = ''
+        self._league_sampled: Dict[str, int] = {}
+        self._league_rated: Dict[str, int] = {}     # rating matches booked
+        # the newest epoch syncs' gates: the book as it stood, the
+        # incumbent and the verdict
+        self.league_decisions: deque = deque(maxlen=256)
+        self._league_last_flush = time.monotonic()
+        if lg['enabled']:
+            line = str(lg['line'] or args['serving']['line'])
+            self._league = league_mod.LeaguePool(lg, line)
+            self._league_ratings = league_mod.make_rating_book(lg)
+            self._league_journal = league_mod.journal_path(
+                self._registry_root())
+            if self._league_ratings.load(self._league_journal):
+                print('league: reloaded ratings journal (%d entries, %d '
+                      'promotions)' % (len(self._league_ratings.names()),
+                                       self._league_ratings.promotions))
+            try:
+                self._league.refresh(self._ensure_registry())
+            except Exception as exc:   # a fresh run: no manifest yet
+                _LOG.debug('league: initial pool refresh skipped (%s)', exc)
+            if self.use_batched_generation:
+                _LOG.warning('league.enabled only drives the worker-fleet '
+                             "server() task assignment; the in-process "
+                             'batched generator keeps mirror self-play')
+
         # the durable training plane (handyrl_tpu/train.py:1327-1360), for
         # remote learners only: the episode spool, the ledger journal and
         # the resume token; the assembler of streamed chunks is built
@@ -1375,31 +1418,85 @@ class Learner:
         srv = self.args.get('serving') or {}
         return srv.get('registry_dir') or self.model_dir
 
+    def _ensure_registry(self):
+        if self._registry is None:
+            from .serving.registry import ModelRegistry
+            self._registry = ModelRegistry(self._registry_root())
+        return self._registry
+
     def _publish_checkpoint(self, steps: int):
         """``serving.publish``: register the numbered checkpoint just
         written with the ModelRegistry as ``<line>@<epoch>`` (which pins it
         against the retention GC); ``serving.auto_promote`` also makes it
-        the line's champion in the same manifest swap. A registry failure
-        is logged and training goes on."""
+        the line's champion in the same manifest swap, unless the league
+        owns promotion: then versions publish as candidates and the
+        champion changes only through the rating gate
+        (:meth:`_league_epoch_sync`). A registry failure is logged and
+        training goes on."""
         srv = self.args.get('serving') or {}
         if not srv.get('publish'):
             return
         from . import models as model_zoo
-        from .serving.registry import ModelRegistry
-        if self._registry is None:
-            self._registry = ModelRegistry(self._registry_root())
         try:
-            self._registry.publish(
+            # the registry still makes the first version the champion: a
+            # line is never headless
+            promote = (bool(srv.get('auto_promote', True))
+                       and self._league is None)
+            self._ensure_registry().publish(
                 str(srv.get('line', 'default')),
                 path=self.model_path(self.model_epoch),
                 architecture=model_zoo.architecture_name(self.module),
                 config=self.module.config() or None, steps=int(steps),
-                version=self.model_epoch,
-                promote=bool(srv.get('auto_promote', True)))
+                version=self.model_epoch, promote=promote)
         except Exception as exc:
             _LOG.error('registry publish of epoch %d failed (%s: %s); '
                        'training continues unpublished', self.model_epoch,
                        type(exc).__name__, str(exc)[:200])
+        self._league_epoch_sync()
+
+    def _league_epoch_sync(self):
+        """The league's epoch close (after the publish, before the
+        retention GC; handyrl_tpu/train.py:1679-1716): refresh the member
+        window from the manifest, seed fresh members at the learner's
+        rating, run the rating gate (promote, note it, refresh), set the
+        rating gauges and write the journal. A failure is logged and
+        training goes on."""
+        if self._league is None:
+            return
+        book = self._league_ratings
+        try:
+            reg = self._ensure_registry()
+            self._league.refresh(reg)
+            # a fresh member is a snapshot of the learner: it starts at
+            # the learner's rating, not at the cold initial_rating
+            known = set(book.names())
+            for m in self._league.members():
+                if m not in known:
+                    book.seed(m, book.rating(league_mod.LEARNER))
+            incumbent = self._league.champion
+            decision = {'epoch': self.model_epoch, 'champion': incumbent,
+                        'state': book.to_state()}
+            promote = self._league.should_promote(book)
+            decision['promoted'] = promote
+            self.league_decisions.append(decision)
+            if promote:
+                reg.promote(self._league.line, self.model_epoch)
+                book.note_promotion()
+                telemetry.counter('league_promotions_total').inc()
+                self._league.refresh(reg)
+                print('league: promoted %s@%d (learner %.1f vs incumbent '
+                      '%s %.1f)' % (self._league.line, self.model_epoch,
+                                    book.rating(league_mod.LEARNER),
+                                    incumbent,
+                                    book.rating(incumbent)
+                                    if incumbent else float('nan')))
+            for name in set(self._league.roster()) | set(book.names()):
+                telemetry.gauge('league_rating', member=name).set(
+                    round(book.rating(name), 2))
+            book.save(self._league_journal)
+        except Exception as exc:
+            _LOG.error('league: epoch sync failed (%s: %s); training '
+                       'continues', type(exc).__name__, str(exc)[:200])
 
     def _gc_checkpoints(self):
         """``keep_checkpoints: N``: drop the numbered checkpoints beyond
@@ -1419,6 +1516,11 @@ class Learner:
         pinned = pinned_checkpoint_paths(self._registry_root())
         if pinned is None:
             return   # corrupt manifest: collect nothing
+        if self._league is not None:
+            # the pool's members outlive the retention window while PFSP
+            # can seat them (the window can trail keep_checkpoints)
+            pinned = pinned | {os.path.abspath(p)
+                               for p in self._league.member_paths()}
         protected = {os.path.abspath(o)
                      for o in (self.args.get('eval', {}).get('opponent') or [])
                      if isinstance(o, str) and os.path.exists(o)}
@@ -1471,7 +1573,10 @@ class Learner:
         """The ``preempted`` metrics row and the line a supervisor greps
         for. Its steps are the flushed count (what the resume restores),
         not the live counter, so the rows' steps stay monotonic across the
-        restart."""
+        restart. The rating journal is written first: the restart reloads
+        it bit for bit."""
+        if self._league is not None:
+            self._league_ratings.save(self._league_journal)
         steps = max(self._last_ckpt_steps, 0)
         self._write_metrics(steps, extra={
             'preempted': True, 'signal': int(self.preempt.signum or 0)})
@@ -1482,8 +1587,8 @@ class Learner:
 
     def _write_metrics(self, steps: int, extra: Optional[dict] = None):
         """One ``metrics_jsonl`` row (handyrl_tpu/train.py:2378-2496 without
-        the planes the port lacks: league, fleet, alerts, the lag
-        histograms, the perf plane, rotation), appended in one write."""
+        the planes the port lacks: fleet, alerts, the lag histograms, the
+        perf plane, rotation), appended in one write."""
         if not self._metrics_path:
             return
         tr = self.trainer
@@ -1509,6 +1614,19 @@ class Learner:
                 name: {'games': n,
                        'win_rate': round((r / (n + 1e-6) + 1) / 2, 4)}
                 for name, (n, r, _r2) in sorted(ev_opp.items())}
+        if self._league is not None:
+            book = self._league_ratings
+            names = sorted(set(book.names()) | set(self._league.roster()))
+            rec['league'] = {
+                'champion': self._league.champion,
+                'members': self._league.members(),
+                'ratings': {n: round(book.rating(n), 2) for n in names},
+                'games': {n: book.games(n) for n in names},
+                'games_since_promote': book.games_since_promote,
+                'promotions': book.promotions,
+                'opponents_sampled': dict(sorted(
+                    self._league_sampled.items())),
+            }
         # a trailing window keeps the quality curve readable when an epoch
         # sees a handful of evaluation games
         recent = [self.results[e] for e in
@@ -1642,6 +1760,9 @@ class Learner:
                     conn_pack({'idx': self.num_returned_episodes,
                                'episode': episode}))
             self._count_episode(episode)
+            if not recovered:
+                # a replayed episode's rating was journaled already
+                self._league_observe_episode(episode)
             self.episode_sources['whole'] += 1
             episode.setdefault('recv_time', time.time())
             self.trainer.episodes.append(episode)
@@ -1734,6 +1855,8 @@ class Learner:
                              'non-finite data (%d total)', self._bad_episodes)
                 continue
             self._count_episode(record)
+            if not recovered:
+                self._league_observe_episode(record)
             self.episode_sources['streamed'] += 1
             if entry is not None:
                 self._push_replay(entry)
@@ -1755,6 +1878,7 @@ class Learner:
                 opponent = result['opponent']
                 n, r, r2 = opp_map.get(opponent, (0, 0, 0))
                 opp_map[opponent] = (n + 1, r + res, r2 + res ** 2)
+            self._league_observe_result(result)
 
     # -- epoch boundary ----------------------------------------------------
     def update(self):
@@ -1762,6 +1886,7 @@ class Learner:
         print('epoch %d' % self.model_epoch)
         self._print_eval_stats()
         self._print_generation_stats()
+        self._print_league_stats()
         params, steps, state_blob = self.trainer.update()
         if params is None and self.trainer.failed:
             _LOG.error('training failed (see traceback above); shutting '
@@ -1947,7 +2072,7 @@ class Learner:
     # -- the worker plane: the 4-RPC server --------------------------------
     def server(self):
         """The 4-RPC conductor (handyrl_tpu/train.py:3034-3354 without the
-        league and alert branches): 'args' hands out tasks, 'episode' and
+        alert branches): 'args' hands out tasks, 'episode' and
         'result' take uploads, 'chunk' takes streamed windows, 'model'
         answers with a snapshot, and ``RESUME_KIND`` answers a redialing
         gather's resume token (ok for this run's id: it reattaches in
@@ -2149,7 +2274,12 @@ class Learner:
         """A new task: evaluation ('e') while the results lag ``eval_rate``
         of the episodes, else generation ('g'); both stamped with their
         ``sample_key``, so the task (or its re-issue) plays the same
-        episode on any worker."""
+        episode on any worker. With the league (handyrl_tpu/train.py:
+        3205-3262) a 'g' task's PFSP share seats a pool member on every
+        seat but the learner's, which rotates with the key, and a stride
+        of 'e' tasks become rating matches against the roster in round
+        robin; the stamps ride the ledger's booked args, so a re-issue
+        keeps them."""
         players = self.env.players()
         role_args: Dict[str, Any] = {'model_id': {}}
         if self.num_results < self.eval_rate * self.num_episodes:
@@ -2158,6 +2288,17 @@ class Learner:
             for p in players:
                 role_args['model_id'][p] = (
                     self.model_epoch if p in role_args['player'] else -1)
+            member = self._league_rating_opponent(self.num_results)
+            if member is not None:
+                # registry members ride as model_id seats; the anchors
+                # resolve on the worker by name
+                role_args['opponent'] = member
+                role_args['league_rating_match'] = True
+                mid = self._league.member_model_id(member)
+                if mid is not None and mid > 0:
+                    for p in players:
+                        if p not in role_args['player']:
+                            role_args['model_id'][p] = mid
             role_args['sample_key'] = self.num_results
             self.num_results += 1
         else:
@@ -2165,14 +2306,24 @@ class Learner:
             role_args['player'] = players
             for p in players:
                 role_args['model_id'][p] = self.model_epoch
+            drawn = self._league_gen_opponent(self.num_episodes)
+            if drawn is not None:
+                member, mid = drawn
+                seat = players[self.num_episodes % len(players)]
+                for p in players:
+                    if p != seat:
+                        role_args['model_id'][p] = mid
+                role_args['league_opponent'] = member
+                role_args['league_seat'] = seat
             role_args['sample_key'] = self.num_episodes
             self.num_episodes += 1
         return role_args
 
     def _model_snapshot(self, model_id: int) -> Dict[str, Any]:
         """The 'model' reply: the current params for the current epoch (or
-        id 0 and below), a numbered checkpoint's bytes for an older one
-        (the current params when its file is gone)."""
+        id 0 and below), a numbered checkpoint's bytes for an older one;
+        when its file is gone, a league member's version from the registry
+        (handyrl_tpu/train.py:3331-3337), else the current params."""
         from . import models as model_zoo
         raw = None
         if 0 < model_id != self.model_epoch:
@@ -2180,7 +2331,9 @@ class Learner:
                 with open(self.model_path(model_id), 'rb') as f:
                     raw = f.read()
             except OSError:
-                raw = None
+                snap = self._league_model_snapshot(model_id)
+                if snap is not None:
+                    return snap
         if raw is None:
             key = (self.model_epoch, id(self.params))
             if self._snapshot_cache is None or self._snapshot_cache[0] != key:
@@ -2193,6 +2346,140 @@ class Learner:
         if config:
             snap['config'] = config
         return snap
+
+    # -- the league (handyrl_tpu/train.py:2153-2270) -----------------------
+    def _league_gen_opponent(self, sample_key: int
+                             ) -> Optional[Tuple[str, int]]:
+        """The PFSP draw for the 'g' task stamped ``sample_key``: the
+        ``(member, model_id)`` its other seats carry, or None for the
+        self-play share and an empty pool."""
+        if self._league is None:
+            return None
+        member = self._league.sample_opponent(
+            int(self.args.get('seed') or 0), sample_key, self._league_ratings)
+        if member is None:
+            return None
+        mid = self._league.member_model_id(member)
+        if mid is None:
+            return None
+        return member, mid
+
+    def _league_rating_opponent(self, counter: int) -> Optional[str]:
+        """The rating match's opponent for the 'e' task ``counter``, or
+        None when the task stays an eval.opponent match: every
+        round(1 / rating_match_rate)-th task, in round robin."""
+        if self._league is None:
+            return None
+        rate = float(self._league.args.get('rating_match_rate', 0.25))
+        if rate <= 0.0:
+            return None
+        stride = max(1, int(round(1.0 / rate)))
+        if counter % stride != 0:
+            return None
+        return self._league.rating_opponent(counter // stride)
+
+    def _league_model_snapshot(self, model_id: int
+                               ) -> Optional[Dict[str, Any]]:
+        """A league member's version through the registry (its bytes
+        verified against the CRC sidecar) when the numbered checkpoint is
+        gone; None when the league is off or the registry fails too."""
+        if self._league is None:
+            return None
+        try:
+            snap = self._ensure_registry().load_snapshot(
+                self._league.line, str(model_id))
+            return {k: snap[k] for k in ('architecture', 'params', 'config')
+                    if k in snap}
+        except Exception as exc:
+            _LOG.warning('league: registry could not resolve model %s '
+                         '(%s: %s)', model_id, type(exc).__name__,
+                         str(exc)[:120])
+            return None
+
+    def _league_observe_episode(self, episode: dict):
+        """Book a league 'g' outcome: the learner's score against the
+        member seated by the stamp (``league_opponent``,
+        ``league_seat``)."""
+        if self._league is None:
+            return
+        args = episode.get('args') or {}
+        member = args.get('league_opponent')
+        if not member:
+            return
+        outcome = episode['outcome'].get(args.get('league_seat'))
+        if outcome is None:
+            return
+        self._league_ratings.record(member, (float(outcome) + 1.0) / 2.0)
+        self._league_sampled[member] = self._league_sampled.get(member, 0) + 1
+        telemetry.counter('league_games_total').inc()
+        self._league_flush_maybe()
+
+    def _league_observe_result(self, result: dict):
+        """Book a rating match ('e' slice): the evaluated seat's result
+        against the member the task's opponent stamp names."""
+        if self._league is None:
+            return
+        args = result.get('args') or {}
+        if not args.get('league_rating_match'):
+            return
+        member = result.get('opponent')
+        seats = args.get('player') or []
+        if not member or not seats:
+            return
+        res = result['result'].get(seats[0])
+        if res is None:
+            return
+        self._league_ratings.record(member, (float(res) + 1.0) / 2.0)
+        self._league_rated[member] = self._league_rated.get(member, 0) + 1
+        telemetry.counter('league_games_total').inc()
+        self._league_flush_maybe()
+
+    def _league_flush_maybe(self):
+        """Write the journal shortly after an outcome lands, at most every
+        ``league.rating_flush_seconds``: a SIGKILLed learner loses at most
+        that window of ratings. The write is atomic, so a kill mid-write
+        leaves the previous journal."""
+        if self._league is None:
+            return
+        interval = float(self.args['league']['rating_flush_seconds'])
+        if interval <= 0:
+            return
+        now = time.monotonic()
+        if now - self._league_last_flush < interval:
+            return
+        self._league_last_flush = now
+        self._league_ratings.save(self._league_journal)
+
+    def _print_league_stats(self):
+        if self._league is None:
+            return
+        book = self._league_ratings
+        print('league: learner=%.1f games=%d members=%d champion=%s '
+              'promotions=%d'
+              % (book.rating(league_mod.LEARNER), book.games_since_promote,
+                 len(self._league.members()), self._league.champion,
+                 book.promotions))
+
+    def _league_summary(self) -> Dict[str, Any]:
+        """The league in the JSON line (nothing with it off): the pool,
+        the book, the opponents seated in 'g' episodes, the rating matches
+        booked, and each epoch sync's gate."""
+        if self._league is None:
+            return {}
+        book = self._league_ratings
+        return {'league': {
+            'line': self._league.line, 'champion': self._league.champion,
+            'members': self._league.members(),
+            'roster': self._league.roster(),
+            'journal': self._league_journal,
+            'ratings': {n: book.rating(n) for n in book.names()},
+            'games': {n: book.games(n) for n in book.names()},
+            'games_since_promote': book.games_since_promote,
+            'promotions': book.promotions,
+            'opponents_sampled': dict(sorted(self._league_sampled.items())),
+            'rating_matches': dict(sorted(self._league_rated.items())),
+            'decisions': list(self.league_decisions),
+        }}
 
     def _fleet_snapshot(self) -> Dict[str, Any]:
         """Fleet health: the ledger's and the hub's counts and the gathers'
@@ -2677,6 +2964,7 @@ class Learner:
             **self._fused_summary(steps, train_s),
             **self._replay_summary(),
             **self._worker_summary(),
+            **self._league_summary(),
         }
 
     def _replay_summary(self) -> Dict[str, Any]:

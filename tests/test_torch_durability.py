@@ -471,7 +471,9 @@ def test_streaming_and_target_are_accepted_and_the_league_refused():
         'durability': {'spool': False, 'segment_mb': 8, 'keep_segments': 0,
                        'ledger_snapshot': False}}})
     assert args['train_args']['streaming']['target_clip'] == 1.0
-    with pytest.raises(ConfigError, match='league'):
+    # the league runs with the registry it draws its members from
+    with pytest.raises(ConfigError, match='league.enabled requires '
+                       'serving.publish'):
         apply_defaults({'train_args': {'league': {'enabled': True}}})
     with pytest.raises(ConfigError, match='streaming'):
         apply_defaults({'train_args': {'streaming': {'window': 3}}})

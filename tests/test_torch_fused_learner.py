@@ -218,7 +218,7 @@ def test_cli_without_cuda_raises_on_the_device_path(tmp_path):
           'generation': {'backend': 'engine'}}, 'EngineSupervisor'),
     ({}, {'device_generation': True, 'device_replay': True,
           'fused_pipeline': False, 'batched_generation': False,
-          'league': {'enabled': True}}, 'league'),
+          'inference': {'enabled': True}}, 'host inference engine'),
     ({}, {'device_generation': True, 'generation': {'backend': 'device',
                                                    'device_actor_slots': 0}},
      'device_actor_slots'),

@@ -67,10 +67,11 @@ RESULT_KEYS = ('generation_mean', 'win_rate', 'eval_opponents',
 DYNAMICS_KEYS = ('entropy', 'rho_clip_fraction', 'c_clip_fraction',
                  'importance_ratio_mean', 'importance_ratio_std',
                  'grad_norm')
-# planes the port does not have, left out of its rows: the league
-# (:2406-2422), the policy-lag histograms (:2445), the perf plane's device
-# memory gauge (:2455-2467), the fleet (:2468-2471, :2479-2481), the
-# alerts (:2484-2486) and the file rotation (:2490-2492)
+# keys absent from these rows: the league's block (:2406-2422), which a
+# row has with league.enabled alone, as in the reference; and the planes
+# the port does not have: the policy-lag histograms (:2445), the perf
+# plane's device memory gauge (:2455-2467), the fleet (:2468-2471,
+# :2479-2481), the alerts (:2484-2486) and the file rotation (:2490-2492)
 ABSENT_KEYS = ('league', 'lag_mean', 'policy_lag_mean', 'fleet_telemetry',
                'fleet_hosts', 'alerts', 'device_mem_utilization')
 

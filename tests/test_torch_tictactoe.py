@@ -223,26 +223,30 @@ def test_config_defaults_to_tictactoe_like_the_reference():
 
 @pytest.mark.parametrize('train_args,missing', [
     ({'device_generation': True, 'batched_generation': False,
-      'generation': {'backend': 'engine'}}, 'EngineSupervisor'),
+      'generation': {'backend': 'engine'}}, ('EngineSupervisor',
+                                             'not ported')),
     ({'device_generation': True, 'device_replay': True,
       'generation': {'backend': 'device'}, 'league': {'enabled': True}},
-     'league'),
+     ('league.enabled requires serving.publish',)),
     ({'device_generation': True, 'device_replay': True,
       'fused_pipeline': False, 'batched_generation': False,
-      'league': {'enabled': True}}, 'league'),
-])
+      'inference': {'enabled': True}}, ('host inference engine',
+                                        'not ported')),
+], ids=['train_args0-EngineSupervisor', 'train_args1-league',
+        'train_args2-inference'])
 def test_tictactoe_on_the_device_path_names_what_is_missing(train_args,
                                                             missing):
     """TicTacToe runs the fused loop in the 'turn' layout, every other
     device combination and the device actor backend; the planes the JAX
-    package has and the port not yet (the per-host inference engine, the
-    league) still raise, naming them."""
+    package has and the port not yet (the per-host inference engine)
+    still raise, naming them, as does the league without the registry it
+    draws from."""
     with pytest.raises(ConfigError) as exc:
         apply_defaults({'env_args': {'env': 'TicTacToe'},
                         'train_args': train_args})
     msg = str(exc.value)
-    assert missing in msg
-    assert 'not ported' in msg
+    for part in missing:
+        assert part in msg
     args = apply_defaults({'env_args': {'env': 'TicTacToe'},
                            'train_args': {'device_generation': True,
                                           'device_replay': True}})

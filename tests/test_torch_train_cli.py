@@ -112,7 +112,8 @@ def test_cli_without_cuda_raises(tmp_path):
     # the JAX package checks them
     ({}, {'streaming': {'enabled': True, 'chunk_steps': 6}}, 'chunk_steps'),
     ({}, {'streaming': {'target_clip': -1.0}}, 'target_clip'),
-    ({}, {'league': {'enabled': True}}, 'league'),
+    ({}, {'league': {'enabled': True}}, 'league.enabled requires '
+     'serving.publish'),
     ({}, {'parallel': {'model_parallel': 2}}, 'parallel'),
     # the worker plane runs, the device actor backend with it; its
     # knobs are checked as the JAX package checks them
