@@ -4,10 +4,11 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc`` (CUDA_HOME, PATH or /usr/local/cuda), and exits
 non-zero, printing no result, when either is missing or any phase fails.
-To fit its time, the learner processes of 11(a)-(c), of 12(c) and (d),
-of 13(a), of 13(b), of 14(b)/(c) and 14(f), and of 16(a) and (b) run at
-once (each part still checks its own run; their rates and 16(a)'s MTTR
-share the host and the card).
+To fit its time, the learner processes of 9(b) with phase 10, of
+11(a)-(c) with 11(d)'s export, of 12(c) and (d), of 13(a), of 13(b), of
+14(b)/(c) and 14(f), of 16(a) and (b), and of phase 17 with 18(c) and (d)
+run at once (each part still checks its own run; their rates and 16(a)'s
+MTTR share the host and the card).
 
 1. Prints the card (name and power limit from nvidia-smi), the torch and
    CUDA versions, and builds every CUDA kernel of the port from the
@@ -20,8 +21,8 @@ share the host and the card).
    with TF32 off, and times the kernel, the plain version and, where one
    PyTorch call computes the same function, that call:
    - K1, the trunk forward, at full GeeseNet width (Cin=17, F=32, L=12,
-     8 groups) on real Hungry Geese observations, N in {1, 8, 64, 100,
-     128, 256, 1024, 2048}, its convs on the tensor cores in 3xTF32 (bounds
+     8 groups) on real Hungry Geese observations, N in {1, 8, 16, 32, 64,
+     100, 128, 256, 1024, 2048} (16-64: the host engine's ticks), its convs on the tensor cores in 3xTF32 (bounds
      over the TF32 peak), timed with CUDA events back to back (the kernels line's ms) and
      by torch.profiler's device time, which leaves the wrapper's host cost
      out (256 is the learners' generation bucket: 64 envs of four geese;
@@ -441,8 +442,29 @@ share the host and the card).
    ``{"phase17": ...}`` JSON line (members seated, rating matches by
    member and anchor, games, promotions, the champion, the gates, the
    journal's round trip, the device actor's lanes on slots and tasks on
-   the host fallback).
-18. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, their bf16
+   the host fallback). It runs beside 18(c) and (d).
+18. The host inference engine of a gather (ENGINE_*), each learner
+   through ``python -m handyrl_tpu_torch.train`` with no --device:
+   (a) phase 9(a)'s config with ``inference.enabled`` and 8 workers in
+   one gather: exit 0, finite losses, both checkpoints; the learner's K1,
+   K2 and K3 once a training step and nothing else; the gather's engine
+   K1 (serving form) and nothing else, more than one row a batch, no
+   restart; the workers nothing at all, no failover; every episode
+   counted once, no process left. Prints batches, rows a batch, the
+   buckets, K1 a net-played ply, and episodes/s and plies/s beside 9(a)'s
+   per-worker run. (b) In this process, on the full-width net: engine
+   ticks of ENGINE_BUCKETS rows against ``model_act`` at the 8-row
+   bucket, actions, masks, prob, value and the full-output policy equal
+   bit for bit (F7's repair), one K1 launch a tick; the largest
+   differences printed. (c) (a) cut (ENGINE_CHAOS_TRAIN) with
+   ENGINE_CHAOS: at least one engine restart, one worker failover and
+   one re-promotion, exit 0, every task answered once. (d) ``python -m
+   handyrl_tpu_torch --serve --config`` on the learner's config (a copy
+   naming a free port) and ENGINE_REMOTE_TRAIN's workers dialing it
+   through ``serving.endpoint``: the service launches K1 and exits 75 on
+   SIGTERM, no engine in the gather, the workers launch nothing until a
+   failover and re-promote. Prints one ``{"phase18": ...}`` JSON line.
+19. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, their bf16
    forms as rows of their own, K3-K5; K2a and K2b take their launches
    from K2's count, one of each a call, the bf16 rows from K2-bf16's; the
    fused loop's under ``learner_fused_*``, 5(b)'s under
@@ -468,8 +490,11 @@ share the host and the card).
    ``former_step``, phase 16's under ``impact_step``,
    ``durable_drill_*`` (the restarted learner), ``durable_drill_gather``
    and ``stream_chaos_*``, phase 17's under ``league_*`` (the learner),
-   ``league_gather`` and ``league_service``; K1's row also holds the
-   operator's checks),
+   ``league_gather`` and ``league_service``, phase 18's under
+   ``engine_{local,chaos,remote}_*`` (the learners and their worker
+   processes), ``engine_{local,chaos}_gather``, ``engine_remote_service``
+   and ``engine_buckets``; K1's row also holds the operator's checks and
+   the engine's buckets),
    the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -486,7 +511,7 @@ import time
 
 SEED = 20261016
 WIDTH = dict(cin=17, filters=32, layers=12, groups=8)
-KERNEL_NS = (1, 8, 64, 100, 128, 256, 1024, 2048)
+KERNEL_NS = (1, 8, 16, 32, 64, 100, 128, 256, 1024, 2048)
 MAIN_PATH_N = 8          # four geese per ply, padded to the engine's bucket
 TRAIN_N = 2048           # B*T*P of the headline update step
 BWD_NS = (8, 64, 1024, 2048)
@@ -650,6 +675,20 @@ def kernel_ms(torch, fn, reps):
         torch.cuda.synchronize()
     return {e.key: device_us(e) / 1e3 / reps for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and device_us(e) > 0}
+
+
+def k2_kernel_ms(torch, fn, reps, label):
+    """``kernel_ms`` of a K2 call, profiled once more when the trace lacks
+    one of its phases' kernels (CUPTI has dropped a kernel's record from
+    an otherwise complete trace); the callers still fail unless a trace
+    shows every one."""
+    by_kernel = kernel_ms(torch, fn, reps)
+    for kernels in PHASES.values():
+        if not all(any(name in k for k in by_kernel) for name in kernels):
+            log('%s: the profiler\'s trace lacks %s (%s); profiling again'
+                % (label, kernels, sorted(by_kernel)))
+            return kernel_ms(torch, fn, reps)
+    return by_kernel
 
 
 def training_forward(torch, geese_trunk, x, weights, groups):
@@ -1003,7 +1042,7 @@ def phase_backward(torch, geese_trunk, GeeseNet, make_env):
                 errs[name] = ((g - r).abs().max() / r.abs().max()).item()
             ms = cuda_time_ms(torch, kernel, 20)
             plain_ms = cuda_time_ms(torch, plain, 5)
-            by_kernel = kernel_ms(torch, kernel, 10)
+            by_kernel = k2_kernel_ms(torch, kernel, 10, 'K2 N=%d' % n)
             inputs, dcs = layer_inputs_and_dc(geese_trunk, x, weights, dy, G,
                                               saved)
             b_plain_ms, b_library_ms, b_library_err = wgrad_yardsticks(
@@ -2438,7 +2477,7 @@ def phase_fused(torch, repo, make_env, learner_line, tmp):
 # slow test: over the last QUICK_LAST epochs at least QUICK_MIN_RESULTS
 # evaluation results and a win rate above QUICK_MIN_WIN_RATE.
 QUICK_CONFIG = 'tictactoe.json'
-QUICK_EPOCHS = 15
+QUICK_EPOCHS = 10       # 15 until phase 18 needed the time (PERF.md §4)
 QUICK_LAST = 5
 QUICK_MIN_RESULTS, QUICK_MIN_WIN_RATE = 80, 0.6
 QUICK_GAMES, QUICK_PROCS = 100, 4
@@ -3130,11 +3169,13 @@ def processes_left(text):
             if os.path.exists('/proc/%s' % p)]
 
 
-def check_worker_plane_line(label, line, epochs):
+def check_worker_plane_line(label, line, epochs, workers_k1=True):
     """The learner's JSON line of a worker-plane run: epochs with finite
     losses, K1, K2 and K3 once a training step (and the capture's warm-up
     steps) and nothing else in this process, K1 and nothing else in the
-    worker processes, an empty ledger, every episode counted once."""
+    worker processes (``workers_k1`` None: K1 may be 0 too, as for engine
+    workers that failed over; False: nothing at all, engine mode), an
+    empty ledger, every episode counted once."""
     import math
     from handyrl_tpu_torch.ops.train_step import GRAPH_WARMUP_STEPS
     if line['epochs'] != epochs or line['failed'] or line['fleet_failure']:
@@ -3155,10 +3196,14 @@ def check_worker_plane_line(label, line, epochs):
             fail('%s training launched %s %s times in %d steps'
                  % (label, name, train.get(name), runs))
     workers = line['worker_kernel_launches']
-    if not workers.get('geese_trunk', 0) > 0 or any(
-            n for k, n in workers.items() if k != 'geese_trunk'):
+    if workers_k1 is not False and (
+            (workers_k1 and not workers.get('geese_trunk', 0) > 0)
+            or any(n for k, n in workers.items() if k != 'geese_trunk')):
         fail('%s worker processes launched %s (K1 and nothing else '
              'expected)' % (label, workers))
+    if workers_k1 is False and any(workers.values()):
+        fail('%s worker processes launched %s (nothing expected: their '
+             'gather\'s engine runs the forwards)' % (label, workers))
     fleet = line['fleet']
     if fleet['outstanding'] != 0 or fleet['live'] != 0:
         fail('%s ended with tasks outstanding or peers attached: %s'
@@ -4182,23 +4227,28 @@ def op_checks(torch, GeeseNet):
     return rows
 
 
-def phase_export(torch, repo, GeeseNet, make_env, ckpt):
-    """Phase 11(d)."""
+def export_program(repo, ckpt, pt2):
+    """Phase 11(d)'s export of ``ckpt`` to ``pt2`` on the CPU (a process
+    of its own, beside 11(a)-(c)); its seconds."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.join('scripts', 'torch_export_model.py'),
+         'HungryGeese', ckpt, pt2], cwd=repo, capture_output=True,
+        text=True, timeout=300)
+    log('export: %s' % ' | '.join(proc.stdout.strip().splitlines()))
+    if proc.returncode != 0 or 'K1 operator in the graph: True' \
+            not in proc.stdout:
+        fail('the export failed (exit %d):\n%s' % (proc.returncode,
+                                                    proc.stderr[-3000:]))
+    return time.monotonic() - t0
+
+
+def phase_export(torch, repo, GeeseNet, make_env, ckpt, pt2, export_s):
+    """Phase 11(d): the exported program on the card against the
+    checkpoint, and the operator's checks."""
     import numpy as np
     tmp = tempfile.mkdtemp(prefix='chip_smoke_export_')
     try:
-        pt2 = os.path.join(tmp, 'model.pt2')
-        t0 = time.monotonic()
-        proc = subprocess.run(
-            [sys.executable, os.path.join('scripts', 'torch_export_model.py'),
-             'HungryGeese', ckpt, pt2], cwd=repo, capture_output=True,
-            text=True, timeout=300)
-        export_s = time.monotonic() - t0
-        log('export: %s' % ' | '.join(proc.stdout.strip().splitlines()))
-        if proc.returncode != 0 or 'K1 operator in the graph: True' \
-                not in proc.stdout:
-            fail('the export failed (exit %d):\n%s' % (proc.returncode,
-                                                        proc.stderr[-3000:]))
         boards = os.path.join(tmp, 'boards.npy')
         np.save(boards, np.stack(game_observations(make_env, EXPORT_BOARDS,
                                                    SEED + 23)))
@@ -4233,13 +4283,21 @@ def phase_device_branches(torch, repo, GeeseNet, make_env, ckpt, learner,
     log('== phase 11(a)-(c), at once: the split path (DeviceGenerator, host '
         'trainer); the threaded replay trainer with device ingest, a '
         'checkpoint opponent on the device evaluator; the threaded replay '
-        'trainer with the host push (TicTacToe)')
-    split, replay, host_push = concurrently(
-        lambda: phase_split(torch, repo),
-        lambda: phase_replay(torch, repo, ckpt),
-        lambda: phase_host_push(torch, repo))
-    log('== phase 11(d): the export round trip (.pt2 with K1 inside)')
-    export = phase_export(torch, repo, GeeseNet, make_env, ckpt)
+        'trainer with the host push (TicTacToe); and 11(d)\'s export on the '
+        'CPU')
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_pt2_')
+    try:
+        pt2 = os.path.join(tmp, 'model.pt2')
+        split, replay, host_push, export_s = concurrently(
+            lambda: phase_split(torch, repo),
+            lambda: phase_replay(torch, repo, ckpt),
+            lambda: phase_host_push(torch, repo),
+            lambda: export_program(repo, ckpt, pt2))
+        log('== phase 11(d): the export round trip (.pt2 with K1 inside)')
+        export = phase_export(torch, repo, GeeseNet, make_env, ckpt, pt2,
+                              export_s)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     names = ('host (5)', 'fused (6)', 'split (11a)', 'replay (11b)')
     lines = (learner, fused['line'], split['line'], replay['line'])
     log('device branches beside the host learner and the fused loop, same '
@@ -5953,7 +6011,7 @@ def bf16_backward_row(torch, geese_trunk, net, weights, x, xb, y, saved, n,
             errs[name] = rel_err(torch, g, r)
         ms = cuda_time_ms(torch, kernel, 20)
         plain_ms = cuda_time_ms(torch, plain, 3)
-        by_kernel = kernel_ms(torch, kernel, 10)
+        by_kernel = k2_kernel_ms(torch, kernel, 10, '15(a) K2 bf16 N=%d' % n)
         inputs, dcs = layer_inputs_and_dc(geese_trunk, xb, weights, dy, G,
                                           dict(kw), bf16=True)
         padded = [F.pad(h.permute(0, 3, 1, 2).contiguous(), (1, 1, 1, 1),
@@ -7214,6 +7272,451 @@ def phase_league(torch, repo, make_env):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------- phase 18: the host inference engine
+
+PHASE18_TIMEOUT = 180      # each learner run (and the service beside it)
+# (a) phase 9(a)'s config with the per-host engine: 8 workers in one gather
+# hold no params; the gather's engine coalesces their plies (up to 8 x 4
+# seats a tick) into one forward on the card
+ENGINE_TRAIN = dict(WORKERS_LOCAL, worker={'num_parallel': 8},
+                    inference={'enabled': True})
+# (b) engine ticks of these many rows against model_act at the 8-row bucket
+ENGINE_BUCKETS = (32, 64)
+# (c) (a)'s config cut to 4 workers (8) and 64 episodes an epoch (depth),
+# the engine killed once by the chaos clock at its first tick 6.0 s after
+# the gather spawned it (seed 0's first draw: 0.29977 x 20), when the
+# workers start to play or soon after; re-promoted, they play epoch 1's
+# net on the restarted engine
+ENGINE_CHAOS_TRAIN = dict(ENGINE_TRAIN, worker={'num_parallel': 4},
+                          minimum_episodes=64, update_episodes=64)
+ENGINE_CHAOS = 'enginekill=20,engine_max_faults=1,seed=0'
+# (d) the remote-service mode: 4 workers (cut from 8) dial --serve on the
+# same config through serving.endpoint, 64 episodes an epoch (depth).
+# The service resolves '<line>@<mid>' in the learner's registry, which
+# holds no epoch 0: the workers fail over at their first request, as the
+# JAX workers do, and a fast re-probe re-promotes them once epoch 1 is
+# published
+ENGINE_REMOTE_TRAIN = dict(
+    WORKERS_LOCAL, worker={'num_parallel': 4}, minimum_episodes=64,
+    update_episodes=64,
+    inference={'enabled': True, 'reprobe_initial_delay': 0.5,
+               'reprobe_max_delay': 2.0},
+    serving={'publish': True})
+
+
+def check_engine_workers(label, line, until_failover=True):
+    """Every worker of an engine-mode run: its client's counts in its
+    beacon, and no launch of a worker that never failed over."""
+    stats = line['worker_stats']
+    for key, st in stats.items():
+        client = st.get('engine_client')
+        if client is None:
+            fail('%s: worker %s beaconed no engine client' % (label, key))
+        launched = sum((st.get('launches') or {}).values())
+        if launched and (not until_failover or not client['failovers']):
+            fail('%s: worker %s launched %s with %d failovers'
+                 % (label, key, st.get('launches'), client['failovers']))
+    return stats
+
+
+def engine_run(repo, tmp, extra, label, chaos=None):
+    """The learner's CLI (no --device) on a worker-plane config, in a
+    session of its own; its JSON line, stdout and stderr."""
+    path = worker_plane_config(tmp, extra)
+    env = dict(os.environ, PYTHONUNBUFFERED='1')
+    if chaos:
+        env['HANDYRL_TPU_CHAOS'] = chaos
+    logs = (os.path.join(tmp, 'learner.out'), os.path.join(tmp,
+                                                           'learner.err'))
+    t0 = time.monotonic()
+    proc = start_session(['handyrl_tpu_torch.train', '--config', path],
+                         repo, env, logs)
+    try:
+        proc.wait(timeout=PHASE18_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        kill_sessions([proc])
+        fail('%s did not finish within %d s:\n%s' % (
+            label, PHASE18_TIMEOUT, tail(logs[1])))
+    wall = time.monotonic() - t0
+    out, err = read_text(logs[0]), read_text(logs[1])
+    if proc.returncode != 0:
+        fail('%s exited %d:\n%s' % (label, proc.returncode, err[-4000:]))
+    line = learner_json(label, out)
+    line['wall'] = wall
+    left = processes_left(err)
+    if left:
+        fail('%s left worker or gather processes: %s' % (label, left))
+    return line, out, err, path
+
+
+def plies_of(line):
+    stats = line['worker_stats'].values()
+    return (sum(s.get('plies', 0) for s in stats),
+            sum(s.get('random_plies', 0) for s in stats))
+
+
+def engine_local(repo, workers_local):
+    """18(a): the engine path through the learner's CLI."""
+    from handyrl_tpu_torch.utils.fs import verify_checkpoint
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_engine_')
+    try:
+        label = '18(a) the engine path'
+        line, out, _err, _ = engine_run(repo, tmp, ENGINE_TRAIN, label)
+        for l in out.splitlines():
+            if l.startswith(('epoch', 'loss', 'updated model', 'fleet:')):
+                log('  18(a): %s' % l)
+        check_worker_plane_line(label, line, ENGINE_TRAIN['epochs'],
+                                workers_k1=False)
+        models = os.path.join(tmp, 'models')
+        for name in ['%d.ckpt' % e for e in
+                     range(1, ENGINE_TRAIN['epochs'] + 1)] + [
+                'latest.ckpt', 'trainer_state.ckpt']:
+            ok, reason = verify_checkpoint(os.path.join(models, name))
+            if not ok or reason != 'ok':
+                fail('%s: checkpoint %s: %s' % (label, name, reason))
+        if line['worker_processes'] != ENGINE_TRAIN['worker']['num_parallel']:
+            fail('%s heard from %d worker processes' % (
+                label, line['worker_processes']))
+        if len(line['engines']) != 1:
+            fail('%s: %d engines beaconed (one gather, one engine '
+                 'expected)' % (label, len(line['engines'])))
+        eng = line['engines'][0]
+        k1 = eng['launches'].get('geese_trunk', 0)
+        if not k1 > 0 or any(n for k, n in eng['launches'].items()
+                             if k != 'geese_trunk'):
+            fail('%s: the gather launched %s (K1\'s serving form and '
+                 'nothing else expected)' % (label, eng['launches']))
+        forwards = sum(eng['buckets'].values())
+        if not eng['fill_ratio'] > 1.0 or not k1 >= forwards > 0 or \
+                eng['restarts'] or eng['device'] != 'cuda':
+            fail('%s: the engine ran %s' % (label, eng))
+        stats = check_engine_workers(label, line, until_failover=False)
+        if line['engine_clients'].get('failovers') or \
+                line['engine_clients'].get('local_inferences'):
+            fail('%s: workers failed over with a live engine: %s'
+                 % (label, line['engine_clients']))
+        net, rand = plies_of(line)
+        local_net, local_rand = plies_of(workers_local)
+        out = {'card': nvidia_smi_line(), 'wall': line['wall'],
+               'workers': len(stats), 'episodes': line['episodes'],
+               'episodes_per_s': line['episodes_per_s'],
+               'plies_per_s': (net + rand) / line['wall'],
+               'net_plies': net, 'random_plies': rand,
+               'requests': eng['requests'], 'batches': eng['batches'],
+               'fill_ratio': eng['fill_ratio'], 'buckets': eng['buckets'],
+               'forwards': forwards, 'k1_launches': k1,
+               'k1_per_net_ply': k1 / max(1, net),
+               'requests_per_net_ply': eng['requests'] / max(1, net),
+               'clients': line['engine_clients'],
+               'phase9a': {'workers': len(workers_local['worker_stats']),
+                           'episodes_per_s': workers_local['episodes_per_s'],
+                           'plies_per_s': (local_net + local_rand)
+                           / workers_local['wall'],
+                           'k1_launches': workers_local[
+                               'worker_kernel_launches']['geese_trunk'],
+                           'k1_per_net_ply': workers_local[
+                               'worker_kernel_launches']['geese_trunk']
+                           / max(1, local_net)},
+               'kernel_launches': line['kernel_launches'],
+               'gather_launches': eng['launches'],
+               'worker_kernel_launches': line['worker_kernel_launches']}
+        log('18(a): %d requests in %d batches (%.2f rows a batch), buckets '
+            '%s; K1 %d launches in the gather, %.3f a net-played ply (%d '
+            'net plies; evaluation forwards included), the workers 0' % (
+                eng['requests'], eng['batches'], eng['fill_ratio'],
+                eng['buckets'], k1, out['k1_per_net_ply'], net))
+        log('18(a): %s' % worker_ply_line(line))
+        log('18(a) engine (8 workers) vs 9(a) per-worker (%d workers), same '
+            'card (%s): episodes/s %.3f vs %.3f; plies/s %.1f vs %.1f; K1 '
+            'a net ply %.3f vs %.3f' % (
+                out['phase9a']['workers'], out['card'],
+                out['episodes_per_s'], out['phase9a']['episodes_per_s'],
+                out['plies_per_s'], out['phase9a']['plies_per_s'],
+                out['k1_per_net_ply'], out['phase9a']['k1_per_net_ply']))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def engine_buckets(torch, GeeseNet, make_env):
+    """18(b): bucket invariance in this process. The same requests in one
+    engine tick of N rows (K1's serving form at N) and one by one through
+    model_act (the 8-row bucket) on the full-width net: actions, masks,
+    prob and value (and the full-output path's policy) equal bit for bit,
+    the largest differences printed; where they differ, the trunk's rows
+    and the heads are held apart to say which part does, and it fails."""
+    import queue
+    import random
+    import numpy as np
+    from handyrl_tpu_torch import ops
+    from handyrl_tpu_torch.generation import (bucketed_inference, model_act,
+                                              sample_seed)
+    from handyrl_tpu_torch.inference import InferenceEngine
+    from handyrl_tpu_torch.model import ModelWrapper, fp32_on_card
+    fp32_on_card(torch.device('cuda'))
+    gen = torch.Generator().manual_seed(SEED + 18)
+    wrapper = ModelWrapper(GeeseNet(
+        filters=WIDTH['filters'], layers=WIDTH['layers'],
+        torus_impl='pallas', generator=gen), 'cuda')
+    snap = wrapper.snapshot()
+    n_max = max(ENGINE_BUCKETS)
+    obs = game_observations(make_env, n_max, SEED + 18)
+    rng = random.Random(SEED)
+    legal = [sorted(rng.sample(range(4), rng.randint(1, 4)))
+             for _ in range(n_max)]
+    seeds = [sample_seed(SEED, (18, n), 0) for n in range(n_max)]
+    out = {'card': nvidia_smi_line(), 'by_n': {}}
+    launches = {}
+    for n in ENGINE_BUCKETS:
+        replies = queue.Queue()
+        # a tick closes at n rows (max_batch); the deadline never comes
+        engine = InferenceEngine(
+            {'inference': {'batch_wait_ms': 10000.0, 'max_batch': n},
+             'env': GEESE_ENV},
+            fetch_snapshot=lambda mid: snap,
+            reply_fn=lambda ep, msg: replies.put(msg), example_obs=obs[0],
+            clients=n, device='cuda').start()
+        try:
+            for k in range(n):                # the vault's materialization
+                engine.submit(None, {'rid': -1, 'mid': 1, 'obs': obs[k]})
+            for k in range(n):
+                replies.get(timeout=120)
+            ops.reset_kernel_launches()
+            t0 = time.monotonic()
+            for k in range(n):
+                engine.submit(None, {'rid': k, 'mid': 1, 'obs': obs[k],
+                                     'hidden': None, 'legal': legal[k],
+                                     'seed': seeds[k]})
+            acts = {}
+            for _ in range(n):
+                r = replies.get(timeout=120)
+                acts[r['rid']] = r
+            tick_s = time.monotonic() - t0
+            tick_k1 = ops.kernel_launches()['geese_trunk']
+            for k in range(n):
+                engine.submit(None, {'rid': k, 'mid': 1, 'obs': obs[k]})
+            full = {}
+            for _ in range(n):
+                r = replies.get(timeout=120)
+                full[r['rid']] = r['outputs']
+            launches[n] = ops.kernel_launches()
+        finally:
+            engine.stop()
+        if engine.buckets != {n: 3} or tick_k1 != 1:
+            fail('18(b): the engine ran buckets %s (K1 %d launches a tick)'
+                 % (engine.buckets, tick_k1))
+        t0 = time.monotonic()
+        local = [model_act(wrapper, obs[k], None, legal[k], seeds[k])
+                 for k in range(n)]
+        local_s = time.monotonic() - t0
+        outs = [bucketed_inference(wrapper, obs[k]) for k in range(n)]
+        diffs = {'prob': 0.0, 'value': 0.0, 'policy': 0.0,
+                 'full_value': 0.0}
+        equal = True
+        for k in range(n):
+            g, w = acts[k], local[k]
+            if g['action'] != w['action'] or not np.array_equal(
+                    g['action_mask'], w['action_mask']):
+                fail('18(b): row %d of the %d-row tick acts %s, the 8-row '
+                     'bucket %s' % (k, n, g['action'], w['action']))
+            pairs = (('prob', g['prob'], w['prob']),
+                     ('value', g['value'], w['value']),
+                     ('policy', full[k]['policy'], outs[k]['policy']),
+                     ('full_value', full[k]['value'], outs[k]['value']))
+            for key, a, b in pairs:
+                a, b = np.asarray(a), np.asarray(b)
+                equal &= bool(np.array_equal(a, b))
+                diffs[key] = max(diffs[key], float(np.abs(
+                    a.astype(np.float64) - b).max()))
+        row = {'bitwise': equal, 'max_abs_diff': diffs,
+               'tick_ms': tick_s * 1e3, 'one_by_one_ms': local_s * 1e3}
+        if not equal:
+            # F7 (ROADMAP.md §3), repaired by the heads' row-invariant
+            # product (models.blocks.dense): a row's bits at N rows must
+            # be its bits at 8, or a failover changes the records
+            fail('18(b): the %d-row tick is %s off the 8-row bucket, not '
+                 'bit for bit (F7): %s' % (n, diffs, bucket_variance_source(
+                     torch, wrapper, obs[:n])))
+        out['by_n'][str(n)] = row
+        log('18(b) N=%d: bit for bit %s; largest |difference| %s; one tick '
+            '%.2f ms vs %d model_act calls %.2f ms (host clock)' % (
+                n, equal, {k: '%.3g' % v for k, v in diffs.items()},
+                row['tick_ms'], n, row['one_by_one_ms']))
+    out['launches'] = launches[max(ENGINE_BUCKETS)]
+    out['bitwise'] = all(r['bitwise'] for r in out['by_n'].values())
+    return out
+
+
+def bucket_variance_source(torch, wrapper, obs):
+    """Which part of the net gives a row other bits at N rows than at 8:
+    the trunk (K1), or the heads (PyTorch's reductions and products)."""
+    import numpy as np
+    net = wrapper.module
+    x = torch.as_tensor(np.stack(obs), device='cuda')
+    with torch.no_grad():
+        from handyrl_tpu_torch.models.geese import to_nhwc
+        xs = to_nhwc(x).float()
+        h_n = net.trunk(xs, False)
+        h_8 = torch.cat([net.trunk(xs[i:i + 8], False)
+                         for i in range(0, len(obs), 8)])
+        y_n = net(x)
+        y_8 = {k: torch.cat([net(x[i:i + 8])[k]
+                             for i in range(0, len(obs), 8)])
+               for k in ('policy', 'value')}
+    return {'trunk_max_abs_diff': float((h_n - h_8).abs().max()),
+            'trunk_bitwise': bool(torch.equal(h_n, h_8)),
+            'heads_max_abs_diff': max(float((y_n[k] - y_8[k]).abs().max())
+                                      for k in ('policy', 'value'))}
+
+
+def engine_chaos(repo):
+    """18(c): the chaos drill on (a)'s config, cut."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_engine_chaos_')
+    try:
+        label = '18(c) the engine chaos drill'
+        line, _out, err, _ = engine_run(repo, tmp, ENGINE_CHAOS_TRAIN, label,
+                                        chaos=ENGINE_CHAOS)
+        check_worker_plane_line(label, line, ENGINE_CHAOS_TRAIN['epochs'],
+                                workers_k1=None)
+        eng = (line['engines'] or [{}])[0]
+        clients = line['engine_clients']
+        if not eng.get('restarts', 0) >= 1 or \
+                not clients.get('failovers', 0) >= 1 or \
+                not clients.get('repromotions', 0) >= 1:
+            fail('%s: restarts %s, failovers %s, re-promotions %s (each '
+                 'at least 1 expected):\n%s' % (
+                     label, eng.get('restarts'), clients.get('failovers'),
+                     clients.get('repromotions'), err[-3000:]))
+        check_engine_workers(label, line)
+        out = {'card': nvidia_smi_line(), 'wall': line['wall'],
+               'episodes': line['episodes'],
+               'restarts_by_reason': eng['restarts_by_reason'],
+               'requests': eng['requests'], 'batches': eng['batches'],
+               'stale_replies': eng['stale_replies'], 'clients': clients,
+               'fleet': line['fleet'],
+               'kernel_launches': line['kernel_launches'],
+               'gather_launches': eng['launches'],
+               'worker_kernel_launches': line['worker_kernel_launches']}
+        log('18(c): engine restarts %s; workers: %d failovers, %d '
+            're-promotions, %d local inferences, %d timeouts, %d error '
+            'replies, %d stale replies; K1 %d launches in the gather, %d in '
+            'the workers; %d episodes, each counted once, no task '
+            'outstanding; %.1f s' % (
+                eng['restarts_by_reason'], clients['failovers'],
+                clients['repromotions'], clients['local_inferences'],
+                clients['timeouts'], clients['errors'],
+                clients['stale_replies'], eng['launches']['geese_trunk'],
+                line['worker_kernel_launches']['geese_trunk'],
+                line['episodes'], line['wall']))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def engine_remote(repo):
+    """18(d): a short learner publishing to its registry, --serve on the
+    same config (a copy naming a free port, which the learner's serving
+    block refuses), the workers dialing it through serving.endpoint."""
+    from handyrl_tpu_torch.serving.client import ServiceClient
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_engine_remote_')
+    service = None
+    try:
+        label = '18(d) the remote-service mode'
+        port, = free_ports(1)
+        extra = json.loads(json.dumps(ENGINE_REMOTE_TRAIN))
+        extra['serving']['endpoint'] = 'localhost:%d' % port
+        cfg = json.loads(json.dumps(LEARNER_CONFIG))
+        cfg['train_args'].update(json.loads(json.dumps(extra)))
+        cfg['train_args']['model_dir'] = os.path.join(tmp, 'models')
+        cfg['train_args']['serving']['port'] = port
+        serve_path = os.path.join(tmp, 'serve_config.json')
+        with open(serve_path, 'w') as f:
+            json.dump(cfg, f)
+        with open(os.path.join(tmp, 'serve.err'), 'w') as err:
+            service = subprocess.Popen(
+                [sys.executable, '-m', 'handyrl_tpu_torch', '--serve',
+                 '--config', serve_path], cwd=repo, stdout=subprocess.PIPE,
+                stderr=err, start_new_session=True)
+        ready = read_ready_line(service, timeout=120)
+        if ready['port'] != port or ready['device'] != 'cuda':
+            fail('%s: the service is ready on %s' % (label, ready))
+        line, _out, err, _ = engine_run(repo, tmp, extra, label)
+        check_worker_plane_line(label, line, ENGINE_REMOTE_TRAIN['epochs'],
+                                workers_k1=None)
+        check_engine_workers(label, line)
+        clients = line['engine_clients']
+        if line['engines'] or not clients.get('remote_dials', 0) >= 1 or \
+                not clients.get('repromotions', 0) >= 1:
+            fail('%s: local engines %s; clients %s (dials and a '
+                 're-promotion expected):\n%s' % (
+                     label, line['engines'], clients, err[-3000:]))
+        client = ServiceClient('127.0.0.1', port, timeout=60)
+        try:
+            status = client.status()
+        finally:
+            client.close()
+        if not status['kernel_launches'].get('geese_trunk', 0) > 0 or \
+                not status['answered'] > 0:
+            fail('%s: the service answered %d requests with launches %s'
+                 % (label, status['answered'], status['kernel_launches']))
+        service.send_signal(signal.SIGTERM)
+        rc = service.wait(timeout=60)
+        service.stdout.close()
+        if rc != 75:
+            fail('%s: the service exited %d after SIGTERM (75 expected)'
+                 % (label, rc))
+        service = None
+        out = {'card': nvidia_smi_line(), 'wall': line['wall'],
+               'episodes': line['episodes'], 'clients': clients,
+               'service': {k: status[k] for k in (
+                   'received', 'answered', 'engine_requests',
+                   'engine_batches', 'shed')},
+               'kernel_launches': line['kernel_launches'],
+               'service_launches': status['kernel_launches'],
+               'worker_kernel_launches': line['worker_kernel_launches']}
+        log('18(d): the service answered %d of %d requests in %d batches, '
+            'K1 %d launches; workers: %d dials, %d failovers (epoch 0 is not '
+            'in the registry), %d re-promotions, %d local inferences, K1 %d '
+            'launches after failing over; the service exited 75 on SIGTERM'
+            % (status['answered'], status['received'],
+               status['engine_batches'],
+               status['kernel_launches']['geese_trunk'],
+               clients['remote_dials'], clients['failovers'],
+               clients['repromotions'], clients['local_inferences'],
+               line['worker_kernel_launches']['geese_trunk']))
+        return out
+    finally:
+        if service is not None:
+            kill_sessions([service])
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_engine(torch, repo, GeeseNet, make_env, workers_local,
+                 beside=None):
+    """Phase 18: the host inference engine of a gather: (a) alone (it is
+    measured against phase 9(a)), (b) in this process, then (c) and (d)
+    at once (learner processes of their own) and ``beside`` with them (an
+    independent phase's part); returns the phase's results and
+    ``beside``'s."""
+    t0 = time.monotonic()
+    log('== phase 18(a): the engine path (8 workers, one gather)')
+    local = engine_local(repo, workers_local)
+    log('== phase 18(b): bucket invariance in process')
+    buckets = engine_buckets(torch, GeeseNet, make_env)
+    log('== phase 18(c)+(d): the chaos drill and the remote-service mode%s'
+        % (' (beside phase 17)' if beside else ''))
+    chaos, remote, other = concurrently(
+        lambda: engine_chaos(repo), lambda: engine_remote(repo),
+        beside or (lambda: None))
+    out = {'local': local, 'buckets': buckets, 'chaos': chaos,
+           'remote': remote, 'seconds': time.monotonic() - t0}
+    print(json.dumps({'phase18': {
+        k: ({kk: vv for kk, vv in v.items() if 'launches' not in kk}
+            if isinstance(v, dict) else v) for k, v in out.items()}}),
+        flush=True)
+    return out, other
+
+
 def main():
     try:
         import torch
@@ -7313,17 +7816,21 @@ def main():
     log('== phase 9(a): main path (the worker plane: a local worker '
         'cluster)')
     workers_local = phase_workers_local(torch, repo, make_env, learner)
-    log('== phase 9(b): main path (the worker plane: a training server and '
-        'a worker host over TCP, one gather killed)')
-    workers_remote = phase_workers_remote(torch, repo)
-    log('phase 9: %.1f s (%s)' % (time.monotonic() - t9, nvidia_smi_line()))
+    log('phase 9(a): %.1f s (%s)' % (time.monotonic() - t9,
+                                     nvidia_smi_line()))
 
+    # 9(b)'s processes run beside phase 10 (independent: free ports and
+    # the battle port), at once to fit the time limit
     t10 = time.monotonic()
+    log('== phase 9(b): main path (the worker plane: a training server and '
+        'a worker host over TCP, one gather killed), beside phase 10')
     log('== phase 10: main path (network battles and the registry:// and '
         'serve:// specs through python -m handyrl_tpu_torch)')
-    network = phase_network(torch, repo, make_env)
-    log('phase 10: %.1f s (%s)' % (time.monotonic() - t10,
-                                   nvidia_smi_line()))
+    workers_remote, network = concurrently(
+        lambda: phase_workers_remote(torch, repo),
+        lambda: phase_network(torch, repo, make_env))
+    log('phases 9(b) and 10: %.1f s (%s)' % (time.monotonic() - t10,
+                                             nvidia_smi_line()))
 
     t11 = time.monotonic()
     try:
@@ -7359,13 +7866,18 @@ def main():
     log('phase 16: %.1f s (%s)' % (time.monotonic() - t16,
                                    nvidia_smi_line()))
 
+    # phase 17 (the league) runs beside 18(c) and (d): independent
+    # learner processes, at once to fit the time limit
     t17 = time.monotonic()
-    log('== phase 17: the league on the worker plane and the device actor')
-    league_run = phase_league(torch, repo, make_env)
-    log('phase 17: %.1f s (%s)' % (time.monotonic() - t17,
-                                   nvidia_smi_line()))
+    log('== phase 17: the league on the worker plane and the device actor '
+        '(beside phase 18(c) and (d))')
+    engine, league_run = phase_engine(
+        torch, repo, GeeseNet, make_env, workers_local,
+        beside=lambda: phase_league(torch, repo, make_env))
+    log('phases 17 and 18: %.1f s (%s)' % (time.monotonic() - t17,
+                                           nvidia_smi_line()))
 
-    log('== phase 18: the kernels line')
+    log('== phase 19: the kernels line')
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -7460,6 +7972,19 @@ def main():
         paths['league_%s' % name] = counts
     paths['league_gather'] = league_run['gather_launches']
     paths['league_service'] = league_run['service_launches']
+    # phase 18: the engine runs' learners by their launch paths, their
+    # gathers' engines, their worker processes (nothing until a failover)
+    # and the service (fresh processes); (b)'s ticks in this process
+    for label in ('local', 'chaos', 'remote'):
+        part = engine[label]
+        for name, counts in part['kernel_launches'].items():
+            paths['engine_%s_%s' % (label, name)] = counts
+        paths['engine_%s_worker_processes' % label] = part[
+            'worker_kernel_launches']
+    paths['engine_local_gather'] = engine['local']['gather_launches']
+    paths['engine_chaos_gather'] = engine['chaos']['gather_launches']
+    paths['engine_remote_service'] = engine['remote']['service_launches']
+    paths['engine_buckets'] = engine['buckets']['launches']
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from
@@ -7487,7 +8012,11 @@ def main():
                               for n in SAVED_NS},
               device_ms={str(n): r['device_ms'] for n, r in rows.items()},
               sass_hmma=hmma.get('trunk_fwd_kernel<32,float>', 0),
-              op={str(n): r for n, r in branches['export']['op'].items()}),
+              op={str(n): r for n, r in branches['export']['op'].items()},
+              engine={'buckets': engine['local']['buckets'],
+                      'fill_ratio': engine['local']['fill_ratio'],
+                      'k1_per_net_ply': engine['local']['k1_per_net_ply'],
+                      'bucket_invariant': engine['buckets']['bitwise']}),
     ]
     # K2 as its two phases: each wrapper call launches each phase once
     notes = {'a': dict(plain_and_library_ms_are='of the whole K2'),

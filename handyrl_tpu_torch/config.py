@@ -3,21 +3,25 @@ the serving path and the local learner read, as plain dicts (the port
 parses no YAML; the learner's CLI reads JSON with the ``env_args`` and
 ``train_args`` blocks of ``config.yaml``).
 
-Differences from the JAX package: the inference engine runs on the device
-given to the service (``--device``, default 'cuda'), so
-``inference.engine_backend`` does not exist here, and the fleet, gateway,
-metrics-exporter and alert knobs wait for their modules. The learner's
+Differences from the JAX package: an inference engine runs on the device
+of its process (the service's ``--device``, a gather's ``worker.device``,
+default 'cuda'), so ``inference.engine_backend`` keeps its check ('cpu'
+or 'device') but does not move the engine: the JAX default 'cpu' never
+puts the port's engine on the host (ROADMAP.md §3). The serving fleet
+(``serving.fleet``), gateway, metrics-exporter and alert knobs wait for
+their modules. The learner's
 ``TRAIN_DEFAULTS`` hold the knobs of the local learner, of the fused
 device loop, of the worker plane (``batched_generation: false``,
-``worker``, ``fault_tolerance``, the gathers' ``generation`` backend;
-``WORKER_DEFAULTS`` for a worker host)
+``worker``, ``fault_tolerance``, the gathers' ``generation`` backend, the
+per-host inference engine's ``inference`` block and the workers'
+``serving.endpoint``; ``WORKER_DEFAULTS`` for a worker host)
 and of the run plane (``metrics_jsonl``, ``keep_checkpoints``,
 ``init_params``, ``guard.preempt_signals``, the publish hook's ``serving``
 block) and of the durable plane (``durability``, ``streaming`` with the
 IMPACT target network) and of the league (``league``: PFSP opponents
 over the registry, the rating book, rating-gated promotion), and
 :func:`validate` raises for anything this port does not run yet (mesh
-parallelism, the host inference engine, nets other than the ported ones)
+parallelism, the serving fleet, nets other than the ported ones)
 instead of ignoring it.
 Without ``env_args`` the env is TicTacToe, as in the JAX package.
 """
@@ -129,8 +133,29 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
         'check_episodes': True,    # drop episodes with non-finite data before they reach the buffer
         'preempt_signals': True,   # SIGTERM/SIGINT: flush a full checkpoint at the next safe point and exit 75 (restart into restart_epoch -1)
     },
-    # the learner's publish hook (the serving tier's registry)
+    # the per-host inference engine of a gather (inference.py:
+    # EngineSupervisor, EngineClient): workers hold no params and send
+    # their plies to one engine a host, which coalesces them into batched
+    # forwards on the gather's device (the worker plane only)
+    'inference': {
+        'enabled': False,         # route the workers' inference through their gather's engine
+        'batch_wait_ms': 2.0,     # coalescing deadline: how long the engine holds the oldest request while the batch fills (it dispatches early once every local worker has a request in flight)
+        'max_batch': 64,          # request cap per dispatched forward batch
+        'engine_backend': 'cpu',  # checked ('cpu' or 'device') as in the JAX package; the port's engine runs on worker.device (default 'cuda') for both
+        'vault_size': 3,          # materialized model snapshots cached (engine-side, and in a degraded worker's local vault)
+        'queue_max': 1024,        # bounded engine intake queue: submits past it are shed with an immediate error reply; 0 = unbounded
+        'stall_timeout': 30.0,    # watchdog: a busy engine with no tick progress for this long is declared stalled, its requests error-answered, and a fresh engine started
+        'restart_max_delay': 10.0,  # engine-restart backoff ceiling (s); the first restart after 0.5 s, doubling
+        'request_timeout': 10.0,  # a worker's deadline (s) on one engine round trip
+        'request_retries': 1,     # resends after a timeout before the worker gives up on the engine for that request
+        'failover': True,         # degrade to per-worker inference when the engine is unreachable (lossless: records stay byte-identical); False = raise, losing that episode
+        'reprobe_initial_delay': 2.0,  # circuit breaker: first half-open probe (s) after a degradation, doubling up to reprobe_max_delay
+        'reprobe_max_delay': 30.0,     # probe backoff ceiling (s)
+    },
+    # the learner's publish hook (the serving tier's registry) and the
+    # workers' remote service
     'serving': {
+        'endpoint': '',           # 'host:port' of an InferenceService (or a comma-separated list of replicas) that engine-mode workers dial instead of their gather's engine; a dead replica rotates to the next, and only with every one down does a worker degrade to its own forward
         'line': 'default',        # model line the publish hook registers versions on
         'registry_dir': '',       # ModelRegistry root; '' = model_dir
         'publish': False,         # register every numbered checkpoint as '<line>@<epoch>' (pinning it against keep_checkpoints GC)
@@ -139,7 +164,7 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
     # the gathers' actor engine (worker.py gather_loop, DeviceActorGather;
     # device_generation.DeviceActorEngine), read on the worker plane only
     'generation': {
-        'backend': '',            # '' = auto ('worker': the port has no host inference engine); 'worker' = per-worker stepping, 'device' = the fused rollout on the gather's card (envs with a tensor twin); 'engine' is not ported; a worker host overrides it with worker_args.backend
+        'backend': '',            # '' = auto ('engine' with inference.enabled, else 'worker'); 'worker' = per-worker stepping, 'engine' = the per-host inference engine on the gather's card, 'device' = the fused rollout on the gather's card (envs with a tensor twin); a worker host overrides it with worker_args.backend
         'device_actor_envs': 64,  # lanes of the device actor's chunk: one ledger task a lane
         'device_actor_chunk_steps': 16,  # plies of a chunk (one CUDA graph replay)
         'device_actor_slots': 2,  # stacked parameter slots of the chunk; pairings beyond them defer to the host fallback
@@ -202,19 +227,9 @@ WORKER_DEFAULTS: Dict[str, Any] = {
 NOT_PORTED_BLOCKS: Dict[str, tuple] = {
     'parallel': ('model_parallel', 'partition_rules'),
     'distributed': ('coordinator_address', 'num_processes', 'process_id'),
-    'inference': ('enabled',),
 }
-# what each of those planes is, where the block's name does not say it
-PLANE_NAMES = {
-    'inference': 'host inference engine (EngineClient, EngineSupervisor, '
-                 'RemoteModelCache)',
-}
-# the generation backends of a gather host: the port runs '', 'worker'
-# and 'device'
+# the generation backends of a gather host
 _BACKENDS = ('', 'worker', 'engine', 'device')
-_BACKENDS_PENDING = {
-    'engine': 'the per-host inference engine (EngineSupervisor)',
-}
 _RECORD_MODES = ('', 'strict', 'device')
 
 _ENV_KEYS = ('env', 'torus_impl', 'norm_kind', 'net_kind', 'policy_head',
@@ -277,7 +292,7 @@ def validate(args: Dict[str, Any]) -> None:
     extra = sorted(set(wa) - set(WORKER_DEFAULTS) - {'num_gathers'})
     _require(not extra, 'worker_args keys %s are not known to the port'
              % extra)
-    _validate_backend('worker_args.backend', wa.get('backend'), pending)
+    _validate_backend('worker_args.backend', wa.get('backend'))
     _require(int(wa.get('num_parallel', 1)) >= 1,
              'worker_args.num_parallel must be >= 1')
     _require(env.get('env') in _ENVS,
@@ -310,10 +325,10 @@ def validate(args: Dict[str, Any]) -> None:
         block = ta.get(key) or {}
         on = [k for k in switches if block.get(k)
               and not (k == 'model_parallel' and int(block[k]) == 1)]
-        _require(not on, 'train_args.%s.%s: the %s %s'
-                 % (key, on[0] if on else '',
-                    PLANE_NAMES.get(key, key + ' plane'), pending))
-    _validate_generation(ta, env, wa, pending)
+        _require(not on, 'train_args.%s.%s: the %s plane %s'
+                 % (key, on[0] if on else '', key, pending))
+    _validate_generation(ta, env, wa)
+    _validate_inference(ta)
     _require(isinstance(ta['batched_generation'], bool),
              'train_args.batched_generation must be true or false')
     # device_generation with batched_generation false (or --server) is the
@@ -345,6 +360,11 @@ def validate(args: Dict[str, Any]) -> None:
     _require(int(ta['keep_checkpoints'] or 0) >= 0,
              'keep_checkpoints must be >= 0 (0 keeps every checkpoint)')
     srv = ta['serving']
+    _require('fleet' not in srv, 'train_args.serving.fleet%s: the serving '
+             'fleet (ServiceResolver, the workers\' replica table through '
+             'EngineClient._refresh_endpoints) is not ported yet (ROADMAP.md '
+             '§1 item 3)' % ('.resolver' if (srv.get('fleet') or {})
+                             .get('resolver') else ''))
     extra = sorted(set(srv) - set(TRAIN_DEFAULTS['serving']))
     _require(not extra, 'serving keys %s: the learner\'s serving block '
              'takes %s; the service reads its own args (serving_args)'
@@ -432,16 +452,43 @@ def _validate_durable_plane(ta: Dict[str, Any]) -> None:
              'streaming.target_sync_epochs must be >= 1')
 
 
-def _validate_backend(key: str, backend, pending: str) -> None:
-    backend = str(backend or '')
-    _require(backend in _BACKENDS, '%s must be one of %s' % (key,
-                                                            _BACKENDS))
-    _require(backend not in _BACKENDS_PENDING, '%s %r: %s %s' % (
-        key, backend, _BACKENDS_PENDING.get(backend), pending))
+def _validate_backend(key: str, backend) -> None:
+    _require(str(backend or '') in _BACKENDS, '%s must be one of %s'
+             % (key, _BACKENDS))
+
+
+def _validate_inference(ta: Dict[str, Any]) -> None:
+    """The ``inference`` block and ``serving.endpoint``, with the JAX
+    package's checks (handyrl_tpu/config.py:445-460, :477-482)."""
+    inf = ta['inference']
+    _require(isinstance(inf, dict), 'inference must be a block of %s'
+             % ', '.join(TRAIN_DEFAULTS['inference']))
+    extra = sorted(set(inf) - set(TRAIN_DEFAULTS['inference']))
+    _require(not extra, 'train_args.inference keys %s are not known' % extra)
+    _require(str(inf['engine_backend']) in ('cpu', 'device'),
+             "inference.engine_backend must be 'cpu' or 'device'")
+    _require(float(inf['batch_wait_ms']) >= 0,
+             'inference.batch_wait_ms must be >= 0 (0 = dispatch immediately)')
+    _require(int(inf['max_batch']) >= 1, 'inference.max_batch must be >= 1')
+    _require(int(inf['vault_size']) >= 1, 'inference.vault_size must be >= 1')
+    _require(int(inf['queue_max']) >= 0,
+             'inference.queue_max must be >= 0 (0 = unbounded)')
+    _require(int(inf['request_retries']) >= 0,
+             'inference.request_retries must be >= 0')
+    for key in ('stall_timeout', 'restart_max_delay', 'request_timeout',
+                'reprobe_initial_delay', 'reprobe_max_delay'):
+        _require(inf[key] is None or float(inf[key]) > 0,
+                 'inference.%s must be > 0' % key)
+    endpoint = str(ta['serving']['endpoint'] or '')
+    for one in filter(None, (e.strip() for e in endpoint.split(','))):
+        _host, _, port = one.rpartition(':')
+        _require(port.isdigit() and 0 < int(port) <= 65535,
+                 "serving.endpoint entries must look like 'host:port' "
+                 '(got %r)' % one)
 
 
 def _validate_generation(ta: Dict[str, Any], env: Dict[str, Any],
-                         wa: Dict[str, Any], pending: str) -> None:
+                         wa: Dict[str, Any]) -> None:
     """The ``generation`` block, with the JAX package's checks
     (handyrl_tpu/config.py:568-577), and the device backend's need for a
     tensor twin of the env."""
@@ -449,8 +496,7 @@ def _validate_generation(ta: Dict[str, Any], env: Dict[str, Any],
     extra = sorted(set(gen) - set(TRAIN_DEFAULTS['generation']))
     _require(not extra, 'train_args.generation keys %s are not known'
              % extra)
-    _validate_backend('train_args.generation.backend', gen.get('backend'),
-                      pending)
+    _validate_backend('train_args.generation.backend', gen.get('backend'))
     for key in ('device_actor_envs', 'device_actor_chunk_steps',
                 'device_actor_slots'):
         _require(int(gen[key]) >= 1, 'train_args.generation.%s must be >= 1'

@@ -14,7 +14,9 @@ package's episode records: ``{'args', 'steps', 'outcome', 'moment': [bz2
 chunks]}`` with per-step moment dicts of 7 per-player entries and the turn
 list. The worker plane's :class:`Generator` plays one env a ply at a
 time, each acting seat through :func:`model_act` (the 8-row bucket of the
-batched forward), with draws keyed by the task's ``sample_key``.
+batched forward), with draws keyed by the task's ``sample_key``; with the
+per-host engine's handles (``act_send``) it submits every acting seat's
+request before it collects any reply.
 """
 
 from __future__ import annotations
@@ -118,6 +120,11 @@ def model_act(model, obs, hidden, legal_actions, seed_seq) -> Dict[str, Any]:
             'value': outputs.get('value'), 'hidden': outputs.get('hidden')}
 
 
+def bucket_rows(rows: int, min_bucket: int = 8) -> int:
+    """The power-of-two row bucket ``rows`` rows are padded to."""
+    return max(min_bucket, 1 << (rows - 1).bit_length())
+
+
 def pad_to_bucket(structures: list, min_bucket: int = 8):
     """Stack a list of pytrees row-wise and pad the row count to a
     power-of-two bucket (replicating row 0), so batches of any row count
@@ -125,8 +132,7 @@ def pad_to_bucket(structures: list, min_bucket: int = 8):
 
     Returns ``(padded_batch, true_rows)``."""
     rows = len(structures)
-    bucket = max(min_bucket, 1 << (rows - 1).bit_length())
-    pad = bucket - rows
+    pad = bucket_rows(rows, min_bucket) - rows
 
     def pad_rows(x):
         if pad == 0:
@@ -212,6 +218,14 @@ class Generator:
         self.namespace = int(namespace)
         self._local_episodes = 0
 
+    @staticmethod
+    def _record_act(moment: dict, player, hidden: dict, res: Dict[str, Any]):
+        hidden[player] = res.get('hidden', None)
+        moment['value'][player] = res.get('value', None)
+        moment['selected_prob'][player] = res['prob']
+        moment['action_mask'][player] = res['action_mask']
+        moment['action'][player] = res['action']
+
     def generate(self, models: Dict[int, Any], gen_args: Dict[str, Any],
                  emit=None) -> Optional[dict]:
         base_seed = self.args.get('seed', 0)
@@ -235,18 +249,29 @@ class Generator:
             moment = _blank_moment(self.env.players())
             turn_players = self.env.turns()
             observers = self.env.observers()
+            # the acting seats submit, then collect: an engine-mode model
+            # (``act_send``) has every simultaneous-turn request on the
+            # wire before any reply is read, so a worker's whole ply lands
+            # in one engine tick instead of one round trip a seat
+            pending = []   # (player, model, request id)
             for player in turn_players:
                 obs = self.env.observation(player)
                 moment['observation'][player] = obs
                 seed_seq = sample_seed(base_seed, episode_key, draws)
                 draws += 1
-                res = model_act(models[player], obs, hidden[player],
-                                self.env.legal_actions(player), seed_seq)
-                hidden[player] = res.get('hidden', None)
-                moment['value'][player] = res.get('value', None)
-                moment['selected_prob'][player] = res['prob']
-                moment['action_mask'][player] = res['action_mask']
-                moment['action'][player] = res['action']
+                legal = self.env.legal_actions(player)
+                submit = getattr(models[player], 'act_send', None)
+                if submit is not None:
+                    pending.append((player, models[player],
+                                    submit(obs, hidden[player], legal,
+                                           seed_seq)))
+                else:
+                    self._record_act(moment, player, hidden,
+                                     model_act(models[player], obs,
+                                               hidden[player], legal,
+                                               seed_seq))
+            for player, model, rid in pending:
+                self._record_act(moment, player, hidden, model.act_recv(rid))
 
             for player in observers:
                 if player in turn_players:

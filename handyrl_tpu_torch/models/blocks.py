@@ -116,8 +116,16 @@ def linear(layer: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
 
 def dense(x: torch.Tensor, kernel: torch.Tensor, dtype=None) -> torch.Tensor:
     """flax nn.Dense(use_bias=False, dtype=...) with a flax-layout kernel
-    (in, out): ``x @ kernel`` with both in ``dtype``."""
-    return _cast(x, dtype) @ _cast(kernel, dtype)
+    (in, out): ``x @ kernel`` with both in ``dtype``, written as a
+    broadcast product summed over ``in`` in fp32 (the products of the
+    cast operands are exact there) and rounded once to the operands'
+    dtype. A row's bits then do not depend on the rows beside it: cuBLAS
+    picks its GEMM by the row count, and on the H100 the Geese policy
+    head's rows in a 32- or 64-row batch came out up to 9.5e-7 off the
+    same rows in an 8-row one (ROADMAP.md §3 F7), where the per-host
+    engine's failover needs them equal."""
+    x, kernel = _cast(x, dtype), _cast(kernel, dtype)
+    return (x.float().unsqueeze(-1) * kernel.float()).sum(dim=-2).to(x.dtype)
 
 
 def _moments(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -32,15 +32,12 @@ import threading
 import time
 from typing import Any, Dict, Optional, Tuple
 
-import torch
-
 from .. import telemetry
 from ..connection import (FramedConnection, Hub, INFER_KIND, is_infer,
                           open_socket_connection)
 from ..guard import PREEMPT_EXIT_CODE, PreemptionGuard
 from ..model import fp32_on_card, resolve_device
 from .. import ops
-from ..ops import cuda_build
 from .client import SERVE_KIND, is_serve
 from .registry import ModelRegistry, RegistryError, parse_spec
 
@@ -117,13 +114,10 @@ class InferenceService:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> 'InferenceService':
-        from ..inference import InferenceEngine
-        if self.device.type == 'cuda':
-            # bring up the CUDA context and build/load every kernel before
-            # the listener opens, so that no request pays for either
-            torch.zeros((), device=self.device)
-            for name in cuda_build.SOURCES:
-                cuda_build.load(name)
+        from ..inference import InferenceEngine, warm_up
+        # the CUDA context and every kernel come up before the listener
+        # opens, so that no request pays for either
+        warm_up(self.device)
         self._sock = open_socket_connection(self.port, self.host)
         self._sock.listen(self.max_clients + 8)
         self._sock.settimeout(0.5)

@@ -161,7 +161,7 @@ from .utils.fs import (append_jsonl, atomic_write_bytes,
                        sidecar_path, verify_checkpoint)
 from .ops.device_windows import flatten_window_keys
 from .utils.tree import map_structure, map_zip
-from .worker import WorkerCluster, WorkerServer
+from .worker import WorkerCluster, WorkerServer, beacon_soft_faults
 
 _LOG = telemetry.get_logger('train')
 
@@ -977,6 +977,23 @@ class Trainer:
             self._ingest_call = None
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
+
+
+def record_soft_faults(fleet: FleetController, peer_info: Dict[Any, Any],
+                       host_of: Dict[Any, str], seen: Dict[Any, int]) -> None:
+    """The JAX learner's soft-fault rule (handyrl_tpu/train.py:3116-3135)
+    read from the port's beacons: each peer's engine restarts plus its
+    workers' failovers, as a delta over what ``seen`` holds of that
+    endpoint, become soft faults of its host. A count below the last one
+    is a restarted process: nothing is recorded, the count starts over."""
+    for ep, info in peer_info.items():
+        if not isinstance(info, dict) or ep not in host_of:
+            continue
+        cur = beacon_soft_faults(info)
+        prev = seen.get(ep, 0)
+        if cur > prev:
+            fleet.record_soft_fault(host_of[ep], cur - prev)
+        seen[ep] = cur
 
 
 class _EpochCadence:
@@ -2136,11 +2153,18 @@ class Learner:
                 fleet.observe(key)
             return key
 
+        fault_seen: Dict[Any, int] = {}    # endpoint -> soft faults seen
+
         def pump_fleet_health():
+            """Feed the controller: strandings from the ledger, soft faults
+            (engine restarts and worker failovers) from the deltas of the
+            peers' beacons, then the time- and drain-driven transitions."""
             for ep, _reason, _t in ledger.drain_stranding_events():
                 host = host_of.get(ep)
                 if host is not None:
                     fleet.record_stranding(host)
+            record_soft_faults(fleet, self.worker.peer_info(), host_of,
+                               fault_seen)
             outstanding: Dict[str, int] = {}
             for ep, n in ledger.outstanding_by_endpoint().items():
                 host = host_of.get(ep)
@@ -2181,6 +2205,7 @@ class Learner:
             pump_fleet_health()
             for ep in detached:       # after the stranding drain mapped them
                 host_of.pop(ep, None)
+                fault_seen.pop(ep, None)
             try:
                 conn, (req, data) = self.worker.recv(timeout=0.3)
             except queue.Empty:
@@ -2543,14 +2568,29 @@ class Learner:
             st['ply_seconds'] = (st['generation_seconds'] / st['plies']
                                  if st.get('plies') else None)
             st['device'] = b.get('device')
+            if b.get('engine_client'):
+                # engine mode: whether this worker failed over, and what
+                # it launched (nothing until it did)
+                st['engine_client'] = b['engine_client']
+                st['launches'] = b.get('launches')
             stats['%s/%s' % (wid, pid)] = st
+        gathers = self.worker.fleet_beacons()['gathers'].values()
         device_actor = [dict(g['device_actor'], gather=g.get('gather'),
                              pid=g.get('pid'))
-                        for g in self.worker.fleet_beacons()[
-                            'gathers'].values() if g.get('device_actor')]
+                        for g in gathers if g.get('device_actor')]
+        # the hosts' inference engines and their workers' clients
+        engines = [dict(g['engine'], gather=g.get('gather'), pid=g.get('pid'))
+                   for g in gathers if g.get('engine')]
+        clients: Dict[str, int] = {}
+        for b in workers.values():
+            for k, n in (b.get('engine_client') or {}).items():
+                if not isinstance(n, bool):
+                    clients[k] = clients.get(k, 0) + int(n)
         return {'generation': 'server' if self.remote else 'workers',
                 'stamped_episodes': self.stamped_episodes,
                 'device_actor': device_actor,
+                'engines': engines,
+                'engine_clients': clients,
                 'fleet': self._fleet_snapshot(),
                 'fleet_failure': self.fleet_failure,
                 'distinct_sample_keys': len(self._sample_keys),

@@ -14,12 +14,23 @@ either.
   :class:`~.evaluation.Evaluator`, on models materialized per id in a
   :class:`~.inference.ModelVault` on its device. Workers run on the card
   by default: every ply of a GeeseNet is one forward at the 8-row bucket
-  (kernel K1's serving form with ``torus_impl='pallas'``).
+  (kernel K1's serving form with ``torus_impl='pallas'``). In engine mode
+  (``inference.enabled``, or a gather backend of 'engine') a worker holds
+  no params and touches no card: its models are
+  :class:`~.inference.RemoteModel` handles whose plies its
+  :class:`~.inference.EngineClient` sends up the pipe (or to
+  ``serving.endpoint``), with deadlines and a failover to its own forward
+  on its device.
 * :class:`Gather`: the relay between about 16 workers and the learner. It
   prefetches task blocks, caches snapshots per id and ships uploads in
   batches; on a socket link it redials with backoff and resends what the
-  learner has not acknowledged, and beacons its stats. Gathers relay bytes
-  and never import torch.
+  learner has not acknowledged, and beacons its stats. A gather of the
+  per-worker backend relays bytes and never imports torch; in engine mode
+  it owns the host's card: an :class:`~.inference.EngineSupervisor` on
+  ``worker.device`` coalesces its workers' plies into batched forwards
+  (K1's serving form at the tick's bucket), its snapshots fetched over the
+  same server link as the task RPCs (one lock serializes them). With
+  ``serving.endpoint`` set it runs no engine.
 * :class:`DeviceActorGather` (``generation.backend`` or a host's
   ``worker_args.backend`` 'device'): a gather with no workers that plays
   its task blocks as lanes of one fused rollout on its card
@@ -48,8 +59,10 @@ redial (``RESUME_KIND``): a restarted learner of the same run answers ok
 and the gather reattaches in place, its unacknowledged uploads resent; a
 learner of another run refuses and the gather exits for a cold respawn.
 
-The per-host inference engine of the JAX package is not ported yet
-(ROADMAP.md); the config refuses it.
+A gather's beacon carries its engine's counts (requests, batches, fill
+ratio, sheds, restarts by reason, the buckets K1 ran at), a worker's its
+client's (timeouts, errors, failovers, re-promotions, local inferences,
+stale replies).
 """
 
 from __future__ import annotations
@@ -69,7 +82,8 @@ from socket import gethostname
 from typing import Any, Dict, Iterable, List, Optional
 
 from . import telemetry
-from .connection import (HEARTBEAT_KIND, RESUME_KIND, Hub, _bare_main,
+from .connection import (HEARTBEAT_KIND, INFER_KIND, RESUME_KIND, Hub,
+                         _bare_main,
                          accept_socket_connections, child_environ,
                          connect_socket_connection, send_recv,
                          spawn_pipe_workers)
@@ -102,13 +116,14 @@ class Worker:
     """One actor process: loops task requests over the 4-RPC protocol and
     plays generation ('g') or evaluation ('e') assignments on
     ``args['worker']['device']`` (default 'cuda'; without CUDA it raises
-    and the process exits non-zero)."""
+    and the process exits non-zero). In engine mode its forwards run on
+    its gather's engine and on this device only after a failover."""
 
     def __init__(self, args: Dict[str, Any], conn, wid: int):
         from .environment import make_env
         from .evaluation import Evaluator
         from .generation import Generator
-        from .inference import ModelVault
+        from .inference import EngineClient, ModelVault, RemoteModelCache
         from .model import fp32_on_card, resolve_device
         self.device = resolve_device(args['worker'].get('device', 'cuda'))
         fp32_on_card(self.device)
@@ -122,12 +137,20 @@ class Worker:
         self._hb_interval = float(ft.get('heartbeat_interval', 10.0))
         self._hb_next = time.time() + self._hb_interval
         self._hb_seq = 0
-        self.env.reset()
-        example_obs = self.env.observation(self.env.players()[0])
-        self.vault = ModelVault(
-            lambda mid: send_recv(conn, ('model', mid)), example_obs,
-            capacity=int((args.get('inference') or {}).get('vault_size', 3)),
-            device=self.device)
+        inf = args.get('inference') or {}
+        self.client: Optional[EngineClient] = None
+        if inf.get('enabled'):
+            # engine mode: no params here; the client owns the deadlines
+            # and the failover to this process's own forward (its vault
+            # then fetches snapshots through the same 'model' RPC)
+            self.client = EngineClient(conn, args, namespace=wid)
+            self.vault = RemoteModelCache(self.client)
+        else:
+            self.env.reset()
+            example_obs = self.env.observation(self.env.players()[0])
+            self.vault = ModelVault(
+                lambda mid: send_recv(conn, ('model', mid)), example_obs,
+                capacity=int(inf.get('vault_size', 3)), device=self.device)
         generator = Generator(self.env, args, namespace=wid)
         evaluator = Evaluator(self.env, args, device=self.device)
         # role -> (episode producer, upload RPC name)
@@ -141,7 +164,7 @@ class Worker:
             self.playbook['g'] = (
                 lambda models, task: generator.execute(
                     models, task,
-                    emit=lambda c: send_recv(self.conn, ('chunk', c))),
+                    emit=lambda c: self._rpc(('chunk', c))),
                 'episode')
         # what the beacons report: tasks by role; the plies and seconds of
         # generation played by a net and by model id 0 (the RandomModel:
@@ -153,12 +176,25 @@ class Worker:
                       'evaluation_seconds': 0.0, 'model_seconds': 0.0}
 
     def beacon(self) -> Dict[str, Any]:
-        """This process's kernel launches and play stats."""
+        """This process's kernel launches and play stats (and in engine
+        mode its client's counts)."""
         from .ops import kernel_launches
         self._hb_seq += 1
-        return {'worker': self.worker_id, 'pid': os.getpid(),
+        info = {'worker': self.worker_id, 'pid': os.getpid(),
                 'seq': self._hb_seq, 'device': str(self.device),
                 'launches': kernel_launches(), 'stats': dict(self.stats)}
+        if self.client is not None:
+            info['engine_client'] = dict(self.client.stats,
+                                         engine_ok=self.client.engine_ok)
+        return info
+
+    def _rpc(self, msg):
+        """One call-response on the gather pipe; in engine mode through the
+        client, which absorbs a late inference reply instead of taking it
+        for this RPC's answer."""
+        if self.client is not None:
+            return self.client.rpc(msg)
+        return send_recv(self.conn, msg)
 
     def _maybe_heartbeat(self, final: bool = False):
         now = time.time()
@@ -184,7 +220,7 @@ class Worker:
                 os._exit(17)
             try:
                 self._maybe_heartbeat()
-                task = send_recv(self.conn, ('args', None))
+                task = self._rpc(('args', None))
                 if task is None:   # the run is over: the last beacon
                     self._maybe_heartbeat(final=True)
                     return
@@ -213,8 +249,7 @@ class Worker:
             self.stats['model_seconds'] += t1 - t0
             dt = time.perf_counter() - t1
             if task['role'] == 'g':
-                net = any(m is not None and hasattr(m, 'batch_inference')
-                          for m in models.values())
+                net = any(_plays_a_net(m) for m in models.values())
                 self.stats['generation_seconds' if net
                            else 'random_seconds'] += dt
                 if payload is not None:
@@ -227,13 +262,23 @@ class Worker:
             if isinstance(payload, dict) and payload.get('streamed'):
                 continue   # every window already rode the pipe
             try:
-                send_recv(self.conn, (upload_as, payload))
+                self._rpc((upload_as, payload))
             except _CONN_ERRORS:
                 self._gather_lost()
                 return
 
     def _gather_lost(self):
         _LOG.warning('worker %d: lost its gather; exiting', self.worker_id)
+
+
+def _plays_a_net(model) -> bool:
+    """Whether a seat's model runs a forward: a materialized net, or an
+    engine handle of any id but 0 (the RandomModel)."""
+    if model is None:
+        return False
+    if hasattr(model, 'batch_inference'):
+        return True
+    return getattr(model, 'model_id', 0) != 0
 
 
 def open_worker(args, conn, wid):
@@ -260,6 +305,16 @@ def latest_beacons(infos: Iterable[Any], key: str) -> Dict[tuple, dict]:
         if k not in out or info.get('seq', 0) >= out[k].get('seq', 0):
             out[k] = info
     return out
+
+
+def beacon_soft_faults(info: Dict[str, Any]) -> int:
+    """A gather beacon's soft faults: its engine's restarts and its
+    workers' failovers to their own forward, each a count that only
+    grows while the processes live."""
+    faults = int((info.get('engine') or {}).get('restarts', 0))
+    for w in info.get('workers') or ():
+        faults += int((w.get('engine_client') or {}).get('failovers', 0))
+    return faults
 
 
 class Gather:
@@ -322,7 +377,30 @@ class Gather:
         def worker_args(i, child_conn):
             return (args, child_conn, first_wid + i * n_relays + gather_id)
 
+        # the engine thread fetches snapshots through the same server link
+        # as the main loop's RPCs: one lock keeps their frames apart
+        self._rpc_lock = threading.RLock()
         self.hub = Hub()
+        self.engine = None
+        inf = args.get('inference') or {}
+        endpoint = (args.get('serving') or {}).get('endpoint')
+        if inf.get('enabled') and endpoint:
+            # the workers dial the service themselves; the 'model' RPC
+            # stays for a degraded worker
+            _LOG.info('gather %d: inference routed to the service at %s; '
+                      'no local engine', gather_id, endpoint)
+        elif inf.get('enabled'):
+            from .inference import EngineSupervisor, warm_up
+            from .model import fp32_on_card, resolve_device
+            device = resolve_device(args['worker'].get('device', 'cuda'))
+            fp32_on_card(device)
+            warm_up(device)
+            self.engine = EngineSupervisor(
+                args, fetch_snapshot=self._snapshot,
+                reply_fn=lambda ep, msg: self.hub.send(ep, (INFER_KIND, msg)),
+                clients=n_here, device=device)
+            _LOG.info('gather %d: inference engine on %s for %d workers',
+                      gather_id, device, n_here)
         self.workers = spawn_pipe_workers(n_here, open_worker, worker_args,
                                           env=CHILD_ENV)
         for _, ep in self.workers:
@@ -345,9 +423,14 @@ class Gather:
         if self.hub is not None:
             infos = (list(self.hub.peer_info_snapshot().values())
                      + list(self.hub.departed_peer_info().values()))
-        return {'gather': self.gather_id, 'pid': os.getpid(),
+        info = {'gather': self.gather_id, 'pid': os.getpid(),
                 'seq': self._hb_seq, **self.stats,
                 'workers': list(latest_beacons(infos, 'worker').values())}
+        engine = getattr(self, 'engine', None)
+        if engine is not None:
+            from .ops import kernel_launches
+            info['engine'] = dict(engine.stats(), launches=kernel_launches())
+        return info
 
     def _heartbeat_loop(self):
         """One-way beacons, sent even while the main loop blocks inside a
@@ -360,7 +443,8 @@ class Gather:
                 pass   # the RPC path owns failure handling and reconnect
 
     def _recover(self, exc: Exception):
-        """Redial the data port with exponential backoff and jitter."""
+        """Redial the data port with exponential backoff and jitter; runs
+        inside :meth:`_server_rpc`, under ``_rpc_lock``."""
         _LOG.warning('gather %d: server link lost (%s: %s); reconnecting',
                      self.gather_id, type(exc).__name__, str(exc)[:120])
         try:
@@ -422,16 +506,19 @@ class Gather:
 
     def _server_rpc(self, msg):
         """send_recv with supervised reconnect: the request is resent on
-        the fresh link (the server drops a duplicate by task_id). The
+        the fresh link (the server drops a duplicate by task_id). Under
+        ``_rpc_lock``: the engine thread's snapshot fetches share the link,
+        and two interleaved call-responses would cross their replies. The
         beacon thread's sends interleave whole frames
         (``FramedConnection.send`` locks)."""
-        while True:
-            try:
-                return send_recv(self.server, msg)
-            except _CONN_ERRORS as exc:
-                if self._reconnect_fn is None:   # a pipe: unrecoverable
-                    raise
-                self._recover(exc)
+        with self._rpc_lock:
+            while True:
+                try:
+                    return send_recv(self.server, msg)
+                except _CONN_ERRORS as exc:
+                    if self._reconnect_fn is None:   # a pipe: unrecoverable
+                        raise
+                    self._recover(exc)
 
     # -- per-RPC handling --
 
@@ -443,13 +530,15 @@ class Gather:
 
     def _snapshot(self, mid):
         """Per-id snapshot LRU: one epoch's params an entry, bounded (the
-        epoch grows for the life of the run)."""
-        if mid not in self._snap_cache:
-            while len(self._snap_cache) >= self.SNAP_SLOTS:
-                self._snap_cache.popitem(last=False)
-            self._snap_cache[mid] = self._server_rpc(('model', mid))
-        self._snap_cache.move_to_end(mid)
-        return self._snap_cache[mid]
+        epoch grows for the life of the run). Serves the workers' 'model'
+        RPCs and the engine thread's fetches, under ``_rpc_lock``."""
+        with self._rpc_lock:
+            if mid not in self._snap_cache:
+                while len(self._snap_cache) >= self.SNAP_SLOTS:
+                    self._snap_cache.popitem(last=False)
+                self._snap_cache[mid] = self._server_rpc(('model', mid))
+            self._snap_cache.move_to_end(mid)
+            return self._snap_cache[mid]
 
     def _ship(self, kind: str):
         self._server_rpc((kind, self._upload_box[kind]))
@@ -485,6 +574,13 @@ class Gather:
                 self.hub.send(ep, task)
             elif kind == 'model':
                 self.hub.send(ep, self._snapshot(body))
+            elif kind == INFER_KIND:
+                if self.engine is None:
+                    self.hub.send(ep, (INFER_KIND, {
+                        'rid': (body or {}).get('rid'), 'engine_fault': True,
+                        'error': 'inference engine disabled on this host'}))
+                else:
+                    self.engine.submit(ep, body)
             else:
                 self.hub.send(ep, None)       # ack now, ship in bulk later
                 self._stash_upload(kind, body)
@@ -502,12 +598,15 @@ class Gather:
             proc.join(5.0)
 
     def _flush_and_beacon(self):
-        """The relay's end: ship the last partial upload block and send a
-        last beacon, so the learner sees this relay's complete counts."""
+        """The relay's end: ship the last partial upload block, stop the
+        engine and send a last beacon, so the learner sees this relay's
+        complete counts."""
         for kind in list(self._upload_box):
             if self._upload_box[kind]:
                 self._ship(kind)
         self._upload_box.clear()
+        if self.engine is not None:
+            self.engine.stop()
         try:
             self.server.send((HEARTBEAT_KIND, self.beacon()))
         except Exception:
@@ -515,14 +614,13 @@ class Gather:
 
 
 def resolve_generation_backend(args: Dict[str, Any]) -> str:
-    """The actor engine of a gather host: 'worker' (per-worker inference)
-    or 'device' (the fused rollout on the gather's card,
+    """The actor engine of a gather host: 'worker' (per-worker inference),
+    'engine' (the per-host :class:`~.inference.EngineSupervisor` on the
+    gather's card) or 'device' (the fused rollout on the gather's card,
     :class:`DeviceActorGather`). A host's ``worker_args.backend`` (riding
     the entry handshake) wins over the training config's
-    ``generation.backend``; with neither set, the JAX package's auto rule
-    picks 'engine' when the inference block is on, else 'worker' (the
-    port refuses ``inference.enabled`` and 'engine' in ``config.validate``,
-    so its auto backend is 'worker')."""
+    ``generation.backend``; with neither set, 'engine' when the inference
+    block is on, else 'worker' (the JAX package's rule)."""
     backend = str((args.get('worker') or {}).get('backend') or ''
                   ) or str((args.get('generation') or {}).get('backend')
                            or '')
@@ -562,6 +660,8 @@ class DeviceActorGather(Gather):
         fp32_on_card(self.device)
         doctored = dict(args)
         doctored['worker'] = dict(args['worker'], num_parallel=0)
+        doctored['inference'] = dict(args.get('inference') or {},
+                                     enabled=False)
         super().__init__(doctored, server_conn, gather_id,
                          reconnect=reconnect)
         gen = args.get('generation') or {}
@@ -573,7 +673,7 @@ class DeviceActorGather(Gather):
         example_obs = self.host_env.observation(self.host_env.players()[0])
         self.vault = ModelVault(self._snapshot, example_obs,
                                 capacity=slots + 2, device=self.device)
-        self.engine = DeviceActorEngine(
+        self.device_engine = DeviceActorEngine(
             make_device_env(args['env']), self.vault, self.host_env, args,
             n_envs=n_envs,
             chunk_steps=int(gen.get('device_actor_chunk_steps', 16)),
@@ -584,7 +684,7 @@ class DeviceActorGather(Gather):
         if (args.get('streaming') or {}).get('enabled'):
             # streamed windows ride the upload box like whole episodes (the
             # resend buffer, the reconnect replay and the last flush)
-            self.engine.emit = lambda c: self._stash_upload('chunk', c)
+            self.device_engine.emit = lambda c: self._stash_upload('chunk', c)
         self._fallback_gen = Generator(self.host_env, args,
                                        namespace=gather_id)
         self._fallback_eval = Evaluator(self.host_env, args,
@@ -593,12 +693,12 @@ class DeviceActorGather(Gather):
         self.stats['host_failures'] = 0
         _LOG.info('gather %d: device actor backend on %s (%d lanes, %d '
                   'slots, %s records)', gather_id, self.device, n_envs,
-                  slots, self.engine.record_mode)
+                  slots, self.device_engine.record_mode)
 
     def beacon(self) -> Dict[str, Any]:
         from .ops import kernel_launches
         info = super().beacon()
-        eng = getattr(self, 'engine', None)
+        eng = getattr(self, 'device_engine', None)
         if eng is None:           # a beacon before the engine was built
             return info
         info['device_actor'] = dict(
@@ -614,7 +714,7 @@ class DeviceActorGather(Gather):
     def _collect_block(self):
         """Pull up to one lane-count of tasks; returns (tasks, stop)."""
         tasks: List[dict] = []
-        while len(tasks) < self.engine.n_envs:
+        while len(tasks) < self.device_engine.n_envs:
             task = self._next_task()
             if task is None:
                 return tasks, True
@@ -650,7 +750,7 @@ class DeviceActorGather(Gather):
         while True:
             tasks, stop = self._collect_block()
             if tasks:
-                uploads, deferred = self.engine.run_block(tasks)
+                uploads, deferred = self.device_engine.run_block(tasks)
                 for kind, payload in uploads:
                     self._stash_upload(kind, payload)
                 for task in deferred:
@@ -664,12 +764,20 @@ def gather_loop(args, conn, gather_id, server_address=None):
     """A gather process's entry point: pipe mode (``conn`` given) or
     socket mode (it dials ``server_address``'s data port itself). The
     backend ``resolve_generation_backend`` names picks the relay: a
-    :class:`Gather` of worker processes, or a :class:`DeviceActorGather`.
-    Exits 1 when every worker was lost before the run ended."""
+    :class:`Gather` of worker processes (with the host's inference engine
+    for 'engine'), or a :class:`DeviceActorGather`; a host's backend turns
+    the inference block on or off to match. Exits 1 when every worker was
+    lost before the run ended."""
     backend = resolve_generation_backend(args)
-    if backend not in ('worker', 'device'):
-        raise ValueError('generation backend %r is not ported yet '
-                         '(ROADMAP.md)' % backend)
+    if backend not in ('worker', 'engine', 'device'):
+        raise ValueError('generation backend %r is unknown' % backend)
+    inf = args.get('inference') or {}
+    if backend == 'worker' and inf.get('enabled'):
+        # a host's override demoted this gather to plain workers: they
+        # materialize their own params instead of dialing an engine
+        args = dict(args, inference=dict(inf, enabled=False))
+    elif backend == 'engine' and not inf.get('enabled'):
+        args = dict(args, inference=dict(inf, enabled=True))
     reconnect = None
     if server_address:
         def reconnect():
@@ -679,6 +787,9 @@ def gather_loop(args, conn, gather_id, server_address=None):
         torch.set_num_threads(1)
         DeviceActorGather(args, conn, gather_id, reconnect=reconnect).run()
         return
+    if backend == 'engine':
+        import torch
+        torch.set_num_threads(1)
     gather = Gather(args, conn, gather_id, reconnect=reconnect)
     try:
         gather.run()
@@ -728,6 +839,10 @@ class WorkerCluster:
 
     def drain_detach_events(self):
         return self.hub.drain_detach_events()
+
+    def peer_info(self) -> Dict[Any, Any]:
+        """The newest beacon of each live peer, by endpoint."""
+        return self.hub.peer_info_snapshot()
 
     def fleet_beacons(self) -> Dict[str, Dict[tuple, dict]]:
         """The newest beacon of every gather and of every worker process
@@ -987,13 +1102,15 @@ def main(argv=None) -> int:
     ap.add_argument('--config', required=True,
                     help='JSON file with env_args, train_args and '
                     "worker_args (server_address, num_parallel; backend "
-                    "'device' for device actor gathers)")
+                    "'engine' for the host's inference engine, 'device' for "
+                    "device actor gathers)")
     ap.add_argument('num_parallel', nargs='?', type=int, default=None,
                     help='worker processes on this host (default: '
                     'worker_args.num_parallel)')
     ap.add_argument('--device', default='cuda',
                     help="'cuda' (default) or 'cpu': where this host's "
-                    'workers (or device actor gathers) run their models')
+                    'workers (or its gathers\' engines, or device actor '
+                    'gathers) run their models')
     a = ap.parse_args(argv)
     with open(a.config) as f:
         args = apply_defaults(json.load(f))

@@ -212,13 +212,20 @@ def test_cli_without_cuda_raises_on_the_device_path(tmp_path):
 
 @pytest.mark.parametrize('env_args,train_args,key', [
     # every combination of the switches runs (on the worker plane the
-    # gathers' backend, 'device' included); the planes the port lacks and
-    # the device actor's knobs out of range are refused
-    ({}, {'device_generation': True, 'batched_generation': False,
-          'generation': {'backend': 'engine'}}, 'EngineSupervisor'),
-    ({}, {'device_generation': True, 'device_replay': True,
-          'fused_pipeline': False, 'batched_generation': False,
-          'inference': {'enabled': True}}, 'host inference engine'),
+    # gathers' backend, 'engine' and 'device' included); the planes the
+    # port lacks, the engine's and the device actor's knobs out of range
+    # are refused
+    pytest.param({}, {'device_generation': True, 'batched_generation': False,
+                      'generation': {'backend': 'engine'},
+                      'inference': {'stall_timeout': 0}},
+                 'inference.stall_timeout',
+                 id='env_args0-train_args0-EngineSupervisor'),
+    pytest.param({}, {'device_generation': True, 'device_replay': True,
+                      'fused_pipeline': False, 'batched_generation': False,
+                      'inference': {'enabled': True},
+                      'serving': {'fleet': {'resolver': 'localhost:9000'}}},
+                 'serving.fleet.resolver',
+                 id='env_args1-train_args1-host inference engine'),
     ({}, {'device_generation': True, 'generation': {'backend': 'device',
                                                    'device_actor_slots': 0}},
      'device_actor_slots'),

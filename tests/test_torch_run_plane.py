@@ -133,7 +133,8 @@ def test_run_plane_keys_take_the_jax_defaults():
         'serving': {'publish': True, 'line': 'geese',
                     'registry_dir': 'reg'}}})['train_args']
     assert over['serving'] == {'publish': True, 'line': 'geese',
-                               'registry_dir': 'reg', 'auto_promote': True}
+                               'registry_dir': 'reg', 'auto_promote': True,
+                               'endpoint': ''}
     assert over['guard']['preempt_signals'] is False
     assert over['guard']['nonfinite_policy'] == 'rollback'
 

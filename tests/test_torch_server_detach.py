@@ -66,6 +66,9 @@ class _Hub:
         events, self.events = self.events, []
         return events
 
+    def peer_info(self):
+        return {}    # no beacons: no soft faults
+
     def recv(self, timeout=None):
         return self.inbox.get(timeout=timeout)
 

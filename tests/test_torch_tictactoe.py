@@ -223,24 +223,25 @@ def test_config_defaults_to_tictactoe_like_the_reference():
 
 @pytest.mark.parametrize('train_args,missing', [
     ({'device_generation': True, 'batched_generation': False,
-      'generation': {'backend': 'engine'}}, ('EngineSupervisor',
-                                             'not ported')),
+      'generation': {'backend': 'engine'},
+      'serving': {'fleet': {'resolver': 'localhost:9000'}}},
+     ('serving.fleet.resolver', 'not ported', 'item 3')),
     ({'device_generation': True, 'device_replay': True,
       'generation': {'backend': 'device'}, 'league': {'enabled': True}},
      ('league.enabled requires serving.publish',)),
     ({'device_generation': True, 'device_replay': True,
       'fused_pipeline': False, 'batched_generation': False,
-      'inference': {'enabled': True}}, ('host inference engine',
-                                        'not ported')),
+      'inference': {'enabled': True, 'engine_backend': 'tpu'}},
+     ("inference.engine_backend must be 'cpu' or 'device'",)),
 ], ids=['train_args0-EngineSupervisor', 'train_args1-league',
         'train_args2-inference'])
 def test_tictactoe_on_the_device_path_names_what_is_missing(train_args,
                                                             missing):
     """TicTacToe runs the fused loop in the 'turn' layout, every other
-    device combination and the device actor backend; the planes the JAX
-    package has and the port not yet (the per-host inference engine)
-    still raise, naming them, as does the league without the registry it
-    draws from."""
+    device combination, the device actor and engine backends; the planes
+    the JAX package has and the port not yet (the serving fleet's
+    resolver) still raise, naming them, as do the league without the
+    registry it draws from and an engine backend the JAX config refuses."""
     with pytest.raises(ConfigError) as exc:
         apply_defaults({'env_args': {'env': 'TicTacToe'},
                         'train_args': train_args})

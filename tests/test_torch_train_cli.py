@@ -129,8 +129,14 @@ def test_cli_without_cuda_raises(tmp_path):
                             'batched_generation': False,
                             'generation': {'device_actor_record': 'exact'}},
      'device_actor_record'),
-    ({}, {'inference': {'enabled': True}}, 'host inference engine'),
-    ({}, {'generation': {'backend': 'engine'}}, 'inference engine'),
+    pytest.param({}, {'inference': {'enabled': True,
+                                    'engine_backend': 'gpu'}},
+                 'inference.engine_backend',
+                 id='env_args13-train_args13-host inference engine'),
+    pytest.param({}, {'generation': {'backend': 'engine'},
+                      'serving': {'fleet': {'resolver': 'localhost:9000'}}},
+                 'serving.fleet.resolver',
+                 id='env_args14-train_args14-inference engine'),
     ({}, {'generation': {'backend': 'gpu'}}, 'generation.backend'),
     ({}, {'batched_generation': False, 'worker': {'num_parallel': 0}},
      'num_parallel'),
@@ -145,7 +151,10 @@ def test_validate_rejects_what_the_slice_does_not_run(env_args, train_args,
 
 
 @pytest.mark.parametrize('backend,key', [
-    ('gpu', 'worker_args.backend'), ('engine', 'inference engine'),
+    ('gpu', 'worker_args.backend'),
+    # backends are names: 'engine' runs, a misspelt one is refused
+    pytest.param('Engine', 'worker_args.backend',
+                 id='engine-inference engine'),
     ('tpu', 'worker_args.backend')])
 def test_validate_rejects_a_worker_host_backend_it_lacks(backend, key):
     with pytest.raises(ConfigError, match=key):
