@@ -7,8 +7,9 @@ non-zero, printing no result, when either is missing or any phase fails.
 To fit its time, the learner processes of 9(b) with phase 10, of
 11(a)-(c) with 11(d)'s export, of 12(c) and (d), of 13(a), of 13(b), of
 14(b)/(c) and 14(f), of 16(a) and (b), and of phase 17 with 18(c) and (d)
-run at once (each part still checks its own run; their rates and 16(a)'s
-MTTR share the host and the card).
+run at once, and phase 19's fleet and gateway beside phases 16, 17 and 18
+(each part still checks its own run; their rates, 16(a)'s MTTR and 19's
+latencies share the host and the card).
 
 1. Prints the card (name and power limit from nvidia-smi), the torch and
    CUDA versions, and builds every CUDA kernel of the port from the
@@ -464,7 +465,33 @@ MTTR share the host and the card).
    through ``serving.endpoint``: the service launches K1 and exits 75 on
    SIGTERM, no engine in the gather, the workers launch nothing until a
    failover and re-promote. Prints one ``{"phase18": ...}`` JSON line.
-19. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, their bf16
+19. The serving fleet and the match gateway (FLEET_*, GW_*), through
+   ``python -m handyrl_tpu_torch --serve-fleet`` and ``--gateway``. In
+   this process first: a temporary registry with two seeded full-width
+   GeeseNet versions (``torus_impl='pallas'``) on 'default' and a
+   GeeseNetLSTM on 'lstm', each request's reference reply (``model_act``
+   on the card), and (c)'s first part: GeeseNetLSTM's rows in engine ticks
+   of LSTM_BUCKETS rows against ``model_act`` at 8, bit for bit (F8,
+   repaired by ``models.blocks.row_blocks``). Then, beside phases 16, 17
+   and 18 (it runs before them): (a) the fleet with 2 managed replicas on the card: every
+   replica answers the references bit for bit; p50/p99 of FLEET_LATENCY
+   requests one at a time; a burst of FLEET_BURST requests steered to one
+   replica, SIGKILLed with the burst in flight: every reply the
+   reference's bits, no client error, at least one replay; its respawn
+   under its old name back to healthy (seconds printed) and answering the
+   same bits; p50/p99 again; a rolling promote to version 2 warmed by
+   both replicas before the flip, then version 2's bits; each replica's
+   K1 launches equal to its engine's forwards (every forward K1's serving
+   form). (b) ``--gateway`` over the fleet: GW_SESSIONS Hungry Geese
+   sessions against ``default@champion``, held after GW_HOLD plies, the
+   replica holding most SIGKILLed, released once the gateway rebuilt
+   every stranded session from its journal: every match to its outcome,
+   at least one rebuild, no mismatch, no drop, the respawn awaited. (c)
+   The same with GW_LSTM_SESSIONS GeeseNetLSTM sessions (non-empty hidden
+   cache and digest), the respawn not awaited (the drain follows). Every outcome in the RatingBook's journal; SIGTERM
+   drains the gateway and the fleet to 75. Prints one ``{"phase19":
+   ...}`` JSON line (latencies, respawn seconds, matches/s, plies replayed).
+20. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, their bf16
    forms as rows of their own, K3-K5; K2a and K2b take their launches
    from K2's count, one of each a call, the bf16 rows from K2-bf16's; the
    fused loop's under ``learner_fused_*``, 5(b)'s under
@@ -493,8 +520,10 @@ MTTR share the host and the card).
    ``league_gather`` and ``league_service``, phase 18's under
    ``engine_{local,chaos,remote}_*`` (the learners and their worker
    processes), ``engine_{local,chaos}_gather``, ``engine_remote_service``
-   and ``engine_buckets``; K1's row also holds the operator's checks and
-   the engine's buckets),
+   and ``engine_buckets``, phase 19's replica processes under
+   ``fleet_<replica>_pid<pid>`` (each process's last status reply, before
+   its kill or the drain); K1's row also holds the operator's checks, the
+   engine's buckets and the fleet's K1 by replica),
    the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -602,6 +631,30 @@ def concurrently(*fns):
         if exc is not None:
             raise exc
     return results
+
+
+def in_background(fn):
+    """Start ``fn`` (a part that waits on processes of its own and does no
+    CUDA work in this process) in a thread; returns ``join``, which waits
+    for it and returns its result or raises its failure (``fail`` exits
+    through SystemExit)."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box['result'] = fn()
+        except BaseException as exc:
+            box['error'] = exc
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def join():
+        thread.join()
+        if 'error' in box:
+            raise box['error']
+        return box['result']
+    return join
 
 
 def nvidia_smi_line():
@@ -1945,7 +1998,7 @@ def phase_learner_shm(torch, repo, make_env, bench_line, threaded):
 # VTRACE/VTRACE, 64 generation envs, 32-ply chunks, 32 eval envs, 64 SGD
 # steps a chunk; 200 episodes before the first epoch and 100 an epoch,
 # checkpoint files every 10 epochs and at the last, a metrics row an epoch
-FUSED_EPOCHS = 170
+FUSED_EPOCHS = 120       # 170 until phase 19 needed the time (PERF.md §4)
 FUSED_K = 64
 FUSED_INTERVAL = 10
 FUSED_CONFIG = {
@@ -2477,7 +2530,7 @@ def phase_fused(torch, repo, make_env, learner_line, tmp):
 # slow test: over the last QUICK_LAST epochs at least QUICK_MIN_RESULTS
 # evaluation results and a win rate above QUICK_MIN_WIN_RATE.
 QUICK_CONFIG = 'tictactoe.json'
-QUICK_EPOCHS = 10       # 15 until phase 18 needed the time (PERF.md §4)
+QUICK_EPOCHS = 8        # 15 until phase 18, 10 until phase 19 (PERF.md §4)
 QUICK_LAST = 5
 QUICK_MIN_RESULTS, QUICK_MIN_WIN_RATE = 80, 0.6
 QUICK_GAMES, QUICK_PROCS = 100, 4
@@ -7717,6 +7770,518 @@ def phase_engine(torch, repo, GeeseNet, make_env, workers_local,
     return out, other
 
 
+# ------------------------------------------------------- phase 19 (fleet)
+
+LSTM_BUCKETS = (1, 8, 32, 64)   # engine ticks held against model_act at 8
+# (a) the serving fleet: 2 managed replicas (the JAX default) heartbeating
+# every 0.5 s (the JAX 2 s, cut so that a drain is seen sooner; the JAX
+# heartbeat_timeout 10 s stands); a burst of FLEET_BURST requests, all
+# steered to the victim, stranded by its SIGKILL; FLEET_LATENCY requests
+# one at a time for p50/p99 before and after
+FLEET_REPLICAS = 2
+FLEET_BURST = 64
+FLEET_LATENCY = 64
+FLEET_HEARTBEAT = 0.5
+# (b) GW_SESSIONS Hungry Geese sessions against default@champion (the
+# full-width GeeseNet), (c) GW_LSTM_SESSIONS against lstm@champion (the
+# full-width GeeseNetLSTM); each held after GW_HOLD plies, a replica
+# SIGKILLed, released once the gateway has rebuilt what it held
+GW_SESSIONS = 8
+GW_LSTM_SESSIONS = 4
+GW_HOLD = 3
+
+
+def lstm_buckets(torch, make_env):
+    """19(c), first part: GeeseNetLSTM's served rows do not depend on the
+    tick they meet. The same requests (real boards, each with a non-zero
+    recurrent state from an earlier forward) in one engine tick of N rows
+    and one by one through ``model_act`` (the 8-row bucket) on the
+    full-width net: action, mask, prob, value and the next (h, c) equal
+    bit for bit. The gateway's journal replay meets other sessions' plies
+    in other ticks, so a rebuilt session is byte-exact only if this
+    holds."""
+    import queue
+    import random
+    import numpy as np
+    from handyrl_tpu_torch.generation import model_act, sample_seed
+    from handyrl_tpu_torch.inference import InferenceEngine
+    from handyrl_tpu_torch.model import ModelWrapper, fp32_on_card
+    from handyrl_tpu_torch.utils.tree import map_structure
+    fp32_on_card(torch.device('cuda'))
+    wrapper = ModelWrapper(lstm_net(torch, SEED + 19), 'cuda')
+    snap = wrapper.snapshot()
+    n_max = max(LSTM_BUCKETS)
+    obs = game_observations(make_env, n_max, SEED + 19)
+    # a non-zero state a row: one forward from zeros on another board
+    warm = game_observations(make_env, n_max, SEED + 190)
+    hidden = [wrapper.inference(warm[k], None)['hidden']
+              for k in range(n_max)]
+    rng = random.Random(SEED + 19)
+    legal = [sorted(rng.sample(range(4), rng.randint(1, 4)))
+             for _ in range(n_max)]
+    seeds = [sample_seed(SEED, (19, n), 0) for n in range(n_max)]
+    local = [model_act(wrapper, obs[k], hidden[k], legal[k], seeds[k])
+             for k in range(n_max)]
+    out = {'card': nvidia_smi_line(), 'by_n': {}}
+    for n in LSTM_BUCKETS:
+        replies = queue.Queue()
+        engine = InferenceEngine(
+            {'inference': {'batch_wait_ms': 10000.0, 'max_batch': n},
+             'env': {'env': 'HungryGeese', 'net_kind': 'lstm'}},
+            fetch_snapshot=lambda mid: snap,
+            reply_fn=lambda ep, msg: replies.put(msg), example_obs=obs[0],
+            clients=n, device='cuda').start()
+        try:
+            for k in range(n):
+                engine.submit(None, {'rid': k, 'mid': 1, 'obs': obs[k],
+                                     'hidden': hidden[k], 'legal': legal[k],
+                                     'seed': seeds[k]})
+            got = {}
+            for _ in range(n):
+                r = replies.get(timeout=120)
+                got[r['rid']] = r
+        finally:
+            engine.stop()
+        diffs = {'prob': 0.0, 'value': 0.0, 'hidden': 0.0}
+        equal = True
+        for k in range(n):
+            g, w = got[k], local[k]
+            if 'error' in g:
+                fail('19(c): the %d-row tick answered %s' % (n, g['error']))
+            if g['action'] != w['action'] or not np.array_equal(
+                    g['action_mask'], w['action_mask']):
+                fail('19(c): row %d of the %d-row tick acts %s, the 8-row '
+                     'bucket %s' % (k, n, g['action'], w['action']))
+            pairs = [('prob', g['prob'], w['prob']),
+                     ('value', g['value'], w['value'])]
+            pairs += [('hidden', a, b) for a, b in zip(
+                map_structure(np.asarray, list(g['hidden'])),
+                map_structure(np.asarray, list(w['hidden'])))]
+            for key, a, b in pairs:
+                a, b = np.asarray(a), np.asarray(b)
+                equal &= bool(np.array_equal(a, b))
+                diffs[key] = max(diffs[key], float(np.abs(
+                    a.astype(np.float64) - b).max()))
+        out['by_n'][str(n)] = {'bitwise': equal, 'max_abs_diff': diffs}
+        log('19(c) GeeseNetLSTM N=%d: bit for bit %s; largest |difference| '
+            '%s' % (n, equal, {k: '%.3g' % v for k, v in diffs.items()}))
+    out['bitwise'] = all(r['bitwise'] for r in out['by_n'].values())
+    if not out['bitwise']:
+        fail('19(c): GeeseNetLSTM\'s served rows depend on their tick (F8): '
+             '%s' % json.dumps(out['by_n']))
+    return out
+
+
+def wait_json_line(path, key, proc, timeout):
+    """The JSON line holding ``key`` in a process's stdout file."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for line in read_text(path).splitlines():
+            if line.startswith('{') and key in line:
+                return json.loads(line)[key]
+        if proc.poll() is not None:
+            fail('%s: the process exited %s before it was ready'
+                 % (key, proc.returncode))
+        time.sleep(0.1)
+    fail('no %s line within %.0f s' % (key, timeout))
+
+
+def fleet_requests(make_env, count, seed):
+    """(obs, legal, seed sequence) of ``count`` real Geese requests."""
+    import random
+    from handyrl_tpu_torch.generation import sample_seed
+    rng = random.Random(seed)
+    obs = game_observations(make_env, count, seed)
+    return [(o, sorted(rng.sample(range(4), rng.randint(1, 4))),
+             sample_seed(seed, (19, k), 0)) for k, o in enumerate(obs)]
+
+
+def phase_fleet_prepare(torch, make_env, GeeseNet):
+    """Phase 19's part in this process, before the fleet starts: the
+    registry (GeeseNet versions 1 and 2 on the 'default' line, the
+    GeeseNetLSTM on 'lstm', each full width and seeded), the replies each
+    request must get (``model_act`` on the card: a replica's engine runs
+    the same bucketed forward, K1 computes each sample alone and F7's
+    heads are row invariant, so the bits must be these) and 19(c)'s
+    bucket check."""
+    from handyrl_tpu_torch.generation import model_act
+    from handyrl_tpu_torch.model import ModelWrapper, fp32_on_card
+    from handyrl_tpu_torch.serving.registry import ModelRegistry
+    fp32_on_card(torch.device('cuda'))
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_fleet_')
+    root = os.path.join(tmp, 'registry')
+    registry = ModelRegistry(root)
+    reqs = fleet_requests(make_env, FLEET_BURST, SEED + 191)
+    refs = {}
+    for version in (1, 2):
+        gen = torch.Generator().manual_seed(SEED + 190 + version)
+        wrapper = ModelWrapper(GeeseNet(
+            filters=WIDTH['filters'], layers=WIDTH['layers'],
+            torus_impl='pallas', generator=gen), 'cuda')
+        registry.publish('default', snapshot=wrapper.snapshot(),
+                         version=version, promote=version == 1)
+        refs[version] = [model_act(wrapper, o, None, legal, seed)
+                         for o, legal, seed in reqs]
+    lstm = ModelWrapper(lstm_net(torch, SEED + 193), 'cpu')
+    registry.publish('lstm', snapshot=lstm.snapshot(), version=1,
+                     promote=True)
+    if all(a['prob'] == b['prob'] for a, b in zip(refs[1], refs[2])):
+        fail('19: versions 1 and 2 answer alike; the promote would be void')
+    log('== phase 19(c), first part: GeeseNetLSTM\'s rows by tick size')
+    buckets = lstm_buckets(torch, make_env)
+    return {'tmp': tmp, 'root': root, 'requests': reqs, 'refs': refs,
+            'lstm_buckets': buckets}
+
+
+def same_reply(label, got, want):
+    import numpy as np
+    if (got['action'] != want['action'] or got['prob'] != want['prob']
+            or not np.array_equal(got['action_mask'], want['action_mask'])
+            or not np.array_equal(got['value'], want['value'])):
+        fail('%s: a routed reply is not the reference\'s bits: %s against '
+             '%s' % (label, {k: got[k] for k in ('action', 'prob', 'value')},
+                         {k: want[k] for k in ('action', 'prob', 'value')}))
+
+
+def replica_status(rc):
+    """Each routable replica's status reply, by name (the resolver's
+    table as it is now, not the router's cached one)."""
+    from handyrl_tpu_torch.serving.client import ServiceClient, \
+        parse_endpoint
+    out = {}
+    for row in rc.status()['replicas']:
+        if row['state'] not in ('healthy', 'degraded'):
+            continue
+        client = ServiceClient(*parse_endpoint(row['endpoint']), timeout=60)
+        try:
+            out[row['replica']] = dict(client.status(), pid=row['pid'])
+        finally:
+            client.close()
+    return out
+
+
+def latencies_ms(rc, reqs):
+    out = []
+    for o, legal, seed in reqs:
+        t0 = time.perf_counter()
+        rc.request('default@champion', o, legal=legal, seed=seed)
+        out.append(1e3 * (time.perf_counter() - t0))
+    out.sort()
+    return {'p50_ms': out[len(out) // 2],
+            'p99_ms': out[min(len(out) - 1, int(0.99 * len(out)))]}
+
+
+def wait_respawn(rc, victim, old_pid, readmitted, deadline_s=180):
+    """Seconds until the resolver lists ``victim`` healthy under a new pid
+    with one more re-admission (the respawn's re-registration)."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < deadline_s:
+        status = rc.status()
+        rows = {r['replica']: r for r in status['replicas']}
+        row = rows.get(victim)
+        if (row and row['state'] == 'healthy' and row['pid'] != old_pid
+                and status['controller']['readmitted'] > readmitted):
+            return time.monotonic() - t0
+        time.sleep(0.1)
+    fail('19: replica %r was not respawned healthy within %d s: %s'
+         % (victim, deadline_s, rc.status()))
+
+
+def fleet_round(rc, gw_port, admin, model, count, label, seed, respawn):
+    """19(b)/(c): ``count`` sessions against ``model`` held after GW_HOLD
+    plies, the replica holding most of them SIGKILLed, the sessions
+    released once the gateway has rebuilt them, played to their outcomes;
+    with ``respawn``, until the victim is back healthy. Returns the
+    round's numbers."""
+    import random
+    import threading
+    from handyrl_tpu_torch.serving.gateway import GatewayClient
+    hold = threading.Barrier(count + 1, timeout=300)
+    release = threading.Barrier(count + 1, timeout=300)
+    results, errors = [None] * count, []
+
+    def play(i):
+        client = GatewayClient('127.0.0.1', gw_port, timeout=120,
+                               name='chip%s%d' % (label, i))
+        held = False
+        try:
+            rng = random.Random(seed + i)
+            reply = client.open('HungryGeese', model=model, seed=seed + i)
+            sid, plies = reply['sid'], 0
+            while not reply['done']:
+                if not held and plies >= GW_HOLD:
+                    held = True
+                    hold.wait()
+                    release.wait()
+                action = (rng.choice(reply['legal']) if reply['to_move']
+                          else None)
+                reply = client.play(sid, action)
+                plies += 1
+            results[i] = {'sid': sid, 'plies': plies,
+                          'outcome': reply['outcome']}
+        except Exception as exc:   # noqa: BLE001 — reported below
+            errors.append('%s %d: %s: %s' % (label, i, type(exc).__name__,
+                                              exc))
+            hold.abort()
+            release.abort()
+        finally:
+            if not held:
+                try:
+                    hold.wait()
+                    release.wait()
+                except threading.BrokenBarrierError:
+                    pass
+            client.close()
+
+    before = admin.status()
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=play, args=(i,), daemon=True)
+               for i in range(count)]
+    for t in threads:
+        t.start()
+    try:
+        hold.wait()
+    except threading.BrokenBarrierError:
+        fail('19(%s): a session failed before the kill: %s'
+             % (label, errors))
+    sessions = admin.sessions()
+    by_replica = {}
+    for row in sessions:
+        by_replica.setdefault(row['replica'], []).append(row['sid'])
+    by_replica.pop(None, None)
+    if not by_replica:
+        fail('19(%s): no live session is booked on a replica: %s'
+             % (label, sessions))
+    victim = max(sorted(by_replica), key=lambda r: len(by_replica[r]))
+    stranded = len(by_replica[victim])
+    table = {r['replica']: r for r in rc.replicas()}
+    readmitted = rc.status()['controller']['readmitted']
+    counts = replica_status(rc)
+    os.kill(table[victim]['pid'], signal.SIGKILL)
+    t_kill = time.monotonic()
+    # hold until the gateway's monitor has rebuilt every session it had on
+    # the victim (a ply sent first would move the session to a survivor
+    # with its cached state, and nothing would be rebuilt)
+    while time.monotonic() - t_kill < 120:
+        now = admin.status()
+        done = (now['reconstructs'] + now['dropped']
+                - before['reconstructs'] - before['dropped'])
+        if done >= stranded:
+            break
+        time.sleep(0.05)
+    else:
+        fail('19(%s): the gateway rebuilt %d of %d stranded sessions in '
+             '120 s: %s' % (label, done, stranded, now))
+    rebuild_s = time.monotonic() - t_kill
+    try:
+        release.wait()
+    except threading.BrokenBarrierError:
+        fail('19(%s): a session failed: %s' % (label, errors))
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    if errors or any(r is None for r in results):
+        fail('19(%s): sessions failed: %s' % (label, errors))
+    after = admin.status()
+    delta = {k: after[k] - before[k] for k in (
+        'opened', 'outcomes', 'reconstructs', 'replayed_plies',
+        'mismatches', 'dropped', 'handoffs', 'plies')}
+    if (delta['outcomes'] != count or delta['reconstructs'] < 1
+            or delta['mismatches'] or delta['dropped']):
+        fail('19(%s): gateway %s over the round (%d sessions, %d on the '
+             'victim %r)' % (label, delta, count, stranded, victim))
+    # the next round kills again: the respawn must be back first
+    respawn_s = (wait_respawn(rc, victim, table[victim]['pid'], readmitted)
+                 if respawn else None)
+    return {'victim': victim, 'stranded_sessions': stranded,
+            'by_replica': {k: len(v) for k, v in by_replica.items()},
+            'gateway': delta, 'rebuild_s': rebuild_s,
+            'respawn_s_after_round': respawn_s, 'wall_s': wall,
+            'matches_per_s': count / wall,
+            'plies': sum(r['plies'] for r in results),
+            'counts_before_kill': counts}
+
+
+def phase_fleet_run(repo, prep):
+    """Phase 19, through ``python -m handyrl_tpu_torch``: (a) the serving
+    fleet (--serve-fleet, 2 managed replicas on the card): a routed burst
+    against the references, one replica SIGKILLed with the burst in
+    flight (no client error, every reply the reference's bits), its
+    respawn under its old name back to healthy and answering those bits,
+    a rolling promote to version 2 warmed by every replica, each
+    replica's K1 launches (every forward K1's serving form); (b) the match
+    gateway (--gateway) over it: GW_SESSIONS Geese sessions held mid-match
+    through a replica's SIGKILL, rebuilt from their journals, played to
+    their outcomes, booked in the RatingBook's journal; (c) GW_LSTM_SESSIONS
+    GeeseNetLSTM sessions the same way (their hidden cache and digest are
+    not empty); SIGTERM drains the gateway and the fleet to 75. Processes
+    only: it does no CUDA work in this process."""
+    from handyrl_tpu_torch.serving.fleet import RoutedClient
+    from handyrl_tpu_torch.serving.gateway import GatewayClient
+    tmp, root = prep['tmp'], prep['root']
+    reqs, refs = prep['requests'], prep['refs']
+    procs, rc, admin = [], None, None
+    out = {'card': nvidia_smi_line()}
+    try:
+        cfg = {'env_args': GEESE_ENV, 'train_args': {
+            'seed': SEED, 'serving': {
+                'registry_dir': root, 'fleet': {
+                    'port': 0, 'replicas': FLEET_REPLICAS,
+                    'heartbeat_interval': FLEET_HEARTBEAT}}}}
+        path = os.path.join(tmp, 'fleet.json')
+        with open(path, 'w') as f:
+            json.dump(cfg, f)
+        env = dict(os.environ, PYTHONUNBUFFERED='1')
+        logs = {k: (os.path.join(tmp, k + '.out'),
+                    os.path.join(tmp, k + '.err'))
+                for k in ('fleet', 'gateway')}
+        t0 = time.monotonic()
+        procs.append(start_session(['handyrl_tpu_torch', '--serve-fleet',
+                                    '--config', path, '--device', 'cuda'],
+                                   repo, env, logs['fleet']))
+        ready = wait_json_line(logs['fleet'][0], 'fleet_ready', procs[0],
+                               240)
+        out['fleet_ready_s'] = time.monotonic() - t0
+        if ready['device'] != 'cuda' or len(ready['table']) != \
+                FLEET_REPLICAS:
+            fail('19(a): the fleet came up as %s' % ready)
+        rc = RoutedClient('127.0.0.1', ready['port'], timeout=60,
+                          refresh_interval=0.5)
+        names = sorted(r['replica'] for r in rc.replicas())
+        # (a) every replica answers the references (its first request
+        # loads the snapshot), then the latencies
+        for name in names:
+            for k in range(4):
+                o, legal, seed = reqs[k]
+                same_reply('19(a) %s' % name, rc.request(
+                    'default@champion', o, legal=legal, seed=seed,
+                    replica=name), refs[1][k])
+                if rc.last_replica != name:
+                    fail('19(a): a request for %s went to %s'
+                         % (name, rc.last_replica))
+        out['before_kill'] = latencies_ms(rc, reqs[:FLEET_LATENCY])
+        victim = names[0]
+        table = {r['replica']: r for r in rc.replicas()}
+        readmitted = rc.status()['controller']['readmitted']
+        counts = replica_status(rc)
+        rids = [rc.submit('default@champion', o, legal=legal, seed=seed,
+                          replica=victim) for o, legal, seed in reqs]
+        os.kill(table[victim]['pid'], signal.SIGKILL)
+        replays = rc.replays
+        for k, rid in enumerate(rids):
+            same_reply('19(a) after the kill', rc.collect(rid), refs[1][k])
+        out['replays'] = rc.replays - replays
+        if out['replays'] < 1:
+            fail('19(a): the kill stranded no request of the burst')
+        out['respawn_s'] = wait_respawn(rc, victim, table[victim]['pid'],
+                                        readmitted)
+        # the router comes back to the respawned replica through its
+        # breaker's half-open probe (its backoff opened on every stranded
+        # request): until then the survivor answers, with the same bits
+        served, k, t_back = 0, 0, time.monotonic()
+        while served < 8:
+            o, legal, seed = reqs[k % len(reqs)]
+            same_reply('19(a) the respawned %s' % victim, rc.request(
+                'default@champion', o, legal=legal, seed=seed,
+                replica=victim), refs[1][k % len(reqs)])
+            k += 1
+            if rc.last_replica == victim:
+                served += 1
+            elif time.monotonic() - t_back > 60:
+                fail('19(a): the respawned replica answered nothing in 60 s')
+            else:
+                time.sleep(0.1)
+        out['back_on_respawned_s'] = time.monotonic() - t_back
+        out['after_kill'] = latencies_ms(rc, reqs[:FLEET_LATENCY])
+        promote = rc.promote('default@2', timeout=300)
+        if promote != {'ok': True, 'line': 'default', 'version': '2',
+                       'warmed': names}:
+            fail('19(a): the rolling promote answered %s' % promote)
+        for k, (o, legal, seed) in enumerate(reqs[:16]):
+            same_reply('19(a) after the promote', rc.request(
+                'default@champion', o, legal=legal, seed=seed), refs[2][k])
+        status = replica_status(rc)
+        for name, st in status.items():
+            k1 = st['kernel_launches'].get('geese_trunk', 0)
+            if st['device'] != 'cuda' or k1 < 1 or \
+                    k1 != st['engine_batches']:
+                fail('19(a): replica %s on %s launched K1 %d times in %d '
+                     'forwards (every forward must be K1)'
+                     % (name, st['device'], k1, st['engine_batches']))
+        out['k1_by_replica_after_a'] = {
+            n: st['kernel_launches']['geese_trunk']
+            for n, st in status.items()}
+        out['a_seconds'] = time.monotonic() - t0
+        log('19(a) the fleet (%s): %s' % (nvidia_smi_line(), json.dumps(out)))
+
+        # (b), (c): the gateway over the fleet
+        gcfg = json.loads(json.dumps(cfg))
+        gcfg['train_args']['serving']['gateway'] = {
+            'resolver': '127.0.0.1:%d' % ready['port'],
+            'workers': GW_SESSIONS}
+        gpath = os.path.join(tmp, 'gateway.json')
+        with open(gpath, 'w') as f:
+            json.dump(gcfg, f)
+        procs.append(start_session(['handyrl_tpu_torch', '--gateway',
+                                    '--config', gpath], repo, env,
+                                   logs['gateway']))
+        gready = wait_json_line(logs['gateway'][0], 'gateway_ready',
+                                procs[1], 120)
+        admin = GatewayClient('127.0.0.1', gready['port'], timeout=120,
+                              name='chip_admin')
+        out['b'] = fleet_round(rc, gready['port'], admin,
+                               'default@champion', GW_SESSIONS, 'b',
+                               SEED + 1900, respawn=True)
+        log('19(b) the gateway, GeeseNet: %s' % json.dumps(out['b']))
+        out['c'] = fleet_round(rc, gready['port'], admin, 'lstm@champion',
+                               GW_LSTM_SESSIONS, 'c', SEED + 1950,
+                               respawn=False)
+        log('19(c) the gateway, GeeseNetLSTM: %s' % json.dumps(out['c']))
+        journal = json.loads(read_text(os.path.join(
+            root, 'league_ratings.json')) or '{}').get('entries', {})
+        booked = sum(e.get('games', 0) for name, e in journal.items()
+                     if name.startswith('gateway:'))
+        if booked != GW_SESSIONS + GW_LSTM_SESSIONS or not {
+                'default@2', 'lstm@1'} <= set(journal):
+            fail('19: the RatingBook journal holds %d gateway games and %s'
+                 % (booked, sorted(journal)))
+        out['rating_journal'] = {'gateway_games': booked,
+                                 'members': sorted(journal)}
+        final = replica_status(rc)
+        launches = {}
+        for reading in (counts, out['b'].pop('counts_before_kill'),
+                        out['c'].pop('counts_before_kill'), final):
+            for name, st in reading.items():
+                # each replica process's last reading (a killed one's
+                # before its kill): one count a process
+                launches[(name, st['pid'])] = st['kernel_launches']
+        # (every replica of (a) ran K1 at each forward, checked above;
+        # a later respawn may have served the LSTM line alone, no K1)
+        out['launches'] = {'fleet_%s_pid%d' % key: v
+                           for key, v in sorted(launches.items())}
+        admin.close()
+        admin = None
+        rc.close()
+        rc = None
+        for label, proc in (('gateway', procs[1]), ('fleet', procs[0])):
+            proc.send_signal(signal.SIGTERM)
+            rc_ = proc.wait(timeout=180)
+            if rc_ != 75:
+                fail('19: the %s exited %s after SIGTERM: %s' % (
+                    label, rc_, tail(logs[label][1])))
+        out['seconds'] = time.monotonic() - t0
+        print(json.dumps({'phase19': {k: v for k, v in out.items()
+                                      if k != 'launches'}}), flush=True)
+        return out
+    finally:
+        if admin is not None:
+            admin.close()
+        if rc is not None:
+            rc.close()
+        kill_sessions([p for p in procs if p.poll() is None])
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     try:
         import torch
@@ -7861,6 +8426,18 @@ def main():
     log('phase 15: %.1f s (%s)' % (time.monotonic() - t15,
                                    nvidia_smi_line()))
 
+    # phase 19's part in this process (the registry, the references, the
+    # LSTM's bucket check) comes first; its processes (the fleet, the
+    # gateway, driven from a thread that does no CUDA work) then run
+    # beside phases 16, 17 and 18, to fit the time limit
+    t19 = time.monotonic()
+    log('== phase 19: the serving fleet and the match gateway (its '
+        'processes beside phases 16, 17 and 18)')
+    fleet_prep = phase_fleet_prepare(torch, make_env, GeeseNet)
+    log('phase 19 (in process): %.1f s (%s)' % (time.monotonic() - t19,
+                                                 nvidia_smi_line()))
+    fleet_join = in_background(lambda: phase_fleet_run(repo, fleet_prep))
+
     t16 = time.monotonic()
     durable = phase_durable(torch, repo, make_env)
     log('phase 16: %.1f s (%s)' % (time.monotonic() - t16,
@@ -7876,8 +8453,11 @@ def main():
         beside=lambda: phase_league(torch, repo, make_env))
     log('phases 17 and 18: %.1f s (%s)' % (time.monotonic() - t17,
                                            nvidia_smi_line()))
+    fleet = fleet_join()
+    log('phase 19: %.1f s since its start (%s)' % (
+        time.monotonic() - t19, nvidia_smi_line()))
 
-    log('== phase 19: the kernels line')
+    log('== phase 20: the kernels line')
     # launches on each main path: serving, the bench entry (both forms),
     # the in-process steps of each form and config, the learner by its
     # paths (each run with the counts at 0 just before; a graph's replays
@@ -7985,6 +8565,9 @@ def main():
     paths['engine_chaos_gather'] = engine['chaos']['gather_launches']
     paths['engine_remote_service'] = engine['remote']['service_launches']
     paths['engine_buckets'] = engine['buckets']['launches']
+    # phase 19: each fleet replica process (the respawned ones too), read
+    # from its status reply before its kill or the drain
+    paths.update(fleet['launches'])
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from
@@ -8016,7 +8599,11 @@ def main():
               engine={'buckets': engine['local']['buckets'],
                       'fill_ratio': engine['local']['fill_ratio'],
                       'k1_per_net_ply': engine['local']['k1_per_net_ply'],
-                      'bucket_invariant': engine['buckets']['bitwise']}),
+                      'bucket_invariant': engine['buckets']['bitwise']},
+              fleet={'k1_by_replica_after_a': fleet[
+                  'k1_by_replica_after_a'],
+                  'lstm_bucket_invariant': fleet_prep['lstm_buckets'][
+                      'bitwise']}),
     ]
     # K2 as its two phases: each wrapper call launches each phase once
     notes = {'a': dict(plain_and_library_ms_are='of the whole K2'),

@@ -5,7 +5,11 @@ The JAX package's modes, dispatched to the port's entry points:
 ``--train``/``-t`` and ``--train-server``/``-ts`` (``train.train_main``),
 ``--worker``/``-w [NUM_PARALLEL]`` (``worker.worker_main``),
 ``--eval``/``-e``, ``--eval-server``/``-es`` and ``--eval-client``/``-ec``
-(``evaluation``), ``--serve``/``-sv`` (``serving.service.serve_main``).
+(``evaluation``), ``--serve``/``-sv`` (``serving.service.serve_main``),
+``--serve-fleet``/``-sf`` (``serving.fleet.resolver_main``: the resolver
+and ``serving.fleet.replicas`` managed replicas) and ``--gateway``/``-gw``
+(``serving.gateway.gateway_main``, over the resolver at
+``serving.gateway.resolver`` or ``serving.fleet.resolver``).
 The config is JSON with the ``env_args``, ``train_args`` and
 ``worker_args`` blocks of ``config.yaml`` (``tictactoe.json`` is
 config.yaml's); without ``--config`` the defaults (TicTacToe). ``--serve``
@@ -13,10 +17,14 @@ reads its service's knobs from ``train_args.serving`` and
 ``train_args.inference``, as the JAX ``serve_main`` does, and serves the
 registry under ``serving.registry_dir``, else under ``model_dir``
 (where the learner of the same config publishes), else under
-``models``; the learner's modes take only the learner's keys there
-(``config.validate``). The device is the card unless ``--device cpu`` is
-given; the eval server loads no model and ignores it. ``--serve-fleet``, ``--gateway`` and ``--status`` exit 2,
-naming the module that is not ported yet.
+``models``; ``--serve-fleet`` and ``--gateway`` read the same blocks
+(the gateway also ``seed`` and ``league``); the learner's modes take only
+the learner's keys there (``config.validate``). With
+``serving.fleet.resolver`` set, ``--serve`` registers as a fleet replica.
+The device is the card unless ``--device cpu`` is given (a fleet's
+replicas run on it too); the eval server and the gateway load no model
+and ignore it. ``--status`` exits 2, naming the module that is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -46,12 +54,36 @@ modes:
 """
 
 NOT_PORTED = {
-    '--serve-fleet': 'serving/fleet.py (resolver_main)',
-    '-sf': 'serving/fleet.py (resolver_main)',
-    '--gateway': 'serving/gateway.py (gateway_main)',
-    '-gw': 'serving/gateway.py (gateway_main)',
-    '--status': "telemetry.py's status_main",
+    '--status': "telemetry.py's status_main (ROADMAP.md §1 item 4)",
 }
+
+
+SERVING_MODES = ('--serve', '-sv', '--serve-fleet', '-sf', '--gateway',
+                 '-gw')
+
+
+def serving_main(mode: str, raw: Dict, device: str) -> int:
+    """The serving tier's modes on the config's ``train_args.serving`` and
+    ``train_args.inference`` blocks (``config.serving_args``)."""
+    from .config import serving_args
+    ta = raw.get('train_args', {})
+    serving = dict(ta.get('serving') or {})
+    # the registry root as the JAX service resolves it: the serving
+    # block's, else the learner's model_dir, where it publishes
+    serving['registry_dir'] = (serving.get('registry_dir')
+                               or ta.get('model_dir') or 'models')
+    args = serving_args(raw.get('env_args', {'env': 'TicTacToe'}),
+                        ta.get('inference'), serving)
+    if mode in ('--serve-fleet', '-sf'):
+        from .serving.fleet import resolver_main
+        return resolver_main(args, device=device)
+    if mode in ('--gateway', '-gw'):
+        from .serving.gateway import gateway_main
+        args['seed'] = ta.get('seed', 0)
+        args['league'] = ta.get('league') or {}
+        return gateway_main(args)
+    from .serving.service import serve_main
+    return serve_main(args, device=device)
 
 
 def split_options(argv: List[str]) -> Tuple[Dict[str, Optional[str]],
@@ -89,18 +121,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         with open(opts['--config']) as f:
             raw = json.load(f)
 
-    if mode in ('--serve', '-sv'):
-        from .config import serving_args
-        from .serving.service import serve_main
-        ta = raw.get('train_args', {})
-        serving = dict(ta.get('serving') or {})
-        # the registry root as the JAX service resolves it: the serving
-        # block's, else the learner's model_dir, where it publishes
-        serving['registry_dir'] = (serving.get('registry_dir')
-                                   or ta.get('model_dir') or 'models')
-        return serve_main(serving_args(
-            raw.get('env_args', {'env': 'TicTacToe'}), ta.get('inference'),
-            serving), device=device)
+    if mode in SERVING_MODES:
+        return serving_main(mode, raw, device)
 
     from .config import apply_defaults
     args = apply_defaults(raw)

@@ -7,9 +7,11 @@ Differences from the JAX package: an inference engine runs on the device
 of its process (the service's ``--device``, a gather's ``worker.device``,
 default 'cuda'), so ``inference.engine_backend`` keeps its check ('cpu'
 or 'device') but does not move the engine: the JAX default 'cpu' never
-puts the port's engine on the host (ROADMAP.md §3). The serving fleet
-(``serving.fleet``), gateway, metrics-exporter and alert knobs wait for
-their modules. The learner's
+puts the port's engine on the host (ROADMAP.md §3). The serving fleet's
+and the match gateway's blocks (``serving.fleet``, ``serving.gateway``)
+have the JAX defaults and checks; a non-zero ``metrics_port`` (the
+Prometheus exporter and ``/statusz``) and the alert knobs wait for
+telemetry (ROADMAP.md §1 item 4). The learner's
 ``TRAIN_DEFAULTS`` hold the knobs of the local learner, of the fused
 device loop, of the worker plane (``batched_generation: false``,
 ``worker``, ``fault_tolerance``, the gathers' ``generation`` backend, the
@@ -21,7 +23,7 @@ block) and of the durable plane (``durability``, ``streaming`` with the
 IMPACT target network) and of the league (``league``: PFSP opponents
 over the registry, the rating book, rating-gated promotion), and
 :func:`validate` raises for anything this port does not run yet (mesh
-parallelism, the serving fleet, nets other than the ported ones)
+parallelism, the metrics exporter, nets other than the ported ones)
 instead of ignoring it.
 Without ``env_args`` the env is TicTacToe, as in the JAX package.
 """
@@ -38,6 +40,41 @@ INFERENCE_DEFAULTS: Dict[str, Any] = {
     'queue_max': 1024,      # bounded intake queue: submits past it are shed with an immediate error reply; 0 = unbounded
 }
 
+# the serving fleet (serving/fleet.py): a ServiceResolver fronting N
+# InferenceService replicas that register and heartbeat their SLO
+# snapshots; clients route through it with a breaker a replica
+FLEET_DEFAULTS: Dict[str, Any] = {
+    'resolver': '',              # 'host:port' of the ServiceResolver a replica registers and heartbeats with; '' = a standalone service
+    'port': 0,                   # resolver listen port (--serve-fleet); 0 = ephemeral (reported on the fleet_ready line)
+    'replica': '',               # this replica's stable name; '' = assigned by the resolver. A respawned replica re-registering under its old name is re-admitted at once
+    'advertise': '',             # endpoint host advertised to the resolver ('' = the bind host, or 127.0.0.1 when binding all interfaces)
+    'heartbeat_interval': 2.0,   # replica -> resolver liveness and SLO beacon period (s)
+    'heartbeat_timeout': 10.0,   # the resolver drains a replica silent this long (s); must exceed heartbeat_interval
+    'refresh_interval': 2.0,     # router-side replica-table refresh period (s); failures also force a refresh
+    'replicas': 2,               # replicas the resolver spawns and supervises under --serve-fleet (0 = external replicas only)
+    'min_replicas': 1,           # autoscaler floor: an idle drain never shrinks the routable fleet below it
+    'max_replicas': 4,           # autoscaler ceiling: an SLO-breach admission never grows past it
+    'autoscale': False,          # admit a standby replica on a sustained p99/shed breach, drain one on sustained idleness (SIGTERM, exit 75)
+    'slo_p99_ms': 0.0,           # autoscaler p99 latency breach threshold (ms); 0 = breach only on request sheds
+    'breach_window': 10.0,       # an SLO breach must last this long (s) before a replica is admitted
+    'idle_window': 60.0,         # the fleet must be idle this long (s) before a replica is drained
+    'quarantine_period': 30.0,   # quarantine (s) before a silent replica is re-admitted (a re-registration re-admits it at once)
+    'metrics_port': 0,           # resolver-side Prometheus /metrics and /statusz port: only 0 (exporter off) until telemetry is ported
+}
+
+# the match gateway (serving/gateway.py): game sessions over the fleet
+GATEWAY_DEFAULTS: Dict[str, Any] = {
+    'port': 0,               # gateway listen port (--gateway); 0 = ephemeral (reported on the gateway_ready line)
+    'resolver': '',          # 'host:port' of the fleet resolver the gateway routes plies through; '' = serving.fleet.resolver
+    'model': 'default@champion',  # opponent spec of a session whose client names none; a floating selector is pinned to line@version at open
+    'workers': 4,            # session worker threads, each with its own RoutedClient
+    'max_sessions': 64,      # admission control: opens past it are shed with an error reply (plies never are)
+    'ply_timeout': 15.0,     # per-ply fleet round-trip deadline (s); also bounds journal replays
+    'monitor_interval': 0.5, # fleet-table poll period (s) of the handoff/reconstruct monitor (and the workers' routers)
+    'session_timeout': 600.0,  # a session with no ply this long (s) is reaped as a drop
+    'metrics_port': 0,       # gateway-side Prometheus /metrics port: only 0 (exporter off) until telemetry is ported
+}
+
 SERVING_DEFAULTS: Dict[str, Any] = {
     'port': 9997,           # listen port; 0 = ephemeral (reported on the ready line)
     'host': '',             # bind host ('' = all interfaces)
@@ -47,17 +84,22 @@ SERVING_DEFAULTS: Dict[str, Any] = {
     'max_clients': 64,      # admission control: connections past this are refused with an error frame
     'drain_timeout': 30.0,  # graceful-drain deadline (s) on SIGTERM before exit 75
     'lock_timeout': 10.0,   # registry manifest-lock deadline (s)
+    'metrics_port': 0,      # service-side Prometheus /metrics port: only 0 (exporter off) until telemetry is ported
+    'fleet': FLEET_DEFAULTS,
+    'gateway': GATEWAY_DEFAULTS,
 }
 
 
 def serving_args(env: Dict[str, Any], inference: Dict[str, Any] = None,
                  serving: Dict[str, Any] = None) -> Dict[str, Any]:
-    """The args dict an InferenceService takes: ``{'env', 'inference',
-    'serving'}`` with the defaults filled in under the given overrides."""
+    """The args dict an InferenceService (and the fleet's resolver and the
+    match gateway) takes: ``{'env', 'inference', 'serving'}`` with the
+    defaults filled in under the given overrides; raises
+    :class:`ConfigError` for a serving block the port cannot run."""
     inf = copy.deepcopy(INFERENCE_DEFAULTS)
     inf.update(inference or {})
-    srv = copy.deepcopy(SERVING_DEFAULTS)
-    srv.update(serving or {})
+    srv = _merge(SERVING_DEFAULTS, serving or {})
+    validate_serving(srv)
     return {'env': dict(env), 'inference': inf, 'serving': srv}
 
 
@@ -160,6 +202,9 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
         'registry_dir': '',       # ModelRegistry root; '' = model_dir
         'publish': False,         # register every numbered checkpoint as '<line>@<epoch>' (pinning it against keep_checkpoints GC)
         'auto_promote': True,     # with publish: each published version also becomes the line's champion
+        'metrics_port': 0,        # the service's Prometheus port: only 0 until telemetry is ported
+        'fleet': FLEET_DEFAULTS,  # with 'resolver': engine-mode workers route through the fleet's replica table (EngineClient._refresh_endpoints)
+        'gateway': GATEWAY_DEFAULTS,
     },
     # the gathers' actor engine (worker.py gather_loop, DeviceActorGather;
     # device_generation.DeviceActorEngine), read on the worker plane only
@@ -360,17 +405,13 @@ def validate(args: Dict[str, Any]) -> None:
     _require(int(ta['keep_checkpoints'] or 0) >= 0,
              'keep_checkpoints must be >= 0 (0 keeps every checkpoint)')
     srv = ta['serving']
-    _require('fleet' not in srv, 'train_args.serving.fleet%s: the serving '
-             'fleet (ServiceResolver, the workers\' replica table through '
-             'EngineClient._refresh_endpoints) is not ported yet (ROADMAP.md '
-             '§1 item 3)' % ('.resolver' if (srv.get('fleet') or {})
-                             .get('resolver') else ''))
     extra = sorted(set(srv) - set(TRAIN_DEFAULTS['serving']))
     _require(not extra, 'serving keys %s: the learner\'s serving block '
              'takes %s; the service reads its own args (serving_args)'
              % (extra, sorted(TRAIN_DEFAULTS['serving'])))
     _require(bool(str(srv['line'] or '').strip()),
              'serving.line must be a non-empty model-line name')
+    _validate_tiers(srv)
     _require(1 <= int(ta['compress_level']) <= 9,
              'compress_level must be a bz2 compresslevel in 1..9')
     g = ta['guard']
@@ -385,6 +426,88 @@ def validate(args: Dict[str, Any]) -> None:
              'guard.loss_spike_zscore must be >= 0 (0 disables the trip)')
     _validate_durable_plane(ta)
     _validate_league(ta)
+
+
+def _port_ok(value, key: str, zero: str) -> None:
+    _require(0 <= int(value) <= 65535,
+             '%s must be a TCP port (0 = %s)' % (key, zero))
+
+
+def _endpoint_ok(value, key: str) -> None:
+    _host, _, port = str(value).rpartition(':')
+    _require(port.isdigit() and 0 < int(port) <= 65535,
+             "%s must look like 'host:port' (got %r)" % (key, value))
+
+
+def validate_serving(srv: Dict[str, Any]) -> None:
+    """A service's ``serving`` block (the resolver's and the gateway's
+    too), with the JAX package's checks (handyrl_tpu/config.py:467-531),
+    as :class:`ConfigError`."""
+    # a learner's config may serve its own registry: its publish and
+    # endpoint keys ride in the same block, as in the JAX package
+    extra = sorted(set(srv) - set(SERVING_DEFAULTS)
+                   - set(TRAIN_DEFAULTS['serving']))
+    _require(not extra, 'serving keys %s are not known' % extra)
+    _port_ok(srv['port'], 'serving.port', 'ephemeral')
+    _require(int(srv['engines']) >= 1, 'serving.engines must be >= 1')
+    _require(int(srv['max_clients']) >= 1,
+             'serving.max_clients must be >= 1')
+    _require(float(srv['drain_timeout']) > 0,
+             'serving.drain_timeout must be > 0')
+    _require(bool(str(srv['line'] or '').strip()),
+             'serving.line must be a non-empty model-line name')
+    _require(float(srv['lock_timeout']) > 0,
+             'serving.lock_timeout must be > 0')
+    _validate_tiers(srv)
+
+
+def _validate_tiers(srv: Dict[str, Any]) -> None:
+    """``serving.metrics_port`` and the ``fleet`` and ``gateway`` blocks,
+    with the JAX package's checks (handyrl_tpu/config.py:486-531). A
+    non-zero ``metrics_port`` asks for the Prometheus exporter, which
+    comes with telemetry (ROADMAP.md §1 item 4)."""
+    for block, defaults in (('fleet', FLEET_DEFAULTS),
+                            ('gateway', GATEWAY_DEFAULTS)):
+        _require(isinstance(srv[block], dict),
+                 'serving.%s must be a block of %s'
+                 % (block, ', '.join(defaults)))
+        extra = sorted(set(srv[block]) - set(defaults))
+        _require(not extra, 'serving.%s keys %s are not known'
+                 % (block, extra))
+    flt, gw = srv['fleet'], srv['gateway']
+    for key, value in (('serving.metrics_port', srv['metrics_port']),
+                       ('serving.fleet.metrics_port', flt['metrics_port']),
+                       ('serving.gateway.metrics_port', gw['metrics_port'])):
+        _port_ok(value, key, 'exporter off')
+        _require(not int(value), '%s %d: the Prometheus exporter and '
+                 '/statusz are not ported yet (ROADMAP.md §1 item 4, '
+                 'telemetry)' % (key, int(value)))
+    for key in ('heartbeat_interval', 'heartbeat_timeout', 'refresh_interval',
+                'breach_window', 'idle_window', 'quarantine_period'):
+        _require(float(flt[key]) > 0, 'serving.fleet.%s must be > 0' % key)
+    _require(float(flt['heartbeat_timeout'])
+             > float(flt['heartbeat_interval']),
+             'serving.fleet.heartbeat_timeout must exceed heartbeat_interval '
+             'or every live replica is quarantined between beacons')
+    _port_ok(flt['port'], 'serving.fleet.port', 'ephemeral')
+    _require(int(flt['replicas']) >= 0, 'serving.fleet.replicas must be >= 0 '
+             '(0 = external replicas only)')
+    _require(int(flt['min_replicas']) >= 1,
+             'serving.fleet.min_replicas must be >= 1')
+    _require(int(flt['max_replicas']) >= int(flt['min_replicas']),
+             'serving.fleet.max_replicas must be >= min_replicas')
+    _require(float(flt['slo_p99_ms']) >= 0, 'serving.fleet.slo_p99_ms must '
+             'be >= 0 (0 = breach on sheds only)')
+    if flt['resolver']:
+        _endpoint_ok(flt['resolver'], 'serving.fleet.resolver')
+    _port_ok(gw['port'], 'serving.gateway.port', 'ephemeral')
+    _require(int(gw['workers']) >= 1, 'serving.gateway.workers must be >= 1')
+    _require(int(gw['max_sessions']) >= 1,
+             'serving.gateway.max_sessions must be >= 1')
+    for key in ('ply_timeout', 'monitor_interval', 'session_timeout'):
+        _require(float(gw[key]) > 0, 'serving.gateway.%s must be > 0' % key)
+    if gw['resolver']:
+        _endpoint_ok(gw['resolver'], 'serving.gateway.resolver')
 
 
 def _validate_league(ta: Dict[str, Any]) -> None:

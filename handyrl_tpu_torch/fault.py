@@ -12,7 +12,9 @@
   restarted learner of either package restores it.
 * :class:`FleetController`: the per-host health states (healthy,
   degraded, draining, quarantined) that decide whether a host gets fresh
-  tasks.
+  tasks, or whether a serving replica is routable.
+* :class:`SessionLedger`: the match gateway's session-affinity book
+  (which replica a session's plies go to) and its strandings.
 * :func:`parse_chaos`: the ``HANDYRL_TPU_CHAOS`` drills
   (``kill_gather=<mean s>`` and ``kill_worker=<mean s>`` with
   ``max_kills``/``seed`` on the worker plane; ``preempt``, ``nanstep`` and
@@ -593,6 +595,35 @@ class FleetController:
         self._transitions.clear()
         return events
 
+    # -- operator actions (the serving resolver) --
+
+    def force_drain(self, host: str):
+        """Deliberately drain ``host`` (an autoscaler scale-down or an
+        operator's drain): no fresh work now, quarantined once its book is
+        empty."""
+        self.observe(host)
+        if self.state(host) in (HOST_HEALTHY, HOST_DEGRADED):
+            self._set(host, HOST_DRAINING)
+
+    def readmit(self, host: str):
+        """Re-admit ``host`` at once with a cleared fault history: a
+        replica that re-registered with the resolver has recovered before
+        its quarantine ran out."""
+        self.observe(host)
+        self._strands[host].clear()
+        self._softs[host].clear()
+        self._until.pop(host, None)
+        if self.state(host) != HOST_HEALTHY:
+            self._set(host, HOST_HEALTHY)
+            self.stats['readmitted'] += 1
+
+    def forget(self, host: str):
+        """Drop ``host`` from the book (a replica deliberately retired)."""
+        self._state.pop(host, None)
+        self._strands.pop(host, None)
+        self._softs.pop(host, None)
+        self._until.pop(host, None)
+
     # -- fault feeds --
 
     def record_stranding(self, host: str, n: int = 1):
@@ -653,6 +684,99 @@ class FleetController:
                 self._prune(host, now)
                 if not self._strands[host] and not self._softs[host]:
                     self._set(host, HOST_HEALTHY)
+
+
+class SessionLedger:
+    """The match gateway's session-affinity book: which replica each open
+    session's plies go to, so that a session's consecutive plies meet in
+    one engine's batch.
+
+    The gateway keeps the hidden-state cache itself; this book holds only
+    the affinity and the strandings. ``fail_replica`` strands every
+    session booked on a dead or draining replica and returns them; the
+    gateway then hands each off (its cached state rides the next request
+    to a survivor) or rebuilds it from the session's journal."""
+
+    def __init__(self, clock=time.time):
+        self._clock = clock
+        self._sessions: Dict[Any, Any] = {}          # sid -> replica
+        self._by_replica: Dict[Any, set] = defaultdict(set)
+        self._strandings: deque = deque(maxlen=4096)  # (sid, replica, why, t)
+        self.stats: Dict[str, int] = {
+            'booked': 0, 'moved': 0, 'released': 0,
+            'stranded': 0, 'replica_failures': 0,
+        }
+
+    def book(self, sid, replica) -> None:
+        """Bind a fresh session to the replica that served its first ply."""
+        self.release(sid)
+        self._sessions[sid] = replica
+        self._by_replica[replica].add(sid)
+        self.stats['booked'] += 1
+
+    def move(self, sid, replica) -> Optional[Any]:
+        """Re-pin ``sid`` (a handoff or a rebuild landed elsewhere); the
+        previous replica, or None for a session not booked."""
+        prev = self._sessions.get(sid)
+        if prev == replica:
+            return prev
+        if prev is not None:
+            self._unbook(sid, prev)
+            self.stats['moved'] += 1
+        else:
+            self.stats['booked'] += 1
+        self._sessions[sid] = replica
+        self._by_replica[replica].add(sid)
+        return prev
+
+    def release(self, sid) -> bool:
+        """Close the book on a finished or abandoned session."""
+        replica = self._sessions.pop(sid, None)
+        if replica is None:
+            return False
+        self._unbook(sid, replica)
+        self.stats['released'] += 1
+        return True
+
+    def _unbook(self, sid, replica) -> None:
+        owners = self._by_replica.get(replica)
+        if owners is not None:
+            owners.discard(sid)
+            if not owners:
+                self._by_replica.pop(replica, None)
+
+    def replica_of(self, sid) -> Optional[Any]:
+        return self._sessions.get(sid)
+
+    def sessions_on(self, replica) -> list:
+        return sorted(self._by_replica.get(replica, ()))
+
+    def fail_replica(self, replica, reason: str = 'detach') -> list:
+        """Strand every session pinned to a dead or draining replica; the
+        caller hands each off or rebuilds it."""
+        sids = self.sessions_on(replica)
+        now = self._clock()
+        for sid in sids:
+            self._sessions.pop(sid, None)
+            self._strandings.append((sid, replica, reason, now))
+        self._by_replica.pop(replica, None)
+        self.stats['stranded'] += len(sids)
+        if sids:
+            self.stats['replica_failures'] += 1
+        return sids
+
+    def outstanding(self) -> int:
+        return len(self._sessions)
+
+    def outstanding_by_replica(self) -> Dict[Any, int]:
+        return {rep: len(sids) for rep, sids in self._by_replica.items()
+                if sids}
+
+    def drain_stranding_events(self):
+        """Consume the (sid, replica, reason, time) stranding journal."""
+        events = list(self._strandings)
+        self._strandings.clear()
+        return events
 
 
 def parse_chaos(spec: Optional[str] = None) -> Dict[str, float]:

@@ -37,9 +37,9 @@ either path.
 * :class:`ModelVault` is the LRU of materialized snapshots the engine, the
   per-worker path and the degraded path read.
 
-Not ported yet: the serving fleet's resolver (``serving.fleet.resolver``:
-the client's ``_refresh_endpoints``; ROADMAP.md §1 item 3) and the engine's
-trace spans, ``record_event`` and ``dump_blackbox`` (item 4).
+With ``serving.fleet.resolver`` the client follows the serving fleet's
+replica table (``_refresh_endpoints``). Not ported yet: the engine's trace
+spans, ``record_event`` and ``dump_blackbox`` (ROADMAP.md §1 item 4).
 """
 
 from __future__ import annotations
@@ -181,7 +181,10 @@ class EngineClient:
     of replicas) the requests dial an InferenceService over TCP and name
     their model ``'<serving.line>@<mid>'``: a dead replica is down-marked
     and rotates to the next, and only with every one down does the worker
-    degrade. The device of the degraded path is ``worker.device`` (default
+    degrade. With ``serving.fleet.resolver`` the rotation is the fleet's
+    routable replicas, fetched from the resolver every
+    ``serving.fleet.refresh_interval`` (a stale list outlives a resolver
+    outage). The device of the degraded path is ``worker.device`` (default
     'cuda'); until it degrades, a worker never touches the card.
     """
 
@@ -192,10 +195,15 @@ class EngineClient:
         self._args = args
         self.namespace = int(namespace)
         self.device = (args.get('worker') or {}).get('device', 'cuda')
+        flt = dict(srv.get('fleet') or {})
         self.endpoint = str(srv.get('endpoint') or '')
         self._endpoints = [e.strip() for e in self.endpoint.split(',')
                            if e.strip()]
-        self._remote_mode = bool(self._endpoints)
+        self._resolver = str(flt.get('resolver') or '')
+        self._resolver_refresh = max(0.5, float(flt.get('refresh_interval',
+                                                        2.0)))
+        self._resolver_next = 0.0      # the next fleet-table fetch
+        self._remote_mode = bool(self._endpoints or self._resolver)
         self._line = str(srv.get('line', 'default'))
         self._remote = None            # the lazy link to a service replica
         self._remote_ep = ''           # the endpoint self._remote targets
@@ -265,7 +273,7 @@ class EngineClient:
                 # instead of waiting out the deadline on dead sockets
                 self._local_box[rid] = self._fail(
                     rid, rec, 'service endpoint(s) %s unreachable'
-                    % self.endpoint)
+                    % (self.endpoint or self._resolver))
         else:
             self._local_box[rid] = self._local_reply(rec)
         return rid
@@ -313,10 +321,42 @@ class EngineClient:
 
     # -- internals ---------------------------------------------------------
 
+    def _refresh_endpoints(self):
+        """Replace the rotation with the fleet resolver's routable replicas
+        (when one is configured); a resolver failure keeps the stale list,
+        so that the data plane outlives it."""
+        now = time.monotonic()
+        if not self._resolver or now < self._resolver_next:
+            return
+        self._resolver_next = now + self._resolver_refresh
+        from .serving.client import ServiceClient, parse_endpoint
+        try:
+            host, port = parse_endpoint(self._resolver)
+            probe = ServiceClient(host, port, timeout=2.0, dial_retries=0)
+            try:
+                table = probe.fleet(timeout=2.0).get('replicas') or []
+            finally:
+                probe.close()
+        except (OSError, ConnectionError, EOFError, ValueError,
+                TimeoutError, RuntimeError):
+            return
+        fresh = [str(r.get('endpoint')) for r in table
+                 if r.get('state') in ('healthy', 'degraded')
+                 and not r.get('draining') and r.get('endpoint')]
+        if fresh and sorted(fresh) != sorted(self._endpoints):
+            _LOG.info('worker %d: fleet resolver lists %d routable '
+                      'replica(s): %s', self.namespace, len(fresh),
+                      ', '.join(fresh))
+            self._endpoints = fresh
+
     def _pick_endpoint(self) -> str:
         """The next endpoint in rotation whose down-mark has expired; with
         every one down, the soonest retryable (so that a fleet-wide blip
         still probes)."""
+        self._refresh_endpoints()
+        if not self._endpoints:
+            raise OSError('no service endpoints known (resolver %s has no '
+                          'routable replicas)' % (self._resolver or '-'))
         now = time.monotonic()
         n = len(self._endpoints)
         for off in range(n):
@@ -376,7 +416,9 @@ class EngineClient:
         # the service resolves models by name against its registry; the
         # learner's publish hook registers epoch E as '<line>@<E>'
         body['model'] = '%s@%d' % (self._line, int(rec['mid']))
-        for _attempt in range(len(self._endpoints)):
+        # one attempt a known replica (one to fetch the resolver's table
+        # when none is known yet): False only when the whole fleet refused
+        for _attempt in range(max(1, len(self._endpoints))):
             try:
                 self._infer_conn().send((INFER_KIND, body))
                 return True

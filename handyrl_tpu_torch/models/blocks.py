@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -94,10 +94,40 @@ def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
     return t if t is None or dtype is None else t.to(dtype)
 
 
+# the rows of every conv an acting or serving forward runs on the card:
+# the inference engine's largest tick at the default inference.max_batch
+ROW_BLOCK = 64
+
+
+def row_blocks(op: Callable, x: torch.Tensor, *args) -> torch.Tensor:
+    """``op(x, *args)`` for a conv, with a row's bits independent of the
+    rows beside it. cuDNN picks a conv's algorithm by the batch size: on
+    the H100 GeeseNetLSTM's rows in a 16-, 32- or 64-row batch came out up
+    to 1.3e-6 off the same rows in an 8-row one (ROADMAP.md §3 F8), where
+    the engine's failover and the gateway's journal replay need them
+    equal. So a CUDA batch without grad (every acting and serving forward)
+    runs as convs of exactly ``ROW_BLOCK`` rows, the last block padded
+    with zeros: every row meets the same algorithm whatever its batch. A
+    training forward (grad on) and the CPU (whose convs are already row
+    invariant) run the batch whole."""
+    n = x.shape[0]
+    if not x.is_cuda or torch.is_grad_enabled() or n == ROW_BLOCK:
+        return op(x, *args)
+    pad = -n % ROW_BLOCK
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return torch.cat([op(x[i:i + ROW_BLOCK], *args)
+                      for i in range(0, n + pad, ROW_BLOCK)])[:n]
+
+
 def conv2d(layer: nn.Conv2d, x: torch.Tensor, dtype=None) -> torch.Tensor:
     """flax nn.Conv(dtype=...): the input and the kernel in ``dtype``, the
     bias added in it (flax rounds the conv, then the sum); None runs the
-    layer as it is."""
+    layer as it is. Row invariant on the card (:func:`row_blocks`)."""
+    return row_blocks(_conv2d, x, layer, dtype)
+
+
+def _conv2d(x: torch.Tensor, layer: nn.Conv2d, dtype) -> torch.Tensor:
     if dtype is None:
         return layer(x)
     y = layer._conv_forward(x.to(dtype), layer.weight.to(dtype), None)
@@ -237,13 +267,17 @@ def torus_conv(x: torch.Tensor, kernel: torch.Tensor,
     ``impl='pad'`` wrap-pads with ``F.pad(mode='circular')`` and runs a
     VALID conv; ``impl='halo'`` runs a zero-padded conv and adds back the
     wrapped contributions (:func:`_halo_correct`). Both are the same
-    function."""
+    function. Row invariant on the card (:func:`row_blocks`)."""
+    if impl not in ('pad', 'halo'):
+        raise ValueError('unknown TorusConv impl %r' % (impl,))
     w = kernel.permute(3, 2, 0, 1).to(x.dtype)        # HWIO -> OIHW
+    return row_blocks(_torus_conv, x, w, impl)
+
+
+def _torus_conv(x: torch.Tensor, w: torch.Tensor, impl: str) -> torch.Tensor:
     if impl == 'pad':
         return F.conv2d(F.pad(x, (1, 1, 1, 1), mode='circular'), w)
-    if impl == 'halo':
-        return _halo_correct(F.conv2d(x, w, padding=1), x, w)
-    raise ValueError('unknown TorusConv impl %r' % (impl,))
+    return _halo_correct(F.conv2d(x, w, padding=1), x, w)
 
 
 class TorusConv(nn.Module):

@@ -1,14 +1,15 @@
 """Client side of the serving tier: the framed-protocol transport and the
 ``serve://`` model proxy.
 
-The port of ``handyrl_tpu/serving/client.py`` without the fleet's routed
-client. :class:`ServiceClient` owns one TCP connection to an
-:class:`~.service.InferenceService` (of either package: the wire format is
-shared) and speaks the framed ``INFER_KIND`` protocol plus the
-``SERVE_KIND`` admin frames (status / resolve / fleet).
-:class:`RemoteServiceModel` wraps a client and a ``line@selector`` spec
-into the model surface the agents call (``inference`` / ``init_hidden``),
-so a match resolves its model by name against a running service.
+The port of ``handyrl_tpu/serving/client.py``. :class:`ServiceClient`
+owns one TCP connection to an :class:`~.service.InferenceService` (of
+either package: the wire format is shared) and speaks the framed
+``INFER_KIND`` protocol plus the ``SERVE_KIND`` admin frames (status /
+resolve / fleet / warm, and the gateway's session ops).
+:class:`RemoteServiceModel` wraps a client (or the fleet's
+:class:`~.fleet.RoutedClient`) and a ``line@selector`` spec into the model
+surface the agents call (``inference`` / ``init_hidden``), so a match
+resolves its model by name against a running service or fleet.
 
 Reply canonicalization: the wire codec turns numpy scalars into Python
 floats; ``collect`` re-wraps the sampled probability as ``np.float32`` so a
@@ -189,6 +190,13 @@ class ServiceClient:
                                % body.get('op'))
         return reply[1]
 
+    def call_admin(self, body: Dict[str, Any],
+                   timeout: Optional[float] = None) -> Dict[str, Any]:
+        """One admin round trip: send a SERVE_KIND frame, await the reply
+        body (the gateway client's whole session protocol rides it; admin
+        frames interleave with inference replies in flight)."""
+        return self._call_admin(dict(body), timeout)
+
     def status(self, timeout: Optional[float] = None) -> Dict[str, Any]:
         """The service's live stats: lines/champions, request counters,
         drain state."""
@@ -250,7 +258,8 @@ class ServiceClient:
 
 
 class RemoteServiceModel:
-    """Model-surface proxy over a :class:`ServiceClient`: each call is a
+    """Model-surface proxy over a :class:`ServiceClient` (or a
+    :class:`~.fleet.RoutedClient`, which has its surface): each call is a
     request frame against one ``line@selector`` spec. ``init_hidden``
     returns None by design: the engine substitutes a fresh initial state
     for a None hidden, so the client needs no knowledge of the recurrent
@@ -274,11 +283,11 @@ def model_from_spec(spec: str, timeout: float = 10.0) -> RemoteServiceModel:
     """``'serve://host:port/line@selector'`` -> a connected proxy model
     (owning its client connection).
 
-    One ``fleet`` probe at connect time tells a single service (which
-    answers an unknown-op error body) from a fleet resolver. The JAX
-    package routes a resolver's specs through its ``RoutedClient``; the
-    port has no resolver client yet, so such an endpoint raises rather
-    than being read as one plain service."""
+    The endpoint may be a single service or a fleet resolver: one
+    ``fleet`` probe at connect time (a plain service answers an unknown-op
+    error body) decides, and a resolver's spec gets a
+    :class:`~.fleet.RoutedClient`, so a ``serve://`` opponent fails over
+    between the fleet's replicas."""
     rest = str(spec)
     if rest.startswith('serve://'):
         rest = rest[len('serve://'):]
@@ -294,8 +303,7 @@ def model_from_spec(spec: str, timeout: float = 10.0) -> RemoteServiceModel:
         probe = {}
     if probe.get('fleet'):
         client.close()
-        raise ValueError(
-            'serve:// endpoint %s:%d is a fleet resolver: the routed client '
-            '(serving/fleet.py) is not ported yet (ROADMAP.md)'
-            % (host, port))
+        from .fleet import RoutedClient   # fleet imports this module
+        return RemoteServiceModel(RoutedClient(host, port, timeout=timeout),
+                                  model)
     return RemoteServiceModel(client, model)

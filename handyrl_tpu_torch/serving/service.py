@@ -17,9 +17,15 @@ resolves to between one request and the next.
   already accepted (new arrivals get an immediate ``draining`` error
   reply), waits out the engines up to ``serving.drain_timeout``, then exits
   75 (restart me).
+* **Fleet membership**: with ``serving.fleet.resolver`` the service is a
+  replica of the serving fleet (:mod:`.fleet`): it registers, heartbeats
+  its SLO snapshot (p50/p99 of a latency ring, sheds, in-flight), redials
+  a lost resolver with backoff, drains when the resolver says so (exit
+  75), and warms a candidate version end to end on the ``warm`` admin op
+  before a rolling promote flips the champion.
 
-The fleet membership loop, warm-up/promote walk, metrics exporter, alerts
-and tracing are not ported yet.
+The metrics exporter, alerts and tracing wait for telemetry (ROADMAP.md
+§1 item 4): the ``trace`` admin op answers an error naming it.
 """
 
 from __future__ import annotations
@@ -30,18 +36,44 @@ import queue
 import socket
 import threading
 import time
+from collections import deque
 from typing import Any, Dict, Optional, Tuple
 
 from .. import telemetry
 from ..connection import (FramedConnection, Hub, INFER_KIND, is_infer,
-                          open_socket_connection)
+                          connect_socket_connection, open_socket_connection)
+from ..fault import Backoff
 from ..guard import PREEMPT_EXIT_CODE, PreemptionGuard
 from ..model import fp32_on_card, resolve_device
 from .. import ops
-from .client import SERVE_KIND, is_serve
+from .client import SERVE_KIND, is_serve, parse_endpoint
 from .registry import ModelRegistry, RegistryError, parse_spec
 
 _LOG = telemetry.get_logger('serving')
+
+
+def ring_percentile_ms(lats, q: float) -> float:
+    """Nearest-rank percentile of a latency ring (seconds), in ms: the one
+    definition the service's heartbeat and the gateway's ply latency
+    share."""
+    if not lats:
+        return 0.0
+    lats = sorted(lats)
+    return 1e3 * lats[int(round((len(lats) - 1) * float(q)))]
+
+
+class _WarmSink:
+    """Reply endpoint of a synthetic warm-up request (the rolling
+    promote's walk): the engine's reply lands here instead of on a client
+    socket."""
+
+    def __init__(self):
+        self.done = threading.Event()
+        self.reply: Dict[str, Any] = {}
+
+    def deliver(self, msg: Dict[str, Any]):
+        self.reply = msg or {}
+        self.done.set()
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -78,6 +110,12 @@ class InferenceService:
         self.registry = registry if registry is not None else ModelRegistry(
             srv.get('registry_dir') or 'models',
             lock_timeout=float(srv.get('lock_timeout', 10.0)))
+        flt = dict(srv.get('fleet') or {})
+        self.resolver_endpoint = str(flt.get('resolver') or '')
+        self.replica_name = str(flt.get('replica') or '')
+        self.advertise_host = str(flt.get('advertise') or '')
+        self.heartbeat_interval = max(0.05, float(
+            flt.get('heartbeat_interval', 2.0)))
 
         from ..environment import make_env
         env = make_env(dict(args['env']))
@@ -90,7 +128,10 @@ class InferenceService:
         self._handle_meta: Dict[int, Tuple[str, str]] = {}  # guarded-by: _lock
         # (endpoint id, rid) -> (t0, model label, client label)
         self._pending: Dict[Tuple[int, Any], tuple] = {}    # guarded-by: _lock
+        # recent request latencies (s): the heartbeat's SLO snapshot
+        self._lat_ring: deque = deque(maxlen=512)           # guarded-by: _lock
         self._draining = False
+        self._fleet_drain = False   # the resolver said drain (autoscaler)
         self._stop = False
         self._sock: Optional[socket.socket] = None
         self.hub: Optional[Hub] = None
@@ -129,8 +170,11 @@ class InferenceService:
                             example_obs=self._example_obs,
                             device=self.device).start()
             for _ in range(self.engines_n)]
-        for target, name in ((self._accept_loop, 'serve-accept'),
-                             (self._dispatch_loop, 'serve-dispatch')):
+        loops = [(self._accept_loop, 'serve-accept'),
+                 (self._dispatch_loop, 'serve-dispatch')]
+        if self.resolver_endpoint:
+            loops.append((self._fleet_loop, 'serve-heartbeat'))
+        for target, name in loops:
             t = threading.Thread(target=target, name=name, daemon=True)
             t.start()
             self._threads.append(t)
@@ -294,9 +338,14 @@ class InferenceService:
 
     def _reply(self, ep, msg: Dict[str, Any]):
         """Engine reply fan-in: close the latency span, count, forward."""
+        if isinstance(ep, _WarmSink):
+            ep.deliver(msg)           # a warm-up: no client socket
+            return
         with self._lock:
             entry = self._pending.pop((id(ep), (msg or {}).get('rid')), None)
             self._m_inflight.set(len(self._pending))
+            if entry is not None:
+                self._lat_ring.append(time.monotonic() - entry[0])
         if entry is not None:
             t0, model_label, client_label = entry
             self._m_latency(model_label, client_label).observe(
@@ -323,9 +372,135 @@ class InferenceService:
                                     'architecture': meta.get('architecture')}))
             except (RegistryError, ValueError) as exc:
                 self.hub.send(ep, (SERVE_KIND, {'error': str(exc)}))
+        elif op == 'warm':
+            self._warm(ep, str(body.get('model')))
+        elif op == 'trace':
+            self.hub.send(ep, (SERVE_KIND, {
+                'error': 'the trace op (serving-path tracing) is not ported '
+                         'yet (ROADMAP.md §1 item 4, telemetry)'}))
         else:
             self.hub.send(ep, (SERVE_KIND,
                                {'error': 'unknown admin op %r' % (op,)}))
+
+    def _warm(self, ep, spec: str):
+        """The rolling promote's walk: materialize ``line@selector`` and run
+        it end to end by pushing one synthetic request (the example
+        observation) through the engine, answering asynchronously (a
+        snapshot load must not wedge the dispatch loop)."""
+        if self._draining:
+            self.hub.send(ep, (SERVE_KIND, {'error': 'service draining'}))
+            return
+        try:
+            line, selector = parse_spec(spec)
+            version, _meta = self.registry.resolve(line, selector)
+        except (RegistryError, ValueError) as exc:
+            self.hub.send(ep, (SERVE_KIND, {'error': str(exc)}))
+            return
+        handle = self._intern(line, version)
+
+        def run():
+            sink = _WarmSink()
+            self.engines[handle % len(self.engines)].submit(
+                sink, {'rid': -1, 'mid': handle, 'obs': self._example_obs})
+            ok = sink.done.wait(timeout=60.0)
+            err = (sink.reply.get('error') if ok
+                   else 'warm-up request timed out')
+            reply = ({'ok': True, 'line': line, 'version': version,
+                      'warmed': True} if ok and not err
+                     else {'error': str(err)})
+            self.hub.send(ep, (SERVE_KIND, reply))
+
+        threading.Thread(target=run, name='serve-warm', daemon=True).start()
+
+    # -- fleet membership --------------------------------------------------
+
+    def fleet_drain_requested(self) -> bool:
+        """True once the resolver directed this replica to drain (the
+        autoscaler's scale-down); ``serve_main`` then exits 75, as after a
+        SIGTERM."""
+        return self._fleet_drain
+
+    def slo_snapshot(self) -> Dict[str, Any]:
+        """What a heartbeat carries: recent p50/p99 latency, sheds, request
+        counters and the in-flight depth."""
+        with self._lock:
+            lats = list(self._lat_ring)
+            inflight = len(self._pending)
+        return {'p50_ms': ring_percentile_ms(lats, 0.50),
+                'p99_ms': ring_percentile_ms(lats, 0.99),
+                'inflight': inflight,
+                'shed': self.refused + sum(e.sheds for e in self.engines),
+                'received': self.received, 'answered': self.answered,
+                'draining': self._draining}
+
+    def _fleet_reply(self, conn, timeout: float = 5.0) -> Dict[str, Any]:
+        deadline = time.monotonic() + timeout
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0 or not conn.poll(remaining):
+                raise TimeoutError('no resolver reply within %.1fs'
+                                   % timeout)
+            msg = conn.recv()
+            if is_serve(msg) and isinstance(msg[1], dict):
+                return msg[1]
+
+    def _fleet_loop(self):
+        """Register with the resolver, then heartbeat liveness and the SLO
+        snapshot every ``heartbeat_interval``; a lost resolver is redialed
+        with jittered backoff (re-registering under the same name is how a
+        respawned replica is re-admitted). A heartbeat reply may carry a
+        drain directive."""
+        host, port = parse_endpoint(self.resolver_endpoint)
+        advertise = self.advertise_host or self.host or '127.0.0.1'
+        backoff = Backoff(initial=0.5, maximum=10.0)
+        conn = None
+        while not self._stop:
+            try:
+                if conn is None:
+                    conn = connect_socket_connection(host, port)
+                    body = {'op': 'register',
+                            'endpoint': '%s:%d' % (advertise, self.port),
+                            'pid': os.getpid()}
+                    if self.replica_name:
+                        body['replica'] = self.replica_name
+                    conn.send((SERVE_KIND, body))
+                    rep = self._fleet_reply(conn)
+                    if rep.get('error'):
+                        raise RuntimeError(str(rep['error']))
+                    self.replica_name = str(rep.get('replica')
+                                            or self.replica_name)
+                    backoff.reset()
+                    _LOG.info('serving: registered with resolver %s as '
+                              'replica %r', self.resolver_endpoint,
+                              self.replica_name)
+                conn.send((SERVE_KIND, {'op': 'heartbeat',
+                                        'replica': self.replica_name,
+                                        'slo': self.slo_snapshot()}))
+                rep = self._fleet_reply(conn)
+                if rep.get('drain') and not self._draining:
+                    _LOG.warning('serving: resolver directed replica %r to '
+                                 'drain', self.replica_name)
+                    self._fleet_drain = True
+                    self.request_drain()
+            except (OSError, ConnectionError, EOFError, ValueError,
+                    TimeoutError, RuntimeError) as exc:
+                if conn is not None:
+                    conn.close()
+                    conn = None
+                if not self._stop:
+                    _LOG.warning('serving: resolver connection lost (%s: '
+                                 '%s); redialing', type(exc).__name__,
+                                 str(exc)[:200])
+                self._sleep(backoff.next_delay())
+                continue
+            self._sleep(self.heartbeat_interval)
+        if conn is not None:
+            conn.close()
+
+    def _sleep(self, seconds: float):
+        deadline = time.monotonic() + seconds
+        while not self._stop and time.monotonic() < deadline:
+            time.sleep(min(0.1, max(0.0, deadline - time.monotonic())))
 
     # -- introspection -----------------------------------------------------
 
@@ -347,6 +522,8 @@ class InferenceService:
             'shed': self.refused + sum(e.sheds for e in self.engines),
             'draining': self._draining,
             'engines': len(self.engines),
+            'replica': self.replica_name,
+            'resolver': self.resolver_endpoint,
             'engine_requests': sum(e.requests_served for e in self.engines),
             'engine_batches': sum(e.batches_run for e in self.engines),
             'kernel_launches': kernel_launches(),
@@ -358,18 +535,20 @@ class InferenceService:
 
 
 def serve_main(args: Dict[str, Any], device: Any = 'cuda') -> int:
-    """Run the service until SIGTERM/SIGINT, then drain and return 75 (the
-    PreemptionGuard supervisor contract). Prints one JSON ready line on
-    stdout carrying the bound port."""
+    """Run the service until SIGTERM/SIGINT (or a drain the fleet's
+    resolver directs), then drain and return 75 (the PreemptionGuard
+    supervisor contract). Prints one JSON ready line on stdout carrying
+    the bound port."""
     guard = PreemptionGuard().install()
     service = InferenceService(args, device=device).start()
     print(json.dumps({'serving_ready': {
         'port': service.port, 'pid': os.getpid(), 'device': str(service.device),
         'registry': service.registry.root}}), flush=True)
     try:
-        while not guard.requested():
+        while not guard.requested() and not service.fleet_drain_requested():
             time.sleep(0.2)
-        _LOG.warning('serving: preemption signal received; draining')
+        if guard.requested():
+            _LOG.warning('serving: preemption signal received; draining')
     finally:
         service.stop(drain=True)
         guard.uninstall()

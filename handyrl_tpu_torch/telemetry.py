@@ -211,6 +211,14 @@ class MetricRegistry:
             }
 
 
+# The fleet controller's health states (fault.FleetController) as numbers
+# for the serving resolver's per-replica ``fleet_replica_state`` gauges,
+# monotone in severity (2 and up: the replica gets no fresh work); the
+# resolver writes -1 for a retired replica.
+HOST_STATE_CODES: Dict[str, int] = {
+    'healthy': 0, 'degraded': 1, 'draining': 2, 'quarantined': 3}
+
+
 # the process-global registry every module instruments against
 REGISTRY = MetricRegistry()
 counter = REGISTRY.counter

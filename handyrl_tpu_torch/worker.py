@@ -30,7 +30,8 @@ either.
   ``worker.device`` coalesces its workers' plies into batched forwards
   (K1's serving form at the tick's bucket), its snapshots fetched over the
   same server link as the task RPCs (one lock serializes them). With
-  ``serving.endpoint`` set it runs no engine.
+  ``serving.endpoint`` or ``serving.fleet.resolver`` set it runs no
+  engine.
 * :class:`DeviceActorGather` (``generation.backend`` or a host's
   ``worker_args.backend`` 'device'): a gather with no workers that plays
   its task blocks as lanes of one fused rollout on its card
@@ -383,7 +384,11 @@ class Gather:
         self.hub = Hub()
         self.engine = None
         inf = args.get('inference') or {}
-        endpoint = (args.get('serving') or {}).get('endpoint')
+        srv = args.get('serving') or {}
+        # remote mode: an endpoint list, or a fleet resolver whose replica
+        # table the workers' EngineClient fetches itself
+        endpoint = srv.get('endpoint') or (srv.get('fleet') or {}).get(
+            'resolver')
         if inf.get('enabled') and endpoint:
             # the workers dial the service themselves; the 'model' RPC
             # stays for a degraded worker

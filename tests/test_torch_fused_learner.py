@@ -223,8 +223,9 @@ def test_cli_without_cuda_raises_on_the_device_path(tmp_path):
     pytest.param({}, {'device_generation': True, 'device_replay': True,
                       'fused_pipeline': False, 'batched_generation': False,
                       'inference': {'enabled': True},
-                      'serving': {'fleet': {'resolver': 'localhost:9000'}}},
-                 'serving.fleet.resolver',
+                      'serving': {'fleet': {'resolver': 'localhost:9000'},
+                                  'metrics_port': 9100}},
+                 'serving.metrics_port 9100.*item 4',
                  id='env_args1-train_args1-host inference engine'),
     ({}, {'device_generation': True, 'generation': {'backend': 'device',
                                                    'device_actor_slots': 0}},

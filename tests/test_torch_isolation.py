@@ -113,9 +113,12 @@ def test_sources_never_import_the_reference():
         assert not hits, (path, hits)
         checked.append(os.path.relpath(path, REPO))
     assert len(checked) >= 25
-    # the port's main.py, the eval server and client, the serving client
+    # the port's main.py, the eval server and client, the serving client,
+    # the serving fleet and the match gateway
     for name in ('__main__.py', 'evaluation.py', 'connection.py',
-                 os.path.join('serving', 'client.py')):
+                 os.path.join('serving', 'client.py'),
+                 os.path.join('serving', 'fleet.py'),
+                 os.path.join('serving', 'gateway.py')):
         assert os.path.join('handyrl_tpu_torch', name) in checked
 
 

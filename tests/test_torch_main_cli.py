@@ -19,9 +19,10 @@ import torch
 import handyrl_tpu_torch
 from handyrl_tpu_torch import __main__ as cli
 from handyrl_tpu_torch import evaluation, train, worker
+from handyrl_tpu_torch.config import ConfigError
 from handyrl_tpu_torch.model import params_bytes
 from handyrl_tpu_torch.models.tictactoe import SimpleConv2dModel
-from handyrl_tpu_torch.serving import service
+from handyrl_tpu_torch.serving import fleet, gateway, service
 
 @pytest.fixture(autouse=True, scope='module')
 def _one_torch_thread():
@@ -76,7 +77,9 @@ def calls(monkeypatch):
                          (evaluation, 'eval_main'),
                          (evaluation, 'eval_server_main'),
                          (evaluation, 'eval_client_main'),
-                         (service, 'serve_main')):
+                         (service, 'serve_main'),
+                         (fleet, 'resolver_main'),
+                         (gateway, 'gateway_main')):
         monkeypatch.setattr(module, name, recorder(name))
     return seen
 
@@ -142,9 +145,66 @@ def test_without_a_config_the_env_is_tictactoe(calls):
     ('--status', 'status_main')])
 def test_modes_not_ported_exit_naming_their_module(mode, module, calls,
                                                    capsys):
+    """Only ``--status`` (telemetry, ROADMAP.md §1 item 4) is left: the
+    fleet's and the gateway's modes reach their mains since they were
+    ported."""
+    if mode != '--status':
+        assert cli.main([mode]) == 0
+        [(name, _args, _kwargs)] = calls
+        assert name == {'serving/fleet.py': 'resolver_main',
+                        'serving/gateway.py': 'gateway_main'}[module]
+        return
     assert cli.main([mode]) == 2
     err = capsys.readouterr().err
-    assert module in err and 'not ported' in err
+    assert module in err and 'not ported' in err and 'item 4' in err
+    assert calls == []
+
+
+FLEET_CONFIG = {
+    'env_args': CONFIG['env_args'],
+    'train_args': {'model_dir': 'runs/a', 'seed': 7,
+                   'league': {'k_factor': 16.0},
+                   'serving': {'fleet': {'port': 0, 'replicas': 3},
+                               'gateway': {'resolver': '127.0.0.1:9411',
+                                           'workers': 2}},
+                   'inference': {'max_batch': 8}}}
+
+
+@pytest.mark.parametrize('mode', ['--serve-fleet', '-sf'])
+def test_serve_fleet_reaches_resolver_main(mode, tmp_path, calls):
+    config = write(tmp_path, FLEET_CONFIG)
+    assert cli.main([mode, '--config', config, '--device', 'cpu']) == 0
+    [(name, (args,), kwargs)] = calls
+    assert name == 'resolver_main' and kwargs == {'device': 'cpu'}
+    assert args['env'] == CONFIG['env_args']
+    assert args['serving']['fleet']['replicas'] == 3
+    assert args['serving']['fleet']['heartbeat_timeout'] == 10.0  # default
+    assert args['serving']['registry_dir'] == 'runs/a'   # the learner's
+    assert args['inference']['max_batch'] == 8
+    # without --device the replicas run on the card
+    calls.clear()
+    assert cli.main([mode, '--config', config]) == 0
+    assert calls[0][2] == {'device': 'cuda'}
+
+
+@pytest.mark.parametrize('mode', ['--gateway', '-gw'])
+def test_gateway_reaches_gateway_main(mode, tmp_path, calls):
+    config = write(tmp_path, FLEET_CONFIG)
+    assert cli.main([mode, '--config', config, '--device', 'cpu']) == 0
+    [(name, (args,), kwargs)] = calls
+    assert name == 'gateway_main' and kwargs == {}
+    assert args['serving']['gateway']['resolver'] == '127.0.0.1:9411'
+    assert args['serving']['gateway']['workers'] == 2
+    assert args['serving']['gateway']['max_sessions'] == 64   # default
+    assert args['seed'] == 7 and args['league'] == {'k_factor': 16.0}
+    assert args['serving']['registry_dir'] == 'runs/a'
+
+
+def test_serving_modes_refuse_an_exporter_port(tmp_path, calls):
+    cfg = {'env_args': CONFIG['env_args'],
+           'train_args': {'serving': {'gateway': {'metrics_port': 9100}}}}
+    with pytest.raises(ConfigError, match='gateway.metrics_port.*item 4'):
+        cli.main(['--gateway', '--config', write(tmp_path, cfg)])
     assert calls == []
 
 

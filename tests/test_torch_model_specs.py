@@ -12,13 +12,13 @@ equals the checkpoint's exactly. A service answers from its own copy of
 the snapshot through its engine, which batches rows into other bucket
 sizes, so ``serve://`` is held within 1e-5 (fp32 sums in other orders),
 and the JAX package's proxy to the same service must read the same
-replies exactly. A fleet resolver's endpoint is refused naming
-``serving/fleet.py``; the batched evaluator refuses a ``serve://``
-opponent as the JAX one does."""
+replies exactly. A fleet resolver's endpoint loads through the fleet's
+RoutedClient (serving/fleet.py) and reads the replica's replies exactly;
+the batched evaluator refuses a ``serve://`` opponent as the JAX one
+does."""
 
 import os
 import random
-import threading
 
 import numpy as np
 import pytest
@@ -30,12 +30,10 @@ from handyrl_tpu.generation import BatchedEvaluator as JaxBatchedEvaluator
 from handyrl_tpu_torch import evaluation
 from handyrl_tpu_torch.agent import Agent
 from handyrl_tpu_torch.config import serving_args
-from handyrl_tpu_torch.connection import (FramedConnection,
-                                          open_socket_connection)
 from handyrl_tpu_torch.environment import make_env
 from handyrl_tpu_torch.generation import BatchedEvaluator
 from handyrl_tpu_torch.model import ModelWrapper, params_bytes
-from handyrl_tpu_torch.serving.client import (SERVE_KIND, RemoteServiceModel,
+from handyrl_tpu_torch.serving.client import (RemoteServiceModel,
                                               parse_endpoint)
 from handyrl_tpu_torch.serving.registry import ModelRegistry
 from handyrl_tpu_torch.serving.service import InferenceService
@@ -163,29 +161,45 @@ def test_the_batched_evaluator_refuses_a_serve_opponent(published):
     assert str(port_exc.value) == str(jax_exc.value)
 
 
-def test_a_fleet_endpoint_is_refused_naming_the_missing_module():
-    listener = open_socket_connection(0)
-    listener.listen(1)
-    port = listener.getsockname()[1]
-    seen = []
-
-    def resolver():   # answers the probe as a fleet resolver does
-        conn = FramedConnection(listener.accept()[0])
-        listener.close()
-        seen.append(conn.recv())
-        conn.send((SERVE_KIND, {'fleet': {'replicas': []}}))
-        try:
-            conn.recv()
-        except OSError:
-            pass
-        conn.close()
-    t = threading.Thread(target=resolver, daemon=True)
-    t.start()
-    with pytest.raises(ValueError, match='serving/fleet.py'):
-        evaluation.load_model('serve://127.0.0.1:%d/line@champion' % port,
-                              make_env(ENVS['TicTacToe']))
-    t.join(timeout=10)
-    assert seen == [[SERVE_KIND, {'op': 'fleet'}]]
+def test_a_fleet_endpoint_is_refused_naming_the_missing_module(tmp_path):
+    """The refusal is gone with the fleet's port: a ``serve://`` spec of a
+    resolver answers through a RoutedClient over its replicas, exactly as
+    the replica itself answers."""
+    from handyrl_tpu_torch.serving.fleet import RoutedClient, ServiceResolver
+    env_args = ENVS['TicTacToe']
+    env = make_env(env_args)
+    torch.manual_seed(9)
+    root = str(tmp_path / 'registry')
+    ModelRegistry(root).publish(
+        'line', snapshot=ModelWrapper(env.net(), 'cpu').snapshot(),
+        version=1, promote=True)
+    args = serving_args(env_args, {}, {'port': 0, 'registry_dir': root})
+    resolver = ServiceResolver(args).start()
+    service = InferenceService(serving_args(env_args, {}, {
+        'port': 0, 'registry_dir': root, 'fleet': {
+            'resolver': '127.0.0.1:%d' % resolver.port,
+            'heartbeat_interval': 0.1}}), device='cpu').start()
+    got = direct = None
+    try:
+        assert resolver.wait_routable(1, timeout=60)
+        got = evaluation.load_model(
+            'serve://127.0.0.1:%d/line@champion' % resolver.port, env)
+        assert isinstance(got, RemoteServiceModel)
+        assert isinstance(got.client, RoutedClient)
+        direct = evaluation.load_model(
+            'serve://127.0.0.1:%d/line@champion' % service.port, env)
+        for obs in observations(env):
+            a, b = got.inference(obs), direct.inference(obs)
+            assert sorted(a) == sorted(b)
+            for k in a:
+                np.testing.assert_array_equal(np.asarray(a[k]),
+                                              np.asarray(b[k]))
+    finally:
+        for model in (got, direct):
+            if model is not None:
+                model.close()
+        service.stop(drain=False)
+        resolver.stop(drain=False)
 
 
 @pytest.mark.parametrize('raw', [

@@ -134,7 +134,11 @@ def test_run_plane_keys_take_the_jax_defaults():
                     'registry_dir': 'reg'}}})['train_args']
     assert over['serving'] == {'publish': True, 'line': 'geese',
                                'registry_dir': 'reg', 'auto_promote': True,
-                               'endpoint': ''}
+                               'endpoint': '', 'metrics_port': 0,
+                               'fleet': JAX_TRAIN_DEFAULTS['serving'][
+                                   'fleet'],
+                               'gateway': JAX_TRAIN_DEFAULTS['serving'][
+                                   'gateway']}
     assert over['guard']['preempt_signals'] is False
     assert over['guard']['nonfinite_policy'] == 'rollback'
 

@@ -224,8 +224,9 @@ def test_config_defaults_to_tictactoe_like_the_reference():
 @pytest.mark.parametrize('train_args,missing', [
     ({'device_generation': True, 'batched_generation': False,
       'generation': {'backend': 'engine'},
-      'serving': {'fleet': {'resolver': 'localhost:9000'}}},
-     ('serving.fleet.resolver', 'not ported', 'item 3')),
+      'serving': {'fleet': {'resolver': 'localhost:9000'},
+                  'gateway': {'metrics_port': 9102}}},
+     ('serving.gateway.metrics_port', 'not ported', 'item 4')),
     ({'device_generation': True, 'device_replay': True,
       'generation': {'backend': 'device'}, 'league': {'enabled': True}},
      ('league.enabled requires serving.publish',)),
@@ -238,10 +239,11 @@ def test_config_defaults_to_tictactoe_like_the_reference():
 def test_tictactoe_on_the_device_path_names_what_is_missing(train_args,
                                                             missing):
     """TicTacToe runs the fused loop in the 'turn' layout, every other
-    device combination, the device actor and engine backends; the planes
-    the JAX package has and the port not yet (the serving fleet's
-    resolver) still raise, naming them, as do the league without the
-    registry it draws from and an engine backend the JAX config refuses."""
+    device combination, the device actor and engine backends (a serving
+    fleet's resolver too); the planes the JAX package has and the port not
+    yet (the metrics exporter) still raise, naming them, as do the league
+    without the registry it draws from and an engine backend the JAX
+    config refuses."""
     with pytest.raises(ConfigError) as exc:
         apply_defaults({'env_args': {'env': 'TicTacToe'},
                         'train_args': train_args})

@@ -133,9 +133,12 @@ def test_cli_without_cuda_raises(tmp_path):
                                     'engine_backend': 'gpu'}},
                  'inference.engine_backend',
                  id='env_args13-train_args13-host inference engine'),
+    # the fleet's resolver runs since the serving fleet was ported; its
+    # exporter port waits for telemetry (ROADMAP.md §1 item 4)
     pytest.param({}, {'generation': {'backend': 'engine'},
-                      'serving': {'fleet': {'resolver': 'localhost:9000'}}},
-                 'serving.fleet.resolver',
+                      'serving': {'fleet': {'resolver': 'localhost:9000',
+                                            'metrics_port': 9100}}},
+                 'serving.fleet.metrics_port 9100.*item 4',
                  id='env_args14-train_args14-inference engine'),
     ({}, {'generation': {'backend': 'gpu'}}, 'generation.backend'),
     ({}, {'batched_generation': False, 'worker': {'num_parallel': 0}},
