@@ -4,8 +4,8 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc`` (CUDA_HOME, PATH or /usr/local/cuda), and exits
 non-zero, printing no result, when either is missing or any phase fails.
-To fit its time, the learner processes of 9(b) with phase 10, of
-11(a)-(c) with 11(d)'s export, of 12(c) and (d), of 13(a), of 13(b), of
+To fit its time, the processes of phase 8 with 9(a)'s, the learner
+processes of 9(b) with phase 10, of 11(a)-(c) with 11(d)'s export, of 12(c) and (d), of 13(a), of 13(b), of
 14(b)/(c) and 14(f), of 16(a) and (b), and of phase 17 with 18(c) and (d)
 run at once, and phase 19's fleet and gateway beside phases 16, 17 and 18
 (each part still checks its own run; their rates, 16(a)'s MTTR and 19's
@@ -123,8 +123,7 @@ latencies share the host and the card).
    other) with their CRC sidecars, wrote one metrics row an epoch with
    the run plane's keys (METRICS_KEYS in every row, each of
    METRICS_SOME_KEYS in some, steps monotonic), took steps = fused
-   dispatches x 64,
-   launched K1 under 'generation' and 'evaluation' (serving form) and K1,
+   dispatches x 64, counted no retrace after warm-up, launched K1 under 'generation' and 'evaluation' (serving form) and K1,
    K2 and K5 under 'training' once a step (no warm-up steps: a graph's
    first call runs eagerly, as a real step), moved every leaf from
    ``10.ckpt`` to the last, and ``latest.ckpt``'s forward on the card
@@ -216,7 +215,25 @@ latencies share the host and the card).
    joined): fails unless both exit 0, the learner closed its epochs with
    (a)'s launch checks, the host's supervisor respawned the gather, and no
    episode counted twice (the ledger's re-issues and dropped duplicates
-   are printed). Each run under PHASE9_TIMEOUT.
+   are printed). Each run under PHASE9_TIMEOUT. Its telemetry
+   (REMOTE_TELEMETRY: tracing every episode, alerts every second, the
+   exporter on a free port, metrics rows): after the kill, one scrape of
+   ``/metrics`` must show ``learner_episodes_returned_total`` > 0, the
+   card's ``device_mem_bytes_in_use{device="cuda:0"}`` above 0 and at
+   most its limit, and the worker host's counters under
+   ``source="fleet"``; ``/statusz`` the progress, the fleet's hosts and
+   the perf block in steady state; ``python -m handyrl_tpu_torch
+   --status`` exits 0. After the run: the collated Chrome JSON holds a
+   trace id whose task_assign, generate, upload, ingest and train_step
+   events come from at least three processes, the host left its
+   ``gather-death`` blackbox dump, the rows' alert blocks show
+   ``heartbeat_misses`` fired, and the learner counted no retrace (a
+   capture after warm-up is a finding, never exempted). The learner has
+   ``profile_epochs: '2'`` (its rates are compared with no other run's):
+   a torch.profiler trace with CUDA activity of its second epoch, which
+   must be valid Chrome JSON with CUDA kernel events; names which of the
+   graphed step's kernels (PROFILED) appear in it. Prints the scrape's
+   latency and the trace events an episode.
 10. Network battles and the model specs, through ``python -m
    handyrl_tpu_torch`` with no --device, on a full-width GeeseNet
    (``torus_impl='pallas'``) and SimpleConv2dModel from seeded inits
@@ -1937,6 +1954,45 @@ def phase_learner(torch, repo, make_env, bench_line, extra=None,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# 9(b)'s learner: a torch.profiler trace of its second epoch (in a run
+# whose rates are compared with no other: the profiler's cost and its
+# export land in that epoch)
+PROFILE_SWITCHES = {'profile_epochs': '2'}
+
+
+def check_profile(label, line):
+    """A run's ``profile_epochs`` trace: valid Chrome JSON with CUDA
+    kernel events (torch.profiler's 'kernel' category). Returns the count
+    of each kernel of PROFILED in it (graph replays included), which it
+    logs; fails without a kernel event."""
+    paths = (line.get('telemetry') or {}).get('profiles') or []
+    if len(paths) != 1:
+        fail('%s wrote %d profiler traces, 1 expected' % (label, len(paths)))
+    t0 = time.monotonic()
+    try:
+        with open(paths[0]) as f:
+            doc = json.load(f)
+    except ValueError as exc:
+        fail('%s: the profiler trace is not valid JSON (%s)' % (label, exc))
+    events = doc.get('traceEvents') or []
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    if not kernels:
+        fail('%s: the profiler trace holds no CUDA kernel event (%d events)'
+             % (label, len(events)))
+    seen = {k: sum(1 for e in kernels if k in e.get('name', ''))
+            for k in PROFILED}
+    log('%s: profile of epoch 2 (%s, %.1f MB, read in %.2f s): %d events, '
+        '%d CUDA kernels; of the graphed step\'s kernels %s appear (%s), '
+        'missing: %s' % (
+            label, os.path.basename(paths[0]),
+            os.path.getsize(paths[0]) / 1e6, time.monotonic() - t0,
+            len(events), len(kernels),
+            [k for k in PROFILED if seen[k]],
+            ', '.join('%s %d' % kv for kv in seen.items()),
+            [k for k in PROFILED if not seen[k]] or 'none'))
+    return seen
+
+
 def check_shm_run(label, line, before, after):
     """A learner run with BATCHER_SWITCHES took the shared-memory path
     (its JSON line's 'batcher_mode' and 'shm': batches mapped, slots used,
@@ -1983,7 +2039,8 @@ def phase_learner_shm(torch, repo, make_env, bench_line, threaded):
     side."""
     before = shm_listing()
     line = phase_learner(torch, repo, make_env, bench_line,
-                         extra=BATCHER_SWITCHES, device_flag=False)
+                         extra=BATCHER_SWITCHES,
+                         device_flag=False)
     check_shm_run('learner (shm)', line, before, shm_listing())
     side_by_side('host learner, batcher threads vs processes with '
                  'shared-memory batches', ('threads', 'shm processes'),
@@ -2406,6 +2463,11 @@ def phase_fused(torch, repo, make_env, learner_line, tmp):
     models = os.path.join(tmp, 'models')
     if line['epochs'] != FUSED_EPOCHS or line['failed']:
         fail('the fused learner trained %s epochs' % line['epochs'])
+    retraces = (line.get('telemetry') or {}).get('retraces')
+    log('fused learner: %s retraces after warm-up' % retraces)
+    if retraces != 0:
+        fail('the fused learner counted %s retraces after warm-up (a CUDA '
+             'graph captured or a kernel built in steady state)' % retraces)
     secs = sorted(line['epoch_seconds'])
     log('fused: %s; epoch_seconds of %d epochs: min %.3f, median %.3f, '
         'max %.3f, sum %.2f' % (
@@ -2530,7 +2592,8 @@ def phase_fused(torch, repo, make_env, learner_line, tmp):
 # slow test: over the last QUICK_LAST epochs at least QUICK_MIN_RESULTS
 # evaluation results and a win rate above QUICK_MIN_WIN_RATE.
 QUICK_CONFIG = 'tictactoe.json'
-QUICK_EPOCHS = 8        # 15 until phase 18, 10 until phase 19 (PERF.md §4)
+QUICK_EPOCHS = 6        # 15 until phase 18, 10 until phase 19, 8 until
+                        # telemetry (PERF.md §4)
 QUICK_LAST = 5
 QUICK_MIN_RESULTS, QUICK_MIN_WIN_RATE = 80, 0.6
 QUICK_GAMES, QUICK_PROCS = 100, 4
@@ -3169,6 +3232,19 @@ WORKERS_REMOTE = {'epochs': 3, 'minimum_episodes': 128,   # 4 until phase 17
 REMOTE_WORKERS = 4
 REMOTE_CHAOS = 'kill_gather=6.45,max_kills=1,seed=0'
 PHASE9_TIMEOUT = 150
+# 9(b)'s telemetry: every episode traced, the alert engine evaluated every
+# second, metrics rows; the exporter's port, the trace and blackbox dirs
+# and the rows' file are set per run
+REMOTE_TELEMETRY = {'trace_sample_rate': 1.0, 'alerts': {'interval': 1.0}}
+# beacons (and the registry snapshots they carry) every 2 s, not every 10
+REMOTE_HEARTBEAT = 2.0
+TRACE_CHAIN = ('task_assign', 'generate', 'upload', 'ingest', 'train_step')
+# the environment the telemetry config is mirrored into: the processes
+# take their settings from their config, never from this process's
+TELEMETRY_ENV = ('HANDYRL_TPU_TRACE', 'HANDYRL_TPU_TRACE_RATE',
+                 'HANDYRL_TPU_BLACKBOX', 'HANDYRL_TPU_RECORDER_EVENTS',
+                 'HANDYRL_TPU_RUN_ID', 'HANDYRL_TPU_TELEMETRY',
+                 'HANDYRL_TPU_RETRACE')
 WORKER_PID = r'(?:started gather|opened worker) \d+ \(pid (\d+)\)'
 
 
@@ -3367,6 +3443,140 @@ def tail(path, n=60):
         return ''.join(f.readlines()[-n:])
 
 
+def prom_values(text, name):
+    """``{labels: value}`` of one metric in Prometheus text."""
+    out = {}
+    for l in text.splitlines():
+        if l.startswith(name + ' ') or l.startswith(name + '{'):
+            key, _, value = l.rpartition(' ')
+            out[key[len(name):]] = float(value)
+    return out
+
+
+def scrape_after_kill(repo, port, host_log, server):
+    """9(b) while it runs: once the chaos line is in the host's log, the
+    learner's ``/metrics``, ``/statusz`` and ``--status`` until they show
+    what the phase checks (the fleet's merge lands at an epoch's close).
+    Returns the numbers it logs."""
+    import urllib.request
+    deadline = time.monotonic() + PHASE9_TIMEOUT
+    while 'chaos: killing gather' not in open(host_log).read():
+        if server.poll() is not None or time.monotonic() > deadline:
+            fail('9(b): no gather was killed while the learner ran')
+        time.sleep(0.5)
+    base = 'http://127.0.0.1:%d' % port
+    last = ''
+    while True:
+        if server.poll() is not None or time.monotonic() > deadline:
+            fail('9(b): the learner ended before its exporter showed the '
+                 'fleet and the card\'s memory; last scrape:\n%s'
+                 % last[-3000:])
+        t0 = time.monotonic()
+        try:
+            text = urllib.request.urlopen(base + '/metrics', timeout=5
+                                          ).read().decode()
+        except OSError as exc:
+            last = str(exc)
+            time.sleep(0.5)
+            continue
+        scrape_ms = 1e3 * (time.monotonic() - t0)
+        last = text
+        returned = prom_values(text, 'learner_episodes_returned_total')
+        in_use = prom_values(text, 'device_mem_bytes_in_use').get(
+            '{device="cuda:0"}', 0.0)
+        limit = prom_values(text, 'device_mem_bytes_limit').get(
+            '{device="cuda:0"}', 0.0)
+        fleet = [l for l in text.splitlines()
+                 if 'source="fleet"' in l and l.startswith(
+                     ('worker_tasks_total', 'gather_uploads_total'))]
+        status = json.loads(urllib.request.urlopen(
+            base + '/statusz', timeout=5).read())
+        perf = status.get('perf') or {}
+        if returned.get('', 0) > 0 and 0 < in_use <= limit and fleet \
+                and status.get('fleet_hosts') and perf.get('steady_state'):
+            break
+        time.sleep(0.5)
+    if not status.get('progress'):
+        fail('9(b): /statusz has no progress: %s' % status)
+    proc = subprocess.run(
+        [sys.executable, '-m', 'handyrl_tpu_torch', '--status',
+         '127.0.0.1:%d' % port], cwd=repo, capture_output=True, text=True,
+        timeout=60)
+    if proc.returncode != 0:
+        fail('9(b): --status exited %d:\n%s%s' % (
+            proc.returncode, proc.stdout[-2000:], proc.stderr[-2000:]))
+    for l in proc.stdout.splitlines():
+        log('  --status: %s' % l)
+    log('workers (remote): /metrics scraped in %.2f ms (%d lines): '
+        'learner_episodes_returned_total %d, device_mem_bytes_in_use '
+        '{device="cuda:0"} %.0f of %.0f, %d worker-host counters under '
+        'source="fleet" (%s); /statusz progress %s, fleet hosts %s, perf '
+        'steady %s, retraces %s' % (
+            scrape_ms, len(text.splitlines()), returned[''], in_use, limit,
+            len(fleet), fleet[0], status['progress'], status['fleet_hosts'],
+            perf.get('steady_state'), perf.get('retraces')))
+    return {'scrape_ms': scrape_ms, 'metrics_lines': len(text.splitlines()),
+            'mem_in_use': in_use, 'mem_limit': limit,
+            'fleet_series': len(fleet)}
+
+
+def check_remote_telemetry(tmp, line, rows):
+    """9(b) after its run: the trace chain across three processes, the
+    host's gather-death dump, heartbeat_misses fired in the rows, no
+    retrace. Returns the trace's numbers."""
+    import glob
+    from collections import defaultdict
+    tel = line.get('telemetry') or {}
+    if tel.get('retraces') != 0:
+        fail('9(b): the learner counted %s retraces after warm-up (a CUDA '
+             'graph captured or a kernel built in steady state)'
+             % tel.get('retraces'))
+    if not tel.get('trace'):
+        fail('9(b): the learner collated no trace')
+    with open(tel['trace']) as f:
+        events = json.load(f)['traceEvents']
+    by_id = defaultdict(lambda: defaultdict(set))
+    for e in events:
+        a = e.get('args') or {}
+        for tid in ([a['trace_id']] if 'trace_id' in a else []) + list(
+                a.get('trace_ids') or ()):
+            by_id[tid][e['name']].add(e['pid'])
+    linked = [t for t, names in by_id.items()
+              if set(TRACE_CHAIN) <= set(names)
+              and len(set().union(*(names[n] for n in TRACE_CHAIN))) >= 3]
+    if not linked:
+        fail('9(b): no trace id has all of %s from three processes (%d ids '
+             'traced)' % (TRACE_CHAIN, len(by_id)))
+    traced = sum(1 for e in events if 'trace_id' in (e.get('args') or {})
+                 or (e.get('args') or {}).get('trace_ids'))
+    dumps = glob.glob(os.path.join(tmp, 'blackbox', 'worker-host-*.json'))
+    reasons = []
+    for path in dumps:
+        with open(path) as f:
+            reasons.append(json.load(f).get('reason'))
+    if 'gather-death' not in reasons:
+        fail('9(b): the worker host left no gather-death dump (%s)'
+             % reasons)
+    fired = [r['epoch'] for r in rows
+             if 'heartbeat_misses' in ((r.get('alerts') or {})
+                                       .get('fired') or {})]
+    if not fired:
+        fail('9(b): no metrics row shows heartbeat_misses fired: %s'
+             % [r.get('alerts') for r in rows])
+    pids = set().union(*(by_id[linked[0]][n] for n in TRACE_CHAIN))
+    log('workers (remote): trace %s: %d events, %d trace ids, %d linked '
+        'through all five hops (%s: pids %s); %.2f traced events an '
+        'episode; gather-death dump %s; heartbeat_misses fired by the rows '
+        'of epochs %s; 0 retraces' % (
+            os.path.basename(tel['trace']), len(events), len(by_id),
+            len(linked), linked[0], sorted(pids),
+            traced / max(1, line['episodes']),
+            os.path.basename(dumps[reasons.index('gather-death')]), fired))
+    return {'trace_events': len(events), 'trace_ids': len(by_id),
+            'linked_ids': len(linked),
+            'events_per_episode': traced / max(1, line['episodes'])}
+
+
 def phase_workers_remote(torch, repo):
     """Phase 9(b): ``--server`` and one worker host of REMOTE_WORKERS
     workers on the card over localhost TCP, on free ports, with a gather
@@ -3375,11 +3585,24 @@ def phase_workers_remote(torch, repo):
     tmp = tempfile.mkdtemp(prefix='chip_smoke_remote_')
     procs = {}
     try:
-        path = worker_plane_config(tmp, WORKERS_REMOTE, worker_args={
-            'server_address': '127.0.0.1', 'num_parallel': REMOTE_WORKERS})
-        entry, data = free_ports(2)
-        env = dict(os.environ, HANDYRL_TPU_ENTRY_PORT=str(entry),
-                   HANDYRL_TPU_DATA_PORT=str(data))
+        entry, data, tport = free_ports(3)
+        metrics = os.path.join(tmp, 'metrics.jsonl')
+        telemetry = dict(REMOTE_TELEMETRY,
+                         trace_dir=os.path.join(tmp, 'traces'),
+                         blackbox_dir=os.path.join(tmp, 'blackbox'))
+        path = worker_plane_config(
+            tmp, dict(WORKERS_REMOTE, telemetry=telemetry,
+                      telemetry_port=tport, metrics_jsonl=metrics,
+                      **PROFILE_SWITCHES,
+                      fault_tolerance=dict(
+                          WORKERS_REMOTE['fault_tolerance'],
+                          heartbeat_interval=REMOTE_HEARTBEAT)),
+            worker_args={'server_address': '127.0.0.1',
+                         'num_parallel': REMOTE_WORKERS})
+        env = {k: v for k, v in os.environ.items()
+               if k not in TELEMETRY_ENV}
+        env.update(HANDYRL_TPU_ENTRY_PORT=str(entry),
+                   HANDYRL_TPU_DATA_PORT=str(data), PYTHONUNBUFFERED='1')
         logs = {k: (os.path.join(tmp, k + '.out'),
                     os.path.join(tmp, k + '.err'))
                 for k in ('server', 'host')}
@@ -3395,6 +3618,8 @@ def phase_workers_remote(torch, repo):
                     env=dict(env, HANDYRL_TPU_CHAOS=REMOTE_CHAOS)
                     if k == 'host' else env)
         deadline = time.monotonic() + PHASE9_TIMEOUT
+        scraped = scrape_after_kill(repo, tport, logs['host'][0],
+                                    procs['server'])
         for k in ('host', 'server'):
             try:
                 procs[k].wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -3441,6 +3666,12 @@ def phase_workers_remote(torch, repo):
         left = processes_left(host_err)
         if left:
             fail('worker or gather processes left after the run: %s' % left)
+        with open(metrics) as f:
+            rows = [json.loads(l) for l in f if l.strip()]
+        line['telemetry_checks'] = dict(
+            scraped, **check_remote_telemetry(tmp, line, rows))
+        line['profiled_kernels'] = check_profile('9(b) the training server',
+                                                 line)
         return line
     finally:
         for proc in procs.values():   # every process a session started
@@ -4773,6 +5004,11 @@ def phase_device_actor(torch, repo, GeeseNet, make_env):
     log('== phase 12(b): the device actor engine, Hungry Geese at full '
         'width, device records')
     geese = phase_da_geese(torch, make_env, GeeseNet)
+    # the engines of (a) and (b) ran in this process and marked its
+    # steady state (process-global, as in a gather): the later phases'
+    # in-process captures are no gather's retraces
+    from handyrl_tpu_torch import telemetry
+    telemetry.clear_steady_state()
     log('== phase 12(c), (d), at once: a local learner with one '
         'DeviceActorGather; --server and a worker host with '
         'worker_args.backend device (TicTacToe)')
@@ -8370,19 +8606,19 @@ def main():
         quick_fused = phase_quick_fused(torch, repo, make_env, quick)
         took('phase 7(c)')
 
+        # 9(a)'s processes run beside phase 8's (independent: phase 8
+        # reads phase 6's model dir, 9(a) writes its own), to fit the time
+        # limit
         log('== phase 8: main path (phase 6\'s checkpoints scored offline; '
-            'a preemption drill)')
-        scored = phase_score_and_drill(repo, fused_tmp)
-        took('phase 8')
+            'a preemption drill), beside phase 9(a)')
+        log('== phase 9(a): main path (the worker plane: a local worker '
+            'cluster)')
+        scored, workers_local = concurrently(
+            lambda: phase_score_and_drill(repo, fused_tmp),
+            lambda: phase_workers_local(torch, repo, make_env, learner))
+        took('phases 8 and 9(a)')
     finally:
         shutil.rmtree(fused_tmp, ignore_errors=True)
-
-    t9 = time.monotonic()
-    log('== phase 9(a): main path (the worker plane: a local worker '
-        'cluster)')
-    workers_local = phase_workers_local(torch, repo, make_env, learner)
-    log('phase 9(a): %.1f s (%s)' % (time.monotonic() - t9,
-                                     nvidia_smi_line()))
 
     # 9(b)'s processes run beside phase 10 (independent: free ports and
     # the battle port), at once to fit the time limit

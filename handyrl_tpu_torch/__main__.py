@@ -21,10 +21,13 @@ registry under ``serving.registry_dir``, else under ``model_dir``
 (the gateway also ``seed`` and ``league``); the learner's modes take only
 the learner's keys there (``config.validate``). With
 ``serving.fleet.resolver`` set, ``--serve`` registers as a fleet replica.
+``--status [HOST:PORT] [--json]`` (``telemetry.status_main``) renders
+a live learner's ``/statusz`` (its ``telemetry_port``; without a target,
+the config's ``telemetry_port`` on localhost) and exits 1 when the fetch
+fails, as the JAX ``main.py --status`` does.
 The device is the card unless ``--device cpu`` is given (a fleet's
-replicas run on it too); the eval server and the gateway load no model
-and ignore it. ``--status`` exits 2, naming the module that is not
-ported yet.
+replicas run on it too); the eval server, the gateway and ``--status``
+load no model and ignore it.
 """
 
 from __future__ import annotations
@@ -52,11 +55,6 @@ modes:
   --status             render a live /statusz health view [HOST:PORT]
                        (active alerts, fleet states, progress, recorder)
 """
-
-NOT_PORTED = {
-    '--status': "telemetry.py's status_main (ROADMAP.md §1 item 4)",
-}
-
 
 SERVING_MODES = ('--serve', '-sv', '--serve-fleet', '-sf', '--gateway',
                  '-gw')
@@ -112,10 +110,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
     mode, rest = rest[0], rest[1:]
     device = opts['--device']
-    if mode in NOT_PORTED:
-        print('mode %s: %s is not ported yet (ROADMAP.md)'
-              % (mode, NOT_PORTED[mode]), file=sys.stderr)
-        return 2
     raw = {}
     if opts['--config']:
         with open(opts['--config']) as f:
@@ -146,6 +140,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     if mode in ('--eval-client', '-ec'):
         from .evaluation import eval_client_main
         return eval_client_main(args, rest, device=device)
+    if mode == '--status':
+        from .telemetry import status_main
+        try:
+            status_main(args['train_args'], rest)
+        except SystemExit as exc:
+            return int(exc.code or 0)
+        return 0
     print('Not found mode %s.' % mode)
     print(USAGE)
     return 1

@@ -10,8 +10,8 @@ or 'device') but does not move the engine: the JAX default 'cpu' never
 puts the port's engine on the host (ROADMAP.md §3). The serving fleet's
 and the match gateway's blocks (``serving.fleet``, ``serving.gateway``)
 have the JAX defaults and checks; a non-zero ``metrics_port`` (the
-Prometheus exporter and ``/statusz``) and the alert knobs wait for
-telemetry (ROADMAP.md §1 item 4). The learner's
+serving tier's Prometheus exporters and ``/statusz``) waits for the
+serving tier's telemetry (ROADMAP.md §1 item 4b). The learner's
 ``TRAIN_DEFAULTS`` hold the knobs of the local learner, of the fused
 device loop, of the worker plane (``batched_generation: false``,
 ``worker``, ``fault_tolerance``, the gathers' ``generation`` backend, the
@@ -19,11 +19,14 @@ per-host inference engine's ``inference`` block and the workers'
 ``serving.endpoint``; ``WORKER_DEFAULTS`` for a worker host)
 and of the run plane (``metrics_jsonl``, ``keep_checkpoints``,
 ``init_params``, ``guard.preempt_signals``, the publish hook's ``serving``
-block) and of the durable plane (``durability``, ``streaming`` with the
+block) and of telemetry (the ``telemetry`` block or bool,
+``telemetry_port``, ``profile_epochs``, ``profile_dir``, with the JAX
+defaults and checks) and of the durable plane (``durability``, ``streaming`` with the
 IMPACT target network) and of the league (``league``: PFSP opponents
 over the registry, the rating book, rating-gated promotion), and
 :func:`validate` raises for anything this port does not run yet (mesh
-parallelism, the metrics exporter, nets other than the ported ones)
+parallelism, the serving tier's exporters, nets other than the ported
+ones)
 instead of ignoring it.
 Without ``env_args`` the env is TicTacToe, as in the JAX package.
 """
@@ -59,7 +62,7 @@ FLEET_DEFAULTS: Dict[str, Any] = {
     'breach_window': 10.0,       # an SLO breach must last this long (s) before a replica is admitted
     'idle_window': 60.0,         # the fleet must be idle this long (s) before a replica is drained
     'quarantine_period': 30.0,   # quarantine (s) before a silent replica is re-admitted (a re-registration re-admits it at once)
-    'metrics_port': 0,           # resolver-side Prometheus /metrics and /statusz port: only 0 (exporter off) until telemetry is ported
+    'metrics_port': 0,           # resolver-side Prometheus /metrics and /statusz port: only 0 (exporter off) until the serving tier's telemetry is ported (ROADMAP.md §1 item 4b)
 }
 
 # the match gateway (serving/gateway.py): game sessions over the fleet
@@ -72,7 +75,7 @@ GATEWAY_DEFAULTS: Dict[str, Any] = {
     'ply_timeout': 15.0,     # per-ply fleet round-trip deadline (s); also bounds journal replays
     'monitor_interval': 0.5, # fleet-table poll period (s) of the handoff/reconstruct monitor (and the workers' routers)
     'session_timeout': 600.0,  # a session with no ply this long (s) is reaped as a drop
-    'metrics_port': 0,       # gateway-side Prometheus /metrics port: only 0 (exporter off) until telemetry is ported
+    'metrics_port': 0,       # gateway-side Prometheus /metrics port: only 0 (exporter off) until the serving tier's telemetry is ported (item 4b)
 }
 
 SERVING_DEFAULTS: Dict[str, Any] = {
@@ -84,7 +87,7 @@ SERVING_DEFAULTS: Dict[str, Any] = {
     'max_clients': 64,      # admission control: connections past this are refused with an error frame
     'drain_timeout': 30.0,  # graceful-drain deadline (s) on SIGTERM before exit 75
     'lock_timeout': 10.0,   # registry manifest-lock deadline (s)
-    'metrics_port': 0,      # service-side Prometheus /metrics port: only 0 (exporter off) until telemetry is ported
+    'metrics_port': 0,      # service-side Prometheus /metrics port: only 0 (exporter off) until the serving tier's telemetry is ported (item 4b)
     'fleet': FLEET_DEFAULTS,
     'gateway': GATEWAY_DEFAULTS,
 }
@@ -202,7 +205,7 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
         'registry_dir': '',       # ModelRegistry root; '' = model_dir
         'publish': False,         # register every numbered checkpoint as '<line>@<epoch>' (pinning it against keep_checkpoints GC)
         'auto_promote': True,     # with publish: each published version also becomes the line's champion
-        'metrics_port': 0,        # the service's Prometheus port: only 0 until telemetry is ported
+        'metrics_port': 0,        # the service's Prometheus port: only 0 until the serving tier's telemetry is ported (item 4b)
         'fleet': FLEET_DEFAULTS,  # with 'resolver': engine-mode workers route through the fleet's replica table (EngineClient._refresh_endpoints)
         'gateway': GATEWAY_DEFAULTS,
     },
@@ -218,6 +221,17 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
     'decode_cache_blocks': 1024,  # LRU capacity (bz2 blocks) of the batchers' decoded-moment cache; 0 disables
     'prefetch_depth': 2,          # batches staged to the device (pinned host memory, a copy stream) ahead of the step
     'compute_dtype': '',          # '' = float32; 'bfloat16' runs the learner's net in bf16 activations (flax's module dtype), params, grads and Adam's moments fp32
+    # telemetry (telemetry.py): the registry, spans, the beacons' fleet
+    # merge, tracing, the flight recorder, alerts, the Prometheus
+    # exporter. A bool (the collection switch) or a block of
+    # telemetry.TELEMETRY_DEFAULTS' keys: enabled, trace_dir (or
+    # HANDYRL_TPU_TRACE, which wins), trace_sample_rate, blackbox_dir,
+    # recorder_events, metrics_rotate_mb, alerts, perf_plane, retrace,
+    # retrace_warmup_epochs
+    'telemetry': True,            # collect metrics (near-zero cost off; also HANDYRL_TPU_TELEMETRY=0)
+    'telemetry_port': 0,          # serve Prometheus text (/metrics) and /statusz on this port (0 = exporter off; a busy port retries, then an ephemeral one is taken and logged)
+    'profile_epochs': '',         # epochs to wrap in a torch.profiler trace with CUDA activity ('3', '2,5', '3-5'); written to <trace_dir|model_dir>/profile unless profile_dir is set
+    'profile_dir': '',            # when set (and profile_epochs is not), profile 20 update steps early in training into it
     # the durable training plane (spool.EpisodeSpool, fault.LedgerJournal):
     # a SIGKILLed remote learner restarts with no admitted episode lost,
     # and surviving gathers reattach through the resume-token handshake
@@ -266,6 +280,28 @@ WORKER_DEFAULTS: Dict[str, Any] = {
     'num_parallel': 8,
     'backend': '',
 }
+
+def parse_epoch_set(spec) -> set:
+    """Parse the ``profile_epochs`` knob: an int, a list of ints, or a
+    comma-separated string accepting ranges ('3', '2,5', '3-5,8')."""
+    if not spec:
+        return set()
+    if isinstance(spec, int):
+        return {int(spec)}
+    if isinstance(spec, (list, tuple)):
+        return {int(x) for x in spec}
+    out: set = set()
+    for part in str(spec).split(','):
+        part = part.strip()
+        if not part:
+            continue
+        if '-' in part and not part.startswith('-'):
+            lo, _, hi = part.partition('-')
+            out.update(range(int(lo), int(hi) + 1))
+        else:
+            out.add(int(part))
+    return out
+
 
 # blocks of planes the port does not have yet: each turns its plane on
 # when one of the named keys is set (truthy; model_parallel above 1)
@@ -424,8 +460,62 @@ def validate(args: Dict[str, Any]) -> None:
              '>= 1')
     _require(float(g['loss_spike_zscore']) >= 0,
              'guard.loss_spike_zscore must be >= 0 (0 disables the trip)')
+    _validate_telemetry(ta)
     _validate_durable_plane(ta)
     _validate_league(ta)
+
+
+def _validate_telemetry(ta: Dict[str, Any]) -> None:
+    """The ``telemetry`` block, ``profile_epochs`` and ``telemetry_port``,
+    with the JAX package's checks (handyrl_tpu/config.py:397-441)."""
+    tel = ta['telemetry']
+    _require(isinstance(tel, (bool, dict)),
+             'telemetry must be a bool or a block (enabled / trace_dir / '
+             'trace_sample_rate / blackbox_dir / recorder_events / '
+             'metrics_rotate_mb / alerts / perf_plane / retrace / '
+             'retrace_warmup_epochs)')
+    tel_enabled = (bool(tel.get('enabled', True)) if isinstance(tel, dict)
+                   else bool(tel))
+    if isinstance(tel, dict):
+        _require(0.0 <= float(tel.get('trace_sample_rate', 1.0)) <= 1.0,
+                 'telemetry.trace_sample_rate must be a fraction in [0, 1]')
+        _require(int(tel.get('recorder_events', 256)) >= 16,
+                 'telemetry.recorder_events must be >= 16 (the '
+                 'flight-recorder ring needs room for a useful postmortem '
+                 'tail)')
+        _require(float(tel.get('metrics_rotate_mb', 0)) >= 0,
+                 'telemetry.metrics_rotate_mb must be >= 0 (0 disables '
+                 'rotation)')
+        alerts = tel.get('alerts', {})
+        _require(isinstance(alerts, (bool, dict, list)),
+                 'telemetry.alerts must be a block ({builtin, interval, '
+                 'rules}), a rule list, or False')
+        if isinstance(alerts, dict) and alerts.get('interval') is not None:
+            _require(float(alerts['interval']) > 0,
+                     'telemetry.alerts interval must be > 0 seconds')
+        rules = alerts.get('rules') if isinstance(alerts, dict) else \
+            (alerts if isinstance(alerts, list) else None)
+        for rule in (rules or []):
+            _require(isinstance(rule, dict) and bool(rule.get('name'))
+                     and bool(rule.get('metric')),
+                     'each telemetry.alerts rule needs at least name + '
+                     'metric')
+        _require(str(tel.get('retrace', 'warn')).lower()
+                 in ('warn', 'abort', 'off'),
+                 "telemetry.retrace must be 'warn', 'abort' or 'off'")
+        _require(int(tel.get('retrace_warmup_epochs', 1)) >= 0,
+                 'telemetry.retrace_warmup_epochs must be >= 0')
+    if ta['profile_epochs']:
+        epochs = parse_epoch_set(ta['profile_epochs'])
+        _require(bool(epochs) and all(e >= 1 for e in epochs),
+                 "profile_epochs must name epochs >= 1 ('3', '2,5', '3-5')")
+    if ta['telemetry_port'] is not None:
+        port = int(ta['telemetry_port'])
+        _require(0 <= port <= 65535, 'telemetry_port must be a TCP port (0 '
+                 'disables the exporter)')
+        _require(port == 0 or tel_enabled,
+                 'telemetry_port needs telemetry enabled (the exporter '
+                 'serves the registry the collection switch turns off)')
 
 
 def _port_ok(value, key: str, zero: str) -> None:
@@ -464,8 +554,8 @@ def validate_serving(srv: Dict[str, Any]) -> None:
 def _validate_tiers(srv: Dict[str, Any]) -> None:
     """``serving.metrics_port`` and the ``fleet`` and ``gateway`` blocks,
     with the JAX package's checks (handyrl_tpu/config.py:486-531). A
-    non-zero ``metrics_port`` asks for the Prometheus exporter, which
-    comes with telemetry (ROADMAP.md §1 item 4)."""
+    non-zero ``metrics_port`` asks for a serving tier's Prometheus
+    exporter, which comes with its telemetry (ROADMAP.md §1 item 4b)."""
     for block, defaults in (('fleet', FLEET_DEFAULTS),
                             ('gateway', GATEWAY_DEFAULTS)):
         _require(isinstance(srv[block], dict),
@@ -479,9 +569,9 @@ def _validate_tiers(srv: Dict[str, Any]) -> None:
                        ('serving.fleet.metrics_port', flt['metrics_port']),
                        ('serving.gateway.metrics_port', gw['metrics_port'])):
         _port_ok(value, key, 'exporter off')
-        _require(not int(value), '%s %d: the Prometheus exporter and '
-                 '/statusz are not ported yet (ROADMAP.md §1 item 4, '
-                 'telemetry)' % (key, int(value)))
+        _require(not int(value), "%s %d: the serving tier's Prometheus "
+                 'exporter and /statusz are not ported yet (ROADMAP.md §1 '
+                 "item 4b, the serving tier's telemetry)" % (key, int(value)))
     for key in ('heartbeat_interval', 'heartbeat_timeout', 'refresh_interval',
                 'breach_window', 'idle_window', 'quarantine_period'):
         _require(float(flt[key]) > 0, 'serving.fleet.%s must be > 0' % key)

@@ -53,6 +53,10 @@ from . import telemetry
 _HEADER = struct.Struct('!i')
 _EXT_NDARRAY = 1
 
+# the wire's byte and frame counters (every framed socket of the process)
+_NET_TX = telemetry.counter('net_bytes_sent_total')
+_NET_RX = telemetry.counter('net_bytes_recv_total')
+_NET_FRAMES_TX = telemetry.counter('net_frames_sent_total')
 _LOG = telemetry.get_logger('connection')
 
 
@@ -369,6 +373,8 @@ class FramedConnection:
                              % len(payload))
         with self._send_lock:
             self.sock.sendall(_HEADER.pack(len(payload)) + payload)
+        _NET_TX.inc(_HEADER.size + len(payload))
+        _NET_FRAMES_TX.inc()
 
     @staticmethod
     def _decode(payload: bytes):
@@ -386,6 +392,7 @@ class FramedConnection:
             chunk = self.sock.recv(1 << 16)
             if not chunk:
                 raise ConnectionResetError('peer closed')
+            _NET_RX.inc(len(chunk))
             self._ready.extend(self._parser.feed(chunk))
         return self._decode(self._ready.popleft())
 
@@ -418,6 +425,7 @@ class FramedConnection:
             return []
         if not chunk:
             raise ConnectionResetError('peer closed')
+        _NET_RX.inc(len(chunk))
         self._ready.extend(self._parser.feed(chunk))
         out = [self._decode(p) for p in self._ready]
         self._ready.clear()
@@ -661,6 +669,7 @@ class Hub:
             self._last_recv[endpoint] = time.monotonic()
             self._commands.append(('+', endpoint))
             self.stats['attached'] = self.stats.get('attached', 0) + 1
+            telemetry.gauge('hub_peers').set(len(self._outboxes))
         threading.Thread(target=self._write_loop, args=(endpoint, outbox),
                          name='hub-write', daemon=True).start()
         self._wake()
@@ -681,8 +690,10 @@ class Hub:
                 key = 'disconnect_' + reason
                 self.stats[key] = self.stats.get(key, 0) + 1
                 self._detach_events.append((endpoint, reason, time.time()))
+                telemetry.gauge('hub_peers').set(len(self._outboxes))
         if outbox is None:
             return
+        telemetry.counter('hub_disconnects_total', reason=reason).inc()
         _LOG.info('disconnected %s (%s)', _describe(endpoint), reason)
         try:
             outbox.put_nowait(_WRITER_EXIT)
@@ -786,6 +797,7 @@ class Hub:
                                 self._peer_info[ep] = msg[1]
                             self.stats['heartbeats'] = (
                                 self.stats.get('heartbeats', 0) + 1)
+                        telemetry.counter('hub_heartbeats_total').inc()
                         continue
                     self._inbox.put((ep, msg))
             self._apply_commands()

@@ -47,8 +47,9 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from .generation import (Generator, _blank_moment, bucketed_inference,
-                         build_chunk, finalize_episode_record, masked_sample,
+from . import telemetry
+from .generation import (Generator, _blank_moment, _finalize_episode,
+                         bucketed_inference, build_chunk, masked_sample,
                          pad_to_bucket, sample_seed, seed_env_rng)
 from .ops.batch import compress_moments
 from .ops.device_windows import flatten_window_keys, unflatten_window_keys
@@ -818,6 +819,13 @@ class DeviceActorEngine:
                       'block_seconds': 0.0, 'streamed_chunks': 0}
         self.last_block: Dict[str, Any] = {}
         self.emit = None            # the streaming sink (the gather's)
+        self._m_plies = telemetry.counter('device_actor_plies_total')
+        self._m_episodes = telemetry.counter('device_actor_episodes_total')
+        self._m_results = telemetry.counter('device_actor_results_total')
+        self._m_divergence = telemetry.counter(
+            'device_actor_divergence_total')
+        self._m_chunk = telemetry.histogram('device_actor_chunk_seconds')
+        self._m_fill = telemetry.gauge('device_actor_fill_ratio')
 
     @property
     def captures(self) -> int:
@@ -1112,6 +1120,7 @@ class DeviceActorEngine:
             if cuda:
                 chunk_ms.append(start.elapsed_time(end))
             self.stats['chunk_seconds'] += time.perf_counter() - t0
+            self._m_chunk.observe(time.perf_counter() - t0)
             chunks.append(rec)
             if stream is not None:
                 self._stream_lanes(plan, rec, stream)
@@ -1133,6 +1142,8 @@ class DeviceActorEngine:
         self.stats['plies'] += plies
         self.stats['scheduled_plies'] += scheduled
         self.stats['chunks'] += len(chunks)
+        self._m_plies.inc(plies)
+        self._m_fill.set(plies / max(1, scheduled))
 
         uploads = []
         for i, cls in enumerate(plan):
@@ -1157,6 +1168,8 @@ class DeviceActorEngine:
                     payload = None
             self.stats['none_payloads'] += payload is None
             uploads.append((cls['kind'], payload))
+        if self.blocks == 1:
+            telemetry.mark_steady_state(note='device actor warmup complete')
         seconds = time.perf_counter() - t_block
         self.stats['block_seconds'] += seconds
         self.last_block = {'lanes': len(plan), 'chunks': len(chunks),
@@ -1236,6 +1249,10 @@ class DeviceActorEngine:
                                           outcome=outcome)
                     st['done'] = True
                     self.stats['episodes'] += 1
+                    telemetry.counter('episodes_generated_total').inc()
+                    telemetry.counter('generation_steps_total').inc(
+                        len(st['moments']))
+                    self._m_episodes.inc()
             except Exception:
                 import traceback
                 traceback.print_exc()
@@ -1243,6 +1260,7 @@ class DeviceActorEngine:
                 # and the deadline re-issues the task
                 st['done'] = True
                 self.stats['none_payloads'] += 1
+                telemetry.counter('worker_task_failures_total').inc()
 
     def _emit_lane_chunk(self, cls, st, final, outcome=None, upto=None):
         """Send one window of a streamed lane, stamped ``record_version``
@@ -1265,6 +1283,7 @@ class DeviceActorEngine:
         ``{'args', 'opponent', 'result'}``)."""
         k = ks[-1]
         self.stats['results'] += 1
+        self._m_results.inc()
         return {'args': cls['task'], 'opponent': cls['opponent'],
                 'result': {p: float(rec['outcome'][k, lane, p])
                            for p in range(self.num_players)}}
@@ -1290,6 +1309,9 @@ class DeviceActorEngine:
                        + self.args['gamma'] * ret)
                 moments[t]['return'][p] = ret
         self.stats['episodes'] += 1
+        telemetry.counter('episodes_generated_total').inc()
+        telemetry.counter('generation_steps_total').inc(len(moments))
+        self._m_episodes.inc()
         return {
             'args': cls['task'], 'steps': len(moments), 'outcome': outcome,
             'moment': compress_moments(
@@ -1349,8 +1371,10 @@ class DeviceActorEngine:
             episode = None
         if episode is None:
             self.stats['divergences'] += 1
+            self._m_divergence.inc()
             return self._host_rerun(task)
         self.stats['episodes'] += 1
+        self._m_episodes.inc()
         return episode
 
     def _replay_strict(self, task, lane, rec, ks):
@@ -1391,23 +1415,25 @@ class DeviceActorEngine:
         groups: Dict[int, list] = {}
         for j, ply in enumerate(plies):
             groups.setdefault(id(models[ply[0]]), []).append(j)
-        for idxs in groups.values():
-            model = models[plies[idxs[0]][0]]
-            if not hasattr(model, 'batch_inference'):
-                for j in idxs:               # RandomModel: zero outputs
-                    outputs[j] = bucketed_inference(model, plies[j][1])
-                continue
-            for lo in range(0, len(idxs), 8):
-                part = idxs[lo:lo + 8]
-                obs_b, _ = pad_to_bucket([plies[j][1] for j in part])
-                out = model.batch_inference(obs_b, None)
-                policy = np.asarray(out['policy'])
-                value = (np.asarray(out['value'])
-                         if out.get('value') is not None else None)
-                for row, j in enumerate(part):
-                    outputs[j] = {'policy': policy[row],
-                                  'value': (value[row] if value is not None
-                                            else None)}
+        with telemetry.expected_compile('device-actor strict recompute'):
+            for idxs in groups.values():
+                model = models[plies[idxs[0]][0]]
+                if not hasattr(model, 'batch_inference'):
+                    for j in idxs:           # RandomModel: zero outputs
+                        outputs[j] = bucketed_inference(model, plies[j][1])
+                    continue
+                for lo in range(0, len(idxs), 8):
+                    part = idxs[lo:lo + 8]
+                    obs_b, _ = pad_to_bucket([plies[j][1] for j in part])
+                    out = model.batch_inference(obs_b, None)
+                    policy = np.asarray(out['policy'])
+                    value = (np.asarray(out['value'])
+                             if out.get('value') is not None else None)
+                    for row, j in enumerate(part):
+                        outputs[j] = {'policy': policy[row],
+                                      'value': (value[row]
+                                                if value is not None
+                                                else None)}
 
         moments = []
         for j, (p, obs, legal, seed_seq, reward, a_dev) in enumerate(plies):
@@ -1425,7 +1451,7 @@ class DeviceActorEngine:
                 moment['reward'][player] = reward.get(player, None)
             moment['turn'] = [p]
             moments.append(moment)
-        return finalize_episode_record(env.outcome(), moments, args, task)
+        return _finalize_episode(env, moments, args, task)
 
     def _host_rerun(self, task):
         """The byte-exact fallback: the host Generator plays the task from
@@ -1433,4 +1459,5 @@ class DeviceActorEngine:
         if self._gen is None:
             self._gen = Generator(self.host_env, self.args, namespace=-1)
         models = self.vault.obtain(dict(task['model_id']))
-        return self._gen.execute(models, task)
+        with telemetry.expected_compile('device-actor host rerun'):
+            return self._gen.execute(models, task)

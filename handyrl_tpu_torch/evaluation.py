@@ -48,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from . import telemetry
 from .agent import Agent, RandomAgent, RuleBasedAgent
 from .connection import (_bare_main, accept_socket_connections,
                          connect_socket_connection, send_recv)
@@ -308,7 +309,9 @@ class Evaluator:
         agents = {p: Agent(model) if model is not None
                   else self._opponent_agent(opponent)
                   for p, model in models.items()}
-        results = exec_match(self.env, agents)
+        with telemetry.trace_span(
+                'evaluate', trace_id=telemetry.episode_trace_id(eval_args)):
+            results = exec_match(self.env, agents)
         if results is None:
             print('None episode in evaluation!')
             return None

@@ -129,6 +129,13 @@ class TaskLedger:
         self.stats['assigned'] += 1
         if self.journal is not None:
             self.journal.record('a', tid, base)
+        if telemetry.trace_enabled():
+            # the trace context is born here: the server-stamped
+            # sample_key becomes the trace id every later hop derives
+            ttid = telemetry.episode_trace_id(role_args)
+            if ttid:
+                telemetry.trace_event('task_assign', trace_id=ttid,
+                                      task_id=tid)
         return tid
 
     def _unbook(self, tid):
@@ -155,15 +162,24 @@ class TaskLedger:
     def admit(self, items):
         """Filter an upload batch through the book (see the class
         docstring). A None item (a failed episode) passes: its task's
-        deadline re-issues it."""
+        deadline re-issues it. Each admitted booked item closes its trace
+        chain's delivery hop: an ``ingest`` event on the shared trace
+        id."""
         out = []
+        tracing = telemetry.trace_enabled()
         for item in items:
             if item is None:
                 out.append(item)
                 continue
-            tid = (item.get('args') or {}).get('task_id')
+            args = item.get('args') or {}
+            tid = args.get('task_id')
             if tid is None or self.complete(tid):
                 out.append(item)
+                if tracing and tid is not None:
+                    ttid = telemetry.episode_trace_id(args)
+                    if ttid:
+                        telemetry.trace_event('ingest', trace_id=ttid,
+                                              task_id=tid)
         return out
 
     def admit_chunks(self, items):
@@ -177,6 +193,7 @@ class TaskLedger:
         journal as ``p`` ops at the next flush."""
         from .streaming import chunk_key
         out = []
+        tracing = telemetry.trace_enabled()
         for chunk in items:
             if chunk is None:
                 continue
@@ -196,6 +213,13 @@ class TaskLedger:
                                .get('task_id') or -1), list(key), ci)))
             telemetry.counter('chunks_ingested_total').inc()
             out.append(chunk)
+            if tracing:
+                args = chunk.get('args') or {}
+                ttid = telemetry.episode_trace_id(args)
+                if ttid:
+                    telemetry.trace_event('ingest', trace_id=ttid,
+                                          task_id=args.get('task_id'),
+                                          chunk=ci)
         return out
 
     def seed_chunk(self, key, ci: int):
@@ -255,6 +279,7 @@ class TaskLedger:
         self.stats['reissued'] += 1
         if self.journal is not None:
             self.journal.record('s', tid)
+        telemetry.record_event('stranding', str(endpoint), reason=reason)
 
     def fail_endpoint(self, endpoint) -> int:
         """Re-queue every task booked against a detached endpoint."""
@@ -284,6 +309,8 @@ class TaskLedger:
             tid, base = self._restored_reissue.popleft()
             if self.cancel(tid) is not None:
                 self.stats['reissued'] += 1
+                telemetry.record_event('stranding', RESTORED_ENDPOINT,
+                                       reason='restart')
                 return copy.deepcopy(base)
         return self._reissue.popleft() if self._reissue else None
 
@@ -643,6 +670,8 @@ class FleetController:
         if prev != state:
             self._state[host] = state
             self._transitions.append((host, prev, state, self._clock()))
+            telemetry.record_event('transition', host, **{
+                'from': prev, 'to': state})
 
     def _prune(self, host: str, now: float):
         horizon = now - self.health_window

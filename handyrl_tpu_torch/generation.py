@@ -22,12 +22,19 @@ request before it collects any reply.
 from __future__ import annotations
 
 import random
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import telemetry
 from .ops.batch import MOMENT_KEYS, compress_moments
 from .utils.tree import map_structure, softmax, stack_structure
+
+# every finished episode of any engine counts here; the registries ride
+# the beacons, so the learner sees the fleet's generation volume
+_EPISODES = telemetry.counter('episodes_generated_total')
+_STEPS = telemetry.counter('generation_steps_total')
 
 
 def sample_seed(base_seed, episode_key: Sequence[int], draw_index: int
@@ -172,10 +179,24 @@ def finalize_episode_record(outcome, moments: List[dict],
         for i, m in reversed(list(enumerate(moments))):
             ret = (m['reward'][player] or 0) + args['gamma'] * ret
             moments[i]['return'][player] = ret
+    t0 = time.perf_counter()
     blocks = compress_moments(moments, args['compress_steps'],
                               level=args.get('compress_level', 9))
+    telemetry.REGISTRY.observe_stage('compress', time.perf_counter() - t0)
     return {'args': gen_args, 'steps': len(moments), 'outcome': outcome,
             'moment': blocks}
+
+
+def _finalize_episode(env, moments: List[dict], args: Dict[str, Any],
+                      gen_args: Dict[str, Any]) -> Optional[dict]:
+    """:func:`finalize_episode_record` of a generator's finished env,
+    counted in ``episodes_generated_total`` and
+    ``generation_steps_total``."""
+    record = finalize_episode_record(env.outcome(), moments, args, gen_args)
+    if record is not None:
+        _EPISODES.inc()
+        _STEPS.inc(len(moments))
+    return record
 
 
 def build_chunk(gen_args: Dict[str, Any], chunk_index: int, base: int,
@@ -312,14 +333,20 @@ class Generator:
             emit(build_chunk(gen_args, stream['chunk'], stream['flushed'],
                              moments[stream['flushed']:], self.args,
                              final=True, outcome=self.env.outcome()))
+            _EPISODES.inc()
+            _STEPS.inc(len(moments))
             return {'streamed': True, 'args': gen_args,
                     'steps': len(moments)}
 
-        return finalize_episode_record(self.env.outcome(), moments,
-                                       self.args, gen_args)
+        return _finalize_episode(self.env, moments, self.args, gen_args)
 
     def execute(self, models, gen_args, emit=None) -> Optional[dict]:
-        episode = self.generate(models, gen_args, emit=emit)
+        # the worker's hop of the task_assign -> generate -> upload ->
+        # ingest -> train_step chain, keyed by the task's trace id
+        with telemetry.trace_span(
+                'generate', trace_id=telemetry.episode_trace_id(gen_args),
+                worker=self.namespace):
+            episode = self.generate(models, gen_args, emit=emit)
         if episode is None:
             print('None episode in generation!')
         return episode
@@ -430,9 +457,8 @@ class BatchedGenerator:
                 moment['reward'][player] = reward.get(player, None)
             self._moments[i].append(moment)
             if env.terminal():
-                episode = finalize_episode_record(
-                    env.outcome(), self._moments[i], self.args,
-                    self._gen_args(env))
+                episode = _finalize_episode(
+                    env, self._moments[i], self.args, self._gen_args(env))
                 if episode is not None:
                     finished.append(episode)
                 self._reset_slot(i)

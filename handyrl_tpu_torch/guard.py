@@ -80,6 +80,13 @@ class PreemptionGuard:
         self._count += 1
         self.signum = signum
         self._event.set()
+        if self._count == 1:
+            # the handler runs between bytecodes on the main thread, which
+            # may hold the recorder's or the registry's lock: the dump
+            # runs on a side thread so it can never deadlock the handler
+            threading.Thread(
+                target=telemetry.dump_blackbox, args=('preempt',),
+                kwargs={'signum': int(signum)}, daemon=True).start()
         if self._count >= 3:
             # operator insists: skip the graceful snapshot entirely
             os._exit(128 + signum)
@@ -116,10 +123,16 @@ class NonFiniteGuard:
         if bad:
             self.total_bad += bad
             self.consecutive += bad
+            telemetry.record_event('guard', 'nonfinite updates', bad=int(bad),
+                                   consecutive=int(self.consecutive))
             if self.policy == 'abort':
+                telemetry.dump_blackbox('nonfinite-abort', bad=int(bad),
+                                        total_bad=int(self.total_bad))
                 return 'abort'
             if (self.policy == 'rollback'
                     and self.consecutive >= self.rollback_after):
+                telemetry.record_event('guard', 'nonfinite rollback',
+                                       consecutive=int(self.consecutive))
                 return 'rollback'
             return 'skip'
         if good:
@@ -138,6 +151,8 @@ class NonFiniteGuard:
             if abs(loss - self._loss_mean) > self.zscore * std:
                 trip = 'rollback' if self.policy == 'rollback' else None
                 if trip:
+                    telemetry.record_event('guard', 'loss spike rollback',
+                                           loss=round(loss, 6))
                     _LOG.warning('guard: loss spike %.4g (mean %.4g, std '
                                  '%.4g) tripped the z-score guard', loss,
                                  self._loss_mean, std)

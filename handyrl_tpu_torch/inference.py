@@ -38,8 +38,11 @@ either path.
   per-worker path and the degraded path read.
 
 With ``serving.fleet.resolver`` the client follows the serving fleet's
-replica table (``_refresh_endpoints``). Not ported yet: the engine's trace
-spans, ``record_event`` and ``dump_blackbox`` (ROADMAP.md §1 item 4).
+replica table (``_refresh_endpoints``). The engine writes a
+``queue_wait`` trace event per sampled request and an ``engine_batch``
+span per coalesced forward; the supervisor records each restart in the
+flight recorder and dumps a blackbox (``engine-crash``,
+``engine-stall``).
 """
 
 from __future__ import annotations
@@ -843,7 +846,7 @@ class InferenceEngine:
                 groups.setdefault(int(item[1]['mid']), []).append(item)
             for mid, group in groups.items():
                 try:
-                    self._serve_group(mid, group)
+                    self._serve(mid, group)
                 except Exception as exc:
                     _LOG.warning('engine: serving model %d failed (%s: %s)',
                                  mid, type(exc).__name__, str(exc)[:200])
@@ -857,6 +860,29 @@ class InferenceEngine:
                 self.last_progress = time.monotonic()
             with self._cv:
                 self._current = []
+
+    def _serve(self, mid: int, group: List[tuple]):
+        """One coalesced forward inside an ``engine_batch`` span (a
+        rate-sampled trace event and the stage_seconds histogram), after a
+        ``queue_wait`` event (intake to batch start) for each request with
+        a sampled trace id; the batch span then carries their ids."""
+        extra: Dict[str, Any] = {}
+        if telemetry.trace_enabled():
+            now_mono, now_wall = time.monotonic(), time.time()
+            tids = []
+            for _ep, req, t_arr in group:
+                tid = req.get('trace')
+                if not (tid and telemetry.trace_sampled(tid)):
+                    continue
+                tids.append(tid)
+                wait = max(0.0, now_mono - t_arr)
+                telemetry.trace_event('queue_wait', ts=now_wall - wait,
+                                      dur=wait, trace_id=tid, mid=mid)
+            if tids:
+                extra = {'trace_ids': tids, 'always': True}
+        with telemetry.trace_span('engine_batch', rows=len(group), mid=mid,
+                                  **extra):
+            self._serve_group(mid, group)
 
     def _serve_group(self, mid: int, group: List[tuple]):
         self._ensure_vault()
@@ -953,9 +979,9 @@ class EngineSupervisor:
     both are set) on an exponential clock, at most ``engine_max_faults=<n>``
     in all; ``enginestall_secs=<s>`` is the stall's length (default 3600).
 
-    The JAX supervisor also records each restart in its flight recorder
-    (``record_event``) and dumps a blackbox; those wait for the port's
-    telemetry (ROADMAP.md §1 item 4).
+    Each restart is recorded in the flight recorder (``record_event``)
+    and dumped as a blackbox (``engine-<reason>``) once the new engine
+    is up, where the JAX supervisor dumps before its backoff.
     """
 
     RESET_AFTER = 60.0   # an engine alive this long resets the backoff
@@ -1142,6 +1168,9 @@ class EngineSupervisor:
         self.restarts += 1
         self.restarts_by_reason[reason] += 1
         self._m_restarts[reason].inc()
+        telemetry.record_event('supervisor', 'engine %s declared' % reason,
+                               restarts=self.restarts,
+                               stranded=len(stranded))
         delay = self._backoff.next_delay()
         _LOG.warning('engine %s detected (progress %.1fs ago, %d request(s) '
                      'error-answered); restarting in %.1fs',
@@ -1150,3 +1179,7 @@ class EngineSupervisor:
         with self._lock:
             if not self._stopping:
                 self.engine = self._spawn()
+        # the dump (a synchronous, fsync'd file) once the new engine
+        # serves, off the restart's path
+        telemetry.dump_blackbox('engine-' + reason, restarts=self.restarts,
+                                stranded=len(stranded))

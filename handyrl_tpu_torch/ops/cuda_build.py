@@ -8,7 +8,9 @@ into ``handyrl_tpu_torch/_build/``. Library names carry a hash of the
 source, so an edited kernel is never served by a stale build, and each
 library is renamed into place only when complete, so processes that build
 at the same time never load half a file. A failed build raises with the
-compiler's output: there is no fallback.
+compiler's output: there is no fallback. A build is a
+``telemetry.compile_scope('kernel_build')``: counted and timed, and after
+steady state seen by the retrace sentinel.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import tempfile
 import threading
 import time
 from typing import Dict, Iterable, Optional
+
+from .. import telemetry
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
@@ -67,6 +71,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     todo = [n for n in names if not os.path.exists(library_path(n))]
     if not todo:
         return {}
+    with telemetry.compile_scope('kernel_build', ','.join(todo)):
+        return _build(todo)
+
+
+def _build(todo) -> Dict[str, float]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}

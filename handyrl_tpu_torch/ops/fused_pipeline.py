@@ -36,6 +36,7 @@ pipeline sharded over several cards.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -99,6 +100,7 @@ class FusedPipeline:
         self.fused_dispatches = 0        # the dispatches that trained
         self.ring_size_host = 0
         self.windows_ingested_host = 0   # cumulative, past the ring's wraps
+        self.fetch_seconds = 0.0   # the host's waits on the packed fetches
 
     @torch.no_grad()
     def _probe_records(self) -> Dict[str, Tensor]:
@@ -154,7 +156,14 @@ class FusedPipeline:
         self.dispatches += 1
         if prev is None:
             return None
-        return self._parse(PackedFetch.get(prev))
+        return self._parse(self._wait(prev))
+
+    def _wait(self, handle) -> np.ndarray:
+        t0 = time.perf_counter()
+        try:
+            return PackedFetch.get(handle)
+        finally:
+            self.fetch_seconds += time.perf_counter() - t0
 
     def refresh_actor(self, params: Dict[str, Tensor]) -> None:
         """Copy ``params`` (the trainer's, on the device) into the actor's
@@ -190,7 +199,7 @@ class FusedPipeline:
         if self._pending is None:
             return None
         prev, self._pending = self._pending, None
-        return self._parse(PackedFetch.get(prev))
+        return self._parse(self._wait(prev))
 
     def release(self) -> None:
         """Drop the graphs, the ring and the history (the counters stay)."""

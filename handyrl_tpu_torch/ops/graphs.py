@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import launches
 
 Tensor = torch.Tensor
@@ -43,12 +44,19 @@ class CountedGraph:
     replays its own graph, copies or synchronises on its own stream
     meanwhile (the split generator beside the threaded replay trainer)
     does not spoil it. :attr:`out` holds the tensors the capture returned,
-    rewritten by each replay."""
+    rewritten by each replay. The warm-up and the capture are one
+    ``telemetry.compile_scope('graph_capture')``: counted and timed, and
+    after steady state seen by the retrace sentinel, which records it by
+    ``name`` (default: ``fn``'s), unless ``of_warmup`` (a capture that
+    completes a program's warm-up)."""
 
     def __init__(self, fn: Callable[[], Any], stream: torch.cuda.Stream,
                  generators: Sequence[torch.Generator] = (),
-                 warmup: Optional[Callable[[], None]] = None):
-        with launches.capture_lock:
+                 warmup: Optional[Callable[[], None]] = None,
+                 name: str = '', of_warmup: bool = False):
+        with telemetry.compile_scope(
+                'graph_capture', name or getattr(fn, '__qualname__', ''),
+                of_warmup=of_warmup), launches.capture_lock:
             if warmup is not None:
                 warmup()
             stream.wait_stream(torch.cuda.current_stream(stream.device))
@@ -79,7 +87,10 @@ class CapturedCall:
     static tensors in place and returns its outputs; a graph's outputs are
     the tensors its capture returned, rewritten by each replay. On the CPU
     ``fn`` runs eagerly on every call. :attr:`captures` counts the graphs
-    captured (at most 1).
+    captured (at most 1). The JAX package compiles a program at its
+    first call and the port captures it at the second: a capture whose
+    first call came before steady state belongs to the warm-up, so the
+    retrace sentinel does not count it.
 
     ``fn(*args)`` is what runs. A bound method ``fn`` is held weakly: its
     owner keeps this call, so a strong hold would make a reference cycle,
@@ -99,6 +110,7 @@ class CapturedCall:
         self.calls = 0
         self.graph: Optional[CountedGraph] = None
         self.captures = 0
+        self._first_call_warm = True   # the first call preceded steady state
         self._side = (torch.cuda.Stream(self.device)
                       if self.device.type == 'cuda' else None)
 
@@ -114,6 +126,7 @@ class CapturedCall:
         if self.device.type != 'cuda':
             return self.fn()
         if self.calls == 1:
+            self._first_call_warm = not telemetry.steady_state_active()
             cur = torch.cuda.current_stream(self.device)
             self._side.wait_stream(cur)
             with torch.cuda.stream(self._side):
@@ -121,7 +134,10 @@ class CapturedCall:
             cur.wait_stream(self._side)
             return out
         if self.graph is None:
-            self.graph = CountedGraph(self.fn, self._side, self.generators)
+            fn = self._fn()
+            self.graph = CountedGraph(self.fn, self._side, self.generators,
+                                      name=getattr(fn, '__qualname__', ''),
+                                      of_warmup=self._first_call_warm)
             self.captures += 1
         return self.graph.replay()
 

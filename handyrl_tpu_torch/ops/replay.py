@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from .device_windows import flatten_window_keys
 
 Tensor = torch.Tensor
@@ -25,6 +26,14 @@ Tensor = torch.Tensor
 # windows, and at most 49152 windows in all
 MAX_RING_EPISODES = 4096
 MAX_RING_WINDOWS = 49152
+
+
+# the ring's host-side accounting (pushes and eager samples; a captured
+# K-step update draws its slots inside the graph)
+_WINDOWS = telemetry.counter('replay_windows_ingested_total')
+_SAMPLES = telemetry.counter('replay_samples_drawn_total')
+_SIZE = telemetry.gauge('replay_ring_size')
+_OCC = telemetry.gauge('replay_ring_occupancy')
 
 
 def windows_per_episode(args: Dict[str, Any]) -> int:
@@ -121,6 +130,9 @@ class DeviceReplay:
         self.size = min(self.size + n, self.capacity)
         self.size_t.fill_(self.size)
         self.cursor_t.fill_(self.cursor)
+        _WINDOWS.inc(n)
+        _SIZE.set(self.size)
+        _OCC.set(self.size / self.capacity)
 
     def sample(self, batch_size: int, generator: Optional[torch.Generator]
                = None, u: Optional[Tensor] = None) -> Dict[str, Tensor]:
@@ -129,6 +141,7 @@ class DeviceReplay:
         ``generator``."""
         if self.size <= 0:
             raise ValueError('sampling from an empty replay buffer')
+        _SAMPLES.inc(batch_size)
         if u is None:
             u = torch.rand((batch_size,), generator=generator,
                            device=self.device)

@@ -182,6 +182,18 @@ class ArenaRing:
                 pass   # already unlinked (the resource tracker won)
 
 
+def selected_trace_ids(selected) -> List[str]:
+    """The sorted, deduplicated and sampled trace ids of the episodes a
+    batch's windows were selected from (recency bias repeats
+    episodes)."""
+    out = set()
+    for sel in selected:
+        tid = telemetry.episode_trace_id(sel.get('args') or {})
+        if tid and telemetry.trace_sampled(tid):
+            out.add(tid)
+    return sorted(out)
+
+
 def _exit_on_sigterm(signum, frame):
     raise SystemExit(0)   # through the builder's finally, which unlinks
 
@@ -273,6 +285,10 @@ def batcher_process_shm(conn, bid: int):
                     return
                 make_batch(selected, args, out=ring.views[slot], cache=cache)
             desc['slot'] = slot
+            if telemetry.trace_enabled():
+                # the sampled episode trace ids of the slot's windows: the
+                # trainer's train_step trace event links back through them
+                desc['trace'] = selected_trace_ids(selected)
             conn.send(desc)
     finally:
         # this process owns the segments: unlink them on any exit
@@ -310,18 +326,21 @@ class ArenaMap:
 
 
 class SharedBatch:
-    """A mapped batch plus the callback that frees its slot in the child.
+    """A built batch, the sampled episode trace ids of its windows (None
+    while tracing is off) and, for a batch mapped from a child's slot, the
+    callback that frees the slot (None for a batcher thread's batch).
 
     The consumer calls :meth:`release` once the data has been read (the
     trainer: after the copy into its pinned staging buffers, or after the
     step on the CPU); further calls do nothing. The child never overwrites
     a slot that has not been released."""
 
-    __slots__ = ('batch', '_release')
+    __slots__ = ('batch', '_release', 'trace_ids')
 
-    def __init__(self, batch: Dict[str, Any], release_fn):
+    def __init__(self, batch: Dict[str, Any], release_fn, trace_ids=None):
         self.batch = batch
         self._release = release_fn
+        self.trace_ids = trace_ids
 
     def release(self):
         fn, self._release = self._release, None

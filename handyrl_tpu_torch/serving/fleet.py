@@ -27,7 +27,7 @@ Each managed replica is a ``python -m handyrl_tpu_torch.serving`` process
 on the device the resolver's caller names (``--device``, 'cuda' unless
 asked otherwise), with its own CUDA context and its own K1 launches. The
 resolver's alerts, its Prometheus exporter (``/statusz``) and the trace
-spans wait for telemetry (ROADMAP.md §1 item 4).
+spans wait for the serving tier's telemetry (ROADMAP.md §1 item 4b).
 """
 
 from __future__ import annotations

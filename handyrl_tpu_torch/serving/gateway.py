@@ -36,7 +36,8 @@ opponents' seeds are :func:`~..generation.sample_seed` draws under
 journal. A reply's hidden state is numpy from the engine (it turns the
 device's tensors into numpy at the reply), so digests are of the same
 bytes on every path. The exporter, the alerts, the trace spans and the
-``session_drop`` event wait for telemetry (ROADMAP.md §1 item 4).
+``session_drop`` event wait for the serving tier's telemetry (ROADMAP.md
+§1 item 4b).
 """
 
 from __future__ import annotations
@@ -334,8 +335,8 @@ class MatchGateway:
                 elif op == 'trace':
                     self.hub.send(ep, (SERVE_KIND, {
                         'error': 'the trace op (serving-path tracing) is '
-                                 'not ported yet (ROADMAP.md §1 item 4, '
-                                 'telemetry)'}))
+                                 'not ported yet (ROADMAP.md §1 item 4b, '
+                                 "the serving tier's telemetry)"}))
                 elif op in ('open', 'play', 'close'):
                     self._queue.put((ep, body))
                 else:

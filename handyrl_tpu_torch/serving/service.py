@@ -24,8 +24,9 @@ resolves to between one request and the next.
   75), and warms a candidate version end to end on the ``warm`` admin op
   before a rolling promote flips the champion.
 
-The metrics exporter, alerts and tracing wait for telemetry (ROADMAP.md
-§1 item 4): the ``trace`` admin op answers an error naming it.
+The service's metrics exporter, alerts and serving-path tracing wait for
+the serving tier's telemetry (ROADMAP.md §1 item 4b): the ``trace``
+admin op answers an error naming it.
 """
 
 from __future__ import annotations
@@ -377,7 +378,8 @@ class InferenceService:
         elif op == 'trace':
             self.hub.send(ep, (SERVE_KIND, {
                 'error': 'the trace op (serving-path tracing) is not ported '
-                         'yet (ROADMAP.md §1 item 4, telemetry)'}))
+                         "yet (ROADMAP.md §1 item 4b, the serving tier's "
+                         'telemetry)'}))
         else:
             self.hub.send(ep, (SERVE_KIND,
                                {'error': 'unknown admin op %r' % (op,)}))

@@ -107,6 +107,25 @@ seconds; the worker plane's fleet snapshot, the workers' launches and
 play stats, the episodes stamped ``record_version`` and the device actor
 gathers' counts). It exits 75 after a preemption flush and 1 when the trainer
 or the local worker cluster failed.
+
+Telemetry (``telemetry``, ``telemetry_port``, ``profile_epochs``,
+``profile_dir``; the JAX learner's): the learner adopts the run's
+telemetry block (tracing, the flight recorder, the perf plane), keeps the
+alert engine (:data:`telemetry.BUILTIN_ALERTS` with the block's
+overrides), merges the registry snapshots that ride the gathers' beacons
+into a fleet view, and serves ``/metrics`` and ``/statusz`` on
+``telemetry_port``. Each metrics row carries the registry summary, the
+fleet's (``fleet_telemetry``), the alert block, the policy-lag means and
+the device memory; after ``retrace_warmup_epochs`` epochs that trained
+the steady-state sentinel counts any CUDA graph capture or kernel build
+as a retrace. The trainer times its stages (``utils/timing.StageTimer``:
+``dispatch`` is the graphed step's launch, ``host_block`` the fetch of
+its losses) for the utilization proxy, and writes a ``train_step`` trace
+event for the sampled episodes a batch trained on. :class:`Profiler`
+wraps the epochs ``profile_epochs`` names in a ``torch.profiler`` trace
+with CUDA activity, written as Chrome JSON under ``profile_dir`` or
+``<trace_dir|model_dir>/profile``; ``profile_dir`` alone traces
+PROFILE_STEPS update steps once.
 """
 
 from __future__ import annotations
@@ -131,7 +150,7 @@ import torch
 from . import guard as guard_mod
 from . import league as league_mod
 from . import telemetry
-from .config import apply_defaults
+from .config import apply_defaults, parse_epoch_set
 from .environment import make_env
 from .connection import RESUME_KIND, pack as conn_pack, unpack as conn_unpack
 from .fault import FleetController, LedgerJournal, TaskLedger
@@ -147,7 +166,8 @@ from .ops.replay import (DeviceReplay, resolve_windows_per_episode,
                          ring_capacity)
 from .ops.shm_batch import (_SHM_SLOTS, JOB_ARG_KEYS, ArenaMap, SharedBatch,
                             batcher_process as _batcher_process,
-                            batcher_process_shm as _batcher_process_shm)
+                            batcher_process_shm as _batcher_process_shm,
+                            selected_trace_ids)
 from .ops.losses import LossConfig
 from .models.blocks import set_compute_dtype
 from .ops.train_step import (GraphedUpdateStep, ReplayUpdateStep,
@@ -158,7 +178,8 @@ from .spool import EpisodeSpool
 from .streaming import ChunkAssembler, chunk_key
 from .utils.fs import (append_jsonl, atomic_write_bytes,
                        checksummed_write_bytes, read_verified_bytes,
-                       sidecar_path, verify_checkpoint)
+                       rotate_file, sidecar_path, verify_checkpoint)
+from .utils.timing import StageTimer
 from .ops.device_windows import flatten_window_keys
 from .utils.tree import map_structure, map_zip
 from .worker import WorkerCluster, WorkerServer, beacon_soft_faults
@@ -167,6 +188,101 @@ _LOG = telemetry.get_logger('train')
 
 Tensor = torch.Tensor
 METRICS_PER_DRAIN = 8   # update steps whose metrics come back in one copy
+PROFILE_STEPS = 20      # update steps a profile_dir trace covers (no epochs)
+
+
+class Profiler:
+    """``torch.profiler`` traces of the training loop, each written as
+    Chrome JSON to ``<directory>/profile-<run_id>-<tag>.json``: CUDA
+    activity on the card (every thread's kernels, graph replays included),
+    CPU activity on the host. With ``epochs`` (``profile_epochs``) the
+    learner opens a trace at the boundary before each named epoch and
+    closes it at that epoch's close (:meth:`epoch`); with a ``directory``
+    alone the first PROFILE_STEPS update steps after the first are traced
+    once (:meth:`step`, called by the trainer after its updates). A trace
+    is stopped on the thread that started it (torch.profiler's sessions
+    are per thread: stopping another thread's crashes the process), so
+    :meth:`stop` on any other thread does nothing; the trainer closes its
+    window at its thread's end."""
+
+    def __init__(self, device: torch.device, directory: str = '',
+                 epochs: frozenset = frozenset()):
+        self.device = device
+        self.directory = directory
+        self.epochs = epochs
+        self.paths: List[str] = []
+        self._prof = None
+        self._owner = None     # the thread that started the open trace
+        self._tag = ''
+        # the one-shot window: pending until the first step, then the
+        # step count that closes it
+        self._steps_pending = bool(directory) and not epochs
+        self._stop_at = -1
+        self._steps = 0        # the trainer's steps at its last call
+
+    @property
+    def active(self) -> bool:
+        return self._prof is not None
+
+    def start(self, tag: str):
+        from torch.profiler import ProfilerActivity, profile
+        activity = (ProfilerActivity.CUDA if self.device.type == 'cuda'
+                    else ProfilerActivity.CPU)
+        self._prof = profile(activities=[activity])
+        self._prof.start()
+        self._owner = threading.get_ident()
+        self._tag = tag
+
+    def stop(self):
+        """Close the open trace and write it (idempotent; a failure is
+        logged, never raised); a no-op on a thread that did not start it."""
+        if self._prof is None or self._owner != threading.get_ident():
+            return
+        prof, self._prof = self._prof, None
+        try:
+            if self.device.type == 'cuda':
+                torch.cuda.synchronize(self.device)
+            prof.stop()
+            os.makedirs(self.directory, exist_ok=True)
+            tag = self._tag
+            if tag.startswith('steps'):   # the steps it covered
+                tag += '-%d' % self._steps
+            path = os.path.join(self.directory, 'profile-%s-%s.json' % (
+                telemetry.run_id(), tag))
+            prof.export_chrome_trace(path)
+        except Exception as exc:
+            _LOG.warning('profiler stop failed (%s: %s)',
+                         type(exc).__name__, str(exc)[:120])
+            return
+        self.paths.append(path)
+        _LOG.info('profiler trace written to %s', path)
+
+    def step(self, steps: int):
+        """After the trainer's updates (``steps`` in all): open the
+        one-shot window after the first, close it PROFILE_STEPS later."""
+        self._steps = steps
+        if self._steps_pending and steps > 0:
+            self._steps_pending = False
+            self._stop_at = steps + PROFILE_STEPS
+            self.start('steps%d' % steps)
+        elif 0 <= self._stop_at <= steps:
+            self._stop_at = -1
+            self.stop()
+
+    def epoch(self, model_epoch: int):
+        """At an epoch boundary (``model_epoch`` closed): close the open
+        epoch trace, and open one when the next epoch is named."""
+        if not self.epochs:
+            return
+        self.stop()
+        if model_epoch + 1 in self.epochs:
+            _LOG.info('profiling epoch %d (torch.profiler -> %s)',
+                      model_epoch + 1, self.directory)
+            try:
+                self.start('epoch%d' % (model_epoch + 1))
+            except Exception as exc:
+                _LOG.warning('profiler start failed (%s: %s)',
+                             type(exc).__name__, str(exc)[:120])
 
 
 def ingest_layout(args: Dict[str, Any]) -> Optional[str]:
@@ -217,10 +333,21 @@ class Batcher:
     ``ops.shm_batch.SharedBatch`` views whose ``release()`` frees the slot.
     A lost child makes :meth:`batch` raise, naming it."""
 
-    def __init__(self, args: Dict[str, Any], episodes: deque):
+    def __init__(self, args: Dict[str, Any], episodes: deque,
+                 timer: Optional[StageTimer] = None):
         self.args = args
         self.episodes = episodes
+        self.timer = timer
         self.cache = make_block_cache(args)
+        # policy-lag accounting at window selection (the consumption
+        # point): epochs between the learner and the model that played the
+        # episode, and seconds since the learner received it. The learner
+        # installs ``epoch_fn`` (it owns the model epoch)
+        self.epoch_fn = None
+        self._m_lag = telemetry.histogram(
+            'policy_lag_epochs', buckets=telemetry.LAG_EPOCH_BUCKETS)
+        self._m_age = telemetry.histogram(
+            'sample_age_seconds', buckets=telemetry.AGE_SECOND_BUCKETS)
         self.output_queue: queue.Queue = queue.Queue(maxsize=8)
         self.stop_flag = False
         self._threads: List[threading.Thread] = []
@@ -263,8 +390,27 @@ class Batcher:
             self._threads.append(t)
 
     def _select(self) -> List[dict]:
-        return [select_episode(self.episodes, self.args)
-                for _ in range(self.args['batch_size'])]
+        t0 = time.perf_counter()
+        selected = [select_episode(self.episodes, self.args)
+                    for _ in range(self.args['batch_size'])]
+        if self.timer is not None:
+            self.timer.add('select', time.perf_counter() - t0)
+        self._observe_lag(selected)
+        return selected
+
+    def _observe_lag(self, selected: List[dict]):
+        fn = self.epoch_fn
+        if fn is None or not telemetry.enabled():
+            return
+        epoch, now = int(fn()), time.time()
+        for sel in selected:
+            for mid in ((sel.get('args') or {}).get('model_id')
+                        or {}).values():
+                if mid is not None and mid >= 0:
+                    self._m_lag.observe(max(0, epoch - int(mid)))
+            rt = sel.get('recv_time')
+            if rt is not None:
+                self._m_age.observe(max(0.0, now - float(rt)))
 
     def _selector(self):
         """The process pool's jobs: selected windows and the args a
@@ -290,17 +436,22 @@ class Batcher:
         self.shm_batches += 1
         pool = self._pool
         return SharedBatch(views,
-                           lambda: pool.send_to(bid, ('__free__', slot)))
+                           lambda: pool.send_to(bid, ('__free__', slot)),
+                           trace_ids=desc.get('trace'))
 
     def _worker(self, bid: int):
         _LOG.info('started batcher %d', bid)
         while not self.stop_flag:
             try:
-                batch = make_batch(self._select(), self.args,
-                                   cache=self.cache)
+                selected = self._select()
+                batch = make_batch(selected, self.args, cache=self.cache)
             except (IndexError, ValueError):   # buffer transiently empty
                 time.sleep(0.1)
                 continue
+            # the trace ids ride the batch as a shared-memory batch's do
+            batch = SharedBatch(batch, None, trace_ids=(
+                selected_trace_ids(selected)
+                if telemetry.trace_enabled() else None))
             while not self.stop_flag:
                 try:
                     self.output_queue.put(batch, timeout=0.5)
@@ -309,10 +460,15 @@ class Batcher:
                     continue
 
     def batch(self, timeout: Optional[float] = None):
-        """The next batch: a dict of numpy arrays, or a
-        :class:`SharedBatch`; ``queue.Empty`` after ``timeout``."""
+        """The next batch: a :class:`SharedBatch` (its ``trace_ids`` the
+        sampled episode trace ids of its windows while tracing), or a dict
+        of numpy arrays from pickling batcher processes; ``queue.Empty``
+        after ``timeout``."""
         if self._pool is not None:
+            telemetry.gauge('batcher_queue_depth').set(
+                self._pool.results.qsize())
             return self._pool.recv(timeout)
+        telemetry.gauge('batcher_queue_depth').set(self.output_queue.qsize())
         return self.output_queue.get(timeout=timeout)
 
     def shm_summary(self) -> Dict[str, Any]:
@@ -457,10 +613,16 @@ class Trainer:
                                         init_train_state(module))
         self.data_cnt_ema = args['batch_size'] * args['forward_steps']
         self.steps = 0
-        self.batcher = Batcher(args, self.episodes)
+        # the ingest path's seconds by stage (select, ipc, h2d, dispatch,
+        # host_block), mirrored into the stage_seconds histograms; an
+        # epoch's feed the utilization proxy and, with
+        # HANDYRL_TPU_TIMING=1, a timing line
+        self.ingest_timer = StageTimer(registry=telemetry.REGISTRY)
+        self.batcher = Batcher(args, self.episodes, timer=self.ingest_timer)
         self.prefetch_depth = max(1, int(args.get('prefetch_depth') or 1))
         self._stager = (_DeviceStager(self.device, self.prefetch_depth)
                         if self.device.type == 'cuda' else None)
+        # (staged batch, the sampled episode trace ids of its windows)
         self._staged: deque = deque()
         self.update_flag = False
         self.update_queue: queue.Queue = queue.Queue(maxsize=1)
@@ -488,6 +650,9 @@ class Trainer:
         # installed by the Learner, which owns the checkpoint files
         self.rollback_source = None
         self.rollback_epoch: Optional[int] = None
+        # the learner's torch.profiler traces (a no-op until it installs
+        # its own): the trainer marks its step boundaries
+        self.profile = Profiler(self.device)
 
     def _lr(self) -> float:
         return self.default_lr * self.data_cnt_ema / (1 + self.steps * 1e-5)
@@ -586,6 +751,7 @@ class Trainer:
         batch_cnt, data_cnt = 0, 0
         pending: List[Dict[str, Tensor]] = []
         staged = self._staged
+        timer = self.ingest_timer
         epoch_t0 = time.time()
         if self.use_target and (
                 self._target_stale
@@ -603,8 +769,13 @@ class Trainer:
                 except queue.Empty:
                     break
                 finally:
-                    self.batch_wait_seconds += time.perf_counter() - t0
-                staged.append(self._stage(nxt))
+                    dt = time.perf_counter() - t0
+                    self.batch_wait_seconds += dt
+                    timer.add('ipc', dt)
+                t0 = time.perf_counter()
+                staged.append((self._stage(nxt),
+                               getattr(nxt, 'trace_ids', None)))
+                timer.add('h2d', time.perf_counter() - t0)
 
         while ((data_cnt == 0 or not self.update_flag)
                and not self.shutdown_flag):
@@ -612,7 +783,18 @@ class Trainer:
                 top_up()
                 if not staged:
                     continue
-            metrics = self._step(staged.popleft())
+            batch, batch_tids = staged.popleft()
+            t_wall = time.time()
+            t0 = time.perf_counter()
+            metrics = self._step(batch)
+            dt = time.perf_counter() - t0
+            timer.add('dispatch', dt)
+            if batch_tids:
+                # the gradient end of the episode trace: one event an
+                # update, naming every sampled episode its windows came from
+                telemetry.trace_event('train_step', ts=t_wall, dur=dt,
+                                      always=True, trace_ids=batch_tids,
+                                      steps=self.steps)
             if self.first_step_at is None:
                 self.first_step_at = time.time()
             # the next uploads are staged while the step runs on the device
@@ -623,6 +805,7 @@ class Trainer:
                 data_cnt += self._drain_metrics(pending)
                 pending = []
             self.steps += 1
+            self.profile.step(self.steps)
         if pending:
             data_cnt += self._drain_metrics(pending)
 
@@ -645,6 +828,17 @@ class Trainer:
                 self._target_age_epochs += 1
             self.last_dynamics = self._epoch_dynamics(loss_sum, data_cnt,
                                                       batch_cnt)
+            # the epoch's stage seconds feed the utilization proxy
+            # (host_block over the ingest path's total)
+            line = self.ingest_timer.snapshot(reset=True)
+            util = telemetry.utilization_from_stages(line)
+            telemetry.set_utilization_proxy(util)
+            if os.environ.get('HANDYRL_TPU_TIMING') == '1':
+                if util is not None:
+                    line['util'] = round(util, 4)
+                if self.last_dynamics:
+                    line['dynamics'] = self.last_dynamics
+                print('ingest timing: %s' % json.dumps(line))
 
     # -- the threaded replay trainer (device_replay without the fused loop)
     PUSH_CHUNK = 8   # windows a host push (the JAX package's fixed size)
@@ -685,10 +879,13 @@ class Trainer:
                 _LOG.warning('chaos: injecting non-finite update at step %d',
                              self.steps)
                 ema = float('nan')   # a NaN lr on the graphed steps
+            t0 = time.perf_counter()
             pending.append(self.update_step.run(K, ema).clone())
+            self.ingest_timer.add('dispatch', time.perf_counter() - t0)
             stats['samples_drawn'] += B * K
             batch_cnt += K
             self.steps += K
+            self.profile.step(self.steps)
             # one copy of the metrics every 4 dispatches, at once when an
             # epoch waits to close
             if len(pending) >= 4 or self.update_flag:
@@ -845,7 +1042,10 @@ class Trainer:
             out['target_gap_mean'] = d.get('diag_target_gap_sum', 0.0) / dc
         if 'diag_grad_norm' in d:
             out['grad_norm'] = d['diag_grad_norm'] / nu
-        return {k: round(float(v), 6) for k, v in out.items()}
+        out = {k: round(float(v), 6) for k, v in out.items()}
+        for k, v in out.items():
+            telemetry.gauge(k).set(v)
+        return out
 
     def _drain_metrics(self, pending: List[Dict[str, Tensor]],
                        per_entry: int = 1) -> int:
@@ -854,8 +1054,10 @@ class Trainer:
         The 'nonfinite' counts go to the guard; an entry sums
         ``per_entry`` update steps."""
         names = list(pending[0])
+        t0 = time.perf_counter()    # the host waits on the card here
         rows = torch.stack([torch.stack([m[k] for k in names])
                             for m in pending]).cpu().numpy()
+        self.ingest_timer.add('host_block', time.perf_counter() - t0)
         data_cnt = bad = 0
         total_sum = 0.0
         for row in rows:
@@ -878,6 +1080,8 @@ class Trainer:
                        loss_mean: Optional[float] = None):
         """Skip is counted, rollback restores the last good checkpoint in
         place, abort raises (run() turns that into the failed path)."""
+        if bad:
+            telemetry.counter('guard_nonfinite_total').inc(bad)
         action = self.guard.observe(bad, good, loss_mean)
         if action == 'abort':
             raise RuntimeError('guard: %d non-finite update(s) under '
@@ -902,6 +1106,7 @@ class Trainer:
         self.guard.reset_streak()
         self.guard.rollbacks += 1
         self.rollback_epoch = epoch
+        telemetry.counter('guard_rollbacks_total').inc()
         _LOG.error('guard: non-finite training burst, rolled back to '
                    'checkpoint epoch %d (steps %d)', epoch, self.steps)
 
@@ -912,7 +1117,10 @@ class Trainer:
                   if self.replay is not None and self.device.type == 'cuda'
                   else contextlib.nullcontext())
         with launches.path('training'), stream:
-            self._run()
+            try:
+                self._run()
+            finally:
+                self.profile.stop()   # the window this thread opened
 
     def _run(self):
         _LOG.info('waiting training')
@@ -965,7 +1173,7 @@ class Trainer:
     def release(self):
         """Drop the update step (its CUDA graphs and buffers) and the staged
         batches, once the thread has stopped."""
-        for staged in self._staged:
+        for staged, _tids in self._staged:
             if isinstance(staged, SharedBatch):
                 staged.release()
         self._staged.clear()
@@ -1027,10 +1235,40 @@ class Learner:
         self.args = args
         self.device = resolve_device(device)
         random.seed(args['seed'])
-        # one identity for every record of the run; a restarted durable
-        # learner adopts its run's from the resume token
+        # telemetry (handyrl_tpu/train.py:1113-1145): one identity for
+        # every record of the run (a restarted durable learner adopts its
+        # run's from the resume token), the collection switch, tracing,
+        # the flight recorder and the perf plane, all mirrored into the
+        # environment for the processes this learner spawns
+        tel = telemetry.config_block(args)
+        if not tel['enabled']:
+            telemetry.set_enabled(False)
         args.setdefault('run_id', telemetry.run_id())
         telemetry.set_run_id(args['run_id'])
+        telemetry.set_process_label('learner')
+        telemetry.configure_tracing(tel.get('trace_dir') or None,
+                                    tel.get('trace_sample_rate'))
+        telemetry.configure_recorder(tel.get('recorder_events'),
+                                     tel.get('blackbox_dir'))
+        if telemetry.enabled():
+            telemetry.install_crash_dump()
+        telemetry.configure_perf_plane(tel.get('perf_plane'),
+                                       tel.get('retrace'))
+        self._retrace_warmup = int(tel.get('retrace_warmup_epochs', 1))
+        # epochs whose close found the trainer's steps advanced, and its
+        # steps at the last close: warm-up counts epochs that trained
+        self._trained_epochs = 0
+        self._steps_at_last_row = 0
+        # the built-in alert catalog with the block's overrides, evaluated
+        # by the server loop, the metrics rows and /statusz through one
+        # cadence-gated stream (None with alerting off)
+        self._alerts = telemetry.AlertEngine.from_config(args)
+        self._metrics_rotate_mb = float(tel.get('metrics_rotate_mb') or 0)
+        self._last_fleet_telemetry: Optional[dict] = None
+        self._exporter: Optional[telemetry.TelemetryExporter] = None
+        # the lag histograms' (sum, count) at the last epoch's read
+        self._lag_marks: Dict[str, tuple] = {}
+        self._trace_file: Optional[str] = None   # the collated trace
 
         self.env = make_env(args['env'])
         eval_modify_rate = ((args['update_episodes'] ** 0.85)
@@ -1069,9 +1307,12 @@ class Learner:
         if self.model_epoch < 0:
             # the newest checkpoint that passes verification, or a fresh
             # start when none does
-            self.model_epoch, _ = guard_mod.newest_valid_epoch(
+            self.model_epoch, discarded = guard_mod.newest_valid_epoch(
                 self.model_dir)
             args['restart_epoch'] = self.model_epoch
+            if discarded:
+                telemetry.counter('guard_ckpt_fallbacks_total').inc(
+                    len(discarded))
             if self.model_epoch > 0:
                 print('auto-resume: newest valid checkpoint is epoch %d'
                       % self.model_epoch)
@@ -1140,8 +1381,22 @@ class Learner:
 
         self.trainer = Trainer(args, net.to(self.device))
         self.trainer.rollback_source = self._rollback_source
+        # the batchers stamp a window's policy lag against the current
+        # epoch at selection
+        self.trainer.batcher.epoch_fn = lambda: self.model_epoch
+        # torch.profiler: a trace around each epoch profile_epochs names
+        # (from the previous epoch's close to the named one's), written
+        # under profile_dir or <trace_dir|model_dir>/profile; with
+        # profile_dir alone, one window of PROFILE_STEPS update steps
+        epochs = parse_epoch_set(args.get('profile_epochs'))
+        self.profiler = Profiler(
+            self.device, args.get('profile_dir') or (os.path.join(
+                telemetry.trace_dir() or self.model_dir, 'profile')
+                if epochs else ''), epochs)
+        self.trainer.profile = self.profiler
         if resume:
             self._load_resume_state()
+        self._steps_at_last_row = self.trainer.steps
 
         # the league (handyrl_tpu/train.py:1297-1325): the pool, the rating
         # book (reloaded from its journal) and the tally of opponents
@@ -1203,6 +1458,12 @@ class Learner:
         self._recovered_closed_chunks: list = []
         self._load_durable_state()
         self._trainer_thread: Optional[threading.Thread] = None
+        # the scrape endpoint binds once everything it reads exists
+        export_port = int(args.get('telemetry_port') or 0)
+        if export_port and telemetry.enabled():
+            self._exporter = telemetry.TelemetryExporter(
+                self._telemetry_snapshots, port=export_port,
+                status=self._status_info).start()
         # the wall clock of generation, and of each epoch's close
         self._run_started_at: Optional[float] = None
         self._run_ended_at: Optional[float] = None
@@ -1469,6 +1730,7 @@ class Learner:
             _LOG.error('registry publish of epoch %d failed (%s: %s); '
                        'training continues unpublished', self.model_epoch,
                        type(exc).__name__, str(exc)[:200])
+            telemetry.counter('registry_publish_failures_total').inc()
         self._league_epoch_sync()
 
     def _league_epoch_sync(self):
@@ -1543,13 +1805,18 @@ class Learner:
                      if isinstance(o, str) and os.path.exists(o)}
         for epoch in epochs[:-keep]:
             path = self.model_path(epoch)
-            if os.path.abspath(path) in pinned | protected:
+            apath = os.path.abspath(path)
+            if apath in pinned:
+                telemetry.counter('guard_ckpt_gc_pinned_total').inc()
+                continue
+            if apath in protected:
                 continue
             for p in (path, sidecar_path(path)):
                 try:
                     os.unlink(p)
                 except OSError:
                     pass
+            telemetry.counter('guard_ckpt_gc_total').inc()
 
     def final_flush(self):
         """One code path for the fused loop's tail flush and the
@@ -1592,6 +1859,7 @@ class Learner:
         not the live counter, so the rows' steps stay monotonic across the
         restart. The rating journal is written first: the restart reloads
         it bit for bit."""
+        telemetry.counter('guard_preemptions_total').inc()
         if self._league is not None:
             self._league_ratings.save(self._league_journal)
         steps = max(self._last_ckpt_steps, 0)
@@ -1603,9 +1871,13 @@ class Learner:
               flush=True)
 
     def _write_metrics(self, steps: int, extra: Optional[dict] = None):
-        """One ``metrics_jsonl`` row (handyrl_tpu/train.py:2378-2496 without
-        the planes the port lacks: fleet, alerts, the lag histograms, the
-        perf plane, rotation), appended in one write."""
+        """One ``metrics_jsonl`` row (handyrl_tpu/train.py:2378-2496),
+        appended in one write: the run's counts, results, the league, the
+        replay, the learning dynamics, the policy-lag means, the guard, the
+        device-memory sample (and the steady-state mark once warm-up is
+        over), the fleet's counts, the registry summaries (the learner's
+        and, on the worker plane, the fleet's merged beacons), the alert
+        block; the file rotates past ``telemetry.metrics_rotate_mb``."""
         if not self._metrics_path:
             return
         tr = self.trainer
@@ -1666,13 +1938,107 @@ class Learner:
             rec['replay_windows_ingested'] = stats['windows_ingested']
             rec['replay_samples_drawn'] = stats['samples_drawn']
         rec.update(tr.last_dynamics)
+        rec.update(self._lag_snapshot())
         rec['guard_nonfinite'] = tr.guard.total_bad
         rec['guard_rollbacks'] = tr.guard.rollbacks
         rec['guard_bad_episodes'] = self._bad_episodes
+        # the perf plane: the device-memory sample (only the learner
+        # publishes the ratio gauge: a ratio must not sum across the
+        # fleet's snapshots), and steady state once warm-up is over. The
+        # warm-up counts epochs that trained, not epochs closed: the fused
+        # loop can close its first epoch before its first update step, and
+        # the K-step graph that step captures is warm-up
+        if steps > self._steps_at_last_row:
+            self._trained_epochs += 1
+        self._steps_at_last_row = steps
+        if telemetry.perf_plane_enabled():
+            mem_rows = telemetry.sample_device_memory()
+            telemetry.gauge('device_mem_utilization').set(
+                round(telemetry.device_memory_utilization(mem_rows), 6))
+            if (not telemetry.steady_state_active()
+                    and self._trained_epochs >= self._retrace_warmup):
+                telemetry.mark_steady_state(
+                    'epoch %d, %d trained (retrace_warmup_epochs=%d)'
+                    % (self.model_epoch, self._trained_epochs,
+                       self._retrace_warmup))
+        if self.ledger is not None:
+            rec.update({'fleet_' + k: v
+                        for k, v in self._fleet_snapshot().items()
+                        if k != 'disconnects'})
         telemetry.gauge('learner_epoch').set(self.model_epoch)
         telemetry.gauge('learner_buffer_episodes').set(len(tr.episodes))
         rec['telemetry'] = telemetry.summarize(telemetry.snapshot())
+        if self.worker is not None:
+            rec['fleet_telemetry'] = telemetry.summarize(
+                self._merge_fleet_telemetry())
+        if self._alerts is not None:
+            rec['alerts'] = self._alerts.maybe_evaluate(
+                self._telemetry_snapshots)
+        if self._metrics_rotate_mb > 0 and rotate_file(
+                self._metrics_path, self._metrics_rotate_mb):
+            telemetry.counter('metrics_rotations_total').inc()
         append_jsonl(self._metrics_path, rec)
+        telemetry.trace_flush()   # the epoch's buffered events land
+
+    # -- telemetry plumbing --------------------------------------------------
+    def _telemetry_snapshots(self) -> List[dict]:
+        """The exporter's and the alert engine's snapshots: the live local
+        registry and the latest merged fleet snapshot, relabelled
+        ``source="fleet"`` so the keys stay disjoint."""
+        tr = self.trainer
+        telemetry.gauge('learner_epoch').set(self.model_epoch)
+        telemetry.gauge('learner_buffer_episodes').set(len(tr.episodes))
+        telemetry.gauge('learner_sgd_steps_per_sec').set(
+            tr.last_steps_per_sec)
+        snaps = [telemetry.snapshot()]
+        fleet = self._last_fleet_telemetry
+        if fleet and fleet.get('peers'):
+            snaps.append(telemetry.relabel(fleet, source='fleet'))
+        return snaps
+
+    def _status_info(self) -> Dict[str, Any]:
+        """The /statusz payload: progress, the alert block (evaluated
+        through the same cadence gate as the server loop), the fleet's
+        host states and the perf plane."""
+        info: Dict[str, Any] = {'progress': {
+            'epoch': self.model_epoch,
+            'steps': int(self.trainer.steps),
+            'episodes': self.num_returned_episodes,
+            'buffer': len(self.trainer.episodes)}}
+        if self._alerts is not None:
+            info['alerts'] = self._alerts.maybe_evaluate(
+                self._telemetry_snapshots)
+        if self.fleet is not None:
+            info['fleet_hosts'] = self.fleet.snapshot()
+        if telemetry.perf_plane_enabled():
+            info['perf'] = telemetry.perf_status()
+        return info
+
+    def _merge_fleet_telemetry(self) -> dict:
+        """The registry snapshots of the newest beacon of each peer (a
+        gather's already merges its workers'), merged."""
+        peers = self.worker.peer_info().values() if self.worker else ()
+        merged = telemetry.merge_snapshots(
+            [p.get('telemetry') for p in peers if isinstance(p, dict)])
+        self._last_fleet_telemetry = merged
+        return merged
+
+    def _lag_snapshot(self) -> Dict[str, float]:
+        """The epoch's means of the policy-lag and sample-age histograms
+        (deltas since the last read), also set on ``policy_lag_mean`` and
+        ``sample_age_seconds_mean`` gauges."""
+        out: Dict[str, float] = {}
+        batcher = self.trainer.batcher
+        for hist, key in ((batcher._m_lag, 'policy_lag'),
+                          (batcher._m_age, 'sample_age_seconds')):
+            s, n = hist.sum, hist.count
+            prev_s, prev_n = self._lag_marks.get(key, (0.0, 0))
+            self._lag_marks[key] = (s, n)
+            if n > prev_n:
+                mean = (s - prev_s) / (n - prev_n)
+                out[key] = round(mean, 4)
+                telemetry.gauge(key + '_mean').set(mean)
+        return out
 
     def _load_resume_params(self):
         """Load the params of ``model_epoch``, falling back to the newest
@@ -1685,6 +2051,7 @@ class Learner:
             ok, reason = verify_checkpoint(path)
             if not ok:
                 _LOG.error('discarding checkpoint %s: %s', path, reason)
+                telemetry.counter('guard_ckpt_fallbacks_total').inc()
                 continue
             try:
                 with open(path, 'rb') as f:
@@ -1692,6 +2059,7 @@ class Learner:
             except (OSError, ValueError, KeyError, RuntimeError) as exc:
                 _LOG.error('discarding undecodable checkpoint %s (%s: %s)',
                            path, type(exc).__name__, str(exc)[:120])
+                telemetry.counter('guard_ckpt_fallbacks_total').inc()
                 continue
             if epoch != self.model_epoch:
                 print('resume fell back to epoch %d (epoch %d checkpoint '
@@ -1712,6 +2080,7 @@ class Learner:
             _LOG.error('discarding corrupt trainer_state.ckpt (checksum '
                        'mismatch or truncation); the optimizer restarts '
                        'fresh from the model checkpoint')
+            telemetry.counter('guard_ckpt_fallbacks_total').inc()
             return
         try:
             self.trainer.load_state_bytes(raw)
@@ -1719,6 +2088,7 @@ class Learner:
             _LOG.error('discarding undecodable trainer_state.ckpt (%s: %s); '
                        'the optimizer restarts fresh', type(exc).__name__,
                        str(exc)[:120])
+            telemetry.counter('guard_ckpt_fallbacks_total').inc()
             return
         print('resumed trainer state (steps %d)' % self.trainer.steps)
 
@@ -1759,12 +2129,14 @@ class Learner:
         is appended to the episode spool before it is counted; a
         ``recovered`` episode (a restart's replay of the spool) skips that
         append and is treated as a fresh upload otherwise."""
+        live = 0
         for episode in episodes:
             if episode is None:
                 continue
             if (self._check_episodes
                     and not guard_mod.episode_is_finite(episode)):
                 self._bad_episodes += 1
+                telemetry.counter('guard_bad_episodes_total').inc()
                 _LOG.warning('guard: dropped episode with non-finite data '
                              '(%d total)', self._bad_episodes)
                 continue
@@ -1784,6 +2156,8 @@ class Learner:
             episode.setdefault('recv_time', time.time())
             self.trainer.episodes.append(episode)
             self._push_replay(episode)
+            live += 1
+        telemetry.counter('learner_episodes_returned_total').inc(live)
         self._evict_episode_overflow()
 
     def _count_episode(self, episode: dict):
@@ -1799,7 +2173,10 @@ class Learner:
             self.generation_results[model_id] = (n + 1, r + outcome,
                                                  r2 + outcome ** 2)
         if episode.get('record_version'):
+            # device records follow the card's draws, not the host byte
+            # contract: stamped, and counted fleet-wide
             self.stamped_episodes += 1
+            telemetry.counter('device_actor_stamped_episodes_total').inc()
         skey = episode['args'].get('sample_key')
         if skey is not None:   # a worker-plane task: played once
             if skey in self._sample_keys:
@@ -1868,10 +2245,12 @@ class Learner:
                 # a poisoned chunk froze the assembly: the task closed and
                 # the record drops whole
                 self._bad_episodes += 1
+                telemetry.counter('guard_bad_episodes_total').inc()
                 _LOG.warning('guard: dropped streamed episode with '
                              'non-finite data (%d total)', self._bad_episodes)
                 continue
             self._count_episode(record)
+            telemetry.counter('learner_episodes_returned_total').inc()
             if not recovered:
                 self._league_observe_episode(record)
             self.episode_sources['streamed'] += 1
@@ -1904,7 +2283,8 @@ class Learner:
         self._print_eval_stats()
         self._print_generation_stats()
         self._print_league_stats()
-        params, steps, state_blob = self.trainer.update()
+        with telemetry.span('epoch_update'):
+            params, steps, state_blob = self.trainer.update()
         if params is None and self.trainer.failed:
             _LOG.error('training failed (see traceback above); shutting '
                        'down')
@@ -1912,6 +2292,7 @@ class Learner:
             return
         self.update_model(params, steps, state_blob)
         self._write_metrics(steps)
+        self.profiler.epoch(self.model_epoch)
         self.epoch_closed_at.append(time.time())
         self.epoch_steps.append(steps)
         self.epoch_losses = dict(self.trainer.last_losses)
@@ -2150,10 +2531,13 @@ class Learner:
                 except (OSError, AttributeError):
                     key = 'host-unknown'
                 host_of[ep] = key
-                fleet.observe(key)
+                if fleet.observe(key):
+                    telemetry.gauge('fleet_host_state', host=key).set(
+                        telemetry.HOST_STATE_CODES[fleet.state(key)])
             return key
 
         fault_seen: Dict[Any, int] = {}    # endpoint -> soft faults seen
+        m_withheld = telemetry.counter('fleet_tasks_withheld_total')
 
         def pump_fleet_health():
             """Feed the controller: strandings from the ledger, soft faults
@@ -2173,6 +2557,14 @@ class Learner:
             fleet.tick(outstanding)
             for host, prev, state, _t in fleet.drain_transitions():
                 _LOG.warning('fleet: host %s %s -> %s', host, prev, state)
+                telemetry.gauge('fleet_host_state', host=host).set(
+                    telemetry.HOST_STATE_CODES[state])
+                telemetry.counter('fleet_host_transitions_total',
+                                  **{'from': prev, 'to': state}).inc()
+            if self._alerts is not None:
+                # the cadence gate spaces the evaluations by the engine's
+                # interval though the loop spins every receive timeout
+                self._alerts.maybe_evaluate(self._telemetry_snapshots)
 
         self._run_started_at = time.time()
         while self.worker.connection_count() > 0 or not self.shutdown_flag:
@@ -2224,6 +2616,7 @@ class Learner:
                     # drain before detach: placeholders, unbooked and
                     # uncounted, keep the host's workers warm
                     fleet.stats['withheld'] += len(data)
+                    m_withheld.inc(len(data))
                     send_data = [{'role': 'idle', 'wait': 1.0}
                                  for _ in data]
                 else:
@@ -2263,6 +2656,7 @@ class Learner:
                     elif int(tok.get('generation', -1)) \
                             != self._run_generation:
                         self.durable['reattached'] += 1
+                        telemetry.counter('gather_reattach_total').inc()
                         _LOG.info('gather %s reattached across a learner '
                                   'restart (generation %s -> %d)',
                                   tok.get('gather'), tok.get('generation'),
@@ -2654,6 +3048,7 @@ class Learner:
                                                      r2 + float(oc) ** 2)
             self.num_episodes += 1
             self.num_returned_episodes += 1
+        telemetry.counter('learner_episodes_returned_total').inc(len(ks))
         return len(ks)
 
     def _device_evaluator(self, env_mod, eval_envs: int, chunk_steps: int):
@@ -2731,6 +3126,13 @@ class Learner:
         # dispatch is kept until its chunk is read
         epoch_of_dispatch: deque = deque()
         times = self.loop_seconds
+        # a dispatch's launch and the host's wait for the previous one's
+        # packed fetch join the trainer's 'dispatch' / 'host_block' stage
+        # histograms; an epoch's deltas feed the utilization proxy
+        m_dispatch = telemetry.histogram('stage_seconds', stage='dispatch')
+        m_block = telemetry.histogram('stage_seconds', stage='host_block')
+        tacc = {'dispatch': 0.0, 'fetch': 0.0}
+        tlast = dict(tacc)
 
         def account(prev):
             if prev is None:
@@ -2751,6 +3153,7 @@ class Learner:
             epoch_of_dispatch.append(self.model_epoch)
             warm = self.num_returned_episodes < args['minimum_episodes']
             t0 = time.perf_counter()
+            fetch0 = fp.fetch_seconds
             if warm:
                 prev = fp.warm_step()
                 self.plies['generation'] += fp.chunk_steps
@@ -2768,6 +3171,11 @@ class Learner:
                 epoch_steps += fp.sgd_steps
                 self.plies['generation'] += fp.chunk_steps
             t1 = time.perf_counter()
+            dt_fetch = fp.fetch_seconds - fetch0
+            m_dispatch.observe(t1 - t0 - dt_fetch)
+            m_block.observe(dt_fetch)
+            tacc['dispatch'] += t1 - t0 - dt_fetch
+            tacc['fetch'] += dt_fetch
             account(prev)
             t2 = time.perf_counter()
             with launches.path('evaluation'):
@@ -2776,6 +3184,11 @@ class Learner:
             if cadence.due(self.num_returned_episodes):
                 self._fused_epoch(pending_metrics, epoch_steps,
                                   time.time() - epoch_t0, evaluator)
+                util = telemetry.utilization_from_stages(
+                    {'dispatch': tacc['dispatch'] - tlast['dispatch'],
+                     'host_block': tacc['fetch'] - tlast['fetch']})
+                telemetry.set_utilization_proxy(util)
+                tlast.update(tacc)
                 pending_metrics.clear()
                 epoch_steps = 0
                 epoch_t0 = time.time()
@@ -2855,6 +3268,7 @@ class Learner:
         self._write_metrics(tr.steps, {
             'dispatches_gen': self._fused.dispatches,
             'dispatches_eval': getattr(evaluator, 'dispatches', 0)})
+        self.profiler.epoch(self.model_epoch)
         self.epoch_closed_at.append(time.time())
         self.epoch_steps.append(tr.steps)
         self.epoch_losses = dict(tr.last_losses)
@@ -2865,6 +3279,8 @@ class Learner:
         state in place and rewinds the model epoch and the actor."""
         tr = self.trainer
         bad = int(metrics.get('nonfinite') or 0)
+        if bad:
+            telemetry.counter('guard_nonfinite_total').inc(bad)
         cnt = int(metrics.get('data_count') or 0)
         loss_mean = (float(metrics['total']) / cnt
                      if cnt and 'total' in metrics else None)
@@ -2887,6 +3303,8 @@ class Learner:
         # chaos 'preempt=<s>' arms a self-SIGTERM for the drills
         self.preempt.install()
         guard_mod.arm_chaos_preempt(self._chaos)
+        # profile_epochs may name the first epoch
+        self.profiler.epoch(self.model_epoch)
         try:
             layout = ingest_layout(self.args)
             if layout is not None and self.args['fused_pipeline']:
@@ -2920,6 +3338,12 @@ class Learner:
         update step's graphs, so no thread is left on the device at exit."""
         self.shutdown_flag = True
         self.preempt.uninstall()
+        # the steady-state flag is process-global: an in-process learner
+        # must not leave the sentinel armed for what captures next
+        telemetry.clear_steady_state()
+        if self._exporter is not None:
+            self._exporter.stop()
+            self._exporter = None
         if self.worker is not None:
             # a failed or preempted run does not wait for its gathers
             self.worker.close(timeout=0.0 if self.fleet_failure
@@ -2934,6 +3358,17 @@ class Learner:
             if self._trainer_thread.is_alive():
                 _LOG.warning('trainer thread still running at shutdown')
                 return
+        self.profiler.stop()
+        # this run's trace JSONL collated into Chrome JSON (a no-op with
+        # tracing off); the JSONL stays the source of truth
+        try:
+            out = telemetry.finalize_trace()
+            if out:
+                self._trace_file = out
+                _LOG.info('episode trace collated to %s', out)
+        except Exception as exc:
+            _LOG.warning('trace finalize failed (%s: %s)',
+                         type(exc).__name__, str(exc)[:120])
         if self._fused is not None:
             self._fused.release()
         if self._evaluator is not None:
@@ -3005,6 +3440,11 @@ class Learner:
             **self._replay_summary(),
             **self._worker_summary(),
             **self._league_summary(),
+            # the sentinel's retraces, the collated episode trace and the
+            # profiler's traces of this run
+            'telemetry': {'retraces': telemetry.steady_retrace_count(),
+                          'trace': self._trace_file,
+                          'profiles': list(self.profiler.paths)},
         }
 
     def _replay_summary(self) -> Dict[str, Any]:

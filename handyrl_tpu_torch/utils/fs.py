@@ -92,6 +92,25 @@ def read_verified_bytes(path: str):
     return data if ok else None
 
 
+def rotate_file(path: str, max_mb: float) -> bool:
+    """Size-gated single-generation rotation: when ``path`` exceeds
+    ``max_mb`` megabytes it is renamed to ``<path>.1`` (replacing an older
+    generation) and True is returned; the next append recreates the live
+    file. ``os.replace`` on one filesystem is atomic, so a reader sees the
+    old file or the rotated one, never a truncation in progress. A
+    missing file or a non-positive cap is a no-op."""
+    if not path or max_mb <= 0:
+        return False
+    try:
+        size = os.path.getsize(path)
+    except OSError:
+        return False
+    if size < max_mb * 1024 * 1024:
+        return False
+    os.replace(path, path + '.1')
+    return True
+
+
 def append_jsonl(path: str, record: dict, fsync: bool = True):
     """Append ``record`` to a JSONL file append-safely: the whole encoded
     line (payload and newline) goes down in ONE ``os.write`` on an

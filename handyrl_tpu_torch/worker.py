@@ -47,6 +47,15 @@ either.
 Every worker's and gather's beacon carries its process's kernel launch
 counts and play stats, and a last beacon goes out at its end, so the
 learner reports the launches of the whole fleet (``fleet_beacons``).
+Beacons also carry the process's telemetry registry snapshot: a gather
+merges its workers' into its own (``telemetry.merge_snapshots``) and
+sends the merged one up, which the learner merges into its fleet view.
+Every process of the plane adopts the run's telemetry config
+(``telemetry.adopt_config``: run id, trace directory and rate, flight
+recorder) and dumps its flight recorder on a fatal error; a worker that
+loses its gather dumps ``gather-lost``, the worker host's supervisor
+``gather-death`` for a gather that died. A gather writes one ``upload``
+trace event an episode (stash to the learner's acknowledgement).
 Children are spawned, never forked, with one OpenMP thread each
 (``CHILD_ENV``): six workers with a thread per core each would thrash the
 host's cores.
@@ -126,6 +135,9 @@ class Worker:
         from .generation import Generator
         from .inference import EngineClient, ModelVault, RemoteModelCache
         from .model import fp32_on_card, resolve_device
+        telemetry.adopt_config(args)
+        telemetry.set_process_label('worker-%d' % wid)
+        telemetry.install_crash_dump()
         self.device = resolve_device(args['worker'].get('device', 'cuda'))
         fp32_on_card(self.device)
         _LOG.info('opened worker %d (pid %d) on %s', wid, os.getpid(),
@@ -177,13 +189,16 @@ class Worker:
                       'evaluation_seconds': 0.0, 'model_seconds': 0.0}
 
     def beacon(self) -> Dict[str, Any]:
-        """This process's kernel launches and play stats (and in engine
-        mode its client's counts)."""
+        """This process's kernel launches, play stats and registry
+        snapshot (its device-memory gauges sampled first), and in engine
+        mode its client's counts."""
         from .ops import kernel_launches
         self._hb_seq += 1
+        telemetry.sample_device_memory()
         info = {'worker': self.worker_id, 'pid': os.getpid(),
                 'seq': self._hb_seq, 'device': str(self.device),
-                'launches': kernel_launches(), 'stats': dict(self.stats)}
+                'launches': kernel_launches(), 'stats': dict(self.stats),
+                'telemetry': telemetry.snapshot()}
         if self.client is not None:
             info['engine_client'] = dict(self.client.stats,
                                          engine_ok=self.client.engine_ok)
@@ -203,6 +218,9 @@ class Worker:
             return
         self._hb_next = now + self._hb_interval
         self.conn.send((HEARTBEAT_KIND, self.beacon()))
+        # the shared trace file stays current while this worker lives: a
+        # killed gather's workers must not strand their episodes' spans
+        telemetry.trace_flush()
 
     def run(self):
         """The task loop: a broken pipe to the gather ends the process; a
@@ -231,6 +249,7 @@ class Worker:
             if task.get('role') == 'idle':
                 # the learner withholds fresh tasks from this host
                 # (draining or quarantined): nap and ask again
+                telemetry.counter('worker_idle_tasks_total').inc()
                 time.sleep(min(5.0, float(task.get('wait', 1.0))))
                 continue
             produce, upload_as = self.playbook[task['role']]
@@ -247,8 +266,12 @@ class Worker:
                 traceback.print_exc()
                 payload = None
                 self.stats['failures'] += 1
+                telemetry.counter('worker_task_failures_total').inc()
             self.stats['model_seconds'] += t1 - t0
             dt = time.perf_counter() - t1
+            telemetry.counter('worker_tasks_total', role=task['role']).inc()
+            telemetry.histogram('worker_task_seconds', role=task['role']
+                                ).observe(dt + t1 - t0)
             if task['role'] == 'g':
                 net = any(_plays_a_net(m) for m in models.values())
                 self.stats['generation_seconds' if net
@@ -269,7 +292,13 @@ class Worker:
                 return
 
     def _gather_lost(self):
+        """The pipe to the gather died: leave a blackbox dump (the
+        post-mortem's evidence of which side died first) and exit; the
+        gather's supervisor owns respawns."""
         _LOG.warning('worker %d: lost its gather; exiting', self.worker_id)
+        telemetry.record_event('guard', 'gather connection lost',
+                               worker=self.worker_id)
+        telemetry.dump_blackbox('gather-lost', worker=self.worker_id)
 
 
 def _plays_a_net(model) -> bool:
@@ -318,6 +347,42 @@ def beacon_soft_faults(info: Dict[str, Any]) -> int:
     return faults
 
 
+class UploadTrace:
+    """A gather's ``upload`` trace events: one an episode (or chunk), from
+    its stash in the upload box to the learner's acknowledgement of the
+    batch. Only sampled trace ids are tracked (the decision every other
+    hop makes), at most :attr:`MAX_PER_KIND` a kind, so a long outage
+    cannot grow the book past the resend buffer's order."""
+
+    MAX_PER_KIND = 512
+
+    def __init__(self, gather_id: int):
+        self.gather_id = int(gather_id)
+        self._box: Dict[str, list] = defaultdict(list)
+
+    def stash(self, kind: str, payload):
+        if not telemetry.trace_enabled():
+            return
+        tid = telemetry.episode_trace_id((payload or {}).get('args') or {})
+        if tid and telemetry.trace_sampled(tid):
+            box = self._box[kind]
+            if len(box) < self.MAX_PER_KIND:
+                box.append((tid, time.time()))
+
+    def shipped(self, kind: str):
+        """The learner acknowledged this kind's batch: one event a tracked
+        payload, over its whole stay in the relay."""
+        entries = self._box.pop(kind, None)
+        if not entries:
+            return
+        now = time.time()
+        for tid, t0 in entries:
+            telemetry.trace_event('upload', ts=t0, dur=now - t0,
+                                  trace_id=tid, kind=kind,
+                                  gather=self.gather_id)
+        telemetry.trace_flush()
+
+
 class Gather:
     """Fan-in relay between its workers and the learner.
 
@@ -342,7 +407,29 @@ class Gather:
     def __init__(self, args: Dict[str, Any], server_conn, gather_id: int,
                  reconnect=None):
         _LOG.info('started gather %d (pid %d)', gather_id, os.getpid())
+        telemetry.adopt_config(args)
+        telemetry.set_process_label('gather-%d' % gather_id)
+        telemetry.install_crash_dump()
         self.gather_id = gather_id
+        self._upload_trace = UploadTrace(gather_id)
+        gid = str(gather_id)
+        self._m_uploads = {kind: telemetry.counter(
+            'gather_uploads_total', gather=gid, kind=kind)
+            for kind in ('episode', 'result', 'chunk')}
+        self._m_retries = telemetry.counter('gather_rpc_retries_total',
+                                            gather=gid)
+        self._m_reconnects = telemetry.counter('gather_reconnects_total',
+                                               gather=gid)
+        self._m_dropped = telemetry.counter('gather_dropped_uploads_total',
+                                            gather=gid)
+        self._m_box_depth = telemetry.gauge('gather_upload_box_depth',
+                                            gather=gid)
+        self._m_eps_rate = telemetry.gauge('gather_episodes_per_sec',
+                                           gather=gid)
+        self._m_resend_dropped = telemetry.counter(
+            'gather_resend_dropped_total', gather=gid)
+        self._m_reattach = telemetry.counter('gather_reattach_total',
+                                             gather=gid)
         ft = args.get('fault_tolerance') or {}
         self._reconnect_fn = reconnect
         self._rpc_timeout = float(ft.get('rpc_timeout', 120.0))
@@ -421,16 +508,32 @@ class Gather:
     # -- supervised server link --
 
     def beacon(self) -> Dict[str, Any]:
-        """This relay's stats and its workers' newest beacons (of the live
-        ones and of those that have gone)."""
+        """This relay's stats, its workers' newest beacons (of the live
+        ones and of those that have gone) and one telemetry snapshot:
+        this process's merged with its workers' (``merge_snapshots``), a
+        departed worker's without its gauges (its counts stay in the
+        fleet's sums, its levels are gone with it)."""
         self._hb_seq += 1
-        infos: List[Any] = []
-        if self.hub is not None:
-            infos = (list(self.hub.peer_info_snapshot().values())
-                     + list(self.hub.departed_peer_info().values()))
+        live: List[Any] = []
+        gone: List[Any] = []
+        hub = getattr(self, 'hub', None)   # beacons start before the hub
+        if hub is not None:
+            live = list(hub.peer_info_snapshot().values())
+            gone = list(hub.departed_peer_info().values())
+        live_keys = set(latest_beacons(live, 'worker'))
+        telemetry.sample_device_memory()
+        snaps = [telemetry.snapshot()]
+        workers = []
+        for key, w in latest_beacons(live + gone, 'worker').items():
+            w = dict(w)
+            snap = w.pop('telemetry', None)
+            if isinstance(snap, dict):
+                snaps.append(snap if key in live_keys
+                             else dict(snap, gauges={}))
+            workers.append(w)
         info = {'gather': self.gather_id, 'pid': os.getpid(),
-                'seq': self._hb_seq, **self.stats,
-                'workers': list(latest_beacons(infos, 'worker').values())}
+                'seq': self._hb_seq, **self.stats, 'workers': workers,
+                'telemetry': telemetry.merge_snapshots(snaps)}
         engine = getattr(self, 'engine', None)
         if engine is not None:
             from .ops import kernel_launches
@@ -439,13 +542,20 @@ class Gather:
 
     def _heartbeat_loop(self):
         """One-way beacons, sent even while the main loop blocks inside a
-        long RPC (the learner busy at an epoch boundary)."""
+        long RPC (the learner busy at an epoch boundary), with a freshly
+        computed episodes/s gauge."""
+        last_n, last_t = 0, time.time()
         while True:
             time.sleep(self._hb_interval)
+            now = time.time()
+            n = self._m_uploads['episode'].value
+            self._m_eps_rate.set((n - last_n) / max(now - last_t, 1e-9))
+            last_n, last_t = n, now
             try:
                 self.server.send((HEARTBEAT_KIND, self.beacon()))
             except Exception:
                 pass   # the RPC path owns failure handling and reconnect
+            telemetry.trace_flush()   # keep the shared trace file current
 
     def _recover(self, exc: Exception):
         """Redial the data port with exponential backoff and jitter; runs
@@ -470,6 +580,7 @@ class Gather:
                 continue
             self.server = conn
             self.stats['reconnects'] += 1
+            self._m_reconnects.inc()
             _LOG.warning('gather %d: reconnected to the server',
                          self.gather_id)
             return
@@ -505,6 +616,7 @@ class Gather:
         if gen != int(self._resume_token.get('generation', 0)):
             self._resume_token['generation'] = gen
             self.stats['reattaches'] += 1
+            self._m_reattach.inc()
             _LOG.warning('gather %d: reattached across a learner restart '
                          '(generation %d)', self.gather_id, gen)
         return True
@@ -523,6 +635,7 @@ class Gather:
                 except _CONN_ERRORS as exc:
                     if self._reconnect_fn is None:   # a pipe: unrecoverable
                         raise
+                    self._m_retries.inc()
                     self._recover(exc)
 
     # -- per-RPC handling --
@@ -548,10 +661,14 @@ class Gather:
     def _ship(self, kind: str):
         self._server_rpc((kind, self._upload_box[kind]))
         del self._upload_box[kind]   # acked: booked by the learner
+        self._upload_trace.shipped(kind)
 
     def _stash_upload(self, kind: str, payload):
         self._upload_box[kind].append(payload)
+        self._upload_trace.stash(kind, payload)
         self._upload_count += 1
+        if kind in self._m_uploads:
+            self._m_uploads[kind].inc()
         while self._upload_count > self._resend_max:
             # a bounded resend buffer: in a long outage keep the newest
             # uploads and count what was dropped
@@ -560,12 +677,15 @@ class Gather:
             self._upload_box[biggest].pop(0)
             self._upload_count -= 1
             self.stats['dropped_uploads'] += 1
+            self._m_dropped.inc()
+            self._m_resend_dropped.inc()
             _LOG.warning('gather %d: resend buffer full (%d); dropped a %r '
                          'upload', self.gather_id, self._resend_max, biggest)
         if self._upload_count >= self.block:
             for kind in list(self._upload_box):
                 self._ship(kind)
             self._upload_count = 0
+        self._m_box_depth.set(self._upload_count)
 
     def run(self):
         while self.hub.count() > 0:
@@ -696,6 +816,7 @@ class DeviceActorGather(Gather):
                                         device=self.device)
         self.stats['deferred'] = 0
         self.stats['host_failures'] = 0
+        self._m_deferred = telemetry.counter('device_actor_deferred_total')
         _LOG.info('gather %d: device actor backend on %s (%d lanes, %d '
                   'slots, %s records)', gather_id, self.device, n_envs,
                   slots, self.device_engine.record_mode)
@@ -726,6 +847,7 @@ class DeviceActorGather(Gather):
             if task.get('role') == 'idle':
                 if tasks:
                     return tasks, False   # serve the partial block now
+                telemetry.counter('worker_idle_tasks_total').inc()
                 time.sleep(min(5.0, float(task.get('wait', 1.0))))
                 continue
             tasks.append(task)
@@ -736,19 +858,22 @@ class DeviceActorGather(Gather):
         worker's payload contract; a crash costs that task (None: the
         ledger re-issues it)."""
         self.stats['deferred'] += 1
+        self._m_deferred.inc()
         kind = 'result' if task.get('role') == 'e' else 'episode'
         try:
             models = self.vault.obtain(dict(task.get('model_id', {})))
-            if task.get('role') == 'e':
-                payload = self._fallback_eval.execute(models, task)
-            else:
-                payload = self._fallback_gen.execute(models, task)
+            with telemetry.expected_compile('device-actor host fallback'):
+                if task.get('role') == 'e':
+                    payload = self._fallback_eval.execute(models, task)
+                else:
+                    payload = self._fallback_gen.execute(models, task)
         except _CONN_ERRORS:
             raise                 # the model fetch rode a dead pipe
         except Exception:
             traceback.print_exc()
             payload = None
             self.stats['host_failures'] += 1
+            telemetry.counter('worker_task_failures_total').inc()
         self._stash_upload(kind, payload)
 
     def run(self):
@@ -1002,6 +1127,9 @@ class RemoteWorkerCluster:
 
     def run(self):
         merged = entry(self.args)
+        telemetry.adopt_config(merged)
+        telemetry.set_process_label('worker-host')
+        telemetry.install_crash_dump()
         _LOG.info('joined run as %s (base_worker_id %s, %s gathers)',
                   self.args['address'],
                   merged['worker'].get('base_worker_id'),
@@ -1073,6 +1201,13 @@ class RemoteWorkerCluster:
                                  'in %.1fs', i, proc.exitcode, delay)
                     print('supervisor: gather %d died (exit %s); respawning'
                           % (i, proc.exitcode), flush=True)
+                    # the gather had no chance to dump (a SIGKILL): the
+                    # supervisor records the evidence for the post-mortem
+                    telemetry.record_event(
+                        'supervisor', 'gather %d died' % i,
+                        exitcode=proc.exitcode, respawn_in=round(delay, 2))
+                    telemetry.dump_blackbox('gather-death', gather=i,
+                                            exitcode=proc.exitcode)
                     time.sleep(delay)
                     children[i] = spawn(i)
                     self.respawns += 1

@@ -501,6 +501,13 @@ def _wait_for(predicate, deadline, poll=0.25):
     return predicate()
 
 
+# the environment variables the telemetry config is mirrored into
+TELEMETRY_MIRROR = ('HANDYRL_TPU_RUN_ID', 'HANDYRL_TPU_TELEMETRY',
+                    'HANDYRL_TPU_TRACE', 'HANDYRL_TPU_TRACE_RATE',
+                    'HANDYRL_TPU_BLACKBOX', 'HANDYRL_TPU_RECORDER_EVENTS',
+                    'HANDYRL_TPU_RETRACE')
+
+
 def restart_drill(tmp_path, train_args=None, drop_token=False, epochs=4,
                   kill_after='updated model'):
     """Serve a worker host of 2 workers from ``python -m
@@ -526,7 +533,11 @@ def restart_drill(tmp_path, train_args=None, drop_token=False, epochs=4,
     cfg['train_args'].update(train_args or {})
     path = tmp_path / 'cfg.json'
     path.write_text(json.dumps(cfg))
-    env = dict(os.environ, OMP_NUM_THREADS='1', PYTHONUNBUFFERED='1',
+    # the processes take their telemetry, and the run identity that a
+    # dropped token must change, from their config: never from the
+    # environment a learner that ran earlier in this process mirrored it to
+    env = {k: v for k, v in os.environ.items() if k not in TELEMETRY_MIRROR}
+    env.update(OMP_NUM_THREADS='1', PYTHONUNBUFFERED='1',
                HANDYRL_TPU_ENTRY_PORT=str(entry),
                HANDYRL_TPU_DATA_PORT=str(data))
     learner_cmd = [sys.executable, '-m', 'handyrl_tpu_torch.train',

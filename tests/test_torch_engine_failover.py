@@ -38,7 +38,7 @@ from handyrl_tpu_torch.serving.service import InferenceService
 from handyrl_tpu_torch.train import record_soft_faults
 
 from torch_engine_support import (GEN_ARGS, Loopback, Sink, act_request,
-                                  geese_plies, geese_wrappers,
+                                  blackbox_in, geese_plies, geese_wrappers,
                                   one_torch_thread, sink_reply, ttt_wrappers,
                                   wait_for)
 
@@ -46,6 +46,11 @@ from torch_engine_support import (GEN_ARGS, Loopback, Sink, act_request,
 @pytest.fixture(autouse=True, scope='module')
 def _one_torch_thread():
     yield from one_torch_thread()
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _blackbox_in_tmp(tmp_path_factory):
+    yield from blackbox_in(tmp_path_factory.mktemp('blackbox'))
 
 
 def _counter(name, **labels):

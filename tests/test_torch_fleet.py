@@ -211,9 +211,9 @@ def test_serving_checks_accept_what_the_jax_checks_accept(serving):
      'serving.gateway.metrics_port 9102')])
 def test_an_exporter_port_is_refused_naming_item_4(serving, key):
     _jax_serving(serving)     # the JAX package runs its exporter there
-    with pytest.raises(ConfigError, match=key + '.*item 4'):
+    with pytest.raises(ConfigError, match=key + '.*item 4b'):
         serving_args({'env': 'TicTacToe'}, {}, serving)
-    with pytest.raises(ConfigError, match=key + '.*item 4'):
+    with pytest.raises(ConfigError, match=key + '.*item 4b'):
         config.apply_defaults({'train_args': {'serving': serving}})
 
 
@@ -579,7 +579,7 @@ def test_rolling_promote_warms_before_the_flip(fleet_of_two, nets):
         assert slo['received'] >= 1 and slo['p99_ms'] >= slo['p50_ms'] > 0
         client = ServiceClient('127.0.0.1', services[0].port)
         try:
-            assert 'item 4' in client.call_admin({'op': 'trace'})['error']
+            assert 'item 4b' in client.call_admin({'op': 'trace'})['error']
             assert 'error' in client.call_admin({'op': 'warm',
                                                  'model': 'default@9'})
         finally:

@@ -225,7 +225,7 @@ def test_cli_without_cuda_raises_on_the_device_path(tmp_path):
                       'inference': {'enabled': True},
                       'serving': {'fleet': {'resolver': 'localhost:9000'},
                                   'metrics_port': 9100}},
-                 'serving.metrics_port 9100.*item 4',
+                 'serving.metrics_port 9100.*item 4b',
                  id='env_args1-train_args1-host inference engine'),
     ({}, {'device_generation': True, 'generation': {'backend': 'device',
                                                    'device_actor_slots': 0}},

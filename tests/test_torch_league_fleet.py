@@ -78,7 +78,13 @@ def fleet_run(tmp_path_factory):
            'worker_args': {'server_address': '127.0.0.1', 'num_parallel': 2}}
     path = tmp / 'cfg.json'
     path.write_text(json.dumps(cfg))
-    env = dict(os.environ, OMP_NUM_THREADS='1', PYTHONUNBUFFERED='1',
+    # the processes take their telemetry and run identity from their
+    # config, not from a learner that ran earlier in this process
+    env = {k: v for k, v in os.environ.items() if k not in (
+        'HANDYRL_TPU_RUN_ID', 'HANDYRL_TPU_TELEMETRY', 'HANDYRL_TPU_TRACE',
+        'HANDYRL_TPU_TRACE_RATE', 'HANDYRL_TPU_BLACKBOX',
+        'HANDYRL_TPU_RECORDER_EVENTS', 'HANDYRL_TPU_RETRACE')}
+    env.update(OMP_NUM_THREADS='1', PYTHONUNBUFFERED='1',
                HANDYRL_TPU_ENTRY_PORT=str(entry),
                HANDYRL_TPU_DATA_PORT=str(data))
     learner_cmd = [sys.executable, '-m', 'handyrl_tpu_torch.train',

@@ -145,18 +145,29 @@ def test_without_a_config_the_env_is_tictactoe(calls):
     ('--status', 'status_main')])
 def test_modes_not_ported_exit_naming_their_module(mode, module, calls,
                                                    capsys):
-    """Only ``--status`` (telemetry, ROADMAP.md §1 item 4) is left: the
-    fleet's and the gateway's modes reach their mains since they were
-    ported."""
+    """Every mode of the JAX ``main.py`` is ported: the fleet's and the
+    gateway's reach their mains, and ``--status`` (since telemetry,
+    ROADMAP.md §1 item 4a) reaches ``telemetry.status_main``, which on a
+    port nothing listens on exits 1 with the JAX package's line."""
     if mode != '--status':
         assert cli.main([mode]) == 0
         [(name, _args, _kwargs)] = calls
         assert name == {'serving/fleet.py': 'resolver_main',
                         'serving/gateway.py': 'gateway_main'}[module]
         return
-    assert cli.main([mode]) == 2
-    err = capsys.readouterr().err
-    assert module in err and 'not ported' in err and 'item 4' in err
+    import socket
+    from handyrl_tpu import telemetry as jax_telemetry
+    with socket.socket() as s:      # a port that was free a moment ago
+        s.bind(('127.0.0.1', 0))
+        target = '127.0.0.1:%d' % s.getsockname()[1]
+    assert cli.main([mode, target]) == 1
+    got = capsys.readouterr().out
+    with pytest.raises(SystemExit) as exc:
+        jax_telemetry.status_main(None, [target])
+    assert exc.value.code == 1
+    want = capsys.readouterr().out
+    assert got == want and got.startswith('status fetch from %s failed'
+                                          % target)
     assert calls == []
 
 
@@ -203,7 +214,7 @@ def test_gateway_reaches_gateway_main(mode, tmp_path, calls):
 def test_serving_modes_refuse_an_exporter_port(tmp_path, calls):
     cfg = {'env_args': CONFIG['env_args'],
            'train_args': {'serving': {'gateway': {'metrics_port': 9100}}}}
-    with pytest.raises(ConfigError, match='gateway.metrics_port.*item 4'):
+    with pytest.raises(ConfigError, match='gateway.metrics_port.*item 4b'):
         cli.main(['--gateway', '--config', write(tmp_path, cfg)])
     assert calls == []
 

@@ -226,7 +226,7 @@ def test_config_defaults_to_tictactoe_like_the_reference():
       'generation': {'backend': 'engine'},
       'serving': {'fleet': {'resolver': 'localhost:9000'},
                   'gateway': {'metrics_port': 9102}}},
-     ('serving.gateway.metrics_port', 'not ported', 'item 4')),
+     ('serving.gateway.metrics_port', 'not ported', 'item 4b')),
     ({'device_generation': True, 'device_replay': True,
       'generation': {'backend': 'device'}, 'league': {'enabled': True}},
      ('league.enabled requires serving.publish',)),

@@ -122,7 +122,9 @@ def test_cli_without_cuda_raises(tmp_path):
           'generation': {'device_actor_chunk_steps': 0}},
      'device_actor_chunk_steps'),
     ({}, {'compute_dtype': 'float16'}, 'compute_dtype'),
-    ({}, {'telemetry_port': 9100}, 'telemetry_port'),
+    # the exporter runs since telemetry was ported; its port is checked as
+    # the JAX package checks it
+    ({}, {'telemetry_port': 70000}, 'telemetry_port'),
     ({'net_kind': 'former'}, {}, 'net_kind'),
     ({'norm_kind': 'batch', 'torus_impl': 'pallas'}, {}, 'pallas'),
     ({'env': 'TicTacToe'}, {'device_generation': True,
@@ -134,11 +136,12 @@ def test_cli_without_cuda_raises(tmp_path):
                  'inference.engine_backend',
                  id='env_args13-train_args13-host inference engine'),
     # the fleet's resolver runs since the serving fleet was ported; its
-    # exporter port waits for telemetry (ROADMAP.md §1 item 4)
+    # exporter port waits for the serving tier's telemetry (ROADMAP.md §1
+    # item 4b)
     pytest.param({}, {'generation': {'backend': 'engine'},
                       'serving': {'fleet': {'resolver': 'localhost:9000',
                                             'metrics_port': 9100}}},
-                 'serving.fleet.metrics_port 9100.*item 4',
+                 'serving.fleet.metrics_port 9100.*item 4b',
                  id='env_args14-train_args14-inference engine'),
     ({}, {'generation': {'backend': 'gpu'}}, 'generation.backend'),
     ({}, {'batched_generation': False, 'worker': {'num_parallel': 0}},

@@ -19,6 +19,7 @@ from handyrl_tpu.environment import make_env as jax_make_env
 from handyrl_tpu.model import ModelWrapper as JaxModelWrapper
 from handyrl_tpu.models.geese import GeeseNet as JaxGeeseNet
 from handyrl_tpu.models.geese import GeeseNetLSTM as JaxGeeseNetLSTM
+from handyrl_tpu_torch import telemetry
 from handyrl_tpu_torch.connection import INFER_KIND
 from handyrl_tpu_torch.environment import make_env
 from handyrl_tpu_torch.generation import sample_seed
@@ -44,6 +45,21 @@ def one_torch_thread():
         os.environ.pop('OMP_NUM_THREADS', None)
     else:
         os.environ['OMP_NUM_THREADS'] = omp
+
+
+def blackbox_in(directory):
+    """A fixture body: the port's blackbox dumps (a supervisor's restart
+    writes one) go to ``directory``, not to the working directory's
+    ``blackbox``; the setting is put back after."""
+    before = telemetry._BLACKBOX_DIR
+    env = os.environ.get('HANDYRL_TPU_BLACKBOX')
+    telemetry.configure_recorder(None, str(directory), force=True)
+    yield
+    telemetry.configure_recorder(None, before, force=True)
+    if env is None:
+        os.environ.pop('HANDYRL_TPU_BLACKBOX', None)
+    else:
+        os.environ['HANDYRL_TPU_BLACKBOX'] = env
 
 
 def geese_plies(count, seed=0):
