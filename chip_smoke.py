@@ -6,10 +6,10 @@ CUDA device and ``nvcc`` (CUDA_HOME, PATH or /usr/local/cuda), and exits
 non-zero, printing no result, when either is missing or any phase fails.
 To fit its time, the processes of phase 8 with 9(a)'s, the learner
 processes of 9(b) with phase 10, of 11(a)-(c) with 11(d)'s export, of 12(c) and (d), of 13(a), of 13(b), of
-14(b)/(c) and 14(f), of 16(a) and (b), and of phase 17 with 18(c) and (d)
-run at once, and phase 19's fleet and gateway beside phases 16, 17 and 18
-(each part still checks its own run; their rates, 16(a)'s MTTR and 19's
-latencies share the host and the card).
+14(b)/(c) and 14(f) (beside phase 13), of 16(a) and (b), and of phase 17 with 18(c) and (d)
+run at once, and phase 19's fleet and gateway (and the SWA tool) beside
+phases 16, 17 and 18 (each part still checks its own run; their rates,
+16(a)'s MTTR and 19's latencies share the host and the card).
 
 1. Prints the card (name and power limit from nvidia-smi), the torch and
    CUDA versions, and builds every CUDA kernel of the port from the
@@ -233,7 +233,11 @@ latencies share the host and the card).
    a torch.profiler trace with CUDA activity of its second epoch, which
    must be valid Chrome JSON with CUDA kernel events; names which of the
    graphed step's kernels (PROFILED) appear in it. Prints the scrape's
-   latency and the trace events an episode.
+   latency and the trace events an episode. Then
+   ``scripts/torch_trace_report.py --json`` on its trace directory and
+   ``scripts/torch_postmortem.py --json`` on its blackbox directory must
+   exit 0, the report with complete chains, the postmortem naming the
+   killed gather among its ``gather-death`` dumps.
 10. Network battles and the model specs, through ``python -m
    handyrl_tpu_torch`` with no --device, on a full-width GeeseNet
    (``torus_impl='pallas'``) and SimpleConv2dModel from seeded inits
@@ -348,7 +352,8 @@ latencies share the host and the card).
    PHASE13_TIMEOUT.
 14. Geister and ParallelTicTacToe, and norm_kind 'batch' through the
    update step, the checkpoints and inference, one JSON line with each
-   part's seconds (budget 150 s). (a) ``python -m
+   part's seconds (budget 150 s). Its learner processes ((b), (c) and
+   (f)) start before phase 13 and run beside it. (a) ``python -m
    handyrl_tpu_torch.serving`` on a full-width GeisterNet('batch',
    'spatial') with seeded weights and running averages off their init:
    both seats for G_SERVE_PLIES plies, each request carrying its seat's
@@ -481,7 +486,12 @@ latencies share the host and the card).
    naming a free port) and ENGINE_REMOTE_TRAIN's workers dialing it
    through ``serving.endpoint``: the service launches K1 and exits 75 on
    SIGTERM, no engine in the gather, the workers launch nothing until a
-   failover and re-promote. Prints one ``{"phase18": ...}`` JSON line.
+   failover and re-promote; the service's exporter (``serving.
+   metrics_port``, a free port, on its ready line): one ``/metrics``
+   scrape counts ``serve_requests_total`` above 0, ``/statusz`` has the
+   SLO block and ``answered`` above 0 in its progress, ``python -m
+   handyrl_tpu_torch --status`` exits 0. Prints one ``{"phase18": ...}``
+   JSON line.
 19. The serving fleet and the match gateway (FLEET_*, GW_*), through
    ``python -m handyrl_tpu_torch --serve-fleet`` and ``--gateway``. In
    this process first: a temporary registry with two seeded full-width
@@ -506,8 +516,33 @@ latencies share the host and the card).
    at least one rebuild, no mismatch, no drop, the respawn awaited. (c)
    The same with GW_LSTM_SESSIONS GeeseNetLSTM sessions (non-empty hidden
    cache and digest), the respawn not awaited (the drain follows). Every outcome in the RatingBook's journal; SIGTERM
-   drains the gateway and the fleet to 75. Prints one ``{"phase19":
-   ...}`` JSON line (latencies, respawn seconds, matches/s, plies replayed).
+   drains the gateway and the fleet to 75. The serving tier's telemetry
+   rides the same runs (FLEET_TELEMETRY: every request and session
+   traced, alerts every second; the resolver's and the gateway's
+   exporters on free ports; the gateway alone under
+   ``HANDYRL_TPU_SANITIZE=1``): after (a)'s respawn the resolver's
+   ``/metrics`` shows ``fleet_replicas`` 2 and a respawn, its
+   ``/statusz`` both replicas and ``heartbeat_misses`` fired; during
+   (b)'s hold the gateway's ``/statusz`` lists a live session, and the
+   same ones as its ``sessions`` op (a match may end before the hold);
+   after (b)'s respawn a telemetry A/B on the warm fleet (AB_ORDER): a
+   second gateway without the sanitizer plays rounds with its and the
+   replicas' tracing switched off and on by the ``trace`` op, and the
+   sanitized gateway rounds traced (matches/s, plies/s and ply p50/p99
+   by arm; (a)-(c)'s own figures are the traced and sanitized ones);
+   after (c) its ``/metrics`` counts every session opened and
+   no drop, ``session_drop`` not fired, and ``--status`` (run beside (c))
+   exits 0 against the resolver and the gateway; after the drain the
+   gateway's sanitizer line reads 0 inversions and 0 leaked threads, and
+   ``scripts/torch_trace_report.py --serve --json`` exits 0 with
+   complete, routed and reconstruct chains, one of them from the
+   gateway's process to a replica's (the router's replay link,
+   ``router_replay``, is checked by the CPU tests alone: this process
+   traces nothing, so (a)'s replays carry no id). Prints one
+   ``{"phase19": ...}`` JSON line (latencies, respawn seconds, matches/s,
+   plies replayed, the exporters, the A/B, the traces). Beside it (and phases 16-18), a child runs
+   ``scripts/torch_aux_swa.py`` on the card over phase 7's checkpoints:
+   exit 0, the reloaded average's probe finite.
 20. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, their bf16
    forms as rows of their own, K3-K5; K2a and K2b take their launches
    from K2's count, one of each a call, the bf16 rows from K2-bf16's; the
@@ -547,6 +582,7 @@ latencies share the host and the card).
 
 import json
 import os
+import re
 import select
 import shutil
 import signal
@@ -622,7 +658,10 @@ def fail(msg):
 
 
 def log(msg):
-    print(msg, flush=True)
+    # the process's own stdout: phase 10's inline tournament swaps
+    # sys.stdout for a moment in its thread, and a line another phase's
+    # thread logs then must not land in that buffer
+    print(msg, file=sys.__stdout__, flush=True)
 
 
 def concurrently(*fns):
@@ -2809,7 +2848,9 @@ def check_learning_bar(line, label):
     return n, win_rate
 
 
-def phase_quick_start(torch, repo, make_env, k3_rows):
+def phase_quick_start(torch, repo, make_env, k3_rows, keep=None):
+    """Phase 7; its numbered checkpoints are copied into ``keep`` (the
+    SWA tool's input in phase 19)."""
     from handyrl_tpu_torch.ops.train_step import GRAPH_WARMUP_STEPS
     tmp = tempfile.mkdtemp(prefix='chip_smoke_quick_')
     try:
@@ -2820,6 +2861,9 @@ def phase_quick_start(torch, repo, make_env, k3_rows):
         models = os.path.join(tmp, 'models')
         check_quick_run(torch, line, models, QUICK_EPOCHS, 'quick start',
                         QUICK_FILES, GRAPH_WARMUP_STEPS)
+        if keep:
+            for epoch in range(1, QUICK_EPOCHS + 1):
+                shutil.copy(os.path.join(models, '%d.ckpt' % epoch), keep)
         check_quick_forward(torch, make_env, models, 'quick start')
         n, win_rate = check_learning_bar(line, 'quick start')
         steps = [b - a for a, b in zip([0] + line['epoch_steps'],
@@ -3577,6 +3621,50 @@ def check_remote_telemetry(tmp, line, rows):
             'events_per_episode': traced / max(1, line['episodes'])}
 
 
+def run_tool(repo, script, args, label):
+    """``python scripts/<script> ARGS --json``: (exit code, its JSON)."""
+    proc = subprocess.run([sys.executable, os.path.join('scripts', script)]
+                          + list(args) + ['--json'], cwd=repo,
+                          capture_output=True, text=True, timeout=120)
+    try:
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        fail('%s: %s printed no JSON (exit %d):\n%s' % (
+            label, script, proc.returncode, proc.stderr[-2000:]))
+    return proc.returncode, report
+
+
+def remote_tools(repo, tmp, host_out):
+    """9(b) after its run: ``scripts/torch_trace_report.py`` on its trace
+    directory and ``scripts/torch_postmortem.py`` on its worker host's
+    blackbox directory, each exit 0; the postmortem names the killed
+    gather among the dumps."""
+    t0 = time.monotonic()
+    rc, report = run_tool(repo, 'torch_trace_report.py',
+                          [os.path.join(tmp, 'traces')], '9(b)')
+    if rc != 0 or not report['complete_chains']:
+        fail('9(b): torch_trace_report.py exited %d with %s complete '
+             'chains' % (rc, report.get('complete_chains')))
+    rc, post = run_tool(repo, 'torch_postmortem.py',
+                        [os.path.join(tmp, 'blackbox')], '9(b)')
+    killed = [int(m) for m in re.findall(r'chaos: killing gather (\d+)',
+                                         host_out)]
+    named = [d['context'].get('gather') for d in post['deaths']
+             if d['reason'] == 'gather-death']
+    if rc != 0 or not killed or killed[0] not in named:
+        fail('9(b): torch_postmortem.py exited %d; killed gather %s, dumps '
+             'name %s' % (rc, killed, named))
+    seconds = time.monotonic() - t0
+    log('workers (remote): torch_trace_report.py: %d events, %d chains '
+        '(%d complete); torch_postmortem.py: %d dump(s), first failure %s '
+        '(%s), gather %d among them; both tools %.2f s' % (
+            report['events'], report['chains'], report['complete_chains'],
+            post['dumps'], post['first_failure']['role'],
+            post['first_failure']['reason'], killed[0], seconds))
+    return {'report_chains': report['complete_chains'],
+            'postmortem_dumps': post['dumps'], 'tools_s': seconds}
+
+
 def phase_workers_remote(torch, repo):
     """Phase 9(b): ``--server`` and one worker host of REMOTE_WORKERS
     workers on the card over localhost TCP, on free ports, with a gather
@@ -3669,7 +3757,8 @@ def phase_workers_remote(torch, repo):
         with open(metrics) as f:
             rows = [json.loads(l) for l in f if l.strip()]
         line['telemetry_checks'] = dict(
-            scraped, **check_remote_telemetry(tmp, line, rows))
+            scraped, **check_remote_telemetry(tmp, line, rows),
+            **remote_tools(repo, tmp, host_out))
         line['profiled_kernels'] = check_profile('9(b) the training server',
                                                  line)
         return line
@@ -6052,9 +6141,19 @@ def geister_device_actor(torch, make_env):
     return out
 
 
-def phase_geister(torch, repo, make_env):
+def geister_learner_group(torch, repo, tmp):
+    """14(b)/(c) and 14(f) at once: learner processes of their own (the
+    checks in this process read their lines and checkpoints on the host,
+    no CUDA work), so the group can run beside phase 13."""
+    return concurrently(lambda: geister_learners(torch, repo, tmp),
+                        lambda: parallel_tictactoe_learner(repo, tmp))
+
+
+def phase_geister(torch, repo, make_env, learners):
     """Phase 14: Geister and ParallelTicTacToe, BatchNorm through the step,
-    the checkpoints and inference; each part's seconds, one JSON line."""
+    the checkpoints and inference; each part's seconds, one JSON line.
+    ``learners()`` waits for :func:`geister_learner_group` (started beside
+    phase 13); 'b_c_f' is the wait left in this phase."""
     from handyrl_tpu_torch.model import fp32_on_card
     fp32_on_card(torch.device('cuda'))
     t0 = time.monotonic()
@@ -6066,13 +6165,11 @@ def phase_geister(torch, repo, make_env):
         t = time.monotonic()
         serving = geister_serving(torch, repo, make_env)
         seconds['a'] = time.monotonic() - t
-        log('== phase 14(b)/(c), with 14(f) at once: Geister on the host '
-            'learner and the fused turn loop; ParallelTicTacToe on the host '
-            'learner')
+        log('== phase 14(b)/(c), with 14(f) at once (begun beside phase '
+            '13): Geister on the host learner and the fused turn loop; '
+            'ParallelTicTacToe on the host learner')
         t = time.monotonic()
-        (host, fused), ptt = concurrently(
-            lambda: geister_learners(torch, repo, tmp),
-            lambda: parallel_tictactoe_learner(repo, tmp))
+        (host, fused), ptt = learners()
         seconds['b_c_f'] = time.monotonic() - t
         t = time.monotonic()
         fused['refresh'] = geister_refresh(torch, repo)
@@ -7917,7 +8014,8 @@ def engine_remote(repo):
         cfg = json.loads(json.dumps(LEARNER_CONFIG))
         cfg['train_args'].update(json.loads(json.dumps(extra)))
         cfg['train_args']['model_dir'] = os.path.join(tmp, 'models')
-        cfg['train_args']['serving']['port'] = port
+        mport, = free_ports(1)
+        cfg['train_args']['serving'].update(port=port, metrics_port=mport)
         serve_path = os.path.join(tmp, 'serve_config.json')
         with open(serve_path, 'w') as f:
             json.dump(cfg, f)
@@ -7948,6 +8046,16 @@ def engine_remote(repo):
                 not status['answered'] > 0:
             fail('%s: the service answered %d requests with launches %s'
                  % (label, status['answered'], status['kernel_launches']))
+        if ready['metrics_port'] != mport:
+            fail('%s: the exporter is on %s, not %d' % (
+                label, ready['metrics_port'], mport))
+        text, scrape_ms, statusz = scrape(mport)
+        served = sum(prom_values(text, 'serve_requests_total').values())
+        if not served > 0 or not (statusz.get('progress') or {}).get(
+                'answered', 0) > 0 or 'slo' not in statusz:
+            fail('%s: /metrics counts %s requests, /statusz %s' % (
+                label, served, statusz))
+        status_lines = status_done(label, status_cli(repo, mport))
         service.send_signal(signal.SIGTERM)
         rc = service.wait(timeout=60)
         service.stdout.close()
@@ -7960,6 +8068,10 @@ def engine_remote(repo):
                'service': {k: status[k] for k in (
                    'received', 'answered', 'engine_requests',
                    'engine_batches', 'shed')},
+               'exporter': {'scrape_ms': scrape_ms,
+                            'lines': len(text.splitlines()),
+                            'serve_requests_total': served,
+                            'statusz_slo': statusz['slo']},
                'kernel_launches': line['kernel_launches'],
                'service_launches': status['kernel_launches'],
                'worker_kernel_launches': line['worker_kernel_launches']}
@@ -7973,6 +8085,10 @@ def engine_remote(repo):
                clients['remote_dials'], clients['failovers'],
                clients['repromotions'], clients['local_inferences'],
                line['worker_kernel_launches']['geese_trunk']))
+        log('18(d): the service\'s /metrics scraped in %.2f ms (%d lines, '
+            'serve_requests_total %d); /statusz slo %s; --status: %s' % (
+                scrape_ms, len(text.splitlines()), served, statusz['slo'],
+                ' | '.join(status_lines[:3])))
         return out
     finally:
         if service is not None:
@@ -8025,6 +8141,152 @@ FLEET_HEARTBEAT = 0.5
 GW_SESSIONS = 8
 GW_LSTM_SESSIONS = 4
 GW_HOLD = 3
+# the serving tier's telemetry: every request and session traced, the
+# alert engines evaluated every second, each tier's exporter on a free
+# port; the gateway process alone runs under the runtime sanitizer
+FLEET_TELEMETRY = {'trace_sample_rate': 1.0, 'alerts': {'interval': 1.0}}
+# the serving tier's telemetry cost on the warm fleet after (b)'s respawn:
+# rounds of GW_SESSIONS clients, AB_MATCHES matches each back to back and
+# no kill, in AB_ORDER, each (the gateway it plays on, that gateway traced,
+# the replicas traced): a second gateway without the sanitizer, its and
+# the replicas' tracing switched off and on by the ``trace`` op, and the
+# sanitized gateway, traced
+AB_MATCHES = 2
+AB_ORDER = (('plain', False, False), ('plain', True, True),
+            ('sanitized', True, True), ('sanitized', True, True),
+            ('plain', True, True), ('plain', False, False))
+AB_ARMS = {(False, False): 'untraced', (True, True): 'traced',
+           (True, False): 'gateway_traced', (False, True): 'replicas_traced'}
+SERVE_CHAIN = ('client_request', 'route_dispatch', 'serve_request',
+               'queue_wait', 'engine_batch')
+SANITIZER_LINE = r'graftlint-sanitizer: (\d+) lock-order inversion\(s\), ' \
+    r'(\d+) unnamed thread\(s\), (\d+) leaked non-daemon thread\(s\)'
+
+
+def scrape(port):
+    """One ``/metrics`` scrape of an exporter on 127.0.0.1 (its text and
+    milliseconds) and its ``/statusz`` payload."""
+    import urllib.request
+    base = 'http://127.0.0.1:%d' % port
+    t0 = time.monotonic()
+    text = urllib.request.urlopen(base + '/metrics', timeout=10
+                                  ).read().decode()
+    ms = 1e3 * (time.monotonic() - t0)
+    status = json.loads(urllib.request.urlopen(base + '/statusz',
+                                               timeout=10).read())
+    return text, ms, status
+
+
+def status_cli(repo, port):
+    """``python -m handyrl_tpu_torch --status 127.0.0.1:PORT``, started;
+    :func:`status_done` reads it."""
+    return subprocess.Popen(
+        [sys.executable, '-m', 'handyrl_tpu_torch', '--status',
+         '127.0.0.1:%d' % port], cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def status_done(label, proc):
+    out, err = proc.communicate(timeout=60)
+    if proc.returncode != 0:
+        fail('%s: --status exited %d:\n%s%s' % (
+            label, proc.returncode, out[-2000:], err[-2000:]))
+    return out.splitlines()
+
+
+def phase_swa(repo, models):
+    """``scripts/torch_aux_swa.py TicTacToe 1 QUICK_EPOCHS`` on the quick
+    start's checkpoints, on the card in a child process: exit 0, the
+    strict reload's probe finite. Returns its seconds and last line."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.join('scripts', 'torch_aux_swa.py'),
+         'TicTacToe', '1', str(QUICK_EPOCHS), models], cwd=repo,
+        capture_output=True, text=True, timeout=300)
+    seconds = time.monotonic() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or 'finite True' not in lines[-1] \
+            or 'device cuda' not in lines[-1] or not os.path.exists(
+                os.path.join(models, 'swa.ckpt')):
+        fail('SWA: torch_aux_swa.py exited %d:\n%s\n%s' % (
+            proc.returncode, proc.stdout[-2000:], proc.stderr[-2000:]))
+    log('SWA: torch_aux_swa.py averaged the quick start\'s %d checkpoints '
+        'on the card in %.1f s: %s' % (QUICK_EPOCHS, seconds, lines[-1]))
+    return {'seconds': seconds, 'line': lines[-1]}
+
+
+def resolver_checks(fport, names):
+    """19 after (a)'s kill and respawn: the resolver's ``/metrics`` (both
+    replicas routable, a respawn) and ``/statusz`` (both replicas; the
+    ``heartbeat_misses`` alert fired, polled for up to 20 s: the engine
+    evaluates every second)."""
+    deadline = time.monotonic() + 20
+    while True:
+        text, ms, status = scrape(fport)
+        fired = (status.get('alerts') or {}).get('fired') or {}
+        if 'heartbeat_misses' in fired or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    replicas = prom_values(text, 'fleet_replicas').get('', 0)
+    respawns = prom_values(text, 'fleet_respawns_total').get('', 0)
+    misses = prom_values(text, 'fleet_heartbeat_misses_total').get('', 0)
+    disconnects = sum(prom_values(text, 'hub_disconnects_total').values())
+    if replicas != FLEET_REPLICAS or respawns < 1 or sorted(
+            status.get('fleet_replicas') or {}) != names or \
+            'heartbeat_misses' not in fired:
+        fail('19(a): the resolver shows fleet_replicas %s, respawns %s, '
+             'replicas %s, alerts fired %s' % (
+                 replicas, respawns, status.get('fleet_replicas'), fired))
+    return {'scrape_ms': ms, 'lines': len(text.splitlines()),
+            'fleet_replicas': replicas, 'respawns': respawns,
+            'heartbeat_misses_total': misses,
+            'hub_disconnects_total': disconnects,
+            'alerts_fired': fired, 'requests': status.get('requests')}
+
+
+def fleet_traces(repo, trace_dir, gateway_pid, resolver_pid, plies):
+    """19 after the drain: ``scripts/torch_trace_report.py --serve`` on the
+    processes' trace files (exit 0, complete, routed and reconstruct
+    chains) and a complete chain whose events come from the gateway's
+    process and a replica's."""
+    import glob
+    rc, report = run_tool(repo, 'torch_trace_report.py',
+                          [trace_dir, '--serve'], '19')
+    sv = report.get('serve') or {}
+    if rc != 0 or not sv.get('complete_chains') or \
+            not sv.get('routed_chains') or sv.get('reconstruct_chains', 0) < 1:
+        fail('19: torch_trace_report.py --serve exited %d: %s' % (
+            rc, {k: sv.get(k) for k in ('chains', 'complete_chains',
+                                        'routed_chains',
+                                        'reconstruct_chains')}))
+    pids = {}
+    for path in glob.glob(os.path.join(trace_dir, 'trace-*.jsonl')):
+        for line in read_text(path).splitlines():
+            try:
+                e = json.loads(line)
+            except ValueError:
+                continue
+            a = e.get('args') or {}
+            for tid in ([a['trace_id']] if a.get('trace_id') else []) + \
+                    list(a.get('trace_ids') or ()):
+                pids.setdefault(tid, {}).setdefault(e['name'], set()).add(
+                    e.get('pid'))
+    across = [t for t, names in pids.items()
+              if {'gateway_ply', 'client_request', 'serve_request',
+                  'engine_batch'} <= set(names)
+              and gateway_pid in names['gateway_ply']
+              and names['serve_request'] - {gateway_pid, resolver_pid}]
+    if not across:
+        fail('19: no traced ply runs from the gateway (pid %d) to a replica'
+             % gateway_pid)
+    return {'events': report['events'], 'processes': report['processes'],
+            'events_per_ply': report['events'] / max(1, plies),
+            'chains': sv['chains'], 'complete_chains': sv['complete_chains'],
+            'routed_chains': sv['routed_chains'],
+            'replay_chains': sv['replay_chains'],
+            'reconstruct_chains': sv['reconstruct_chains'],
+            'gateway_to_replica_chains': len(across),
+            'hop_p50_s': {k: v['p50'] for k, v in sv['hop_seconds'].items()}}
 
 
 def lstm_buckets(torch, make_env):
@@ -8223,12 +8485,14 @@ def wait_respawn(rc, victim, old_pid, readmitted, deadline_s=180):
          % (victim, deadline_s, rc.status()))
 
 
-def fleet_round(rc, gw_port, admin, model, count, label, seed, respawn):
+def fleet_round(rc, gw_port, admin, model, count, label, seed, respawn,
+                on_hold=None):
     """19(b)/(c): ``count`` sessions against ``model`` held after GW_HOLD
     plies, the replica holding most of them SIGKILLed, the sessions
     released once the gateway has rebuilt them, played to their outcomes;
-    with ``respawn``, until the victim is back healthy. Returns the
-    round's numbers."""
+    with ``respawn``, until the victim is back healthy. ``on_hold()``
+    runs while every session is held (its result under 'on_hold').
+    Returns the round's numbers."""
     import random
     import threading
     from handyrl_tpu_torch.serving.gateway import GatewayClient
@@ -8280,6 +8544,7 @@ def fleet_round(rc, gw_port, admin, model, count, label, seed, respawn):
     except threading.BrokenBarrierError:
         fail('19(%s): a session failed before the kill: %s'
              % (label, errors))
+    held = on_hold() if on_hold else None
     sessions = admin.sessions()
     by_replica = {}
     for row in sessions:
@@ -8335,10 +8600,130 @@ def fleet_round(rc, gw_port, admin, model, count, label, seed, respawn):
             'respawn_s_after_round': respawn_s, 'wall_s': wall,
             'matches_per_s': count / wall,
             'plies': sum(r['plies'] for r in results),
-            'counts_before_kill': counts}
+            'counts_before_kill': counts, 'on_hold': held}
 
 
-def phase_fleet_run(repo, prep):
+def ab_round(port, label, seed):
+    """GW_SESSIONS clients against the gateway on ``port``, AB_MATCHES
+    matches each back to back, no kill: the wall seconds, the matches and
+    every ply's round trip (ms)."""
+    import random
+    import threading
+    from handyrl_tpu_torch.serving.gateway import GatewayClient
+    ply_ms, errors = [], []
+    lock = threading.Lock()
+
+    def play(i):
+        client = GatewayClient('127.0.0.1', port, timeout=120,
+                               name='chip%s%d' % (label, i))
+        rng = random.Random(seed + i)
+        mine = []
+        try:
+            for m in range(AB_MATCHES):
+                reply = client.open('HungryGeese', model='default@champion',
+                                    seed=seed + AB_MATCHES * i + m)
+                sid = reply['sid']
+                while not reply['done']:
+                    action = (rng.choice(reply['legal']) if reply['to_move']
+                              else None)
+                    t0 = time.perf_counter()
+                    reply = client.play(sid, action)
+                    mine.append(1e3 * (time.perf_counter() - t0))
+        except Exception as exc:   # noqa: BLE001 — reported below
+            errors.append('%s %d: %s: %s' % (label, i, type(exc).__name__,
+                                              exc))
+        finally:
+            client.close()
+        with lock:
+            ply_ms.extend(mine)
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=play, args=(i,), daemon=True)
+               for i in range(GW_SESSIONS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail('19 A/B %s: sessions failed: %s' % (label, errors))
+    return {'wall_s': wall, 'matches': GW_SESSIONS * AB_MATCHES,
+            'ply_ms': ply_ms}
+
+
+def set_tracing(endpoints, trace_dir, on):
+    """The ``trace`` op on each serving process at ``endpoints`` ((host,
+    port); replicas and gateways answer it alike): tracing into
+    ``trace_dir`` at rate 1.0, or off."""
+    from handyrl_tpu_torch.serving.client import ServiceClient
+    body = ({'op': 'trace', 'dir': trace_dir, 'rate': 1.0} if on
+            else {'op': 'trace'})
+    for host, port in endpoints:
+        client = ServiceClient(host, port, timeout=60)
+        try:
+            reply = client.call_admin(body)
+        finally:
+            client.close()
+        if reply != {'ok': True, 'dir': trace_dir if on else '',
+                     'rate': 1.0}:
+            fail('19 A/B: the trace op on %s:%d answered %s'
+                 % (host, port, reply))
+
+
+def telemetry_ab(rc, ports, trace_dir, order):
+    """The rounds of ``order`` (as AB_ORDER) on the warm fleet
+    (``ports``: the two gateways' by kind), after an untimed round on the
+    plain gateway. Returns each arm's matches/s, plies/s and ply p50/p99
+    (ms), and each round's p50 and wall (the spread); the sanitized
+    gateway and the replicas are traced again after it."""
+    from handyrl_tpu_torch.serving.client import parse_endpoint
+    replicas = [parse_endpoint(r['endpoint'])
+                for r in rc.status()['replicas']
+                if r['state'] in ('healthy', 'degraded')]
+    if len(replicas) != FLEET_REPLICAS:
+        fail('19 A/B: %d replicas routable, not %d'
+             % (len(replicas), FLEET_REPLICAS))
+    # the plain gateway's workers open their routers' connections in an
+    # untimed round first
+    ab_round(ports['plain'], 'abwarm', SEED + 1960)
+    endpoints = {'replicas': replicas,
+                 'plain': [('127.0.0.1', ports['plain'])],
+                 'sanitized': [('127.0.0.1', ports['sanitized'])]}
+    traced = dict.fromkeys(endpoints, True)
+    arms = {}
+    for k, (kind, gateway_on, replicas_on) in enumerate(order):
+        for group, on in ((kind, gateway_on), ('replicas', replicas_on)):
+            if traced[group] != on:
+                set_tracing(endpoints[group], trace_dir, on)
+                traced[group] = on
+        r = ab_round(ports[kind], 'ab%d' % k, SEED + 1970 + 100 * k)
+        arm = arms.setdefault('%s_%s' % (kind, AB_ARMS[gateway_on,
+                                                       replicas_on]),
+                              {'rounds': 0, 'matches': 0, 'wall_s': 0.0,
+                               'ply_ms': [], 'round_p50_ms': [],
+                               'round_wall_s': []})
+        arm['rounds'] += 1
+        arm['matches'] += r['matches']
+        arm['wall_s'] += r['wall_s']
+        arm['ply_ms'] += r['ply_ms']
+        arm['round_p50_ms'].append(sorted(r['ply_ms'])[len(r['ply_ms']) // 2])
+        arm['round_wall_s'].append(r['wall_s'])
+    for group in ('sanitized', 'replicas'):
+        if not traced[group]:
+            set_tracing(endpoints[group], trace_dir, True)
+    out = {}
+    for name, arm in arms.items():
+        lat = sorted(arm.pop('ply_ms'))
+        out[name] = dict(arm, plies=len(lat),
+                         matches_per_s=arm['matches'] / arm['wall_s'],
+                         plies_per_s=len(lat) / arm['wall_s'],
+                         ply_p50_ms=lat[len(lat) // 2],
+                         ply_p99_ms=lat[min(len(lat) - 1,
+                                            int(0.99 * len(lat)))])
+    return out
+
+
+def phase_fleet_run(repo, prep, ab_order=AB_ORDER):
     """Phase 19, through ``python -m handyrl_tpu_torch``: (a) the serving
     fleet (--serve-fleet, 2 managed replicas on the card): a routed burst
     against the references, one replica SIGKILLed with the burst in
@@ -8348,9 +8733,12 @@ def phase_fleet_run(repo, prep):
     replica's K1 launches (every forward K1's serving form); (b) the match
     gateway (--gateway) over it: GW_SESSIONS Geese sessions held mid-match
     through a replica's SIGKILL, rebuilt from their journals, played to
-    their outcomes, booked in the RatingBook's journal; (c) GW_LSTM_SESSIONS
-    GeeseNetLSTM sessions the same way (their hidden cache and digest are
-    not empty); SIGTERM drains the gateway and the fleet to 75. Processes
+    their outcomes, booked in the RatingBook's journal; between (b) and
+    (c), the telemetry A/B (:func:`telemetry_ab`, the rounds of
+    ``ab_order``) against a second, plain gateway and the sanitized one;
+    (c) GW_LSTM_SESSIONS GeeseNetLSTM
+    sessions the same way as (b) (their hidden cache and digest are not
+    empty); SIGTERM drains the gateways and the fleet to 75. Processes
     only: it does no CUDA work in this process."""
     from handyrl_tpu_torch.serving.fleet import RoutedClient
     from handyrl_tpu_torch.serving.gateway import GatewayClient
@@ -8359,18 +8747,29 @@ def phase_fleet_run(repo, prep):
     procs, rc, admin = [], None, None
     out = {'card': nvidia_smi_line()}
     try:
+        fport, gport = free_ports(2)
+        trace_dir = os.path.join(tmp, 'traces')
         cfg = {'env_args': GEESE_ENV, 'train_args': {
-            'seed': SEED, 'serving': {
+            'seed': SEED, 'telemetry': dict(
+                FLEET_TELEMETRY, trace_dir=trace_dir,
+                blackbox_dir=os.path.join(tmp, 'blackbox')),
+            'serving': {
                 'registry_dir': root, 'fleet': {
                     'port': 0, 'replicas': FLEET_REPLICAS,
-                    'heartbeat_interval': FLEET_HEARTBEAT}}}}
+                    'heartbeat_interval': FLEET_HEARTBEAT,
+                    'metrics_port': fport}}}}
         path = os.path.join(tmp, 'fleet.json')
         with open(path, 'w') as f:
             json.dump(cfg, f)
-        env = dict(os.environ, PYTHONUNBUFFERED='1')
+        # the processes take their telemetry from their config (the
+        # replicas from the resolver's environment), never from this
+        # process's; the sanitizer is set for the gateway alone
+        env = {k: v for k, v in os.environ.items()
+               if k not in TELEMETRY_ENV + ('HANDYRL_TPU_SANITIZE',)}
+        env['PYTHONUNBUFFERED'] = '1'
         logs = {k: (os.path.join(tmp, k + '.out'),
                     os.path.join(tmp, k + '.err'))
-                for k in ('fleet', 'gateway')}
+                for k in ('fleet', 'gateway', 'gateway_plain')}
         t0 = time.monotonic()
         procs.append(start_session(['handyrl_tpu_torch', '--serve-fleet',
                                     '--config', path, '--device', 'cuda'],
@@ -8411,6 +8810,14 @@ def phase_fleet_run(repo, prep):
             fail('19(a): the kill stranded no request of the burst')
         out['respawn_s'] = wait_respawn(rc, victim, table[victim]['pid'],
                                         readmitted)
+        out['resolver'] = resolver_checks(fport, names)
+        log('19(a) the resolver after the kill: /metrics scraped in %.2f ms '
+            '(%d lines): fleet_replicas %d, fleet_respawns_total %d, '
+            'fleet_heartbeat_misses_total %d, hub_disconnects_total %d; '
+            'alerts fired %s' % tuple(out['resolver'][k] for k in (
+                'scrape_ms', 'lines', 'fleet_replicas', 'respawns',
+                'heartbeat_misses_total', 'hub_disconnects_total',
+                'alerts_fired')))
         # the router comes back to the respawned replica through its
         # breaker's half-open probe (its backoff opened on every stranded
         # request): until then the survivor answers, with the same bits
@@ -8454,30 +8861,92 @@ def phase_fleet_run(repo, prep):
         gcfg = json.loads(json.dumps(cfg))
         gcfg['train_args']['serving']['gateway'] = {
             'resolver': '127.0.0.1:%d' % ready['port'],
-            'workers': GW_SESSIONS}
+            'workers': GW_SESSIONS, 'metrics_port': gport}
         gpath = os.path.join(tmp, 'gateway.json')
         with open(gpath, 'w') as f:
             json.dump(gcfg, f)
         procs.append(start_session(['handyrl_tpu_torch', '--gateway',
-                                    '--config', gpath], repo, env,
+                                    '--config', gpath], repo,
+                                   dict(env, HANDYRL_TPU_SANITIZE='1'),
                                    logs['gateway']))
+        # the A/B's plain gateway: no sanitizer, no exporter, a rating
+        # journal of its own
+        pcfg = json.loads(json.dumps(gcfg))
+        pcfg['train_args']['serving']['registry_dir'] = os.path.join(
+            tmp, 'plain_gateway')
+        pcfg['train_args']['serving']['gateway']['metrics_port'] = 0
+        ppath = os.path.join(tmp, 'gateway_plain.json')
+        with open(ppath, 'w') as f:
+            json.dump(pcfg, f)
+        procs.append(start_session(['handyrl_tpu_torch', '--gateway',
+                                    '--config', ppath], repo, env,
+                                   logs['gateway_plain']))
         gready = wait_json_line(logs['gateway'][0], 'gateway_ready',
                                 procs[1], 120)
+        pready = wait_json_line(logs['gateway_plain'][0], 'gateway_ready',
+                                procs[2], 120)
         admin = GatewayClient('127.0.0.1', gready['port'], timeout=120,
                               name='chip_admin')
+
+        def held_sessions():
+            # every session is held (or over): the table stands still
+            listed = sorted(r['sid'] for r in scrape(gport)[2].get(
+                'sessions') or [])
+            booked = sorted(r['sid'] for r in admin.sessions())
+            if not listed or listed != booked:
+                fail('19(b): the gateway\'s /statusz lists sessions %s while '
+                     'it holds %s' % (listed, booked))
+            return len(listed)
         out['b'] = fleet_round(rc, gready['port'], admin,
                                'default@champion', GW_SESSIONS, 'b',
-                               SEED + 1900, respawn=True)
+                               SEED + 1900, respawn=True,
+                               on_hold=held_sessions)
         log('19(b) the gateway, GeeseNet: %s' % json.dumps(out['b']))
+        t_ab = time.monotonic()
+        out['ab'] = telemetry_ab(rc, {'plain': pready['port'],
+                                      'sanitized': gready['port']},
+                                 trace_dir, ab_order)
+        out['ab_seconds'] = time.monotonic() - t_ab
+        log('19 the telemetry A/B (%s): %s' % (nvidia_smi_line(),
+                                               json.dumps(out['ab'])))
+        # --status against the resolver and the gateway, beside (c)
+        status_procs = {'resolver': status_cli(repo, fport),
+                        'gateway': status_cli(repo, gport)}
         out['c'] = fleet_round(rc, gready['port'], admin, 'lstm@champion',
                                GW_LSTM_SESSIONS, 'c', SEED + 1950,
                                respawn=False)
         log('19(c) the gateway, GeeseNetLSTM: %s' % json.dumps(out['c']))
+        for tier, proc in status_procs.items():
+            for line in status_done('19 ' + tier, proc)[:6]:
+                log('  --status %s: %s' % (tier, line))
+        text, gms, gstatus = scrape(gport)
+        opened = prom_values(text, 'gateway_sessions_opened_total').get('')
+        drops = prom_values(text, 'gateway_session_drops_total').get('')
+        fired = (gstatus.get('alerts') or {}).get('fired') or {}
+        # the sanitized gateway's A/B sessions count there too
+        ab_sanitized = GW_SESSIONS * AB_MATCHES * sum(
+            kind == 'sanitized' for kind, _, _ in ab_order)
+        if opened != GW_SESSIONS + GW_LSTM_SESSIONS + ab_sanitized or \
+                drops != 0 or \
+                not isinstance(gstatus.get('sessions'), list) or \
+                'session_drop' in fired:
+            fail('19: the gateway\'s /metrics counts %s sessions opened and '
+                 '%s drops; /statusz sessions %s, alerts fired %s' % (
+                     opened, drops, gstatus.get('sessions'), fired))
+        out['gateway_exporter'] = {
+            'scrape_ms': gms, 'lines': len(text.splitlines()),
+            'opened': opened, 'drops': drops, 'alerts_fired': fired,
+            'progress': gstatus.get('progress'), 'slo': gstatus.get('slo')}
+        log('19 the gateway\'s /metrics scraped in %.2f ms (%d lines): '
+            'gateway_sessions_opened_total %d, gateway_session_drops_total '
+            '%d; /statusz progress %s, alerts fired %s' % (
+                gms, len(text.splitlines()), opened, drops,
+                gstatus.get('progress'), fired))
         journal = json.loads(read_text(os.path.join(
             root, 'league_ratings.json')) or '{}').get('entries', {})
         booked = sum(e.get('games', 0) for name, e in journal.items()
                      if name.startswith('gateway:'))
-        if booked != GW_SESSIONS + GW_LSTM_SESSIONS or not {
+        if booked != GW_SESSIONS + GW_LSTM_SESSIONS + ab_sanitized or not {
                 'default@2', 'lstm@1'} <= set(journal):
             fail('19: the RatingBook journal holds %d gateway games and %s'
                  % (booked, sorted(journal)))
@@ -8495,16 +8964,35 @@ def phase_fleet_run(repo, prep):
         # a later respawn may have served the LSTM line alone, no K1)
         out['launches'] = {'fleet_%s_pid%d' % key: v
                            for key, v in sorted(launches.items())}
+        plies = admin.status()['plies']
         admin.close()
         admin = None
+        plain = GatewayClient('127.0.0.1', pready['port'], timeout=120,
+                              name='chip_admin_plain')
+        try:
+            plies += plain.status()['plies']
+        finally:
+            plain.close()
         rc.close()
         rc = None
-        for label, proc in (('gateway', procs[1]), ('fleet', procs[0])):
+        for label, proc in (('gateway', procs[1]),
+                            ('gateway_plain', procs[2]),
+                            ('fleet', procs[0])):
             proc.send_signal(signal.SIGTERM)
             rc_ = proc.wait(timeout=180)
             if rc_ != 75:
                 fail('19: the %s exited %s after SIGTERM: %s' % (
                     label, rc_, tail(logs[label][1])))
+        found = re.findall(SANITIZER_LINE, read_text(logs['gateway'][1]))
+        if len(found) != 1 or found[0][0] != '0' or found[0][2] != '0':
+            fail('19: the gateway\'s sanitizer reported %s:\n%s' % (
+                found, tail(logs['gateway'][1])))
+        out['sanitizer'] = dict(zip(('inversions', 'unnamed', 'leaked'),
+                                    map(int, found[0])))
+        out['traces'] = fleet_traces(repo, trace_dir, gready['pid'],
+                                     ready['pid'], plies)
+        log('19 traces and the sanitizer: %s; gateway sanitizer %s' % (
+            json.dumps(out['traces']), out['sanitizer']))
         out['seconds'] = time.monotonic() - t0
         print(json.dumps({'phase19': {k: v for k, v in out.items()
                                       if k != 'launches'}}), flush=True)
@@ -8585,6 +9073,8 @@ def main():
     # the model dir)
     opponent_tmp = tempfile.mkdtemp(prefix='chip_smoke_opponent_')
     opponent = os.path.join(opponent_tmp, '%d.ckpt' % FUSED_EPOCHS)
+    # phase 7's checkpoints, kept for the SWA tool (beside phase 19)
+    swa_tmp = tempfile.mkdtemp(prefix='chip_smoke_swa_')
     try:
         log('== phase 6: main path (the fused device loop)')
         fused = phase_fused(torch, repo, make_env, learner, fused_tmp)
@@ -8593,7 +9083,8 @@ def main():
         took('phase 6')
 
         log('== phase 7: main path (the quick start: TicTacToe, turn-based)')
-        quick = phase_quick_start(torch, repo, make_env, target_rows)
+        quick = phase_quick_start(torch, repo, make_env, target_rows,
+                                  keep=swa_tmp)
         took('phase 7')
 
         log('== phase 7(b): the quick start with batcher processes and '
@@ -8647,13 +9138,22 @@ def main():
     log('phase 12: %.1f s (%s)' % (time.monotonic() - t12,
                                    nvidia_smi_line()))
 
-    t13 = time.monotonic()
-    cx_lstm = phase_connectx_lstm(torch, repo, make_env)
-    log('phase 13: %.1f s (%s)' % (time.monotonic() - t13,
-                                   nvidia_smi_line()))
+    # phase 14's learner processes run beside phase 13, to fit the time
+    # limit (PERF.md §4)
+    geister_tmp = tempfile.mkdtemp(prefix='chip_smoke_geister_learners_')
+    try:
+        log('== phase 14(b)/(c)/(f) begin, beside phase 13')
+        geister_join = in_background(
+            lambda: geister_learner_group(torch, repo, geister_tmp))
+        t13 = time.monotonic()
+        cx_lstm = phase_connectx_lstm(torch, repo, make_env)
+        log('phase 13: %.1f s (%s)' % (time.monotonic() - t13,
+                                       nvidia_smi_line()))
 
-    t14 = time.monotonic()
-    geister = phase_geister(torch, repo, make_env)
+        t14 = time.monotonic()
+        geister = phase_geister(torch, repo, make_env, geister_join)
+    finally:
+        shutil.rmtree(geister_tmp, ignore_errors=True)
     log('phase 14: %.1f s (%s)' % (time.monotonic() - t14,
                                    nvidia_smi_line()))
 
@@ -8668,7 +9168,8 @@ def main():
     # beside phases 16, 17 and 18, to fit the time limit
     t19 = time.monotonic()
     log('== phase 19: the serving fleet and the match gateway (its '
-        'processes beside phases 16, 17 and 18)')
+        'processes beside phases 16, 17 and 18, as is the SWA tool\'s)')
+    swa_join = in_background(lambda: phase_swa(repo, swa_tmp))
     fleet_prep = phase_fleet_prepare(torch, make_env, GeeseNet)
     log('phase 19 (in process): %.1f s (%s)' % (time.monotonic() - t19,
                                                  nvidia_smi_line()))
@@ -8690,6 +9191,10 @@ def main():
     log('phases 17 and 18: %.1f s (%s)' % (time.monotonic() - t17,
                                            nvidia_smi_line()))
     fleet = fleet_join()
+    try:
+        swa_join()
+    finally:
+        shutil.rmtree(swa_tmp, ignore_errors=True)
     log('phase 19: %.1f s since its start (%s)' % (
         time.monotonic() - t19, nvidia_smi_line()))
 

@@ -18,3 +18,13 @@ passes ``device='cpu'``.
 """
 
 __version__ = "0.1.0"
+
+# Runtime concurrency sanitizer (analysis/sanitizer.py): opt-in via
+# HANDYRL_TPU_SANITIZE=1. It must install BEFORE any lock or thread of the
+# package exists, which is import time; unset (the default) this is one
+# env check and the package import stays free of side effects.
+import os as _os
+if _os.environ.get('HANDYRL_TPU_SANITIZE', '').strip().lower() \
+        not in ('', '0', 'false', 'off'):
+    from .analysis import sanitizer as _sanitizer
+    _sanitizer.install_from_env()

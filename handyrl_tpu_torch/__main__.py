@@ -21,10 +21,15 @@ registry under ``serving.registry_dir``, else under ``model_dir``
 (the gateway also ``seed`` and ``league``); the learner's modes take only
 the learner's keys there (``config.validate``). With
 ``serving.fleet.resolver`` set, ``--serve`` registers as a fleet replica.
+The serving modes take the ``telemetry`` block too (tracing, alerts,
+the flight recorder), and each tier's ``metrics_port``
+(``serving.metrics_port``, ``serving.fleet.metrics_port``,
+``serving.gateway.metrics_port``) starts its exporter.
 ``--status [HOST:PORT] [--json]`` (``telemetry.status_main``) renders
-a live learner's ``/statusz`` (its ``telemetry_port``; without a target,
-the config's ``telemetry_port`` on localhost) and exits 1 when the fetch
-fails, as the JAX ``main.py --status`` does.
+a live ``/statusz``: a learner's (its ``telemetry_port``; without a
+target, the config's ``telemetry_port`` on localhost), a service's, a
+resolver's or a gateway's, and exits 1 when the fetch fails, as the JAX
+``main.py --status`` does.
 The device is the card unless ``--device cpu`` is given (a fleet's
 replicas run on it too); the eval server, the gateway and ``--status``
 load no model and ignore it.
@@ -61,8 +66,9 @@ SERVING_MODES = ('--serve', '-sv', '--serve-fleet', '-sf', '--gateway',
 
 
 def serving_main(mode: str, raw: Dict, device: str) -> int:
-    """The serving tier's modes on the config's ``train_args.serving`` and
-    ``train_args.inference`` blocks (``config.serving_args``)."""
+    """The serving tier's modes on the config's ``train_args.serving``,
+    ``train_args.inference`` and ``train_args.telemetry`` blocks
+    (``config.serving_args``)."""
     from .config import serving_args
     ta = raw.get('train_args', {})
     serving = dict(ta.get('serving') or {})
@@ -71,7 +77,8 @@ def serving_main(mode: str, raw: Dict, device: str) -> int:
     serving['registry_dir'] = (serving.get('registry_dir')
                                or ta.get('model_dir') or 'models')
     args = serving_args(raw.get('env_args', {'env': 'TicTacToe'}),
-                        ta.get('inference'), serving)
+                        ta.get('inference'), serving,
+                        telemetry=ta.get('telemetry', True))
     if mode in ('--serve-fleet', '-sf'):
         from .serving.fleet import resolver_main
         return resolver_main(args, device=device)

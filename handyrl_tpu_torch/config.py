@@ -9,9 +9,10 @@ default 'cuda'), so ``inference.engine_backend`` keeps its check ('cpu'
 or 'device') but does not move the engine: the JAX default 'cpu' never
 puts the port's engine on the host (ROADMAP.md §3). The serving fleet's
 and the match gateway's blocks (``serving.fleet``, ``serving.gateway``)
-have the JAX defaults and checks; a non-zero ``metrics_port`` (the
-serving tier's Prometheus exporters and ``/statusz``) waits for the
-serving tier's telemetry (ROADMAP.md §1 item 4b). The learner's
+have the JAX defaults and checks, and each tier's ``metrics_port``
+(``serving.metrics_port``, ``serving.fleet.metrics_port``,
+``serving.gateway.metrics_port``) starts that tier's Prometheus exporter
+and ``/statusz``, as in the JAX package. The learner's
 ``TRAIN_DEFAULTS`` hold the knobs of the local learner, of the fused
 device loop, of the worker plane (``batched_generation: false``,
 ``worker``, ``fault_tolerance``, the gathers' ``generation`` backend, the
@@ -25,8 +26,7 @@ defaults and checks) and of the durable plane (``durability``, ``streaming`` wit
 IMPACT target network) and of the league (``league``: PFSP opponents
 over the registry, the rating book, rating-gated promotion), and
 :func:`validate` raises for anything this port does not run yet (mesh
-parallelism, the serving tier's exporters, nets other than the ported
-ones)
+parallelism, nets other than the ported ones)
 instead of ignoring it.
 Without ``env_args`` the env is TicTacToe, as in the JAX package.
 """
@@ -62,7 +62,7 @@ FLEET_DEFAULTS: Dict[str, Any] = {
     'breach_window': 10.0,       # an SLO breach must last this long (s) before a replica is admitted
     'idle_window': 60.0,         # the fleet must be idle this long (s) before a replica is drained
     'quarantine_period': 30.0,   # quarantine (s) before a silent replica is re-admitted (a re-registration re-admits it at once)
-    'metrics_port': 0,           # resolver-side Prometheus /metrics and /statusz port: only 0 (exporter off) until the serving tier's telemetry is ported (ROADMAP.md §1 item 4b)
+    'metrics_port': 0,           # resolver-side Prometheus /metrics + /statusz port (0 = exporter off); the fleet's alert engine and replica-state view live here
 }
 
 # the match gateway (serving/gateway.py): game sessions over the fleet
@@ -75,7 +75,7 @@ GATEWAY_DEFAULTS: Dict[str, Any] = {
     'ply_timeout': 15.0,     # per-ply fleet round-trip deadline (s); also bounds journal replays
     'monitor_interval': 0.5, # fleet-table poll period (s) of the handoff/reconstruct monitor (and the workers' routers)
     'session_timeout': 600.0,  # a session with no ply this long (s) is reaped as a drop
-    'metrics_port': 0,       # gateway-side Prometheus /metrics port: only 0 (exporter off) until the serving tier's telemetry is ported (item 4b)
+    'metrics_port': 0,       # gateway-side Prometheus /metrics + /statusz port (0 = exporter off)
 }
 
 SERVING_DEFAULTS: Dict[str, Any] = {
@@ -87,23 +87,29 @@ SERVING_DEFAULTS: Dict[str, Any] = {
     'max_clients': 64,      # admission control: connections past this are refused with an error frame
     'drain_timeout': 30.0,  # graceful-drain deadline (s) on SIGTERM before exit 75
     'lock_timeout': 10.0,   # registry manifest-lock deadline (s)
-    'metrics_port': 0,      # service-side Prometheus /metrics port: only 0 (exporter off) until the serving tier's telemetry is ported (item 4b)
+    'metrics_port': 0,      # service-side Prometheus /metrics + /statusz port (0 = exporter off)
     'fleet': FLEET_DEFAULTS,
     'gateway': GATEWAY_DEFAULTS,
 }
 
 
 def serving_args(env: Dict[str, Any], inference: Dict[str, Any] = None,
-                 serving: Dict[str, Any] = None) -> Dict[str, Any]:
+                 serving: Dict[str, Any] = None,
+                 telemetry: Any = None) -> Dict[str, Any]:
     """The args dict an InferenceService (and the fleet's resolver and the
     match gateway) takes: ``{'env', 'inference', 'serving'}`` with the
-    defaults filled in under the given overrides; raises
-    :class:`ConfigError` for a serving block the port cannot run."""
+    defaults filled in under the given overrides, and the ``telemetry``
+    block (or bool) when one is given; raises :class:`ConfigError` for a
+    block the port cannot run."""
     inf = copy.deepcopy(INFERENCE_DEFAULTS)
     inf.update(inference or {})
     srv = _merge(SERVING_DEFAULTS, serving or {})
     validate_serving(srv)
-    return {'env': dict(env), 'inference': inf, 'serving': srv}
+    out = {'env': dict(env), 'inference': inf, 'serving': srv}
+    if telemetry is not None:
+        _validate_telemetry_block(telemetry)
+        out['telemetry'] = copy.deepcopy(telemetry)
+    return out
 
 
 TRAIN_DEFAULTS: Dict[str, Any] = {
@@ -205,7 +211,7 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
         'registry_dir': '',       # ModelRegistry root; '' = model_dir
         'publish': False,         # register every numbered checkpoint as '<line>@<epoch>' (pinning it against keep_checkpoints GC)
         'auto_promote': True,     # with publish: each published version also becomes the line's champion
-        'metrics_port': 0,        # the service's Prometheus port: only 0 until the serving tier's telemetry is ported (item 4b)
+        'metrics_port': 0,        # the service's Prometheus /metrics + /statusz port (0 = exporter off)
         'fleet': FLEET_DEFAULTS,  # with 'resolver': engine-mode workers route through the fleet's replica table (EngineClient._refresh_endpoints)
         'gateway': GATEWAY_DEFAULTS,
     },
@@ -465,10 +471,9 @@ def validate(args: Dict[str, Any]) -> None:
     _validate_league(ta)
 
 
-def _validate_telemetry(ta: Dict[str, Any]) -> None:
-    """The ``telemetry`` block, ``profile_epochs`` and ``telemetry_port``,
-    with the JAX package's checks (handyrl_tpu/config.py:397-441)."""
-    tel = ta['telemetry']
+def _validate_telemetry_block(tel) -> bool:
+    """The ``telemetry`` block or bool alone (the serving tier's entry
+    points take it too); True when collection is on."""
     _require(isinstance(tel, (bool, dict)),
              'telemetry must be a bool or a block (enabled / trace_dir / '
              'trace_sample_rate / blackbox_dir / recorder_events / '
@@ -505,6 +510,13 @@ def _validate_telemetry(ta: Dict[str, Any]) -> None:
                  "telemetry.retrace must be 'warn', 'abort' or 'off'")
         _require(int(tel.get('retrace_warmup_epochs', 1)) >= 0,
                  'telemetry.retrace_warmup_epochs must be >= 0')
+    return tel_enabled
+
+
+def _validate_telemetry(ta: Dict[str, Any]) -> None:
+    """The ``telemetry`` block, ``profile_epochs`` and ``telemetry_port``,
+    with the JAX package's checks (handyrl_tpu/config.py:397-441)."""
+    tel_enabled = _validate_telemetry_block(ta['telemetry'])
     if ta['profile_epochs']:
         epochs = parse_epoch_set(ta['profile_epochs'])
         _require(bool(epochs) and all(e >= 1 for e in epochs),
@@ -553,9 +565,8 @@ def validate_serving(srv: Dict[str, Any]) -> None:
 
 def _validate_tiers(srv: Dict[str, Any]) -> None:
     """``serving.metrics_port`` and the ``fleet`` and ``gateway`` blocks,
-    with the JAX package's checks (handyrl_tpu/config.py:486-531). A
-    non-zero ``metrics_port`` asks for a serving tier's Prometheus
-    exporter, which comes with its telemetry (ROADMAP.md §1 item 4b)."""
+    with the JAX package's checks (handyrl_tpu/config.py:463-531). Each
+    ``metrics_port`` is a TCP port, 0 turning that tier's exporter off."""
     for block, defaults in (('fleet', FLEET_DEFAULTS),
                             ('gateway', GATEWAY_DEFAULTS)):
         _require(isinstance(srv[block], dict),
@@ -569,9 +580,6 @@ def _validate_tiers(srv: Dict[str, Any]) -> None:
                        ('serving.fleet.metrics_port', flt['metrics_port']),
                        ('serving.gateway.metrics_port', gw['metrics_port'])):
         _port_ok(value, key, 'exporter off')
-        _require(not int(value), "%s %d: the serving tier's Prometheus "
-                 'exporter and /statusz are not ported yet (ROADMAP.md §1 '
-                 "item 4b, the serving tier's telemetry)" % (key, int(value)))
     for key in ('heartbeat_interval', 'heartbeat_timeout', 'refresh_interval',
                 'breach_window', 'idle_window', 'quarantine_period'):
         _require(float(flt[key]) > 0, 'serving.fleet.%s must be > 0' % key)

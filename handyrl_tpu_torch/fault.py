@@ -788,6 +788,8 @@ class SessionLedger:
         for sid in sids:
             self._sessions.pop(sid, None)
             self._strandings.append((sid, replica, reason, now))
+            telemetry.record_event('session_stranding', str(replica),
+                                   reason=reason, session=str(sid))
         self._by_replica.pop(replica, None)
         self.stats['stranded'] += len(sids)
         if sids:

@@ -8,7 +8,11 @@ and a match gateway over a fleet (``--gateway``). The models run on
 with an error unless ``--device cpu`` is given); a fleet's replicas run on
 the same device. The ready line on stdout carries the bound port. The
 exit code follows the PreemptionGuard contract: 75 after a SIGTERM drain
-(or a drain the resolver directs).
+(or a drain the resolver directs). ``--metrics-port`` starts the
+service's Prometheus exporter (``serving.metrics_port``), and the
+gateway's with ``--gateway`` (``serving.gateway.metrics_port``), as in
+the JAX runner; a managed replica inherits tracing through the
+environment, not through a flag.
 """
 
 from __future__ import annotations
@@ -35,6 +39,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument('--engines', type=int, default=1)
     ap.add_argument('--max-clients', type=int, default=64)
     ap.add_argument('--drain-timeout', type=float, default=30.0)
+    ap.add_argument('--metrics-port', type=int, default=0,
+                    help='Prometheus /metrics and /statusz port (0 = '
+                         'exporter off)')
     ap.add_argument('--wait-ms', type=float, default=None,
                     help='override inference.batch_wait_ms')
     ap.add_argument('--max-batch', type=int, default=None,
@@ -102,6 +109,7 @@ def main(argv=None) -> int:
     fleet, gateway = {}, {}
     if args.gateway:
         gateway['port'] = args.port
+        gateway['metrics_port'] = args.metrics_port
         if args.resolver:
             gateway['resolver'] = args.resolver
         if args.gateway_model is not None:
@@ -137,7 +145,8 @@ def main(argv=None) -> int:
         {'port': 0 if args.gateway else args.port, 'host': args.host,
          'line': args.line, 'registry_dir': args.registry,
          'engines': args.engines, 'max_clients': args.max_clients,
-         'drain_timeout': args.drain_timeout, 'fleet': fleet,
+         'drain_timeout': args.drain_timeout,
+         'metrics_port': args.metrics_port, 'fleet': fleet,
          'gateway': gateway})
     if args.gateway:
         from .gateway import gateway_main

@@ -25,7 +25,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from ..connection import INFER_KIND, connect_socket_connection, is_infer
+from .. import telemetry
+from ..connection import (INFER_KIND, TRACE_KEY, connect_socket_connection,
+                          is_infer)
 from ..fault import Backoff
 
 # transport-layer exceptions that mean "the socket died", as opposed to a
@@ -98,6 +100,7 @@ class ServiceClient:
         self.conn = None
         self._rid = 0
         self._box: Dict[int, Dict[str, Any]] = {}   # rid -> early reply
+        self._traces: Dict[int, Tuple[Any, float]] = {}   # rid -> (tid, t0)
         self._admin: deque = deque()                # out-of-band serve frames
         self._lock = threading.Lock()
         self._connect()
@@ -137,9 +140,18 @@ class ServiceClient:
     # -- request path ------------------------------------------------------
 
     def submit(self, model: str, obs, hidden=None, legal=None,
-               seed=None) -> int:
+               seed=None, trace=None) -> int:
         """Post one inference request for ``model`` (a ``line@selector``
-        spec); returns its request id."""
+        spec); returns its request id.
+
+        ``trace`` is the serving-path trace context: the caller's id when
+        one exists (router replays, gateway plies), else a fresh one is
+        minted here, at the request's edge, whenever tracing is on. It
+        rides in the body under ``TRACE_KEY`` so every downstream hop
+        stamps the same id; the matching ``client_request`` span closes in
+        :meth:`collect`."""
+        if trace is None and telemetry.trace_enabled():
+            trace = telemetry.mint_trace_id()
         with self._lock:
             self._rid += 1
             rid = self._rid
@@ -152,6 +164,10 @@ class ServiceClient:
             body['legal'] = [int(a) for a in legal]
         if seed is not None:
             body['seed'] = [int(s) for s in seed]
+        if trace:
+            body[TRACE_KEY] = trace
+            # wall clock for the Chrome trace only: never in the reply
+            self._traces[rid] = (trace, time.time())
         self._send((INFER_KIND, body))
         return rid
 
@@ -159,6 +175,7 @@ class ServiceClient:
                 ) -> Dict[str, Any]:
         """The reply for ``rid`` (raises :class:`ServiceError` on an error
         reply, TimeoutError past the deadline)."""
+        ctx = self._traces.pop(rid, None)
         if rid in self._box:
             reply = self._box.pop(rid)
         else:
@@ -171,12 +188,25 @@ class ServiceClient:
             reply = reply[1]
         if reply.get('error'):
             raise ServiceError(str(reply['error']))
+        if ctx is not None:
+            tid, t0 = ctx
+            telemetry.trace_event('client_request', ts=t0,
+                                  dur=time.time() - t0, trace_id=tid,
+                                  rid=rid, client=self.name or '')
         return canonicalize_reply(reply)
 
+    def trace_of(self, rid: int):
+        """The trace context minted for an in-flight ``rid`` (None when
+        unsampled or already collected): the router reads it to link
+        replay spans to the original id."""
+        ctx = self._traces.get(rid)
+        return ctx[0] if ctx else None
+
     def request(self, model: str, obs, hidden=None, legal=None, seed=None,
-                timeout: Optional[float] = None) -> Dict[str, Any]:
+                trace=None, timeout: Optional[float] = None
+                ) -> Dict[str, Any]:
         return self.collect(self.submit(model, obs, hidden=hidden,
-                                        legal=legal, seed=seed),
+                                        legal=legal, seed=seed, trace=trace),
                             timeout=timeout)
 
     # -- admin frames ------------------------------------------------------

@@ -25,9 +25,13 @@ replicates it with failover that loses no request:
 
 Each managed replica is a ``python -m handyrl_tpu_torch.serving`` process
 on the device the resolver's caller names (``--device``, 'cuda' unless
-asked otherwise), with its own CUDA context and its own K1 launches. The
-resolver's alerts, its Prometheus exporter (``/statusz``) and the trace
-spans wait for the serving tier's telemetry (ROADMAP.md §1 item 4b).
+asked otherwise), with its own CUDA context and its own K1 launches.
+The resolver runs an alert engine over its registry (heartbeat misses,
+quarantine flaps, sheds) and, with ``serving.fleet.metrics_port``, a
+Prometheus exporter whose ``/statusz`` carries the replica table and the
+per-replica request table. The router stamps a ``route_dispatch`` span on
+each dispatch of a request carrying a trace id and, on a failover, a
+``router_replay`` span under the request's original id.
 """
 
 from __future__ import annotations
@@ -44,8 +48,8 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .. import telemetry
-from ..connection import (FramedConnection, Hub, INFER_KIND, is_infer,
-                          open_socket_connection)
+from ..connection import (FramedConnection, Hub, INFER_KIND, TRACE_KEY,
+                          is_infer, open_socket_connection)
 from ..fault import Backoff, FleetController, HOST_DEGRADED, HOST_HEALTHY
 from ..guard import PREEMPT_EXIT_CODE, PreemptionGuard
 from .client import (SERVE_KIND, ServiceClient, ServiceError,
@@ -191,6 +195,7 @@ class ServiceResolver:
                                  or args.get('model_dir', 'models'))
         self.lock_timeout = float(srv.get('lock_timeout', 10.0))
         self.heartbeat_timeout = float(flt.get('heartbeat_timeout', 10.0))
+        self.metrics_port = int(flt.get('metrics_port') or 0)
         self.autoscale = bool(flt.get('autoscale', False))
         self.max_replicas = max(1, int(flt.get('max_replicas', 4)))
         self.spawner = spawner
@@ -234,6 +239,12 @@ class ServiceResolver:
         self._m_respawns = telemetry.counter('fleet_respawns_total')
         self._m_promotes = telemetry.counter('fleet_rolling_promotes_total')
 
+        # resolver-side SLO alert engine (heartbeat misses, quarantine
+        # flap, shed burn over the merged heartbeat counters), driven from
+        # the tick loop and /statusz scrapes
+        self._alerts = telemetry.AlertEngine.from_config(args)
+        self._exporter = None
+
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> 'ServiceResolver':
@@ -248,6 +259,8 @@ class ServiceResolver:
             t = threading.Thread(target=target, name=name, daemon=True)
             t.start()
             self._threads.append(t)
+        self._exporter, self.metrics_port = telemetry.start_exporter(
+            self.metrics_port, self._status_info)
         _LOG.info('fleet: resolver listening on port %d (registry %s)',
                   self.port, self.registry_root)
         return self
@@ -281,6 +294,9 @@ class ServiceResolver:
                 proc.kill()
                 proc.wait(timeout=10)
         self._stop = True
+        if self._exporter is not None:
+            self._exporter.stop()
+            self._exporter = None
         if self._sock is not None:
             self._sock.close()
         for t in self._threads:
@@ -444,6 +460,8 @@ class ServiceResolver:
             self._autoscale_step()
         self._supervise()
         self._journal()
+        if self._alerts is not None:
+            self._alerts.poll()
 
     def _autoscale_step(self):
         decision = self.policy.decide(self.fleet_table())
@@ -624,6 +642,32 @@ class ServiceResolver:
                 'warmed': warmed}
 
     # -- introspection -----------------------------------------------------
+
+    def _status_info(self) -> Dict[str, Any]:
+        """/statusz payload for the resolver metrics port: per-replica
+        states, the routable count, and the fleet-level alert state."""
+        with self._lock:
+            states = {n: self.controller.state(n) for n in self._replicas}
+            slos = {n: dict(r.get('slo') or {})
+                    for n, r in self._replicas.items()}
+        info: Dict[str, Any] = {
+            'fleet_replicas': states,
+            'progress': {'replicas': len(states),
+                         'routable': sum(1 for s in states.values()
+                                         if s in _ROUTABLE)},
+            # the live per-replica request table (--status renders it)
+            'requests': [{'replica': n,
+                          'inflight': int(slos[n].get('inflight', 0)),
+                          'p50_ms': float(slos[n].get('p50_ms', 0.0)),
+                          'p99_ms': float(slos[n].get('p99_ms', 0.0)),
+                          'received': int(slos[n].get('received', 0)),
+                          'answered': int(slos[n].get('answered', 0)),
+                          'draining': bool(slos[n].get('draining'))}
+                         for n in sorted(slos)],
+        }
+        if self._alerts is not None:
+            info['alerts'] = self._alerts.poll()
+        return info
 
     def fleet_table(self) -> List[Dict[str, Any]]:
         """The replica table routers read: name, endpoint, state and the
@@ -846,13 +890,16 @@ class RoutedClient:
         table refresh. ``prefer`` puts a session's replica first while it
         is routable (the gateway's affinity, never a hard pin)."""
         last: Optional[BaseException] = None
+        trace = req.get(TRACE_KEY)
+        t0 = time.time()
         for _attempt in range(2):
             names = self._candidates()
             if prefer is not None and prefer in names:
                 names.remove(prefer)
                 names.insert(0, prefer)
             for name in names:
-                self._breaker(name).begin_probe()
+                breaker = self._breaker(name)
+                breaker.begin_probe()
                 client = None
                 try:
                     client = self._client(name)
@@ -863,6 +910,11 @@ class RoutedClient:
                     continue
                 self._m_requests(name).inc()
                 self.last_replica = name
+                if trace:
+                    telemetry.trace_event('route_dispatch', ts=t0,
+                                          dur=time.time() - t0,
+                                          trace_id=trace, replica=name,
+                                          breaker=breaker.state)
                 return name, client, sub
             self._refresh(force=True)
         raise ServiceUnavailable(
@@ -872,10 +924,16 @@ class RoutedClient:
     # -- the ServiceClient surface -----------------------------------------
 
     def submit(self, model: str, obs, hidden=None, legal=None,
-               seed=None, replica: Optional[str] = None) -> int:
+               seed=None, replica: Optional[str] = None, trace=None) -> int:
         self._refresh()
+        if trace is None and telemetry.trace_enabled():
+            trace = telemetry.mint_trace_id()
         req = {'model': self._pin_spec(model), 'obs': obs, 'hidden': hidden,
                'legal': legal, 'seed': seed}
+        if trace:
+            # booked in the replay request itself, so that a failover
+            # replay dispatches with, and links to, the ORIGINAL trace id
+            req[TRACE_KEY] = trace
         name, client, sub = self._dispatch(req, prefer=replica)
         with self._lock:
             self._rid += 1
@@ -908,9 +966,17 @@ class RoutedClient:
         # legal, seed), so another replica's reply is byte-identical
         attempts = max(2, len(self.replicas()) + 1)
         for _attempt in range(attempts):
+            t_replay = time.time()
             name2, client2, sub2 = self._dispatch(req)
             self._m_replays.inc()
             self.replays += 1
+            if req.get(TRACE_KEY):
+                # the link span: the replay carries the ORIGINAL trace id,
+                # so a SIGKILL reads as one causal chain in the trace
+                telemetry.trace_event('router_replay', ts=t_replay,
+                                      dur=time.time() - t_replay,
+                                      trace_id=req[TRACE_KEY], link='replay',
+                                      from_replica=name, to_replica=name2)
             try:
                 reply = client2.collect(sub2, timeout=timeout)
                 self._ok(name2)
@@ -929,10 +995,11 @@ class RoutedClient:
 
     def request(self, model: str, obs, hidden=None, legal=None, seed=None,
                 timeout: Optional[float] = None,
-                replica: Optional[str] = None) -> Dict[str, Any]:
+                replica: Optional[str] = None, trace=None
+                ) -> Dict[str, Any]:
         return self.collect(self.submit(model, obs, hidden=hidden,
                                         legal=legal, seed=seed,
-                                        replica=replica),
+                                        replica=replica, trace=trace),
                             timeout=timeout)
 
     def status(self, timeout: Optional[float] = None) -> Dict[str, Any]:
@@ -1013,6 +1080,11 @@ def resolver_main(args: Dict[str, Any], device: Any = 'cuda') -> int:
     device = str(resolve_device(device))
     flt = dict((args.get('serving') or {}).get('fleet') or {})
     n = int(flt.get('replicas', 2))
+    # the spawned replicas inherit the tracing switch, directory and rate
+    # through the environment this mirrors them into
+    telemetry.adopt_config(args)
+    telemetry.set_process_label('fleet-resolver')
+    telemetry.install_crash_dump()
     guard = PreemptionGuard().install()
     resolver = ServiceResolver(args)
     if n > 0 or bool(flt.get('autoscale', False)):

@@ -35,9 +35,18 @@ opponents' seeds are :func:`~..generation.sample_seed` draws under
 ``GATEWAY_SEED_NAMESPACE``, so a replay is a pure function of the
 journal. A reply's hidden state is numpy from the engine (it turns the
 device's tensors into numpy at the reply), so digests are of the same
-bytes on every path. The exporter, the alerts, the trace spans and the
-``session_drop`` event wait for the serving tier's telemetry (ROADMAP.md
-§1 item 4b).
+bytes on every path.
+
+Telemetry: the gateway's counters and gauges, an alert engine
+(``session_drop``, ``gateway_ply_slo``) and, with
+``serving.gateway.metrics_port``, a Prometheus exporter whose
+``/statusz`` carries the session table. A session's trace id (the
+client's, else minted at open) links its ``gateway_open``,
+``gateway_reconstruct`` and ``gateway_handoff`` spans; each ply's own id
+runs through ``gateway_ply`` and ``gateway_seat`` into the router and the
+replica. A trace id rides only the request bodies: never the journal,
+the digest or a reply. A dropped session leaves a ``session_drop`` event
+in the flight recorder.
 """
 
 from __future__ import annotations
@@ -55,7 +64,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from .. import telemetry
-from ..connection import FramedConnection, Hub, open_socket_connection
+from ..connection import (FramedConnection, Hub, TRACE_KEY,
+                          open_socket_connection)
 from ..environment import make_env
 from ..fault import HOST_DEGRADED, HOST_HEALTHY, SessionLedger
 from ..generation import sample_seed
@@ -138,7 +148,7 @@ class MatchSession:
 
     def __init__(self, sid: str, counter: int, env_name: str,
                  env_args: Dict[str, Any], env, model: str, seat: int,
-                 base_seed: int, client: str, clock=time.time):
+                 base_seed: int, client: str, clock=time.time, trace=None):
         self.sid = sid
         self.counter = int(counter)
         self.env = env
@@ -151,6 +161,10 @@ class MatchSession:
         self.lock = threading.Lock()
         self.hiddens: Dict[int, Any] = {}   # opponent seat -> cached hidden
         self.draws = 1                       # draw 0 made the env seed
+        # the session's trace context: the id minted (or adopted) at open;
+        # the reconstruct and handoff link spans carry it, so a failover
+        # reads as one causal chain from the original open
+        self.trace = trace
         self.lat_ring: deque = deque(maxlen=64)   # this session's plies (s)
         self.done = False
         self.outcome: Optional[Dict[int, float]] = None
@@ -228,6 +242,8 @@ class MatchGateway:
         self._sock: Optional[socket.socket] = None
         self.hub: Optional[Hub] = None
         self._threads: List[threading.Thread] = []
+        self.metrics_port = int(gw.get('metrics_port') or 0)
+        self._exporter = None
 
         # this gateway's tallies, mirrored onto the process's counters
         self.counts = {key: 0 for key in _COUNTERS}     # guarded-by: _lock
@@ -237,6 +253,7 @@ class MatchGateway:
         self._m_age_g = telemetry.gauge('gateway_session_age_seconds')
         self._m_p99_g = telemetry.gauge('gateway_ply_p99_ms')
         self._m_ply_h = telemetry.histogram('gateway_ply_seconds')
+        self._alerts = telemetry.AlertEngine.from_config(args)
 
     def _count(self, key: str, n: int = 1):
         with self._lock:
@@ -251,6 +268,8 @@ class MatchGateway:
         self._sock.settimeout(0.5)
         self.port = self._sock.getsockname()[1]
         self.hub = Hub()
+        self._exporter, self.metrics_port = telemetry.start_exporter(
+            self.metrics_port, self._status_info)
         loops = [(self._accept_loop, 'gateway-accept'),
                  (self._dispatch_loop, 'gateway-dispatch'),
                  (self._monitor_loop, 'gateway-monitor')]
@@ -285,6 +304,9 @@ class MatchGateway:
             r.close()
         if self.hub is not None:
             self.hub.close()     # flushes the final replies first
+        if self._exporter is not None:
+            self._exporter.stop()
+            self._exporter = None
 
     # -- the per-thread fleet router ---------------------------------------
 
@@ -333,10 +355,16 @@ class MatchGateway:
                     self.hub.send(ep, (SERVE_KIND,
                                        {'sessions': self.session_table()}))
                 elif op == 'trace':
-                    self.hub.send(ep, (SERVE_KIND, {
-                        'error': 'the trace op (serving-path tracing) is '
-                                 'not ported yet (ROADMAP.md §1 item 4b, '
-                                 "the serving tier's telemetry)"}))
+                    # runtime tracing switch: an A/B run flips the same
+                    # warm gateway on and off between its legs
+                    telemetry.configure_tracing(
+                        str(body.get('dir') or ''), body.get('rate'),
+                        force=True)
+                    self.hub.send(ep, (SERVE_KIND,
+                                       {'ok': True,
+                                        'dir': telemetry.trace_dir(),
+                                        'rate':
+                                            telemetry.trace_sample_rate()}))
                 elif op in ('open', 'play', 'close'):
                     self._queue.put((ep, body))
                 else:
@@ -402,15 +430,24 @@ class MatchGateway:
         router = self._router()
         pinned = router._pin_spec(model)
         sid = 's%06d' % counter
+        # the session's trace context: the client's id, else minted at
+        # this edge; every ply, seat and reconstruct span links to it
+        tid = body.get(TRACE_KEY) or (telemetry.mint_trace_id()
+                                      if telemetry.trace_enabled() else None)
+        t0 = time.time()
         session = MatchSession(sid, counter, env_name, env_args, env,
-                               pinned, seat, base_seed, client)
+                               pinned, seat, base_seed, client, trace=tid)
         with self._lock:
             self._sessions[sid] = session
         with session.lock:
-            self._advance(session, None, router)
+            self._advance(session, None, router, trace=tid)
             if router.last_replica is not None:
                 self.ledger.book(sid, router.last_replica)
             reply = self._state_reply(session)
+        if tid:
+            telemetry.trace_event('gateway_open', ts=t0,
+                                  dur=time.time() - t0, trace_id=tid,
+                                  sid=sid, model=pinned, client=client)
         self._count('opened')
         self._set_gauges()
         reply.update({'sid': sid, 'seat': seat, 'model': pinned})
@@ -425,7 +462,12 @@ class MatchGateway:
         if session is None:
             return {'error': 'unknown session %r' % sid}
         router = self._router()
+        # the ply's trace context: the client's id if it sent one, else a
+        # fresh one; its span carries the session's open-time id as a link
+        tid = body.get(TRACE_KEY) or (telemetry.mint_trace_id()
+                                      if telemetry.trace_enabled() else None)
         t0 = time.monotonic()
+        t0_wall = time.time()
         with session.lock:
             if session.done:
                 return dict(self._state_reply(session), sid=sid)
@@ -444,7 +486,7 @@ class MatchGateway:
             # no action here is a spectate poll (the client's seat is out
             # of the match, the game runs on): advance to its end
             before = session.plies()
-            self._advance(session, action, router)
+            self._advance(session, action, router, trace=tid)
             played = session.journal['actions'][before:]
             if router.last_replica is not None:
                 self.ledger.move(sid, router.last_replica)
@@ -456,6 +498,10 @@ class MatchGateway:
             self._lat_ring.append(dt)
         self._count('plies')
         self._m_ply_h.observe(dt)
+        if tid:
+            telemetry.trace_event('gateway_ply', ts=t0_wall, dur=dt,
+                                  trace_id=tid, sid=sid,
+                                  session_trace=session.trace)
         reply.update({'sid': sid,
                       'actions': [{int(p): int(a) for p, a in step.items()}
                                   for step in played]})
@@ -494,7 +540,7 @@ class MatchGateway:
     # -- the opponents' plies ----------------------------------------------
 
     def _advance(self, session: MatchSession, action: Optional[int],
-                 router: RoutedClient) -> None:
+                 router: RoutedClient, trace=None) -> None:
         """Step the env until it is the client's turn with no action in
         hand, or its end. Every step's actions land in the journal; the
         opponent seats act (and the observers watch) through the fleet in
@@ -512,10 +558,11 @@ class MatchGateway:
                     moves[p] = int(action)
                     action = None
                 else:
-                    moves[p] = self._opponent_act(session, p, router)
+                    moves[p] = self._opponent_act(session, p, router,
+                                                  trace)
             for p in watching:
                 if p != session.seat:
-                    self._opponent_watch(session, p, router)
+                    self._opponent_watch(session, p, router, trace)
             env.step(moves)
             session.journal['actions'].append(
                 {int(p): int(a) for p, a in moves.items()})
@@ -529,24 +576,34 @@ class MatchGateway:
         return seq
 
     def _opponent_act(self, session: MatchSession, p: int,
-                      router: RoutedClient) -> int:
+                      router: RoutedClient, trace=None) -> int:
         env = session.env
+        t0 = time.time()
         reply = router.request(
             session.model, env.observation(p),
             hidden=session.hiddens.get(p),
             legal=[int(a) for a in env.legal_actions(p)],
             seed=self._seed_seq(session), timeout=self.ply_timeout,
-            replica=self.ledger.replica_of(session.sid))
+            replica=self.ledger.replica_of(session.sid), trace=trace)
+        if trace:
+            telemetry.trace_event('gateway_seat', ts=t0,
+                                  dur=time.time() - t0, trace_id=trace,
+                                  sid=session.sid, seat=p)
         session.hiddens[p] = reply.get('hidden')
         return int(reply['action'])
 
     def _opponent_watch(self, session: MatchSession, p: int,
-                        router: RoutedClient) -> None:
+                        router: RoutedClient, trace=None) -> None:
         env = session.env
+        t0 = time.time()
         reply = router.request(
             session.model, env.observation(p),
             hidden=session.hiddens.get(p), timeout=self.ply_timeout,
-            replica=self.ledger.replica_of(session.sid))
+            replica=self.ledger.replica_of(session.sid), trace=trace)
+        if trace:
+            telemetry.trace_event('gateway_seat', ts=t0,
+                                  dur=time.time() - t0, trace_id=trace,
+                                  sid=session.sid, seat=p, watch=True)
         session.hiddens[p] = (reply.get('outputs') or {}).get('hidden')
 
     # -- outcomes ----------------------------------------------------------
@@ -580,6 +637,7 @@ class MatchGateway:
             self._sessions.pop(session.sid, None)
         self.ledger.release(session.sid)
         self._count('dropped')
+        telemetry.record_event('session_drop', session.sid, reason=reason)
         _LOG.error('gateway: dropped session %s (%s)', session.sid, reason)
         self._set_gauges()
 
@@ -592,8 +650,19 @@ class MatchGateway:
         replayed with its audited seed. The replayed actions and the
         rebuilt hidden digest must match the journal; the rebuilt state is
         then adopted, so play goes on from proven state. False (and a
-        drop) on a divergence."""
+        drop) on a divergence. The link span carries the session's
+        ORIGINAL open-time trace id, so a SIGKILL reads as one chain."""
         j = session.journal
+        tid = session.trace
+        t0 = time.time()
+
+        def link(ok: bool, replayed: int):
+            if tid:
+                telemetry.trace_event('gateway_reconstruct', ts=t0,
+                                      dur=time.time() - t0, trace_id=tid,
+                                      link='reconstruct', sid=session.sid,
+                                      replayed=replayed, ok=ok)
+
         env = make_env(dict(j['env_args']))
         env.reset()
         hiddens: Dict[int, Any] = {}
@@ -613,11 +682,12 @@ class MatchGateway:
                 reply = router.request(
                     j['model'], env.observation(p), hidden=hiddens.get(p),
                     legal=[int(a) for a in env.legal_actions(p)],
-                    seed=seq, timeout=self.ply_timeout)
+                    seed=seq, timeout=self.ply_timeout, trace=tid)
                 hiddens[p] = reply.get('hidden')
                 replayed += 1
                 if int(reply['action']) != step.get(p):
                     self._count('mismatches')
+                    link(False, replayed)
                     self._drop(session, 'reconstruct action mismatch at '
                                         'ply %d seat %d' % (replayed, p))
                     return False
@@ -625,11 +695,13 @@ class MatchGateway:
                 if p != j['seat']:
                     reply = router.request(j['model'], env.observation(p),
                                            hidden=hiddens.get(p),
-                                           timeout=self.ply_timeout)
+                                           timeout=self.ply_timeout,
+                                           trace=tid)
                     hiddens[p] = (reply.get('outputs') or {}).get('hidden')
             env.step(step)
         if state_digest(hiddens) != j['hidden_digest']:
             self._count('mismatches')
+            link(False, replayed)
             self._drop(session, 'reconstruct hidden-digest mismatch')
             return False
         session.env = env
@@ -637,6 +709,7 @@ class MatchGateway:
         session.draws = draws
         self._count('reconstructs')
         self._count('replayed_plies', replayed)
+        link(True, replayed)
         if router.last_replica is not None:
             self.ledger.move(session.sid, router.last_replica)
         _LOG.warning('gateway: reconstructed session %s (%d plies '
@@ -689,6 +762,8 @@ class MatchGateway:
             known = table
             self._reap()
             self._set_gauges()
+            if self._alerts is not None:
+                self._alerts.poll()
 
     def _handoff(self, replica: str, survivors: List[str], reason: str):
         sids = self.ledger.sessions_on(replica)
@@ -698,8 +773,18 @@ class MatchGateway:
         if not pool:
             return      # nowhere to go yet; the next tick retries
         for i, sid in enumerate(sids):
-            self.ledger.move(sid, pool[i % len(pool)])
+            target = pool[i % len(pool)]
+            self.ledger.move(sid, target)
             self._count('handoffs')
+            with self._lock:
+                session = self._sessions.get(sid)
+            if session is not None and session.trace:
+                # the link span, under the session's open-time id
+                telemetry.trace_event('gateway_handoff',
+                                      trace_id=session.trace,
+                                      link='handoff', sid=sid,
+                                      from_replica=replica,
+                                      to_replica=target, reason=reason)
         _LOG.warning('gateway: handed %d session(s) off %s (%s)',
                      len(sids), replica, reason)
 
@@ -730,6 +815,26 @@ class MatchGateway:
         return [s.summary(replica=self.ledger.replica_of(s.sid))
                 for s in sessions]
 
+    def _status_info(self) -> Dict[str, Any]:
+        """/statusz payload for the gateway metrics port: the live
+        session table (``--status`` renders it), session and ply
+        progress, and the gateway's alert state."""
+        with self._lock:
+            lats = list(self._lat_ring)
+            counts = dict(self.counts)
+        info: Dict[str, Any] = {
+            'sessions': self.session_table(),
+            'progress': {key: int(counts[key])
+                         for key in ('opened', 'plies', 'outcomes',
+                                     'handoffs', 'reconstructs',
+                                     'dropped')},
+            'slo': {'ply_p50_ms': ring_percentile_ms(lats, 0.50),
+                    'ply_p99_ms': ring_percentile_ms(lats, 0.99)},
+        }
+        if self._alerts is not None:
+            info['alerts'] = self._alerts.poll()
+        return info
+
     def stats(self) -> Dict[str, Any]:
         with self._lock:
             n = len(self._sessions)
@@ -758,6 +863,11 @@ class GatewayClient:
 
     def _call(self, body: Dict[str, Any],
               timeout: Optional[float] = None) -> Dict[str, Any]:
+        if (body.get('op') in ('open', 'play') and TRACE_KEY not in body
+                and telemetry.trace_enabled()):
+            # minted at the true request edge, so that the chain starts
+            # with the client; the gateway adopts the id
+            body = dict(body, **{TRACE_KEY: telemetry.mint_trace_id()})
         reply = self._client.call_admin(body, timeout)
         if reply.get('error'):
             raise ServiceError(str(reply['error']))
@@ -803,6 +913,9 @@ def gateway_main(args: Dict[str, Any]) -> int:
     contract). The gateway runs no model: its plies run on the fleet's
     replicas. Prints one JSON ``gateway_ready`` line once the listener is
     bound."""
+    telemetry.adopt_config(args)
+    telemetry.set_process_label('gateway')
+    telemetry.install_crash_dump()
     guard = PreemptionGuard().install()
     gateway = MatchGateway(args).start()
     print(json.dumps({'gateway_ready': {

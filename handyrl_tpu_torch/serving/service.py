@@ -24,9 +24,14 @@ resolves to between one request and the next.
   75), and warms a candidate version end to end on the ``warm`` admin op
   before a rolling promote flips the champion.
 
-The service's metrics exporter, alerts and serving-path tracing wait for
-the serving tier's telemetry (ROADMAP.md §1 item 4b): the ``trace``
-admin op answers an error naming it.
+* **SLO telemetry**: per-client and per-model request-latency
+  histograms (``serve_request_seconds{client=,model=}``), request and
+  error counters and the in-flight and clients gauges, in the process
+  registry and on ``GET /metrics`` and ``/statusz``
+  (``serving.metrics_port``); an alert engine over the replica's own
+  registry (``telemetry.alerts``); a ``serve_request`` span for each
+  request carrying a trace id, and the ``trace`` admin op, which turns
+  tracing on or off in the live process.
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ from collections import deque
 from typing import Any, Dict, Optional, Tuple
 
 from .. import telemetry
-from ..connection import (FramedConnection, Hub, INFER_KIND, is_infer,
-                          connect_socket_connection, open_socket_connection)
+from ..connection import (FramedConnection, Hub, INFER_KIND, TRACE_KEY,
+                          is_infer, connect_socket_connection,
+                          open_socket_connection)
 from ..fault import Backoff
 from ..guard import PREEMPT_EXIT_CODE, PreemptionGuard
 from ..model import fp32_on_card, resolve_device
@@ -108,6 +114,7 @@ class InferenceService:
         self.max_clients = max(1, int(srv.get('max_clients', 64)))
         self.drain_timeout = max(0.1, float(srv.get('drain_timeout', 30.0)))
         self.engines_n = max(1, int(srv.get('engines', 1)))
+        self.metrics_port = int(srv.get('metrics_port') or 0)
         self.registry = registry if registry is not None else ModelRegistry(
             srv.get('registry_dir') or 'models',
             lock_timeout=float(srv.get('lock_timeout', 10.0)))
@@ -127,7 +134,8 @@ class InferenceService:
         # (line, version) <-> engine-facing integer model handle
         self._handles: Dict[Tuple[str, str], int] = {}      # guarded-by: _lock
         self._handle_meta: Dict[int, Tuple[str, str]] = {}  # guarded-by: _lock
-        # (endpoint id, rid) -> (t0, model label, client label)
+        # (endpoint id, rid) -> (t0, model label, client label, trace id,
+        # wall-clock arrival)
         self._pending: Dict[Tuple[int, Any], tuple] = {}    # guarded-by: _lock
         # recent request latencies (s): the heartbeat's SLO snapshot
         self._lat_ring: deque = deque(maxlen=512)           # guarded-by: _lock
@@ -137,6 +145,7 @@ class InferenceService:
         self._sock: Optional[socket.socket] = None
         self.hub: Optional[Hub] = None
         self.engines: list = []
+        self._exporter = None
         self._threads: list = []
         self.received = 0
         self.answered = 0
@@ -152,6 +161,10 @@ class InferenceService:
         self._m_clients = telemetry.gauge('serve_clients')
         self._m_inflight = telemetry.gauge('serve_inflight')
         self._m_draining = telemetry.gauge('serve_draining')
+        # SLO alert engine over this replica's own registry (shed burn
+        # rate, heartbeat misses); evaluated on /statusz scrapes and the
+        # owner's idle loop through one cadence-gated stream
+        self._alerts = telemetry.AlertEngine.from_config(args)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -171,6 +184,8 @@ class InferenceService:
                             example_obs=self._example_obs,
                             device=self.device).start()
             for _ in range(self.engines_n)]
+        self._exporter, self.metrics_port = telemetry.start_exporter(
+            self.metrics_port, self._status_info)
         loops = [(self._accept_loop, 'serve-accept'),
                  (self._dispatch_loop, 'serve-dispatch')]
         if self.resolver_endpoint:
@@ -198,7 +213,7 @@ class InferenceService:
 
     def stop(self, drain: bool = True):
         """Drain (bounded by ``serving.drain_timeout``), then tear down the
-        listener, the engines and the hub."""
+        listener, the engines, the hub and the exporter."""
         if drain:
             self.request_drain()
             deadline = time.monotonic() + self.drain_timeout
@@ -217,6 +232,9 @@ class InferenceService:
             t.join(timeout=5.0)
         if self.hub is not None:
             self.hub.close()     # flushes the final replies first
+        if self._exporter is not None:
+            self._exporter.stop()
+            self._exporter = None
 
     # -- accept / admission ------------------------------------------------
 
@@ -313,9 +331,13 @@ class InferenceService:
             return
         handle = self._intern(line, version)
         with self._lock:
+            # the trace context and its wall-clock arrival ride in the
+            # pending entry so _reply can close the serve_request span;
+            # neither enters the reply
             self._pending[(id(ep), body.get('rid'))] = (
                 time.monotonic(), '%s@%s' % (line, version),
-                self._client_label(ep, body))
+                self._client_label(ep, body),
+                body.get(TRACE_KEY), time.time())
             self._m_inflight.set(len(self._pending))
         self.engines[handle % len(self.engines)].submit(
             ep, dict(body, mid=handle))
@@ -348,12 +370,17 @@ class InferenceService:
             if entry is not None:
                 self._lat_ring.append(time.monotonic() - entry[0])
         if entry is not None:
-            t0, model_label, client_label = entry
-            self._m_latency(model_label, client_label).observe(
-                time.monotonic() - t0)
+            t0, model_label, client_label, trace, t_wall = entry
+            dt = time.monotonic() - t0
+            self._m_latency(model_label, client_label).observe(dt)
             self._m_requests(model_label, client_label).inc()
             if msg.get('error'):
                 self._m_errors('engine').inc()
+            if trace:
+                telemetry.trace_event('serve_request', ts=t_wall, dur=dt,
+                                      trace_id=trace, model=model_label,
+                                      client=client_label,
+                                      replica=self.replica_name or '')
         self.answered += 1
         self.hub.send(ep, (INFER_KIND, msg))
 
@@ -376,10 +403,14 @@ class InferenceService:
         elif op == 'warm':
             self._warm(ep, str(body.get('model')))
         elif op == 'trace':
-            self.hub.send(ep, (SERVE_KIND, {
-                'error': 'the trace op (serving-path tracing) is not ported '
-                         "yet (ROADMAP.md §1 item 4b, the serving tier's "
-                         'telemetry)'}))
+            # runtime tracing switch: an A/B run flips the same warm
+            # process on and off instead of comparing two cold ones
+            telemetry.configure_tracing(str(body.get('dir') or ''),
+                                        body.get('rate'), force=True)
+            self.hub.send(ep, (SERVE_KIND,
+                               {'ok': True,
+                                'dir': telemetry.trace_dir(),
+                                'rate': telemetry.trace_sample_rate()}))
         else:
             self.hub.send(ep, (SERVE_KIND,
                                {'error': 'unknown admin op %r' % (op,)}))
@@ -421,6 +452,26 @@ class InferenceService:
         autoscaler's scale-down); ``serve_main`` then exits 75, as after a
         SIGTERM."""
         return self._fleet_drain
+
+    def poll_alerts(self):
+        """Drive the alert engine from the owner's idle loop, so that
+        rules fire and clear even when nothing scrapes /statusz."""
+        if self._alerts is not None:
+            self._alerts.poll()
+
+    def _status_info(self) -> Dict[str, Any]:
+        """/statusz payload for the serving metrics port: live SLO
+        numbers, request progress, and the replica's alert state."""
+        info: Dict[str, Any] = {
+            'slo': self.slo_snapshot(),
+            'progress': {'received': self.received,
+                         'answered': self.answered,
+                         'refused': self.refused,
+                         'draining': bool(self._draining)},
+        }
+        if self._alerts is not None:
+            info['alerts'] = self._alerts.poll()
+        return info
 
     def slo_snapshot(self) -> Dict[str, Any]:
         """What a heartbeat carries: recent p50/p99 latency, sheds, request
@@ -540,15 +591,20 @@ def serve_main(args: Dict[str, Any], device: Any = 'cuda') -> int:
     """Run the service until SIGTERM/SIGINT (or a drain the fleet's
     resolver directs), then drain and return 75 (the PreemptionGuard
     supervisor contract). Prints one JSON ready line on stdout carrying
-    the bound port."""
+    the bound port and the exporter's."""
+    telemetry.adopt_config(args)
+    telemetry.set_process_label('serve')
+    telemetry.install_crash_dump()
     guard = PreemptionGuard().install()
     service = InferenceService(args, device=device).start()
     print(json.dumps({'serving_ready': {
-        'port': service.port, 'pid': os.getpid(), 'device': str(service.device),
+        'port': service.port, 'metrics_port': service.metrics_port,
+        'pid': os.getpid(), 'device': str(service.device),
         'registry': service.registry.root}}), flush=True)
     try:
         while not guard.requested() and not service.fleet_drain_requested():
             time.sleep(0.2)
+            service.poll_alerts()
         if guard.requested():
             _LOG.warning('serving: preemption signal received; draining')
     finally:

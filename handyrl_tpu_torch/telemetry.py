@@ -168,6 +168,10 @@ def trace_dir() -> str:
     return _TRACE.dir
 
 
+def trace_sample_rate() -> float:
+    return _TRACE.rate
+
+
 def configure_tracing(trace_dir: Optional[str] = None,
                       sample_rate: Optional[float] = None,
                       force: bool = False):
@@ -1271,6 +1275,10 @@ class AlertEngine:
             return self.block()
         return self.evaluate(collect(), now)
 
+    def poll(self) -> Dict[str, Any]:
+        """``maybe_evaluate`` over this process's own registry."""
+        return self.maybe_evaluate(lambda: [snapshot()])
+
     def block(self) -> Dict[str, Any]:
         with self._lock:
             return dict(self._last)
@@ -1460,6 +1468,18 @@ class TelemetryExporter:
             self._server.shutdown()
             self._server.server_close()
             self._server = None
+
+
+def start_exporter(port: int, status: Optional[Callable[[], Dict[str, Any]]]
+                   = None) -> Tuple[Optional[TelemetryExporter], int]:
+    """Serve this process's registry on ``port`` (``status`` fills
+    /statusz) when a port is set and telemetry is on. Returns the started
+    exporter, None when it is off, and the port it bound."""
+    if not port or not _ENABLED:
+        return None, port
+    exporter = TelemetryExporter(lambda: [snapshot()], port=port,
+                                 status=status).start()
+    return exporter, exporter.port
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ resolver and replicas and must get the port client's replies exactly.
 Heartbeats and refreshes are short and every wait polls with a deadline.
 """
 
+import json
 import random
 import sys
 import time
@@ -29,7 +30,7 @@ from handyrl_tpu.serving import __main__ as jax_serving_cli
 from handyrl_tpu.serving.fleet import AutoscalerPolicy as JaxAutoscaler
 from handyrl_tpu.serving.fleet import ReplicaBreaker as JaxBreaker
 from handyrl_tpu.serving.fleet import RoutedClient as JaxRoutedClient
-from handyrl_tpu_torch import config
+from handyrl_tpu_torch import config, telemetry
 from handyrl_tpu_torch.config import ConfigError, serving_args
 from handyrl_tpu_torch.generation import model_act, sample_seed
 from handyrl_tpu_torch.inference import EngineClient, RemoteModel
@@ -210,11 +211,31 @@ def test_serving_checks_accept_what_the_jax_checks_accept(serving):
     ({'gateway': {'metrics_port': 9102}},
      'serving.gateway.metrics_port 9102')])
 def test_an_exporter_port_is_refused_naming_item_4(serving, key):
+    """Each tier's exporter port validates as the JAX checks do (the
+    serving tier's telemetry is ported): a TCP port is taken, one out of
+    range is refused with the JAX message."""
     _jax_serving(serving)     # the JAX package runs its exporter there
-    with pytest.raises(ConfigError, match=key + '.*item 4b'):
-        serving_args({'env': 'TicTacToe'}, {}, serving)
-    with pytest.raises(ConfigError, match=key + '.*item 4b'):
-        config.apply_defaults({'train_args': {'serving': serving}})
+    srv = serving_args({'env': 'TicTacToe'}, {}, serving)['serving']
+    config.apply_defaults({'train_args': {'serving': serving}})
+    name, _, port = key.rpartition(' ')
+    path = name.split('.')[1:]
+    node = srv
+    for part in path[:-1]:
+        node = node[part]
+    assert node[path[-1]] == int(port)
+    bad = json.loads(json.dumps(serving).replace(port, '70000'))
+    if name == 'serving.fleet.metrics_port':
+        # the JAX checks leave this one to the bind; the port refuses it
+        # up front with the message of the other two
+        _jax_serving(bad)
+    else:
+        with pytest.raises(AssertionError, match='must be a TCP port'):
+            _jax_serving(bad)
+    with pytest.raises(ConfigError, match=name + ' must be a TCP port '
+                       r'\(0 = exporter off\)'):
+        serving_args({'env': 'TicTacToe'}, {}, bad)
+    with pytest.raises(ConfigError, match=name + ' must be a TCP port'):
+        config.apply_defaults({'train_args': {'serving': bad}})
 
 
 def test_the_cli_defaults_equal_the_jax_cli_defaults(monkeypatch):
@@ -244,9 +265,10 @@ def test_the_cli_defaults_equal_the_jax_cli_defaults(monkeypatch):
     assert {k: port[k] for k in shared} == {k: jax[k] for k in shared}
     assert port['env'] == 'TicTacToe' and port['device'] == 'cuda'
     assert set(port) - set(jax) == {'device'}
-    # only the flags of the exporter and the JAX engine's backend are not
-    # the port's
-    assert set(jax) - set(port) == {'metrics_port', 'engine_backend'}
+    # only the JAX engine's backend flag is not the port's (its engine
+    # runs on --device); --metrics-port is shared, with the JAX default 0
+    assert set(jax) - set(port) == {'engine_backend'}
+    assert port['metrics_port'] == jax['metrics_port'] == 0
 
 
 # -- the resolver ------------------------------------------------------------
@@ -579,7 +601,11 @@ def test_rolling_promote_warms_before_the_flip(fleet_of_two, nets):
         assert slo['received'] >= 1 and slo['p99_ms'] >= slo['p50_ms'] > 0
         client = ServiceClient('127.0.0.1', services[0].port)
         try:
-            assert 'item 4b' in client.call_admin({'op': 'trace'})['error']
+            # the trace op answers as the JAX op does; no dir leaves
+            # tracing off, as it was
+            assert client.call_admin({'op': 'trace'}) == {
+                'ok': True, 'dir': '',
+                'rate': telemetry.trace_sample_rate()}
             assert 'error' in client.call_admin({'op': 'warm',
                                                  'model': 'default@9'})
         finally:

@@ -224,8 +224,9 @@ def test_cli_without_cuda_raises_on_the_device_path(tmp_path):
                       'fused_pipeline': False, 'batched_generation': False,
                       'inference': {'enabled': True},
                       'serving': {'fleet': {'resolver': 'localhost:9000'},
-                                  'metrics_port': 9100}},
-                 'serving.metrics_port 9100.*item 4b',
+                                  'metrics_port': 9100},
+                      'parallel': {'model_parallel': 2}},
+                 'train_args.parallel.model_parallel: the parallel plane',
                  id='env_args1-train_args1-host inference engine'),
     ({}, {'device_generation': True, 'generation': {'backend': 'device',
                                                    'device_actor_slots': 0}},

@@ -212,9 +212,22 @@ def test_gateway_reaches_gateway_main(mode, tmp_path, calls):
 
 
 def test_serving_modes_refuse_an_exporter_port(tmp_path, calls):
+    """An exporter port reaches the gateway (the serving tier's
+    telemetry is ported), with the config's telemetry block; one out of
+    range is refused with the JAX message."""
+    tel = {'trace_dir': 'traces', 'alerts': {'interval': 1.0}}
     cfg = {'env_args': CONFIG['env_args'],
-           'train_args': {'serving': {'gateway': {'metrics_port': 9100}}}}
-    with pytest.raises(ConfigError, match='gateway.metrics_port.*item 4b'):
+           'train_args': {'serving': {'gateway': {'metrics_port': 9100}},
+                          'telemetry': tel}}
+    assert cli.main(['--gateway', '--config', write(tmp_path, cfg)]) == 0
+    [(name, (args,), _kwargs)] = calls
+    assert name == 'gateway_main'
+    assert args['serving']['gateway']['metrics_port'] == 9100
+    assert args['telemetry'] == tel
+    calls.clear()
+    cfg['train_args']['serving']['gateway']['metrics_port'] = 70000
+    with pytest.raises(ConfigError,
+                       match='gateway.metrics_port must be a TCP port'):
         cli.main(['--gateway', '--config', write(tmp_path, cfg)])
     assert calls == []
 

@@ -8,9 +8,8 @@ the alert catalog, scripted alert streams, ``from_config``, the status
 text, the blackbox layout and the JSONL schema check agree; the exporter
 answers on 127.0.0.1; the config's ``telemetry`` checks are the JAX
 package's, as ConfigErrors; and every metric name the JAX package
-registers appears in the port's sources (the serving tier's too, whose
-exporters wait for ROADMAP.md §1 item 4b), apart from the mesh's (item
-5)."""
+registers appears in the port's sources (the serving tier's too, which
+its exporters serve), apart from the mesh's (ROADMAP.md §1 item 5)."""
 
 import glob
 import json

@@ -225,8 +225,9 @@ def test_config_defaults_to_tictactoe_like_the_reference():
     ({'device_generation': True, 'batched_generation': False,
       'generation': {'backend': 'engine'},
       'serving': {'fleet': {'resolver': 'localhost:9000'},
-                  'gateway': {'metrics_port': 9102}}},
-     ('serving.gateway.metrics_port', 'not ported', 'item 4b')),
+                  'gateway': {'metrics_port': 9102}},
+      'distributed': {'num_processes': 2}},
+     ('train_args.distributed.num_processes', 'the distributed plane')),
     ({'device_generation': True, 'device_replay': True,
       'generation': {'backend': 'device'}, 'league': {'enabled': True}},
      ('league.enabled requires serving.publish',)),
@@ -240,8 +241,9 @@ def test_tictactoe_on_the_device_path_names_what_is_missing(train_args,
                                                             missing):
     """TicTacToe runs the fused loop in the 'turn' layout, every other
     device combination, the device actor and engine backends (a serving
-    fleet's resolver too); the planes the JAX package has and the port not
-    yet (the metrics exporter) still raise, naming them, as do the league
+    fleet's resolver and the serving tier's exporter ports too); the
+    planes the JAX package has and the port not yet (mesh parallelism,
+    the distributed runtime) still raise, naming them, as do the league
     without the registry it draws from and an engine backend the JAX
     config refuses."""
     with pytest.raises(ConfigError) as exc:

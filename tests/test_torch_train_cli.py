@@ -135,13 +135,13 @@ def test_cli_without_cuda_raises(tmp_path):
                                     'engine_backend': 'gpu'}},
                  'inference.engine_backend',
                  id='env_args13-train_args13-host inference engine'),
-    # the fleet's resolver runs since the serving fleet was ported; its
-    # exporter port waits for the serving tier's telemetry (ROADMAP.md §1
-    # item 4b)
+    # the fleet's resolver and its exporter port run since the serving
+    # tier's telemetry was ported; mesh parallelism is still refused
     pytest.param({}, {'generation': {'backend': 'engine'},
                       'serving': {'fleet': {'resolver': 'localhost:9000',
-                                            'metrics_port': 9100}}},
-                 'serving.fleet.metrics_port 9100.*item 4b',
+                                            'metrics_port': 9100}},
+                      'parallel': {'model_parallel': 2}},
+                 'train_args.parallel.model_parallel: the parallel plane',
                  id='env_args14-train_args14-inference engine'),
     ({}, {'generation': {'backend': 'gpu'}}, 'generation.backend'),
     ({}, {'batched_generation': False, 'worker': {'num_parallel': 0}},
