@@ -7,8 +7,8 @@ non-zero, printing no result, when either is missing or any phase fails.
 To fit its time, the processes of phase 8 with 9(a)'s, the learner
 processes of 9(b) with phase 10, of 11(a)-(c) with 11(d)'s export, of 12(c) and (d), of 13(a), of 13(b), of
 14(b)/(c) and 14(f) (beside phase 13), of 16(a) and (b), and of phase 17 with 18(c) and (d)
-run at once, and phase 19's fleet and gateway (and the SWA tool) beside
-phases 16, 17 and 18 (each part still checks its own run; their rates,
+run at once, phase 21's beside phases 11 and 12, and phase 19's fleet and
+gateway (and the SWA tool) beside phases 16, 17 and 18 (each part still checks its own run; their rates,
 16(a)'s MTTR and 19's latencies share the host and the card).
 
 1. Prints the card (name and power limit from nvidia-smi), the torch and
@@ -543,6 +543,21 @@ phases 16, 17 and 18 (each part still checks its own run; their rates,
    plies replayed, the exporters, the A/B, the traces). Beside it (and phases 16-18), a child runs
    ``scripts/torch_aux_swa.py`` on the card over phase 7's checkpoints:
    exit 0, the reloaded average's probe finite.
+21. The data-parallel plane (DP_*), its processes beside phases 11 and
+   12: phase 6's fused loop (FUSED_CONFIG, solo, full-width GeeseNet,
+   ``torus_impl='pallas'``) for DP_EPOCHS epochs with a checkpoint each,
+   through ``python -m handyrl_tpu_torch.train``: (a) plainly and with a
+   ``distributed`` block of world 1, at once: it fails unless every
+   checkpoint file's bytes and the launches by path are equal; (b) over
+   two ranks on the one card by the JAX package's variables (gloo,
+   staged through the host: NCCL takes one card a rank): it fails unless
+   both run the loop sharded over 2 devices, exit 0, end with the same
+   params digest, counted the same steps and episodes, each launched K1
+   in both forms, K2 and K5, and the trainer state's ``.layout`` reads
+   data=2 over 2 processes; it prints the collective's ms a step by CUDA
+   events and by the host clock; (c) (b)'s run directory resumed under a
+   world of 1: it fails without the ``mesh-portable restore`` line and
+   the trainer state resumed at (b)'s steps.
 20. Prints one ``{"kernels": [...]}`` JSON line (K1, K2a, K2b, their bf16
    forms as rows of their own, K3-K5; K2a and K2b take their launches
    from K2's count, one of each a call, the bf16 rows from K2-bf16's; the
@@ -574,7 +589,8 @@ phases 16, 17 and 18 (each part still checks its own run; their rates,
    processes), ``engine_{local,chaos}_gather``, ``engine_remote_service``
    and ``engine_buckets``, phase 19's replica processes under
    ``fleet_<replica>_pid<pid>`` (each process's last status reply, before
-   its kill or the drain); K1's row also holds the operator's checks, the
+   its kill or the drain), phase 21's under ``dp_{plain,world1,rank0,
+   rank1,resume}_*``; K1's row also holds the operator's checks, the
    engine's buckets and the fleet's K1 by replica),
    the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -9006,6 +9022,214 @@ def phase_fleet_run(repo, prep, ab_order=AB_ORDER):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------ phase 21: the data-parallel plane
+
+# the fused loop of phase 6 (its config, solo layout, full-width GeeseNet,
+# torus_impl 'pallas') for DP_EPOCHS epochs, a checkpoint each: plainly;
+# through a distributed block of world 1 (the same files and launches);
+# over two ranks on the one card (gloo: NCCL takes one card a rank); then
+# the two ranks' run directory resumed under a world of 1
+DP_EPOCHS = 4
+DP_TIMEOUT = 300
+
+
+def dp_config(tmp, name, extra=None):
+    cfg = json.loads(json.dumps(FUSED_CONFIG))
+    cfg['train_args'].update({
+        'epochs': DP_EPOCHS, 'checkpoint_interval': 1,
+        'model_dir': os.path.join(tmp, name, 'models'),
+        'metrics_jsonl': os.path.join(tmp, name, 'metrics.jsonl')})
+    cfg['train_args'].update(extra or {})
+    os.makedirs(os.path.join(tmp, name), exist_ok=True)
+    path = os.path.join(tmp, name, 'config.json')
+    with open(path, 'w') as f:
+        json.dump(cfg, f)
+    return path
+
+
+def dp_start(repo, cfg, tmp, label, env=None):
+    """``python -m handyrl_tpu_torch.train --config cfg --device cuda``, its
+    output to files: (process, stdout path, stderr path)."""
+    out = os.path.join(tmp, label + '.out')
+    err = os.path.join(tmp, label + '.err')
+    with open(out, 'w') as fo, open(err, 'w') as fe:
+        proc = subprocess.Popen(
+            [sys.executable, '-m', 'handyrl_tpu_torch.train', '--config',
+             cfg, '--device', 'cuda'], cwd=repo, stdout=fo, stderr=fe,
+            env=dict(os.environ, **(env or {})))
+    return proc, out, err
+
+
+def dp_wait(runs, label):
+    """Each run's (JSON line, stdout); fails unless each exits 0 with one
+    JSON line. Kills every run still going at the deadline."""
+    deadline = time.monotonic() + DP_TIMEOUT
+    results = []
+    try:
+        for proc, out, err in runs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        for proc, _, _ in runs:
+            proc.kill()
+        fail('%s did not finish within %d s' % (label, DP_TIMEOUT))
+    for proc, out, err in runs:
+        text = read_text(out)
+        if proc.returncode != 0:
+            fail('%s exited %d:\n%s\n%s' % (label, proc.returncode,
+                                            text[-2000:],
+                                            read_text(err)[-4000:]))
+        lines = [l for l in text.splitlines() if l.startswith('{"device"')]
+        if len(lines) != 1:
+            fail('%s printed %d JSON lines' % (label, len(lines)))
+        results.append((json.loads(lines[0]), text))
+    return results
+
+
+def dp_check_run(label, line, epochs, ranks=1):
+    """The fused loop ran (sharded over the ranks), closed its epochs and
+    launched every kernel of its paths."""
+    import math
+    if line['model_epoch'] != epochs or not line['steps'] > 0:
+        fail('%s: epoch %d, %d steps' % (label, line['model_epoch'],
+                                         line['steps']))
+    if not all(math.isfinite(v) for v in line['losses'].values()):
+        fail('%s: losses %s' % (label, line['losses']))
+    for path, kernels in FUSED_PATHS.items():
+        counts = line['kernel_launches'].get(path, {})
+        missing = [k for k in kernels if not counts.get(k)]
+        if missing:
+            fail('%s: no launch of %s under %r (%s)' % (label, missing, path,
+                                                        counts))
+    mesh = line.get('mesh')
+    if (ranks > 1) != (mesh is not None):
+        fail('%s: mesh %s in a world of %d' % (label, mesh, ranks))
+
+
+def phase_dp(repo):
+    """Phase 21 in processes of its own (no CUDA work in this one)."""
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_dp_')
+    try:
+        return dp_runs(repo, tmp, t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dp_runs(repo, tmp, t0):
+    port_a, port_b = free_ports(2)
+    # (a) plainly, and through a distributed block of world 1, at once
+    plain = dp_config(tmp, 'plain')
+    world1 = dp_config(tmp, 'world1', {'distributed': {
+        'coordinator_address': 'localhost:%d' % port_a,
+        'num_processes': 1, 'process_id': 0}})
+    (a_line, _), (w_line, w_out) = dp_wait(
+        [dp_start(repo, plain, tmp, 'plain'),
+         dp_start(repo, world1, tmp, 'world1')], '21(a)')
+    dp_check_run('21(a) plain', a_line, DP_EPOCHS)
+    dp_check_run('21(a) world 1', w_line, DP_EPOCHS)
+    if 'multi-host: process 0 of 1, 1 global devices' not in w_out:
+        fail('21(a): the world-1 run printed no multi-host line')
+    same_files = {}
+    for name in ['latest.ckpt', 'trainer_state.ckpt'] + [
+            '%d.ckpt' % e for e in range(1, DP_EPOCHS + 1)]:
+        with open(os.path.join(tmp, 'plain', 'models', name), 'rb') as f:
+            a = f.read()
+        with open(os.path.join(tmp, 'world1', 'models', name), 'rb') as f:
+            b = f.read()
+        same_files[name] = a == b
+    if not all(same_files.values()):
+        fail('21(a): the world-1 run wrote other bytes than the plain run: '
+             '%s' % same_files)
+    if a_line['kernel_launches'] != w_line['kernel_launches']:
+        fail('21(a): launches %s plainly, %s in a world of 1' % (
+            a_line['kernel_launches'], w_line['kernel_launches']))
+    log('21(a): plain and world-1 runs: %d epochs, %d steps, checkpoint '
+        'bytes equal (%d files), launches equal %s; episodes/s %s, SGD '
+        'steps/s %s (plain, world 1; the two at once)'
+        % (DP_EPOCHS, a_line['steps'], len(same_files),
+           a_line['kernel_launches'],
+           [round(l['episodes_per_s'], 2) for l in (a_line, w_line)],
+           [round(l['sgd_steps_per_s'], 2) for l in (a_line, w_line)]))
+    t_a = time.monotonic()
+
+    # (b) two ranks on the one card, by the JAX package's variables
+    two = dp_config(tmp, 'two')
+    runs = [dp_start(repo, two, tmp, 'rank%d' % r, env={
+        'JAX_COORDINATOR_ADDRESS': 'localhost:%d' % port_b,
+        'JAX_NUM_PROCESSES': '2', 'JAX_PROCESS_ID': str(r)})
+        for r in range(2)]
+    ranks = dp_wait(runs, '21(b)')
+    digests = []
+    for r, (line, out) in enumerate(ranks):
+        dp_check_run('21(b) rank %d' % r, line, DP_EPOCHS, ranks=2)
+        if 'sharded over 2 devices' not in out or \
+                'collectives: gloo, ranks share a card' not in out:
+            fail('21(b) rank %d: not the sharded loop over gloo:\n%s'
+                 % (r, out[:2000]))
+        mesh = line['mesh']
+        if mesh['shape'] != {'data': 2, 'model': 1} or mesh['process'] != r:
+            fail('21(b) rank %d: mesh %s' % (r, mesh))
+        digests.append(mesh['params_sha256'])
+    if digests[0] != digests[1] or digests[0] is None:
+        fail('21(b): the ranks end with other params: %s' % digests)
+    lines = [line for line, _ in ranks]
+    if lines[0]['steps'] != lines[1]['steps'] or \
+            lines[0]['episodes'] != lines[1]['episodes']:
+        fail('21(b): the ranks counted other steps or episodes')
+    with open(os.path.join(tmp, 'two', 'models',
+                           'trainer_state.ckpt.layout')) as f:
+        layout = json.load(f)
+    if layout.get('mesh') != {'data': 2, 'model': 1} or \
+            layout.get('processes') != 2:
+        fail('21(b): the layout manifest reads %s' % layout)
+    coll = [line['mesh']['collective'] for line in lines]
+    log('21(b): two ranks on one card (gloo): %d epochs, %d steps, %d '
+        'episodes, params sha256 %s on both; layout %s; the collective a '
+        'step (%d bytes): CUDA events %s ms, host clock %s ms by rank; '
+        'episodes/s %s, SGD steps/s %s by rank'
+        % (DP_EPOCHS, lines[0]['steps'], lines[0]['episodes'],
+           digests[0][:16], describe_layout(layout),
+           coll[0]['bytes_per_call'],
+           [round(c['cuda_ms_per_call'], 4) for c in coll],
+           [round(c['host_ms_per_call'], 4) for c in coll],
+           [round(l['episodes_per_s'], 2) for l in lines],
+           [round(l['sgd_steps_per_s'], 2) for l in lines]))
+    t_b = time.monotonic()
+
+    # (c) the two ranks' run directory resumed under a world of 1
+    resume = dp_config(tmp, 'resume', {
+        'model_dir': os.path.join(tmp, 'two', 'models'),
+        'restart_epoch': -1, 'epochs': DP_EPOCHS + 1})
+    ((c_line, c_out),) = dp_wait([dp_start(repo, resume, tmp, 'resume')],
+                                 '21(c)')
+    dp_check_run('21(c) resume', c_line, DP_EPOCHS + 1)
+    want = ('mesh-portable restore: checkpoint written under data=2xmodel=1 '
+            '(2 process(es)), restoring onto single device (1 process(es))')
+    if want not in c_out or 'resumed trainer state (steps %d)' % lines[0][
+            'steps_at_exit'] not in c_out:
+        fail('21(c): no restore line:\n%s' % c_out[:3000])
+    if not c_line['steps_at_exit'] > c_line['steps_at_start'] == \
+            lines[0]['steps_at_exit']:
+        fail('21(c): steps %d -> %d after the two ranks\' %d' % (
+            c_line['steps_at_start'], c_line['steps_at_exit'],
+            lines[0]['steps_at_exit']))
+    t_c = time.monotonic()
+    log('21(c): resumed under a world of 1 at steps %d: %s; epoch %d, '
+        'steps %d' % (c_line['steps_at_start'], want, c_line['model_epoch'],
+                      c_line['steps_at_exit']))
+    log('phase 21: (a) %.1f s, (b) %.1f s, (c) %.1f s (%s)' % (
+        t_a - t0, t_b - t_a, t_c - t_b, nvidia_smi_line()))
+    return {'plain': a_line, 'world1': w_line, 'ranks': lines,
+            'resume': c_line, 'collective': coll,
+            'seconds': {'a': t_a - t0, 'b': t_b - t_a, 'c': t_c - t_b}}
+
+
+def describe_layout(layout):
+    mesh = layout.get('mesh') or {}
+    return 'x'.join('%s=%d' % (k, mesh[k]) for k in sorted(mesh)) or \
+        'single device'
+
+
 def main():
     try:
         import torch
@@ -9124,6 +9348,11 @@ def main():
     log('phases 9(b) and 10: %.1f s (%s)' % (time.monotonic() - t10,
                                              nvidia_smi_line()))
 
+    # phase 21's processes (the data-parallel plane) run beside phases 11
+    # and 12, to fit the time limit
+    log('== phase 21: the data-parallel plane (its processes beside phases '
+        '11 and 12)')
+    dp_join = in_background(lambda: phase_dp(repo))
     t11 = time.monotonic()
     try:
         branches = phase_device_branches(torch, repo, GeeseNet, make_env,
@@ -9137,6 +9366,10 @@ def main():
     actor = phase_device_actor(torch, repo, GeeseNet, make_env)
     log('phase 12: %.1f s (%s)' % (time.monotonic() - t12,
                                    nvidia_smi_line()))
+    dp = dp_join()
+    log('phase 21: %.1f s since its start, beside 11 and 12\'s %.1f s (%s)'
+        % (sum(dp['seconds'].values()), time.monotonic() - t11,
+           nvidia_smi_line()))
 
     # phase 14's learner processes run beside phase 13, to fit the time
     # limit (PERF.md §4)
@@ -9309,6 +9542,15 @@ def main():
     # phase 19: each fleet replica process (the respawned ones too), read
     # from its status reply before its kill or the drain
     paths.update(fleet['launches'])
+    # phase 21: the fused loop plainly, in a world of 1, each of the two
+    # ranks on the card, and the resume (fresh processes)
+    for label, line in (('dp_plain', dp['plain']),
+                        ('dp_world1', dp['world1']),
+                        ('dp_rank0', dp['ranks'][0]),
+                        ('dp_rank1', dp['ranks'][1]),
+                        ('dp_resume', dp['resume'])):
+        for name, counts in line['kernel_launches'].items():
+            paths['%s_%s' % (label, name)] = counts
 
     def entry(name, source, replaces, main_row, by_n, count=None, **extra):
         count = count or name   # the wrapper count the launches are read from

@@ -24,8 +24,10 @@ block) and of telemetry (the ``telemetry`` block or bool,
 ``telemetry_port``, ``profile_epochs``, ``profile_dir``, with the JAX
 defaults and checks) and of the durable plane (``durability``, ``streaming`` with the
 IMPACT target network) and of the league (``league``: PFSP opponents
-over the registry, the rating book, rating-gated promotion), and
-:func:`validate` raises for anything this port does not run yet (mesh
+over the registry, the rating book, rating-gated promotion) and of the
+data-parallel plane (``distributed``: the torch.distributed job's
+``coordinator_address``, ``num_processes``, ``process_id``), and
+:func:`validate` raises for anything this port does not run yet (tensor
 parallelism, nets other than the ported ones)
 instead of ignoring it.
 Without ``env_args`` the env is TicTacToe, as in the JAX package.
@@ -177,6 +179,7 @@ TRAIN_DEFAULTS: Dict[str, Any] = {
     'fused_pipeline': True,       # one dispatch = rollout chunk + ingest + K SGD steps
     'sgd_steps_per_chunk': None,  # SGD steps a fused dispatch (pins the replay ratio); None = 16
     'checkpoint_interval': 1,     # fused loop: write checkpoint files every N epochs (and at the last)
+    'distributed': {},            # data-parallel job: coordinator_address / num_processes / process_id (parallel/multihost.py)
     'guard': {
         'nonfinite_policy': 'rollback',  # 'skip', 'rollback' (after rollback_after consecutive bad updates or a loss-spike trip) or 'abort'
         'rollback_after': 8,
@@ -313,8 +316,9 @@ def parse_epoch_set(spec) -> set:
 # when one of the named keys is set (truthy; model_parallel above 1)
 NOT_PORTED_BLOCKS: Dict[str, tuple] = {
     'parallel': ('model_parallel', 'partition_rules'),
-    'distributed': ('coordinator_address', 'num_processes', 'process_id'),
 }
+# the data-parallel job's keys (train_args.distributed)
+DISTRIBUTED_KEYS = ('coordinator_address', 'num_processes', 'process_id')
 # the generation backends of a gather host
 _BACKENDS = ('', 'worker', 'engine', 'device')
 _RECORD_MODES = ('', 'strict', 'device')
@@ -466,6 +470,7 @@ def validate(args: Dict[str, Any]) -> None:
              '>= 1')
     _require(float(g['loss_spike_zscore']) >= 0,
              'guard.loss_spike_zscore must be >= 0 (0 disables the trip)')
+    _validate_distributed(ta)
     _validate_telemetry(ta)
     _validate_durable_plane(ta)
     _validate_league(ta)
@@ -753,6 +758,27 @@ def _validate_worker_plane(ta: Dict[str, Any]) -> None:
              'fault_tolerance.liveness_timeout must exceed '
              'heartbeat_interval, or every healthy peer is detached between '
              'beacons')
+
+
+def _validate_distributed(ta: Dict[str, Any]) -> None:
+    """``train_args.distributed``: a dict of the job's three keys (each
+    may be left to the JAX package's variables)."""
+    dist = ta.get('distributed') or {}
+    _require(isinstance(dist, dict), 'train_args.distributed must be a '
+             'dict of %s' % ', '.join(DISTRIBUTED_KEYS))
+    extra = sorted(set(dist) - set(DISTRIBUTED_KEYS))
+    _require(not extra, 'train_args.distributed keys %s are not known; it '
+             'takes %s' % (extra, ', '.join(DISTRIBUTED_KEYS)))
+    addr = dist.get('coordinator_address')
+    _require(addr is None or (isinstance(addr, str) and addr),
+             'distributed.coordinator_address must be a host:port string')
+    n, pid = dist.get('num_processes'), dist.get('process_id')
+    _require(n is None or int(n) >= 1,
+             'distributed.num_processes must be >= 1')
+    _require(pid is None or int(pid) >= 0,
+             'distributed.process_id must be >= 0')
+    _require(n is None or pid is None or int(pid) < int(n),
+             'distributed.process_id must be below num_processes')
 
 
 def _validate_device_path(ta: Dict[str, Any]) -> None:

@@ -189,6 +189,19 @@ def env_generator(device: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s own streams in a sharded loop (its
+    envs', windows' and slots' draws): distinct for every rank."""
+    return int(seed) + 7919 * (int(rank) + 1)
+
+
+def state_rows(state, lo: int, hi: int):
+    """Rows [lo, hi) of an env twin's state (every leaf (N, ...)), as new
+    tensors: a rank's envs in a sharded loop are its rows of the global
+    reset."""
+    return type(state)(*[t[lo:hi].clone() for t in state])
+
+
 # ------------------------------------------------------- the split path
 
 def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
@@ -461,15 +474,30 @@ class DeviceEvaluator:
     place on every ply, so the caller refreshes them with ``copy_`` (or
     ``load_state_dict``, which copies into them: the checkpoint scorer
     rescores many checkpoints with one evaluator and one captured rollout,
-    :meth:`flush` between them, :meth:`play` for a point's games)."""
+    :meth:`flush` between them, :meth:`play` for a point's games).
+
+    Beside the sharded fused loop (a ``mesh`` of W ranks) each rank plays
+    ``n_envs / W`` of the matches, its rows of the global reset with its
+    own stream of draws (the JAX evaluator's envs sharded over 'data',
+    handyrl_tpu/device_generation.py:457-468), and the finished matches
+    of every rank are gathered at the read, as the fused loop's pack, so
+    every rank books the same results."""
 
     pipelined = True
 
     def __init__(self, env_mod, net: torch.nn.Module, args: Dict[str, Any],
                  n_envs: int = 64, chunk_steps: int = 16, seed: int = 77,
-                 opponents: Optional[Sequence[str]] = None):
+                 opponents: Optional[Sequence[str]] = None, mesh=None):
         self.env_mod, self.net, self.args = env_mod, net, args
         self.n_envs, self.chunk_steps = n_envs, chunk_steps
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        ndev = self.mesh.size if self.mesh is not None else 1
+        if n_envs % ndev:
+            raise ValueError('eval_envs %d must divide over the %d ranks'
+                             % (n_envs, ndev))
+        self.n_loc = n_envs // ndev
+        self._lo = (self.mesh.index if self.mesh is not None else 0) \
+            * self.n_loc
         self.device = next(net.parameters()).device
         self.opponents = [str(o) for o in (opponents or ['random'])]
         bad = [o for o in self.opponents if o not in ('random', 'rulebase')
@@ -490,6 +518,11 @@ class DeviceEvaluator:
         self._env_opp = np.empty(n_envs, dtype=object)
         for a, b, name in self._opp_bounds:
             self._env_opp[a:b] = name
+        # each opponent's block among this rank's envs
+        lo, hi = self._lo, self._lo + self.n_loc
+        self._loc_bounds = [(min(max(a, lo), hi) - lo,
+                             min(max(b, lo), hi) - lo, name)
+                            for a, b, name in self._opp_bounds]
         # one module a checkpoint opponent, its params on the device
         self._opp_nets: Dict[str, torch.nn.Module] = {}
         for name in self.opponents:
@@ -504,10 +537,15 @@ class DeviceEvaluator:
                                         device=self.device)
         self.seat = torch.remainder(
             torch.arange(n_envs, device=self.device), env_mod.NUM_PLAYERS)
+        if self.mesh is not None:
+            self.state = state_rows(self.state, lo, hi)
+            self.seat = self.seat[lo:hi].clone()
+            self.generator = env_generator(
+                self.device, rank_seed(seed, self.mesh.index))
         # a recurrent net's state, and one more for the checkpoint
         # opponents (their blocks are disjoint slices of it), static
         self.recurrent = is_recurrent(net)
-        shape = (n_envs, env_mod.NUM_PLAYERS)
+        shape = (self.n_loc, env_mod.NUM_PLAYERS)
         self.hidden = net.init_hidden(shape) if self.recurrent else None
         self.opp_hidden = (net.init_hidden(shape)
                            if self.recurrent and self._opp_nets else None)
@@ -532,9 +570,9 @@ class DeviceEvaluator:
             greedy = torch.argmax(logits, dim=-1)
             opp = gumbel_argmax(-amask, torch.rand(amask.shape, generator=gen,
                                                    device=self.device))
-            if any(name == 'rulebase' for _, _, name in self._opp_bounds):
+            if any(name == 'rulebase' for _, _, name in self._loc_bounds):
                 rule = env.greedy_action(state, generator=gen).long()
-            for a, b, name in self._opp_bounds:
+            for a, b, name in self._loc_bounds:
                 if name == 'random' or a == b:
                     continue
                 if name == 'rulebase':
@@ -645,11 +683,17 @@ class DeviceEvaluator:
         return self._collect(PackedFetch.get(prev))
 
     def _collect(self, flat: np.ndarray) -> List[dict]:
-        n, p = self.n_envs, self.env_mod.NUM_PLAYERS
-        per = flat.reshape(self.chunk_steps, -1)
-        done = per[:, :n] > 0.5
-        seats = per[:, n:2 * n].astype(np.int64)
-        outcomes = per[:, 2 * n:].reshape(self.chunk_steps, n, p)
+        n, p, K = self.n_loc, self.env_mod.NUM_PLAYERS, self.chunk_steps
+        packs = [flat]
+        if self.mesh is not None:
+            from .parallel.multihost import all_gather_host
+            packs = all_gather_host(flat)
+        per = [f.reshape(K, -1) for f in packs]
+        done = np.concatenate([q[:, :n] for q in per], axis=1) > 0.5
+        seats = np.concatenate([q[:, n:2 * n] for q in per],
+                               axis=1).astype(np.int64)
+        outcomes = np.concatenate([q[:, 2 * n:].reshape(K, n, p)
+                                   for q in per], axis=1)
         players = list(range(p))
         results: List[dict] = []
         for k, i in zip(*np.nonzero(done)):

@@ -91,6 +91,13 @@ class PreemptionGuard:
             # operator insists: skip the graceful snapshot entirely
             os._exit(128 + signum)
 
+    def adopt(self, signum: int = signal.SIGTERM):
+        """A peer rank's preemption, taken as this process's own: the flag
+        set (and ``signum`` recorded) without a signal, so every rank of a
+        data-parallel job flushes and exits 75 together."""
+        self.signum = int(signum)
+        self._event.set()
+
     @property
     def fired(self) -> bool:
         return self._event.is_set()

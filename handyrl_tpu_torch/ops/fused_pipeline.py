@@ -30,8 +30,21 @@ Launches count under 'generation' (the chunk: K1's serving form) and
 'training' (the steps: K1's training form, K2 and the targets' kernels),
 once a replay by ``CapturedCall``'s bookkeeping.
 
-What waits (ROADMAP.md): ``_shard_loop_state`` and ``_build_sharded``, the
-pipeline sharded over several cards.
+Sharded over the ranks of a data-parallel job (``mesh`` of W ranks, one
+card a rank; the JAX package's ``_shard_loop_state`` and
+``_build_sharded``, fused_pipeline.py:239-331 there): each rank owns
+``n_envs / W`` envs (its rows of the global initial env state), a ring of
+``capacity`` rows (the learner divides the ring's budget by W), its own
+cursor, size and generators (seeded by rank; a world of 1 keeps the seeds
+of one card) and draws ``batch_size / W`` windows a step; the update step
+sums the grads over the ranks (``ops/train_step.py``). The packed fetch is
+global on every rank: at the parse, after the next dispatch is enqueued,
+each rank's pack is gathered over the job's host group, so done and
+outcome are (K, N) and (K, N, P) of every env, the ring's size is summed,
+its minimum over the ranks kept (the warm-up holds until every rank's
+ring holds a window) and the windows ingested summed, as JAX's
+``psum``/``pmin`` (:278-294 there); every rank's learner then counts the
+same episodes and closes the same epochs.
 """
 
 from __future__ import annotations
@@ -43,7 +56,8 @@ import numpy as np
 import torch
 
 from ..device_generation import (copy_hidden_, copy_state_, env_generator,
-                                 is_recurrent, make_gen_body)
+                                 is_recurrent, make_gen_body, rank_seed,
+                                 state_rows)
 from ..utils.tree import map_structure
 from . import launches
 from .graphs import CapturedCall, PackedFetch
@@ -60,7 +74,7 @@ class FusedPipeline:
 
     def __init__(self, env_mod, actor: torch.nn.Module, update_step:
                  ReplayUpdateStep, windower, n_envs: int, chunk_steps: int,
-                 sgd_steps: int, batch_size: int, seed: int = 0):
+                 sgd_steps: int, batch_size: int, seed: int = 0, mesh=None):
         self.env_mod, self.actor = env_mod, actor
         self.update_step, self.windower = update_step, windower
         self.n_envs, self.chunk_steps = int(n_envs), int(chunk_steps)
@@ -68,15 +82,30 @@ class FusedPipeline:
         self.num_players = int(env_mod.NUM_PLAYERS)
         self.device = next(actor.parameters()).device
         dev = self.device
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        ndev = self.mesh.size if self.mesh is not None else 1
+        if self.n_envs % ndev or self.batch_size % ndev:
+            raise ValueError('generation_envs %d and batch_size %d must '
+                             'divide over the %d ranks'
+                             % (self.n_envs, self.batch_size, ndev))
+        self.ndev = ndev
+        self.n_loc = self.n_envs // ndev          # this rank's envs
+        self.b_loc = self.batch_size // ndev      # this rank's batch slice
         # streams of draws: the envs and the actions; the windows' train
         # starts and seats; the steps' slots (each registered with one graph)
         self.generator = env_generator(dev, seed)
-        self.window_generator = env_generator(dev, seed + 1)
-        self.slot_generator = env_generator(dev, seed + 2)
         self.state = env_mod.init_state(self.n_envs,
                                         generator=self.generator, device=dev)
+        if self.mesh is not None:
+            # this rank's rows of the global reset; its own streams
+            lo = self.mesh.index * self.n_loc
+            self.state = state_rows(self.state, lo, lo + self.n_loc)
+            seed = rank_seed(seed, self.mesh.index)
+            self.generator = env_generator(dev, seed)
+        self.window_generator = env_generator(dev, seed + 1)
+        self.slot_generator = env_generator(dev, seed + 2)
         # a recurrent actor's state (N, P, ...) a leaf, static as the env's
-        self.hidden = (actor.init_hidden((self.n_envs, self.num_players))
+        self.hidden = (actor.init_hidden((self.n_loc, self.num_players))
                        if is_recurrent(actor) else None)
         self._rollout = make_gen_body(env_mod, actor)
 
@@ -88,7 +117,7 @@ class FusedPipeline:
         self.cursor = torch.zeros((), dtype=torch.int64, device=dev)
         self.size = torch.zeros((), dtype=torch.int64, device=dev)
         update_step.bind(self.ring, windower.window_spec, self.size,
-                         self.cursor, self.capacity, self.batch_size,
+                         self.cursor, self.capacity, self.b_loc,
                          self.slot_generator)
 
         self._chunk = CapturedCall(self._gen_ingest, dev,
@@ -98,7 +127,8 @@ class FusedPipeline:
         self.metric_names = ()
         self.dispatches = 0
         self.fused_dispatches = 0        # the dispatches that trained
-        self.ring_size_host = 0
+        self.ring_size_host = 0          # summed over the ranks
+        self.ring_min_host = 0           # the smallest rank's
         self.windows_ingested_host = 0   # cumulative, past the ring's wraps
         self.fetch_seconds = 0.0   # the host's waits on the packed fetches
 
@@ -139,12 +169,22 @@ class FusedPipeline:
         return torch.cat(parts)
 
     def _parse(self, flat: np.ndarray) -> Dict[str, Any]:
-        K, N, P = self.chunk_steps, self.n_envs, self.num_players
-        done = flat[:K * N].reshape(K, N) > 0.5
-        outcome = flat[K * N:K * N * (1 + P)].reshape(K, N, P)
-        rest = flat[K * N * (1 + P):]
-        self.ring_size_host = int(rest[0])
-        self.windows_ingested_host += int(rest[1])
+        K, N, P = self.chunk_steps, self.n_loc, self.num_players
+        packs = [flat]
+        if self.mesh is not None:
+            from ..parallel.multihost import all_gather_host
+            packs = all_gather_host(flat)
+        # each rank's envs are its rows of the global env axis
+        done = np.concatenate([f[:K * N].reshape(K, N) for f in packs],
+                              axis=1) > 0.5
+        outcome = np.concatenate(
+            [f[K * N:K * N * (1 + P)].reshape(K, N, P) for f in packs],
+            axis=1)
+        tails = [f[K * N * (1 + P):] for f in packs]
+        rest = flat[K * N * (1 + P):]   # the metrics: summed on every rank
+        self.ring_size_host = sum(int(t[0]) for t in tails)
+        self.ring_min_host = min(int(t[0]) for t in tails)
+        self.windows_ingested_host += sum(int(t[1]) for t in tails)
         metrics = None
         if len(rest) > 2:
             metrics = {k: float(v) for k, v in zip(self.metric_names,

@@ -33,6 +33,15 @@ The optimizer is written out on tensors, because ``torch.optim.Adam`` and
 step), and because the non-finite guard has to keep the moments and the
 step count of a bad step as well as the parameters. The guard decides on
 the device, with no host sync.
+
+On a mesh of W > 1 ranks (``parallel/mesh.py``; the JAX package's
+``_update_core(axis_name='data')``, train_step.py:53-97 there) each rank
+runs the forward and the grads on its own 1/W slice of the batch, then the
+grads, the loss sums and every metric are summed over the ranks as one
+flat buffer, one collective a step (a 'batch' net's advanced running
+averages averaged), and the guard, the global-norm clip and Adam run on
+the sums, so the replicated parameters stay bit-identical on every rank.
+A world of 1 is the step above, bit for bit.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import torch
 from torch.func import functional_call
 
 from ..models.blocks import batch_stats_sink, collect_batch_stats
+from ..utils.tree import map_structure
 from .device_windows import unflatten_window_keys
 from .graphs import CapturedCall, CountedGraph
 from .losses import LossConfig, compute_loss
@@ -105,26 +115,36 @@ def init_hidden_for(module: torch.nn.Module, batch: Dict[str, Any]):
     return module.init_hidden((value.shape[0], value.shape[2]))
 
 
-def _step_math(apply_fn: Callable, cfg: LossConfig, params: Dict[str, Tensor],
-               opt: AdamState, batch: Dict[str, Any], lr: Tensor,
-               hidden=None, target: Optional[Dict[str, Tensor]] = None
-               ) -> Tuple[Dict[str, Tensor], AdamState, Dict[str, Tensor]]:
-    """One step's math at ``params``, leaves that require grad (and a
-    'batch' net's running averages, which do not): forward (from
-    ``hidden``, a recurrent net's state at the windows' start), targets
-    (through the IMPACT ``target`` parameters where given), losses,
-    grads, clip, decay, Adam and the guard. Returns the new parameters
-    (and running averages), the new Adam state and the metrics, as new
-    tensors (``params``, ``opt`` and ``target`` are only read)."""
+def _step_grads(apply_fn: Callable, cfg: LossConfig,
+                params: Dict[str, Tensor], opt: AdamState,
+                batch: Dict[str, Any], hidden=None,
+                target: Optional[Dict[str, Tensor]] = None):
+    """The step's forward (from ``hidden``, a recurrent net's state at the
+    windows' start), targets (through the IMPACT ``target`` parameters
+    where given), losses and grads at ``params``, leaves that require
+    grad (and a 'batch' net's running averages, which do not). Returns
+    (grads by Adam's names, aux: the loss sums, the data count, the
+    diagnostics and any advanced running averages)."""
     names = list(opt.mu)
     trainable, stats = split_batch_stats(params, opt)
     total, aux = compute_loss(apply_fn, trainable, hidden, batch, cfg,
                               batch_stats=stats, target_params=target)
     grads = dict(zip(names, torch.autograd.grad(
         total, [params[k] for k in names])))
+    return grads, aux
+
+
+def _step_apply(params: Dict[str, Tensor], opt: AdamState, lr: Tensor,
+                grads: Dict[str, Tensor], aux: Dict[str, Any]
+                ) -> Tuple[Dict[str, Tensor], AdamState, Dict[str, Tensor]]:
+    """The guard, clip, decay and Adam from ``grads`` and ``aux`` (on a
+    mesh, summed over the ranks): the new parameters (and running
+    averages), the new Adam state and the metrics, as new tensors."""
+    names = list(opt.mu)
+    _, stats = split_batch_stats(params, opt)
     with torch.no_grad():
         grad_norm = global_norm(grads.values())
-        ok = (torch.isfinite(lr) & torch.isfinite(total.detach())
+        ok = (torch.isfinite(lr) & torch.isfinite(aux['losses']['total'])
               & torch.isfinite(grad_norm))
         # clip_by_global_norm: g if norm < 4 else g / norm * 4
         trigger = grad_norm < CLIP_NORM
@@ -157,6 +177,73 @@ def _step_math(apply_fn: Callable, cfg: LossConfig, params: Dict[str, Tensor],
     return new_params, new_opt, metrics
 
 
+def _reduced_leaves(grads: Dict[str, Tensor], aux: Dict[str, Any]):
+    """(container, key) of every value the ranks reduce, in one order on
+    every rank: the grads, the loss sums, the data count, the
+    diagnostics, then a 'batch' net's running averages (averaged, the
+    rest summed)."""
+    out = [(grads, k) for k in grads]
+    out += [(aux['losses'], k) for k in aux['losses']]
+    out.append((aux, 'data_count'))
+    out += [(aux['diag'], k) for k in aux['diag']]
+    out += [(aux['batch_stats'], k) for k in aux.get('batch_stats') or {}]
+    return out
+
+
+def flatten_reduced(grads: Dict[str, Tensor], aux: Dict[str, Any]
+                    ) -> Tensor:
+    """The values :func:`_reduced_leaves` names as one contiguous float32
+    buffer, so a step makes one collective."""
+    return torch.cat([c[k].detach().float().reshape(-1)
+                      for c, k in _reduced_leaves(grads, aux)])
+
+
+def unflatten_reduced(flat: Tensor, grads: Dict[str, Tensor],
+                      aux: Dict[str, Any], ranks: int):
+    """(grads, aux) of the same structure as the given ones, their values
+    read from ``flat`` after the sum over ``ranks``: JAX's psum of grads
+    and aux, and its pmean of the advanced running averages
+    (handyrl_tpu/ops/train_step.py:83-97)."""
+    grads = dict(grads)
+    aux = {k: (dict(v) if isinstance(v, dict) else v)
+           for k, v in aux.items()}
+    leaves = _reduced_leaves(grads, aux)
+    stats = aux.get('batch_stats') or {}
+    at = 0
+    for c, k in leaves:
+        like = c[k]
+        n = like.numel()
+        v = flat[at:at + n].reshape(like.shape)
+        if c is stats:
+            v = v / ranks
+        c[k] = v.to(like.dtype)
+        at += n
+    return grads, aux
+
+
+def _step_math(apply_fn: Callable, cfg: LossConfig, params: Dict[str, Tensor],
+               opt: AdamState, batch: Dict[str, Any], lr: Tensor,
+               hidden=None, target: Optional[Dict[str, Tensor]] = None,
+               mesh=None
+               ) -> Tuple[Dict[str, Tensor], AdamState, Dict[str, Tensor]]:
+    """One step's math at ``params``, leaves that require grad (and a
+    'batch' net's running averages, which do not): :func:`_step_grads`,
+    then :func:`_step_apply`. On a ``mesh`` of more than one rank, the
+    grads, the loss sums and every metric are summed over the ranks in
+    between (and the running averages averaged), as one collective, so
+    the guard, the global-norm clip and Adam see the global values and
+    the replicated parameters stay bit-identical on every rank. Returns
+    the new parameters (and running averages), the new Adam state and
+    the metrics, as new tensors (``params``, ``opt`` and ``target`` are
+    only read)."""
+    grads, aux = _step_grads(apply_fn, cfg, params, opt, batch, hidden,
+                             target)
+    if mesh is not None and mesh.size > 1:
+        flat = mesh.all_reduce_(flatten_reduced(grads, aux))
+        grads, aux = unflatten_reduced(flat, grads, aux, mesh.size)
+    return _step_apply(params, opt, lr, grads, aux)
+
+
 def _apply_fn(module: torch.nn.Module) -> Callable:
     """``apply_fn(params, obs, hidden)`` runs the module on ``params`` in
     inference mode; with ``batch_stats`` (its running averages by buffer
@@ -172,12 +259,14 @@ def _apply_fn(module: torch.nn.Module) -> Callable:
     return apply_fn
 
 
-def build_update_step(module: torch.nn.Module, cfg: LossConfig
+def build_update_step(module: torch.nn.Module, cfg: LossConfig, mesh=None
                       ) -> Callable[..., Tuple[TrainState,
                                                Dict[str, Tensor]]]:
     """Returns ``update(state, batch, lr, target_params=None) -> (state,
     metrics)``; ``target_params`` (a copy of ``state.params``, the IMPACT
-    target's) counts with ``cfg.target_clip`` > 0.
+    target's) counts with ``cfg.target_clip`` > 0. On a ``mesh``
+    (``parallel/mesh.py``) of W ranks, ``batch`` is this rank's 1/W slice
+    and the grads and metrics are summed over the ranks inside the step.
 
     ``metrics`` holds the per-term loss sums, the turn count of the batch
     (``data_count``), the ``diag_*`` off-policy diagnostics and
@@ -196,7 +285,7 @@ def build_update_step(module: torch.nn.Module, cfg: LossConfig
         params, opt, metrics = _step_math(apply_fn, cfg, live,
                                           state.opt_state, batch, lr,
                                           init_hidden_for(module, batch),
-                                          target_params)
+                                          target_params, mesh)
         return (TrainState(params=params, opt_state=opt,
                            steps=state.steps + 1), metrics)
 
@@ -230,10 +319,22 @@ class StaticUpdateStep:
     With ``cfg.target_clip`` > 0 the IMPACT target's parameters are
     buffers of their own (:attr:`target`), a copy of the state's at
     construction, read by every step and written only by
-    :meth:`sync_target`."""
+    :meth:`sync_target`.
+
+    On a ``mesh`` of more than one rank a step is :meth:`_pre` (forward,
+    losses, grads, written into one flat buffer), the collective that
+    sums that buffer over the ranks (:meth:`_reduce`), and :meth:`_post`
+    (the guard, clip and Adam from the sums); a CUDA graph cannot hold a
+    collective staged through the host, so the graphed forms capture
+    :meth:`_pre` and :meth:`_post` as two graphs and run the collective
+    between their replays."""
 
     def __init__(self, module: torch.nn.Module, cfg: LossConfig,
-                 state: TrainState):
+                 state: TrainState, mesh=None):
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
+        # the reduced values' buffer and their structure (meta tensors)
+        self._flat: Optional[Tensor] = None
+        self._reduced_like = None
         self._apply = _apply_fn(module)
         self._module = module
         self._cfg = cfg
@@ -320,10 +421,18 @@ class StaticUpdateStep:
     def _body(self, batch: Dict[str, Tensor]) -> Tensor:
         """One step on the buffers; returns the metrics packed in
         :attr:`metric_names` order."""
+        if self._mesh is not None:
+            self._pre(batch)
+            self._reduce()
+            return self._post()
         batch = unflatten_window_keys(batch)
         params, opt, metrics = _step_math(
             self._apply, self._cfg, self._params, self._opt, batch, self._lr,
             init_hidden_for(self._module, batch), self.target)
+        return self._store(params, opt, metrics)
+
+    def _store(self, params, opt: AdamState, metrics) -> Tensor:
+        """The new state written into the buffers; the metrics packed."""
         with torch.no_grad():
             for k, p in self._params.items():
                 p.copy_(params[k])
@@ -336,6 +445,35 @@ class StaticUpdateStep:
                 self.metric_names = tuple(metrics)
             return torch.stack([metrics[k].float()
                                 for k in self.metric_names])
+
+    def _pre(self, batch: Dict[str, Tensor]) -> None:
+        """A mesh step's first part: grads and aux of this rank's batch,
+        flattened into :attr:`_flat`."""
+        batch = unflatten_window_keys(batch)
+        grads, aux = _step_grads(
+            self._apply, self._cfg, self._params, self._opt, batch,
+            init_hidden_for(self._module, batch), self.target)
+        flat = flatten_reduced(grads, aux)
+        with torch.no_grad():
+            if self._flat is None:     # the first step, which runs eagerly
+                self._flat = torch.empty_like(flat)
+                self._reduced_like = map_structure(
+                    lambda t: torch.empty_like(t, device='meta'),
+                    (grads, aux))
+            self._flat.copy_(flat)
+
+    def _reduce(self) -> None:
+        """The step's collective: :attr:`_flat` summed over the ranks."""
+        self._mesh.all_reduce_(self._flat)
+
+    def _post(self) -> Tensor:
+        """A mesh step's second part: the guard, clip and Adam from the
+        summed values; returns the packed metrics."""
+        grads, aux = unflatten_reduced(self._flat, *self._reduced_like,
+                                       self._mesh.size)
+        params, opt, metrics = _step_apply(self._params, self._opt,
+                                           self._lr, grads, aux)
+        return self._store(params, opt, metrics)
 
     def _unpack(self, packed: Tensor) -> Dict[str, Tensor]:
         return dict(zip(self.metric_names, packed.clone().unbind()))
@@ -359,10 +497,14 @@ class GraphedUpdateStep(StaticUpdateStep):
     hold ``launches.capture_lock``, and the launches its wrappers counted
     during the capture are added again on every replay, so
     ``kernel_launches()`` stays a count of kernels run. That replays run
-    them is shown by the profiler (chip_smoke.py's training phase)."""
+    them is shown by the profiler (chip_smoke.py's training phase).
+
+    On a ``mesh`` of more than one rank a signature has two graphs,
+    :meth:`_pre`'s and :meth:`_post`'s, and a call replays the first, runs
+    the collective and replays the second."""
 
     def __init__(self, module: torch.nn.Module, cfg: LossConfig,
-                 state: TrainState):
+                 state: TrainState, mesh=None):
         devices = {t.device.type for t in list(module.parameters())
                    + list(state.params.values()) + [state.steps]}
         if devices != {'cuda'}:
@@ -370,16 +512,17 @@ class GraphedUpdateStep(StaticUpdateStep):
                              'module and the state on a CUDA device, got %s; '
                              'build_update_step runs on the CPU'
                              % sorted(devices))
-        super().__init__(module, cfg, state)
-        # signature -> its graph (its output, the packed metrics)
-        self._graphs: Dict[Tuple, CountedGraph] = {}
+        super().__init__(module, cfg, state, mesh)
+        # signature -> its graph (its output, the packed metrics), or on a
+        # mesh its two graphs (before and after the collective)
+        self._graphs: Dict[Tuple, Any] = {}
 
     @property
     def captures(self) -> int:
         """Graphs captured so far (one a batch signature)."""
         return len(self._graphs)
 
-    def _capture(self, key: Tuple) -> CountedGraph:
+    def _capture(self, key: Tuple):
         batch = self._batches[key]
         side = torch.cuda.Stream(self._device)
 
@@ -395,8 +538,13 @@ class GraphedUpdateStep(StaticUpdateStep):
             with torch.no_grad():
                 for t, s in zip(self._buffers(), saved):
                     t.copy_(s)
-        self._graphs[key] = CountedGraph(lambda: self._body(batch), side,
-                                         warmup=warmup)
+        if self._mesh is None:
+            self._graphs[key] = CountedGraph(lambda: self._body(batch), side,
+                                             warmup=warmup)
+        else:
+            self._graphs[key] = (
+                CountedGraph(lambda: self._pre(batch), side, warmup=warmup),
+                CountedGraph(self._post, side))
         return self._graphs[key]
 
     def _buffers(self):
@@ -408,7 +556,12 @@ class GraphedUpdateStep(StaticUpdateStep):
                  ) -> Dict[str, Tensor]:
         key = self._load(batch, lr)
         graph = self._graphs.get(key) or self._capture(key)
-        return self._unpack(graph.replay())
+        if self._mesh is None:
+            return self._unpack(graph.replay())
+        pre, post = graph
+        pre.replay()
+        self._reduce()
+        return self._unpack(post.replay())
 
 
 class ReplayUpdateStep(StaticUpdateStep):
@@ -425,17 +578,24 @@ class ReplayUpdateStep(StaticUpdateStep):
     On a CUDA device one step (draw, gather, lr, body, the metrics' running
     sum) is one CUDA graph, replayed K times a call; the first step ever
     runs eagerly (``ops.graphs.CapturedCall``). On the CPU the same
-    step runs eagerly. Call :meth:`bind` before :meth:`run`."""
+    step runs eagerly. Call :meth:`bind` before :meth:`run`.
+
+    On a ``mesh`` of more than one rank (the sharded fused loop: B is this
+    rank's slice, the ring this rank's) a step is two graphs, the draw,
+    gather, lr and :meth:`_pre`, then :meth:`_post` and the running sum,
+    with the collective between: K steps a call are 2K replays and K
+    collectives."""
 
     def __init__(self, module: torch.nn.Module, cfg: LossConfig,
-                 state: TrainState, default_lr: float = 3e-8):
-        super().__init__(module, cfg, state)
+                 state: TrainState, default_lr: float = 3e-8, mesh=None):
+        super().__init__(module, cfg, state, mesh)
         self.default_lr = float(default_lr)
         dev = self._device
         self._ema = torch.zeros((), dtype=torch.float32, device=dev)
         self._sum = None
         self._given = None
         self._call = None
+        self._call_post = None
         # the slots the last step drew (B,), rewritten by every step
         self.last_slots: Optional[Tensor] = None
 
@@ -449,9 +609,12 @@ class ReplayUpdateStep(StaticUpdateStep):
         self._size, self._cursor = size, cursor
         self.capacity, self.batch_size = int(capacity), int(batch_size)
         self._generator = generator
-        self._call = CapturedCall(self._one, self._device,
-                                  [generator] if generator is not None
-                                  else [])
+        gens = [generator] if generator is not None else []
+        if self._mesh is None:
+            self._call = CapturedCall(self._one, self._device, gens)
+        else:
+            self._call = CapturedCall(self._one_pre, self._device, gens)
+            self._call_post = CapturedCall(self._one_post, self._device)
 
     def gather(self, slots: Tensor) -> Dict[str, Tensor]:
         """The batch of ring rows ``slots`` (B,), each leaf (B,) + its
@@ -460,6 +623,20 @@ class ReplayUpdateStep(StaticUpdateStep):
                 for k, rows in self._ring.items()}
 
     def _one(self) -> Tensor:
+        packed = self._body(self._draw())
+        self._accumulate(packed)
+        return packed
+
+    def _one_pre(self) -> None:
+        self._pre(self._draw())
+
+    def _one_post(self) -> Tensor:
+        packed = self._post()
+        self._accumulate(packed)
+        return packed
+
+    def _draw(self) -> Dict[str, Tensor]:
+        """The step's slots, its batch gathered from the ring, and its lr."""
         from .replay import recency_slots
         if self._given is not None:
             slots = self._given
@@ -474,12 +651,13 @@ class ReplayUpdateStep(StaticUpdateStep):
             self.last_slots.copy_(slots)
             self._lr.copy_(self._ema * self.default_lr
                            / (1 + self._steps.float() * 1e-5))
-        packed = self._body(batch)
+        return batch
+
+    def _accumulate(self, packed: Tensor) -> None:
         with torch.no_grad():
             if self._sum is None:   # the first step, which runs eagerly
                 self._sum = torch.zeros_like(packed)
             self._sum.add_(packed)
-        return packed
 
     def run(self, num_steps: int, data_cnt_ema: float,
             slots: Optional[Tensor] = None) -> Tensor:
@@ -497,6 +675,9 @@ class ReplayUpdateStep(StaticUpdateStep):
         for i in range(num_steps):
             self._given = slots[i] if slots is not None else None
             self._call()
+            if self._call_post is not None:
+                self._reduce()
+                self._call_post()
         self._given = None
         return self._sum
 

@@ -93,6 +93,25 @@ then a ``preempted`` row, and the CLI exits 75 (``restart_epoch: -1``
 resumes); ``keep_checkpoints`` retention; the registry publish hook
 (``serving.publish``); the ``init_params`` warm start; the
 ``HANDYRL_TPU_CHAOS`` drills (``preempt``, ``nanstep``/``nanepoch``).
+Every checkpoint and trainer state gets the JAX package's ``.layout``
+manifest (``parallel/partition.checkpoint_layout``); at resume a corrupt
+one disqualifies its pair, a missing one loads as legacy, and one written
+under another mesh prints the ``mesh-portable restore`` line.
+
+The data-parallel plane (``parallel/``; ``train_args.distributed`` or the
+JAX package's ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/
+``JAX_PROCESS_ID``): one learner process a rank, one card a rank
+(``--device cuda`` is card ``process_id % device_count``), joined by
+:func:`_init_multihost` before anything else. Over W > 1 ranks the fused
+loop runs sharded (each rank ``generation_envs / W`` envs, its ring slice
+and ``batch_size / W`` windows a step; the update step sums the grads over
+the ranks), the evaluator's envs too, and every decision that ends or
+pauses the loop is taken in lockstep: from the global packed fetch (the
+warm-up, the epoch's close, the epochs reached, the guard) or agreed at
+the dispatch boundary (the deadline, a preemption on any rank). Rank 0
+alone writes the run directory. The other paths (the host learner, the
+split and threaded replay paths, the worker plane, ``--server``) raise
+over ranks (:func:`refuse_world_path`, ROADMAP.md section 1 item 5a-ii).
 
 Kernel launches are counted by path (``ops.launches``): 'generation' and
 'evaluation' run K1's serving form in the main thread, 'training' K1's
@@ -133,6 +152,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import hashlib
 import json
 import os
 import queue
@@ -150,7 +170,7 @@ import torch
 from . import guard as guard_mod
 from . import league as league_mod
 from . import telemetry
-from .config import apply_defaults, parse_epoch_set
+from .config import ConfigError, apply_defaults, parse_epoch_set
 from .environment import make_env
 from .connection import RESUME_KIND, pack as conn_pack, unpack as conn_unpack
 from .fault import FleetController, LedgerJournal, TaskLedger
@@ -176,9 +196,14 @@ from .ops.train_step import (GraphedUpdateStep, ReplayUpdateStep,
 from .utils import flax_msgpack
 from .spool import EpisodeSpool
 from .streaming import ChunkAssembler, chunk_key
+from .parallel import multihost
+from .parallel.partition import (DEFAULT_RULES, checkpoint_layout,
+                                 describe_mesh)
 from .utils.fs import (append_jsonl, atomic_write_bytes,
-                       checksummed_write_bytes, read_verified_bytes,
-                       rotate_file, sidecar_path, verify_checkpoint)
+                       checksummed_write_bytes, layout_path,
+                       read_layout_manifest, read_verified_bytes,
+                       rotate_file, sidecar_path, verify_checkpoint,
+                       write_layout_manifest)
 from .utils.timing import StageTimer
 from .ops.device_windows import flatten_window_keys
 from .utils.tree import map_structure, map_zip
@@ -301,6 +326,40 @@ def ingest_layout(args: Dict[str, Any]) -> Optional[str]:
     if simult != bool(args['turn_based_training']):
         return 'solo' if simult else 'turn'
     return None
+
+
+# the part of the data-parallel plane not ported yet
+WORLD_PENDING = 'ROADMAP.md section 1 item 5a-ii'
+
+
+def refuse_world_path(args: Dict[str, Any], remote: bool, world: int):
+    """A world of more than 1 trains on the sharded fused loop alone (a
+    device ingest layout, ``fused_pipeline``, and ``generation_envs`` and
+    ``batch_size`` that divide over the ranks): the paths that step from
+    the host's batch supply need a lockstep of their own, so each raises
+    a :class:`ConfigError` naming it and :data:`WORLD_PENDING`."""
+    if remote:
+        part = '--server (the worker plane serving worker hosts)'
+    elif not args['batched_generation']:
+        part = ("the worker plane's local cluster "
+                '(batched_generation: false)')
+    elif ingest_layout(args) is None:
+        part = ('the split path (device_generation without device ingest)'
+                if args['device_generation'] else
+                "the host learner's batched path")
+    elif not args['fused_pipeline']:
+        part = ('the threaded replay trainer (fused_pipeline: false, '
+                'DeviceReplay over a mesh)')
+    elif args['generation_envs'] % world or args['batch_size'] % world:
+        part = ('the split and threaded paths the JAX learner takes when '
+                'generation_envs %d and batch_size %d do not divide over '
+                '%d devices' % (args['generation_envs'], args['batch_size'],
+                                world))
+    else:
+        return
+    raise ConfigError('a world of %d ranks trains on the sharded fused loop '
+                      'only; %s over ranks is %s, not ported yet'
+                      % (world, part, WORLD_PENDING))
 
 
 def loss_config(args: Dict[str, Any]) -> LossConfig:
@@ -574,6 +633,29 @@ class Trainer:
             1, int(stm.get('target_sync_epochs') or 1))
         self._target_age_epochs = 0
         self._target_stale = True      # synced at the next epoch's start
+        # the mesh (handyrl_tpu/train.py:365-389): the 'data' axis is the
+        # ranks of the torch.distributed job (parallel/multihost.py), one
+        # device a rank; a world of 1 trains on its one device, no mesh
+        par = args.get('parallel') or {}
+        model_parallel = max(1, int(par.get('model_parallel') or 1))
+        n_dev = multihost.process_count()
+        self.mesh = None
+        if n_dev > 1:
+            data_size = n_dev // model_parallel
+            if n_dev % model_parallel != 0:
+                _LOG.warning('parallel.model_parallel %d does not divide '
+                             '%d devices; training on a single device',
+                             model_parallel, n_dev)
+            elif args['batch_size'] % data_size == 0:
+                from .parallel.mesh import make_mesh
+                self.mesh = make_mesh(model_parallel=model_parallel)
+            else:
+                _LOG.warning('batch_size %d not divisible by the %d-way '
+                             'data axis; training on a single device',
+                             args['batch_size'], data_size)
+        # every leaf replicated (pure data parallelism): what the layout
+        # manifests of the checkpoints describe
+        self.partition_rules = DEFAULT_RULES
         # the device ring (device_replay): the fused loop's pipeline binds
         # the K-step update to its ring (ops/fused_pipeline.py); the
         # threaded replay trainer binds it at its first dispatch to the
@@ -589,7 +671,7 @@ class Trainer:
                                if ingest_layout(args) == 'turn' else self.cfg)
             self.update_step = ReplayUpdateStep(
                 module, self.device_cfg, init_train_state(module),
-                self.default_lr)
+                self.default_lr, mesh=self.mesh)
             self.replay = DeviceReplay(ring_capacity(args), self.device)
             self.fused_steps = int(args['replay_fused_steps'])
             self.replay_stats = {'dropped_episodes': 0,
@@ -1292,6 +1374,14 @@ class Learner:
         self._deadline = float(os.environ.get('HANDYRL_TPU_DEADLINE', 0)
                                or 0)
         self.model_dir = args.get('model_dir', 'models')
+        # the data-parallel job (parallel/multihost.py): every rank runs
+        # this learner in lockstep; rank 0 alone writes the run directory
+        # (checkpoints, manifests, metrics rows, the registry), the other
+        # ranks hold bit-identical params and write nothing there
+        self._world = multihost.process_count()
+        self._writes = multihost.is_coordinator()
+        if self._world > 1:
+            refuse_world_path(args, remote, self._world)
 
         if net is None:
             net = self.env.net()
@@ -1397,6 +1487,11 @@ class Learner:
         if resume:
             self._load_resume_state()
         self._steps_at_last_row = self.trainer.steps
+        # the digest of the params at the run's end (a job of several
+        # ranks: each rank's, to show they stayed bit-identical)
+        self._params_digest: Optional[str] = None
+        if self._world > 1:
+            self._check_ranks_agree()
 
         # the league (handyrl_tpu/train.py:1297-1325): the pool, the rating
         # book (reloaded from its journal) and the tally of opponents
@@ -1482,6 +1577,18 @@ class Learner:
         # it runs, and its dispatches after
         self._generator = None
         self._gen_dispatches = None
+
+    def _check_ranks_agree(self):
+        """Every rank of the job starts from the same epoch, steps and
+        params (they read one run directory, or start from one seed), or
+        the run stops here instead of training apart."""
+        mine = (self.model_epoch, self.trainer.steps,
+                params_digest(self.trainer.host_params()))
+        ranks = multihost.all_gather_object(mine)
+        if any(r != ranks[0] for r in ranks):
+            raise RuntimeError('the ranks start from different states '
+                               '(epoch, steps, params digest by rank): %s'
+                               % (ranks,))
 
     # -- the durable training plane ----------------------------------------
     def _load_durable_state(self):
@@ -1662,9 +1769,10 @@ class Learner:
                      state_blob: Optional[bytes] = None, bump: bool = True):
         """Advance the model epoch (unless ``bump`` is False: the final
         flush rewrites the current epoch's files) and write its checkpoint
-        files (atomic, each with a CRC32 sidecar), publish them and run the
-        retention GC; with ``params`` None (the fused loop's epochs between
-        ``checkpoint_interval`` writes) only advance."""
+        files (atomic, each with a CRC32 sidecar and a layout manifest),
+        publish them and run the retention GC; with ``params`` None (the
+        fused loop's epochs between ``checkpoint_interval`` writes) only
+        advance. In a job of several ranks the coordinator alone writes."""
         print('updated model(%d)' % steps)
         if bump:
             self.model_epoch += 1
@@ -1677,13 +1785,24 @@ class Learner:
         self._last_ckpt_epoch = self.model_epoch
         self._last_ckpt_steps = steps
         self.params = params
+        if not self._writes:
+            return
         os.makedirs(self.model_dir, exist_ok=True)
         raw = params_bytes(self.module, params)
+        # the mesh-layout manifest rides beside each file (handyrl_tpu/
+        # train.py:1604-1619): the state is full host arrays, so it
+        # restores under any rank count, and the manifest records what
+        # wrote it, so the change is logged; a corrupt one disqualifies
+        # the pair at resume like a bad CRC
+        layout = checkpoint_layout(self.trainer.mesh,
+                                   self.trainer.partition_rules, steps=steps)
         for path in (self.model_path(self.model_epoch),
                      self.latest_model_path()):
             checksummed_write_bytes(path, raw)
+            write_layout_manifest(path, layout)
         if state_blob is not None:
             checksummed_write_bytes(self.trainer_state_path(), state_blob)
+            write_layout_manifest(self.trainer_state_path(), layout)
         # publish before the GC: a version the registry is about to pin
         # must be pinned by the time the GC reads the manifest
         self._publish_checkpoint(steps)
@@ -1811,7 +1930,7 @@ class Learner:
                 continue
             if apath in protected:
                 continue
-            for p in (path, sidecar_path(path)):
+            for p in (path, sidecar_path(path), layout_path(path)):
                 try:
                     os.unlink(p)
                 except OSError:
@@ -1878,7 +1997,7 @@ class Learner:
         over), the fleet's counts, the registry summaries (the learner's
         and, on the worker plane, the fleet's merged beacons), the alert
         block; the file rotates past ``telemetry.metrics_rotate_mb``."""
-        if not self._metrics_path:
+        if not self._metrics_path or not self._writes:
             return
         tr = self.trainer
         rec = {'epoch': self.model_epoch, 'steps': steps,
@@ -2053,6 +2172,13 @@ class Learner:
                 _LOG.error('discarding checkpoint %s: %s', path, reason)
                 telemetry.counter('guard_ckpt_fallbacks_total').inc()
                 continue
+            # a PRESENT but corrupt layout manifest disqualifies the pair
+            # exactly like a failed CRC (missing = legacy, loadable)
+            if read_layout_manifest(path)[1] == 'unparsable':
+                _LOG.error('discarding checkpoint %s: corrupt layout '
+                           'manifest', path)
+                telemetry.counter('guard_ckpt_fallbacks_total').inc()
+                continue
             try:
                 with open(path, 'rb') as f:
                     load_params_bytes(self.module, f.read())
@@ -2071,17 +2197,34 @@ class Learner:
 
     def _load_resume_state(self):
         """The optimizer state, steps and lr EMA from trainer_state.ckpt;
-        a missing, corrupt or undecodable file leaves them fresh."""
+        a missing, corrupt or undecodable file, or a corrupt layout
+        manifest beside it, leaves them fresh. A manifest written under
+        another mesh or process count prints the ``mesh-portable
+        restore`` line (handyrl_tpu/train.py:1250-1290)."""
         path = self.trainer_state_path()
         if not os.path.exists(path):
             return
         raw = read_verified_bytes(path)
+        layout, lreason = read_layout_manifest(path)
+        if lreason == 'unparsable':
+            # corrupt manifest = untrustworthy pair, same as a CRC failure
+            raw = None
         if raw is None:
             _LOG.error('discarding corrupt trainer_state.ckpt (checksum '
-                       'mismatch or truncation); the optimizer restarts '
-                       'fresh from the model checkpoint')
+                       'mismatch, truncation, or corrupt layout manifest); '
+                       'the optimizer restarts fresh from the model '
+                       'checkpoint')
             telemetry.counter('guard_ckpt_fallbacks_total').inc()
             return
+        here = checkpoint_layout(self.trainer.mesh,
+                                 self.trainer.partition_rules)
+        if layout is not None and (
+                layout.get('mesh') != here['mesh']
+                or layout.get('processes') != here['processes']):
+            print('mesh-portable restore: checkpoint written under %s (%d '
+                  'process(es)), restoring onto %s (%d process(es))'
+                  % (describe_mesh(layout), int(layout.get('processes') or 1),
+                     describe_mesh(here), here['processes']))
         try:
             self.trainer.load_state_bytes(raw)
         except (ValueError, KeyError, TypeError, RuntimeError) as exc:
@@ -2094,7 +2237,16 @@ class Learner:
 
     def _rollback_source(self) -> Optional[Tuple[int, bytes]]:
         """(epoch, trainer_state bytes) of the newest valid checkpoint pair
-        for the guard's rollback; None before the first checkpoint."""
+        for the guard's rollback; None before the first checkpoint. In a
+        job of several ranks (each takes the same rollback at the same
+        dispatch) the coordinator, which writes the files, reads them and
+        every rank restores its answer."""
+        if self._world > 1:
+            return multihost.broadcast_object(
+                self._read_rollback_source() if self._writes else None)
+        return self._read_rollback_source()
+
+    def _read_rollback_source(self) -> Optional[Tuple[int, bytes]]:
         blob = read_verified_bytes(self.trainer_state_path())
         if blob is None:
             return None
@@ -2298,7 +2450,11 @@ class Learner:
         self.epoch_losses = dict(self.trainer.last_losses)
 
     def _deadline_passed(self) -> bool:
-        return self._deadline > 0 and time.time() >= self._deadline
+        """The wall-clock budget spent; in a job of several ranks, spent on
+        any rank (one agreement over the ranks, who all ask at the same
+        dispatch)."""
+        return multihost.agree_any([self._deadline > 0
+                                    and time.time() >= self._deadline])[0]
 
     def _past_epoch_budget(self) -> bool:
         """True when the epoch budget or the wall-clock deadline
@@ -2308,10 +2464,18 @@ class Learner:
 
     def _stop_requested(self) -> bool:
         """The loops' safe point at the top of an iteration: the
-        wall-clock budget spent mid-epoch, or a preemption signal."""
-        if self._deadline_passed():
+        wall-clock budget spent mid-epoch, or a preemption signal. In a
+        job of several ranks both are agreed in one collective: a signal
+        to one rank stops every rank at the same dispatch, and each flushes
+        and exits 75 as if it had the signal."""
+        deadline, preempt = multihost.agree_any([
+            self._deadline > 0 and time.time() >= self._deadline,
+            self.preempt.requested()])
+        if preempt and not self.preempt.requested():
+            self.preempt.adopt()      # a peer rank's signal
+        if deadline:
             return True
-        if self.preempt.requested():
+        if preempt:
             _LOG.warning('preemption signal received; snapshotting and '
                          'exiting')
             return True
@@ -3064,17 +3228,21 @@ class Learner:
         if (args['device_eval'] and len(opponents) <= eval_envs
                 and all(o == 'random' or (o == 'rulebase' and rulebase)
                         or is_checkpoint_opponent(o) for o in opponents)):
+            # its envs sharded over the ranks beside the sharded fused
+            # loop (handyrl_tpu/train.py:2645-2660)
             return DeviceEvaluator(env_mod, self.actor.module, args,
                                    n_envs=eval_envs, chunk_steps=chunk_steps,
                                    seed=args['seed'] + 77,
-                                   opponents=opponents)
+                                   opponents=opponents,
+                                   mesh=self.trainer.mesh)
         env_args = args['env']
         return BatchedEvaluator(lambda i: make_env({**env_args, 'id': i}),
                                 self.actor, args, n_envs=eval_envs)
 
     def _windower(self, mode: str):
         """The device ingest's windower for layout ``mode``, sized by the
-        ring's budget."""
+        ring's budget: on a mesh each rank owns the budget / W rows
+        (handyrl_tpu/train.py:2669)."""
         from .environment import make_device_env
         from .ops.device_windows import DeviceWindower
         from .ops.replay import windows_per_episode
@@ -3085,7 +3253,8 @@ class Learner:
             max_steps=int(getattr(env_mod, 'MAX_STEPS',
                                   getattr(env_mod, 'MAX_PLIES', 256))),
             windows_cap=windows_per_episode(args),
-            capacity=ring_capacity(args), num_players=env_mod.NUM_PLAYERS,
+            capacity=max(1, ring_capacity(args) // self._world),
+            num_players=env_mod.NUM_PLAYERS,
             gamma=args['gamma'], has_reward=hasattr(env_mod, 'rewards'))
 
     def _run_fused(self, mode: str):
@@ -3104,16 +3273,24 @@ class Learner:
         chunk_steps = int(args['device_chunk_steps'])
         eval_envs = int(args.get('eval_envs')
                         or max(4, args['generation_envs'] // 8))
+        mesh = tr.mesh
+        if mesh is not None and eval_envs % mesh.size:
+            # eval_envs is only a throughput knob: rounded up to the mesh
+            # rather than disqualifying the sharded trainer
+            # (handyrl_tpu/train.py:2580-2586)
+            from .parallel.mesh import pad_to_multiple
+            eval_envs = pad_to_multiple(eval_envs, mesh.size)
         evaluator = self._device_evaluator(env_mod, eval_envs, chunk_steps)
         windower = self._windower(mode)
         print('fused device pipeline: rollout+ingest+train in one dispatch '
-              '(%s mode)' % mode)
+              '(%s mode%s)' % (mode, ', sharded over %d devices' % mesh.size
+                               if mesh is not None else ''))
         fp = FusedPipeline(
             env_mod, self.actor.module, tr.update_step, windower,
             n_envs=args['generation_envs'],
             chunk_steps=int(args['device_chunk_steps']),
             sgd_steps=sgd_steps_per_chunk(args),
-            batch_size=args['batch_size'], seed=args['seed'])
+            batch_size=args['batch_size'], seed=args['seed'], mesh=mesh)
         self._fused = fp
         self._evaluator = evaluator
         cadence = _EpochCadence(args)
@@ -3151,7 +3328,13 @@ class Learner:
                 fp.refresh_actor(tr.update_step.state.params)
                 actor_epoch = self.model_epoch
             epoch_of_dispatch.append(self.model_epoch)
-            warm = self.num_returned_episodes < args['minimum_episodes']
+            # on a mesh the warm-up also holds until EVERY rank's ring
+            # holds a window (an empty one would feed all-zero batches
+            # into the summed gradient), read from the global pack's
+            # minimum, one fetch behind (handyrl_tpu/train.py:2870-2875)
+            warm = (self.num_returned_episodes < args['minimum_episodes']
+                    or (mesh is not None and fp.dispatches > 0
+                        and fp.ring_min_host < 1))
             t0 = time.perf_counter()
             fetch0 = fp.fetch_seconds
             if warm:
@@ -3371,6 +3554,8 @@ class Learner:
                          type(exc).__name__, str(exc)[:120])
         if self._fused is not None:
             self._fused.release()
+        if self._world > 1 and self.trainer.update_step is not None:
+            self._params_digest = params_digest(self.trainer.host_params())
         if self._evaluator is not None:
             self._eval_dispatches = getattr(self._evaluator, 'dispatches',
                                             None)
@@ -3437,6 +3622,7 @@ class Learner:
             'shm': (tr.batcher.shm_summary() if not self._fused
                     and tr.batcher.mode == 'shared_memory' else None),
             **self._fused_summary(steps, train_s),
+            **self._mesh_summary(),
             **self._replay_summary(),
             **self._worker_summary(),
             **self._league_summary(),
@@ -3446,6 +3632,19 @@ class Learner:
                           'trace': self._trace_file,
                           'profiles': list(self.profiler.paths)},
         }
+
+    def _mesh_summary(self) -> Dict[str, Any]:
+        """A job of several ranks (none on one device): the mesh, this
+        rank, the collective's backend and times (``Mesh.
+        collective_stats``) and the digest of the params at the end."""
+        mesh = self.trainer.mesh
+        if mesh is None:
+            return {}
+        return {'mesh': {'shape': dict(mesh.shape), 'process': mesh.index,
+                         'processes': self._world,
+                         'writes_run_dir': self._writes,
+                         'params_sha256': self._params_digest,
+                         'collective': mesh.collective_stats()}}
 
     def _replay_summary(self) -> Dict[str, Any]:
         """The device paths other than the fused loop (none on the host
@@ -3511,6 +3710,42 @@ class Learner:
         }
 
 
+def params_digest(params: Dict[str, Tensor]) -> str:
+    """sha256 of the params' names and bytes, in name order."""
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(k.encode())
+        h.update(params[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _init_multihost(args: Dict[str, Any], device: Any = 'cuda'):
+    """Join the torch.distributed job when one is configured (the
+    ``train_args.distributed`` block, or the JAX package's variables
+    ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
+    ``JAX_PROCESS_ID``); a no-op on one process (handyrl_tpu/train.py:
+    3471-3490). Returns this rank's device (``multihost.rank_device``)
+    and whether a job is active; picks the update step's collective
+    backend for that device and prints the ``multi-host:`` line."""
+    dist = (args.get('train_args') or {}).get('distributed') or {}
+    active = multihost.initialize(
+        coordinator_address=dist.get('coordinator_address'),
+        num_processes=dist.get('num_processes'),
+        process_id=dist.get('process_id'))
+    if not active:
+        return resolve_device(device), False
+    device = multihost.rank_device(device)
+    backend = (multihost.select_backend(device)
+               if multihost.process_count() > 1 else 'none')
+    print('multi-host: process %d of %d, %d global devices (%s, '
+          'collectives: %s%s)'
+          % (multihost.process_index(), multihost.process_count(),
+             multihost.process_count(), device, backend,
+             ', ' + multihost.backend_reason()
+             if multihost.backend_reason() else ''), flush=True)
+    return device, True
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog='python -m handyrl_tpu_torch.train',
@@ -3537,22 +3772,28 @@ def train_main(args: Dict[str, Any], device: Any = 'cuda',
     """Train on ``device`` from ``args`` (as :func:`apply_defaults` gives
     them): the exit code, 75 after a preemption flush, 1 when training
     failed. ``server`` serves worker hosts (the JAX package's
-    ``train_server_main``)."""
-    device = resolve_device(device)
-    fp32_on_card(device)
-    reset_kernel_launches()
-    learner = Learner(args, device=device, remote=server)
-    learner.run()
-    print(json.dumps(learner.summary()), flush=True)
-    if learner.preempt.fired:
-        # the supervisor contract: restart into restart_epoch -1
-        return guard_mod.PREEMPT_EXIT_CODE
-    failed = (learner.trainer.failed_reason if learner.trainer.failed
-              else learner.fleet_failure)
-    if failed:
-        print('training failed: %s' % failed, file=sys.stderr, flush=True)
-        return 1
-    return 0
+    ``train_server_main``). A configured distributed job is joined first
+    and left at every exit."""
+    device, active = _init_multihost(args, device)
+    try:
+        fp32_on_card(device)
+        reset_kernel_launches()
+        learner = Learner(args, device=device, remote=server)
+        learner.run()
+        print(json.dumps(learner.summary()), flush=True)
+        if learner.preempt.fired:
+            # the supervisor contract: restart into restart_epoch -1
+            return guard_mod.PREEMPT_EXIT_CODE
+        failed = (learner.trainer.failed_reason if learner.trainer.failed
+                  else learner.fleet_failure)
+        if failed:
+            print('training failed: %s' % failed, file=sys.stderr,
+                  flush=True)
+            return 1
+        return 0
+    finally:
+        if active:
+            multihost.shutdown()
 
 
 if __name__ == '__main__':

@@ -1,7 +1,7 @@
-"""Crash-safe file writes with CRC32 sidecars, append-safe JSONL and
-CRC-framed records (the subset of ``handyrl_tpu/utils/fs.py`` the model
-registry, the learner's checkpoints and metrics rows, the episode spool
-and the ledger journal use).
+"""Crash-safe file writes with CRC32 sidecars, layout manifests, append-safe
+JSONL and CRC-framed records (the subset of ``handyrl_tpu/utils/fs.py`` the
+model registry, the learner's checkpoints and metrics rows, the episode
+spool and the ledger journal use).
 
 Writes go to a temp file in the SAME directory (os.replace must not cross
 filesystems), are fsynced, then atomically renamed over the target, so a
@@ -90,6 +90,41 @@ def read_verified_bytes(path: str):
     the sidecar checksum (files without a sidecar pass)."""
     ok, _reason, data = _verify(path)
     return data if ok else None
+
+
+def layout_path(path: str) -> str:
+    """The mesh-layout manifest that rides next to a checkpoint file (on
+    top of the CRC sidecar): one JSON dict describing the mesh shape,
+    device/process counts and partition rules the checkpoint was written
+    under (``parallel/partition.checkpoint_layout``)."""
+    return path + '.layout'
+
+
+def write_layout_manifest(path: str, layout: dict):
+    """Atomically publish ``path``'s layout manifest. Written AFTER the
+    data + CRC pair so a crash can only leave a stale manifest, which
+    reads as unparsable-or-missing, never as a wrong-but-plausible one."""
+    atomic_write_bytes(layout_path(path),
+                       (json.dumps(layout) + '\n').encode('utf-8'))
+
+
+def read_layout_manifest(path: str):
+    """(layout-dict-or-None, reason) for ``path``'s mesh-layout manifest.
+
+    reason is 'ok', 'missing' (a legacy checkpoint: loadable, layout
+    unknown) or 'unparsable' (a PRESENT but corrupt manifest: the
+    checkpoint pair cannot be trusted; resume falls back through the
+    newest-valid path exactly like a CRC failure)."""
+    try:
+        with open(layout_path(path), 'r') as f:
+            layout = json.load(f)
+    except OSError:
+        return None, 'missing'
+    except ValueError:
+        return None, 'unparsable'
+    if not isinstance(layout, dict) or 'format' not in layout:
+        return None, 'unparsable'
+    return layout, 'ok'
 
 
 def rotate_file(path: str, max_mb: float) -> bool:

@@ -234,8 +234,9 @@ def test_north_star_resumes_from_its_newest_checkpoint(tmp_path, monkeypatch,
     assert line['row'] == 'north-star-torch-device' and line['epochs'] == 4
     rows = [json.loads(l) for l in open(tmp_path / 'm.jsonl')]
     assert [r['epoch'] for r in rows] == [1, 2, 3, 4]
-    assert sorted(os.listdir(tmp_path / 'm'))[:4] == [
-        '2.ckpt', '2.ckpt.crc', '3.ckpt', '3.ckpt.crc']
+    assert sorted(os.listdir(tmp_path / 'm'))[:6] == [
+        '2.ckpt', '2.ckpt.crc', '2.ckpt.layout', '3.ckpt', '3.ckpt.crc',
+        '3.ckpt.layout']
 
 
 def test_curves_script_reads_both_packages_curves(capsys):

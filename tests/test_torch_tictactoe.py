@@ -226,8 +226,8 @@ def test_config_defaults_to_tictactoe_like_the_reference():
       'generation': {'backend': 'engine'},
       'serving': {'fleet': {'resolver': 'localhost:9000'},
                   'gateway': {'metrics_port': 9102}},
-      'distributed': {'num_processes': 2}},
-     ('train_args.distributed.num_processes', 'the distributed plane')),
+      'parallel': {'model_parallel': 2}},
+     ('train_args.parallel.model_parallel', 'the parallel plane')),
     ({'device_generation': True, 'device_replay': True,
       'generation': {'backend': 'device'}, 'league': {'enabled': True}},
      ('league.enabled requires serving.publish',)),
@@ -242,10 +242,10 @@ def test_tictactoe_on_the_device_path_names_what_is_missing(train_args,
     """TicTacToe runs the fused loop in the 'turn' layout, every other
     device combination, the device actor and engine backends (a serving
     fleet's resolver and the serving tier's exporter ports too); the
-    planes the JAX package has and the port not yet (mesh parallelism,
-    the distributed runtime) still raise, naming them, as do the league
-    without the registry it draws from and an engine backend the JAX
-    config refuses."""
+    plane the JAX package has and the port not yet (tensor parallelism,
+    ``parallel.model_parallel`` above 1) still raises, naming it, as do
+    the league without the registry it draws from and an engine backend
+    the JAX config refuses."""
     with pytest.raises(ConfigError) as exc:
         apply_defaults({'env_args': {'env': 'TicTacToe'},
                         'train_args': train_args})
