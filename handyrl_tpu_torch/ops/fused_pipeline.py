@@ -44,13 +44,15 @@ outcome are (K, N) and (K, N, P) of every env, the ring's size is summed,
 its minimum over the ranks kept (the warm-up holds until every rank's
 ring holds a window) and the windows ingested summed, as JAX's
 ``psum``/``pmin`` (:278-294 there); every rank's learner then counts the
-same episodes and closes the same epochs.
+same episodes and closes the same epochs. The learner's stop flags (the
+deadline, a preemption signal) ride the same gather, ORed over the ranks
+(:attr:`FusedPipeline.agreed_flags`).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -130,6 +132,12 @@ class FusedPipeline:
         self.ring_size_host = 0          # summed over the ranks
         self.ring_min_host = 0           # the smallest rank's
         self.windows_ingested_host = 0   # cumulative, past the ring's wraps
+        # on a mesh, host flags (a callable's bools, read at the parse)
+        # ride the gathered pack and are ORed over the ranks: how the
+        # learner's stop decisions land at the same dispatch on every rank
+        # without a collective of their own
+        self.host_flags = None
+        self.agreed_flags: Tuple[bool, ...] = ()
         self.fetch_seconds = 0.0   # the host's waits on the packed fetches
 
     @torch.no_grad()
@@ -173,7 +181,13 @@ class FusedPipeline:
         packs = [flat]
         if self.mesh is not None:
             from ..parallel.multihost import all_gather_host
-            packs = all_gather_host(flat)
+            mine = np.asarray(self.host_flags() if self.host_flags else (),
+                              flat.dtype)
+            packs = all_gather_host(np.concatenate([flat, mine]))
+            self.agreed_flags = tuple(
+                bool(v) for v in np.max([f[flat.size:] for f in packs],
+                                        axis=0))
+            packs = [f[:flat.size] for f in packs]
         # each rank's envs are its rows of the global env axis
         done = np.concatenate([f[:K * N].reshape(K, N) for f in packs],
                               axis=1) > 0.5

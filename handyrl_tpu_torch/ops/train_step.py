@@ -325,9 +325,9 @@ class StaticUpdateStep:
     losses, grads, written into one flat buffer), the collective that
     sums that buffer over the ranks (:meth:`_reduce`), and :meth:`_post`
     (the guard, clip and Adam from the sums); a CUDA graph cannot hold a
-    collective staged through the host, so the graphed forms capture
-    :meth:`_pre` and :meth:`_post` as two graphs and run the collective
-    between their replays."""
+    collective staged through the host, so :class:`ReplayUpdateStep`
+    captures :meth:`_pre` and :meth:`_post` as two graphs and runs the
+    collective between their replays."""
 
     def __init__(self, module: torch.nn.Module, cfg: LossConfig,
                  state: TrainState, mesh=None):
@@ -499,12 +499,12 @@ class GraphedUpdateStep(StaticUpdateStep):
     ``kernel_launches()`` stays a count of kernels run. That replays run
     them is shown by the profiler (chip_smoke.py's training phase).
 
-    On a ``mesh`` of more than one rank a signature has two graphs,
-    :meth:`_pre`'s and :meth:`_post`'s, and a call replays the first, runs
-    the collective and replays the second."""
+    It has no ``mesh``: no path over ranks runs the host-fed graphed step
+    (ROADMAP.md section 1 item 5a-ii); the fused loop's
+    :class:`ReplayUpdateStep` splits its graph at the collective."""
 
     def __init__(self, module: torch.nn.Module, cfg: LossConfig,
-                 state: TrainState, mesh=None):
+                 state: TrainState):
         devices = {t.device.type for t in list(module.parameters())
                    + list(state.params.values()) + [state.steps]}
         if devices != {'cuda'}:
@@ -512,9 +512,8 @@ class GraphedUpdateStep(StaticUpdateStep):
                              'module and the state on a CUDA device, got %s; '
                              'build_update_step runs on the CPU'
                              % sorted(devices))
-        super().__init__(module, cfg, state, mesh)
-        # signature -> its graph (its output, the packed metrics), or on a
-        # mesh its two graphs (before and after the collective)
+        super().__init__(module, cfg, state)
+        # signature -> its graph (its output, the packed metrics)
         self._graphs: Dict[Tuple, Any] = {}
 
     @property
@@ -538,13 +537,8 @@ class GraphedUpdateStep(StaticUpdateStep):
             with torch.no_grad():
                 for t, s in zip(self._buffers(), saved):
                     t.copy_(s)
-        if self._mesh is None:
-            self._graphs[key] = CountedGraph(lambda: self._body(batch), side,
-                                             warmup=warmup)
-        else:
-            self._graphs[key] = (
-                CountedGraph(lambda: self._pre(batch), side, warmup=warmup),
-                CountedGraph(self._post, side))
+        self._graphs[key] = CountedGraph(lambda: self._body(batch), side,
+                                         warmup=warmup)
         return self._graphs[key]
 
     def _buffers(self):
@@ -556,12 +550,7 @@ class GraphedUpdateStep(StaticUpdateStep):
                  ) -> Dict[str, Tensor]:
         key = self._load(batch, lr)
         graph = self._graphs.get(key) or self._capture(key)
-        if self._mesh is None:
-            return self._unpack(graph.replay())
-        pre, post = graph
-        pre.replay()
-        self._reduce()
-        return self._unpack(post.replay())
+        return self._unpack(graph.replay())
 
 
 class ReplayUpdateStep(StaticUpdateStep):

@@ -197,6 +197,7 @@ from .utils import flax_msgpack
 from .spool import EpisodeSpool
 from .streaming import ChunkAssembler, chunk_key
 from .parallel import multihost
+from .parallel.mesh import make_mesh, pad_to_multiple
 from .parallel.partition import (DEFAULT_RULES, checkpoint_layout,
                                  describe_mesh)
 from .utils.fs import (append_jsonl, atomic_write_bytes,
@@ -635,24 +636,10 @@ class Trainer:
         self._target_stale = True      # synced at the next epoch's start
         # the mesh (handyrl_tpu/train.py:365-389): the 'data' axis is the
         # ranks of the torch.distributed job (parallel/multihost.py), one
-        # device a rank; a world of 1 trains on its one device, no mesh
-        par = args.get('parallel') or {}
-        model_parallel = max(1, int(par.get('model_parallel') or 1))
-        n_dev = multihost.process_count()
-        self.mesh = None
-        if n_dev > 1:
-            data_size = n_dev // model_parallel
-            if n_dev % model_parallel != 0:
-                _LOG.warning('parallel.model_parallel %d does not divide '
-                             '%d devices; training on a single device',
-                             model_parallel, n_dev)
-            elif args['batch_size'] % data_size == 0:
-                from .parallel.mesh import make_mesh
-                self.mesh = make_mesh(model_parallel=model_parallel)
-            else:
-                _LOG.warning('batch_size %d not divisible by the %d-way '
-                             'data axis; training on a single device',
-                             args['batch_size'], data_size)
+        # device a rank; a world of 1 trains on its one device, no mesh.
+        # refuse_world_path has already refused what does not divide over
+        # the ranks, and config.py a 'model' axis (item 5b)
+        self.mesh = make_mesh() if multihost.process_count() > 1 else None
         # every leaf replicated (pure data parallelism): what the layout
         # manifests of the checkpoints describe
         self.partition_rules = DEFAULT_RULES
@@ -2462,15 +2449,22 @@ class Learner:
         return (0 <= self.args['epochs'] <= self.model_epoch
                 or self._deadline_passed())
 
-    def _stop_requested(self) -> bool:
+    def _stop_flags(self) -> List[bool]:
+        """This rank's (deadline spent, preemption signal)."""
+        return [self._deadline > 0 and time.time() >= self._deadline,
+                self.preempt.requested()]
+
+    def _stop_requested(self, agreed: Optional[Tuple[bool, ...]] = None
+                        ) -> bool:
         """The loops' safe point at the top of an iteration: the
         wall-clock budget spent mid-epoch, or a preemption signal. In a
-        job of several ranks both are agreed in one collective: a signal
-        to one rank stops every rank at the same dispatch, and each flushes
-        and exits 75 as if it had the signal."""
-        deadline, preempt = multihost.agree_any([
-            self._deadline > 0 and time.time() >= self._deadline,
-            self.preempt.requested()])
+        job of several ranks both are agreed over the ranks, as ``agreed``
+        (the sharded fused loop's, ORed in its gathered pack) or else in
+        one collective: a signal to one rank stops every rank at the same
+        dispatch, and each flushes and exits 75 as if it had the
+        signal."""
+        deadline, preempt = (agreed if agreed is not None else
+                             multihost.agree_any(self._stop_flags()))
         if preempt and not self.preempt.requested():
             self.preempt.adopt()      # a peer rank's signal
         if deadline:
@@ -3278,7 +3272,6 @@ class Learner:
             # eval_envs is only a throughput knob: rounded up to the mesh
             # rather than disqualifying the sharded trainer
             # (handyrl_tpu/train.py:2580-2586)
-            from .parallel.mesh import pad_to_multiple
             eval_envs = pad_to_multiple(eval_envs, mesh.size)
         evaluator = self._device_evaluator(env_mod, eval_envs, chunk_steps)
         windower = self._windower(mode)
@@ -3321,8 +3314,14 @@ class Learner:
                 self._fused_guard_observe(prev['metrics'], fp)
 
         self._run_started_at = time.time()
+        if mesh is not None:
+            # over ranks: the flags agreed in the last parse's gather (both
+            # False before the first, on every rank alike)
+            fp.host_flags = self._stop_flags
+            fp.agreed_flags = (False, False)
         while not self.shutdown_flag:
-            if self._stop_requested():
+            if self._stop_requested(fp.agreed_flags if mesh is not None
+                                    else None):
                 break
             if actor_epoch != self.model_epoch:
                 fp.refresh_actor(tr.update_step.state.params)

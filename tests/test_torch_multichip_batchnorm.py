@@ -7,7 +7,10 @@ slices on the two ranks, the averaged statistics equal the single-rank
 step's and the JAX step's under ``shard_map`` over two devices
 (``_update_core(axis_name='data')``) within rtol 1e-5 / atol 1e-6 (the
 same fp32 EMA; the two packages' batch moments are sums in other
-orders), and the params are bit-identical across the ranks."""
+orders), and the params are bit-identical across the ranks. On each rank the
+fused loop's form of the step, split at the collective
+(``StaticUpdateStep`` over the mesh), equals ``build_update_step``'s, the
+averaged statistics included, with ``torch.equal``."""
 
 from functools import partial
 
@@ -43,6 +46,7 @@ from handyrl_tpu_torch.parallel import multihost
 from handyrl_tpu_torch.parallel.mesh import make_mesh
 from handyrl_tpu_torch.models.geister import GeisterNet
 from handyrl_tpu_torch.ops import losses, train_step
+from handyrl_tpu_torch.ops.device_windows import flatten_window_keys
 
 assert multihost.initialize()
 multihost.select_backend(torch.device('cpu'))
@@ -55,6 +59,17 @@ step = train_step.build_update_step(net, losses.LossConfig(**inp['cfg']),
 # the same slice on both ranks
 state, metrics = step(train_step.init_train_state(net), inp['batch'],
                       torch.tensor(inp['lr']))
+# the fused loop's form of the step, split at the collective (_pre,
+# _reduce, _post on its own buffers; a dict observation under '.' keys)
+static = train_step.StaticUpdateStep(
+    net, losses.LossConfig(**inp['cfg']), train_step.init_train_state(net),
+    mesh=mesh)
+got = static(flatten_window_keys(inp['batch']), torch.tensor(inp['lr']))
+for k in state.params:
+    assert torch.equal(static.state.params[k], state.params[k]), k
+for k in metrics:
+    assert torch.equal(got[k], metrics[k]), k
+assert mesh.collectives == 2
 h = hashlib.sha1()
 for k in sorted(state.params):
     h.update(state.params[k].numpy().tobytes())

@@ -12,7 +12,11 @@ tolerances: the loss within rel 1e-5 and the params within rtol 2e-5,
 atol 1e-6 (the same fp32 sums in other orders: the ranks' two partial
 gradients summed by gloo, XLA's sharded reduction in the JAX step). A
 world of 1 through ``initialize`` is the plain step, equal with
-``torch.equal`` (no mesh, no collective)."""
+``torch.equal`` (no mesh, no collective). On each rank the fused loop's
+forms of the two-rank step, split at the collective
+(``StaticUpdateStep`` over a mesh, and ``ReplayUpdateStep.run`` over the
+rank's ring of B/2 rows), equal ``build_update_step``'s with
+``torch.equal``, which the JAX step holds."""
 
 import jax
 import jax.numpy as jnp
@@ -135,14 +139,40 @@ step = train_step.build_update_step(net, losses.LossConfig(**inp['cfg']),
                                     mesh=mesh)
 # this rank's half of the global batch
 local = shard_batch(mesh, inp['batch'])
-state, metrics = step(train_step.init_train_state(net), local,
-                      torch.tensor(inp['lr']))
+lr = torch.tensor(inp['lr'])
+state, metrics = step(train_step.init_train_state(net), local, lr)
+
+
+def same(params, got_metrics, what):
+    for k in state.params:
+        assert torch.equal(params[k], state.params[k]), (what, k)
+    for k in metrics:
+        assert torch.equal(got_metrics[k], metrics[k]), (what, k)
+
+
+# the fused loop's forms of the step, split at the collective: the static
+# step (_pre, _reduce, _post on its own buffers) ...
+cfg = losses.LossConfig(**inp['cfg'])
+static = train_step.StaticUpdateStep(net, cfg, train_step.init_train_state(net),
+                                     mesh=mesh)
+same(static.state.params, static(local, lr), 'static')
+# ... and the replay step's two captured calls over this rank's ring of
+# B/2 rows, its slots the ring's rows in order (lr = 1 x default_lr)
+b = local['value'].shape[0]
+ring = {k: v.reshape(b, -1).clone() for k, v in local.items()}
+spec = {k: (tuple(v.shape[1:]), v.dtype) for k, v in local.items()}
+replay = train_step.ReplayUpdateStep(net, cfg, train_step.init_train_state(net),
+                                     default_lr=inp['lr'], mesh=mesh)
+replay.bind(ring, spec, torch.tensor(b), torch.tensor(0), b, b, None)
+packed = replay.run(1, 1.0, slots=torch.arange(b)[None])
+same(replay.state.params, replay.unpack(packed), 'replay')
 h = hashlib.sha1()
 for k in sorted(state.params):
     h.update(state.params[k].numpy().tobytes())
 torch.save({'params': state.params,
             'metrics': {k: v.item() for k, v in metrics.items()}},
            %(out)r %% multihost.process_index())
+# one collective for each of the three steps
 print('OK', multihost.process_index(), int(state.steps), h.hexdigest(),
       mesh.collectives, flush=True)
 multihost.shutdown()
@@ -173,7 +203,7 @@ def test_two_rank_step_matches_the_jax_two_device_step(tmp_path):
     for pid, text in enumerate(outs):
         line = next(l for l in text.splitlines() if l.startswith('OK'))
         _, idx, steps, digest, collectives = line.split()
-        assert (int(idx), int(steps), int(collectives)) == (pid, 1, 1)
+        assert (int(idx), int(steps), int(collectives)) == (pid, 1, 3)
         rows.append(digest)
     # the replicated params are bit-identical on both ranks
     assert rows[0] == rows[1]
@@ -194,6 +224,15 @@ def test_two_rank_step_matches_the_jax_two_device_step(tmp_path):
     jparams = params_from_flax(jax.tree_util.tree_map(np.asarray,
                                                       jstate.params))
     for k, v in jparams.items():
+        np.testing.assert_allclose(got[0]['params'][k].numpy(), v.numpy(),
+                                   err_msg=k, **PARAM_TOL)
+    # and the port's one-rank step over the whole batch (the same
+    # tolerance: one gradient of 8 rows against two of 4 summed)
+    whole, wm = train_step.build_update_step(net, losses.LossConfig(**CFG))(
+        train_step.init_train_state(net), tbatch, torch.tensor(LR))
+    assert abs(got[0]['metrics']['total'] - float(wm['total'])) \
+        / abs(float(wm['total'])) < LOSS_REL
+    for k, v in whole.params.items():
         np.testing.assert_allclose(got[0]['params'][k].numpy(), v.numpy(),
                                    err_msg=k, **PARAM_TOL)
 
